@@ -11,19 +11,35 @@ Phases (any failure exits non-zero and prints no result line):
 3. kernels — each kernel at the serving width (43 fields x 16, vocab 2^20,
              3 cross layers, MLP 256/128/64) at buckets 256 and 2048, in
              bf16 and f32, held against its plain PyTorch version on the
-             same inputs, and timed beside it with CUDA events.
+             same inputs, and timed beside it three ways: `ms`, CUDA
+             events around one call (the wrapper's host time included, as
+             the serving path pays it); `loop_ms`, around runs of 50
+             back-to-back calls; `device_ms`, the device time of one call
+             from torch.profiler. The fused
+             serve step runs on the seed-0 demo weights (fused_serve) and
+             on their ops/quantize.py int8 tree (fused_serve_int8).
              Tolerances: fused serve scores 2e-5 (f32) / 5e-3 (bf16), and
-             5e-3 against model.apply in bf16; cross stack allclose with
-             rtol = atol = 1e-5 (f32) / 2e-2 (bf16).
+             5e-3 against model.apply (bf16 for float weights, both dtypes
+             on the int8 tree); cross stack allclose with rtol = atol =
+             1e-5 (f32) / 2e-2 (bf16). The int8 kernel's |dscore| against
+             the float model.apply is recorded, not gated (the autotune's
+             max_abs_delta gate reads it).
 4. serving — the gRPC server (configs/latency.toml buckets, full-width
              dcn_v2 demo servable on cuda) answers Predicts of 7, 1000 and
              2048 candidates over a 127.0.0.1 socket (through
              DynamicBatcher.submit when grpc/protobuf are missing); scores
              are held to the plain forward (model.apply) at 5e-3. A second
              server runs the `use_pallas_cross` configuration, whose
-             model.apply routes the cross stack through its kernel. The
-             kernels' launch counters are zeroed just before the requests
-             and must have moved by the end.
+             model.apply routes the cross stack through its kernel. A third,
+             `kernels_plane`, arms [kernels] (int8 quantization and the fused
+             kernel, JAX-default gates): its per-bucket autotune table is
+             printed, a fused variant that errored fails the run, and its
+             scores are held to model.apply on the tree each bucket's
+             decision picked; the same payloads then go through its
+             pallas_int8 entry (`_execute` with `_kernel_override=(True,
+             True)`), held to model.apply on the int8 tree. The kernels'
+             launch counters are zeroed just before the requests and must
+             all have moved by the end.
 
 Prints one `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
@@ -72,8 +88,10 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
-    """Median device time of one call, CUDA events around each call."""
+def call_ms(fn, iters: int = 30, warmup: int = 5) -> float:
+    """Time of one wrapper call as the serving path pays it: the median of
+    `iters` CUDA-event pairs, each around a single call, so the wrapper's
+    host time is in it where it exceeds the kernel's."""
     import torch
 
     for _ in range(warmup):
@@ -91,6 +109,68 @@ def time_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def loop_ms(fn, iters: int = 50, runs: int = 3, warmup: int = 5) -> float:
+    """Time of one call in a run of `iters` back-to-back calls: CUDA events
+    around the run, over the count; the median of `runs` runs. Launches
+    overlap the previous call's kernel, so the wrapper's host time drops
+    out where the kernel takes longer."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / iters)
+    return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
+    """Device time of one call from torch.profiler: the summed device time
+    of every kernel the call launched, over the count. A profile that saw
+    no device time at all (the tracer dropped the window) is taken again;
+    one that never does fails the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(
+            getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            for e in prof.key_averages()
+        )
+        if busy_us > 0:
+            return busy_us / iters / 1e3
+    fail(f"torch.profiler recorded no device time in {attempts} profiles of {iters} calls")
+
+
+def timings(fn, plain_fn) -> dict:
+    """The kernel's and its plain version's times, three ways each: one
+    call (`ms`, as the serving path pays it), back to back (`loop_ms`), and
+    the device time from the profiler (`device_ms`)."""
+    return {
+        "ms": call_ms(fn), "plain_ms": call_ms(plain_fn),
+        "loop_ms": loop_ms(fn), "plain_loop_ms": loop_ms(plain_fn),
+        "device_ms": device_ms(fn), "plain_device_ms": device_ms(plain_fn),
+    }
+
+
+def fmt_times(t: dict) -> str:
+    return " ".join(f"{k}={v:.4f}" for k, v in t.items())
+
+
 def allclose_excess(got, want, tol: float) -> float:
     """max(|got - want| - tol * |want|): <= tol means allclose(rtol=atol=tol)."""
     g, w = got.float(), want.float()
@@ -99,18 +179,23 @@ def allclose_excess(got, want, tol: float) -> float:
 
 def serve_cost(n: int, ids, sw, cd: str) -> tuple[float, float]:
     """(bytes, flops) the fused serve step needs for these inputs: each
-    input read once (only the table rows these ids touch), each output
-    written once; matmul + elementwise operations."""
+    input read once (only the table rows these ids touch; weights at their
+    own width, 1 byte for int8 plus the f32 scales), each output written
+    once; matmul + elementwise operations (+ the scale multiplies)."""
     import torch
 
     d, D = sw.d, sw.embed_dim
+    L = sw.wc.shape[0]
     rows = torch.unique(ids).numel()
     e = 2 if cd == "bfloat16" else 4
     nbytes = ids.numel() * 4 + ids.numel() * e + rows * D * 4
-    nbytes += sw.wc.numel() * e + sw.bc.numel() * 4
-    flops = 2.0 * n * d * d * sw.wc.shape[0] + 3.0 * n * d * sw.wc.shape[0]
+    nbytes += sw.wc.numel() * sw.wc.element_size() + sw.bc.numel() * 4
+    flops = 2.0 * n * d * d * L + 3.0 * n * d * L
+    if sw.quantized:
+        nbytes += sw.sc.numel() * 4 + sum(s.numel() * 4 for s in sw.ms)
+        flops += n * d * L + n * sum(w.shape[1] for w, _ in sw.mlp)
     for w, b in sw.mlp:
-        nbytes += w.numel() * e + b.numel() * 4
+        nbytes += w.numel() * w.element_size() + b.numel() * 4
         flops += 2.0 * n * w.shape[0] * w.shape[1] + 2.0 * n * w.shape[1]
     nbytes += sw.wo.numel() * 4 + 4 + 2 * n * 4
     flops += 2.0 * n * sw.wo.numel() + n * (d + 4)
@@ -136,13 +221,16 @@ def phase_kernels(dev) -> dict:
     from distributed_tf_serving_tpu_torch.models import ModelConfig, build_model
     from distributed_tf_serving_tpu_torch.models.embeddings import field_embed
     from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.ops.quantize import quantize_params
 
-    rows = {"fused_serve": [], "fused_cross_apply": []}
+    rows = {"fused_serve": [], "fused_serve_int8": [], "fused_cross_apply": []}
     for cd in ("bfloat16", "float32"):
         cfg = ModelConfig(compute_dtype=cd)
         model = build_model("dcn_v2", cfg)
         params = model.init(SEED, dev)
+        qparams = quantize_params(params)
         sw = ck.build_fused_serve(params, cfg).serve_weights
+        swq = ck.build_fused_serve(qparams, cfg).serve_weights
         wts_dtype = cfg.cdtype  # the transfer spec ships bf16 weights for bf16 models
         for n in BUCKETS:
             g = torch.Generator(device="cpu").manual_seed(SEED + n)
@@ -163,16 +251,44 @@ def phase_kernels(dev) -> dict:
             err_apply = (out["prediction_node"] - app["prediction_node"]).abs().max().item()
             if cd == "bfloat16" and err_apply > APPLY_TOL:
                 fail(f"fused_serve bf16 n={n}: max |dscore| vs model.apply {err_apply} > {APPLY_TOL}")
-            ms = time_ms(lambda: ck.fused_serve(ids, wts, sw))
-            plain_ms = time_ms(lambda: ck.fused_serve_reference(ids, wts, sw))
+            t = timings(lambda: ck.fused_serve(ids, wts, sw),
+                        lambda: ck.fused_serve_reference(ids, wts, sw))
             b_ms, b_by = bound(*serve_cost(n, ids, sw, cd), cd)
             rows["fused_serve"].append({
                 "dtype": cd, "n": n, "max_abs_err": err, "tol": SERVE_TOL[cd],
-                "max_abs_err_vs_model_apply": err_apply,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "max_abs_err_vs_model_apply": err_apply, **t,
+                "bound_ms": b_ms, "bound_by": b_by,
             })
             log(f"kernels: fused_serve {cd} n={n} err={err:.3g} vs_apply={err_apply:.3g} "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+                f"{fmt_times(t)} bound_ms={b_ms:.5f} ({b_by})")
+
+            # The int8 variant on the quantized tree.
+            outq = ck.fused_serve(ids, wts, swq)
+            torch.cuda.synchronize()
+            refq = ck.fused_serve_reference(ids, wts, swq)
+            errq = (outq["prediction_node"] - refq["prediction_node"]).abs().max().item()
+            if not torch.isfinite(outq["logits"]).all():
+                fail(f"fused_serve_int8 {cd} n={n}: non-finite logits")
+            if errq > SERVE_TOL[cd]:
+                fail(f"fused_serve_int8 {cd} n={n}: max |dscore| {errq} > {SERVE_TOL[cd]}")
+            appq = model.apply(qparams, {"feat_ids": raw.to(dev), "feat_wts": wts})
+            errq_apply = (outq["prediction_node"] - appq["prediction_node"]).abs().max().item()
+            if errq_apply > APPLY_TOL:
+                fail(f"fused_serve_int8 {cd} n={n}: max |dscore| vs model.apply on the int8 "
+                     f"tree {errq_apply} > {APPLY_TOL}")
+            dscore_f32 = (outq["prediction_node"] - app["prediction_node"]).abs().max().item()
+            tq = timings(lambda: ck.fused_serve(ids, wts, swq),
+                         lambda: ck.fused_serve_reference(ids, wts, swq))
+            qb_ms, qb_by = bound(*serve_cost(n, ids, swq, cd), cd)
+            rows["fused_serve_int8"].append({
+                "dtype": cd, "n": n, "max_abs_err": errq, "tol": SERVE_TOL[cd],
+                "max_abs_err_vs_model_apply": errq_apply,
+                "dscore_vs_float_model_apply": dscore_f32, **tq,
+                "bound_ms": qb_ms, "bound_by": qb_by,
+            })
+            log(f"kernels: fused_serve_int8 {cd} n={n} err={errq:.3g} vs_apply={errq_apply:.3g} "
+                f"dscore_vs_float={dscore_f32:.3g} {fmt_times(tq)} "
+                f"bound_ms={qb_ms:.5f} ({qb_by})")
 
             # The cross stack on what the main path hands it: model.apply's
             # compute-dtype x0 from the weighted field gather.
@@ -185,16 +301,17 @@ def phase_kernels(dev) -> dict:
             if not torch.isfinite(xc.float()).all() or excess > CROSS_TOL[cd]:
                 fail(f"fused_cross_apply {cd} n={n}: max |d| {cerr} outside allclose "
                      f"rtol=atol={CROSS_TOL[cd]}")
-            cms = time_ms(lambda: ck.fused_cross_apply(x0, sw.wc, sw.bc, compute_dtype=cfg.cdtype))
-            cplain = time_ms(lambda: ck.cross_stack_reference(x0, sw.wc, sw.bc, cfg.cdtype))
+            tc = timings(
+                lambda: ck.fused_cross_apply(x0, sw.wc, sw.bc, compute_dtype=cfg.cdtype),
+                lambda: ck.cross_stack_reference(x0, sw.wc, sw.bc, cfg.cdtype))
             cb_ms, cb_by = bound(*cross_cost(n, sw.d, sw.wc.shape[0], cd), cd)
             rows["fused_cross_apply"].append({
-                "dtype": cd, "n": n, "max_abs_err": cerr, "tol": CROSS_TOL[cd],
-                "ms": cms, "plain_ms": cplain, "bound_ms": cb_ms, "bound_by": cb_by,
+                "dtype": cd, "n": n, "max_abs_err": cerr, "tol": CROSS_TOL[cd], **tc,
+                "bound_ms": cb_ms, "bound_by": cb_by,
             })
-            log(f"kernels: fused_cross_apply {cd} n={n} err={cerr:.3g} ms={cms:.4f} "
-                f"plain_ms={cplain:.4f} bound_ms={cb_ms:.5f} ({cb_by})")
-        del params, sw, model
+            log(f"kernels: fused_cross_apply {cd} n={n} err={cerr:.3g} {fmt_times(tc)} "
+                f"bound_ms={cb_ms:.5f} ({cb_by})")
+        del params, qparams, sw, swq, model
         torch.cuda.empty_cache()
     return rows
 
@@ -289,12 +406,53 @@ def breakdown(dev, batcher, servable, stub, payload) -> dict:
     return out
 
 
+def kernels_plane_config():
+    """configs/latency.toml with [kernels] armed (quantize and the fused
+    kernel, the JAX package's default gates), its table in chiprun_out/."""
+    from distributed_tf_serving_tpu_torch.utils.config import load_config
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    table = os.path.join(out_dir, "kernel_autotune.json")
+    if os.path.exists(table):
+        os.remove(table)  # measure in this run, never adopt an older table
+    with open(os.path.join(HERE, "configs", "latency.toml")) as f:
+        text = f.read()
+    path = os.path.join(out_dir, "kernels_plane.toml")
+    with open(path, "w") as f:
+        f.write(text + "\n[kernels]\nenabled = true\nquantize = true\npallas = true\n"
+                f"table_file = {json.dumps(table)}\n")
+    return load_config(path)["kernels"]
+
+
+def check_autotune(table: dict) -> None:
+    """Print the per-bucket autotune table; fail on an errored bucket or
+    variant, or when the fused variants were not measured."""
+    from distributed_tf_serving_tpu_torch.ops.autotune import BASELINE, VARIANTS
+
+    if not table.get("pallas_eligible"):
+        fail(f"kernels_plane: fused variants ineligible: {table.get('pallas_ineligible_reason')}")
+    for bucket, row in sorted(table["buckets"].items(), key=lambda kv: int(kv[0])):
+        if "error" in row:
+            fail(f"kernels_plane: bucket {bucket} baseline failed: {row['error']}")
+        parts = [f"{BASELINE} step_us={row[BASELINE]['step_us']}"]
+        for v in VARIANTS:
+            e = row.get(v)
+            if e is None or "error" in e:
+                fail(f"kernels_plane: bucket {bucket} variant {v}: {e}")
+            parts.append(f"{v} step_us={e['step_us']} speedup={e['speedup']} "
+                         f"max_abs_delta={e['max_abs_delta']} enabled={e['enabled']}")
+        log(f"autotune: bucket {bucket}: " + "; ".join(parts) + f" -> {row['decision']}")
+
+
 def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> dict:
     import numpy as np
     import torch
 
     from distributed_tf_serving_tpu_torch.models import build_model
     from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.ops.autotune import VARIANT_FLAGS
+    from distributed_tf_serving_tpu_torch.serving.batcher import bucket_for
     from distributed_tf_serving_tpu_torch.serving.server import build_stack
     from distributed_tf_serving_tpu_torch.utils.config import load_config
 
@@ -309,15 +467,21 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
         transport, missing = "batcher", e.name
         log(f"serving: {missing} is not installed; driving DynamicBatcher.submit instead of gRPC")
 
-    # (label, model config, fused serve kernel on?): the [kernels] pallas
-    # configuration, and the use_pallas_cross configuration.
+    # (label, model config, fused serve kernel on?, [kernels] config): the
+    # fused serve step, the use_pallas_cross configuration, and the kernel
+    # plane, whose autotune runs inside build_stack (before the counted run).
     stacks = [
-        ("fused_serve", model_cfg, True),
-        ("cross_stack", dataclasses.replace(model_cfg, use_pallas_cross=True), False),
+        ("fused_serve", model_cfg, True, None),
+        ("cross_stack", dataclasses.replace(model_cfg, use_pallas_cross=True), False, None),
+        ("kernels_plane", model_cfg, True, kernels_plane_config()),
     ]
     built = []
-    for label, mc, fused in stacks:
-        impl, batcher, servable = build_stack(cfg, mc, "cuda", seed=SEED, fused_kernel=fused)
+    for label, mc, fused, kc in stacks:
+        impl, batcher, servable = build_stack(cfg, mc, "cuda", seed=SEED, fused_kernel=fused,
+                                              kernels_config=kc)
+        if kc is not None:
+            table = batcher.kernels.snapshot()["tables"][f"{servable.name}:{servable.version}"]
+            check_autotune(table)
         server = port = None
         if transport == "grpc":
             from distributed_tf_serving_tpu_torch.serving.server import create_server
@@ -346,13 +510,20 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
 
                 ch = grpc.insecure_channel(f"127.0.0.1:{port}", options=LARGE_MESSAGE_CHANNEL_OPTIONS)
                 stubs[label] = (ch, PredictionServiceStub(ch))
-            # The plain forward: model.apply with the cross-stack kernel off.
+            # The plain forward: model.apply with the cross-stack kernel off,
+            # on the tree the kernel plane's decision picked for the bucket.
             plain[label] = build_model(
                 servable.model.kind,
                 dataclasses.replace(servable.model.config, use_pallas_cross=False),
             ).apply
+            km = batcher.kernels
             per_size = {}
             for n, (ids, wts) in payloads.items():
+                want_params, decision = servable.params, None
+                if km is not None:
+                    table = km.snapshot()["tables"][f"{servable.name}:{servable.version}"]
+                    decision = table["buckets"][str(bucket_for(n, batcher.buckets))]["decision"]
+                    want_params = km.params_for(servable, VARIANT_FLAGS[decision][0])
                 lat = []
                 got = None
                 for _ in range(repeats):
@@ -370,24 +541,49 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
                     lat.append((time.perf_counter() - t0) * 1e3)
                 with torch.inference_mode():
                     want = plain[label](
-                        servable.params,
+                        want_params,
                         {"feat_ids": torch.from_numpy(ids).to(dev),
                          "feat_wts": torch.from_numpy(wts).to(dev)},
-                    )["prediction_node"].cpu().numpy()
+                    )["prediction_node"].float().cpu().numpy()
                 if got.shape != (n,) or not np.all(np.isfinite(got)):
                     fail(f"serving {label} n={n}: bad scores shape {got.shape}")
                 err = float(np.max(np.abs(got - want)))
                 if err > APPLY_TOL:
                     fail(f"serving {label} n={n}: max |dscore| vs plain forward {err} > {APPLY_TOL}")
                 per_size[n] = {"p50_ms": statistics.median(lat), "max_abs_err": err,
-                               "requests": len(lat)}
+                               "requests": len(lat), "decision": decision}
                 log(f"serving: {label} n={n} p50={statistics.median(lat):.3f} ms "
-                    f"err={err:.3g} ({transport}, {name})")
+                    f"err={err:.3g}" + (f" decision={decision}" if decision else "")
+                    + f" ({transport}, {name})")
             results["servers"][label] = {
                 "per_size": per_size,
                 "batches": batcher.stats.batches,
                 "fused_batches": batcher.stats.fused_batches,
             }
+            if km is not None:
+                # The pallas_int8 entry live traffic uses, on the same
+                # payloads padded to their buckets, whatever the decision.
+                qparams = km.params_for(servable, True)
+                for n, (ids, wts) in payloads.items():
+                    bucket = bucket_for(n, batcher.buckets)
+                    padded = {k: np.concatenate([v, np.zeros((bucket - n,) + v.shape[1:], v.dtype)])
+                              for k, v in (("feat_ids", ids), ("feat_wts", wts))}
+                    got = batcher._execute(servable, padded, ("prediction_node",),
+                                           _kernel_override=(True, True))["prediction_node"][:n]
+                    with torch.inference_mode():
+                        want = plain[label](qparams, {
+                            "feat_ids": torch.from_numpy(ids).to(dev),
+                            "feat_wts": torch.from_numpy(wts).to(dev),
+                        })["prediction_node"].float().cpu().numpy()
+                    err = float(np.max(np.abs(got - want)))
+                    if not np.all(np.isfinite(got)) or err > APPLY_TOL:
+                        fail(f"kernels_plane pallas_int8 entry n={n}: max |dscore| vs model.apply "
+                             f"on the int8 tree {err} > {APPLY_TOL}")
+                    log(f"serving: kernels_plane pallas_int8 entry n={n} (bucket {bucket}) "
+                        f"err={err:.3g}")
+                snap = km.snapshot()
+                results["servers"][label]["autotune"] = snap["tables"]
+                results["servers"][label]["counters"] = snap["counters"]
         results["launches"] = dict(ck.launches)
         results["requests"] = len(built) * len(sizes) * repeats
         # After the counted run: where a request's time goes (fused server).
@@ -446,8 +642,9 @@ def main() -> None:
         json.dump({"card": smi, "kernels": rows, "serving": serving}, f, indent=1)
 
     meta = {
-        "fused_serve": ("distributed_tf_serving_tpu/ops/cross_kernel.py:470"),
-        "fused_cross_apply": ("distributed_tf_serving_tpu/ops/cross_kernel.py:114"),
+        "fused_serve": "distributed_tf_serving_tpu/ops/cross_kernel.py:470",
+        "fused_serve_int8": "distributed_tf_serving_tpu/ops/cross_kernel.py:470 (int8 operands)",
+        "fused_cross_apply": "distributed_tf_serving_tpu/ops/cross_kernel.py:114",
     }
     kernels = []
     for kname, replaces in meta.items():
@@ -457,7 +654,9 @@ def main() -> None:
             "source": f"{PKG}/csrc/cross_kernel.cu", "replaces": replaces,
             "launches": serving["launches"][kname],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "plain_ms": head["plain_ms"], "loop_ms": head["loop_ms"],
+            "plain_loop_ms": head["plain_loop_ms"], "device_ms": head["device_ms"],
+            "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None,
             "shape": "bf16, 2048 rows", "by_shape": rows[kname],
         })

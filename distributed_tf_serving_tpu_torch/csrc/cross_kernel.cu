@@ -4,7 +4,10 @@
 //   * dts_fused_serve   <- distributed_tf_serving_tpu/ops/cross_kernel.py
 //                          build_fused_serve (inner `kernel`): embedding
 //                          gather + L cross layers + ReLU MLP + f32 head +
-//                          sigmoid, per candidate row.
+//                          sigmoid, per candidate row. Float weights
+//                          (fused_serve_{bf16,f32}_kernel) and the int8
+//                          {qw, qscale} weights of ops/quantize.py
+//                          (fused_serve_int8_{bf16,f32}_kernel).
 //   * dts_cross_stack   <- distributed_tf_serving_tpu/ops/cross_kernel.py
 //                          fused_cross_apply / _cross_kernel: the DCN-v2
 //                          cross stack x = x0 * (x @ W_l + b_l) + x alone.
@@ -15,6 +18,8 @@
 // does ~3.3 MFLOP per row. At 2048 rows that is ~6.7 GFLOP against ~9 MB
 // (gathered table rows ~5.6 MB, bf16 weights ~3.3 MB): operation-bound. At
 // 256 rows it is ~0.84 GFLOP against ~4 MB, so the weight bytes set it.
+// The int8 variant streams 1 byte per weight plus f32 scales (~1.64 MB at
+// that width against ~3.3 MB of bf16), the same arithmetic otherwise.
 //
 // Design (what the TPU kernel did, and what changes here):
 //   * One block owns a tile of ROWS rows through ALL layers: a layer needs
@@ -50,6 +55,19 @@
 //     issued one DMA per (row, field) pair). Ids arrive host-folded into
 //     [0, V), so they are not range-checked here. Rows past n are zero-
 //     filled (0 * finite weights stays 0) and never stored.
+//   * int8 weights (per-output-channel scale s): the bf16 path reads 8
+//     int8 values per lane and 32-deep chunk (one 8-byte load in place of
+//     16 bytes of bf16), widens them to bf16 in registers (exact, |q| <=
+//     127) in the same k order as A, and runs the same mma. The widening
+//     uses byte permutes and one f32 subtract per value, not the
+//     conversion unit (I2F/F2F cost ~15 % of the kernel's time on an
+//     H100), and a warp keeps 8 chunks of B loads in flight (the registers
+//     4 chunks of bf16 take). The f32 path widens each int8 to f32. The
+//     scale folds into the f32 result in the JAX kernel's order: xw =
+//     acc * s, then + b (cross and MLP alike).
+//     The head arrives dequantized to f32 by the host. Padded output
+//     columns are never stored (the j < N guard), so their scale is
+//     irrelevant.
 //   * Padded shared-memory columns are zeroed before use: stale values
 //     there would meet the zero-padded weights as garbage * 0 (NaN * 0 is
 //     NaN), the same reason the TPU kernel zeroes its scratch.
@@ -62,6 +80,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -71,7 +91,7 @@ constexpr int MAX_MLP = 4;           // MLP layers the fused serve kernel takes
 constexpr int F32_MAX_THREADS = 512;
 constexpr int BF16_THREADS = 512;    // 16 warps
 constexpr int KCHUNK = 32;           // k depth per pair of m16n8k16 mmas
-constexpr int KGROUP = 4;            // k chunks whose B loads issue together
+constexpr int KGROUP = 4;            // k chunks of bf16 B loads issued together
 
 __host__ __device__ inline int pad_k(int k) { return (k + KCHUNK - 1) / KCHUNK * KCHUNK; }
 __host__ __device__ inline int pad_n(int n) { return (n + 7) / 8 * 8; }
@@ -85,6 +105,18 @@ __host__ __device__ inline int lda_of(int k) {
 
 __device__ __forceinline__ float f32_of(float v) { return v; }
 __device__ __forceinline__ float f32_of(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float f32_of(int8_t v) { return static_cast<float>(v); }
+
+// The f32 matmul result of a weight column j: scaled by s[j] for int8
+// weights (per-output-channel scale), as it is for float weights.
+template <typename T>
+__device__ __forceinline__ float scaled(float acc, const float* s, int j) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    return __fmul_rn(acc, s[j]);
+  } else {
+    return acc;
+  }
+}
 
 // out[r] = sum_j v[r][j] * w[j] in f32, one warp per row; element (r, j)
 // of the tile lives at v[r * rs + j * cs].
@@ -147,9 +179,21 @@ __device__ void gather(const int* ids, const void* wts, int wts_bf16, const floa
 // acc[r] = sum_k in[r][k] * W[k][j] for every output column j of an
 // [ROWS, K] x [K, M] product; epi(j, acc) consumes each finished column.
 // `inT` is the transposed tile [K][ROWS] in shared memory; W is [K, M]
-// row-major in global memory (read through L2).
-template <typename Epi>
-__device__ __forceinline__ void ffma_layer(const float* inT, int K, const float* __restrict__ W,
+// row-major in global memory (read through L2), f32 or int8 (widened to
+// f32 exactly; the caller's epilogue applies the scale).
+__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a = v.x;
+  b = v.y;
+}
+__device__ __forceinline__ void load_pair(const int8_t* p, float& a, float& b) {
+  const char2 v = *reinterpret_cast<const char2*>(p);
+  a = static_cast<float>(static_cast<int8_t>(v.x));
+  b = static_cast<float>(static_cast<int8_t>(v.y));
+}
+
+template <typename T, typename Epi>
+__device__ __forceinline__ void ffma_layer(const float* inT, int K, const T* __restrict__ W,
                                            int M, Epi epi) {
   const int pairs = (M + 1) >> 1;
   const bool vec = (M & 1) == 0;
@@ -162,17 +206,15 @@ __device__ __forceinline__ void ffma_layer(const float* inT, int K, const float*
       a0[r] = 0.f;
       a1[r] = 0.f;
     }
-    const float* wp = W + j0;
+    const T* wp = W + j0;
 #pragma unroll 2
     for (int k = 0; k < K; ++k) {
       float w0, w1;
       if (vec) {
-        const float2 v = *reinterpret_cast<const float2*>(wp + (size_t)k * M);
-        w0 = v.x;
-        w1 = v.y;
+        load_pair(wp + (size_t)k * M, w0, w1);
       } else {
-        w0 = wp[(size_t)k * M];
-        w1 = has1 ? wp[(size_t)k * M + 1] : 0.f;
+        w0 = f32_of(wp[(size_t)k * M]);
+        w1 = has1 ? f32_of(wp[(size_t)k * M + 1]) : 0.f;
       }
       const float4* col = reinterpret_cast<const float4*>(inT + (size_t)k * ROWS);
 #pragma unroll
@@ -194,19 +236,23 @@ __device__ __forceinline__ void ffma_layer(const float* inT, int K, const float*
 }
 
 // L cross layers over transposed f32 tiles; returns the buffer holding x_L.
+// sc: [L, d] per-channel scales of int8 weights (unused for float).
+template <typename T>
 __device__ const float* ffma_cross(const float* x0T, float* xb0, float* xb1, int d,
-                                   const float* __restrict__ Wc, const float* __restrict__ bc,
-                                   int L) {
+                                   const T* __restrict__ Wc, const float* __restrict__ bc,
+                                   const float* __restrict__ sc, int L) {
   float* cur = xb0;
   float* nxt = xb1;
   for (int l = 0; l < L; ++l) {
     const float* b = bc + (size_t)l * d;
+    const float* s = sc ? sc + (size_t)l * d : nullptr;
     ffma_layer(cur, d, Wc + (size_t)l * d * d, d, [&](int j, const float(&acc)[ROWS]) {
       const float bj = b[j];
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const int o = j * ROWS + r;
-        nxt[o] = __fadd_rn(__fmul_rn(x0T[o], __fadd_rn(acc[r], bj)), cur[o]);
+        const float xw = __fadd_rn(scaled<T>(acc[r], s, j), bj);
+        nxt[o] = __fadd_rn(__fmul_rn(x0T[o], xw), cur[o]);
       }
     });
     __syncthreads();  // every thread read all of `cur`; the next layer overwrites it
@@ -228,13 +274,59 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// Four int8 values (the bytes of v, lowest first) as two packed bf16x2
+// registers. Each byte b becomes the f32 with bits 0x4B0000(b ^ 0x80), which
+// is 2^23 + 128 + b; subtracting 2^23 + 128 leaves b exactly. |b| <= 127 is
+// exact in bf16, so its bf16 bits are the f32's high half.
+__device__ __forceinline__ float i8_byte_to_f32(uint32_t u, uint32_t sel) {
+  return __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, sel)), 8388736.f);
+}
+__device__ __forceinline__ uint32_t bf16x2_of(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+__device__ __forceinline__ void i8x4_to_bf16x4(uint32_t v, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = v ^ 0x80808080u;
+  lo = bf16x2_of(i8_byte_to_f32(u, 0x7650), i8_byte_to_f32(u, 0x7651));
+  hi = bf16x2_of(i8_byte_to_f32(u, 0x7652), i8_byte_to_f32(u, 0x7653));
+}
+
+// One lane's B fragment of a 32-deep chunk: the 8 consecutive k values
+// k0 .. k0 + 7 of one output column, loaded raw, then expanded to four
+// packed bf16x2 registers (k pairs 0-1, 2-3, 4-5, 6-7) in the same k
+// order as A's fragment.
+template <typename T>
+struct BFrag;
+template <>
+struct BFrag<bf16> {
+  typedef uint4 Raw;  // 16 bytes
+  static constexpr int kGroup = KGROUP;
+  static __device__ __forceinline__ Raw load(const bf16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ uint4 expand(Raw r) { return r; }
+};
+template <>
+struct BFrag<int8_t> {
+  typedef uint2 Raw;  // 8 bytes: rows of pad_k(K) bytes keep it aligned
+  static constexpr int kGroup = 2 * KGROUP;  // half the bytes: twice the chunks in flight
+  static __device__ __forceinline__ Raw load(const int8_t* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ uint4 expand(Raw r) {
+    uint4 o;
+    i8x4_to_bf16x4(r.x, o.x, o.y);
+    i8x4_to_bf16x4(r.y, o.z, o.w);
+    return o;
+  }
+};
+
 // C[ROWS, N] = A[ROWS, K] @ W[K, N] on the tensor cores. A is row-major in
 // shared memory (stride lda, columns [K, pad_k(K)) zero); WT is W^T laid out
-// [pad_n(N)][pad_k(K)] in global memory, zero-padded. epi(r, j, value) gets
-// every element with j < N, in f32.
-template <typename Epi>
+// [pad_n(N)][pad_k(K)] in global memory, zero-padded, bf16 or int8.
+// epi(r, j, value) gets every element with j < N, in f32 (unscaled).
+template <typename T, typename Epi>
 __device__ __forceinline__ void mma_layer(const bf16* A, int lda, int K,
-                                          const bf16* __restrict__ WT, int N, Epi epi) {
+                                          const T* __restrict__ WT, int N, Epi epi) {
   const int kp = pad_k(K);
   const int nch = kp / KCHUNK;
   const int ntiles = pad_n(N) / 8;
@@ -242,34 +334,38 @@ __device__ __forceinline__ void mma_layer(const bf16* A, int lda, int K,
   const int g = lane >> 2, t = lane & 3;
   const bf16* a_lo = A + g * lda + 8 * t;
   const bf16* a_hi = A + (g + 8) * lda + 8 * t;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  typedef typename BFrag<T>::Raw Raw;
+  const Raw zero = {};
   for (int tile = 2 * warp; tile < ntiles; tile += 2 * nw) {
     const bool two = tile + 1 < ntiles;
     float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    const bf16* b0p = WT + (size_t)(tile * 8 + g) * kp + 8 * t;
-    const bf16* b1p = b0p + (size_t)8 * kp;
-    for (int c0 = 0; c0 < nch; c0 += KGROUP) {
-      uint4 bq[KGROUP][2];
+    const T* b0p = WT + (size_t)(tile * 8 + g) * kp + 8 * t;
+    const T* b1p = b0p + (size_t)8 * kp;
+    constexpr int G = BFrag<T>::kGroup;
+    for (int c0 = 0; c0 < nch; c0 += G) {
+      Raw bq[G][2];
 #pragma unroll
-      for (int u = 0; u < KGROUP; ++u) {
+      for (int u = 0; u < G; ++u) {
         const bool ok = c0 + u < nch;
         const int off = (c0 + u) * KCHUNK;
-        bq[u][0] = ok ? __ldg(reinterpret_cast<const uint4*>(b0p + off)) : zero;
-        bq[u][1] = ok && two ? __ldg(reinterpret_cast<const uint4*>(b1p + off)) : zero;
+        bq[u][0] = ok ? BFrag<T>::load(b0p + off) : zero;
+        bq[u][1] = ok && two ? BFrag<T>::load(b1p + off) : zero;
       }
 #pragma unroll
-      for (int u = 0; u < KGROUP; ++u) {
+      for (int u = 0; u < G; ++u) {
         if (c0 + u < nch) {
           const int off = (c0 + u) * KCHUNK;
           // Lane (g, t) holds k = off + 8t .. off + 8t + 7 of rows g and
           // g + 8: pairs 0-1 feed the first mma, pairs 2-3 the second.
           const uint4 lo = *reinterpret_cast<const uint4*>(a_lo + off);
           const uint4 hi = *reinterpret_cast<const uint4*>(a_hi + off);
-          mma_bf16(c[0], lo.x, hi.x, lo.y, hi.y, bq[u][0].x, bq[u][0].y);
-          mma_bf16(c[0], lo.z, hi.z, lo.w, hi.w, bq[u][0].z, bq[u][0].w);
+          const uint4 b0 = BFrag<T>::expand(bq[u][0]);
+          mma_bf16(c[0], lo.x, hi.x, lo.y, hi.y, b0.x, b0.y);
+          mma_bf16(c[0], lo.z, hi.z, lo.w, hi.w, b0.z, b0.w);
           if (two) {
-            mma_bf16(c[1], lo.x, hi.x, lo.y, hi.y, bq[u][1].x, bq[u][1].y);
-            mma_bf16(c[1], lo.z, hi.z, lo.w, hi.w, bq[u][1].z, bq[u][1].w);
+            const uint4 b1 = BFrag<T>::expand(bq[u][1]);
+            mma_bf16(c[1], lo.x, hi.x, lo.y, hi.y, b1.x, b1.y);
+            mma_bf16(c[1], lo.z, hi.z, lo.w, hi.w, b1.z, b1.w);
           }
         }
       }
@@ -299,18 +395,20 @@ __device__ void zero_bf16(bf16* p, int count) {
 }
 
 // L cross layers over row-major bf16 tiles (x0 f32 row-major, stride d);
-// returns the buffer holding x_L.
+// returns the buffer holding x_L. sc: [L, d] scales of int8 weights.
+template <typename T>
 __device__ const bf16* mma_cross(const float* x0, bf16* xb0, bf16* xb1, int d, int ldx,
-                                 const bf16* __restrict__ WcT, const float* __restrict__ bc,
-                                 int L) {
+                                 const T* __restrict__ WcT, const float* __restrict__ bc,
+                                 const float* __restrict__ sc, int L) {
   bf16* cur = xb0;
   bf16* nxt = xb1;
   const size_t wstride = (size_t)pad_n(d) * pad_k(d);
   for (int l = 0; l < L; ++l) {
     const float* b = bc + (size_t)l * d;
+    const float* s = sc ? sc + (size_t)l * d : nullptr;
     mma_layer(cur, ldx, d, WcT + l * wstride, d, [&](int r, int j, float acc) {
       const int o = r * ldx + j;
-      const float xw = __fadd_rn(acc, b[j]);
+      const float xw = __fadd_rn(scaled<T>(acc, s, j), b[j]);
       nxt[o] = __float2bfloat16_rn(
           __fadd_rn(__fmul_rn(x0[r * d + j], xw), __bfloat162float(cur[o])));
     });
@@ -327,11 +425,15 @@ struct ServeArgs {
   const void* wts;      // [n, F] bf16 or f32
   int wts_bf16;
   const float* table;   // [V, D] f32
-  const void* wc;       // cross weights: f32 [L, d, d]; bf16 W^T [L, pad_n(d), pad_k(d)]
+  // Weights: f32 or int8 [K, N] for the f32 kernels; bf16 or int8 W^T
+  // [pad_n(N), pad_k(K)] for the bf16 kernels.
+  const void* wc;       // cross [L] x [d, d]
   const float* bc;      // [L, d] f32
+  const float* sc;      // [L, d] f32 scales (int8 weights only)
   int L;
-  const void* wm[MAX_MLP];   // f32 [K_m, M_m]; bf16 W^T [pad_n(M_m), pad_k(K_m)]
+  const void* wm[MAX_MLP];   // MLP layer m: [K_m, M_m]
   const float* bm[MAX_MLP];  // [M_m] f32
+  const float* sm[MAX_MLP];  // [M_m] f32 scales (int8 weights only)
   int mdims[MAX_MLP];
   int n_mlp;
   int mmax;
@@ -353,8 +455,9 @@ __device__ void write_scores(const ServeArgs& a, const float* lc, const float* l
   }
 }
 
-__global__ void __launch_bounds__(F32_MAX_THREADS) fused_serve_f32_kernel(ServeArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// T: the weights' element type (float, or int8_t with scales).
+template <typename T>
+__device__ __forceinline__ void serve_f32(const ServeArgs& a, unsigned char* smem) {
   const int d = a.F * a.D;
   float* x0T = reinterpret_cast<float*>(smem);
   float* xb0 = x0T + (size_t)d * ROWS;
@@ -376,12 +479,13 @@ __global__ void __launch_bounds__(F32_MAX_THREADS) fused_serve_f32_kernel(ServeA
   for (int m = 0; m < a.n_mlp; ++m) {
     float* out = (m & 1) ? hb1 : hb0;
     const float* b = a.bm[m];
-    ffma_layer(in, K, static_cast<const float*>(a.wm[m]), a.mdims[m],
+    const float* s = a.sm[m];
+    ffma_layer(in, K, static_cast<const T*>(a.wm[m]), a.mdims[m],
                [&](int j, const float(&acc)[ROWS]) {
                  const float bj = b[j];
 #pragma unroll
                  for (int r = 0; r < ROWS; ++r) {
-                   const float y = __fadd_rn(acc[r], bj);
+                   const float y = __fadd_rn(scaled<T>(acc[r], s, j), bj);
                    out[j * ROWS + r] = y > 0.f ? y : 0.f;
                  }
                });
@@ -391,14 +495,16 @@ __global__ void __launch_bounds__(F32_MAX_THREADS) fused_serve_f32_kernel(ServeA
   }
   rowdot(in, 1, ROWS, K, a.wo + d, lh);
 
-  const float* xc = ffma_cross(x0T, xb0, xb1, d, static_cast<const float*>(a.wc), a.bc, a.L);
+  const float* xc =
+      ffma_cross(x0T, xb0, xb1, d, static_cast<const T*>(a.wc), a.bc, a.sc, a.L);
   rowdot(xc, 1, ROWS, d, a.wo, lc);
   __syncthreads();
   write_scores(a, lc, lh, row0);
 }
 
-__global__ void __launch_bounds__(BF16_THREADS) fused_serve_bf16_kernel(ServeArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// T: the weights' element type (bf16, or int8_t with scales).
+template <typename T>
+__device__ __forceinline__ void serve_bf16(const ServeArgs& a, unsigned char* smem) {
   const int d = a.F * a.D;
   const int ldx = lda_of(d), ldh = lda_of(a.mmax);
   float* x0 = reinterpret_cast<float*>(smem);
@@ -424,8 +530,9 @@ __global__ void __launch_bounds__(BF16_THREADS) fused_serve_bf16_kernel(ServeArg
     bf16* out = (m & 1) ? hb1 : hb0;
     const int M = a.mdims[m];
     const float* b = a.bm[m];
-    mma_layer(in, lda, K, static_cast<const bf16*>(a.wm[m]), M, [&](int r, int j, float acc) {
-      const float y = __fadd_rn(acc, b[j]);
+    const float* s = a.sm[m];
+    mma_layer(in, lda, K, static_cast<const T*>(a.wm[m]), M, [&](int r, int j, float acc) {
+      const float y = __fadd_rn(scaled<T>(acc, s, j), b[j]);
       out[r * ldh + j] = __float2bfloat16_rn(y > 0.f ? y : 0.f);
     });
     // Columns [M, pad_k(M)) feed the next layer's padded k: clear what an
@@ -440,10 +547,31 @@ __global__ void __launch_bounds__(BF16_THREADS) fused_serve_bf16_kernel(ServeArg
   }
   rowdot(in, lda, 1, K, a.wo + d, lh);
 
-  const bf16* xc = mma_cross(x0, xb0, xb1, d, ldx, static_cast<const bf16*>(a.wc), a.bc, a.L);
+  const bf16* xc =
+      mma_cross(x0, xb0, xb1, d, ldx, static_cast<const T*>(a.wc), a.bc, a.sc, a.L);
   rowdot(xc, ldx, 1, d, a.wo, lc);
   __syncthreads();
   write_scores(a, lc, lh, row0);
+}
+
+__global__ void __launch_bounds__(F32_MAX_THREADS) fused_serve_f32_kernel(ServeArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  serve_f32<float>(a, smem);
+}
+
+__global__ void __launch_bounds__(F32_MAX_THREADS) fused_serve_int8_f32_kernel(ServeArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  serve_f32<int8_t>(a, smem);
+}
+
+__global__ void __launch_bounds__(BF16_THREADS) fused_serve_bf16_kernel(ServeArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  serve_bf16<bf16>(a, smem);
+}
+
+__global__ void __launch_bounds__(BF16_THREADS) fused_serve_int8_bf16_kernel(ServeArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  serve_bf16<int8_t>(a, smem);
 }
 
 __global__ void __launch_bounds__(F32_MAX_THREADS)
@@ -462,7 +590,7 @@ __global__ void __launch_bounds__(F32_MAX_THREADS)
     xb0[j * ROWS + r] = v;
   }
   __syncthreads();
-  const float* xc = ffma_cross(x0T, xb0, xb1, d, w, b, L);
+  const float* xc = ffma_cross(x0T, xb0, xb1, d, w, b, nullptr, L);
   for (int i = threadIdx.x; i < ROWS * d; i += blockDim.x) {
     const int r = i / d, j = i % d, row = row0 + r;
     if (row < n) out[(size_t)row * d + j] = xc[j * ROWS + r];
@@ -488,7 +616,7 @@ __global__ void __launch_bounds__(BF16_THREADS)
     xb0[r * ldx + j] = v;
   }
   __syncthreads();
-  const bf16* xc = mma_cross(x0, xb0, xb1, d, ldx, wT, b, L);
+  const bf16* xc = mma_cross(x0, xb0, xb1, d, ldx, wT, b, nullptr, L);
   for (int i = threadIdx.x; i < ROWS * d; i += blockDim.x) {
     const int r = i / d, j = i % d, row = row0 + r;
     if (row < n) out[(size_t)row * d + j] = xc[r * ldx + j];
@@ -515,6 +643,14 @@ int dts_max_mlp_layers() { return MAX_MLP; }
 int dts_bf16_pad_k(int k) { return pad_k(k); }
 int dts_bf16_pad_n(int n) { return pad_n(n); }
 
+// Bytes of one [K, N] weight operand of elem_bytes-wide elements as the
+// fused serve kernels read it: [K][N] for the f32 kernels, W^T
+// [pad_n(N)][pad_k(K)] for the bf16 kernels (bf16 or int8 elements).
+size_t dts_weight_operand_bytes(int k, int n, int elem_bytes, int cd_bf16) {
+  if (cd_bf16) return (size_t)pad_n(n) * pad_k(k) * elem_bytes;
+  return (size_t)k * n * elem_bytes;
+}
+
 size_t dts_serve_smem_bytes(int d, int mmax, int cd_bf16) {
   if (cd_bf16)
     return (size_t)ROWS * d * 4 + 2 * (size_t)ROWS * lda_of(d) * 2 +
@@ -530,12 +666,19 @@ size_t dts_cross_smem_bytes(int d, int cd_bf16) {
 
 const char* dts_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+// w_int8: the weights are int8 with f32 per-output-channel scales sc
+// ([L, d]) and sm[m] ([M_m]); otherwise float in the compute dtype and the
+// scale pointers are ignored.
 int dts_fused_serve(const int* ids, const void* wts, int wts_bf16, const float* table,
                     const void* wc, const float* bc, int L, const void* const* wm,
                     const float* const* bm, const int* mdims, int n_mlp, const float* wo,
                     const float* bo, float* pred, float* logit, int n, int F, int D,
-                    int cd_bf16, void* stream) {
+                    int cd_bf16, int w_int8, const float* sc, const float* const* sm,
+                    void* stream) {
   if (n_mlp < 1 || n_mlp > MAX_MLP || n < 0) return (int)cudaErrorInvalidValue;
+  if (w_int8 && (sc == nullptr || sm == nullptr)) return (int)cudaErrorInvalidValue;
+  for (int m = 0; w_int8 && m < n_mlp; ++m)
+    if (sm[m] == nullptr) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   ServeArgs a;
   a.ids = ids;
@@ -544,12 +687,14 @@ int dts_fused_serve(const int* ids, const void* wts, int wts_bf16, const float* 
   a.table = table;
   a.wc = wc;
   a.bc = bc;
+  a.sc = w_int8 ? sc : nullptr;
   a.L = L;
   a.n_mlp = n_mlp;
   a.mmax = 0;
   for (int m = 0; m < MAX_MLP; ++m) {
     a.wm[m] = m < n_mlp ? wm[m] : nullptr;
     a.bm[m] = m < n_mlp ? bm[m] : nullptr;
+    a.sm[m] = w_int8 && m < n_mlp ? sm[m] : nullptr;
     a.mdims[m] = m < n_mlp ? mdims[m] : 0;
     if (a.mdims[m] > a.mmax) a.mmax = a.mdims[m];
   }
@@ -564,7 +709,11 @@ int dts_fused_serve(const int* ids, const void* wts, int wts_bf16, const float* 
   const int d = F * D;
   const int grid = (n + ROWS - 1) / ROWS;
   const size_t smem = dts_serve_smem_bytes(d, a.mmax, cd_bf16);
-  auto kernel = cd_bf16 ? fused_serve_bf16_kernel : fused_serve_f32_kernel;
+  void (*kernel)(ServeArgs);
+  if (cd_bf16)
+    kernel = w_int8 ? fused_serve_int8_bf16_kernel : fused_serve_bf16_kernel;
+  else
+    kernel = w_int8 ? fused_serve_int8_f32_kernel : fused_serve_f32_kernel;
   const int threads = cd_bf16 ? BF16_THREADS : f32_threads(d > a.mmax ? d : a.mmax);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);

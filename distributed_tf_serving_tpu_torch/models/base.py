@@ -132,10 +132,13 @@ def dense_init(rng: np.random.Generator, in_dim: int, out_dim: int, dtype,
 
 
 def dense_apply(p: dict[str, torch.Tensor], x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """x @ w + b in compute_dtype with an f32 result (float {"w","b"} form;
-    the int8 {"qw","qscale","b"} form waits for ops/quantize.py)."""
-    if "w" not in p:
-        raise NotImplementedError("quantized {qw, qscale} layers are not ported yet")
+    """x @ w + b in compute_dtype with an f32 result. Takes the float
+    {"w","b"} layer and the int8 {"qw","qscale","b"} form of
+    ops/quantize.py: int8 magnitudes <= 127 are exact in bf16, and the
+    per-output-channel scale folds into the f32 result."""
+    qw = p.get("qw")
+    if qw is not None:
+        return matmul_f32(x, qw, compute_dtype) * p["qscale"].float() + p["b"].float()
     return matmul_f32(x, p["w"], compute_dtype) + p["b"].float()
 
 

@@ -48,13 +48,17 @@ def _cross_init(rng: np.random.Generator, num_layers: int, d: int, full_matrix: 
 
 
 def cross_apply(layers, x0: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """Apply the stack of cross layers; x0 is [n, d] in compute_dtype."""
+    """Apply the stack of cross layers; x0 is [n, d] in compute_dtype.
+    Takes float {"w","b"} layers and the int8 {"qw","qscale","b"} form:
+    the per-channel scale folds into the f32 xw before the update."""
     x = x0
     x0f = x0.float()
     for p in layers:
-        if "w" not in p:
-            raise NotImplementedError("quantized {qw, qscale} layers are not ported yet")
         b = p["b"].float()
+        if "qw" in p:  # quantized DCN-v2 (v1 rank-1 layers never quantize)
+            xw = matmul_f32(x, p["qw"], compute_dtype) * p["qscale"].float()
+            x = (x0f * (xw + b) + x.float()).to(compute_dtype)
+            continue
         w = p["w"]
         if w.ndim == 2:  # DCN-v2
             xw = matmul_f32(x, w, compute_dtype)

@@ -8,7 +8,9 @@ Two functions, each with a kernel wrapper and a plain version beside it:
   compute dtype.
 - `build_fused_serve` (kernel wrapper `fused_serve`) /
   `fused_serve_reference`: the whole per-candidate serving step — weighted
-  embedding gather, cross stack, ReLU MLP, f32 head, sigmoid.
+  embedding gather, cross stack, ReLU MLP, f32 head, sigmoid — over float
+  weights or the int8 {qw, qscale} weights of ops/quantize.py (the scale
+  folds into the f32 matmul result; the head is dequantized to f32 once).
 
 The plain versions follow the KERNELS' rounding, which differs from
 `model.apply` in two places: the gather multiplies in f32 (model.apply
@@ -18,7 +20,8 @@ agree to ~1e-3 on scores, not bit for bit.
 
 A wrapper runs the plain version only for tensors on the CPU; a CUDA tensor
 always launches the kernel or raises. Each kernel launch adds one to
-`launches[name]`.
+`launches[name]`: the fused serve step counts under "fused_serve" for
+float weights and "fused_serve_int8" for int8 weights.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ MAX_MLP_LAYERS = 4   # csrc/cross_kernel.cu MAX_MLP
 
 SOURCE = "cross_kernel.cu"
 
-launches = {"fused_serve": 0, "fused_cross_apply": 0}
+launches = {"fused_serve": 0, "fused_serve_int8": 0, "fused_cross_apply": 0}
 
 
 def reset_launches() -> None:
@@ -90,12 +93,21 @@ def serve_smem_bytes(d: int, mlp_dims, compute_dtype=torch.bfloat16) -> int:
 
 
 def mma_layout(w: torch.Tensor) -> torch.Tensor:
-    """[..., K, N] weights -> the bf16 kernels' operand layout W^T
-    [..., pad8(N), pad32(K)], zero-padded and contiguous."""
+    """[..., K, N] weights (bf16 or int8) -> the bf16 kernels' operand
+    layout W^T [..., pad8(N), pad32(K)], zero-padded and contiguous."""
     k, n = w.shape[-2:]
     out = torch.zeros((*w.shape[:-2], _pad_n(n), _pad_k(k)), dtype=w.dtype, device=w.device)
     out[..., :n, :k] = w.transpose(-1, -2)
     return out
+
+
+def weight_operand_bytes(k: int, n: int, dtype: torch.dtype, compute_dtype) -> int:
+    """Bytes of one [K, N] weight as the fused serve kernel reads it: [K, N]
+    for the f32 kernels, mma_layout for the bf16 kernels."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    if _esize(compute_dtype) == 2:
+        return _pad_n(n) * _pad_k(k) * e
+    return k * n * e
 
 
 def fits_smem(d: int, compute_dtype=torch.bfloat16) -> bool:
@@ -127,9 +139,12 @@ def cross_params_to_stacked(cross_layers: list) -> tuple[torch.Tensor, torch.Ten
 
 
 def _cross_layers(x: torch.Tensor, x0f: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                  cd: torch.dtype) -> torch.Tensor:
+                  cd: torch.dtype, s: torch.Tensor | None = None) -> torch.Tensor:
+    """L cross layers; `s` [L, d] are the scales of int8 weights `w`."""
     for l in range(w.shape[0]):
         xw = x.float() @ w[l].to(cd).float()
+        if s is not None:
+            xw = xw * s[l]
         x = (x0f * (xw + b[l].float()) + x.float()).to(cd)
     return x
 
@@ -146,20 +161,27 @@ def cross_stack_reference(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 @dataclasses.dataclass
 class ServeWeights:
     """A servable's operands prepared once for the fused serve step: weights
-    cast to the compute dtype and stacked, biases and the head in f32."""
+    cast to the compute dtype (or kept int8 with f32 per-output-channel
+    scales) and stacked, biases and the head in f32."""
 
     compute_dtype: torch.dtype
     num_fields: int
     embed_dim: int
     table: torch.Tensor                     # [V, D] f32
-    wc: torch.Tensor                        # [L, d, d] compute dtype
+    wc: torch.Tensor                        # [L, d, d] compute dtype or int8
     bc: torch.Tensor                        # [L, d] f32
-    mlp: list[tuple[torch.Tensor, torch.Tensor]]  # ([K, M] cd, [M] f32)
+    mlp: list[tuple[torch.Tensor, torch.Tensor]]  # ([K, M] cd or int8, [M] f32)
     wo: torch.Tensor                        # [d + M_last] f32
     bo: torch.Tensor                        # [1] f32
-    # The kernel's operands (bf16 weights in mma_layout) and their ctypes
-    # pointer arrays, built at first launch.
+    sc: torch.Tensor | None = None          # [L, d] f32 scales of an int8 wc
+    ms: list[torch.Tensor] | None = None    # [M] f32 scales of int8 MLP weights
+    # The kernel's operands (bf16-kernel weights in mma_layout) and their
+    # ctypes pointer arrays, built at first launch.
     _kernel_args: tuple | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.sc is not None
 
     @property
     def d(self) -> int:
@@ -174,15 +196,19 @@ def fused_serve_reference(ids: torch.Tensor, wts: torch.Tensor,
                           sw: ServeWeights) -> dict[str, torch.Tensor]:
     """Plain version of the fused serve kernel: f32 gather, x0 recast to the
     compute dtype for the matmuls, cross update with the UNROUNDED f32 x0,
-    f32 head."""
+    f32 head. int8 weights: xw = (x @ qw) * s, then + b, on the same
+    rounding points."""
     cd = sw.compute_dtype
     n = ids.shape[0]
     x0f = (sw.table[ids.long()] * wts.float()[..., None]).reshape(n, sw.d)
     x0 = x0f.to(cd)
     h = x0
-    for w, b in sw.mlp:
-        h = torch.relu(h.float() @ w.float() + b).to(cd)
-    xc = _cross_layers(x0, x0f, sw.wc, sw.bc, cd)
+    for m, (w, b) in enumerate(sw.mlp):
+        y = h.float() @ w.to(cd).float()
+        if sw.ms is not None:
+            y = y * sw.ms[m]
+        h = torch.relu(y + b).to(cd)
+    xc = _cross_layers(x0, x0f, sw.wc, sw.bc, cd, sw.sc)
     d = sw.d
     lo = (xc.float() @ sw.wo[:d] + h.float() @ sw.wo[d:]) + sw.bo[0]
     return {"prediction_node": torch.sigmoid(lo), "logits": lo}
@@ -200,7 +226,7 @@ def _lib() -> ctypes.CDLL:
         lib.dts_fused_serve.argtypes = [
             vp, vp, ci, vp, vp, vp, ci,
             ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(ci), ci,
-            vp, vp, vp, vp, ci, ci, ci, ci, vp,
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, ctypes.POINTER(vp), vp,
         ]
         lib.dts_fused_serve.restype = ci
         lib.dts_cross_stack.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
@@ -215,6 +241,8 @@ def _lib() -> ctypes.CDLL:
         lib.dts_cross_smem_bytes.restype = ctypes.c_size_t
         lib.dts_bf16_pad_k.argtypes = lib.dts_bf16_pad_n.argtypes = [ci]
         lib.dts_bf16_pad_k.restype = lib.dts_bf16_pad_n.restype = ci
+        lib.dts_weight_operand_bytes.argtypes = [ci, ci, ci, ci]
+        lib.dts_weight_operand_bytes.restype = ctypes.c_size_t
         # The layouts and sizes this module computes must be the kernel's.
         agree = (lib.dts_rows_per_block(), lib.dts_max_mlp_layers()) == (
             ROWS_PER_BLOCK, MAX_MLP_LAYERS,
@@ -225,6 +253,12 @@ def _lib() -> ctypes.CDLL:
                 agree &= lib.dts_serve_smem_bytes(d, m, bf) == serve_smem_bytes(d, (m,), cd)
                 agree &= lib.dts_cross_smem_bytes(d, bf) == cross_smem_bytes(d, cd)
             agree &= (lib.dts_bf16_pad_k(d), lib.dts_bf16_pad_n(d)) == (_pad_k(d), _pad_n(d))
+            for cd, wdtypes in ((torch.bfloat16, (torch.bfloat16, torch.int8)),
+                                (torch.float32, (torch.float32, torch.int8))):
+                for wd in wdtypes:
+                    e = torch.tensor([], dtype=wd).element_size()
+                    agree &= lib.dts_weight_operand_bytes(d, m, e, int(cd == torch.bfloat16)) == (
+                        weight_operand_bytes(d, m, wd, cd))
         if not agree:
             raise RuntimeError("csrc/cross_kernel.cu layouts disagree with ops/cross_kernel.py")
         lib._dts_bound = True
@@ -289,8 +323,8 @@ def fused_cross_apply(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 
 def fused_serve(ids: torch.Tensor, wts: torch.Tensor, sw: ServeWeights) -> dict[str, torch.Tensor]:
     """The fused serve step on one padded batch: ids int32 [n, F] (host-
-    folded into [0, V)), wts bf16 or f32 [n, F]. CPU tensors take the plain
-    version."""
+    folded into [0, V)), wts bf16 or f32 [n, F]. Float or int8 weights, as
+    `sw` holds them. CPU tensors take the plain version."""
     if ids.device.type == "cpu":
         return fused_serve_reference(ids, wts, sw)
     if ids.device.type != "cuda":
@@ -310,8 +344,9 @@ def fused_serve(ids: torch.Tensor, wts: torch.Tensor, sw: ServeWeights) -> dict[
             (vp * k)(*[w.data_ptr() for w in wm]),
             (vp * k)(*[b.data_ptr() for _, b in sw.mlp]),
             (ci * k)(*[w.shape[1] for w, _ in sw.mlp]),
+            (vp * k)(*[s.data_ptr() for s in sw.ms]) if sw.quantized else None,
         )
-    wc, _, wm, bm, mdims = sw._kernel_args
+    wc, _, wm, bm, mdims, sm = sw._kernel_args
     pred = torch.empty((n,), dtype=torch.float32, device=dev)
     logit = torch.empty((n,), dtype=torch.float32, device=dev)
     lib = _lib()
@@ -321,21 +356,27 @@ def fused_serve(ids: torch.Tensor, wts: torch.Tensor, sw: ServeWeights) -> dict[
             sw.table.data_ptr(), wc.data_ptr(), sw.bc.data_ptr(), sw.wc.shape[0],
             wm, bm, mdims, len(sw.mlp),
             sw.wo.data_ptr(), sw.bo.data_ptr(), pred.data_ptr(), logit.data_ptr(),
-            n, F, sw.embed_dim, int(sw.compute_dtype == torch.bfloat16), _stream(dev),
+            n, F, sw.embed_dim, int(sw.compute_dtype == torch.bfloat16),
+            int(sw.quantized), sw.sc.data_ptr() if sw.quantized else None, sm, _stream(dev),
         )
     _check(lib, rc, "fused-serve")
-    launches["fused_serve"] += 1
+    launches["fused_serve_int8" if sw.quantized else "fused_serve"] += 1
     return {"prediction_node": pred, "logits": logit}
 
 
 # ------------------------------------------------------------ servable glue
 
 
+def _dense_w(p):
+    """A dense layer's weight in either form: int8 "qw" or float "w"."""
+    return p.get("qw", p.get("w"))
+
+
 def serve_params_supported(params) -> bool:
     """True when a param tree has the dcn_v2 shape the fused serve kernel
     takes: an embedding table, a full-matrix cross stack, an MLP list and a
-    1-wide output head, all in the float {"w", "b"} form (the int8
-    {"qw"} form waits for ops/quantize.py)."""
+    1-wide output head, in either the float {"w"} or the ops/quantize.py
+    {"qw"} form."""
     try:
         emb = params["embedding"]
         cross, mlp, out = params["cross"], params["mlp"], params["out"]
@@ -343,7 +384,7 @@ def serve_params_supported(params) -> bool:
         return False
 
     def dense_ok(p, out_dim=None):
-        w = p.get("w")
+        w = _dense_w(p)
         if w is None or w.ndim != 2:
             return False
         return out_dim is None or w.shape[1] == out_dim
@@ -358,41 +399,62 @@ def serve_params_supported(params) -> bool:
 
 
 def prepare_serve_weights(params, config) -> ServeWeights:
-    """Cast, stack and lay out a dcn_v2 servable's params for the fused
-    serve step, on the params' own device."""
+    """Cast, stack and lay out a dcn_v2 servable's params (float, or int8
+    from ops/quantize.py) for the fused serve step, on the params' own
+    device."""
     if not serve_params_supported(params):
         raise ValueError("fused serving kernel requires a dcn_v2 param tree")
     cd = config.cdtype
     F, D = config.num_fields, config.embed_dim
     d = F * D
     L = len(params["cross"])
-    mlp_dims = tuple(p["w"].shape[1] for p in params["mlp"])
+    mlp_dims = tuple(_dense_w(p).shape[1] for p in params["mlp"])
+    forms = {"qw" in p for p in params["cross"] + params["mlp"]}
+    if len(forms) != 1:
+        raise ValueError("fused serving kernel takes all-float or all-int8 cross and MLP layers")
+    quantized = forms == {True}
     if not serve_fits_smem(d, mlp_dims, cd):
         raise ValueError(
             f"fused serving kernel (d={d}, L={L}, mlp={mlp_dims}) exceeds the "
             f"{SMEM_LIMIT_BYTES}-byte shared-memory budget of one block"
         )
     f32 = torch.float32
-    wc, bc = cross_params_to_stacked(params["cross"])
+    out = params["out"]
+    if "qw" in out:  # dequantized once: the head is one f32 matvec
+        wo = out["qw"].to(f32) * out["qscale"].to(f32)[None, :]
+    else:
+        wo = out["w"].to(f32)
+    if quantized:
+        wc = torch.stack([p["qw"] for p in params["cross"]])
+        bc = torch.stack([p["b"] for p in params["cross"]])
+        sc = torch.stack([p["qscale"] for p in params["cross"]]).to(f32).contiguous()
+        ms = [p["qscale"].to(f32).contiguous() for p in params["mlp"]]
+    else:
+        wc, bc = cross_params_to_stacked(params["cross"])
+        wc, sc, ms = wc.to(cd), None, None
     return ServeWeights(
         compute_dtype=cd,
         num_fields=F,
         embed_dim=D,
         table=params["embedding"].to(f32).contiguous(),
-        wc=wc.to(cd).contiguous(),
+        wc=wc.contiguous(),
         bc=bc.to(f32).contiguous(),
-        mlp=[(p["w"].to(cd).contiguous(), p["b"].to(f32).contiguous()) for p in params["mlp"]],
-        wo=params["out"]["w"][:, 0].to(f32).contiguous(),
-        bo=params["out"]["b"].to(f32).reshape(1).contiguous(),
+        mlp=[(_dense_w(p).to(torch.int8 if quantized else cd).contiguous(),
+              p["b"].to(f32).contiguous()) for p in params["mlp"]],
+        wo=wo[:, 0].contiguous(),
+        bo=out["b"].to(f32).reshape(1).contiguous(),
+        sc=sc,
+        ms=ms,
     )
 
 
 def build_fused_serve(params, config):
-    """The fused serving callable for ONE servable: apply_fn(params, batch)
-    -> {"prediction_node", "logits"}, the model.apply contract. The weight
-    operands are prepared here, once; the `params` argument of apply_fn is
-    accepted for signature compatibility and unused. `batch` carries
-    host-folded int32 feat_ids and bf16/f32 feat_wts."""
+    """The fused serving callable for ONE servable's params (float or
+    int8): apply_fn(params, batch) -> {"prediction_node", "logits"}, the
+    model.apply contract. The weight operands are prepared here, once; the
+    `params` argument of apply_fn is accepted for signature compatibility
+    and unused. `batch` carries host-folded int32 feat_ids and bf16/f32
+    feat_wts."""
     sw = prepare_serve_weights(params, config)
 
     def apply_fn(_params, batch):

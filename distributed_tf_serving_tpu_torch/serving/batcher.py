@@ -12,7 +12,10 @@ fold + pack, upload, the device step, readback and per-request slicing.
   bf16 per ops/transfer.py.
 - **The device step.** For dcn_v2 on a CUDA device it is the fused serve
   kernel (ops/cross_kernel.py build_fused_serve), prepared once per
-  servable. Other models, and the CPU, run `model.apply`.
+  servable. Other models, and the CPU, run `model.apply`. With the kernel
+  plane armed (`kernels`, ops/autotune.py) the per-bucket decision picks
+  the step instead: model.apply or the fused kernel, on the float or the
+  int8 params, with model.apply on the float params as the baseline.
 
 One batching thread collects, pads, dispatches and completes; readback is
 synchronous (`.cpu()`), so a batch completes before the next is assembled.
@@ -153,6 +156,9 @@ class DynamicBatcher:
             self.buckets[-1],
         )
         self.fused_kernel = fused_kernel
+        # The kernel plane (ops/autotune.py KernelManager), or None when off:
+        # one attribute read per dispatch.
+        self.kernels = None
         self.stats = BatcherStats()
         self._items: deque[_WorkItem] = deque()
         self._queued_candidates = 0
@@ -275,11 +281,34 @@ class DynamicBatcher:
         fn = build_fused_serve(servable.params, cfg) if fused else model.apply
         return _Entry(fn=fn, spec=spec, fused=fused)
 
+    def _kernel_variant(self, kern, servable: Servable, entry: _Entry, rows: int,
+                        override=None) -> tuple[bool, bool]:
+        """(quantized, fused) for one batch of `rows`. With the plane off it
+        is the fixed choice of `entry`; armed, the per-bucket decision, whose
+        baseline is model.apply on the float params. `override` is the
+        autotune's pin, so measurement runs through the same entry as live
+        traffic."""
+        if kern is None:
+            return False, entry.fused
+        dec = override if override is not None else kern.decision(servable, rows)
+        return dec or (False, False)
+
     def _execute(self, servable: Servable, arrays: dict[str, np.ndarray],
-                 output_keys: tuple[str, ...] | None) -> dict[str, np.ndarray]:
+                 output_keys: tuple[str, ...] | None,
+                 _kernel_override: tuple[bool, bool] | None = None) -> dict[str, np.ndarray]:
         """Device stage for one padded batch: fold, pack, upload, device
         step, readback."""
         entry = self.step_for(servable)
+        kern = self.kernels
+        rows = next(iter(arrays.values())).shape[0]
+        quantized, fused = self._kernel_variant(kern, servable, entry, rows, _kernel_override)
+        params = kern.params_for(servable, True) if quantized else servable.params
+        if not fused:
+            step = servable.model.apply
+        elif not quantized and entry.fused:
+            step = entry.fn  # the one float fused step of this servable
+        else:
+            step = kern.pallas_apply_for(servable, quantized)
         model = servable.model
         ids = arrays.get("feat_ids")
         if ids is not None and ids.dtype == np.int64 and model.folds_ids_on_host:
@@ -288,11 +317,11 @@ class DynamicBatcher:
         packed = pack_host(arrays, entry.spec) if entry.spec else arrays
         batch = unpack_device(to_device(packed, self.device), entry.spec)
         with torch.inference_mode():
-            out = entry.fn(servable.params, batch)
+            out = step(params, batch)
             if output_keys is not None:
                 out = {k: v for k, v in out.items() if k in output_keys} or out
             host = {k: v.cpu().numpy() for k, v in out.items()}
-        if entry.fused:
+        if fused:
             self.stats.fused_batches += 1
         return host
 

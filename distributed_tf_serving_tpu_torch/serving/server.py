@@ -5,7 +5,7 @@ PredictionServiceImpl.
 CLI:
 
     python -m distributed_tf_serving_tpu_torch.serving.server --port 9999 \
-        [--config configs/latency.toml] [--device cuda|cpu]
+        [--config configs/latency.toml] [--device cuda|cpu] [--kernels]
 
 serves a randomly initialized demo servable (numpy-seeded) of the
 configured model kind. The device defaults to "cuda"; without a card the
@@ -38,7 +38,7 @@ from ..proto.service_grpc import (
     ModelServiceServicer,
     PredictionServiceServicer,
 )
-from ..utils.config import ServerConfig, load_config
+from ..utils.config import KernelsConfig, ServerConfig, load_config
 from .batcher import DynamicBatcher
 from .service import PredictionServiceImpl, ServiceError
 
@@ -168,15 +168,22 @@ def load_demo_servable(
 
 
 def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None,
-                seed: int = 0, fused_kernel: bool = True):
+                seed: int = 0, fused_kernel: bool = True,
+                kernels_config: KernelsConfig | None = None):
     """(impl, batcher, servable): a demo servable loaded, warmed through
     every bucket, and a started batcher. fused_kernel=False serves dcn_v2
-    through model.apply instead of the fused serve kernel."""
+    through model.apply instead of the fused serve kernel. An enabled
+    `kernels_config` arms the kernel plane: the per-bucket autotune runs
+    after warmup and its decisions pick the device step. On a CUDA device a
+    failed autotune raises and the server does not start; on the CPU it is
+    logged and every bucket serves the baseline."""
     batcher = DynamicBatcher(
         buckets=cfg.buckets, max_wait_us=cfg.max_wait_us, device=device,
         queue_capacity_candidates=cfg.queue_capacity_candidates,
         fused_kernel=fused_kernel,
     )
+    kernels = kernels_config.build() if kernels_config is not None else None
+    batcher.kernels = kernels
     registry = ServableRegistry()
     impl = PredictionServiceImpl(registry, batcher)
     impl.warmup_complete = False
@@ -189,6 +196,15 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     t0 = time.perf_counter()
     batcher.warmup(servable)
     log.info("warmed %d buckets in %.2fs", len(batcher.buckets), time.perf_counter() - t0)
+    if kernels is not None:
+        t0 = time.perf_counter()
+        try:
+            kernels.prepare(batcher, servable)
+        except Exception:  # noqa: BLE001 — on the CPU: no decisions, the baseline serves
+            if batcher.device.type == "cuda":
+                raise  # a kernel that fails on the card stops the server
+            log.exception("kernel autotune failed; serving the baseline")
+        log.info("kernel plane prepared in %.2fs", time.perf_counter() - t0)
     batcher.start()
     impl.warmup_complete = True
     return impl, batcher, servable
@@ -201,6 +217,13 @@ def serve(argv=None) -> None:
     p.add_argument("--host", default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="demo weight seed")
+    p.add_argument(
+        "--kernels", action="store_true",
+        help="kernel/quantization plane: int8 weight quantization and the fused "
+        "serve kernel, each enabled per bucket only where the load-time autotune "
+        "measured a speedup on this device and the accuracy gates passed. "
+        "Equivalent to [kernels] enabled = true",
+    )
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
 
@@ -210,7 +233,12 @@ def serve(argv=None) -> None:
         cfg = dataclasses.replace(cfg, port=args.port)
     if args.host is not None:
         cfg = dataclasses.replace(cfg, host=args.host)
-    impl, batcher, servable = build_stack(cfg, loaded.get("model"), args.device, args.seed)
+    kernels_config = loaded.get("kernels") or KernelsConfig()
+    if args.kernels:
+        kernels_config = dataclasses.replace(kernels_config, enabled=True)
+    impl, batcher, servable = build_stack(
+        cfg, loaded.get("model"), args.device, args.seed, kernels_config=kernels_config,
+    )
     server, port = create_server(impl, f"{cfg.host}:{cfg.port}", cfg.max_workers)
     server.start()
     log.info(

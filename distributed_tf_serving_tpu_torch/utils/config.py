@@ -1,4 +1,4 @@
-"""TOML config: the [server] and [model] sections the port reads.
+"""TOML config: the [server], [model] and [kernels] sections the port reads.
 
 Other sections of the JAX package's config files (planes this package has
 not ported yet) are ignored with one log line, as are [server] keys that
@@ -33,6 +33,73 @@ class ServerConfig:
     queue_capacity_candidates: int | None = None
 
 
+@dataclasses.dataclass(frozen=True)
+class KernelsConfig:
+    """Kernel/quantization plane knobs (ops/quantize.py, ops/autotune.py and
+    the fused serve kernel): post-training int8 weight quantization and the
+    fused serve step, each enabled per bucket only where the load-time
+    autotune measured it faster than the baseline (model.apply on the float
+    params) on this device AND it passed the accuracy gates. Off by
+    default; off, the batcher reads one attribute per dispatch and serves
+    as it does without the plane. Same fields and defaults as the JAX
+    package's [kernels] section, but for the table file."""
+
+    # Master switch: build a KernelManager, attach it to the batcher, and
+    # run the autotune at load.
+    enabled: bool = False
+    # Candidate families the autotune considers.
+    quantize: bool = True
+    pallas: bool = True  # the fused serve kernel (the JAX package's name)
+    # Measure at load; False serves only decisions adopted from table_file.
+    autotune: bool = True
+    # Measure and record everything, enable nothing.
+    measure_only: bool = False
+    # Decision-table persistence ("" disables it). Not the JAX package's
+    # file: the two servers' tables would overwrite each other.
+    table_file: str = "artifacts/kernel_autotune_torch.json"
+    # Gates: speedup >= min_speedup AND max |dscore| vs the float baseline
+    # <= max_abs_delta AND (with labeled eval data) |dAUC| <= auc_margin.
+    min_speedup: float = 1.0
+    max_abs_delta: float = 0.005
+    auc_margin: float = 0.005
+    # Timing iterations per (bucket, variant); 0 = auto (device-scaled).
+    measure_iters: int = 0
+    # Subset of the bucket ladder to tune; empty = the whole ladder.
+    autotune_buckets: tuple[int, ...] = ()
+    # The int8 score response wire is not ported yet; the key parses so the
+    # JAX package's config files load unchanged.
+    int8_score_wire: bool = False
+
+    def __post_init__(self):
+        for name in ("min_speedup", "max_abs_delta", "auc_margin"):
+            v = getattr(self, name)
+            if not isinstance(v, (int, float)) or isinstance(v, bool) or v <= 0:
+                raise ValueError(f"[kernels] {name} must be a positive number, got {v!r}")
+        if not isinstance(self.measure_iters, int) or \
+                isinstance(self.measure_iters, bool) or self.measure_iters < 0:
+            raise ValueError(
+                "[kernels] measure_iters must be a non-negative integer, "
+                f"got {self.measure_iters!r}"
+            )
+        for b in self.autotune_buckets:
+            if not isinstance(b, int) or b <= 0:
+                raise ValueError(
+                    "[kernels] autotune_buckets must be positive integers, "
+                    f"got {self.autotune_buckets!r}"
+                )
+        if self.int8_score_wire:
+            raise ValueError(
+                "[kernels] int8_score_wire is not ported yet (ROADMAP.md Queue A "
+                "item 4, output compaction and the int8 score wire)"
+            )
+
+    def build(self):
+        """KernelManager per this config, or None when disabled."""
+        from ..ops.autotune import KernelManager
+
+        return KernelManager(self) if self.enabled else None
+
+
 def _coerce(cls, data: dict[str, Any], section: str, strict: bool):
     fields = {f.name for f in dataclasses.fields(cls)}
     unknown = sorted(set(data) - fields)
@@ -48,13 +115,16 @@ def _coerce(cls, data: dict[str, Any], section: str, strict: bool):
 
 
 def load_config(path) -> dict[str, Any]:
-    """Parse a TOML file: {"server": ServerConfig, "model": ModelConfig}
-    ("model" only when the file has a [model] section)."""
+    """Parse a TOML file: {"server": ServerConfig, "model": ModelConfig,
+    "kernels": KernelsConfig} ("model" and "kernels" only when the file has
+    that section)."""
     raw = tomllib.loads(pathlib.Path(path).read_text())
     out: dict[str, Any] = {"server": _coerce(ServerConfig, raw.get("server", {}), "server", False)}
     if "model" in raw:
         out["model"] = _coerce(ModelConfig, raw["model"], "model", True)
-    extra = sorted(set(raw) - {"server", "model"})
+    if "kernels" in raw:
+        out["kernels"] = _coerce(KernelsConfig, raw["kernels"], "kernels", True)
+    extra = sorted(set(raw) - {"server", "model", "kernels"})
     if extra:
         log.info("ignoring config sections this package does not use: %s", extra)
     return out

@@ -50,6 +50,9 @@ from distributed_tf_serving_tpu_torch.serving.batcher import DynamicBatcher
 import distributed_tf_serving_tpu_torch.serving.service  # noqa: F401
 import distributed_tf_serving_tpu_torch.ops.cross_kernel  # noqa: F401
 import distributed_tf_serving_tpu_torch.convert  # noqa: F401
+import distributed_tf_serving_tpu_torch.ops.autotune  # noqa: F401
+import distributed_tf_serving_tpu_torch.ops.quantize  # noqa: F401
+import distributed_tf_serving_tpu_torch.train.data  # noqa: F401
 reg = ServableRegistry()
 cfg = ModelConfig(num_fields=6, vocab_size=1024, embed_dim=4, mlp_dims=(8,),
                   num_cross_layers=2, use_pallas_cross=True)

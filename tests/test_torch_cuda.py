@@ -7,8 +7,9 @@ machine with the card and without JAX it runs alone:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-Tolerances: fused serve scores 2e-5 (f32) / 5e-3 (bf16); cross stack
-allclose rtol = atol = 1e-5 (f32) / 2e-2 (bf16).
+Tolerances: fused serve scores (float and int8 weights) 2e-5 (f32) / 5e-3
+(bf16); cross stack allclose rtol = atol = 1e-5 (f32) / 2e-2 (bf16); the
+int8 kernel through the batcher 5e-3 against the quantized model.apply.
 """
 
 import numpy as np
@@ -23,7 +24,9 @@ from distributed_tf_serving_tpu_torch.models import (
 )
 from distributed_tf_serving_tpu_torch.models.embeddings import field_embed
 from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+from distributed_tf_serving_tpu_torch.ops.quantize import quantize_params
 from distributed_tf_serving_tpu_torch.serving.batcher import DynamicBatcher
+from distributed_tf_serving_tpu_torch.utils.config import KernelsConfig
 
 SERVE_TOL = {"float32": 2e-5, "bfloat16": 5e-3}
 CROSS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -74,7 +77,7 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape, compute_dtype,
     out = ck.fused_serve(ids, wts, sw)
     xc = ck.fused_cross_apply(x0, sw.wc, sw.bc, compute_dtype=cfg.cdtype)
     torch.cuda.synchronize()
-    assert ck.launches == {"fused_serve": 1, "fused_cross_apply": 1}
+    assert ck.launches == {"fused_serve": 1, "fused_serve_int8": 0, "fused_cross_apply": 1}
     ref = ck.fused_serve_reference(ids, wts, sw)
     tol = SERVE_TOL[compute_dtype]
     torch.testing.assert_close(out["prediction_node"], ref["prediction_node"], rtol=0, atol=tol)
@@ -82,6 +85,25 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape, compute_dtype,
     ctol = CROSS_TOL[compute_dtype]
     torch.testing.assert_close(xc.float(), ck.cross_stack_reference(
         x0, sw.wc, sw.bc, cfg.cdtype).float(), rtol=ctol, atol=ctol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 17, 300])
+def test_int8_kernel_matches_plain_version_on_card(cuda_device, shape, compute_dtype, n):
+    cfg, _, params = _setup(cuda_device, compute_dtype, *shape)
+    sw = ck.build_fused_serve(quantize_params(params), cfg).serve_weights
+    assert sw.quantized and sw.wc.dtype == torch.int8
+    ids, wts = _inputs(cfg, n, cuda_device, seed=n)
+    ck.reset_launches()
+    out = ck.fused_serve(ids, wts, sw)
+    torch.cuda.synchronize()
+    assert ck.launches == {"fused_serve": 0, "fused_serve_int8": 1, "fused_cross_apply": 0}
+    ref = ck.fused_serve_reference(ids, wts, sw)
+    torch.testing.assert_close(out["prediction_node"], ref["prediction_node"], rtol=0,
+                               atol=SERVE_TOL[compute_dtype])
+    assert torch.isfinite(out["logits"]).all()
 
 
 @pytest.mark.cuda
@@ -135,3 +157,50 @@ def test_use_pallas_cross_model_runs_the_cross_kernel(cuda_device):
     assert ck.launches["fused_cross_apply"] == 1
     want = model.apply(params, batch)["prediction_node"]
     torch.testing.assert_close(got, want, rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_kernels_plane_batcher_launches_the_int8_kernel(cuda_device, compute_dtype):
+    """An armed plane's pallas_int8 entry (the override the autotune and
+    chip_smoke.py use) launches the int8 kernel and scores within 5e-3 of
+    model.apply on the quantized tree."""
+    cfg, model, params = _setup(cuda_device, compute_dtype, 10, 8, (32, 16))
+    sv = Servable(name="DCN", version=1, model=model, params=params,
+                  signatures=ctr_signatures(cfg.num_fields))
+    batcher = DynamicBatcher(buckets=(16, 64), max_wait_us=0, device=cuda_device)
+    batcher.kernels = KernelsConfig(enabled=True, table_file="").build()
+    rng = np.random.RandomState(1)
+    arrays = {"feat_ids": rng.randint(0, 1 << 40, size=(64, 10)).astype(np.int64),
+              "feat_wts": rng.rand(64, 10).astype(np.float32)}
+    ck.reset_launches()
+    got = batcher._execute(sv, arrays, ("prediction_node",),
+                           _kernel_override=(True, True))["prediction_node"]
+    assert ck.launches["fused_serve_int8"] == 1 and ck.launches["fused_serve"] == 0
+    want = model.apply(quantize_params(params), {
+        k: torch.from_numpy(v).to(cuda_device) for k, v in arrays.items()
+    })["prediction_node"].float().cpu().numpy()
+    assert got.shape == (64,)
+    assert np.max(np.abs(got - want)) <= 5e-3
+
+
+@pytest.mark.cuda
+def test_failing_kernel_stops_build_stack_on_card(cuda_device, monkeypatch):
+    """A fused variant that fails in the load-time autotune makes
+    build_stack raise on the card: the server does not start on a quiet
+    fallback to model.apply."""
+    from distributed_tf_serving_tpu_torch.ops.autotune import KernelManager
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack
+    from distributed_tf_serving_tpu_torch.utils.config import ServerConfig
+
+    def boom(params, batch):
+        raise RuntimeError("kernel launch failed")
+
+    real = KernelManager.pallas_apply_for
+    monkeypatch.setattr(KernelManager, "pallas_apply_for",
+                        lambda self, sv, quantized: boom if quantized else real(self, sv, quantized))
+    cfg = ServerConfig(num_fields=10, buckets=(16,), max_wait_us=0)
+    mc = ModelConfig(num_fields=10, embed_dim=8, mlp_dims=(32, 16), vocab_size=1 << 14,
+                     num_cross_layers=3)
+    with pytest.raises(RuntimeError, match="kernel variant pallas_int8 failed"):
+        build_stack(cfg, mc, "cuda", kernels_config=KernelsConfig(enabled=True, table_file=""))
