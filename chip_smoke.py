@@ -9,15 +9,25 @@ Phases (any failure exits non-zero and prints no result line):
 1. device  — card name; `nvidia-smi` name and power limit.
 2. build   — nvcc builds every kernel source of the package (sm_90a).
 3. kernels — each kernel at the serving width (43 fields x 16, vocab 2^20,
-             3 cross layers, MLP 256/128/64) at buckets 256 and 2048, in
-             bf16 and f32, held against its plain PyTorch version on the
-             same inputs, and timed beside it three ways: `ms`, CUDA
+             3 cross layers, MLP 256/128/64), in bf16 at the four buckets
+             of configs/latency.toml (256, 512, 1024, 2048) and in f32 at
+             256 and 2048 (the cross stack at 256 and 2048 in both), held
+             against its plain PyTorch version on the same inputs, and
+             timed beside it three ways: `ms`, CUDA
              events around one call (the wrapper's host time included, as
              the serving path pays it); `loop_ms`, around runs of 50
              back-to-back calls; `device_ms`, the device time of one call
              from torch.profiler. The fused
              serve step runs on the seed-0 demo weights (fused_serve) and
-             on their ops/quantize.py int8 tree (fused_serve_int8).
+             on their ops/quantize.py int8 tree (fused_serve_int8); in
+             bf16 at the cluster size its rule picks (`cluster`), and again
+             with every cluster size 1, 2, 4, 8 forced, each forced run
+             held to the plain version and model.apply and timed
+             (`loop_ms`, `device_ms`). The card's cluster capacity
+             (cudaOccupancyMaxActiveClusters at the serving shared memory)
+             and nvcc's registers and spills are printed; a spill fails.
+             The bf16 cross stack also records `layout_loop_ms`, its
+             wrapper's per-call weight layout alone, back to back.
              Tolerances: fused serve scores 2e-5 (f32) / 5e-3 (bf16), and
              5e-3 against model.apply (bf16 for float weights, both dtypes
              on the int8 tree); cross stack allclose with rtol = atol =
@@ -65,7 +75,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SERVE_TOL = {"float32": 2e-5, "bfloat16": 5e-3}
 CROSS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 APPLY_TOL = 5e-3
-BUCKETS = (256, 2048)
+BUCKETS = {"bfloat16": (256, 512, 1024, 2048), "float32": (256, 2048)}
+CROSS_BUCKETS = (256, 2048)
+CLUSTERS = (1, 2, 4, 8)
 SEED = 0
 
 
@@ -134,14 +146,15 @@ def loop_ms(fn, iters: int = 50, runs: int = 3, warmup: int = 5) -> float:
 
 def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
     """Device time of one call from torch.profiler: the summed device time
-    of every kernel the call launched, over the count. A profile that saw
-    no device time at all (the tracer dropped the window) is taken again;
-    one that never does fails the run."""
+    of every kernel the call launched, over the count; the median of
+    `attempts` profiles, since the tracer sometimes drops part of a
+    window. A run in which no profile saw device time fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -152,8 +165,23 @@ def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
             for e in prof.key_averages()
         )
         if busy_us > 0:
-            return busy_us / iters / 1e3
-    fail(f"torch.profiler recorded no device time in {attempts} profiles of {iters} calls")
+            seen.append(busy_us / iters / 1e3)
+    if not seen:
+        fail(f"torch.profiler recorded no device time in {attempts} profiles of {iters} calls")
+    return statistics.median(seen)
+
+
+def check_build(src: str, info: dict) -> None:
+    """Print each kernel's registers and spills from ptxas; fail on a spill."""
+    import re
+
+    regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
+    log(f"build: {src} nvcc {info['seconds']:.2f} s; " + " | ".join(regs))
+    if not regs:
+        fail(f"no ptxas register report for {src} (a library reused without its build log)")
+    spills = [int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", info["log"])]
+    if any(spills):
+        fail(f"ptxas reports spills in {src}: " + " | ".join(ln for ln in regs if "spill" in ln))
 
 
 def timings(fn, plain_fn) -> dict:
@@ -229,69 +257,84 @@ def phase_kernels(dev) -> dict:
         model = build_model("dcn_v2", cfg)
         params = model.init(SEED, dev)
         qparams = quantize_params(params)
-        sw = ck.build_fused_serve(params, cfg).serve_weights
-        swq = ck.build_fused_serve(qparams, cfg).serve_weights
+        weights = {"fused_serve": (params, ck.build_fused_serve(params, cfg).serve_weights),
+                   "fused_serve_int8": (qparams, ck.build_fused_serve(qparams, cfg).serve_weights)}
+        if cd == "bfloat16":
+            for kname, (_, sw) in weights.items():
+                cap = ck.serve_capacity(sw)
+                log(f"kernels: {kname} bf16 clusters resident at once (cudaOccupancyMaxActive"
+                    f"Clusters, {ck.serve_smem_bytes(sw.d, [w.shape[1] for w, _ in sw.mlp])} B "
+                    f"of shared memory per block): " + ", ".join(
+                        f"C={c}: {k}" for c, k in zip(ck.CLUSTER_SIZES, cap))
+                    + f" (16 clusters of 8 fit one wave: {cap[3] >= 16})")
         wts_dtype = cfg.cdtype  # the transfer spec ships bf16 weights for bf16 models
-        for n in BUCKETS:
+        for n in BUCKETS[cd]:
             g = torch.Generator(device="cpu").manual_seed(SEED + n)
             raw = torch.randint(0, 1 << 40, (n, cfg.num_fields), generator=g, dtype=torch.int64)
             ids = torch.remainder(raw, cfg.vocab_size).to(torch.int32).to(dev)
             wts_f32 = torch.rand((n, cfg.num_fields), generator=g).to(dev)
             wts = wts_f32.to(wts_dtype)
+            app_float = None
+            for kname, (tree, sw) in weights.items():
+                # Held to model.apply on the same tree at 5e-3 in bf16, and
+                # on the int8 tree in f32 too; f32 float weights are held to
+                # the plain version alone (2e-5).
+                app = model.apply(tree, {"feat_ids": raw.to(dev), "feat_wts": wts})
+                app_float = app if kname == "fused_serve" else app_float
+                gate_apply = cd == "bfloat16" or kname == "fused_serve_int8"
+                ref = ck.fused_serve_reference(ids, wts, sw)
 
-            out = ck.fused_serve(ids, wts, sw)
-            torch.cuda.synchronize()
-            ref = ck.fused_serve_reference(ids, wts, sw)
-            err = (out["prediction_node"] - ref["prediction_node"]).abs().max().item()
-            if not torch.isfinite(out["logits"]).all():
-                fail(f"fused_serve {cd} n={n}: non-finite logits")
-            if err > SERVE_TOL[cd]:
-                fail(f"fused_serve {cd} n={n}: max |dscore| {err} > {SERVE_TOL[cd]}")
-            app = model.apply(params, {"feat_ids": raw.to(dev), "feat_wts": wts})
-            err_apply = (out["prediction_node"] - app["prediction_node"]).abs().max().item()
-            if cd == "bfloat16" and err_apply > APPLY_TOL:
-                fail(f"fused_serve bf16 n={n}: max |dscore| vs model.apply {err_apply} > {APPLY_TOL}")
-            t = timings(lambda: ck.fused_serve(ids, wts, sw),
-                        lambda: ck.fused_serve_reference(ids, wts, sw))
-            b_ms, b_by = bound(*serve_cost(n, ids, sw, cd), cd)
-            rows["fused_serve"].append({
-                "dtype": cd, "n": n, "max_abs_err": err, "tol": SERVE_TOL[cd],
-                "max_abs_err_vs_model_apply": err_apply, **t,
-                "bound_ms": b_ms, "bound_by": b_by,
-            })
-            log(f"kernels: fused_serve {cd} n={n} err={err:.3g} vs_apply={err_apply:.3g} "
-                f"{fmt_times(t)} bound_ms={b_ms:.5f} ({b_by})")
+                def check(out, what):
+                    err = (out["prediction_node"] - ref["prediction_node"]).abs().max().item()
+                    err_apply = (out["prediction_node"] - app["prediction_node"]).abs().max().item()
+                    if not torch.isfinite(out["logits"]).all():
+                        fail(f"{what}: non-finite logits")
+                    if err > SERVE_TOL[cd]:
+                        fail(f"{what}: max |dscore| {err} > {SERVE_TOL[cd]}")
+                    if gate_apply and err_apply > APPLY_TOL:
+                        fail(f"{what}: max |dscore| vs model.apply {err_apply} > {APPLY_TOL}")
+                    return err, err_apply
 
-            # The int8 variant on the quantized tree.
-            outq = ck.fused_serve(ids, wts, swq)
-            torch.cuda.synchronize()
-            refq = ck.fused_serve_reference(ids, wts, swq)
-            errq = (outq["prediction_node"] - refq["prediction_node"]).abs().max().item()
-            if not torch.isfinite(outq["logits"]).all():
-                fail(f"fused_serve_int8 {cd} n={n}: non-finite logits")
-            if errq > SERVE_TOL[cd]:
-                fail(f"fused_serve_int8 {cd} n={n}: max |dscore| {errq} > {SERVE_TOL[cd]}")
-            appq = model.apply(qparams, {"feat_ids": raw.to(dev), "feat_wts": wts})
-            errq_apply = (outq["prediction_node"] - appq["prediction_node"]).abs().max().item()
-            if errq_apply > APPLY_TOL:
-                fail(f"fused_serve_int8 {cd} n={n}: max |dscore| vs model.apply on the int8 "
-                     f"tree {errq_apply} > {APPLY_TOL}")
-            dscore_f32 = (outq["prediction_node"] - app["prediction_node"]).abs().max().item()
-            tq = timings(lambda: ck.fused_serve(ids, wts, swq),
-                         lambda: ck.fused_serve_reference(ids, wts, swq))
-            qb_ms, qb_by = bound(*serve_cost(n, ids, swq, cd), cd)
-            rows["fused_serve_int8"].append({
-                "dtype": cd, "n": n, "max_abs_err": errq, "tol": SERVE_TOL[cd],
-                "max_abs_err_vs_model_apply": errq_apply,
-                "dscore_vs_float_model_apply": dscore_f32, **tq,
-                "bound_ms": qb_ms, "bound_by": qb_by,
-            })
-            log(f"kernels: fused_serve_int8 {cd} n={n} err={errq:.3g} vs_apply={errq_apply:.3g} "
-                f"dscore_vs_float={dscore_f32:.3g} {fmt_times(tq)} "
-                f"bound_ms={qb_ms:.5f} ({qb_by})")
+                out = ck.fused_serve(ids, wts, sw)
+                torch.cuda.synchronize()
+                err, err_apply = check(out, f"{kname} {cd} n={n}")
+                t = timings(lambda: ck.fused_serve(ids, wts, sw),
+                            lambda: ck.fused_serve_reference(ids, wts, sw))
+                b_ms, b_by = bound(*serve_cost(n, ids, sw, cd), cd)
+                row = {"dtype": cd, "n": n, "max_abs_err": err, "tol": SERVE_TOL[cd],
+                       "max_abs_err_vs_model_apply": err_apply}
+                extra = ""
+                if kname == "fused_serve_int8":
+                    # Recorded, not gated: what the autotune's max_abs_delta reads.
+                    row["dscore_vs_float_model_apply"] = (
+                        out["prediction_node"] - app_float["prediction_node"]).abs().max().item()
+                    extra = f" dscore_vs_float={row['dscore_vs_float_model_apply']:.3g}"
+                if cd == "bfloat16":
+                    row["cluster"] = ck.serve_cluster(n, ck.serve_capacity(sw))
+                    extra += f" cluster={row['cluster']}"
+                row.update(t, bound_ms=b_ms, bound_by=b_by)
+                rows[kname].append(row)
+                log(f"kernels: {kname} {cd} n={n} err={err:.3g} vs_apply={err_apply:.3g}{extra} "
+                    f"{fmt_times(t)} bound_ms={b_ms:.5f} ({b_by})")
+                if cd != "bfloat16":
+                    continue
+                for c in CLUSTERS:
+                    fn = lambda c=c: ck.fused_serve(ids, wts, sw, _cluster=c)  # noqa: E731
+                    out = fn()
+                    torch.cuda.synchronize()
+                    err, err_apply = check(out, f"{kname} {cd} n={n} forced cluster={c}")
+                    tc = {"loop_ms": loop_ms(fn), "device_ms": device_ms(fn)}
+                    rows[kname].append({"dtype": cd, "n": n, "cluster": c, "forced": True,
+                                        "max_abs_err": err, "max_abs_err_vs_model_apply": err_apply,
+                                        **tc})
+                    log(f"kernels: {kname} {cd} n={n} forced cluster={c} err={err:.3g} "
+                        f"vs_apply={err_apply:.3g} {fmt_times(tc)}")
 
+            if n not in CROSS_BUCKETS:
+                continue
             # The cross stack on what the main path hands it: model.apply's
             # compute-dtype x0 from the weighted field gather.
+            sw = weights["fused_serve"][1]
             x0 = field_embed(params["embedding"], ids, wts, cfg.cdtype).reshape(n, sw.d)
             xc = ck.fused_cross_apply(x0, sw.wc, sw.bc, compute_dtype=cfg.cdtype)
             torch.cuda.synchronize()
@@ -304,6 +347,11 @@ def phase_kernels(dev) -> dict:
             tc = timings(
                 lambda: ck.fused_cross_apply(x0, sw.wc, sw.bc, compute_dtype=cfg.cdtype),
                 lambda: ck.cross_stack_reference(x0, sw.wc, sw.bc, cfg.cdtype))
+            if cd == "bfloat16":
+                # The wrapper lays the weights out for the kernel on every
+                # call: that step alone, back to back, to separate it from
+                # the kernel in `loop_ms`.
+                tc["layout_loop_ms"] = loop_ms(lambda: ck.mma_layout(sw.wc))
             cb_ms, cb_by = bound(*cross_cost(n, sw.d, sw.wc.shape[0], cd), cd)
             rows["fused_cross_apply"].append({
                 "dtype": cd, "n": n, "max_abs_err": cerr, "tol": CROSS_TOL[cd], **tc,
@@ -311,7 +359,7 @@ def phase_kernels(dev) -> dict:
             })
             log(f"kernels: fused_cross_apply {cd} n={n} err={cerr:.3g} {fmt_times(tc)} "
                 f"bound_ms={cb_ms:.5f} ({cb_by})")
-        del params, qparams, sw, swq, model
+        del params, qparams, weights, model
         torch.cuda.empty_cache()
     return rows
 
@@ -628,8 +676,7 @@ def main() -> None:
     cuda_build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for src, info in cuda_build.build_info.items():
-        regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
-        log(f"build: {src} nvcc {info['seconds']:.2f} s; " + " | ".join(regs))
+        check_build(src, info)
 
     t0 = time.perf_counter()
     rows = phase_kernels(dev)
@@ -648,7 +695,8 @@ def main() -> None:
     }
     kernels = []
     for kname, replaces in meta.items():
-        head = next(r for r in rows[kname] if r["dtype"] == "bfloat16" and r["n"] == 2048)
+        head = next(r for r in rows[kname]
+                    if r["dtype"] == "bfloat16" and r["n"] == 2048 and not r.get("forced"))
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"{PKG}/csrc/cross_kernel.cu", "replaces": replaces,
@@ -660,6 +708,8 @@ def main() -> None:
             "bound_by": head["bound_by"], "library_ms": None,
             "shape": "bf16, 2048 rows", "by_shape": rows[kname],
         })
+        if "cluster" in head:
+            kernels[-1]["cluster"] = head["cluster"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,18 +21,55 @@
 // The int8 variant streams 1 byte per weight plus f32 scales (~1.64 MB at
 // that width against ~3.3 MB of bf16), the same arithmetic otherwise.
 //
+// What bounds the bf16 fused serve kernel in practice is neither peak.
+// A 16-row tile re-reads every weight from L2: 3.4 MB per tile, 435 MB at
+// 2048 rows, which in the ~0.075 ms it takes is ~5.8 TB/s of L2 reads, so
+// there the L2 stream is the likely limit and more rows per block (each
+// weight fragment feeding several mmas) the lever. At the small buckets
+// few tiles exist,
+// and a tile's time is the serial work of one warp: per 32-deep k chunk
+// two B loads from L2 and dependent mma.sync, in groups of 4 chunks whose
+// loads are issued together (one L2 round trip per group). The cluster
+// split below divides that work over up to 8 SMs per tile.
+//
 // Design (what the TPU kernel did, and what changes here):
-//   * One block owns a tile of ROWS rows through ALL layers: a layer needs
-//     the whole previous row, so nothing crosses blocks. The block keeps its
-//     rows' x0 (f32) and the carried activation x (compute dtype, double
-//     buffered) in shared memory, with one __syncthreads() per layer.
+//   * A tile of ROWS rows goes through ALL layers in one launch: a layer
+//     needs the whole previous row. The tile's x0 (f32) and the carried
+//     activation x (compute dtype, double buffered) live in shared memory.
 //   * The TPU kernel kept every weight matrix resident in VMEM; a 688x688
 //     bf16 matrix alone is 0.95 MB against 227 KB of shared memory per
 //     block, so here weights stream from L2 (the 3.3 MB of bf16 weights fit
-//     the 50 MB L2 many times over) and each block reads each weight once.
-//     With ROWS = 16 that L2 stream, not the arithmetic, is what a block
-//     waits on; more rows per block would cut it but leave SMs idle at the
-//     small buckets.
+//     the 50 MB L2 many times over).
+//   * Thread-block cluster (bf16 fused serve): a tile is served by a
+//     cluster of C in {1, 2, 4, 8} blocks on neighbouring SMs. Rank r owns
+//     the 8-column output tiles [r*nt/C, (r+1)*nt/C) of every layer (nt =
+//     pad_n(N)/8), so it streams 1/C of the weights and its warps' chains
+//     shrink by about C. C is the largest with all tiles' clusters resident
+//     at once (the host's rule, ops/cross_kernel.py serve_cluster, from
+//     cudaOccupancyMaxActiveClusters; one 512-thread block per SM). A cluster must
+//     fit one GPC, so an H100 SXM holds 15 clusters of 8, 30 of 4 and 66 of
+//     2 (not 132 / C): 256 rows (16 tiles) take C = 4, 512 and 1024 take
+//     C = 2 and 2048 keeps the one-block kernel; a second wave would cost
+//     more than the smaller C. Every block gathers the whole x0 tile itself
+//     (~44 KB of table rows, cheap next to the weights), so layer 0 of the
+//     cross stack and of the MLP need no exchange.
+//   * Exchange, one cluster barrier per layer: each rank writes its own
+//     columns of `nxt` locally, cluster.sync(), then copies every peer's
+//     columns of `nxt` from that peer's shared memory into its own (16-byte
+//     DSMEM loads; an 8-column tile of one row is exactly 16 bytes), then
+//     __syncthreads(). One barrier suffices because of the double buffers
+//     and because a rank pulls from a peer only the columns that peer owns:
+//     a peer writes its owned columns of buffer X again two layers later
+//     (X is `nxt` at layers l and l+2), after the barrier of layer l+1,
+//     which no rank passes before every rank has finished the pull of
+//     layer l; and the columns a rank writes into its own X while pulling
+//     are ones no peer ever reads from it. The last layer of the MLP and of
+//     the cross stack is not exchanged: the head needs only own columns.
+//   * Partial head: each rank sums wo over its own columns of the last
+//     cross output and of the last MLP output; after a cluster barrier rank
+//     0 adds the C partials (rank order), adds bo and writes the scores; a
+//     last barrier keeps every block resident until rank 0 has read its
+//     shared memory. C = 1 takes none of the cluster steps.
 //   * bf16 (the serving dtype) runs on the tensor cores: mma.sync m16n8k16
 //     with f32 accumulation. The 16 rows are the mma's M; activations sit
 //     row-major in shared memory (row stride padded so the fragment loads
@@ -41,8 +78,11 @@
 //     reads 16 contiguous bytes of A and of B per 32-deep k chunk. Within a
 //     chunk the k order is permuted identically in A and B, which leaves
 //     the sum unchanged. Each warp owns two 8-column output tiles at a time
-//     and issues the B loads of four chunks before their mmas; sixteen
-//     warps per block keep enough L2 reads in flight.
+//     and issues the B loads of four chunks before their mmas. A rank's
+//     ~22 cross-layer tiles at C = 4 are 11 pairs for 16 warps; splitting
+//     each pair's k chunks over the idle warps (f32 partials added in
+//     shared memory) measured no faster at any C the rule picks, so it is
+//     not done. The cross-stack kernel runs the same code as one block.
 //   * f32 runs on plain FFMA (tensor cores have no f32, and TF32 would
 //     break the 1e-5 parity). Its activations are stored transposed
 //     ([column][row], ROWS contiguous): one k step reads the ROWS values of
@@ -75,6 +115,7 @@
 // Plain C interface (loaded with ctypes): pointers and the stream are raw
 // addresses; every entry returns cudaGetLastError() after its launch.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -84,6 +125,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
 constexpr int ROWS = 16;             // candidate rows per block (= mma M)
@@ -95,6 +137,11 @@ constexpr int KGROUP = 4;            // k chunks of bf16 B loads issued together
 
 __host__ __device__ inline int pad_k(int k) { return (k + KCHUNK - 1) / KCHUNK * KCHUNK; }
 __host__ __device__ inline int pad_n(int n) { return (n + 7) / 8 * 8; }
+// Rank r of a cluster of c owns the 8-column tiles [tile_begin(nt, c, r),
+// tile_begin(nt, c, r + 1)) of a layer with nt tiles; tile_owner inverts it
+// (the largest r whose range starts at or before t).
+__host__ __device__ inline int tile_begin(int nt, int c, int r) { return r * nt / c; }
+__host__ __device__ inline int tile_owner(int t, int nt, int c) { return ((t + 1) * c - 1) / nt; }
 // Row stride (elements) of a row-major bf16 activation tile read as mma A:
 // a stride of 64 mod 128 bytes keeps each 8-lane phase of the 16-byte
 // fragment loads on distinct banks.
@@ -118,15 +165,15 @@ __device__ __forceinline__ float scaled(float acc, const float* s, int j) {
   }
 }
 
-// out[r] = sum_j v[r][j] * w[j] in f32, one warp per row; element (r, j)
-// of the tile lives at v[r * rs + j * cs].
+// out[r] = sum_{j0 <= j < K} v[r][j] * w[j] in f32, one warp per row;
+// element (r, j) of the tile lives at v[r * rs + j * cs].
 template <typename T>
 __device__ void rowdot(const T* v, int rs, int cs, int K, const float* __restrict__ w,
-                       float* out) {
+                       float* out, int j0 = 0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
   for (int r = warp; r < ROWS; r += nw) {
     float s = 0.f;
-    for (int j = lane; j < K; j += 32) s = fmaf(f32_of(v[r * rs + j * cs]), w[j], s);
+    for (int j = j0 + lane; j < K; j += 32) s = fmaf(f32_of(v[r * rs + j * cs]), w[j], s);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0) out[r] = s;
@@ -320,24 +367,25 @@ struct BFrag<int8_t> {
   }
 };
 
-// C[ROWS, N] = A[ROWS, K] @ W[K, N] on the tensor cores. A is row-major in
-// shared memory (stride lda, columns [K, pad_k(K)) zero); WT is W^T laid out
-// [pad_n(N)][pad_k(K)] in global memory, zero-padded, bf16 or int8.
-// epi(r, j, value) gets every element with j < N, in f32 (unscaled).
+// C[ROWS, N] = A[ROWS, K] @ W[K, N] on the tensor cores, for the 8-column
+// output tiles [t0, t1) only. A is row-major in shared memory (stride lda,
+// columns [K, pad_k(K)) zero); WT is W^T laid out [pad_n(N)][pad_k(K)] in
+// global memory, zero-padded, bf16 or int8. epi(r, j, value) gets every
+// element of those tiles with j < N, in f32 (unscaled).
 template <typename T, typename Epi>
 __device__ __forceinline__ void mma_layer(const bf16* A, int lda, int K,
-                                          const T* __restrict__ WT, int N, Epi epi) {
+                                          const T* __restrict__ WT, int N, int t0, int t1,
+                                          Epi epi) {
   const int kp = pad_k(K);
   const int nch = kp / KCHUNK;
-  const int ntiles = pad_n(N) / 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const bf16* a_lo = A + g * lda + 8 * t;
   const bf16* a_hi = A + (g + 8) * lda + 8 * t;
   typedef typename BFrag<T>::Raw Raw;
   const Raw zero = {};
-  for (int tile = 2 * warp; tile < ntiles; tile += 2 * nw) {
-    const bool two = tile + 1 < ntiles;
+  for (int tile = t0 + 2 * warp; tile < t1; tile += 2 * nw) {
+    const bool two = tile + 1 < t1;
     float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     const T* b0p = WT + (size_t)(tile * 8 + g) * kp + 8 * t;
     const T* b1p = b0p + (size_t)8 * kp;
@@ -394,24 +442,51 @@ __device__ void zero_bf16(bf16* p, int count) {
   for (int i = threadIdx.x; i < count / 8; i += blockDim.x) q[i] = z;
 }
 
+// After cluster.sync(): copy every peer's columns of the row-major tile
+// `buf` (stride ld, nt 8-column tiles) from the peer that owns them into
+// this block's copy, one 16-byte DSMEM load per row and tile. Only the
+// owner's columns are read from a peer (the one-barrier argument in the
+// header depends on it).
+__device__ void pull_peers(bf16* buf, int ld, int nt, int c, int me) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int t0 = tile_begin(nt, c, me), own = tile_begin(nt, c, me + 1) - t0;
+  const int other = nt - own;
+  for (int i = threadIdx.x; i < ROWS * other; i += blockDim.x) {
+    int t = i % other;
+    if (t >= t0) t += own;  // skip this block's own tiles
+    bf16* p = buf + (i / other) * ld + 8 * t;
+    *reinterpret_cast<uint4*>(p) =
+        *reinterpret_cast<const uint4*>(cluster.map_shared_rank(p, tile_owner(t, nt, c)));
+  }
+}
+
 // L cross layers over row-major bf16 tiles (x0 f32 row-major, stride d);
 // returns the buffer holding x_L. sc: [L, d] scales of int8 weights.
+// Rank `me` of a cluster of c blocks computes its own columns of every
+// layer and pulls the others' after each layer but the last (whose own
+// columns are all the partial head reads).
 template <typename T>
 __device__ const bf16* mma_cross(const float* x0, bf16* xb0, bf16* xb1, int d, int ldx,
                                  const T* __restrict__ WcT, const float* __restrict__ bc,
-                                 const float* __restrict__ sc, int L) {
+                                 const float* __restrict__ sc, int L, int c, int me) {
   bf16* cur = xb0;
   bf16* nxt = xb1;
   const size_t wstride = (size_t)pad_n(d) * pad_k(d);
+  const int nt = pad_n(d) / 8;
+  const int t0 = tile_begin(nt, c, me), t1 = tile_begin(nt, c, me + 1);
   for (int l = 0; l < L; ++l) {
     const float* b = bc + (size_t)l * d;
     const float* s = sc ? sc + (size_t)l * d : nullptr;
-    mma_layer(cur, ldx, d, WcT + l * wstride, d, [&](int r, int j, float acc) {
+    mma_layer(cur, ldx, d, WcT + l * wstride, d, t0, t1, [&](int r, int j, float acc) {
       const int o = r * ldx + j;
       const float xw = __fadd_rn(scaled<T>(acc, s, j), b[j]);
       nxt[o] = __float2bfloat16_rn(
           __fadd_rn(__fmul_rn(x0[r * d + j], xw), __bfloat162float(cur[o])));
     });
+    if (c > 1 && l + 1 < L) {
+      cg::this_cluster().sync();
+      pull_peers(nxt, ldx, nt, c, me);
+    }
     __syncthreads();  // every warp read all of `cur`; the next layer overwrites it
     bf16* t = cur;
     cur = nxt;
@@ -502,9 +577,19 @@ __device__ __forceinline__ void serve_f32(const ServeArgs& a, unsigned char* sme
   write_scores(a, lc, lh, row0);
 }
 
-// T: the weights' element type (bf16, or int8_t with scales).
+// The columns [j0, j1) of a width-N layer that rank me of c owns.
+__device__ __forceinline__ void own_columns(int N, int c, int me, int& j0, int& j1) {
+  const int nt = pad_n(N) / 8;
+  j0 = 8 * tile_begin(nt, c, me);
+  j1 = min(8 * tile_begin(nt, c, me + 1), N);
+}
+
+// T: the weights' element type (bf16, or int8_t with scales). The block
+// is rank `me` of a cluster of c serving tile blockIdx.x / c (header).
 template <typename T>
 __device__ __forceinline__ void serve_bf16(const ServeArgs& a, unsigned char* smem) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), me = (int)cluster.block_rank();
   const int d = a.F * a.D;
   const int ldx = lda_of(d), ldh = lda_of(a.mmax);
   float* x0 = reinterpret_cast<float*>(smem);
@@ -514,7 +599,7 @@ __device__ __forceinline__ void serve_bf16(const ServeArgs& a, unsigned char* sm
   bf16* hb1 = hb0 + ROWS * ldh;
   float* lh = reinterpret_cast<float*>(hb1 + ROWS * ldh);
   float* lc = lh + ROWS;
-  const int row0 = blockIdx.x * ROWS;
+  const int row0 = (int)(blockIdx.x / c) * ROWS;
 
   zero_bf16(xb0, 2 * ROWS * ldx + 2 * ROWS * ldh);
   __syncthreads();
@@ -531,27 +616,54 @@ __device__ __forceinline__ void serve_bf16(const ServeArgs& a, unsigned char* sm
     const int M = a.mdims[m];
     const float* b = a.bm[m];
     const float* s = a.sm[m];
-    mma_layer(in, lda, K, static_cast<const T*>(a.wm[m]), M, [&](int r, int j, float acc) {
-      const float y = __fadd_rn(scaled<T>(acc, s, j), b[j]);
-      out[r * ldh + j] = __float2bfloat16_rn(y > 0.f ? y : 0.f);
-    });
+    const int nt = pad_n(M) / 8;
+    mma_layer(in, lda, K, static_cast<const T*>(a.wm[m]), M, tile_begin(nt, c, me),
+              tile_begin(nt, c, me + 1), [&](int r, int j, float acc) {
+                const float y = __fadd_rn(scaled<T>(acc, s, j), b[j]);
+                out[r * ldh + j] = __float2bfloat16_rn(y > 0.f ? y : 0.f);
+              });
     // Columns [M, pad_k(M)) feed the next layer's padded k: clear what an
     // earlier, wider layer left there.
     const int gap = pad_k(M) - M;
     for (int i = threadIdx.x; i < ROWS * gap; i += blockDim.x)
       out[(i / gap) * ldh + M + i % gap] = __float2bfloat16_rn(0.f);
+    if (c > 1 && m + 1 < a.n_mlp) {
+      cluster.sync();
+      pull_peers(out, ldh, nt, c, me);
+    }
     __syncthreads();
     in = out;
     lda = ldh;
     K = M;
   }
-  rowdot(in, lda, 1, K, a.wo + d, lh);
+  int j0, j1;
+  own_columns(K, c, me, j0, j1);
+  rowdot(in, lda, 1, j1, a.wo + d, lh, j0);
 
-  const bf16* xc =
-      mma_cross(x0, xb0, xb1, d, ldx, static_cast<const T*>(a.wc), a.bc, a.sc, a.L);
-  rowdot(xc, ldx, 1, d, a.wo, lc);
-  __syncthreads();
-  write_scores(a, lc, lh, row0);
+  const bf16* xc = mma_cross(x0, xb0, xb1, d, ldx, static_cast<const T*>(a.wc), a.bc, a.sc,
+                             a.L, c, me);
+  own_columns(d, c, me, j0, j1);
+  rowdot(xc, ldx, 1, j1, a.wo, lc, j0);
+  if (c == 1) {
+    __syncthreads();
+    write_scores(a, lc, lh, row0);
+    return;
+  }
+  cluster.sync();  // every rank's partial head sums are in its lc / lh
+  if (me == 0 && threadIdx.x < ROWS) {
+    const int r = threadIdx.x, row = row0 + r;
+    float pc = lc[r], ph = lh[r];
+    for (int q = 1; q < c; ++q) {
+      pc = __fadd_rn(pc, *cluster.map_shared_rank(lc + r, q));
+      ph = __fadd_rn(ph, *cluster.map_shared_rank(lh + r, q));
+    }
+    if (row < a.n) {
+      const float lo = __fadd_rn(__fadd_rn(pc, ph), a.bo[0]);
+      a.logit[row] = lo;
+      a.pred[row] = sigmoid(lo);
+    }
+  }
+  cluster.sync();  // no block exits while rank 0 may still read its partials
 }
 
 __global__ void __launch_bounds__(F32_MAX_THREADS) fused_serve_f32_kernel(ServeArgs a) {
@@ -616,7 +728,7 @@ __global__ void __launch_bounds__(BF16_THREADS)
     xb0[r * ldx + j] = v;
   }
   __syncthreads();
-  const bf16* xc = mma_cross(x0, xb0, xb1, d, ldx, wT, b, nullptr, L);
+  const bf16* xc = mma_cross(x0, xb0, xb1, d, ldx, wT, b, nullptr, L, 1, 0);
   for (int i = threadIdx.x; i < ROWS * d; i += blockDim.x) {
     const int r = i / d, j = i % d, row = row0 + r;
     if (row < n) out[(size_t)row * d + j] = xc[r * ldx + j];
@@ -651,6 +763,11 @@ size_t dts_weight_operand_bytes(int k, int n, int elem_bytes, int cd_bf16) {
   return (size_t)k * n * elem_bytes;
 }
 
+// The column partition of the bf16 fused serve cluster (the host mirrors it).
+int dts_tile_begin(int nt, int c, int r) { return tile_begin(nt, c, r); }
+int dts_tile_owner(int t, int nt, int c) { return tile_owner(t, nt, c); }
+
+// x0, two x and two h buffers, two head partials.
 size_t dts_serve_smem_bytes(int d, int mmax, int cd_bf16) {
   if (cd_bf16)
     return (size_t)ROWS * d * 4 + 2 * (size_t)ROWS * lda_of(d) * 2 +
@@ -666,16 +783,57 @@ size_t dts_cross_smem_bytes(int d, int cd_bf16) {
 
 const char* dts_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
+// The bf16 fused serve kernel for float or int8 weights, its dynamic shared
+// memory raised to `smem`.
+static cudaError_t bf16_serve_kernel(int w_int8, size_t smem, void (**kernel)(ServeArgs)) {
+  *kernel = w_int8 ? fused_serve_int8_bf16_kernel : fused_serve_bf16_kernel;
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// A launch of `blocks` bf16 blocks in clusters of c along x.
+static void cluster_launch(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int blocks,
+                           size_t smem, cudaStream_t s, int c) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(blocks);
+  cfg->blockDim = dim3(BF16_THREADS);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// How many clusters of c bf16 fused-serve blocks (width d, widest MLP
+// layer mmax) the current device holds at once, into *out.
+int dts_serve_max_active_clusters(int c, int d, int mmax, int w_int8, int* out) {
+  const size_t smem = dts_serve_smem_bytes(d, mmax, 1);
+  void (*kernel)(ServeArgs);
+  cudaError_t e = bf16_serve_kernel(w_int8, smem, &kernel);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_launch(&cfg, &attr, c, smem, nullptr, c);
+  e = cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+  cudaGetLastError();  // a refusal is returned here, not left for the next launch
+  return (int)e;
+}
+
 // w_int8: the weights are int8 with f32 per-output-channel scales sc
 // ([L, d]) and sm[m] ([M_m]); otherwise float in the compute dtype and the
-// scale pointers are ignored.
+// scale pointers are ignored. cluster: the bf16 kernels' blocks per 16-row
+// tile (>= 1; the host picks it), 0 for the f32
+// kernels; a size the launch refuses is returned as its error.
 int dts_fused_serve(const int* ids, const void* wts, int wts_bf16, const float* table,
                     const void* wc, const float* bc, int L, const void* const* wm,
                     const float* const* bm, const int* mdims, int n_mlp, const float* wo,
                     const float* bo, float* pred, float* logit, int n, int F, int D,
                     int cd_bf16, int w_int8, const float* sc, const float* const* sm,
-                    void* stream) {
+                    int cluster, void* stream) {
   if (n_mlp < 1 || n_mlp > MAX_MLP || n < 0) return (int)cudaErrorInvalidValue;
+  if (cd_bf16 ? cluster < 1 : cluster != 0) return (int)cudaErrorInvalidValue;
   if (w_int8 && (sc == nullptr || sm == nullptr)) return (int)cudaErrorInvalidValue;
   for (int m = 0; w_int8 && m < n_mlp; ++m)
     if (sm[m] == nullptr) return (int)cudaErrorInvalidValue;
@@ -710,13 +868,20 @@ int dts_fused_serve(const int* ids, const void* wts, int wts_bf16, const float* 
   const int grid = (n + ROWS - 1) / ROWS;
   const size_t smem = dts_serve_smem_bytes(d, a.mmax, cd_bf16);
   void (*kernel)(ServeArgs);
-  if (cd_bf16)
-    kernel = w_int8 ? fused_serve_int8_bf16_kernel : fused_serve_bf16_kernel;
-  else
-    kernel = w_int8 ? fused_serve_int8_f32_kernel : fused_serve_f32_kernel;
-  const int threads = cd_bf16 ? BF16_THREADS : f32_threads(d > a.mmax ? d : a.mmax);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  cudaError_t e;
+  if (cd_bf16) {
+    e = bf16_serve_kernel(w_int8, smem, &kernel);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cluster_launch(&cfg, &attr, grid * cluster, smem, s, cluster);
+    e = cudaLaunchKernelEx(&cfg, kernel, a);
+    const cudaError_t last = cudaGetLastError();  // clears a refusal as well
+    return (int)(e != cudaSuccess ? e : last);
+  }
+  kernel = w_int8 ? fused_serve_int8_f32_kernel : fused_serve_f32_kernel;
+  const int threads = f32_threads(d > a.mmax ? d : a.mmax);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<grid, threads, smem, s>>>(a);
   return (int)cudaGetLastError();

@@ -18,6 +18,13 @@ casts the rows and the weights to the compute dtype first), and the head is
 f32 (model.apply runs it in the compute dtype). In bf16 the two therefore
 agree to ~1e-3 on scores, not bit for bit.
 
+The bf16 fused serve kernel serves each 16-row tile with a thread-block
+cluster of C in CLUSTER_SIZES blocks that split every layer's output
+columns (csrc/cross_kernel.cu). C is chosen here (`serve_cluster`, fed
+by the card's `serve_capacity`) and passed to the launch. This module
+mirrors the kernel's column partition (`tile_begin`, `tile_owner`);
+`_lib()` holds the mirror to the kernel's own functions.
+
 A wrapper runs the plain version only for tensors on the CPU; a CUDA tensor
 always launches the kernel or raises. Each kernel launch adds one to
 `launches[name]`: the fused serve step counts under "fused_serve" for
@@ -90,6 +97,36 @@ def serve_smem_bytes(d: int, mlp_dims, compute_dtype=torch.bfloat16) -> int:
         return (ROWS_PER_BLOCK * d * 4 + 2 * ROWS_PER_BLOCK * _lda(d) * 2
                 + 2 * ROWS_PER_BLOCK * _lda(mmax) * 2 + head)
     return ROWS_PER_BLOCK * (12 * d + 8 * mmax) + head
+
+
+CLUSTER_SIZES = (1, 2, 4, 8)  # up to 8 blocks, the portable cluster size limit
+
+
+def serve_cluster(n: int, capacity) -> int:
+    """Blocks per 16-row tile of the bf16 fused serve kernel: the largest C
+    in (8, 4, 2) such that the card holds all ceil(n / 16) clusters of C
+    blocks at once, else 1 (a second wave costs more than a smaller C).
+    `capacity[i]`: how many clusters of CLUSTER_SIZES[i] blocks the card
+    holds at once (`serve_capacity`). Not the SM count over C: a cluster
+    must fit one GPC, and an H100 SXM holds 15 clusters of 8 serving
+    blocks, not 132 / 8."""
+    tiles = -(-n // ROWS_PER_BLOCK)
+    for i in (3, 2, 1):
+        if tiles <= capacity[i]:
+            return CLUSTER_SIZES[i]
+    return 1
+
+
+def tile_begin(ntiles: int, c: int, r: int) -> int:
+    """First 8-column output tile of a layer with `ntiles` tiles that rank r
+    of a cluster of c owns (csrc tile_begin); rank r owns
+    [tile_begin(r), tile_begin(r + 1))."""
+    return r * ntiles // c
+
+
+def tile_owner(t: int, ntiles: int, c: int) -> int:
+    """The rank that owns tile t (csrc tile_owner), the inverse of tile_begin."""
+    return ((t + 1) * c - 1) // ntiles
 
 
 def mma_layout(w: torch.Tensor) -> torch.Tensor:
@@ -178,6 +215,8 @@ class ServeWeights:
     # The kernel's operands (bf16-kernel weights in mma_layout) and their
     # ctypes pointer arrays, built at first launch.
     _kernel_args: tuple | None = None
+    # serve_capacity(), queried at the first bf16 launch.
+    _capacity: tuple | None = None
 
     @property
     def quantized(self) -> bool:
@@ -226,9 +265,13 @@ def _lib() -> ctypes.CDLL:
         lib.dts_fused_serve.argtypes = [
             vp, vp, ci, vp, vp, vp, ci,
             ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(ci), ci,
-            vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, ctypes.POINTER(vp), vp,
+            vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, ctypes.POINTER(vp), ci, vp,
         ]
         lib.dts_fused_serve.restype = ci
+        lib.dts_serve_max_active_clusters.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+        lib.dts_serve_max_active_clusters.restype = ci
+        lib.dts_tile_begin.restype = lib.dts_tile_owner.restype = ci
+        lib.dts_tile_begin.argtypes = lib.dts_tile_owner.argtypes = [ci, ci, ci]
         lib.dts_cross_stack.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.dts_cross_stack.restype = ci
         lib.dts_error_string.argtypes = [ci]
@@ -259,6 +302,12 @@ def _lib() -> ctypes.CDLL:
                     e = torch.tensor([], dtype=wd).element_size()
                     agree &= lib.dts_weight_operand_bytes(d, m, e, int(cd == torch.bfloat16)) == (
                         weight_operand_bytes(d, m, wd, cd))
+        for nt in (1, 2, 11, 32, 86, 352):
+            for c in (1, 2, 3, 4, 8):
+                agree &= all(lib.dts_tile_begin(nt, c, r) == tile_begin(nt, c, r)
+                             for r in range(c + 1))
+                agree &= all(lib.dts_tile_owner(t, nt, c) == tile_owner(t, nt, c)
+                             for t in range(nt))
         if not agree:
             raise RuntimeError("csrc/cross_kernel.cu layouts disagree with ops/cross_kernel.py")
         lib._dts_bound = True
@@ -321,10 +370,43 @@ def fused_cross_apply(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     return out
 
 
-def fused_serve(ids: torch.Tensor, wts: torch.Tensor, sw: ServeWeights) -> dict[str, torch.Tensor]:
+def max_active_clusters(cluster: int, d: int, mlp_dims, quantized: bool = False) -> int:
+    """How many clusters of `cluster` bf16 fused-serve blocks the current
+    card holds at once (cudaOccupancyMaxActiveClusters) at the shared
+    memory of width d and these MLP dims."""
+    lib = _lib()
+    out = ctypes.c_int(0)
+    rc = lib.dts_serve_max_active_clusters(cluster, d, max(mlp_dims), int(quantized),
+                                           ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
+                           f"{lib.dts_error_string(rc).decode()}")
+    return out.value
+
+
+def serve_capacity(sw: ServeWeights) -> tuple[int, ...]:
+    """How many clusters of each of CLUSTER_SIZES blocks the card holds at
+    once for this servable's bf16 kernel, queried once on its device."""
+    if sw._capacity is None:
+        dims = [w.shape[1] for w, _ in sw.mlp]
+        with torch.cuda.device(sw.device):
+            sw._capacity = tuple(max_active_clusters(c, sw.d, dims, sw.quantized)
+                                 for c in CLUSTER_SIZES)
+    return sw._capacity
+
+
+def fused_serve(ids: torch.Tensor, wts: torch.Tensor, sw: ServeWeights, *,
+                _cluster: int | None = None) -> dict[str, torch.Tensor]:
     """The fused serve step on one padded batch: ids int32 [n, F] (host-
     folded into [0, V)), wts bf16 or f32 [n, F]. Float or int8 weights, as
-    `sw` holds them. CPU tensors take the plain version."""
+    `sw` holds them. CPU tensors take the plain version.
+
+    The bf16 kernel serves each 16-row tile with a cluster of C blocks,
+    C = serve_cluster(n, serve_capacity(sw)). `_cluster` forces C (for
+    tests and chip_smoke.py only); a C the launch refuses raises, never
+    retried at another C."""
+    if _cluster is not None and (_cluster < 1 or sw.compute_dtype != torch.bfloat16):
+        raise ValueError(f"_cluster={_cluster}: only the bf16 kernels take a cluster size >= 1")
     if ids.device.type == "cpu":
         return fused_serve_reference(ids, wts, sw)
     if ids.device.type != "cuda":
@@ -350,6 +432,9 @@ def fused_serve(ids: torch.Tensor, wts: torch.Tensor, sw: ServeWeights) -> dict[
     pred = torch.empty((n,), dtype=torch.float32, device=dev)
     logit = torch.empty((n,), dtype=torch.float32, device=dev)
     lib = _lib()
+    cluster = 0  # the f32 kernels take none
+    if sw.compute_dtype == torch.bfloat16:
+        cluster = _cluster or serve_cluster(n, serve_capacity(sw))
     with torch.cuda.device(dev):
         rc = lib.dts_fused_serve(
             ids.data_ptr(), wts.data_ptr(), int(wts.dtype == torch.bfloat16),
@@ -357,7 +442,8 @@ def fused_serve(ids: torch.Tensor, wts: torch.Tensor, sw: ServeWeights) -> dict[
             wm, bm, mdims, len(sw.mlp),
             sw.wo.data_ptr(), sw.bo.data_ptr(), pred.data_ptr(), logit.data_ptr(),
             n, F, sw.embed_dim, int(sw.compute_dtype == torch.bfloat16),
-            int(sw.quantized), sw.sc.data_ptr() if sw.quantized else None, sm, _stream(dev),
+            int(sw.quantized), sw.sc.data_ptr() if sw.quantized else None, sm,
+            cluster, _stream(dev),
         )
     _check(lib, rc, "fused-serve")
     launches["fused_serve_int8" if sw.quantized else "fused_serve"] += 1

@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # Per source: {"seconds": wall time of its nvcc (0.0 when reused),
-# "log": nvcc/ptxas output, "path": the shared library}.
+# "log": nvcc/ptxas output (kept beside a reused library), "path": the
+# shared library}.
 build_info: dict[str, dict] = {}
 
 
@@ -67,8 +68,10 @@ def build_all() -> dict[str, ctypes.CDLL]:
         for src in missing:
             out = _target(src)
             if out.exists():
+                log = out.with_suffix(".log")
                 build_info[src] = {
-                    "seconds": 0.0, "log": "", "path": str(out), "reused": True,
+                    "seconds": 0.0, "log": log.read_text() if log.exists() else "",
+                    "path": str(out), "reused": True,
                 }
                 continue
             tmp = out.with_suffix(f".tmp{os.getpid()}.so")
@@ -84,6 +87,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
             secs = time.perf_counter() - t0
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {src} (rc {proc.returncode}):\n{log}")
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
             build_info[src] = {
                 "seconds": secs, "log": log, "path": str(out), "reused": False,

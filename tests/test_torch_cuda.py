@@ -107,6 +107,74 @@ def test_int8_kernel_matches_plain_version_on_card(cuda_device, shape, compute_d
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("n", [1, 17, 300])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_forced_cluster_matches_plain_version_on_card(cuda_device, cluster, shape, n, quantized):
+    """The bf16 kernel with each cluster size forced, float and int8
+    weights, at widths whose layers leave some ranks no column tile."""
+    cfg, _, params = _setup(cuda_device, "bfloat16", *shape)
+    sw = ck.build_fused_serve(quantize_params(params) if quantized else params, cfg).serve_weights
+    ids, wts = _inputs(cfg, n, cuda_device, seed=n + cluster)
+    ck.reset_launches()
+    out = ck.fused_serve(ids, wts, sw, _cluster=cluster)
+    torch.cuda.synchronize()
+    assert ck.launches["fused_serve_int8" if quantized else "fused_serve"] == 1
+    ref = ck.fused_serve_reference(ids, wts, sw)
+    torch.testing.assert_close(out["prediction_node"], ref["prediction_node"], rtol=0,
+                               atol=SERVE_TOL["bfloat16"])
+    assert torch.isfinite(out["logits"]).all()
+
+
+@pytest.mark.cuda
+def test_cluster_the_launch_refuses_raises(cuda_device):
+    """16 blocks per cluster is over the portable limit the kernel asks for:
+    the launch refuses it, the wrapper raises, nothing is counted, and the
+    next call (at the rule's size) is unaffected."""
+    cfg, _, params = _setup(cuda_device, "bfloat16", 10, 8, (32, 16))
+    sw = ck.build_fused_serve(params, cfg).serve_weights
+    ids, wts = _inputs(cfg, 40, cuda_device, seed=2)
+    ck.reset_launches()
+    with pytest.raises(RuntimeError, match="fused-serve kernel launch failed"):
+        ck.fused_serve(ids, wts, sw, _cluster=16)
+    assert ck.launches["fused_serve"] == 0
+    out = ck.fused_serve(ids, wts, sw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out["prediction_node"],
+                               ck.fused_serve_reference(ids, wts, sw)["prediction_node"],
+                               rtol=0, atol=SERVE_TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [None, 1, 8])
+def test_launch_counter_counts_one_per_call_at_any_cluster(cuda_device, cluster):
+    cfg, _, params = _setup(cuda_device, "bfloat16", 10, 8, (32, 16))
+    sw = ck.build_fused_serve(params, cfg).serve_weights
+    ids, wts = _inputs(cfg, 64, cuda_device, seed=3)
+    ck.reset_launches()
+    for _ in range(3):
+        ck.fused_serve(ids, wts, sw, _cluster=cluster)
+    torch.cuda.synchronize()
+    assert ck.launches == {"fused_serve": 3, "fused_serve_int8": 0, "fused_cross_apply": 0}
+
+
+@pytest.mark.cuda
+def test_cluster_rule_and_occupancy_on_card(cuda_device):
+    """The card holds one serving block per SM and clusters of 8 of them,
+    and the rule on this card's capacity never asks for a second wave."""
+    cfg, _, params = _setup(cuda_device, "bfloat16", 43, 16, (256, 128, 64))
+    sw = ck.build_fused_serve(params, cfg).serve_weights
+    cap = ck.serve_capacity(sw)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert cap[0] >= sms and cap[3] >= 1
+    assert list(cap) == sorted(cap, reverse=True)
+    for n in (1, 256, 512, 1024, 2048):
+        c = ck.serve_cluster(n, cap)
+        assert c == 1 or -(-n // ck.ROWS_PER_BLOCK) <= cap[ck.CLUSTER_SIZES.index(c)]
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     cfg, _, params = _setup(cuda_device, "bfloat16", 10, 8, (32, 16))
     sw = ck.build_fused_serve(params, cfg).serve_weights
