@@ -11,7 +11,7 @@ Phases (any failure exits non-zero and prints no result line):
 3. kernels — each kernel at the serving width (43 fields x 16, vocab 2^20,
              3 cross layers, MLP 256/128/64), in bf16 at the four buckets
              of configs/latency.toml (256, 512, 1024, 2048) and in f32 at
-             256 and 2048 (the cross stack at 256 and 2048 in both), held
+             256 and 2048 (the f32 cross stack at 256 and 2048), held
              against its plain PyTorch version on the same inputs, and
              timed beside it three ways: `ms`, CUDA
              events around one call (the wrapper's host time included, as
@@ -23,11 +23,17 @@ Phases (any failure exits non-zero and prints no result line):
              bf16 at the cluster size its rule picks (`cluster`), and again
              with every cluster size 1, 2, 4, 8 forced, each forced run
              held to the plain version and model.apply and timed
-             (`loop_ms`, `device_ms`). The card's cluster capacity
-             (cudaOccupancyMaxActiveClusters at the serving shared memory)
-             and nvcc's registers and spills are printed; a spill fails.
-             The bf16 cross stack also records `layout_loop_ms`, its
-             wrapper's per-call weight layout alone, back to back.
+             (`loop_ms`, `device_ms`). The bf16 cross stack runs at all
+             four buckets at the (rows per block, cluster) plan its rule
+             picks (`rows_per_block`, `cluster`) and again at every forced
+             plan in {16, 32} x {1, 2, 4, 8}, each forced run bit-identical
+             to (16, 1) and held to the plain version, and timed
+             (`loop_ms`, `device_ms`); 20 warm calls of each cross stack
+             must launch the cross kernel alone (its weight operands are
+             cached). The cards' cluster capacities
+             (cudaOccupancyMaxActiveClusters of each kernel at its shared
+             memory) and nvcc's registers per kernel and spills are
+             printed; a spill, or a kernel over 128 registers, fails.
              Tolerances: fused serve scores 2e-5 (f32) / 5e-3 (bf16), and
              5e-3 against model.apply (bf16 for float weights, both dtypes
              on the int8 tree); cross stack allclose with rtol = atol =
@@ -49,7 +55,8 @@ Phases (any failure exits non-zero and prints no result line):
              pallas_int8 entry (`_execute` with `_kernel_override=(True,
              True)`), held to model.apply on the int8 tree. The kernels'
              launch counters are zeroed just before the requests and must
-             all have moved by the end.
+             all have moved by the end; the cross_stack server must not
+             prepare its cross weights again during its requests.
 
 Prints one `{"kernels": [...]}` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.
@@ -76,8 +83,9 @@ SERVE_TOL = {"float32": 2e-5, "bfloat16": 5e-3}
 CROSS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 APPLY_TOL = 5e-3
 BUCKETS = {"bfloat16": (256, 512, 1024, 2048), "float32": (256, 2048)}
-CROSS_BUCKETS = (256, 2048)
+CROSS_BUCKETS = {"bfloat16": (256, 512, 1024, 2048), "float32": (256, 2048)}
 CLUSTERS = (1, 2, 4, 8)
+CROSS_PLANS = tuple((r, c) for r in (16, 32) for c in CLUSTERS)  # (rows per block, cluster)
 SEED = 0
 
 
@@ -182,6 +190,24 @@ def check_build(src: str, info: dict) -> None:
     spills = [int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", info["log"])]
     if any(spills):
         fail(f"ptxas reports spills in {src}: " + " | ".join(ln for ln in regs if "spill" in ln))
+    # Registers per kernel: ptxas names each entry function (mangled, with
+    # the cross kernel's rows per block as its template argument) before
+    # its "Used N registers" line.
+    per_kernel, entry = {}, None
+    for ln in info["log"].splitlines():
+        m = re.search(r"Compiling entry function '[^']*?((?:fused_serve|cross_stack)_\w+?_kernel)"
+                      r"(?:ILi(\d+)E)?", ln)
+        if m:
+            entry = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            per_kernel[entry] = int(m.group(1))
+    log("build: registers per kernel: " + ", ".join(f"{k} {v}" for k, v in sorted(per_kernel.items())))
+    want = {"cross_stack_bf16_kernel<16>", "cross_stack_bf16_kernel<32>", "fused_serve_bf16_kernel",
+            "fused_serve_int8_bf16_kernel"}
+    if not want <= set(per_kernel) or max(per_kernel.values()) > 128:
+        fail(f"ptxas register report of {src} lacks a kernel or exceeds 128: {per_kernel}")
+    return per_kernel
 
 
 def timings(fn, plain_fn) -> dict:
@@ -330,38 +356,102 @@ def phase_kernels(dev) -> dict:
                     log(f"kernels: {kname} {cd} n={n} forced cluster={c} err={err:.3g} "
                         f"vs_apply={err_apply:.3g} {fmt_times(tc)}")
 
-            if n not in CROSS_BUCKETS:
-                continue
-            # The cross stack on what the main path hands it: model.apply's
-            # compute-dtype x0 from the weighted field gather.
-            sw = weights["fused_serve"][1]
-            x0 = field_embed(params["embedding"], ids, wts, cfg.cdtype).reshape(n, sw.d)
-            xc = ck.fused_cross_apply(x0, sw.wc, sw.bc, compute_dtype=cfg.cdtype)
-            torch.cuda.synchronize()
-            xr = ck.cross_stack_reference(x0, sw.wc, sw.bc, cfg.cdtype)
-            cerr = (xc.float() - xr.float()).abs().max().item()
-            excess = allclose_excess(xc, xr, CROSS_TOL[cd])
-            if not torch.isfinite(xc.float()).all() or excess > CROSS_TOL[cd]:
-                fail(f"fused_cross_apply {cd} n={n}: max |d| {cerr} outside allclose "
-                     f"rtol=atol={CROSS_TOL[cd]}")
-            tc = timings(
-                lambda: ck.fused_cross_apply(x0, sw.wc, sw.bc, compute_dtype=cfg.cdtype),
-                lambda: ck.cross_stack_reference(x0, sw.wc, sw.bc, cfg.cdtype))
-            if cd == "bfloat16":
-                # The wrapper lays the weights out for the kernel on every
-                # call: that step alone, back to back, to separate it from
-                # the kernel in `loop_ms`.
-                tc["layout_loop_ms"] = loop_ms(lambda: ck.mma_layout(sw.wc))
-            cb_ms, cb_by = bound(*cross_cost(n, sw.d, sw.wc.shape[0], cd), cd)
-            rows["fused_cross_apply"].append({
-                "dtype": cd, "n": n, "max_abs_err": cerr, "tol": CROSS_TOL[cd], **tc,
-                "bound_ms": cb_ms, "bound_by": cb_by,
-            })
-            log(f"kernels: fused_cross_apply {cd} n={n} err={cerr:.3g} {fmt_times(tc)} "
-                f"bound_ms={cb_ms:.5f} ({cb_by})")
+            if n in CROSS_BUCKETS[cd]:
+                # The cross stack on what the main path hands it: model.apply's
+                # compute-dtype x0 from the weighted field gather.
+                sw = weights["fused_serve"][1]
+                x0 = field_embed(params["embedding"], ids, wts, cfg.cdtype).reshape(n, sw.d)
+                rows["fused_cross_apply"].extend(cross_rows(x0, sw.wc, sw.bc, cd))
         del params, qparams, weights, model
         torch.cuda.empty_cache()
     return rows
+
+
+def warm_call_kernels(fn, calls: int = 20, attempts: int = 3) -> list[str]:
+    """The names of the device kernels (and copies, fills) that `calls`
+    warm calls of fn launch, from torch.profiler; the first profile that
+    saw any device event (the tracer sometimes drops part of a window)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    fail(f"torch.profiler recorded no device event in {attempts} profiles of {calls} calls")
+
+
+def cross_rows(x0, w, b, cd: str) -> list[dict]:
+    """The cross stack at one bucket: the rule's (R, C) held to the plain
+    version and timed three ways; in bf16 every forced (R, C) too, each
+    bit-identical to (16, 1) and allclose to the plain version, with
+    `loop_ms` and `device_ms`. Fails if a warm call launches anything but
+    the kernel (the weight operands are cached after the first call)."""
+    import torch
+
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+
+    n = x0.shape[0]
+    cdt = getattr(torch, cd)
+    xr = ck.cross_stack_reference(x0, w, b, cdt)
+
+    def check(xc, what) -> float:
+        cerr = (xc.float() - xr.float()).abs().max().item()
+        if not torch.isfinite(xc.float()).all() or allclose_excess(xc, xr, CROSS_TOL[cd]) > \
+                CROSS_TOL[cd]:
+            fail(f"{what}: max |d| {cerr} outside allclose rtol=atol={CROSS_TOL[cd]}")
+        return cerr
+
+    fn = lambda: ck.fused_cross_apply(x0, w, b, compute_dtype=cdt)  # noqa: E731
+    cerr = check(fn(), f"fused_cross_apply {cd} n={n}")
+    kernel = f"cross_stack_{'bf16' if cd == 'bfloat16' else 'f32'}_kernel"
+    names = warm_call_kernels(fn)
+    if not all(kernel in nm for nm in names) or len(names) > 20:
+        fail(f"fused_cross_apply {cd} n={n}: 20 warm calls launched {len(names)} device "
+             f"operations, not the kernel alone: {sorted(set(names))}")
+    tc = timings(fn, lambda: ck.cross_stack_reference(x0, w, b, cdt))
+    cb_ms, cb_by = bound(*cross_cost(n, x0.shape[1], w.shape[0], cd), cd)
+    row = {"dtype": cd, "n": n, "max_abs_err": cerr, "tol": CROSS_TOL[cd], **tc,
+           "bound_ms": cb_ms, "bound_by": cb_by, "warm_call_device_ops": len(names)}
+    extra = ""
+    if cd == "bfloat16":
+        cap = ck.cross_capacity(ck.cached_cross_weights(w, b, cdt))
+        if n == CROSS_BUCKETS[cd][0]:
+            log(f"kernels: fused_cross_apply bf16 clusters resident at once (cudaOccupancy"
+                f"MaxActiveClusters of the cross kernel, d={x0.shape[1]}): " + ", ".join(
+                    f"R={r} ({ck.cross_smem_bytes(x0.shape[1], cdt, r)} B) C={c}: {k}"
+                    for (r, c), k in cap.items()))
+        row["rows_per_block"], row["cluster"] = ck.cross_plan(n, cap, x0.shape[1])
+        row["capacity"] = {f"{r}x{c}": k for (r, c), k in cap.items()}
+        extra = f" plan=(R={row['rows_per_block']}, C={row['cluster']})"
+    log(f"kernels: fused_cross_apply {cd} n={n} err={cerr:.3g}{extra} {fmt_times(tc)} "
+        f"bound_ms={cb_ms:.5f} ({cb_by}); a warm call runs the kernel alone")
+    out = [row]
+    if cd != "bfloat16":
+        return out
+    base = ck.fused_cross_apply(x0, w, b, compute_dtype=cdt, _plan=(16, 1))
+    for plan in CROSS_PLANS:
+        fp = lambda plan=plan: ck.fused_cross_apply(x0, w, b, compute_dtype=cdt,  # noqa: E731
+                                                     _plan=plan)
+        got = fp()
+        torch.cuda.synchronize()
+        what = f"fused_cross_apply {cd} n={n} forced (R, C)={plan}"
+        err = check(got, what)
+        if not torch.equal(got, base):
+            fail(f"{what}: not bit-identical to (16, 1): max |d| "
+                 f"{(got.float() - base.float()).abs().max().item()}")
+        t = {"loop_ms": loop_ms(fp), "device_ms": device_ms(fp)}
+        out.append({"dtype": cd, "n": n, "rows_per_block": plan[0], "cluster": plan[1],
+                    "forced": True, "max_abs_err": err, "bit_identical_to_16_1": True, **t})
+        log(f"kernels: {what} err={err:.3g} bit-identical {fmt_times(t)}")
+    return out
 
 
 def _request(ids, wts):
@@ -549,6 +639,7 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
     try:
         # The main path starts here: counters zeroed just before its requests.
         ck.reset_launches()
+        builds0 = ck.cross_cache.builds
         for label, impl, batcher, servable, server, port in built:
             if server is not None:
                 from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
@@ -633,6 +724,9 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
                 results["servers"][label]["autotune"] = snap["tables"]
                 results["servers"][label]["counters"] = snap["counters"]
         results["launches"] = dict(ck.launches)
+        # The use_pallas_cross server's weight operands were prepared at its
+        # warmup; its requests must reuse them.
+        results["cross_weight_builds"] = ck.cross_cache.builds - builds0
         results["requests"] = len(built) * len(sizes) * repeats
         # After the counted run: where a request's time goes (fused server).
         _, _, batcher, servable, server, _ = built[0]
@@ -650,6 +744,9 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
     for kname, cnt in results["launches"].items():
         if cnt <= 0:
             fail(f"the main path launched kernel {kname} no time (counts {results['launches']})")
+    if results["cross_weight_builds"]:
+        fail(f"the cross_stack server prepared its cross weights {results['cross_weight_builds']} "
+             "times during the main path; the cache should have held them since warmup")
     log(f"serving: launches during the main path {results['launches']} over "
         f"{results['requests']} requests ({len(sizes) * repeats} per server)")
     return results
@@ -675,8 +772,7 @@ def main() -> None:
     t0 = time.perf_counter()
     cuda_build.build_all()
     log(f"build: {time.perf_counter() - t0:.2f} s")
-    for src, info in cuda_build.build_info.items():
-        check_build(src, info)
+    registers = {src: check_build(src, info) for src, info in cuda_build.build_info.items()}
 
     t0 = time.perf_counter()
     rows = phase_kernels(dev)
@@ -686,7 +782,8 @@ def main() -> None:
     log(f"serving: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "kernels": rows, "serving": serving}, f, indent=1)
+        json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving}, f,
+                  indent=1)
 
     meta = {
         "fused_serve": "distributed_tf_serving_tpu/ops/cross_kernel.py:470",
@@ -708,8 +805,9 @@ def main() -> None:
             "bound_by": head["bound_by"], "library_ms": None,
             "shape": "bf16, 2048 rows", "by_shape": rows[kname],
         })
-        if "cluster" in head:
-            kernels[-1]["cluster"] = head["cluster"]
+        for key in ("rows_per_block", "cluster"):
+            if key in head:
+                kernels[-1][key] = head[key]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -82,7 +82,20 @@
 //     ~22 cross-layer tiles at C = 4 are 11 pairs for 16 warps; splitting
 //     each pair's k chunks over the idle warps (f32 partials added in
 //     shared memory) measured no faster at any C the rule picks, so it is
-//     not done. The cross-stack kernel runs the same code as one block.
+//     not done.
+//   * bf16 cross stack (cross_stack_bf16_kernel<R>): the same cluster
+//     split, and R = 16 or 32 rows per tile. At R = 32 each warp keeps two
+//     m16 A fragments and feeds every B fragment it loads from L2 to both,
+//     which halves the L2 weight stream per row (at 2048 rows and R = 16,
+//     128 tiles each re-read 2.9 MB of W^T: ~372 MB). Every rank loads the
+//     whole x0 tile and stores only its own columns of x_L; with no head,
+//     a closing cluster barrier keeps each block resident until its peers'
+//     last DSMEM pull is done (see the kernel). R and C come from the host
+//     (ops/cross_kernel.py cross_plan, fed by
+//     dts_cross_max_active_clusters); R = 32 is planned only where its
+//     shared memory fits. Each element's k order is the same at every
+//     (R, C), so every plan gives the same bits. The fused serve kernels
+//     keep R = 16.
 //   * f32 runs on plain FFMA (tensor cores have no f32, and TF32 would
 //     break the 1e-5 parity). Its activations are stored transposed
 //     ([column][row], ROWS contiguous): one k step reads the ROWS values of
@@ -367,15 +380,20 @@ struct BFrag<int8_t> {
   }
 };
 
-// C[ROWS, N] = A[ROWS, K] @ W[K, N] on the tensor cores, for the 8-column
-// output tiles [t0, t1) only. A is row-major in shared memory (stride lda,
-// columns [K, pad_k(K)) zero); WT is W^T laid out [pad_n(N)][pad_k(K)] in
-// global memory, zero-padded, bf16 or int8. epi(r, j, value) gets every
-// element of those tiles with j < N, in f32 (unscaled).
-template <typename T, typename Epi>
+// C[R, N] = A[R, K] @ W[K, N] on the tensor cores, for the 8-column output
+// tiles [t0, t1) only; R = 16 or 32 rows, H = R / 16 m16 row halves. A is
+// row-major in shared memory (stride lda, columns [K, pad_k(K)) zero); WT
+// is W^T laid out [pad_n(N)][pad_k(K)] in global memory, zero-padded, bf16
+// or int8. epi(r, j, value) gets every element of those tiles with j < N,
+// in f32 (unscaled). Every B fragment loaded from L2 feeds the mmas of all
+// H halves, so at R = 32 a row costs half the weight stream it costs at 16.
+// Each element's k order is the same at every R and every tile range.
+template <int R, typename T, typename Epi>
 __device__ __forceinline__ void mma_layer(const bf16* A, int lda, int K,
                                           const T* __restrict__ WT, int N, int t0, int t1,
                                           Epi epi) {
+  constexpr int H = R / 16;
+  static_assert(R == 16 * H && (H == 1 || H == 2), "R is 16 or 32 rows");
   const int kp = pad_k(K);
   const int nch = kp / KCHUNK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
@@ -386,7 +404,7 @@ __device__ __forceinline__ void mma_layer(const bf16* A, int lda, int K,
   const Raw zero = {};
   for (int tile = t0 + 2 * warp; tile < t1; tile += 2 * nw) {
     const bool two = tile + 1 < t1;
-    float c[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    float c[2][H][4] = {};
     const T* b0p = WT + (size_t)(tile * 8 + g) * kp + 8 * t;
     const T* b1p = b0p + (size_t)8 * kp;
     constexpr int G = BFrag<T>::kGroup;
@@ -404,16 +422,26 @@ __device__ __forceinline__ void mma_layer(const bf16* A, int lda, int K,
         if (c0 + u < nch) {
           const int off = (c0 + u) * KCHUNK;
           // Lane (g, t) holds k = off + 8t .. off + 8t + 7 of rows g and
-          // g + 8: pairs 0-1 feed the first mma, pairs 2-3 the second.
-          const uint4 lo = *reinterpret_cast<const uint4*>(a_lo + off);
-          const uint4 hi = *reinterpret_cast<const uint4*>(a_hi + off);
+          // g + 8 of each half: pairs 0-1 feed the first mma, 2-3 the second.
+          uint4 lo[H], hi[H];
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            lo[h] = *reinterpret_cast<const uint4*>(a_lo + 16 * h * lda + off);
+            hi[h] = *reinterpret_cast<const uint4*>(a_hi + 16 * h * lda + off);
+          }
           const uint4 b0 = BFrag<T>::expand(bq[u][0]);
-          mma_bf16(c[0], lo.x, hi.x, lo.y, hi.y, b0.x, b0.y);
-          mma_bf16(c[0], lo.z, hi.z, lo.w, hi.w, b0.z, b0.w);
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            mma_bf16(c[0][h], lo[h].x, hi[h].x, lo[h].y, hi[h].y, b0.x, b0.y);
+            mma_bf16(c[0][h], lo[h].z, hi[h].z, lo[h].w, hi[h].w, b0.z, b0.w);
+          }
           if (two) {
             const uint4 b1 = BFrag<T>::expand(bq[u][1]);
-            mma_bf16(c[1], lo.x, hi.x, lo.y, hi.y, b1.x, b1.y);
-            mma_bf16(c[1], lo.z, hi.z, lo.w, hi.w, b1.z, b1.w);
+#pragma unroll
+            for (int h = 0; h < H; ++h) {
+              mma_bf16(c[1][h], lo[h].x, hi[h].x, lo[h].y, hi[h].y, b1.x, b1.y);
+              mma_bf16(c[1][h], lo[h].z, hi[h].z, lo[h].w, hi[h].w, b1.z, b1.w);
+            }
           }
         }
       }
@@ -422,13 +450,17 @@ __device__ __forceinline__ void mma_layer(const bf16* A, int lda, int K,
     for (int s = 0; s < 2; ++s) {
       if (s == 0 || two) {
         const int j = (tile + s) * 8 + 2 * t;
-        if (j < N) {
-          epi(g, j, c[s][0]);
-          epi(g + 8, j, c[s][2]);
-        }
-        if (j + 1 < N) {
-          epi(g, j + 1, c[s][1]);
-          epi(g + 8, j + 1, c[s][3]);
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const int r = 16 * h + g;
+          if (j < N) {
+            epi(r, j, c[s][h][0]);
+            epi(r + 8, j, c[s][h][2]);
+          }
+          if (j + 1 < N) {
+            epi(r, j + 1, c[s][h][1]);
+            epi(r + 8, j + 1, c[s][h][3]);
+          }
         }
       }
     }
@@ -442,16 +474,17 @@ __device__ void zero_bf16(bf16* p, int count) {
   for (int i = threadIdx.x; i < count / 8; i += blockDim.x) q[i] = z;
 }
 
-// After cluster.sync(): copy every peer's columns of the row-major tile
-// `buf` (stride ld, nt 8-column tiles) from the peer that owns them into
-// this block's copy, one 16-byte DSMEM load per row and tile. Only the
+// After cluster.sync(): copy every peer's columns of the row-major R-row
+// tile `buf` (stride ld, nt 8-column tiles) from the peer that owns them
+// into this block's copy, one 16-byte DSMEM load per row and tile. Only the
 // owner's columns are read from a peer (the one-barrier argument in the
 // header depends on it).
+template <int R>
 __device__ void pull_peers(bf16* buf, int ld, int nt, int c, int me) {
   cg::cluster_group cluster = cg::this_cluster();
   const int t0 = tile_begin(nt, c, me), own = tile_begin(nt, c, me + 1) - t0;
   const int other = nt - own;
-  for (int i = threadIdx.x; i < ROWS * other; i += blockDim.x) {
+  for (int i = threadIdx.x; i < R * other; i += blockDim.x) {
     int t = i % other;
     if (t >= t0) t += own;  // skip this block's own tiles
     bf16* p = buf + (i / other) * ld + 8 * t;
@@ -460,12 +493,13 @@ __device__ void pull_peers(bf16* buf, int ld, int nt, int c, int me) {
   }
 }
 
-// L cross layers over row-major bf16 tiles (x0 f32 row-major, stride d);
-// returns the buffer holding x_L. sc: [L, d] scales of int8 weights.
+// L cross layers over row-major bf16 R-row tiles (x0 f32 row-major, stride
+// d); returns the buffer holding x_L. sc: [L, d] scales of int8 weights.
 // Rank `me` of a cluster of c blocks computes its own columns of every
 // layer and pulls the others' after each layer but the last (whose own
-// columns are all the partial head reads).
-template <typename T>
+// columns are all the caller reads). No barrier follows the last pull: a
+// caller with c > 1 and L >= 2 must cluster.sync() before its block exits.
+template <int R, typename T>
 __device__ const bf16* mma_cross(const float* x0, bf16* xb0, bf16* xb1, int d, int ldx,
                                  const T* __restrict__ WcT, const float* __restrict__ bc,
                                  const float* __restrict__ sc, int L, int c, int me) {
@@ -477,7 +511,7 @@ __device__ const bf16* mma_cross(const float* x0, bf16* xb0, bf16* xb1, int d, i
   for (int l = 0; l < L; ++l) {
     const float* b = bc + (size_t)l * d;
     const float* s = sc ? sc + (size_t)l * d : nullptr;
-    mma_layer(cur, ldx, d, WcT + l * wstride, d, t0, t1, [&](int r, int j, float acc) {
+    mma_layer<R>(cur, ldx, d, WcT + l * wstride, d, t0, t1, [&](int r, int j, float acc) {
       const int o = r * ldx + j;
       const float xw = __fadd_rn(scaled<T>(acc, s, j), b[j]);
       nxt[o] = __float2bfloat16_rn(
@@ -485,7 +519,7 @@ __device__ const bf16* mma_cross(const float* x0, bf16* xb0, bf16* xb1, int d, i
     });
     if (c > 1 && l + 1 < L) {
       cg::this_cluster().sync();
-      pull_peers(nxt, ldx, nt, c, me);
+      pull_peers<R>(nxt, ldx, nt, c, me);
     }
     __syncthreads();  // every warp read all of `cur`; the next layer overwrites it
     bf16* t = cur;
@@ -617,7 +651,7 @@ __device__ __forceinline__ void serve_bf16(const ServeArgs& a, unsigned char* sm
     const float* b = a.bm[m];
     const float* s = a.sm[m];
     const int nt = pad_n(M) / 8;
-    mma_layer(in, lda, K, static_cast<const T*>(a.wm[m]), M, tile_begin(nt, c, me),
+    mma_layer<ROWS>(in, lda, K, static_cast<const T*>(a.wm[m]), M, tile_begin(nt, c, me),
               tile_begin(nt, c, me + 1), [&](int r, int j, float acc) {
                 const float y = __fadd_rn(scaled<T>(acc, s, j), b[j]);
                 out[r * ldh + j] = __float2bfloat16_rn(y > 0.f ? y : 0.f);
@@ -629,7 +663,7 @@ __device__ __forceinline__ void serve_bf16(const ServeArgs& a, unsigned char* sm
       out[(i / gap) * ldh + M + i % gap] = __float2bfloat16_rn(0.f);
     if (c > 1 && m + 1 < a.n_mlp) {
       cluster.sync();
-      pull_peers(out, ldh, nt, c, me);
+      pull_peers<ROWS>(out, ldh, nt, c, me);
     }
     __syncthreads();
     in = out;
@@ -640,8 +674,8 @@ __device__ __forceinline__ void serve_bf16(const ServeArgs& a, unsigned char* sm
   own_columns(K, c, me, j0, j1);
   rowdot(in, lda, 1, j1, a.wo + d, lh, j0);
 
-  const bf16* xc = mma_cross(x0, xb0, xb1, d, ldx, static_cast<const T*>(a.wc), a.bc, a.sc,
-                             a.L, c, me);
+  const bf16* xc = mma_cross<ROWS>(x0, xb0, xb1, d, ldx, static_cast<const T*>(a.wc), a.bc,
+                                   a.sc, a.L, c, me);
   own_columns(d, c, me, j0, j1);
   rowdot(xc, ldx, 1, j1, a.wo, lc, j0);
   if (c == 1) {
@@ -709,30 +743,48 @@ __global__ void __launch_bounds__(F32_MAX_THREADS)
   }
 }
 
+// The bf16 cross stack: a tile of R rows (16 or 32) served by a cluster of
+// c blocks (the launch's cluster size, 1 included). Every rank loads the
+// whole x0 tile, computes its own columns of every layer through
+// mma_cross (pulling the peers' after each layer but the last) and stores
+// its own columns of x_L.
+template <int R>
 __global__ void __launch_bounds__(BF16_THREADS)
     cross_stack_bf16_kernel(const bf16* __restrict__ x0g, const bf16* __restrict__ wT,
                             const float* __restrict__ b, bf16* __restrict__ out, int n, int d,
                             int L) {
   extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), me = (int)cluster.block_rank();
   const int ldx = lda_of(d);
   float* x0 = reinterpret_cast<float*>(smem);
-  bf16* xb0 = reinterpret_cast<bf16*>(x0 + (size_t)ROWS * d);
-  bf16* xb1 = xb0 + ROWS * ldx;
-  const int row0 = blockIdx.x * ROWS;
-  zero_bf16(xb0, 2 * ROWS * ldx);
+  bf16* xb0 = reinterpret_cast<bf16*>(x0 + (size_t)R * d);
+  bf16* xb1 = xb0 + R * ldx;
+  const int row0 = (int)(blockIdx.x / c) * R;
+  zero_bf16(xb0, 2 * R * ldx);
   __syncthreads();
-  for (int i = threadIdx.x; i < ROWS * d; i += blockDim.x) {
+  for (int i = threadIdx.x; i < R * d; i += blockDim.x) {
     const int r = i / d, j = i % d, row = row0 + r;
     const bf16 v = row < n ? x0g[(size_t)row * d + j] : __float2bfloat16_rn(0.f);
     x0[r * d + j] = __bfloat162float(v);
     xb0[r * ldx + j] = v;
   }
   __syncthreads();
-  const bf16* xc = mma_cross(x0, xb0, xb1, d, ldx, wT, b, nullptr, L, 1, 0);
-  for (int i = threadIdx.x; i < ROWS * d; i += blockDim.x) {
-    const int r = i / d, j = i % d, row = row0 + r;
+  const bf16* xc = mma_cross<R>(x0, xb0, xb1, d, ldx, wT, b, nullptr, L, c, me);
+  int j0, j1;
+  own_columns(d, c, me, j0, j1);
+  const int w = j1 - j0;
+  for (int i = threadIdx.x; i < R * w; i += blockDim.x) {
+    const int r = i / w, j = j0 + i % w, row = row0 + r;
     if (row < n) out[(size_t)row * d + j] = xc[r * ldx + j];
   }
+  // Block lifetime: mma_cross's last pull (after layer L - 2) reads the
+  // peers' shared memory with no barrier after it, so a rank that got here
+  // first could exit while a slower peer still reads its shared memory
+  // through DSMEM, which is undefined. The fused serve kernel is covered
+  // by its head's closing barrier; this kernel has no head, so it waits
+  // for the whole cluster here.
+  if (c > 1 && L >= 2) cluster.sync();
 }
 
 int f32_threads(int widest) {
@@ -749,6 +801,9 @@ extern "C" {
 int dts_rows_per_block() { return ROWS; }
 
 int dts_max_mlp_layers() { return MAX_MLP; }
+
+// Warps of a bf16 block (the host's cross_plan counts their rounds).
+int dts_bf16_warps() { return BF16_THREADS / 32; }
 
 // Row stride (elements) of the bf16 activation tiles, and the padding the
 // host applies to bf16 weights: W^T as [pad_n(N)][pad_k(K)].
@@ -776,9 +831,10 @@ size_t dts_serve_smem_bytes(int d, int mmax, int cd_bf16) {
          2 * ROWS * sizeof(float);
 }
 
-size_t dts_cross_smem_bytes(int d, int cd_bf16) {
-  if (cd_bf16) return (size_t)ROWS * d * 4 + 2 * (size_t)ROWS * lda_of(d) * 2;
-  return (size_t)ROWS * d * 12;
+// x0 (f32) and two x buffers of a `rows`-row cross-stack tile.
+size_t dts_cross_smem_bytes(int d, int cd_bf16, int rows) {
+  if (cd_bf16) return (size_t)rows * d * 4 + 2 * (size_t)rows * lda_of(d) * 2;
+  return (size_t)rows * d * 12;
 }
 
 const char* dts_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
@@ -887,29 +943,62 @@ int dts_fused_serve(const int* ids, const void* wts, int wts_bf16, const float* 
   return (int)cudaGetLastError();
 }
 
+typedef void (*CrossBf16Kernel)(const bf16*, const bf16*, const float*, bf16*, int, int, int);
+
+// The bf16 cross-stack kernel of `rows` rows per block (16 or 32), its
+// dynamic shared memory raised to its size at width d.
+static cudaError_t bf16_cross_kernel(int rows, int d, CrossBf16Kernel* kernel, size_t* smem) {
+  if (rows != 16 && rows != 32) return cudaErrorInvalidValue;
+  *kernel = rows == 32 ? cross_stack_bf16_kernel<32> : cross_stack_bf16_kernel<16>;
+  *smem = dts_cross_smem_bytes(d, 1, rows);
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+// How many clusters of c bf16 cross-stack blocks of `rows` rows at width d
+// the current device holds at once, into *out.
+int dts_cross_max_active_clusters(int c, int d, int rows, int* out) {
+  CrossBf16Kernel kernel;
+  size_t smem;
+  cudaError_t e = bf16_cross_kernel(rows, d, &kernel, &smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_launch(&cfg, &attr, c, smem, nullptr, c);
+  e = cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+  cudaGetLastError();  // a refusal is returned here, not left for the next launch
+  return (int)e;
+}
+
+// rows, cluster: the bf16 kernel's rows per block (16 or 32) and blocks
+// per tile (>= 1; the host picks both); the f32 kernel takes rows = 16 and
+// cluster = 0. A plan the launch refuses is returned as its error.
 int dts_cross_stack(const void* x0, const void* w, const float* b, void* out, int n, int d,
-                    int L, int cd_bf16, void* stream) {
+                    int L, int cd_bf16, int rows, int cluster, void* stream) {
   if (n < 0) return (int)cudaErrorInvalidValue;
+  if (cd_bf16 ? cluster < 1 : rows != ROWS || cluster != 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = (n + ROWS - 1) / ROWS;
-  const size_t smem = dts_cross_smem_bytes(d, cd_bf16);
   cudaError_t e;
   if (cd_bf16) {
-    e = cudaFuncSetAttribute(cross_stack_bf16_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    CrossBf16Kernel kernel;
+    size_t smem;
+    e = bf16_cross_kernel(rows, d, &kernel, &smem);
     if (e != cudaSuccess) return (int)e;
-    cross_stack_bf16_kernel<<<grid, BF16_THREADS, smem, s>>>(
-        static_cast<const bf16*>(x0), static_cast<const bf16*>(w), b,
-        static_cast<bf16*>(out), n, d, L);
-  } else {
-    e = cudaFuncSetAttribute(cross_stack_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    cross_stack_f32_kernel<<<grid, f32_threads(d), smem, s>>>(
-        static_cast<const float*>(x0), static_cast<const float*>(w), b,
-        static_cast<float*>(out), n, d, L);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cluster_launch(&cfg, &attr, (n + rows - 1) / rows * cluster, smem, s, cluster);
+    e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(x0),
+                           static_cast<const bf16*>(w), b, static_cast<bf16*>(out), n, d, L);
+    const cudaError_t last = cudaGetLastError();  // clears a refusal as well
+    return (int)(e != cudaSuccess ? e : last);
   }
+  const size_t smem = dts_cross_smem_bytes(d, 0, ROWS);
+  e = cudaFuncSetAttribute(cross_stack_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cross_stack_f32_kernel<<<(n + ROWS - 1) / ROWS, f32_threads(d), smem, s>>>(
+      static_cast<const float*>(x0), static_cast<const float*>(w), b, static_cast<float*>(out),
+      n, d, L);
   return (int)cudaGetLastError();
 }
 

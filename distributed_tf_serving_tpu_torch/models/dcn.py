@@ -8,7 +8,8 @@ Cross layers (per Wang et al.):
 The v2 matmul runs on compute-dtype operands with an f32 result; the
 elementwise update is f32 and the carried activation is recast to the
 compute dtype per layer. With `use_pallas_cross` the v2 stack goes through
-the hand-written cross-stack kernel (ops/cross_kernel.py).
+the hand-written cross-stack kernel (ops/cross_kernel.py), whose weight
+operands are prepared once per weight set.
 """
 
 from __future__ import annotations
@@ -106,10 +107,10 @@ def _build(config: ModelConfig) -> Model:
                     "using cross_apply", d,
                 )
         if use_fused:
-            from ..ops.cross_kernel import cross_params_to_stacked, fused_cross_apply
+            from ..ops.cross_kernel import cross_stack, cross_weights
 
-            w, b = cross_params_to_stacked(params["cross"])
-            xc = fused_cross_apply(x0, w, b, compute_dtype=cd)
+            # Stacked, cast and laid out once per weight set (cached).
+            xc = cross_stack(x0, cross_weights(params["cross"], cd))
         else:
             xc = cross_apply(params["cross"], x0, cd)
         xd = mlp_apply(params["mlp"], x0, cd)

@@ -3,9 +3,12 @@ and their plain PyTorch versions.
 
 Two functions, each with a kernel wrapper and a plain version beside it:
 
-- `fused_cross_apply` / `cross_stack_reference`: the cross stack alone,
-  x = x0 * (x @ W_l + b_l) + x over L layers, returning [n, d] in the
-  compute dtype.
+- `fused_cross_apply` (kernel wrapper `cross_stack`) /
+  `cross_stack_reference`: the cross stack alone, x = x0 * (x @ W_l + b_l)
+  + x over L layers, returning [n, d] in the compute dtype. Its weight
+  operands (W stacked in the compute dtype, its mma_layout for bf16, b in
+  f32) are prepared once per weight set and kept in `cross_cache`
+  (`CrossWeights`), so a warm call launches the kernel alone.
 - `build_fused_serve` (kernel wrapper `fused_serve`) /
   `fused_serve_reference`: the whole per-candidate serving step — weighted
   embedding gather, cross stack, ReLU MLP, f32 head, sigmoid — over float
@@ -21,9 +24,11 @@ agree to ~1e-3 on scores, not bit for bit.
 The bf16 fused serve kernel serves each 16-row tile with a thread-block
 cluster of C in CLUSTER_SIZES blocks that split every layer's output
 columns (csrc/cross_kernel.cu). C is chosen here (`serve_cluster`, fed
-by the card's `serve_capacity`) and passed to the launch. This module
-mirrors the kernel's column partition (`tile_begin`, `tile_owner`);
-`_lib()` holds the mirror to the kernel's own functions.
+by the card's `serve_capacity`) and passed to the launch. The bf16 cross
+stack takes the same split and R in ROW_TILES rows per tile; its (R, C)
+comes from `cross_plan`, fed by `cross_capacity`. This module mirrors the
+kernels' column partition (`tile_begin`, `tile_owner`) and shared-memory
+sizes; `_lib()` holds the mirror to the kernel's own functions.
 
 A wrapper runs the plain version only for tensors on the CPU; a CUDA tensor
 always launches the kernel or raises. Each kernel launch adds one to
@@ -33,8 +38,10 @@ float weights and "fused_serve_int8" for int8 weights.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
+import threading
 
 import torch
 
@@ -42,8 +49,10 @@ from ..models.base import torch_dtype
 
 # Shared memory one block may opt into on sm_90 (227 KB).
 SMEM_LIMIT_BYTES = 232448
-ROWS_PER_BLOCK = 16  # csrc/cross_kernel.cu ROWS
+ROWS_PER_BLOCK = 16  # csrc/cross_kernel.cu ROWS: the fused serve and f32 kernels
+ROW_TILES = (16, 32)  # rows per block the bf16 cross-stack kernel takes
 MAX_MLP_LAYERS = 4   # csrc/cross_kernel.cu MAX_MLP
+BF16_WARPS = 16      # csrc/cross_kernel.cu BF16_THREADS / 32
 
 SOURCE = "cross_kernel.cu"
 
@@ -80,12 +89,19 @@ def _lda(k: int) -> int:
     return kp + 32 if kp % 64 == 0 else kp
 
 
-def cross_smem_bytes(d: int, compute_dtype=torch.bfloat16) -> int:
-    """Shared memory of one cross-stack block: x0 (f32) + two x buffers
-    (bf16 row-major with a padded stride, or f32 transposed)."""
+def cross_smem_bytes(d: int, compute_dtype=torch.bfloat16, rows: int = ROWS_PER_BLOCK) -> int:
+    """Shared memory of one cross-stack block of `rows` rows: x0 (f32) + two
+    x buffers (bf16 row-major with a padded stride, or f32 transposed)."""
     if _esize(compute_dtype) == 2:
-        return ROWS_PER_BLOCK * d * 4 + 2 * ROWS_PER_BLOCK * _lda(d) * 2
-    return ROWS_PER_BLOCK * d * 12
+        return rows * d * 4 + 2 * rows * _lda(d) * 2
+    return rows * d * 12
+
+
+def cross_row_tiles(d: int) -> tuple[int, ...]:
+    """The rows per block (of ROW_TILES) whose bf16 cross-stack tile fits
+    one block's shared memory at width d: R = 32 up to d = 888."""
+    return tuple(r for r in ROW_TILES
+                 if cross_smem_bytes(d, torch.bfloat16, r) <= SMEM_LIMIT_BYTES)
 
 
 def serve_smem_bytes(d: int, mlp_dims, compute_dtype=torch.bfloat16) -> int:
@@ -115,6 +131,35 @@ def serve_cluster(n: int, capacity) -> int:
         if tiles <= capacity[i]:
             return CLUSTER_SIZES[i]
     return 1
+
+
+def cross_plan(n: int, capacity: dict, d: int) -> tuple[int, int]:
+    """(R, C) of the bf16 cross-stack kernel for n rows of width d: R rows
+    per tile, a cluster of C blocks per tile. Among the plans whose
+    ceil(n / R) clusters of C all fit one wave, the one with the most
+    blocks; on a tie, the fewest rounds of 8-column tile pairs per warp on
+    the busiest rank (a tile's time is its warps' serial chain), then the
+    smaller R (a 32-row round issues twice the mmas of a 16-row one, so
+    R = 32 pays where it removes a round). When none fits one wave, the
+    largest R with C = 1 (fewest tiles re-reading the weights).
+    `capacity[(R, C)]`: how many clusters of C blocks of R rows the card
+    holds at once (`cross_capacity`), for the R that fit the width.
+
+    Set from chip_smoke.py's grid of every forced (R, C) at d = 688 on an
+    H100 (PERF.md): it picks the fastest plan at 256, 512, 1024 and 2048
+    rows, (16, 4), (32, 4), (16, 2) and (32, 2)."""
+    nt = _pad_n(d) // 8
+    best = None
+    for (r, c), clusters in capacity.items():
+        tiles = -(-n // r)
+        own = -(-nt // c)  # the busiest rank's column tiles
+        rounds = -(-own // (2 * BF16_WARPS))  # its warps' turns at a pair of tiles
+        key = (tiles * c, -rounds, -r)
+        if tiles <= clusters and (best is None or key > best[0]):
+            best = (key, (r, c))
+    if best is not None:
+        return best[1]
+    return max(r for r, _ in capacity), 1
 
 
 def tile_begin(ntiles: int, c: int, r: int) -> int:
@@ -170,6 +215,121 @@ def cross_params_to_stacked(cross_layers: list) -> tuple[torch.Tensor, torch.Ten
     w = torch.stack([p["w"] for p in cross_layers])
     b = torch.stack([p["b"] for p in cross_layers])
     return w, b
+
+
+@dataclasses.dataclass
+class CrossWeights:
+    """One weight set's operands for the cross-stack kernel, prepared once:
+    W stacked in the compute dtype, for bf16 on the card its mma_layout
+    (the kernel's operand), and b in f32."""
+
+    w: torch.Tensor                  # [L, d, d] compute dtype
+    b: torch.Tensor                  # [L, d] f32, on w's device
+    wt: torch.Tensor | None = None   # bf16 on CUDA: mma_layout(w)
+    # cross_capacity(), queried at the first bf16 launch.
+    _capacity: dict | None = None
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self.w.dtype
+
+    @property
+    def d(self) -> int:
+        return self.w.shape[-1]
+
+
+def prepare_cross_weights(w: torch.Tensor, b: torch.Tensor, compute_dtype) -> CrossWeights:
+    """Cast (and for bf16 on the card, lay out) stacked W [L, d, d] and
+    b [L, d] for the cross-stack kernel, on their own device. Refuses a
+    width whose tile does not fit one block's shared memory."""
+    cd = _cd(compute_dtype)
+    L, d = w.shape[0], w.shape[-1]
+    if tuple(w.shape) != (L, d, d) or tuple(b.shape) != (L, d):
+        raise ValueError(f"cross weights of shapes {tuple(w.shape)}, {tuple(b.shape)}: "
+                         "expected [L, d, d] and [L, d]")
+    if not fits_smem(d, cd):
+        raise ValueError(
+            f"cross-stack kernel (d={d}) needs {cross_smem_bytes(d, cd)} bytes of "
+            f"shared memory per block, over the {SMEM_LIMIT_BYTES} a block may use; "
+            "use cross_apply (models/dcn.py falls back via fits_smem)"
+        )
+    wc = w.to(cd).contiguous()
+    wt = mma_layout(wc) if cd == torch.bfloat16 and wc.device.type == "cuda" else None
+    return CrossWeights(wc, b.to(device=wc.device, dtype=torch.float32).contiguous(), wt)
+
+
+class CrossWeightCache:
+    """Prepared cross-stack operands per source weight set, at most
+    `maxsize` of them, the least recently used evicted first (so swapped
+    servables do not pile up; an entry keeps its sources alive until then).
+
+    Never stale: an entry is keyed on its source tensors' ids and holds
+    strong references to them, so no id is reused while it lives, and is
+    taken only while every source has the same `_version` counter, device,
+    dtype and storage address; an in-place update or a swapped tree builds
+    anew. Inference tensors keep no version counter, so sources that are
+    inference tensors are prepared on every call and never stored. Entries
+    are built outside inference mode, so they serve callers in and out of
+    it alike."""
+
+    def __init__(self, maxsize: int = 4):
+        self.maxsize = maxsize
+        self.builds = 0
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def _state(sources) -> tuple:
+        return tuple((t._version, t.device, t.dtype, t.data_ptr()) for t in sources)
+
+    def get(self, sources: tuple, compute_dtype: torch.dtype, build) -> CrossWeights:
+        """The entry for `sources` in this compute dtype, built by
+        `build()` when there is none or it is stale."""
+        with self._lock:
+            cacheable = not any(t.is_inference() for t in sources)
+            if cacheable:
+                key = (compute_dtype, tuple(id(t) for t in sources))
+                state = self._state(sources)
+                hit = self._entries.get(key)
+                if hit is not None and hit[1] == state:
+                    self._entries.move_to_end(key)
+                    return hit[2]
+            with torch.inference_mode(False):
+                cw = build()
+            self.builds += 1
+            if cacheable:
+                self._entries[key] = (sources, state, cw)
+                self._entries.move_to_end(key)
+                while len(self._entries) > self.maxsize:
+                    self._entries.popitem(last=False)
+            return cw
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self.builds = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+cross_cache = CrossWeightCache()
+
+
+def cross_weights(cross_layers: list, compute_dtype) -> CrossWeights:
+    """The cached CrossWeights of a params["cross"] list of DCN-v2
+    {'w': [d, d], 'b': [d]} layers: stacked, cast and laid out once per
+    weight set (cross_cache)."""
+    cd = _cd(compute_dtype)
+    sources = tuple(t for p in cross_layers for t in (p["w"], p["b"]))
+    return cross_cache.get(sources, cd, lambda: prepare_cross_weights(
+        *cross_params_to_stacked(cross_layers), cd))
+
+
+def cached_cross_weights(w: torch.Tensor, b: torch.Tensor, compute_dtype) -> CrossWeights:
+    """The cached CrossWeights of stacked W [L, d, d] and b [L, d]."""
+    cd = _cd(compute_dtype)
+    return cross_cache.get((w, b), cd, lambda: prepare_cross_weights(w, b, cd))
 
 
 # ------------------------------------------------------------- plain versions
@@ -272,29 +432,33 @@ def _lib() -> ctypes.CDLL:
         lib.dts_serve_max_active_clusters.restype = ci
         lib.dts_tile_begin.restype = lib.dts_tile_owner.restype = ci
         lib.dts_tile_begin.argtypes = lib.dts_tile_owner.argtypes = [ci, ci, ci]
-        lib.dts_cross_stack.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        lib.dts_cross_stack.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.dts_cross_stack.restype = ci
+        lib.dts_cross_max_active_clusters.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.dts_cross_max_active_clusters.restype = ci
         lib.dts_error_string.argtypes = [ci]
         lib.dts_error_string.restype = ctypes.c_char_p
         lib.dts_rows_per_block.restype = ci
         lib.dts_max_mlp_layers.restype = ci
+        lib.dts_bf16_warps.restype = ci
         lib.dts_serve_smem_bytes.argtypes = [ci, ci, ci]
         lib.dts_serve_smem_bytes.restype = ctypes.c_size_t
-        lib.dts_cross_smem_bytes.argtypes = [ci, ci]
+        lib.dts_cross_smem_bytes.argtypes = [ci, ci, ci]
         lib.dts_cross_smem_bytes.restype = ctypes.c_size_t
         lib.dts_bf16_pad_k.argtypes = lib.dts_bf16_pad_n.argtypes = [ci]
         lib.dts_bf16_pad_k.restype = lib.dts_bf16_pad_n.restype = ci
         lib.dts_weight_operand_bytes.argtypes = [ci, ci, ci, ci]
         lib.dts_weight_operand_bytes.restype = ctypes.c_size_t
         # The layouts and sizes this module computes must be the kernel's.
-        agree = (lib.dts_rows_per_block(), lib.dts_max_mlp_layers()) == (
-            ROWS_PER_BLOCK, MAX_MLP_LAYERS,
+        agree = (lib.dts_rows_per_block(), lib.dts_max_mlp_layers(), lib.dts_bf16_warps()) == (
+            ROWS_PER_BLOCK, MAX_MLP_LAYERS, BF16_WARPS,
         )
         for d, m in ((688, 256), (80, 32), (100, 7), (2816, 64)):
             for cd in (torch.bfloat16, torch.float32):
                 bf = int(cd == torch.bfloat16)
                 agree &= lib.dts_serve_smem_bytes(d, m, bf) == serve_smem_bytes(d, (m,), cd)
-                agree &= lib.dts_cross_smem_bytes(d, bf) == cross_smem_bytes(d, cd)
+                agree &= all(lib.dts_cross_smem_bytes(d, bf, r) == cross_smem_bytes(d, cd, r)
+                             for r in ROW_TILES)
             agree &= (lib.dts_bf16_pad_k(d), lib.dts_bf16_pad_n(d)) == (_pad_k(d), _pad_n(d))
             for cd, wdtypes in ((torch.bfloat16, (torch.bfloat16, torch.int8)),
                                 (torch.float32, (torch.float32, torch.int8))):
@@ -334,40 +498,77 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def fused_cross_apply(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
-                      compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Apply the full DCN-v2 cross stack in one kernel; returns [n, d] in
-    the compute dtype. CPU tensors take the plain version."""
-    cd = _cd(compute_dtype)
-    n, d = x0.shape
-    L = w.shape[0]
-    if not fits_smem(d, cd):
-        raise ValueError(
-            f"cross-stack kernel (d={d}) needs {cross_smem_bytes(d, cd)} bytes of "
-            f"shared memory per block, over the {SMEM_LIMIT_BYTES} a block may use; "
-            "use cross_apply (models/dcn.py falls back via fits_smem)"
-        )
+def cross_max_active_clusters(cluster: int, d: int, rows: int) -> int:
+    """How many clusters of `cluster` bf16 cross-stack blocks of `rows` rows
+    the current card holds at once (cudaOccupancyMaxActiveClusters of the
+    cross kernel itself, at its shared memory for width d)."""
+    lib = _lib()
+    out = ctypes.c_int(0)
+    rc = lib.dts_cross_max_active_clusters(cluster, d, rows, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
+                           f"{lib.dts_error_string(rc).decode()}")
+    return out.value
+
+
+def cross_capacity(cw: CrossWeights) -> dict[tuple[int, int], int]:
+    """{(R, C): clusters the card holds at once} of the bf16 cross-stack
+    kernel at this weight set's width, for every R that fits
+    (cross_row_tiles) and C in CLUSTER_SIZES; queried once on its device."""
+    if cw._capacity is None:
+        with torch.cuda.device(cw.w.device):
+            cw._capacity = {(r, c): cross_max_active_clusters(c, cw.d, r)
+                            for r in cross_row_tiles(cw.d) for c in CLUSTER_SIZES}
+    return cw._capacity
+
+
+def cross_stack(x0: torch.Tensor, cw: CrossWeights, *,
+                _plan: tuple[int, int] | None = None) -> torch.Tensor:
+    """The cross-stack kernel on prepared weights; returns [n, d] in the
+    compute dtype. CPU tensors take the plain version.
+
+    The bf16 kernel runs tiles of R rows, each served by a cluster of C
+    blocks, (R, C) = cross_plan(n, cross_capacity(cw), d). `_plan` forces
+    (R, C) (for tests and chip_smoke.py only); a plan the launch refuses
+    raises, never retried with another."""
+    cd = cw.compute_dtype
+    if _plan is not None and (cd != torch.bfloat16 or _plan[0] not in ROW_TILES
+                              or _plan[1] < 1):
+        raise ValueError(f"_plan={_plan}: only the bf16 kernel takes a plan (R in "
+                         f"{ROW_TILES}, C >= 1)")
     if x0.device.type == "cpu":
-        return cross_stack_reference(x0, w, b, cd)
+        return cross_stack_reference(x0, cw.w, cw.b, cd)
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
     dev = x0.device
+    n, d = x0.shape
+    L = cw.w.shape[0]
+    _require(cw.w, "w", cd, (L, d, d), dev)
     x0c = x0.to(cd).contiguous()
-    wc = w.to(device=dev, dtype=cd)
-    _require(wc, "w", cd, (L, d, d), dev)
-    wc = mma_layout(wc) if cd == torch.bfloat16 else wc.contiguous()
-    bf = b.to(device=dev, dtype=torch.float32).contiguous()
-    _require(bf, "b", torch.float32, (L, d), dev)
+    rows, cluster = ROWS_PER_BLOCK, 0  # the f32 kernel takes no plan
+    if cd == torch.bfloat16:
+        rows, cluster = _plan or cross_plan(n, cross_capacity(cw), d)
+    w = cw.wt if cd == torch.bfloat16 else cw.w
     out = torch.empty((n, d), dtype=cd, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.dts_cross_stack(
-            x0c.data_ptr(), wc.data_ptr(), bf.data_ptr(), out.data_ptr(),
-            n, d, L, int(cd == torch.bfloat16), _stream(dev),
+            x0c.data_ptr(), w.data_ptr(), cw.b.data_ptr(), out.data_ptr(),
+            n, d, L, int(cd == torch.bfloat16), rows, cluster, _stream(dev),
         )
     _check(lib, rc, "cross-stack")
     launches["fused_cross_apply"] += 1
     return out
+
+
+def fused_cross_apply(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+                      compute_dtype=torch.bfloat16,
+                      _plan: tuple[int, int] | None = None) -> torch.Tensor:
+    """Apply the full DCN-v2 cross stack (W [L, d, d], b [L, d] on x0's
+    device) in one kernel; returns [n, d] in the compute dtype. The
+    weights are prepared once per weight set (cross_cache); CPU tensors
+    take the plain version. `_plan`: as for cross_stack."""
+    return cross_stack(x0, cached_cross_weights(w, b, compute_dtype), _plan=_plan)
 
 
 def max_active_clusters(cluster: int, d: int, mlp_dims, quantized: bool = False) -> int:

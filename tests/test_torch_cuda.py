@@ -8,8 +8,9 @@ machine with the card and without JAX it runs alone:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: fused serve scores (float and int8 weights) 2e-5 (f32) / 5e-3
-(bf16); cross stack allclose rtol = atol = 1e-5 (f32) / 2e-2 (bf16); the
-int8 kernel through the batcher 5e-3 against the quantized model.apply.
+(bf16); cross stack allclose rtol = atol = 1e-5 (f32) / 2e-2 (bf16), and
+bit for bit across its (rows per block, cluster) plans; the int8 kernel
+through the batcher 5e-3 against the quantized model.apply.
 """
 
 import numpy as np
@@ -172,6 +173,106 @@ def test_cluster_rule_and_occupancy_on_card(cuda_device):
     for n in (1, 256, 512, 1024, 2048):
         c = ck.serve_cluster(n, cap)
         assert c == 1 or -(-n // ck.ROWS_PER_BLOCK) <= cap[ck.CLUSTER_SIZES.index(c)]
+
+
+PLANS = [(r, c) for r in ck.ROW_TILES for c in (1, 2, 4, 8)]
+
+
+def _cross_case(dev, fields, embed, n, seed):
+    """The cross stack's inputs as model.apply hands them over: the seeded
+    demo weights (cached operands) and the bf16 weighted field gather."""
+    cfg, _, params = _setup(dev, "bfloat16", fields, embed, (16,), seed=seed)
+    cw = ck.cross_weights(params["cross"], cfg.cdtype)
+    ids, wts = _inputs(cfg, n, dev, seed=seed + n)
+    x0 = field_embed(params["embedding"], ids, wts, cfg.cdtype).reshape(n, cw.d)
+    return cw, x0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("n", [1, 17, 300])
+def test_forced_cross_plan_is_bit_identical_on_card(cuda_device, plan, shape, n):
+    """The bf16 cross stack at every forced (R, C), at widths where some
+    ranks own no column tile (d = 42: 6 tiles for up to 8 ranks): the same
+    bits as (16, 1), since every element's k order is the same, and within
+    2e-2 of the plain version."""
+    cw, x0 = _cross_case(cuda_device, shape[0], shape[1], n, seed=7)
+    base = ck.cross_stack(x0, cw, _plan=(16, 1))
+    ck.reset_launches()
+    got = ck.cross_stack(x0, cw, _plan=plan)
+    torch.cuda.synchronize()
+    assert ck.launches["fused_cross_apply"] == 1
+    assert torch.equal(got, base)
+    tol = CROSS_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), ck.cross_stack_reference(
+        x0, cw.w, cw.b, torch.bfloat16).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cross_cluster_the_launch_refuses_raises(cuda_device):
+    """A cluster of 16 cross-stack blocks is over the portable limit: the
+    launch refuses it, the wrapper raises and counts nothing, and the next
+    call at the rule's plan is unaffected."""
+    cw, x0 = _cross_case(cuda_device, 10, 8, 40, seed=2)
+    ck.reset_launches()
+    with pytest.raises(RuntimeError, match="cross-stack kernel launch failed"):
+        ck.cross_stack(x0, cw, _plan=(16, 16))
+    assert ck.launches["fused_cross_apply"] == 0
+    got = ck.cross_stack(x0, cw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ck.cross_stack(x0, cw, _plan=(16, 1)))
+
+
+@pytest.mark.cuda
+def test_cross_plan_never_takes_a_second_wave_on_card(cuda_device):
+    """At the serving width both row tiles fit and the card holds one
+    cross-stack block per SM; the rule's plan at every bucket fits one wave."""
+    cw, _ = _cross_case(cuda_device, 43, 16, 1, seed=0)
+    cap = ck.cross_capacity(cw)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert set(cap) == {(r, c) for r in (16, 32) for c in (1, 2, 4, 8)}
+    assert cap[(16, 1)] >= sms and cap[(32, 1)] >= sms and cap[(32, 8)] >= 1
+    for n in (1, 7, 256, 300, 512, 1000, 1024, 2048):
+        r, c = ck.cross_plan(n, cap, cw.d)
+        assert -(-n // r) <= cap[(r, c)], (n, r, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [None, (16, 1), (32, 8)])
+def test_cross_launch_counter_counts_one_per_call(cuda_device, plan):
+    cw, x0 = _cross_case(cuda_device, 10, 8, 64, seed=3)
+    ck.reset_launches()
+    for _ in range(3):
+        ck.cross_stack(x0, cw, _plan=plan)
+    torch.cuda.synchronize()
+    assert ck.launches == {"fused_serve": 0, "fused_serve_int8": 0, "fused_cross_apply": 3}
+
+
+@pytest.mark.cuda
+def test_warm_cross_call_launches_the_kernel_alone(cuda_device):
+    """With the weight operands cached, one fused_cross_apply call runs one
+    device kernel: no stack, cast, zero-fill or copy kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, _, params = _setup(cuda_device, "bfloat16", 43, 16, (256, 128, 64))
+    sw = ck.build_fused_serve(params, cfg).serve_weights
+    ids, wts = _inputs(cfg, 256, cuda_device, seed=1)
+    x0 = field_embed(params["embedding"], ids, wts, cfg.cdtype).reshape(256, sw.d)
+    builds = ck.cross_cache.builds
+    ck.fused_cross_apply(x0, sw.wc, sw.bc, compute_dtype=cfg.cdtype)  # warm
+    torch.cuda.synchronize()
+    calls = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ck.fused_cross_apply(x0, sw.wc, sw.bc, compute_dtype=cfg.cdtype)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # The tracer may drop events of a window, never add any: every device
+    # event is the kernel, at most one per call.
+    assert 1 <= len(names) <= calls, names
+    assert all("cross_stack_bf16_kernel" in nm for nm in names), names
+    assert ck.cross_cache.builds == builds + 1
 
 
 @pytest.mark.cuda
