@@ -9,9 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
 1. device  — card name; `nvidia-smi` name and power limit.
 2. build   — nvcc builds every kernel source of the package (sm_90a).
 3. kernels — each kernel at the serving width (43 fields x 16, vocab 2^20,
-             3 cross layers, MLP 256/128/64), in bf16 at the four buckets
-             of configs/latency.toml (256, 512, 1024, 2048) and in f32 at
-             256 and 2048 (the f32 cross stack at 256 and 2048), held
+             3 cross layers, MLP 256/128/64), in bf16 and in f32 at the four
+             buckets of configs/latency.toml (256, 512, 1024, 2048), held
              against its plain PyTorch version on the same inputs, and
              timed beside it three ways: `ms`, CUDA
              events around one call (the wrapper's host time included, as
@@ -19,21 +18,31 @@ Phases (any failure exits non-zero and prints no result line):
              back-to-back calls; `device_ms`, the device time of one call
              from torch.profiler. The fused
              serve step runs on the seed-0 demo weights (fused_serve) and
-             on their ops/quantize.py int8 tree (fused_serve_int8); in
-             bf16 at the cluster size its rule picks (`cluster`), and again
-             with every cluster size 1, 2, 4, 8 forced, each forced run
-             held to the plain version and model.apply and timed
-             (`loop_ms`, `device_ms`). The bf16 cross stack runs at all
-             four buckets at the (rows per block, cluster) plan its rule
-             picks (`rows_per_block`, `cluster`) and again at every forced
-             plan in {16, 32} x {1, 2, 4, 8}, each forced run bit-identical
-             to (16, 1) and held to the plain version, and timed
-             (`loop_ms`, `device_ms`); 20 warm calls of each cross stack
+             on their ops/quantize.py int8 tree (fused_serve_int8), at the
+             cluster size its rule picks (`cluster`), and again with every
+             cluster size 1, 2, 4, 8 forced, each forced run held to the
+             plain version and model.apply and timed (`loop_ms`,
+             `device_ms`); in f32 each forced run must give the bits of
+             C = 1. The cross stack runs at the (rows per block, cluster)
+             plan its rule picks (`rows_per_block`, `cluster`) and again at
+             every forced plan in {16, 32} x {1, 2, 4, 8}, each forced run
+             bit-identical to (16, 1) and held to the plain version, and
+             timed (`loop_ms`, `device_ms`); 20 warm calls of each cross stack
              must launch the cross kernel alone (its weight operands are
              cached). The cards' cluster capacities
              (cudaOccupancyMaxActiveClusters of each kernel at its shared
              memory) and nvcc's registers per kernel and spills are
-             printed; a spill, or a kernel over 128 registers, fails.
+             printed, and every rule row carries its kernel's `registers`
+             and `spill_bytes`; a spill, or a kernel over 128 registers,
+             fails. The f32 bound counts the operations at the split-TF32
+             rate (3 mmas per product, 2 for int8 weights, at 494.7
+             TFLOP/s), below which no tensor-core f32 kernel can go.
+             In f32 each rule row is also held to a float64 truth on
+             unit-normal inputs (x0 for the cross stack, the embedding
+             table for the fused serve step), where an f32 sum is itself
+             far from the truth: the kernel's max error must be at most 2x
+             the plain f32 version's, and the plain version with TF32
+             matmuls must miss that rule (`unit_normal_*` keys).
              Tolerances: fused serve scores 2e-5 (f32) / 5e-3 (bf16), and
              5e-3 against model.apply (bf16 for float weights, both dtypes
              on the int8 tree); cross stack allclose with rtol = atol =
@@ -53,13 +62,20 @@ Phases (any failure exits non-zero and prints no result line):
              scores are held to model.apply on the tree each bucket's
              decision picked; the same payloads then go through its
              pallas_int8 entry (`_execute` with `_kernel_override=(True,
-             True)`), held to model.apply on the int8 tree. The kernels'
-             launch counters are zeroed just before the requests and must
-             all have moved by the end; the cross_stack server must not
-             prepare its cross weights again during its requests.
+             True)`), held to model.apply on the int8 tree. Three more,
+             `fused_serve_f32`, `cross_stack_f32` and `kernels_plane_f32`,
+             are the same in f32 (the AUC-parity mode), held to the plain
+             f32 forward at 2e-5. The kernels' launch counters, one per
+             kernel and compute dtype, are zeroed just before the requests
+             and must all have moved by the end, the f32 fused serve and
+             cross-stack kernels' once per request of their f32 server; the
+             cross_stack servers must not prepare their cross weights again
+             during their requests.
 
-Prints one `{"kernels": [...]}` line, the nvidia-smi line, and last
-`{"ok": true, "device": {...}}`.
+Prints one `{"kernels": [...]}` line (one entry per kernel and compute
+dtype, the f32 ones named `<kernel>_f32`: the rule row at 2048 rows, the
+main path's launches, and every row under "by_shape"), the nvidia-smi
+line, and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -76,16 +92,29 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "distributed_tf_serving_tpu_torch"
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, bf16 tensor-core FLOP/s,
-# f32 (non-tensor-core) FLOP/s.
+# f32 (non-tensor-core) FLOP/s, TF32 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TF32_FLOPS = 494.7e12
+# The f32 kernels' TF32 mmas per f32 product (split TF32): hi*hi, hi*lo and
+# lo*hi, or two where the weight is int8 (exact in TF32, no lo part).
+SPLIT_TF32_PRODUCTS = {False: 3, True: 2}  # keyed by "the weights are int8"
 SERVE_TOL = {"float32": 2e-5, "bfloat16": 5e-3}
 CROSS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 APPLY_TOL = 5e-3
-BUCKETS = {"bfloat16": (256, 512, 1024, 2048), "float32": (256, 2048)}
-CROSS_BUCKETS = {"bfloat16": (256, 512, 1024, 2048), "float32": (256, 2048)}
+BUCKETS = (256, 512, 1024, 2048)  # configs/latency.toml
 CLUSTERS = (1, 2, 4, 8)
 CROSS_PLANS = tuple((r, c) for r in (16, 32) for c in CLUSTERS)  # (rows per block, cluster)
+KERNEL_NAMES = {  # (wrapper's counter, compute dtype) -> ptxas entry name
+    ("fused_serve", "bfloat16"): "fused_serve_bf16_kernel",
+    ("fused_serve_int8", "bfloat16"): "fused_serve_int8_bf16_kernel",
+    ("fused_serve", "float32"): "fused_serve_f32_kernel",
+    ("fused_serve_int8", "float32"): "fused_serve_int8_f32_kernel",
+}
+
+
+def cross_kernel_name(cd: str, rows: int) -> str:
+    return f"cross_stack_{'bf16' if cd == 'bfloat16' else 'f32'}_kernel<{rows}>"
 SEED = 0
 
 
@@ -179,8 +208,10 @@ def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
     return statistics.median(seen)
 
 
-def check_build(src: str, info: dict) -> None:
-    """Print each kernel's registers and spills from ptxas; fail on a spill."""
+def check_build(src: str, info: dict) -> dict:
+    """Print each kernel's registers and spills from ptxas; fail on a spill
+    or a kernel over 128 registers. Returns {kernel: {"registers",
+    "spill_bytes"}}."""
     import re
 
     regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
@@ -193,19 +224,21 @@ def check_build(src: str, info: dict) -> None:
     # Registers per kernel: ptxas names each entry function (mangled, with
     # the cross kernel's rows per block as its template argument) before
     # its "Used N registers" line.
-    per_kernel, entry = {}, None
+    per_kernel, entry, spill = {}, None, 0
     for ln in info["log"].splitlines():
         m = re.search(r"Compiling entry function '[^']*?((?:fused_serve|cross_stack)_\w+?_kernel)"
                       r"(?:ILi(\d+)E)?", ln)
         if m:
-            entry = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            entry, spill = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""), 0
+        spill += sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry:
-            per_kernel[entry] = int(m.group(1))
-    log("build: registers per kernel: " + ", ".join(f"{k} {v}" for k, v in sorted(per_kernel.items())))
-    want = {"cross_stack_bf16_kernel<16>", "cross_stack_bf16_kernel<32>", "fused_serve_bf16_kernel",
-            "fused_serve_int8_bf16_kernel"}
-    if not want <= set(per_kernel) or max(per_kernel.values()) > 128:
+            per_kernel[entry] = {"registers": int(m.group(1)), "spill_bytes": spill}
+    log("build: registers per kernel: " + ", ".join(
+        f"{k} {v['registers']}" for k, v in sorted(per_kernel.items())))
+    want = {*KERNEL_NAMES.values(),
+            *(cross_kernel_name(cd, r) for cd in PEAK_FLOPS for r in (16, 32))}
+    if not want <= set(per_kernel) or max(v["registers"] for v in per_kernel.values()) > 128:
         fail(f"ptxas register report of {src} lacks a kernel or exceeds 128: {per_kernel}")
     return per_kernel
 
@@ -229,6 +262,88 @@ def allclose_excess(got, want, tol: float) -> float:
     """max(|got - want| - tol * |want|): <= tol means allclose(rtol=atol=tol)."""
     g, w = got.float(), want.float()
     return ((g - w).abs() - tol * w.abs()).max().item()
+
+
+F32_RULE = 2.0  # an f32 kernel's error from float64 may be at most this x plain f32's
+
+
+def cross_f64(x0, w, b, s=None):
+    """The cross stack in float64; s [L, d]: the scales of int8 weights."""
+    x0 = x0.double()
+    x = x0
+    for l in range(w.shape[0]):
+        xw = x @ w[l].double()
+        if s is not None:
+            xw = xw * s[l].double()
+        x = x0 * (xw + b[l].double()) + x
+    return x
+
+
+def serve_f64(ids, wts, sw):
+    """The fused serve step's logits in float64 (float or int8 weights)."""
+    import torch
+
+    n = ids.shape[0]
+    x0 = (sw.table[ids.long()].double() * wts.double()[..., None]).reshape(n, sw.d)
+    h = x0
+    for m, (w, b) in enumerate(sw.mlp):
+        y = h @ w.double()
+        if sw.ms is not None:
+            y = y * sw.ms[m].double()
+        h = torch.relu(y + b.double())
+    xc = cross_f64(x0, sw.wc, sw.bc, sw.sc)
+    return xc @ sw.wo[:sw.d].double() + h @ sw.wo[sw.d:].double() + sw.bo[0].double()
+
+
+def f32_accuracy(what: str, kernel_fn, plain_fn, truth) -> dict:
+    """Whether an f32 (split-TF32) kernel keeps f32 accuracy where an f32
+    sum is itself far from the truth (unit-normal inputs, |x_L| up to ~25;
+    on serving inputs every version sits far inside the parity tolerance):
+    its max |error| from a float64 truth must be at most F32_RULE x the
+    plain f32 version's (cuBLAS in full f32). The control, the plain
+    version with TF32 matmuls (operands rounded to TF32, one product: what
+    the split adds two products to), must miss the rule, or the rule could
+    not tell the two apart."""
+    import torch
+
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_tf32
+    outs = {}
+    try:
+        for name, fn, tf32 in (("kernel", kernel_fn, False), ("plain", plain_fn, False),
+                               ("tf32", plain_fn, True)):
+            mm.allow_tf32 = tf32
+            outs[name] = fn()
+            torch.cuda.synchronize()
+    finally:
+        mm.allow_tf32 = prev
+    err = {k: (v.double() - truth).abs().max().item() for k, v in outs.items()}
+    log(f"kernels: {what} unit-normal inputs, max |d| from float64: kernel {err['kernel']:.3g}, "
+        f"plain f32 {err['plain']:.3g}, plain TF32 {err['tf32']:.3g} (rule: kernel <= "
+        f"{F32_RULE:g} x plain f32; TF32 must miss it)")
+    if not err["kernel"] <= F32_RULE * err["plain"]:
+        fail(f"{what}: on unit-normal inputs the kernel is {err['kernel']} from float64, over "
+             f"{F32_RULE:g} x the plain f32 version's {err['plain']}")
+    if err["tf32"] <= F32_RULE * err["plain"]:
+        fail(f"{what}: the TF32 control ({err['tf32']} from float64) passes the f32 rule "
+             f"(plain f32 {err['plain']}): the check cannot tell f32 from TF32")
+    return {"unit_normal_err_vs_f64": err["kernel"], "unit_normal_plain_err_vs_f64": err["plain"],
+            "unit_normal_tf32_err_vs_f64": err["tf32"]}
+
+
+def serve_accuracy(ids, wts, sw, table) -> dict:
+    """f32_accuracy of the fused serve logits on these ids and weights over
+    a unit-normal embedding table."""
+    import torch
+
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+
+    su = dataclasses.replace(sw, table=table)
+    kname = "fused_serve_int8" if sw.quantized else "fused_serve"
+    return f32_accuracy(f"{kname} float32 n={ids.shape[0]}",
+                        lambda: ck.fused_serve(ids, wts, su)["logits"],
+                        lambda: ck.fused_serve_reference(ids, wts, su)["logits"],
+                        serve_f64(ids, wts.to(torch.float32), su))
 
 
 def serve_cost(n: int, ids, sw, cd: str) -> tuple[float, float]:
@@ -263,13 +378,20 @@ def cross_cost(n: int, d: int, L: int, cd: str) -> tuple[float, float]:
     return float(nbytes), flops
 
 
-def bound(nbytes: float, flops: float, cd: str) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, cd: str, int8_weights: bool = False) -> tuple[float, str]:
+    """The least time for this work in ms, and what sets it. In f32 the
+    operations' time is the lesser of the f32 FFMA bound (ops / 67 TFLOP/s)
+    and the split-TF32 bound (3 x ops / 494.7 TFLOP/s, 2 x for int8
+    weights): the latter, so a tensor-core kernel is never read as beating
+    its bound."""
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[cd]
+    if cd == "float32":
+        t_ops = min(t_ops, SPLIT_TF32_PRODUCTS[int8_weights] * flops / TF32_FLOPS)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, registers: dict) -> dict:
     import torch
 
     from distributed_tf_serving_tpu_torch.models import ModelConfig, build_model
@@ -285,16 +407,17 @@ def phase_kernels(dev) -> dict:
         qparams = quantize_params(params)
         weights = {"fused_serve": (params, ck.build_fused_serve(params, cfg).serve_weights),
                    "fused_serve_int8": (qparams, ck.build_fused_serve(qparams, cfg).serve_weights)}
-        if cd == "bfloat16":
-            for kname, (_, sw) in weights.items():
-                cap = ck.serve_capacity(sw)
-                log(f"kernels: {kname} bf16 clusters resident at once (cudaOccupancyMaxActive"
-                    f"Clusters, {ck.serve_smem_bytes(sw.d, [w.shape[1] for w, _ in sw.mlp])} B "
-                    f"of shared memory per block): " + ", ".join(
-                        f"C={c}: {k}" for c, k in zip(ck.CLUSTER_SIZES, cap))
-                    + f" (16 clusters of 8 fit one wave: {cap[3] >= 16})")
+        for kname, (_, sw) in weights.items():
+            cap = ck.serve_capacity(sw)
+            log(f"kernels: {kname} {cd} clusters resident at once (cudaOccupancyMaxActive"
+                f"Clusters, {ck.serve_smem_bytes(sw.d, [w.shape[1] for w, _ in sw.mlp], cfg.cdtype)}"
+                f" B of shared memory per block): " + ", ".join(
+                    f"C={c}: {k}" for c, k in zip(ck.CLUSTER_SIZES, cap))
+                + f" (16 clusters of 8 fit one wave: {cap[3] >= 16})")
         wts_dtype = cfg.cdtype  # the transfer spec ships bf16 weights for bf16 models
-        for n in BUCKETS[cd]:
+        unit_table = torch.randn(params["embedding"].shape, device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(SEED))
+        for n in BUCKETS:
             g = torch.Generator(device="cpu").manual_seed(SEED + n)
             raw = torch.randint(0, 1 << 40, (n, cfg.num_fields), generator=g, dtype=torch.int64)
             ids = torch.remainder(raw, cfg.vocab_size).to(torch.int32).to(dev)
@@ -326,7 +449,7 @@ def phase_kernels(dev) -> dict:
                 err, err_apply = check(out, f"{kname} {cd} n={n}")
                 t = timings(lambda: ck.fused_serve(ids, wts, sw),
                             lambda: ck.fused_serve_reference(ids, wts, sw))
-                b_ms, b_by = bound(*serve_cost(n, ids, sw, cd), cd)
+                b_ms, b_by = bound(*serve_cost(n, ids, sw, cd), cd, sw.quantized)
                 row = {"dtype": cd, "n": n, "max_abs_err": err, "tol": SERVE_TOL[cd],
                        "max_abs_err_vs_model_apply": err_apply}
                 extra = ""
@@ -335,34 +458,38 @@ def phase_kernels(dev) -> dict:
                     row["dscore_vs_float_model_apply"] = (
                         out["prediction_node"] - app_float["prediction_node"]).abs().max().item()
                     extra = f" dscore_vs_float={row['dscore_vs_float_model_apply']:.3g}"
-                if cd == "bfloat16":
-                    row["cluster"] = ck.serve_cluster(n, ck.serve_capacity(sw))
-                    extra += f" cluster={row['cluster']}"
-                row.update(t, bound_ms=b_ms, bound_by=b_by)
+                row["cluster"] = ck.serve_cluster(n, ck.serve_capacity(sw))
+                extra += f" cluster={row['cluster']}"
+                row.update(t, bound_ms=b_ms, bound_by=b_by, **registers[KERNEL_NAMES[kname, cd]])
+                if cd == "float32":
+                    row.update(serve_accuracy(ids, wts, sw, unit_table))
                 rows[kname].append(row)
                 log(f"kernels: {kname} {cd} n={n} err={err:.3g} vs_apply={err_apply:.3g}{extra} "
                     f"{fmt_times(t)} bound_ms={b_ms:.5f} ({b_by})")
-                if cd != "bfloat16":
-                    continue
+                base = ck.fused_serve(ids, wts, sw, _cluster=1)
                 for c in CLUSTERS:
                     fn = lambda c=c: ck.fused_serve(ids, wts, sw, _cluster=c)  # noqa: E731
                     out = fn()
                     torch.cuda.synchronize()
-                    err, err_apply = check(out, f"{kname} {cd} n={n} forced cluster={c}")
+                    what = f"{kname} {cd} n={n} forced cluster={c}"
+                    err, err_apply = check(out, what)
+                    same = all(torch.equal(out[k], base[k]) for k in ("logits", "prediction_node"))
+                    if cd == "float32" and not same:
+                        fail(f"{what}: not bit-identical to C = 1: max |dlogit| "
+                             f"{(out['logits'] - base['logits']).abs().max().item()}")
                     tc = {"loop_ms": loop_ms(fn), "device_ms": device_ms(fn)}
                     rows[kname].append({"dtype": cd, "n": n, "cluster": c, "forced": True,
                                         "max_abs_err": err, "max_abs_err_vs_model_apply": err_apply,
-                                        **tc})
-                    log(f"kernels: {kname} {cd} n={n} forced cluster={c} err={err:.3g} "
-                        f"vs_apply={err_apply:.3g} {fmt_times(tc)}")
+                                        "bit_identical_to_c1": same, **tc})
+                    log(f"kernels: {what} err={err:.3g} vs_apply={err_apply:.3g} "
+                        f"bit-identical to C=1: {same} {fmt_times(tc)}")
 
-            if n in CROSS_BUCKETS[cd]:
-                # The cross stack on what the main path hands it: model.apply's
-                # compute-dtype x0 from the weighted field gather.
-                sw = weights["fused_serve"][1]
-                x0 = field_embed(params["embedding"], ids, wts, cfg.cdtype).reshape(n, sw.d)
-                rows["fused_cross_apply"].extend(cross_rows(x0, sw.wc, sw.bc, cd))
-        del params, qparams, weights, model
+            # The cross stack on what the main path hands it: model.apply's
+            # compute-dtype x0 from the weighted field gather.
+            sw = weights["fused_serve"][1]
+            x0 = field_embed(params["embedding"], ids, wts, cfg.cdtype).reshape(n, sw.d)
+            rows["fused_cross_apply"].extend(cross_rows(x0, sw.wc, sw.bc, cd, registers))
+        del params, qparams, weights, model, unit_table
         torch.cuda.empty_cache()
     return rows
 
@@ -388,12 +515,14 @@ def warm_call_kernels(fn, calls: int = 20, attempts: int = 3) -> list[str]:
     fail(f"torch.profiler recorded no device event in {attempts} profiles of {calls} calls")
 
 
-def cross_rows(x0, w, b, cd: str) -> list[dict]:
+def cross_rows(x0, w, b, cd: str, registers: dict) -> list[dict]:
     """The cross stack at one bucket: the rule's (R, C) held to the plain
-    version and timed three ways; in bf16 every forced (R, C) too, each
+    version and timed three ways, and in f32 held to a float64 truth on
+    unit-normal x0 (f32_accuracy); every forced (R, C) too, each
     bit-identical to (16, 1) and allclose to the plain version, with
-    `loop_ms` and `device_ms`. Fails if a warm call launches anything but
-    the kernel (the weight operands are cached after the first call)."""
+    `loop_ms` and `device_ms`. Fails if a warm call
+    launches anything but the kernel (the weight operands are cached after
+    the first call)."""
     import torch
 
     from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
@@ -420,22 +549,26 @@ def cross_rows(x0, w, b, cd: str) -> list[dict]:
     cb_ms, cb_by = bound(*cross_cost(n, x0.shape[1], w.shape[0], cd), cd)
     row = {"dtype": cd, "n": n, "max_abs_err": cerr, "tol": CROSS_TOL[cd], **tc,
            "bound_ms": cb_ms, "bound_by": cb_by, "warm_call_device_ops": len(names)}
-    extra = ""
-    if cd == "bfloat16":
-        cap = ck.cross_capacity(ck.cached_cross_weights(w, b, cdt))
-        if n == CROSS_BUCKETS[cd][0]:
-            log(f"kernels: fused_cross_apply bf16 clusters resident at once (cudaOccupancy"
-                f"MaxActiveClusters of the cross kernel, d={x0.shape[1]}): " + ", ".join(
-                    f"R={r} ({ck.cross_smem_bytes(x0.shape[1], cdt, r)} B) C={c}: {k}"
-                    for (r, c), k in cap.items()))
-        row["rows_per_block"], row["cluster"] = ck.cross_plan(n, cap, x0.shape[1])
-        row["capacity"] = {f"{r}x{c}": k for (r, c), k in cap.items()}
-        extra = f" plan=(R={row['rows_per_block']}, C={row['cluster']})"
-    log(f"kernels: fused_cross_apply {cd} n={n} err={cerr:.3g}{extra} {fmt_times(tc)} "
-        f"bound_ms={cb_ms:.5f} ({cb_by}); a warm call runs the kernel alone")
+    cap = ck.cross_capacity(ck.cached_cross_weights(w, b, cdt))
+    if n == BUCKETS[0]:
+        log(f"kernels: fused_cross_apply {cd} clusters resident at once (cudaOccupancy"
+            f"MaxActiveClusters of the cross kernel, d={x0.shape[1]}): " + ", ".join(
+                f"R={r} ({ck.cross_smem_bytes(x0.shape[1], cdt, r)} B) C={c}: {k}"
+                for (r, c), k in cap.items()))
+    row["rows_per_block"], row["cluster"] = ck.cross_plan(n, cap, x0.shape[1])
+    row["capacity"] = {f"{r}x{c}": k for (r, c), k in cap.items()}
+    row.update(registers[cross_kernel_name(cd, row["rows_per_block"])])
+    if cd == "float32":
+        xu = torch.randn(x0.shape, device=x0.device,
+                         generator=torch.Generator(device=x0.device).manual_seed(SEED + n))
+        row.update(f32_accuracy(f"fused_cross_apply float32 n={n}",
+                                lambda: ck.fused_cross_apply(xu, w, b, compute_dtype=cdt),
+                                lambda: ck.cross_stack_reference(xu, w, b, cdt),
+                                cross_f64(xu, w, b)))
+    log(f"kernels: fused_cross_apply {cd} n={n} err={cerr:.3g} plan=(R={row['rows_per_block']}, "
+        f"C={row['cluster']}) {fmt_times(tc)} bound_ms={cb_ms:.5f} ({cb_by}); a warm call runs "
+        "the kernel alone")
     out = [row]
-    if cd != "bfloat16":
-        return out
     base = ck.fused_cross_apply(x0, w, b, compute_dtype=cdt, _plan=(16, 1))
     for plan in CROSS_PLANS:
         fp = lambda plan=plan: ck.fused_cross_apply(x0, w, b, compute_dtype=cdt,  # noqa: E731
@@ -544,43 +677,44 @@ def breakdown(dev, batcher, servable, stub, payload) -> dict:
     return out
 
 
-def kernels_plane_config():
+def kernels_plane_config(suffix: str = ""):
     """configs/latency.toml with [kernels] armed (quantize and the fused
-    kernel, the JAX package's default gates), its table in chiprun_out/."""
+    kernel, the JAX package's default gates), its table in chiprun_out/
+    (one per server: `suffix` names it)."""
     from distributed_tf_serving_tpu_torch.utils.config import load_config
 
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    table = os.path.join(out_dir, "kernel_autotune.json")
+    table = os.path.join(out_dir, f"kernel_autotune{suffix}.json")
     if os.path.exists(table):
         os.remove(table)  # measure in this run, never adopt an older table
     with open(os.path.join(HERE, "configs", "latency.toml")) as f:
         text = f.read()
-    path = os.path.join(out_dir, "kernels_plane.toml")
+    path = os.path.join(out_dir, f"kernels_plane{suffix}.toml")
     with open(path, "w") as f:
         f.write(text + "\n[kernels]\nenabled = true\nquantize = true\npallas = true\n"
                 f"table_file = {json.dumps(table)}\n")
     return load_config(path)["kernels"]
 
 
-def check_autotune(table: dict) -> None:
+def check_autotune(table: dict, label: str) -> None:
     """Print the per-bucket autotune table; fail on an errored bucket or
     variant, or when the fused variants were not measured."""
     from distributed_tf_serving_tpu_torch.ops.autotune import BASELINE, VARIANTS
 
     if not table.get("pallas_eligible"):
-        fail(f"kernels_plane: fused variants ineligible: {table.get('pallas_ineligible_reason')}")
+        fail(f"{label}: fused variants ineligible: {table.get('pallas_ineligible_reason')}")
     for bucket, row in sorted(table["buckets"].items(), key=lambda kv: int(kv[0])):
         if "error" in row:
-            fail(f"kernels_plane: bucket {bucket} baseline failed: {row['error']}")
+            fail(f"{label}: bucket {bucket} baseline failed: {row['error']}")
         parts = [f"{BASELINE} step_us={row[BASELINE]['step_us']}"]
         for v in VARIANTS:
             e = row.get(v)
             if e is None or "error" in e:
-                fail(f"kernels_plane: bucket {bucket} variant {v}: {e}")
+                fail(f"{label}: bucket {bucket} variant {v}: {e}")
             parts.append(f"{v} step_us={e['step_us']} speedup={e['speedup']} "
                          f"max_abs_delta={e['max_abs_delta']} enabled={e['enabled']}")
-        log(f"autotune: bucket {bucket}: " + "; ".join(parts) + f" -> {row['decision']}")
+        log(f"autotune: {label} bucket {bucket}: " + "; ".join(parts) + f" -> {row['decision']}")
 
 
 def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> dict:
@@ -606,12 +740,17 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
         log(f"serving: {missing} is not installed; driving DynamicBatcher.submit instead of gRPC")
 
     # (label, model config, fused serve kernel on?, [kernels] config): the
-    # fused serve step, the use_pallas_cross configuration, and the kernel
-    # plane, whose autotune runs inside build_stack (before the counted run).
+    # fused serve step, the use_pallas_cross configuration and the kernel
+    # plane, whose autotune runs inside build_stack (before the counted run),
+    # each in bf16 and in f32 (the AUC-parity mode).
+    f32_cfg = dataclasses.replace(model_cfg, compute_dtype="float32")
     stacks = [
         ("fused_serve", model_cfg, True, None),
         ("cross_stack", dataclasses.replace(model_cfg, use_pallas_cross=True), False, None),
         ("kernels_plane", model_cfg, True, kernels_plane_config()),
+        ("fused_serve_f32", f32_cfg, True, None),
+        ("cross_stack_f32", dataclasses.replace(f32_cfg, use_pallas_cross=True), False, None),
+        ("kernels_plane_f32", f32_cfg, True, kernels_plane_config("_f32")),
     ]
     built = []
     for label, mc, fused, kc in stacks:
@@ -619,7 +758,7 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
                                               kernels_config=kc)
         if kc is not None:
             table = batcher.kernels.snapshot()["tables"][f"{servable.name}:{servable.version}"]
-            check_autotune(table)
+            check_autotune(table, label)
         server = port = None
         if transport == "grpc":
             from distributed_tf_serving_tpu_torch.serving.server import create_server
@@ -687,8 +826,9 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
                 if got.shape != (n,) or not np.all(np.isfinite(got)):
                     fail(f"serving {label} n={n}: bad scores shape {got.shape}")
                 err = float(np.max(np.abs(got - want)))
-                if err > APPLY_TOL:
-                    fail(f"serving {label} n={n}: max |dscore| vs plain forward {err} > {APPLY_TOL}")
+                tol = SERVE_TOL[servable.model.config.compute_dtype]
+                if err > tol:
+                    fail(f"serving {label} n={n}: max |dscore| vs plain forward {err} > {tol}")
                 per_size[n] = {"p50_ms": statistics.median(lat), "max_abs_err": err,
                                "requests": len(lat), "decision": decision}
                 log(f"serving: {label} n={n} p50={statistics.median(lat):.3f} ms "
@@ -715,17 +855,18 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
                             "feat_wts": torch.from_numpy(wts).to(dev),
                         })["prediction_node"].float().cpu().numpy()
                     err = float(np.max(np.abs(got - want)))
-                    if not np.all(np.isfinite(got)) or err > APPLY_TOL:
-                        fail(f"kernels_plane pallas_int8 entry n={n}: max |dscore| vs model.apply "
-                             f"on the int8 tree {err} > {APPLY_TOL}")
-                    log(f"serving: kernels_plane pallas_int8 entry n={n} (bucket {bucket}) "
+                    tol = SERVE_TOL[servable.model.config.compute_dtype]
+                    if not np.all(np.isfinite(got)) or err > tol:
+                        fail(f"{label} pallas_int8 entry n={n}: max |dscore| vs model.apply "
+                             f"on the int8 tree {err} > {tol}")
+                    log(f"serving: {label} pallas_int8 entry n={n} (bucket {bucket}) "
                         f"err={err:.3g}")
                 snap = km.snapshot()
                 results["servers"][label]["autotune"] = snap["tables"]
                 results["servers"][label]["counters"] = snap["counters"]
-        results["launches"] = dict(ck.launches)
-        # The use_pallas_cross server's weight operands were prepared at its
-        # warmup; its requests must reuse them.
+        results["launches"] = {f"{k}/{cd}": v for (k, cd), v in ck.launches.items()}
+        # The use_pallas_cross servers' weight operands were prepared at
+        # their warmup; their requests must reuse them.
         results["cross_weight_builds"] = ck.cross_cache.builds - builds0
         results["requests"] = len(built) * len(sizes) * repeats
         # After the counted run: where a request's time goes (fused server).
@@ -744,8 +885,12 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
     for kname, cnt in results["launches"].items():
         if cnt <= 0:
             fail(f"the main path launched kernel {kname} no time (counts {results['launches']})")
+    for kname in ("fused_serve/float32", "fused_cross_apply/float32"):
+        if results["launches"][kname] < len(sizes) * repeats:
+            fail(f"the f32 server did not launch {kname} for each request: "
+                 f"{results['launches']}")
     if results["cross_weight_builds"]:
-        fail(f"the cross_stack server prepared its cross weights {results['cross_weight_builds']} "
+        fail(f"the cross_stack servers prepared cross weights {results['cross_weight_builds']} "
              "times during the main path; the cache should have held them since warmup")
     log(f"serving: launches during the main path {results['launches']} over "
         f"{results['requests']} requests ({len(sizes) * repeats} per server)")
@@ -775,7 +920,7 @@ def main() -> None:
     registers = {src: check_build(src, info) for src, info in cuda_build.build_info.items()}
 
     t0 = time.perf_counter()
-    rows = phase_kernels(dev)
+    rows = phase_kernels(dev, registers[ck.SOURCE])
     log(f"kernels: phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     serving = phase_serving(dev, f"{name} ({smi})")
@@ -785,29 +930,27 @@ def main() -> None:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving}, f,
                   indent=1)
 
-    meta = {
+    replaces = {
         "fused_serve": "distributed_tf_serving_tpu/ops/cross_kernel.py:470",
         "fused_serve_int8": "distributed_tf_serving_tpu/ops/cross_kernel.py:470 (int8 operands)",
         "fused_cross_apply": "distributed_tf_serving_tpu/ops/cross_kernel.py:114",
     }
     kernels = []
-    for kname, replaces in meta.items():
-        head = next(r for r in rows[kname]
-                    if r["dtype"] == "bfloat16" and r["n"] == 2048 and not r.get("forced"))
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": f"{PKG}/csrc/cross_kernel.cu", "replaces": replaces,
-            "launches": serving["launches"][kname],
-            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-            "plain_ms": head["plain_ms"], "loop_ms": head["loop_ms"],
-            "plain_loop_ms": head["plain_loop_ms"], "device_ms": head["device_ms"],
-            "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": None,
-            "shape": "bf16, 2048 rows", "by_shape": rows[kname],
-        })
-        for key in ("rows_per_block", "cluster"):
-            if key in head:
-                kernels[-1][key] = head[key]
+    for cd in ("bfloat16", "float32"):
+        for kname, line in replaces.items():
+            # The rule's row at 2048 rows in this compute dtype.
+            head = next(r for r in rows[kname]
+                        if r["dtype"] == cd and r["n"] == 2048 and not r.get("forced"))
+            entry = {"name": kname if cd == "bfloat16" else f"{kname}_f32", "route": "cuda",
+                     "source": f"{PKG}/csrc/cross_kernel.cu", "replaces": line,
+                     "launches": serving["launches"][f"{kname}/{cd}"], "library_ms": None,
+                     "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
+            entry.update((k, head[k]) for k in (
+                "max_abs_err", "ms", "plain_ms", "loop_ms", "plain_loop_ms", "device_ms",
+                "bound_ms", "bound_by", "rows_per_block", "cluster", "registers",
+                "spill_bytes") if k in head)
+            entry["by_shape"] = [r for r in rows[kname] if r["dtype"] == cd]
+            kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,10 @@
 // (gathered table rows ~5.6 MB, bf16 weights ~3.3 MB): operation-bound. At
 // 256 rows it is ~0.84 GFLOP against ~4 MB, so the weight bytes set it.
 // The int8 variant streams 1 byte per weight plus f32 scales (~1.64 MB at
-// that width against ~3.3 MB of bf16), the same arithmetic otherwise.
+// that width against ~3.3 MB of bf16), the same arithmetic otherwise. In
+// f32 the same work on split TF32 (3 products at 494.7 TFLOP/s of TF32)
+// bounds it at ~0.04 ms for 2048 rows, where f32 FFMA (67 TFLOP/s) would
+// take ~0.1 ms; the f32 weights are 5.8 MB.
 //
 // What bounds the bf16 fused serve kernel in practice is neither peak.
 // A 16-row tile re-reads every weight from L2: 3.4 MB per tile, 435 MB at
@@ -40,7 +43,7 @@
 //     bf16 matrix alone is 0.95 MB against 227 KB of shared memory per
 //     block, so here weights stream from L2 (the 3.3 MB of bf16 weights fit
 //     the 50 MB L2 many times over).
-//   * Thread-block cluster (bf16 fused serve): a tile is served by a
+//   * Thread-block cluster (every kernel): a tile is served by a
 //     cluster of C in {1, 2, 4, 8} blocks on neighbouring SMs. Rank r owns
 //     the 8-column output tiles [r*nt/C, (r+1)*nt/C) of every layer (nt =
 //     pad_n(N)/8), so it streams 1/C of the weights and its warps' chains
@@ -96,11 +99,38 @@
 //     shared memory fits. Each element's k order is the same at every
 //     (R, C), so every plan gives the same bits. The fused serve kernels
 //     keep R = 16.
-//   * f32 runs on plain FFMA (tensor cores have no f32, and TF32 would
-//     break the 1e-5 parity). Its activations are stored transposed
-//     ([column][row], ROWS contiguous): one k step reads the ROWS values of
-//     column k as shared-memory broadcasts, and each thread owns two
-//     adjacent output columns for all rows.
+//   * f32 (the AUC-parity mode) runs on the tensor cores as split TF32:
+//     mma.sync m16n8k8 .tf32 with f32 accumulation, each f32 operand a
+//     split into hi = a rounded to TF32 (cvt.rna.tf32.f32, done with two
+//     integer operations) and lo = a - hi (exact in f32), and per 8-deep k
+//     step acc += lo_a * hi_b, += hi_a * lo_b, += hi_a * hi_b. The dropped
+//     lo * lo term and the mma's truncation of lo to TF32 leave each
+//     product within ~2^-21 of its f32 value (tests/test_torch_f32_kernels.py
+//     emulates it); plain TF32 alone would miss the 1e-5 parity by three
+//     orders. The tensor cores truncate their f32 sums, so each 32-deep
+//     chunk accumulates in fresh accumulators that a rounded f32 add puts
+//     into the total. An int8 weight widened to f32 is exact in TF32, so
+//     int8 B takes two mmas (lo_a * b, hi_a * b). Activations are row-major
+//     f32 in shared memory (row stride pad_k(K) + 4 floats, so each 8-lane
+//     phase of the 16-byte A loads hits distinct banks) and split in
+//     registers; weights use the bf16 kernels' W^T [pad_n(N)][pad_k(K)]
+//     layout in f32 or int8 and are split in registers as they arrive (a
+//     host-split copy would double the L2 weight stream, 5.7 MB to 11.4 MB
+//     per tile at 688). Lane (g, t) reads 8 consecutive k of A's rows g,
+//     g + 8 and of B's column g per 32-deep chunk; mma step s takes the k
+//     pair (2s, 2s + 1) of them, the same permutation in A and B.
+//   * The f32 kernels take the bf16 kernels' cluster split (same partition,
+//     one barrier per layer, DSMEM pull of 32 bytes per row and peer tile),
+//     with C from the same host rules fed by the f32 kernels' own cluster
+//     capacity. The f32 cross stack takes R = 16 or 32 rows: it keeps no x0
+//     tile (x0 fills the buffer that layer 1 overwrites, and each update
+//     reads its x0 element from global memory), so two 32-row f32 buffers
+//     fit (181 KB at 688) and R = 32 halves the L2 weight stream per row,
+//     which bounds the f32 cross stack at 2048 rows. The fused serve kernel
+//     keeps R = 16 and its x0 tile. Its head is not summed per rank: each
+//     rank stores one partial per row and own 8-column tile, and rank 0
+//     adds them in tile order, reading each from its owner, so every C
+//     gives the bits of C = 1 (as every (R, C) of the cross stacks does).
 //   * The update x0 * (x @ W + b) + x is f32 with explicit _rn operations
 //     (no FMA contraction), rounded to the compute dtype once per layer,
 //     matching the JAX kernel's rounding points.
@@ -115,8 +145,8 @@
 //     uses byte permutes and one f32 subtract per value, not the
 //     conversion unit (I2F/F2F cost ~15 % of the kernel's time on an
 //     H100), and a warp keeps 8 chunks of B loads in flight (the registers
-//     4 chunks of bf16 take). The f32 path widens each int8 to f32. The
-//     scale folds into the f32 result in the JAX kernel's order: xw =
+//     4 chunks of bf16 take). The f32 path widens each int8 to f32 the same
+//     way and keeps 4 chunks in flight (2 of f32). The scale folds into the f32 result in the JAX kernel's order: xw =
 //     acc * s, then + b (cross and MLP alike).
 //     The head arrives dequantized to f32 by the host. Padded output
 //     columns are never stored (the j < N guard), so their scale is
@@ -143,8 +173,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int ROWS = 16;             // candidate rows per block (= mma M)
 constexpr int MAX_MLP = 4;           // MLP layers the fused serve kernel takes
-constexpr int F32_MAX_THREADS = 512;
-constexpr int BF16_THREADS = 512;    // 16 warps
+constexpr int THREADS = 512;         // every kernel's block: 16 warps
 constexpr int KCHUNK = 32;           // k depth per pair of m16n8k16 mmas
 constexpr int KGROUP = 4;            // k chunks of bf16 B loads issued together
 
@@ -162,10 +191,12 @@ __host__ __device__ inline int lda_of(int k) {
   const int kp = pad_k(k);
   return kp % 64 == 0 ? kp + 32 : kp;
 }
+// Row stride (floats) of a row-major f32 activation tile read as mma A: 4
+// mod 8 floats puts rows g and g + 1 of a 16-byte load phase on distinct
+// banks (lanes t = 0..3 of a row are 32 bytes apart).
+__host__ __device__ inline int ldf_of(int k) { return pad_k(k) + 4; }
 
-__device__ __forceinline__ float f32_of(float v) { return v; }
 __device__ __forceinline__ float f32_of(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float f32_of(int8_t v) { return static_cast<float>(v); }
 
 // The f32 matmul result of a weight column j: scaled by s[j] for int8
 // weights (per-output-channel scale), as it is for float weights.
@@ -232,95 +263,6 @@ __device__ void gather(const int* ids, const void* wts, int wts_bf16, const floa
     const int cnt = q4 ? 4 : 1;
     for (int c = 0; c < cnt; ++c) emit(r, j + c, __fmul_rn(v[c], w));
   }
-}
-
-// ========================================================= f32: FFMA path
-
-// acc[r] = sum_k in[r][k] * W[k][j] for every output column j of an
-// [ROWS, K] x [K, M] product; epi(j, acc) consumes each finished column.
-// `inT` is the transposed tile [K][ROWS] in shared memory; W is [K, M]
-// row-major in global memory (read through L2), f32 or int8 (widened to
-// f32 exactly; the caller's epilogue applies the scale).
-__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  a = v.x;
-  b = v.y;
-}
-__device__ __forceinline__ void load_pair(const int8_t* p, float& a, float& b) {
-  const char2 v = *reinterpret_cast<const char2*>(p);
-  a = static_cast<float>(static_cast<int8_t>(v.x));
-  b = static_cast<float>(static_cast<int8_t>(v.y));
-}
-
-template <typename T, typename Epi>
-__device__ __forceinline__ void ffma_layer(const float* inT, int K, const T* __restrict__ W,
-                                           int M, Epi epi) {
-  const int pairs = (M + 1) >> 1;
-  const bool vec = (M & 1) == 0;
-  for (int cg = threadIdx.x; cg < pairs; cg += blockDim.x) {
-    const int j0 = 2 * cg;
-    const bool has1 = j0 + 1 < M;
-    float a0[ROWS], a1[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      a0[r] = 0.f;
-      a1[r] = 0.f;
-    }
-    const T* wp = W + j0;
-#pragma unroll 2
-    for (int k = 0; k < K; ++k) {
-      float w0, w1;
-      if (vec) {
-        load_pair(wp + (size_t)k * M, w0, w1);
-      } else {
-        w0 = f32_of(wp[(size_t)k * M]);
-        w1 = has1 ? f32_of(wp[(size_t)k * M + 1]) : 0.f;
-      }
-      const float4* col = reinterpret_cast<const float4*>(inT + (size_t)k * ROWS);
-#pragma unroll
-      for (int q = 0; q < ROWS / 4; ++q) {
-        const float4 x = col[q];
-        a0[4 * q] = fmaf(x.x, w0, a0[4 * q]);
-        a0[4 * q + 1] = fmaf(x.y, w0, a0[4 * q + 1]);
-        a0[4 * q + 2] = fmaf(x.z, w0, a0[4 * q + 2]);
-        a0[4 * q + 3] = fmaf(x.w, w0, a0[4 * q + 3]);
-        a1[4 * q] = fmaf(x.x, w1, a1[4 * q]);
-        a1[4 * q + 1] = fmaf(x.y, w1, a1[4 * q + 1]);
-        a1[4 * q + 2] = fmaf(x.z, w1, a1[4 * q + 2]);
-        a1[4 * q + 3] = fmaf(x.w, w1, a1[4 * q + 3]);
-      }
-    }
-    epi(j0, a0);
-    if (has1) epi(j0 + 1, a1);
-  }
-}
-
-// L cross layers over transposed f32 tiles; returns the buffer holding x_L.
-// sc: [L, d] per-channel scales of int8 weights (unused for float).
-template <typename T>
-__device__ const float* ffma_cross(const float* x0T, float* xb0, float* xb1, int d,
-                                   const T* __restrict__ Wc, const float* __restrict__ bc,
-                                   const float* __restrict__ sc, int L) {
-  float* cur = xb0;
-  float* nxt = xb1;
-  for (int l = 0; l < L; ++l) {
-    const float* b = bc + (size_t)l * d;
-    const float* s = sc ? sc + (size_t)l * d : nullptr;
-    ffma_layer(cur, d, Wc + (size_t)l * d * d, d, [&](int j, const float(&acc)[ROWS]) {
-      const float bj = b[j];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int o = j * ROWS + r;
-        const float xw = __fadd_rn(scaled<T>(acc[r], s, j), bj);
-        nxt[o] = __fadd_rn(__fmul_rn(x0T[o], xw), cur[o]);
-      }
-    });
-    __syncthreads();  // every thread read all of `cur`; the next layer overwrites it
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  return cur;
 }
 
 // ====================================================== bf16: mma.sync path
@@ -529,6 +471,281 @@ __device__ const bf16* mma_cross(const float* x0, bf16* xb0, bf16* xb1, int d, i
   return cur;
 }
 
+// ============================================= f32: split-TF32 mma.sync path
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo: hi is x rounded to TF32, half away from zero (cvt.rna.tf32.f32
+// for finite x); lo = x - hi is exact in f32, and the mma reads its top 19
+// bits (TF32 truncation).
+struct Split {
+  uint32_t hi, lo;
+};
+__device__ __forceinline__ Split split_tf32(float x) {
+  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  return {hi, __float_as_uint(__fsub_rn(x, __uint_as_float(hi)))};
+}
+
+// One lane's B fragment of a 32-deep chunk for the f32 kernels: the 8
+// consecutive k values k0 .. k0 + 7 of one output column, loaded raw, then
+// widened to f32 in k order.
+template <typename T>
+struct TF32Frag;
+template <>
+struct TF32Frag<float> {
+  struct Raw {
+    float4 a, b;
+  };  // 32 bytes
+  static constexpr int kGroup = 2;
+  static constexpr bool kExact = false;
+  static __device__ __forceinline__ Raw load(const float* p) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    return {__ldg(q), __ldg(q + 1)};
+  }
+  static __device__ __forceinline__ void expand(const Raw& r, float (&v)[8]) {
+    v[0] = r.a.x, v[1] = r.a.y, v[2] = r.a.z, v[3] = r.a.w;
+    v[4] = r.b.x, v[5] = r.b.y, v[6] = r.b.z, v[7] = r.b.w;
+  }
+};
+template <>
+struct TF32Frag<int8_t> {
+  typedef uint2 Raw;  // 8 bytes
+  static constexpr int kGroup = 4;  // a quarter of the bytes: twice the chunks in flight
+  static constexpr bool kExact = true;
+  static __device__ __forceinline__ Raw load(const int8_t* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ void expand(const Raw& r, float (&v)[8]) {
+    const uint32_t x = r.x ^ 0x80808080u, y = r.y ^ 0x80808080u;
+    v[0] = i8_byte_to_f32(x, 0x7650), v[1] = i8_byte_to_f32(x, 0x7651);
+    v[2] = i8_byte_to_f32(x, 0x7652), v[3] = i8_byte_to_f32(x, 0x7653);
+    v[4] = i8_byte_to_f32(y, 0x7650), v[5] = i8_byte_to_f32(y, 0x7651);
+    v[6] = i8_byte_to_f32(y, 0x7652), v[7] = i8_byte_to_f32(y, 0x7653);
+  }
+};
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// C[R, N] = A[R, K] @ W[K, N] in split TF32, for the 8-column output
+// tiles [t0, t1) only; R = 16 or 32 rows, H = R / 16 m16 row halves. A is
+// row-major f32 in shared memory (stride lda, columns [K, pad_k(K)) zero);
+// WT is W^T laid out [pad_n(N)][pad_k(K)] in global memory, zero-padded,
+// f32 or int8. epi(r, j, value) gets every element of those tiles with
+// j < N, in f32 (unscaled). Each warp owns two tiles at a time; every B
+// value is split once per step for both halves, every A value once for
+// both tiles. Each 32-deep chunk accumulates in fresh mma accumulators,
+// one for the small products and one for hi * hi (two chains in flight),
+// whose sum is added to the f32 total with a rounded add: the tensor cores
+// truncate their f32 sums, and a chunk's partial is far smaller than the
+// total. Each element's k order is the same at every R and every tile
+// range.
+template <int R, typename T, typename Epi>
+__device__ __forceinline__ void tf32_layer(const float* A, int lda, int K,
+                                           const T* __restrict__ WT, int N, int t0, int t1,
+                                           Epi epi) {
+  constexpr int H = R / 16;
+  static_assert(R == 16 * H && (H == 1 || H == 2), "R is 16 or 32 rows");
+  typedef TF32Frag<T> F;
+  typedef typename F::Raw Raw;
+  constexpr int G = H == 2 ? 1 : F::kGroup;  // two halves: registers for one chunk of B
+  const int kp = pad_k(K);
+  const int nch = kp / KCHUNK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const float* a_top = A + g * lda + 8 * t;
+  const Raw zero = {};
+  for (int tile = t0 + 2 * warp; tile < t1; tile += 2 * nw) {
+    const bool two = tile + 1 < t1;
+    float sum[2][H][4] = {};
+    const T* b0p = WT + (size_t)(tile * 8 + g) * kp + 8 * t;
+    const T* b1p = b0p + (size_t)8 * kp;
+    for (int c0 = 0; c0 < nch; c0 += G) {
+      Raw bq[G][2];
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const bool ok = c0 + u < nch;
+        const int off = (c0 + u) * KCHUNK;
+        bq[u][0] = ok ? F::load(b0p + off) : zero;
+        bq[u][1] = ok && two ? F::load(b1p + off) : zero;
+      }
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        if (c0 + u < nch) {
+          const int off = (c0 + u) * KCHUNK;
+          // Lane (g, t) holds k = off + 8t .. off + 8t + 7 of rows g and
+          // g + 8 of each half and of column g of each tile; step s takes
+          // the pair 2s, 2s + 1.
+          float a[H][2][8], b[2][8];
+#pragma unroll
+          for (int h = 0; h < H; ++h) {
+            load8(a_top + 16 * h * lda + off, a[h][0]);
+            load8(a_top + (16 * h + 8) * lda + off, a[h][1]);
+          }
+          F::expand(bq[u][0], b[0]);
+          F::expand(bq[u][1], b[1]);
+          float c[2][H][4] = {}, cs[2][H][4] = {};  // hi * hi; the small products
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            Split sb[2][2];
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                sb[q][e] = F::kExact ? Split{__float_as_uint(b[q][2 * s + e]), 0u}
+                                     : split_tf32(b[q][2 * s + e]);
+#pragma unroll
+            for (int h = 0; h < H; ++h) {
+              const Split sa[4] = {split_tf32(a[h][0][2 * s]), split_tf32(a[h][1][2 * s]),
+                                   split_tf32(a[h][0][2 * s + 1]), split_tf32(a[h][1][2 * s + 1])};
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                if (q == 1 && !two) continue;
+                // The small products first; B exact in TF32 has no lo part.
+                mma_tf32(cs[q][h], sa[0].lo, sa[1].lo, sa[2].lo, sa[3].lo, sb[q][0].hi,
+                         sb[q][1].hi);
+                if (!F::kExact)
+                  mma_tf32(cs[q][h], sa[0].hi, sa[1].hi, sa[2].hi, sa[3].hi, sb[q][0].lo,
+                           sb[q][1].lo);
+                mma_tf32(c[q][h], sa[0].hi, sa[1].hi, sa[2].hi, sa[3].hi, sb[q][0].hi,
+                         sb[q][1].hi);
+              }
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+#pragma unroll
+            for (int h = 0; h < H; ++h)
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                sum[q][h][i] = __fadd_rn(sum[q][h][i], __fadd_rn(cs[q][h][i], c[q][h][i]));
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (q == 0 || two) {
+        const int j = (tile + q) * 8 + 2 * t;
+#pragma unroll
+        for (int h = 0; h < H; ++h) {
+          const int r = 16 * h + g;
+          if (j < N) {
+            epi(r, j, sum[q][h][0]);
+            epi(r + 8, j, sum[q][h][2]);
+          }
+          if (j + 1 < N) {
+            epi(r, j + 1, sum[q][h][1]);
+            epi(r + 8, j + 1, sum[q][h][3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Zero an f32 region of `count` elements (count a multiple of 4).
+__device__ void zero_f32(float* p, int count) {
+  float4* q = reinterpret_cast<float4*>(p);
+  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = threadIdx.x; i < count / 4; i += blockDim.x) q[i] = z;
+}
+
+// pull_peers for a row-major R-row f32 tile (stride ld floats): an
+// 8-column tile of one row is 32 bytes, two 16-byte DSMEM loads. Only the
+// owner's columns are read from a peer.
+template <int R>
+__device__ void pull_peers_f32(float* buf, int ld, int nt, int c, int me) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int t0 = tile_begin(nt, c, me), own = tile_begin(nt, c, me + 1) - t0;
+  const int other = nt - own;
+  for (int i = threadIdx.x; i < 2 * R * other; i += blockDim.x) {
+    const int q = i >> 1;
+    int t = q % other;
+    if (t >= t0) t += own;  // skip this block's own tiles
+    float* p = buf + (q / other) * ld + 8 * t + 4 * (i & 1);
+    *reinterpret_cast<float4*>(p) =
+        *reinterpret_cast<const float4*>(cluster.map_shared_rank(p, tile_owner(t, nt, c)));
+  }
+}
+
+// L cross layers over row-major f32 R-row tiles of stride ld; returns the
+// buffer holding x_L. Layer 0 reads `first` (x0 in f32: rounding x0 to
+// the compute dtype is the identity), then the layers write xa, xb, xa,
+// ...; `first` may be xb. x0_at(r, j) gives x0 for the update. sc: [L, d]
+// scales of int8 weights. Rank `me` of a cluster of c computes its own
+// columns of every layer and pulls the others' after each layer but the
+// last; as for mma_cross, a caller with c > 1 and L >= 2 must
+// cluster.sync() before its block exits.
+template <int R, typename T, typename X0>
+__device__ const float* tf32_cross(const float* first, float* xa, float* xb, int d, int ld,
+                                   X0 x0_at, const T* __restrict__ WcT,
+                                   const float* __restrict__ bc, const float* __restrict__ sc,
+                                   int L, int c, int me) {
+  const float* cur = first;
+  float* nxt = xa;
+  const size_t wstride = (size_t)pad_n(d) * pad_k(d);
+  const int nt = pad_n(d) / 8;
+  const int t0 = tile_begin(nt, c, me), t1 = tile_begin(nt, c, me + 1);
+  for (int l = 0; l < L; ++l) {
+    const float* b = bc + (size_t)l * d;
+    const float* s = sc ? sc + (size_t)l * d : nullptr;
+    tf32_layer<R>(cur, ld, d, WcT + l * wstride, d, t0, t1, [&](int r, int j, float acc) {
+      const int o = r * ld + j;
+      const float xw = __fadd_rn(scaled<T>(acc, s, j), b[j]);
+      nxt[o] = __fadd_rn(__fmul_rn(x0_at(r, j), xw), cur[o]);
+    });
+    if (c > 1 && l + 1 < L) {
+      cg::this_cluster().sync();
+      pull_peers_f32<R>(nxt, ld, nt, c, me);
+    }
+    __syncthreads();  // every warp read all of `cur`; the next layer overwrites it
+    cur = nxt;
+    nxt = nxt == xa ? xb : xa;
+  }
+  return cur;
+}
+
+// The head of a width-K layer v (16 rows, stride ld) as per-tile partials
+// of this rank's own 8-column tiles [t0, t1): part[r * nt + t] = the sum of
+// v[r][j] * w[j] over the tile's columns j < K, in j order.
+__device__ void tile_dots(const float* v, int ld, int K, const float* __restrict__ w, float* part,
+                          int nt, int t0, int t1) {
+  const int own = t1 - t0;
+  for (int i = threadIdx.x; i < ROWS * own; i += blockDim.x) {
+    const int r = i / own, t = t0 + i % own;
+    const int j1 = min(8 * t + 8, K);
+    float acc = 0.f;
+    for (int j = 8 * t; j < j1; ++j) acc = fmaf(v[r * ld + j], w[j], acc);
+    part[r * nt + t] = acc;
+  }
+}
+
+// One row's sum of the nt tile partials of a layer, each read from its
+// owner in a cluster of c, by one warp: lane-strided over the tiles, then
+// a butterfly. The order does not depend on c.
+__device__ float sum_tiles(const float* part, int r, int nt, int c) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (int t = lane; t < nt; t += 32)
+    acc = __fadd_rn(acc, *cluster.map_shared_rank(part + r * nt + t, tile_owner(t, nt, c)));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
+  return acc;
+}
+
 struct ServeArgs {
   const int* ids;       // [n, F] int32, host-folded into [0, V)
   const void* wts;      // [n, F] bf16 or f32
@@ -564,58 +781,87 @@ __device__ void write_scores(const ServeArgs& a, const float* lc, const float* l
   }
 }
 
-// T: the weights' element type (float, or int8_t with scales).
-template <typename T>
-__device__ __forceinline__ void serve_f32(const ServeArgs& a, unsigned char* smem) {
-  const int d = a.F * a.D;
-  float* x0T = reinterpret_cast<float*>(smem);
-  float* xb0 = x0T + (size_t)d * ROWS;
-  float* xb1 = xb0 + (size_t)d * ROWS;
-  float* hb0 = xb1 + (size_t)d * ROWS;
-  float* hb1 = hb0 + (size_t)a.mmax * ROWS;
-  float* lh = hb1 + (size_t)a.mmax * ROWS;
-  float* lc = lh + ROWS;
-  const int row0 = blockIdx.x * ROWS;
-
-  gather(a.ids, a.wts, a.wts_bf16, a.table, a.n, a.F, a.D, row0, [&](int r, int j, float x) {
-    x0T[j * ROWS + r] = x;
-    xb0[j * ROWS + r] = x;
-  });
-  __syncthreads();
-
-  const float* in = xb0;
-  int K = d;
-  for (int m = 0; m < a.n_mlp; ++m) {
-    float* out = (m & 1) ? hb1 : hb0;
-    const float* b = a.bm[m];
-    const float* s = a.sm[m];
-    ffma_layer(in, K, static_cast<const T*>(a.wm[m]), a.mdims[m],
-               [&](int j, const float(&acc)[ROWS]) {
-                 const float bj = b[j];
-#pragma unroll
-                 for (int r = 0; r < ROWS; ++r) {
-                   const float y = __fadd_rn(scaled<T>(acc[r], s, j), bj);
-                   out[j * ROWS + r] = y > 0.f ? y : 0.f;
-                 }
-               });
-    __syncthreads();
-    in = out;
-    K = a.mdims[m];
-  }
-  rowdot(in, 1, ROWS, K, a.wo + d, lh);
-
-  const float* xc =
-      ffma_cross(x0T, xb0, xb1, d, static_cast<const T*>(a.wc), a.bc, a.sc, a.L);
-  rowdot(xc, 1, ROWS, d, a.wo, lc);
-  __syncthreads();
-  write_scores(a, lc, lh, row0);
-}
-
 // The columns [j0, j1) of a width-N layer that rank me of c owns.
 __device__ __forceinline__ void own_columns(int N, int c, int me, int& j0, int& j1) {
   const int nt = pad_n(N) / 8;
   j0 = 8 * tile_begin(nt, c, me);
   j1 = min(8 * tile_begin(nt, c, me + 1), N);
+}
+
+// T: the weights' element type (float, or int8_t with scales). The block
+// is rank `me` of a cluster of c serving tile blockIdx.x / c, as in
+// serve_bf16, with f32 activations and split-TF32 products. The head is
+// summed from per-tile partials in tile order, so every c gives the bits
+// of c = 1 (serve_bf16's per-rank partials do not).
+template <typename T>
+__device__ __forceinline__ void serve_f32(const ServeArgs& a, unsigned char* smem) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), me = (int)cluster.block_rank();
+  const int d = a.F * a.D;
+  const int ldx = ldf_of(d), ldh = ldf_of(a.mmax);
+  float* x0 = reinterpret_cast<float*>(smem);
+  float* xb0 = x0 + ROWS * ldx;
+  float* xb1 = xb0 + ROWS * ldx;
+  float* hb0 = xb1 + ROWS * ldx;
+  float* hb1 = hb0 + ROWS * ldh;
+  float* pc = hb1 + ROWS * ldh;          // [ROWS][pad_n(d) / 8] cross head partials
+  float* ph = pc + ROWS * (pad_n(d) / 8);  // [ROWS][pad_n(M_last) / 8] MLP head partials
+  const int row0 = (int)(blockIdx.x / c) * ROWS;
+
+  zero_f32(x0, ROWS * (3 * ldx + 2 * ldh));
+  __syncthreads();
+  gather(a.ids, a.wts, a.wts_bf16, a.table, a.n, a.F, a.D, row0,
+         [&](int r, int j, float x) { x0[r * ldx + j] = x; });
+  __syncthreads();
+
+  const float* in = x0;
+  int lda = ldx, K = d;
+  for (int m = 0; m < a.n_mlp; ++m) {
+    float* out = (m & 1) ? hb1 : hb0;
+    const int M = a.mdims[m];
+    const float* b = a.bm[m];
+    const float* s = a.sm[m];
+    const int nt = pad_n(M) / 8;
+    tf32_layer<ROWS>(in, lda, K, static_cast<const T*>(a.wm[m]), M, tile_begin(nt, c, me),
+                     tile_begin(nt, c, me + 1), [&](int r, int j, float acc) {
+                       const float y = __fadd_rn(scaled<T>(acc, s, j), b[j]);
+                       out[r * ldh + j] = y > 0.f ? y : 0.f;
+                     });
+    // Columns [M, pad_k(M)) feed the next layer's padded k: clear what an
+    // earlier, wider layer left there.
+    const int gap = pad_k(M) - M;
+    for (int i = threadIdx.x; i < ROWS * gap; i += blockDim.x)
+      out[(i / gap) * ldh + M + i % gap] = 0.f;
+    if (c > 1 && m + 1 < a.n_mlp) {
+      cluster.sync();
+      pull_peers_f32<ROWS>(out, ldh, nt, c, me);
+    }
+    __syncthreads();
+    in = out;
+    lda = ldh;
+    K = M;
+  }
+  const int nth = pad_n(K) / 8, ntc = pad_n(d) / 8;
+  tile_dots(in, lda, K, a.wo + d, ph, nth, tile_begin(nth, c, me), tile_begin(nth, c, me + 1));
+
+  const float* xc = tf32_cross<ROWS>(
+      x0, xb0, xb1, d, ldx, [&](int r, int j) { return x0[r * ldx + j]; },
+      static_cast<const T*>(a.wc), a.bc, a.sc, a.L, c, me);
+  tile_dots(xc, ldx, d, a.wo, pc, ntc, tile_begin(ntc, c, me), tile_begin(ntc, c, me + 1));
+  // Rank 0 adds the tile partials of both heads in tile order, reading each
+  // from its owner: the same sums, in the same order, at every c.
+  if (c > 1) cluster.sync(); else __syncthreads();
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  for (int r = warp; me == 0 && r < ROWS; r += nw) {
+    const float lo = __fadd_rn(__fadd_rn(sum_tiles(pc, r, ntc, c), sum_tiles(ph, r, nth, c)),
+                               a.bo[0]);
+    const int row = row0 + r;
+    if ((threadIdx.x & 31) == 0 && row < a.n) {
+      a.logit[row] = lo;
+      a.pred[row] = sigmoid(lo);
+    }
+  }
+  if (c > 1) cluster.sync();  // no block exits while rank 0 may still read its partials
 }
 
 // T: the weights' element type (bf16, or int8_t with scales). The block
@@ -700,47 +946,24 @@ __device__ __forceinline__ void serve_bf16(const ServeArgs& a, unsigned char* sm
   cluster.sync();  // no block exits while rank 0 may still read its partials
 }
 
-__global__ void __launch_bounds__(F32_MAX_THREADS) fused_serve_f32_kernel(ServeArgs a) {
+__global__ void __launch_bounds__(THREADS) fused_serve_f32_kernel(ServeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   serve_f32<float>(a, smem);
 }
 
-__global__ void __launch_bounds__(F32_MAX_THREADS) fused_serve_int8_f32_kernel(ServeArgs a) {
+__global__ void __launch_bounds__(THREADS) fused_serve_int8_f32_kernel(ServeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   serve_f32<int8_t>(a, smem);
 }
 
-__global__ void __launch_bounds__(BF16_THREADS) fused_serve_bf16_kernel(ServeArgs a) {
+__global__ void __launch_bounds__(THREADS) fused_serve_bf16_kernel(ServeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   serve_bf16<bf16>(a, smem);
 }
 
-__global__ void __launch_bounds__(BF16_THREADS) fused_serve_int8_bf16_kernel(ServeArgs a) {
+__global__ void __launch_bounds__(THREADS) fused_serve_int8_bf16_kernel(ServeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   serve_bf16<int8_t>(a, smem);
-}
-
-__global__ void __launch_bounds__(F32_MAX_THREADS)
-    cross_stack_f32_kernel(const float* __restrict__ x0g, const float* __restrict__ w,
-                           const float* __restrict__ b, float* __restrict__ out, int n, int d,
-                           int L) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* x0T = reinterpret_cast<float*>(smem);
-  float* xb0 = x0T + (size_t)d * ROWS;
-  float* xb1 = xb0 + (size_t)d * ROWS;
-  const int row0 = blockIdx.x * ROWS;
-  for (int i = threadIdx.x; i < ROWS * d; i += blockDim.x) {
-    const int r = i / d, j = i % d, row = row0 + r;
-    const float v = row < n ? x0g[(size_t)row * d + j] : 0.f;
-    x0T[j * ROWS + r] = v;
-    xb0[j * ROWS + r] = v;
-  }
-  __syncthreads();
-  const float* xc = ffma_cross(x0T, xb0, xb1, d, w, b, nullptr, L);
-  for (int i = threadIdx.x; i < ROWS * d; i += blockDim.x) {
-    const int r = i / d, j = i % d, row = row0 + r;
-    if (row < n) out[(size_t)row * d + j] = xc[j * ROWS + r];
-  }
 }
 
 // The bf16 cross stack: a tile of R rows (16 or 32) served by a cluster of
@@ -749,7 +972,7 @@ __global__ void __launch_bounds__(F32_MAX_THREADS)
 // mma_cross (pulling the peers' after each layer but the last) and stores
 // its own columns of x_L.
 template <int R>
-__global__ void __launch_bounds__(BF16_THREADS)
+__global__ void __launch_bounds__(THREADS)
     cross_stack_bf16_kernel(const bf16* __restrict__ x0g, const bf16* __restrict__ wT,
                             const float* __restrict__ b, bf16* __restrict__ out, int n, int d,
                             int L) {
@@ -787,71 +1010,61 @@ __global__ void __launch_bounds__(BF16_THREADS)
   if (c > 1 && L >= 2) cluster.sync();
 }
 
-int f32_threads(int widest) {
-  int t = ((widest + 1) / 2 + 31) / 32 * 32;  // one thread per column pair
-  if (t < 64) t = 64;
-  if (t > F32_MAX_THREADS) t = F32_MAX_THREADS;
-  return t;
+// The f32 cross stack: a tile of R rows (16 or 32) served by a cluster of
+// c blocks (the launch's cluster size, 1 included), as
+// cross_stack_bf16_kernel<R> with f32 activations and split-TF32 products.
+// A block holds two x buffers and no x0 tile: x0 fills the first buffer for
+// layer 0's product, which layer 1 then overwrites, and every update reads
+// its x0 element from global memory (R rows x own columns per layer, next
+// to the 5.7 MB of W^T each tile streams). So R = 32 fits (181 KB at d =
+// 688) and halves the L2 weight stream per row.
+template <int R>
+__global__ void __launch_bounds__(THREADS)
+    cross_stack_f32_kernel(const float* __restrict__ x0g, const float* __restrict__ wT,
+                           const float* __restrict__ b, float* __restrict__ out, int n, int d,
+                           int L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), me = (int)cluster.block_rank();
+  const int ld = ldf_of(d);
+  float* xa = reinterpret_cast<float*>(smem);
+  float* xb = xa + R * ld;
+  const int row0 = (int)(blockIdx.x / c) * R;
+  zero_f32(xa, 2 * R * ld);
+  __syncthreads();
+  for (int i = threadIdx.x; i < R * d; i += blockDim.x) {
+    const int r = i / d, j = i % d, row = row0 + r;
+    if (row < n) xb[r * ld + j] = x0g[(size_t)row * d + j];
+  }
+  __syncthreads();
+  const float* xc = tf32_cross<R>(
+      xb, xa, xb, d, ld,
+      [&](int r, int j) { return row0 + r < n ? x0g[(size_t)(row0 + r) * d + j] : 0.f; }, wT, b,
+      static_cast<const float*>(nullptr), L, c, me);
+  int j0, j1;
+  own_columns(d, c, me, j0, j1);
+  const int w = j1 - j0;
+  for (int i = threadIdx.x; i < R * w; i += blockDim.x) {
+    const int r = i / w, j = j0 + i % w, row = row0 + r;
+    if (row < n) out[(size_t)row * d + j] = xc[r * ld + j];
+  }
+  if (c > 1 && L >= 2) cluster.sync();  // block lifetime: see cross_stack_bf16_kernel
 }
 
-}  // namespace
+// ------------------------------------------------------------ host side
 
-extern "C" {
-
-int dts_rows_per_block() { return ROWS; }
-
-int dts_max_mlp_layers() { return MAX_MLP; }
-
-// Warps of a bf16 block (the host's cross_plan counts their rounds).
-int dts_bf16_warps() { return BF16_THREADS / 32; }
-
-// Row stride (elements) of the bf16 activation tiles, and the padding the
-// host applies to bf16 weights: W^T as [pad_n(N)][pad_k(K)].
-int dts_bf16_pad_k(int k) { return pad_k(k); }
-int dts_bf16_pad_n(int n) { return pad_n(n); }
-
-// Bytes of one [K, N] weight operand of elem_bytes-wide elements as the
-// fused serve kernels read it: [K][N] for the f32 kernels, W^T
-// [pad_n(N)][pad_k(K)] for the bf16 kernels (bf16 or int8 elements).
-size_t dts_weight_operand_bytes(int k, int n, int elem_bytes, int cd_bf16) {
-  if (cd_bf16) return (size_t)pad_n(n) * pad_k(k) * elem_bytes;
-  return (size_t)k * n * elem_bytes;
+// The fused serve kernel of a compute dtype for float or int8 weights.
+void (*serve_kernel(int cd_bf16, int w_int8))(ServeArgs) {
+  if (cd_bf16) return w_int8 ? fused_serve_int8_bf16_kernel : fused_serve_bf16_kernel;
+  return w_int8 ? fused_serve_int8_f32_kernel : fused_serve_f32_kernel;
 }
 
-// The column partition of the bf16 fused serve cluster (the host mirrors it).
-int dts_tile_begin(int nt, int c, int r) { return tile_begin(nt, c, r); }
-int dts_tile_owner(int t, int nt, int c) { return tile_owner(t, nt, c); }
-
-// x0, two x and two h buffers, two head partials.
-size_t dts_serve_smem_bytes(int d, int mmax, int cd_bf16) {
-  if (cd_bf16)
-    return (size_t)ROWS * d * 4 + 2 * (size_t)ROWS * lda_of(d) * 2 +
-           2 * (size_t)ROWS * lda_of(mmax) * 2 + 2 * ROWS * sizeof(float);
-  return (size_t)ROWS * (4 * (size_t)d + 8 * (size_t)d + 8 * (size_t)mmax) +
-         2 * ROWS * sizeof(float);
-}
-
-// x0 (f32) and two x buffers of a `rows`-row cross-stack tile.
-size_t dts_cross_smem_bytes(int d, int cd_bf16, int rows) {
-  if (cd_bf16) return (size_t)rows * d * 4 + 2 * (size_t)rows * lda_of(d) * 2;
-  return (size_t)rows * d * 12;
-}
-
-const char* dts_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
-
-// The bf16 fused serve kernel for float or int8 weights, its dynamic shared
-// memory raised to `smem`.
-static cudaError_t bf16_serve_kernel(int w_int8, size_t smem, void (**kernel)(ServeArgs)) {
-  *kernel = w_int8 ? fused_serve_int8_bf16_kernel : fused_serve_bf16_kernel;
-  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// A launch of `blocks` bf16 blocks in clusters of c along x.
-static void cluster_launch(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int blocks,
-                           size_t smem, cudaStream_t s, int c) {
+// A launch of `blocks` blocks in clusters of c along x.
+void cluster_launch(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int blocks, size_t smem,
+                    cudaStream_t s, int c) {
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(blocks);
-  cfg->blockDim = dim3(BF16_THREADS);
+  cfg->blockDim = dim3(THREADS);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = s;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -862,12 +1075,12 @@ static void cluster_launch(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, i
   cfg->numAttrs = 1;
 }
 
-// How many clusters of c bf16 fused-serve blocks (width d, widest MLP
-// layer mmax) the current device holds at once, into *out.
-int dts_serve_max_active_clusters(int c, int d, int mmax, int w_int8, int* out) {
-  const size_t smem = dts_serve_smem_bytes(d, mmax, 1);
-  void (*kernel)(ServeArgs);
-  cudaError_t e = bf16_serve_kernel(w_int8, smem, &kernel);
+// How many clusters of c blocks of `kernel` at `smem` bytes of dynamic
+// shared memory the current device holds at once, into *out.
+template <typename... Args>
+int max_active_clusters(void (*kernel)(Args...), size_t smem, int c, int* out) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -877,19 +1090,91 @@ int dts_serve_max_active_clusters(int c, int d, int mmax, int w_int8, int* out) 
   return (int)e;
 }
 
+// Launch `blocks` blocks of `kernel` in clusters of c; a size the launch
+// refuses is returned as its error.
+template <typename... Args, typename... Actual>
+int launch(void (*kernel)(Args...), size_t smem, int blocks, int c, cudaStream_t s,
+           Actual... args) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_launch(&cfg, &attr, blocks, smem, s, c);
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();  // clears a refusal as well
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+typedef void (*CrossBf16Kernel)(const bf16*, const bf16*, const float*, bf16*, int, int, int);
+typedef void (*CrossF32Kernel)(const float*, const float*, const float*, float*, int, int, int);
+
+CrossBf16Kernel bf16_cross_kernel(int rows) {
+  return rows == 32 ? cross_stack_bf16_kernel<32> : cross_stack_bf16_kernel<16>;
+}
+CrossF32Kernel f32_cross_kernel(int rows) {
+  return rows == 32 ? cross_stack_f32_kernel<32> : cross_stack_f32_kernel<16>;
+}
+
+}  // namespace
+
+extern "C" {
+
+int dts_rows_per_block() { return ROWS; }
+
+int dts_max_mlp_layers() { return MAX_MLP; }
+
+// Warps of a block (the host's cross_plan counts their rounds).
+int dts_warps() { return THREADS / 32; }
+
+// Row stride (elements) of the bf16 activation tiles, and the padding the
+// host applies to the weights of every kernel: W^T as [pad_n(N)][pad_k(K)].
+int dts_bf16_pad_k(int k) { return pad_k(k); }
+int dts_bf16_pad_n(int n) { return pad_n(n); }
+// Row stride (floats) of the f32 activation tiles.
+int dts_f32_ld(int k) { return ldf_of(k); }
+
+// The column partition of the cluster split (the host mirrors it).
+int dts_tile_begin(int nt, int c, int r) { return tile_begin(nt, c, r); }
+int dts_tile_owner(int t, int nt, int c) { return tile_owner(t, nt, c); }
+
+// x0 (f32), two x and two h buffers; the head partials (bf16: two per
+// row; f32: one per row and 8-column tile of the last cross and MLP layers).
+size_t dts_serve_smem_bytes(int d, int mmax, int cd_bf16) {
+  if (cd_bf16)
+    return (size_t)ROWS * d * 4 + 2 * (size_t)ROWS * lda_of(d) * 2 +
+           2 * (size_t)ROWS * lda_of(mmax) * 2 + 2 * ROWS * sizeof(float);
+  return (size_t)ROWS * 4 * (3 * (size_t)ldf_of(d) + 2 * (size_t)ldf_of(mmax)) +
+         (size_t)ROWS * 4 * (pad_n(d) / 8 + pad_n(mmax) / 8);
+}
+
+// A `rows`-row cross-stack tile: x0 (f32) and two bf16 x buffers, or two
+// f32 x buffers.
+size_t dts_cross_smem_bytes(int d, int cd_bf16, int rows) {
+  if (cd_bf16) return (size_t)rows * d * 4 + 2 * (size_t)rows * lda_of(d) * 2;
+  return (size_t)rows * 4 * 2 * ldf_of(d);
+}
+
+const char* dts_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+// How many clusters of c fused-serve blocks (width d, widest MLP layer
+// mmax, the compute dtype's kernel) the current device holds at once.
+int dts_serve_max_active_clusters(int c, int d, int mmax, int cd_bf16, int w_int8, int* out) {
+  return max_active_clusters(serve_kernel(cd_bf16, w_int8), dts_serve_smem_bytes(d, mmax, cd_bf16),
+                             c, out);
+}
+
 // w_int8: the weights are int8 with f32 per-output-channel scales sc
 // ([L, d]) and sm[m] ([M_m]); otherwise float in the compute dtype and the
-// scale pointers are ignored. cluster: the bf16 kernels' blocks per 16-row
-// tile (>= 1; the host picks it), 0 for the f32
-// kernels; a size the launch refuses is returned as its error.
+// scale pointers are ignored. cluster: blocks per 16-row tile (>= 1; the
+// host picks it); a size the launch refuses is returned as its error.
 int dts_fused_serve(const int* ids, const void* wts, int wts_bf16, const float* table,
                     const void* wc, const float* bc, int L, const void* const* wm,
                     const float* const* bm, const int* mdims, int n_mlp, const float* wo,
                     const float* bo, float* pred, float* logit, int n, int F, int D,
                     int cd_bf16, int w_int8, const float* sc, const float* const* sm,
                     int cluster, void* stream) {
-  if (n_mlp < 1 || n_mlp > MAX_MLP || n < 0) return (int)cudaErrorInvalidValue;
-  if (cd_bf16 ? cluster < 1 : cluster != 0) return (int)cudaErrorInvalidValue;
+  if (n_mlp < 1 || n_mlp > MAX_MLP || n < 0 || cluster < 1) return (int)cudaErrorInvalidValue;
   if (w_int8 && (sc == nullptr || sm == nullptr)) return (int)cudaErrorInvalidValue;
   for (int m = 0; w_int8 && m < n_mlp; ++m)
     if (sm[m] == nullptr) return (int)cudaErrorInvalidValue;
@@ -919,87 +1204,35 @@ int dts_fused_serve(const int* ids, const void* wts, int wts_bf16, const float* 
   a.n = n;
   a.F = F;
   a.D = D;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int d = F * D;
   const int grid = (n + ROWS - 1) / ROWS;
-  const size_t smem = dts_serve_smem_bytes(d, a.mmax, cd_bf16);
-  void (*kernel)(ServeArgs);
-  cudaError_t e;
-  if (cd_bf16) {
-    e = bf16_serve_kernel(w_int8, smem, &kernel);
-    if (e != cudaSuccess) return (int)e;
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    cluster_launch(&cfg, &attr, grid * cluster, smem, s, cluster);
-    e = cudaLaunchKernelEx(&cfg, kernel, a);
-    const cudaError_t last = cudaGetLastError();  // clears a refusal as well
-    return (int)(e != cudaSuccess ? e : last);
-  }
-  kernel = w_int8 ? fused_serve_int8_f32_kernel : fused_serve_f32_kernel;
-  const int threads = f32_threads(d > a.mmax ? d : a.mmax);
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, threads, smem, s>>>(a);
-  return (int)cudaGetLastError();
+  return launch(serve_kernel(cd_bf16, w_int8), dts_serve_smem_bytes(F * D, a.mmax, cd_bf16),
+                grid * cluster, cluster, static_cast<cudaStream_t>(stream), a);
 }
 
-typedef void (*CrossBf16Kernel)(const bf16*, const bf16*, const float*, bf16*, int, int, int);
-
-// The bf16 cross-stack kernel of `rows` rows per block (16 or 32), its
-// dynamic shared memory raised to its size at width d.
-static cudaError_t bf16_cross_kernel(int rows, int d, CrossBf16Kernel* kernel, size_t* smem) {
-  if (rows != 16 && rows != 32) return cudaErrorInvalidValue;
-  *kernel = rows == 32 ? cross_stack_bf16_kernel<32> : cross_stack_bf16_kernel<16>;
-  *smem = dts_cross_smem_bytes(d, 1, rows);
-  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+// How many clusters of c cross-stack blocks of `rows` rows (16 or 32) at
+// width d, of the compute dtype's kernel, the current device holds at once,
+// into *out.
+int dts_cross_max_active_clusters(int c, int d, int rows, int cd_bf16, int* out) {
+  if (rows != 16 && rows != 32) return (int)cudaErrorInvalidValue;
+  const size_t smem = dts_cross_smem_bytes(d, cd_bf16, rows);
+  if (cd_bf16) return max_active_clusters(bf16_cross_kernel(rows), smem, c, out);
+  return max_active_clusters(f32_cross_kernel(rows), smem, c, out);
 }
 
-// How many clusters of c bf16 cross-stack blocks of `rows` rows at width d
-// the current device holds at once, into *out.
-int dts_cross_max_active_clusters(int c, int d, int rows, int* out) {
-  CrossBf16Kernel kernel;
-  size_t smem;
-  cudaError_t e = bf16_cross_kernel(rows, d, &kernel, &smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cluster_launch(&cfg, &attr, c, smem, nullptr, c);
-  e = cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
-  cudaGetLastError();  // a refusal is returned here, not left for the next launch
-  return (int)e;
-}
-
-// rows, cluster: the bf16 kernel's rows per block (16 or 32) and blocks
-// per tile (>= 1; the host picks both); the f32 kernel takes rows = 16 and
-// cluster = 0. A plan the launch refuses is returned as its error.
+// rows, cluster: rows per block (16 or 32) and blocks per tile (>= 1; the
+// host picks both). A plan the launch refuses is returned as its error.
 int dts_cross_stack(const void* x0, const void* w, const float* b, void* out, int n, int d,
                     int L, int cd_bf16, int rows, int cluster, void* stream) {
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  if (cd_bf16 ? cluster < 1 : rows != ROWS || cluster != 0) return (int)cudaErrorInvalidValue;
+  if (n < 0 || cluster < 1 || (rows != 16 && rows != 32)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (cd_bf16) {
-    CrossBf16Kernel kernel;
-    size_t smem;
-    e = bf16_cross_kernel(rows, d, &kernel, &smem);
-    if (e != cudaSuccess) return (int)e;
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    cluster_launch(&cfg, &attr, (n + rows - 1) / rows * cluster, smem, s, cluster);
-    e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(x0),
-                           static_cast<const bf16*>(w), b, static_cast<bf16*>(out), n, d, L);
-    const cudaError_t last = cudaGetLastError();  // clears a refusal as well
-    return (int)(e != cudaSuccess ? e : last);
-  }
-  const size_t smem = dts_cross_smem_bytes(d, 0, ROWS);
-  e = cudaFuncSetAttribute(cross_stack_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cross_stack_f32_kernel<<<(n + ROWS - 1) / ROWS, f32_threads(d), smem, s>>>(
-      static_cast<const float*>(x0), static_cast<const float*>(w), b, static_cast<float*>(out),
-      n, d, L);
-  return (int)cudaGetLastError();
+  const size_t smem = dts_cross_smem_bytes(d, cd_bf16, rows);
+  const int blocks = (n + rows - 1) / rows * cluster;
+  if (cd_bf16)
+    return launch(bf16_cross_kernel(rows), smem, blocks, cluster, s, static_cast<const bf16*>(x0),
+                  static_cast<const bf16*>(w), b, static_cast<bf16*>(out), n, d, L);
+  return launch(f32_cross_kernel(rows), smem, blocks, cluster, s, static_cast<const float*>(x0),
+                static_cast<const float*>(w), b, static_cast<float*>(out), n, d, L);
 }
 
 }  // extern "C"

@@ -6,7 +6,7 @@ Two functions, each with a kernel wrapper and a plain version beside it:
 - `fused_cross_apply` (kernel wrapper `cross_stack`) /
   `cross_stack_reference`: the cross stack alone, x = x0 * (x @ W_l + b_l)
   + x over L layers, returning [n, d] in the compute dtype. Its weight
-  operands (W stacked in the compute dtype, its mma_layout for bf16, b in
+  operands (W stacked in the compute dtype, its mma_layout on the card, b in
   f32) are prepared once per weight set and kept in `cross_cache`
   (`CrossWeights`), so a warm call launches the kernel alone.
 - `build_fused_serve` (kernel wrapper `fused_serve`) /
@@ -21,19 +21,23 @@ casts the rows and the weights to the compute dtype first), and the head is
 f32 (model.apply runs it in the compute dtype). In bf16 the two therefore
 agree to ~1e-3 on scores, not bit for bit.
 
-The bf16 fused serve kernel serves each 16-row tile with a thread-block
-cluster of C in CLUSTER_SIZES blocks that split every layer's output
-columns (csrc/cross_kernel.cu). C is chosen here (`serve_cluster`, fed
-by the card's `serve_capacity`) and passed to the launch. The bf16 cross
-stack takes the same split and R in ROW_TILES rows per tile; its (R, C)
-comes from `cross_plan`, fed by `cross_capacity`. This module mirrors the
-kernels' column partition (`tile_begin`, `tile_owner`) and shared-memory
-sizes; `_lib()` holds the mirror to the kernel's own functions.
+The fused serve kernels (bf16 and f32) serve each 16-row tile with a
+thread-block cluster of C in CLUSTER_SIZES blocks that split every layer's
+output columns (csrc/cross_kernel.cu). C is chosen here (`serve_cluster`,
+fed by the card's `serve_capacity` for the servable's kernel) and passed to
+the launch. The cross stacks take the same split and R in ROW_TILES rows
+per tile; (R, C) comes from `cross_plan`, fed by `cross_capacity`. The
+f32 kernels multiply in split TF32 on the tensor cores. Every kernel reads
+its weights as `mma_layout`. This module mirrors the kernels' column
+partition (`tile_begin`, `tile_owner`) and shared-memory sizes; `_lib()`
+holds the mirror to the kernel's own functions.
 
 A wrapper runs the plain version only for tensors on the CPU; a CUDA tensor
 always launches the kernel or raises. Each kernel launch adds one to
-`launches[name]`: the fused serve step counts under "fused_serve" for
-float weights and "fused_serve_int8" for int8 weights.
+`launches[name, compute dtype]`, the dtype named "bfloat16" or "float32":
+the fused serve step counts under "fused_serve" for float weights and
+"fused_serve_int8" for int8 weights, the cross stack under
+"fused_cross_apply".
 """
 
 from __future__ import annotations
@@ -49,19 +53,25 @@ from ..models.base import torch_dtype
 
 # Shared memory one block may opt into on sm_90 (227 KB).
 SMEM_LIMIT_BYTES = 232448
-ROWS_PER_BLOCK = 16  # csrc/cross_kernel.cu ROWS: the fused serve and f32 kernels
-ROW_TILES = (16, 32)  # rows per block the bf16 cross-stack kernel takes
+ROWS_PER_BLOCK = 16  # csrc/cross_kernel.cu ROWS: the fused serve kernels' tile
+ROW_TILES = (16, 32)  # rows per block the cross-stack kernels take
 MAX_MLP_LAYERS = 4   # csrc/cross_kernel.cu MAX_MLP
-BF16_WARPS = 16      # csrc/cross_kernel.cu BF16_THREADS / 32
+WARPS = 16           # csrc/cross_kernel.cu THREADS / 32 (every kernel's block)
 
 SOURCE = "cross_kernel.cu"
 
-launches = {"fused_serve": 0, "fused_serve_int8": 0, "fused_cross_apply": 0}
+KERNELS = ("fused_serve", "fused_serve_int8", "fused_cross_apply")
+COMPUTE_DTYPES = ("bfloat16", "float32")
+launches = {(k, cd): 0 for k in KERNELS for cd in COMPUTE_DTYPES}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def _count(name: str, compute_dtype: torch.dtype) -> None:
+    launches[name, str(compute_dtype).removeprefix("torch.")] += 1
 
 
 def _cd(compute_dtype) -> torch.dtype:
@@ -89,37 +99,45 @@ def _lda(k: int) -> int:
     return kp + 32 if kp % 64 == 0 else kp
 
 
+def _ldf(k: int) -> int:
+    """Row stride (floats) of an f32 activation tile (csrc ldf_of)."""
+    return _pad_k(k) + 4
+
+
 def cross_smem_bytes(d: int, compute_dtype=torch.bfloat16, rows: int = ROWS_PER_BLOCK) -> int:
     """Shared memory of one cross-stack block of `rows` rows: x0 (f32) + two
-    x buffers (bf16 row-major with a padded stride, or f32 transposed)."""
+    bf16 x buffers (row-major with a padded stride), or two row-major f32 x
+    buffers of stride _ldf(d) (the f32 kernel reads x0 from global memory)."""
     if _esize(compute_dtype) == 2:
         return rows * d * 4 + 2 * rows * _lda(d) * 2
-    return rows * d * 12
+    return rows * 8 * _ldf(d)
 
 
-def cross_row_tiles(d: int) -> tuple[int, ...]:
-    """The rows per block (of ROW_TILES) whose bf16 cross-stack tile fits
-    one block's shared memory at width d: R = 32 up to d = 888."""
+def cross_row_tiles(d: int, compute_dtype=torch.bfloat16) -> tuple[int, ...]:
+    """The rows per block (of ROW_TILES) whose cross-stack tile in this
+    compute dtype fits one block's shared memory at width d: R = 32 up to
+    d = 888 in bf16, d = 896 in f32."""
     return tuple(r for r in ROW_TILES
-                 if cross_smem_bytes(d, torch.bfloat16, r) <= SMEM_LIMIT_BYTES)
+                 if cross_smem_bytes(d, compute_dtype, r) <= SMEM_LIMIT_BYTES)
 
 
 def serve_smem_bytes(d: int, mlp_dims, compute_dtype=torch.bfloat16) -> int:
     """Shared memory of one fused-serve block: x0 (f32), two x buffers,
-    two MLP activation buffers, two head partials."""
+    two MLP activation buffers, and the head partials (bf16: two per row;
+    f32: one per row and 8-column tile of the last cross and MLP layers)."""
     mmax = max(mlp_dims)
-    head = 2 * ROWS_PER_BLOCK * 4
     if _esize(compute_dtype) == 2:
         return (ROWS_PER_BLOCK * d * 4 + 2 * ROWS_PER_BLOCK * _lda(d) * 2
-                + 2 * ROWS_PER_BLOCK * _lda(mmax) * 2 + head)
-    return ROWS_PER_BLOCK * (12 * d + 8 * mmax) + head
+                + 2 * ROWS_PER_BLOCK * _lda(mmax) * 2 + 2 * ROWS_PER_BLOCK * 4)
+    return ROWS_PER_BLOCK * 4 * (3 * _ldf(d) + 2 * _ldf(mmax)
+                                 + _pad_n(d) // 8 + _pad_n(mmax) // 8)
 
 
 CLUSTER_SIZES = (1, 2, 4, 8)  # up to 8 blocks, the portable cluster size limit
 
 
 def serve_cluster(n: int, capacity) -> int:
-    """Blocks per 16-row tile of the bf16 fused serve kernel: the largest C
+    """Blocks per 16-row tile of a fused serve kernel: the largest C
     in (8, 4, 2) such that the card holds all ceil(n / 16) clusters of C
     blocks at once, else 1 (a second wave costs more than a smaller C).
     `capacity[i]`: how many clusters of CLUSTER_SIZES[i] blocks the card
@@ -134,7 +152,7 @@ def serve_cluster(n: int, capacity) -> int:
 
 
 def cross_plan(n: int, capacity: dict, d: int) -> tuple[int, int]:
-    """(R, C) of the bf16 cross-stack kernel for n rows of width d: R rows
+    """(R, C) of a cross-stack kernel for n rows of width d: R rows
     per tile, a cluster of C blocks per tile. Among the plans whose
     ceil(n / R) clusters of C all fit one wave, the one with the most
     blocks; on a tie, the fewest rounds of 8-column tile pairs per warp on
@@ -143,7 +161,8 @@ def cross_plan(n: int, capacity: dict, d: int) -> tuple[int, int]:
     R = 32 pays where it removes a round). When none fits one wave, the
     largest R with C = 1 (fewest tiles re-reading the weights).
     `capacity[(R, C)]`: how many clusters of C blocks of R rows the card
-    holds at once (`cross_capacity`), for the R that fit the width.
+    holds at once (`cross_capacity`), for the R that fit the width. The
+    same rule plans the f32 kernel from its own capacity.
 
     Set from chip_smoke.py's grid of every forced (R, C) at d = 688 on an
     H100 (PERF.md): it picks the fastest plan at 256, 512, 1024 and 2048
@@ -153,7 +172,7 @@ def cross_plan(n: int, capacity: dict, d: int) -> tuple[int, int]:
     for (r, c), clusters in capacity.items():
         tiles = -(-n // r)
         own = -(-nt // c)  # the busiest rank's column tiles
-        rounds = -(-own // (2 * BF16_WARPS))  # its warps' turns at a pair of tiles
+        rounds = -(-own // (2 * WARPS))  # its warps' turns at a pair of tiles
         key = (tiles * c, -rounds, -r)
         if tiles <= clusters and (best is None or key > best[0]):
             best = (key, (r, c))
@@ -175,21 +194,12 @@ def tile_owner(t: int, ntiles: int, c: int) -> int:
 
 
 def mma_layout(w: torch.Tensor) -> torch.Tensor:
-    """[..., K, N] weights (bf16 or int8) -> the bf16 kernels' operand
+    """[..., K, N] weights (bf16, f32 or int8) -> the kernels' operand
     layout W^T [..., pad8(N), pad32(K)], zero-padded and contiguous."""
     k, n = w.shape[-2:]
     out = torch.zeros((*w.shape[:-2], _pad_n(n), _pad_k(k)), dtype=w.dtype, device=w.device)
     out[..., :n, :k] = w.transpose(-1, -2)
     return out
-
-
-def weight_operand_bytes(k: int, n: int, dtype: torch.dtype, compute_dtype) -> int:
-    """Bytes of one [K, N] weight as the fused serve kernel reads it: [K, N]
-    for the f32 kernels, mma_layout for the bf16 kernels."""
-    e = torch.tensor([], dtype=dtype).element_size()
-    if _esize(compute_dtype) == 2:
-        return _pad_n(n) * _pad_k(k) * e
-    return k * n * e
 
 
 def fits_smem(d: int, compute_dtype=torch.bfloat16) -> bool:
@@ -220,13 +230,13 @@ def cross_params_to_stacked(cross_layers: list) -> tuple[torch.Tensor, torch.Ten
 @dataclasses.dataclass
 class CrossWeights:
     """One weight set's operands for the cross-stack kernel, prepared once:
-    W stacked in the compute dtype, for bf16 on the card its mma_layout
-    (the kernel's operand), and b in f32."""
+    W stacked in the compute dtype, on the card its mma_layout (the
+    kernel's operand), and b in f32."""
 
     w: torch.Tensor                  # [L, d, d] compute dtype
     b: torch.Tensor                  # [L, d] f32, on w's device
-    wt: torch.Tensor | None = None   # bf16 on CUDA: mma_layout(w)
-    # cross_capacity(), queried at the first bf16 launch.
+    wt: torch.Tensor | None = None   # on CUDA: mma_layout(w)
+    # cross_capacity(), queried at the first launch.
     _capacity: dict | None = None
 
     @property
@@ -239,7 +249,7 @@ class CrossWeights:
 
 
 def prepare_cross_weights(w: torch.Tensor, b: torch.Tensor, compute_dtype) -> CrossWeights:
-    """Cast (and for bf16 on the card, lay out) stacked W [L, d, d] and
+    """Cast (and on the card, lay out) stacked W [L, d, d] and
     b [L, d] for the cross-stack kernel, on their own device. Refuses a
     width whose tile does not fit one block's shared memory."""
     cd = _cd(compute_dtype)
@@ -254,7 +264,7 @@ def prepare_cross_weights(w: torch.Tensor, b: torch.Tensor, compute_dtype) -> Cr
             "use cross_apply (models/dcn.py falls back via fits_smem)"
         )
     wc = w.to(cd).contiguous()
-    wt = mma_layout(wc) if cd == torch.bfloat16 and wc.device.type == "cuda" else None
+    wt = mma_layout(wc) if wc.device.type == "cuda" else None
     return CrossWeights(wc, b.to(device=wc.device, dtype=torch.float32).contiguous(), wt)
 
 
@@ -372,10 +382,10 @@ class ServeWeights:
     bo: torch.Tensor                        # [1] f32
     sc: torch.Tensor | None = None          # [L, d] f32 scales of an int8 wc
     ms: list[torch.Tensor] | None = None    # [M] f32 scales of int8 MLP weights
-    # The kernel's operands (bf16-kernel weights in mma_layout) and their
-    # ctypes pointer arrays, built at first launch.
+    # The kernel's operands (weights in mma_layout) and their ctypes pointer
+    # arrays, built at first launch.
     _kernel_args: tuple | None = None
-    # serve_capacity(), queried at the first bf16 launch.
+    # serve_capacity(), queried at the first launch.
     _capacity: tuple | None = None
 
     @property
@@ -428,30 +438,28 @@ def _lib() -> ctypes.CDLL:
             vp, vp, vp, vp, ci, ci, ci, ci, ci, vp, ctypes.POINTER(vp), ci, vp,
         ]
         lib.dts_fused_serve.restype = ci
-        lib.dts_serve_max_active_clusters.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+        lib.dts_serve_max_active_clusters.argtypes = [ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
         lib.dts_serve_max_active_clusters.restype = ci
         lib.dts_tile_begin.restype = lib.dts_tile_owner.restype = ci
         lib.dts_tile_begin.argtypes = lib.dts_tile_owner.argtypes = [ci, ci, ci]
         lib.dts_cross_stack.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.dts_cross_stack.restype = ci
-        lib.dts_cross_max_active_clusters.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.dts_cross_max_active_clusters.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
         lib.dts_cross_max_active_clusters.restype = ci
         lib.dts_error_string.argtypes = [ci]
         lib.dts_error_string.restype = ctypes.c_char_p
         lib.dts_rows_per_block.restype = ci
         lib.dts_max_mlp_layers.restype = ci
-        lib.dts_bf16_warps.restype = ci
+        lib.dts_warps.restype = ci
         lib.dts_serve_smem_bytes.argtypes = [ci, ci, ci]
         lib.dts_serve_smem_bytes.restype = ctypes.c_size_t
         lib.dts_cross_smem_bytes.argtypes = [ci, ci, ci]
         lib.dts_cross_smem_bytes.restype = ctypes.c_size_t
-        lib.dts_bf16_pad_k.argtypes = lib.dts_bf16_pad_n.argtypes = [ci]
-        lib.dts_bf16_pad_k.restype = lib.dts_bf16_pad_n.restype = ci
-        lib.dts_weight_operand_bytes.argtypes = [ci, ci, ci, ci]
-        lib.dts_weight_operand_bytes.restype = ctypes.c_size_t
+        lib.dts_bf16_pad_k.argtypes = lib.dts_bf16_pad_n.argtypes = lib.dts_f32_ld.argtypes = [ci]
+        lib.dts_bf16_pad_k.restype = lib.dts_bf16_pad_n.restype = lib.dts_f32_ld.restype = ci
         # The layouts and sizes this module computes must be the kernel's.
-        agree = (lib.dts_rows_per_block(), lib.dts_max_mlp_layers(), lib.dts_bf16_warps()) == (
-            ROWS_PER_BLOCK, MAX_MLP_LAYERS, BF16_WARPS,
+        agree = (lib.dts_rows_per_block(), lib.dts_max_mlp_layers(), lib.dts_warps()) == (
+            ROWS_PER_BLOCK, MAX_MLP_LAYERS, WARPS,
         )
         for d, m in ((688, 256), (80, 32), (100, 7), (2816, 64)):
             for cd in (torch.bfloat16, torch.float32):
@@ -459,13 +467,8 @@ def _lib() -> ctypes.CDLL:
                 agree &= lib.dts_serve_smem_bytes(d, m, bf) == serve_smem_bytes(d, (m,), cd)
                 agree &= all(lib.dts_cross_smem_bytes(d, bf, r) == cross_smem_bytes(d, cd, r)
                              for r in ROW_TILES)
-            agree &= (lib.dts_bf16_pad_k(d), lib.dts_bf16_pad_n(d)) == (_pad_k(d), _pad_n(d))
-            for cd, wdtypes in ((torch.bfloat16, (torch.bfloat16, torch.int8)),
-                                (torch.float32, (torch.float32, torch.int8))):
-                for wd in wdtypes:
-                    e = torch.tensor([], dtype=wd).element_size()
-                    agree &= lib.dts_weight_operand_bytes(d, m, e, int(cd == torch.bfloat16)) == (
-                        weight_operand_bytes(d, m, wd, cd))
+            agree &= (lib.dts_bf16_pad_k(d), lib.dts_bf16_pad_n(d), lib.dts_f32_ld(d)) == (
+                _pad_k(d), _pad_n(d), _ldf(d))
         for nt in (1, 2, 11, 32, 86, 352):
             for c in (1, 2, 3, 4, 8):
                 agree &= all(lib.dts_tile_begin(nt, c, r) == tile_begin(nt, c, r)
@@ -498,13 +501,15 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def cross_max_active_clusters(cluster: int, d: int, rows: int) -> int:
-    """How many clusters of `cluster` bf16 cross-stack blocks of `rows` rows
-    the current card holds at once (cudaOccupancyMaxActiveClusters of the
-    cross kernel itself, at its shared memory for width d)."""
+def cross_max_active_clusters(cluster: int, d: int, rows: int,
+                              compute_dtype=torch.bfloat16) -> int:
+    """How many clusters of `cluster` cross-stack blocks of `rows` rows the
+    current card holds at once (cudaOccupancyMaxActiveClusters of the
+    compute dtype's cross kernel itself, at its shared memory for width d)."""
     lib = _lib()
     out = ctypes.c_int(0)
-    rc = lib.dts_cross_max_active_clusters(cluster, d, rows, ctypes.byref(out))
+    rc = lib.dts_cross_max_active_clusters(cluster, d, rows, int(_esize(compute_dtype) == 2),
+                                           ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
                            f"{lib.dts_error_string(rc).decode()}")
@@ -512,13 +517,15 @@ def cross_max_active_clusters(cluster: int, d: int, rows: int) -> int:
 
 
 def cross_capacity(cw: CrossWeights) -> dict[tuple[int, int], int]:
-    """{(R, C): clusters the card holds at once} of the bf16 cross-stack
-    kernel at this weight set's width, for every R that fits
-    (cross_row_tiles) and C in CLUSTER_SIZES; queried once on its device."""
+    """{(R, C): clusters the card holds at once} of the cross-stack kernel
+    of this weight set's compute dtype at its width, for every R that
+    kernel takes (cross_row_tiles) and C in CLUSTER_SIZES; queried once on
+    its device."""
     if cw._capacity is None:
+        cd = cw.compute_dtype
         with torch.cuda.device(cw.w.device):
-            cw._capacity = {(r, c): cross_max_active_clusters(c, cw.d, r)
-                            for r in cross_row_tiles(cw.d) for c in CLUSTER_SIZES}
+            cw._capacity = {(r, c): cross_max_active_clusters(c, cw.d, r, cd)
+                            for r in cross_row_tiles(cw.d, cd) for c in CLUSTER_SIZES}
     return cw._capacity
 
 
@@ -527,15 +534,13 @@ def cross_stack(x0: torch.Tensor, cw: CrossWeights, *,
     """The cross-stack kernel on prepared weights; returns [n, d] in the
     compute dtype. CPU tensors take the plain version.
 
-    The bf16 kernel runs tiles of R rows, each served by a cluster of C
-    blocks, (R, C) = cross_plan(n, cross_capacity(cw), d). `_plan` forces
-    (R, C) (for tests and chip_smoke.py only); a plan the launch refuses
-    raises, never retried with another."""
+    The kernel runs tiles of R rows, each served by a cluster of C blocks,
+    (R, C) = cross_plan(n, cross_capacity(cw), d). `_plan` forces (R, C)
+    (for tests and chip_smoke.py only); a plan the launch refuses raises,
+    never retried with another."""
     cd = cw.compute_dtype
-    if _plan is not None and (cd != torch.bfloat16 or _plan[0] not in ROW_TILES
-                              or _plan[1] < 1):
-        raise ValueError(f"_plan={_plan}: only the bf16 kernel takes a plan (R in "
-                         f"{ROW_TILES}, C >= 1)")
+    if _plan is not None and (_plan[0] not in ROW_TILES or _plan[1] < 1):
+        raise ValueError(f"_plan={_plan}: the kernels take R in {ROW_TILES}, C >= 1")
     if x0.device.type == "cpu":
         return cross_stack_reference(x0, cw.w, cw.b, cd)
     if x0.device.type != "cuda":
@@ -545,19 +550,16 @@ def cross_stack(x0: torch.Tensor, cw: CrossWeights, *,
     L = cw.w.shape[0]
     _require(cw.w, "w", cd, (L, d, d), dev)
     x0c = x0.to(cd).contiguous()
-    rows, cluster = ROWS_PER_BLOCK, 0  # the f32 kernel takes no plan
-    if cd == torch.bfloat16:
-        rows, cluster = _plan or cross_plan(n, cross_capacity(cw), d)
-    w = cw.wt if cd == torch.bfloat16 else cw.w
+    rows, cluster = _plan or cross_plan(n, cross_capacity(cw), d)
     out = torch.empty((n, d), dtype=cd, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.dts_cross_stack(
-            x0c.data_ptr(), w.data_ptr(), cw.b.data_ptr(), out.data_ptr(),
+            x0c.data_ptr(), cw.wt.data_ptr(), cw.b.data_ptr(), out.data_ptr(),
             n, d, L, int(cd == torch.bfloat16), rows, cluster, _stream(dev),
         )
     _check(lib, rc, "cross-stack")
-    launches["fused_cross_apply"] += 1
+    _count("fused_cross_apply", cd)
     return out
 
 
@@ -571,13 +573,16 @@ def fused_cross_apply(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     return cross_stack(x0, cached_cross_weights(w, b, compute_dtype), _plan=_plan)
 
 
-def max_active_clusters(cluster: int, d: int, mlp_dims, quantized: bool = False) -> int:
-    """How many clusters of `cluster` bf16 fused-serve blocks the current
-    card holds at once (cudaOccupancyMaxActiveClusters) at the shared
-    memory of width d and these MLP dims."""
+def max_active_clusters(cluster: int, d: int, mlp_dims, quantized: bool = False,
+                        compute_dtype=torch.bfloat16) -> int:
+    """How many clusters of `cluster` fused-serve blocks of the compute
+    dtype's kernel the current card holds at once
+    (cudaOccupancyMaxActiveClusters) at the shared memory of width d and
+    these MLP dims."""
     lib = _lib()
     out = ctypes.c_int(0)
-    rc = lib.dts_serve_max_active_clusters(cluster, d, max(mlp_dims), int(quantized),
+    rc = lib.dts_serve_max_active_clusters(cluster, d, max(mlp_dims),
+                                           int(_esize(compute_dtype) == 2), int(quantized),
                                            ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
@@ -587,11 +592,12 @@ def max_active_clusters(cluster: int, d: int, mlp_dims, quantized: bool = False)
 
 def serve_capacity(sw: ServeWeights) -> tuple[int, ...]:
     """How many clusters of each of CLUSTER_SIZES blocks the card holds at
-    once for this servable's bf16 kernel, queried once on its device."""
+    once for this servable's kernel, queried once on its device."""
     if sw._capacity is None:
         dims = [w.shape[1] for w, _ in sw.mlp]
         with torch.cuda.device(sw.device):
-            sw._capacity = tuple(max_active_clusters(c, sw.d, dims, sw.quantized)
+            sw._capacity = tuple(max_active_clusters(c, sw.d, dims, sw.quantized,
+                                                     sw.compute_dtype)
                                  for c in CLUSTER_SIZES)
     return sw._capacity
 
@@ -602,12 +608,12 @@ def fused_serve(ids: torch.Tensor, wts: torch.Tensor, sw: ServeWeights, *,
     folded into [0, V)), wts bf16 or f32 [n, F]. Float or int8 weights, as
     `sw` holds them. CPU tensors take the plain version.
 
-    The bf16 kernel serves each 16-row tile with a cluster of C blocks,
+    The kernel serves each 16-row tile with a cluster of C blocks,
     C = serve_cluster(n, serve_capacity(sw)). `_cluster` forces C (for
     tests and chip_smoke.py only); a C the launch refuses raises, never
     retried at another C."""
-    if _cluster is not None and (_cluster < 1 or sw.compute_dtype != torch.bfloat16):
-        raise ValueError(f"_cluster={_cluster}: only the bf16 kernels take a cluster size >= 1")
+    if _cluster is not None and _cluster < 1:
+        raise ValueError(f"_cluster={_cluster}: the kernels take a cluster size >= 1")
     if ids.device.type == "cpu":
         return fused_serve_reference(ids, wts, sw)
     if ids.device.type != "cuda":
@@ -618,9 +624,8 @@ def fused_serve(ids: torch.Tensor, wts: torch.Tensor, sw: ServeWeights, *,
     _require(wts, "feat_wts", (torch.bfloat16, torch.float32), (n, sw.num_fields), dev)
     if sw._kernel_args is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        bf16 = sw.compute_dtype == torch.bfloat16
-        wc = mma_layout(sw.wc) if bf16 else sw.wc
-        wm = [mma_layout(w) if bf16 else w for w, _ in sw.mlp]
+        wc = mma_layout(sw.wc)
+        wm = [mma_layout(w) for w, _ in sw.mlp]
         k = len(sw.mlp)
         sw._kernel_args = (
             wc, wm,  # keep the operands alive while their pointers are used
@@ -633,9 +638,7 @@ def fused_serve(ids: torch.Tensor, wts: torch.Tensor, sw: ServeWeights, *,
     pred = torch.empty((n,), dtype=torch.float32, device=dev)
     logit = torch.empty((n,), dtype=torch.float32, device=dev)
     lib = _lib()
-    cluster = 0  # the f32 kernels take none
-    if sw.compute_dtype == torch.bfloat16:
-        cluster = _cluster or serve_cluster(n, serve_capacity(sw))
+    cluster = _cluster or serve_cluster(n, serve_capacity(sw))
     with torch.cuda.device(dev):
         rc = lib.dts_fused_serve(
             ids.data_ptr(), wts.data_ptr(), int(wts.dtype == torch.bfloat16),
@@ -647,7 +650,7 @@ def fused_serve(ids: torch.Tensor, wts: torch.Tensor, sw: ServeWeights, *,
             cluster, _stream(dev),
         )
     _check(lib, rc, "fused-serve")
-    launches["fused_serve_int8" if sw.quantized else "fused_serve"] += 1
+    _count("fused_serve_int8" if sw.quantized else "fused_serve", sw.compute_dtype)
     return {"prediction_node": pred, "logits": logit}
 
 

@@ -1,6 +1,8 @@
-"""The cluster split of the bf16 fused serve kernel, on the CPU.
+"""The cluster split of the fused serve kernels, on the CPU.
 
-csrc/cross_kernel.cu serves each 16-row tile with a cluster of C blocks:
+csrc/cross_kernel.cu serves each 16-row tile with a cluster of C blocks
+(bf16 and, with split-TF32 products, f32; tests/test_torch_f32_kernels.py
+checks the f32 sizes and layout):
 rank r owns the 8-column output tiles [tile_begin(r), tile_begin(r + 1)) of
 every layer, pulls the other columns from their owners after each layer
 but the last, and adds a partial head over its own columns; rank 0 sums
@@ -143,7 +145,7 @@ def test_forced_cluster_on_cpu_tensors_takes_the_plain_version(c):
     ck.reset_launches()
     got = ck.fused_serve(ids, wts, sw, _cluster=c)
     assert torch.equal(got["logits"], ck.fused_serve_reference(ids, wts, sw)["logits"])
-    assert ck.launches["fused_serve"] == 0
+    assert not any(ck.launches.values())
 
 
 @pytest.mark.parametrize("bad", [0, -1])
@@ -154,7 +156,23 @@ def test_forced_cluster_below_one_is_refused(bad):
 
 
 def test_forced_cluster_is_refused_for_the_f32_kernels():
+    """The f32 kernels refuse what the bf16 ones refuse: a C below one."""
     sw, ids, wts = _case()
     assert sw.compute_dtype == torch.float32
-    with pytest.raises(ValueError, match="bf16"):
-        ck.fused_serve(ids, wts, sw, _cluster=2)
+    ck.reset_launches()
+    for bad in (0, -2):
+        with pytest.raises(ValueError, match="_cluster"):
+            ck.fused_serve(ids, wts, sw, _cluster=bad)
+    assert not any(ck.launches.values())
+
+
+@pytest.mark.parametrize("c", CLUSTERS)
+def test_forced_cluster_is_accepted_for_the_f32_kernels(c):
+    """The f32 kernels take the cluster split too: a forced C >= 1 is
+    accepted (CPU tensors take the plain version, nothing is launched)."""
+    sw, ids, wts = _case()
+    assert sw.compute_dtype == torch.float32
+    ck.reset_launches()
+    got = ck.fused_serve(ids, wts, sw, _cluster=c)
+    assert torch.equal(got["logits"], ck.fused_serve_reference(ids, wts, sw)["logits"])
+    assert not any(ck.launches.values())

@@ -118,7 +118,7 @@ def test_cpu_wrappers_do_not_count_launches():
     x0, _, w, b = _setup(5, 32, 2)
     ck.reset_launches()
     _port_cross(x0, w, b, torch.float32)
-    assert ck.launches == {"fused_serve": 0, "fused_serve_int8": 0, "fused_cross_apply": 0}
+    assert not any(ck.launches.values())
 
 
 # ----------------------------------------------------------- fused serve

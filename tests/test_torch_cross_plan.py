@@ -60,7 +60,7 @@ D = 688  # the serving width: 86 column tiles
 def _rounds(r, c, d=D):
     """Rounds of 8-column tile pairs a warp of the busiest rank runs."""
     own = -(-(ck._pad_n(d) // 8) // c)
-    return -(-own // (2 * ck.BF16_WARPS))
+    return -(-own // (2 * ck.WARPS))
 
 
 @pytest.mark.parametrize("n,want", [(256, (16, 4)), (512, (32, 4)), (1024, (16, 2)),
@@ -281,11 +281,11 @@ def test_forced_plan_on_cpu_tensors_takes_the_plain_version(plan):
     ck.reset_launches()
     got = ck.cross_stack(x0, cw, _plan=plan)
     assert torch.equal(got, ck.cross_stack(x0, cw))
-    assert ck.launches["fused_cross_apply"] == 0
+    assert not any(ck.launches.values())
 
 
 @pytest.mark.parametrize("plan,dtype", [((16, 0), torch.bfloat16), ((24, 1), torch.bfloat16),
-                                        ((64, 2), torch.bfloat16), ((16, 1), torch.float32)])
+                                        ((64, 2), torch.bfloat16), ((24, 1), torch.float32)])
 def test_forced_plan_outside_what_the_kernels_take_is_refused(plan, dtype):
     cw = ck.prepare_cross_weights(torch.zeros(1, 8, 8), torch.zeros(1, 8), dtype)
     with pytest.raises(ValueError, match="_plan"):

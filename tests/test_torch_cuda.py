@@ -8,9 +8,11 @@ machine with the card and without JAX it runs alone:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Tolerances: fused serve scores (float and int8 weights) 2e-5 (f32) / 5e-3
-(bf16); cross stack allclose rtol = atol = 1e-5 (f32) / 2e-2 (bf16), and
-bit for bit across its (rows per block, cluster) plans; the int8 kernel
-through the batcher 5e-3 against the quantized model.apply.
+(bf16), and in f32 bit for bit across cluster sizes; cross stack allclose
+rtol = atol = 1e-5 (f32) / 2e-2 (bf16), and bit for bit across its (rows
+per block, cluster) plans; the f32 kernels on unit-normal inputs within
+twice the plain f32 version's error from float64; the int8 kernel through the batcher 5e-3 against
+the quantized model.apply.
 """
 
 import numpy as np
@@ -64,6 +66,12 @@ def _inputs(cfg, n, dev, seed):
     return ids, wts
 
 
+def _launched() -> dict:
+    """The launch counts since the last reset that are not zero, by (wrapper,
+    compute dtype)."""
+    return {k: v for k, v in ck.launches.items() if v}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
@@ -78,7 +86,8 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape, compute_dtype,
     out = ck.fused_serve(ids, wts, sw)
     xc = ck.fused_cross_apply(x0, sw.wc, sw.bc, compute_dtype=cfg.cdtype)
     torch.cuda.synchronize()
-    assert ck.launches == {"fused_serve": 1, "fused_serve_int8": 0, "fused_cross_apply": 1}
+    assert _launched() == {("fused_serve", compute_dtype): 1,
+                           ("fused_cross_apply", compute_dtype): 1}
     ref = ck.fused_serve_reference(ids, wts, sw)
     tol = SERVE_TOL[compute_dtype]
     torch.testing.assert_close(out["prediction_node"], ref["prediction_node"], rtol=0, atol=tol)
@@ -100,7 +109,7 @@ def test_int8_kernel_matches_plain_version_on_card(cuda_device, shape, compute_d
     ck.reset_launches()
     out = ck.fused_serve(ids, wts, sw)
     torch.cuda.synchronize()
-    assert ck.launches == {"fused_serve": 0, "fused_serve_int8": 1, "fused_cross_apply": 0}
+    assert _launched() == {("fused_serve_int8", compute_dtype): 1}
     ref = ck.fused_serve_reference(ids, wts, sw)
     torch.testing.assert_close(out["prediction_node"], ref["prediction_node"], rtol=0,
                                atol=SERVE_TOL[compute_dtype])
@@ -121,7 +130,7 @@ def test_forced_cluster_matches_plain_version_on_card(cuda_device, cluster, shap
     ck.reset_launches()
     out = ck.fused_serve(ids, wts, sw, _cluster=cluster)
     torch.cuda.synchronize()
-    assert ck.launches["fused_serve_int8" if quantized else "fused_serve"] == 1
+    assert _launched() == {("fused_serve_int8" if quantized else "fused_serve", "bfloat16"): 1}
     ref = ck.fused_serve_reference(ids, wts, sw)
     torch.testing.assert_close(out["prediction_node"], ref["prediction_node"], rtol=0,
                                atol=SERVE_TOL["bfloat16"])
@@ -139,7 +148,7 @@ def test_cluster_the_launch_refuses_raises(cuda_device):
     ck.reset_launches()
     with pytest.raises(RuntimeError, match="fused-serve kernel launch failed"):
         ck.fused_serve(ids, wts, sw, _cluster=16)
-    assert ck.launches["fused_serve"] == 0
+    assert not _launched()
     out = ck.fused_serve(ids, wts, sw)
     torch.cuda.synchronize()
     torch.testing.assert_close(out["prediction_node"],
@@ -157,7 +166,7 @@ def test_launch_counter_counts_one_per_call_at_any_cluster(cuda_device, cluster)
     for _ in range(3):
         ck.fused_serve(ids, wts, sw, _cluster=cluster)
     torch.cuda.synchronize()
-    assert ck.launches == {"fused_serve": 3, "fused_serve_int8": 0, "fused_cross_apply": 0}
+    assert _launched() == {("fused_serve", "bfloat16"): 3}
 
 
 @pytest.mark.cuda
@@ -202,7 +211,7 @@ def test_forced_cross_plan_is_bit_identical_on_card(cuda_device, plan, shape, n)
     ck.reset_launches()
     got = ck.cross_stack(x0, cw, _plan=plan)
     torch.cuda.synchronize()
-    assert ck.launches["fused_cross_apply"] == 1
+    assert _launched() == {("fused_cross_apply", "bfloat16"): 1}
     assert torch.equal(got, base)
     tol = CROSS_TOL["bfloat16"]
     torch.testing.assert_close(got.float(), ck.cross_stack_reference(
@@ -218,7 +227,7 @@ def test_cross_cluster_the_launch_refuses_raises(cuda_device):
     ck.reset_launches()
     with pytest.raises(RuntimeError, match="cross-stack kernel launch failed"):
         ck.cross_stack(x0, cw, _plan=(16, 16))
-    assert ck.launches["fused_cross_apply"] == 0
+    assert not _launched()
     got = ck.cross_stack(x0, cw)
     torch.cuda.synchronize()
     assert torch.equal(got, ck.cross_stack(x0, cw, _plan=(16, 1)))
@@ -246,7 +255,7 @@ def test_cross_launch_counter_counts_one_per_call(cuda_device, plan):
     for _ in range(3):
         ck.cross_stack(x0, cw, _plan=plan)
     torch.cuda.synchronize()
-    assert ck.launches == {"fused_serve": 0, "fused_serve_int8": 0, "fused_cross_apply": 3}
+    assert _launched() == {("fused_cross_apply", "bfloat16"): 3}
 
 
 @pytest.mark.cuda
@@ -273,6 +282,160 @@ def test_warm_cross_call_launches_the_kernel_alone(cuda_device):
     assert 1 <= len(names) <= calls, names
     assert all("cross_stack_bf16_kernel" in nm for nm in names), names
     assert ck.cross_cache.builds == builds + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("n", [1, 17, 300])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_forced_f32_cluster_is_bit_identical_on_card(cuda_device, cluster, shape, n, quantized):
+    """The f32 (split-TF32) fused serve kernel with each cluster size
+    forced, float and int8 weights: the bits of C = 1 (every element's k
+    order is the same at any C), and within 2e-5 of the plain version."""
+    cfg, _, params = _setup(cuda_device, "float32", *shape)
+    sw = ck.build_fused_serve(quantize_params(params) if quantized else params, cfg).serve_weights
+    ids, wts = _inputs(cfg, n, cuda_device, seed=n + cluster)
+    base = ck.fused_serve(ids, wts, sw, _cluster=1)
+    ck.reset_launches()
+    out = ck.fused_serve(ids, wts, sw, _cluster=cluster)
+    torch.cuda.synchronize()
+    assert _launched() == {("fused_serve_int8" if quantized else "fused_serve", "float32"): 1}
+    assert torch.equal(out["logits"], base["logits"])
+    assert torch.equal(out["prediction_node"], base["prediction_node"])
+    ref = ck.fused_serve_reference(ids, wts, sw)
+    torch.testing.assert_close(out["prediction_node"], ref["prediction_node"], rtol=0,
+                               atol=SERVE_TOL["float32"])
+
+
+def _f32_cross_case(dev, fields, embed, n, seed):
+    cfg, _, params = _setup(dev, "float32", fields, embed, (16,), seed=seed)
+    cw = ck.cross_weights(params["cross"], cfg.cdtype)
+    ids, wts = _inputs(cfg, n, dev, seed=seed + n)
+    x0 = field_embed(params["embedding"], ids, wts, cfg.cdtype).reshape(n, cw.d)
+    return cw, x0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("n", [1, 17, 300])
+def test_forced_f32_cross_plan_is_bit_identical_on_card(cuda_device, plan, shape, n):
+    """The f32 cross stack at every forced (R, C): the bits of (16, 1) and
+    within 1e-5 of the plain version."""
+    cw, x0 = _f32_cross_case(cuda_device, shape[0], shape[1], n, seed=7)
+    base = ck.cross_stack(x0, cw, _plan=(16, 1))
+    ck.reset_launches()
+    got = ck.cross_stack(x0, cw, _plan=plan)
+    torch.cuda.synchronize()
+    assert _launched() == {("fused_cross_apply", "float32"): 1}
+    assert torch.equal(got, base)
+    tol = CROSS_TOL["float32"]
+    torch.testing.assert_close(got, ck.cross_stack_reference(x0, cw.w, cw.b, torch.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_serve", "fused_cross_apply"])
+def test_f32_cluster_the_launch_refuses_raises(cuda_device, kernel):
+    """A cluster of 16 f32 blocks is over the portable limit: the launch
+    refuses it, the wrapper raises and counts nothing, as for bf16."""
+    cfg, _, params = _setup(cuda_device, "float32", 10, 8, (32, 16))
+    ids, wts = _inputs(cfg, 40, cuda_device, seed=2)
+    ck.reset_launches()
+    if kernel == "fused_serve":
+        sw = ck.build_fused_serve(params, cfg).serve_weights
+        with pytest.raises(RuntimeError, match="fused-serve kernel launch failed"):
+            ck.fused_serve(ids, wts, sw, _cluster=16)
+    else:
+        cw, x0 = _f32_cross_case(cuda_device, 10, 8, 40, seed=2)
+        with pytest.raises(RuntimeError, match="cross-stack kernel launch failed"):
+            ck.cross_stack(x0, cw, _plan=(16, 16))
+    assert not _launched()
+
+
+def _cross_f64(x0, w, b, s=None):
+    x0 = x0.double()
+    x = x0
+    for l in range(w.shape[0]):
+        xw = x @ w[l].double()
+        if s is not None:
+            xw = xw * s[l].double()
+        x = x0 * (xw + b[l].double()) + x
+    return x
+
+
+def _serve_f64(ids, wts, sw):
+    n = ids.shape[0]
+    x0 = (sw.table[ids.long()].double() * wts.double()[..., None]).reshape(n, sw.d)
+    h = x0
+    for m, (w, b) in enumerate(sw.mlp):
+        y = h @ w.double()
+        if sw.ms is not None:
+            y = y * sw.ms[m].double()
+        h = torch.relu(y + b.double())
+    xc = _cross_f64(x0, sw.wc, sw.bc, sw.sc)
+    return xc @ sw.wo[:sw.d].double() + h @ sw.wo[sw.d:].double() + sw.bo[0].double()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_cross_apply", "fused_serve", "fused_serve_int8"])
+@pytest.mark.parametrize("n", [256, 2048])
+def test_f32_kernels_keep_f32_accuracy_on_unit_normal_inputs(cuda_device, kernel, n):
+    """At the serving width on unit-normal inputs (x0, or the embedding
+    table), where an f32 sum is itself far from the truth, the split-TF32
+    kernel's max error from float64 is at most twice the plain f32
+    version's (cuBLAS in full f32), the rule the CPU emulation is held to.
+    The plain version with TF32 matmuls misses that rule, so it tells a
+    kernel that lost the split's accuracy from one that kept it."""
+    import dataclasses
+
+    cfg, _, params = _setup(cuda_device, "float32", 43, 16, (256, 128, 64))
+    g = torch.Generator().manual_seed(n)
+    if kernel == "fused_cross_apply":
+        cw = ck.cross_weights(params["cross"], torch.float32)
+        x0 = torch.randn((n, cw.d), generator=g).to(cuda_device)
+        truth = _cross_f64(x0, cw.w, cw.b)
+        run = lambda: ck.cross_stack(x0, cw)  # noqa: E731
+        plain = lambda: ck.cross_stack_reference(x0, cw.w, cw.b, torch.float32)  # noqa: E731
+    else:
+        tree = quantize_params(params) if kernel == "fused_serve_int8" else params
+        sw = ck.build_fused_serve(tree, cfg).serve_weights
+        sw = dataclasses.replace(sw, table=torch.randn(sw.table.shape, generator=g).to(cuda_device))
+        ids, wts = _inputs(cfg, n, cuda_device, seed=n)
+        truth = _serve_f64(ids, wts, sw)
+        run = lambda: ck.fused_serve(ids, wts, sw)["logits"]  # noqa: E731
+        plain = lambda: ck.fused_serve_reference(ids, wts, sw)["logits"]  # noqa: E731
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_tf32
+    try:
+        mm.allow_tf32 = False
+        err = (run().double() - truth).abs().max().item()
+        plain_err = (plain().double() - truth).abs().max().item()
+        mm.allow_tf32 = True
+        tf32_err = (plain().double() - truth).abs().max().item()
+    finally:
+        mm.allow_tf32 = prev
+    assert err <= 2 * plain_err, (err, plain_err)
+    assert tf32_err > 2 * plain_err, (tf32_err, plain_err)
+
+
+@pytest.mark.cuda
+def test_f32_cluster_rule_and_occupancy_on_card(cuda_device):
+    """The f32 kernels hold one block per SM and clusters of 8 of them, and
+    their rules on this card's capacity never ask for a second wave."""
+    cfg, _, params = _setup(cuda_device, "float32", 43, 16, (256, 128, 64))
+    sw = ck.build_fused_serve(params, cfg).serve_weights
+    cw = ck.cross_weights(params["cross"], cfg.cdtype)
+    cap, ccap = ck.serve_capacity(sw), ck.cross_capacity(cw)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert cap[0] >= sms and cap[3] >= 1 and set(ccap) == set(PLANS)
+    assert ccap[(16, 1)] >= sms and ccap[(32, 1)] >= sms
+    for n in (1, 256, 512, 1024, 2048):
+        c = ck.serve_cluster(n, cap)
+        assert c == 1 or -(-n // ck.ROWS_PER_BLOCK) <= cap[ck.CLUSTER_SIZES.index(c)]
+        r, cc = ck.cross_plan(n, ccap, cw.d)
+        assert -(-n // r) <= ccap[(r, cc)]
 
 
 @pytest.mark.cuda
@@ -305,7 +468,7 @@ def test_batcher_serves_dcn_v2_through_the_fused_kernel(cuda_device, compute_dty
         got = batcher.submit(sv, arrays).result(60)["prediction_node"]
     finally:
         batcher.stop()
-    assert ck.launches["fused_serve"] == 1 and batcher.stats.fused_batches >= 1
+    assert ck.launches["fused_serve", compute_dtype] == 1 and batcher.stats.fused_batches >= 1
     want = model.apply(params, {k: torch.from_numpy(v).to(cuda_device)
                                 for k, v in arrays.items()})["prediction_node"].cpu().numpy()
     assert got.shape == (37,)
@@ -323,7 +486,7 @@ def test_use_pallas_cross_model_runs_the_cross_kernel(cuda_device):
     ck.reset_launches()
     got = fused.apply(params, batch)["prediction_node"]
     torch.cuda.synchronize()
-    assert ck.launches["fused_cross_apply"] == 1
+    assert ck.launches["fused_cross_apply", "bfloat16"] == 1
     want = model.apply(params, batch)["prediction_node"]
     torch.testing.assert_close(got, want, rtol=0, atol=5e-3)
 
@@ -345,7 +508,7 @@ def test_kernels_plane_batcher_launches_the_int8_kernel(cuda_device, compute_dty
     ck.reset_launches()
     got = batcher._execute(sv, arrays, ("prediction_node",),
                            _kernel_override=(True, True))["prediction_node"]
-    assert ck.launches["fused_serve_int8"] == 1 and ck.launches["fused_serve"] == 0
+    assert _launched() == {("fused_serve_int8", compute_dtype): 1}
     want = model.apply(quantize_params(params), {
         k: torch.from_numpy(v).to(cuda_device) for k, v in arrays.items()
     })["prediction_node"].float().cpu().numpy()

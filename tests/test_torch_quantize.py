@@ -191,7 +191,7 @@ def test_int8_fused_serve_plain_matches_jax_interpret_bf16():
 def test_int8_serve_weights_layout():
     """int8 operands stay int8 (1 byte per weight) with f32 scales; the head
     is dequantized to f32 once, as the JAX kernel's build does; the bf16
-    kernels' operand layout pads int8 W^T like bf16."""
+    kernels' operand layout pads int8 W^T like float weights."""
     _, jcfg, jp, _, tcfg, tp = _pair("bfloat16")
     qp = quantize.quantize_params(tp)
     sw = ck.prepare_serve_weights(qp, tcfg)
@@ -205,8 +205,7 @@ def test_int8_serve_weights_layout():
     np.testing.assert_array_equal(sw.wo.numpy(), want_head)
     t = ck.mma_layout(sw.wc)
     assert t.dtype == torch.int8 and tuple(t.shape) == (2, ck._pad_n(d), ck._pad_k(d))
-    assert ck.weight_operand_bytes(d, d, torch.int8, torch.bfloat16) == t[0].numel()
-    assert ck.weight_operand_bytes(d, 32, torch.int8, torch.float32) == d * 32
+    assert t[0].numel() * t.element_size() == ck._pad_n(d) * ck._pad_k(d)  # 1 byte per weight
     assert ck._pad_k(d) % 8 == 0  # 8-byte int8 fragment loads stay aligned
     assert not ck.prepare_serve_weights(tp, tcfg).quantized
 
@@ -225,7 +224,7 @@ def test_cpu_int8_wrapper_counts_no_launches():
     fn = ck.build_fused_serve(quantize.quantize_params(tp), tcfg)
     ck.reset_launches()
     fn(None, {"feat_ids": torch.from_numpy(ids), "feat_wts": torch.from_numpy(wts)})
-    assert ck.launches == {"fused_serve": 0, "fused_serve_int8": 0, "fused_cross_apply": 0}
+    assert not any(ck.launches.values())
 
 
 @pytest.mark.parametrize("kind,quantized", [("dcn_v2", False), ("dcn_v2", True),
