@@ -7,7 +7,8 @@ card, end to end, and fail loudly on anything wrong.
 Phases (any failure exits non-zero and prints no result line):
 
 1. device  — card name; `nvidia-smi` name and power limit.
-2. build   — nvcc builds every kernel source of the package (sm_90a).
+2. build   — nvcc builds every kernel source of the package (sm_90a) while
+             g++ builds the native host ops (native/hostops.cc).
 3. kernels — each kernel at the serving width (43 fields x 16, vocab 2^20,
              3 cross layers, MLP 256/128/64), in bf16 and in f32 at the four
              buckets of configs/latency.toml (256, 512, 1024, 2048), held
@@ -71,6 +72,21 @@ Phases (any failure exits non-zero and prints no result line):
              cross-stack kernels' once per request of their f32 server; the
              cross_stack servers must not prepare their cross weights again
              during their requests.
+5. host    — the serving host path (serving/batcher.py). Over each server's
+             counted requests every batch must be one combined buffer and
+             one H2D copy, every bf16 batch packed by the native
+             pack_batch_u24_bf16, and the readback must overlap (a
+             completion worker waits for it). Then, on every server, the
+             combined path's scores must have the bits of the per-key
+             path's. On the bf16 fused_serve server: the stage breakdown at
+             buckets 256 and 2048 (fused_pack, h2d_unpack, device_step,
+             d2h_issue, d2h_wait, beside the per-key path's perkey_fold_pack,
+             perkey_h2d_unpack, perkey_d2h), the n = 7 submit p50 split into
+             submit, collect, staged, dispatch_stage, readback_wait and
+             completion_handoff (again with no coalescing window), the gRPC floor and busy share, and a closed
+             loop of 4 client threads x 250 gRPC Predicts of n = 1000 (the
+             [client] point of configs/latency.toml) at pipeline_depth 1 and
+             2: p50, p99, QPS and the card's busy share.
 
 Prints one `{"kernels": [...]}` line (one entry per kernel and compute
 dtype, the f32 ones named `<kernel>_f32`: the rule row at 2048 rows, the
@@ -600,54 +616,203 @@ def _request(ids, wts):
     return req
 
 
-def breakdown(dev, batcher, servable, stub, payload) -> dict:
-    """Median host/device split of one batch through the device step (fold
-    + pack on the host, upload + unpack, the device step, readback), the
-    batcher's own request latency without a transport, the gRPC floor (a
-    GetModelMetadata round trip), and the card's busy share over gRPC
-    Predicts, from torch.profiler."""
+STAGES = ("fused_pack", "h2d_unpack", "device_step", "d2h_issue", "d2h_wait",
+          "perkey_fold_pack", "perkey_h2d_unpack", "perkey_d2h")
+
+
+def breakdown(dev, batcher, servable) -> dict:
+    """Median of 20 of each host/device stage of one batch at buckets 256
+    and 2048, through the batcher's own stage functions: on the serving
+    path, the native pack into a pinned ring buffer (`fused_pack`), its one
+    copy + unpack_device_combined (`h2d_unpack`), the device step, the
+    readback issue (`d2h_issue`: non-blocking copies + event) and its wait
+    (`d2h_wait`); beside them the per-key path (fold + pack_host, one
+    pageable copy per input + unpack_device, `.cpu()`). Each stage is timed
+    with the card idle before it (synchronized), so these are bare stage
+    costs. The two paths' scores must be bit-identical."""
     import numpy as np
     import torch
 
-    from distributed_tf_serving_tpu_torch.ops.transfer import pack_host, to_device, unpack_device
+    from distributed_tf_serving_tpu_torch.ops.transfer import (
+        pack_host,
+        to_device,
+        unpack_device,
+        unpack_device_combined,
+    )
     from distributed_tf_serving_tpu_torch.serving.batcher import fold_ids_host
 
     entry = batcher.step_for(servable)
     cfg = servable.model.config
-    out = {"stages_ms": {}}
+    out = {}
     for bucket in (256, 2048):
+        step, params, _ = batcher._step(servable, entry, bucket, None)
         rng = np.random.RandomState(bucket)
-        ids = rng.randint(0, 1 << 40, size=(bucket, cfg.num_fields)).astype(np.int64)
-        wts = rng.rand(bucket, cfg.num_fields).astype(np.float32)
-        st = {"fold_pack": [], "h2d_unpack": [], "device_step": [], "d2h": []}
+        arrays = {"feat_ids": rng.randint(0, 1 << 40, size=(bucket, cfg.num_fields)).astype(np.int64),
+                  "feat_wts": rng.rand(bucket, cfg.num_fields).astype(np.float32)}
+        st = {k: [] for k in STAGES}
         for _ in range(20):
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            packed = pack_host({"feat_ids": fold_ids_host(ids, cfg.vocab_size),
-                                "feat_wts": wts}, entry.spec)
+            ctx = batcher._fused_ctx(servable, [arrays])
+            if ctx is None:
+                fail("breakdown: the fused_serve server's batch is not eligible for the native pack")
+            buf, layout = batcher._pack(entry, ctx, bucket)
             t1 = time.perf_counter()
-            batch = unpack_device(to_device(packed, dev), entry.spec)
+            dbuf, event = batcher._upload(buf)
+            batch = unpack_device_combined(dbuf, layout)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
+            batcher.ring.release([buf], event)
             with torch.inference_mode():
-                res = entry.fn(servable.params, batch)
+                res = step(params, batch)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
-            res["prediction_node"].cpu().numpy()
+            rb = batcher._issue_readback({"prediction_node": res["prediction_node"]})
             t4 = time.perf_counter()
-            for k, v in zip(st, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            host = batcher._wait(rb)["prediction_node"]
+            t5 = time.perf_counter()
+            packed = pack_host({"feat_ids": fold_ids_host(arrays["feat_ids"], cfg.vocab_size),
+                                "feat_wts": arrays["feat_wts"]}, entry.spec)
+            t6 = time.perf_counter()
+            pbatch = unpack_device(to_device(packed, dev), entry.spec)
+            torch.cuda.synchronize()
+            t7 = time.perf_counter()
+            with torch.inference_mode():
+                pres = step(params, pbatch)
+            torch.cuda.synchronize()
+            t8 = time.perf_counter()
+            phost = pres["prediction_node"].cpu().numpy()
+            t9 = time.perf_counter()
+            if not np.array_equal(host, phost):
+                fail(f"breakdown bucket {bucket}: combined-path scores differ from the per-key "
+                     f"path's (max |d| {np.max(np.abs(host - phost))})")
+            for k, v in zip(STAGES, (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t6 - t5,
+                                     t7 - t6, t9 - t8)):
                 st[k].append(v * 1e3)
-        out["stages_ms"][bucket] = {k: statistics.median(v) for k, v in st.items()}
-        log(f"breakdown: bucket {bucket} " + " ".join(
-            f"{k}={v:.4f}ms" for k, v in out["stages_ms"][bucket].items()))
+        out[bucket] = {k: statistics.median(v) for k, v in st.items()}
+        log(f"breakdown: bucket {bucket} " + " ".join(f"{k}={v:.4f}ms" for k, v in out[bucket].items()))
+    return out
+
+
+def submit_split(batcher, servable, payload, repeats: int = 20, max_wait_us=None) -> dict:
+    """Where DynamicBatcher.submit time goes at n = len(payload), one
+    request at a time, from the batcher's timeline: `submit` (submit() to
+    enqueue), `collect` (enqueue to the group handed over, the coalescing
+    window included), `staged` (waiting for the dispatch thread),
+    `dispatch_stage` (pack, upload, step launch, readback issue),
+    `readback_wait` (issue to outputs on the host), `completion_handoff`
+    (outputs on the host to the caller's result() returning: slicing,
+    set_result, the wake-up). Medians; their sum is near the p50.
+    max_wait_us, when given, replaces the batcher's coalescing window for
+    this run (0: `collect` is the batching thread's wake-up and assembly
+    alone)."""
     ids, wts = payload
+    wait0 = batcher.max_wait_s
+    if max_wait_us is not None:
+        batcher.max_wait_s = max_wait_us / 1e6
+    batcher.timeline = []
+    marks = []
+    try:
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            batcher.submit(servable, {"feat_ids": ids, "feat_wts": wts},
+                           output_keys=("prediction_node",)).result(60)
+            marks.append((t0, time.perf_counter()))
+        timeline = batcher.timeline
+    finally:
+        batcher.timeline = None
+        batcher.max_wait_s = wait0
+    if len(timeline) != repeats:
+        fail(f"submit split: {len(timeline)} timeline entries for {repeats} requests")
+    parts = {k: [] for k in ("submit", "collect", "staged", "dispatch_stage", "readback_wait",
+                             "completion_handoff")}
     lat = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        batcher.submit(servable, {"feat_ids": ids, "feat_wts": wts},
-                       output_keys=("prediction_node",)).result(60)
-        lat.append((time.perf_counter() - t0) * 1e3)
-    out["batcher_p50_ms"] = statistics.median(lat)
-    log(f"breakdown: n={len(ids)} through DynamicBatcher.submit p50={out['batcher_p50_ms']:.3f} ms")
+    for (t0, t1), (enq, col, stage, issue, ready, _) in zip(marks, timeline):
+        for k, v in zip(parts, (enq - t0, col - enq, stage - col, issue - stage, ready - issue,
+                                t1 - ready)):
+            parts[k].append(v * 1e3)
+        lat.append((t1 - t0) * 1e3)
+    out = {"p50_ms": statistics.median(lat), "max_wait_us": round(wait0 * 1e6)
+           if max_wait_us is None else max_wait_us,
+           **{k: statistics.median(v) for k, v in parts.items()}}
+    log(f"breakdown: n={len(ids)} through DynamicBatcher.submit (max_wait_us="
+        f"{out['max_wait_us']}) p50={out['p50_ms']:.3f} ms = "
+        + " + ".join(f"{k} {out[k]:.4f}" for k in parts) + " (medians, ms)")
+    return out
+
+
+def device_busy_us(prof) -> float:
+    return sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages())
+
+
+def closed_loop(port: int, payloads, per_client: int = 250) -> dict:
+    """Closed-loop gRPC load: one client thread per payload, each sending
+    `per_client` Predicts back to back on its own channel (the [client]
+    point of configs/latency.toml: 1000 candidates, concurrency 4). p50 /
+    p99 latency, QPS over the wall time, and the card's busy share over the
+    same wall time from torch.profiler (device activity only)."""
+    import threading
+
+    import grpc
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.proto.service_grpc import LARGE_MESSAGE_CHANNEL_OPTIONS
+
+    lat: list[list[float]] = [[] for _ in payloads]
+    errors = []
+    chans = [grpc.insecure_channel(f"127.0.0.1:{port}", options=LARGE_MESSAGE_CHANNEL_OPTIONS)
+             for _ in payloads]
+    barrier = threading.Barrier(len(payloads) + 1)
+
+    def client(k):
+        stub = PredictionServiceStub(chans[k])
+        req = _request(*payloads[k])
+        stub.Predict(req, timeout=60)  # channel up before the clock starts
+        barrier.wait(timeout=120)
+        try:
+            for _ in range(per_client):
+                t0 = time.perf_counter()
+                stub.Predict(req, timeout=60)
+                lat[k].append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(len(payloads))]
+    try:
+        for t in threads:
+            t.start()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            barrier.wait(timeout=120)
+            t0 = time.perf_counter()
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+    finally:
+        for ch in chans:
+            ch.close()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"closed loop: client errors {errors[:3]}")
+    flat = sorted(v for ls in lat for v in ls)
+    return {"requests": len(flat), "clients": len(payloads), "wall_s": wall,
+            "p50_ms": statistics.median(flat), "p99_ms": flat[int(0.99 * (len(flat) - 1))],
+            "qps": len(flat) / wall, "device_busy_share": device_busy_us(prof) / (wall * 1e6)}
+
+
+def host_path(dev, batcher, servable, stub, port, payload) -> dict:
+    """After the counted run, on the bf16 fused_serve server: the stage
+    breakdown, the n = 7 submit split, the gRPC floor and the card's busy
+    share over 20 Predicts of n = 7, and the closed loop at pipeline_depth
+    1 and 2."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {"stages_ms": breakdown(dev, batcher, servable),
+           "submit_n7": submit_split(batcher, servable, payload),
+           "submit_n7_no_window": submit_split(batcher, servable, payload, max_wait_us=0)}
+    out["batcher_p50_ms"] = out["submit_n7"]["p50_ms"]
     if stub is None:
         return out
     from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
@@ -658,23 +823,96 @@ def breakdown(dev, batcher, servable, stub, payload) -> dict:
         stub.GetModelMetadata(apis.GetModelMetadataRequest(model_spec=apis.ModelSpec(name="DCN")))
         lat.append((time.perf_counter() - t0) * 1e3)
     out["grpc_floor_p50_ms"] = statistics.median(lat)
-    from torch.profiler import ProfilerActivity, profile
-
+    ids, wts = payload
     req = _request(ids, wts)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(20):
             stub.Predict(req, timeout=60)
         wall_us = (time.perf_counter() - t0) * 1e6
-    busy_us = sum(
-        getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        for e in prof.key_averages()
-    )
+    busy_us = device_busy_us(prof)
     out["device_busy_share"] = busy_us / wall_us
     log(f"breakdown: gRPC floor (GetModelMetadata) p50={out['grpc_floor_p50_ms']:.3f} ms; "
         f"device busy {busy_us:.0f} us of {wall_us:.0f} us wall over 20 Predicts of "
         f"n={len(ids)} (idle share {1 - out['device_busy_share']:.3f})")
+    cfg = servable.model.config
+    rng = np.random.RandomState(SEED + 1000)
+    loads = [(rng.randint(0, 1 << 40, size=(1000, cfg.num_fields)).astype(np.int64),
+              rng.rand(1000, cfg.num_fields).astype(np.float32)) for _ in range(4)]
+    depth0 = batcher.pipeline_depth
+    out["closed_loop"] = {}
+    try:
+        for depth in (1, 2):
+            batcher.pipeline_depth = depth
+            s0 = dataclasses.replace(batcher.stats)
+            r = closed_loop(port, loads)
+            s1 = batcher.stats
+            r["pipeline_depth"] = depth
+            r["batches"] = s1.batches - s0.batches
+            r["mean_requests_per_batch"] = (s1.requests - s0.requests) / max(r["batches"], 1)
+            window = s1.readback_window_s - s0.readback_window_s
+            r["readback_overlap_fraction"] = (
+                1 - (s1.readback_blocked_s - s0.readback_blocked_s) / window if window > 0 else 0.0)
+            out["closed_loop"][depth] = r
+            log(f"closed loop: pipeline_depth={depth} {r['clients']} clients x "
+                f"{r['requests'] // r['clients']} gRPC Predicts n=1000: p50={r['p50_ms']:.3f} ms "
+                f"p99={r['p99_ms']:.3f} ms qps={r['qps']:.1f} busy share "
+                f"{r['device_busy_share']:.3f} (idle {1 - r['device_busy_share']:.3f}), "
+                f"{r['batches']} batches ({r['mean_requests_per_batch']:.2f} requests each), "
+                f"readback overlap {r['readback_overlap_fraction']:.3f}")
+    finally:
+        batcher.pipeline_depth = depth0
+    torch.cuda.synchronize()
     return out
+
+
+def host_path_counts(label: str, servable, s0, s1) -> dict:
+    """The host path of one server's counted requests, from its BatcherStats
+    before (s0) and after (s1): every batch one combined buffer and one
+    host-to-device copy; a bf16 server's every batch packed natively; the
+    readback overlapped (a completion worker, not the dispatch thread,
+    waited for it)."""
+    d = {k: getattr(s1, k) - getattr(s0, k) for k in (
+        "batches", "requests", "native_packs", "h2d_copies",
+        "readback_window_s", "readback_blocked_s")}
+    window = d["readback_window_s"]
+    d["readback_overlap_fraction"] = 1 - d["readback_blocked_s"] / window if window > 0 else 0.0
+    bf16 = servable.model.config.compute_dtype == "bfloat16"
+    want_native = d["batches"] if bf16 else 0
+    log(f"serving: {label} host path: {d['batches']} batches, {d['h2d_copies']} H2D copies, {d['native_packs']} native packs, readback overlap "
+        f"{d['readback_overlap_fraction']:.3f}")
+    if not d["batches"] or d["batches"] != d["h2d_copies"]:
+        fail(f"{label}: not one combined buffer and one H2D copy per batch: {d}")
+    if d["native_packs"] != want_native:
+        fail(f"{label}: {d['native_packs']} native packs for {d['batches']} batches "
+             f"({'bf16' if bf16 else 'f32'}: want {want_native})")
+    if not d["readback_overlap_fraction"] > 0:
+        fail(f"{label}: the readback did not overlap (overlap fraction "
+             f"{d['readback_overlap_fraction']})")
+    return d
+
+
+def combined_vs_per_key(label: str, batcher, servable, payloads) -> int:
+    """Scores through the combined buffer (the serving path) must have the
+    bits of the per-key path's on the same padded batch. Returns the number
+    of batches compared."""
+    import numpy as np
+
+    from distributed_tf_serving_tpu_torch.serving.batcher import bucket_for
+
+    for n, (ids, wts) in payloads.items():
+        bucket = bucket_for(n, batcher.buckets)
+        padded = {k: np.concatenate([v, np.zeros((bucket - n,) + v.shape[1:], v.dtype)])
+                  for k, v in (("feat_ids", ids), ("feat_wts", wts))}
+        a = batcher._execute(servable, padded, ("prediction_node",))["prediction_node"]
+        b = batcher._execute(servable, padded, ("prediction_node",),
+                             _per_key=True)["prediction_node"]
+        if not np.array_equal(a, b):
+            fail(f"{label} n={n}: combined-path scores differ from the per-key path's "
+                 f"(max |d| {np.max(np.abs(a - b))})")
+    log(f"serving: {label} combined path bit-identical to the per-key path at "
+        f"n={sorted(payloads)}")
+    return len(payloads)
 
 
 def kernels_plane_config(suffix: str = ""):
@@ -780,6 +1018,7 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
         ck.reset_launches()
         builds0 = ck.cross_cache.builds
         for label, impl, batcher, servable, server, port in built:
+            s0 = dataclasses.replace(batcher.stats)
             if server is not None:
                 from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
                 from distributed_tf_serving_tpu_torch.proto.service_grpc import (
@@ -838,6 +1077,7 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
                 "per_size": per_size,
                 "batches": batcher.stats.batches,
                 "fused_batches": batcher.stats.fused_batches,
+                "host_path": host_path_counts(label, servable, s0, batcher.stats),
             }
             if km is not None:
                 # The pallas_int8 entry live traffic uses, on the same
@@ -869,11 +1109,14 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
         # their warmup; their requests must reuse them.
         results["cross_weight_builds"] = ck.cross_cache.builds - builds0
         results["requests"] = len(built) * len(sizes) * repeats
-        # After the counted run: where a request's time goes (fused server).
-        _, _, batcher, servable, server, _ = built[0]
-        results["breakdown"] = breakdown(
+        # After the counted run: the combined path against the per-key path,
+        # then where a request's time goes (bf16 fused_serve server).
+        results["bit_identity"] = {label: combined_vs_per_key(label, batcher, servable, payloads)
+                                   for label, _, batcher, servable, _, _ in built}
+        _, _, batcher, servable, server, port = built[0]
+        results["breakdown"] = host_path(
             dev, batcher, servable, stubs["fused_serve"][1] if server is not None else None,
-            payloads[min(sizes)],
+            port, payloads[min(sizes)],
         )
     finally:
         for ch, _ in stubs.values():
@@ -914,9 +1157,24 @@ def main() -> None:
 
     from distributed_tf_serving_tpu_torch.ops import cuda_build, cross_kernel as ck
 
+    import threading
+
+    from distributed_tf_serving_tpu_torch import native
+
     t0 = time.perf_counter()
+    built_native = {}
+
+    def build_native():
+        built_native["ok"] = native.ensure()
+        built_native["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=build_native)
+    th.start()  # g++ of the host ops beside nvcc of the kernels
     cuda_build.build_all()
-    log(f"build: {time.perf_counter() - t0:.2f} s")
+    th.join(timeout=300)
+    if not built_native.get("ok"):
+        fail("the native host-ops library (native/hostops.cc) did not build with g++")
+    log(f"build: {time.perf_counter() - t0:.2f} s (native host ops {built_native['s']:.2f} s)")
     registers = {src: check_build(src, info) for src, info in cuda_build.build_info.items()}
 
     t0 = time.perf_counter()

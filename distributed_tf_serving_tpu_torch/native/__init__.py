@@ -1,0 +1,188 @@
+"""ctypes bindings for the native host-ops library (hostops.cc), built on
+first use.
+
+The library builds from hostops.cc with `g++ -O3 -shared -fPIC` into
+native/build/ (git-ignored) the first time `ensure()` is called; the
+serving stack calls it while it builds and warms a servable, so no request
+waits on the compiler. Nothing here builds on the serving path: `available()`
+only reports whether the library is loaded.
+
+The batcher packs each bf16 batch with `pack_batch_u24_bf16`, which folds,
+u24-packs, bf16-casts and pads a whole coalesced batch in one pass, straight
+into the caller's (pinned) host buffer. A stack on the card whose servable
+needs it refuses to start when the library cannot be built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import logging
+import os
+import pathlib
+import subprocess
+import threading
+
+import numpy as np
+
+log = logging.getLogger("dts_torch.native")
+
+_DIR = pathlib.Path(__file__).resolve().parent
+_SRC = _DIR / "hostops.cc"
+_SO = _DIR / "build" / "libhostops.so"
+
+_lib: ctypes.CDLL | None = None
+_tried = False
+_lock = threading.Lock()
+
+
+def _build() -> bool:
+    _SO.parent.mkdir(exist_ok=True)
+    # Build to a temp path + atomic rename: a killed or failed compile must
+    # never leave a partial .so that later passes the staleness check, and
+    # processes building at once each rename a whole file.
+    tmp = _SO.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp), str(_SRC)]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
+        return True
+    except (OSError, subprocess.SubprocessError) as e:
+        log.warning("native hostops build failed (%s)", e)
+        tmp.unlink(missing_ok=True)
+        return False
+
+
+def _load() -> ctypes.CDLL | None:
+    global _lib, _tried
+    if _tried:
+        return _lib
+    with _lock:
+        if _tried:
+            return _lib
+        # _tried flips only after the outcome is final, under the lock, so
+        # concurrent first callers cannot race the compile or load a
+        # half-written file.
+        _lib = _load_locked()
+        _tried = True
+        return _lib
+
+
+def _load_locked() -> ctypes.CDLL | None:
+    if not _SO.exists() or _SO.stat().st_mtime < _SRC.stat().st_mtime:
+        if not _build():
+            return None
+    try:
+        lib = ctypes.CDLL(str(_SO))
+    except OSError as e:
+        log.warning("native hostops load failed (%s)", e)
+        # A cached .so that will not load is useless; drop it so the next
+        # process builds afresh instead of failing forever.
+        _SO.unlink(missing_ok=True)
+        return None
+    lib.fold_i32.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.fold_i32.restype = None
+    lib.pack_batch_u24_bf16.restype = None
+    lib.pack_batch_u24_bf16.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    return lib
+
+
+def available() -> bool:
+    """True once the library is loaded. Never builds."""
+    return _lib is not None
+
+
+def ensure() -> bool:
+    """Build (seconds of g++, once per checkout) and load the library if
+    needed; True when it is loaded. For stack build and tests, never for
+    the serving path."""
+    return _load() is not None
+
+
+def _ptr(arr: np.ndarray) -> ctypes.c_void_p:
+    return ctypes.c_void_p(arr.ctypes.data)
+
+
+def fold_i32(ids: np.ndarray, vocab: int) -> np.ndarray:
+    """int64 ids -> int32 ids mod vocab (one pass)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native hostops library unavailable")
+    ids = np.ascontiguousarray(ids, dtype=np.int64)
+    out = np.empty(ids.shape, np.int32)
+    lib.fold_i32(_ptr(ids), ids.size, vocab, _ptr(out))
+    return out
+
+
+def fold_ids(ids: np.ndarray, vocab: int) -> np.ndarray:
+    """The exact host fold (int64 -> int32 mod vocab): the native one-pass
+    kernel when the library is loaded, numpy remainder + astype otherwise;
+    bit-identical either way."""
+    if ids.dtype == np.int64 and available():
+        return fold_i32(ids, vocab)
+    return np.remainder(ids, np.int64(vocab)).astype(np.int32)
+
+
+def pack_batch_u24_bf16(
+    ids_parts: list[np.ndarray],
+    wts_parts: list[np.ndarray],
+    fields: int,
+    bucket: int,
+    vocab: int,
+    out: np.ndarray | None = None,
+) -> np.ndarray:
+    """Fused batch assembly (see hostops.cc): per-request [n_p, F] id and
+    weight arrays -> the padded combined uint8 buffer
+    [bucket*F*3 u24 | bucket*F*2 bf16] in one pass per input, zero padding
+    included. int64 ids are folded mod vocab; int32 ids (pre-folded) pass
+    through. float32 weights are cast to bf16 (round to nearest even);
+    uint16 weights are bf16 bit patterns and are copied. `out`, when given,
+    is the buffer written: a C-contiguous uint8 array of bucket*F*5 bytes
+    (the batcher passes the numpy view of a pinned tensor); every byte of it
+    is overwritten."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native hostops library unavailable")
+    nparts = len(ids_parts)
+    if nparts == 0 or nparts != len(wts_parts):
+        raise ValueError(f"part-count mismatch: {nparts} ids vs {len(wts_parts)} wts")
+    ids_c = [np.ascontiguousarray(a) for a in ids_parts]
+    wts_c = [np.ascontiguousarray(a) for a in wts_parts]
+    # Real raises, not asserts: these are the only guards between a caller's
+    # mistake and an out-of-bounds write in C (asserts vanish under -O).
+    for i, (a, w) in enumerate(zip(ids_c, wts_c)):
+        if a.dtype not in (np.int64, np.int32):
+            raise ValueError(f"ids part {i}: dtype {a.dtype} not int64/int32")
+        if w.dtype not in (np.float32, np.uint16):
+            raise ValueError(f"wts part {i}: dtype {w.dtype} not float32/uint16 (bf16 bits)")
+        if a.ndim != 2 or a.shape[1] != fields or w.shape != a.shape:
+            raise ValueError(
+                f"part {i}: shapes ids {a.shape} / wts {w.shape} do not "
+                f"match [n, {fields}]"
+            )
+    ns = np.fromiter((a.shape[0] for a in ids_c), np.int64, nparts)
+    if int(ns.sum()) > bucket:
+        raise ValueError(f"{int(ns.sum())} rows exceed bucket {bucket}")
+    nbytes = bucket * fields * 5  # 3 (u24) + 2 (bf16)
+    if out is None:
+        out = np.empty(nbytes, np.uint8)
+    elif out.dtype != np.uint8 or out.size != nbytes or not out.flags.c_contiguous:
+        raise ValueError(
+            f"out must be a C-contiguous uint8 array of {nbytes} bytes, got "
+            f"{out.dtype} {out.shape}"
+        )
+    ids_ptrs = (ctypes.c_void_p * nparts)(*(a.ctypes.data for a in ids_c))
+    wts_ptrs = (ctypes.c_void_p * nparts)(*(a.ctypes.data for a in wts_c))
+    ids_is64 = np.fromiter((a.dtype == np.int64 for a in ids_c), np.uint8, nparts)
+    wts_isf32 = np.fromiter((w.dtype == np.float32 for w in wts_c), np.uint8, nparts)
+    lib.pack_batch_u24_bf16(
+        ids_ptrs, _ptr(ids_is64), wts_ptrs, _ptr(wts_isf32),
+        _ptr(ns), nparts, fields, bucket, vocab, _ptr(out),
+    )
+    return out

@@ -1,5 +1,6 @@
-"""Dynamic batching engine (core): queue, coalescing, bucket padding, host
-fold + pack, upload, the device step, readback and per-request slicing.
+"""Dynamic batching engine (core): queue, coalescing, bucket padding, the
+host pack into one pinned buffer, one upload, the device step, an async
+readback and per-request completion.
 
 - **Padded candidate buckets.** Work is padded up to a fixed bucket ladder,
   so the device step sees a handful of shapes, each warmed at load.
@@ -7,40 +8,69 @@ fold + pack, upload, the device step, readback and per-request slicing.
   concatenated along the candidate axis into one device call (up to the
   largest bucket, waiting at most `max_wait_us` after the first), then
   split back per request.
-- **Host-side id folding.** Wire ids are int64; they are folded into the
-  vocab on the host (exact modulo) before transfer, then packed as u24 /
-  bf16 per ops/transfer.py.
+- **One combined buffer, one copy.** A batch's inputs are packed into ONE
+  uint8 host buffer (ops/transfer.py combined layout: u24 ids, bf16 or f32
+  weights, back to back), taken from a ring of pinned buffers, and uploaded
+  with one non-blocking copy; the device unpacks it. For the bf16 layout
+  ({feat_ids: u24, feat_wts: bf16}) the native `pack_batch_u24_bf16`
+  (native/hostops.cc) folds, packs, casts and pads the whole coalesced
+  batch in one pass straight into the pinned buffer; other layouts fold
+  (exact int64 modulo) and pack through `pack_host_combined`. Inputs the
+  combined layout cannot carry (8-byte dtypes) take the per-key path, one
+  copy per input.
 - **The device step.** For dcn_v2 on a CUDA device it is the fused serve
   kernel (ops/cross_kernel.py build_fused_serve), prepared once per
   servable. Other models, and the CPU, run `model.apply`. With the kernel
   plane armed (`kernels`, ops/autotune.py) the per-bucket decision picks
   the step instead: model.apply or the fused kernel, on the float or the
   int8 params, with model.apply on the float params as the baseline.
-
-One batching thread collects, pads, dispatches and completes; readback is
-synchronous (`.cpu()`), so a batch completes before the next is assembled.
+- **The pipeline.** The batching thread collects, coalesces and pads (or,
+  for the native pack, only gathers the parts). One dispatch thread runs
+  pack, upload, device step and readback issue: a non-blocking copy of the
+  outputs into pinned host buffers followed by a CUDA event. Up to
+  `pipeline_depth - 1` assembled groups wait staged between the two
+  threads. A pool of `completion_workers` threads waits for each event,
+  slices the outputs per request and completes the futures, so the
+  dispatch thread goes on to the next batch while a readback is in flight.
+  Upload, step and readback run in order on the dispatch thread's current
+  stream, so the readback needs no cross-stream synchronization.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
 import time
 import weakref
 from collections import deque
-from concurrent.futures import Future, InvalidStateError
+from concurrent.futures import BrokenExecutor, Future, InvalidStateError, ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from .. import native
 from ..models.base import resolve_device
 from ..models.registry import Servable
-from ..ops.transfer import pack_host, to_device, transfer_spec, unpack_device
+from ..ops.transfer import (
+    combined_layout,
+    combined_nbytes,
+    combined_supported,
+    pack_host,
+    pack_host_combined,
+    to_device,
+    transfer_spec,
+    unpack_device,
+    unpack_device_combined,
+)
 
 log = logging.getLogger("dts_torch.batcher")
 
 DEFAULT_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+# Bound on each of stop()'s waits (threads, readbacks in flight).
+_STOP_TIMEOUT_S = 60.0
 
 # DataType -> numpy dtype for synthesizing warmup batches (types.proto).
 _WARMUP_DTYPES = {1: np.float32, 2: np.float64, 3: np.int32, 9: np.int64}
@@ -68,9 +98,10 @@ def bucket_for(n: int, buckets: tuple[int, ...]) -> int:
 
 
 def fold_ids_host(ids: np.ndarray, vocab_size: int) -> np.ndarray:
-    """Exact int64 modulo fold on the host (numpy remainder takes the
-    divisor's sign); models re-fold idempotently."""
-    return np.remainder(ids, np.int64(vocab_size)).astype(np.int32)
+    """Exact int64 modulo fold on the host, into [0, vocab) (the native
+    one-pass fold when the library is loaded, numpy remainder otherwise;
+    bit-identical); models re-fold idempotently."""
+    return native.fold_ids(ids, vocab_size)
 
 
 def _immutably_backed(arr: np.ndarray) -> bool:
@@ -120,6 +151,24 @@ class BatcherStats:
     padded_candidates: int = 0
     fused_batches: int = 0
     deadline_sheds: int = 0
+    # Device stage (live batches and direct _execute calls alike): batches
+    # packed by the native pack_batch_u24_bf16, and host-to-device copies
+    # made (one per batch through the combined buffer, one per input on
+    # the per-key path).
+    native_packs: int = 0
+    h2d_copies: int = 0
+    # Readback overlap: per batch, `window` spans readback issue -> outputs
+    # on the host, `blocked` how long the waiting thread stalled in it.
+    readback_window_s: float = 0.0
+    readback_blocked_s: float = 0.0
+
+    @property
+    def readback_overlap_fraction(self) -> float:
+        """Share of the readback window nobody blocked on: 1.0 means the
+        copy was done before a completion worker came to wait for it."""
+        if self.readback_window_s <= 0:
+            return 0.0
+        return max(0.0, 1.0 - self.readback_blocked_s / self.readback_window_s)
 
 
 @dataclasses.dataclass
@@ -127,10 +176,99 @@ class _Entry:
     fn: object  # (params, batch) -> outputs
     spec: dict[str, str]
     fused: bool
+    native_pack: bool  # bf16 layout packed by native.pack_batch_u24_bf16
+
+
+@dataclasses.dataclass(eq=False)
+class _FusedCtx:
+    """A batch for the native pack: the requests' own arrays, unpadded."""
+
+    layout: tuple
+    vocab: int
+    fields: int
+    ids_parts: list
+    wts_parts: list
+
+
+@dataclasses.dataclass(eq=False)
+class _Staged:
+    """An assembled group waiting for the dispatch thread."""
+
+    group: list
+    total: int
+    bucket: int
+    src: object  # _FusedCtx or padded arrays
+    keys: tuple[str, ...] | None
+    collected_t: float
+
+
+@dataclasses.dataclass(eq=False)
+class _Readback:
+    """One batch between readback issue and its host outputs."""
+
+    out: dict  # key -> (ring buffer, host view of it)
+    event: object  # torch.cuda.Event after the copies; None on the CPU
+    issue_t: float
+    stage_t: float = 0.0
+    ready_t: float = 0.0
+
+
+class _HostBufferRing:
+    """Reusable host buffers of the device stage, by size: pinned on the
+    card (so one non-blocking copy moves a batch), ordinary memory on the
+    CPU. Allocating pinned memory costs far more than copying a batch, so
+    the ring is what makes the single copy pay.
+
+    A buffer goes back with the CUDA event recorded after the copy that
+    reads or writes it, and `acquire` waits on that event before handing
+    it out again, so a buffer is never rewritten while a copy may still
+    read it. At most `per_size` free buffers are kept per size; an acquire
+    beyond them allocates, and the surplus is dropped on release."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.per_size = 4
+        self._free: dict[int, deque] = {}
+        self._lock = threading.Lock()
+        self.reuses = 0
+        self.allocs = 0
+        self.waits = 0  # acquires that waited for a copy still in flight
+
+    def acquire(self, nbytes: int) -> torch.Tensor:
+        with self._lock:
+            free = self._free.get(nbytes)
+            entry = free.popleft() if free else None
+            if entry is None:
+                self.allocs += 1
+            else:
+                self.reuses += 1
+        if entry is None:
+            return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.pinned)
+        buf, event = entry
+        if event is not None and not event.query():
+            with self._lock:
+                self.waits += 1
+            event.synchronize()
+        return buf
+
+    def release(self, bufs, event=None) -> None:
+        with self._lock:
+            for b in bufs:
+                free = self._free.setdefault(b.numel(), deque())
+                if len(free) < self.per_size:
+                    free.append((b, event))
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"reuses": self.reuses, "allocs": self.allocs, "waits": self.waits,
+                    "free_buffers": sum(len(v) for v in self._free.values())}
 
 
 class DynamicBatcher:
-    """Queue + batching thread + per-servable device step."""
+    """Queue + batching thread + dispatch thread + completion workers, and
+    the per-servable device step."""
+
+    _FUSED_SPEC = {"feat_ids": "u24", "feat_wts": "bf16"}
 
     def __init__(
         self,
@@ -139,11 +277,18 @@ class DynamicBatcher:
         device: str | torch.device | None = None,
         queue_capacity_candidates: int | None = None,
         fused_kernel: bool = True,
+        completion_workers: int = 4,
+        pipeline_depth: int = 2,
     ):
         """fused_kernel=False serves dcn_v2 through model.apply (the
         configuration where `use_pallas_cross` routes only the cross stack
-        through its kernel) instead of the fused serve kernel."""
+        through its kernel) instead of the fused serve kernel.
+        pipeline_depth: assembled groups staged for the device stage,
+        counting the one it runs (1 = assembly and device stage in turn)."""
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # An indexed device, for the worker threads' set_device.
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.buckets = tuple(sorted(buckets))
         self.max_wait_s = max_wait_us / 1e6
         # Coalescing past the largest bucket would build a batch no bucket
@@ -156,16 +301,35 @@ class DynamicBatcher:
             self.buckets[-1],
         )
         self.fused_kernel = fused_kernel
+        self.completion_workers = max(int(completion_workers), 1)
+        # Read at every hand-off, so it may be changed while serving.
+        self.pipeline_depth = max(int(pipeline_depth), 1)
         # The kernel plane (ops/autotune.py KernelManager), or None when off:
         # one attribute read per dispatch.
         self.kernels = None
         self.stats = BatcherStats()
+        # A list to record one (enqueue, collected, stage start, readback
+        # issued, readback done, completed) tuple of perf_counter times per
+        # request, or None (off: one attribute read per batch).
+        self.timeline: list | None = None
+        self.ring = _HostBufferRing(pinned=self.device.type == "cuda")
         self._items: deque[_WorkItem] = deque()
         self._queued_candidates = 0
         self._cv = threading.Condition()
+        self._stats_lock = threading.Lock()
         self._entries: weakref.WeakKeyDictionary[Servable, _Entry] = weakref.WeakKeyDictionary()
         self._entry_lock = threading.Lock()
+        self._staged: deque[_Staged] = deque()
+        self._dispatch_pending = 0  # staged + running device stages
+        self._inflight = 0  # readbacks handed to the completion workers
+        self._collect_done = False
         self._thread = threading.Thread(target=self._loop, name="batcher", daemon=True)
+        self._dispatch_thread = threading.Thread(
+            target=self._dispatch_loop, name="batch-dispatch", daemon=True)
+        self._completers = ThreadPoolExecutor(
+            max_workers=self.completion_workers, thread_name_prefix="batch-complete",
+            initializer=self._bind_device,
+        )
         self._started = False
         self._stopping = False
 
@@ -175,16 +339,26 @@ class DynamicBatcher:
         if not self._started:
             self._started = True
             self._thread.start()
+            self._dispatch_thread.start()
         return self
 
     def stop(self) -> None:
-        """Serve every accepted item, then end the batching thread."""
-        if self._started:
-            with self._cv:
-                self._stopping = True
-                self._cv.notify_all()
-            self._thread.join(timeout=30)
-            self._started = False
+        """Serve every accepted item, then end the batching and dispatch
+        threads and the completion workers (each wait bounded by
+        _STOP_TIMEOUT_S)."""
+        if not self._started:
+            return
+        with self._cv:
+            self._stopping = True
+            self._cv.notify_all()
+        self._thread.join(timeout=_STOP_TIMEOUT_S)
+        self._dispatch_thread.join(timeout=_STOP_TIMEOUT_S)
+        end = time.perf_counter() + _STOP_TIMEOUT_S
+        with self._cv:
+            while self._inflight and time.perf_counter() < end:
+                self._cv.wait(end - time.perf_counter())
+        self._completers.shutdown(wait=False)
+        self._started = False
 
     def submit(
         self,
@@ -240,9 +414,10 @@ class DynamicBatcher:
         return out
 
     def warmup(self, servable: Servable, buckets: tuple[int, ...] | None = None) -> None:
-        """Run every bucket of the ladder through the device step once, at
-        load (the first call builds the kernels). Executes directly — only
-        safe before the batcher serves traffic."""
+        """Run every bucket of the ladder through the device stage once, at
+        load (the first call builds the kernels and the native host ops, and
+        fills the buffer ring). Executes directly — only safe before the
+        batcher serves traffic."""
         for b in buckets or self.buckets:
             self._execute(servable, self.warmup_arrays(servable, b), None)
         if self.device.type == "cuda":
@@ -259,6 +434,12 @@ class DynamicBatcher:
         return entry
 
     # ------------------------------------------------------------ internals
+
+    def _bind_device(self) -> None:
+        """Make the card the current device of a worker thread: the kernel
+        wrappers launch on the current stream of their thread."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
 
     def _build_entry(self, servable: Servable) -> _Entry:
         from ..ops.cross_kernel import build_fused_serve, serve_fits_smem, serve_params_supported
@@ -278,8 +459,21 @@ class DynamicBatcher:
                 "serving through model.apply", servable.name, servable.version,
             )
             fused = False
+        # The native host ops build here, at load, never on the dispatch
+        # thread. On the card a servable that folds ids on the host needs
+        # them; on the CPU (an explicit choice) a missing compiler leaves
+        # the numpy fold and pack_host_combined, which are bit-identical.
+        native_pack = spec == self._FUSED_SPEC and model.folds_ids_on_host
+        if model.folds_ids_on_host and not native.ensure():
+            if self.device.type == "cuda":
+                raise RuntimeError(
+                    "the native host-ops library (native/hostops.cc) could not be built "
+                    "with g++; the serving path on the card packs through it")
+            log.warning("native host ops unavailable; packing %s v%d with numpy",
+                        servable.name, servable.version)
+            native_pack = False
         fn = build_fused_serve(servable.params, cfg) if fused else model.apply
-        return _Entry(fn=fn, spec=spec, fused=fused)
+        return _Entry(fn=fn, spec=spec, fused=fused, native_pack=native_pack)
 
     def _kernel_variant(self, kern, servable: Servable, entry: _Entry, rows: int,
                         override=None) -> tuple[bool, bool]:
@@ -293,15 +487,80 @@ class DynamicBatcher:
         dec = override if override is not None else kern.decision(servable, rows)
         return dec or (False, False)
 
-    def _execute(self, servable: Servable, arrays: dict[str, np.ndarray],
-                 output_keys: tuple[str, ...] | None,
-                 _kernel_override: tuple[bool, bool] | None = None) -> dict[str, np.ndarray]:
-        """Device stage for one padded batch: fold, pack, upload, device
-        step, readback."""
+    def _fused_ctx(self, servable: Servable, parts: list[dict[str, np.ndarray]]) -> _FusedCtx | None:
+        """The batch as parts for the native pack, or None when it is not
+        eligible (then the padded arrays go through pack_host_combined).
+        Eligible: a servable with the {feat_ids: u24, feat_wts: bf16} layout
+        and parts of [n, F] int64/int32 ids and float32 weights. The port's
+        codec widens a compact bf16 wire to float32 (codec.py); the native
+        cast back to bf16 is exact, so such weights reach the device with
+        the bits they were sent with."""
         entry = self.step_for(servable)
+        if not entry.native_pack:
+            return None
+        first = parts[0]
+        if set(first) != {"feat_ids", "feat_wts"} or first["feat_ids"].ndim != 2:
+            return None
+        fields = first["feat_ids"].shape[1]
+        for p in parts:
+            ids, wts = p["feat_ids"], p["feat_wts"]
+            if (ids.ndim != 2 or ids.shape[1] != fields or wts.shape != ids.shape
+                    or ids.dtype not in (np.int64, np.int32) or wts.dtype != np.float32):
+                return None
+        return _FusedCtx(
+            layout=combined_layout(first, entry.spec),
+            vocab=servable.model.config.vocab_size,
+            fields=fields,
+            ids_parts=[p["feat_ids"] for p in parts],
+            wts_parts=[p["feat_wts"] for p in parts],
+        )
+
+    def _folded(self, servable: Servable, arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+        ids = arrays.get("feat_ids")
+        model = servable.model
+        if ids is not None and ids.dtype == np.int64 and model.folds_ids_on_host:
+            arrays = dict(arrays)
+            arrays["feat_ids"] = fold_ids_host(ids, model.config.vocab_size)
+        return arrays
+
+    def _pack(self, entry: _Entry, src, rows: int) -> tuple[torch.Tensor, tuple]:
+        """Pack one batch (a _FusedCtx or folded padded arrays) into a ring
+        buffer: (host uint8 tensor, layout)."""
+        if isinstance(src, _FusedCtx):
+            buf = self.ring.acquire(combined_nbytes(src.layout, rows))
+            native.pack_batch_u24_bf16(src.ids_parts, src.wts_parts, src.fields, rows,
+                                       src.vocab, out=buf.numpy())
+            with self._stats_lock:
+                self.stats.native_packs += 1
+            return buf, src.layout
+        layout = combined_layout(src, entry.spec)
+        buf = self.ring.acquire(combined_nbytes(layout, rows))
+        pack_host_combined(src, entry.spec, out=buf.numpy())
+        return buf, layout
+
+    def _upload(self, buf: torch.Tensor) -> tuple[torch.Tensor, object]:
+        """One non-blocking copy of the packed buffer (pinned on the card):
+        (the device buffer, the event after the copy or None)."""
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            buf = buf.to(self.device, non_blocking=True)
+            event.record(torch.cuda.current_stream(self.device))
+        with self._stats_lock:
+            self.stats.h2d_copies += 1
+        return buf, event
+
+    def _upload_per_key(self, entry: _Entry, arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        """The per-key path: pack each (folded) input, one pageable copy each."""
+        packed = pack_host(arrays, entry.spec) if entry.spec else arrays
+        with self._stats_lock:
+            self.stats.h2d_copies += len(packed)
+        return unpack_device(to_device(packed, self.device), entry.spec)
+
+    def _step(self, servable: Servable, entry: _Entry, rows: int, override):
+        """(step, params, fused) for one batch of `rows`."""
         kern = self.kernels
-        rows = next(iter(arrays.values())).shape[0]
-        quantized, fused = self._kernel_variant(kern, servable, entry, rows, _kernel_override)
+        quantized, fused = self._kernel_variant(kern, servable, entry, rows, override)
         params = kern.params_for(servable, True) if quantized else servable.params
         if not fused:
             step = servable.model.apply
@@ -309,21 +568,86 @@ class DynamicBatcher:
             step = entry.fn  # the one float fused step of this servable
         else:
             step = kern.pallas_apply_for(servable, quantized)
-        model = servable.model
-        ids = arrays.get("feat_ids")
-        if ids is not None and ids.dtype == np.int64 and model.folds_ids_on_host:
-            arrays = dict(arrays)
-            arrays["feat_ids"] = fold_ids_host(ids, model.config.vocab_size)
-        packed = pack_host(arrays, entry.spec) if entry.spec else arrays
-        batch = unpack_device(to_device(packed, self.device), entry.spec)
-        with torch.inference_mode():
-            out = step(params, batch)
-            if output_keys is not None:
-                out = {k: v for k, v in out.items() if k in output_keys} or out
-            host = {k: v.cpu().numpy() for k, v in out.items()}
+        return step, params, fused
+
+    def _issue_readback(self, out: dict[str, torch.Tensor]) -> _Readback:
+        """Start copying the outputs into ring buffers on the host: a
+        non-blocking copy per output and a CUDA event after them (the copy
+        is done when the event is). On the CPU the copy is done on return."""
+        host = {}
+        for k, v in out.items():
+            buf = self.ring.acquire(v.numel() * v.element_size())
+            view = buf.view(v.dtype).view(v.shape)
+            view.copy_(v, non_blocking=self.device.type == "cuda")
+            host[k] = (buf, view)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return _Readback(out=host, event=event, issue_t=time.perf_counter())
+
+    def _issue(self, servable: Servable, src, rows: int, output_keys: tuple[str, ...] | None,
+               override=None, per_key: bool = False) -> _Readback:
+        """The device stage of one padded batch, up to the readback issue:
+        pack into a ring buffer, one upload, the device step, the readback
+        copies. `src` is a _FusedCtx or the padded arrays; per_key (or
+        inputs the combined layout cannot carry) uploads one copy per
+        input instead."""
+        entry = self.step_for(servable)
+        step, params, fused = self._step(servable, entry, rows, override)
+        held, event = None, None
+        if not isinstance(src, _FusedCtx):
+            src = self._folded(servable, src)
+        if per_key or not (isinstance(src, _FusedCtx) or combined_supported(src)):
+            batch = self._upload_per_key(entry, src)
+        else:
+            held, layout = self._pack(entry, src, rows)
+        try:
+            if held is not None:
+                dbuf, event = self._upload(held)
+                batch = unpack_device_combined(dbuf, layout)
+            with torch.inference_mode():
+                out = step(params, batch)
+                if output_keys is not None:
+                    out = {k: v for k, v in out.items() if k in output_keys} or out
+                rb = self._issue_readback(out)
+        finally:
+            if held is not None:
+                # Reusable once the copy that reads it is done (on the CPU
+                # the step has already read it).
+                self.ring.release([held], event)
         if fused:
-            self.stats.fused_batches += 1
+            with self._stats_lock:
+                self.stats.fused_batches += 1
+        return rb
+
+    def _wait(self, rb: _Readback) -> dict[str, np.ndarray]:
+        """Wait for a batch's readback; its outputs as owned host arrays."""
+        t0 = time.perf_counter()
+        try:
+            if rb.event is not None:
+                rb.event.synchronize()
+            rb.ready_t = time.perf_counter()
+            host = {k: view.numpy().copy() for k, (_, view) in rb.out.items()}
+        finally:
+            self.ring.release([buf for buf, _ in rb.out.values()])
+        with self._stats_lock:
+            self.stats.readback_window_s += max(rb.ready_t - rb.issue_t, 0.0)
+            self.stats.readback_blocked_s += rb.ready_t - t0
         return host
+
+    def _execute(self, servable: Servable, arrays: dict[str, np.ndarray],
+                 output_keys: tuple[str, ...] | None,
+                 _kernel_override: tuple[bool, bool] | None = None,
+                 _per_key: bool = False) -> dict[str, np.ndarray]:
+        """The device stage of one padded batch, synchronously, on the
+        caller's thread: the same pack, upload, step and readback as live
+        traffic (warmup and the autotune time and check this path).
+        _per_key takes the per-key upload instead of the combined buffer."""
+        rows = next(iter(arrays.values())).shape[0]
+        src = arrays if _per_key else (self._fused_ctx(servable, [arrays]) or arrays)
+        return self._wait(self._issue(servable, src, rows, output_keys, _kernel_override,
+                                      per_key=_per_key))
 
     def _drop_stale_locked(self, it: _WorkItem) -> bool:
         """Cancelled waiter or expired deadline: skip the item. Caller
@@ -386,58 +710,153 @@ class DynamicBatcher:
                 return None
 
     def _loop(self) -> None:
-        while True:
-            item = self._take()
-            if item is None:
-                return
-            group = [item]
-            total = item.n
-            deadline = item.enqueue_t + self.max_wait_s
-            while total < self.max_batch_candidates:
-                nxt = self._coalesce_next(item, total, deadline)
-                if nxt is None:
-                    break
-                group.append(nxt)
-                total += nxt.n
-            self._dispatch(group, total)
+        """The batching thread: collect, coalesce, assemble, stage."""
+        try:
+            while True:
+                item = self._take()
+                if item is None:
+                    return
+                group = [item]
+                total = item.n
+                deadline = item.enqueue_t + self.max_wait_s
+                while total < self.max_batch_candidates:
+                    nxt = self._coalesce_next(item, total, deadline)
+                    if nxt is None:
+                        break
+                    group.append(nxt)
+                    total += nxt.n
+                staged = self._assemble(group, total)
+                if staged is not None:
+                    self._stage(staged)
+        finally:
+            with self._cv:
+                self._collect_done = True
+                self._cv.notify_all()
 
-    def _dispatch(self, group: list[_WorkItem], total: int) -> None:
-        """Pad the group to its bucket, run it, and complete every member.
-        A failure fails the whole group's futures, never the thread."""
+    def _assemble(self, group: list[_WorkItem], total: int) -> _Staged | None:
+        """Pad the group to its bucket (or gather its parts for the native
+        pack). A failure fails the group's futures and returns None."""
         try:
             bucket = bucket_for(total, self.buckets)
-            arrays = {}
-            for key in group[0].arrays:
-                # concatenate promotes mixed dtypes (int32 compact ids next
-                # to raw int64 ids) instead of truncating into the first's.
-                parts = [it.arrays[key] for it in group]
-                first = parts[0]
-                parts.append(np.zeros((bucket - total,) + first.shape[1:], first.dtype))
-                arrays[key] = np.concatenate(parts)
+            servable = group[0].servable
+            src = self._fused_ctx(servable, [it.arrays for it in group])
+            if src is None:
+                src = {}
+                for key in group[0].arrays:
+                    # concatenate promotes mixed dtypes (int32 compact ids
+                    # next to raw int64 ids) instead of truncating into the
+                    # first's.
+                    parts = [it.arrays[key] for it in group]
+                    first = parts[0]
+                    parts.append(np.zeros((bucket - total,) + first.shape[1:], first.dtype))
+                    src[key] = np.concatenate(parts)
             keys = None
             if all(it.output_keys is not None for it in group):
                 keys = tuple(dict.fromkeys(k for it in group for k in it.output_keys))
-            host = self._execute(group[0].servable, arrays, keys)
-        except BaseException as exc:  # noqa: BLE001 — delivered to the waiters
-            log.exception("batch of %d candidates failed", total)
-            for it in group:
-                if not it.future.done():
-                    it.future.set_exception(exc)
-            return
-        self.stats.batches += 1
-        self.stats.requests += len(group)
-        self.stats.candidates += total
-        self.stats.padded_candidates += bucket
-        self._complete(group, host)
+        except Exception as exc:  # noqa: BLE001 — delivered to the waiters
+            self._fail(group, total, exc)
+            return None
+        return _Staged(group=group, total=total, bucket=bucket, src=src, keys=keys,
+                       collected_t=time.perf_counter())
 
-    @staticmethod
-    def _complete(group: list[_WorkItem], host: dict[str, np.ndarray]) -> None:
-        off = 0
+    def _stage(self, staged: _Staged) -> None:
+        """Hand a group to the dispatch thread; then wait while
+        pipeline_depth groups are staged or running, so the batching thread
+        runs at most pipeline_depth - 1 groups ahead of the device stage."""
+        with self._cv:
+            self._staged.append(staged)
+            self._dispatch_pending += 1
+            self._cv.notify_all()
+            while self._dispatch_pending >= self.pipeline_depth and self._dispatch_thread.is_alive():
+                self._cv.wait(0.05)
+
+    def _dispatch_loop(self) -> None:
+        """The dispatch thread: run each staged group's device stage."""
+        on_card = self.device.type == "cuda"
+        with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
+            while True:
+                with self._cv:
+                    while not self._staged:
+                        if self._collect_done:
+                            return
+                        self._cv.wait()
+                    staged = self._staged.popleft()
+                try:
+                    self._run_stage(staged)
+                finally:
+                    with self._cv:
+                        self._dispatch_pending -= 1
+                        self._cv.notify_all()
+
+    def _fail(self, group: list[_WorkItem], total: int, exc: BaseException) -> None:
+        log.error("batch of %d candidates failed", total, exc_info=exc)
         for it in group:
+            if not it.future.done():
+                try:
+                    it.future.set_exception(exc)
+                except InvalidStateError:
+                    pass
+
+    def _run_stage(self, st: _Staged) -> None:
+        """Device stage up to the readback issue, then hand the batch to a
+        completion worker. A failure fails the group's futures, never the
+        thread."""
+        stage_t = time.perf_counter()
+        try:
+            rb = self._issue(st.group[0].servable, st.src, st.bucket, st.keys)
+            rb.stage_t = stage_t
+        except Exception as exc:  # noqa: BLE001 — delivered to the waiters
+            self._fail(st.group, st.total, exc)
+            return
+        with self._stats_lock:
+            self.stats.batches += 1
+            self.stats.requests += len(st.group)
+            self.stats.candidates += st.total
+            self.stats.padded_candidates += st.bucket
+        with self._cv:
+            self._inflight += 1
+        try:
+            fut = self._completers.submit(self._finish, st, rb)
+        except RuntimeError as exc:  # the pool is shut down or broken
+            self._abandon(st, exc)
+            return
+        fut.add_done_callback(lambda f, st=st: self._guard_completer(f, st))
+
+    def _guard_completer(self, fut, st: _Staged) -> None:
+        """A completion worker that never ran _finish (its thread failed to
+        start) would leave the group's waiters hanging: fail them."""
+        exc = fut.exception()
+        if isinstance(exc, BrokenExecutor):
+            self._abandon(st, exc)
+
+    def _abandon(self, st: _Staged, exc: BaseException) -> None:
+        with self._cv:
+            self._inflight -= 1
+            self._cv.notify_all()
+        self._fail(st.group, st.total, exc)
+
+    def _finish(self, st: _Staged, rb: _Readback) -> None:
+        """Completion worker: wait for the readback, complete every member."""
+        try:
+            self._complete(st, rb, self._wait(rb))
+        except Exception as exc:  # noqa: BLE001 — delivered to the waiters
+            self._fail(st.group, st.total, exc)
+        finally:
+            with self._cv:
+                self._inflight -= 1
+                self._cv.notify_all()
+
+    def _complete(self, st: _Staged, rb: _Readback, host: dict[str, np.ndarray]) -> None:
+        timeline = self.timeline
+        off = 0
+        for it in st.group:
             sl = slice(off, off + it.n)
             off += it.n
             keys = it.output_keys or tuple(host)
             result = {k: host[k][sl] for k in keys if k in host}
+            if timeline is not None:
+                timeline.append((it.enqueue_t, st.collected_t, rb.stage_t, rb.issue_t,
+                                 rb.ready_t, time.perf_counter()))
             try:
                 it.future.set_result(result)
             except InvalidStateError:

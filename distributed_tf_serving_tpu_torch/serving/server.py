@@ -180,7 +180,8 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     batcher = DynamicBatcher(
         buckets=cfg.buckets, max_wait_us=cfg.max_wait_us, device=device,
         queue_capacity_candidates=cfg.queue_capacity_candidates,
-        fused_kernel=fused_kernel,
+        fused_kernel=fused_kernel, completion_workers=cfg.completion_workers,
+        pipeline_depth=cfg.pipeline_depth,
     )
     kernels = kernels_config.build() if kernels_config is not None else None
     batcher.kernels = kernels
@@ -212,7 +213,8 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
 
 def serve(argv=None) -> None:
     p = argparse.ArgumentParser(description="PyTorch TF-Serving-compatible CTR server")
-    p.add_argument("--config", help="TOML file with [server] and [model] sections")
+    p.add_argument("--config", help="TOML file with [server], [batching], [model] and "
+                   "[kernels] sections")
     p.add_argument("--port", type=int, default=None)
     p.add_argument("--host", default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")

@@ -1,4 +1,5 @@
-"""TOML config: the [server], [model] and [kernels] sections the port reads.
+"""TOML config: the [server], [batching], [model] and [kernels] sections the
+port reads.
 
 Other sections of the JAX package's config files (planes this package has
 not ported yet) are ignored with one log line, as are [server] keys that
@@ -30,7 +31,36 @@ class ServerConfig:
     num_fields: int = 43
     buckets: tuple[int, ...] = (32, 64, 128, 256, 512, 1024, 2048, 4096)
     max_wait_us: int = 200
+    # Threads that wait for a batch's readback, slice it per request and
+    # complete the futures.
+    completion_workers: int = 4
+    # How many assembled batches may be staged for the device stage,
+    # counting the one it runs (min 1: assembly and device stage in
+    # turn). The [batching] section's pipeline_depth, when nonzero, wins.
+    pipeline_depth: int = 2
     queue_capacity_candidates: int | None = None
+
+    def __post_init__(self):
+        for name in ("completion_workers", "pipeline_depth"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+                raise ValueError(f"[server] {name} must be a positive integer, got {v!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchingConfig:
+    """The [batching] section: the dispatch pipeline's depth. The JAX
+    package's other [batching] keys (inflight_window, buffer_ring,
+    stream_chunk_candidates) are not ported yet and are ignored with one
+    log line."""
+
+    # 0 = inherit [server] pipeline_depth; >= 1 otherwise.
+    pipeline_depth: int = 0
+
+    def __post_init__(self):
+        v = self.pipeline_depth
+        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            raise ValueError(f"[batching] pipeline_depth must be a non-negative integer, got {v!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,14 +147,19 @@ def _coerce(cls, data: dict[str, Any], section: str, strict: bool):
 def load_config(path) -> dict[str, Any]:
     """Parse a TOML file: {"server": ServerConfig, "model": ModelConfig,
     "kernels": KernelsConfig} ("model" and "kernels" only when the file has
-    that section)."""
+    that section). A nonzero [batching] pipeline_depth replaces the
+    [server] one, as in the JAX package's server."""
     raw = tomllib.loads(pathlib.Path(path).read_text())
-    out: dict[str, Any] = {"server": _coerce(ServerConfig, raw.get("server", {}), "server", False)}
+    server = _coerce(ServerConfig, raw.get("server", {}), "server", False)
+    batching = _coerce(BatchingConfig, raw.get("batching", {}), "batching", False)
+    if batching.pipeline_depth:
+        server = dataclasses.replace(server, pipeline_depth=batching.pipeline_depth)
+    out: dict[str, Any] = {"server": server}
     if "model" in raw:
         out["model"] = _coerce(ModelConfig, raw["model"], "model", True)
     if "kernels" in raw:
         out["kernels"] = _coerce(KernelsConfig, raw["kernels"], "kernels", True)
-    extra = sorted(set(raw) - {"server", "model", "kernels"})
+    extra = sorted(set(raw) - {"server", "batching", "model", "kernels"})
     if extra:
         log.info("ignoring config sections this package does not use: %s", extra)
     return out

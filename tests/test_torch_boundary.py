@@ -53,6 +53,7 @@ import distributed_tf_serving_tpu_torch.convert  # noqa: F401
 import distributed_tf_serving_tpu_torch.ops.autotune  # noqa: F401
 import distributed_tf_serving_tpu_torch.ops.quantize  # noqa: F401
 import distributed_tf_serving_tpu_torch.train.data  # noqa: F401
+import distributed_tf_serving_tpu_torch.native  # noqa: F401
 reg = ServableRegistry()
 cfg = ModelConfig(num_fields=6, vocab_size=1024, embed_dim=4, mlp_dims=(8,),
                   num_cross_layers=2, use_pallas_cross=True)
@@ -164,6 +165,14 @@ def test_chip_smoke_refuses_without_card_and_outside_the_repo(tmp_path):
     res = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+def test_native_module_is_the_ports_own_and_builds_into_an_ignored_dir():
+    import distributed_tf_serving_tpu_torch.native as native
+
+    assert native._SRC.exists() and native._SRC.parent == PORT / "native"
+    assert native._SO.parent == PORT / "native" / "build"
+    assert "distributed_tf_serving_tpu_torch/native/build/" in (REPO / ".gitignore").read_text()
 
 
 def test_kernel_modules_import_without_building():

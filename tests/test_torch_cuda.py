@@ -15,6 +15,8 @@ twice the plain f32 version's error from float64; the int8 kernel through the ba
 the quantized model.apply.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -388,8 +390,6 @@ def test_f32_kernels_keep_f32_accuracy_on_unit_normal_inputs(cuda_device, kernel
     version's (cuBLAS in full f32), the rule the CPU emulation is held to.
     The plain version with TF32 matmuls misses that rule, so it tells a
     kernel that lost the split's accuracy from one that kept it."""
-    import dataclasses
-
     cfg, _, params = _setup(cuda_device, "float32", 43, 16, (256, 128, 64))
     g = torch.Generator().manual_seed(n)
     if kernel == "fused_cross_apply":
@@ -477,8 +477,6 @@ def test_batcher_serves_dcn_v2_through_the_fused_kernel(cuda_device, compute_dty
 
 @pytest.mark.cuda
 def test_use_pallas_cross_model_runs_the_cross_kernel(cuda_device):
-    import dataclasses
-
     cfg, model, params = _setup(cuda_device, "bfloat16", 43, 16, (256, 128, 64))
     fused = build_model("dcn_v2", dataclasses.replace(cfg, use_pallas_cross=True))
     ids, wts = _inputs(cfg, 50, cuda_device, seed=5)
@@ -536,3 +534,45 @@ def test_failing_kernel_stops_build_stack_on_card(cuda_device, monkeypatch):
                      num_cross_layers=3)
     with pytest.raises(RuntimeError, match="kernel variant pallas_int8 failed"):
         build_stack(cfg, mc, "cuda", kernels_config=KernelsConfig(enabled=True, table_file=""))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_kernel", [True, False])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_pipelined_pinned_ring_is_bit_identical_to_the_per_key_path(cuda_device, compute_dtype,
+                                                                    fused_kernel):
+    """64 distinct batches back to back through a depth-2 pipeline whose
+    ring keeps two pinned buffers per size: each result must have the bits
+    of the same batch on the per-key synchronous path. A pinned buffer
+    rewritten while its copy is in flight would hand a batch another's
+    inputs. One request fills the one bucket, so no batch coalesces and
+    each is the per-key batch exactly. fused_kernel=False serves through
+    model.apply instead of the fused serve kernel."""
+    cfg, model, params = _setup(cuda_device, compute_dtype, 43, 16, (256, 128, 64))
+    sv = Servable(name="DCN", version=1, model=model, params=params,
+                  signatures=ctr_signatures(cfg.num_fields))
+    n = 256
+    batcher = DynamicBatcher(buckets=(n,), max_wait_us=0, device=cuda_device, pipeline_depth=2,
+                             completion_workers=4, fused_kernel=fused_kernel,
+                             queue_capacity_candidates=64 * n)
+    batcher.ring.per_size = 2
+    batcher.warmup(sv)
+    rng = np.random.RandomState(7)
+    payloads = [{"feat_ids": rng.randint(0, 1 << 40, size=(n, 43)).astype(np.int64),
+                 "feat_wts": rng.rand(n, 43).astype(np.float32)} for _ in range(64)]
+    want = [batcher._execute(sv, p, ("prediction_node",), _per_key=True)["prediction_node"]
+            for p in payloads]
+    before = dataclasses.replace(batcher.stats)
+    batcher.start()
+    try:
+        futs = [batcher.submit(sv, p, output_keys=("prediction_node",)) for p in payloads]
+        got = [f.result(120)["prediction_node"] for f in futs]
+    finally:
+        batcher.stop()
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if not np.array_equal(g, w)]
+    assert not bad, f"batches {bad} differ from the per-key path"
+    s = batcher.stats
+    assert s.batches == 64 and s.h2d_copies - before.h2d_copies == 64
+    assert s.native_packs - before.native_packs == (64 if compute_dtype == "bfloat16" else 0)
+    assert batcher.ring.snapshot()["reuses"] > 0
+    assert s.readback_overlap_fraction > 0
