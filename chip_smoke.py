@@ -88,9 +88,36 @@ Phases (any failure exits non-zero and prints no result line):
              [client] point of configs/latency.toml) at pipeline_depth 1 and
              2: p50, p99, QPS and the card's busy share.
 
+6. lifecycle — the model lifecycle (train/checkpoint.py,
+             serving/version_watcher.py, serving/warmup.py): v1 (seed 0)
+             written with save_servable at the full width of
+             configs/latency.toml into a temporary base path, with an
+             assets.extra/tf_serving_warmup_requests file of Predict records
+             at n = 7, 1000 and 2048; the CLI server started on it with
+             --model-base-path and a 0.25 s poll; 4 client threads of
+             unpinned gRPC Predicts (n = 1000) while v2 (seed 1) and then v3
+             (seed 2) are written, manifest last. No request may fail, every
+             response must be within 5e-3 of the plain forward of the version
+             its model_spec names, GetModelStatus must end at [2, 3], and the
+             server must log 3 replayed records per version. Printed per
+             version: the safetensors read, the H2D copy, the bucket warmup,
+             the replay, manifest -> flip and manifest -> first response;
+             the closed loop's p50/p99 before, across and after each swap;
+             the fused_serve launches of each version's period (from the
+             server's log of its launch counters at each version change and
+             at shutdown). Then a --checkpoint server on v3 must answer
+             within 5e-3 of v3's plain forward, and in this process v1 is
+             loaded and retired through a VersionWatcher on the fused_serve
+             and the cross_stack stacks: torch.cuda.memory_allocated before
+             the load and after the retire (once the batcher's threads let
+             go of its last batch and that thread has freed it, at most
+             10 s; cuBLAS workspaces cleared before both reads), which must
+             match within 1 MiB.
+
 Prints one `{"kernels": [...]}` line (one entry per kernel and compute
 dtype, the f32 ones named `<kernel>_f32`: the rule row at 2048 rows, the
-main path's launches, and every row under "by_shape"), the nvidia-smi
+main path's launches, the lifecycle path's launches
+(`launches_lifecycle`), and every row under "by_shape"), the nvidia-smi
 line, and last `{"ok": true, "device": {...}}`.
 """
 
@@ -197,18 +224,21 @@ def loop_ms(fn, iters: int = 50, runs: int = 3, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
+def device_ms(fn, iters: int = 20, attempts: int = 3, tries: int = 8) -> float:
     """Device time of one call from torch.profiler: the summed device time
     of every kernel the call launched, over the count; the median of
-    `attempts` profiles, since the tracer sometimes drops part of a
-    window. A run in which no profile saw device time fails."""
+    `attempts` profiles that saw device time, out of at most `tries`, since
+    the tracer sometimes drops part of a window or all of it. A run in
+    which no profile saw device time fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(attempts):
+    for _ in range(tries):
+        if len(seen) == attempts:
+            break
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -220,7 +250,7 @@ def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
         if busy_us > 0:
             seen.append(busy_us / iters / 1e3)
     if not seen:
-        fail(f"torch.profiler recorded no device time in {attempts} profiles of {iters} calls")
+        fail(f"torch.profiler recorded no device time in {tries} profiles of {iters} calls")
     return statistics.median(seen)
 
 
@@ -1140,6 +1170,478 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
     return results
 
 
+LIFECYCLE_POLL_S = 0.25  # [server] file_system_poll_wait_seconds of the lifecycle server
+LIFECYCLE_WARMUP_SIZES = (7, 1000, 2048)  # the Predict records of each version's warmup file
+LIFECYCLE_TOL = APPLY_TOL  # every response against the plain forward of its version
+LIFECYCLE_WINDOW = 400  # requests before the first swap, between swaps and after the last
+LIFECYCLE_WAIT_S = 180.0  # bound on each wait of the phase
+RETIRE_SETTLE_S = 10.0  # bound on the wait for a retired version's bytes to be freed
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_cli(args: list[str], log_path: str):
+    """Start the port's CLI server (as tools/torch_closed_loop.py does) on a
+    free port; (process, port, log file) once it answers GetModelMetadata."""
+    import grpc
+
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+
+    port = _free_port()
+    logf = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.serving.server", "--host", "127.0.0.1",
+         "--port", str(port), *args],
+        cwd=HERE, stdout=logf, stderr=subprocess.STDOUT)
+    end = time.perf_counter() + LIFECYCLE_WAIT_S
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            stub = PredictionServiceStub(ch)
+            while True:
+                if proc.poll() is not None:
+                    fail(f"server {args} exited with {proc.returncode} before it answered "
+                         f"(log {log_path})")
+                try:
+                    stub.GetModelMetadata(apis.GetModelMetadataRequest(
+                        model_spec=apis.ModelSpec(name="DCN")), timeout=2)
+                    return proc, port, logf
+                except grpc.RpcError:
+                    if time.perf_counter() > end:
+                        fail(f"server {args} did not answer within {LIFECYCLE_WAIT_S} s")
+                    time.sleep(0.2)
+    except BaseException:
+        _stop_cli(proc, logf)
+        raise
+
+
+def _stop_cli(proc, logf) -> int:
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    logf.close()
+    return proc.returncode
+
+
+def _server_log(path: str) -> dict:
+    """What the lifecycle server logged: per version the load timings and
+    the replayed warmup records, and the kernel launch counters at each
+    version change and at shutdown."""
+    import re
+
+    out = {"loads": {}, "replayed": {}, "changes": [], "shutdown": None}
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"loaded DCN v(\d+) from \S+: (\{.*\})$", line)
+            if m:
+                out["loads"][int(m.group(1))] = json.loads(m.group(2))
+            m = re.search(r"replayed (\d+) warmup records for DCN v(\d+)", line)
+            if m:
+                out["replayed"][int(m.group(2))] = int(m.group(1))
+            m = re.search(r"kernel launches after a DCN version change: (\{.*\})$", line)
+            if m:
+                out["changes"].append(json.loads(m.group(1)))
+            m = re.search(r"kernel launches at shutdown: (\{.*\})$", line)
+            if m:
+                out["shutdown"] = json.loads(m.group(1))
+    return out
+
+
+def _percentiles(lat: list[float]) -> dict:
+    if not lat:
+        return {"requests": 0}
+    lat = sorted(lat)
+    return {"requests": len(lat), "p50_ms": statistics.median(lat),
+            "p99_ms": lat[int(0.99 * (len(lat) - 1))]}
+
+
+def retire_memory(base, buckets, fused: bool, payload) -> dict:
+    """Load version 1 of `base` through a VersionWatcher onto the card, serve
+    one request, retire it: torch.cuda.memory_allocated before the load,
+    while loaded and after the retire, and the cross-weight cache's
+    entries then. The version dies on whichever thread drops its last
+    batch (often a completion worker, `drain_s` after the retire), and
+    that thread frees its tensors and cross-cache entry one by one, so
+    `after_retire` is read once the count is back at `before_load` (or
+    after `RETIRE_SETTLE_S`): `settle_s` after the version died. cuBLAS
+    keeps a workspace per (handle, stream) that belongs to the thread
+    that ran a matmul, not to any version, so both reads are taken with
+    the workspaces cleared."""
+    import gc
+    import weakref
+
+    import torch
+
+    from distributed_tf_serving_tpu_torch.models import ServableRegistry
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.serving.batcher import DynamicBatcher
+    from distributed_tf_serving_tpu_torch.serving.version_watcher import (
+        VersionWatcher,
+        VersionWatcherConfig,
+    )
+
+    def allocated() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        return torch.cuda.memory_allocated()
+
+    batcher = DynamicBatcher(buckets=buckets, max_wait_us=0, device="cuda",
+                             fused_kernel=fused).start()
+    registry = ServableRegistry()
+    w = VersionWatcher(base, registry, VersionWatcherConfig(poll_interval_s=3600),
+                       warmup=batcher.warmup_via_queue, device=batcher.device)
+    try:
+        before = allocated()
+        w.poll_once()
+        if registry.models() != {"DCN": [1]}:
+            fail(f"lifecycle memory: the watcher did not load {base}/1")
+        batcher.submit(registry.resolve("DCN"), payload).result(60)
+        torch.cuda.synchronize()
+        loaded = torch.cuda.memory_allocated()
+        ref = weakref.ref(registry.resolve("DCN"))
+        table = weakref.ref(ref().params["embedding"])
+        w.retire(1)
+        t0 = time.perf_counter()
+        while True:  # a thread may hold the last batch a moment longer
+            gc.collect()
+            if table() is None or time.perf_counter() - t0 > 10:
+                break
+            time.sleep(0.01)
+        t1 = time.perf_counter()
+        drain_s = t1 - t0
+        while True:  # the thread that dropped it may still be freeing the rest
+            after = allocated()
+            if after <= before or time.perf_counter() - t1 > RETIRE_SETTLE_S:
+                break
+            time.sleep(0.005)
+        return {"before_load": before, "loaded": loaded, "after_retire": after,
+                "retained_bytes": after - before, "cross_cache_entries": len(ck.cross_cache),
+                "servable_collected": ref() is None, "table_collected": table() is None,
+                "drain_s": drain_s, "settle_s": time.perf_counter() - t1,
+                "load_timings": w.load_timings.get(1)}
+    finally:
+        batcher.stop()
+
+
+def phase_lifecycle(dev, name: str) -> dict:
+    """The model lifecycle on the card: checkpoints written with the port's
+    save_servable at the full width of configs/latency.toml into a
+    temporary base path, the CLI server watching it (--model-base-path),
+    4 client threads of unpinned Predicts (n = 1000) while v2 and then v3
+    land, every response held to the plain forward of the version it
+    names; then a --checkpoint server on v3, and in-process retire-memory
+    checks."""
+    import re
+    import shutil
+    import tempfile
+    import threading
+
+    import grpc
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch import codec
+    from distributed_tf_serving_tpu_torch.models import Servable, build_model, ctr_signatures
+    from distributed_tf_serving_tpu_torch.proto import ModelServiceStub, PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+    from distributed_tf_serving_tpu_torch.proto.service_grpc import LARGE_MESSAGE_CHANNEL_OPTIONS
+    from distributed_tf_serving_tpu_torch.serving.batcher import fold_ids_host
+    from distributed_tf_serving_tpu_torch.serving.warmup import (
+        WARMUP_DIRNAME,
+        WARMUP_FILENAME,
+        make_warmup_record,
+        write_tfrecords,
+    )
+    from distributed_tf_serving_tpu_torch.train.checkpoint import save_servable
+    from distributed_tf_serving_tpu_torch.utils.config import load_config
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(HERE, "configs", "latency.toml")) as f:
+        text = f.read()
+    text, k = re.subn(r"(?m)^\[server\]\n",
+                      f"[server]\nfile_system_poll_wait_seconds = {LIFECYCLE_POLL_S}\n", text)
+    if k != 1:
+        fail("configs/latency.toml has no [server] section")
+    cfg_path = os.path.join(out_dir, "lifecycle.toml")
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    loaded = load_config(cfg_path)
+    cfg, mc = loaded["server"], loaded["model"]
+    F = mc.num_fields
+    model = build_model("dcn_v2", mc)
+    plain = build_model("dcn_v2", dataclasses.replace(model.config, use_pallas_cross=False))
+    rng = np.random.RandomState(SEED + 2000)
+    loads = [(rng.randint(0, 1 << 40, size=(1000, F)).astype(np.int64),
+              rng.rand(1000, F).astype(np.float32)) for _ in range(4)]
+    records = [make_warmup_record({
+        "feat_ids": rng.randint(0, 1 << 40, size=(n, F)).astype(np.int64),
+        "feat_wts": rng.rand(n, F).astype(np.float32)}, "DCN") for n in LIFECYCLE_WARMUP_SIZES]
+
+    # Each version's params (seed v - 1) and the plain forward of each
+    # client payload on the card, before any clock starts.
+    servables, want = {}, {}
+    for v in (1, 2, 3):
+        params = model.init(v - 1, "cpu")
+        servables[v] = Servable(name="DCN", version=v, model=model, params=params,
+                                signatures=ctr_signatures(F))
+        on_card = {
+            "embedding": params["embedding"].to(dev),
+            "cross": [{k: t.to(dev) for k, t in p.items()} for p in params["cross"]],
+            "mlp": [{k: t.to(dev) for k, t in p.items()} for p in params["mlp"]],
+            "out": {k: t.to(dev) for k, t in params["out"].items()},
+        }
+        with torch.inference_mode():
+            want[v] = [plain.apply(on_card, {
+                "feat_ids": torch.from_numpy(fold_ids_host(ids, mc.vocab_size)).to(dev),
+                "feat_wts": torch.from_numpy(wts).to(dev)})["prediction_node"].float().cpu().numpy()
+                for ids, wts in loads]
+        del on_card
+    torch.cuda.empty_cache()
+
+    base = tempfile.mkdtemp(prefix="dts_lifecycle_")
+    manifest_at = {}  # version -> (perf_counter, time.time()) when its manifest was written
+
+    def write(v: int) -> None:
+        vdir = os.path.join(base, str(v))
+        os.makedirs(os.path.join(vdir, WARMUP_DIRNAME))
+        write_tfrecords(os.path.join(vdir, WARMUP_DIRNAME, WARMUP_FILENAME), records)
+        save_servable(vdir, servables[v], "dcn_v2")  # params, then the manifest last
+        manifest_at[v] = (time.perf_counter(), time.time())
+
+    res = {"card": name, "poll_s": LIFECYCLE_POLL_S}
+    procs = []
+    try:
+        write(1)
+        t_start = time.perf_counter()
+        proc, port, logf = _start_cli(["--config", cfg_path, "--model-base-path", base],
+                                      os.path.join(out_dir, "lifecycle_server.log"))
+        procs.append((proc, logf))
+        res["server_start_s"] = time.perf_counter() - t_start
+
+        lock = threading.Lock()
+        rows: list[tuple[float, float, int]] = []  # (start, end, version)
+        first = {}  # version -> perf_counter of its first response
+        errs: dict[int, float] = {}
+        last: dict[int, list] = {}
+        failures: list = []
+        stop = threading.Event()
+        chans = [grpc.insecure_channel(f"127.0.0.1:{port}", options=LARGE_MESSAGE_CHANNEL_OPTIONS)
+                 for _ in loads]
+
+        def client(i: int) -> None:
+            stub = PredictionServiceStub(chans[i])
+            req = _request(*loads[i])
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    resp = stub.Predict(req, timeout=60)
+                except Exception as e:  # noqa: BLE001 — every failure is counted
+                    failures.append(repr(e))
+                    continue
+                t1 = time.perf_counter()
+                v = resp.model_spec.version.value
+                got = codec.to_ndarray(resp.outputs["prediction_node"])
+                err = (float(np.max(np.abs(got - want[v][i])))
+                       if v in want and got.shape == (1000,) and np.all(np.isfinite(got))
+                       else float("inf"))
+                with lock:
+                    rows.append((t0, t1, v))
+                    first.setdefault(v, t1)
+                    errs[v] = max(errs.get(v, 0.0), err)
+                    last.setdefault(v, [None] * len(loads))[i] = got
+
+        def wait_for(what: str, cond) -> None:
+            end = time.perf_counter() + LIFECYCLE_WAIT_S
+            while True:
+                with lock:
+                    if cond():
+                        return
+                if failures or time.perf_counter() > end:
+                    fail(f"lifecycle: {what} (failures {failures[:3]}, "
+                         f"responses per version {sorted((v, sum(r[2] == v for r in rows)) for v in first)})")
+                time.sleep(0.01)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(loads))]
+        try:
+            for t in threads:
+                t.start()
+            wait_for("no responses before the first swap", lambda: len(rows) >= LIFECYCLE_WINDOW)
+            write(2)
+            wait_for("v2 never answered", lambda: 2 in first)
+            n2 = len(rows)
+            wait_for("traffic stalled after v2", lambda: len(rows) >= n2 + LIFECYCLE_WINDOW)
+            write(3)
+            wait_for("v3 never answered", lambda: 3 in first)
+            n3 = len(rows)
+            wait_for("traffic stalled after v3", lambda: len(rows) >= n3 + LIFECYCLE_WINDOW)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+            for ch in chans:
+                ch.close()
+        if any(t.is_alive() for t in threads):
+            fail("lifecycle: a client thread did not stop")
+        if failures:
+            fail(f"lifecycle: {len(failures)} requests failed across the swaps: {failures[:3]}")
+        for v, e in sorted(errs.items()):
+            if v not in want or not e <= LIFECYCLE_TOL:
+                fail(f"lifecycle: responses naming v{v} are {e} from its plain forward "
+                     f"(> {LIFECYCLE_TOL})")
+
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            status_stub = ModelServiceStub(ch)
+            end = time.perf_counter() + 30
+            while True:
+                st = status_stub.GetModelStatus(apis.GetModelStatusRequest(
+                    model_spec=apis.ModelSpec(name="DCN")), timeout=10)
+                versions = [s.version for s in st.model_version_status]
+                if versions == [2, 3] or time.perf_counter() > end:
+                    break
+                time.sleep(0.1)
+        if versions != [2, 3]:
+            fail(f"lifecycle: GetModelStatus ends at {versions}, want [2, 3] (v1 retired)")
+        rc = _stop_cli(proc, logf)
+        procs.clear()
+        if rc != 0:
+            fail(f"lifecycle: the base-path server exited with {rc}")
+        slog = _server_log(os.path.join(out_dir, "lifecycle_server.log"))
+
+        # Windows of the closed loop, by request start: before the first
+        # manifest, across each swap (manifest written -> first response
+        # from the new version), after it.
+        m2, m3 = manifest_at[2][0], manifest_at[3][0]
+        edges = [("before", -1e18, m2), ("across_v2", m2, first[2]), ("after_v2", first[2], m3),
+                 ("across_v3", m3, first[3]), ("after_v3", first[3], 1e18)]
+        res["closed_loop"] = {
+            label: _percentiles([(e - s) * 1e3 for s, e, _ in rows if lo <= s < hi])
+            for label, lo, hi in edges}
+        res["responses_per_version"] = {v: sum(r[2] == v for r in rows) for v in sorted(first)}
+        res["max_abs_err_per_version"] = errs
+        res["status_versions"] = versions
+        versions_out = {}
+        for v in (1, 2, 3):
+            t = dict(slog["loads"].get(v, {}))
+            if slog["replayed"].get(v) != len(records) or t.get("replay_records") != len(records):
+                fail(f"lifecycle: v{v} replayed {slog['replayed'].get(v)} warmup records, "
+                     f"want {len(records)}")
+            t["manifest_to_flip_s"] = t.get("loaded_at", float("nan")) - manifest_at[v][1]
+            t["manifest_to_first_response_s"] = first[v] - manifest_at[v][0] if v in first else None
+            versions_out[v] = t
+        res["versions"] = versions_out
+        changes, end_counts = slog["changes"], slog["shutdown"]
+        if len(changes) < 4 or end_counts is None:
+            fail(f"lifecycle: the server logged {len(changes)} version changes and "
+                 f"{'no' if end_counts is None else 'its'} shutdown launch counters")
+        key = "fused_serve/bfloat16"
+        # changes: v1 loaded (startup), v2 loaded, v3 loaded, v1 retired.
+        res["launches"] = {
+            "path": {k: end_counts.get(k, 0) - changes[0].get(k, 0) for k in end_counts},
+            "v1_live": changes[1].get(key, 0) - changes[0].get(key, 0),
+            "v2_warmup_and_live": changes[2].get(key, 0) - changes[1].get(key, 0),
+            "v3_after_flip": end_counts.get(key, 0) - changes[2].get(key, 0),
+            "log": {"changes": changes, "shutdown": end_counts},
+        }
+        if res["launches"]["v3_after_flip"] <= 0 or res["launches"]["path"].get(key, 0) <= 0:
+            fail(f"lifecycle: the hot-loaded versions did not launch {key}: {res['launches']}")
+        for v, t in versions_out.items():
+            log(f"lifecycle: v{v} read {t.get('read_s', float('nan')):.4f} s, H2D copy "
+                f"{t.get('copy_s', float('nan')):.4f} s, bucket warmup "
+                f"{t.get('warmup_s', float('nan')):.4f} s, replay of {t.get('replay_records')} "
+                f"records {t.get('replay_s', float('nan')):.4f} s, manifest -> flip "
+                f"{t['manifest_to_flip_s']:.3f} s, manifest -> first response "
+                f"{t['manifest_to_first_response_s']:.3f} s"
+                + (" (includes the server's start)" if v == 1 else "") + f" ({name})")
+        for label, r in res["closed_loop"].items():
+            log(f"lifecycle: closed loop {label}: " + (
+                f"{r['requests']} requests p50={r['p50_ms']:.3f} ms p99={r['p99_ms']:.3f} ms"
+                if r["requests"] else "no requests"))
+        log(f"lifecycle: {sum(res['responses_per_version'].values())} responses "
+            f"{res['responses_per_version']}, 0 failed, max |dscore| vs plain forward "
+            f"{ {v: round(e, 6) for v, e in errs.items()} }, GetModelStatus {versions}; "
+            f"{key} launches: v1 live {res['launches']['v1_live']}, v2 warmup+live "
+            f"{res['launches']['v2_warmup_and_live']}, v3 after its flip "
+            f"{res['launches']['v3_after_flip']}; path {res['launches']['path']}")
+
+        # A --checkpoint server on v3 answers as the base-path server's v3.
+        proc, port, logf = _start_cli(
+            ["--config", cfg_path, "--checkpoint", os.path.join(base, "3")],
+            os.path.join(out_dir, "lifecycle_checkpoint_server.log"))
+        procs.append((proc, logf))
+        ck_err, ck_vs_base = 0.0, 0.0
+        with grpc.insecure_channel(f"127.0.0.1:{port}",
+                                   options=LARGE_MESSAGE_CHANNEL_OPTIONS) as ch:
+            stub = PredictionServiceStub(ch)
+            for i, (ids, wts) in enumerate(loads):
+                resp = stub.Predict(_request(ids, wts), timeout=60)
+                got = codec.to_ndarray(resp.outputs["prediction_node"])
+                if resp.model_spec.version.value != 3 or got.shape != (1000,) or \
+                        not np.all(np.isfinite(got)):
+                    fail(f"--checkpoint server: version {resp.model_spec.version.value}, "
+                         f"shape {got.shape}")
+                ck_err = max(ck_err, float(np.max(np.abs(got - want[3][i]))))
+                if last.get(3, [None] * 4)[i] is not None:
+                    ck_vs_base = max(ck_vs_base, float(np.max(np.abs(got - last[3][i]))))
+        rc = _stop_cli(proc, logf)
+        procs.clear()
+        if rc != 0 or not ck_err <= LIFECYCLE_TOL:
+            fail(f"--checkpoint server: rc {rc}, max |dscore| vs the plain forward of v3 {ck_err}")
+        res["checkpoint_server"] = {"max_abs_err": ck_err, "max_abs_diff_vs_base_path_v3": ck_vs_base}
+        log(f"lifecycle: --checkpoint v3 server max |dscore| vs plain forward {ck_err:.3g}, vs "
+            f"the base-path server's v3 answers {ck_vs_base:.3g}")
+
+        # In process: load and retire v1 through a VersionWatcher, on the
+        # fused_serve stack and on the cross_stack stack (use_pallas_cross,
+        # whose cross weights the cross cache prepares).
+        cross_base = os.path.join(base, "cross")
+        cross_model = build_model("dcn_v2", dataclasses.replace(mc, use_pallas_cross=True))
+        save_servable(os.path.join(cross_base, "1"), dataclasses.replace(
+            servables[1], model=cross_model), "dcn_v2")
+        mem_base = os.path.join(base, "mem")
+        os.makedirs(mem_base)
+        os.symlink(os.path.join(base, "1"), os.path.join(mem_base, "1"))
+        payload = {"feat_ids": loads[0][0], "feat_wts": loads[0][1]}
+        res["memory"] = {
+            "fused_serve": retire_memory(mem_base, cfg.buckets, True, payload),
+            "cross_stack": retire_memory(cross_base, cfg.buckets, False, payload),
+        }
+        for label, m in res["memory"].items():
+            log(f"lifecycle: memory {label}: allocated {m['before_load']} B before the load, "
+                f"{m['loaded']} B loaded, {m['after_retire']} B after the retire "
+                f"(retained {m['retained_bytes']} B; the version died {m['drain_s']:.3f} s "
+                f"after the retire, its bytes were freed {m['settle_s']:.4f} s later; "
+                f"cross cache {m['cross_cache_entries']} entries; read {m['load_timings'].get('read_s', float('nan')):.4f} s, "
+                f"H2D {m['load_timings'].get('copy_s', float('nan')):.4f} s) ({name})")
+            if not m["servable_collected"] or not m["table_collected"]:
+                fail(f"lifecycle: {label}: the retired version is still alive (servable "
+                     f"collected {m['servable_collected']}, table collected "
+                     f"{m['table_collected']}) {m['drain_s']:.1f} s after its retire")
+            if m["retained_bytes"] > (1 << 20):
+                fail(f"lifecycle: {label} kept {m['retained_bytes']} B on the card after "
+                     "its version was retired")
+    finally:
+        for proc, logf in procs:
+            _stop_cli(proc, logf)
+        shutil.rmtree(base, ignore_errors=True)
+    return res
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -1183,10 +1685,13 @@ def main() -> None:
     t0 = time.perf_counter()
     serving = phase_serving(dev, f"{name} ({smi})")
     log(f"serving: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lifecycle = phase_lifecycle(dev, f"{name} ({smi})")
+    log(f"lifecycle: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving}, f,
-                  indent=1)
+        json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
+                   "lifecycle": lifecycle}, f, indent=1, default=str)
 
     replaces = {
         "fused_serve": "distributed_tf_serving_tpu/ops/cross_kernel.py:470",
@@ -1201,7 +1706,9 @@ def main() -> None:
                         if r["dtype"] == cd and r["n"] == 2048 and not r.get("forced"))
             entry = {"name": kname if cd == "bfloat16" else f"{kname}_f32", "route": "cuda",
                      "source": f"{PKG}/csrc/cross_kernel.cu", "replaces": line,
-                     "launches": serving["launches"][f"{kname}/{cd}"], "library_ms": None,
+                     "launches": serving["launches"][f"{kname}/{cd}"],
+                     "launches_lifecycle": lifecycle["launches"]["path"].get(f"{kname}/{cd}", 0),
+                     "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (
                 "max_abs_err", "ms", "plain_ms", "loop_ms", "plain_loop_ms", "device_ms",

@@ -93,7 +93,9 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class Model:
     """A functional model: params = init(seed, device); outputs =
-    apply(params, batch).
+    apply(params, batch); shapes() is init's tree as tensors on the "meta"
+    device (shape and dtype only, nothing computed: the port's
+    `jax.eval_shape(model.init, ...)`).
 
     wts_in_compute_dtype: True when the model consumes feat_wts only after
     casting to compute_dtype — the precondition for the batcher's lossless
@@ -103,6 +105,7 @@ class Model:
     config: ModelConfig
     init: Callable[..., Params]
     apply: Callable[[Params, Batch], dict[str, torch.Tensor]]
+    shapes: Callable[[], Params] | None = None
     wts_in_compute_dtype: bool = True
     folds_ids_on_host: bool = True
     kind: str = ""

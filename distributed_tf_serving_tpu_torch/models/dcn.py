@@ -86,6 +86,25 @@ def _build(config: ModelConfig) -> Model:
             "out": dense_init(rng, out_in, 1, pd, device),
         }
 
+    def shapes():
+        def dense(k, m):
+            return {"w": meta(k, m), "b": meta(m)}
+
+        def meta(*shape):
+            return torch.empty(shape, dtype=config.pdtype, device="meta")
+
+        mlp, k = [], d
+        for m in config.mlp_dims:
+            mlp.append(dense(k, m))
+            k = m
+        w = (d, d) if config.cross_full_matrix else (d,)
+        return {
+            "embedding": meta(config.vocab_size, config.embed_dim),
+            "cross": [{"w": meta(*w), "b": meta(d)} for _ in range(config.num_cross_layers)],
+            "mlp": mlp,
+            "out": dense(d + (config.mlp_dims[-1] if config.mlp_dims else 0), 1),
+        }
+
     def apply(params, batch):
         cd = config.cdtype
         emb = field_embed(params["embedding"], batch["feat_ids"], batch["feat_wts"], cd)
@@ -118,7 +137,7 @@ def _build(config: ModelConfig) -> Model:
         logit = dense_apply(params["out"], h, cd)[:, 0]
         return {"prediction_node": torch.sigmoid(logit), "logits": logit}
 
-    return Model(config=config, init=init, apply=apply)
+    return Model(config=config, init=init, apply=apply, shapes=shapes)
 
 
 @register_model("dcn")

@@ -10,7 +10,8 @@ only reports whether the library is loaded.
 The batcher packs each bf16 batch with `pack_batch_u24_bf16`, which folds,
 u24-packs, bf16-casts and pads a whole coalesced batch in one pass, straight
 into the caller's (pinned) host buffer. A stack on the card whose servable
-needs it refuses to start when the library cannot be built.
+needs it refuses to start when the library cannot be built. The warmup
+replay checks its TFRecord framing with `crc32c`.
 """
 
 from __future__ import annotations
@@ -90,6 +91,8 @@ def _load_locked() -> ctypes.CDLL | None:
         ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ]
+    lib.dts_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint32]
+    lib.dts_crc32c.restype = ctypes.c_uint32
     return lib
 
 
@@ -186,3 +189,12 @@ def pack_batch_u24_bf16(
         _ptr(ns), nparts, fields, bucket, vocab, _ptr(out),
     )
     return out
+
+
+def crc32c(data: bytes, crc: int = 0) -> int:
+    """CRC32C (Castagnoli) of `data`, continuing from `crc`."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native hostops library unavailable")
+    data = bytes(data)
+    return lib.dts_crc32c(data, len(data), crc)

@@ -37,9 +37,52 @@ inline uint16_t bf16_bits(uint32_t u) {
   return static_cast<uint16_t>((u + rounding) >> 16);
 }
 
+// CRC32C (Castagnoli, reflected polynomial 0x82F63B78), slicing by 8:
+// table k advances a byte that sits k bytes ahead of the running CRC.
+struct CrcTables {
+  uint32_t t[8][256];
+  CrcTables() {
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k) c = (c & 1u) ? (c >> 1) ^ 0x82F63B78u : c >> 1;
+      t[0][i] = c;
+    }
+    for (int k = 1; k < 8; ++k) {
+      for (uint32_t i = 0; i < 256; ++i) {
+        t[k][i] = (t[k - 1][i] >> 8) ^ t[0][t[k - 1][i] & 0xffu];
+      }
+    }
+  }
+};
+
+const CrcTables& crc_tables() {
+  static const CrcTables tables;  // built once, thread-safe (C++11)
+  return tables;
+}
+
 }  // namespace
 
 extern "C" {
+
+// CRC32C of n bytes, continuing from `crc` (0 to start): the TFRecord
+// checksum of serving/warmup.py. ctypes releases the GIL for the call.
+uint32_t dts_crc32c(const uint8_t* p, int64_t n, uint32_t crc) {
+  const auto& t = crc_tables().t;
+  crc = ~crc;
+#if defined(__BYTE_ORDER__) && __BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__
+  for (; n >= 8; n -= 8, p += 8) {
+    uint32_t lo, hi;
+    std::memcpy(&lo, p, 4);
+    std::memcpy(&hi, p + 4, 4);
+    lo ^= crc;
+    crc = t[7][lo & 0xffu] ^ t[6][(lo >> 8) & 0xffu] ^ t[5][(lo >> 16) & 0xffu] ^
+          t[4][lo >> 24] ^ t[3][hi & 0xffu] ^ t[2][(hi >> 8) & 0xffu] ^
+          t[1][(hi >> 16) & 0xffu] ^ t[0][hi >> 24];
+  }
+#endif
+  for (; n > 0; --n, ++p) crc = t[0][(crc ^ *p) & 0xffu] ^ (crc >> 8);
+  return ~crc;
+}
 
 // ids[i] -> int32(ids[i] mod vocab) — the uncompressed fold. Power-of-two
 // vocabs (the common config) take the mask path: two's-complement AND equals

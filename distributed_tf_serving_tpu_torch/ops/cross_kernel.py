@@ -46,6 +46,7 @@ import collections
 import ctypes
 import dataclasses
 import threading
+import weakref
 
 import torch
 
@@ -270,23 +271,27 @@ def prepare_cross_weights(w: torch.Tensor, b: torch.Tensor, compute_dtype) -> Cr
 
 class CrossWeightCache:
     """Prepared cross-stack operands per source weight set, at most
-    `maxsize` of them, the least recently used evicted first (so swapped
-    servables do not pile up; an entry keeps its sources alive until then).
+    `maxsize` of them, the least recently used evicted first.
 
-    Never stale: an entry is keyed on its source tensors' ids and holds
-    strong references to them, so no id is reused while it lives, and is
-    taken only while every source has the same `_version` counter, device,
-    dtype and storage address; an in-place update or a swapped tree builds
-    anew. Inference tensors keep no version counter, so sources that are
-    inference tensors are prepared on every call and never stored. Entries
-    are built outside inference mode, so they serve callers in and out of
-    it alike."""
+    Never stale: an entry is keyed on its source tensors' ids and is taken
+    only while its weak references still give the very tensors looked up
+    and every source has the same `_version` counter, device, dtype and
+    storage address; an in-place update or a swapped tree builds anew. An
+    entry never keeps its sources alive, and goes the moment one of them
+    dies (a weak-reference callback): a retired servable's prepared
+    operands leave the card with its params, once its last in-flight batch
+    lets go of them. Inference tensors keep no version counter, so sources
+    that are inference tensors are prepared on every call and never stored.
+    Entries are built outside inference mode, so they serve callers in and
+    out of it alike."""
 
     def __init__(self, maxsize: int = 4):
         self.maxsize = maxsize
         self.builds = 0
         self._entries: collections.OrderedDict = collections.OrderedDict()
-        self._lock = threading.Lock()
+        # Reentrant: a source may die, and its callback run, while this
+        # thread holds the lock (an evicted entry releasing its operands).
+        self._lock = threading.RLock()
 
     @staticmethod
     def _state(sources) -> tuple:
@@ -301,18 +306,29 @@ class CrossWeightCache:
                 key = (compute_dtype, tuple(id(t) for t in sources))
                 state = self._state(sources)
                 hit = self._entries.get(key)
-                if hit is not None and hit[1] == state:
+                if hit is not None and hit[1] == state and all(
+                        r() is t for r, t in zip(hit[0], sources)):
                     self._entries.move_to_end(key)
                     return hit[2]
             with torch.inference_mode(False):
                 cw = build()
             self.builds += 1
             if cacheable:
-                self._entries[key] = (sources, state, cw)
+                refs = tuple(weakref.ref(t, lambda r, key=key: self._drop(key, r))
+                             for t in sources)
+                self._entries[key] = (refs, state, cw)
                 self._entries.move_to_end(key)
                 while len(self._entries) > self.maxsize:
                     self._entries.popitem(last=False)
             return cw
+
+    def _drop(self, key, ref) -> None:
+        """A source of entry `key` died: drop the entry, unless `key` names
+        a newer entry by now."""
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is not None and any(r is ref for r in hit[0]):
+                del self._entries[key]
 
     def clear(self) -> None:
         with self._lock:

@@ -423,6 +423,17 @@ class DynamicBatcher:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def warmup_via_queue(self, servable: Servable,
+                         buckets: tuple[int, ...] | None = None) -> None:
+        """Warm a servable THROUGH the request queue, on the batching and
+        dispatch threads exactly like live traffic, so hot-loading a new
+        version never runs device work beside live batches from another
+        thread."""
+        futures = [self.submit(servable, self.warmup_arrays(servable, b))
+                   for b in buckets or self.buckets]
+        for fut in futures:
+            fut.result(timeout=600)
+
     def step_for(self, servable: Servable) -> _Entry:
         """The device step this batcher serves `servable` with, prepared
         once per servable."""
@@ -728,6 +739,9 @@ class DynamicBatcher:
                 staged = self._assemble(group, total)
                 if staged is not None:
                     self._stage(staged)
+                # Drop the batch before waiting for the next one: this frame
+                # must not keep a retired servable alive while idle.
+                item = group = staged = None
         finally:
             with self._cv:
                 self._collect_done = True
@@ -784,6 +798,7 @@ class DynamicBatcher:
                 try:
                     self._run_stage(staged)
                 finally:
+                    staged = None  # as in _loop: hold no servable while idle
                     with self._cv:
                         self._dispatch_pending -= 1
                         self._cv.notify_all()

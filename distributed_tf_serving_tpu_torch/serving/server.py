@@ -1,21 +1,27 @@
-"""gRPC frontend: PredictionService (Predict, GetModelMetadata),
-ModelService (GetModelStatus) and grpc.health.v1 Health on one port, over
-PredictionServiceImpl.
+"""gRPC frontend: PredictionService (Predict, Classify, Regress,
+MultiInference, GetModelMetadata), ModelService (GetModelStatus) and
+grpc.health.v1 Health on one port, over PredictionServiceImpl.
 
 CLI:
 
     python -m distributed_tf_serving_tpu_torch.serving.server --port 9999 \
-        [--config configs/latency.toml] [--device cuda|cpu] [--kernels]
+        [--config configs/latency.toml] [--device cuda|cpu] [--kernels] \
+        [--checkpoint DIR | --model-base-path DIR]
 
-serves a randomly initialized demo servable (numpy-seeded) of the
-configured model kind. The device defaults to "cuda"; without a card the
-server refuses to start unless `--device cpu` is given.
+serves, by default, a randomly initialized demo servable (numpy-seeded,
+`--seed`) of the configured model kind; `--checkpoint DIR` serves the
+checkpoint in DIR (train/checkpoint.py), and `--model-base-path DIR` the
+newest versions under DIR's numeric version directories, hot-swapping as
+new ones appear (serving/version_watcher.py). The device defaults to
+"cuda"; without a card the server refuses to start unless `--device cpu`
+is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import signal
 import threading
@@ -26,6 +32,7 @@ import grpc
 
 from ..models import ModelConfig, Servable, ServableRegistry, build_model, ctr_signatures
 from ..models.base import resolve_device
+from ..ops import cross_kernel
 from ..proto import (
     add_HealthServicer_to_server,
     add_ModelServiceServicer_to_server,
@@ -70,17 +77,26 @@ def _call(name: str, fn, request, context):
 
 class GrpcPredictionService(PredictionServiceServicer):
     """tensorflow.serving.PredictionService adapter; the RPCs not ported
-    yet answer UNIMPLEMENTED (the servicer base class)."""
+    yet (PredictStream) answer UNIMPLEMENTED (the servicer base class)."""
 
     def __init__(self, impl: PredictionServiceImpl):
         self.impl = impl
 
-    def Predict(self, request, context):
+    def _unary(self, name: str, fn, request, context):
         deadline_s = _deadline_of(context)
-        return _call(
-            "Predict", lambda req: self.impl.predict(req, deadline_s=deadline_s),
-            request, context,
-        )
+        return _call(name, lambda req: fn(req, deadline_s=deadline_s), request, context)
+
+    def Predict(self, request, context):
+        return self._unary("Predict", self.impl.predict, request, context)
+
+    def Classify(self, request, context):
+        return self._unary("Classify", self.impl.classify, request, context)
+
+    def Regress(self, request, context):
+        return self._unary("Regress", self.impl.regress, request, context)
+
+    def MultiInference(self, request, context):
+        return self._unary("MultiInference", self.impl.multi_inference, request, context)
 
     def GetModelMetadata(self, request, context):
         return _call("GetModelMetadata", self.impl.get_model_metadata, request, context)
@@ -99,7 +115,8 @@ class GrpcModelService(ModelServiceServicer):
 class GrpcHealthService:
     """grpc.health.v1 Health: service "" is SERVING once warmup completed
     and a model is loaded; service "<model>" is SERVING when the registry
-    holds a version of it; unknown names get NOT_FOUND."""
+    holds a version of it, NOT_SERVING while a version watcher owns it
+    with no version loaded yet; unknown names get NOT_FOUND."""
 
     def __init__(self, impl: PredictionServiceImpl):
         self.impl = impl
@@ -109,7 +126,9 @@ class GrpcHealthService:
         if not service:
             ready = self.impl.warmup_complete and any(served.values())
             return health_proto.SERVING if ready else health_proto.NOT_SERVING
-        return health_proto.SERVING if served.get(service) else None
+        if served.get(service):
+            return health_proto.SERVING
+        return health_proto.NOT_SERVING if self.impl.is_configured(service) else None
 
     def Check(self, request, context):
         st = self._status(request.service)
@@ -167,16 +186,42 @@ def load_demo_servable(
     return servable
 
 
+def _launch_counts() -> str:
+    """The kernel launch counters that moved, as JSON."""
+    return json.dumps({f"{k}/{cd}": n for (k, cd), n in cross_kernel.launches.items() if n},
+                      sort_keys=True)
+
+
+def _servable_change_hook(name: str) -> None:
+    """The version watcher's on_servable_change: log the kernel launch
+    counters, so each version's launches show."""
+    log.info("kernel launches after a %s version change: %s", name, _launch_counts())
+
+
 def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None,
                 seed: int = 0, fused_kernel: bool = True,
-                kernels_config: KernelsConfig | None = None):
-    """(impl, batcher, servable): a demo servable loaded, warmed through
-    every bucket, and a started batcher. fused_kernel=False serves dcn_v2
-    through model.apply instead of the fused serve kernel. An enabled
-    `kernels_config` arms the kernel plane: the per-bucket autotune runs
-    after warmup and its decisions pick the device step. On a CUDA device a
-    failed autotune raises and the server does not start; on the CPU it is
-    logged and every bucket serves the baseline."""
+                kernels_config: KernelsConfig | None = None,
+                checkpoint=None, model_base_path=None):
+    """(impl, batcher, servable): the servable serving at start, warmed
+    through every bucket (unless `cfg.warmup` is off), and a started
+    batcher. The servable is the numpy-seeded demo (`seed`), the checkpoint
+    in `checkpoint`, or — with `model_base_path` — the newest version a
+    VersionWatcher loaded from that base path (None when no version is
+    ready yet); the watcher is `impl.version_watcher` and keeps the
+    registry serving the newest versions, each warmed through the batcher's
+    queue and its warmup file replayed before it serves.
+
+    fused_kernel=False serves dcn_v2 through model.apply instead of the
+    fused serve kernel. An enabled `kernels_config` arms the kernel plane:
+    the per-bucket autotune runs after warmup, for the servable serving at
+    start (a version hot-loaded later serves the baseline), and its
+    decisions pick the device step. On a CUDA device a failed autotune
+    raises and the server does not start; on the CPU it is logged and every
+    bucket serves the baseline."""
+    if checkpoint and model_base_path:
+        raise ValueError(
+            "--model-base-path is mutually exclusive with --checkpoint "
+            "(the base path owns version lifecycle)")
     batcher = DynamicBatcher(
         buckets=cfg.buckets, max_wait_us=cfg.max_wait_us, device=device,
         queue_capacity_candidates=cfg.queue_capacity_candidates,
@@ -188,16 +233,10 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     registry = ServableRegistry()
     impl = PredictionServiceImpl(registry, batcher)
     impl.warmup_complete = False
-    mc = model_config or ModelConfig(name=cfg.model_name, num_fields=cfg.num_fields)
-    mc = dataclasses.replace(mc, name=cfg.model_name)
-    servable = load_demo_servable(
-        registry, kind=cfg.model_kind, name=cfg.model_name, seed=seed,
-        config=mc, device=batcher.device,
-    )
-    t0 = time.perf_counter()
-    batcher.warmup(servable)
-    log.info("warmed %d buckets in %.2fs", len(batcher.buckets), time.perf_counter() - t0)
-    if kernels is not None:
+
+    def prepare_kernels(servable) -> None:
+        if kernels is None or servable is None:
+            return
         t0 = time.perf_counter()
         try:
             kernels.prepare(batcher, servable)
@@ -206,6 +245,66 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                 raise  # a kernel that fails on the card stops the server
             log.exception("kernel autotune failed; serving the baseline")
         log.info("kernel plane prepared in %.2fs", time.perf_counter() - t0)
+
+    if model_base_path:
+        from .version_watcher import VersionWatcher, VersionWatcherConfig
+        from .warmup import replay_warmup_file
+
+        # The watcher warms through the queue, so the batcher runs first.
+        batcher.start()
+        watcher = VersionWatcher(
+            model_base_path, registry,
+            VersionWatcherConfig(
+                model_name=cfg.model_name,
+                desired_labels=cfg.version_labels,
+                poll_interval_s=cfg.file_system_poll_wait_seconds,
+                # Upstream semantics: N RETRIES after the first attempt.
+                max_load_attempts=cfg.max_num_load_retries + 1,
+            ),
+            warmup=batcher.warmup_via_queue if cfg.warmup else None,
+            warmup_replay=(
+                (lambda sv, wf: replay_warmup_file(wf, sv, batcher)) if cfg.warmup else None
+            ),
+            device=batcher.device,
+            on_servable_change=_servable_change_hook,
+        )
+        impl.served_sources.add(cfg.model_name)
+        impl.version_watcher = watcher.start()
+        versions = registry.models().get(cfg.model_name, [])
+        if versions:
+            servable = registry.resolve(cfg.model_name)
+            log.info("serving %s versions %s from %s", cfg.model_name, versions,
+                     model_base_path)
+        else:
+            servable = None
+            log.warning("no ready versions under %s yet; watching", model_base_path)
+        prepare_kernels(servable)
+        impl.warmup_complete = True
+        return impl, batcher, servable
+
+    if checkpoint:
+        from ..train.checkpoint import load_servable
+
+        servable = load_servable(checkpoint, device=batcher.device)
+        registry.load(servable)
+        log.info("loaded checkpoint %s: %s v%d", checkpoint, servable.name, servable.version)
+    else:
+        mc = model_config or ModelConfig(name=cfg.model_name, num_fields=cfg.num_fields)
+        mc = dataclasses.replace(mc, name=cfg.model_name)
+        servable = load_demo_servable(
+            registry, kind=cfg.model_kind, name=cfg.model_name, seed=seed,
+            config=mc, device=batcher.device,
+        )
+    if cfg.warmup:
+        t0 = time.perf_counter()
+        batcher.warmup(servable)
+        log.info("warmed %d buckets in %.2fs", len(batcher.buckets), time.perf_counter() - t0)
+    # The static paths load exactly the version above, so a label naming
+    # another one is a config error at startup.
+    for label, version in cfg.version_labels:
+        registry.set_label(servable.name, label, version)
+        log.info("label %r -> %s v%d", label, servable.name, version)
+    prepare_kernels(servable)
     batcher.start()
     impl.warmup_complete = True
     return impl, batcher, servable
@@ -219,6 +318,11 @@ def serve(argv=None) -> None:
     p.add_argument("--host", default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="demo weight seed")
+    source = p.add_mutually_exclusive_group()
+    source.add_argument("--checkpoint", help="serve this checkpoint directory "
+                        "(servable.json + params.safetensors)")
+    source.add_argument("--model-base-path", help="serve the newest numeric version "
+                        "directories under this path, hot-swapping new ones")
     p.add_argument(
         "--kernels", action="store_true",
         help="kernel/quantization plane: int8 weight quantization and the fused "
@@ -240,19 +344,24 @@ def serve(argv=None) -> None:
         kernels_config = dataclasses.replace(kernels_config, enabled=True)
     impl, batcher, servable = build_stack(
         cfg, loaded.get("model"), args.device, args.seed, kernels_config=kernels_config,
+        checkpoint=args.checkpoint, model_base_path=args.model_base_path,
     )
     server, port = create_server(impl, f"{cfg.host}:{cfg.port}", cfg.max_workers)
     server.start()
-    log.info(
-        "serving %s v%d (%s) on %s:%d, device %s",
-        servable.name, servable.version, cfg.model_kind, cfg.host, port, batcher.device,
-    )
+    what = (f"{servable.name} v{servable.version}" if servable is not None
+            else f"{cfg.model_name} (awaiting versions)")
+    log.info("serving %s (%s) on %s:%d, device %s",
+             what, cfg.model_kind, cfg.host, port, batcher.device)
+    servable = None  # a retired version must not stay alive here
     done = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: done.set())
     signal.signal(signal.SIGINT, lambda *_: done.set())
     done.wait()
     server.stop(grace=5).wait()
+    if impl.version_watcher is not None:
+        impl.version_watcher.stop()  # no load may race the batcher's stop
     batcher.stop()
+    log.info("kernel launches at shutdown: %s", _launch_counts())
     log.info("shutdown complete")
 
 

@@ -1,7 +1,8 @@
 """PredictionService semantics, transport-free: ModelSpec resolution with
 latest-version default, signature lookup, input decode and validation
-against the signature, output_filter selection, and the model-status /
-metadata RPCs. server.py is a thin gRPC adapter over this class.
+against the signature, output_filter selection, the Example-input RPCs
+(Classify, Regress, MultiInference), and the model-status / metadata RPCs.
+server.py is a thin gRPC adapter over this class.
 
 Status codes: unknown model/version/signature -> NOT_FOUND; malformed
 tensors and signature mismatches -> INVALID_ARGUMENT; oversized batches and
@@ -12,6 +13,7 @@ DEADLINE_EXCEEDED; other batcher failures -> UNAVAILABLE.
 from __future__ import annotations
 
 import concurrent.futures
+import time
 
 import numpy as np
 
@@ -27,6 +29,7 @@ from ..models.registry import (
 from ..proto import serving_apis_pb2 as apis
 from ..proto import tf_framework_pb2 as fw
 from .batcher import BatchTooLargeError, DynamicBatcher, QueueOverloadError, RequestDeadlineError
+from .example_codec import ExampleDecodeError, decode_input
 
 SIGNATURE_DEF_FIELD = "signature_def"
 
@@ -47,7 +50,8 @@ def _wrap_lookup(fn):
 
 
 class PredictionServiceImpl:
-    """Registry + batcher -> Predict, GetModelMetadata, GetModelStatus."""
+    """Registry + batcher -> Predict, Classify, Regress, MultiInference,
+    GetModelMetadata, GetModelStatus."""
 
     # Bounded wait: a stuck batch must not hold an RPC thread forever.
     _BATCH_DEADLINE_S = 120.0
@@ -58,6 +62,17 @@ class PredictionServiceImpl:
         # False while the server loads and warms up: health reports
         # NOT_SERVING until then.
         self.warmup_complete = True
+        # Models a version watcher owns. Such a model with no version
+        # loaded yet is START in GetModelStatus and NOT_SERVING in health,
+        # not NOT_FOUND.
+        self.served_sources: set[str] = set()
+        # The VersionWatcher of a --model-base-path server, else None.
+        self.version_watcher = None
+
+    def is_configured(self, name: str) -> bool:
+        """True when this server is configured to serve `name`, whether or
+        not a version of it is ready yet."""
+        return name in self.served_sources
 
     @staticmethod
     def _version_choice(model_spec: apis.ModelSpec) -> tuple[int | None, str | None]:
@@ -179,6 +194,16 @@ class PredictionServiceImpl:
             raise ServiceError("INVALID_ARGUMENT", "empty candidate batch")
         return arrays
 
+    @staticmethod
+    def _clock_deadline(deadline_s: float | None) -> float | None:
+        """Absolute give-up instant for a remaining budget, taken at RPC
+        entry, so decode and validation spend the client's budget."""
+        return None if deadline_s is None else time.perf_counter() + deadline_s
+
+    @staticmethod
+    def _budget_left(deadline_t: float | None) -> float | None:
+        return None if deadline_t is None else deadline_t - time.perf_counter()
+
     def _effective_timeout(self, deadline_s: float | None) -> float:
         if deadline_s is None:
             return self._BATCH_DEADLINE_S
@@ -249,17 +274,111 @@ class PredictionServiceImpl:
             )
         return resp
 
+    # ---------------------------------------------------- Classify / Regress
+
+    def _run_examples(self, request, deadline_s: float | None = None):
+        """Shared front half of Classify/Regress: resolution, Example
+        decode and the batcher run. Returns (servable, outputs)."""
+        deadline_t = self._clock_deadline(deadline_s)
+        servable, _ = self._resolve(request.model_spec)
+        try:
+            arrays = decode_input(request.input, servable.model.config.num_fields)
+        except ExampleDecodeError as e:
+            raise ServiceError("INVALID_ARGUMENT", str(e)) from e
+        outputs = self._run(servable, arrays, ("prediction_node",),
+                            self._budget_left(deadline_t))
+        return servable, outputs
+
+    def classify(self, request: apis.ClassificationRequest,
+                 deadline_s: float | None = None) -> apis.ClassificationResponse:
+        """Two classes per Example: "0" scores 1 - p and "1" scores p."""
+        servable, outputs = self._run_examples(request, deadline_s)
+        resp = apis.ClassificationResponse()
+        resp.model_spec.CopyFrom(
+            self._echo_spec(servable, request.model_spec.signature_name or "classify")
+        )
+        for p in outputs["prediction_node"]:
+            cls = resp.result.classifications.add()
+            cls.classes.add(label="0", score=float(1.0 - p))
+            cls.classes.add(label="1", score=float(p))
+        return resp
+
+    def regress(self, request: apis.RegressionRequest,
+                deadline_s: float | None = None) -> apis.RegressionResponse:
+        """One regression value per Example: the score p."""
+        servable, outputs = self._run_examples(request, deadline_s)
+        resp = apis.RegressionResponse()
+        resp.model_spec.CopyFrom(
+            self._echo_spec(servable, request.model_spec.signature_name or "regress")
+        )
+        for p in outputs["prediction_node"]:
+            resp.result.regressions.add(value=float(p))
+        return resp
+
+    # --------------------------------------------------------- MultiInference
+
+    def multi_inference(self, request: apis.MultiInferenceRequest,
+                        deadline_s: float | None = None) -> apis.MultiInferenceResponse:
+        """Classify and regress tasks over one shared Input, in order."""
+        if not request.tasks:
+            raise ServiceError("INVALID_ARGUMENT", "MultiInferenceRequest has no tasks")
+        # Tasks run one after another, so each gets the budget REMAINING at
+        # its own start, never the whole entry-time budget again.
+        deadline_t = self._clock_deadline(deadline_s)
+
+        def remaining() -> float | None:
+            left = self._budget_left(deadline_t)
+            if left is not None and left <= 0:
+                raise ServiceError(
+                    "DEADLINE_EXCEEDED",
+                    "client deadline expired between MultiInference tasks",
+                )
+            return left
+
+        resp = apis.MultiInferenceResponse()
+        for task in request.tasks:
+            method = task.method_name
+            if method == "tensorflow/serving/classify":
+                sub = apis.ClassificationRequest(model_spec=task.model_spec, input=request.input)
+                out = self.classify(sub, deadline_s=remaining())
+                r = resp.results.add()
+                r.model_spec.CopyFrom(out.model_spec)
+                r.classification_result.CopyFrom(out.result)
+            elif method == "tensorflow/serving/regress":
+                sub = apis.RegressionRequest(model_spec=task.model_spec, input=request.input)
+                out = self.regress(sub, deadline_s=remaining())
+                r = resp.results.add()
+                r.model_spec.CopyFrom(out.model_spec)
+                r.regression_result.CopyFrom(out.result)
+            else:
+                raise ServiceError(
+                    "INVALID_ARGUMENT",
+                    f"unsupported MultiInference method {method!r} "
+                    "(expected tensorflow/serving/classify or .../regress)",
+                )
+        return resp
+
     # ------------------------------------------------------ status / metadata
 
     def get_model_status(self, request: apis.GetModelStatusRequest) -> apis.GetModelStatusResponse:
         """Version states for readiness probes: loaded versions are
-        AVAILABLE (the registry flips after load + warmup)."""
+        AVAILABLE (the registry flips after load + warmup). A model a
+        version watcher owns whose first version has not landed yet is
+        START; names this server was never told about are NOT_FOUND."""
         name = request.model_spec.name
         if not name:
             raise ServiceError("INVALID_ARGUMENT", "model_spec.name is required")
         loaded = self.registry.models().get(name)
         if not loaded:
-            raise ServiceError("NOT_FOUND", f"model {name!r} not found")
+            if not self.is_configured(name):
+                raise ServiceError("NOT_FOUND", f"model {name!r} not found")
+            version, _ = self._version_choice(request.model_spec)
+            resp = apis.GetModelStatusResponse()
+            st = resp.model_version_status.add()
+            st.version = version or 0  # no version directory discovered yet
+            st.state = apis.ModelVersionStatus.START
+            st.status.error_code = 0
+            return resp
         version, label = self._version_choice(request.model_spec)
         if label is not None:
             servable = _wrap_lookup(lambda: self.registry.resolve(name, None, label))

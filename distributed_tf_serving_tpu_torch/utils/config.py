@@ -39,6 +39,19 @@ class ServerConfig:
     # turn). The [batching] section's pipeline_depth, when nonzero, wins.
     pipeline_depth: int = 2
     queue_capacity_candidates: int | None = None
+    # Warm a loaded version before it serves: the bucket ladder, then the
+    # version's own assets.extra/tf_serving_warmup_requests records.
+    warmup: bool = True
+    # Version-label routing (tensorflow_model_server's version_labels map:
+    # "stable"/"canary" -> version number). TOML: version_labels = {stable
+    # = 2, canary = 3}; stored as sorted (label, version) pairs so the
+    # frozen config stays hashable.
+    version_labels: tuple[tuple[str, int], ...] = ()
+    # Version-watcher knobs (--model-base-path), named for their
+    # tensorflow_model_server flags: --file_system_poll_wait_seconds and
+    # --max_num_load_retries (retries AFTER the first attempt).
+    file_system_poll_wait_seconds: float = 5.0
+    max_num_load_retries: int = 2
 
     def __post_init__(self):
         for name in ("completion_workers", "pipeline_depth"):
@@ -137,10 +150,16 @@ def _coerce(cls, data: dict[str, Any], section: str, strict: bool):
         if strict:
             raise ValueError(f"unknown [{section}] keys: {unknown}")
         log.info("ignoring [%s] keys this package does not use: %s", section, unknown)
-    kwargs = {
-        k: tuple(v) if isinstance(v, list) else v
-        for k, v in data.items() if k in fields
-    }
+    kwargs = {}
+    for key, value in data.items():
+        if key not in fields:
+            continue
+        if isinstance(value, list):
+            value = tuple(value)
+        elif isinstance(value, dict) and key == "version_labels":
+            # TOML inline table -> the hashable pair form.
+            value = tuple(sorted((str(k), int(v)) for k, v in value.items()))
+        kwargs[key] = value
     return cls(**kwargs)
 
 

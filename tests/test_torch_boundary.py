@@ -107,6 +107,46 @@ def test_static_no_jax_imports_in_port_or_chip_smoke():
     assert {k: v for k, v in bad.items() if v} == {}
 
 
+_NOT_ON_THE_CARD = ("safetensors", "orbax")  # the card's machine has neither
+
+_LIFECYCLE_SCRIPT = r"""
+import json, sys, tempfile
+from distributed_tf_serving_tpu_torch.models import ModelConfig, ServableRegistry
+from distributed_tf_serving_tpu_torch.serving.server import load_demo_servable
+from distributed_tf_serving_tpu_torch.serving.version_watcher import VersionWatcher
+import distributed_tf_serving_tpu_torch.serving.warmup  # noqa: F401
+import distributed_tf_serving_tpu_torch.serving.example_codec  # noqa: F401
+from distributed_tf_serving_tpu_torch.train.checkpoint import save_servable
+cfg = ModelConfig(num_fields=3, vocab_size=64, embed_dim=2, mlp_dims=(4,), num_cross_layers=1)
+sv = load_demo_servable(ServableRegistry(), config=cfg, device="cpu")
+base = tempfile.mkdtemp()
+save_servable(base + "/1", sv, "dcn_v2")
+reg = ServableRegistry()
+VersionWatcher(base, reg, device="cpu").poll_once()
+print(json.dumps({"loaded": reg.models(), "modules": sorted(sys.modules)}))
+"""
+
+
+def _is_off_card(module: str) -> bool:
+    return any(module == m or module.startswith(m + ".") for m in _NOT_ON_THE_CARD)
+
+
+def test_checkpoint_lifecycle_imports_no_jax_safetensors_or_orbax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run(
+        [sys.executable, "-c", _LIFECYCLE_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert res.returncode == 0, res.stderr
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["loaded"] == {"DCN": [1]}
+    assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = {str(f.relative_to(REPO)): [m for m in _imports(f) if _is_off_card(m)] for f in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
 def test_grpc_and_protobuf_stay_in_the_transport_modules():
     allowed = {"proto", "codec.py", "service.py", "server.py"}
     for f in PORT.rglob("*.py"):

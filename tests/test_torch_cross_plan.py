@@ -15,6 +15,7 @@ arithmetic, so a cached result equals an uncached one bit for bit.
 """
 
 import dataclasses
+import weakref
 
 import jax
 import numpy as np
@@ -315,3 +316,21 @@ def test_use_pallas_cross_model_matches_jax_interpret(compute_dtype, tol):
             got = tm.apply(tp, batch)["prediction_node"].float().numpy()
         np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
     assert ck.cross_cache.builds == 1
+
+
+def test_cache_drops_an_entry_when_its_sources_die():
+    """An entry never keeps its weights alive: when a tree's tensors go,
+    its prepared operands go with them, with no further call."""
+    model, _ = _model()
+    batch = _batch()
+    keep = model.init(1, "cpu")
+    gone = model.init(2, "cpu")
+    model.apply(keep, batch)
+    model.apply(gone, batch)
+    assert len(ck.cross_cache) == 2
+    src = weakref.ref(gone["cross"][0]["w"])
+    del gone
+    assert src() is None and len(ck.cross_cache) == 1
+    builds = ck.cross_cache.builds
+    model.apply(keep, batch)  # the survivor is still served from the cache
+    assert ck.cross_cache.builds == builds
