@@ -114,10 +114,41 @@ Phases (any failure exits non-zero and prints no result line):
              10 s; cuBLAS workspaces cleared before both reads), which must
              match within 1 MiB.
 
+7. outputs — the response path (ops/transfer.py readback wire,
+             serving/service.py PredictStream, the UDS listener) on the
+             bf16 fused_serve configuration of configs/latency.toml, seed-0
+             weights. Six in-process batchers (max_wait_us = 0): no wire,
+             output_wire_dtype float32 / bfloat16 / float16 / int8, and
+             output_top_k = 100, each answering n = 7, 1000 and 2048. Each
+             result must be exactly its wire's result of the no-wire
+             batcher's scores: float32 the same bits; bf16 / f16 the scores
+             rounded to that dtype; int8 the dequantization of a host
+             quantization of the padded float32 output with the reference's
+             arithmetic (and q, scale and min read back raw must equal it);
+             top-k the same head indices as a stable descending sort, their
+             scores, zeros elsewhere, 800 bytes read back per top-k batch.
+             Every result within 5e-3 plus its wire's rounding of the plain
+             forward. Printed per wire and bucket: d2h_issue (transform +
+             copies) and d2h_wait (event + host restore), median of 20, and
+             the bytes read back against a float32 readback of every
+             output; and the issue must return while the card is still busy
+             with a queued torch.cuda._sleep (the wire adds no host sync). Then a gRPC server with [kernels] enabled (float
+             variants) and int8_score_wire, stream_chunk_candidates = 256
+             and a Unix-domain socket: a Predict with x-dts-score-wire:
+             int8 must answer DT_INT8 plus both sidecars within range/508 of
+             the float response; PredictStream at n = 2048 in chunks of 256
+             and of 512 (x-dts-stream-chunk) must cover the request once,
+             one chunk final, every score within 5e-3 of the plain forward;
+             printed: time to the first and to the last chunk against unary
+             Predict p50 (20 each), and the GetModelMetadata floor p50 over
+             TCP and over the socket. fused_serve/bfloat16 must launch.
+
 Prints one `{"kernels": [...]}` line (one entry per kernel and compute
-dtype, the f32 ones named `<kernel>_f32`: the rule row at 2048 rows, the
-main path's launches, the lifecycle path's launches
-(`launches_lifecycle`), and every row under "by_shape"), the nvidia-smi
+dtype, the f32 ones named `<kernel>_f32`: the rule row at 2048 rows; the
+main paths' launches, `launches` = the serving phase's plus the outputs
+phase's (`launches_serving`, `launches_outputs`), each path's counters
+zeroed just before it and read just after; the lifecycle path's launches
+(`launches_lifecycle`); and every row under "by_shape"), the nvidia-smi
 line, and last `{"ok": true, "device": {...}}`.
 """
 
@@ -1642,6 +1673,411 @@ def phase_lifecycle(dev, name: str) -> dict:
     return res
 
 
+OUTPUT_SIZES = (7, 1000, 2048)  # requests of the outputs phase
+OUTPUT_WIRES = ("float32", "bfloat16", "float16", "int8")
+OUTPUT_TOP_K = 100
+OUTPUT_REPEATS = 20
+# |score - plain forward| allowed per wire on top of the serve tolerance:
+# the wire's own rounding of a score in (0, 1) (bf16 8 bits, f16 11 bits
+# of mantissa; int8 range/508, added per batch below).
+WIRE_ROUNDING = {"none": 0.0, "float32": 0.0, "bfloat16": 2.0 ** -9, "float16": 2.0 ** -12,
+                 "int8": 0.0}
+
+
+def _q8_host(v):
+    """The reference's int8 readback quantization on the host, in numpy:
+    (q, scale, min), scale through the float32 reciprocal of 254 (the
+    jitted JAX function's arithmetic)."""
+    import numpy as np
+
+    v = np.asarray(v, np.float32)
+    mn = v.min()
+    inv = np.float32(1.0) / np.float32(254.0)
+    scale = np.maximum(np.float32(v.max() - mn) * inv, np.float32(1e-8))
+    q = np.clip(np.rint((v - mn) / scale), np.float32(0), np.float32(254)) - np.float32(127)
+    return q.astype(np.int8), np.float32(scale), np.float32(mn)
+
+
+def d2h_times(batcher, servable, bucket: int, topk: int) -> dict:
+    """Median of 20 of the readback wire at one bucket, through the
+    batcher's own functions on one device-step output: `d2h_issue` (the
+    wire transform's launches, the non-blocking copies, the event) and
+    `d2h_wait` (the event, then the host restore), card idle before each
+    issue; and the bytes the copies move against a float32 readback of
+    every output. Then the issue must return while the card is still busy
+    with a queued torch.cuda._sleep (~50 ms): the wire adds no host sync
+    to the dispatch thread."""
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch.ops.transfer import unpack_device_combined
+
+    entry = batcher.step_for(servable)
+    step, params, _ = batcher._step(servable, entry, bucket, None)
+    F = servable.model.config.num_fields
+    rng = np.random.RandomState(bucket + 7)
+    arrays = {"feat_ids": rng.randint(0, 1 << 40, size=(bucket, F)).astype(np.int64),
+              "feat_wts": rng.rand(bucket, F).astype(np.float32)}
+    buf, layout = batcher._pack(entry, batcher._fused_ctx(servable, [arrays]), bucket)
+    dbuf, event = batcher._upload(buf)
+    batcher.ring.release([buf], event)
+    with torch.inference_mode():
+        out = step(params, unpack_device_combined(dbuf, layout))
+
+    def issue():
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            rb = batcher._issue_readback(batcher._shape_outputs(
+                servable, out, ("prediction_node",), topk, bucket))
+        if topk:
+            rb.topk = (bucket, "prediction_node")
+        return rb, (time.perf_counter() - t0) * 1e3
+
+    issue_ms, wait_ms = [], []
+    for _ in range(OUTPUT_REPEATS):
+        torch.cuda.synchronize()
+        rb, ms = issue()
+        t1 = time.perf_counter()
+        batcher._wait(rb)
+        issue_ms.append(ms)
+        wait_ms.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    rb, busy_ms = issue()
+    still_busy = not torch.cuda.current_stream().query()
+    batcher._wait(rb)
+    if not still_busy:
+        fail(f"outputs: the readback wire (top-k {topk}, {batcher.output_wire_dtype}) waited "
+             f"for the card on the issue path ({busy_ms:.3f} ms behind a queued sleep)")
+    return {"d2h_issue_ms": statistics.median(issue_ms), "d2h_wait_ms": statistics.median(wait_ms),
+            "bytes": rb.nbytes, "full_f32_bytes": sum(v.numel() * 4 for v in out.values()),
+            "issue_behind_busy_card_ms": busy_ms}
+
+
+def phase_outputs(dev, name: str) -> dict:
+    """The response path on the card, on the bf16 fused_serve configuration
+    (configs/latency.toml, seed-0 weights): in-process batchers for each
+    readback wire and for top-k, held to the no-wire batcher and to the
+    plain forward, with the D2H issue / wait per wire and bucket; then a
+    gRPC server with [kernels] (int8_score_wire), stream_chunk_candidates
+    = 256 and a Unix-domain socket: the int8 score response wire,
+    PredictStream at n = 2048 (chunks of 256 and 512), time to the first
+    and the last chunk against unary Predict, and the GetModelMetadata
+    floor over TCP and over the socket."""
+    import shutil
+    import tempfile
+
+    import grpc
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch import codec
+    from distributed_tf_serving_tpu_torch.models import ServableRegistry, build_model
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.ops.autotune import PALLAS_F32
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+    from distributed_tf_serving_tpu_torch.proto import tf_framework_pb2 as fw
+    from distributed_tf_serving_tpu_torch.proto.service_grpc import LARGE_MESSAGE_CHANNEL_OPTIONS
+    from distributed_tf_serving_tpu_torch.serving.batcher import DynamicBatcher, bucket_for
+    from distributed_tf_serving_tpu_torch.serving.server import (
+        build_stack,
+        create_server,
+        load_demo_servable,
+    )
+    from distributed_tf_serving_tpu_torch.utils.config import (
+        BatchingConfig,
+        KernelsConfig,
+        load_config,
+    )
+
+    loaded = load_config(os.path.join(HERE, "configs", "latency.toml"))
+    cfg, mc = loaded["server"], loaded["model"]
+    F = mc.num_fields
+    servable = load_demo_servable(ServableRegistry(), kind=cfg.model_kind, name=cfg.model_name,
+                                  seed=SEED, config=mc, device=dev)
+    plain = build_model(servable.model.kind,
+                        dataclasses.replace(servable.model.config, use_pallas_cross=False)).apply
+    rng = np.random.RandomState(SEED + 3000)
+    payloads = {n: (rng.randint(0, 1 << 40, size=(n, F)).astype(np.int64),
+                    rng.rand(n, F).astype(np.float32)) for n in OUTPUT_SIZES}
+    want = {}
+    with torch.inference_mode():
+        for n, (ids, wts) in payloads.items():
+            want[n] = plain(servable.params, {"feat_ids": torch.from_numpy(ids).to(dev),
+                                              "feat_wts": torch.from_numpy(wts).to(dev)}
+                            )["prediction_node"].float().cpu().numpy()
+    res = {"card": name}
+    labels = ("none",) + OUTPUT_WIRES + ("topk",)
+    batchers = {}
+    try:
+        for label in labels:
+            kw = {}
+            if label in OUTPUT_WIRES:
+                kw["output_wire_dtype"] = label
+            elif label == "topk":
+                kw["output_top_k"] = OUTPUT_TOP_K
+            b = DynamicBatcher(buckets=cfg.buckets, max_wait_us=0, device="cuda",
+                               completion_workers=cfg.completion_workers,
+                               pipeline_depth=cfg.pipeline_depth, **kw)
+            b.warmup(servable)
+            batchers[label] = b.start()
+        if not all(b.step_for(servable).fused for b in batchers.values()):
+            fail("outputs: a wire batcher does not serve through the fused serve kernel")
+
+        # The phase's path, part 1: counters zeroed just before its
+        # requests and read just after (the checks below, which launch the
+        # kernel for reference results, are not counted).
+        ck.reset_launches()
+        stats0 = {k: dataclasses.replace(b.stats) for k, b in batchers.items()}
+        got = {label: {} for label in labels}
+        for n, (ids, wts) in payloads.items():
+            for label, b in batchers.items():
+                got[label][n] = b.submit(servable, {"feat_ids": ids, "feat_wts": wts},
+                                         output_keys=("prediction_node",)
+                                         ).result(120)["prediction_node"]
+        res["batcher_launches"] = {f"{k}/{cd}": v for (k, cd), v in ck.launches.items()}
+        checks = {}
+        ref_b = batchers["none"]
+        for n, (ids, wts) in payloads.items():
+            ref = got["none"][n]
+            bucket = bucket_for(n, ref_b.buckets)
+            padded = {k: np.concatenate([v, np.zeros((bucket - n, F), v.dtype)])
+                      for k, v in (("feat_ids", ids), ("feat_wts", wts))}
+            full = ref_b._execute(servable, padded, ("prediction_node",))["prediction_node"]
+            if not np.array_equal(full[:n], ref):
+                fail(f"outputs n={n}: the no-wire batcher's live scores differ from its "
+                     "_execute of the same padded batch")
+            row = {}
+            for label in labels:
+                g = got[label][n]
+                if g.shape != (n,) or g.dtype != np.float32:
+                    fail(f"outputs {label} n={n}: result {g.dtype} {g.shape}")
+                tol = SERVE_TOL["bfloat16"] + WIRE_ROUNDING.get(label, 0.0)
+                if label == "float32":
+                    exact = np.array_equal(g, ref)
+                elif label in ("bfloat16", "float16"):
+                    dt = torch.bfloat16 if label == "bfloat16" else torch.float16
+                    exact = np.array_equal(g, torch.from_numpy(ref).to(dt).float().numpy())
+                elif label == "int8":
+                    q, scale, mn = _q8_host(full)
+                    tol += float(full.max() - full.min()) / 508
+                    exact = np.array_equal(g, codec.dequantize_scores(q, scale, mn)[:n])
+                    wb = batchers["int8"]
+                    rb = wb._issue(servable, padded, bucket, ("prediction_node",))
+                    if rb.event is not None:
+                        rb.event.synchronize()
+                    raw = {k: view.clone() for k, (_, view) in rb.out.items()}
+                    restored = wb._wait(rb)["prediction_node"]
+                    exact = exact and np.array_equal(raw["prediction_node"].numpy(), q) and \
+                        raw["prediction_node::q8scale"].numpy()[0] == scale and \
+                        raw["prediction_node::q8min"].numpy()[0] == mn and \
+                        np.array_equal(restored, codec.dequantize_scores(q, scale, mn))
+                elif label == "topk":
+                    if n > OUTPUT_TOP_K:
+                        top = np.argsort(-ref, kind="stable")[:OUTPUT_TOP_K]
+                        head = np.zeros(n, bool)
+                        head[top] = True
+                        exact = np.array_equal(np.flatnonzero(g), np.sort(top)) and \
+                            np.array_equal(g[top], ref[top]) and np.all(g[~head] == 0)
+                        g = np.where(head, g, want[n])  # the tail is unranked: not compared
+                    else:  # k >= n: the full vector
+                        exact = np.array_equal(g, ref)
+                else:
+                    exact = True
+                err = float(np.max(np.abs(g - want[n])))
+                if not exact:
+                    fail(f"outputs {label} n={n}: not the exact wire result of the no-wire "
+                         "batcher's scores")
+                if not np.all(np.isfinite(g)) or err > tol:
+                    fail(f"outputs {label} n={n}: max |dscore| vs plain forward {err} > {tol}")
+                row[label] = {"max_abs_err": err, "tol": tol}
+            checks[n] = row
+            log(f"outputs: n={n} (bucket {bucket}) exact wire results; max |dscore| vs plain "
+                "forward " + " ".join(f"{k}={v['max_abs_err']:.3g}" for k, v in row.items()))
+        res["checks"] = checks
+        res["wire_counts"] = {}
+        for label, b in batchers.items():
+            s0, s1 = stats0[label], b.stats
+            d = {k: getattr(s1, k) - getattr(s0, k) for k in (
+                "batches", "topk_batches", "bytes_downloaded", "bytes_download_full_f32")}
+            res["wire_counts"][label] = d
+            if d["batches"] != len(OUTPUT_SIZES):
+                fail(f"outputs {label}: {d['batches']} batches for {len(OUTPUT_SIZES)} requests")
+        tk = res["wire_counts"]["topk"]
+        n_topk = sum(n > OUTPUT_TOP_K for n in OUTPUT_SIZES)
+        if tk["topk_batches"] != n_topk:
+            fail(f"outputs: {tk['topk_batches']} top-k batches, want {n_topk}")
+        topk_bytes = 8 * OUTPUT_TOP_K * n_topk + 4 * bucket_for(min(OUTPUT_SIZES), cfg.buckets)
+        if tk["bytes_downloaded"] != topk_bytes:
+            fail(f"outputs: top-k batches read back {tk['bytes_downloaded']} B, want "
+                 f"{8 * OUTPUT_TOP_K} per top-k batch ({topk_bytes} with the n=7 batch)")
+        log(f"outputs: top-k {OUTPUT_TOP_K}: {tk['topk_batches']} batches read back "
+            f"{8 * OUTPUT_TOP_K} B each (the n={min(OUTPUT_SIZES)} batch, k >= n, reads back "
+            "its vector)")
+
+        # D2H per wire and bucket (outside the counted requests).
+        d2h = {}
+        for label, b in batchers.items():
+            d2h[label] = {}
+            for bucket in cfg.buckets:
+                t = d2h_times(b, servable, bucket, OUTPUT_TOP_K if label == "topk" else 0)
+                d2h[label][bucket] = t
+                log(f"outputs: d2h {label} bucket {bucket}: issue {t['d2h_issue_ms']:.4f} ms, "
+                    f"wait {t['d2h_wait_ms']:.4f} ms, {t['bytes']} B read back of "
+                    f"{t['full_f32_bytes']} B full f32; issue behind a busy card "
+                    f"{t['issue_behind_busy_card_ms']:.4f} ms, returned before it ({name})")
+        res["d2h"] = d2h
+    finally:
+        for b in batchers.values():
+            b.stop()
+
+    # The gRPC server: [kernels] (float variants only, so each bucket serves
+    # the fused kernel or model.apply on the float weights) with the int8
+    # score wire, PredictStream chunks of 256, and a Unix-domain socket.
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    table = os.path.join(out_dir, "kernel_autotune_outputs.json")
+    if os.path.exists(table):
+        os.remove(table)
+    kcfg = KernelsConfig(enabled=True, quantize=False, pallas=True, int8_score_wire=True,
+                         table_file=table)
+    impl, batcher, sv = build_stack(cfg, mc, "cuda", seed=SEED, kernels_config=kcfg,
+                                    batching_config=BatchingConfig(stream_chunk_candidates=256))
+    if not impl.int8_score_wire or impl.stream_chunk_candidates != 256:
+        fail("outputs: build_stack did not arm the int8 score wire / the stream chunk")
+    table = batcher.kernels.snapshot()["tables"][f"{sv.name}:{sv.version}"]
+    if not table.get("pallas_eligible"):
+        fail(f"outputs server: fused variants ineligible: {table.get('pallas_ineligible_reason')}")
+    for bucket, row in table["buckets"].items():
+        if "error" in row or "error" in row.get(PALLAS_F32, {"error": "not measured"}):
+            fail(f"outputs server: bucket {bucket} autotune row {row}")
+    res["server_decisions"] = {int(b): row["decision"] for b, row in table["buckets"].items()}
+    log(f"outputs: server autotune decisions (float variants) {res['server_decisions']}")
+    sock_dir = tempfile.mkdtemp(prefix="dts_uds_")
+    uds = os.path.join(sock_dir, "dts.sock")
+    server, port = create_server(impl, "127.0.0.1:0", uds_path=uds)
+    server.start()
+    chans = []
+    try:
+        tcp = grpc.insecure_channel(f"127.0.0.1:{port}", options=LARGE_MESSAGE_CHANNEL_OPTIONS)
+        unix = grpc.insecure_channel(f"unix:{uds}", options=LARGE_MESSAGE_CHANNEL_OPTIONS)
+        chans += [tcp, unix]
+        stub, ustub = PredictionServiceStub(tcp), PredictionServiceStub(unix)
+        n = max(OUTPUT_SIZES)
+        ids, wts = payloads[n]
+        req = _request(ids, wts)
+        # Part 2: the server's requests, counted from here to their end.
+        s0 = dataclasses.replace(batcher.stats)
+        launches0 = dict(ck.launches)
+        # int8 score response wire.
+        q_resp = stub.Predict(req, timeout=120, metadata=(("x-dts-score-wire", "int8"),))
+        f_resp = stub.Predict(req, timeout=120)
+        if q_resp.outputs["prediction_node"].dtype != fw.DataType.DT_INT8 or sorted(
+                q_resp.outputs) != ["prediction_node", "prediction_node/q8_min",
+                                    "prediction_node/q8_scale"]:
+            fail(f"outputs: the int8 score wire answered {sorted(q_resp.outputs)} "
+                 f"({fw.DataType.Name(q_resp.outputs['prediction_node'].dtype)})")
+        fscores = codec.to_ndarray(f_resp.outputs["prediction_node"])
+        qscores = codec.dequantize_response_output(q_resp.outputs, "prediction_node")
+        spread = float(fscores.max() - fscores.min())
+        q_err = float(np.max(np.abs(qscores - fscores)))
+        if f_resp.outputs["prediction_node"].dtype != fw.DataType.DT_FLOAT or \
+                q_err > spread / 508 * 1.001 + 1e-7:
+            fail(f"outputs: the int8 score wire is {q_err} from the float response "
+                 f"(range/508 = {spread / 508})")
+        f_err = float(np.max(np.abs(fscores - want[n])))
+        if f_err > SERVE_TOL["bfloat16"]:
+            fail(f"outputs: the server's float response is {f_err} from the plain forward")
+        res["int8_response"] = {"max_abs_err_vs_float": q_err, "range_over_508": spread / 508,
+                                "bytes_int8": q_resp.ByteSize(), "bytes_f32": f_resp.ByteSize()}
+        log(f"outputs: int8 score wire n={n}: DT_INT8 + both sidecars, max |d| vs the float "
+            f"response {q_err:.3g} (range/508 {spread / 508:.3g}); response {q_resp.ByteSize()} "
+            f"B against {f_resp.ByteSize()} B")
+
+        # PredictStream at n = 2048: the server's 256 and the 512 override.
+        stream = {}
+        for chunk, md in ((256, None), (512, (("x-dts-stream-chunk", "512"),))):
+            first, last = [], []
+            for _ in range(OUTPUT_REPEATS):
+                t0 = time.perf_counter()
+                merged = np.full(n, np.nan, np.float32)
+                seen = np.zeros(n, np.int32)
+                finals = 0
+                t_first = None
+                for c in stub.PredictStream(req, timeout=120, metadata=md):
+                    if t_first is None:
+                        t_first = time.perf_counter()
+                    part = codec.to_ndarray(c.outputs["prediction_node"])
+                    if c.total != n or part.shape != (c.count,) or c.count > chunk:
+                        fail(f"outputs: stream chunk offset {c.offset} count {c.count} total "
+                             f"{c.total} (chunk {chunk})")
+                    merged[c.offset:c.offset + c.count] = part
+                    seen[c.offset:c.offset + c.count] += 1
+                    finals += bool(c.final)
+                t_last = time.perf_counter()
+                if finals != 1 or not np.all(seen == 1):
+                    fail(f"outputs: PredictStream chunk {chunk}: {finals} final chunks, rows "
+                         f"covered {np.unique(seen)} times")
+                first.append((t_first - t0) * 1e3)
+                last.append((t_last - t0) * 1e3)
+            err = float(np.max(np.abs(merged - want[n])))
+            if not np.all(np.isfinite(merged)) or err > SERVE_TOL["bfloat16"]:
+                fail(f"outputs: PredictStream chunk {chunk}: max |dscore| vs plain forward {err}")
+            stream[chunk] = {"first_chunk_p50_ms": statistics.median(first),
+                             "last_chunk_p50_ms": statistics.median(last), "max_abs_err": err,
+                             "chunks": -(-n // chunk)}
+        unary = []
+        for _ in range(OUTPUT_REPEATS):
+            t0 = time.perf_counter()
+            stub.Predict(req, timeout=120)
+            unary.append((time.perf_counter() - t0) * 1e3)
+        res["stream"] = stream
+        res["unary_p50_ms"] = statistics.median(unary)
+        for chunk, r in stream.items():
+            log(f"outputs: PredictStream n={n} chunks of {chunk} ({r['chunks']}): first chunk "
+                f"p50 {r['first_chunk_p50_ms']:.3f} ms, last chunk p50 "
+                f"{r['last_chunk_p50_ms']:.3f} ms, against unary Predict p50 "
+                f"{res['unary_p50_ms']:.3f} ms; max |dscore| vs plain forward "
+                f"{r['max_abs_err']:.3g} ({name})")
+
+        # The transport floor over TCP and over the socket.
+        floors = {}
+        for label, st in (("tcp", stub), ("uds", ustub)):
+            st.GetModelMetadata(apis.GetModelMetadataRequest(
+                model_spec=apis.ModelSpec(name="DCN")), timeout=60)
+            lat = []
+            for _ in range(OUTPUT_REPEATS):
+                t0 = time.perf_counter()
+                st.GetModelMetadata(apis.GetModelMetadataRequest(
+                    model_spec=apis.ModelSpec(name="DCN")), timeout=60)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            floors[label] = statistics.median(lat)
+        uds_scores = codec.to_ndarray(ustub.Predict(req, timeout=120).outputs["prediction_node"])
+        if not np.array_equal(uds_scores, fscores):
+            fail("outputs: Predict over the Unix-domain socket differs from TCP")
+        res["floor_p50_ms"] = floors
+        log(f"outputs: GetModelMetadata floor p50 TCP {floors['tcp']:.3f} ms, UDS "
+            f"{floors['uds']:.3f} ms ({name})")
+        res["server_batches"] = batcher.stats.batches - s0.batches
+        res["server_launches"] = {f"{k}/{cd}": v - launches0.get((k, cd), 0)
+                                  for (k, cd), v in ck.launches.items()}
+    finally:
+        for ch in chans:
+            ch.close()
+        server.stop(grace=1).wait()
+        batcher.stop()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    res["launches"] = {k: v + res["server_launches"][k] for k, v in res["batcher_launches"].items()}
+    if res["launches"]["fused_serve/bfloat16"] <= 0:
+        fail(f"outputs: the phase launched fused_serve/bfloat16 no time ({res['launches']})")
+    log(f"outputs: launches on the phase's path {res['launches']} (batchers "
+        f"{res['batcher_launches']['fused_serve/bfloat16']}, server "
+        f"{res['server_launches']['fused_serve/bfloat16']} over {res['server_batches']} "
+        "batches)")
+    return res
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -1688,10 +2124,13 @@ def main() -> None:
     t0 = time.perf_counter()
     lifecycle = phase_lifecycle(dev, f"{name} ({smi})")
     log(f"lifecycle: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    outputs = phase_outputs(dev, f"{name} ({smi})")
+    log(f"outputs: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
-                   "lifecycle": lifecycle}, f, indent=1, default=str)
+                   "lifecycle": lifecycle, "outputs": outputs}, f, indent=1, default=str)
 
     replaces = {
         "fused_serve": "distributed_tf_serving_tpu/ops/cross_kernel.py:470",
@@ -1704,9 +2143,14 @@ def main() -> None:
             # The rule's row at 2048 rows in this compute dtype.
             head = next(r for r in rows[kname]
                         if r["dtype"] == cd and r["n"] == 2048 and not r.get("forced"))
+            # `launches`: the serving path's count plus the outputs path's,
+            # each zeroed just before its run and read just after it.
             entry = {"name": kname if cd == "bfloat16" else f"{kname}_f32", "route": "cuda",
                      "source": f"{PKG}/csrc/cross_kernel.cu", "replaces": line,
-                     "launches": serving["launches"][f"{kname}/{cd}"],
+                     "launches": serving["launches"][f"{kname}/{cd}"]
+                     + outputs["launches"].get(f"{kname}/{cd}", 0),
+                     "launches_serving": serving["launches"][f"{kname}/{cd}"],
+                     "launches_outputs": outputs["launches"].get(f"{kname}/{cd}", 0),
                      "launches_lifecycle": lifecycle["launches"]["path"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}

@@ -100,13 +100,18 @@ class Model:
     wts_in_compute_dtype: True when the model consumes feat_wts only after
     casting to compute_dtype — the precondition for the batcher's lossless
     bf16 weight transfer. folds_ids_on_host: the batcher may fold raw ids
-    into the vocab before transfer (models re-fold idempotently)."""
+    into the vocab before transfer (models re-fold idempotently).
+    score_output: the name of the per-candidate score vector in apply()'s
+    output dict, the one tensor the serving path ranks on: top-k output
+    compaction, the int8 score response wire and Classify / Regress key on
+    it."""
 
     config: ModelConfig
     init: Callable[..., Params]
     apply: Callable[[Params, Batch], dict[str, torch.Tensor]]
     shapes: Callable[[], Params] | None = None
     wts_in_compute_dtype: bool = True
+    score_output: str = "prediction_node"
     folds_ids_on_host: bool = True
     kind: str = ""
 

@@ -56,7 +56,6 @@ VARIANT_FLAGS = {
     PALLAS_INT8: (True, True),
 }
 
-SCORE_KEY = "prediction_node"
 CPU_REASON = "the CUDA kernels have no CPU mode"
 
 
@@ -235,12 +234,18 @@ class KernelManager:
 
     @staticmethod
     def _scores_of(batcher, servable, arrays, override) -> np.ndarray:
-        out = batcher._execute(servable, dict(arrays), (SCORE_KEY,), _kernel_override=override)
-        return np.asarray(out[SCORE_KEY], np.float32)
+        """The variant's scores for the |dscore| gate, as float32 on the
+        host: `_execute` reads back through the batcher's readback wire and
+        restores it (ops/transfer.py restore_outputs_host) before they are
+        compared."""
+        key = servable.model.score_output
+        out = batcher._execute(servable, dict(arrays), (key,), _kernel_override=override)
+        return np.asarray(out[key], np.float32)
 
     def _time_variant(self, batcher, servable, arrays, override, iters: int) -> float:
         def run():
-            batcher._execute(servable, dict(arrays), (SCORE_KEY,), _kernel_override=override)
+            batcher._execute(servable, dict(arrays), (servable.model.score_output,),
+                             _kernel_override=override)
             _sync(batcher.device)
 
         run()  # first call builds the variant
@@ -417,7 +422,7 @@ class KernelManager:
         for bucket, flags in sorted(decisions.items()):
             try:
                 arrays = self._tune_arrays(b, servable, bucket)
-                for out_keys in (None, (SCORE_KEY,)):
+                for out_keys in (None, (servable.model.score_output,)):
                     b._execute(servable, dict(arrays), out_keys, _kernel_override=flags)
             except Exception:  # noqa: BLE001 — first live use builds it instead
                 if flags[1]:

@@ -15,6 +15,14 @@ The serving path uploads a batch as ONE combined uint8 buffer
 bytes back to back in sorted key order, described by `combined_layout`. The
 per-key path (`pack_host` / `to_device` / `unpack_device`, one copy per
 input) stays for inputs `combined_supported` refuses.
+
+The output half (the readback wire) shapes what comes back: float32
+outputs are downcast on the device to the wire dtype (bf16, f16, or int8
+with a per-tensor (scale, min) sidecar pair) by `compact_outputs_device`,
+or reduced to the top-k (score, index) pairs of one request by
+`topk_compact_device`, and widened back to float32 on the host by
+`restore_outputs_host` / `topk_restore_host` before anything user-visible
+sees them. All four are plain torch ops on their tensors' own device.
 """
 
 from __future__ import annotations
@@ -178,3 +186,134 @@ def unpack_device_combined(buf: torch.Tensor, layout: tuple) -> dict[str, torch.
             seg = seg.clone()
         out[key] = seg.view(dt).reshape(n, *trailing)
     return out
+
+
+# ------------------------------------------------------- output compaction
+#
+# The readback wire: the device step's float32 outputs cross the D2H copy
+# at the wire dtype and are widened back to float32 on the host by the
+# completion worker. Same names, keys and arithmetic as the JAX package's
+# ops/transfer.py, so either side's wire decodes the other's.
+
+_WIRE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16, "float16": torch.float16,
+                "int8": torch.int8}
+
+# int8 readback wire: affine int8 over the tensor's live range (254 levels,
+# worst-case error range/508), the per-tensor scale and min riding as two
+# 1-element float32 sidecar outputs that restore_outputs_host consumes.
+Q8_LEVELS = 254.0
+Q8_SCALE_SUFFIX = "::q8scale"
+Q8_MIN_SUFFIX = "::q8min"
+# float32(1 / 254): the JAX package runs quantize_output_device under
+# jax.jit, where XLA turns the division by the constant 254 into a
+# multiplication by this reciprocal. Multiplying here keeps the scale
+# bit-identical to the reference's (a true division differs by one ulp for
+# some inputs).
+_Q8_INV_LEVELS = float(np.float32(1.0) / np.float32(Q8_LEVELS))
+
+
+def is_wire_sidecar(key: str) -> bool:
+    """True for the scale / min sidecar keys the int8 wire adds: they ride
+    the readback with their output and are stripped by
+    restore_outputs_host."""
+    return key.endswith(Q8_SCALE_SUFFIX) or key.endswith(Q8_MIN_SUFFIX)
+
+
+def output_wire_dtype(name: str) -> torch.dtype | None:
+    """The torch dtype of an output wire-dtype name; None for float32 (no
+    downcast). An unknown name is refused."""
+    if name not in _WIRE_DTYPES:
+        raise ValueError(f"unknown output wire dtype {name!r}; have {sorted(_WIRE_DTYPES)}")
+    return _WIRE_DTYPES[name]
+
+
+def quantize_output_device(v: torch.Tensor):
+    """Affine int8 quantization of one float32 output on its device:
+    (q int8, scale [1] f32, min [1] f32), all device tensors (no host
+    sync). A constant tensor gets the 1e-8 scale and round-trips exactly."""
+    v32 = v.float()
+    mn = v32.min()
+    # An f32 product whether taken in f32 or in double (exact there), so
+    # the card and the CPU round it alike.
+    scale = torch.clamp_min((v32.max() - mn) * _Q8_INV_LEVELS, 1e-8)
+    q = torch.clamp(torch.round((v32 - mn) / scale), 0.0, Q8_LEVELS) - 127.0
+    return q.to(torch.int8), scale.reshape(1), mn.reshape(1)
+
+
+def compact_outputs_device(outputs: dict[str, torch.Tensor],
+                           wire_dt: torch.dtype | None) -> dict[str, torch.Tensor]:
+    """Downcast the float32 outputs to the wire dtype on their device, so
+    only the compact bytes are read back. Other dtypes pass through (the
+    transform must stay invertible by restore_outputs_host). The int8 wire
+    adds each quantized output's (scale, min) sidecar pair."""
+    if wire_dt is None:
+        return dict(outputs)
+    out: dict[str, torch.Tensor] = {}
+    for k, v in outputs.items():
+        if v.dtype != torch.float32:
+            out[k] = v
+        elif wire_dt == torch.int8:
+            out[k], out[k + Q8_SCALE_SUFFIX], out[k + Q8_MIN_SUFFIX] = quantize_output_device(v)
+        else:
+            out[k] = v.to(wire_dt)
+    return out
+
+
+def _host_numpy(v) -> np.ndarray:
+    """A host tensor or array as an owned numpy array; bf16, which numpy
+    lacks, widened to float32 (exact)."""
+    if isinstance(v, torch.Tensor):
+        if v.dtype == torch.bfloat16:
+            return v.float().numpy()
+        return v.numpy().copy()
+    return np.array(v)
+
+
+def restore_outputs_host(host: dict) -> dict[str, np.ndarray]:
+    """Host inverse of compact_outputs_device: host tensors (or arrays) in,
+    owned numpy arrays out. bf16 / f16 outputs widen to float32; an int8
+    output with its two sidecars is dequantized through
+    codec.dequantize_scores (the one dequantization the response wire
+    uses too); the sidecars are dropped. An int8 output without sidecars
+    is a genuine int8 output and passes through."""
+    from ..codec import dequantize_scores  # codec pulls the proto bindings
+
+    out = {}
+    for k, v in host.items():
+        if is_wire_sidecar(k):
+            continue
+        scale, mn = host.get(k + Q8_SCALE_SUFFIX), host.get(k + Q8_MIN_SUFFIX)
+        arr = _host_numpy(v)
+        if arr.dtype == np.float16:
+            arr = arr.astype(np.float32)
+        elif arr.dtype == np.int8 and scale is not None and mn is not None:
+            arr = dequantize_scores(arr, float(scale[0]), float(mn[0]))
+        out[k] = arr
+    return out
+
+
+def topk_compact_device(scores: torch.Tensor, n_valid: int, k: int,
+                        wire_dt: torch.dtype | None) -> dict[str, torch.Tensor]:
+    """Top-k output compaction on the device: the k best (score, index)
+    pairs of the first `n_valid` rows (padding rows masked to -inf, so they
+    never outrank a candidate). Selected on the float32 scores by a stable
+    descending sort, which orders ties by index as jax.lax.top_k does
+    (torch.topk does not). The values go out at the wire dtype; the int8
+    wire sends them as bf16, as the JAX package does. `n_valid` is a
+    Python int: nothing here waits for the device."""
+    s32 = scores.float()
+    pad = torch.arange(s32.shape[0], device=s32.device) >= n_valid
+    vals, idx = torch.sort(s32.masked_fill(pad, float("-inf")), descending=True, stable=True)
+    vals, idx = vals[:k], idx[:k]
+    if wire_dt is not None:
+        vals = vals.to(torch.bfloat16 if wire_dt == torch.int8 else wire_dt)
+    return {"topk_scores": vals, "topk_indices": idx.to(torch.int32)}
+
+
+def topk_restore_host(vals, idx, n: int, score_key: str) -> dict[str, np.ndarray]:
+    """Host inverse of topk_compact_device: the k pairs scattered into a
+    float32 vector of n with 0.0 off the head (sigmoid scores are positive,
+    so a ranking consumer sees the same head; the tail is unranked)."""
+    scores = np.zeros(n, np.float32)
+    scores[_host_numpy(idx)] = _host_numpy(vals).astype(np.float32)
+    return {score_key: scores}

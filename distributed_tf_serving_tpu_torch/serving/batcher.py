@@ -34,6 +34,15 @@ readback and per-request completion.
   dispatch thread goes on to the next batch while a readback is in flight.
   Upload, step and readback run in order on the dispatch thread's current
   stream, so the readback needs no cross-stream synchronization.
+- **The readback wire.** Between the step and the readback issue the
+  outputs are shaped on the device (ops/transfer.py): float32 outputs
+  downcast to `output_wire_dtype` (bf16, f16, or int8 with its (scale,
+  min) sidecars), or, for a single request that asked for exactly the
+  score output, only its `output_top_k` best (score, index) pairs. The
+  completion worker widens them back to float32 on the host; no sidecar
+  reaches a result.
+- **Solo items.** A streamed sub-batch (`submit(..., _solo=True)`) is its
+  own batch: the coalescer neither adds it to a group nor adds to it.
 """
 
 from __future__ import annotations
@@ -57,13 +66,18 @@ from ..ops.transfer import (
     combined_layout,
     combined_nbytes,
     combined_supported,
+    compact_outputs_device,
     pack_host,
     pack_host_combined,
+    restore_outputs_host,
     to_device,
+    topk_compact_device,
+    topk_restore_host,
     transfer_spec,
     unpack_device,
     unpack_device_combined,
 )
+from ..ops.transfer import output_wire_dtype as wire_dtype_of
 
 log = logging.getLogger("dts_torch.batcher")
 
@@ -141,6 +155,7 @@ class _WorkItem:
     future: Future
     enqueue_t: float
     deadline_t: float | None = None
+    solo: bool = False  # a streamed sub-batch: never coalesced
 
 
 @dataclasses.dataclass
@@ -161,6 +176,12 @@ class BatcherStats:
     # on the host, `blocked` how long the waiting thread stalled in it.
     readback_window_s: float = 0.0
     readback_blocked_s: float = 0.0
+    # The readback wire (live batches): batches read back as top-k pairs,
+    # the bytes the D2H copies moved, and what a float32 readback of every
+    # output of the step would have moved (the compaction's baseline).
+    topk_batches: int = 0
+    bytes_downloaded: int = 0
+    bytes_download_full_f32: int = 0
 
     @property
     def readback_overlap_fraction(self) -> float:
@@ -200,6 +221,7 @@ class _Staged:
     src: object  # _FusedCtx or padded arrays
     keys: tuple[str, ...] | None
     collected_t: float
+    topk: int = 0  # > 0: read back the top-k pairs of the one request
 
 
 @dataclasses.dataclass(eq=False)
@@ -211,6 +233,9 @@ class _Readback:
     issue_t: float
     stage_t: float = 0.0
     ready_t: float = 0.0
+    nbytes: int = 0  # bytes the copies move
+    full_f32_bytes: int = 0  # a float32 readback of every output of the step
+    topk: tuple | None = None  # (request rows, score key) of a top-k readback
 
 
 class _HostBufferRing:
@@ -279,12 +304,16 @@ class DynamicBatcher:
         fused_kernel: bool = True,
         completion_workers: int = 4,
         pipeline_depth: int = 2,
+        output_wire_dtype: str = "float32",
+        output_top_k: int = 0,
     ):
         """fused_kernel=False serves dcn_v2 through model.apply (the
         configuration where `use_pallas_cross` routes only the cross stack
         through its kernel) instead of the fused serve kernel.
         pipeline_depth: assembled groups staged for the device stage,
-        counting the one it runs (1 = assembly and device stage in turn)."""
+        counting the one it runs (1 = assembly and device stage in turn).
+        output_wire_dtype ("float32", "bfloat16", "float16", "int8") and
+        output_top_k (0 = off) set the readback wire."""
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # An indexed device, for the worker threads' set_device.
@@ -301,6 +330,9 @@ class DynamicBatcher:
             self.buckets[-1],
         )
         self.fused_kernel = fused_kernel
+        self.output_wire_dtype = output_wire_dtype
+        self._wire_dt = wire_dtype_of(output_wire_dtype)  # an unknown name raises here
+        self.output_top_k = max(int(output_top_k or 0), 0)
         self.completion_workers = max(int(completion_workers), 1)
         # Read at every hand-off, so it may be changed while serving.
         self.pipeline_depth = max(int(pipeline_depth), 1)
@@ -366,11 +398,13 @@ class DynamicBatcher:
         arrays: dict[str, np.ndarray],
         output_keys: tuple[str, ...] | None = None,
         deadline_s: float | None = None,
+        _solo: bool = False,
     ) -> Future:
         """Enqueue one request's arrays; returns a Future of output arrays
         sliced back to the request's own candidate count. output_keys limits
         which outputs are read back. deadline_s is the client's remaining
-        budget: an item still queued when it expires is shed."""
+        budget: an item still queued when it expires is shed. _solo (a
+        streamed sub-batch) makes the item a batch of its own."""
         if self._stopping:
             raise RuntimeError("batcher is stopped")
         ns = {k: v.shape[0] for k, v in arrays.items()}
@@ -395,7 +429,7 @@ class DynamicBatcher:
         item = _WorkItem(
             servable=servable, arrays=prepared, n=n, output_keys=output_keys,
             future=Future(), enqueue_t=now,
-            deadline_t=None if deadline_s is None else now + deadline_s,
+            deadline_t=None if deadline_s is None else now + deadline_s, solo=_solo,
         )
         with self._cv:
             self._items.append(item)
@@ -586,8 +620,11 @@ class DynamicBatcher:
         non-blocking copy per output and a CUDA event after them (the copy
         is done when the event is). On the CPU the copy is done on return."""
         host = {}
+        nbytes = 0
         for k, v in out.items():
-            buf = self.ring.acquire(v.numel() * v.element_size())
+            size = v.numel() * v.element_size()
+            nbytes += size
+            buf = self.ring.acquire(size)
             view = buf.view(v.dtype).view(v.shape)
             view.copy_(v, non_blocking=self.device.type == "cuda")
             host[k] = (buf, view)
@@ -595,15 +632,42 @@ class DynamicBatcher:
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
-        return _Readback(out=host, event=event, issue_t=time.perf_counter())
+        return _Readback(out=host, event=event, issue_t=time.perf_counter(), nbytes=nbytes)
+
+    def _shape_outputs(self, servable: Servable, out: dict[str, torch.Tensor],
+                       output_keys: tuple[str, ...] | None, topk: int,
+                       n_valid: int) -> dict[str, torch.Tensor]:
+        """The readback wire on the device, between the step and the
+        readback issue: the top-k pairs of the score output, or the
+        selected outputs at the wire dtype. Device tensors only: nothing
+        here waits for the card."""
+        if topk:
+            return topk_compact_device(out[servable.model.score_output], n_valid, topk,
+                                       self._wire_dt)
+        if output_keys is not None:
+            out = {k: v for k, v in out.items() if k in output_keys} or out
+        return compact_outputs_device(out, self._wire_dt)
+
+    def _restore(self, rb: _Readback) -> dict[str, np.ndarray]:
+        """A readback's host views as owned float32 outputs (the wire
+        undone, sidecars dropped)."""
+        views = {k: view for k, (_, view) in rb.out.items()}
+        if rb.topk is not None:
+            n, key = rb.topk
+            return topk_restore_host(views["topk_scores"], views["topk_indices"], n, key)
+        if self._wire_dt is not None:
+            return restore_outputs_host(views)
+        return {k: v.numpy().copy() for k, v in views.items()}
 
     def _issue(self, servable: Servable, src, rows: int, output_keys: tuple[str, ...] | None,
-               override=None, per_key: bool = False) -> _Readback:
+               override=None, per_key: bool = False, topk: int = 0,
+               n_valid: int = 0) -> _Readback:
         """The device stage of one padded batch, up to the readback issue:
         pack into a ring buffer, one upload, the device step, the readback
-        copies. `src` is a _FusedCtx or the padded arrays; per_key (or
-        inputs the combined layout cannot carry) uploads one copy per
-        input instead."""
+        wire, the readback copies. `src` is a _FusedCtx or the padded
+        arrays; per_key (or inputs the combined layout cannot carry)
+        uploads one copy per input instead. topk > 0 reads back the top-k
+        pairs of the first n_valid rows' scores."""
         entry = self.step_for(servable)
         step, params, fused = self._step(servable, entry, rows, override)
         held, event = None, None
@@ -619,9 +683,13 @@ class DynamicBatcher:
                 batch = unpack_device_combined(dbuf, layout)
             with torch.inference_mode():
                 out = step(params, batch)
-                if output_keys is not None:
-                    out = {k: v for k, v in out.items() if k in output_keys} or out
-                rb = self._issue_readback(out)
+                full = sum(v.numel() * (4 if v.is_floating_point() else v.element_size())
+                           for v in out.values())
+                rb = self._issue_readback(
+                    self._shape_outputs(servable, out, output_keys, topk, n_valid))
+            rb.full_f32_bytes = full
+            if topk:
+                rb.topk = (n_valid, servable.model.score_output)
         finally:
             if held is not None:
                 # Reusable once the copy that reads it is done (on the CPU
@@ -639,7 +707,7 @@ class DynamicBatcher:
             if rb.event is not None:
                 rb.event.synchronize()
             rb.ready_t = time.perf_counter()
-            host = {k: view.numpy().copy() for k, (_, view) in rb.out.items()}
+            host = self._restore(rb)
         finally:
             self.ring.release([buf for buf, _ in rb.out.values()])
         with self._stats_lock:
@@ -712,6 +780,7 @@ class DynamicBatcher:
                     continue
                 if (
                     nxt.servable is item.servable
+                    and not nxt.solo
                     and nxt.arrays.keys() == item.arrays.keys()
                     and total + nxt.n <= self.max_batch_candidates
                 ):
@@ -730,7 +799,7 @@ class DynamicBatcher:
                 group = [item]
                 total = item.n
                 deadline = item.enqueue_t + self.max_wait_s
-                while total < self.max_batch_candidates:
+                while total < self.max_batch_candidates and not item.solo:
                     nxt = self._coalesce_next(item, total, deadline)
                     if nxt is None:
                         break
@@ -767,11 +836,18 @@ class DynamicBatcher:
             keys = None
             if all(it.output_keys is not None for it in group):
                 keys = tuple(dict.fromkeys(k for it in group for k in it.output_keys))
+            # Top-k compaction: one request (top-k over a coalesced group
+            # would mix requests' candidates) that asked for exactly the
+            # score output (warmup batches ask for every output).
+            topk = 0
+            if (self.output_top_k and len(group) == 1 and 0 < self.output_top_k < total
+                    and keys == (servable.model.score_output,)):
+                topk = self.output_top_k
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
             self._fail(group, total, exc)
             return None
         return _Staged(group=group, total=total, bucket=bucket, src=src, keys=keys,
-                       collected_t=time.perf_counter())
+                       collected_t=time.perf_counter(), topk=topk)
 
     def _stage(self, staged: _Staged) -> None:
         """Hand a group to the dispatch thread; then wait while
@@ -818,7 +894,8 @@ class DynamicBatcher:
         thread."""
         stage_t = time.perf_counter()
         try:
-            rb = self._issue(st.group[0].servable, st.src, st.bucket, st.keys)
+            rb = self._issue(st.group[0].servable, st.src, st.bucket, st.keys,
+                             topk=st.topk, n_valid=st.total)
             rb.stage_t = stage_t
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
             self._fail(st.group, st.total, exc)
@@ -828,6 +905,9 @@ class DynamicBatcher:
             self.stats.requests += len(st.group)
             self.stats.candidates += st.total
             self.stats.padded_candidates += st.bucket
+            self.stats.topk_batches += bool(st.topk)
+            self.stats.bytes_downloaded += rb.nbytes
+            self.stats.bytes_download_full_f32 += rb.full_f32_bytes
         with self._cv:
             self._inflight += 1
         try:

@@ -1,12 +1,14 @@
-"""gRPC frontend: PredictionService (Predict, Classify, Regress,
-MultiInference, GetModelMetadata), ModelService (GetModelStatus) and
-grpc.health.v1 Health on one port, over PredictionServiceImpl.
+"""gRPC frontend: PredictionService (Predict, PredictStream, Classify,
+Regress, MultiInference, GetModelMetadata), ModelService (GetModelStatus)
+and grpc.health.v1 Health on one port, over PredictionServiceImpl; with
+`[transport] uds_path` (or --uds-path) on a Unix-domain socket as well.
 
 CLI:
 
     python -m distributed_tf_serving_tpu_torch.serving.server --port 9999 \
         [--config configs/latency.toml] [--device cuda|cpu] [--kernels] \
-        [--checkpoint DIR | --model-base-path DIR]
+        [--checkpoint DIR | --model-base-path DIR] [--uds-path PATH] \
+        [--stream-chunk N]
 
 serves, by default, a randomly initialized demo servable (numpy-seeded,
 `--seed`) of the configured model kind; `--checkpoint DIR` serves the
@@ -23,6 +25,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import signal
 import threading
 import time
@@ -45,11 +48,22 @@ from ..proto.service_grpc import (
     ModelServiceServicer,
     PredictionServiceServicer,
 )
-from ..utils.config import KernelsConfig, ServerConfig, load_config
+from ..utils.config import (
+    BatchingConfig,
+    KernelsConfig,
+    ServerConfig,
+    TransportConfig,
+    load_config,
+)
 from .batcher import DynamicBatcher
 from .service import PredictionServiceImpl, ServiceError
 
 log = logging.getLogger("dts_torch.server")
+
+# Request metadata: the int8 score response wire opt-in, and the
+# PredictStream sub-batch size override.
+SCORE_WIRE_KEY = "x-dts-score-wire"
+STREAM_CHUNK_KEY = "x-dts-stream-chunk"
 
 
 def _status(code_name: str) -> grpc.StatusCode:
@@ -64,6 +78,31 @@ def _deadline_of(context) -> float | None:
     return remaining
 
 
+def _score_wire_of(context) -> bool:
+    """True when the request opted into the int8 score response wire
+    (x-dts-score-wire: int8)."""
+    try:
+        for key, value in context.invocation_metadata() or ():
+            if key == SCORE_WIRE_KEY:
+                return str(value).strip().lower() == "int8"
+    except Exception:  # noqa: BLE001 — a metadata quirk must not fail the RPC
+        return False
+    return False
+
+
+def _stream_chunk_of(context) -> int | None:
+    """The request's PredictStream sub-batch size (x-dts-stream-chunk,
+    candidates per sub-batch; the service still clamps the chunk count).
+    None = the server's stream_chunk_candidates."""
+    try:
+        for key, value in context.invocation_metadata() or ():
+            if key == STREAM_CHUNK_KEY:
+                return max(int(value), 0) or None
+    except Exception:  # noqa: BLE001 — a malformed hint must not fail the RPC
+        return None
+    return None
+
+
 def _call(name: str, fn, request, context):
     """ServiceError -> grpc status; anything else -> INTERNAL."""
     try:
@@ -75,9 +114,21 @@ def _call(name: str, fn, request, context):
         context.abort(grpc.StatusCode.INTERNAL, f"internal error: {e}")
 
 
+def _call_stream(name: str, fn, request, context):
+    """_call for a server-streaming RPC: `fn(request)` returns a chunk
+    generator; an error aborts the stream after the chunks already sent."""
+    try:
+        yield from fn(request)
+    except ServiceError as e:
+        context.abort(_status(e.code), str(e))
+    except Exception as e:  # internal bug: surface as INTERNAL, keep serving
+        log.exception("internal error serving %s", name)
+        context.abort(grpc.StatusCode.INTERNAL, f"internal error: {e}")
+
+
 class GrpcPredictionService(PredictionServiceServicer):
-    """tensorflow.serving.PredictionService adapter; the RPCs not ported
-    yet (PredictStream) answer UNIMPLEMENTED (the servicer base class)."""
+    """tensorflow.serving.PredictionService adapter: every RPC of the
+    service, PredictStream included."""
 
     def __init__(self, impl: PredictionServiceImpl):
         self.impl = impl
@@ -87,7 +138,17 @@ class GrpcPredictionService(PredictionServiceServicer):
         return _call(name, lambda req: fn(req, deadline_s=deadline_s), request, context)
 
     def Predict(self, request, context):
-        return self._unary("Predict", self.impl.predict, request, context)
+        deadline_s = _deadline_of(context)
+        # The metadata is read only on a server whose plane armed the wire.
+        int8_wire = self.impl.int8_score_wire and _score_wire_of(context)
+        return _call("Predict", lambda req: self.impl.predict(
+            req, deadline_s=deadline_s, int8_wire=int8_wire), request, context)
+
+    def PredictStream(self, request, context):
+        deadline_s = _deadline_of(context)
+        chunk = _stream_chunk_of(context)
+        return _call_stream("PredictStream", lambda req: self.impl.predict_stream(
+            req, deadline_s=deadline_s, chunk=chunk), request, context)
 
     def Classify(self, request, context):
         return self._unary("Classify", self.impl.classify, request, context)
@@ -140,12 +201,28 @@ class GrpcHealthService:
         context.abort(grpc.StatusCode.UNIMPLEMENTED, "Watch not implemented")
 
 
+def _add_uds_port(server, uds_path: str) -> None:
+    """Bind the server to a Unix-domain socket next to its TCP port:
+    co-located clients dial `unix:<path>` and skip the loopback TCP stack.
+    A stale socket file of an earlier process is removed first (gRPC will
+    not bind over it)."""
+    try:
+        if os.path.exists(uds_path):
+            os.unlink(uds_path)
+    except OSError:
+        pass  # the bind below gives the actionable error
+    if server.add_insecure_port(f"unix:{uds_path}") == 0:
+        raise RuntimeError(f"could not bind unix:{uds_path}")
+
+
 def create_server(
     impl: PredictionServiceImpl,
     address: str = "127.0.0.1:0",
     max_workers: int = 16,
+    uds_path: str | None = None,
 ) -> tuple[grpc.Server, int]:
-    """Build (not start) a server; returns (server, bound_port)."""
+    """Build (not start) a server; returns (server, bound_port). `uds_path`
+    binds a Unix-domain socket as well ([transport] uds_path)."""
     server = grpc.server(
         futures.ThreadPoolExecutor(max_workers=max_workers, thread_name_prefix="rpc"),
         options=list(LARGE_MESSAGE_CHANNEL_OPTIONS) + list(KEEPALIVE_SERVER_OPTIONS),
@@ -156,6 +233,8 @@ def create_server(
     port = server.add_insecure_port(address)
     if port == 0:
         raise RuntimeError(f"could not bind {address}")
+    if uds_path:
+        _add_uds_port(server, uds_path)
     return server, port
 
 
@@ -201,7 +280,8 @@ def _servable_change_hook(name: str) -> None:
 def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None,
                 seed: int = 0, fused_kernel: bool = True,
                 kernels_config: KernelsConfig | None = None,
-                checkpoint=None, model_base_path=None):
+                checkpoint=None, model_base_path=None,
+                batching_config: BatchingConfig | None = None):
     """(impl, batcher, servable): the servable serving at start, warmed
     through every bucket (unless `cfg.warmup` is off), and a started
     batcher. The servable is the numpy-seeded demo (`seed`), the checkpoint
@@ -217,7 +297,12 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     start (a version hot-loaded later serves the baseline), and its
     decisions pick the device step. On a CUDA device a failed autotune
     raises and the server does not start; on the CPU it is logged and every
-    bucket serves the baseline."""
+    bucket serves the baseline. A built plane with int8_score_wire arms
+    this server's int8 score response wire.
+
+    The batcher reads back at `cfg.output_wire_dtype` and `output_top_k`;
+    `batching_config.stream_chunk_candidates` is PredictStream's default
+    split."""
     if checkpoint and model_base_path:
         raise ValueError(
             "--model-base-path is mutually exclusive with --checkpoint "
@@ -226,13 +311,17 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
         buckets=cfg.buckets, max_wait_us=cfg.max_wait_us, device=device,
         queue_capacity_candidates=cfg.queue_capacity_candidates,
         fused_kernel=fused_kernel, completion_workers=cfg.completion_workers,
-        pipeline_depth=cfg.pipeline_depth,
+        pipeline_depth=cfg.pipeline_depth, output_wire_dtype=cfg.output_wire_dtype,
+        output_top_k=cfg.output_top_k,
     )
     kernels = kernels_config.build() if kernels_config is not None else None
     batcher.kernels = kernels
     registry = ServableRegistry()
     impl = PredictionServiceImpl(registry, batcher)
     impl.warmup_complete = False
+    impl.int8_score_wire = kernels is not None and kernels.config.int8_score_wire
+    if batching_config is not None:
+        impl.stream_chunk_candidates = batching_config.stream_chunk_candidates
 
     def prepare_kernels(servable) -> None:
         if kernels is None or servable is None:
@@ -323,6 +412,12 @@ def serve(argv=None) -> None:
                         "(servable.json + params.safetensors)")
     source.add_argument("--model-base-path", help="serve the newest numeric version "
                         "directories under this path, hot-swapping new ones")
+    p.add_argument("--uds-path", help="also serve gRPC on this Unix-domain socket path "
+                   "(co-located clients dial unix:<path>). Equivalent to [transport] uds_path")
+    p.add_argument("--stream-chunk", type=int, default=None,
+                   help="default candidates per PredictStream sub-batch (0 = one chunk). "
+                   "Equivalent to [batching] stream_chunk_candidates; a request's "
+                   "x-dts-stream-chunk metadata overrides it")
     p.add_argument(
         "--kernels", action="store_true",
         help="kernel/quantization plane: int8 weight quantization and the fused "
@@ -342,16 +437,30 @@ def serve(argv=None) -> None:
     kernels_config = loaded.get("kernels") or KernelsConfig()
     if args.kernels:
         kernels_config = dataclasses.replace(kernels_config, enabled=True)
+    batching_config = loaded.get("batching") or BatchingConfig()
+    if args.stream_chunk is not None:
+        batching_config = dataclasses.replace(
+            batching_config, stream_chunk_candidates=max(args.stream_chunk, 0))
+    transport_config = loaded.get("transport") or TransportConfig()
+    if args.uds_path:
+        transport_config = dataclasses.replace(transport_config, uds_path=args.uds_path)
     impl, batcher, servable = build_stack(
         cfg, loaded.get("model"), args.device, args.seed, kernels_config=kernels_config,
         checkpoint=args.checkpoint, model_base_path=args.model_base_path,
+        batching_config=batching_config,
     )
-    server, port = create_server(impl, f"{cfg.host}:{cfg.port}", cfg.max_workers)
+    server, port = create_server(impl, f"{cfg.host}:{cfg.port}", cfg.max_workers,
+                                 uds_path=transport_config.uds_path or None)
     server.start()
     what = (f"{servable.name} v{servable.version}" if servable is not None
             else f"{cfg.model_name} (awaiting versions)")
     log.info("serving %s (%s) on %s:%d, device %s",
              what, cfg.model_kind, cfg.host, port, batcher.device)
+    if transport_config.uds_path:
+        log.info("also serving on unix:%s", transport_config.uds_path)
+    log.info("readback wire %s, top-k %d, PredictStream chunk %d, int8 score wire %s",
+             cfg.output_wire_dtype, cfg.output_top_k, impl.stream_chunk_candidates,
+             "armed" if impl.int8_score_wire else "off")
     servable = None  # a retired version must not stay alive here
     done = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: done.set())

@@ -1,8 +1,10 @@
 """PredictionService semantics, transport-free: ModelSpec resolution with
 latest-version default, signature lookup, input decode and validation
-against the signature, output_filter selection, the Example-input RPCs
-(Classify, Regress, MultiInference), and the model-status / metadata RPCs.
-server.py is a thin gRPC adapter over this class.
+against the signature, output_filter selection, the int8 score response
+wire, server-streaming Predict (PredictStream: the request split into
+sub-batches, each answered as its readback completes), the Example-input
+RPCs (Classify, Regress, MultiInference), and the model-status / metadata
+RPCs. server.py is a thin gRPC adapter over this class.
 
 Status codes: unknown model/version/signature -> NOT_FOUND; malformed
 tensors and signature mismatches -> INVALID_ARGUMENT; oversized batches and
@@ -55,10 +57,19 @@ class PredictionServiceImpl:
 
     # Bounded wait: a stuck batch must not hold an RPC thread forever.
     _BATCH_DEADLINE_S = 120.0
+    # At most this many sub-batches per PredictStream: a small chunk
+    # override on a big request is raised until the split fits.
+    _STREAM_MAX_CHUNKS = 64
 
     def __init__(self, registry: ServableRegistry, batcher: DynamicBatcher):
         self.registry = registry
         self.batcher = batcher
+        # Default candidates per PredictStream sub-batch ([batching]
+        # stream_chunk_candidates); 0 = one chunk.
+        self.stream_chunk_candidates = 0
+        # The int8 score response wire, armed per server by a built kernels
+        # plane with int8_score_wire = true (server.build_stack).
+        self.int8_score_wire = False
         # False while the server loads and warms up: health reports
         # NOT_SERVING until then.
         self.warmup_complete = True
@@ -211,6 +222,25 @@ class PredictionServiceImpl:
             raise ServiceError("DEADLINE_EXCEEDED", "client deadline already expired on arrival")
         return min(deadline_s, self._BATCH_DEADLINE_S)
 
+    @staticmethod
+    def _translate_batcher_error(exc: Exception, fut) -> ServiceError:
+        """One mapping from batcher failures to RPC status, for unary and
+        streamed Predicts alike. Re-raises anything that is not a batcher
+        failure (the transport answers INTERNAL)."""
+        if isinstance(exc, (BatchTooLargeError, QueueOverloadError)):
+            return ServiceError("RESOURCE_EXHAUSTED", str(exc))
+        if isinstance(exc, RequestDeadlineError):
+            # The batcher shed the queued item itself: nothing to withdraw.
+            return ServiceError("DEADLINE_EXCEEDED", str(exc))
+        if isinstance(exc, concurrent.futures.TimeoutError):
+            # Withdraw the work: a cancelled item is skipped by the batcher.
+            if fut is not None:
+                fut.cancel()
+            return ServiceError("DEADLINE_EXCEEDED", "batch execution timed out")
+        if isinstance(exc, RuntimeError):
+            return ServiceError("UNAVAILABLE", str(exc))
+        raise exc
+
     def _run(self, servable: Servable, arrays: dict[str, np.ndarray],
              output_keys: tuple[str, ...] | None, deadline_s: float | None) -> dict[str, np.ndarray]:
         timeout = self._effective_timeout(deadline_s)
@@ -219,20 +249,13 @@ class PredictionServiceImpl:
             fut = self.batcher.submit(servable, arrays, output_keys=output_keys,
                                       deadline_s=deadline_s)
             return fut.result(timeout=timeout)
-        except (BatchTooLargeError, QueueOverloadError) as e:
-            raise ServiceError("RESOURCE_EXHAUSTED", str(e)) from e
-        except RequestDeadlineError as e:
-            raise ServiceError("DEADLINE_EXCEEDED", str(e)) from e
-        except concurrent.futures.TimeoutError as e:
-            # Withdraw the work: a cancelled item is skipped by the batcher.
-            if fut is not None:
-                fut.cancel()
-            raise ServiceError("DEADLINE_EXCEEDED", "batch execution timed out") from e
-        except RuntimeError as e:
-            raise ServiceError("UNAVAILABLE", str(e)) from e
+        except Exception as e:  # noqa: BLE001 — the translator re-raises the rest
+            raise self._translate_batcher_error(e, fut) from e
 
-    def predict(self, request: apis.PredictRequest,
-                deadline_s: float | None = None) -> apis.PredictResponse:
+    def _predict_prepare(self, request: apis.PredictRequest):
+        """The front half of Predict and PredictStream: resolution, method
+        check, decode and validation, output_filter. Returns (servable,
+        arrays, out_names, fetch_keys)."""
         servable, signature = self._resolve(request.model_spec)
         if signature.method_name != "tensorflow/serving/predict":
             raise ServiceError(
@@ -254,25 +277,153 @@ class PredictionServiceImpl:
         else:
             out_names = sig_outputs
             fetch_keys = None
-        outputs = self._run(servable, arrays, fetch_keys, deadline_s)
-        produced = [k for k in out_names if k in outputs]
-        if len(produced) != len(out_names):
+        return servable, arrays, out_names, fetch_keys
+
+    @staticmethod
+    def _check_produced(out_names, outputs) -> None:
+        if any(k not in outputs for k in out_names):
             raise ServiceError(
                 "INTERNAL",
                 f"model produced {sorted(outputs)} but signature declares {out_names}",
             )
+
+    @staticmethod
+    def _mirror_content(request) -> bool:
+        """Mirror the client's encoding: repeated-field clients read
+        float_val, which is empty if the reply uses tensor_content."""
+        return any(request.inputs[name].tensor_content for name in request.inputs)
+
+    @staticmethod
+    def _encode_outputs(out_names, outputs, dest, mirror: bool) -> None:
+        """The one per-tensor encode loop of unary responses and stream
+        chunks, so their wire encodings cannot drift. `dest` is the
+        message's outputs map."""
+        for name in out_names:
+            codec.from_ndarray(np.asarray(outputs[name]), use_tensor_content=mirror,
+                               out=dest[name])
+
+    def predict(self, request: apis.PredictRequest, deadline_s: float | None = None,
+                int8_wire: bool = False) -> apis.PredictResponse:
+        """Unary Predict. int8_wire (the client opted in and this server's
+        kernels plane armed the wire) sends a float32 score output as
+        DT_INT8 plus its `/q8_scale` and `/q8_min` sidecar outputs."""
+        servable, arrays, out_names, fetch_keys = self._predict_prepare(request)
+        outputs = self._run(servable, arrays, fetch_keys, deadline_s)
+        self._check_produced(out_names, outputs)
         resp = apis.PredictResponse()
         resp.model_spec.CopyFrom(
             self._echo_spec(servable, request.model_spec.signature_name or "serving_default")
         )
-        # Mirror the client's encoding: repeated-field clients read
-        # float_val, which is empty if the reply uses tensor_content.
-        mirror = any(request.inputs[name].tensor_content for name in request.inputs)
-        for name in out_names:
-            codec.from_ndarray(
-                np.asarray(outputs[name]), use_tensor_content=mirror, out=resp.outputs[name]
-            )
+        mirror = self._mirror_content(request)
+        names = out_names
+        score_key = servable.model.score_output
+        if int8_wire and score_key in out_names and outputs[score_key].dtype == np.float32:
+            # Another dtype is never quantized: the wire guesses no scheme
+            # for a dtype it does not own.
+            names = [n for n in out_names if n != score_key]
+            q, scale, mn = codec.quantize_scores(outputs[score_key])
+            codec.from_ndarray(q, use_tensor_content=mirror, out=resp.outputs[score_key])
+            codec.from_ndarray(np.asarray([scale], np.float32), use_tensor_content=mirror,
+                               out=resp.outputs[score_key + codec.Q8_WIRE_SCALE_SUFFIX])
+            codec.from_ndarray(np.asarray([mn], np.float32), use_tensor_content=mirror,
+                               out=resp.outputs[score_key + codec.Q8_WIRE_MIN_SUFFIX])
+        self._encode_outputs(names, outputs, resp.outputs, mirror)
         return resp
+
+    # --------------------------------------------------------- PredictStream
+
+    def _stream_plan(self, n: int, chunk: int | None) -> list[tuple[int, int]]:
+        """[(offset, count)] sub-batch split of an n-candidate request.
+        `chunk` (the request's x-dts-stream-chunk) wins over
+        stream_chunk_candidates; 0 or absent on both = one chunk. The chunk
+        size is raised until the split has at most _STREAM_MAX_CHUNKS."""
+        chunk_n = int(chunk) if chunk else int(self.stream_chunk_candidates or 0)
+        if chunk_n <= 0 or chunk_n >= n:
+            return [(0, n)]
+        chunk_n = max(chunk_n, -(-n // self._STREAM_MAX_CHUNKS))
+        return [(off, min(chunk_n, n - off)) for off in range(0, n, chunk_n)]
+
+    def _stream_submit(self, request, deadline_t, chunk):
+        """Resolve, decode, split, and submit every sub-batch up front, so
+        they ride the batcher's pipeline independently. Returns (servable,
+        out_names, mirror, total, {future: (offset, count)}). A submit that
+        fails cancels the sub-batches already queued."""
+        servable, arrays, out_names, fetch_keys = self._predict_prepare(request)
+        total = next(iter(arrays.values())).shape[0]
+        plan = self._stream_plan(total, chunk)
+        # A split request's sub-batches are solo, so the coalescer never
+        # joins them back into the batch they were split from.
+        solo = len(plan) > 1
+        futs: dict = {}
+        try:
+            for off, cnt in plan:
+                sub = {k: v[off:off + cnt] for k, v in arrays.items()}
+                fut = self.batcher.submit(servable, sub, output_keys=fetch_keys,
+                                          deadline_s=self._budget_left(deadline_t), _solo=solo)
+                futs[fut] = (off, cnt)
+        except Exception as e:  # noqa: BLE001 — the translator re-raises the rest
+            for f in futs:
+                f.cancel()
+            raise self._translate_batcher_error(e, None) from e
+        return servable, out_names, self._mirror_content(request), total, futs
+
+    def _encode_stream_chunk(self, request, servable, out_names, outputs, off: int, cnt: int,
+                             total: int, final: bool, mirror: bool) -> apis.PredictStreamChunk:
+        """One sub-batch's outputs as a PredictStreamChunk (the unary
+        response's encode loop)."""
+        self._check_produced(out_names, outputs)
+        chunk = apis.PredictStreamChunk()
+        chunk.model_spec.CopyFrom(
+            self._echo_spec(servable, request.model_spec.signature_name or "serving_default")
+        )
+        chunk.offset = int(off)
+        chunk.count = int(cnt)
+        chunk.total = int(total)
+        chunk.final = bool(final)
+        self._encode_outputs(out_names, outputs, chunk.outputs, mirror)
+        return chunk
+
+    def predict_stream(self, request: apis.PredictRequest, deadline_s: float | None = None,
+                       chunk: int | None = None):
+        """Server-streaming Predict: a generator of PredictStreamChunk. The
+        request is split into sub-batches (_stream_plan) that ride the
+        batcher independently, and each chunk is yielded as its readback
+        completes, possibly out of order (chunks carry offset and count;
+        exactly one is `final`). Unary Predict's resolution, validation,
+        encode and status codes otherwise: a failed sub-batch cancels its
+        siblings and aborts the stream with the translated status; a
+        deadline that runs out mid-stream aborts with DEADLINE_EXCEEDED."""
+        deadline_t = self._clock_deadline(deadline_s)
+        give_up_t = time.perf_counter() + self._effective_timeout(deadline_s)
+        servable, out_names, mirror, total, futs = self._stream_submit(request, deadline_t, chunk)
+        pending = set(futs)
+        emitted = 0
+        try:
+            while pending:
+                left = give_up_t - time.perf_counter()
+                if left <= 0:
+                    raise ServiceError(
+                        "DEADLINE_EXCEEDED",
+                        f"deadline expired mid-stream ({emitted}/{len(futs)} sub-batches "
+                        "delivered)",
+                    )
+                done, pending = concurrent.futures.wait(
+                    pending, timeout=left, return_when=concurrent.futures.FIRST_COMPLETED)
+                for fut in done:
+                    try:
+                        outputs = fut.result()
+                    except Exception as e:  # noqa: BLE001 — the translator re-raises the rest
+                        raise self._translate_batcher_error(e, fut) from e
+                    off, cnt = futs[fut]
+                    emitted += 1
+                    yield self._encode_stream_chunk(
+                        request, servable, out_names, outputs, off, cnt, total,
+                        final=emitted == len(futs), mirror=mirror)
+        except BaseException:
+            # Failure, deadline or a client gone: withdraw what is queued.
+            for f in pending:
+                f.cancel()
+            raise
 
     # ---------------------------------------------------- Classify / Regress
 
@@ -285,7 +436,7 @@ class PredictionServiceImpl:
             arrays = decode_input(request.input, servable.model.config.num_fields)
         except ExampleDecodeError as e:
             raise ServiceError("INVALID_ARGUMENT", str(e)) from e
-        outputs = self._run(servable, arrays, ("prediction_node",),
+        outputs = self._run(servable, arrays, (servable.model.score_output,),
                             self._budget_left(deadline_t))
         return servable, outputs
 
@@ -297,7 +448,7 @@ class PredictionServiceImpl:
         resp.model_spec.CopyFrom(
             self._echo_spec(servable, request.model_spec.signature_name or "classify")
         )
-        for p in outputs["prediction_node"]:
+        for p in outputs[servable.model.score_output]:
             cls = resp.result.classifications.add()
             cls.classes.add(label="0", score=float(1.0 - p))
             cls.classes.add(label="1", score=float(p))
@@ -311,7 +462,7 @@ class PredictionServiceImpl:
         resp.model_spec.CopyFrom(
             self._echo_spec(servable, request.model_spec.signature_name or "regress")
         )
-        for p in outputs["prediction_node"]:
+        for p in outputs[servable.model.score_output]:
             resp.result.regressions.add(value=float(p))
         return resp
 

@@ -1,9 +1,9 @@
-"""TOML config: the [server], [batching], [model] and [kernels] sections the
-port reads.
+"""TOML config: the [server], [batching], [transport], [model] and [kernels]
+sections the port reads.
 
 Other sections of the JAX package's config files (planes this package has
-not ported yet) are ignored with one log line, as are [server] keys that
-have no counterpart here.
+not ported yet) are ignored with one log line, as are [server] and
+[batching] keys that have no counterpart here.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import tomllib
 from typing import Any
 
 from ..models.base import ModelConfig
+from ..ops.transfer import output_wire_dtype
 
 log = logging.getLogger("dts_torch.config")
 
@@ -52,28 +53,81 @@ class ServerConfig:
     # --max_num_load_retries (retries AFTER the first attempt).
     file_system_poll_wait_seconds: float = 5.0
     max_num_load_retries: int = 2
+    # Readback wire dtype: float32 outputs are downcast on the device
+    # before the D2H copy and widened back to float32 on the host.
+    # "float32" = no downcast (bit-exact); "bfloat16" / "float16" halve the
+    # readback bytes; "int8" quarters them (affine, range/508 worst case).
+    output_wire_dtype: str = "float32"
+    # > 0: a single-request batch that asked for exactly the score output
+    # reads back only its top-k (score, index) pairs; the host rebuilds the
+    # full-length vector with 0.0 off the head. 0 = off.
+    output_top_k: int = 0
 
     def __post_init__(self):
         for name in ("completion_workers", "pipeline_depth"):
             v = getattr(self, name)
             if not isinstance(v, int) or isinstance(v, bool) or v < 1:
                 raise ValueError(f"[server] {name} must be a positive integer, got {v!r}")
+        output_wire_dtype(self.output_wire_dtype)  # an unknown name raises
+        v = self.output_top_k
+        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+            raise ValueError(f"[server] output_top_k must be a non-negative integer, got {v!r}")
 
 
 @dataclasses.dataclass(frozen=True)
 class BatchingConfig:
-    """The [batching] section: the dispatch pipeline's depth. The JAX
-    package's other [batching] keys (inflight_window, buffer_ring,
-    stream_chunk_candidates) are not ported yet and are ignored with one
-    log line."""
+    """The [batching] section: the dispatch pipeline's depth and the
+    PredictStream sub-batch split. The JAX package's other [batching] keys
+    (inflight_window, buffer_ring) are not ported yet and are ignored with
+    one log line."""
 
     # 0 = inherit [server] pipeline_depth; >= 1 otherwise.
     pipeline_depth: int = 0
+    # Default candidates per PredictStream sub-batch (the server-side
+    # split; a request's x-dts-stream-chunk metadata overrides it). 0 = no
+    # split: PredictStream answers with one chunk.
+    stream_chunk_candidates: int = 0
 
     def __post_init__(self):
-        v = self.pipeline_depth
-        if not isinstance(v, int) or isinstance(v, bool) or v < 0:
-            raise ValueError(f"[batching] pipeline_depth must be a non-negative integer, got {v!r}")
+        for name in ("pipeline_depth", "stream_chunk_candidates"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                raise ValueError(f"[batching] {name} must be a non-negative integer, got {v!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportConfig:
+    """The [transport] section: the Unix-domain-socket listener for
+    co-located clients. The JAX package's response_arena parses and is
+    refused (not ported)."""
+
+    # Also bind the gRPC server to this Unix-domain socket path, next to
+    # the TCP port; co-located clients dial "unix:<path>". "" = TCP only.
+    uds_path: str = ""
+    # Not ported; the key parses so the JAX package's config files load.
+    response_arena: bool = False
+
+    def __post_init__(self):
+        if self.uds_path:
+            if not isinstance(self.uds_path, str):
+                raise ValueError("[transport] uds_path must be a string")
+            # The kernel's sockaddr_un limit is ~107 bytes: fail at parse,
+            # not at bind time.
+            if len(self.uds_path.encode()) > 100:
+                raise ValueError(
+                    "[transport] uds_path exceeds the AF_UNIX path limit "
+                    f"(~107 bytes): {self.uds_path!r}"
+                )
+            if ":" in self.uds_path:
+                raise ValueError(
+                    "[transport] uds_path is a filesystem path, not a "
+                    f"host:port or URI: {self.uds_path!r}"
+                )
+        if self.response_arena:
+            raise ValueError(
+                "[transport] response_arena is not ported yet (ROADMAP.md Queue A "
+                "item 5)"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,8 +163,10 @@ class KernelsConfig:
     measure_iters: int = 0
     # Subset of the bucket ladder to tune; empty = the whole ladder.
     autotune_buckets: tuple[int, ...] = ()
-    # The int8 score response wire is not ported yet; the key parses so the
-    # JAX package's config files load unchanged.
+    # The int8 score response wire: a Predict whose metadata carries
+    # x-dts-score-wire: int8 gets its score tensor as DT_INT8 plus the
+    # (scale, min) sidecars. Armed only by a built (enabled) plane, and per
+    # server (PredictionServiceImpl.int8_score_wire).
     int8_score_wire: bool = False
 
     def __post_init__(self):
@@ -130,11 +186,6 @@ class KernelsConfig:
                     "[kernels] autotune_buckets must be positive integers, "
                     f"got {self.autotune_buckets!r}"
                 )
-        if self.int8_score_wire:
-            raise ValueError(
-                "[kernels] int8_score_wire is not ported yet (ROADMAP.md Queue A "
-                "item 4, output compaction and the int8 score wire)"
-            )
 
     def build(self):
         """KernelManager per this config, or None when disabled."""
@@ -164,7 +215,8 @@ def _coerce(cls, data: dict[str, Any], section: str, strict: bool):
 
 
 def load_config(path) -> dict[str, Any]:
-    """Parse a TOML file: {"server": ServerConfig, "model": ModelConfig,
+    """Parse a TOML file: {"server": ServerConfig, "batching":
+    BatchingConfig, "transport": TransportConfig, "model": ModelConfig,
     "kernels": KernelsConfig} ("model" and "kernels" only when the file has
     that section). A nonzero [batching] pipeline_depth replaces the
     [server] one, as in the JAX package's server."""
@@ -173,12 +225,16 @@ def load_config(path) -> dict[str, Any]:
     batching = _coerce(BatchingConfig, raw.get("batching", {}), "batching", False)
     if batching.pipeline_depth:
         server = dataclasses.replace(server, pipeline_depth=batching.pipeline_depth)
-    out: dict[str, Any] = {"server": server}
+    out: dict[str, Any] = {
+        "server": server,
+        "batching": batching,
+        "transport": _coerce(TransportConfig, raw.get("transport", {}), "transport", True),
+    }
     if "model" in raw:
         out["model"] = _coerce(ModelConfig, raw["model"], "model", True)
     if "kernels" in raw:
         out["kernels"] = _coerce(KernelsConfig, raw["kernels"], "kernels", True)
-    extra = sorted(set(raw) - {"server", "batching", "model", "kernels"})
+    extra = sorted(set(raw) - {"server", "batching", "transport", "model", "kernels"})
     if extra:
         log.info("ignoring config sections this package does not use: %s", extra)
     return out

@@ -12,7 +12,8 @@ Tolerances: fused serve scores (float and int8 weights) 2e-5 (f32) / 5e-3
 rtol = atol = 1e-5 (f32) / 2e-2 (bf16), and bit for bit across its (rows
 per block, cluster) plans; the f32 kernels on unit-normal inputs within
 twice the plain f32 version's error from float64; the int8 kernel through the batcher 5e-3 against
-the quantized model.apply.
+the quantized model.apply; the readback wire's top-k selection and int8
+quantization on the card bit for bit those of the CPU.
 """
 
 import dataclasses
@@ -576,3 +577,47 @@ def test_pipelined_pinned_ring_is_bit_identical_to_the_per_key_path(cuda_device,
     assert s.native_packs - before.native_packs == (64 if compute_dtype == "bfloat16" else 0)
     assert batcher.ring.snapshot()["reuses"] > 0
     assert s.readback_overlap_fraction > 0
+
+
+# -------------------------------------------------------- the readback wire
+
+# (scores, n_valid, k), ties included: on the CPU the port's top-k indices
+# equal jax.lax.top_k's (tests/test_torch_outputs.py); here the card's must
+# equal the CPU's.
+_TOPK_CASES = [
+    (np.array([.5, .7, .7, .1, .7, .5], np.float32), 6, 4),
+    (np.full(2048, 0.25, np.float32), 2000, 100),
+    (np.round(np.random.RandomState(1).rand(2048), 2).astype(np.float32), 2048, 100),
+    (np.random.RandomState(2).rand(256).astype(np.float32), 200, 100),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", range(len(_TOPK_CASES)))
+def test_topk_on_the_card_selects_as_on_the_cpu(cuda_device, case, wire):
+    from distributed_tf_serving_tpu_torch.ops.transfer import output_wire_dtype, topk_compact_device
+
+    scores, n_valid, k = _TOPK_CASES[case]
+    wdt = output_wire_dtype(wire)
+    cpu = topk_compact_device(torch.from_numpy(scores), n_valid, k, wdt)
+    card = topk_compact_device(torch.from_numpy(scores).to(cuda_device), n_valid, k, wdt)
+    assert torch.equal(card["topk_indices"].cpu(), cpu["topk_indices"])
+    assert torch.equal(card["topk_scores"].cpu(), cpu["topk_scores"])
+    want = np.argsort(-np.where(np.arange(len(scores)) < n_valid, scores, -np.inf),
+                      kind="stable")[:k]
+    np.testing.assert_array_equal(card["topk_indices"].cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 256, 2048])
+def test_int8_wire_on_the_card_is_bit_identical_to_the_cpu(cuda_device, n):
+    from distributed_tf_serving_tpu_torch.ops.transfer import quantize_output_device
+
+    rng = np.random.RandomState(n)
+    for v in (rng.rand(n).astype(np.float32), (rng.randn(n) * 4).astype(np.float32),
+              np.full(n, 0.375, np.float32)):
+        cpu = quantize_output_device(torch.from_numpy(v))
+        card = quantize_output_device(torch.from_numpy(v).to(cuda_device))
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b)

@@ -10,6 +10,7 @@ the fused variants' own checks run on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
 
 import asyncio
+import dataclasses
 import json
 import os
 
@@ -120,8 +121,6 @@ def test_kernels_config_parsing_matches_jax(tmp_path):
     # Same fields and defaults as the JAX package's [kernels] section, but
     # its own table file: a JAX server and a port server in one checkout
     # must not overwrite each other's persisted decisions.
-    import dataclasses
-
     ours = {f.name: f.default for f in dataclasses.fields(KernelsConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxKernelsConfig)}
     assert ours.pop("table_file") == "artifacts/kernel_autotune_torch.json"
@@ -145,13 +144,25 @@ def test_kernels_config_validation():
     assert isinstance(KernelsConfig(enabled=True, table_file="").build(), KernelManager)
 
 
-def test_int8_score_wire_is_refused_until_ported(tmp_path):
-    with pytest.raises(ValueError, match="int8_score_wire.*ROADMAP"):
-        KernelsConfig(int8_score_wire=True)
+def test_int8_score_wire_parses_and_arms_only_a_built_plane(tmp_path):
+    """The key parses; a built (enabled) plane arms its own server's int8
+    score response wire, and enabled = false leaves it off."""
     path = tmp_path / "cfg.toml"
     path.write_text("[kernels]\nenabled = true\nint8_score_wire = true\n")
-    with pytest.raises(ValueError, match="int8_score_wire"):
-        load_config(path)
+    kcfg = load_config(path)["kernels"]
+    assert kcfg.int8_score_wire and kcfg.enabled
+    assert kcfg.build().config.int8_score_wire
+    assert dataclasses.replace(kcfg, enabled=False).build() is None
+    cfg = ServerConfig(num_fields=F, buckets=(16,), max_wait_us=0)
+    armed = {}
+    for enabled in (True, False):
+        impl, batcher, _ = build_stack(
+            cfg, ModelConfig(**KW), "cpu",
+            kernels_config=dataclasses.replace(kcfg, enabled=enabled, autotune=False,
+                                               table_file=""))
+        batcher.stop()
+        armed[enabled] = impl.int8_score_wire
+    assert armed == {True: True, False: False}
     path.write_text("[kernels]\nnot_a_knob = 1\n")
     with pytest.raises(ValueError, match="not_a_knob"):
         load_config(path)
