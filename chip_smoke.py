@@ -143,12 +143,34 @@ Phases (any failure exits non-zero and prints no result line):
              Predict p50 (20 each), and the GetModelMetadata floor p50 over
              TCP and over the socket. fused_serve/bfloat16 must launch.
 
+8. families — the other model families (wide_deep, deepfm, generic, dlrm,
+             two_tower) at the full width of configs/latency.toml [model]
+             (DLRM: 13 dense features, bottom MLP 64/32/16; two_tower: 8 user
+             fields), seed-0 weights, buckets 128/512/1024/2048/4096/16384.
+             Per family, in bf16 and in f32, build_stack (model_kind = the
+             family) serves its BASELINE.json size (wide_deep 128, deepfm
+             512, generic 1000, dlrm 4096 with dense_features, two_tower
+             10 000 in bucket 16384) through DynamicBatcher.submit: scores
+             within 1e-5 of the card's model.apply on the same padded batch,
+             and in f32 within 2e-5 of the CPU's forward of the same params.
+             Printed per family and dtype: the eager device step (one call,
+             CUDA events; the profiler's device time; kernels per call). The
+             bf16 stack arms [kernels]: its autotune table is printed
+             (xla_int8 measured per bucket; the fused variants ineligible
+             with the JAX package's reason, or the run fails), then 20 gRPC
+             Predicts at the family's size: p50 and the card's busy share,
+             every response within 1e-5 of the card's model.apply. two_tower
+             with output_top_k = 100 must return the head of a stable
+             descending sort of its full scores. Neither CUDA kernel may
+             launch during the phase (they serve dcn_v2 alone).
+
 Prints one `{"kernels": [...]}` line (one entry per kernel and compute
 dtype, the f32 ones named `<kernel>_f32`: the rule row at 2048 rows; the
 main paths' launches, `launches` = the serving phase's plus the outputs
 phase's (`launches_serving`, `launches_outputs`), each path's counters
 zeroed just before it and read just after; the lifecycle path's launches
-(`launches_lifecycle`); and every row under "by_shape"), the nvidia-smi
+(`launches_lifecycle`); and every row under "by_shape"; the families
+phase launches none), the nvidia-smi
 line, and last `{"ok": true, "device": {...}}`.
 """
 
@@ -2078,6 +2100,259 @@ def phase_outputs(dev, name: str) -> dict:
     return res
 
 
+# The families phase: BASELINE.json's candidate count per family (generic:
+# the [client] candidate_num of configs/latency.toml), in this order.
+FAMILY_SIZES = {"wide_deep": 128, "deepfm": 512, "generic": 1000, "dlrm": 4096,
+                "two_tower": 10_000}
+FAMILY_BUCKETS = (128, 512, 1024, 2048, 4096, 16384)
+FAMILY_REPEATS = 20
+FAMILY_TOL = 1e-5  # the batcher's scores against the card's direct model.apply
+FAMILY_CPU_TOL = 2e-5  # the card's f32 forward against the CPU's
+FAMILY_TOP_K = 100  # two_tower's retrieval head
+# The autotune's reason for leaving the fused variants out, per family (the
+# JAX package's reasons, in its order of checks).
+FAMILY_FUSED_REASON = {"dlrm": "inputs beyond feat_ids/feat_wts"}
+NOT_DCN_V2 = "param tree is not dcn_v2-shaped"
+
+
+def _family_arrays(kind: str, n: int, fields: int, dense: int, seed: int) -> dict:
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    arrays = {"feat_ids": rng.randint(0, 1 << 40, size=(n, fields)).astype(np.int64),
+              "feat_wts": rng.rand(n, fields).astype(np.float32)}
+    if kind == "dlrm":
+        arrays["dense_features"] = rng.randn(n, dense).astype(np.float32)
+    return arrays
+
+
+def _family_request(name: str, arrays: dict):
+    from distributed_tf_serving_tpu_torch import codec
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+
+    req = apis.PredictRequest()
+    req.model_spec.name = name
+    req.model_spec.signature_name = "serving_default"
+    for k, v in arrays.items():
+        codec.from_ndarray(v, out=req.inputs[k])
+    req.output_filter.append("prediction_node")
+    return req
+
+
+def kernels_per_call(fn, iters: int = 10) -> float:
+    """Device kernels (and copies, memsets) one call runs — the eager
+    forward's launches — from a torch.profiler trace of `iters` calls: the
+    events with device time (the trace's CUDA activity also holds the
+    host-side runtime calls, which have none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+               > 0) / iters
+
+
+def phase_families(dev, name: str) -> dict:
+    """The other model families (models/wide_deep, deepfm, generic, dlrm,
+    two_tower) at the full width of configs/latency.toml [model] (43 fields
+    x 16, vocab 2^20, MLP 256/128/64; DLRM 13 dense features, bottom MLP
+    64/32/16; two_tower 8 user fields), seed-0 weights, on the bucket ladder
+    FAMILY_BUCKETS. Per family and compute dtype, build_stack (model_kind =
+    the family) serves its BASELINE.json size through DynamicBatcher.submit:
+    the scores must be within 1e-5 of the card's model.apply on the same
+    padded batch, and in f32 within 2e-5 of the CPU's forward of the same
+    params. The eager device step is timed (one call with CUDA events, the
+    profiler's device time, kernels per call). The bf16 stack arms
+    [kernels] (JAX default gates): its autotune table (xla_int8 measured,
+    the fused variants ineligible with the JAX reason), then 20 gRPC
+    Predicts at the family's size: p50 and the card's busy share. two_tower
+    at 10 000 with output_top_k = 100 must return the head of a stable
+    descending sort of its full scores. Neither CUDA kernel may launch in
+    the phase: they serve dcn_v2 alone."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import grpc
+
+    from distributed_tf_serving_tpu_torch import codec
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.ops.autotune import BASELINE, VARIANT_FLAGS
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.proto.service_grpc import LARGE_MESSAGE_CHANNEL_OPTIONS
+    from distributed_tf_serving_tpu_torch.serving.batcher import bucket_for
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack, create_server
+    from distributed_tf_serving_tpu_torch.train.checkpoint import flatten_params, unflatten_like
+    from distributed_tf_serving_tpu_torch.utils.config import load_config
+
+    loaded = load_config(os.path.join(HERE, "configs", "latency.toml"))
+    cfg = dataclasses.replace(loaded["server"], buckets=FAMILY_BUCKETS)
+    model_cfg = loaded["model"]
+    kc = kernels_plane_config("_families")
+    res = {"card": name, "families": {}}
+    # The phase's path: counters zeroed just before it, read just after.
+    ck.reset_launches()
+    for i, (kind, n) in enumerate(FAMILY_SIZES.items()):
+        arrays = _family_arrays(kind, n, model_cfg.num_fields, model_cfg.num_dense_features,
+                                SEED + 100 + i)
+        fam = res["families"][kind] = {"n": n}
+        for cd in ("bfloat16", "float32"):
+            mc = dataclasses.replace(model_cfg, compute_dtype=cd)
+            scfg = dataclasses.replace(cfg, model_kind=kind, model_name=kind)
+            t0 = time.perf_counter()
+            impl, batcher, sv = build_stack(scfg, mc, "cuda", seed=SEED,
+                                            kernels_config=kc if cd == "bfloat16" else None)
+            out = fam[cd] = {"build_s": time.perf_counter() - t0}
+            server = None
+            try:
+                if sv.model.kind != kind:
+                    fail(f"families: build_stack served kind {sv.model.kind!r} for {kind!r}")
+                bucket = bucket_for(n, batcher.buckets)
+                km = batcher.kernels
+                decision = BASELINE
+                if km is not None:
+                    table = km.snapshot()["tables"][f"{sv.name}:{sv.version}"]
+                    decision = table["buckets"][str(bucket)]["decision"]
+                params = (km.params_for(sv, VARIANT_FLAGS[decision][0]) if km is not None
+                          else sv.params)
+                padded = {k: torch.from_numpy(np.concatenate(
+                    [v, np.zeros((bucket - n,) + v.shape[1:], v.dtype)])).to(dev)
+                    for k, v in arrays.items()}
+
+                def step():
+                    with torch.inference_mode():
+                        return sv.model.apply(params, padded)
+
+                direct = step()["prediction_node"].float().cpu().numpy()[:n]
+                got = batcher.submit(sv, arrays, output_keys=("prediction_node",)
+                                     ).result(120)["prediction_node"]
+                if got.shape != (n,) or not np.all(np.isfinite(got)):
+                    fail(f"families: {kind} {cd} n={n}: bad scores shape {got.shape}")
+                err = float(np.max(np.abs(got - direct)))
+                if err > FAMILY_TOL:
+                    fail(f"families: {kind} {cd} n={n}: batcher vs the card's model.apply "
+                         f"max |d| {err} > {FAMILY_TOL}")
+                out.update(bucket=bucket, decision=decision, batcher_vs_direct=err,
+                           step_ms=call_ms(step, iters=20), step_device_ms=device_ms(step),
+                           kernels_per_step=kernels_per_call(step))
+                if cd == "float32":
+                    cpu_params = unflatten_like(params, {
+                        k: v.cpu() for k, v in flatten_params(params).items()})
+                    with torch.inference_mode():
+                        cpu = sv.model.apply(cpu_params, {k: torch.from_numpy(v)
+                                                          for k, v in arrays.items()})
+                    cerr = float(np.max(np.abs(got - cpu["prediction_node"].numpy())))
+                    out["card_vs_cpu"] = cerr
+                    if cerr > FAMILY_CPU_TOL:
+                        fail(f"families: {kind} f32 n={n}: card vs CPU forward max |d| "
+                             f"{cerr} > {FAMILY_CPU_TOL}")
+                log(f"families: {kind} {cd} n={n} (bucket {bucket}, {decision}): batcher vs "
+                    f"direct {err:.3g}" + (f", card vs CPU {out['card_vs_cpu']:.3g}"
+                                           if "card_vs_cpu" in out else "")
+                    + f"; device step {out['step_ms']:.4f} ms one call, "
+                    f"{out['step_device_ms']:.4f} ms device, "
+                    f"{out['kernels_per_step']:.0f} kernels ({name})")
+                if km is None:
+                    continue
+                out["autotune"] = table
+                check_family_autotune(table, kind)
+                server, port = create_server(impl, "127.0.0.1:0")
+                server.start()
+                ch = grpc.insecure_channel(f"127.0.0.1:{port}",
+                                           options=LARGE_MESSAGE_CHANNEL_OPTIONS)
+                try:
+                    stub = PredictionServiceStub(ch)
+                    req = _family_request(sv.name, arrays)
+                    stub.Predict(req, timeout=120)  # channel up before the clock
+                    lat = []
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        t0 = time.perf_counter()
+                        for _ in range(FAMILY_REPEATS):
+                            t1 = time.perf_counter()
+                            resp = stub.Predict(req, timeout=120)
+                            lat.append((time.perf_counter() - t1) * 1e3)
+                            scores = codec.to_ndarray(resp.outputs["prediction_node"])
+                            gerr = float(np.max(np.abs(scores - direct)))
+                            if scores.shape != (n,) or gerr > FAMILY_TOL:
+                                fail(f"families: {kind} gRPC n={n}: max |d| vs the card's "
+                                     f"model.apply {gerr} > {FAMILY_TOL}")
+                        wall_us = (time.perf_counter() - t0) * 1e6
+                finally:
+                    ch.close()
+                out["grpc_p50_ms"] = statistics.median(lat)
+                out["device_busy_share"] = device_busy_us(prof) / wall_us
+                log(f"families: {kind} bf16 gRPC n={n}: p50 {out['grpc_p50_ms']:.3f} ms over "
+                    f"{FAMILY_REPEATS} Predicts, busy share {out['device_busy_share']:.4f} "
+                    f"({name})")
+                if kind == "two_tower":
+                    fam["top_k"] = two_tower_top_k(dev, batcher, sv, arrays, got)
+            finally:
+                if server is not None:
+                    server.stop(grace=1).wait()
+                batcher.stop()
+    res["launches"] = {f"{k}/{cd}": v for (k, cd), v in ck.launches.items()}
+    if any(res["launches"].values()):
+        fail(f"families: a CUDA kernel launched on a family's path: {res['launches']}")
+    log(f"families: kernel launches during the phase {res['launches']} (all zero)")
+    return res
+
+
+def check_family_autotune(table: dict, kind: str) -> None:
+    """Print a family's autotune table; fail on an errored bucket or
+    xla_int8, on eligible fused variants, or on another reason than the
+    JAX package's."""
+    from distributed_tf_serving_tpu_torch.ops.autotune import BASELINE, XLA_INT8
+
+    why = FAMILY_FUSED_REASON.get(kind, NOT_DCN_V2)
+    if table.get("pallas_eligible") or table.get("pallas_ineligible_reason") != why:
+        fail(f"families: {kind} autotune: fused variants {table.get('pallas_eligible')} "
+             f"({table.get('pallas_ineligible_reason')!r}; want ineligible, {why!r})")
+    for bucket, row in sorted(table["buckets"].items(), key=lambda kv: int(kv[0])):
+        e = row.get(XLA_INT8)
+        if "error" in row or e is None or "error" in e:
+            fail(f"families: {kind} autotune bucket {bucket}: {row}")
+        log(f"autotune: {kind} bucket {bucket}: {BASELINE} step_us="
+            f"{row[BASELINE]['step_us']}; {XLA_INT8} step_us={e['step_us']} speedup="
+            f"{e['speedup']} max_abs_delta={e['max_abs_delta']} enabled={e['enabled']} -> "
+            f"{row['decision']} (fused: {why})")
+
+
+def two_tower_top_k(dev, batcher, sv, arrays, full) -> dict:
+    """two_tower's retrieval head: a batcher with output_top_k = 100 on the
+    same servable and request must return the head of a stable descending
+    sort of the full scores (`full`, the same batch without top-k), zeros
+    elsewhere."""
+    import numpy as np
+
+    from distributed_tf_serving_tpu_torch.serving.batcher import DynamicBatcher
+
+    tb = DynamicBatcher(buckets=batcher.buckets, max_wait_us=0, device=dev,
+                        output_top_k=FAMILY_TOP_K)
+    tb.kernels = batcher.kernels
+    tb.start()
+    try:
+        got = tb.submit(sv, arrays, output_keys=("prediction_node",)
+                        ).result(120)["prediction_node"]
+        topk_batches = tb.stats.topk_batches
+    finally:
+        tb.stop()
+    n = len(full)
+    top = np.argsort(-full, kind="stable")[:FAMILY_TOP_K]
+    rest = np.setdiff1d(np.arange(n), top)
+    if topk_batches != 1 or not np.array_equal(got[top], full[top]) or np.any(got[rest] != 0):
+        fail(f"families: two_tower top-{FAMILY_TOP_K} at n={n} is not the head of a stable "
+             f"descending sort of the full scores (topk batches {topk_batches})")
+    log(f"families: two_tower n={n} top-{FAMILY_TOP_K}: the head of a stable descending sort "
+        f"of the full scores, zeros elsewhere")
+    return {"k": FAMILY_TOP_K, "n": n, "head_equal": True, "topk_batches": topk_batches}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -2127,10 +2402,14 @@ def main() -> None:
     t0 = time.perf_counter()
     outputs = phase_outputs(dev, f"{name} ({smi})")
     log(f"outputs: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    families = phase_families(dev, f"{name} ({smi})")
+    log(f"families: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
-                   "lifecycle": lifecycle, "outputs": outputs}, f, indent=1, default=str)
+                   "lifecycle": lifecycle, "outputs": outputs, "families": families}, f,
+                  indent=1, default=str)
 
     replaces = {
         "fused_serve": "distributed_tf_serving_tpu/ops/cross_kernel.py:470",

@@ -1,12 +1,20 @@
 """Carry a JAX-package param tree over to the port.
 
-`params_from_jax(tree, device)` takes the JAX package's DCN param tree with
-its leaves already turned into numpy arrays (e.g.
-`jax.tree.map(np.asarray, model.init(key))` where JAX is present) —
-`embedding`, `cross[{w,b}]`, `mlp[{w,b}]`, `out{w,b}` — and returns the
-same tree of torch tensors on `device`. Names and layouts ([in, out]
-weights) are unchanged, so both packages compute the same function. This
-module itself imports no JAX.
+`params_from_jax(tree, device)` takes a JAX-package param tree of any
+family with its leaves already turned into numpy arrays (e.g.
+`jax.tree.map(np.asarray, model.init(key))` where JAX is present) and
+returns the same tree of torch tensors on `device`:
+
+  dcn / dcn_v2  embedding, cross[{w,b}], mlp[{w,b}], out{w,b}
+  wide_deep     wide [V], wide_bias (0-d), embedding, mlp[{w,b}], out{w,b}
+  deepfm        linear [V], bias (0-d), embedding, mlp[{w,b}], out{w,b}
+  generic       embedding, mlp[{w,b}], out{w,b}
+  two_tower     embedding, user_mlp[{w,b}], item_mlp[{w,b}], temperature (0-d)
+  dlrm          embedding, bottom_mlp[{w,b}], top_mlp[{w,b}], out{w,b}
+
+and the int8 {qw, qscale, b} form of any dense layer. Names, layouts
+([in, out] weights) and ranks are unchanged (a 0-d leaf stays 0-d), so both
+packages compute the same function. This module itself imports no JAX.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""PyTorch CTR models + servable registry: dcn / dcn_v2 in this slice, with
-the TF-Serving contract feat_ids/feat_wts [n, F] -> prediction_node [n]."""
+"""PyTorch CTR models + servable registry: the JAX package's families (dcn,
+dcn_v2, wide_deep, deepfm, two_tower, dlrm, generic), each with the
+TF-Serving contract feat_ids/feat_wts [n, F] -> prediction_node [n]."""
 
 from .base import (
     Batch,
@@ -23,7 +24,7 @@ from .registry import (
 )
 
 # Import model modules for their registration side effects.
-from . import dcn  # noqa: E402,F401
+from . import dcn, deepfm, dlrm, generic, two_tower, wide_deep  # noqa: E402,F401
 
 __all__ = [
     "Batch",

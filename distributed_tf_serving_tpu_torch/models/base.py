@@ -159,6 +159,26 @@ def mlp_init(rng: np.random.Generator, in_dim: int, dims: tuple[int, ...], dtype
     return layers
 
 
+def meta_tensor(shape: tuple[int, ...], dtype) -> torch.Tensor:
+    """A tensor of this shape and dtype on the "meta" device (no storage):
+    the leaves of a model's shapes() tree."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def dense_shapes(in_dim: int, out_dim: int, dtype) -> dict[str, torch.Tensor]:
+    """dense_init's layer as meta tensors."""
+    return {"w": meta_tensor((in_dim, out_dim), dtype), "b": meta_tensor((out_dim,), dtype)}
+
+
+def mlp_shapes(in_dim: int, dims: tuple[int, ...], dtype) -> list:
+    """mlp_init's layers as meta tensors."""
+    layers = []
+    for out_dim in dims:
+        layers.append(dense_shapes(in_dim, out_dim, dtype))
+        in_dim = out_dim
+    return layers
+
+
 def mlp_apply(layers: list, x: torch.Tensor, compute_dtype, final_relu: bool = True) -> torch.Tensor:
     for i, p in enumerate(layers):
         x = dense_apply(p, x, compute_dtype)
@@ -183,7 +203,8 @@ def register_model(kind: str):
 
 
 def build_model(kind: str, config: ModelConfig | None = None, **overrides) -> Model:
-    """Instantiate a model family by kind: dcn, dcn_v2."""
+    """Instantiate a model family by kind: dcn, dcn_v2, wide_deep, deepfm,
+    two_tower, dlrm, generic."""
     if kind not in _BUILDERS:
         raise KeyError(f"unknown model kind {kind!r}; have {sorted(_BUILDERS)}")
     if config is None:

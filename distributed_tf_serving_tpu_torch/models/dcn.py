@@ -25,9 +25,12 @@ from .base import (
     ModelConfig,
     dense_apply,
     dense_init,
+    dense_shapes,
     matmul_f32,
+    meta_tensor,
     mlp_apply,
     mlp_init,
+    mlp_shapes,
     register_model,
 )
 from .embeddings import embedding_init, field_embed
@@ -87,22 +90,14 @@ def _build(config: ModelConfig) -> Model:
         }
 
     def shapes():
-        def dense(k, m):
-            return {"w": meta(k, m), "b": meta(m)}
-
-        def meta(*shape):
-            return torch.empty(shape, dtype=config.pdtype, device="meta")
-
-        mlp, k = [], d
-        for m in config.mlp_dims:
-            mlp.append(dense(k, m))
-            k = m
+        pd = config.pdtype
         w = (d, d) if config.cross_full_matrix else (d,)
         return {
-            "embedding": meta(config.vocab_size, config.embed_dim),
-            "cross": [{"w": meta(*w), "b": meta(d)} for _ in range(config.num_cross_layers)],
-            "mlp": mlp,
-            "out": dense(d + (config.mlp_dims[-1] if config.mlp_dims else 0), 1),
+            "embedding": meta_tensor((config.vocab_size, config.embed_dim), pd),
+            "cross": [{"w": meta_tensor(w, pd), "b": meta_tensor((d,), pd)}
+                      for _ in range(config.num_cross_layers)],
+            "mlp": mlp_shapes(d, config.mlp_dims, pd),
+            "out": dense_shapes(d + (config.mlp_dims[-1] if config.mlp_dims else 0), 1, pd),
         }
 
     def apply(params, batch):

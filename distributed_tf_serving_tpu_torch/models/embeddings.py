@@ -24,6 +24,26 @@ def fold_ids(ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
     return torch.remainder(ids, vocab_size).to(torch.int32)
 
 
+def sparse_linear(
+    table: torch.Tensor,
+    feat_ids: torch.Tensor,
+    feat_wts: torch.Tensor,
+) -> torch.Tensor:
+    """Per-id scalar-weight sum in float32: the Wide&Deep wide half and the
+    DeepFM first-order term.
+
+    table     [V]
+    feat_ids  [n, F] int
+    feat_wts  [n, F] float
+    returns   [n] float32
+
+    Runs in float32 whatever the model's compute dtype: the raw weights are
+    never cast to it (unlike field_embed), which is why models using it opt
+    out of the bf16 weight transfer (Model.wts_in_compute_dtype=False)."""
+    rows = fold_ids(feat_ids, table.shape[0]).long()
+    return torch.sum(table[rows].float() * feat_wts.float(), dim=-1)
+
+
 def field_embed(
     table: torch.Tensor,
     feat_ids: torch.Tensor,

@@ -120,6 +120,14 @@ def ctr_signatures(num_fields: int, with_dense: int | None = None) -> dict[str, 
     return {DEFAULT_SIGNATURE: predict, "classify": classify, "regress": regress}
 
 
+def model_signatures(model: Model) -> dict[str, Signature]:
+    """The signature set of a built model: ctr_signatures over its fields,
+    plus the optional dense_features input for a dlrm model."""
+    cfg = model.config
+    dense = cfg.num_dense_features if model.kind == "dlrm" else None
+    return ctr_signatures(cfg.num_fields, with_dense=dense)
+
+
 @dataclasses.dataclass(eq=False)  # identity hash: used as a weak cache key
 class Servable:
     """A loaded (model, params) pair plus its signature map."""

@@ -7,11 +7,13 @@ CLI:
 
     python -m distributed_tf_serving_tpu_torch.serving.server --port 9999 \
         [--config configs/latency.toml] [--device cuda|cpu] [--kernels] \
+        [--model-kind KIND] [--model-name NAME] \
         [--checkpoint DIR | --model-base-path DIR] [--uds-path PATH] \
         [--stream-chunk N]
 
 serves, by default, a randomly initialized demo servable (numpy-seeded,
-`--seed`) of the configured model kind; `--checkpoint DIR` serves the
+`--seed`) of the configured model kind ([server] model_kind, or
+`--model-kind`: any family of models/); `--checkpoint DIR` serves the
 checkpoint in DIR (train/checkpoint.py), and `--model-base-path DIR` the
 newest versions under DIR's numeric version directories, hot-swapping as
 new ones appear (serving/version_watcher.py). The device defaults to
@@ -33,8 +35,9 @@ from concurrent import futures
 
 import grpc
 
-from ..models import ModelConfig, Servable, ServableRegistry, build_model, ctr_signatures
+from ..models import ModelConfig, Servable, ServableRegistry, build_model
 from ..models.base import resolve_device
+from ..models.registry import model_signatures
 from ..ops import cross_kernel
 from ..proto import (
     add_HealthServicer_to_server,
@@ -259,7 +262,7 @@ def load_demo_servable(
         version=version,
         model=model,
         params=model.init(seed, dev),
-        signatures=ctr_signatures(config.num_fields),
+        signatures=model_signatures(model),
     )
     registry.load(servable)
     return servable
@@ -407,6 +410,9 @@ def serve(argv=None) -> None:
     p.add_argument("--host", default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="demo weight seed")
+    p.add_argument("--model-kind", help="model family of the demo servable (dcn, dcn_v2, "
+                   "wide_deep, deepfm, two_tower, dlrm, generic). Overrides [server] model_kind")
+    p.add_argument("--model-name", help="the served model's name. Overrides [server] model_name")
     source = p.add_mutually_exclusive_group()
     source.add_argument("--checkpoint", help="serve this checkpoint directory "
                         "(servable.json + params.safetensors)")
@@ -434,6 +440,10 @@ def serve(argv=None) -> None:
         cfg = dataclasses.replace(cfg, port=args.port)
     if args.host is not None:
         cfg = dataclasses.replace(cfg, host=args.host)
+    if args.model_kind is not None:
+        cfg = dataclasses.replace(cfg, model_kind=args.model_kind)
+    if args.model_name is not None:
+        cfg = dataclasses.replace(cfg, model_name=args.model_name)
     kernels_config = loaded.get("kernels") or KernelsConfig()
     if args.kernels:
         kernels_config = dataclasses.replace(kernels_config, enabled=True)
@@ -454,8 +464,8 @@ def serve(argv=None) -> None:
     server.start()
     what = (f"{servable.name} v{servable.version}" if servable is not None
             else f"{cfg.model_name} (awaiting versions)")
-    log.info("serving %s (%s) on %s:%d, device %s",
-             what, cfg.model_kind, cfg.host, port, batcher.device)
+    kind = servable.model.kind if servable is not None else cfg.model_kind
+    log.info("serving %s (%s) on %s:%d, device %s", what, kind, cfg.host, port, batcher.device)
     if transport_config.uds_path:
         log.info("also serving on unix:%s", transport_config.uds_path)
     log.info("readback wire %s, top-k %d, PredictStream chunk %d, int8 score wire %s",

@@ -15,7 +15,10 @@ header mapping each tensor name to its `dtype`, `shape` and
 optional `__metadata__` map of strings), then the raw little-endian
 buffer. The header is padded with spaces to a multiple of 8 bytes so the
 buffer starts aligned. Tensor names are the param tree's dotted paths:
-`embedding`, `cross.0.w`, `mlp.1.b`, `out.w`.
+`embedding`, `cross.0.w`, `mlp.1.b`, `out.w` (for every model family:
+`wide_bias`, `temperature` and DeepFM's `bias` are 0-d tensors, shape []).
+The manifest's `kind` picks the family; a dlrm servable's signatures take
+the optional `dense_features` input.
 
 A JAX-package checkpoint (an Orbax `params/` directory beside the same
 manifest) gains its `params.safetensors` from
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from ..models.base import ModelConfig, build_model, resolve_device
-from ..models.registry import Servable, ctr_signatures
+from ..models.registry import Servable, model_signatures
 
 MANIFEST = "servable.json"
 PARAMS_FILE = "params.safetensors"
@@ -264,11 +267,10 @@ def load_servable(path, device=None, timings: dict | None = None) -> Servable:
     if timings is not None:
         timings["read_s"] = t1 - t0
         timings["copy_s"] = time.perf_counter() - t1
-    dense = config.num_dense_features if kind == "dlrm" else None
     return Servable(
         name=manifest["name"],
         version=manifest["version"],
         model=model,
         params=unflatten_like(model.shapes(), flat),
-        signatures=ctr_signatures(config.num_fields, with_dense=dense),
+        signatures=model_signatures(model),
     )

@@ -83,6 +83,44 @@ def test_port_scores_without_importing_jax_subprocess():
     assert "distributed_tf_serving_tpu_torch.serving.batcher" in line["modules"]
 
 
+_FAMILIES_SCRIPT = r"""
+import json, sys
+import numpy as np
+from distributed_tf_serving_tpu_torch.models import ModelConfig, ServableRegistry, model_kinds
+from distributed_tf_serving_tpu_torch.serving.server import load_demo_servable
+from distributed_tf_serving_tpu_torch.serving.batcher import DynamicBatcher
+cfg = ModelConfig(num_fields=6, vocab_size=1024, embed_dim=4, mlp_dims=(8,), num_user_fields=2,
+                  bottom_mlp_dims=(4,))
+b = DynamicBatcher(buckets=(8,), max_wait_us=0, device="cpu").start()
+rng = np.random.RandomState(0)
+n = {}
+for kind in ("wide_deep", "deepfm", "generic", "two_tower", "dlrm"):
+    sv = load_demo_servable(ServableRegistry(), kind=kind, config=cfg, device="cpu")
+    out = b.submit(sv, {"feat_ids": rng.randint(0, 1 << 40, size=(5, 6)),
+                        "feat_wts": rng.rand(5, 6).astype(np.float32)}).result(60)
+    n[kind] = int(out["prediction_node"].shape[0])
+b.stop()
+print(json.dumps({"n": n, "kinds": model_kinds(), "modules": sorted(sys.modules)}))
+"""
+
+
+def test_every_family_scores_without_importing_jax_subprocess():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run(
+        [sys.executable, "-c", _FAMILIES_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert res.returncode == 0, res.stderr
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert set(line["n"].values()) == {5}
+    assert line["kinds"] == ["dcn", "dcn_v2", "deepfm", "dlrm", "generic", "two_tower",
+                             "wide_deep"]
+    assert [m for m in line["modules"] if _is_jax_side(m)] == []
+    for kind in ("wide_deep", "deepfm", "generic", "two_tower", "dlrm"):
+        assert f"distributed_tf_serving_tpu_torch.models.{kind}" in line["modules"]
+
+
 def _imports(path: Path) -> list[str]:
     tree = ast.parse(path.read_text(), filename=str(path))
     found = []

@@ -13,7 +13,9 @@ rtol = atol = 1e-5 (f32) / 2e-2 (bf16), and bit for bit across its (rows
 per block, cluster) plans; the f32 kernels on unit-normal inputs within
 twice the plain f32 version's error from float64; the int8 kernel through the batcher 5e-3 against
 the quantized model.apply; the readback wire's top-k selection and int8
-quantization on the card bit for bit those of the CPU.
+quantization on the card bit for bit those of the CPU; the other model
+families through a batcher on the card 1e-5 from the card's own forward and
+2e-5 (f32) / 5e-3 (bf16) from the CPU's, with neither kernel launched.
 """
 
 import dataclasses
@@ -621,3 +623,47 @@ def test_int8_wire_on_the_card_is_bit_identical_to_the_cpu(cuda_device, n):
         card = quantize_output_device(torch.from_numpy(v).to(cuda_device))
         for a, b in zip(card, cpu):
             assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["wide_deep", "deepfm", "generic", "two_tower", "dlrm"])
+def test_family_on_the_card_matches_the_cpu_forward(cuda_device, kind, compute_dtype):
+    """The other families at the serving width (43 x 16, MLP 256/128/64)
+    through a batcher on the card: scores within 1e-5 of the card's own
+    model.apply on the same padded batch (the batcher adds no arithmetic),
+    within 2e-5 (f32) / 5e-3 (bf16) of the CPU forward of the same params,
+    and neither CUDA kernel launched (they serve dcn_v2 alone)."""
+    cfg = ModelConfig(num_fields=43, embed_dim=16, mlp_dims=(256, 128, 64), vocab_size=1 << 14,
+                      compute_dtype=compute_dtype)
+    model = build_model(kind, cfg)
+    params = model.init(3, "cpu")  # the seed's numpy draws: the same values on either device
+    dense = cfg.num_dense_features if kind == "dlrm" else None
+    sv = Servable(name="FAM", version=1, model=model, params=model.init(3, cuda_device),
+                  signatures=ctr_signatures(cfg.num_fields, with_dense=dense))
+    rng = np.random.RandomState(4)
+    arrays = {"feat_ids": rng.randint(0, 1 << 40, size=(300, 43)).astype(np.int64),
+              "feat_wts": rng.rand(300, 43).astype(np.float32)}
+    if dense:
+        arrays["dense_features"] = rng.randn(300, dense).astype(np.float32)
+    batcher = DynamicBatcher(buckets=(64, 512), max_wait_us=0, device=cuda_device)
+    batcher.warmup(sv)
+    batcher.start()
+    try:
+        ck.reset_launches()
+        got = batcher.submit(sv, arrays).result(60)["prediction_node"]
+        launched = _launched()
+    finally:
+        batcher.stop()
+    assert launched == {} and batcher.stats.fused_batches == 0
+    padded = {k: np.concatenate([v, np.zeros((512 - 300,) + v.shape[1:], v.dtype)])
+              for k, v in arrays.items()}
+    with torch.inference_mode():
+        card = model.apply(sv.params, {k: torch.from_numpy(v).to(cuda_device)
+                                       for k, v in padded.items()})["prediction_node"]
+        cpu = model.apply(params, {k: torch.from_numpy(v) for k, v in arrays.items()})
+    card = card.float().cpu().numpy()[:300]
+    assert got.shape == (300,) and np.all(np.isfinite(got))
+    assert np.max(np.abs(got - card)) <= 1e-5
+    tol = 2e-5 if compute_dtype == "float32" else 5e-3
+    assert np.max(np.abs(got - cpu["prediction_node"].float().numpy())) <= tol

@@ -122,7 +122,9 @@ def test_model_config_mirrors_jax_fields_and_defaults():
     jf = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     assert jf == tf
-    assert set(model_kinds()) == {"dcn", "dcn_v2"}
+    from distributed_tf_serving_tpu.models import model_kinds as jax_model_kinds
+
+    assert model_kinds() == jax_model_kinds()
 
 
 def test_params_from_jax_keeps_names_layouts_and_values():
