@@ -164,14 +164,45 @@ Phases (any failure exits non-zero and prints no result line):
              descending sort of its full scores. Neither CUDA kernel may
              launch during the phase (they serve dcn_v2 alone).
 
+9. models — multi-model serving (serving/server.py ModelLifecycle,
+             HandleReloadConfigRequest, GracefulShutdown, the request log).
+             save_servable writes CTR (dcn_v2 bf16, seed 0), CTR_F32 (dcn_v2
+             f32, seed 1) and RANKER (deepfm, seed 2) at the [model] width of
+             configs/latency.toml, and NEW (dcn_v2 bf16, seed 3), into a
+             temporary directory; a models.config lists the first three
+             (CTR with version_labels { stable: 1 }) and a batching-parameters
+             file restates the ladder (256-2048) and the 200 us wait. The CLI
+             server starts with --config configs/latency.toml
+             --model-config-file, --batching-parameters-file, --request-log-file
+             (sampling 1.0) and a 0.5 s poll. 4 client threads send Predicts
+             (n = 1000 to CTR by label stable and to CTR_F32, 512 to RANKER,
+             1000 to NEW once added) while a reload adds NEW, CTR v2 (seed 4)
+             is written, and, once GetModelStatus shows it AVAILABLE, one
+             reload moves stable to 2 and drops RANKER; then SIGTERM during
+             the traffic. Checks: no failed request on CTR, CTR_F32 and NEW;
+             RANKER only OK before its drop and only NOT_FOUND after it;
+             stable names v1 before the relabel and v2 after it; every
+             response within 5e-3 (bf16) / 2e-5 (f32) of the card's plain
+             forward of the model and version it names; after SIGTERM only OK
+             or UNAVAILABLE, the server exits 0 with drained=True, and its
+             shutdown line counts fused_serve/bfloat16 and float32 launches;
+             every request-log record a Predict of a listed model, the first
+             200 replayed through replay_warmup_file; in this process
+             build_stack on the same file, where taking CTR_F32 out, in (one
+             request) and out again leaves torch.cuda.memory_allocated within
+             1 MiB. Printed: p50 / p99 per model before the reloads and after
+             the relabel, each reload's time, add -> first NEW response,
+             relabel -> first v2 response, the drain, the launch counts.
+
 Prints one `{"kernels": [...]}` line (one entry per kernel and compute
 dtype, the f32 ones named `<kernel>_f32`: the rule row at 2048 rows; the
 main paths' launches, `launches` = the serving phase's plus the outputs
 phase's (`launches_serving`, `launches_outputs`), each path's counters
 zeroed just before it and read just after; the lifecycle path's launches
 (`launches_lifecycle`); and every row under "by_shape"; the families
-phase launches none), the nvidia-smi
-line, and last `{"ok": true, "device": {...}}`.
+phase launches none; the models server's count from its start to its exit,
+`launches_models`), the nvidia-smi line, and last `{"ok": true, "device":
+{...}}`. Every line it logs is also kept in chiprun_out/chip_smoke.log.
 """
 
 from __future__ import annotations
@@ -214,13 +245,27 @@ def cross_kernel_name(cd: str, rows: int) -> str:
 SEED = 0
 
 
+# Every line log() and fail() print, kept whole: a command's output comes
+# back cut to its end, and the kernels line alone can fill that.
+LOG_FILE = os.path.join(HERE, "chiprun_out", "chip_smoke.log")
+
+
+def _keep(line: str) -> None:
+    if os.path.isdir(os.path.join(HERE, PKG)):
+        os.makedirs(os.path.dirname(LOG_FILE), exist_ok=True)
+        with open(LOG_FILE, "a") as f:
+            f.write(line + "\n")
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    _keep(f"chip_smoke: FAIL: {msg}")
     sys.exit(1)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    _keep(msg)
 
 
 def nvidia_smi() -> str:
@@ -1239,9 +1284,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _start_cli(args: list[str], log_path: str):
+def _start_cli(args: list[str], log_path: str, ready_model: str = "DCN"):
     """Start the port's CLI server (as tools/torch_closed_loop.py does) on a
-    free port; (process, port, log file) once it answers GetModelMetadata."""
+    free port; (process, port, log file) once it answers GetModelMetadata
+    for `ready_model`."""
     import grpc
 
     from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
@@ -1263,7 +1309,7 @@ def _start_cli(args: list[str], log_path: str):
                          f"(log {log_path})")
                 try:
                     stub.GetModelMetadata(apis.GetModelMetadataRequest(
-                        model_spec=apis.ModelSpec(name="DCN")), timeout=2)
+                        model_spec=apis.ModelSpec(name=ready_model)), timeout=2)
                     return proc, port, logf
                 except grpc.RpcError:
                     if time.perf_counter() > end:
@@ -2353,10 +2399,462 @@ def two_tower_top_k(dev, batcher, sv, arrays, full) -> dict:
     return {"k": FAMILY_TOP_K, "n": n, "head_equal": True, "topk_batches": topk_batches}
 
 
+# The models phase: multi-model serving from one model config file.
+MODELS_POLL_S = 0.5  # --file-system-poll-wait-seconds of the models server
+MODELS_CLIENTS = 4
+MODELS_STEADY_S = 4.0  # traffic before the first reload, and after the relabel
+MODELS_WAIT_S = 120.0  # bound on each wait of the phase
+MODELS_TOL = {"bfloat16": 5e-3, "float32": 2e-5}  # against the card's plain forward
+MODELS_REPLAYED = 200  # request-log records replayed through replay_warmup_file
+# name -> (family, compute dtype, seed, candidates per request); NEW is added
+# by a reload during the traffic, CTR's version 2 (seed 4) lands during it.
+MODELS = {
+    "CTR": ("dcn_v2", "bfloat16", 0, 1000),
+    "CTR_F32": ("dcn_v2", "float32", 1, 1000),
+    "RANKER": ("deepfm", "bfloat16", 2, 512),
+    "NEW": ("dcn_v2", "bfloat16", 3, 1000),
+}
+CTR_V2_SEED = 4
+
+
+def _model_entries(base: str, names, labels: dict) -> list:
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+
+    out = []
+    for name in names:
+        mc = apis.ModelConfig(name=name, base_path=os.path.join(base, name.lower()),
+                              model_platform=MODELS[name][0])
+        for label, v in labels.get(name, {}).items():
+            mc.version_labels[label] = v
+        out.append(mc)
+    return out
+
+
+def _models_reload(stub, base: str, names, labels: dict) -> float:
+    """One HandleReloadConfigRequest; its time in ms (a failure fails)."""
+    import grpc
+
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+
+    req = apis.ReloadConfigRequest()
+    req.config.model_config_list.config.extend(_model_entries(base, names, labels))
+    t0 = time.perf_counter()
+    try:
+        resp = stub.HandleReloadConfigRequest(req, timeout=MODELS_WAIT_S)
+    except grpc.RpcError as e:
+        fail(f"models: reload {sorted(names)} {labels} failed: {e.code()} {e.details()}")
+    if resp.status.error_code != 0:
+        fail(f"models: reload {sorted(names)} answered {resp.status}")
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_models(dev, name: str) -> dict:
+    """Multi-model serving (serving/server.py ModelLifecycle) on the card:
+    the CLI server on configs/latency.toml with --model-config-file listing
+    CTR (dcn_v2 bf16, seed 0, label stable = 1), CTR_F32 (dcn_v2 f32, seed
+    1) and RANKER (deepfm, seed 2), all at the [model] width, written with
+    save_servable; a batching-parameters file restating the ladder and
+    wait; every request logged. 4 clients send Predicts (n = 1000 to CTR
+    by label and to CTR_F32, 512 to RANKER) while a reload adds NEW, CTR v2
+    lands, and one reload moves stable to 2 and drops RANKER; then SIGTERM
+    during the traffic. Checks in the docstring of the module; then in this
+    process the same config through build_stack, where dropping CTR_F32
+    must give back its card memory, and the request log replays."""
+    import re
+    import shutil
+    import tempfile
+    import threading
+
+    import grpc
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch import codec
+    from distributed_tf_serving_tpu_torch.models import Servable, build_model, ctr_signatures
+    from distributed_tf_serving_tpu_torch.proto import ModelServiceStub, PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+    from distributed_tf_serving_tpu_torch.proto.service_grpc import LARGE_MESSAGE_CHANNEL_OPTIONS
+    from distributed_tf_serving_tpu_torch.serving.batcher import fold_ids_host
+    from distributed_tf_serving_tpu_torch.serving.warmup import read_tfrecords
+    from distributed_tf_serving_tpu_torch.train.checkpoint import (
+        flatten_params,
+        save_servable,
+        unflatten_like,
+    )
+    from distributed_tf_serving_tpu_torch.utils.config import load_config
+    from google.protobuf import text_format
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    cfg_path = os.path.join(HERE, "configs", "latency.toml")
+    loaded = load_config(cfg_path)
+    cfg, mc = loaded["server"], loaded["model"]
+    F = mc.num_fields
+    base = tempfile.mkdtemp(prefix="dts_models_")
+    res = {"card": name}
+    procs = []
+    try:
+        # Checkpoints, and the plain forward on the card of every payload
+        # under every (model, version), before any clock starts.
+        servables, want, payloads = {}, {}, {}
+        versions = [(m, 1, MODELS[m][2]) for m in MODELS] + [("CTR", 2, CTR_V2_SEED)]
+        for model_name, version, seed in versions:
+            kind, cd, _, n = MODELS[model_name]
+            model = build_model(kind, dataclasses.replace(mc, name=model_name, compute_dtype=cd))
+            params = model.init(seed, "cpu")
+            servables[(model_name, version)] = Servable(
+                name=model_name, version=version, model=model, params=params,
+                signatures=ctr_signatures(F))
+            if model_name not in payloads:
+                rng = np.random.RandomState(SEED + 3000 + seed)
+                payloads[model_name] = [(rng.randint(0, 1 << 40, size=(n, F)).astype(np.int64),
+                                         rng.rand(n, F).astype(np.float32))
+                                        for _ in range(MODELS_CLIENTS)]
+            on_card = unflatten_like(params, {k: v.to(dev)
+                                              for k, v in flatten_params(params).items()})
+            with torch.inference_mode():
+                want[(model_name, version)] = [model.apply(on_card, {
+                    "feat_ids": torch.from_numpy(fold_ids_host(ids, mc.vocab_size)).to(dev),
+                    "feat_wts": torch.from_numpy(wts).to(dev)})["prediction_node"].float().cpu()
+                    .numpy() for ids, wts in payloads[model_name]]
+            del on_card
+        torch.cuda.empty_cache()
+
+        def write(model_name: str, version: int) -> None:
+            save_servable(os.path.join(base, model_name.lower(), str(version)),
+                          servables[(model_name, version)], MODELS[model_name][0])
+
+        for model_name in ("CTR", "CTR_F32", "RANKER", "NEW"):
+            write(model_name, 1)
+        config_file = os.path.join(out_dir, "models.config")
+        msc = apis.ModelServerConfig()
+        msc.model_config_list.config.extend(
+            _model_entries(base, ("CTR", "CTR_F32", "RANKER"), {"CTR": {"stable": 1}}))
+        with open(config_file, "w") as f:
+            f.write(text_format.MessageToString(msc))
+        batching_file = os.path.join(out_dir, "models_batching.pbtxt")
+        with open(batching_file, "w") as f:  # configs/latency.toml's ladder and wait
+            f.write(f"max_batch_size {{ value: {cfg.buckets[-1]} }}\n"
+                    f"batch_timeout_micros {{ value: {cfg.max_wait_us} }}\n"
+                    + "".join(f"allowed_batch_sizes: {b}\n" for b in cfg.buckets))
+        request_log = os.path.join(base, "requests.log")
+        server_log = os.path.join(out_dir, "models_server.log")
+        t0 = time.perf_counter()
+        proc, port, logf = _start_cli(
+            ["--config", cfg_path, "--model-config-file", config_file,
+             "--batching-parameters-file", batching_file, "--request-log-file", request_log,
+             "--request-log-sampling", "1.0",
+             "--file-system-poll-wait-seconds", str(MODELS_POLL_S)],
+            server_log, ready_model="CTR")
+        procs.append((proc, logf))
+        res["server_start_s"] = time.perf_counter() - t0
+
+        lock = threading.Lock()
+        rows = []  # (model, start, end, code, version, max |d| or None)
+        stop = threading.Event()
+        new_live = threading.Event()
+        sigterm_at = [None]
+        chans = [grpc.insecure_channel(f"127.0.0.1:{port}", options=LARGE_MESSAGE_CHANNEL_OPTIONS)
+                 for _ in range(MODELS_CLIENTS)]
+
+        def request(model_name: str, i: int):
+            ids, wts = payloads[model_name][i]
+            req = apis.PredictRequest()
+            req.model_spec.name = model_name
+            if model_name == "CTR":
+                req.model_spec.version_label = "stable"
+            codec.from_ndarray(ids, out=req.inputs["feat_ids"])
+            codec.from_ndarray(wts, out=req.inputs["feat_wts"])
+            req.output_filter.append("prediction_node")
+            return req
+
+        def client(i: int) -> None:
+            stub = PredictionServiceStub(chans[i])
+            reqs = {m: request(m, i) for m in MODELS}
+            k = i
+            while not stop.is_set():
+                live = ["CTR", "CTR_F32", "RANKER"] + (["NEW"] if new_live.is_set() else [])
+                model_name = live[k % len(live)]
+                k += 1
+                t0 = time.perf_counter()
+                try:
+                    resp = stub.Predict(reqs[model_name], timeout=60)
+                    code = "OK"
+                except grpc.RpcError as e:
+                    code, resp = e.code().name, None
+                t1 = time.perf_counter()
+                version, err = None, None
+                if resp is not None:
+                    version = resp.model_spec.version.value
+                    got = codec.to_ndarray(resp.outputs["prediction_node"])
+                    w = want.get((model_name, version))
+                    err = (float(np.max(np.abs(got - w[i])))
+                           if w is not None and got.shape == w[i].shape
+                           and np.all(np.isfinite(got)) else float("inf"))
+                with lock:
+                    rows.append((model_name, t0, t1, code, version, err))
+                if code != "OK" and sigterm_at[0] is not None:
+                    time.sleep(0.01)  # the server is going: do not spin on it
+
+        def wait_for(what: str, cond) -> None:
+            end = time.perf_counter() + MODELS_WAIT_S
+            while not cond():
+                if time.perf_counter() > end or proc.poll() is not None:
+                    fail(f"models: {what} (server rc {proc.poll()}, log {server_log})")
+                time.sleep(0.01)
+
+        def count(pred) -> int:
+            with lock:
+                return sum(1 for r in rows if pred(r))
+
+        model_stub = ModelServiceStub(chans[0])
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(MODELS_CLIENTS)]
+        marks = {}
+        try:
+            for t in threads:
+                t.start()
+            marks["traffic"] = time.perf_counter()
+            time.sleep(MODELS_STEADY_S)
+            # 1. A reload adds NEW.
+            marks["add"] = time.perf_counter()
+            res["add_reload_ms"] = _models_reload(
+                model_stub, base, ("CTR", "CTR_F32", "RANKER", "NEW"), {"CTR": {"stable": 1}})
+            marks["add_done"] = time.perf_counter()
+            new_live.set()
+            wait_for("NEW never answered", lambda: count(
+                lambda r: r[0] == "NEW" and r[3] == "OK") > 0)
+            # 2. CTR v2 lands; 3. once AVAILABLE, stable -> 2 and RANKER dropped.
+            write("CTR", 2)
+            marks["v2_written"] = time.perf_counter()
+
+            def v2_available() -> bool:
+                st = model_stub.GetModelStatus(apis.GetModelStatusRequest(
+                    model_spec=apis.ModelSpec(name="CTR")), timeout=10)
+                return any(s.version == 2 and s.state == apis.ModelVersionStatus.AVAILABLE
+                           for s in st.model_version_status)
+
+            wait_for("CTR v2 never became AVAILABLE", v2_available)
+            marks["v2_available"] = time.perf_counter()
+            marks["relabel"] = time.perf_counter()
+            res["relabel_reload_ms"] = _models_reload(
+                model_stub, base, ("CTR", "CTR_F32", "NEW"), {"CTR": {"stable": 2}})
+            marks["relabel_done"] = time.perf_counter()
+            time.sleep(MODELS_STEADY_S)
+            # SIGTERM during the traffic.
+            import signal
+
+            sigterm_at[0] = marks["sigterm"] = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=MODELS_WAIT_S)
+            except subprocess.TimeoutExpired:
+                fail("models: the server did not exit within "
+                     f"{MODELS_WAIT_S} s of SIGTERM")
+            marks["exit"] = time.perf_counter()
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+            for ch in chans:
+                ch.close()
+        rc = _stop_cli(proc, logf)
+        procs.clear()
+        if any(t.is_alive() for t in threads):
+            fail("models: a client thread did not stop")
+        res["sigterm_to_exit_s"] = marks["exit"] - marks["sigterm"]
+
+        # Checks.
+        before_term = [r for r in rows if r[2] < marks["sigterm"]]
+        after_term = [r for r in rows if r[2] >= marks["sigterm"]]
+        bad = [r for r in before_term if r[0] != "RANKER" and r[3] != "OK"]
+        if bad:
+            fail(f"models: {len(bad)} failed requests on the models that stay: {bad[:3]}")
+        ranker = [r for r in before_term if r[0] == "RANKER"]
+        wrong = [r for r in ranker if (r[2] < marks["relabel"] and r[3] != "OK")
+                 or (r[1] > marks["relabel_done"] and r[3] != "NOT_FOUND")
+                 or r[3] not in ("OK", "NOT_FOUND")]
+        if wrong or not any(r[3] == "NOT_FOUND" for r in ranker):
+            fail(f"models: RANKER answered {wrong[:3]} around its drop "
+                 f"({sum(r[3] == 'NOT_FOUND' for r in ranker)} NOT_FOUND)")
+        stable = [r for r in before_term if r[0] == "CTR" and r[3] == "OK"]
+        wrong = [r for r in stable if (r[2] < marks["relabel"] and r[4] != 1)
+                 or (r[1] > marks["relabel_done"] and r[4] != 2) or r[4] not in (1, 2)]
+        if wrong or not any(r[4] == 2 for r in stable):
+            fail(f"models: the stable label resolved {wrong[:3]} across the relabel")
+        errs = {}
+        for r in rows:
+            if r[3] == "OK":
+                key = f"{r[0]} v{r[4]}"
+                errs[key] = max(errs.get(key, 0.0), r[5])
+        for key, e in sorted(errs.items()):
+            tol = MODELS_TOL[MODELS[key.split()[0]][1]]
+            if not e <= tol:
+                fail(f"models: responses of {key} are {e} from its plain forward (> {tol})")
+        other = sorted({r[3] for r in after_term} - {"OK", "UNAVAILABLE"})
+        if other:
+            fail(f"models: after SIGTERM requests failed with {other}, not only UNAVAILABLE")
+        with open(server_log) as f:
+            text = f.read()
+        m = re.search(r"kernel launches at shutdown: (\{.*\})$", text, re.M)
+        d = re.search(r"shutdown complete \(drained=(\w+), ([\d.]+)s\)", text)
+        if rc != 0 or d is None or d.group(1) != "True" or m is None:
+            fail(f"models: the server exited {rc}, drain line {d and d.group(0)} "
+                 f"(log {server_log})")
+        res["launches"] = json.loads(m.group(1))
+        res["drain_s"] = float(d.group(2))
+        for key in ("fused_serve/bfloat16", "fused_serve/float32"):
+            if res["launches"].get(key, 0) <= 0:
+                fail(f"models: the server launched {key} no time: {res['launches']}")
+        res["after_sigterm"] = {c: sum(r[3] == c for r in after_term)
+                                for c in ("OK", "UNAVAILABLE")}
+        res["max_abs_err"] = errs
+        res["requests"] = {c: sum(r[3] == c for r in rows) for c in sorted({r[3] for r in rows})}
+        res["add_to_first_new_ok_s"] = min(r[2] for r in rows if r[0] == "NEW"
+                                           and r[3] == "OK") - marks["add"]
+        res["relabel_to_first_v2_s"] = min(r[2] for r in stable if r[4] == 2) - marks["relabel"]
+        res["v2_written_to_available_s"] = marks["v2_available"] - marks["v2_written"]
+        lo, hi = marks["traffic"] + 1.0, marks["add"]
+        lo2, hi2 = marks["relabel_done"] + 0.5, marks["sigterm"]
+        res["steady"] = {
+            "before_reloads": {m: _percentiles([(r[2] - r[1]) * 1e3 for r in rows
+                                                if r[0] == m and r[3] == "OK"
+                                                and lo <= r[1] and r[2] < hi])
+                               for m in ("CTR", "CTR_F32", "RANKER")},
+            "after_relabel": {m: _percentiles([(r[2] - r[1]) * 1e3 for r in rows
+                                               if r[0] == m and r[3] == "OK"
+                                               and lo2 <= r[1] and r[2] < hi2])
+                              for m in ("CTR", "CTR_F32", "NEW")},
+        }
+
+        # The request log: every record a Predict of a served model; the
+        # first MODELS_REPLAYED replay through replay_warmup_file below.
+        names, kept = {}, []
+        for rec in read_tfrecords(request_log):
+            plog = apis.PredictionLog.FromString(rec)
+            if plog.WhichOneof("log_type") != "predict_log":
+                fail(f"models: a request-log record is a {plog.WhichOneof('log_type')}")
+            n = plog.predict_log.request.model_spec.name
+            if n not in MODELS:
+                fail(f"models: a request-log record names model {n!r}")
+            names[n] = names.get(n, 0) + 1
+            if len(kept) < MODELS_REPLAYED:
+                kept.append(rec)
+        if not kept:
+            fail("models: the request log holds no record")
+        res["request_log"] = {"records": names, "bytes": os.path.getsize(request_log)}
+        replay_file = os.path.join(base, "replay.log")
+        from distributed_tf_serving_tpu_torch.serving.warmup import write_tfrecords
+
+        write_tfrecords(replay_file, kept)
+        os.unlink(request_log)
+
+        res["memory"] = _models_memory(config_file, cfg, base, replay_file, payloads)
+        for label, p in res["steady"].items():
+            for m, q in p.items():
+                log(f"models: {label} {m}: " + (
+                    f"{q['requests']} requests p50 {q['p50_ms']:.3f} ms p99 {q['p99_ms']:.3f} ms"
+                    if q["requests"] else "no requests") + f" ({name})")
+        log(f"models: reload add NEW {res['add_reload_ms']:.1f} ms, add -> first NEW OK "
+            f"{res['add_to_first_new_ok_s']:.3f} s; v2 written -> AVAILABLE "
+            f"{res['v2_written_to_available_s']:.3f} s; relabel + drop RANKER "
+            f"{res['relabel_reload_ms']:.1f} ms, relabel -> first v2 "
+            f"{res['relabel_to_first_v2_s']:.3f} s ({name})")
+        log(f"models: requests {res['requests']}, max |dscore| vs plain forward "
+            f"{ {k: round(v, 7) for k, v in errs.items()} }")
+        log(f"models: SIGTERM -> exit {res['sigterm_to_exit_s']:.3f} s, drain "
+            f"{res['drain_s']:.3f} s (drained=True), after SIGTERM {res['after_sigterm']}; "
+            f"launches {res['launches']} ({name})")
+        log(f"models: request log {res['request_log']}, replayed "
+            f"{res['memory']['replayed']} records; memory: {res['memory']['before_load']} B "
+            f"before CTR_F32 was loaded, {res['memory']['loaded']} B loaded, "
+            f"{res['memory']['after_drop']} B after its drop (retained "
+            f"{res['memory']['retained_bytes']} B) ({name})")
+    finally:
+        for proc, logf in procs:
+            _stop_cli(proc, logf)
+        shutil.rmtree(base, ignore_errors=True)
+    return res
+
+
+def _models_memory(config_file: str, cfg, base: str, replay_file: str, payloads) -> dict:
+    """In this process: build_stack on the models config, replay the
+    request log's first records, and take CTR_F32 out, in again (one
+    request), and out: torch.cuda.memory_allocated after the first drop
+    and after the second must agree within 1 MiB (read as retire_memory
+    does: the dropped model dies on whichever thread lets go of its last
+    batch)."""
+    import gc
+    import weakref
+
+    import torch
+
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack
+    from distributed_tf_serving_tpu_torch.serving.warmup import replay_warmup_file
+
+    def allocated() -> int:
+        gc.collect()
+        torch.cuda.synchronize()
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        return torch.cuda.memory_allocated()
+
+    def reload(names) -> None:
+        req = apis.ReloadConfigRequest()
+        labels = {"CTR": {"stable": 1}}
+        req.config.model_config_list.config.extend(_model_entries(base, names, labels))
+        impl.handle_reload_config(req)
+
+    impl, batcher, _ = build_stack(dataclasses.replace(
+        cfg, model_config_file=config_file, file_system_poll_wait_seconds=3600.0), None, "cuda")
+    try:
+        if sorted(impl.registry.models()) != ["CTR", "CTR_F32", "RANKER"]:
+            fail(f"models: build_stack served {impl.registry.models()}")
+        replayed = replay_warmup_file(replay_file, impl.registry.resolve("CTR"), batcher)
+        reload(("CTR", "RANKER"))
+        before = allocated()
+        reload(("CTR", "CTR_F32", "RANKER"))
+        sv = impl.registry.resolve("CTR_F32")
+        ids, wts = payloads["CTR_F32"][0]
+        batcher.submit(sv, {"feat_ids": ids, "feat_wts": wts}).result(60)
+        torch.cuda.synchronize()
+        loaded = torch.cuda.memory_allocated()
+        ref = weakref.ref(sv)
+        table = weakref.ref(sv.params["embedding"])
+        sv = None
+        reload(("CTR", "RANKER"))
+        t0 = time.perf_counter()
+        while table() is not None and time.perf_counter() - t0 < RETIRE_SETTLE_S:
+            gc.collect()
+            time.sleep(0.01)
+        t1 = time.perf_counter()
+        while True:
+            after = allocated()
+            if after <= before or time.perf_counter() - t1 > RETIRE_SETTLE_S:
+                break
+            time.sleep(0.005)
+        res = {"replayed": replayed, "before_load": before, "loaded": loaded,
+               "after_drop": after, "retained_bytes": after - before,
+               "servable_collected": ref() is None, "table_collected": table() is None,
+               "drain_s": t1 - t0, "settle_s": time.perf_counter() - t1}
+    finally:
+        impl.model_lifecycle.stop()
+        batcher.stop()
+    if replayed <= 0:
+        fail("models: the request log replayed no record")
+    if not res["servable_collected"] or res["retained_bytes"] > (1 << 20):
+        fail(f"models: dropping CTR_F32 kept {res['retained_bytes']} B on the card "
+             f"(collected {res['servable_collected']})")
+    return res
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
     sys.path.insert(0, HERE)
+    if os.path.exists(LOG_FILE):
+        os.unlink(LOG_FILE)
     import torch
 
     if not torch.cuda.is_available():
@@ -2405,11 +2903,14 @@ def main() -> None:
     t0 = time.perf_counter()
     families = phase_families(dev, f"{name} ({smi})")
     log(f"families: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    models = phase_models(dev, f"{name} ({smi})")
+    log(f"models: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
-                   "lifecycle": lifecycle, "outputs": outputs, "families": families}, f,
-                  indent=1, default=str)
+                   "lifecycle": lifecycle, "outputs": outputs, "families": families,
+                   "models": models}, f, indent=1, default=str)
 
     replaces = {
         "fused_serve": "distributed_tf_serving_tpu/ops/cross_kernel.py:470",
@@ -2431,6 +2932,8 @@ def main() -> None:
                      "launches_serving": serving["launches"][f"{kname}/{cd}"],
                      "launches_outputs": outputs["launches"].get(f"{kname}/{cd}", 0),
                      "launches_lifecycle": lifecycle["launches"]["path"].get(f"{kname}/{cd}", 0),
+                     # The models server's count, from its start to its exit.
+                     "launches_models": models["launches"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (

@@ -193,15 +193,34 @@ class ServableRegistry:
         if not label:
             raise ValueError("version label must be non-empty")
         with self._lock:
-            versions = self._servables.get(name)
-            if not versions:
-                raise ModelNotFoundError(f"model {name!r} not loaded")
-            if version not in versions:
-                raise VersionNotFoundError(
-                    f"cannot label {name!r} v{version} as {label!r}: version not "
-                    f"loaded; have {sorted(versions)}"
-                )
+            self._check_labelable(name, label, version)
             self._labels.setdefault(name, {})[label] = version
+
+    def _check_labelable(self, name: str, label: str, version: int) -> None:
+        """Raise unless `name` v`version` is loaded. Caller holds the lock."""
+        versions = self._servables.get(name)
+        if not versions:
+            raise ModelNotFoundError(f"model {name!r} not loaded")
+        if version not in versions:
+            raise VersionNotFoundError(
+                f"cannot label {name!r} v{version} as {label!r}: version not "
+                f"loaded; have {sorted(versions)}"
+            )
+
+    def replace_label_maps(self, maps: dict[str, dict[str, int]]) -> None:
+        """Replace each named model's whole label map, atomically across all
+        models (HandleReloadConfigRequest: the supplied map is the
+        declarative state, so a label absent from it is unassigned). Every
+        label is checked before any is applied, under one lock acquisition:
+        a bad label, or a concurrent unload, applies nothing."""
+        with self._lock:
+            for name, mapping in maps.items():
+                for label, version in mapping.items():
+                    if not label:
+                        raise ValueError("version label must be non-empty")
+                    self._check_labelable(name, label, version)
+            for name, mapping in maps.items():
+                self._labels[name] = dict(mapping)
 
     def resolve(
         self,

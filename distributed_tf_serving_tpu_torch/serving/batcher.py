@@ -354,6 +354,7 @@ class DynamicBatcher:
         self._staged: deque[_Staged] = deque()
         self._dispatch_pending = 0  # staged + running device stages
         self._inflight = 0  # readbacks handed to the completion workers
+        self._collecting = False  # the batching thread holds a group not yet staged
         self._collect_done = False
         self._thread = threading.Thread(target=self._loop, name="batcher", daemon=True)
         self._dispatch_thread = threading.Thread(
@@ -373,6 +374,25 @@ class DynamicBatcher:
             self._thread.start()
             self._dispatch_thread.start()
         return self
+
+    def drain(self, timeout_s: float) -> bool:
+        """Wait until every accepted item is done — nothing queued, no group
+        being collected, none staged, no device stage running and no
+        readback with the completion workers — or `timeout_s` elapses.
+        True = drained. The shutdown drain (serving/server.py
+        GracefulShutdown) calls it once new admissions are refused, so the
+        wait is bounded by the work already accepted."""
+        deadline = time.perf_counter() + max(timeout_s, 0.0)
+        with self._cv:
+            while (self._items or self._collecting or self._dispatch_pending
+                   or self._inflight):
+                if not self._thread.is_alive() or not self._dispatch_thread.is_alive():
+                    return False  # nothing will ever finish this work
+                left = deadline - time.perf_counter()
+                if left <= 0:
+                    return False
+                self._cv.wait(min(left, 0.05))
+        return True
 
     def stop(self) -> None:
         """Serve every accepted item, then end the batching and dispatch
@@ -754,6 +774,7 @@ class DynamicBatcher:
                     it = self._items.popleft()
                     self._queued_candidates -= it.n
                     if not self._drop_stale_locked(it):
+                        self._collecting = True
                         return it
                 if self._stopping:
                     return None
@@ -808,6 +829,9 @@ class DynamicBatcher:
                 staged = self._assemble(group, total)
                 if staged is not None:
                     self._stage(staged)
+                with self._cv:
+                    self._collecting = False
+                    self._cv.notify_all()
                 # Drop the batch before waiting for the next one: this frame
                 # must not keep a retired servable alive while idle.
                 item = group = staged = None

@@ -1,24 +1,34 @@
 """gRPC frontend: PredictionService (Predict, PredictStream, Classify,
-Regress, MultiInference, GetModelMetadata), ModelService (GetModelStatus)
-and grpc.health.v1 Health on one port, over PredictionServiceImpl; with
-`[transport] uds_path` (or --uds-path) on a Unix-domain socket as well.
+Regress, MultiInference, GetModelMetadata), ModelService (GetModelStatus,
+HandleReloadConfigRequest) and grpc.health.v1 Health on one port, over
+PredictionServiceImpl; with `[transport] uds_path` (or --uds-path) on a
+Unix-domain socket as well, or with `--ssl-config-file` over TLS.
 
 CLI:
 
     python -m distributed_tf_serving_tpu_torch.serving.server --port 9999 \
         [--config configs/latency.toml] [--device cuda|cpu] [--kernels] \
-        [--model-kind KIND] [--model-name NAME] \
-        [--checkpoint DIR | --model-base-path DIR] [--uds-path PATH] \
-        [--stream-chunk N]
+        [--model-kind KIND] [--model-name NAME] [--num-fields N] \
+        [--checkpoint DIR | --model-base-path DIR | --model-config-file F] \
+        [--version-label LABEL=VERSION ...] [--batching-parameters-file F] \
+        [--ssl-config-file F] [--request-log-file F] [--request-log-sampling P] \
+        [--no-warmup] [--max-wait-us N] [--max-workers N] \
+        [--file-system-poll-wait-seconds S] [--max-num-load-retries N] \
+        [--uds-path PATH] [--stream-chunk N]
 
 serves, by default, a randomly initialized demo servable (numpy-seeded,
 `--seed`) of the configured model kind ([server] model_kind, or
 `--model-kind`: any family of models/); `--checkpoint DIR` serves the
-checkpoint in DIR (train/checkpoint.py), and `--model-base-path DIR` the
+checkpoint in DIR (train/checkpoint.py), `--model-base-path DIR` the
 newest versions under DIR's numeric version directories, hot-swapping as
-new ones appear (serving/version_watcher.py). The device defaults to
-"cuda"; without a card the server refuses to start unless `--device cpu`
-is given.
+new ones appear (serving/version_watcher.py), and `--model-config-file F`
+every model of a tensorflow_model_server ModelServerConfig, one version
+watcher each (ModelLifecycle), the list replaceable at run time through
+HandleReloadConfigRequest. SIGTERM (or SIGINT) drains: new inference RPCs
+are refused UNAVAILABLE, accepted work is answered within [overload]
+drain_grace_s (GracefulShutdown), then the server exits 0. The device
+defaults to "cuda"; without a card the server refuses to start unless
+`--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import dataclasses
 import json
 import logging
 import os
+import pathlib
 import signal
 import threading
 import time
@@ -52,11 +63,14 @@ from ..proto.service_grpc import (
     PredictionServiceServicer,
 )
 from ..utils.config import (
+    DRAIN_GRACE_S,
     BatchingConfig,
     KernelsConfig,
     ServerConfig,
     TransportConfig,
+    apply_batching_parameters,
     load_config,
+    validate_model_config_entries,
 )
 from .batcher import DynamicBatcher
 from .service import PredictionServiceImpl, ServiceError
@@ -106,8 +120,69 @@ def _stream_chunk_of(context) -> int | None:
     return None
 
 
-def _call(name: str, fn, request, context):
+class TransportQuiesce:
+    """Holds the RPCs that arrive in the last moments before the transport
+    stops, so that none is on the wire when it does.
+
+    gRPC core cancels every call that reaches the server after its shutdown
+    began (before the client read the GOAWAY), and every call it had
+    received but not yet handed to a handler; the client sees CANCELLED,
+    which it does not retry. So GracefulShutdown first `settle()`s: from
+    then on each RPC waits in its handler thread, before any work, and
+    once none has arrived for QUIET_S (at most the settle budget) the
+    transport stops — a client waiting on its call sends nothing more —
+    and `release()` lets the held RPCs answer (UNAVAILABLE while the
+    server drains). A held RPC waits at most HOLD_S, and never into the
+    last DEADLINE_MARGIN_S of its own deadline."""
+
+    QUIET_S = 0.1
+    SETTLE_S = 0.5
+    HOLD_S = 2.0
+    DEADLINE_MARGIN_S = 0.05
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._holding = False
+        self._last_arrival = 0.0
+
+    def hold(self, context) -> None:
+        """At the top of every handler: waits while the transport settles."""
+        with self._cond:
+            if not self._holding:
+                return
+            self._last_arrival = time.monotonic()
+            limit = self.HOLD_S
+            remaining = _deadline_of(context) if context is not None else None
+            if remaining is not None:
+                limit = min(limit, max(remaining - self.DEADLINE_MARGIN_S, 0.0))
+            self._cond.wait_for(lambda: not self._holding, timeout=limit)
+
+    def settle(self, budget_s: float) -> float:
+        """Start holding; return (the seconds it took) once no RPC arrived
+        for QUIET_S, or after `budget_s`."""
+        t0 = time.monotonic()
+        end = t0 + max(budget_s, 0.0)
+        with self._cond:
+            self._holding = True
+            self._last_arrival = t0
+        while True:
+            now = time.monotonic()
+            with self._cond:
+                quiet = now - self._last_arrival
+            if quiet >= self.QUIET_S or now >= end:
+                return now - t0
+            time.sleep(min(self.QUIET_S - quiet, end - now))
+
+    def release(self) -> None:
+        with self._cond:
+            self._holding = False
+            self._cond.notify_all()
+
+
+def _call(name: str, fn, request, context, quiesce: TransportQuiesce | None = None):
     """ServiceError -> grpc status; anything else -> INTERNAL."""
+    if quiesce is not None:
+        quiesce.hold(context)
     try:
         return fn(request)
     except ServiceError as e:
@@ -117,9 +192,11 @@ def _call(name: str, fn, request, context):
         context.abort(grpc.StatusCode.INTERNAL, f"internal error: {e}")
 
 
-def _call_stream(name: str, fn, request, context):
+def _call_stream(name: str, fn, request, context, quiesce: TransportQuiesce | None = None):
     """_call for a server-streaming RPC: `fn(request)` returns a chunk
     generator; an error aborts the stream after the chunks already sent."""
+    if quiesce is not None:
+        quiesce.hold(context)
     try:
         yield from fn(request)
     except ServiceError as e:
@@ -133,25 +210,27 @@ class GrpcPredictionService(PredictionServiceServicer):
     """tensorflow.serving.PredictionService adapter: every RPC of the
     service, PredictStream included."""
 
-    def __init__(self, impl: PredictionServiceImpl):
+    def __init__(self, impl: PredictionServiceImpl, quiesce: TransportQuiesce | None = None):
         self.impl = impl
+        self.quiesce = quiesce
 
     def _unary(self, name: str, fn, request, context):
         deadline_s = _deadline_of(context)
-        return _call(name, lambda req: fn(req, deadline_s=deadline_s), request, context)
+        return _call(name, lambda req: fn(req, deadline_s=deadline_s), request, context,
+                     self.quiesce)
 
     def Predict(self, request, context):
         deadline_s = _deadline_of(context)
         # The metadata is read only on a server whose plane armed the wire.
         int8_wire = self.impl.int8_score_wire and _score_wire_of(context)
         return _call("Predict", lambda req: self.impl.predict(
-            req, deadline_s=deadline_s, int8_wire=int8_wire), request, context)
+            req, deadline_s=deadline_s, int8_wire=int8_wire), request, context, self.quiesce)
 
     def PredictStream(self, request, context):
         deadline_s = _deadline_of(context)
         chunk = _stream_chunk_of(context)
         return _call_stream("PredictStream", lambda req: self.impl.predict_stream(
-            req, deadline_s=deadline_s, chunk=chunk), request, context)
+            req, deadline_s=deadline_s, chunk=chunk), request, context, self.quiesce)
 
     def Classify(self, request, context):
         return self._unary("Classify", self.impl.classify, request, context)
@@ -163,38 +242,53 @@ class GrpcPredictionService(PredictionServiceServicer):
         return self._unary("MultiInference", self.impl.multi_inference, request, context)
 
     def GetModelMetadata(self, request, context):
-        return _call("GetModelMetadata", self.impl.get_model_metadata, request, context)
+        return _call("GetModelMetadata", self.impl.get_model_metadata, request, context,
+                     self.quiesce)
 
 
 class GrpcModelService(ModelServiceServicer):
-    """tensorflow.serving.ModelService adapter: GetModelStatus."""
+    """tensorflow.serving.ModelService adapter: GetModelStatus and
+    HandleReloadConfigRequest."""
 
-    def __init__(self, impl: PredictionServiceImpl):
+    def __init__(self, impl: PredictionServiceImpl, quiesce: TransportQuiesce | None = None):
         self.impl = impl
+        self.quiesce = quiesce
 
     def GetModelStatus(self, request, context):
-        return _call("GetModelStatus", self.impl.get_model_status, request, context)
+        return _call("GetModelStatus", self.impl.get_model_status, request, context,
+                     self.quiesce)
+
+    def HandleReloadConfigRequest(self, request, context):
+        return _call("HandleReloadConfigRequest", self.impl.handle_reload_config, request,
+                     context, self.quiesce)
+
 
 
 class GrpcHealthService:
     """grpc.health.v1 Health: service "" is SERVING once warmup completed
-    and a model is loaded; service "<model>" is SERVING when the registry
-    holds a version of it, NOT_SERVING while a version watcher owns it
-    with no version loaded yet; unknown names get NOT_FOUND."""
+    and a model is loaded, and NOT_SERVING again once the server drains for
+    shutdown; service "<model>" is SERVING when the registry holds a
+    version of it, NOT_SERVING while a version watcher or the model
+    lifecycle owns it with no version loaded yet; unknown names get
+    NOT_FOUND."""
 
-    def __init__(self, impl: PredictionServiceImpl):
+    def __init__(self, impl: PredictionServiceImpl, quiesce: TransportQuiesce | None = None):
         self.impl = impl
+        self.quiesce = quiesce
 
     def _status(self, service: str) -> int | None:
         served = self.impl.registry.models()
         if not service:
-            ready = self.impl.warmup_complete and any(served.values())
+            ready = (self.impl.warmup_complete and any(served.values())
+                     and not self.impl.draining)
             return health_proto.SERVING if ready else health_proto.NOT_SERVING
         if served.get(service):
             return health_proto.SERVING
         return health_proto.NOT_SERVING if self.impl.is_configured(service) else None
 
     def Check(self, request, context):
+        if self.quiesce is not None:
+            self.quiesce.hold(context)
         st = self._status(request.service)
         if st is None:
             context.abort(grpc.StatusCode.NOT_FOUND, f"unknown service {request.service!r}")
@@ -218,27 +312,97 @@ def _add_uds_port(server, uds_path: str) -> None:
         raise RuntimeError(f"could not bind unix:{uds_path}")
 
 
+def _refuse_uds_beside_tls(credentials, uds_path) -> None:
+    if credentials is not None and uds_path:
+        # The Unix socket is plaintext: next to a TLS port it would open an
+        # unauthenticated side door to any local process.
+        raise ValueError(
+            "[transport] uds_path cannot be combined with --ssl-config-file: the "
+            "unix socket is plaintext and would bypass the TLS/mTLS the TCP port enforces"
+        )
+
+
 def create_server(
     impl: PredictionServiceImpl,
     address: str = "127.0.0.1:0",
     max_workers: int = 16,
     uds_path: str | None = None,
+    credentials: grpc.ServerCredentials | None = None,
+    quiesce: TransportQuiesce | None = None,
 ) -> tuple[grpc.Server, int]:
     """Build (not start) a server; returns (server, bound_port). `uds_path`
-    binds a Unix-domain socket as well ([transport] uds_path)."""
+    binds a Unix-domain socket as well ([transport] uds_path);
+    `credentials` (load_ssl_credentials) makes the TCP port TLS, and then a
+    socket is refused. Every handler waits on `quiesce`
+    (GracefulShutdown.quiesce) while the transport settles to stop."""
+    _refuse_uds_beside_tls(credentials, uds_path)
     server = grpc.server(
         futures.ThreadPoolExecutor(max_workers=max_workers, thread_name_prefix="rpc"),
         options=list(LARGE_MESSAGE_CHANNEL_OPTIONS) + list(KEEPALIVE_SERVER_OPTIONS),
     )
-    add_PredictionServiceServicer_to_server(GrpcPredictionService(impl), server)
-    add_ModelServiceServicer_to_server(GrpcModelService(impl), server)
-    add_HealthServicer_to_server(GrpcHealthService(impl), server)
-    port = server.add_insecure_port(address)
+    add_PredictionServiceServicer_to_server(GrpcPredictionService(impl, quiesce), server)
+    add_ModelServiceServicer_to_server(GrpcModelService(impl, quiesce), server)
+    add_HealthServicer_to_server(GrpcHealthService(impl, quiesce), server)
+    if credentials is not None:
+        port = server.add_secure_port(address, credentials)
+    else:
+        port = server.add_insecure_port(address)
     if port == 0:
         raise RuntimeError(f"could not bind {address}")
     if uds_path:
         _add_uds_port(server, uds_path)
     return server, port
+
+
+def _read_text_proto(path, message):
+    from google.protobuf import text_format
+
+    return text_format.Parse(pathlib.Path(path).read_text(), message)
+
+
+def load_ssl_credentials(path) -> grpc.ServerCredentials:
+    """tensorflow_model_server's --ssl_config_file: a text-format SSLConfig
+    that carries the PEM contents inline. client_verify = true demands a
+    client certificate chained to custom_ca (mTLS); custom_ca alone only
+    offers it."""
+    from ..proto import serving_apis_pb2 as apis
+
+    cfg = _read_text_proto(path, apis.SSLConfig())
+    if not cfg.server_key or not cfg.server_cert:
+        raise ValueError(
+            f"{path}: SSLConfig requires both server_key and server_cert (PEM contents inline)"
+        )
+    if cfg.client_verify and not cfg.custom_ca:
+        # grpc itself refuses client auth without root certificates.
+        raise ValueError(
+            f"{path}: client_verify requires custom_ca (the CA that signs client "
+            "certificates; grpc refuses client auth without roots)"
+        )
+    return grpc.ssl_server_credentials(
+        [(cfg.server_key.encode(), cfg.server_cert.encode())],
+        root_certificates=cfg.custom_ca.encode() if cfg.custom_ca else None,
+        require_client_auth=cfg.client_verify,
+    )
+
+
+def read_batching_parameters(path):
+    """A tensorflow_model_server --batching_parameters_file: the parsed
+    text-format BatchingParameters (utils/config.apply_batching_parameters
+    maps it onto [server])."""
+    from ..proto import serving_apis_pb2 as apis
+
+    return _read_text_proto(path, apis.BatchingParameters())
+
+
+def _parse_model_server_config(path) -> list:
+    """Parse and check a --model_config_file before any thread starts, so a
+    bad file leaves nothing to tear down: the model_config_list entries."""
+    from ..proto import serving_apis_pb2 as apis
+
+    msc = _read_text_proto(path, apis.ModelServerConfig())
+    if msc.WhichOneof("config") != "model_config_list" or not msc.model_config_list.config:
+        raise ValueError(f"{path}: a model_config_list with at least one model is required")
+    return validate_model_config_entries(msc.model_config_list.config, str(path))
 
 
 def load_demo_servable(
@@ -280,6 +444,210 @@ def _servable_change_hook(name: str) -> None:
     log.info("kernel launches after a %s version change: %s", name, _launch_counts())
 
 
+def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig, registry,
+                  batcher):
+    """A VersionWatcher that serves `model_name` from `base_path`: each
+    version warmed through the batcher's queue and its warmup file replayed
+    before it serves (unless cfg.warmup is off), loaded onto the batcher's
+    device, the kernel launch counters logged at every version change."""
+    from .version_watcher import VersionWatcher, VersionWatcherConfig
+    from .warmup import replay_warmup_file
+
+    return VersionWatcher(
+        base_path, registry,
+        VersionWatcherConfig(
+            model_name=model_name,
+            desired_labels=tuple(desired_labels),
+            poll_interval_s=cfg.file_system_poll_wait_seconds,
+            # Upstream semantics: N RETRIES after the first attempt.
+            max_load_attempts=cfg.max_num_load_retries + 1,
+        ),
+        warmup=batcher.warmup_via_queue if cfg.warmup else None,
+        warmup_replay=(
+            (lambda sv, wf: replay_warmup_file(wf, sv, batcher)) if cfg.warmup else None
+        ),
+        device=batcher.device,
+        on_servable_change=_servable_change_hook,
+    )
+
+
+class ModelLifecycle:
+    """The served model list of a --model-config-file server: one version
+    watcher per model_config_list entry over one registry and one batcher,
+    and `apply()`, HandleReloadConfigRequest's reconcile, where the
+    supplied list replaces the served one (upstream semantics):
+
+    1. unchanged entries (same base_path and model_platform) get their
+       version_labels, atomically across models, before anything else
+       moves: a label on an unloaded version fails the reload and applies
+       nothing;
+    2. entries that are gone stop their watcher and unload the model; an
+       entry whose source moved is stopped here and started again in 3;
+    3. new entries start a watcher, whose first poll loads any ready
+       version before apply() returns (the model is registered when the
+       RPC answers); their labels are set as their versions land.
+
+    `model_platform` names the family ("tensorflow", or empty, means the
+    server's model_kind); the architecture of each version comes from its
+    own manifest, so models of different families, widths and compute
+    dtypes share the registry and the batcher. One lock serializes
+    reloads."""
+
+    def __init__(self, cfg: ServerConfig, registry: ServableRegistry, batcher: DynamicBatcher):
+        self._cfg = cfg
+        self._registry = registry
+        self._batcher = batcher
+        self._watchers: dict[str, object] = {}
+        self._sources: dict[str, tuple[str, str]] = {}  # name -> (base_path, platform)
+        self._lock = threading.Lock()  # reloads arrive on RPC threads
+
+    @property
+    def watchers(self) -> list:
+        with self._lock:
+            return list(self._watchers.values())
+
+    def configured_models(self) -> set[str]:
+        """The models this lifecycle owns a watcher for, whether or not a
+        version has landed yet (GetModelStatus answers START for those)."""
+        with self._lock:
+            return set(self._watchers)
+
+    @staticmethod
+    def _source_of(mc) -> tuple[str, str]:
+        return (mc.base_path, mc.model_platform)
+
+    def _kind_of(self, mc) -> str:
+        kind = mc.model_platform or self._cfg.model_kind
+        return self._cfg.model_kind if kind == "tensorflow" else kind  # upstream's platform
+
+    def apply(self, model_configs) -> None:
+        """Reconcile toward `model_configs` (checked entries). A label error
+        (ModelNotFoundError, VersionNotFoundError, ValueError) raises before
+        anything changes."""
+        with self._lock:
+            wanted = {mc.name: mc for mc in model_configs}
+            unchanged = {name for name in set(self._watchers) & set(wanted)
+                         if self._sources[name] == self._source_of(wanted[name])}
+            label_maps = {name: {label: int(v) for label, v in wanted[name].version_labels.items()}
+                          for name in unchanged}
+            if label_maps:
+                self._registry.replace_label_maps(label_maps)
+            for name in sorted(set(self._watchers) - unchanged):
+                self._watchers.pop(name).stop()
+                self._sources.pop(name)
+                try:
+                    self._registry.unload(name)
+                except KeyError:
+                    pass  # no version had landed
+                log.info("reload: %s model %r", "restarting" if name in wanted else "removed",
+                         name)
+            for name in sorted(set(wanted) - unchanged):
+                mc = wanted[name]
+                labels = sorted((label, int(v)) for label, v in mc.version_labels.items())
+                self._watchers[name] = _make_watcher(mc.base_path, name, labels, self._cfg,
+                                                     self._registry, self._batcher).start()
+                self._sources[name] = self._source_of(mc)
+                log.info("reload: added model %r (base_path=%s, platform %s)", name,
+                         mc.base_path, self._kind_of(mc))
+
+    def stop(self) -> None:
+        """Stop every watcher: all are signalled before any is joined."""
+        with self._lock:
+            watchers = list(self._watchers.values())
+        for w in watchers:
+            w.request_stop()
+        for w in watchers:
+            w.stop()
+
+
+class GracefulShutdown:
+    """The one way the CLI server stops (SIGTERM, SIGINT, or its main loop
+    ending). In order:
+
+    1. `impl.draining`: health "" answers NOT_SERVING and every new
+       inference RPC is refused UNAVAILABLE, so balancers and fan-out
+       clients go elsewhere;
+    2. the version watcher or the model lifecycle stops: no load or warmup
+       enters the batcher behind the drain;
+    3. `batcher.drain(grace_s)`: what the server accepted is answered
+       (queued, staged, running and read back), bounded by the grace;
+    4. the transport settles (`quiesce`, TransportQuiesce: RPCs that
+       arrive now are held until it has stopped, so gRPC core cancels no
+       call that was on the wire) and stops with the grace that remains
+       (at least MIN_RPC_GRACE_S, so handlers can send what the drain
+       completed); then the held RPCs answer;
+    5. the batcher stops; 6. the request log closes.
+
+    The server's handlers wait on `quiesce` only when it was passed to
+    create_server (`serve()` does).
+
+    Idempotent and thread-safe: the first caller runs it, later callers
+    wait for it to finish. `install_signal_handler()` runs it on its own
+    thread at SIGTERM and SIGINT (main thread only)."""
+
+    MIN_RPC_GRACE_S = 1.0
+
+    def __init__(self, impl: PredictionServiceImpl, batcher: DynamicBatcher,
+                 grace_s: float = DRAIN_GRACE_S, watcher=None, request_logger=None):
+        self.impl = impl
+        self.batcher = batcher
+        self.grace_s = max(float(grace_s), 0.0)
+        self.watcher = watcher
+        self.request_logger = request_logger
+        self.server = None  # attached once created
+        self.quiesce = TransportQuiesce()
+        self.drained: bool | None = None
+        self._lock = threading.Lock()
+        self._started = False
+        self._done = threading.Event()
+
+    def install_signal_handler(self) -> bool:
+        try:
+            signal.signal(signal.SIGTERM, self._on_signal)
+            signal.signal(signal.SIGINT, self._on_signal)
+        except ValueError:  # not the main thread
+            return False
+        return True
+
+    def _on_signal(self, signum, frame) -> None:
+        # The main thread waits in wait_for_termination: the drain runs
+        # elsewhere so that server.stop() can release it.
+        log.info("%s: draining (grace %.1fs)", signal.Signals(signum).name, self.grace_s)
+        threading.Thread(target=self.shutdown, name="graceful-drain", daemon=True).start()
+
+    def shutdown(self) -> None:
+        with self._lock:
+            run_it = not self._started
+            self._started = True
+        if not run_it:
+            self._done.wait()
+            return
+        try:
+            t0 = time.perf_counter()
+            self.impl.draining = True
+            if self.watcher is not None:
+                self.watcher.stop()
+            self.drained = self.batcher.drain(self.grace_s)
+            if not self.drained:
+                log.warning("drain grace %.1fs expired with work still in flight; stopping "
+                            "anyway", self.grace_s)
+            if self.server is not None:
+                self.quiesce.settle(min(self.quiesce.SETTLE_S,
+                                        self.grace_s - (time.perf_counter() - t0)))
+                left = max(self.grace_s - (time.perf_counter() - t0), self.MIN_RPC_GRACE_S)
+                stopped = self.server.stop(left)
+                self.quiesce.release()
+                stopped.wait()
+            self.batcher.stop()
+            if self.request_logger is not None:
+                self.request_logger.close()
+            log.info("kernel launches at shutdown: %s", _launch_counts())
+            log.info("shutdown complete (drained=%s, %.3fs)", self.drained,
+                     time.perf_counter() - t0)
+        finally:
+            self._done.set()
+
+
 def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None,
                 seed: int = 0, fused_kernel: bool = True,
                 kernels_config: KernelsConfig | None = None,
@@ -303,13 +671,33 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     bucket serves the baseline. A built plane with int8_score_wire arms
     this server's int8 score response wire.
 
+    With `cfg.model_config_file` the server serves every model of that
+    ModelServerConfig instead, through a ModelLifecycle
+    (`impl.model_lifecycle`, which HandleReloadConfigRequest reconciles);
+    the servable returned is `cfg.model_name` when served, else any served
+    model, else None. As in the JAX server, the kernel plane is not
+    prepared in this mode (its decisions stay empty: the baseline serves).
+
     The batcher reads back at `cfg.output_wire_dtype` and `output_top_k`;
     `batching_config.stream_chunk_candidates` is PredictStream's default
-    split."""
+    split. The source options are checked, and a model config file parsed,
+    before any thread starts."""
     if checkpoint and model_base_path:
         raise ValueError(
             "--model-base-path is mutually exclusive with --checkpoint "
             "(the base path owns version lifecycle)")
+    model_configs = None
+    if cfg.model_config_file:
+        if checkpoint or model_base_path:
+            raise ValueError(
+                "--model-config-file is mutually exclusive with --model-base-path/--checkpoint "
+                "(the config file owns the model list)")
+        if cfg.version_labels:
+            raise ValueError(
+                "--version-label / [server] version_labels have no meaning with "
+                "--model-config-file; put per-model version_labels maps in the config "
+                "file's model entries instead")
+        model_configs = _parse_model_server_config(cfg.model_config_file)
     batcher = DynamicBatcher(
         buckets=cfg.buckets, max_wait_us=cfg.max_wait_us, device=device,
         queue_capacity_candidates=cfg.queue_capacity_candidates,
@@ -338,29 +726,29 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
             log.exception("kernel autotune failed; serving the baseline")
         log.info("kernel plane prepared in %.2fs", time.perf_counter() - t0)
 
-    if model_base_path:
-        from .version_watcher import VersionWatcher, VersionWatcherConfig
-        from .warmup import replay_warmup_file
+    if model_configs is not None:
+        # The watchers warm through the queue, so the batcher runs first.
+        batcher.start()
+        lifecycle = ModelLifecycle(cfg, registry, batcher)
+        lifecycle.apply(model_configs)
+        impl.model_lifecycle = lifecycle
+        served = registry.models()
+        if served:
+            log.info("serving %d model(s) from %s: %s", len(served), cfg.model_config_file,
+                     dict(sorted(served.items())))
+        else:
+            log.warning("no ready versions for any configured model yet; watching")
+        ready = cfg.model_name if cfg.model_name in served else (
+            sorted(served)[0] if served else None)
+        impl.warmup_complete = True
+        return impl, batcher, registry.resolve(ready) if ready else None
 
+    if model_base_path:
         # The watcher warms through the queue, so the batcher runs first.
         batcher.start()
-        watcher = VersionWatcher(
-            model_base_path, registry,
-            VersionWatcherConfig(
-                model_name=cfg.model_name,
-                desired_labels=cfg.version_labels,
-                poll_interval_s=cfg.file_system_poll_wait_seconds,
-                # Upstream semantics: N RETRIES after the first attempt.
-                max_load_attempts=cfg.max_num_load_retries + 1,
-            ),
-            warmup=batcher.warmup_via_queue if cfg.warmup else None,
-            warmup_replay=(
-                (lambda sv, wf: replay_warmup_file(wf, sv, batcher)) if cfg.warmup else None
-            ),
-            device=batcher.device,
-            on_servable_change=_servable_change_hook,
-        )
-        impl.served_sources.add(cfg.model_name)
+        watcher = _make_watcher(model_base_path, cfg.model_name, cfg.version_labels, cfg,
+                                registry, batcher)
+        impl.served_sources[cfg.model_name] = (str(model_base_path), cfg.model_kind)
         impl.version_watcher = watcher.start()
         versions = registry.models().get(cfg.model_name, [])
         if versions:
@@ -402,10 +790,24 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     return impl, batcher, servable
 
 
+def _version_labels(raw_labels: list[str]) -> tuple[tuple[str, int], ...]:
+    """--version-label LABEL=VERSION flags as sorted (label, version) pairs."""
+    pairs = []
+    for raw in raw_labels:
+        label, sep, version = raw.partition("=")
+        try:
+            pairs.append((label, int(version)))
+        except ValueError:
+            sep = ""
+        if not sep or not label:
+            raise SystemExit(f"--version-label expects LABEL=VERSION, got {raw!r}")
+    return tuple(sorted(pairs))
+
+
 def serve(argv=None) -> None:
     p = argparse.ArgumentParser(description="PyTorch TF-Serving-compatible CTR server")
-    p.add_argument("--config", help="TOML file with [server], [batching], [model] and "
-                   "[kernels] sections")
+    p.add_argument("--config", help="TOML file with [server], [batching], [transport], "
+                   "[model] and [kernels] sections ([overload] drain_grace_s is read too)")
     p.add_argument("--port", type=int, default=None)
     p.add_argument("--host", default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -413,11 +815,41 @@ def serve(argv=None) -> None:
     p.add_argument("--model-kind", help="model family of the demo servable (dcn, dcn_v2, "
                    "wide_deep, deepfm, two_tower, dlrm, generic). Overrides [server] model_kind")
     p.add_argument("--model-name", help="the served model's name. Overrides [server] model_name")
+    p.add_argument("--num-fields", type=int, help="fields per candidate of the demo servable. "
+                   "Overrides [server] and [model] num_fields")
+    p.add_argument("--max-workers", type=int, help="gRPC handler threads")
+    p.add_argument("--max-wait-us", type=int, help="the batcher's coalescing window")
     source = p.add_mutually_exclusive_group()
     source.add_argument("--checkpoint", help="serve this checkpoint directory "
                         "(servable.json + params.safetensors)")
     source.add_argument("--model-base-path", help="serve the newest numeric version "
                         "directories under this path, hot-swapping new ones")
+    p.add_argument("--model-config-file",
+                   help="multi-model serving: a tensorflow_model_server ModelServerConfig "
+                   "textproto (model_config_list of name / base_path / model_platform / "
+                   "version_labels; one version watcher per model). Equivalent to [server] "
+                   "model_config_file")
+    p.add_argument("--version-label", action="append", metavar="LABEL=VERSION", default=None,
+                   help="assign a version label (repeatable), e.g. --version-label stable=2; "
+                   "replaces [server] version_labels")
+    p.add_argument("--file-system-poll-wait-seconds", type=float,
+                   help="version watcher poll interval (the upstream flag)")
+    p.add_argument("--max-num-load-retries", type=int,
+                   help="retries of a failing version load after the first (the upstream flag)")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="serve a version without warming its buckets and warmup file first")
+    p.add_argument("--batching-parameters-file",
+                   help="tensorflow_model_server batching config (text-format "
+                   "BatchingParameters): allowed_batch_sizes -> bucket ladder, "
+                   "batch_timeout_micros -> max_wait_us, ...; applied over [server]")
+    p.add_argument("--ssl-config-file",
+                   help="serve gRPC over TLS: a tensorflow_model_server SSLConfig textproto "
+                   "(PEM contents inline; client_verify = true for mTLS)")
+    p.add_argument("--request-log-file",
+                   help="log a sample of the requests that succeed as PredictionLog "
+                   "TFRecords (usable as a warmup file)")
+    p.add_argument("--request-log-sampling", type=float,
+                   help="sampling rate in [0, 1] of --request-log-file (default 0.01)")
     p.add_argument("--uds-path", help="also serve gRPC on this Unix-domain socket path "
                    "(co-located clients dial unix:<path>). Equivalent to [transport] uds_path")
     p.add_argument("--stream-chunk", type=int, default=None,
@@ -436,14 +868,6 @@ def serve(argv=None) -> None:
 
     loaded = load_config(args.config) if args.config else {"server": ServerConfig()}
     cfg = loaded["server"]
-    if args.port is not None:
-        cfg = dataclasses.replace(cfg, port=args.port)
-    if args.host is not None:
-        cfg = dataclasses.replace(cfg, host=args.host)
-    if args.model_kind is not None:
-        cfg = dataclasses.replace(cfg, model_kind=args.model_kind)
-    if args.model_name is not None:
-        cfg = dataclasses.replace(cfg, model_name=args.model_name)
     kernels_config = loaded.get("kernels") or KernelsConfig()
     if args.kernels:
         kernels_config = dataclasses.replace(kernels_config, enabled=True)
@@ -454,34 +878,74 @@ def serve(argv=None) -> None:
     transport_config = loaded.get("transport") or TransportConfig()
     if args.uds_path:
         transport_config = dataclasses.replace(transport_config, uds_path=args.uds_path)
-    impl, batcher, servable = build_stack(
-        cfg, loaded.get("model"), args.device, args.seed, kernels_config=kernels_config,
-        checkpoint=args.checkpoint, model_base_path=args.model_base_path,
-        batching_config=batching_config,
-    )
+    model_config = loaded.get("model")
+    if model_config is not None:
+        # The flags win over the [model] section, as over [server].
+        arch = {k: v for k, v in {"num_fields": args.num_fields, "name": args.model_name}.items()
+                if v is not None}
+        if arch:
+            model_config = dataclasses.replace(model_config, **arch)
+    fields = {f.name for f in dataclasses.fields(ServerConfig)}
+    overrides = {k: v for k, v in vars(args).items() if v is not None and k in fields}
+    if args.no_warmup:
+        overrides["warmup"] = False
+    if args.version_label:
+        overrides["version_labels"] = _version_labels(args.version_label)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    if args.batching_parameters_file:
+        cfg = apply_batching_parameters(cfg, read_batching_parameters(
+            args.batching_parameters_file))
+    # Parsed before the stack is built: a bad file fails in milliseconds.
+    credentials = load_ssl_credentials(args.ssl_config_file) if args.ssl_config_file else None
+    _refuse_uds_beside_tls(credentials, transport_config.uds_path)
+    request_logger = None
+    if cfg.request_log_file:
+        from .request_log import RequestLogger
+
+        request_logger = RequestLogger(cfg.request_log_file,
+                                       sampling_rate=cfg.request_log_sampling)
+
+    try:
+        impl, batcher, servable = build_stack(
+            cfg, model_config, args.device, args.seed, kernels_config=kernels_config,
+            checkpoint=args.checkpoint, model_base_path=args.model_base_path,
+            batching_config=batching_config,
+        )
+    except BaseException:
+        if request_logger is not None:
+            request_logger.close()
+        raise
+    shutdown = GracefulShutdown(
+        impl, batcher, grace_s=loaded.get("drain_grace_s", DRAIN_GRACE_S),
+        watcher=impl.model_lifecycle or impl.version_watcher, request_logger=request_logger)
+    if request_logger is not None:
+        impl.request_logger = request_logger
+        log.info("request logging to %s (sampling %.4f)", cfg.request_log_file,
+                 cfg.request_log_sampling)
     server, port = create_server(impl, f"{cfg.host}:{cfg.port}", cfg.max_workers,
-                                 uds_path=transport_config.uds_path or None)
+                                 uds_path=transport_config.uds_path or None,
+                                 credentials=credentials, quiesce=shutdown.quiesce)
     server.start()
+    shutdown.server = server
+    shutdown.install_signal_handler()
     what = (f"{servable.name} v{servable.version}" if servable is not None
             else f"{cfg.model_name} (awaiting versions)")
     kind = servable.model.kind if servable is not None else cfg.model_kind
     log.info("serving %s (%s) on %s:%d, device %s", what, kind, cfg.host, port, batcher.device)
+    if credentials is not None:
+        log.info("the gRPC port is TLS-secured (--ssl-config-file)")
     if transport_config.uds_path:
         log.info("also serving on unix:%s", transport_config.uds_path)
     log.info("readback wire %s, top-k %d, PredictStream chunk %d, int8 score wire %s",
              cfg.output_wire_dtype, cfg.output_top_k, impl.stream_chunk_candidates,
              "armed" if impl.int8_score_wire else "off")
     servable = None  # a retired version must not stay alive here
-    done = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *_: done.set())
-    signal.signal(signal.SIGINT, lambda *_: done.set())
-    done.wait()
-    server.stop(grace=5).wait()
-    if impl.version_watcher is not None:
-        impl.version_watcher.stop()  # no load may race the batcher's stop
-    batcher.stop()
-    log.info("kernel launches at shutdown: %s", _launch_counts())
-    log.info("shutdown complete")
+    try:
+        server.wait_for_termination()
+    finally:
+        # The drain a signal started, or this one; idempotent.
+        shutdown.shutdown()
 
 
 if __name__ == "__main__":

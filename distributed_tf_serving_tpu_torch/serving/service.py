@@ -3,13 +3,15 @@ latest-version default, signature lookup, input decode and validation
 against the signature, output_filter selection, the int8 score response
 wire, server-streaming Predict (PredictStream: the request split into
 sub-batches, each answered as its readback completes), the Example-input
-RPCs (Classify, Regress, MultiInference), and the model-status / metadata
-RPCs. server.py is a thin gRPC adapter over this class.
+RPCs (Classify, Regress, MultiInference), the model-status / metadata
+RPCs, and ModelService's HandleReloadConfigRequest. server.py is a thin
+gRPC adapter over this class.
 
 Status codes: unknown model/version/signature -> NOT_FOUND; malformed
 tensors and signature mismatches -> INVALID_ARGUMENT; oversized batches and
 a full queue -> RESOURCE_EXHAUSTED; an expired deadline ->
-DEADLINE_EXCEEDED; other batcher failures -> UNAVAILABLE.
+DEADLINE_EXCEEDED; other batcher failures, and any inference RPC once the
+server drains for shutdown -> UNAVAILABLE.
 """
 
 from __future__ import annotations
@@ -52,8 +54,9 @@ def _wrap_lookup(fn):
 
 
 class PredictionServiceImpl:
-    """Registry + batcher -> Predict, Classify, Regress, MultiInference,
-    GetModelMetadata, GetModelStatus."""
+    """Registry + batcher -> Predict, PredictStream, Classify, Regress,
+    MultiInference, GetModelMetadata, GetModelStatus,
+    HandleReloadConfigRequest."""
 
     # Bounded wait: a stuck batch must not hold an RPC thread forever.
     _BATCH_DEADLINE_S = 120.0
@@ -73,17 +76,45 @@ class PredictionServiceImpl:
         # False while the server loads and warms up: health reports
         # NOT_SERVING until then.
         self.warmup_complete = True
-        # Models a version watcher owns. Such a model with no version
-        # loaded yet is START in GetModelStatus and NOT_SERVING in health,
-        # not NOT_FOUND.
-        self.served_sources: set[str] = set()
+        # name -> (base_path, model kind) of the model a --model-base-path
+        # watcher owns. Such a model with no version loaded yet is START in
+        # GetModelStatus and NOT_SERVING in health, not NOT_FOUND; and a
+        # label-only reload may restate this source, but not move it.
+        self.served_sources: dict[str, tuple[str, str]] = {}
         # The VersionWatcher of a --model-base-path server, else None.
         self.version_watcher = None
+        # The ModelLifecycle of a --model-config-file server (server.py),
+        # else None: with it HandleReloadConfigRequest replaces the served
+        # model list.
+        self.model_lifecycle = None
+        # The sampled request log (serving/request_log.RequestLogger), or
+        # None: a request that succeeded is offered to it.
+        self.request_logger = None
+        # Set once shutdown starts (server.GracefulShutdown): every new
+        # inference RPC is refused UNAVAILABLE while accepted work ends.
+        self.draining = False
 
     def is_configured(self, name: str) -> bool:
-        """True when this server is configured to serve `name`, whether or
-        not a version of it is ready yet."""
-        return name in self.served_sources
+        """True when this server is configured to serve `name` (a watcher
+        or the model lifecycle owns it), whether or not a version of it is
+        ready yet."""
+        lifecycle = self.model_lifecycle
+        return name in self.served_sources or (
+            lifecycle is not None and name in lifecycle.configured_models())
+
+    def _refuse_if_draining(self) -> None:
+        """Once shutdown started, new inference work is refused UNAVAILABLE
+        (fan-out clients reroute to another backend) while the work already
+        accepted completes."""
+        if self.draining:
+            raise ServiceError(
+                "UNAVAILABLE",
+                "server is draining (shutdown in progress); retry against another backend",
+            )
+
+    def _log_request(self, kind: str, request) -> None:
+        if self.request_logger is not None:
+            self.request_logger.maybe_log(kind, request)
 
     @staticmethod
     def _version_choice(model_spec: apis.ModelSpec) -> tuple[int | None, str | None]:
@@ -307,6 +338,7 @@ class PredictionServiceImpl:
         """Unary Predict. int8_wire (the client opted in and this server's
         kernels plane armed the wire) sends a float32 score output as
         DT_INT8 plus its `/q8_scale` and `/q8_min` sidecar outputs."""
+        self._refuse_if_draining()
         servable, arrays, out_names, fetch_keys = self._predict_prepare(request)
         outputs = self._run(servable, arrays, fetch_keys, deadline_s)
         self._check_produced(out_names, outputs)
@@ -328,6 +360,9 @@ class PredictionServiceImpl:
             codec.from_ndarray(np.asarray([mn], np.float32), use_tensor_content=mirror,
                                out=resp.outputs[score_key + codec.Q8_WIRE_MIN_SUFFIX])
         self._encode_outputs(names, outputs, resp.outputs, mirror)
+        # Only a request that succeeded is logged: the log is a warmup file,
+        # and a malformed request must never fail a later version's load.
+        self._log_request("predict", request)
         return resp
 
     # --------------------------------------------------------- PredictStream
@@ -393,6 +428,7 @@ class PredictionServiceImpl:
         encode and status codes otherwise: a failed sub-batch cancels its
         siblings and aborts the stream with the translated status; a
         deadline that runs out mid-stream aborts with DEADLINE_EXCEEDED."""
+        self._refuse_if_draining()
         deadline_t = self._clock_deadline(deadline_s)
         give_up_t = time.perf_counter() + self._effective_timeout(deadline_s)
         servable, out_names, mirror, total, futs = self._stream_submit(request, deadline_t, chunk)
@@ -424,6 +460,7 @@ class PredictionServiceImpl:
             for f in pending:
                 f.cancel()
             raise
+        self._log_request("predict", request)
 
     # ---------------------------------------------------- Classify / Regress
 
@@ -443,6 +480,13 @@ class PredictionServiceImpl:
     def classify(self, request: apis.ClassificationRequest,
                  deadline_s: float | None = None) -> apis.ClassificationResponse:
         """Two classes per Example: "0" scores 1 - p and "1" scores p."""
+        self._refuse_if_draining()
+        resp = self._classify(request, deadline_s)
+        self._log_request("classify", request)
+        return resp
+
+    def _classify(self, request: apis.ClassificationRequest,
+                  deadline_s: float | None) -> apis.ClassificationResponse:
         servable, outputs = self._run_examples(request, deadline_s)
         resp = apis.ClassificationResponse()
         resp.model_spec.CopyFrom(
@@ -457,6 +501,13 @@ class PredictionServiceImpl:
     def regress(self, request: apis.RegressionRequest,
                 deadline_s: float | None = None) -> apis.RegressionResponse:
         """One regression value per Example: the score p."""
+        self._refuse_if_draining()
+        resp = self._regress(request, deadline_s)
+        self._log_request("regress", request)
+        return resp
+
+    def _regress(self, request: apis.RegressionRequest,
+                 deadline_s: float | None) -> apis.RegressionResponse:
         servable, outputs = self._run_examples(request, deadline_s)
         resp = apis.RegressionResponse()
         resp.model_spec.CopyFrom(
@@ -470,7 +521,9 @@ class PredictionServiceImpl:
 
     def multi_inference(self, request: apis.MultiInferenceRequest,
                         deadline_s: float | None = None) -> apis.MultiInferenceResponse:
-        """Classify and regress tasks over one shared Input, in order."""
+        """Classify and regress tasks over one shared Input, in order (the
+        request is logged once, as a MultiInference)."""
+        self._refuse_if_draining()
         if not request.tasks:
             raise ServiceError("INVALID_ARGUMENT", "MultiInferenceRequest has no tasks")
         # Tasks run one after another, so each gets the budget REMAINING at
@@ -491,13 +544,13 @@ class PredictionServiceImpl:
             method = task.method_name
             if method == "tensorflow/serving/classify":
                 sub = apis.ClassificationRequest(model_spec=task.model_spec, input=request.input)
-                out = self.classify(sub, deadline_s=remaining())
+                out = self._classify(sub, deadline_s=remaining())
                 r = resp.results.add()
                 r.model_spec.CopyFrom(out.model_spec)
                 r.classification_result.CopyFrom(out.result)
             elif method == "tensorflow/serving/regress":
                 sub = apis.RegressionRequest(model_spec=task.model_spec, input=request.input)
-                out = self.regress(sub, deadline_s=remaining())
+                out = self._regress(sub, deadline_s=remaining())
                 r = resp.results.add()
                 r.model_spec.CopyFrom(out.model_spec)
                 r.regression_result.CopyFrom(out.result)
@@ -507,6 +560,7 @@ class PredictionServiceImpl:
                     f"unsupported MultiInference method {method!r} "
                     "(expected tensorflow/serving/classify or .../regress)",
                 )
+        self._log_request("multi_inference", request)
         return resp
 
     # ------------------------------------------------------ status / metadata
@@ -546,6 +600,95 @@ class PredictionServiceImpl:
             st.version = v
             st.state = apis.ModelVersionStatus.AVAILABLE
             st.status.error_code = 0
+        return resp
+
+    def handle_reload_config(self, request: apis.ReloadConfigRequest) -> apis.ReloadConfigResponse:
+        """tensorflow.serving.ModelService/HandleReloadConfigRequest.
+
+        - Multi-model mode (a --model-config-file server, `model_lifecycle`
+          set): the supplied model_config_list replaces the served set, as
+          upstream — new entries start a watcher, absent ones stop and
+          unload, a moved base_path or platform restarts its model, and
+          unchanged ones get the supplied version_labels. The entries pass
+          the startup checks; an empty list (it would unload everything)
+          is INVALID_ARGUMENT.
+        - Single-model modes: the version_labels maps only (the blue-green
+          flip). Each named model's map is its declarative label state. A
+          config may restate the served source but not move it
+          (FAILED_PRECONDITION); a model not served is NOT_FOUND. The maps
+          are checked and applied under one registry lock
+          (replace_label_maps), so a failed reload applies nothing.
+
+        A label that names an unloaded version is FAILED_PRECONDITION in
+        both modes; custom_model_config is INVALID_ARGUMENT."""
+        cfg = request.config
+        if cfg.WhichOneof("config") != "model_config_list":
+            raise ServiceError(
+                "INVALID_ARGUMENT",
+                "only model_config_list reloads are supported "
+                "(custom_model_config has no meaning here)",
+            )
+        if self.model_lifecycle is not None:
+            from ..utils.config import validate_model_config_entries
+
+            try:
+                entries = validate_model_config_entries(cfg.model_config_list.config,
+                                                        "reload config")
+            except ValueError as e:
+                raise ServiceError("INVALID_ARGUMENT", str(e)) from e
+            if not entries:
+                raise ServiceError(
+                    "INVALID_ARGUMENT",
+                    "refusing an empty model_config_list (it would unload every model; "
+                    "unload explicitly per model instead)",
+                )
+            try:
+                self.model_lifecycle.apply(entries)
+            except ValueError as e:
+                raise ServiceError("INVALID_ARGUMENT", str(e)) from e
+            except (ModelNotFoundError, VersionNotFoundError) as e:
+                raise ServiceError("FAILED_PRECONDITION", str(e)) from e
+            resp = apis.ReloadConfigResponse()
+            resp.status.error_code = 0
+            return resp
+        maps: dict[str, dict[str, int]] = {}
+        served = self.registry.models()
+        for mc in cfg.model_config_list.config:
+            if not mc.name:
+                raise ServiceError("INVALID_ARGUMENT", "model config missing name")
+            if mc.base_path or mc.model_platform:
+                # A deploy tool may replay its whole config to flip a label;
+                # an actual move of the source cannot be applied here.
+                src = self.served_sources.get(mc.name)
+                moved = (
+                    src is None
+                    or (mc.base_path and mc.base_path != src[0])
+                    or (mc.model_platform and mc.model_platform not in ("tensorflow", src[1]))
+                )
+                if moved:
+                    raise ServiceError(
+                        "FAILED_PRECONDITION",
+                        f"model {mc.name!r}: this server was started in single-model mode "
+                        "and cannot apply base_path/model_platform changes; model-list "
+                        "reloads require --model-config-file (a config restating the "
+                        "current source is accepted for label retargeting)",
+                    )
+            if not served.get(mc.name):
+                raise ServiceError(
+                    "NOT_FOUND",
+                    f"model {mc.name!r} is not served here; reload applies version_labels "
+                    "to already-served models (model-list lifecycle rides the "
+                    "--model-base-path watcher)",
+                )
+            maps[mc.name] = {label: int(v) for label, v in mc.version_labels.items()}
+        try:
+            self.registry.replace_label_maps(maps)
+        except ValueError as e:
+            raise ServiceError("INVALID_ARGUMENT", str(e)) from e
+        except (ModelNotFoundError, VersionNotFoundError) as e:
+            raise ServiceError("FAILED_PRECONDITION", str(e)) from e
+        resp = apis.ReloadConfigResponse()
+        resp.status.error_code = 0
         return resp
 
     def get_model_metadata(

@@ -213,6 +213,12 @@ class VersionWatcher:
         self._thread.start()
         return self
 
+    def request_stop(self) -> None:
+        """Signal the poller to stop without joining it (a multi-model
+        shutdown signals every watcher first, so it waits for the slowest
+        one, not for their sum)."""
+        self._stop.set()
+
     def stop(self) -> None:
         self._stop.set()
         if self._thread.is_alive():

@@ -1,9 +1,17 @@
 """TOML config: the [server], [batching], [transport], [model] and [kernels]
-sections the port reads.
+sections the port reads, the checks of the model-config entries, and the
+mapping of a tensorflow_model_server batching-parameters file onto
+[server].
 
-Other sections of the JAX package's config files (planes this package has
-not ported yet) are ignored with one log line, as are [server] and
-[batching] keys that have no counterpart here.
+The JAX package's config files load unchanged, with one rule: a setting
+that would change what is served, logged or admitted but is not ported
+here is refused with a ValueError naming the ROADMAP.md Queue A item that
+ports it, never dropped. That covers the mesh and pipeline knobs of
+[server] and [batching] and a plane section ([cache], [overload], ...)
+switched on. What changes no result here is ignored with one log line: the
+transfer knobs of [server], the [client] section, and a plane section that
+is off ([overload] drain_grace_s still feeds the shutdown drain). A section
+or key the JAX package does not know either raises, as there.
 """
 
 from __future__ import annotations
@@ -62,6 +70,16 @@ class ServerConfig:
     # reads back only its top-k (score, index) pairs; the host rebuilds the
     # full-length vector with 0.0 off the head. 0 = off.
     output_top_k: int = 0
+    # Sampled request logging (tensorflow_model_server's LoggingConfig):
+    # PredictionLog TFRecords usable directly as warmup files
+    # (serving/request_log.py). "" = off.
+    request_log_file: str = ""
+    request_log_sampling: float = 0.01
+    # Multi-model serving (tensorflow_model_server's --model_config_file):
+    # a text-format ModelServerConfig whose model_config_list entries each
+    # get a version watcher (name, base_path, model_platform = the family,
+    # version_labels). "" = the single-model modes.
+    model_config_file: str = ""
 
     def __post_init__(self):
         for name in ("completion_workers", "pipeline_depth"):
@@ -78,8 +96,8 @@ class ServerConfig:
 class BatchingConfig:
     """The [batching] section: the dispatch pipeline's depth and the
     PredictStream sub-batch split. The JAX package's other [batching] keys
-    (inflight_window, buffer_ring) are not ported yet and are ignored with
-    one log line."""
+    (inflight_window, buffer_ring) load at their defaults and are refused
+    otherwise (not ported yet)."""
 
     # 0 = inherit [server] pipeline_depth; >= 1 otherwise.
     pipeline_depth: int = 0
@@ -126,7 +144,7 @@ class TransportConfig:
         if self.response_arena:
             raise ValueError(
                 "[transport] response_arena is not ported yet (ROADMAP.md Queue A "
-                "item 5)"
+                "item 2)"
             )
 
 
@@ -194,13 +212,94 @@ class KernelsConfig:
         return KernelManager(self) if self.enabled else None
 
 
-def _coerce(cls, data: dict[str, Any], section: str, strict: bool):
+# [server] keys of the JAX package that change no result here: the JAX
+# runtime's transfer knobs, whose work the port's host path always does one
+# way (one combined buffer, async readback, a dispatch thread).
+_IGNORED_KEYS = {"server": ("compress_transfer", "async_readback", "pipelined_dispatch",
+                            "donate_buffers")}
+# Keys of the JAX package that are not ported: key -> (the default, which
+# loads; the ROADMAP.md Queue A item that ports the rest).
+_UNPORTED_KEYS = {
+    "server": {"mesh_devices": (0, 9), "model_parallel": (1, 9), "tensor_parallel": (False, 9)},
+    "batching": {"inflight_window": (0, 4), "buffer_ring": (False, 4)},
+}
+# Sections of the JAX package that are not ported: section -> (its keys,
+# the keys that switch it on, the ROADMAP.md Queue A item). A section
+# that is off is ignored; switched on, it is refused.
+_UNPORTED_SECTIONS = {
+    "client": (("hosts", "model_name", "signature_name", "output_key", "num_fields",
+                "candidate_num", "request_num", "concurrent_num", "full_async_mode",
+                "sort_scores", "timeout_s", "use_tensor_content", "failover_attempts",
+                "placement", "max_attempts_total", "health_scoreboard", "ejection_failures",
+                "ejection_interval_s", "hedge_delay_ms", "backoff_initial_ms", "backoff_max_ms",
+                "partial_results", "health_probe", "keepalive_time_ms", "keepalive_timeout_ms",
+                "version_label", "criticality", "tls_root_certs_file", "tls_client_key_file",
+                "tls_client_cert_file", "integrity_checksums"), (), None),
+    "mesh": (("enabled", "devices", "model_parallel", "tensor_parallel"), ("enabled",), 9),
+    "elastic": (("enabled", "splits", "tick_interval_s", "dwell_s", "up_after_ticks",
+                 "down_after_ticks", "load_up_threshold", "load_down_threshold",
+                 "load_ewma_alpha", "history_events"), ("enabled",), 9),
+    "observability": (("tracing", "trace_buffer", "trace_sample_rate", "trace_slowest_n",
+                       "window_seconds", "trace_export", "trace_export_interval_s"),
+                      ("tracing", "trace_export"), 2),
+    "cache": (("enabled", "max_entries", "max_bytes", "ttl_s", "coalesce", "dedup",
+               "row_granular", "row_max_entries", "row_max_bytes", "row_ttl_s",
+               "row_coalesce"), ("enabled",), 6),
+    "overload": (("enabled", "target_queue_wait_ms", "queue_wait_window_s",
+                  "adjust_interval_s", "increase_candidates", "decrease_factor",
+                  "min_limit_candidates", "max_limit_candidates", "service_ewma_alpha",
+                  "deadline_refusal", "brownout_after_intervals", "shed_after_intervals",
+                  "recover_after_intervals", "stale_while_overloaded_s", "retry_after_floor_ms",
+                  "retry_after_cap_ms", "drain_grace_s"), ("enabled",), 6),
+    "utilization": (("enabled", "ring", "window_seconds", "calibration_file", "profile_dir"),
+                    ("enabled",), 6),
+    "quality": (("enabled", "bins", "range_lo", "range_hi", "window_seconds", "slices",
+                 "drift_threshold_psi", "drift_check_interval_s", "exemplar_traces",
+                 "min_drift_count", "reservoir_keys", "label_window", "digest_rows_limit",
+                 "reference_file"), ("enabled",), 6),
+    "lifecycle": (("enabled", "tick_interval_s", "canary_probe_only_s",
+                   "canary_initial_fraction", "canary_ramp_step", "canary_step_dwell_s",
+                   "canary_max_fraction", "promote_after_s", "min_canary_scores", "rollback_psi",
+                   "rollback_compare_bins", "rollback_auc_drop", "min_auc_pairs",
+                   "rollback_hold_s", "fine_tune_interval_s", "fine_tune_steps",
+                   "fine_tune_batch_size", "fine_tune_learning_rate", "history_events"),
+                  ("enabled",), 6),
+    "recovery": (("enabled", "watchdog_interval_s", "wedge_quarantine_s", "replay_budget",
+                  "poison_kills", "bisect_after_kills", "reinit_warmup", "rewarm_timeout_s",
+                  "reinit_clear_backend", "replay_drain_s", "max_cycle_rounds",
+                  "history_events", "scope"), ("enabled",), 6),
+    "fleet": (("enabled", "self_id", "advertise_addr", "peers", "gossip_host", "gossip_port",
+               "gossip_uds", "gossip_interval_s", "record_ttl_s", "rollout_writer",
+               "rollout_state_file"), ("enabled",), 8),
+    "slo": (("enabled", "latency_target_ms", "latency_objective", "availability_objective",
+             "short_window_s", "long_window_s", "burn_threshold_fast", "burn_threshold_slow"),
+            ("enabled",), 8),
+    "cascade": (("enabled", "stage1_model", "stage1_kind", "stage1_base_path", "survivor_k",
+                 "survivor_fraction", "score_threshold", "min_candidates"), ("enabled",), 6),
+    "integrity": (("enabled", "wire_checksums", "screen", "screen_min", "screen_max",
+                   "screen_trips_per_window", "screen_window_s", "shadow_fraction",
+                   "router_audit_fraction", "suspect_clear_passes", "history_events"),
+                  ("enabled",), 6),
+}
+# The shutdown drain's grace when [overload] does not set it (seconds).
+DRAIN_GRACE_S = 5.0
+
+
+def _coerce(cls, data: dict[str, Any], section: str):
     fields = {f.name for f in dataclasses.fields(cls)}
-    unknown = sorted(set(data) - fields)
+    ignored = set(_IGNORED_KEYS.get(section, ()))
+    unported = _UNPORTED_KEYS.get(section, {})
+    unknown = sorted(set(data) - fields - ignored - set(unported))
     if unknown:
-        if strict:
-            raise ValueError(f"unknown [{section}] keys: {unknown}")
-        log.info("ignoring [%s] keys this package does not use: %s", section, unknown)
+        raise ValueError(f"unknown [{section}] keys: {unknown}")
+    for key, (default, item) in unported.items():
+        if key in data and data[key] != default:
+            raise ValueError(
+                f"[{section}] {key} = {data[key]!r} is not ported yet (ROADMAP.md Queue A "
+                f"item {item}); only {default!r} loads")
+    dropped = sorted(set(data) - fields)
+    if dropped:
+        log.info("ignoring [%s] keys that change nothing here: %s", section, dropped)
     kwargs = {}
     for key, value in data.items():
         if key not in fields:
@@ -214,27 +313,120 @@ def _coerce(cls, data: dict[str, Any], section: str, strict: bool):
     return cls(**kwargs)
 
 
+def _check_unported_section(section: str, data: dict[str, Any]) -> None:
+    keys, switches, item = _UNPORTED_SECTIONS[section]
+    unknown = sorted(set(data) - set(keys))
+    if unknown:
+        raise ValueError(f"unknown [{section}] keys: {unknown}")
+    for key in switches:
+        if data.get(key):
+            raise ValueError(
+                f"[{section}] {key} = true is not ported yet (ROADMAP.md Queue A item {item})")
+
+
 def load_config(path) -> dict[str, Any]:
     """Parse a TOML file: {"server": ServerConfig, "batching":
-    BatchingConfig, "transport": TransportConfig, "model": ModelConfig,
-    "kernels": KernelsConfig} ("model" and "kernels" only when the file has
-    that section). A nonzero [batching] pipeline_depth replaces the
-    [server] one, as in the JAX package's server."""
+    BatchingConfig, "transport": TransportConfig, "drain_grace_s": float,
+    "model": ModelConfig, "kernels": KernelsConfig} ("model" and "kernels"
+    only when the file has that section). A nonzero [batching]
+    pipeline_depth replaces the [server] one, as in the JAX package's
+    server; "drain_grace_s" is [overload] drain_grace_s (honored with the
+    plane off, as there). Raises ValueError on a setting that is not
+    ported (module docstring) and on a section or key the JAX package does
+    not know."""
     raw = tomllib.loads(pathlib.Path(path).read_text())
-    server = _coerce(ServerConfig, raw.get("server", {}), "server", False)
-    batching = _coerce(BatchingConfig, raw.get("batching", {}), "batching", False)
+    ported = {"server", "batching", "transport", "model", "kernels"}
+    unknown = sorted(set(raw) - ported - set(_UNPORTED_SECTIONS))
+    if unknown:
+        raise ValueError(f"unknown config sections: {unknown}")
+    for section in sorted(set(raw) & set(_UNPORTED_SECTIONS)):
+        _check_unported_section(section, raw[section])
+    server = _coerce(ServerConfig, raw.get("server", {}), "server")
+    batching = _coerce(BatchingConfig, raw.get("batching", {}), "batching")
     if batching.pipeline_depth:
         server = dataclasses.replace(server, pipeline_depth=batching.pipeline_depth)
+    grace = raw.get("overload", {}).get("drain_grace_s", DRAIN_GRACE_S)
+    if not isinstance(grace, (int, float)) or isinstance(grace, bool):
+        raise ValueError(f"[overload] drain_grace_s must be a number, got {grace!r}")
     out: dict[str, Any] = {
         "server": server,
         "batching": batching,
-        "transport": _coerce(TransportConfig, raw.get("transport", {}), "transport", True),
+        "transport": _coerce(TransportConfig, raw.get("transport", {}), "transport"),
+        "drain_grace_s": float(grace),
     }
     if "model" in raw:
-        out["model"] = _coerce(ModelConfig, raw["model"], "model", True)
+        out["model"] = _coerce(ModelConfig, raw["model"], "model")
     if "kernels" in raw:
-        out["kernels"] = _coerce(KernelsConfig, raw["kernels"], "kernels", True)
-    extra = sorted(set(raw) - {"server", "batching", "transport", "model", "kernels"})
+        out["kernels"] = _coerce(KernelsConfig, raw["kernels"], "kernels")
+    extra = sorted(set(raw) & set(_UNPORTED_SECTIONS))
     if extra:
         log.info("ignoring config sections this package does not use: %s", extra)
     return out
+
+
+def validate_model_config_entries(entries, source: str) -> list:
+    """The shape checks of model_config_list entries (parsed ModelConfig
+    messages), one rule set for the --model-config-file at startup and for
+    HandleReloadConfigRequest: every entry has a name and a base_path, and
+    no name repeats. Raises ValueError; returns the entries as a list."""
+    seen = set()
+    for mc in entries:
+        if not mc.name or not mc.base_path:
+            raise ValueError(
+                f"{source}: every model config needs name and base_path "
+                f"(got name={mc.name!r} base_path={mc.base_path!r})"
+            )
+        if mc.name in seen:
+            raise ValueError(f"{source}: duplicate model {mc.name!r}")
+        seen.add(mc.name)
+    return list(entries)
+
+
+def apply_batching_parameters(cfg: ServerConfig, bp) -> ServerConfig:
+    """Map a parsed tensorflow_model_server BatchingParameters message (the
+    --batching-parameters-file, read by serving/server.py) onto the
+    ServerConfig's batcher knobs, as the JAX package does:
+
+    - allowed_batch_sizes   -> the bucket ladder (when both are set, the
+                               largest allowed size must equal
+                               max_batch_size, the upstream rule);
+    - max_batch_size        -> the top bucket (alone: the ladder's buckets
+                               below it, then it);
+    - batch_timeout_micros  -> max_wait_us;
+    - max_enqueued_batches  -> queue_capacity_candidates (x the top bucket:
+                               upstream bounds queued batches, the batcher
+                               queued candidates);
+    - num_batch_threads     -> completion_workers;
+    - thread_pool_name, pad_variable_length_inputs: no analog, ignored with
+      a log line."""
+    updates: dict[str, Any] = {}
+    max_batch = bp.max_batch_size.value if bp.HasField("max_batch_size") else None
+    if max_batch is not None and max_batch <= 0:
+        raise ValueError(f"max_batch_size must be positive, got {max_batch}")
+    if bp.allowed_batch_sizes:
+        buckets = tuple(sorted(int(b) for b in bp.allowed_batch_sizes))
+        if any(b <= 0 for b in buckets):
+            raise ValueError(f"allowed_batch_sizes must be positive, got {buckets}")
+        if max_batch is not None and buckets[-1] != max_batch:
+            raise ValueError(
+                f"largest allowed_batch_sizes entry ({buckets[-1]}) must equal "
+                f"max_batch_size ({max_batch}) — the upstream batching rule"
+            )
+        updates["buckets"] = buckets
+    elif max_batch is not None:
+        kept = tuple(b for b in cfg.buckets if b < max_batch)
+        updates["buckets"] = kept + (int(max_batch),)
+    if bp.HasField("batch_timeout_micros"):
+        updates["max_wait_us"] = int(bp.batch_timeout_micros.value)
+    if bp.HasField("max_enqueued_batches"):
+        top = max_batch or (updates.get("buckets") or cfg.buckets)[-1]
+        updates["queue_capacity_candidates"] = int(bp.max_enqueued_batches.value * top)
+    if bp.HasField("num_batch_threads"):
+        threads = int(bp.num_batch_threads.value)
+        if threads <= 0:
+            raise ValueError(f"num_batch_threads must be positive, got {threads}")
+        updates["completion_workers"] = threads
+    for field in ("thread_pool_name", "pad_variable_length_inputs"):
+        if bp.HasField(field):
+            log.info("batching parameter %s has no analog here; ignored", field)
+    return dataclasses.replace(cfg, **updates)

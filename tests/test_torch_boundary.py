@@ -54,6 +54,7 @@ import distributed_tf_serving_tpu_torch.ops.autotune  # noqa: F401
 import distributed_tf_serving_tpu_torch.ops.quantize  # noqa: F401
 import distributed_tf_serving_tpu_torch.train.data  # noqa: F401
 import distributed_tf_serving_tpu_torch.native  # noqa: F401
+import distributed_tf_serving_tpu_torch.serving.request_log  # noqa: F401
 reg = ServableRegistry()
 cfg = ModelConfig(num_fields=6, vocab_size=1024, embed_dim=4, mlp_dims=(8,),
                   num_cross_layers=2, use_pallas_cross=True)
@@ -163,6 +164,52 @@ reg = ServableRegistry()
 VersionWatcher(base, reg, device="cpu").poll_once()
 print(json.dumps({"loaded": reg.models(), "modules": sorted(sys.modules)}))
 """
+
+
+_MULTI_MODEL_SCRIPT = r"""
+import json, sys, tempfile, pathlib
+from distributed_tf_serving_tpu_torch.models import ModelConfig, ServableRegistry
+from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+from distributed_tf_serving_tpu_torch.serving.request_log import RequestLogger
+from distributed_tf_serving_tpu_torch.serving.server import (
+    GracefulShutdown, build_stack, load_demo_servable)
+from distributed_tf_serving_tpu_torch.train.checkpoint import save_servable
+from distributed_tf_serving_tpu_torch.utils.config import ServerConfig
+base = pathlib.Path(tempfile.mkdtemp())
+for name, kind in (("A", "dcn_v2"), ("B", "deepfm")):
+    cfg = ModelConfig(name=name, num_fields=3, vocab_size=64, embed_dim=2, mlp_dims=(4,),
+                      num_cross_layers=1)
+    save_servable(base / name / "1", load_demo_servable(ServableRegistry(), kind=kind, name=name,
+                                                        config=cfg, device="cpu"), kind)
+(base / "m.config").write_text(
+    "model_config_list { " + " ".join(
+        f'config {{ name: "{n}" base_path: "{base / n}" }}' for n in "AB") + " }")
+impl, batcher, _ = build_stack(ServerConfig(model_config_file=str(base / "m.config"),
+                                            buckets=(8,), warmup=False), None, device="cpu")
+req = apis.ReloadConfigRequest()
+req.config.model_config_list.config.add(name="A", base_path=str(base / "A"))
+impl.handle_reload_config(req)
+logger = RequestLogger(base / "r.log", sampling_rate=1.0)
+gs = GracefulShutdown(impl, batcher, grace_s=1.0, watcher=impl.model_lifecycle,
+                      request_logger=logger)
+gs.shutdown()
+print(json.dumps({"loaded": impl.registry.models(), "drained": gs.drained,
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_multi_model_reload_and_drain_import_no_jax_subprocess():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run(
+        [sys.executable, "-c", _MULTI_MODEL_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert res.returncode == 0, res.stderr
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["loaded"] == {"A": [1]} and line["drained"] is True
+    assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
+    assert "distributed_tf_serving_tpu_torch.serving.request_log" in line["modules"]
 
 
 def _is_off_card(module: str) -> bool:

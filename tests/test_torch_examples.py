@@ -237,14 +237,14 @@ def test_rpc_errors_match_the_jax_service(services):
 
 def test_multi_inference_checks_the_deadline_between_tasks(services, monkeypatch):
     _, impl, _ = services
-    real = impl.classify
+    real = impl._classify  # what MultiInference runs per classify task
 
     def slow_classify(req, deadline_s=None):
         out = real(req, deadline_s=deadline_s)
         time.sleep(0.3)
         return out
 
-    monkeypatch.setattr(impl, "classify", slow_classify)
+    monkeypatch.setattr(impl, "_classify", slow_classify)
     with pytest.raises(ServiceError) as e:
         impl.multi_inference(_multi_req(False, ("classify", "regress")), deadline_s=0.2)
     assert e.value.code == "DEADLINE_EXCEEDED" and "between MultiInference tasks" in str(e.value)
