@@ -194,6 +194,37 @@ Phases (any failure exits non-zero and prints no result line):
              the relabel, each reload's time, add -> first NEW response,
              relabel -> first v2 response, the drain, the launch counts.
 
+10. rest  — the REST gateway and the telemetry plane (serving/rest.py,
+             utils/metrics.py, utils/tracing.py): configs/latency.toml with
+             [kernels] enabled (its own table, kernel_autotune_rest.json),
+             seed-0 weights. First in this process: build_stack on that
+             config (its autotune writes the table the CLI servers adopt)
+             with the gateway over it; the launch counters zeroed just
+             before 5 REST Predicts per size (7, 1000, 2048) and read just
+             after, under torch.profiler: every batch launches the fused
+             serve kernel and no GEMM runs. Then the CLI server with
+             --rest-port, --tracing and --metrics-every-s 1: one client at a
+             time sends 20 gRPC Predicts per size and the same payloads as 20
+             REST Predicts per size in the row and 20 in the columnar format
+             (each REST response bit-identical to the gRPC one, every score
+             within 5e-3 of the card's plain forward on the tree the bucket's
+             decision picked), 5 REST Classify of n = 7 Examples, and one REST
+             and one gRPC Predict with a known traceparent. Checks:
+             /monitoring counts REST.Predict, REST.Classify and Predict
+             exactly as sent and has batcher, pipeline, kernels and phases
+             blocks (batch.fusedpack, batch.jitcall, readback.wait counted);
+             the Prometheus text passes tools/check_prom.py and carries the
+             REST.Predict request_count and dts_tpu_kernel_* lines; /tracez
+             holds both trace ids (roots server.REST.Predict and
+             server.Predict) with predict.decode / execute / encode and the
+             replayed batch.* / readback.* phases as children;
+             /tracez?format=chrome parses; the log has a `metrics {...}`
+             line; SIGTERM exits 0. Printed: REST p50 / p99 per size and
+             format against gRPC p50, the share of a REST Predict outside
+             decode / execute / encode (from the span trees), and gRPC p50
+             at n = 7 and 1000 with --tracing and, on a second server of the
+             same tree, without it.
+
 Prints one `{"kernels": [...]}` line (one entry per kernel and compute
 dtype, the f32 ones named `<kernel>_f32`: the rule row at 2048 rows; the
 main paths' launches, `launches` = the serving phase's plus the outputs
@@ -201,8 +232,10 @@ phase's (`launches_serving`, `launches_outputs`), each path's counters
 zeroed just before it and read just after; the lifecycle path's launches
 (`launches_lifecycle`); and every row under "by_shape"; the families
 phase launches none; the models server's count from its start to its exit,
-`launches_models`), the nvidia-smi line, and last `{"ok": true, "device":
-{...}}`. Every line it logs is also kept in chiprun_out/chip_smoke.log.
+`launches_models`; the REST path's, `launches_rest`, and the REST CLI
+server's from its start to its exit, `launches_rest_server`), the
+nvidia-smi line, and last `{"ok": true, "device": {...}}`. Every line it
+logs is also kept in chiprun_out/chip_smoke.log.
 """
 
 from __future__ import annotations
@@ -2849,6 +2882,460 @@ def _models_memory(config_file: str, cfg, base: str, replay_file: str, payloads)
     return res
 
 
+REST_SIZES = (7, 1000, 2048)  # configs/latency.toml's candidate counts
+REST_REPEATS = 20  # REST Predicts per size and format, and gRPC Predicts per size
+REST_CLASSIFY = 5  # REST Classify requests of n = 7 Examples
+REST_PROFILED = 5  # REST Predicts per size of the in-process path under torch.profiler
+REST_TRACE_IDS = {"rest": "0af7651916cd43dd8448eb211c80319c",
+                  "grpc": "4bf92f3577b34da6a3ce929d0e0e4736"}
+REST_SERVICE_PHASES = ("predict.decode", "predict.execute", "predict.encode")
+REST_BATCH_PHASES = ("batch.queue_wait", "batch.dispatch", "batch.fusedpack", "batch.jitcall",
+                     "readback.issue", "readback.wait")
+
+
+class _Http:
+    """One keep-alive HTTP/1.1 connection to a REST gateway on 127.0.0.1."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+
+    def call(self, method: str, path: str, body: bytes | None = None,
+             headers: dict | None = None) -> tuple[int, bytes]:
+        hdrs = {"Content-Type": "application/json"} if body is not None else {}
+        hdrs.update(headers or {})
+        self.conn.request(method, path, body=body, headers=hdrs)
+        r = self.conn.getresponse()
+        return r.status, r.read()
+
+    def json(self, method: str, path: str, body: bytes | None = None,
+             headers: dict | None = None):
+        status, data = self.call(method, path, body, headers)
+        if status != 200:
+            fail(f"rest: {method} {path} answered {status}: {data[:300]!r}")
+        return json.loads(data)
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _wait_port(port: int, proc=None, timeout: float = 60.0) -> None:
+    import socket
+
+    end = time.perf_counter() + timeout
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            return
+        except OSError:
+            if proc is not None and proc.poll() is not None:
+                fail(f"the server exited with {proc.returncode} before its REST port opened")
+            if time.perf_counter() > end:
+                fail(f"REST port {port} did not open within {timeout} s")
+            time.sleep(0.1)
+
+
+def _rest_bodies(ids, wts) -> dict[str, bytes]:
+    """The row (`instances`) and columnar (`inputs`) bodies of one payload."""
+    rows = {"instances": [{"feat_ids": i, "feat_wts": w}
+                          for i, w in zip(ids.tolist(), wts.tolist())]}
+    cols = {"inputs": {"feat_ids": ids.tolist(), "feat_wts": wts.tolist()}}
+    return {"rows": json.dumps(rows).encode(), "columns": json.dumps(cols).encode()}
+
+
+def _rest_scores(fmt: str, body: dict):
+    import numpy as np
+
+    if fmt == "rows":
+        return np.asarray([p["prediction_node"] for p in body["predictions"]], np.float32)
+    return np.asarray(body["outputs"]["prediction_node"], np.float32)
+
+
+def _grpc_predict(stub, ids, wts, metadata=None):
+    """A Predict of the REST body's content (tensor_content, no output
+    filter: the REST path's request): (scores, ms)."""
+    from distributed_tf_serving_tpu_torch import codec
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+
+    req = apis.PredictRequest()
+    req.model_spec.name = "DCN"
+    codec.from_ndarray(ids, use_tensor_content=True, out=req.inputs["feat_ids"])
+    codec.from_ndarray(wts, use_tensor_content=True, out=req.inputs["feat_wts"])
+    t0 = time.perf_counter()
+    resp = stub.Predict(req, timeout=120, metadata=metadata)
+    ms = (time.perf_counter() - t0) * 1e3
+    return codec.to_ndarray(resp.outputs["prediction_node"]), ms
+
+
+def _span_children(root: dict) -> dict:
+    out: dict = {}
+    for c in root["children"]:
+        out.setdefault(c["name"], []).append(c)
+    return out
+
+
+def _json_share(tracez: dict, seen: set) -> list[float]:
+    """Per REST Predict root not seen before: the share of its time outside
+    predict.decode / execute / encode (the gateway's JSON parse, array build
+    and response JSON)."""
+    shares = []
+    for t in tracez["traces"]:
+        for root in t["spans"]:
+            if root["name"] != "server.REST.Predict" or root["span_id"] in seen:
+                continue
+            seen.add(root["span_id"])
+            kids = _span_children(root)
+            inside = sum(c["duration_us"] for name in REST_SERVICE_PHASES
+                         for c in kids.get(name, ()))
+            if root["duration_us"] > 0 and all(name in kids for name in REST_SERVICE_PHASES):
+                shares.append(1.0 - inside / root["duration_us"])
+    return shares
+
+
+def _rest_in_process(impl, metrics):
+    """The REST gateway over an in-process stack, on its own event loop in a
+    thread: (port, stop)."""
+    import asyncio
+    import threading
+
+    from distributed_tf_serving_tpu_torch.serving.rest import start_rest_gateway
+
+    loop = asyncio.new_event_loop()
+    ready, up = {}, threading.Event()
+
+    def run():
+        asyncio.set_event_loop(loop)
+        try:
+            ready["runner"], ready["port"] = loop.run_until_complete(
+                start_rest_gateway(impl, "127.0.0.1", 0, metrics))
+        except BaseException as exc:  # noqa: BLE001 — reported below
+            ready["error"] = exc
+            return
+        finally:
+            up.set()
+        loop.run_forever()
+
+    th = threading.Thread(target=run, name="rest-in-process", daemon=True)
+    th.start()
+    if not up.wait(60) or "error" in ready:
+        fail(f"rest: the in-process gateway did not start: {ready.get('error')}")
+
+    def stop():
+        asyncio.run_coroutine_threadsafe(ready["runner"].cleanup(), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(30)
+        loop.close()
+
+    return ready["port"], stop
+
+
+def _rest_profiled_path(dev, kc, cfg, model_cfg, payloads) -> dict:
+    """The REST path in this process, under torch.profiler: build_stack on
+    the phase's config (its autotune writes the table the CLI servers
+    adopt), the gateway over it, the launch counters zeroed just before
+    REST_PROFILED Predicts per size and read just after. Every batch must
+    launch the fused serve kernel (the profiler's count of fused_serve
+    kernels at least the batches) and no GEMM runs (no plain forward)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack
+    from distributed_tf_serving_tpu_torch.utils.metrics import ServerMetrics
+
+    impl, batcher, servable = build_stack(cfg, model_cfg, "cuda", seed=SEED, kernels_config=kc)
+    table = batcher.kernels.snapshot()["tables"][f"{servable.name}:{servable.version}"]
+    check_autotune(table, "rest")
+    port, stop = _rest_in_process(impl, ServerMetrics())
+    http = _Http(port)
+    try:
+        bodies = {n: _rest_bodies(ids, wts)["rows"] for n, (ids, wts) in payloads.items()}
+        for n, body in bodies.items():  # one untimed request per size first
+            http.json("POST", "/v1/models/DCN:predict", body)
+        torch.cuda.synchronize()
+        b0 = batcher.stats.batches
+        ck.reset_launches()  # this path's counts: zeroed just before, read just after
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for n, body in bodies.items():
+                for _ in range(REST_PROFILED):
+                    http.json("POST", "/v1/models/DCN:predict", body)
+            torch.cuda.synchronize()
+        launches = {f"{k}/{cd}": v for (k, cd), v in ck.launches.items()}
+        batches = batcher.stats.batches - b0
+    finally:
+        http.close()
+        stop()
+        batcher.stop()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    fused = sum(1 for nm in names if "fused_serve" in nm)
+    gemms = sorted({nm for nm in names if "gemm" in nm.lower()})
+    res = {"requests": len(payloads) * REST_PROFILED, "batches": batches,
+           "profiler_fused_serve_kernels": fused, "gemm_kernels": gemms,
+           "launches": launches, "autotune": table}
+    counted = launches.get("fused_serve/bfloat16", 0) + launches.get("fused_serve_int8/bfloat16", 0)
+    log(f"rest: in-process REST path under torch.profiler: {res['requests']} Predicts, "
+        f"{batches} batches, fused_serve kernels {fused} (counters {counted}), "
+        f"GEMM kernels {len(gemms)}")
+    if not names:
+        fail("rest: torch.profiler recorded no device event over the REST traffic")
+    if fused < batches or counted != batches:
+        fail(f"rest: {batches} REST batches but {fused} fused_serve kernels in the profile and "
+             f"{counted} counted launches")
+    if gemms:
+        fail(f"rest: the REST path ran GEMM kernels (a plain forward): {gemms[:4]}")
+    return res
+
+
+def _reference(dev, model_cfg, decisions: dict, buckets, payloads) -> dict:
+    """The card's plain forward (model.apply) of every payload on the seed-0
+    demo weights, on the tree the server's decision picked for the bucket."""
+    import torch
+
+    from distributed_tf_serving_tpu_torch.models import ServableRegistry
+    from distributed_tf_serving_tpu_torch.ops.quantize import quantize_params
+    from distributed_tf_serving_tpu_torch.serving.batcher import bucket_for
+    from distributed_tf_serving_tpu_torch.serving.server import load_demo_servable
+
+    sv = load_demo_servable(ServableRegistry(), kind="dcn_v2", name="DCN", seed=SEED,
+                            config=model_cfg, device=dev)
+    qparams = None
+    want = {}
+    for n, (ids, wts) in payloads.items():
+        dec = decisions.get(str(bucket_for(n, buckets))) or {}
+        params = sv.params
+        if dec.get("quantized"):
+            qparams = qparams if qparams is not None else quantize_params(sv.params)
+            params = qparams
+        with torch.inference_mode():
+            want[n] = sv.model.apply(params, {
+                "feat_ids": torch.from_numpy(ids).to(dev),
+                "feat_wts": torch.from_numpy(wts).to(dev)})["prediction_node"].float().cpu().numpy()
+    return want
+
+
+def _grpc_p50(stub, payloads, sizes=(7, 1000)) -> dict:
+    out = {}
+    for n in sizes:
+        ids, wts = payloads[n]
+        _grpc_predict(stub, ids, wts)
+        out[n] = statistics.median(_grpc_predict(stub, ids, wts)[1] for _ in range(REST_REPEATS))
+    return out
+
+
+def phase_rest(dev, name: str) -> dict:
+    """The REST gateway and the telemetry plane (serving/rest.py,
+    utils/metrics.py, utils/tracing.py) on the card: configs/latency.toml
+    with [kernels] enabled, seed-0 weights. Checks in the docstring of the
+    module."""
+    import subprocess as sp
+
+    import grpc
+    import numpy as np
+
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.proto.service_grpc import LARGE_MESSAGE_CHANNEL_OPTIONS
+    from distributed_tf_serving_tpu_torch.utils.config import load_config
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    kc = kernels_plane_config("_rest")
+    toml = os.path.join(out_dir, "kernels_plane_rest.toml")
+    loaded = load_config(toml)
+    cfg, model_cfg = loaded["server"], loaded["model"]
+    rng = np.random.RandomState(SEED + 5000)
+    payloads = {n: (rng.randint(0, 1 << 40, size=(n, model_cfg.num_fields)).astype(np.int64),
+                    rng.rand(n, model_cfg.num_fields).astype(np.float32))
+                for n in REST_SIZES}
+    res = {"card": name, "path": _rest_profiled_path(dev, kc, cfg, model_cfg, payloads)}
+
+    # The CLI server with the REST gateway, tracing and the metrics log line.
+    server_log = os.path.join(out_dir, "rest_server.log")
+    rest_port = _free_port()
+    t0 = time.perf_counter()
+    proc, port, logf = _start_cli(["--config", toml, "--rest-port", str(rest_port), "--tracing",
+                                   "--metrics-every-s", "1"], server_log)
+    _wait_port(rest_port, proc)
+    res["server_start_s"] = time.perf_counter() - t0
+    ch = grpc.insecure_channel(f"127.0.0.1:{port}", options=LARGE_MESSAGE_CHANNEL_OPTIONS)
+    stub = PredictionServiceStub(ch)
+    http = _Http(rest_port)
+    sent = {"REST.Predict": 0, "REST.Classify": 0, "Predict": 0}
+    try:
+        mon = http.json("GET", "/monitoring?section=kernels")["kernels"]
+        decisions = mon["decisions"]["DCN:1"]
+        want = _reference(dev, model_cfg, decisions, cfg.buckets, payloads)
+        lat = {}
+        shares = {}
+        seen: set = set()
+        worst = 0.0
+        for n, (ids, wts) in payloads.items():
+            grpc_scores, grpc_ms = None, []
+            _grpc_predict(stub, ids, wts)  # untimed first request per size
+            sent["Predict"] += 1
+            for _ in range(REST_REPEATS):
+                grpc_scores, ms = _grpc_predict(stub, ids, wts)
+                grpc_ms.append(ms)
+            sent["Predict"] += REST_REPEATS
+            lat[f"grpc/{n}"] = _percentiles(grpc_ms)
+            for fmt, body in _rest_bodies(ids, wts).items():
+                rest_ms = []
+                for _ in range(REST_REPEATS):
+                    t1 = time.perf_counter()
+                    status, data = http.call("POST", "/v1/models/DCN:predict", body)
+                    rest_ms.append((time.perf_counter() - t1) * 1e3)
+                    if status != 200:
+                        fail(f"rest: Predict n={n} ({fmt}) answered {status}: {data[:300]!r}")
+                    got = _rest_scores(fmt, json.loads(data))
+                    if got.shape != (n,) or not np.array_equal(got, grpc_scores):
+                        fail(f"rest: n={n} ({fmt}) scores are not bit-identical to the gRPC "
+                             f"response of the same payload (max |d| "
+                             f"{np.max(np.abs(got - grpc_scores)) if got.shape == (n,) else got.shape})")
+                sent["REST.Predict"] += REST_REPEATS
+                lat[f"rest_{fmt}/{n}"] = _percentiles(rest_ms)
+                shares[f"{fmt}/{n}"] = _json_share(
+                    http.json("GET", "/tracez?limit=256"), seen)
+            err = float(np.max(np.abs(grpc_scores - want[n])))
+            worst = max(worst, err)
+            if not np.all(np.isfinite(grpc_scores)) or err > APPLY_TOL:
+                fail(f"rest: n={n}: max |dscore| vs the card's plain forward {err} > {APPLY_TOL}")
+            log(f"rest: n={n} REST rows p50 {lat[f'rest_rows/{n}']['p50_ms']:.3f} / p99 "
+                f"{lat[f'rest_rows/{n}']['p99_ms']:.3f} ms, columns p50 "
+                f"{lat[f'rest_columns/{n}']['p50_ms']:.3f} / p99 "
+                f"{lat[f'rest_columns/{n}']['p99_ms']:.3f} ms, gRPC p50 "
+                f"{lat[f'grpc/{n}']['p50_ms']:.3f} ms; share outside decode/execute/encode "
+                f"rows {statistics.median(shares[f'rows/{n}']):.3f}, columns "
+                f"{statistics.median(shares[f'columns/{n}']):.3f}; max |d| {err:.3g} ({name})")
+        ids7, wts7 = payloads[7]
+        examples = json.dumps({"examples": [{"feat_ids": i, "feat_wts": w} for i, w in
+                                            zip(ids7.tolist(), wts7.tolist())]}).encode()
+        for _ in range(REST_CLASSIFY):
+            body = http.json("POST", "/v1/models/DCN:classify", examples)
+            p1 = np.asarray([dict(r)["1"] for r in body["results"]], np.float32)
+            if p1.shape != (7,) or float(np.max(np.abs(p1 - want[7]))) > APPLY_TOL:
+                fail(f"rest: Classify scores {p1} are not the plain forward's {want[7]}")
+        sent["REST.Classify"] += REST_CLASSIFY
+        # One REST and one gRPC Predict carrying a known traceparent.
+        tp = "00-{}-00f067aa0ba902b7-01"
+        http.json("POST", "/v1/models/DCN:predict", _rest_bodies(ids7, wts7)["rows"],
+                  headers={"traceparent": tp.format(REST_TRACE_IDS["rest"])})
+        _grpc_predict(stub, ids7, wts7,
+                      metadata=(("traceparent", tp.format(REST_TRACE_IDS["grpc"])),))
+        sent["REST.Predict"] += 1
+        sent["Predict"] += 1
+        traced = _rest_tracez_checks(http)
+        res["tracing_on_grpc_p50_ms"] = _grpc_p50(stub, payloads)
+        sent["Predict"] += 2 * (REST_REPEATS + 1)
+        res["monitoring"] = _rest_monitoring_checks(http, sent)
+        res["prometheus_lines"] = _rest_prometheus_checks(http, sent)
+    finally:
+        http.close()
+        ch.close()
+        rc = _stop_cli(proc, logf)
+    if rc != 0:
+        fail(f"rest: the server exited with {rc} after SIGTERM (log {server_log})")
+    with open(server_log) as f:
+        text = f.read()
+    metrics_lines = [ln for ln in text.splitlines() if " metrics {" in ln]
+    if not metrics_lines:
+        fail(f"rest: the server logged no `metrics {{...}}` line ({server_log})")
+    res["launches_server"] = _server_log(server_log)["shutdown"] or {}
+    res.update(latency=lat, json_share={k: statistics.median(v) for k, v in shares.items()},
+               max_abs_err=worst, traced=traced, metrics_lines=len(metrics_lines), sent=sent)
+
+    # The same tree without --tracing: the tracing cost at n = 7 and 1000.
+    proc, port, logf = _start_cli(["--config", toml], os.path.join(out_dir, "rest_plain.log"))
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{port}",
+                                   options=LARGE_MESSAGE_CHANNEL_OPTIONS) as ch2:
+            res["tracing_off_grpc_p50_ms"] = _grpc_p50(PredictionServiceStub(ch2), payloads)
+    finally:
+        if _stop_cli(proc, logf) != 0:
+            fail("rest: the server without --tracing did not exit 0 after SIGTERM")
+    on, off = res["tracing_on_grpc_p50_ms"], res["tracing_off_grpc_p50_ms"]
+    log("rest: gRPC p50 with --tracing / without: " + ", ".join(
+        f"n={n} {on[n]:.3f} / {off[n]:.3f} ms" for n in sorted(on)) + f" ({name})")
+    log(f"rest: {sent} answered; launches on the REST server (its life) "
+        f"{res['launches_server']}; {len(metrics_lines)} metrics lines; SIGTERM -> exit 0")
+    return res
+
+
+def _rest_tracez_checks(http) -> dict:
+    """Both known trace ids in /tracez, each root with the service's phases
+    and the batch's replayed ones as children; the Chrome export parses."""
+    body = http.json("GET", "/tracez?limit=1000")
+    if not body.get("enabled"):
+        fail("rest: /tracez says tracing is off on a --tracing server")
+    traces = {t["trace_id"]: t for t in body["traces"]}
+    out = {}
+    for kind, root_name in (("rest", "server.REST.Predict"), ("grpc", "server.Predict")):
+        t = traces.get(REST_TRACE_IDS[kind])
+        if t is None:
+            fail(f"rest: /tracez lacks the {kind} trace {REST_TRACE_IDS[kind]}")
+        roots = [s for s in t["spans"] if s["name"] == root_name]
+        if not roots:
+            fail(f"rest: the {kind} trace has no {root_name} root: "
+                 f"{[s['name'] for s in t['spans']]}")
+        kids = _span_children(roots[0])
+        missing = [p for p in REST_SERVICE_PHASES + REST_BATCH_PHASES if p not in kids]
+        if missing:
+            fail(f"rest: the {kind} trace's {root_name} lacks children {missing} "
+                 f"(has {sorted(kids)})")
+        out[kind] = {"duration_us": roots[0]["duration_us"],
+                     "children_us": {k: sum(c["duration_us"] for c in v) for k, v in kids.items()}}
+    status, data = http.call("GET", "/tracez?format=chrome")
+    chrome = json.loads(data) if status == 200 else {}
+    if not chrome.get("traceEvents"):
+        fail(f"rest: /tracez?format=chrome answered {status} without traceEvents")
+    out["chrome_events"] = len(chrome["traceEvents"])
+    log(f"rest: /tracez holds the REST and gRPC trace ids with their phases; chrome export "
+        f"{out['chrome_events']} events")
+    return out
+
+
+def _rest_monitoring_checks(http, sent: dict) -> dict:
+    mon = http.json("GET", "/monitoring")
+    rpcs = mon["rpcs"]
+    for entry, n in sent.items():
+        got = rpcs.get(entry, {})
+        if (got.get("ok"), got.get("errors")) != (n, 0):
+            fail(f"rest: /monitoring counts {entry} ok={got.get('ok')} "
+                 f"errors={got.get('errors')}, sent {n}")
+    for block in ("batcher", "pipeline", "kernels", "phases"):
+        if block not in mon:
+            fail(f"rest: /monitoring has no {block} block: {sorted(mon)}")
+    for phase in ("batch.fusedpack", "batch.jitcall", "readback.wait"):
+        if mon["phases"].get(phase, {}).get("count", 0) <= 0:
+            fail(f"rest: /monitoring phases count no {phase}: {sorted(mon['phases'])}")
+    log("rest: /monitoring phases mean_us " + ", ".join(
+        f"{k} {v['mean_us']}" for k, v in sorted(mon["phases"].items())))
+    return {"rpcs": {k: {"ok": v["ok"], "errors": v["errors"], "p50_ms": v["p50_ms"],
+                         "p99_ms": v["p99_ms"]} for k, v in rpcs.items()},
+            "phases": mon["phases"], "batcher": mon["batcher"], "pipeline": mon["pipeline"],
+            "kernels_counters": mon["kernels"].get("counters")}
+
+
+def _rest_prometheus_checks(http, sent: dict) -> int:
+    status, data = http.call("GET", "/monitoring/prometheus/metrics")
+    if status != 200:
+        fail(f"rest: /monitoring/prometheus/metrics answered {status}")
+    lint = subprocess.run([sys.executable, os.path.join(HERE, "tools", "check_prom.py"), "-"],
+                          input=data, capture_output=True, timeout=60)
+    if lint.returncode != 0:
+        fail(f"rest: tools/check_prom.py rejects the exposition: "
+             f"{lint.stdout.decode()[-500:]} {lint.stderr.decode()[-500:]}")
+    text = data.decode()
+    line = (f':tensorflow:serving:request_count{{entrypoint="REST.Predict",status="OK"}} '
+            f'{sent["REST.Predict"]}')
+    if line not in text.splitlines():
+        fail(f"rest: the exposition lacks `{line}`")
+    kernel_lines = [ln for ln in text.splitlines() if ln.startswith("dts_tpu_kernel_")]
+    if not kernel_lines:
+        fail("rest: the exposition has no dts_tpu_kernel_* line")
+    log(f"rest: Prometheus text lint-clean, {len(text.splitlines())} lines, "
+        f"{len(kernel_lines)} dts_tpu_kernel_* samples")
+    return len(text.splitlines())
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -2906,11 +3393,14 @@ def main() -> None:
     t0 = time.perf_counter()
     models = phase_models(dev, f"{name} ({smi})")
     log(f"models: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rest = phase_rest(dev, f"{name} ({smi})")
+    log(f"rest: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
                    "lifecycle": lifecycle, "outputs": outputs, "families": families,
-                   "models": models}, f, indent=1, default=str)
+                   "models": models, "rest": rest}, f, indent=1, default=str)
 
     replaces = {
         "fused_serve": "distributed_tf_serving_tpu/ops/cross_kernel.py:470",
@@ -2934,6 +3424,11 @@ def main() -> None:
                      "launches_lifecycle": lifecycle["launches"]["path"].get(f"{kname}/{cd}", 0),
                      # The models server's count, from its start to its exit.
                      "launches_models": models["launches"].get(f"{kname}/{cd}", 0),
+                     # The REST path in this process (zeroed just before its
+                     # requests, read just after), and the REST CLI server's
+                     # count from its start to its exit.
+                     "launches_rest": rest["path"]["launches"].get(f"{kname}/{cd}", 0),
+                     "launches_rest_server": rest["launches_server"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (

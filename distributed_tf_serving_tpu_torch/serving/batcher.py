@@ -43,6 +43,17 @@ readback and per-request completion.
   reaches a result.
 - **Solo items.** A streamed sub-batch (`submit(..., _solo=True)`) is its
   own batch: the coalescer neither adds it to a group nor adds to it.
+- **Phases and spans.** Each stage is timed into utils/tracing.py's
+  `request_trace` (always on) under the JAX package's phase names:
+  `batch.pad` (padding a group on the batching thread, when the native
+  pack does not take it), `batch.dispatch` (the whole device stage),
+  inside it `batch.fusedpack` (the native pack into the pinned ring),
+  `batch.jitcall` (the upload, the unpack and the device step's launch)
+  and `readback.issue` (the readback wire's transform and the D2H copies),
+  and `readback.wait` (the event wait and the restore on a completion
+  worker). With per-request tracing on, a submit carries the caller's
+  span; each batch collects its phases in a sink, and they are replayed
+  onto every member's span, with the member's own `batch.queue_wait`.
 """
 
 from __future__ import annotations
@@ -78,6 +89,8 @@ from ..ops.transfer import (
     unpack_device_combined,
 )
 from ..ops.transfer import output_wire_dtype as wire_dtype_of
+from ..utils import tracing
+from ..utils.tracing import request_trace
 
 log = logging.getLogger("dts_torch.batcher")
 
@@ -156,6 +169,31 @@ class _WorkItem:
     enqueue_t: float
     deadline_t: float | None = None
     solo: bool = False  # a streamed sub-batch: never coalesced
+    # The submitting RPC's span (utils/tracing.Span) while per-request
+    # tracing is on: the batch's phases are replayed onto it. None =
+    # untraced.
+    span: object = None
+
+
+def _phase_sink(group: list[_WorkItem]) -> list | None:
+    """A fresh phase sink for one batch, or None when no member is traced
+    (then each phase feeds only the aggregate)."""
+    if tracing.enabled() and any(it.span is not None for it in group):
+        return []
+    return None
+
+
+def _sink_ctx(phases: list | None):
+    return tracing.collect_phases(phases) if phases is not None else contextlib.nullcontext()
+
+
+def _replay(group: list[_WorkItem], phases: list | None) -> None:
+    """Attach a batch's phases to every traced member's span: the batch's
+    work was each member's work."""
+    if phases:
+        for it in group:
+            if it.span is not None:
+                tracing.replay_phases(it.span, phases)
 
 
 @dataclasses.dataclass
@@ -182,6 +220,25 @@ class BatcherStats:
     topk_batches: int = 0
     bytes_downloaded: int = 0
     bytes_download_full_f32: int = 0
+    # High-water marks: items waiting in the queue, and batches handed to
+    # the completion workers at once.
+    max_queue_depth: int = 0
+    inflight_peak: int = 0
+
+    @property
+    def mean_occupancy(self) -> float:
+        return self.candidates / self.padded_candidates if self.padded_candidates else 0.0
+
+    @property
+    def mean_requests_per_batch(self) -> float:
+        return self.requests / self.batches if self.batches else 0.0
+
+    @property
+    def download_compaction_ratio(self) -> float:
+        """A float32 readback of every output over the bytes read back (>= 1)."""
+        if not self.bytes_downloaded:
+            return 0.0
+        return self.bytes_download_full_f32 / self.bytes_downloaded
 
     @property
     def readback_overlap_fraction(self) -> float:
@@ -222,6 +279,7 @@ class _Staged:
     keys: tuple[str, ...] | None
     collected_t: float
     topk: int = 0  # > 0: read back the top-k pairs of the one request
+    phases: list | None = None  # the batch's phase sink (_phase_sink)
 
 
 @dataclasses.dataclass(eq=False)
@@ -354,6 +412,8 @@ class DynamicBatcher:
         self._staged: deque[_Staged] = deque()
         self._dispatch_pending = 0  # staged + running device stages
         self._inflight = 0  # readbacks handed to the completion workers
+        self._inflight_buckets: dict[int, int] = {}  # bucket -> of those
+        self._dispatching = False  # the dispatch thread runs a device stage
         self._collecting = False  # the batching thread holds a group not yet staged
         self._collect_done = False
         self._thread = threading.Thread(target=self._loop, name="batcher", daemon=True)
@@ -418,13 +478,16 @@ class DynamicBatcher:
         arrays: dict[str, np.ndarray],
         output_keys: tuple[str, ...] | None = None,
         deadline_s: float | None = None,
+        span=None,
         _solo: bool = False,
     ) -> Future:
         """Enqueue one request's arrays; returns a Future of output arrays
         sliced back to the request's own candidate count. output_keys limits
         which outputs are read back. deadline_s is the client's remaining
-        budget: an item still queued when it expires is shed. _solo (a
-        streamed sub-batch) makes the item a batch of its own."""
+        budget: an item still queued when it expires is shed. span (the
+        caller's utils/tracing.Span) gets the batch's phases while tracing
+        is on. _solo (a streamed sub-batch) makes the item a batch of its
+        own."""
         if self._stopping:
             raise RuntimeError("batcher is stopped")
         ns = {k: v.shape[0] for k, v in arrays.items()}
@@ -450,9 +513,11 @@ class DynamicBatcher:
             servable=servable, arrays=prepared, n=n, output_keys=output_keys,
             future=Future(), enqueue_t=now,
             deadline_t=None if deadline_s is None else now + deadline_s, solo=_solo,
+            span=span if tracing.enabled() else None,
         )
         with self._cv:
             self._items.append(item)
+            self.stats.max_queue_depth = max(self.stats.max_queue_depth, len(self._items))
             self._cv.notify_all()
         return item.future
 
@@ -497,6 +562,29 @@ class DynamicBatcher:
                 entry = self._build_entry(servable)
                 self._entries[servable] = entry
         return entry
+
+    def pipeline_stats(self) -> dict:
+        """The dispatch pipeline: configured depth, batches in flight (total
+        and per bucket), whether a device stage runs, groups staged or
+        running, the in-flight high-water mark and the readback overlap (the
+        /monitoring `pipeline` block and the dts_tpu_pipeline_* series). The
+        JAX package's keys; its in-flight window is not ported, so
+        `inflight_window` and `inflight_window_waits` stay 0."""
+        with self._cv:
+            per_bucket = {int(b): n for b, n in sorted(self._inflight_buckets.items()) if n}
+            out = {
+                "depth": self.pipeline_depth,
+                "inflight_window": 0,
+                "in_flight": self._inflight,
+                "dispatching": self._dispatching,
+                "dispatch_pending": self._dispatch_pending,
+                "per_bucket_in_flight": per_bucket,
+                "inflight_peak": self.stats.inflight_peak,
+                "inflight_window_waits": 0,
+            }
+        with self._stats_lock:
+            out["readback_overlap_fraction"] = round(self.stats.readback_overlap_fraction, 4)
+        return out
 
     # ------------------------------------------------------------ internals
 
@@ -592,9 +680,10 @@ class DynamicBatcher:
         """Pack one batch (a _FusedCtx or folded padded arrays) into a ring
         buffer: (host uint8 tensor, layout)."""
         if isinstance(src, _FusedCtx):
-            buf = self.ring.acquire(combined_nbytes(src.layout, rows))
-            native.pack_batch_u24_bf16(src.ids_parts, src.wts_parts, src.fields, rows,
-                                       src.vocab, out=buf.numpy())
+            with request_trace.span("batch.fusedpack"):
+                buf = self.ring.acquire(combined_nbytes(src.layout, rows))
+                native.pack_batch_u24_bf16(src.ids_parts, src.wts_parts, src.fields, rows,
+                                           src.vocab, out=buf.numpy())
             with self._stats_lock:
                 self.stats.native_packs += 1
             return buf, src.layout
@@ -698,15 +787,17 @@ class DynamicBatcher:
         else:
             held, layout = self._pack(entry, src, rows)
         try:
-            if held is not None:
-                dbuf, event = self._upload(held)
-                batch = unpack_device_combined(dbuf, layout)
             with torch.inference_mode():
-                out = step(params, batch)
+                with request_trace.span("batch.jitcall"):
+                    if held is not None:
+                        dbuf, event = self._upload(held)
+                        batch = unpack_device_combined(dbuf, layout)
+                    out = step(params, batch)
                 full = sum(v.numel() * (4 if v.is_floating_point() else v.element_size())
                            for v in out.values())
-                rb = self._issue_readback(
-                    self._shape_outputs(servable, out, output_keys, topk, n_valid))
+                with request_trace.span("readback.issue"):
+                    rb = self._issue_readback(
+                        self._shape_outputs(servable, out, output_keys, topk, n_valid))
             rb.full_f32_bytes = full
             if topk:
                 rb.topk = (n_valid, servable.model.score_output)
@@ -730,6 +821,7 @@ class DynamicBatcher:
             host = self._restore(rb)
         finally:
             self.ring.release([buf for buf, _ in rb.out.values()])
+        request_trace.add("readback.wait", time.perf_counter() - t0)
         with self._stats_lock:
             self.stats.readback_window_s += max(rb.ready_t - rb.issue_t, 0.0)
             self.stats.readback_blocked_s += rb.ready_t - t0
@@ -843,20 +935,22 @@ class DynamicBatcher:
     def _assemble(self, group: list[_WorkItem], total: int) -> _Staged | None:
         """Pad the group to its bucket (or gather its parts for the native
         pack). A failure fails the group's futures and returns None."""
+        phases = _phase_sink(group)
         try:
             bucket = bucket_for(total, self.buckets)
             servable = group[0].servable
             src = self._fused_ctx(servable, [it.arrays for it in group])
             if src is None:
                 src = {}
-                for key in group[0].arrays:
-                    # concatenate promotes mixed dtypes (int32 compact ids
-                    # next to raw int64 ids) instead of truncating into the
-                    # first's.
-                    parts = [it.arrays[key] for it in group]
-                    first = parts[0]
-                    parts.append(np.zeros((bucket - total,) + first.shape[1:], first.dtype))
-                    src[key] = np.concatenate(parts)
+                with _sink_ctx(phases), request_trace.span("batch.pad"):
+                    for key in group[0].arrays:
+                        # concatenate promotes mixed dtypes (int32 compact
+                        # ids next to raw int64 ids) instead of truncating
+                        # into the first's.
+                        parts = [it.arrays[key] for it in group]
+                        first = parts[0]
+                        parts.append(np.zeros((bucket - total,) + first.shape[1:], first.dtype))
+                        src[key] = np.concatenate(parts)
             keys = None
             if all(it.output_keys is not None for it in group):
                 keys = tuple(dict.fromkeys(k for it in group for k in it.output_keys))
@@ -868,10 +962,11 @@ class DynamicBatcher:
                     and keys == (servable.model.score_output,)):
                 topk = self.output_top_k
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
+            _replay(group, phases)
             self._fail(group, total, exc)
             return None
         return _Staged(group=group, total=total, bucket=bucket, src=src, keys=keys,
-                       collected_t=time.perf_counter(), topk=topk)
+                       collected_t=time.perf_counter(), topk=topk, phases=phases)
 
     def _stage(self, staged: _Staged) -> None:
         """Hand a group to the dispatch thread; then wait while
@@ -917,13 +1012,28 @@ class DynamicBatcher:
         completion worker. A failure fails the group's futures, never the
         thread."""
         stage_t = time.perf_counter()
+        if st.phases is not None:
+            # Each member waited from its own enqueue: its own interval.
+            for it in st.group:
+                if it.span is not None:
+                    it.span.add_interval("batch.queue_wait", it.enqueue_t, stage_t)
+        with self._cv:
+            self._dispatching = True
         try:
-            rb = self._issue(st.group[0].servable, st.src, st.bucket, st.keys,
-                             topk=st.topk, n_valid=st.total)
+            with _sink_ctx(st.phases), request_trace.span("batch.dispatch"):
+                rb = self._issue(st.group[0].servable, st.src, st.bucket, st.keys,
+                                 topk=st.topk, n_valid=st.total)
             rb.stage_t = stage_t
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
+            # The spans show the phases that led to the failure before the
+            # waiters unblock and finish them.
+            _replay(st.group, st.phases)
             self._fail(st.group, st.total, exc)
             return
+        finally:
+            with self._cv:
+                self._dispatching = False
+        _replay(st.group, st.phases)
         with self._stats_lock:
             self.stats.batches += 1
             self.stats.requests += len(st.group)
@@ -934,6 +1044,8 @@ class DynamicBatcher:
             self.stats.bytes_download_full_f32 += rb.full_f32_bytes
         with self._cv:
             self._inflight += 1
+            self._inflight_buckets[st.bucket] = self._inflight_buckets.get(st.bucket, 0) + 1
+            self.stats.inflight_peak = max(self.stats.inflight_peak, self._inflight)
         try:
             fut = self._completers.submit(self._finish, st, rb)
         except RuntimeError as exc:  # the pool is shut down or broken
@@ -948,22 +1060,33 @@ class DynamicBatcher:
         if isinstance(exc, BrokenExecutor):
             self._abandon(st, exc)
 
+    def _done_inflight_locked(self, st: _Staged) -> None:
+        self._inflight -= 1
+        self._inflight_buckets[st.bucket] -= 1
+        self._cv.notify_all()
+
     def _abandon(self, st: _Staged, exc: BaseException) -> None:
         with self._cv:
-            self._inflight -= 1
-            self._cv.notify_all()
+            self._done_inflight_locked(st)
         self._fail(st.group, st.total, exc)
 
     def _finish(self, st: _Staged, rb: _Readback) -> None:
-        """Completion worker: wait for the readback, complete every member."""
+        """Completion worker: wait for the readback, complete every member.
+        The readback's phases reach the members' spans before their futures
+        complete, so a root span holds its whole tree when its RPC ends."""
+        phases = _phase_sink(st.group)
         try:
-            self._complete(st, rb, self._wait(rb))
+            try:
+                with _sink_ctx(phases):
+                    host = self._wait(rb)
+            finally:
+                _replay(st.group, phases)
+            self._complete(st, rb, host)
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
             self._fail(st.group, st.total, exc)
         finally:
             with self._cv:
-                self._inflight -= 1
-                self._cv.notify_all()
+                self._done_inflight_locked(st)
 
     def _complete(self, st: _Staged, rb: _Readback, host: dict[str, np.ndarray]) -> None:
         timeline = self.timeline

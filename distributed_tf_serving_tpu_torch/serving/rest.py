@@ -1,0 +1,660 @@
+"""TF-Serving-compatible REST gateway (the :8501 surface), on aiohttp.
+
+`tensorflow_model_server` serves every model on two ports: gRPC and a JSON
+REST API with the `/v1/models/...` routes. This gateway answers the same
+routes and JSON as the JAX package's (`serving/rest.py` there), over this
+package's PredictionServiceImpl:
+
+- `POST /v1/models/{model}[/versions/{v}|/labels/{l}]:predict`
+  body `{"instances": [...]}` (row format: one object per instance, or the
+  bare value for single-input signatures) -> `{"predictions": [...]}`;
+  body `{"inputs": {...}}` (columnar) -> `{"outputs": ...}` (an object
+  when the signature has several outputs, the bare tensor when one);
+  optional `"signature_name"`.
+- `POST /v1/models/{model}[/versions/{v}|/labels/{l}]:classify` and
+  `...:regress`, body `{"examples": [{feat: val, ...}, ...], "context":
+  {...}?}` -> `{"results": [...]}` (per example the [label, score] pairs
+  for classify, one value for regress), through the gRPC RPCs' Example
+  decoding.
+- `GET /v1/models/{model}[/versions/{v}|/labels/{l}]` -> version status;
+  `.../metadata` -> signature metadata.
+- `GET /monitoring/prometheus/metrics` -> Prometheus text (TF-Serving's
+  metric names); `GET /monitoring[?section=NAME]` -> the same data as JSON
+  with the phase means and one block per plane; `GET
+  /tracez[?format=chrome][&limit=N]` -> the retained span trees, or a
+  Chrome-trace-event export; `GET /tracez/export?since=N` -> the kept span
+  trees after a cursor.
+- The planes that are not ported yet answer what the JAX gateway answers
+  with that plane off: `{"enabled": false}` from `/cachez`, `/utilz`,
+  `/qualityz`, `/lifecyclez`, `/fleetz`, `/recoveryz`, `/meshz`,
+  `/cascadez`, `/integrityz`; 404 from `/lifecyclez/rollback` and
+  `/integrityz/audit`; FAILED_PRECONDITION (500) from `/cachez/flush`,
+  `/qualityz/snapshot` and `/labelz`. `/profilez` is not served (it belongs
+  to the utilization plane).
+
+A request becomes the same PredictRequest (or Classification /
+RegressionRequest) the gRPC path parses and is handed to the impl's
+`*_async` entry points: one implementation of resolution, validation,
+batching and status codes; the gateway translates JSON to tensors and
+ServiceError codes to HTTP statuses, with TF-Serving's error body
+`{"error": "..."}`.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import logging
+import time
+
+import numpy as np
+from aiohttp import web
+
+from .. import codec
+from ..proto import serving_apis_pb2 as apis
+from ..proto import tf_example_pb2 as ex
+from ..proto import tf_framework_pb2 as fw
+from ..utils import tracing
+from ..utils.metrics import ServerMetrics
+from ..utils.tracing import request_trace
+from .service import PredictionServiceImpl, ServiceError, _wrap_lookup
+
+log = logging.getLogger("dts_torch.rest")
+
+_HTTP_STATUS = {
+    "NOT_FOUND": 404,
+    "INVALID_ARGUMENT": 400,
+    "RESOURCE_EXHAUSTED": 429,
+    "UNAVAILABLE": 503,
+    "DEADLINE_EXCEEDED": 504,
+    "INTERNAL": 500,
+}
+
+_OFF = {"enabled": False}
+
+
+def _json_error(code: str, message: str) -> web.Response:
+    return web.json_response({"error": message}, status=_HTTP_STATUS.get(code, 500))
+
+
+def _dumps(obj) -> str:
+    return json.dumps(obj, default=str)
+
+
+class RestGateway:
+    """aiohttp application exposing a PredictionServiceImpl over REST.
+    Every :predict / :classify / :regress is observed into `metrics` under
+    `REST.<Verb>` (the CLI passes the gRPC server's ServerMetrics, so both
+    surfaces count in one place), inside a `server.REST.<Verb>` root span
+    taken from the `traceparent` header while tracing is on."""
+
+    def __init__(self, impl: PredictionServiceImpl, metrics: ServerMetrics | None = None):
+        self.impl = impl
+        self.metrics = metrics or ServerMetrics()
+        self.app = web.Application(client_max_size=256 * 1024 * 1024)
+        routes = []
+        for verb, handler in (("predict", self.predict), ("classify", self.classify),
+                              ("regress", self.regress)):
+            routes += [
+                web.post(f"/v1/models/{{model}}:{verb}", handler),
+                web.post(f"/v1/models/{{model}}/versions/{{version}}:{verb}", handler),
+                web.post(f"/v1/models/{{model}}/labels/{{label}}:{verb}", handler),
+            ]
+        routes += [
+            web.get("/v1/models/{model}", self.status),
+            web.get("/v1/models/{model}/versions/{version}", self.status),
+            web.get("/v1/models/{model}/labels/{label}", self.status),
+            web.get("/v1/models/{model}/metadata", self.metadata),
+            web.get("/v1/models/{model}/versions/{version}/metadata", self.metadata),
+            web.get("/v1/models/{model}/labels/{label}/metadata", self.metadata),
+            web.get("/monitoring/prometheus/metrics", self.prometheus),
+            web.get("/monitoring", self.monitoring),
+            web.get("/tracez", self.tracez),
+            web.get("/tracez/export", self.tracez_export),
+            web.get("/cachez", self.plane_off),
+            web.post("/cachez/flush", self.cachez_flush),
+            web.get("/utilz", self.utilz),
+            web.get("/qualityz", self.qualityz),
+            web.post("/qualityz/snapshot", self.qualityz_snapshot),
+            web.post("/labelz", self.labelz),
+            web.get("/lifecyclez", self.plane_off),
+            web.post("/lifecyclez/rollback", self.plane_not_found),
+            web.get("/fleetz", self.plane_off),
+            web.get("/recoveryz", self.plane_off),
+            web.get("/meshz", self.plane_off),
+            web.get("/cascadez", self.plane_off),
+            web.get("/integrityz", self.plane_off),
+            web.post("/integrityz/audit", self.plane_not_found),
+        ]
+        self.app.add_routes(routes)
+
+    # ------------------------------------------------------------- helpers
+
+    def _resolve_specs(self, model: str, version, signature_name: str, label=None):
+        # The gRPC path's lookup errors (NOT_FOUND).
+        servable = _wrap_lookup(lambda: self.impl.registry.resolve(model, version, label))
+        sig = _wrap_lookup(lambda: servable.signature(signature_name))
+        return servable, sig
+
+    @staticmethod
+    def _parse_version(raw) -> int | None:
+        if raw is None:
+            return None
+        try:
+            return int(raw)
+        except ValueError as e:
+            # A non-numeric /versions/{v} segment is the client's error
+            # (labels ride /labels/{l}).
+            raise ServiceError(
+                "INVALID_ARGUMENT", f"version must be an integer, got {raw!r}"
+            ) from e
+
+    @staticmethod
+    def _fill_model_spec(spec, model: str, version: int | None, label) -> None:
+        """Route segments -> ModelSpec, for all three POST verbs (version and
+        label come from distinct routes, so they never both arrive here)."""
+        spec.name = model
+        if version is not None:
+            spec.version.value = version
+        if label:
+            spec.version_label = label
+
+    @staticmethod
+    def _arrays_from_instances(instances, sig) -> dict[str, np.ndarray]:
+        if not isinstance(instances, list) or not instances:
+            raise ServiceError("INVALID_ARGUMENT", "instances must be a non-empty list")
+        specs = sig.input_specs
+        if isinstance(instances[0], dict):
+            columns: dict[str, list] = {}
+            for i, inst in enumerate(instances):
+                if not isinstance(inst, dict):
+                    raise ServiceError(
+                        "INVALID_ARGUMENT",
+                        f"instance {i} is not an object (mixed row formats)",
+                    )
+                for k, v in inst.items():
+                    columns.setdefault(k, []).append(v)
+            if any(len(v) != len(instances) for v in columns.values()):
+                raise ServiceError(
+                    "INVALID_ARGUMENT", "every instance must carry the same input names"
+                )
+        else:
+            # Bare values: single-input signatures only (the TF-Serving rule).
+            if len(specs) != 1:
+                raise ServiceError(
+                    "INVALID_ARGUMENT",
+                    "bare-value instances require a single-input signature; "
+                    f"this one expects {sorted(specs)}",
+                )
+            columns = {next(iter(specs)): instances}
+        return RestGateway._to_ndarrays(columns, specs)
+
+    @staticmethod
+    def _to_ndarrays(columns: dict, specs) -> dict[str, np.ndarray]:
+        arrays = {}
+        for name, vals in columns.items():
+            spec = specs.get(name)
+            np_dtype = codec.dtype_to_numpy(spec.dtype) if spec else None
+            try:
+                arrays[name] = np.asarray(vals, dtype=np_dtype)
+            except (TypeError, ValueError, OverflowError) as e:
+                raise ServiceError("INVALID_ARGUMENT", f"input {name!r}: {e}") from e
+        return arrays
+
+    # -------------------------------------------------------------- routes
+
+    async def _observed(self, name: str, handler, request) -> web.Response:
+        t0 = time.perf_counter()
+        model = request.match_info.get("model")
+        if tracing.enabled():
+            # The REST surface's root span adopts the caller's trace through
+            # the standard W3C `traceparent` header.
+            with tracing.start_root(
+                f"server.{name}",
+                traceparent=request.headers.get("traceparent"),
+                attrs={"entrypoint": name, **({"model": model} if model else {})},
+            ) as span:
+                resp = await handler(request)
+                # None when disable() raced this request.
+                if span is not None and resp.status >= 400:
+                    span.status = "ERROR"
+                    span.attrs["http_status"] = resp.status
+        else:
+            resp = await handler(request)
+        self.metrics.observe(name, time.perf_counter() - t0, resp.status < 400, model=model)
+        return resp
+
+    async def predict(self, request: web.Request) -> web.Response:
+        return await self._observed("REST.Predict", self._predict, request)
+
+    async def _predict(self, request: web.Request) -> web.Response:
+        model = request.match_info["model"]
+        try:
+            version = self._parse_version(request.match_info.get("version"))
+            label = request.match_info.get("label")
+            try:
+                body = await request.json()
+            except Exception as e:  # noqa: BLE001 — malformed JSON is a 400
+                return _json_error("INVALID_ARGUMENT", f"invalid JSON body: {e}")
+            if not isinstance(body, dict):
+                return _json_error("INVALID_ARGUMENT", "body must be a JSON object")
+            signature_name = body.get("signature_name", "")
+            row_format = "instances" in body
+            if row_format == ("inputs" in body):
+                return _json_error(
+                    "INVALID_ARGUMENT",
+                    'body must carry exactly one of "instances" or "inputs"',
+                )
+            servable, sig = self._resolve_specs(model, version, signature_name, label)
+            if row_format:
+                arrays = self._arrays_from_instances(body["instances"], sig)
+            else:
+                cols = body["inputs"]
+                if not isinstance(cols, dict):
+                    # A bare columnar tensor: single-input shorthand.
+                    specs = sig.input_specs
+                    if len(specs) != 1:
+                        return _json_error(
+                            "INVALID_ARGUMENT", "bare inputs require a single-input signature"
+                        )
+                    cols = {next(iter(specs)): cols}
+                arrays = self._to_ndarrays(cols, sig.input_specs)
+
+            # The proto the gRPC surface parses, pinned to the CONCRETE
+            # version resolved above: re-sending the label would let the
+            # impl resolve again, and a retarget between here and the
+            # execute would pair one version's signature with another's run.
+            req = apis.PredictRequest()
+            self._fill_model_spec(req.model_spec, model, servable.version, None)
+            req.model_spec.signature_name = signature_name
+            for key, arr in arrays.items():
+                codec.from_ndarray(arr, use_tensor_content=True, out=req.inputs[key])
+            resp = await self.impl.predict_async(req)
+            outputs = {k: codec.to_ndarray(v).tolist() for k, v in resp.outputs.items()}
+            if row_format:
+                names = list(outputs)
+                if len(names) == 1:
+                    predictions = outputs[names[0]]
+                else:
+                    n = len(next(iter(outputs.values())))
+                    predictions = [{k: outputs[k][i] for k in names} for i in range(n)]
+                return web.json_response({"predictions": predictions})
+            if len(outputs) == 1:
+                return web.json_response({"outputs": next(iter(outputs.values()))})
+            return web.json_response({"outputs": outputs})
+        except ServiceError as e:
+            return _json_error(e.code, str(e))
+        except Exception as e:  # noqa: BLE001 — surface as 500, keep serving
+            log.exception("internal error serving REST predict")
+            return _json_error("INTERNAL", f"internal error: {e}")
+
+    # ------------------------------------------------- classify / regress
+
+    @staticmethod
+    def _feature_from_json(key: str, value, feature) -> None:
+        """One tf.Example Feature from a JSON value (TF-Serving's REST
+        Example encoding: a scalar or a flat list; ints -> int64_list, floats
+        -> float_list with ints coerced, strings -> bytes_list, `{"b64":
+        ...}` objects for binary)."""
+        vals = value if isinstance(value, list) else [value]
+        if not vals:
+            raise ServiceError("INVALID_ARGUMENT", f"feature {key!r}: empty value list")
+        if any(isinstance(v, float) for v in vals):
+            try:
+                feature.float_list.value.extend(float(v) for v in vals)
+            except (TypeError, ValueError) as e:
+                raise ServiceError("INVALID_ARGUMENT", f"feature {key!r}: {e}") from e
+        elif all(isinstance(v, bool) is False and isinstance(v, int) for v in vals):
+            try:
+                feature.int64_list.value.extend(vals)
+            except ValueError as e:  # out of int64 range is the client's error
+                raise ServiceError("INVALID_ARGUMENT", f"feature {key!r}: {e}") from e
+        elif all(isinstance(v, str) for v in vals):
+            feature.bytes_list.value.extend(v.encode("utf-8") for v in vals)
+        elif all(isinstance(v, dict) and set(v) == {"b64"} for v in vals):
+            try:
+                feature.bytes_list.value.extend(base64.b64decode(v["b64"]) for v in vals)
+            except Exception as e:  # noqa: BLE001 — bad base64 is a 400
+                raise ServiceError(
+                    "INVALID_ARGUMENT", f"feature {key!r}: invalid base64: {e}"
+                ) from e
+        else:
+            raise ServiceError(
+                "INVALID_ARGUMENT",
+                f"feature {key!r}: values must be all-int, all-float "
+                "(ints coerce), all-string, or all-b64 objects",
+            )
+
+    def _example_from_json(self, obj, index: int):
+        if not isinstance(obj, dict):
+            raise ServiceError("INVALID_ARGUMENT", f"example {index} is not a JSON object")
+        example = ex.Example()
+        for key, value in obj.items():
+            self._feature_from_json(key, value, example.features.feature[key])
+        return example
+
+    def _build_example_request(self, request: web.Request, req, body: dict) -> None:
+        """A :classify / :regress body -> the request's model_spec and Input
+        (examples, and the context when given)."""
+        model = request.match_info["model"]
+        version = self._parse_version(request.match_info.get("version"))
+        self._fill_model_spec(req.model_spec, model, version, request.match_info.get("label"))
+        req.model_spec.signature_name = body.get("signature_name", "")
+        examples = body.get("examples")
+        if not isinstance(examples, list) or not examples:
+            raise ServiceError(
+                "INVALID_ARGUMENT", 'body must carry a non-empty "examples" list'
+            )
+        context = body.get("context")
+        if context is not None:
+            target = req.input.example_list_with_context
+            target.context.CopyFrom(self._example_from_json(context, -1))
+            dest = target.examples
+        else:
+            dest = req.input.example_list.examples
+        for i, obj in enumerate(examples):
+            dest.append(self._example_from_json(obj, i))
+
+    async def _example_route(self, request: web.Request, kind: str) -> web.Response:
+        try:
+            try:
+                body = await request.json()
+            except Exception as e:  # noqa: BLE001 — malformed JSON is a 400
+                return _json_error("INVALID_ARGUMENT", f"invalid JSON body: {e}")
+            if not isinstance(body, dict):
+                return _json_error("INVALID_ARGUMENT", "body must be a JSON object")
+            if kind == "classify":
+                req = apis.ClassificationRequest()
+                self._build_example_request(request, req, body)
+                resp = await self.impl.classify_async(req)
+                # TF-Serving's REST shape: per example its [[label, score],
+                # ...] list, in order.
+                results = [
+                    [[c.label, c.score] for c in cls.classes]
+                    for cls in resp.result.classifications
+                ]
+            else:
+                req = apis.RegressionRequest()
+                self._build_example_request(request, req, body)
+                resp = await self.impl.regress_async(req)
+                results = [r.value for r in resp.result.regressions]
+            return web.json_response({"results": results})
+        except ServiceError as e:
+            return _json_error(e.code, str(e))
+        except Exception as e:  # noqa: BLE001 — surface as 500, keep serving
+            log.exception("internal error serving REST %s", kind)
+            return _json_error("INTERNAL", f"internal error: {e}")
+
+    async def classify(self, request: web.Request) -> web.Response:
+        return await self._observed(
+            "REST.Classify", lambda r: self._example_route(r, "classify"), request)
+
+    async def regress(self, request: web.Request) -> web.Response:
+        return await self._observed(
+            "REST.Regress", lambda r: self._example_route(r, "regress"), request)
+
+    # ----------------------------------------------------------- telemetry
+
+    async def prometheus(self, request: web.Request) -> web.Response:
+        return web.Response(
+            body=self.metrics.prometheus_text(
+                self.impl.batcher.stats,
+                pipeline=self.impl.pipeline_stats(),
+                kernels=self.impl.kernels_stats(),
+            ).encode("utf-8"),
+            headers={"Content-Type": "text/plain; version=0.0.4; charset=utf-8"},
+        )
+
+    def _monitoring_builders(self) -> dict:
+        """One builder per /monitoring block, so ?section=NAME builds only
+        that block. The JAX gateway's section names; a plane that is not
+        ported answers None, as there with the plane off."""
+
+        def request_log():
+            logger = self.impl.request_logger
+            return logger.stats() if logger is not None else None
+
+        impl = self.impl
+        return {
+            "metrics": lambda: self.metrics.snapshot(impl.batcher.stats),
+            "phases": request_trace.snapshot,
+            "tracing": lambda: {
+                "enabled": tracing.enabled(),
+                "recorded": tracing.recorder().recorded,
+            },
+            "cache": impl.cache_stats,
+            "row_cache": impl.row_cache_stats,
+            "overload": impl.overload_stats,
+            "utilization": impl.utilization_stats,
+            "quality": impl.quality_stats,
+            "lifecycle": impl.lifecycle_stats,
+            "recovery": impl.recovery_stats,
+            "kernels": impl.kernels_stats,
+            "mesh": impl.mesh_stats,
+            "elastic": impl.elastic_stats,
+            "fleet": impl.fleet_stats,
+            "cascade": impl.cascade_stats,
+            "integrity": impl.integrity_stats,
+            "versions": impl.versions_stats,
+            "pipeline": impl.pipeline_stats,
+            "request_log": request_log,
+            "draining": lambda: bool(impl.draining),
+        }
+
+    async def monitoring(self, request: web.Request) -> web.Response:
+        """GET /monitoring[?section=NAME]: the metrics snapshot as JSON
+        (rolling-window qps and percentiles beside the lifetime values,
+        per-model blocks, batcher gauges), the phase means, and one block
+        per plane that is on (a plane that is off is absent).
+        ?section=NAME answers that block alone (null for a plane that is
+        off); an unknown name is a 400."""
+        builders = self._monitoring_builders()
+        section = request.query.get("section")
+        if section is not None:
+            builder = builders.get(section)
+            if builder is None:
+                return _json_error(
+                    "INVALID_ARGUMENT", f"unknown section {section!r}; have {sorted(builders)}"
+                )
+            return web.json_response({section: builder()})
+        snap = builders["metrics"]()
+        snap["phases"] = builders["phases"]()
+        snap["tracing"] = builders["tracing"]()
+        for name in ("cache", "row_cache", "overload", "utilization", "quality", "lifecycle",
+                     "recovery", "kernels", "mesh", "elastic", "fleet", "cascade", "integrity",
+                     "versions", "pipeline"):
+            block = builders[name]()
+            if block is not None:
+                snap[name] = block
+        snap["draining"] = builders["draining"]()
+        log_block = builders["request_log"]()
+        if log_block is not None:
+            snap["request_log"] = log_block
+        return web.json_response(snap)
+
+    async def tracez(self, request: web.Request) -> web.Response:
+        """GET /tracez: recent and slowest retained span trees as JSON;
+        ?format=chrome answers Chrome-trace-event JSON; ?limit=N bounds the
+        trace list."""
+        rec = tracing.recorder()
+        if request.query.get("format") == "chrome":
+            return web.json_response(rec.chrome_trace(), dumps=_dumps)
+        try:
+            limit = int(request.query.get("limit", "50"))
+        except ValueError:
+            return _json_error("INVALID_ARGUMENT", "limit must be an integer")
+        body = rec.tracez(limit=limit)
+        body["enabled"] = tracing.enabled()
+        return web.json_response(body, dumps=_dumps)
+
+    async def tracez_export(self, request: web.Request) -> web.Response:
+        """GET /tracez/export?since=CURSOR: the kept span trees after the
+        cursor, with this process's clock anchor. `{"enabled": false}`
+        while tracing is off."""
+        if not tracing.enabled():
+            return web.json_response({"enabled": False, "cursor": 0, "spans": []})
+        try:
+            since = int(request.query.get("since", "0") or 0)
+        except ValueError:
+            return _json_error("INVALID_ARGUMENT", "since must be an integer")
+        return web.json_response(tracing.recorder().export_since(since), dumps=_dumps)
+
+    # ---------------------------------------------- planes not ported yet
+
+    async def plane_off(self, request: web.Request) -> web.Response:
+        return web.json_response(_OFF)
+
+    async def plane_not_found(self, request: web.Request) -> web.Response:
+        """A plane's operator lever with the plane off: 404."""
+        return web.json_response(_OFF, status=404)
+
+    async def cachez_flush(self, request: web.Request) -> web.Response:
+        return _json_error("FAILED_PRECONDITION",
+                           "no score cache is configured ([cache] enabled=false)")
+
+    async def utilz(self, request: web.Request) -> web.Response:
+        window = request.query.get("window")
+        if window is not None:
+            try:
+                float(window)
+            except ValueError:
+                return _json_error("INVALID_ARGUMENT", "window must be a number")
+        return web.json_response(_OFF)
+
+    async def qualityz(self, request: web.Request) -> web.Response:
+        version = request.query.get("version")
+        if version is not None:
+            try:
+                int(version)
+            except ValueError:
+                return _json_error("INVALID_ARGUMENT", "version must be an integer")
+        return web.json_response(_OFF)
+
+    @staticmethod
+    def _no_quality_monitor() -> web.Response:
+        return _json_error("FAILED_PRECONDITION",
+                           "no quality monitor is configured ([quality] enabled=false)")
+
+    async def qualityz_snapshot(self, request: web.Request) -> web.Response:
+        return self._no_quality_monitor()
+
+    async def labelz(self, request: web.Request) -> web.Response:
+        try:
+            body = await request.json()
+        except Exception as e:  # noqa: BLE001 — malformed JSON is a 400
+            return _json_error("INVALID_ARGUMENT", f"invalid JSON body: {e}")
+        if isinstance(body, dict) and "labels" in body:
+            items = body["labels"]
+        elif isinstance(body, dict):
+            items = [body]
+        else:
+            items = body
+        if not isinstance(items, list) or not items:
+            return _json_error(
+                "INVALID_ARGUMENT",
+                'body must be a label object, a list, or {"labels": [...]}',
+            )
+        return self._no_quality_monitor()
+
+    # --------------------------------------------------- status / metadata
+
+    async def status(self, request: web.Request) -> web.Response:
+        # The ModelService RPC's body (impl.get_model_status) in TF-Serving's
+        # REST JSON: the gRPC and REST answers cannot drift.
+        model = request.match_info["model"]
+        try:
+            req = apis.GetModelStatusRequest()
+            self._fill_model_spec(
+                req.model_spec, model,
+                self._parse_version(request.match_info.get("version")),
+                request.match_info.get("label"),
+            )
+            resp = self.impl.get_model_status(req)
+        except ServiceError as e:
+            return _json_error(e.code, str(e))
+        except ValueError as e:
+            # e.g. a /versions/{v} segment past int64: the client's error.
+            return _json_error("INVALID_ARGUMENT", str(e))
+        except Exception as e:  # noqa: BLE001 — surface as 500, keep serving
+            log.exception("internal error serving REST status")
+            return _json_error("INTERNAL", f"internal error: {e}")
+        state_name = apis.ModelVersionStatus.State.Name
+        return web.json_response({
+            "model_version_status": [
+                {
+                    "version": str(s.version),
+                    "state": state_name(s.state),
+                    # proto3 JSON names enums: parsers match "OK".
+                    "status": {
+                        "error_code": "OK" if s.status.error_code == 0 else s.status.error_code,
+                        "error_message": s.status.error_message,
+                    },
+                }
+                for s in resp.model_version_status
+            ]
+        })
+
+    async def metadata(self, request: web.Request) -> web.Response:
+        model = request.match_info["model"]
+        try:
+            # Resolution only: this route lists every signature, so a model
+            # without serving_default must still answer.
+            servable = _wrap_lookup(
+                lambda: self.impl.registry.resolve(
+                    model,
+                    self._parse_version(request.match_info.get("version")),
+                    request.match_info.get("label"),
+                )
+            )
+        except ServiceError as e:
+            return _json_error(e.code, str(e))
+        except Exception as e:  # noqa: BLE001 — surface as 500, keep serving
+            log.exception("internal error serving REST metadata")
+            return _json_error("INTERNAL", f"internal error: {e}")
+
+        def spec_json(spec):
+            shape = (
+                {"unknown_rank": True}
+                if spec.shape is None
+                else {"dim": [{"size": str(-1 if d is None else d)} for d in spec.shape]}
+            )
+            # Enum by NAME, as proto3 JSON prints it ("DT_INT64", not 9).
+            try:
+                dtype = fw.DataType.Name(spec.dtype)
+            except ValueError:
+                dtype = int(spec.dtype)
+            return {"dtype": dtype, "tensor_shape": shape}
+
+        sig_defs = {
+            name: {
+                "method_name": sig.method_name,
+                "inputs": {s.name: spec_json(s) for s in sig.inputs},
+                "outputs": {s.name: spec_json(s) for s in sig.outputs},
+            }
+            for name, sig in servable.signatures.items()
+        }
+        return web.json_response({
+            "model_spec": {
+                "name": servable.name,
+                "version": str(servable.version),
+                "signature_name": "",
+            },
+            "metadata": {"signature_def": {"signature_def": sig_defs}},
+        })
+
+
+async def start_rest_gateway(
+    impl: PredictionServiceImpl,
+    host: str = "127.0.0.1",
+    port: int = 8501,
+    metrics: ServerMetrics | None = None,
+) -> tuple[web.AppRunner, int]:
+    """Start the gateway on the running event loop; returns (runner,
+    bound_port). Stop it with `await runner.cleanup()`. Pass the gRPC
+    server's ServerMetrics so one Prometheus text counts both surfaces."""
+    gw = RestGateway(impl, metrics)
+    runner = web.AppRunner(gw.app)
+    await runner.setup()
+    site = web.TCPSite(runner, host, port)
+    await site.start()
+    return runner, runner.addresses[0][1]

@@ -2,7 +2,11 @@
 Regress, MultiInference, GetModelMetadata), ModelService (GetModelStatus,
 HandleReloadConfigRequest) and grpc.health.v1 Health on one port, over
 PredictionServiceImpl; with `[transport] uds_path` (or --uds-path) on a
-Unix-domain socket as well, or with `--ssl-config-file` over TLS.
+Unix-domain socket as well, or with `--ssl-config-file` over TLS; with
+`--rest-port` the REST gateway (serving/rest.py) beside it. Every RPC of
+both surfaces is observed into one ServerMetrics (utils/metrics.py); with
+`--tracing` (or `[observability] tracing = true`) each opens a
+`server.<RPC>` root span from the caller's `traceparent`.
 
 CLI:
 
@@ -14,7 +18,8 @@ CLI:
         [--ssl-config-file F] [--request-log-file F] [--request-log-sampling P] \
         [--no-warmup] [--max-wait-us N] [--max-workers N] \
         [--file-system-poll-wait-seconds S] [--max-num-load-retries N] \
-        [--uds-path PATH] [--stream-chunk N]
+        [--uds-path PATH] [--stream-chunk N] [--rest-port N] \
+        [--metrics-every-s S] [--tracing]
 
 serves, by default, a randomly initialized demo servable (numpy-seeded,
 `--seed`) of the configured model kind ([server] model_kind, or
@@ -62,16 +67,20 @@ from ..proto.service_grpc import (
     ModelServiceServicer,
     PredictionServiceServicer,
 )
+from ..utils import tracing
 from ..utils.config import (
     DRAIN_GRACE_S,
     BatchingConfig,
     KernelsConfig,
+    ObservabilityConfig,
     ServerConfig,
     TransportConfig,
     apply_batching_parameters,
     load_config,
     validate_model_config_entries,
 )
+from ..utils.metrics import ServerMetrics
+from ..utils.tracing import request_trace
 from .batcher import DynamicBatcher
 from .service import PredictionServiceImpl, ServiceError
 
@@ -85,6 +94,45 @@ STREAM_CHUNK_KEY = "x-dts-stream-chunk"
 
 def _status(code_name: str) -> grpc.StatusCode:
     return getattr(grpc.StatusCode, code_name, grpc.StatusCode.UNKNOWN)
+
+
+def _model_of(request) -> str | None:
+    """The request's model name for the metrics and spans (None when the
+    request carries no top-level model_spec, as MultiInference)."""
+    return getattr(getattr(request, "model_spec", None), "name", "") or None
+
+
+def _traceparent_of(context) -> str | None:
+    """The W3C traceparent of the RPC's metadata, or None. Read only while
+    tracing is on."""
+    try:
+        for key, value in context.invocation_metadata() or ():
+            if key == "traceparent":
+                return value
+    except Exception:  # noqa: BLE001 — tracing must never fail an RPC
+        return None
+    return None
+
+
+# Initial-metadata stamp on traced RPCs: a traced caller names the hop it
+# reached (a replica, not a router) from it.
+_PEER_ROLE_KEY = "x-dts-peer-role"
+
+
+def _root_span(name: str, model: str | None, context):
+    """The RPC's server root span (adopting the caller's trace), and the
+    peer-role stamp; None with tracing off."""
+    if not tracing.enabled():
+        return None
+    span_ctx = tracing.start_root(
+        f"server.{name}", traceparent=_traceparent_of(context),
+        attrs={"entrypoint": name, **({"model": model} if model else {})},
+    )
+    try:
+        context.send_initial_metadata(((_PEER_ROLE_KEY, "replica"),))
+    except Exception:  # noqa: BLE001 — advisory only
+        pass
+    return span_ctx
 
 
 def _deadline_of(context) -> float | None:
@@ -179,58 +227,87 @@ class TransportQuiesce:
             self._cond.notify_all()
 
 
-def _call(name: str, fn, request, context, quiesce: TransportQuiesce | None = None):
-    """ServiceError -> grpc status; anything else -> INTERNAL."""
-    if quiesce is not None:
-        quiesce.hold(context)
-    try:
-        return fn(request)
-    except ServiceError as e:
-        context.abort(_status(e.code), str(e))
-    except Exception as e:  # internal bug: surface as INTERNAL, keep serving
-        log.exception("internal error serving %s", name)
-        context.abort(grpc.StatusCode.INTERNAL, f"internal error: {e}")
+class _ServicerBase:
+    """The adapters' plumbing: the drain's hold (TransportQuiesce), then
+    ServiceError -> grpc status (anything else INTERNAL), one
+    ServerMetrics.observe per RPC under the request's model, and the
+    `server.<RPC>` root span while tracing is on."""
+
+    def __init__(self, impl: PredictionServiceImpl, quiesce: TransportQuiesce | None = None,
+                 metrics: ServerMetrics | None = None):
+        self.impl = impl
+        self.quiesce = quiesce
+        self.metrics = metrics or ServerMetrics()
+
+    def _call(self, name: str, fn, request, context):
+        if self.quiesce is not None:
+            self.quiesce.hold(context)
+        t0 = time.perf_counter()
+        ok = False
+        model = _model_of(request)
+        span_ctx = _root_span(name, model, context)
+        try:
+            if span_ctx is not None:
+                with span_ctx:
+                    resp = fn(request)
+            else:
+                resp = fn(request)
+            ok = True
+            return resp
+        except ServiceError as e:
+            context.abort(_status(e.code), str(e))
+        except Exception as e:  # internal bug: surface as INTERNAL, keep serving
+            log.exception("internal error serving %s", name)
+            context.abort(grpc.StatusCode.INTERNAL, f"internal error: {e}")
+        finally:
+            self.metrics.observe(name, time.perf_counter() - t0, ok, model=model)
+
+    def _call_stream(self, name: str, fn, request, context):
+        """_call for a server-streaming RPC: `fn(request)` returns a chunk
+        generator; an error aborts the stream after the chunks already
+        sent. One observe per stream."""
+        if self.quiesce is not None:
+            self.quiesce.hold(context)
+        t0 = time.perf_counter()
+        ok = False
+        model = _model_of(request)
+        span_ctx = _root_span(name, model, context)
+        try:
+            if span_ctx is not None:
+                with span_ctx:
+                    yield from fn(request)
+            else:
+                yield from fn(request)
+            ok = True
+        except ServiceError as e:
+            context.abort(_status(e.code), str(e))
+        except Exception as e:  # internal bug: surface as INTERNAL, keep serving
+            log.exception("internal error serving %s", name)
+            context.abort(grpc.StatusCode.INTERNAL, f"internal error: {e}")
+        finally:
+            self.metrics.observe(name, time.perf_counter() - t0, ok, model=model)
 
 
-def _call_stream(name: str, fn, request, context, quiesce: TransportQuiesce | None = None):
-    """_call for a server-streaming RPC: `fn(request)` returns a chunk
-    generator; an error aborts the stream after the chunks already sent."""
-    if quiesce is not None:
-        quiesce.hold(context)
-    try:
-        yield from fn(request)
-    except ServiceError as e:
-        context.abort(_status(e.code), str(e))
-    except Exception as e:  # internal bug: surface as INTERNAL, keep serving
-        log.exception("internal error serving %s", name)
-        context.abort(grpc.StatusCode.INTERNAL, f"internal error: {e}")
-
-
-class GrpcPredictionService(PredictionServiceServicer):
+class GrpcPredictionService(_ServicerBase, PredictionServiceServicer):
     """tensorflow.serving.PredictionService adapter: every RPC of the
     service, PredictStream included."""
 
-    def __init__(self, impl: PredictionServiceImpl, quiesce: TransportQuiesce | None = None):
-        self.impl = impl
-        self.quiesce = quiesce
-
     def _unary(self, name: str, fn, request, context):
         deadline_s = _deadline_of(context)
-        return _call(name, lambda req: fn(req, deadline_s=deadline_s), request, context,
-                     self.quiesce)
+        return self._call(name, lambda req: fn(req, deadline_s=deadline_s), request, context)
 
     def Predict(self, request, context):
         deadline_s = _deadline_of(context)
         # The metadata is read only on a server whose plane armed the wire.
         int8_wire = self.impl.int8_score_wire and _score_wire_of(context)
-        return _call("Predict", lambda req: self.impl.predict(
-            req, deadline_s=deadline_s, int8_wire=int8_wire), request, context, self.quiesce)
+        return self._call("Predict", lambda req: self.impl.predict(
+            req, deadline_s=deadline_s, int8_wire=int8_wire), request, context)
 
     def PredictStream(self, request, context):
         deadline_s = _deadline_of(context)
         chunk = _stream_chunk_of(context)
-        return _call_stream("PredictStream", lambda req: self.impl.predict_stream(
-            req, deadline_s=deadline_s, chunk=chunk), request, context, self.quiesce)
+        return self._call_stream("PredictStream", lambda req: self.impl.predict_stream(
+            req, deadline_s=deadline_s, chunk=chunk), request, context)
 
     def Classify(self, request, context):
         return self._unary("Classify", self.impl.classify, request, context)
@@ -242,26 +319,19 @@ class GrpcPredictionService(PredictionServiceServicer):
         return self._unary("MultiInference", self.impl.multi_inference, request, context)
 
     def GetModelMetadata(self, request, context):
-        return _call("GetModelMetadata", self.impl.get_model_metadata, request, context,
-                     self.quiesce)
+        return self._call("GetModelMetadata", self.impl.get_model_metadata, request, context)
 
 
-class GrpcModelService(ModelServiceServicer):
+class GrpcModelService(_ServicerBase, ModelServiceServicer):
     """tensorflow.serving.ModelService adapter: GetModelStatus and
     HandleReloadConfigRequest."""
 
-    def __init__(self, impl: PredictionServiceImpl, quiesce: TransportQuiesce | None = None):
-        self.impl = impl
-        self.quiesce = quiesce
-
     def GetModelStatus(self, request, context):
-        return _call("GetModelStatus", self.impl.get_model_status, request, context,
-                     self.quiesce)
+        return self._call("GetModelStatus", self.impl.get_model_status, request, context)
 
     def HandleReloadConfigRequest(self, request, context):
-        return _call("HandleReloadConfigRequest", self.impl.handle_reload_config, request,
-                     context, self.quiesce)
-
+        return self._call("HandleReloadConfigRequest", self.impl.handle_reload_config,
+                          request, context)
 
 
 class GrpcHealthService:
@@ -329,19 +399,24 @@ def create_server(
     uds_path: str | None = None,
     credentials: grpc.ServerCredentials | None = None,
     quiesce: TransportQuiesce | None = None,
+    metrics: ServerMetrics | None = None,
 ) -> tuple[grpc.Server, int]:
     """Build (not start) a server; returns (server, bound_port). `uds_path`
     binds a Unix-domain socket as well ([transport] uds_path);
     `credentials` (load_ssl_credentials) makes the TCP port TLS, and then a
     socket is refused. Every handler waits on `quiesce`
-    (GracefulShutdown.quiesce) while the transport settles to stop."""
+    (GracefulShutdown.quiesce) while the transport settles to stop, and
+    every PredictionService and ModelService RPC is observed into
+    `metrics` (a new ServerMetrics when None)."""
     _refuse_uds_beside_tls(credentials, uds_path)
     server = grpc.server(
         futures.ThreadPoolExecutor(max_workers=max_workers, thread_name_prefix="rpc"),
         options=list(LARGE_MESSAGE_CHANNEL_OPTIONS) + list(KEEPALIVE_SERVER_OPTIONS),
     )
-    add_PredictionServiceServicer_to_server(GrpcPredictionService(impl, quiesce), server)
-    add_ModelServiceServicer_to_server(GrpcModelService(impl, quiesce), server)
+    metrics = metrics or ServerMetrics()
+    add_PredictionServiceServicer_to_server(GrpcPredictionService(impl, quiesce, metrics),
+                                            server)
+    add_ModelServiceServicer_to_server(GrpcModelService(impl, quiesce, metrics), server)
     add_HealthServicer_to_server(GrpcHealthService(impl, quiesce), server)
     if credentials is not None:
         port = server.add_secure_port(address, credentials)
@@ -352,6 +427,42 @@ def create_server(
     if uds_path:
         _add_uds_port(server, uds_path)
     return server, port
+
+
+def start_rest_in_thread(impl: PredictionServiceImpl, host: str, port: int,
+                         metrics: ServerMetrics | None = None) -> int:
+    """Run the REST gateway (serving/rest.py) on its own event loop in a
+    daemon thread beside the threaded gRPC server; returns the bound port.
+    The start is synchronized: the caller gets a live port or a
+    RuntimeError, never a healthy-looking process with a dead gateway (a
+    wait that times out counts as a failure)."""
+    import asyncio
+
+    from .rest import start_rest_gateway
+
+    ready: dict = {}
+    up = threading.Event()
+
+    def run_rest():
+        loop = asyncio.new_event_loop()
+        asyncio.set_event_loop(loop)
+        try:
+            _runner, ready["port"] = loop.run_until_complete(
+                start_rest_gateway(impl, host, port, metrics))
+        except BaseException as exc:  # noqa: BLE001 — reported to the caller
+            ready["error"] = exc
+            return
+        finally:
+            up.set()
+        loop.run_forever()
+
+    threading.Thread(target=run_rest, name="rest", daemon=True).start()
+    if not up.wait(timeout=30) or "error" in ready:
+        raise RuntimeError(
+            f"REST gateway failed to start on {host}:{port}: "
+            f"{ready.get('error', 'startup timed out after 30s')}"
+        )
+    return ready["port"]
 
 
 def _read_text_proto(path, message):
@@ -856,6 +967,15 @@ def serve(argv=None) -> None:
                    help="default candidates per PredictStream sub-batch (0 = one chunk). "
                    "Equivalent to [batching] stream_chunk_candidates; a request's "
                    "x-dts-stream-chunk metadata overrides it")
+    p.add_argument("--rest-port", type=int, default=0,
+                   help="also serve the TF-Serving REST API (the :8501 surface, /v1/models/... "
+                   "routes, /monitoring, /tracez) on this port")
+    p.add_argument("--metrics-every-s", type=float, default=0.0,
+                   help="log a `metrics {...}` snapshot line every S seconds")
+    p.add_argument("--tracing", action="store_true",
+                   help="per-request span tracing (W3C traceparent propagation; GET /tracez on "
+                   "the REST surface, ?format=chrome for a Chrome trace). Equivalent to "
+                   "[observability] tracing = true")
     p.add_argument(
         "--kernels", action="store_true",
         help="kernel/quantization plane: int8 weight quantization and the fused "
@@ -875,6 +995,9 @@ def serve(argv=None) -> None:
     if args.stream_chunk is not None:
         batching_config = dataclasses.replace(
             batching_config, stream_chunk_candidates=max(args.stream_chunk, 0))
+    obs = loaded.get("observability") or ObservabilityConfig()
+    if args.tracing:
+        obs = dataclasses.replace(obs, tracing=True)
     transport_config = loaded.get("transport") or TransportConfig()
     if args.uds_path:
         transport_config = dataclasses.replace(transport_config, uds_path=args.uds_path)
@@ -923,12 +1046,25 @@ def serve(argv=None) -> None:
         impl.request_logger = request_logger
         log.info("request logging to %s (sampling %.4f)", cfg.request_log_file,
                  cfg.request_log_sampling)
+    if obs.apply() is not None:
+        log.info("per-request tracing on (buffer=%d sample_rate=%.3f slowest_n=%d): GET /tracez "
+                 "on the REST surface", obs.trace_buffer, obs.trace_sample_rate,
+                 obs.trace_slowest_n)
+    metrics = ServerMetrics(window_s=obs.window_seconds)
     server, port = create_server(impl, f"{cfg.host}:{cfg.port}", cfg.max_workers,
                                  uds_path=transport_config.uds_path or None,
-                                 credentials=credentials, quiesce=shutdown.quiesce)
+                                 credentials=credentials, quiesce=shutdown.quiesce,
+                                 metrics=metrics)
     server.start()
     shutdown.server = server
     shutdown.install_signal_handler()
+    if args.rest_port:
+        try:
+            bound = start_rest_in_thread(impl, cfg.host, args.rest_port, metrics)
+        except RuntimeError as exc:
+            shutdown.shutdown()
+            raise SystemExit(str(exc)) from exc
+        log.info("REST gateway on %s:%d (/v1/models/...)", cfg.host, bound)
     what = (f"{servable.name} v{servable.version}" if servable is not None
             else f"{cfg.model_name} (awaiting versions)")
     kind = servable.model.kind if servable is not None else cfg.model_kind
@@ -942,7 +1078,15 @@ def serve(argv=None) -> None:
              "armed" if impl.int8_score_wire else "off")
     servable = None  # a retired version must not stay alive here
     try:
-        server.wait_for_termination()
+        if args.metrics_every_s > 0:
+            # wait_for_termination(timeout) is True while the server lives
+            # on past the timeout, False once it has terminated.
+            while server.wait_for_termination(timeout=args.metrics_every_s):
+                snap = metrics.snapshot(batcher.stats)
+                snap["phases"] = request_trace.snapshot()
+                log.info("metrics %s", json.dumps(snap))
+        else:
+            server.wait_for_termination()
     finally:
         # The drain a signal started, or this one; idempotent.
         shutdown.shutdown()

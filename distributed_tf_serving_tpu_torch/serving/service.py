@@ -5,7 +5,13 @@ wire, server-streaming Predict (PredictStream: the request split into
 sub-batches, each answered as its readback completes), the Example-input
 RPCs (Classify, Regress, MultiInference), the model-status / metadata
 RPCs, and ModelService's HandleReloadConfigRequest. server.py is a thin
-gRPC adapter over this class.
+gRPC adapter over this class, and rest.py the REST gateway over it (the
+`*_async` entry points await the batcher instead of blocking a thread).
+
+Phases: `predict.decode`, `predict.execute` and `predict.encode` are timed
+into utils/tracing.py's request_trace (and become child spans of the RPC's
+root span while tracing is on); the current span rides into the batcher
+with each submit.
 
 Status codes: unknown model/version/signature -> NOT_FOUND; malformed
 tensors and signature mismatches -> INVALID_ARGUMENT; oversized batches and
@@ -16,6 +22,7 @@ server drains for shutdown -> UNAVAILABLE.
 
 from __future__ import annotations
 
+import asyncio
 import concurrent.futures
 import time
 
@@ -32,6 +39,8 @@ from ..models.registry import (
 )
 from ..proto import serving_apis_pb2 as apis
 from ..proto import tf_framework_pb2 as fw
+from ..utils import tracing
+from ..utils.tracing import request_trace
 from .batcher import BatchTooLargeError, DynamicBatcher, QueueOverloadError, RequestDeadlineError
 from .example_codec import ExampleDecodeError, decode_input
 
@@ -51,6 +60,12 @@ def _wrap_lookup(fn):
         return fn()
     except (ModelNotFoundError, VersionNotFoundError, SignatureNotFoundError) as e:
         raise ServiceError("NOT_FOUND", str(e)) from e
+
+
+def _plane_off(*_args, **_kwargs) -> None:
+    """The snapshot of a plane that is not ported yet: None, what the JAX
+    package's answers with that plane off."""
+    return None
 
 
 class PredictionServiceImpl:
@@ -93,6 +108,31 @@ class PredictionServiceImpl:
         # Set once shutdown starts (server.GracefulShutdown): every new
         # inference RPC is refused UNAVAILABLE while accepted work ends.
         self.draining = False
+
+    # Cache, overload, utilization, quality, lifecycle, recovery, cascade,
+    # integrity (ROADMAP.md Queue A item 6), fleet (item 8), mesh and
+    # elastic (item 9): refused by load_config, so always off here.
+    cache_stats = row_cache_stats = overload_stats = utilization_stats = staticmethod(_plane_off)
+    quality_stats = lifecycle_stats = recovery_stats = cascade_stats = staticmethod(_plane_off)
+    integrity_stats = fleet_stats = mesh_stats = elastic_stats = staticmethod(_plane_off)
+
+    def kernels_stats(self) -> dict | None:
+        """The kernel plane's snapshot (ops/autotune.py KernelManager): the
+        /monitoring `kernels` block and the dts_tpu_kernel_* series. None
+        with the plane off."""
+        kern = self.batcher.kernels
+        return kern.snapshot() if kern is not None else None
+
+    def versions_stats(self) -> dict | None:
+        """The --model-base-path watcher's snapshot (the /monitoring
+        `versions` block), or None without one."""
+        watcher = self.version_watcher
+        return watcher.snapshot() if watcher is not None else None
+
+    def pipeline_stats(self) -> dict | None:
+        """The batcher's dispatch pipeline (the /monitoring `pipeline` block
+        and the dts_tpu_pipeline_* series)."""
+        return self.batcher.pipeline_stats()
 
     def is_configured(self, name: str) -> bool:
         """True when this server is configured to serve `name` (a watcher
@@ -272,14 +312,36 @@ class PredictionServiceImpl:
             return ServiceError("UNAVAILABLE", str(exc))
         raise exc
 
+    @staticmethod
+    def _span_kw() -> dict:
+        """The current span (the transport's root span) for a submit, so
+        the batcher's threads attach the batch phases to it; nothing while
+        tracing is off."""
+        return {"span": tracing.current_span()} if tracing.enabled() else {}
+
     def _run(self, servable: Servable, arrays: dict[str, np.ndarray],
              output_keys: tuple[str, ...] | None, deadline_s: float | None) -> dict[str, np.ndarray]:
         timeout = self._effective_timeout(deadline_s)
         fut = None
         try:
             fut = self.batcher.submit(servable, arrays, output_keys=output_keys,
-                                      deadline_s=deadline_s)
+                                      deadline_s=deadline_s, **self._span_kw())
             return fut.result(timeout=timeout)
+        except Exception as e:  # noqa: BLE001 — the translator re-raises the rest
+            raise self._translate_batcher_error(e, fut) from e
+
+    async def _run_async(self, servable: Servable, arrays: dict[str, np.ndarray],
+                         output_keys: tuple[str, ...] | None,
+                         deadline_s: float | None) -> dict[str, np.ndarray]:
+        """_run for coroutine callers (the REST gateway): the batcher's
+        Future is awaited, under the same timeout, instead of blocked on."""
+        timeout = self._effective_timeout(deadline_s)
+        fut = None
+        try:
+            fut = self.batcher.submit(servable, arrays, output_keys=output_keys,
+                                      deadline_s=deadline_s, **self._span_kw())
+            # wait_for's TimeoutError is concurrent.futures.TimeoutError.
+            return await asyncio.wait_for(asyncio.wrap_future(fut), timeout=timeout)
         except Exception as e:  # noqa: BLE001 — the translator re-raises the rest
             raise self._translate_batcher_error(e, fut) from e
 
@@ -294,7 +356,8 @@ class PredictionServiceImpl:
                 f"signature {request.model_spec.signature_name!r} has method "
                 f"{signature.method_name!r}; use the matching RPC instead of Predict",
             )
-        arrays = self._decode_and_validate(servable, signature, request.inputs)
+        with request_trace.span("predict.decode"):
+            arrays = self._decode_and_validate(servable, signature, request.inputs)
         sig_outputs = signature.output_names
         if request.output_filter:
             missing = [k for k in request.output_filter if k not in sig_outputs]
@@ -339,30 +402,53 @@ class PredictionServiceImpl:
         kernels plane armed the wire) sends a float32 score output as
         DT_INT8 plus its `/q8_scale` and `/q8_min` sidecar outputs."""
         self._refuse_if_draining()
+        deadline_t = self._clock_deadline(deadline_s)
         servable, arrays, out_names, fetch_keys = self._predict_prepare(request)
-        outputs = self._run(servable, arrays, fetch_keys, deadline_s)
-        self._check_produced(out_names, outputs)
-        resp = apis.PredictResponse()
-        resp.model_spec.CopyFrom(
-            self._echo_spec(servable, request.model_spec.signature_name or "serving_default")
-        )
-        mirror = self._mirror_content(request)
-        names = out_names
-        score_key = servable.model.score_output
-        if int8_wire and score_key in out_names and outputs[score_key].dtype == np.float32:
-            # Another dtype is never quantized: the wire guesses no scheme
-            # for a dtype it does not own.
-            names = [n for n in out_names if n != score_key]
-            q, scale, mn = codec.quantize_scores(outputs[score_key])
-            codec.from_ndarray(q, use_tensor_content=mirror, out=resp.outputs[score_key])
-            codec.from_ndarray(np.asarray([scale], np.float32), use_tensor_content=mirror,
-                               out=resp.outputs[score_key + codec.Q8_WIRE_SCALE_SUFFIX])
-            codec.from_ndarray(np.asarray([mn], np.float32), use_tensor_content=mirror,
-                               out=resp.outputs[score_key + codec.Q8_WIRE_MIN_SUFFIX])
-        self._encode_outputs(names, outputs, resp.outputs, mirror)
+        with request_trace.span("predict.execute"):
+            outputs = self._run(servable, arrays, fetch_keys, self._budget_left(deadline_t))
+        resp = self._predict_finish(request, servable, out_names, outputs, int8_wire)
         # Only a request that succeeded is logged: the log is a warmup file,
         # and a malformed request must never fail a later version's load.
         self._log_request("predict", request)
+        return resp
+
+    async def predict_async(self, request: apis.PredictRequest,
+                            deadline_s: float | None = None,
+                            int8_wire: bool = False) -> apis.PredictResponse:
+        """Predict for coroutine callers: the same semantics, awaiting the
+        batch instead of blocking a thread on it."""
+        self._refuse_if_draining()
+        deadline_t = self._clock_deadline(deadline_s)
+        servable, arrays, out_names, fetch_keys = self._predict_prepare(request)
+        with request_trace.span("predict.execute"):
+            outputs = await self._run_async(servable, arrays, fetch_keys,
+                                            self._budget_left(deadline_t))
+        resp = self._predict_finish(request, servable, out_names, outputs, int8_wire)
+        self._log_request("predict", request)
+        return resp
+
+    def _predict_finish(self, request, servable: Servable, out_names, outputs,
+                        int8_wire: bool) -> apis.PredictResponse:
+        self._check_produced(out_names, outputs)
+        with request_trace.span("predict.encode"):
+            resp = apis.PredictResponse()
+            resp.model_spec.CopyFrom(
+                self._echo_spec(servable, request.model_spec.signature_name or "serving_default")
+            )
+            mirror = self._mirror_content(request)
+            names = out_names
+            score_key = servable.model.score_output
+            if int8_wire and score_key in out_names and outputs[score_key].dtype == np.float32:
+                # Another dtype is never quantized: the wire guesses no
+                # scheme for a dtype it does not own.
+                names = [n for n in out_names if n != score_key]
+                q, scale, mn = codec.quantize_scores(outputs[score_key])
+                codec.from_ndarray(q, use_tensor_content=mirror, out=resp.outputs[score_key])
+                codec.from_ndarray(np.asarray([scale], np.float32), use_tensor_content=mirror,
+                                   out=resp.outputs[score_key + codec.Q8_WIRE_SCALE_SUFFIX])
+                codec.from_ndarray(np.asarray([mn], np.float32), use_tensor_content=mirror,
+                                   out=resp.outputs[score_key + codec.Q8_WIRE_MIN_SUFFIX])
+            self._encode_outputs(names, outputs, resp.outputs, mirror)
         return resp
 
     # --------------------------------------------------------- PredictStream
@@ -394,7 +480,8 @@ class PredictionServiceImpl:
             for off, cnt in plan:
                 sub = {k: v[off:off + cnt] for k, v in arrays.items()}
                 fut = self.batcher.submit(servable, sub, output_keys=fetch_keys,
-                                          deadline_s=self._budget_left(deadline_t), _solo=solo)
+                                          deadline_s=self._budget_left(deadline_t),
+                                          _solo=solo, **self._span_kw())
                 futs[fut] = (off, cnt)
         except Exception as e:  # noqa: BLE001 — the translator re-raises the rest
             for f in futs:
@@ -407,15 +494,16 @@ class PredictionServiceImpl:
         """One sub-batch's outputs as a PredictStreamChunk (the unary
         response's encode loop)."""
         self._check_produced(out_names, outputs)
-        chunk = apis.PredictStreamChunk()
-        chunk.model_spec.CopyFrom(
-            self._echo_spec(servable, request.model_spec.signature_name or "serving_default")
-        )
-        chunk.offset = int(off)
-        chunk.count = int(cnt)
-        chunk.total = int(total)
-        chunk.final = bool(final)
-        self._encode_outputs(out_names, outputs, chunk.outputs, mirror)
+        with request_trace.span("predict.encode"):
+            chunk = apis.PredictStreamChunk()
+            chunk.model_spec.CopyFrom(
+                self._echo_spec(servable, request.model_spec.signature_name or "serving_default")
+            )
+            chunk.offset = int(off)
+            chunk.count = int(cnt)
+            chunk.total = int(total)
+            chunk.final = bool(final)
+            self._encode_outputs(out_names, outputs, chunk.outputs, mirror)
         return chunk
 
     def predict_stream(self, request: apis.PredictRequest, deadline_s: float | None = None,
@@ -464,17 +552,30 @@ class PredictionServiceImpl:
 
     # ---------------------------------------------------- Classify / Regress
 
-    def _run_examples(self, request, deadline_s: float | None = None):
-        """Shared front half of Classify/Regress: resolution, Example
-        decode and the batcher run. Returns (servable, outputs)."""
-        deadline_t = self._clock_deadline(deadline_s)
+    def _examples_prepare(self, request) -> tuple[Servable, dict[str, np.ndarray]]:
         servable, _ = self._resolve(request.model_spec)
         try:
             arrays = decode_input(request.input, servable.model.config.num_fields)
         except ExampleDecodeError as e:
             raise ServiceError("INVALID_ARGUMENT", str(e)) from e
+        return servable, arrays
+
+    def _run_examples(self, request, deadline_s: float | None = None):
+        """Shared front half of Classify/Regress: resolution, Example
+        decode and the batcher run. Returns (servable, outputs)."""
+        deadline_t = self._clock_deadline(deadline_s)
+        servable, arrays = self._examples_prepare(request)
         outputs = self._run(servable, arrays, (servable.model.score_output,),
                             self._budget_left(deadline_t))
+        return servable, outputs
+
+    async def _run_examples_async(self, request, deadline_s: float | None = None):
+        """_run_examples for coroutine callers (the REST gateway's
+        :classify and :regress)."""
+        deadline_t = self._clock_deadline(deadline_s)
+        servable, arrays = self._examples_prepare(request)
+        outputs = await self._run_async(servable, arrays, (servable.model.score_output,),
+                                        self._budget_left(deadline_t))
         return servable, outputs
 
     def classify(self, request: apis.ClassificationRequest,
@@ -485,9 +586,21 @@ class PredictionServiceImpl:
         self._log_request("classify", request)
         return resp
 
+    async def classify_async(self, request: apis.ClassificationRequest,
+                             deadline_s: float | None = None) -> apis.ClassificationResponse:
+        self._refuse_if_draining()
+        servable, outputs = await self._run_examples_async(request, deadline_s)
+        resp = self._classify_finish(request, servable, outputs)
+        self._log_request("classify", request)
+        return resp
+
     def _classify(self, request: apis.ClassificationRequest,
                   deadline_s: float | None) -> apis.ClassificationResponse:
         servable, outputs = self._run_examples(request, deadline_s)
+        return self._classify_finish(request, servable, outputs)
+
+    def _classify_finish(self, request, servable: Servable,
+                         outputs) -> apis.ClassificationResponse:
         resp = apis.ClassificationResponse()
         resp.model_spec.CopyFrom(
             self._echo_spec(servable, request.model_spec.signature_name or "classify")
@@ -506,9 +619,20 @@ class PredictionServiceImpl:
         self._log_request("regress", request)
         return resp
 
+    async def regress_async(self, request: apis.RegressionRequest,
+                            deadline_s: float | None = None) -> apis.RegressionResponse:
+        self._refuse_if_draining()
+        servable, outputs = await self._run_examples_async(request, deadline_s)
+        resp = self._regress_finish(request, servable, outputs)
+        self._log_request("regress", request)
+        return resp
+
     def _regress(self, request: apis.RegressionRequest,
                  deadline_s: float | None) -> apis.RegressionResponse:
         servable, outputs = self._run_examples(request, deadline_s)
+        return self._regress_finish(request, servable, outputs)
+
+    def _regress_finish(self, request, servable: Servable, outputs) -> apis.RegressionResponse:
         resp = apis.RegressionResponse()
         resp.model_spec.CopyFrom(
             self._echo_spec(servable, request.model_spec.signature_name or "regress")

@@ -1,7 +1,7 @@
-"""TOML config: the [server], [batching], [transport], [model] and [kernels]
-sections the port reads, the checks of the model-config entries, and the
-mapping of a tensorflow_model_server batching-parameters file onto
-[server].
+"""TOML config: the [server], [batching], [transport], [model], [kernels]
+and [observability] sections the port reads, the checks of the
+model-config entries, and the mapping of a tensorflow_model_server
+batching-parameters file onto [server].
 
 The JAX package's config files load unchanged, with one rule: a setting
 that would change what is served, logged or admitted but is not ported
@@ -212,6 +212,56 @@ class KernelsConfig:
         return KernelManager(self) if self.enabled else None
 
 
+@dataclasses.dataclass(frozen=True)
+class ObservabilityConfig:
+    """The [observability] section: the per-request trace recorder behind
+    GET /tracez (utils/tracing.py) and the rolling-window horizon of
+    /monitoring and the Prometheus text (utils/metrics.py). The JAX
+    package's fields, defaults and checks."""
+
+    # Per-request span tracing (W3C traceparent propagation, /tracez,
+    # Chrome-trace export). Off by default: every hook is then one global
+    # bool read.
+    tracing: bool = False
+    # Retained local-root spans per ring (recent / error): the memory bound.
+    trace_buffer: int = 256
+    # Tail-sampling rate for unremarkable traces (errors and annotated
+    # traces are always kept). 0.0 keeps only the tails; 1.0 keeps
+    # everything the buffer holds.
+    trace_sample_rate: float = 1.0
+    # The slowest-N traces are always kept whatever the sampling.
+    trace_slowest_n: int = 32
+    # Rolling-window horizon of the sliding QPS and windowed p50/p99.
+    window_seconds: float = 60.0
+    # Span export to a fleet collector. It acts only through the fleet
+    # plane's gossip port, which is not ported ([fleet] is refused); the
+    # key loads, as in the JAX package.
+    trace_export: bool = False
+    trace_export_interval_s: float = 1.0
+
+    def __post_init__(self):
+        v = self.trace_export_interval_s
+        if not isinstance(v, (int, float)) or isinstance(v, bool) or v <= 0:
+            raise ValueError(
+                "[observability] trace_export_interval_s must be a positive number, "
+                f"got {v!r}"
+            )
+
+    def apply(self):
+        """Switch this package's tracing plane to this config; returns the
+        active TraceRecorder (or None when tracing stays off)."""
+        from . import tracing as tracing_mod
+
+        if not self.tracing:
+            tracing_mod.disable()
+            return None
+        return tracing_mod.enable(
+            buffer_size=self.trace_buffer,
+            sample_rate=self.trace_sample_rate,
+            slowest_n=self.trace_slowest_n,
+        )
+
+
 # [server] keys of the JAX package that change no result here: the JAX
 # runtime's transfer knobs, whose work the port's host path always does one
 # way (one combined buffer, async readback, a dispatch thread).
@@ -239,9 +289,6 @@ _UNPORTED_SECTIONS = {
     "elastic": (("enabled", "splits", "tick_interval_s", "dwell_s", "up_after_ticks",
                  "down_after_ticks", "load_up_threshold", "load_down_threshold",
                  "load_ewma_alpha", "history_events"), ("enabled",), 9),
-    "observability": (("tracing", "trace_buffer", "trace_sample_rate", "trace_slowest_n",
-                       "window_seconds", "trace_export", "trace_export_interval_s"),
-                      ("tracing", "trace_export"), 2),
     "cache": (("enabled", "max_entries", "max_bytes", "ttl_s", "coalesce", "dedup",
                "row_granular", "row_max_entries", "row_max_bytes", "row_ttl_s",
                "row_coalesce"), ("enabled",), 6),
@@ -327,15 +374,16 @@ def _check_unported_section(section: str, data: dict[str, Any]) -> None:
 def load_config(path) -> dict[str, Any]:
     """Parse a TOML file: {"server": ServerConfig, "batching":
     BatchingConfig, "transport": TransportConfig, "drain_grace_s": float,
-    "model": ModelConfig, "kernels": KernelsConfig} ("model" and "kernels"
-    only when the file has that section). A nonzero [batching]
+    "model": ModelConfig, "kernels": KernelsConfig, "observability":
+    ObservabilityConfig} ("model", "kernels" and "observability" only when
+    the file has that section). A nonzero [batching]
     pipeline_depth replaces the [server] one, as in the JAX package's
     server; "drain_grace_s" is [overload] drain_grace_s (honored with the
     plane off, as there). Raises ValueError on a setting that is not
     ported (module docstring) and on a section or key the JAX package does
     not know."""
     raw = tomllib.loads(pathlib.Path(path).read_text())
-    ported = {"server", "batching", "transport", "model", "kernels"}
+    ported = {"server", "batching", "transport", "model", "kernels", "observability"}
     unknown = sorted(set(raw) - ported - set(_UNPORTED_SECTIONS))
     if unknown:
         raise ValueError(f"unknown config sections: {unknown}")
@@ -358,6 +406,9 @@ def load_config(path) -> dict[str, Any]:
         out["model"] = _coerce(ModelConfig, raw["model"], "model")
     if "kernels" in raw:
         out["kernels"] = _coerce(KernelsConfig, raw["kernels"], "kernels")
+    if "observability" in raw:
+        out["observability"] = _coerce(ObservabilityConfig, raw["observability"],
+                                       "observability")
     extra = sorted(set(raw) & set(_UNPORTED_SECTIONS))
     if extra:
         log.info("ignoring config sections this package does not use: %s", extra)

@@ -1,0 +1,745 @@
+"""Serving metrics: latency histograms, rolling windows, per-RPC counters,
+and their /monitoring JSON and Prometheus text.
+
+The core is a fixed-bucket log-scale histogram: O(1) record, percentiles
+by interpolation inside the winning bucket, mergeable across RPCs. Each
+RPC carries two horizons: LIFETIME aggregates (the totals dashboards
+trend on) and a ROLLING WINDOW (sliding QPS and windowed p50/p99 over the
+last `window_s` seconds), so `/monitoring` says what the server is doing
+now instead of a lifetime average that decays toward 0 on an idle server.
+Both carry per-model labels when the transport adapters pass the model
+name. The metric names, the JSON and the text are the JAX package's, so
+one dashboard reads both servers; the planes that are not ported yet emit
+nothing here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import threading
+import time
+
+# Log-spaced bucket edges: 1us .. ~107s, 12.5% resolution.
+_BASE_US = 1.0
+_GROWTH = 1.125
+_NUM_BUCKETS = 156
+
+
+def _bucket_index(us: float) -> int:
+    if us <= _BASE_US:
+        return 0
+    return min(int(math.log(us / _BASE_US, _GROWTH)) + 1, _NUM_BUCKETS - 1)
+
+
+_EDGES_US = [_BASE_US * _GROWTH**i for i in range(_NUM_BUCKETS)]
+
+
+def _percentile_ms(
+    counts: list[int], total: int, min_us: float, max_us: float, q: float
+) -> float:
+    """q in [0, 100] over a consistent (counts, total) snapshot; linear
+    interpolation inside the winning bucket. Shared by the lifetime
+    histogram and the rolling-window slices (merged counts)."""
+    if total == 0:
+        return 0.0
+    target = q / 100.0 * total
+    acc = 0
+    for i, c in enumerate(counts):
+        if acc + c >= target and c > 0:
+            lo = _EDGES_US[i - 1] if i > 0 else 0.0
+            hi = _EDGES_US[i]
+            frac = (target - acc) / c
+            val = lo + (hi - lo) * frac
+            return min(max(val, min_us), max_us) / 1e3
+        acc += c
+    return max_us / 1e3
+
+
+class LatencyHistogram:
+    """Log-bucketed latency histogram with percentile readout."""
+
+    def __init__(self):
+        self._counts = [0] * _NUM_BUCKETS
+        self._total = 0
+        self._sum_us = 0.0
+        self._min_us = math.inf
+        self._max_us = 0.0
+        self._lock = threading.Lock()
+
+    def record(self, seconds: float) -> None:
+        us = seconds * 1e6
+        with self._lock:
+            self._counts[_bucket_index(us)] += 1
+            self._total += 1
+            self._sum_us += us
+            self._min_us = min(self._min_us, us)
+            self._max_us = max(self._max_us, us)
+
+    @property
+    def count(self) -> int:
+        with self._lock:  # pairs count with the same instant's sums
+            return self._total
+
+    def mean_ms(self) -> float:
+        # total and sum read under ONE lock: a snapshot racing a record()
+        # must never pair a new count with an old sum.
+        with self._lock:
+            return self._sum_us / self._total / 1e3 if self._total else 0.0
+
+    def _state(self) -> tuple[list[int], int, float, float, float]:
+        """One consistent copy of the mutable state."""
+        with self._lock:
+            return (
+                list(self._counts), self._total, self._sum_us,
+                self._min_us, self._max_us,
+            )
+
+    def percentile_ms(self, q: float) -> float:
+        counts, total, _sum_us, min_us, max_us = self._state()
+        return _percentile_ms(counts, total, min_us, max_us, q)
+
+    def snapshot(self) -> dict:
+        # One locked copy feeds count/mean AND every percentile, so the
+        # block is internally consistent even mid-record.
+        counts, total, sum_us, min_us, max_us = self._state()
+        return {
+            "count": total,
+            "mean_ms": round(sum_us / total / 1e3 if total else 0.0, 3),
+            "p50_ms": round(_percentile_ms(counts, total, min_us, max_us, 50), 3),
+            "p90_ms": round(_percentile_ms(counts, total, min_us, max_us, 90), 3),
+            "p99_ms": round(_percentile_ms(counts, total, min_us, max_us, 99), 3),
+        }
+
+    def prometheus_buckets(self) -> tuple[list[tuple[float, int]], float, int]:
+        """(cumulative (le_us, count) pairs, sum_us, total) for Prometheus
+        histogram exposition. Trimmed past the last occupied bucket — the
+        +Inf bucket the caller appends covers the remainder — so an idle
+        RPC costs 1 line, not 156."""
+        with self._lock:
+            counts = list(self._counts)
+            total, sum_us = self._total, self._sum_us
+        last = max((i for i, c in enumerate(counts) if c), default=-1)
+        out, acc = [], 0
+        for i in range(last + 1):
+            acc += counts[i]
+            out.append((_EDGES_US[i], acc))
+        return out, sum_us, total
+
+
+class WindowedLatency:
+    """Sliding-window latency + rate over the last `window_s` seconds.
+
+    A ring of `slices` sub-histograms, each covering window_s/slices of
+    wall time; record() lands in the current slice (lazily reset when its
+    slot is reused), and readout merges only the slices still inside the
+    window. O(1) record, bounded memory, no background thread — the
+    standard cheap approximation to a true sliding window (granularity =
+    one slice; with the 60s/6-slice default, 10s).
+    """
+
+    def __init__(
+        self,
+        window_s: float = 60.0,
+        slices: int = 6,
+        clock=time.monotonic,
+    ):
+        self.window_s = float(window_s)
+        self.slices = max(2, int(slices))
+        self.slice_s = self.window_s / self.slices
+        self._clock = clock
+        self._created = clock()
+        self._lock = threading.Lock()
+        self._counts = [[0] * _NUM_BUCKETS for _ in range(self.slices)]
+        self._totals = [0] * self.slices
+        self._sums_us = [0.0] * self.slices
+        self._mins_us = [math.inf] * self.slices
+        self._maxs_us = [0.0] * self.slices
+        self._epochs = [-1] * self.slices  # which slice-epoch each slot holds
+
+    def _slot(self, now: float) -> int:
+        """Current slot index, reset if its epoch is stale. Caller holds
+        the lock."""
+        epoch = int(now / self.slice_s)
+        idx = epoch % self.slices
+        if self._epochs[idx] != epoch:
+            self._epochs[idx] = epoch
+            self._counts[idx] = [0] * _NUM_BUCKETS
+            self._totals[idx] = 0
+            self._sums_us[idx] = 0.0
+            self._mins_us[idx] = math.inf
+            self._maxs_us[idx] = 0.0
+        return idx
+
+    def record(self, seconds: float) -> None:
+        us = seconds * 1e6
+        with self._lock:
+            idx = self._slot(self._clock())
+            self._counts[idx][_bucket_index(us)] += 1
+            self._totals[idx] += 1
+            self._sums_us[idx] += us
+            self._mins_us[idx] = min(self._mins_us[idx], us)
+            self._maxs_us[idx] = max(self._maxs_us[idx], us)
+
+    def _merged(self) -> tuple[list[int], int, float, float, float]:
+        """Merge the in-window slices into one consistent histogram."""
+        with self._lock:
+            now = self._clock()
+            current_epoch = int(now / self.slice_s)
+            counts = [0] * _NUM_BUCKETS
+            total, sum_us = 0, 0.0
+            min_us, max_us = math.inf, 0.0
+            for idx in range(self.slices):
+                # In-window = one of the last `slices` epochs (the current
+                # partial slice counts; the slot about to be recycled does
+                # not).
+                if current_epoch - self._epochs[idx] >= self.slices:
+                    continue
+                if self._epochs[idx] < 0:
+                    continue
+                sl = self._counts[idx]
+                for i, c in enumerate(sl):
+                    if c:
+                        counts[i] += c
+                total += self._totals[idx]
+                sum_us += self._sums_us[idx]
+                min_us = min(min_us, self._mins_us[idx])
+                max_us = max(max_us, self._maxs_us[idx])
+            return counts, total, sum_us, min_us, max_us
+
+    def count(self) -> int:
+        return self._merged()[1]
+
+    def effective_window_s(self) -> float:
+        """Rate divisor: the nominal window, shrunk while the recorder is
+        YOUNGER than it (a server 8 s old serving 100 req/s must report
+        ~100 qps, not 800/60) and floored at 1 s so a burst in the first
+        milliseconds doesn't quote an absurd spike."""
+        return min(self.window_s, max(self._clock() - self._created, 1.0))
+
+    def qps(self) -> float:
+        return self._merged()[1] / self.effective_window_s()
+
+    def snapshot(self) -> dict:
+        counts, total, sum_us, min_us, max_us = self._merged()
+        return {
+            "window_s": self.window_s,
+            "count": total,
+            "qps": round(total / self.effective_window_s(), 2),
+            "mean_ms": round(sum_us / total / 1e3 if total else 0.0, 3),
+            "p50_ms": round(_percentile_ms(counts, total, min_us, max_us, 50), 3),
+            "p99_ms": round(_percentile_ms(counts, total, min_us, max_us, 99), 3),
+        }
+
+    # ------------------------------------------------------------ wire form
+    # A merged window as JSON, to ship between processes: sparse bucket
+    # counts keyed by bucket index (the edges are a shared constant on both
+    # sides), so a whole window is a few dozen ints, and any number of
+    # wires re-merge into one histogram with exact counts.
+
+    def to_dict(self) -> dict:
+        counts, total, sum_us, min_us, max_us = self._merged()
+        return {
+            "window_s": self.window_s,
+            "effective_window_s": round(self.effective_window_s(), 3),
+            "total": total,
+            "sum_us": round(sum_us, 1),
+            "min_us": None if total == 0 else round(min_us, 1),
+            "max_us": round(max_us, 1),
+            "buckets": {str(i): c for i, c in enumerate(counts) if c},
+        }
+
+    @staticmethod
+    def from_dict(d: dict) -> tuple[list[int], int, float, float, float]:
+        """Wire dict back to a merged-histogram state tuple — the same
+        shape `_merged()` returns, so `_percentile_ms` works on it."""
+        counts = [0] * _NUM_BUCKETS
+        for k, c in (d.get("buckets") or {}).items():
+            i = int(k)
+            if 0 <= i < _NUM_BUCKETS:
+                counts[i] += int(c)
+        total = int(d.get("total") or 0)
+        sum_us = float(d.get("sum_us") or 0.0)
+        min_us = d.get("min_us")
+        min_us = math.inf if min_us is None else float(min_us)
+        max_us = float(d.get("max_us") or 0.0)
+        return counts, total, sum_us, min_us, max_us
+
+    @staticmethod
+    def merge_dicts(wires: list[dict]) -> dict:
+        """Sum several wire dicts into one. The merged rate uses each
+        wire's own effective window: each reports its local qps, and the
+        aggregate is the sum."""
+        counts = [0] * _NUM_BUCKETS
+        total, sum_us = 0, 0.0
+        min_us, max_us = math.inf, 0.0
+        window_s, eff_s, qps = 0.0, 0.0, 0.0
+        for w in wires:
+            c, t, s, mn, mx = WindowedLatency.from_dict(w)
+            for i, v in enumerate(c):
+                if v:
+                    counts[i] += v
+            total += t
+            sum_us += s
+            min_us = min(min_us, mn)
+            max_us = max(max_us, mx)
+            window_s = max(window_s, float(w.get("window_s") or 0.0))
+            e = float(w.get("effective_window_s") or 0.0)
+            eff_s = max(eff_s, e)
+            if e > 0:
+                qps += t / e
+        return {
+            "window_s": window_s,
+            "effective_window_s": round(eff_s, 3),
+            "total": total,
+            "sum_us": round(sum_us, 1),
+            "min_us": None if total == 0 else round(min_us, 1),
+            "max_us": round(max_us, 1),
+            "qps": round(qps, 3),
+            "buckets": {str(i): c for i, c in enumerate(counts) if c},
+        }
+
+    @staticmethod
+    def wire_stats(wire: dict) -> dict:
+        """Human-facing summary of a wire dict (member or merged)."""
+        counts, total, sum_us, min_us, max_us = WindowedLatency.from_dict(wire)
+        eff = float(wire.get("effective_window_s") or 0.0)
+        qps = wire.get("qps")
+        if qps is None:
+            qps = total / eff if eff > 0 else 0.0
+        return {
+            "count": total,
+            "qps": round(float(qps), 3),
+            "mean_ms": round(sum_us / total / 1e3 if total else 0.0, 3),
+            "p50_ms": round(_percentile_ms(counts, total, min_us, max_us, 50), 3),
+            "p99_ms": round(_percentile_ms(counts, total, min_us, max_us, 99), 3),
+        }
+
+
+@dataclasses.dataclass
+class RpcMetrics:
+    latency: LatencyHistogram = dataclasses.field(default_factory=LatencyHistogram)
+    window: WindowedLatency = dataclasses.field(default_factory=WindowedLatency)
+    ok: int = 0
+    errors: int = 0
+
+
+def escape_label_value(value) -> str:
+    """Prometheus text-format 0.0.4 label-value escaping: backslash, double
+    quote, and line feed must be escaped or the exposition line is
+    malformed (a model named `he"llo` or a path-ish entrypoint must not
+    corrupt the scrape)."""
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+# Curated HELP text for the families whose meaning is not readable off the
+# name; everything else derives a serviceable line from the name itself.
+# Every family in the aggregated exposition goes through _family_lines, so
+# the lint invariant (tools/check_prom.py: HELP + TYPE present per family,
+# no family declared twice) holds by construction.
+_HELP = {
+    ":tensorflow:serving:request_count":
+        "Requests per entrypoint and status (TF-Serving-compatible name)",
+    ":tensorflow:serving:request_latency":
+        "Request latency in microseconds (TF-Serving-compatible name)",
+    "dts_tpu_qps_window": "Rolling-window overall request rate",
+    "dts_tpu_pipeline_in_flight":
+        "Batches currently executing or awaiting D2H readback "
+        "(the continuous-batching pipeline's live occupancy)",
+    "dts_tpu_pipeline_readback_overlap_fraction":
+        "Fraction of the in-flight D2H window the completers did NOT "
+        "block on (1.0 = readback fully hidden behind other work)",
+    "dts_tpu_pipeline_window_waits_total":
+        "Times the dispatch thread waited for the k-deep in-flight "
+        "window to open before issuing the next batch",
+    "dts_tpu_kernel_quantized_batches_total":
+        "Batches served by the int8 weight-quantized executables",
+    "dts_tpu_kernel_pallas_batches_total":
+        "Batches served by the fused serve kernel",
+    "dts_tpu_kernel_bucket_quantized":
+        "Per-bucket autotune decision: 1 = int8 weight path enabled",
+    "dts_tpu_kernel_bucket_pallas":
+        "Per-bucket autotune decision: 1 = fused serve kernel enabled",
+    "dts_tpu_kernel_variant_speedup":
+        "Measured step-time speedup of a kernel variant vs the f32 "
+        "model.apply baseline at one bucket (autotune harness, live device)",
+}
+
+
+def _family_lines(lines: list, name: str, kind: str) -> None:
+    """Append the # HELP + # TYPE pair declaring a metric family. The ONE
+    way families enter the exposition: the Prometheus lint requires a
+    HELP and TYPE line for every family and forbids re-declaration, and
+    text-format HELP must escape backslash and line feed."""
+    text = (
+        _HELP.get(name, name.replace("_", " ").strip())
+        .replace("\\", "\\\\")
+        .replace("\n", "\\n")
+    )
+    lines.append(f"# HELP {name} {text}")
+    lines.append(f"# TYPE {name} {kind}")
+
+
+class ServerMetrics:
+    """Per-RPC latency/outcome metrics + rolling windows, exported as one
+    dict (the /monitoring body). `observe(..., model=...)` additionally aggregates under the
+    resolved model name, so both surfaces carry per-model labels."""
+
+    # Per-model series are keyed on CLIENT-SUPPLIED model names (a
+    # NOT_FOUND still observes under the name it asked for), so the key
+    # space must be bounded or a fuzzer's ever-new names would grow
+    # memory and scrape cardinality without limit. Real deployments serve
+    # a handful of models; past the cap, overflow traffic aggregates
+    # under one sentinel label instead of allocating new series.
+    MAX_MODEL_LABELS = 64
+    OVERFLOW_MODEL = "_other"
+
+    def __init__(self, window_s: float = 60.0, clock=time.monotonic):
+        self.window_s = float(window_s)
+        self._clock = clock
+        self._rpcs: dict[str, RpcMetrics] = {}
+        self._models: dict[tuple[str, str], RpcMetrics] = {}
+        self._model_names: set[str] = set()
+        self._lock = threading.Lock()
+        self._start = clock()
+
+    def _new_rpc_metrics(self) -> RpcMetrics:
+        return RpcMetrics(
+            window=WindowedLatency(window_s=self.window_s, clock=self._clock)
+        )
+
+    def rpc(self, name: str) -> RpcMetrics:
+        with self._lock:
+            if name not in self._rpcs:
+                self._rpcs[name] = self._new_rpc_metrics()
+            return self._rpcs[name]
+
+    def _model_rpc(self, name: str, model: str) -> RpcMetrics:
+        with self._lock:
+            if (
+                model not in self._model_names
+                and len(self._model_names) >= self.MAX_MODEL_LABELS
+            ):
+                model = self.OVERFLOW_MODEL
+            self._model_names.add(model)
+            key = (name, model)
+            if key not in self._models:
+                self._models[key] = self._new_rpc_metrics()
+            return self._models[key]
+
+    def observe(
+        self, name: str, seconds: float, ok: bool, model: str | None = None
+    ) -> None:
+        targets = [self.rpc(name)]
+        if model:
+            targets.append(self._model_rpc(name, model))
+        for m in targets:
+            m.latency.record(seconds)
+            m.window.record(seconds)
+            with self._lock:  # counters race across handler threads otherwise
+                if ok:
+                    m.ok += 1
+                else:
+                    m.errors += 1
+
+    @staticmethod
+    def _rpc_block(m: RpcMetrics) -> tuple[dict, int]:
+        """ONE construction of the per-entrypoint stats block — lifetime
+        histogram + counters + the rolling-window horizon — shared by the
+        aggregate and per-model surfaces so they can never drift. Returns
+        (block, windowed count) so callers never re-merge the window
+        slices for a count this snapshot already produced."""
+        win = m.window.snapshot()
+        block = {
+            **m.latency.snapshot(),
+            "ok": m.ok,
+            "errors": m.errors,
+            # Rolling horizon next to the lifetime values: what this
+            # entrypoint is doing NOW (windowed qps + percentiles).
+            "window": {
+                "qps": win["qps"],
+                "p50_ms": win["p50_ms"],
+                "p99_ms": win["p99_ms"],
+            },
+        }
+        return block, win["count"]
+
+    def snapshot(self, batcher_stats=None) -> dict:
+        uptime = self._clock() - self._start
+        out: dict = {
+            "uptime_s": round(uptime, 1),
+            "window_s": self.window_s,
+            "rpcs": {},
+        }
+        total = 0
+        window_count = 0
+        with self._lock:  # rpc() may insert concurrently
+            items = sorted(self._rpcs.items())
+            model_items = sorted(self._models.items())
+        for name, m in items:
+            out["rpcs"][name], win_count = self._rpc_block(m)
+            total += m.ok + m.errors
+            window_count += win_count
+        if model_items:
+            models: dict = {}
+            for (name, model), m in model_items:
+                models.setdefault(model, {})[name] = self._rpc_block(m)[0]
+            out["models"] = models
+        # `qps` is the ROLLING rate (what the server is doing now); the
+        # lifetime average — which decays toward 0 on an idle server and
+        # under-reports after any idle stretch — stays visible as
+        # qps_lifetime. The divisor shrinks while the
+        # server is younger than the window (see effective_window_s).
+        out["qps"] = round(
+            window_count / min(self.window_s, max(uptime, 1.0)), 2
+        )
+        out["qps_lifetime"] = round(total / uptime, 2) if uptime > 0 else 0.0
+        if batcher_stats is not None:
+            out["batcher"] = {
+                "batches": batcher_stats.batches,
+                "requests": batcher_stats.requests,
+                "mean_occupancy": round(batcher_stats.mean_occupancy, 3),
+                "mean_requests_per_batch": round(batcher_stats.mean_requests_per_batch, 2),
+                "max_queue_depth": batcher_stats.max_queue_depth,
+                # D2H transfer attribution (output compaction + async
+                # readback pipeline): actual wire bytes fetched, the
+                # full-fp32 all-outputs baseline they're charged against,
+                # and how much of the in-flight transfer window the
+                # completers actually blocked on.
+                "bytes_downloaded": batcher_stats.bytes_downloaded,
+                "bytes_download_full_f32": batcher_stats.bytes_download_full_f32,
+                "download_compaction_ratio": round(
+                    batcher_stats.download_compaction_ratio, 2
+                ),
+                "readback_overlap_fraction": round(
+                    batcher_stats.readback_overlap_fraction, 3
+                ),
+                "topk_batches": batcher_stats.topk_batches,
+                # Queued work shed because its client deadline expired.
+                "deadline_sheds": getattr(batcher_stats, "deadline_sheds", 0),
+                # The cache plane's counters (duplicate-row collapse, the
+                # row-granular tier): 0 until that plane is ported, the
+                # keys kept so one dashboard reads both packages.
+                "dedup_batches": getattr(batcher_stats, "dedup_batches", 0),
+                "dedup_rows_collapsed": getattr(
+                    batcher_stats, "dedup_rows_collapsed", 0
+                ),
+                "row_batches": getattr(batcher_stats, "row_batches", 0),
+                "rows_requested": getattr(batcher_stats, "rows_requested", 0),
+                "rows_executed": getattr(batcher_stats, "rows_executed", 0),
+                "row_full_hit_batches": getattr(
+                    batcher_stats, "row_full_hit_batches", 0
+                ),
+            }
+        return out
+
+    def prometheus_text(self, batcher_stats=None, pipeline=None, kernels=None) -> str:
+        """Prometheus exposition (text format 0.0.4) of the same data
+        snapshot() serves as JSON. Metric names mirror tensorflow_model_
+        server's monitoring surface (`:tensorflow:serving:request_count` /
+        `:tensorflow:serving:request_latency`, microsecond buckets) so
+        existing TF-Serving dashboards and alert rules scrape unchanged;
+        rolling-window gauges, per-model series, and batcher gauges are
+        framework-native and ride the dts_tpu_ prefix."""
+        rc, rl = ":tensorflow:serving:request_count", ":tensorflow:serving:request_latency"
+        esc = escape_label_value
+        lines: list[str] = []
+        _family_lines(lines, rc, "counter")
+        with self._lock:
+            items = sorted(self._rpcs.items())
+            model_items = sorted(self._models.items())
+        for name, m in items:
+            lines.append(f'{rc}{{entrypoint="{esc(name)}",status="OK"}} {m.ok}')
+            if m.errors:
+                lines.append(
+                    f'{rc}{{entrypoint="{esc(name)}",status="ERROR"}} {m.errors}'
+                )
+        _family_lines(lines, rl, "histogram")
+        for name, m in items:
+            buckets, sum_us, total = m.latency.prometheus_buckets()
+            for le_us, cum in buckets:
+                lines.append(
+                    f'{rl}_bucket{{entrypoint="{esc(name)}",le="{le_us:.6g}"}} {cum}'
+                )
+            lines.append(f'{rl}_bucket{{entrypoint="{esc(name)}",le="+Inf"}} {total}')
+            lines.append(f'{rl}_sum{{entrypoint="{esc(name)}"}} {sum_us:.6g}')
+            lines.append(f'{rl}_count{{entrypoint="{esc(name)}"}} {total}')
+        # Rolling-window horizon: sliding QPS + windowed percentiles per
+        # entrypoint, plus the overall rolling rate `snapshot()["qps"]`
+        # reports.
+        win_qps = "dts_tpu_request_window_qps"
+        win_lat = "dts_tpu_request_window_latency_ms"
+        _family_lines(lines, win_qps, "gauge")
+        overall = 0.0
+        win_snaps = [(name, m.window.snapshot()) for name, m in items]
+        for name, win in win_snaps:
+            overall += win["qps"]
+            lines.append(f'{win_qps}{{entrypoint="{esc(name)}"}} {win["qps"]}')
+        _family_lines(lines, "dts_tpu_qps_window", "gauge")
+        lines.append(f"dts_tpu_qps_window {round(overall, 2)}")
+        _family_lines(lines, win_lat, "gauge")
+        for name, win in win_snaps:
+            for q, key in (("0.5", "p50_ms"), ("0.99", "p99_ms")):
+                lines.append(
+                    f'{win_lat}{{entrypoint="{esc(name)}",quantile="{q}"}} '
+                    f'{win[key]}'
+                )
+        if model_items:
+            mrc = "dts_tpu_model_request_count"
+            mqps = "dts_tpu_model_window_qps"
+            mlat = "dts_tpu_model_window_latency_ms"
+            _family_lines(lines, mrc, "counter")
+            for (name, model), m in model_items:
+                base = f'entrypoint="{esc(name)}",model_name="{esc(model)}"'
+                lines.append(f'{mrc}{{{base},status="OK"}} {m.ok}')
+                if m.errors:
+                    lines.append(f'{mrc}{{{base},status="ERROR"}} {m.errors}')
+            # Families stay GROUPED (declaration followed by all of its
+            # samples): the exposition lint enforces the text-format rule
+            # that a family's lines form one contiguous block.
+            qps_lines, lat_lines = [], []
+            for (name, model), m in model_items:
+                base = f'entrypoint="{esc(name)}",model_name="{esc(model)}"'
+                win = m.window.snapshot()
+                qps_lines.append(f'{mqps}{{{base}}} {win["qps"]}')
+                for q, key in (("0.5", "p50_ms"), ("0.99", "p99_ms")):
+                    lat_lines.append(
+                        f'{mlat}{{{base},quantile="{q}"}} {win[key]}'
+                    )
+            _family_lines(lines, mqps, "gauge")
+            lines.extend(qps_lines)
+            _family_lines(lines, mlat, "gauge")
+            lines.extend(lat_lines)
+        if batcher_stats is not None:
+            for metric, kind, value in (
+                ("dts_tpu_batcher_batches_total", "counter", batcher_stats.batches),
+                ("dts_tpu_batcher_requests_total", "counter", batcher_stats.requests),
+                ("dts_tpu_batcher_mean_occupancy", "gauge",
+                 round(batcher_stats.mean_occupancy, 4)),
+                ("dts_tpu_batcher_mean_requests_per_batch", "gauge",
+                 round(batcher_stats.mean_requests_per_batch, 3)),
+                ("dts_tpu_batcher_max_queue_depth", "gauge",
+                 batcher_stats.max_queue_depth),
+                ("dts_tpu_batcher_bytes_downloaded_total", "counter",
+                 batcher_stats.bytes_downloaded),
+                ("dts_tpu_batcher_bytes_download_full_f32_total", "counter",
+                 batcher_stats.bytes_download_full_f32),
+                ("dts_tpu_batcher_topk_batches_total", "counter",
+                 batcher_stats.topk_batches),
+                ("dts_tpu_batcher_readback_overlap_fraction", "gauge",
+                 round(batcher_stats.readback_overlap_fraction, 4)),
+                ("dts_tpu_batcher_deadline_sheds_total", "counter",
+                 getattr(batcher_stats, "deadline_sheds", 0)),
+                ("dts_tpu_batcher_dedup_batches_total", "counter",
+                 getattr(batcher_stats, "dedup_batches", 0)),
+                ("dts_tpu_batcher_dedup_rows_collapsed_total", "counter",
+                 getattr(batcher_stats, "dedup_rows_collapsed", 0)),
+            ):
+                _family_lines(lines, metric, kind)
+                lines.append(f"{metric} {value}")
+        if pipeline is not None:
+            # The batcher.pipeline_stats() snapshot as dts_tpu_pipeline_*
+            # series: configured depth/window, live in-flight occupancy
+            # (total + per bucket), the high-water mark, and the
+            # readback-overlap fraction.
+            for metric, kind, value in (
+                ("dts_tpu_pipeline_depth_configured", "gauge",
+                 pipeline.get("depth", 0)),
+                ("dts_tpu_pipeline_inflight_window", "gauge",
+                 pipeline.get("inflight_window", 0)),
+                ("dts_tpu_pipeline_in_flight", "gauge",
+                 pipeline.get("in_flight", 0)),
+                ("dts_tpu_pipeline_inflight_peak", "gauge",
+                 pipeline.get("inflight_peak", 0)),
+                ("dts_tpu_pipeline_dispatch_pending", "gauge",
+                 pipeline.get("dispatch_pending", 0)),
+                ("dts_tpu_pipeline_window_waits_total", "counter",
+                 pipeline.get("inflight_window_waits", 0)),
+                ("dts_tpu_pipeline_readback_overlap_fraction", "gauge",
+                 pipeline.get("readback_overlap_fraction", 0.0)),
+            ):
+                _family_lines(lines, metric, kind)
+                lines.append(f"{metric} {value}")
+            per_bucket = pipeline.get("per_bucket_in_flight") or {}
+            if per_bucket:
+                bm = "dts_tpu_pipeline_bucket_in_flight"
+                _family_lines(lines, bm, "gauge")
+                for bucket, n in sorted(per_bucket.items()):
+                    lines.append(f'{bm}{{bucket="{esc(bucket)}"}} {n}')
+        if kernels is not None:
+            lines.extend(_kernel_prometheus_lines(kernels))
+        return "\n".join(lines) + "\n"
+
+
+def _kernel_prometheus_lines(kernels: dict) -> list[str]:
+    """dts_tpu_kernel_* exposition from a KernelManager snapshot dict
+    (ops/autotune.py): plane counters, the per-bucket decision gauges (which
+    variant each bucket serves), and the measured per-variant speedups —
+    the autotune evidence, scrapeable. Families grouped and declared once
+    — the exposition lint's invariants."""
+    esc = escape_label_value
+    lines: list[str] = []
+    counters = kernels.get("counters") or {}
+    for metric, kind, value in (
+        ("dts_tpu_kernel_autotunes_total", "counter",
+         counters.get("autotunes", 0)),
+        ("dts_tpu_kernel_table_reuses_total", "counter",
+         counters.get("table_reuses", 0)),
+        ("dts_tpu_kernel_quantized_batches_total", "counter",
+         counters.get("quantized_batches", 0)),
+        ("dts_tpu_kernel_pallas_batches_total", "counter",
+         counters.get("pallas_batches", 0)),
+        ("dts_tpu_kernel_measure_only", "gauge",
+         1 if kernels.get("measure_only") else 0),
+        ("dts_tpu_kernel_int8_score_wire", "gauge",
+         1 if kernels.get("int8_score_wire") else 0),
+    ):
+        _family_lines(lines, metric, kind)
+        lines.append(f"{metric} {value}")
+    decisions = kernels.get("decisions") or {}
+    if decisions:
+        q_lines, p_lines = [], []
+        for mv, per_bucket in sorted(decisions.items()):
+            for bucket, dec in sorted(
+                per_bucket.items(), key=lambda kv: int(kv[0])
+            ):
+                base = (
+                    f'model_version="{esc(mv)}",bucket="{esc(bucket)}"'
+                )
+                q_lines.append(
+                    f"dts_tpu_kernel_bucket_quantized{{{base}}} "
+                    f'{1 if dec.get("quantized") else 0}'
+                )
+                p_lines.append(
+                    f"dts_tpu_kernel_bucket_pallas{{{base}}} "
+                    f'{1 if dec.get("pallas") else 0}'
+                )
+        _family_lines(lines, "dts_tpu_kernel_bucket_quantized", "gauge")
+        lines.extend(q_lines)
+        _family_lines(lines, "dts_tpu_kernel_bucket_pallas", "gauge")
+        lines.extend(p_lines)
+    speed_lines = []
+    for mv, table in sorted((kernels.get("tables") or {}).items()):
+        for bucket, row in sorted(
+            (table.get("buckets") or {}).items(), key=lambda kv: int(kv[0])
+        ):
+            for variant, entry in row.items():
+                if not isinstance(entry, dict):
+                    continue
+                sp = entry.get("speedup")
+                if sp is None:
+                    continue
+                speed_lines.append(
+                    f'dts_tpu_kernel_variant_speedup{{model_version='
+                    f'"{esc(mv)}",bucket="{esc(bucket)}",variant='
+                    f'"{esc(variant)}"}} {sp}'
+                )
+    if speed_lines:
+        _family_lines(lines, "dts_tpu_kernel_variant_speedup", "gauge")
+        lines.extend(speed_lines)
+    return lines

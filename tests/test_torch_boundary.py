@@ -122,6 +122,58 @@ def test_every_family_scores_without_importing_jax_subprocess():
         assert f"distributed_tf_serving_tpu_torch.models.{kind}" in line["modules"]
 
 
+_TELEMETRY_SCRIPT = r"""
+import asyncio, json, sys
+import aiohttp
+import numpy as np
+from distributed_tf_serving_tpu_torch.models import ModelConfig, ServableRegistry
+from distributed_tf_serving_tpu_torch.serving.batcher import DynamicBatcher
+from distributed_tf_serving_tpu_torch.serving.rest import start_rest_gateway
+from distributed_tf_serving_tpu_torch.serving.server import load_demo_servable
+from distributed_tf_serving_tpu_torch.serving.service import PredictionServiceImpl
+from distributed_tf_serving_tpu_torch.utils import ServerMetrics, tracing
+reg = ServableRegistry()
+cfg = ModelConfig(num_fields=3, vocab_size=64, embed_dim=2, mlp_dims=(4,), num_cross_layers=1)
+load_demo_servable(reg, config=cfg, device="cpu")
+b = DynamicBatcher(buckets=(8,), max_wait_us=0, device="cpu").start()
+impl = PredictionServiceImpl(reg, b)
+tracing.enable()
+metrics = ServerMetrics()
+
+async def go():
+    runner, port = await start_rest_gateway(impl, port=0, metrics=metrics)
+    try:
+        async with aiohttp.ClientSession(f"http://127.0.0.1:{port}") as s:
+            body = {"inputs": {"feat_ids": [[1, 2, 3]], "feat_wts": [[0.5, 0.5, 0.5]]}}
+            async with s.post("/v1/models/DCN:predict", json=body) as r:
+                assert r.status == 200, await r.text()
+            async with s.get("/tracez") as r:
+                return len((await r.json())["traces"])
+    finally:
+        await runner.cleanup()
+
+traces = asyncio.run(go())
+b.stop()
+print(json.dumps({"traces": traces, "ok": metrics.snapshot()["rpcs"]["REST.Predict"]["ok"],
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_rest_gateway_and_telemetry_import_no_jax_subprocess():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run(
+        [sys.executable, "-c", _TELEMETRY_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert res.returncode == 0, res.stderr
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["traces"] == 1 and line["ok"] == 1
+    assert [m for m in line["modules"] if _is_jax_side(m)] == []
+    for mod in ("serving.rest", "utils.metrics", "utils.tracing"):
+        assert f"distributed_tf_serving_tpu_torch.{mod}" in line["modules"]
+
+
 def _imports(path: Path) -> list[str]:
     tree = ast.parse(path.read_text(), filename=str(path))
     found = []
@@ -139,6 +191,8 @@ def _imports(path: Path) -> list[str]:
 def test_static_no_jax_imports_in_port_or_chip_smoke():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    for mod in ("serving/rest.py", "utils/metrics.py", "utils/tracing.py"):
+        assert PORT / mod in files, mod
     bad = {
         str(f.relative_to(REPO)): [m for m in _imports(f) if _is_jax_side(m)]
         for f in files

@@ -91,8 +91,6 @@ REFUSED = [
     ("[server]\ntensor_parallel = true\n", 9),
     ("[mesh]\nenabled = true\n", 9),
     ("[elastic]\nenabled = true\n", 9),
-    ("[observability]\ntracing = true\n", 2),
-    ("[observability]\ntrace_export = true\n", 2),
     ("[cache]\nenabled = true\n", 6),
     ("[overload]\nenabled = true\n", 6),
     ("[utilization]\nenabled = true\n", 6),
@@ -151,7 +149,8 @@ def test_the_key_tables_are_the_jax_package_s():
     jax_fields = {s: {f.name for f in dataclasses.fields(cls)}
                   for s, cls in jax_config._SECTIONS.items()}
     ported = {"server": torch_config.ServerConfig, "batching": torch_config.BatchingConfig,
-              "transport": torch_config.TransportConfig, "kernels": torch_config.KernelsConfig}
+              "transport": torch_config.TransportConfig, "kernels": torch_config.KernelsConfig,
+              "observability": torch_config.ObservabilityConfig}
     assert set(ported) | set(torch_config._UNPORTED_SECTIONS) == set(jax_fields)
     for section, (keys, switches, _) in torch_config._UNPORTED_SECTIONS.items():
         assert set(keys) == jax_fields[section], section
@@ -697,8 +696,7 @@ def test_cli_refuses_an_unported_plane_before_it_starts(tmp_path):
     assert "[cache] enabled = true is not ported yet (ROADMAP.md Queue A item 6)" in res.stderr
 
 
-@pytest.mark.parametrize("flag", ["--rest-port=8501", "--metrics-every-s=5", "--tracing",
-                                  "--cache", "--overload", "--mesh", "--savedmodel=d",
+@pytest.mark.parametrize("flag", ["--cache", "--overload", "--mesh", "--savedmodel=d",
                                   "--router"])
 def test_flags_of_later_slices_stay_unrecognized(flag, capsys):
     from distributed_tf_serving_tpu_torch.serving.server import serve
@@ -706,3 +704,116 @@ def test_flags_of_later_slices_stay_unrecognized(flag, capsys):
     with pytest.raises(SystemExit) as e:
         serve(["--device", "cpu", flag])
     assert e.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
+
+
+# ------------------------------------- the observability settings now serve
+
+def test_observability_tracing_true_arms_the_recorder(tmp_path):
+    from distributed_tf_serving_tpu_torch.utils import tracing
+
+    loaded = load_config(_toml(tmp_path, "[observability]\ntracing = true\ntrace_buffer = 8\n"))
+    obs = loaded["observability"]
+    assert obs == torch_config.ObservabilityConfig(tracing=True, trace_buffer=8)
+    try:
+        rec = obs.apply()
+        assert tracing.enabled() and rec is tracing.recorder() and rec.buffer_size == 8
+    finally:
+        tracing.disable()
+    assert not tracing.enabled()
+
+
+def test_observability_trace_export_true_loads_as_in_the_jax_package(tmp_path):
+    text = "[observability]\ntrace_export = true\ntrace_export_interval_s = 0.5\n"
+    assert load_config(_toml(tmp_path, text))["observability"].trace_export
+    assert jax_config.load_config(_toml(tmp_path, text))["observability"].trace_export
+    with pytest.raises(ValueError, match="trace_export_interval_s"):
+        load_config(_toml(tmp_path, "[observability]\ntrace_export_interval_s = 0\n"))
+
+
+@pytest.fixture(scope="module")
+def telemetry_cli(tmp_path_factory):
+    """One CLI server with --rest-port, --metrics-every-s and --tracing: a
+    REST Predict and a traced gRPC Predict, then SIGTERM. Yields (the REST
+    response, the /tracez body, the server's log). `--rest-port 0` means no
+    gateway (as in the JAX server), so the test picks a free port."""
+    import json
+    import urllib.request
+
+    tmp_path = tmp_path_factory.mktemp("telemetry")
+    cfg = _toml(tmp_path, "[server]\nnum_fields = 6\nbuckets = [8]\nmax_wait_us = 0\n"
+                "[model]\nnum_fields = 6\nvocab_size = 1024\nembed_dim = 4\nmlp_dims = [8]\n"
+                "num_cross_layers = 1\n")
+    port, rest_port = _free_port(), _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_tf_serving_tpu_torch.serving.server", "--config",
+         str(cfg), "--host", "127.0.0.1", "--port", str(port), "--device", "cpu",
+         "--rest-port", str(rest_port), "--metrics-every-s", "0.2", "--tracing"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    trace_id = "4bf92f3577b34da6a3ce929d0e0e4736"
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            _wait_serving(ch, proc)
+            # The gateway binds after the gRPC port serves.
+            end = time.time() + 60
+            while True:
+                try:
+                    socket.create_connection(("127.0.0.1", rest_port), timeout=1).close()
+                    break
+                except OSError:
+                    assert proc.poll() is None and time.time() < end
+                    time.sleep(0.1)
+            arrays = _arrays(3, 0)
+            body = json.dumps({"instances": [
+                {k: v[i].tolist() for k, v in arrays.items()} for i in range(3)]}).encode()
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"http://127.0.0.1:{rest_port}/v1/models/DCN:predict", data=body,
+                    method="POST"), timeout=30) as r:
+                rest = json.loads(r.read())
+            _, call = PredictionServiceStub(ch).Predict.with_call(
+                _req(arrays), timeout=30,
+                metadata=(("traceparent", f"00-{trace_id}-00f067aa0ba902b7-01"),))
+            initial = dict(call.initial_metadata())
+            with urllib.request.urlopen(f"http://127.0.0.1:{rest_port}/tracez",
+                                        timeout=30) as r:
+                tracez = json.loads(r.read())
+            time.sleep(0.5)  # at least one metrics line after the traffic
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        assert proc.returncode == 0, out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    yield {"rest": rest, "tracez": tracez, "log": out, "trace_id": trace_id,
+           "initial_metadata": initial}
+
+
+def test_cli_rest_port_answers_a_rest_predict(telemetry_cli):
+    preds = telemetry_cli["rest"]["predictions"]  # one object per row: two outputs
+    assert len(preds) == 3 and all(0.0 < p["prediction_node"] < 1.0 for p in preds)
+    assert "REST gateway on 127.0.0.1:" in telemetry_cli["log"]
+
+
+def test_cli_metrics_every_s_logs_a_metrics_line(telemetry_cli):
+    import json
+
+    lines = [ln.split(" metrics ", 1)[1] for ln in telemetry_cli["log"].splitlines()
+             if " metrics {" in ln]
+    assert lines
+    last = json.loads(lines[-1])
+    assert last["rpcs"]["REST.Predict"]["ok"] == 1 and last["rpcs"]["Predict"]["ok"] == 1
+    assert last["batcher"]["requests"] >= 2 and last["phases"]["batch.dispatch"]["count"] >= 2
+
+
+def test_cli_tracing_records_a_tracez_trace(telemetry_cli):
+    tracez = telemetry_cli["tracez"]
+    assert tracez["enabled"]
+    assert telemetry_cli["initial_metadata"]["x-dts-peer-role"] == "replica"
+    traces = {t["trace_id"]: t for t in tracez["traces"]}
+    root = traces[telemetry_cli["trace_id"]]["spans"][0]
+    assert root["name"] == "server.Predict"
+    # The service's phases and the batch's replayed ones are all children.
+    names = {c["name"] for c in root["children"]}
+    assert {"predict.decode", "predict.execute", "predict.encode", "batch.queue_wait",
+            "batch.dispatch", "readback.wait"} <= names
+    assert any(s["spans"][0]["name"] == "server.REST.Predict" for s in tracez["traces"])

@@ -475,3 +475,62 @@ def test_reload_is_unimplemented_no_more_without_a_lifecycle():
     assert e.value.code == "NOT_FOUND"
     impl.handle_reload_config(_reload([_entry("CTR", "", "", {"a": 1})]))
     assert registry.labels("CTR") == {"a": 1}
+
+
+def test_rest_gateway_serves_every_model_of_the_config_file_as_in_jax(pair):
+    """The REST gateway over a --model-config-file server (both packages):
+    Predict by label and by name, Classify, status and an unknown model
+    answer with the same statuses and JSON, scores within TOL."""
+    import asyncio
+    import json
+
+    import aiohttp
+
+    from distributed_tf_serving_tpu.serving.rest import start_rest_gateway as jax_start
+    from distributed_tf_serving_tpu_torch.serving.rest import start_rest_gateway
+
+    sides, _ = pair
+    ctr, ranker = _payload(5, 6, 1), _payload(3, 4, 2)
+
+    def rows(arrays):
+        return {"instances": [{k: v[i].tolist() for k, v in arrays.items()}
+                              for i in range(len(arrays["feat_ids"]))]}
+
+    requests = [
+        ("POST", "/v1/models/CTR/labels/stable:predict", rows(ctr)),
+        ("POST", "/v1/models/RANKER:predict", {"inputs": {k: v.tolist()
+                                                          for k, v in ranker.items()}}),
+        ("POST", "/v1/models/RANKER:classify", {"examples": rows(ranker)["instances"]}),
+        ("GET", "/v1/models/CTR", None),
+        ("GET", "/v1/models/RANKER/metadata", None),
+        ("POST", "/v1/models/NEW:predict", rows(ctr)),
+    ]
+
+    async def drive(start, impl):
+        runner, port = await start(impl, port=0)
+        out = []
+        try:
+            async with aiohttp.ClientSession(f"http://127.0.0.1:{port}") as s:
+                for method, path, body in requests:
+                    async with s.request(method, path, json=body) as r:
+                        out.append((r.status, json.loads(await r.text())))
+        finally:
+            await runner.cleanup()
+        return out
+
+    want = asyncio.run(drive(jax_start, sides[0].impl))
+    got = asyncio.run(drive(start_rest_gateway, sides[1].impl))
+    assert [s for s, _ in got] == [s for s, _ in want] == [200, 200, 200, 200, 200, 404]
+    for (_, w), (_, g), (_, path, _) in zip(want, got, requests):
+        if "predictions" in w:
+            np.testing.assert_allclose([p["prediction_node"] for p in g["predictions"]],
+                                       [p["prediction_node"] for p in w["predictions"]],
+                                       atol=TOL)
+        elif "outputs" in w:
+            np.testing.assert_allclose(g["outputs"]["prediction_node"],
+                                       w["outputs"]["prediction_node"], atol=TOL)
+        elif "results" in w:
+            np.testing.assert_allclose([[c[1] for c in r] for r in g["results"]],
+                                       [[c[1] for c in r] for r in w["results"]], atol=TOL)
+        else:
+            assert g == w, path
