@@ -3336,6 +3336,557 @@ def _rest_prometheus_checks(http, sent: dict) -> int:
     return len(text.splitlines())
 
 
+# The aio phase: the coroutine gRPC server and the batcher's failure paths.
+AIO_SIZES = (7, 500, 1000, 2048)  # latency.toml's counts, and 500 so every bucket serves
+AIO_REPEATS = 20  # Predicts per size on each server
+AIO_EXAMPLES = 5  # Classify and Regress requests of n = 7 Examples
+AIO_STREAM = (2048, 256)  # PredictStream candidates, chunk
+AIO_LOOP = (1000, 1000, (4, 16))  # closed loop: Predicts, candidates each, client counts
+AIO_BREAKER_S = 2.0  # breaker_timeout_s of the breaker's batcher
+AIO_FAULTS = (("decode", "INVALID_ARGUMENT"), ("readback", "DATA_LOSS"),
+              ("executor_abort", "INTERNAL"))
+# The window check: requests of the largest bucket never coalesce, so each
+# is one batch of one shape on both servers and the bits compare.
+AIO_WINDOW = (2048, 4, 25)  # candidates, clients, Predicts per client
+AIO_RING_SIZES = (7, 1000, 2048)
+AIO_RING_REPEATS = 5
+
+
+def _aio_loop():
+    """One event loop in a thread that hosts create_server_async servers:
+    (add(impl) -> port, stop)."""
+    import asyncio
+    import threading
+
+    from distributed_tf_serving_tpu_torch.serving import create_server_async
+
+    loop = asyncio.new_event_loop()
+    servers = []
+
+    def run():
+        asyncio.set_event_loop(loop)
+        loop.run_forever()
+
+    th = threading.Thread(target=run, name="aio-server", daemon=True)
+    th.start()
+
+    async def start(impl):
+        server, port = create_server_async(impl, "127.0.0.1:0")
+        await server.start()
+        return server, port
+
+    def add(impl) -> int:
+        server, port = asyncio.run_coroutine_threadsafe(start(impl), loop).result(60)
+        servers.append(server)
+        return port
+
+    def stop():
+        for server in servers:
+            asyncio.run_coroutine_threadsafe(server.stop(0), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(30)
+        loop.close()
+
+    return add, stop
+
+
+def _channel(port: int):
+    import grpc
+
+    from distributed_tf_serving_tpu_torch.proto.service_grpc import LARGE_MESSAGE_CHANNEL_OPTIONS
+
+    return grpc.insecure_channel(f"127.0.0.1:{port}", options=LARGE_MESSAGE_CHANNEL_OPTIONS)
+
+
+def _scores_of(resp):
+    from distributed_tf_serving_tpu_torch import codec
+
+    return codec.to_ndarray(resp.outputs["prediction_node"])
+
+
+def _examples_request(kind: str, ids, wts):
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+    from distributed_tf_serving_tpu_torch.serving.example_codec import make_example
+
+    req = apis.ClassificationRequest() if kind == "classify" else apis.RegressionRequest()
+    req.model_spec.name = "DCN"
+    for i in range(len(ids)):
+        req.input.example_list.examples.append(make_example(ids[i], wts[i]))
+    return req
+
+
+def _example_scores(kind: str, resp):
+    import numpy as np
+
+    if kind == "classify":
+        return np.asarray([dict((c.label, c.score) for c in cl.classes)["1"]
+                           for cl in resp.result.classifications], np.float32)
+    return np.asarray([r.value for r in resp.result.regressions], np.float32)
+
+
+def _closed_loop_n(port: int, payload, clients: int, total: int) -> dict:
+    """`total` gRPC Predicts of `payload` shared out to `clients` threads,
+    each on its own channel, back to back: p50 / p99 / QPS over the wall."""
+    import threading
+
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+
+    lock = threading.Lock()
+    left = [total]
+    lat, errors = [], []
+    chans = [_channel(port) for _ in range(clients)]
+    req = _request(*payload)
+    barrier = threading.Barrier(clients + 1)
+
+    def client(k):
+        stub = PredictionServiceStub(chans[k])
+        stub.Predict(req, timeout=60)  # channel up before the clock starts
+        barrier.wait(timeout=120)
+        mine = []
+        try:
+            while True:
+                with lock:
+                    if left[0] <= 0:
+                        break
+                    left[0] -= 1
+                t0 = time.perf_counter()
+                stub.Predict(req, timeout=60)
+                mine.append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+        with lock:
+            lat.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    try:
+        for t in threads:
+            t.start()
+        barrier.wait(timeout=120)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+    finally:
+        for ch in chans:
+            ch.close()
+    if errors or any(t.is_alive() for t in threads) or len(lat) != total:
+        fail(f"aio: closed loop on port {port}: {len(lat)} of {total} answered, "
+             f"errors {errors[:3]}")
+    return {"requests": len(lat), "clients": clients, "wall_s": wall, "qps": len(lat) / wall,
+            **_percentiles(lat)}
+
+
+def _answers(port: int, payloads: list, per_client: int) -> tuple[list, float]:
+    """Each payload sent `per_client` times by its own client thread: (the
+    answer of each payload — every repeat must carry its bits —, QPS)."""
+    import threading
+
+    import numpy as np
+
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+
+    got: list = [None] * len(payloads)
+    errors = []
+    chans = [_channel(port) for _ in payloads]
+
+    def client(k):
+        stub = PredictionServiceStub(chans[k])
+        req = _request(*payloads[k])
+        try:
+            for _ in range(per_client):
+                scores = _scores_of(stub.Predict(req, timeout=60))
+                if got[k] is None:
+                    got[k] = scores
+                elif not np.array_equal(scores, got[k]):
+                    errors.append(f"client {k}: a repeat changed the scores")
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(len(payloads))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    for ch in chans:
+        ch.close()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"aio: clients on port {port}: {errors[:3]}")
+    return got, len(payloads) * per_client / wall
+
+
+def _rpc_code(fn) -> str | None:
+    """The status name an RPC ended with (None = OK)."""
+    import grpc
+
+    try:
+        fn()
+        return None
+    except grpc.RpcError as e:
+        return e.code().name
+
+
+def _until_true(pred, what: str, timeout: float = 30.0) -> float:
+    end = time.perf_counter() + timeout
+    while not pred():
+        if time.perf_counter() > end:
+            fail(f"aio: {what} within {timeout} s")
+        time.sleep(0.001)
+    return time.perf_counter()
+
+
+def _aio_serving(name, batcher, aio_port, sync_port, payloads, want) -> dict:
+    """Predict / Classify / Regress / PredictStream / metadata over the aio
+    server against the sync server on the same impl; the launch counters
+    zeroed just before the aio requests and read just after."""
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.proto import (
+        HealthCheckRequest,
+        HealthStub,
+        ModelServiceStub,
+        PredictionServiceStub,
+    )
+    from distributed_tf_serving_tpu_torch.proto import health as health_proto
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+
+    ch_s, ch_a = _channel(sync_port), _channel(aio_port)
+    stub_s, stub_a = PredictionServiceStub(ch_s), PredictionServiceStub(ch_a)
+    lat, sync_scores, res = {}, {}, {}
+    try:
+        for n, (ids, wts) in payloads.items():
+            req = _request(ids, wts)
+            stub_s.Predict(req, timeout=120)  # untimed first request per size
+            ms = []
+            for _ in range(AIO_REPEATS):
+                t0 = time.perf_counter()
+                scores = _scores_of(stub_s.Predict(req, timeout=120))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if n in sync_scores and not np.array_equal(scores, sync_scores[n]):
+                    fail(f"aio: two sync answers to the same n={n} Predict differ")
+                sync_scores[n] = scores
+            lat[f"sync/{n}"] = _percentiles(ms)
+        ids7, wts7 = payloads[7]
+        sync_examples = {kind: _example_scores(kind, getattr(stub_s, kind.capitalize())(
+            _examples_request(kind, ids7, wts7), timeout=60)) for kind in ("classify", "regress")}
+
+        torch.cuda.synchronize()
+        b0 = batcher.stats.batches
+        ck.reset_launches()  # the aio path's counts: zeroed just before, read just after
+        worst = 0.0
+        for n, (ids, wts) in payloads.items():
+            req = _request(ids, wts)
+            stub_a.Predict(req, timeout=120)
+            ms = []
+            for _ in range(AIO_REPEATS):
+                t0 = time.perf_counter()
+                scores = _scores_of(stub_a.Predict(req, timeout=120))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if not np.array_equal(scores, sync_scores[n]):
+                    fail(f"aio: n={n}: the aio answer is not bit-identical to the sync one "
+                         f"(max |d| {np.max(np.abs(scores - sync_scores[n]))})")
+            err = float(np.max(np.abs(scores - want[n])))
+            worst = max(worst, err)
+            if not np.all(np.isfinite(scores)) or err > APPLY_TOL:
+                fail(f"aio: n={n}: max |dscore| vs the card's plain forward {err} > {APPLY_TOL}")
+            lat[f"aio/{n}"] = _percentiles(ms)
+            log(f"aio: n={n} p50 aio {lat[f'aio/{n}']['p50_ms']:.3f} / sync "
+                f"{lat[f'sync/{n}']['p50_ms']:.3f} ms, p99 aio {lat[f'aio/{n}']['p99_ms']:.3f} / "
+                f"sync {lat[f'sync/{n}']['p99_ms']:.3f} ms; bit-identical; max |d| {err:.3g} "
+                f"({name})")
+        for kind in ("classify", "regress"):
+            req = _examples_request(kind, ids7, wts7)
+            for _ in range(AIO_EXAMPLES):
+                got = _example_scores(kind, getattr(stub_a, kind.capitalize())(req, timeout=60))
+                if not np.array_equal(got, sync_examples[kind]):
+                    fail(f"aio: {kind} answers differ from the sync server's")
+            err = float(np.max(np.abs(got - want[7])))
+            if err > APPLY_TOL:
+                fail(f"aio: {kind}: max |dscore| vs the plain forward {err} > {APPLY_TOL}")
+        res["examples_max_abs_err"] = err
+
+        # PredictStream in chunks, response_arena on: each chunk kept as
+        # received must carry the bits of a unary Predict of its rows (the
+        # same bucket, so the same kernel variant and cluster size), and sit
+        # within APPLY_TOL of the plain forward.
+        n, chunk = AIO_STREAM
+        ids, wts = payloads[n]
+        t0 = time.perf_counter()
+        chunks, arrivals = [], []
+        for c in stub_a.PredictStream(_request(ids, wts), timeout=120,
+                                      metadata=(("x-dts-stream-chunk", str(chunk)),)):
+            chunks.append(c)
+            arrivals.append((time.perf_counter() - t0) * 1e3)
+        spans = sorted((c.offset, c.count) for c in chunks)
+        if spans != [(o, chunk) for o in range(0, n, chunk)] or sum(c.final for c in chunks) != 1:
+            fail(f"aio: PredictStream chunks {spans} (finals {sum(c.final for c in chunks)})")
+        whole_bits = True
+        whole_err = 0.0
+        for c in chunks:
+            got = _scores_of(c)
+            sl = slice(c.offset, c.offset + c.count)
+            unary = _scores_of(stub_a.Predict(_request(ids[sl], wts[sl]), timeout=120))
+            if not np.array_equal(got, unary):
+                fail(f"aio: stream chunk at {c.offset} is not bit-identical to the unary "
+                     f"Predict of its rows (max |d| {np.max(np.abs(got - unary))})")
+            if float(np.max(np.abs(got - want[n][sl]))) > APPLY_TOL:
+                fail(f"aio: stream chunk at {c.offset} is off the plain forward")
+            whole_bits &= bool(np.array_equal(got, sync_scores[n][sl]))
+            whole_err = max(whole_err, float(np.max(np.abs(got - sync_scores[n][sl]))))
+        res["stream"] = {"chunks": len(chunks), "first_chunk_ms": arrivals[0],
+                         "last_chunk_ms": arrivals[-1],
+                         "bits_of_the_n2048_unary": whole_bits,
+                         "max_abs_vs_n2048_unary": whole_err}
+        log(f"aio: PredictStream n={n} in {len(chunks)} chunks of {chunk} (response_arena on): "
+            f"first {arrivals[0]:.3f} ms, last {arrivals[-1]:.3f} ms; every chunk bit-identical "
+            f"to the unary Predict of its rows; against the n={n} unary answer: bit-identical "
+            f"{whole_bits}, max |d| {whole_err:.3g} ({name})")
+
+        meta = stub_a.GetModelMetadata(apis.GetModelMetadataRequest(
+            model_spec=apis.ModelSpec(name="DCN")), timeout=30)
+        status = ModelServiceStub(ch_a).GetModelStatus(apis.GetModelStatusRequest(
+            model_spec=apis.ModelSpec(name="DCN")), timeout=30)
+        health = HealthStub(ch_a).Check(HealthCheckRequest(service=""), timeout=30).status
+        if (meta.model_spec.name, meta.model_spec.version.value) != ("DCN", 1) or \
+                "signature_def" not in meta.metadata:
+            fail(f"aio: GetModelMetadata answered {meta.model_spec}")
+        if [(v.version, v.state) for v in status.model_version_status] != \
+                [(1, apis.ModelVersionStatus.AVAILABLE)]:
+            fail(f"aio: GetModelStatus answered {status}")
+        if health != health_proto.SERVING:
+            fail(f"aio: health answered {health}")
+        torch.cuda.synchronize()
+        launches = {f"{k}/{cd}": v for (k, cd), v in ck.launches.items()}
+        batches = batcher.stats.batches - b0
+    finally:
+        ch_s.close()
+        ch_a.close()
+    fused = launches.get("fused_serve/bfloat16", 0) + launches.get("fused_serve_int8/bfloat16", 0)
+    log(f"aio: launches on the aio path {launches} over {batches} batches; metadata, status "
+        f"and health answered")
+    if fused != batches:
+        fail(f"aio: {batches} aio batches but {fused} fused serve launches: {launches}")
+    if launches.get("fused_serve/bfloat16", 0) <= 0:
+        fail(f"aio: the aio path launched fused_serve/bfloat16 no time ({launches}); the "
+             f"adopted decisions were {batcher.kernels.snapshot()['decisions']}")
+    res.update(latency=lat, max_abs_err=worst, launches=launches, batches=batches)
+    return res
+
+
+def _aio_breaker(name, batcher, port, payloads, want) -> dict:
+    """The circuit breaker on the card: a batcher.dispatch wedge holds one
+    Predict, one more queues behind it; once the breaker opens a new
+    Predict must end UNAVAILABLE in under a second and the queued one with
+    it; after clear() the wedged Predict and the next are answered. Then
+    each error site ends its RPC with its code and the next RPC succeeds."""
+    import numpy as np
+
+    from distributed_tf_serving_tpu_torch import faults
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+
+    ch = _channel(port)
+    stub = PredictionServiceStub(ch)
+    req, req7 = _request(*payloads[1000]), _request(*payloads[7])
+    res = {}
+
+    def check(scores, n, what):
+        err = float(np.max(np.abs(scores - want[n])))
+        if scores.shape != (n,) or not np.all(np.isfinite(scores)) or err > APPLY_TOL:
+            fail(f"aio: breaker: {what}: max |dscore| {err} (shape {scores.shape})")
+
+    try:
+        stub.Predict(req, timeout=60)
+        # delay_s caps the wedge, should the run fail before clear().
+        faults.get().add("batcher.dispatch", "wedge", count=1, delay_s=120.0)
+        wedged = stub.Predict.future(req, timeout=120)
+        _until_true(lambda: batcher._dispatching_since is not None, "the wedge did not start")
+        queued = stub.Predict.future(req7, timeout=120)
+        _until_true(lambda: bool(batcher._items or batcher._staged), "no Predict queued")
+
+        def is_open():
+            with batcher._cv:
+                return batcher._wedged_for(time.perf_counter()) > 0
+
+        open_t = _until_true(is_open, "the breaker did not open", timeout=AIO_BREAKER_S + 30)
+        t0 = time.perf_counter()
+        code = _rpc_code(lambda: stub.Predict(req7, timeout=30))
+        refused_t = time.perf_counter()
+        queued_code = _rpc_code(lambda: queued.result(timeout=30))
+        if code != "UNAVAILABLE" or queued_code != "UNAVAILABLE":
+            fail(f"aio: breaker open: a new Predict ended {code}, the queued one "
+                 f"{queued_code} (want UNAVAILABLE both)")
+        if refused_t - t0 >= 1.0:
+            fail(f"aio: breaker open: the refusal took {refused_t - t0:.3f} s (limit 1 s)")
+        clear_t = time.perf_counter()
+        faults.get().clear()
+        first = _scores_of(wedged.result(timeout=60))
+        answered_t = time.perf_counter()
+        check(first, 1000, "the wedged Predict")
+        check(_scores_of(stub.Predict(req, timeout=60)), 1000, "the Predict after clear()")
+        with batcher._cv:
+            if batcher._wedged_for(time.perf_counter()):
+                fail("aio: the breaker stayed open after the wedged batch completed")
+        res.update(open_to_refusal_ms=(refused_t - open_t) * 1e3,
+                   refusal_rpc_ms=(refused_t - t0) * 1e3,
+                   clear_to_answer_ms=(answered_t - clear_t) * 1e3)
+        log(f"aio: breaker ({AIO_BREAKER_S} s) open -> UNAVAILABLE answered "
+            f"{res['open_to_refusal_ms']:.3f} ms (the RPC {res['refusal_rpc_ms']:.3f} ms), the "
+            f"queued Predict UNAVAILABLE; clear() -> the wedged Predict answered "
+            f"{res['clear_to_answer_ms']:.3f} ms; closed again ({name})")
+        codes = {}
+        for site, want_code in AIO_FAULTS:
+            faults.get().add(site, "error", code=want_code, count=1)
+            codes[site] = _rpc_code(lambda: stub.Predict(req7, timeout=30))
+            faults.get().clear()
+            if codes[site] != want_code:
+                fail(f"aio: a {site}=error,code={want_code} rule ended the RPC {codes[site]}")
+            check(_scores_of(stub.Predict(req7, timeout=30)), 7, f"the Predict after {site}")
+        res["fault_codes"] = codes
+        log(f"aio: injected faults ended their RPCs with {codes}; each next RPC answered")
+    finally:
+        faults.get().clear()
+        ch.close()
+    return res
+
+
+def phase_aio(dev, name: str) -> dict:
+    """The coroutine gRPC server (create_server_async), the encode arena and
+    the batcher's failure paths on the card: configs/latency.toml with
+    [kernels] enabled (the rest phase's table, adopted), seed-0 weights.
+    Checks in the docstring of the module."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from distributed_tf_serving_tpu_torch import faults
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack, create_server
+    from distributed_tf_serving_tpu_torch.utils.config import (
+        BatchingConfig,
+        TransportConfig,
+        load_config,
+    )
+    from distributed_tf_serving_tpu_torch.utils.tracing import request_trace
+
+    loaded = load_config(os.path.join(HERE, "chiprun_out", "kernels_plane_rest.toml"))
+    cfg, model_cfg, kc = loaded["server"], loaded["model"], loaded["kernels"]
+    rng = np.random.RandomState(SEED + 6000)
+
+    def payload(n):
+        return (rng.randint(0, 1 << 40, size=(n, model_cfg.num_fields)).astype(np.int64),
+                rng.rand(n, model_cfg.num_fields).astype(np.float32))
+
+    payloads = {n: payload(n) for n in AIO_SIZES}
+    res = {"card": name}
+    add_aio, stop_aio = _aio_loop()
+    batchers, sync_server = [], None
+    try:
+        impl, batcher, _ = build_stack(cfg, model_cfg, "cuda", seed=SEED, kernels_config=kc,
+                                       transport_config=TransportConfig(response_arena=True))
+        batchers.append(batcher)
+        snap = batcher.kernels.snapshot()
+        if snap["counters"]["table_reuses"] < 1:
+            fail("aio: the stack did not adopt the rest phase's autotune table")
+        decisions = snap["decisions"]["DCN:1"]
+        want = _reference(dev, model_cfg, decisions, cfg.buckets, payloads)
+        sync_server, sync_port = create_server(impl, "127.0.0.1:0")
+        sync_server.start()
+        aio_port = add_aio(impl)
+        res["decisions"] = decisions
+        res["serving"] = _aio_serving(name, batcher, aio_port, sync_port, payloads, want)
+
+        total, n, client_counts = AIO_LOOP
+        loop_payload = payload(n)
+        res["closed_loop"] = {}
+        for clients in client_counts:
+            runs = []
+            for label, port in (("sync", sync_port), ("aio", aio_port), ("aio", aio_port),
+                                ("sync", sync_port)):
+                r = _closed_loop_n(port, loop_payload, clients, total)
+                runs.append({"server": label, **r})
+                log(f"aio: closed loop {total} x n={n} at {clients} clients, {label}: p50 "
+                    f"{r['p50_ms']:.3f} / p99 {r['p99_ms']:.3f} ms, {r['qps']:.1f} QPS ({name})")
+            res["closed_loop"][clients] = runs
+        sync_server.stop(0)
+        sync_server = None
+
+        # The breaker's stack: no kernel plane (the fused float kernel in
+        # every bucket), its own aio server.
+        impl2, batcher2, _ = build_stack(cfg, model_cfg, "cuda", seed=SEED)
+        batchers.append(batcher2)
+        batcher2.breaker_timeout_s = AIO_BREAKER_S
+        port2 = add_aio(impl2)
+        plain = {k: v for k, v in payloads.items() if k in (7, 1000)}
+        res["breaker"] = _aio_breaker(name, batcher2, port2, payloads,
+                                      _reference(dev, model_cfg, {}, cfg.buckets, plain))
+
+        # The in-flight window: window 1 at depth 2 against the window-0
+        # breaker stack (same weights, no plane), 4 clients.
+        n, clients, per_client = AIO_WINDOW
+        impl3, batcher3, _ = build_stack(
+            cfg, model_cfg, "cuda", seed=SEED,
+            batching_config=BatchingConfig(pipeline_depth=2, inflight_window=1))
+        batchers.append(batcher3)
+        port3 = add_aio(impl3)
+        wp = [payload(n) for _ in range(clients)]
+        base, base_qps = _answers(port2, wp, per_client)
+        got, win_qps = _answers(port3, wp, per_client)
+        for k, (g, b) in enumerate(zip(got, base)):
+            if not np.array_equal(g, b):
+                fail(f"aio: window 1: client {k}'s answer differs from the window-0 server's")
+        ps = batcher3.pipeline_stats()
+        res["window"] = {"inflight_peak": ps["inflight_peak"],
+                         "inflight_window_waits": ps["inflight_window_waits"],
+                         "qps": win_qps, "window0_qps": base_qps}
+        log(f"aio: inflight_window 1 at depth 2, {clients} clients x {per_client} Predicts of "
+            f"n={n}: inflight_peak {ps['inflight_peak']}, window waits "
+            f"{ps['inflight_window_waits']}, {win_qps:.1f} QPS against {base_qps:.1f} at window "
+            f"0; answers bit-identical ({name})")
+        if ps["inflight_peak"] != 1 or ps["inflight_window_waits"] <= 0:
+            fail(f"aio: window 1: inflight_peak {ps['inflight_peak']}, waits "
+                 f"{ps['inflight_window_waits']}")
+        for b in batchers[1:]:
+            b.stop()
+        del batchers[1:]
+
+        # The pad buffer ring on dcn_v2 in f32, whose batches take the
+        # batch.pad path (the native pack takes only the bf16 layout).
+        f32 = dc.replace(model_cfg, compute_dtype="float32")
+        _, ring_b, ring_sv = build_stack(cfg, f32, "cuda", seed=SEED,
+                                         batching_config=BatchingConfig(buffer_ring=True))
+        batchers.append(ring_b)
+        _, plain_b, plain_sv = build_stack(cfg, f32, "cuda", seed=SEED)
+        batchers.append(plain_b)
+        arrays = {n: dict(zip(("feat_ids", "feat_wts"), payloads[n])) for n in AIO_RING_SIZES}
+        if ring_b._fused_ctx(ring_sv, [arrays[7]]) is not None:
+            fail("aio: ring: the f32 servable's batches do not take the batch.pad path")
+        pad0 = request_trace.snapshot().get("batch.pad", {}).get("count", 0)
+        for _ in range(AIO_RING_REPEATS):
+            for n, a in arrays.items():
+                got = ring_b.submit(ring_sv, a).result(timeout=60)["prediction_node"]
+                ref = plain_b.submit(plain_sv, a).result(timeout=60)["prediction_node"]
+                if not np.array_equal(got, ref):
+                    fail(f"aio: ring: n={n} scores differ from the ring-off batcher's")
+        pads = request_trace.snapshot()["batch.pad"]["count"] - pad0
+        ring = ring_b.pipeline_stats()["buffer_ring"]
+        res["ring"] = {**ring, "batch_pad_count": pads,
+                       "batches": AIO_RING_REPEATS * len(arrays)}
+        log(f"aio: buffer_ring on dcn_v2 f32: {ring} after {res['ring']['batches']} batches "
+            f"(batch.pad count +{pads} over both batchers); scores bit-identical to ring off")
+        if ring["reuses"] <= 0 or pads < 2 * res["ring"]["batches"]:
+            fail(f"aio: ring: reuses {ring['reuses']}, batch.pad count +{pads}")
+    finally:
+        faults.get().clear()
+        if sync_server is not None:
+            sync_server.stop(0)
+        stop_aio()
+        for b in batchers:
+            b.stop()
+    return res
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -3396,11 +3947,14 @@ def main() -> None:
     t0 = time.perf_counter()
     rest = phase_rest(dev, f"{name} ({smi})")
     log(f"rest: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    aio = phase_aio(dev, f"{name} ({smi})")
+    log(f"aio: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
                    "lifecycle": lifecycle, "outputs": outputs, "families": families,
-                   "models": models, "rest": rest}, f, indent=1, default=str)
+                   "models": models, "rest": rest, "aio": aio}, f, indent=1, default=str)
 
     replaces = {
         "fused_serve": "distributed_tf_serving_tpu/ops/cross_kernel.py:470",
@@ -3429,6 +3983,9 @@ def main() -> None:
                      # count from its start to its exit.
                      "launches_rest": rest["path"]["launches"].get(f"{kname}/{cd}", 0),
                      "launches_rest_server": rest["launches_server"].get(f"{kname}/{cd}", 0),
+                     # The aio path (zeroed just before its requests, read
+                     # just after).
+                     "launches_aio": aio["serving"]["launches"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (

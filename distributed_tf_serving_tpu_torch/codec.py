@@ -175,20 +175,74 @@ def to_ndarray(tp: fw.TensorProto) -> np.ndarray:
     raise CodecError(f"{field} holds {nvals} elements, shape {dims} needs {n}")
 
 
+class EncodeArena:
+    """Reusable encode scratch ([transport] response_arena): the
+    contiguity copy of a strided tensor, a float32 widen, and the dense
+    (n, num_fields) batches the Example decoder builds reuse one backing
+    allocation per dtype, grown geometrically, instead of a fresh one per
+    call.
+
+    Not thread-safe by design: hold one arena per thread (the service keeps
+    a threading.local). Scratch returned by ndarray() / contiguous() /
+    widen_f32() is valid only until the next call for the same dtype, so a
+    caller finishes with it (protobuf copies on field assignment; the
+    batcher's prepare_inputs copies an array that is not bytes-backed)
+    before the next call — on a coroutine server, with no await between."""
+
+    def __init__(self):
+        self._bufs: dict[str, bytearray] = {}
+        self.reuses = 0
+        self.grows = 0
+
+    def ndarray(self, shape: tuple, dtype) -> np.ndarray:
+        """A writable scratch array of `shape` over reused storage (contents
+        undefined: callers overwrite it fully)."""
+        dt = np.dtype(dtype)
+        count = int(np.prod(shape))
+        nbytes = count * dt.itemsize
+        buf = self._bufs.get(dt.str)
+        if buf is None or len(buf) < nbytes:
+            # Geometric growth: sizes within 2x of each other share one
+            # allocation instead of reallocating at each high-water mark.
+            buf = bytearray(max(nbytes, 2 * len(buf) if buf else 0, 1024))
+            self._bufs[dt.str] = buf
+            self.grows += 1
+        else:
+            self.reuses += 1
+        return np.frombuffer(buf, dtype=dt, count=count).reshape(shape)
+
+    def contiguous(self, arr: np.ndarray) -> np.ndarray:
+        """`arr` when C-contiguous, else a copy of it in scratch (what
+        np.ascontiguousarray would allocate)."""
+        if arr.flags.c_contiguous:
+            return arr
+        out = self.ndarray(arr.shape, arr.dtype)
+        np.copyto(out, arr)
+        return out
+
+    def widen_f32(self, arr: np.ndarray) -> np.ndarray:
+        """`arr.astype(np.float32)` into scratch."""
+        out = self.ndarray(arr.shape, np.float32)
+        np.copyto(out, arr, casting="unsafe")
+        return out
+
+
 def from_ndarray(
     arr: np.ndarray,
     *,
     use_tensor_content: bool = True,
     out: fw.TensorProto | None = None,
+    arena: EncodeArena | None = None,
 ) -> fw.TensorProto:
     """Encode a numpy array as a TensorProto.
 
     use_tensor_content=True emits the raw-bytes fast path; False emits the
     per-dtype repeated fields. `out` fills an existing (empty) message in
-    place, e.g. a response's map entry."""
+    place, e.g. a response's map entry. `arena` (EncodeArena) takes the
+    contiguity copy a strided array needs instead of a fresh allocation."""
     arr = np.asarray(arr)
     if not arr.flags.c_contiguous:
-        arr = np.ascontiguousarray(arr)
+        arr = arena.contiguous(arr) if arena is not None else np.ascontiguousarray(arr)
 
     if arr.dtype == object or arr.dtype.kind in ("S", "U"):
         tp = out if out is not None else fw.TensorProto()

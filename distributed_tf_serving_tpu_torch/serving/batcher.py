@@ -54,6 +54,23 @@ readback and per-request completion.
   worker). With per-request tracing on, a submit carries the caller's
   span; each batch collects its phases in a sink, and they are replayed
   onto every member's span, with the member's own `batch.queue_wait`.
+- **The wedge circuit breaker.** A batch stuck in the device stage or
+  awaiting its readback for more than `breaker_timeout_s` opens the
+  breaker: a new submit fails at once with DeviceWedgedError (UNAVAILABLE
+  at the RPC layer) and sheds the backlog (queued items and staged groups)
+  with it. It closes by itself once the stuck batch completes. An
+  all-warmup group (`warmup_via_queue`) does not start the clock; the
+  direct `_execute` of `warmup` and the autotune never enters it.
+- **The in-flight window.** `inflight_window > 0` bounds the live batches
+  executing or awaiting readback: at the bound the dispatch thread waits
+  (5 ms polls, lifted by a wedge) before issuing the next batch.
+- **The pad buffer ring.** With `buffer_ring`, the padded arrays of the
+  `batch.pad` path are written into recycled host buffers, returned once
+  the batch's readback event has completed (never while a copy may still
+  read them), or on a failure before the device stage.
+- **Fault sites** (faults.py): `batcher.dispatch` before a batch's device
+  stage, `readback` and `executor_abort` before a completion worker waits
+  for its readback.
 """
 
 from __future__ import annotations
@@ -70,7 +87,7 @@ from concurrent.futures import BrokenExecutor, Future, InvalidStateError, Thread
 import numpy as np
 import torch
 
-from .. import native
+from .. import faults, native
 from ..models.base import resolve_device
 from ..models.registry import Servable
 from ..ops.transfer import (
@@ -115,6 +132,13 @@ class QueueOverloadError(RuntimeError):
 class RequestDeadlineError(TimeoutError):
     """Queued work whose client deadline expired before dispatch: shed
     instead of executed (DEADLINE_EXCEEDED at the RPC layer)."""
+
+
+class DeviceWedgedError(RuntimeError):
+    """Circuit breaker open: a dispatched batch has been stuck past the
+    wedge threshold, so the device is presumed hung. New work fails fast
+    (UNAVAILABLE) instead of holding a caller for the full RPC deadline;
+    the breaker closes by itself the moment the stuck batch completes."""
 
 
 def bucket_for(n: int, buckets: tuple[int, ...]) -> int:
@@ -169,6 +193,7 @@ class _WorkItem:
     enqueue_t: float
     deadline_t: float | None = None
     solo: bool = False  # a streamed sub-batch: never coalesced
+    warmup: bool = False  # warmup_via_queue's: exempt from the wedge clock and the window
     # The submitting RPC's span (utils/tracing.Span) while per-request
     # tracing is on: the batch's phases are replayed onto it. None =
     # untraced.
@@ -224,6 +249,8 @@ class BatcherStats:
     # the completion workers at once.
     max_queue_depth: int = 0
     inflight_peak: int = 0
+    # Episodes in which the dispatch thread waited for the in-flight window.
+    inflight_window_waits: int = 0
 
     @property
     def mean_occupancy(self) -> float:
@@ -280,6 +307,8 @@ class _Staged:
     collected_t: float
     topk: int = 0  # > 0: read back the top-k pairs of the one request
     phases: list | None = None  # the batch's phase sink (_phase_sink)
+    pad_bufs: list = dataclasses.field(default_factory=list)  # from the pad ring
+    seq: int | None = None  # its key in _inflight_since while a live readback is out
 
 
 @dataclasses.dataclass(eq=False)
@@ -347,6 +376,45 @@ class _HostBufferRing:
                     "free_buffers": sum(len(v) for v in self._free.values())}
 
 
+class _PadBufferRing:
+    """Recycled numpy buffers of the `batch.pad` path ([batching]
+    buffer_ring), by (shape, dtype): a padded group is written into an
+    acquired buffer (rows, then a zero tail) instead of a fresh
+    np.concatenate. A buffer goes back only once its batch's readback event
+    has completed (that event follows the upload on the same stream), or on
+    a failure before the device stage, so no copy can still read it. At
+    most `per_key` free buffers are kept per key; the surplus is dropped."""
+
+    def __init__(self, per_key: int):
+        self.per_key = per_key
+        self._free: dict[tuple, list[np.ndarray]] = {}
+        self._lock = threading.Lock()
+        self.reuses = 0
+        self.allocs = 0
+
+    def acquire(self, shape: tuple, dtype) -> np.ndarray:
+        key = (shape, np.dtype(dtype).str)
+        with self._lock:
+            free = self._free.get(key)
+            if free:
+                self.reuses += 1
+                return free.pop()
+            self.allocs += 1
+        return np.empty(shape, dtype)
+
+    def release(self, arrs) -> None:
+        with self._lock:
+            for a in arrs:
+                free = self._free.setdefault((a.shape, a.dtype.str), [])
+                if len(free) < self.per_key:
+                    free.append(a)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"reuses": self.reuses, "allocs": self.allocs,
+                    "free_buffers": sum(len(v) for v in self._free.values())}
+
+
 class DynamicBatcher:
     """Queue + batching thread + dispatch thread + completion workers, and
     the per-servable device step."""
@@ -364,6 +432,9 @@ class DynamicBatcher:
         pipeline_depth: int = 2,
         output_wire_dtype: str = "float32",
         output_top_k: int = 0,
+        breaker_timeout_s: float | None = 90.0,
+        inflight_window: int = 0,
+        buffer_ring: bool = False,
     ):
         """fused_kernel=False serves dcn_v2 through model.apply (the
         configuration where `use_pallas_cross` routes only the cross stack
@@ -371,7 +442,10 @@ class DynamicBatcher:
         pipeline_depth: assembled groups staged for the device stage,
         counting the one it runs (1 = assembly and device stage in turn).
         output_wire_dtype ("float32", "bfloat16", "float16", "int8") and
-        output_top_k (0 = off) set the readback wire."""
+        output_top_k (0 = off) set the readback wire. breaker_timeout_s
+        (None = never) is the wedge threshold of the circuit breaker;
+        inflight_window (0 = unbounded) bounds the live batches executing or
+        awaiting readback; buffer_ring recycles the padded-group buffers."""
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # An indexed device, for the worker threads' set_device.
@@ -394,6 +468,11 @@ class DynamicBatcher:
         self.completion_workers = max(int(completion_workers), 1)
         # Read at every hand-off, so it may be changed while serving.
         self.pipeline_depth = max(int(pipeline_depth), 1)
+        # Above any healthy batch, below the service's 120 s RPC cap.
+        self.breaker_timeout_s = breaker_timeout_s
+        self.inflight_window = max(int(inflight_window or 0), 0)
+        self.buffer_ring = (_PadBufferRing(per_key=max(self.inflight_window, 4) + 4)
+                            if buffer_ring else None)
         # The kernel plane (ops/autotune.py KernelManager), or None when off:
         # one attribute read per dispatch.
         self.kernels = None
@@ -413,15 +492,24 @@ class DynamicBatcher:
         self._dispatch_pending = 0  # staged + running device stages
         self._inflight = 0  # readbacks handed to the completion workers
         self._inflight_buckets: dict[int, int] = {}  # bucket -> of those
+        # The wedge clock: when the live group in the device stage entered
+        # it, and when each live batch's readback was handed off (batch
+        # number -> time); warmup groups are not on it. The window counts
+        # the latter.
+        self._dispatching_since: float | None = None
+        self._inflight_since: dict[int, float] = {}
+        self._inflight_seq = 0
         self._dispatching = False  # the dispatch thread runs a device stage
         self._collecting = False  # the batching thread holds a group not yet staged
         self._collect_done = False
         self._thread = threading.Thread(target=self._loop, name="batcher", daemon=True)
         self._dispatch_thread = threading.Thread(
             target=self._dispatch_loop, name="batch-dispatch", daemon=True)
+        # At least one completion worker per window slot: a window deeper
+        # than the pool would queue issued readbacks behind the workers.
         self._completers = ThreadPoolExecutor(
-            max_workers=self.completion_workers, thread_name_prefix="batch-complete",
-            initializer=self._bind_device,
+            max_workers=max(self.completion_workers, self.inflight_window),
+            thread_name_prefix="batch-complete", initializer=self._bind_device,
         )
         self._started = False
         self._stopping = False
@@ -480,6 +568,7 @@ class DynamicBatcher:
         deadline_s: float | None = None,
         span=None,
         _solo: bool = False,
+        _warmup: bool = False,
     ) -> Future:
         """Enqueue one request's arrays; returns a Future of output arrays
         sliced back to the request's own candidate count. output_keys limits
@@ -487,7 +576,9 @@ class DynamicBatcher:
         budget: an item still queued when it expires is shed. span (the
         caller's utils/tracing.Span) gets the batch's phases while tracing
         is on. _solo (a streamed sub-batch) makes the item a batch of its
-        own."""
+        own; _warmup (warmup_via_queue) keeps an all-warmup group off the
+        wedge clock and out of the in-flight window. While the circuit
+        breaker is open it raises DeviceWedgedError and sheds the backlog."""
         if self._stopping:
             raise RuntimeError("batcher is stopped")
         ns = {k: v.shape[0] for k, v in arrays.items()}
@@ -496,6 +587,14 @@ class DynamicBatcher:
             raise ValueError(f"inconsistent candidate counts across inputs: {ns}")
         bucket_for(n, self.buckets)  # raises when too big
         with self._cv:
+            stuck_s = self._wedged_for(time.perf_counter())
+            if stuck_s:
+                exc = DeviceWedgedError(
+                    f"a dispatched batch has been stuck {stuck_s:.1f}s "
+                    f"(> breaker {self.breaker_timeout_s:.0f}s); failing fast"
+                )
+                self._shed_queued(exc)
+                raise exc
             if self._queued_candidates + n > self.queue_capacity_candidates:
                 raise QueueOverloadError(
                     f"queue full ({self._queued_candidates} candidates queued, "
@@ -513,7 +612,7 @@ class DynamicBatcher:
             servable=servable, arrays=prepared, n=n, output_keys=output_keys,
             future=Future(), enqueue_t=now,
             deadline_t=None if deadline_s is None else now + deadline_s, solo=_solo,
-            span=span if tracing.enabled() else None,
+            warmup=_warmup, span=span if tracing.enabled() else None,
         )
         with self._cv:
             self._items.append(item)
@@ -548,7 +647,7 @@ class DynamicBatcher:
         dispatch threads exactly like live traffic, so hot-loading a new
         version never runs device work beside live batches from another
         thread."""
-        futures = [self.submit(servable, self.warmup_arrays(servable, b))
+        futures = [self.submit(servable, self.warmup_arrays(servable, b), _warmup=True)
                    for b in buckets or self.buckets]
         for fut in futures:
             fut.result(timeout=600)
@@ -566,27 +665,79 @@ class DynamicBatcher:
     def pipeline_stats(self) -> dict:
         """The dispatch pipeline: configured depth, batches in flight (total
         and per bucket), whether a device stage runs, groups staged or
-        running, the in-flight high-water mark and the readback overlap (the
+        running, the in-flight window, its high-water mark and waits, the
+        readback overlap and, with buffer_ring, the pad ring's counters (the
         /monitoring `pipeline` block and the dts_tpu_pipeline_* series). The
-        JAX package's keys; its in-flight window is not ported, so
-        `inflight_window` and `inflight_window_waits` stay 0."""
+        JAX package's keys."""
         with self._cv:
             per_bucket = {int(b): n for b, n in sorted(self._inflight_buckets.items()) if n}
             out = {
                 "depth": self.pipeline_depth,
-                "inflight_window": 0,
+                "inflight_window": self.inflight_window,
                 "in_flight": self._inflight,
                 "dispatching": self._dispatching,
                 "dispatch_pending": self._dispatch_pending,
                 "per_bucket_in_flight": per_bucket,
                 "inflight_peak": self.stats.inflight_peak,
-                "inflight_window_waits": 0,
+                "inflight_window_waits": self.stats.inflight_window_waits,
             }
         with self._stats_lock:
             out["readback_overlap_fraction"] = round(self.stats.readback_overlap_fraction, 4)
+        if self.buffer_ring is not None:
+            out["buffer_ring"] = self.buffer_ring.snapshot()
         return out
 
+    def device_scope(self):
+        """The batcher's card as the current device of the calling thread
+        (a null context on the CPU): threads that load or warm on its
+        behalf enter it."""
+        if self.device.type == "cuda":
+            return torch.cuda.device(self.device)
+        return contextlib.nullcontext()
+
     # ------------------------------------------------------------ internals
+
+    def _wedged_for(self, now: float) -> float:
+        """Seconds the oldest live batch has been in the device stage or
+        awaiting its readback, when that is past the breaker threshold; 0.0
+        when healthy. Caller holds _cv."""
+        t = self.breaker_timeout_s
+        if t is None:
+            return 0.0
+        worst = 0.0
+        if self._dispatching_since is not None:
+            worst = now - self._dispatching_since
+        for t0 in self._inflight_since.values():
+            worst = max(worst, now - t0)
+        return worst if worst > t else 0.0
+
+    def _shed_queued(self, exc: Exception) -> None:
+        """Fail every queued item and every staged group waiting behind the
+        wedged device stage. Caller holds _cv."""
+        while self._items:
+            it = self._items.popleft()
+            self._queued_candidates -= it.n
+            if not it.future.done():
+                try:
+                    it.future.set_exception(exc)
+                except InvalidStateError:
+                    pass  # the waiter cancelled at the same instant
+        while self._staged:
+            st = self._staged.popleft()
+            self._dispatch_pending -= 1
+            self._release_pad(st)
+            for it in st.group:
+                if not it.future.done():
+                    try:
+                        it.future.set_exception(exc)
+                    except InvalidStateError:
+                        pass
+        self._cv.notify_all()
+
+    def _release_pad(self, st: _Staged) -> None:
+        if self.buffer_ring is not None and st.pad_bufs:
+            self.buffer_ring.release(st.pad_bufs)
+        st.pad_bufs = []
 
     def _bind_device(self) -> None:
         """Make the card the current device of a worker thread: the kernel
@@ -936,6 +1087,8 @@ class DynamicBatcher:
         """Pad the group to its bucket (or gather its parts for the native
         pack). A failure fails the group's futures and returns None."""
         phases = _phase_sink(group)
+        ring = self.buffer_ring
+        pad_bufs: list = []
         try:
             bucket = bucket_for(total, self.buckets)
             servable = group[0].servable
@@ -944,13 +1097,25 @@ class DynamicBatcher:
                 src = {}
                 with _sink_ctx(phases), request_trace.span("batch.pad"):
                     for key in group[0].arrays:
-                        # concatenate promotes mixed dtypes (int32 compact
-                        # ids next to raw int64 ids) instead of truncating
-                        # into the first's.
+                        # The result dtype promotes mixed dtypes (int32
+                        # compact ids next to raw int64 ids) instead of
+                        # truncating into the first's.
                         parts = [it.arrays[key] for it in group]
                         first = parts[0]
-                        parts.append(np.zeros((bucket - total,) + first.shape[1:], first.dtype))
-                        src[key] = np.concatenate(parts)
+                        if ring is None:
+                            parts.append(np.zeros((bucket - total,) + first.shape[1:],
+                                                  first.dtype))
+                            src[key] = np.concatenate(parts)
+                            continue
+                        out = ring.acquire((bucket,) + first.shape[1:],
+                                           np.result_type(*parts))
+                        pad_bufs.append(out)
+                        off = 0
+                        for p in parts:
+                            out[off:off + p.shape[0]] = p
+                            off += p.shape[0]
+                        out[off:] = 0  # the padding rows
+                        src[key] = out
             keys = None
             if all(it.output_keys is not None for it in group):
                 keys = tuple(dict.fromkeys(k for it in group for k in it.output_keys))
@@ -962,27 +1127,34 @@ class DynamicBatcher:
                     and keys == (servable.model.score_output,)):
                 topk = self.output_top_k
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
+            if pad_bufs:
+                ring.release(pad_bufs)
             _replay(group, phases)
             self._fail(group, total, exc)
             return None
         return _Staged(group=group, total=total, bucket=bucket, src=src, keys=keys,
-                       collected_t=time.perf_counter(), topk=topk, phases=phases)
+                       collected_t=time.perf_counter(), topk=topk, phases=phases,
+                       pad_bufs=pad_bufs)
 
     def _stage(self, staged: _Staged) -> None:
         """Hand a group to the dispatch thread; then wait while
         pipeline_depth groups are staged or running, so the batching thread
-        runs at most pipeline_depth - 1 groups ahead of the device stage."""
+        runs at most pipeline_depth - 1 groups ahead of the device stage.
+        The wait ends once the breaker opens: behind a wedged dispatch
+        thread the next groups stage, where a submit sheds them."""
         with self._cv:
             self._staged.append(staged)
             self._dispatch_pending += 1
             self._cv.notify_all()
-            while self._dispatch_pending >= self.pipeline_depth and self._dispatch_thread.is_alive():
+            while (self._dispatch_pending >= self.pipeline_depth
+                   and self._dispatch_thread.is_alive()
+                   and not self._wedged_for(time.perf_counter())):
+                # Bounded: the wedge clock advances with wall time alone.
                 self._cv.wait(0.05)
 
     def _dispatch_loop(self) -> None:
         """The dispatch thread: run each staged group's device stage."""
-        on_card = self.device.type == "cuda"
-        with torch.cuda.device(self.device) if on_card else contextlib.nullcontext():
+        with self.device_scope():
             while True:
                 with self._cv:
                     while not self._staged:
@@ -1007,10 +1179,27 @@ class DynamicBatcher:
                 except InvalidStateError:
                     pass
 
+    def _wait_for_window(self) -> None:
+        """At the in-flight window's bound, wait for a completion (5 ms
+        polls: the wedge clock advances with wall time alone) until a slot
+        opens, the batcher stops or the breaker opens. One count per
+        episode in stats.inflight_window_waits."""
+        waited = False
+        with self._cv:
+            while (len(self._inflight_since) >= self.inflight_window and not self._stopping
+                   and not self._wedged_for(time.perf_counter())):
+                if not waited:
+                    self.stats.inflight_window_waits += 1
+                    waited = True
+                self._cv.wait(0.005)
+
     def _run_stage(self, st: _Staged) -> None:
         """Device stage up to the readback issue, then hand the batch to a
         completion worker. A failure fails the group's futures, never the
-        thread."""
+        thread. An all-warmup group skips the window and the wedge clock."""
+        all_warm = all(it.warmup for it in st.group)
+        if self.inflight_window and not all_warm:
+            self._wait_for_window()
         stage_t = time.perf_counter()
         if st.phases is not None:
             # Each member waited from its own enqueue: its own interval.
@@ -1019,12 +1208,20 @@ class DynamicBatcher:
                     it.span.add_interval("batch.queue_wait", it.enqueue_t, stage_t)
         with self._cv:
             self._dispatching = True
+            self._dispatching_since = None if all_warm else stage_t
+        issued = False
         try:
-            with _sink_ctx(st.phases), request_trace.span("batch.dispatch"):
-                rb = self._issue(st.group[0].servable, st.src, st.bucket, st.keys,
-                                 topk=st.topk, n_valid=st.total)
+            with _sink_ctx(st.phases):
+                # Inside the sink, so an injected fault annotates the spans.
+                faults.fire("batcher.dispatch")
+                issued = True
+                with request_trace.span("batch.dispatch"):
+                    rb = self._issue(st.group[0].servable, st.src, st.bucket, st.keys,
+                                     topk=st.topk, n_valid=st.total)
             rb.stage_t = stage_t
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
+            if not issued:
+                self._release_pad(st)  # nothing was uploaded from them
             # The spans show the phases that led to the failure before the
             # waiters unblock and finish them.
             _replay(st.group, st.phases)
@@ -1033,6 +1230,7 @@ class DynamicBatcher:
         finally:
             with self._cv:
                 self._dispatching = False
+                self._dispatching_since = None
         _replay(st.group, st.phases)
         with self._stats_lock:
             self.stats.batches += 1
@@ -1045,7 +1243,13 @@ class DynamicBatcher:
         with self._cv:
             self._inflight += 1
             self._inflight_buckets[st.bucket] = self._inflight_buckets.get(st.bucket, 0) + 1
-            self.stats.inflight_peak = max(self.stats.inflight_peak, self._inflight)
+            if not all_warm:
+                # On the wedge clock until _finish is done with it.
+                self._inflight_seq += 1
+                st.seq = self._inflight_seq
+                self._inflight_since[st.seq] = time.perf_counter()
+                self.stats.inflight_peak = max(self.stats.inflight_peak,
+                                               len(self._inflight_since))
         try:
             fut = self._completers.submit(self._finish, st, rb)
         except RuntimeError as exc:  # the pool is shut down or broken
@@ -1061,8 +1265,13 @@ class DynamicBatcher:
             self._abandon(st, exc)
 
     def _done_inflight_locked(self, st: _Staged) -> None:
+        """The batch left the completion workers: off the in-flight counts
+        and the wedge clock (the breaker closes with it), and a window wait
+        wakes."""
         self._inflight -= 1
         self._inflight_buckets[st.bucket] -= 1
+        if st.seq is not None:
+            self._inflight_since.pop(st.seq, None)
         self._cv.notify_all()
 
     def _abandon(self, st: _Staged, exc: BaseException) -> None:
@@ -1078,6 +1287,13 @@ class DynamicBatcher:
         try:
             try:
                 with _sink_ctx(phases):
+                    try:
+                        faults.fire("readback")
+                        faults.fire("executor_abort")
+                    except BaseException:
+                        # Reusable once the readback copies are done.
+                        self.ring.release([buf for buf, _ in rb.out.values()], rb.event)
+                        raise
                     host = self._wait(rb)
             finally:
                 _replay(st.group, phases)
@@ -1085,6 +1301,11 @@ class DynamicBatcher:
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
             self._fail(st.group, st.total, exc)
         finally:
+            if rb.event is None or rb.event.query():
+                # The readback event follows the upload on the same stream:
+                # no copy reads the padded buffers any more. Otherwise
+                # (a failure before the wait) they are dropped, not reused.
+                self._release_pad(st)
             with self._cv:
                 self._done_inflight_locked(st)
 

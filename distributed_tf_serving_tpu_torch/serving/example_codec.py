@@ -31,8 +31,13 @@ def _merged_feature(example: ex.Example, context: ex.Example | None, key: str):
     return None
 
 
-def decode_input(inp: apis.Input, num_fields: int) -> dict[str, np.ndarray]:
-    """Decode a serving Input into the dense feat_ids/feat_wts batch."""
+def decode_input(inp: apis.Input, num_fields: int, arena=None) -> dict[str, np.ndarray]:
+    """Decode a serving Input into the dense feat_ids/feat_wts batch.
+
+    `arena` (codec.EncodeArena) reuses the batch's buffers across calls
+    instead of allocating per request: safe because the batcher's
+    prepare_inputs copies such arrays before submit() returns, and arenas
+    are held per thread."""
     kind = inp.WhichOneof("kind")
     if kind == "example_list":
         examples, context = list(inp.example_list.examples), None
@@ -45,8 +50,14 @@ def decode_input(inp: apis.Input, num_fields: int) -> dict[str, np.ndarray]:
         raise ExampleDecodeError("Input contains no examples")
 
     n = len(examples)
-    ids = np.zeros((n, num_fields), np.int64)
-    wts = np.ones((n, num_fields), np.float32)
+    if arena is not None:
+        ids = arena.ndarray((n, num_fields), np.int64)
+        ids[:] = 0
+        wts = arena.ndarray((n, num_fields), np.float32)
+        wts[:] = 1.0
+    else:
+        ids = np.zeros((n, num_fields), np.int64)
+        wts = np.ones((n, num_fields), np.float32)
     for i, example in enumerate(examples):
         f_ids = _merged_feature(example, context, "feat_ids")
         if f_ids is None or f_ids.WhichOneof("kind") != "int64_list":

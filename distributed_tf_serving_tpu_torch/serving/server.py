@@ -8,6 +8,15 @@ both surfaces is observed into one ServerMetrics (utils/metrics.py); with
 `--tracing` (or `[observability] tracing = true`) each opens a
 `server.<RPC>` root span from the caller's `traceparent`.
 
+`create_server` builds the threaded server (a handler thread per RPC);
+`create_server_async` the coroutine one (grpc.aio: one event-loop thread
+carries every RPC and awaits the batcher's futures), with the same
+services, status codes, metrics and spans. Start it on the loop that owns
+it:
+
+    server, port = create_server_async(impl, "127.0.0.1:0")
+    await server.start()
+
 CLI:
 
     python -m distributed_tf_serving_tpu_torch.serving.server --port 9999 \
@@ -39,7 +48,10 @@ defaults to "cuda"; without a card the server refuses to start unless
 from __future__ import annotations
 
 import argparse
+import asyncio
+import contextlib
 import dataclasses
+import inspect
 import json
 import logging
 import os
@@ -334,6 +346,155 @@ class GrpcModelService(_ServicerBase, ModelServiceServicer):
                           request, context)
 
 
+async def _aio_root_span(name: str, model: str | None, context):
+    """_root_span on the coroutine server (its metadata send awaits)."""
+    if not tracing.enabled():
+        return None
+    span_ctx = tracing.start_root(
+        f"server.{name}", traceparent=_traceparent_of(context),
+        attrs={"entrypoint": name, **({"model": model} if model else {})},
+    )
+    try:
+        await context.send_initial_metadata(((_PEER_ROLE_KEY, "replica"),))
+    except Exception:  # noqa: BLE001 — advisory only
+        pass
+    return span_ctx
+
+
+class _AioServicerBase:
+    """The coroutine adapters' plumbing, as _ServicerBase's: ServiceError
+    -> grpc status (anything else INTERNAL), one ServerMetrics.observe per
+    RPC under the request's model, and the `server.<RPC>` root span while
+    tracing is on. `fn(request)` may return a response or an awaitable of
+    one."""
+
+    def __init__(self, impl: PredictionServiceImpl, metrics: ServerMetrics | None = None):
+        self.impl = impl
+        self.metrics = metrics or ServerMetrics()
+
+    async def _call(self, name: str, fn, request, context):
+        t0 = time.perf_counter()
+        ok = False
+        model = _model_of(request)
+        span_ctx = await _aio_root_span(name, model, context)
+        try:
+            # A sync `with` is right across the awaits: contextvars are
+            # coroutine-scoped, so the span stays current through them.
+            with span_ctx if span_ctx is not None else contextlib.nullcontext():
+                resp = fn(request)
+                if inspect.isawaitable(resp):
+                    resp = await resp
+            ok = True
+            return resp
+        except ServiceError as e:
+            await context.abort(_status(e.code), str(e))
+        except grpc.aio.AbortError:
+            raise
+        except Exception as e:  # internal bug: surface as INTERNAL, keep serving
+            log.exception("internal error serving %s", name)
+            await context.abort(grpc.StatusCode.INTERNAL, f"internal error: {e}")
+        finally:
+            self.metrics.observe(name, time.perf_counter() - t0, ok, model=model)
+
+    def _off_loop(self, fn):
+        """`fn` run on the loop's default executor, under the batcher's
+        device (a version it loads is copied and warmed on that thread):
+        for the RPCs whose work blocks — MultiInference's sequential
+        batches, a multi-model reload."""
+        batcher = self.impl.batcher
+
+        def bound(req):
+            with batcher.device_scope():
+                return fn(req)
+
+        return lambda req: asyncio.get_running_loop().run_in_executor(None, bound, req)
+
+
+class AioGrpcPredictionService(_AioServicerBase):
+    """tensorflow.serving.PredictionService on the coroutine server: one
+    event-loop thread carries every RPC. Predict, Classify, Regress and
+    PredictStream await their `*_async` service entry points (decode,
+    submit and encode run on the loop thread and touch no CUDA);
+    GetModelMetadata runs inline; MultiInference, whose tasks block on the
+    batcher one after another for a client-set deadline, runs off the
+    loop."""
+
+    async def Predict(self, request, context):
+        deadline_s = _deadline_of(context)
+        int8_wire = self.impl.int8_score_wire and _score_wire_of(context)
+        return await self._call("Predict", lambda req: self.impl.predict_async(
+            req, deadline_s=deadline_s, int8_wire=int8_wire), request, context)
+
+    async def Classify(self, request, context):
+        deadline_s = _deadline_of(context)
+        return await self._call("Classify", lambda req: self.impl.classify_async(
+            req, deadline_s=deadline_s), request, context)
+
+    async def Regress(self, request, context):
+        deadline_s = _deadline_of(context)
+        return await self._call("Regress", lambda req: self.impl.regress_async(
+            req, deadline_s=deadline_s), request, context)
+
+    async def MultiInference(self, request, context):
+        deadline_s = _deadline_of(context)
+        entry_t = time.perf_counter()
+
+        def run(req):
+            # The budget left when the executor starts it: time queued
+            # behind other executor work is the client's.
+            left = None if deadline_s is None else deadline_s - (time.perf_counter() - entry_t)
+            return self.impl.multi_inference(req, deadline_s=left)
+
+        return await self._call("MultiInference", self._off_loop(run), request, context)
+
+    async def GetModelMetadata(self, request, context):
+        return await self._call("GetModelMetadata", self.impl.get_model_metadata, request,
+                                context)
+
+    async def PredictStream(self, request, context):
+        """An async generator of chunks, each yielded as its sub-batch
+        completes; _call's error mapping, metrics and span, inlined because
+        the stream yields through the adapter."""
+        t0 = time.perf_counter()
+        ok = False
+        model = _model_of(request)
+        deadline_s = _deadline_of(context)
+        chunk = _stream_chunk_of(context)
+        span_ctx = await _aio_root_span("PredictStream", model, context)
+        try:
+            with span_ctx if span_ctx is not None else contextlib.nullcontext():
+                async for item in self.impl.predict_stream_async(
+                        request, deadline_s=deadline_s, chunk=chunk):
+                    yield item
+            ok = True
+        except ServiceError as e:
+            await context.abort(_status(e.code), str(e))
+        except grpc.aio.AbortError:
+            raise
+        except Exception as e:  # internal bug: surface as INTERNAL, keep serving
+            log.exception("internal error serving PredictStream")
+            await context.abort(grpc.StatusCode.INTERNAL, f"internal error: {e}")
+        finally:
+            self.metrics.observe("PredictStream", time.perf_counter() - t0, ok, model=model)
+
+
+class AioGrpcModelService(_AioServicerBase):
+    """tensorflow.serving.ModelService on the coroutine server.
+    GetModelStatus is a registry read and runs inline; a reload of a
+    --model-config-file server loads and warms whole models, so it runs
+    off the loop (the lifecycle's lock serializes reloads), while a
+    label-only reload runs inline."""
+
+    async def GetModelStatus(self, request, context):
+        return await self._call("GetModelStatus", self.impl.get_model_status, request, context)
+
+    async def HandleReloadConfigRequest(self, request, context):
+        fn = self.impl.handle_reload_config
+        if self.impl.model_lifecycle is not None:
+            fn = self._off_loop(fn)
+        return await self._call("HandleReloadConfigRequest", fn, request, context)
+
+
 class GrpcHealthService:
     """grpc.health.v1 Health: service "" is SERVING once warmup completed
     and a model is loaded, and NOT_SERVING again once the server drains for
@@ -366,6 +527,19 @@ class GrpcHealthService:
 
     def Watch(self, request, context):
         context.abort(grpc.StatusCode.UNIMPLEMENTED, "Watch not implemented")
+
+
+class AioGrpcHealthService(GrpcHealthService):
+    """The same status logic on the coroutine server (its abort awaits)."""
+
+    async def Check(self, request, context):
+        st = self._status(request.service)
+        if st is None:
+            await context.abort(grpc.StatusCode.NOT_FOUND, f"unknown service {request.service!r}")
+        return health_proto.HealthCheckResponse(status=st)
+
+    async def Watch(self, request, context):
+        await context.abort(grpc.StatusCode.UNIMPLEMENTED, "Watch not implemented")
 
 
 def _add_uds_port(server, uds_path: str) -> None:
@@ -422,6 +596,33 @@ def create_server(
         port = server.add_secure_port(address, credentials)
     else:
         port = server.add_insecure_port(address)
+    if port == 0:
+        raise RuntimeError(f"could not bind {address}")
+    if uds_path:
+        _add_uds_port(server, uds_path)
+    return server, port
+
+
+def create_server_async(
+    impl: PredictionServiceImpl,
+    address: str = "127.0.0.1:0",
+    metrics: ServerMetrics | None = None,
+    uds_path: str | None = None,
+) -> tuple[grpc.aio.Server, int]:
+    """Build (not start) a grpc.aio server with PredictionService,
+    ModelService and grpc.health.v1 on one port; returns (server,
+    bound_port). Call it on (or start it from) the event loop that will
+    own it. `uds_path` binds a Unix-domain socket as well; every
+    PredictionService and ModelService RPC is observed into `metrics` (a
+    new ServerMetrics when None)."""
+    server = grpc.aio.server(
+        options=list(LARGE_MESSAGE_CHANNEL_OPTIONS) + list(KEEPALIVE_SERVER_OPTIONS),
+    )
+    metrics = metrics or ServerMetrics()
+    add_PredictionServiceServicer_to_server(AioGrpcPredictionService(impl, metrics), server)
+    add_ModelServiceServicer_to_server(AioGrpcModelService(impl, metrics), server)
+    add_HealthServicer_to_server(AioGrpcHealthService(impl), server)
+    port = server.add_insecure_port(address)
     if port == 0:
         raise RuntimeError(f"could not bind {address}")
     if uds_path:
@@ -763,7 +964,8 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                 seed: int = 0, fused_kernel: bool = True,
                 kernels_config: KernelsConfig | None = None,
                 checkpoint=None, model_base_path=None,
-                batching_config: BatchingConfig | None = None):
+                batching_config: BatchingConfig | None = None,
+                transport_config: TransportConfig | None = None):
     """(impl, batcher, servable): the servable serving at start, warmed
     through every bucket (unless `cfg.warmup` is off), and a started
     batcher. The servable is the numpy-seeded demo (`seed`), the checkpoint
@@ -790,9 +992,10 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     prepared in this mode (its decisions stay empty: the baseline serves).
 
     The batcher reads back at `cfg.output_wire_dtype` and `output_top_k`;
-    `batching_config.stream_chunk_candidates` is PredictStream's default
-    split. The source options are checked, and a model config file parsed,
-    before any thread starts."""
+    `batching_config` sets its in-flight window and pad buffer ring and
+    PredictStream's default split; `transport_config.response_arena` turns
+    on the service's encode arenas. The source options are checked, and a
+    model config file parsed, before any thread starts."""
     if checkpoint and model_base_path:
         raise ValueError(
             "--model-base-path is mutually exclusive with --checkpoint "
@@ -809,12 +1012,17 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                 "--model-config-file; put per-model version_labels maps in the config "
                 "file's model entries instead")
         model_configs = _parse_model_server_config(cfg.model_config_file)
+    bc = batching_config or BatchingConfig()
+    if bc.inflight_window or bc.buffer_ring:
+        log.info("batching pipeline: depth=%d inflight_window=%s buffer_ring=%s",
+                 cfg.pipeline_depth, bc.inflight_window or "unbounded", bc.buffer_ring)
     batcher = DynamicBatcher(
         buckets=cfg.buckets, max_wait_us=cfg.max_wait_us, device=device,
         queue_capacity_candidates=cfg.queue_capacity_candidates,
         fused_kernel=fused_kernel, completion_workers=cfg.completion_workers,
         pipeline_depth=cfg.pipeline_depth, output_wire_dtype=cfg.output_wire_dtype,
-        output_top_k=cfg.output_top_k,
+        output_top_k=cfg.output_top_k, inflight_window=bc.inflight_window,
+        buffer_ring=bc.buffer_ring,
     )
     kernels = kernels_config.build() if kernels_config is not None else None
     batcher.kernels = kernels
@@ -822,8 +1030,10 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     impl = PredictionServiceImpl(registry, batcher)
     impl.warmup_complete = False
     impl.int8_score_wire = kernels is not None and kernels.config.int8_score_wire
-    if batching_config is not None:
-        impl.stream_chunk_candidates = batching_config.stream_chunk_candidates
+    impl.stream_chunk_candidates = bc.stream_chunk_candidates
+    if transport_config is not None and transport_config.response_arena:
+        impl.response_arena = True
+        log.info("response-encode arenas on ([transport] response_arena)")
 
     def prepare_kernels(servable) -> None:
         if kernels is None or servable is None:
@@ -1033,7 +1243,7 @@ def serve(argv=None) -> None:
         impl, batcher, servable = build_stack(
             cfg, model_config, args.device, args.seed, kernels_config=kernels_config,
             checkpoint=args.checkpoint, model_base_path=args.model_base_path,
-            batching_config=batching_config,
+            batching_config=batching_config, transport_config=transport_config,
         )
     except BaseException:
         if request_logger is not None:

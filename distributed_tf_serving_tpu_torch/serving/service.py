@@ -16,19 +16,26 @@ with each submit.
 Status codes: unknown model/version/signature -> NOT_FOUND; malformed
 tensors and signature mismatches -> INVALID_ARGUMENT; oversized batches and
 a full queue -> RESOURCE_EXHAUSTED; an expired deadline ->
-DEADLINE_EXCEEDED; other batcher failures, and any inference RPC once the
-server drains for shutdown -> UNAVAILABLE.
+DEADLINE_EXCEEDED; an open circuit breaker (batcher.DeviceWedgedError),
+other batcher failures, and any inference RPC once the server drains for
+shutdown -> UNAVAILABLE; an injected fault (faults.py, at `decode` here or
+at a batcher site) -> the code its rule names.
+
+With `response_arena` ([transport] response_arena) the response encodes and
+the Example decoder take their scratch from a per-thread codec.EncodeArena,
+and each PredictStream reuses one chunk message.
 """
 
 from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import threading
 import time
 
 import numpy as np
 
-from .. import codec
+from .. import codec, faults
 from ..models.registry import (
     ModelNotFoundError,
     Servable,
@@ -41,7 +48,13 @@ from ..proto import serving_apis_pb2 as apis
 from ..proto import tf_framework_pb2 as fw
 from ..utils import tracing
 from ..utils.tracing import request_trace
-from .batcher import BatchTooLargeError, DynamicBatcher, QueueOverloadError, RequestDeadlineError
+from .batcher import (
+    BatchTooLargeError,
+    DeviceWedgedError,
+    DynamicBatcher,
+    QueueOverloadError,
+    RequestDeadlineError,
+)
 from .example_codec import ExampleDecodeError, decode_input
 
 SIGNATURE_DEF_FIELD = "signature_def"
@@ -108,6 +121,22 @@ class PredictionServiceImpl:
         # Set once shutdown starts (server.GracefulShutdown): every new
         # inference RPC is refused UNAVAILABLE while accepted work ends.
         self.draining = False
+        # Reusable encode scratch ([transport] response_arena): a per-thread
+        # codec.EncodeArena for the response encodes and the Example
+        # decoder, and one reused chunk message per PredictStream. Off =
+        # allocate per call.
+        self.response_arena = False
+        self._arenas = threading.local()
+
+    def _arena(self) -> codec.EncodeArena | None:
+        """The calling thread's EncodeArena, or None with response_arena
+        off. Per thread: an arena is single-owner scratch."""
+        if not self.response_arena:
+            return None
+        arena = getattr(self._arenas, "arena", None)
+        if arena is None:
+            arena = self._arenas.arena = codec.EncodeArena()
+        return arena
 
     # Cache, overload, utilization, quality, lifecycle, recovery, cascade,
     # integrity (ROADMAP.md Queue A item 6), fleet (item 8), mesh and
@@ -300,9 +329,15 @@ class PredictionServiceImpl:
         failure (the transport answers INTERNAL)."""
         if isinstance(exc, (BatchTooLargeError, QueueOverloadError)):
             return ServiceError("RESOURCE_EXHAUSTED", str(exc))
+        if isinstance(exc, DeviceWedgedError):
+            return ServiceError("UNAVAILABLE", str(exc))
         if isinstance(exc, RequestDeadlineError):
             # The batcher shed the queued item itself: nothing to withdraw.
             return ServiceError("DEADLINE_EXCEEDED", str(exc))
+        if isinstance(exc, faults.InjectedFaultError):
+            # An injected fault at a batcher site keeps its code instead of
+            # falling into the RuntimeError catch-all below.
+            return ServiceError(exc.code_name, str(exc))
         if isinstance(exc, concurrent.futures.TimeoutError):
             # Withdraw the work: a cancelled item is skipped by the batcher.
             if fut is not None:
@@ -357,6 +392,10 @@ class PredictionServiceImpl:
                 f"{signature.method_name!r}; use the matching RPC instead of Predict",
             )
         with request_trace.span("predict.decode"):
+            try:
+                faults.fire("decode")
+            except faults.InjectedFaultError as e:
+                raise ServiceError(e.code_name, str(e)) from e
             arrays = self._decode_and_validate(servable, signature, request.inputs)
         sig_outputs = signature.output_names
         if request.output_filter:
@@ -387,14 +426,16 @@ class PredictionServiceImpl:
         float_val, which is empty if the reply uses tensor_content."""
         return any(request.inputs[name].tensor_content for name in request.inputs)
 
-    @staticmethod
-    def _encode_outputs(out_names, outputs, dest, mirror: bool) -> None:
+    def _encode_outputs(self, out_names, outputs, dest, mirror: bool) -> None:
         """The one per-tensor encode loop of unary responses and stream
         chunks, so their wire encodings cannot drift. `dest` is the
-        message's outputs map."""
+        message's outputs map. The thread's arena (response_arena) is
+        filled and copied into the message within one call: nothing awaits
+        in between."""
+        arena = self._arena()
         for name in out_names:
             codec.from_ndarray(np.asarray(outputs[name]), use_tensor_content=mirror,
-                               out=dest[name])
+                               out=dest[name], arena=arena)
 
     def predict(self, request: apis.PredictRequest, deadline_s: float | None = None,
                 int8_wire: bool = False) -> apis.PredictResponse:
@@ -490,12 +531,19 @@ class PredictionServiceImpl:
         return servable, out_names, self._mirror_content(request), total, futs
 
     def _encode_stream_chunk(self, request, servable, out_names, outputs, off: int, cnt: int,
-                             total: int, final: bool, mirror: bool) -> apis.PredictStreamChunk:
+                             total: int, final: bool, mirror: bool,
+                             msg=None) -> apis.PredictStreamChunk:
         """One sub-batch's outputs as a PredictStreamChunk (the unary
-        response's encode loop)."""
+        response's encode loop). `msg` is the stream's one reused chunk
+        (response_arena), cleared and refilled: gRPC serializes a yielded
+        message before the generator resumes, sync or coroutine."""
         self._check_produced(out_names, outputs)
         with request_trace.span("predict.encode"):
-            chunk = apis.PredictStreamChunk()
+            if msg is None:
+                chunk = apis.PredictStreamChunk()
+            else:
+                chunk = msg
+                chunk.Clear()
             chunk.model_spec.CopyFrom(
                 self._echo_spec(servable, request.model_spec.signature_name or "serving_default")
             )
@@ -520,6 +568,7 @@ class PredictionServiceImpl:
         deadline_t = self._clock_deadline(deadline_s)
         give_up_t = time.perf_counter() + self._effective_timeout(deadline_s)
         servable, out_names, mirror, total, futs = self._stream_submit(request, deadline_t, chunk)
+        reuse = apis.PredictStreamChunk() if self.response_arena else None
         pending = set(futs)
         emitted = 0
         try:
@@ -542,11 +591,55 @@ class PredictionServiceImpl:
                     emitted += 1
                     yield self._encode_stream_chunk(
                         request, servable, out_names, outputs, off, cnt, total,
-                        final=emitted == len(futs), mirror=mirror)
+                        final=emitted == len(futs), mirror=mirror, msg=reuse)
         except BaseException:
             # Failure, deadline or a client gone: withdraw what is queued.
             for f in pending:
                 f.cancel()
+            raise
+        self._log_request("predict", request)
+
+    async def predict_stream_async(self, request: apis.PredictRequest,
+                                   deadline_s: float | None = None, chunk: int | None = None):
+        """predict_stream for coroutine servers: an async generator that
+        awaits each sub-batch's completion instead of blocking a thread
+        between chunks. The same split, encode, status codes and
+        withdrawal."""
+        self._refuse_if_draining()
+        deadline_t = self._clock_deadline(deadline_s)
+        give_up_t = time.perf_counter() + self._effective_timeout(deadline_s)
+        servable, out_names, mirror, total, futs = self._stream_submit(request, deadline_t, chunk)
+        reuse = apis.PredictStreamChunk() if self.response_arena else None
+        wrapped = {asyncio.wrap_future(f): f for f in futs}
+        pending = set(wrapped)
+        emitted = 0
+        try:
+            while pending:
+                left = give_up_t - time.perf_counter()
+                if left <= 0:
+                    raise ServiceError(
+                        "DEADLINE_EXCEEDED",
+                        f"deadline expired mid-stream ({emitted}/{len(futs)} sub-batches "
+                        "delivered)",
+                    )
+                done, pending = await asyncio.wait(pending, timeout=left,
+                                                   return_when=asyncio.FIRST_COMPLETED)
+                for task in done:
+                    try:
+                        outputs = task.result()
+                    except Exception as e:  # noqa: BLE001 — the translator re-raises the rest
+                        raise self._translate_batcher_error(e, wrapped[task]) from e
+                    off, cnt = futs[wrapped[task]]
+                    emitted += 1
+                    yield self._encode_stream_chunk(
+                        request, servable, out_names, outputs, off, cnt, total,
+                        final=emitted == len(futs), mirror=mirror, msg=reuse)
+        except BaseException:
+            for task in pending:
+                task.cancel()
+            for f in wrapped.values():
+                if not f.done():
+                    f.cancel()
             raise
         self._log_request("predict", request)
 
@@ -555,7 +648,8 @@ class PredictionServiceImpl:
     def _examples_prepare(self, request) -> tuple[Servable, dict[str, np.ndarray]]:
         servable, _ = self._resolve(request.model_spec)
         try:
-            arrays = decode_input(request.input, servable.model.config.num_fields)
+            arrays = decode_input(request.input, servable.model.config.num_fields,
+                                  arena=self._arena())
         except ExampleDecodeError as e:
             raise ServiceError("INVALID_ARGUMENT", str(e)) from e
         return servable, arrays

@@ -6,9 +6,8 @@ batching-parameters file onto [server].
 The JAX package's config files load unchanged, with one rule: a setting
 that would change what is served, logged or admitted but is not ported
 here is refused with a ValueError naming the ROADMAP.md Queue A item that
-ports it, never dropped. That covers the mesh and pipeline knobs of
-[server] and [batching] and a plane section ([cache], [overload], ...)
-switched on. What changes no result here is ignored with one log line: the
+ports it, never dropped. That covers the mesh knobs of [server] and a
+plane section ([cache], [overload], ...) switched on. What changes no result here is ignored with one log line: the
 transfer knobs of [server], the [client] section, and a plane section that
 is off ([overload] drain_grace_s still feeds the shutdown drain). A section
 or key the JAX package does not know either raises, as there.
@@ -94,35 +93,50 @@ class ServerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BatchingConfig:
-    """The [batching] section: the dispatch pipeline's depth and the
-    PredictStream sub-batch split. The JAX package's other [batching] keys
-    (inflight_window, buffer_ring) load at their defaults and are refused
-    otherwise (not ported yet)."""
+    """The [batching] section: the dispatch pipeline's depth, the in-flight
+    window, the pad buffer ring and the PredictStream sub-batch split. The
+    JAX package's fields, defaults, checks and messages."""
 
     # 0 = inherit [server] pipeline_depth; >= 1 otherwise.
     pipeline_depth: int = 0
+    # Max live batches executing or awaiting their readback at once: at the
+    # bound the dispatch thread waits for a completion before issuing the
+    # next. 0 = unbounded.
+    inflight_window: int = 0
+    # Recycle the padded-batch host buffers of the batch.pad path (each
+    # back once its batch's readback is done).
+    buffer_ring: bool = False
     # Default candidates per PredictStream sub-batch (the server-side
     # split; a request's x-dts-stream-chunk metadata overrides it). 0 = no
     # split: PredictStream answers with one chunk.
     stream_chunk_candidates: int = 0
 
     def __post_init__(self):
-        for name in ("pipeline_depth", "stream_chunk_candidates"):
+        for name in ("pipeline_depth", "inflight_window", "stream_chunk_candidates"):
             v = getattr(self, name)
             if not isinstance(v, int) or isinstance(v, bool) or v < 0:
-                raise ValueError(f"[batching] {name} must be a non-negative integer, got {v!r}")
+                raise ValueError(
+                    f"[batching] {name} must be a non-negative integer, "
+                    f"got {v!r}"
+                )
+        if self.inflight_window and self.inflight_window > 64:
+            raise ValueError(
+                "[batching] inflight_window > 64 would pin that many "
+                "batches of HBM at once; this is almost certainly a typo"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
 class TransportConfig:
     """The [transport] section: the Unix-domain-socket listener for
-    co-located clients. The JAX package's response_arena parses and is
-    refused (not ported)."""
+    co-located clients, and the reusable response-encode arenas."""
 
     # Also bind the gRPC server to this Unix-domain socket path, next to
     # the TCP port; co-located clients dial "unix:<path>". "" = TCP only.
     uds_path: str = ""
-    # Not ported; the key parses so the JAX package's config files load.
+    # Encode responses (and decode Examples) through a per-thread
+    # codec.EncodeArena, and reuse one PredictStreamChunk per stream,
+    # instead of allocating per call.
     response_arena: bool = False
 
     def __post_init__(self):
@@ -141,11 +155,6 @@ class TransportConfig:
                     "[transport] uds_path is a filesystem path, not a "
                     f"host:port or URI: {self.uds_path!r}"
                 )
-        if self.response_arena:
-            raise ValueError(
-                "[transport] response_arena is not ported yet (ROADMAP.md Queue A "
-                "item 2)"
-            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -271,7 +280,6 @@ _IGNORED_KEYS = {"server": ("compress_transfer", "async_readback", "pipelined_di
 # loads; the ROADMAP.md Queue A item that ports the rest).
 _UNPORTED_KEYS = {
     "server": {"mesh_devices": (0, 9), "model_parallel": (1, 9), "tensor_parallel": (False, 9)},
-    "batching": {"inflight_window": (0, 4), "buffer_ring": (False, 4)},
 }
 # Sections of the JAX package that are not ported: section -> (its keys,
 # the keys that switch it on, the ROADMAP.md Queue A item). A section

@@ -671,6 +671,18 @@ class ServerMetrics:
                 _family_lines(lines, bm, "gauge")
                 for bucket, n in sorted(per_bucket.items()):
                     lines.append(f'{bm}{{bucket="{esc(bucket)}"}} {n}')
+            ring = pipeline.get("buffer_ring")
+            if ring is not None:
+                for metric, kind, value in (
+                    ("dts_tpu_pipeline_buffer_ring_reuses_total", "counter",
+                     ring.get("reuses", 0)),
+                    ("dts_tpu_pipeline_buffer_ring_allocs_total", "counter",
+                     ring.get("allocs", 0)),
+                    ("dts_tpu_pipeline_buffer_ring_free", "gauge",
+                     ring.get("free_buffers", 0)),
+                ):
+                    _family_lines(lines, metric, kind)
+                    lines.append(f"{metric} {value}")
         if kernels is not None:
             lines.extend(_kernel_prometheus_lines(kernels))
         return "\n".join(lines) + "\n"

@@ -285,13 +285,9 @@ def _toml(tmp_path, text):
 def test_config_pipeline_knobs_match_jax(tmp_path, text):
     path = _toml(tmp_path, text)
     theirs = jax_load_config(path)
-    if theirs["batching"].inflight_window:
-        # The port refuses the in-flight window it has not ported, rather
-        # than serve without it (ROADMAP.md Queue A item 4).
-        with pytest.raises(ValueError, match="inflight_window .* Queue A item 4"):
-            load_config(path)
-        return
-    ours = load_config(path)["server"]
+    loaded = load_config(path)
+    assert loaded["batching"].inflight_window == theirs["batching"].inflight_window
+    ours = loaded["server"]
     js = theirs["server"]
     assert ours.completion_workers == js.completion_workers
     # The JAX server's rule: a nonzero [batching] pipeline_depth wins.

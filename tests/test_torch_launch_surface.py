@@ -84,8 +84,6 @@ def _toml(tmp_path, text):
 # ------------------------------------------------------------ the config rule
 
 REFUSED = [
-    ("[batching]\ninflight_window = 4\n", 4),
-    ("[batching]\nbuffer_ring = true\n", 4),
     ("[server]\nmesh_devices = 8\n", 9),
     ("[server]\nmodel_parallel = 2\n", 9),
     ("[server]\ntensor_parallel = true\n", 9),
@@ -101,7 +99,6 @@ REFUSED = [
     ("[integrity]\nenabled = true\n", 6),
     ("[fleet]\nenabled = true\n", 8),
     ("[slo]\nenabled = true\n", 8),
-    ("[transport]\nresponse_arena = true\n", 2),
 ]
 
 
@@ -111,6 +108,23 @@ def test_a_setting_that_is_not_ported_is_refused_with_its_item(tmp_path, text, i
     with pytest.raises(ValueError, match=f"not ported yet \\(ROADMAP.md Queue A item {item}\\)"):
         load_config(_toml(tmp_path, text))
     jax_config.load_config(_toml(tmp_path, text))  # the JAX package loads it
+
+
+# Refused until this package ported them; now each loads with the JAX
+# package's value.
+PORTED = [
+    ("[batching]\ninflight_window = 4\n", "batching", "inflight_window", 4),
+    ("[batching]\nbuffer_ring = true\n", "batching", "buffer_ring", True),
+    ("[transport]\nresponse_arena = true\n", "transport", "response_arena", True),
+]
+
+
+@pytest.mark.parametrize("text,section,key,value", PORTED,
+                         ids=[f"{key}@{section}" for _, section, key, _ in PORTED])
+def test_a_setting_ported_since_loads_like_jax(tmp_path, text, section, key, value):
+    ours = getattr(load_config(_toml(tmp_path, text))[section], key)
+    theirs = getattr(jax_config.load_config(_toml(tmp_path, text))[section], key)
+    assert ours == theirs == value
 
 
 IGNORED = [

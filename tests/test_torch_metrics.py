@@ -100,6 +100,21 @@ def test_prometheus_text_equals_the_jax_package_s(with_stats, with_pipeline):
     assert lint_text(got) == []
 
 
+@pytest.mark.parametrize("window,ring", [(4, None), (1, {"reuses": 24, "allocs": 6,
+                                                          "free_buffers": 6})])
+def test_window_and_buffer_ring_series_are_the_jax_package_s(window, ring):
+    jm, tm, clock = _pair(window_s=30.0)
+    _observe_all(jm, tm, clock, 2)
+    pipeline = {**PIPELINE, "inflight_window": window, "inflight_window_waits": 3}
+    if ring is not None:
+        pipeline["buffer_ring"] = ring
+    got = tm.prometheus_text(pipeline=pipeline)
+    assert got == jm.prometheus_text(pipeline=pipeline)
+    assert lint_text(got) == []
+    assert ("dts_tpu_pipeline_buffer_ring_reuses_total 24" in got.splitlines()) == \
+        (ring is not None)
+
+
 def test_kernel_series_are_the_jax_package_s_and_lint_clean():
     kernels = {
         "counters": {"autotunes": 1, "table_reuses": 0, "quantized_batches": 3,

@@ -666,12 +666,18 @@ def test_new_keys_default_like_jax():
     ("[batching]\nstream_chunk_candidates = -1\n", "non-negative"),
     ("[transport]\nuds_path = \"localhost:9999\"\n", "host:port"),
     ("[transport]\nuds_path = \"/" + "x" * 200 + "\"\n", "AF_UNIX"),
-    ("[transport]\nresponse_arena = true\n", "response_arena.*ROADMAP"),
     ("[transport]\nnot_a_knob = 1\n", "not_a_knob"),
 ])
 def test_bad_values_are_refused(tmp_path, text, match):
     with pytest.raises(ValueError, match=match):
         load_config(_toml(tmp_path, text))
+
+
+@pytest.mark.parametrize("text", ["[transport]\nresponse_arena = true\n"])
+def test_response_arena_loads_like_jax(tmp_path, text):
+    path = _toml(tmp_path, text)
+    assert load_config(path)["transport"].response_arena is \
+        jax_load_config(path)["transport"].response_arena is True
 
 
 @pytest.mark.parametrize("text", [
