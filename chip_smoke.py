@@ -74,7 +74,8 @@ Phases (any failure exits non-zero and prints no result line):
              during their requests.
 5. host    — the serving host path (serving/batcher.py). Over each server's
              counted requests every batch must be one combined buffer and
-             one H2D copy, every bf16 batch packed by the native
+             one H2D copy or a hit of the device input cache (copies + hits
+             = batches), every other bf16 batch packed by the native
              pack_batch_u24_bf16, and the readback must overlap (a
              completion worker waits for it). Then, on every server, the
              combined path's scores must have the bits of the per-key
@@ -212,7 +213,7 @@ Phases (any failure exits non-zero and prints no result line):
              and one gRPC Predict with a known traceparent. Checks:
              /monitoring counts REST.Predict, REST.Classify and Predict
              exactly as sent and has batcher, pipeline, kernels and phases
-             blocks (batch.fusedpack, batch.jitcall, readback.wait counted);
+             blocks (batch.cache, batch.jitcall, readback.wait counted);
              the Prometheus text passes tools/check_prom.py and carries the
              REST.Predict request_count and dts_tpu_kernel_* lines; /tracez
              holds both trace ids (roots server.REST.Predict and
@@ -225,6 +226,67 @@ Phases (any failure exits non-zero and prints no result line):
              at n = 7 and 1000 with --tracing and, on a second server of the
              same tree, without it.
 
+11. aio   — the coroutine gRPC server and the batcher's failure paths:
+             build_stack with [kernels] adopting the rest phase's table and
+             [transport] response_arena, the aio and a sync server on one
+             impl (20 Predicts per size 7 / 500 / 1000 / 2048, every aio
+             answer bit-identical to the sync one; Classify / Regress;
+             PredictStream n = 2048 in 256-row chunks), launches counted over
+             those requests (`launches_aio`), a closed loop of 1000 Predicts
+             of n = 1000 at 4 and 16 clients (sync / aio / aio / sync), the
+             wedge breaker at 2 s on a second stack (UNAVAILABLE in under a
+             second, the queued call too), each fault site's status code,
+             inflight_window = 1 under 4 clients of n = 2048 and buffer_ring
+             on dcn_v2 in f32.
+
+12. cache — the cache plane (cache/, serving/batcher.py's score cache,
+             row cache, dedup and DeviceInputCache, [cache], /cachez): two
+             stacks from build_stack on configs/latency.toml with [kernels]
+             adopting the rest phase's table, one with [cache] enabled,
+             dedup and row_granular, one without, each on a sync gRPC server;
+             a zipfian catalog of 4096 rows (ids uniform in [0, 2^20),
+             weights uniform, skew 1.2) from the seed. In order: (1) a fresh
+             n = 1000 Predict and 5 repeats: the repeats answer its bits, run
+             no batch, count >= 5 hits; (2) one fresh payload from 8 threads
+             while a `delay` rule holds the leader's dispatch 0.2 s: one
+             batch, >= 7 coalesced, 8 identical answers; (3) A = 1000
+             catalog rows, then B = A's first 900 + 100 fresh rows: B runs
+             100 rows in bucket 256 (rows_executed +100, padded_candidates
+             +256), its hot rows have A's bits, its cold rows the bits of the
+             cache-off server's Predict of those 100 rows; B reversed is a
+             full row hit (row_full_hit_batches +1, no batch, no launch);
+             (4) 2048 rows over 200 fresh distinct rows: 1848 collapsed,
+             bucket 256, the bits of the cache-off server's Predict of the
+             200 distinct rows (in the batch's digest order) scattered back;
+             every answer within 5e-3 of the plain forward on the tree each
+             bucket's decision picked; the launch counters, zeroed before (1)
+             and read after (4), less the launches of the two cache-off
+             reference Predicts of (3) and (4), give `launches_cache`, and
+             every kernel the decisions of the buckets used pick must have
+             launched; (6) on the cache-off stack 20 x one n = 2048 payload
+             (>= 19 input-cache hits, copies + hits = batches, identical
+             answers), 20 distinct n = 2048 payloads (20 misses), then,
+             re-armed, 70 distinct n = 256 payloads (the bypass engages, the
+             store is empty); printed: batch.cache per batch on a hit and on a
+             miss (median and extremes) beside the native pack and the H2D
+             copy of a batcher without the cache;
+             (7) 4 clients x 250 Predicts of n = 1000 drawn from the catalog
+             (one seeded stream, replayed by every run; each cache-on run
+             starts from flushed stores), cache off / on / on / off: p50,
+             p99, QPS, hit rates and rows_executed / rows_requested,
+             recorded; (5) version 2 (seed
+             1) loaded through the server's own watcher (its hook
+             invalidates both stores): invalidations > 0, and the next
+             repeat of (1) runs one batch and answers version 2 (after (7),
+             which compares the stacks on version 1); (8) the REST gateway
+             in process: /cachez equals cache_stats() with row_cache_stats(),
+             dts_tpu_cache_hits_total the snapshot's hits, POST
+             /cachez/flush drops every entry and the next repeat misses.
+
+The lifecycle and models phases clear the device input cache before each
+memory read (its entries belong to the batcher, not to a version) and print
+the bytes it held.
+
 Prints one `{"kernels": [...]}` line (one entry per kernel and compute
 dtype, the f32 ones named `<kernel>_f32`: the rule row at 2048 rows; the
 main paths' launches, `launches` = the serving phase's plus the outputs
@@ -233,7 +295,9 @@ zeroed just before it and read just after; the lifecycle path's launches
 (`launches_lifecycle`); and every row under "by_shape"; the families
 phase launches none; the models server's count from its start to its exit,
 `launches_models`; the REST path's, `launches_rest`, and the REST CLI
-server's from its start to its exit, `launches_rest_server`), the
+server's from its start to its exit, `launches_rest_server`; the aio
+path's, `launches_aio`; the cache-on stack's over the cache phase's steps
+1-4, `launches_cache`), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. Every line it
 logs is also kept in chiprun_out/chip_smoke.log.
 """
@@ -1027,23 +1091,27 @@ def host_path(dev, batcher, servable, stub, port, payload) -> dict:
     return out
 
 
-def host_path_counts(label: str, servable, s0, s1) -> dict:
+def host_path_counts(label: str, servable, s0, s1, input_hits: int) -> dict:
     """The host path of one server's counted requests, from its BatcherStats
-    before (s0) and after (s1): every batch one combined buffer and one
-    host-to-device copy; a bf16 server's every batch packed natively; the
-    readback overlapped (a completion worker, not the dispatch thread,
+    before (s0) and after (s1) and the device input cache's hits in the
+    same window: every batch one combined buffer and one host-to-device
+    copy, or an input-cache hit (neither pack nor copy), so copies + hits
+    = batches exactly; a bf16 server's every other batch packed natively;
+    the readback overlapped (a completion worker, not the dispatch thread,
     waited for it)."""
     d = {k: getattr(s1, k) - getattr(s0, k) for k in (
         "batches", "requests", "native_packs", "h2d_copies",
         "readback_window_s", "readback_blocked_s")}
+    d["input_cache_hits"] = input_hits
     window = d["readback_window_s"]
     d["readback_overlap_fraction"] = 1 - d["readback_blocked_s"] / window if window > 0 else 0.0
     bf16 = servable.model.config.compute_dtype == "bfloat16"
-    want_native = d["batches"] if bf16 else 0
-    log(f"serving: {label} host path: {d['batches']} batches, {d['h2d_copies']} H2D copies, {d['native_packs']} native packs, readback overlap "
+    want_native = d["batches"] - input_hits if bf16 else 0
+    log(f"serving: {label} host path: {d['batches']} batches, {d['h2d_copies']} H2D copies, "
+        f"{input_hits} input-cache hits, {d['native_packs']} native packs, readback overlap "
         f"{d['readback_overlap_fraction']:.3f}")
-    if not d["batches"] or d["batches"] != d["h2d_copies"]:
-        fail(f"{label}: not one combined buffer and one H2D copy per batch: {d}")
+    if not d["batches"] or d["batches"] != d["h2d_copies"] + input_hits:
+        fail(f"{label}: H2D copies + input-cache hits != batches: {d}")
     if d["native_packs"] != want_native:
         fail(f"{label}: {d['native_packs']} native packs for {d['batches']} batches "
              f"({'bf16' if bf16 else 'f32'}: want {want_native})")
@@ -1180,6 +1248,7 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
         builds0 = ck.cross_cache.builds
         for label, impl, batcher, servable, server, port in built:
             s0 = dataclasses.replace(batcher.stats)
+            hits0 = batcher.input_cache.hits
             if server is not None:
                 from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
                 from distributed_tf_serving_tpu_torch.proto.service_grpc import (
@@ -1238,7 +1307,8 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
                 "per_size": per_size,
                 "batches": batcher.stats.batches,
                 "fused_batches": batcher.stats.fused_batches,
-                "host_path": host_path_counts(label, servable, s0, batcher.stats),
+                "host_path": host_path_counts(label, servable, s0, batcher.stats,
+                                              batcher.input_cache.hits - hits0),
             }
             if km is not None:
                 # The pallas_int8 entry live traffic uses, on the same
@@ -1424,12 +1494,19 @@ def retire_memory(base, buckets, fused: bool, payload) -> dict:
         VersionWatcherConfig,
     )
 
+    cached = []  # the device input cache's bytes at each read
+
     def allocated() -> int:
         gc.collect()
         torch.cuda.synchronize()
         clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
         if clear is not None:
             clear()
+        # The device input cache belongs to the batcher, not to a version:
+        # its entries stay resident, so their bytes are reported and the
+        # cache is cleared before the read.
+        cached.append(batcher.input_cache.nbytes())
+        batcher.input_cache.clear()
         return torch.cuda.memory_allocated()
 
     batcher = DynamicBatcher(buckets=buckets, max_wait_us=0, device="cuda",
@@ -1463,6 +1540,8 @@ def retire_memory(base, buckets, fused: bool, payload) -> dict:
             time.sleep(0.005)
         return {"before_load": before, "loaded": loaded, "after_retire": after,
                 "retained_bytes": after - before, "cross_cache_entries": len(ck.cross_cache),
+                "input_cache_bytes_cleared": {"before_load": cached[0],
+                                              "after_retire": max(cached[1:])},
                 "servable_collected": ref() is None, "table_collected": table() is None,
                 "drain_s": drain_s, "settle_s": time.perf_counter() - t1,
                 "load_timings": w.load_timings.get(1)}
@@ -1758,7 +1837,9 @@ def phase_lifecycle(dev, name: str) -> dict:
                 f"{m['loaded']} B loaded, {m['after_retire']} B after the retire "
                 f"(retained {m['retained_bytes']} B; the version died {m['drain_s']:.3f} s "
                 f"after the retire, its bytes were freed {m['settle_s']:.4f} s later; "
-                f"cross cache {m['cross_cache_entries']} entries; read {m['load_timings'].get('read_s', float('nan')):.4f} s, "
+                f"cross cache {m['cross_cache_entries']} entries; device input cache "
+                f"{m['input_cache_bytes_cleared']} B cleared before the reads; "
+                f"read {m['load_timings'].get('read_s', float('nan')):.4f} s, "
                 f"H2D {m['load_timings'].get('copy_s', float('nan')):.4f} s) ({name})")
             if not m["servable_collected"] or not m["table_collected"]:
                 fail(f"lifecycle: {label}: the retired version is still alive (servable "
@@ -2801,7 +2882,8 @@ def phase_models(dev, name: str) -> dict:
             f"{res['memory']['replayed']} records; memory: {res['memory']['before_load']} B "
             f"before CTR_F32 was loaded, {res['memory']['loaded']} B loaded, "
             f"{res['memory']['after_drop']} B after its drop (retained "
-            f"{res['memory']['retained_bytes']} B) ({name})")
+            f"{res['memory']['retained_bytes']} B; device input cache "
+            f"{res['memory']['input_cache_bytes_cleared']} B cleared before the reads) ({name})")
     finally:
         for proc, logf in procs:
             _stop_cli(proc, logf)
@@ -2825,12 +2907,19 @@ def _models_memory(config_file: str, cfg, base: str, replay_file: str, payloads)
     from distributed_tf_serving_tpu_torch.serving.server import build_stack
     from distributed_tf_serving_tpu_torch.serving.warmup import replay_warmup_file
 
+    cached = []  # the device input cache's bytes at each read
+
     def allocated() -> int:
         gc.collect()
         torch.cuda.synchronize()
         clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
         if clear is not None:
             clear()
+        # The device input cache belongs to the batcher, not to a version:
+        # its entries stay resident, so their bytes are reported and the
+        # cache is cleared before the read.
+        cached.append(batcher.input_cache.nbytes())
+        batcher.input_cache.clear()
         return torch.cuda.memory_allocated()
 
     def reload(names) -> None:
@@ -2869,6 +2958,8 @@ def _models_memory(config_file: str, cfg, base: str, replay_file: str, payloads)
             time.sleep(0.005)
         res = {"replayed": replayed, "before_load": before, "loaded": loaded,
                "after_drop": after, "retained_bytes": after - before,
+               "input_cache_bytes_cleared": {"before_load": cached[0],
+                                             "after_drop": max(cached[1:])},
                "servable_collected": ref() is None, "table_collected": table() is None,
                "drain_s": t1 - t0, "settle_s": time.perf_counter() - t1}
     finally:
@@ -2889,7 +2980,7 @@ REST_PROFILED = 5  # REST Predicts per size of the in-process path under torch.p
 REST_TRACE_IDS = {"rest": "0af7651916cd43dd8448eb211c80319c",
                   "grpc": "4bf92f3577b34da6a3ce929d0e0e4736"}
 REST_SERVICE_PHASES = ("predict.decode", "predict.execute", "predict.encode")
-REST_BATCH_PHASES = ("batch.queue_wait", "batch.dispatch", "batch.fusedpack", "batch.jitcall",
+REST_BATCH_PHASES = ("batch.queue_wait", "batch.dispatch", "batch.cache", "batch.jitcall",
                      "readback.issue", "readback.wait")
 
 
@@ -3057,6 +3148,14 @@ def _rest_profiled_path(dev, kc, cfg, model_cfg, payloads) -> dict:
         b0 = batcher.stats.batches
         ck.reset_launches()  # this path's counts: zeroed just before, read just after
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # The profiler can lose the first launch of its window (seen on
+            # this card after the earlier phases, when that launch came
+            # within ~3 ms of the start): a marker launch, synchronized,
+            # opens the window before the counted traffic, and a pause of
+            # 0.2 s lets the profiler settle.
+            torch.zeros(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+            time.sleep(0.2)
             for n, body in bodies.items():
                 for _ in range(REST_PROFILED):
                     http.json("POST", "/v1/models/DCN:predict", body)
@@ -3303,7 +3402,7 @@ def _rest_monitoring_checks(http, sent: dict) -> dict:
     for block in ("batcher", "pipeline", "kernels", "phases"):
         if block not in mon:
             fail(f"rest: /monitoring has no {block} block: {sorted(mon)}")
-    for phase in ("batch.fusedpack", "batch.jitcall", "readback.wait"):
+    for phase in ("batch.cache", "batch.jitcall", "readback.wait"):
         if mon["phases"].get(phase, {}).get("count", 0) <= 0:
             fail(f"rest: /monitoring phases count no {phase}: {sorted(mon['phases'])}")
     log("rest: /monitoring phases mean_us " + ", ".join(
@@ -3887,6 +3986,534 @@ def phase_aio(dev, name: str) -> dict:
     return res
 
 
+# The cache phase: the cache plane (cache/, the batcher's score cache, row
+# cache, dedup and device input cache) at the width of configs/latency.toml.
+CACHE_N = 1000  # candidates per Predict ([client] candidate_num of latency.toml)
+CACHE_CATALOG = 4096  # distinct candidate rows of the zipfian catalog
+CACHE_SKEW = 1.2  # P(row i) ∝ 1 / (i + 1) ** skew
+CACHE_REPEATS = 5  # repeats of step 1's payload
+CACHE_FLIGHT = (8, 0.2)  # single-flight: threads, the leader's dispatch delay (s)
+CACHE_HOT = 900  # B's rows taken from A; the rest of B's CACHE_N are fresh
+CACHE_DEDUP = (2048, 200)  # dedup: rows of the request, distinct rows among them
+# Input cache: repeats x n, distinct payloads of that n timed as misses,
+# then distinct payloads x n to engage the bypass.
+CACHE_INPUT = (20, 2048, 20, 70, 256)
+CACHE_LOOP = (4, 250)  # zipfian closed loop: clients, Predicts each
+
+
+def _spread(xs: list[float]) -> dict:
+    """Median and extremes of a list of samples."""
+    return {"n": len(xs), "median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+
+def _spread_text(xs: list[float]) -> str:
+    s = _spread(xs)
+    return f"median {s['median']:.1f} [{s['min']:.1f}, {s['max']:.1f}] over {s['n']}"
+
+
+def _zipf_loop(port: int, cat, idx, clients: int) -> dict:
+    """The closed loop of the cache phase: client k sends requests k,
+    k + clients, ... of `idx` (rows of the catalog `cat`), one at a time on
+    its own channel: p50 / p99 / QPS over the wall. The same `idx` replays
+    the same request stream for every server."""
+    import threading
+
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+
+    lat, errors = [], []
+    lock = threading.Lock()
+    chans = [_channel(port) for _ in range(clients)]
+    barrier = threading.Barrier(clients + 1)
+
+    def client(k):
+        stub = PredictionServiceStub(chans[k])
+        mine = []
+        barrier.wait(timeout=120)
+        try:
+            for i in range(k, len(idx), clients):
+                req = _request(cat[0][idx[i]], cat[1][idx[i]])
+                t0 = time.perf_counter()
+                stub.Predict(req, timeout=120)
+                mine.append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+        with lock:
+            lat.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    try:
+        for t in threads:
+            t.start()
+        barrier.wait(timeout=120)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+    finally:
+        for ch in chans:
+            ch.close()
+    if errors:
+        fail(f"cache: the zipfian closed loop failed: {errors[0]!r}")
+    return {**_percentiles(lat), "qps": len(lat) / wall, "requests": len(lat)}
+
+
+def phase_cache(dev, name: str) -> dict:
+    """The cache plane on the card: two stacks from build_stack on
+    configs/latency.toml with [kernels] (the rest phase's table, adopted),
+    one with [cache] enabled, dedup and row_granular, one without, each on
+    a sync gRPC server. Checks in the docstring of the module."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch import codec, faults
+    from distributed_tf_serving_tpu_torch.cache import canonical_rows
+    from distributed_tf_serving_tpu_torch.cache.row_cache import digest_rows, row_structure_header
+    from distributed_tf_serving_tpu_torch.models import Servable, ServableRegistry, build_model
+    from distributed_tf_serving_tpu_torch.models.registry import model_signatures
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.ops.quantize import quantize_params
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.serving.batcher import DynamicBatcher, bucket_for
+    from distributed_tf_serving_tpu_torch.serving.server import (
+        _make_watcher,
+        build_stack,
+        create_server,
+        load_demo_servable,
+    )
+    from distributed_tf_serving_tpu_torch.train.checkpoint import save_servable
+    from distributed_tf_serving_tpu_torch.utils.config import load_config
+    from distributed_tf_serving_tpu_torch.utils.metrics import ServerMetrics
+    from distributed_tf_serving_tpu_torch.utils.tracing import request_trace
+
+    rest_toml = os.path.join(HERE, "chiprun_out", "kernels_plane_rest.toml")
+    on_toml = os.path.join(HERE, "chiprun_out", "cache_on.toml")
+    with open(rest_toml) as f:
+        text = f.read()
+    with open(on_toml, "w") as f:
+        f.write(text + "\n[cache]\nenabled = true\ndedup = true\nrow_granular = true\n")
+    off_loaded, on_loaded = load_config(rest_toml), load_config(on_toml)
+    cfg, model_cfg, kc = off_loaded["server"], off_loaded["model"], off_loaded["kernels"]
+    fields, vocab = model_cfg.num_fields, model_cfg.vocab_size
+    rng = np.random.RandomState(SEED + 7000)
+
+    def fresh(n):
+        return (rng.randint(0, vocab, size=(n, fields)).astype(np.int64),
+                rng.rand(n, fields).astype(np.float32))
+
+    cat = fresh(CACHE_CATALOG)
+    res = {"card": name}
+    servers, chans, batchers, stop_rest = [], [], [], None
+    base = tempfile.mkdtemp(prefix="dts_cache_")
+    try:
+        impl_on, on, _ = build_stack(cfg, model_cfg, "cuda", seed=SEED, kernels_config=kc,
+                                     cache_config=on_loaded["cache"])
+        batchers.append(on)
+        impl_off, off, sv_off = build_stack(cfg, model_cfg, "cuda", seed=SEED, kernels_config=kc)
+        batchers.append(off)
+        if on.score_cache is None or on.row_cache is None or not on.dedup:
+            fail("cache: [cache] enabled / dedup / row_granular did not arm the plane")
+        if off.score_cache is not None or off.row_cache is not None or off.dedup:
+            fail("cache: the cache-off stack armed a store")
+        decisions = on.kernels.snapshot()["decisions"]["DCN:1"]
+        for label, b in (("on", on), ("off", off)):
+            snap = b.kernels.snapshot()
+            if snap["counters"]["table_reuses"] < 1:
+                fail(f"cache: the {label} stack did not adopt the rest phase's autotune table")
+            if snap["decisions"]["DCN:1"] != decisions:
+                fail(f"cache: the two stacks' decisions differ: {snap['decisions']}")
+        res["decisions"] = decisions
+        ports = {}
+        for label, impl in (("on", impl_on), ("off", impl_off)):
+            server, ports[label] = create_server(impl, "127.0.0.1:0")
+            server.start()
+            servers.append(server)
+        stubs = {}
+        for label, port in ports.items():
+            chans.append(_channel(port))
+            stubs[label] = PredictionServiceStub(chans[-1])
+
+        def predict(label, ids, wts):
+            t0 = time.perf_counter()
+            resp = stubs[label].Predict(_request(ids, wts), timeout=120)
+            got = codec.to_ndarray(resp.outputs["prediction_node"])
+            if got.shape != (len(ids),) or not np.all(np.isfinite(got)):
+                fail(f"cache: {label} answered shape {got.shape} for {len(ids)} rows")
+            return got, (time.perf_counter() - t0) * 1e3
+
+        plain_sv = load_demo_servable(ServableRegistry(), kind="dcn_v2", name="DCN", seed=SEED,
+                                      config=model_cfg, device=dev)
+        qparams = quantize_params(plain_sv.params)
+
+        def plain(ids, wts, bucket, sv=None):
+            """The card's plain forward (model.apply) on the tree the
+            decision of `bucket` picked (v2, a hot-loaded version, serves the
+            float baseline)."""
+            params = plain_sv.params if sv is None else sv.params
+            if sv is None and (decisions.get(str(bucket)) or {}).get("quantized"):
+                params = qparams
+            model = plain_sv.model if sv is None else sv.model
+            with torch.inference_mode():
+                return model.apply(params, {
+                    "feat_ids": torch.from_numpy(ids).to(dev),
+                    "feat_wts": torch.from_numpy(wts).to(dev)})["prediction_node"].float().cpu().numpy()
+
+        def near(got, want, what):
+            err = float(np.max(np.abs(got - want)))
+            if err > APPLY_TOL:
+                fail(f"cache: {what}: max |dscore| vs the plain forward {err} > {APPLY_TOL}")
+            return err
+
+        def counts(b):
+            s = b.stats
+            return {"batches": s.batches, "padded": s.padded_candidates,
+                    "rows_executed": s.rows_executed, "rows_requested": s.rows_requested,
+                    "row_full_hit_batches": s.row_full_hit_batches,
+                    "dedup_rows_collapsed": s.dedup_rows_collapsed}
+
+        def moved(c0, c1):
+            return {k: c1[k] - c0[k] for k in c0}
+
+        # The cache-off reference Predicts of steps 3 and 4 run inside the
+        # launch window: their launches are counted apart and taken out.
+        ref_launches: dict = {}
+
+        def reference(ids, wts):
+            l0 = dict(ck.launches)
+            got = predict("off", ids, wts)[0]
+            for k, v in ck.launches.items():
+                ref_launches[k] = ref_launches.get(k, 0) + v - l0.get(k, 0)
+            return got
+
+        ck.reset_launches()
+        # 1. Whole-request hits.
+        p1 = fresh(CACHE_N)
+        c0, h0 = counts(on), impl_on.cache_stats()["hits"]
+        first, miss_ms = predict("on", *p1)
+        c1 = counts(on)
+        hit_ms = []
+        for _ in range(CACHE_REPEATS):
+            got, ms = predict("on", *p1)
+            hit_ms.append(ms)
+            if not np.array_equal(got, first):
+                fail("cache: a whole-request hit differs from the answer that filled it")
+        hits = impl_on.cache_stats()["hits"] - h0
+        if c1["batches"] - c0["batches"] != 1 or counts(on)["batches"] != c1["batches"]:
+            fail(f"cache: step 1 ran {counts(on)['batches'] - c0['batches']} batches, want 1")
+        if hits < CACHE_REPEATS:
+            fail(f"cache: {hits} whole-request hits for {CACHE_REPEATS} repeats")
+        res["request_hits"] = {"miss_ms": miss_ms, "hit_p50_ms": statistics.median(hit_ms),
+                               "hits": hits,
+                               "max_abs_err": near(first, plain(*p1, bucket_for(CACHE_N, cfg.buckets)),
+                                                   "step 1")}
+        log(f"cache: {CACHE_REPEATS} repeats of an n={CACHE_N} Predict: {hits} hits, no batch, "
+            f"bit-identical; miss {miss_ms:.3f} ms, hit p50 {res['request_hits']['hit_p50_ms']:.3f} "
+            f"ms over gRPC ({name})")
+
+        # 2. Single-flight: the leader's dispatch delayed, 8 callers.
+        threads_n, delay = CACHE_FLIGHT
+        p2 = fresh(CACHE_N)
+        c0, co0 = counts(on), impl_on.cache_stats()["coalesced"]
+        faults.get().add("batcher.dispatch", "delay", delay_s=delay, count=1)
+        answers = [None] * threads_n
+        barrier = threading.Barrier(threads_n)
+
+        def caller(k):
+            barrier.wait(timeout=60)
+            answers[k] = predict("on", *p2)[0]
+
+        ths = [threading.Thread(target=caller, args=(k,)) for k in range(threads_n)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(120)
+        faults.get().clear()
+        coalesced = impl_on.cache_stats()["coalesced"] - co0
+        ran = counts(on)["batches"] - c0["batches"]
+        if any(a is None for a in answers) or any(not np.array_equal(a, answers[0])
+                                                  for a in answers):
+            fail("cache: the single-flight callers' answers differ or are missing")
+        if ran != 1 or coalesced < threads_n - 1:
+            fail(f"cache: single-flight ran {ran} batches with {coalesced} coalesced "
+                 f"for {threads_n} callers")
+        res["single_flight"] = {"callers": threads_n, "batches": ran, "coalesced": coalesced}
+        log(f"cache: single-flight: {threads_n} identical Predicts during a {delay} s dispatch "
+            f"delay ran {ran} batch, {coalesced} coalesced, answers bit-identical")
+
+        # 3. The row tier: A (1000 catalog rows), then B (A's first 900 and
+        # 100 fresh rows), then B reversed (a full row hit).
+        a_idx = rng.choice(CACHE_CATALOG, CACHE_N, replace=False)
+        a = (cat[0][a_idx], cat[1][a_idx])
+        ra, _ = predict("on", *a)
+        cold = fresh(CACHE_N - CACHE_HOT)
+        b = (np.concatenate([a[0][:CACHE_HOT], cold[0]]), np.concatenate([a[1][:CACHE_HOT], cold[1]]))
+        c0 = counts(on)
+        rb, _ = predict("on", *b)
+        d = moved(c0, counts(on))
+        cold_bucket = bucket_for(CACHE_N - CACHE_HOT, cfg.buckets)
+        if (d["rows_executed"], d["padded"], d["batches"]) != (CACHE_N - CACHE_HOT, cold_bucket, 1):
+            fail(f"cache: B executed {d} (want {CACHE_N - CACHE_HOT} rows in bucket {cold_bucket})")
+        if not np.array_equal(rb[:CACHE_HOT], ra[:CACHE_HOT]):
+            fail("cache: B's hot rows differ from A's answer rows")
+        rcold = reference(*cold)
+        if not np.array_equal(rb[CACHE_HOT:], rcold):
+            fail(f"cache: B's cold rows differ from the cache-off server's answer at bucket "
+                 f"{cold_bucket} (max |d| {np.max(np.abs(rb[CACHE_HOT:] - rcold))})")
+        big = bucket_for(CACHE_N, cfg.buckets)
+        err_b = max(near(rb[:CACHE_HOT], plain(*a, big)[:CACHE_HOT], "B's hot rows"),
+                    near(rb[CACHE_HOT:], plain(*cold, cold_bucket), "B's cold rows"))
+        launches0 = dict(ck.launches)
+        c0 = counts(on)
+        rrev, _ = predict("on", b[0][::-1].copy(), b[1][::-1].copy())
+        d_full = moved(c0, counts(on))
+        if not np.array_equal(rrev, rb[::-1]):
+            fail("cache: the full row hit differs from B's answer")
+        if d_full["row_full_hit_batches"] != 1 or d_full["batches"] or dict(ck.launches) != launches0:
+            fail(f"cache: the full row hit moved {d_full} / launched "
+                 f"{ {k: v - launches0[k] for k, v in ck.launches.items() if v != launches0[k]} }")
+        res["rows"] = {"b": d, "full_hit": d_full, "max_abs_err": err_b, "cold_bucket": cold_bucket}
+        log(f"cache: row tier: B = {CACHE_HOT} rows of A + {CACHE_N - CACHE_HOT} fresh executed "
+            f"{d['rows_executed']} rows in bucket {cold_bucket}; hot rows = A's bits, cold rows = "
+            f"the cache-off server's bits at bucket {cold_bucket}; within {err_b:.3g} of the plain "
+            f"forward; B reversed: a full row hit, no batch, no launch")
+
+        # 4. Dedup: 2048 rows over 200 fresh distinct rows.
+        rows, distinct = CACHE_DEDUP
+        u = fresh(distinct)
+        sel = np.concatenate([np.arange(distinct), rng.randint(0, distinct, rows - distinct)])
+        rng.shuffle(sel)
+        dd = (u[0][sel], u[1][sel])
+        c0 = counts(on)
+        rd, _ = predict("on", *dd)
+        d = moved(c0, counts(on))
+        dedup_bucket = bucket_for(distinct, cfg.buckets)
+        if (d["dedup_rows_collapsed"], d["rows_executed"], d["padded"]) != (
+                rows - distinct, distinct, dedup_bucket):
+            fail(f"cache: the dedup request moved {d} (want {rows - distinct} collapsed, "
+                 f"{distinct} executed in bucket {dedup_bucket})")
+        # The batch runs its distinct rows in the order of their digests.
+        arrays = {"feat_ids": dd[0], "feat_wts": dd[1]}
+        digs = digest_rows(canonical_rows(arrays), row_structure_header(arrays))
+        _, first_idx, inverse = np.unique(
+            np.frombuffer(b"".join(digs), np.uint8).reshape(rows, 16), axis=0,
+            return_index=True, return_inverse=True)
+        runiq = reference(dd[0][first_idx], dd[1][first_idx])
+        if not np.array_equal(rd, runiq[inverse.reshape(-1)]):
+            fail("cache: the deduplicated answer differs from the cache-off server's answer on "
+                 "the distinct rows, scattered back")
+        err_d = near(rd, plain(dd[0][first_idx], dd[1][first_idx],
+                               dedup_bucket)[inverse.reshape(-1)], "dedup")
+        res["dedup"] = {**d, "bucket": dedup_bucket, "max_abs_err": err_d}
+        log(f"cache: dedup: {rows} rows over {distinct} distinct collapsed {d['dedup_rows_collapsed']} "
+            f"and ran bucket {dedup_bucket}; bits of the cache-off server's answer on the distinct "
+            f"rows, scattered back")
+        res["launches"] = {f"{k}/{cd}": v - ref_launches.get((k, cd), 0)
+                           for (k, cd), v in ck.launches.items()}
+        res["reference_launches"] = {f"{k}/{cd}": v for (k, cd), v in ref_launches.items()}
+        want_ref = sum(1 for n in (CACHE_N - CACHE_HOT, distinct)
+                       if (decisions.get(str(bucket_for(n, cfg.buckets))) or {}).get("pallas"))
+        if sum(ref_launches.values()) != want_ref:
+            fail(f"cache: the two cache-off reference Predicts launched {ref_launches}, "
+                 f"want {want_ref}")
+        used = {str(bucket_for(n, cfg.buckets)) for n in (CACHE_N, CACHE_N - CACHE_HOT, distinct)}
+        picked = {bk: decisions.get(bk) or {} for bk in used}
+        want = {"fused_serve_int8" if dec.get("quantized") else "fused_serve"
+                for dec in picked.values() if dec.get("pallas")}
+        for kname in sorted(want):
+            if res["launches"].get(f"{kname}/bfloat16", 0) <= 0:
+                fail(f"cache: {kname}/bfloat16 did not launch in steps 1-4 "
+                     f"(decisions {decisions}, launches {res['launches']})")
+        log(f"cache: kernel launches of the cache-on stack over steps 1-4 {res['launches']} "
+            f"(the cache-off reference Predicts' {res['reference_launches']} taken out; decisions at the "
+            f"buckets used: {dict(sorted(picked.items(), key=lambda kv: int(kv[0])))})")
+
+        # 6. The device input cache, on the cache-off stack.
+        reps, n_big, misses_n, distinct_n, n_small = CACHE_INPUT
+        p6 = fresh(n_big)
+        ic = off.input_cache
+
+        def timed(ids, wts):
+            """One cache-off Predict and its batch's `batch.cache` span (us)."""
+            ph0 = request_trace.snapshot().get("batch.cache", {"total_ms": 0.0, "count": 0})
+            got = predict("off", ids, wts)[0]
+            ph1 = request_trace.snapshot().get("batch.cache", {"total_ms": 0.0, "count": 0})
+            if ph1["count"] - ph0["count"] != 1:
+                fail(f"cache: a cache-off n={len(ids)} Predict timed "
+                     f"{ph1['count'] - ph0['count']} batch.cache spans, want 1")
+            return got, (ph1["total_ms"] - ph0["total_ms"]) * 1e3
+
+        s0, i0 = counts(off), (ic.hits, ic.misses, off.stats.h2d_copies)
+        first6, miss0 = timed(*p6)
+        hit_us = []
+        for _ in range(reps - 1):
+            got, us = timed(*p6)
+            hit_us.append(us)
+            if not np.array_equal(got, first6):
+                fail("cache: an input-cache hit answered other bits than its miss")
+        ihits = ic.hits - i0[0]
+        copies = off.stats.h2d_copies - i0[2]
+        nb = counts(off)["batches"] - s0["batches"]
+        if ihits < reps - 1 or copies + ihits != nb:
+            fail(f"cache: input cache: {ihits} hits, {copies} copies for {nb} batches")
+        # Misses: distinct n_big payloads, one batch.cache span each (the
+        # probe window stays above min_hit_rate, so none is bypassed).
+        m0 = ic.misses
+        miss_us = [miss0] + [timed(*fresh(n_big))[1] for _ in range(misses_n)]
+        if ic.misses - m0 != misses_n:
+            fail(f"cache: {misses_n} distinct n={n_big} payloads made {ic.misses - m0} misses")
+        ic.rearm()
+        cycles0 = ic.bypass_cycles
+        for _ in range(distinct_n):
+            predict("off", *fresh(n_small))
+        if ic.bypass_cycles - cycles0 < 1 or ic._lru:
+            fail(f"cache: {distinct_n} distinct payloads: bypass cycles "
+                 f"{ic.bypass_cycles - cycles0}, {len(ic._lru)} entries left")
+        # The pack and the copy the cache saves, on a batcher without it.
+        nb_ = DynamicBatcher(buckets=cfg.buckets, max_wait_us=0, device="cuda",
+                             input_cache_entries=0)
+        entry = nb_.step_for(sv_off)
+        ctx = nb_._fused_ctx(sv_off, [{"feat_ids": p6[0], "feat_wts": p6[1]}])
+        pack_ms, issue_ms, done_ms = [], [], []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            buf, _layout = nb_._pack(entry, ctx, n_big)
+            t1 = time.perf_counter()
+            dbuf, event = nb_._upload(buf)
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            nb_.ring.release([buf], event)
+            pack_ms.append((t1 - t0) * 1e3)
+            issue_ms.append((t2 - t1) * 1e3)
+            done_ms.append((t3 - t1) * 1e3)
+        nb_ = entry = dbuf = None
+        res["input_cache"] = {
+            "hits": ihits, "h2d_copies": copies, "batches": nb,
+            "batch_cache_miss_us": _spread(miss_us), "batch_cache_hit_us": _spread(hit_us),
+            "uncached_fusedpack_ms": statistics.median(pack_ms),
+            "uncached_h2d_issue_ms": statistics.median(issue_ms),
+            "uncached_h2d_done_ms": statistics.median(done_ms),
+            "bypass_cycles": ic.bypass_cycles - cycles0}
+        log(f"cache: input cache: {reps} x n={n_big}: {ihits} hits, {copies} copies, {nb} batches, "
+            f"bit-identical; batch.cache on a hit {_spread_text(hit_us)} us, on a miss "
+            f"{_spread_text(miss_us)} us (pack + upload issue inside); without the cache: fusedpack "
+            f"{res['input_cache']['uncached_fusedpack_ms'] * 1e3:.1f} us + H2D issue "
+            f"{res['input_cache']['uncached_h2d_issue_ms'] * 1e3:.1f} us "
+            f"(copy done {res['input_cache']['uncached_h2d_done_ms'] * 1e3:.1f} us); then "
+            f"{distinct_n} distinct n={n_small}: bypass engaged, store empty ({name})")
+
+        # 7. The zipfian closed loop, cache off / on / on / off.
+        clients, per_client = CACHE_LOOP
+        p = np.arange(1, CACHE_CATALOG + 1, dtype=np.float64) ** -CACHE_SKEW
+        idx = rng.choice(CACHE_CATALOG, size=(clients * per_client, CACHE_N), p=p / p.sum())
+        runs = []
+        for label in ("off", "on", "on", "off"):
+            b = on if label == "on" else off
+            if label == "on":
+                # Each run replays the same stream from empty stores: the
+                # second is a repeat of the first, not a run of hits.
+                impl_on.cache_flush()
+            c0 = counts(b)
+            sc0 = impl_on.cache_stats() if label == "on" else None
+            rc0 = impl_on.row_cache_stats() if label == "on" else None
+            r = _zipf_loop(ports[label], cat, idx, clients)
+            d = moved(c0, counts(b))
+            r.update(server=label, batches=d["batches"])
+            if label == "on":
+                sc1, rc1 = impl_on.cache_stats(), impl_on.row_cache_stats()
+                looked = (sc1["hits"] + sc1["misses"]) - (sc0["hits"] + sc0["misses"])
+                rlooked = (rc1["hits"] + rc1["misses"]) - (rc0["hits"] + rc0["misses"])
+                r["request_hit_rate"] = (sc1["hits"] - sc0["hits"]) / max(looked, 1)
+                r["row_hit_rate"] = (rc1["hits"] - rc0["hits"]) / max(rlooked, 1)
+                r["rows_executed_fraction"] = d["rows_executed"] / max(d["rows_requested"], 1)
+            runs.append(r)
+            extra = (f", request hit rate {r['request_hit_rate']:.4f}, row hit rate "
+                     f"{r['row_hit_rate']:.4f}, rows executed / requested "
+                     f"{r['rows_executed_fraction']:.4f}" if label == "on" else "")
+            log(f"cache: zipfian closed loop ({CACHE_CATALOG} rows, skew {CACHE_SKEW}) "
+                f"{clients} x {per_client} Predicts of n={CACHE_N}, cache {label}: p50 "
+                f"{r['p50_ms']:.3f} / p99 {r['p99_ms']:.3f} ms, {r['qps']:.1f} QPS, "
+                f"{r['batches']} batches{extra} ({name})")
+        res["zipf_loop"] = runs
+
+        # 5. Invalidation: version 2 through the server's watcher and its
+        # hook (after the loop, which compares both stacks on version 1).
+        again, _ = predict("on", *p1)
+        if not np.array_equal(again, first):
+            fail("cache: step 1's payload no longer answers its first bits before the swap")
+        model = build_model("dcn_v2", dataclasses.replace(model_cfg, name="DCN"))
+        sv2 = Servable(name="DCN", version=2, model=model, params=model.init(SEED + 1, dev),
+                       signatures=model_signatures(model))
+        save_servable(os.path.join(base, "2"), sv2, "dcn_v2")
+        inval0 = impl_on.cache_stats()["invalidations"]
+        watcher = _make_watcher(base, "DCN", (), cfg, impl_on.registry, on)
+        watcher.poll_once()
+        if 2 not in impl_on.registry.models().get("DCN", []):
+            fail(f"cache: the watcher did not load version 2: {impl_on.registry.models()}")
+        inval = impl_on.cache_stats()["invalidations"] - inval0
+        c0 = counts(on)
+        v2, _ = predict("on", *p1)
+        ran = counts(on)["batches"] - c0["batches"]
+        err_v2 = near(v2, plain(*p1, big, sv=sv2), "version 2")
+        if inval <= 0 or ran != 1 or np.array_equal(v2, first):
+            fail(f"cache: the swap invalidated {inval} entries and the repeat ran {ran} batches "
+                 f"(answer {'unchanged' if np.array_equal(v2, first) else 'changed'})")
+        res["invalidation"] = {"invalidations": inval, "batches": ran, "max_abs_err": err_v2}
+        log(f"cache: version 2 loaded through the server's watcher: {inval} entries invalidated, "
+            f"the repeat of step 1 ran {ran} batch and answers version 2 (within {err_v2:.3g})")
+
+        # 8. Telemetry: the REST gateway in process on the cache-on stack.
+        port, stop_rest = _rest_in_process(impl_on, ServerMetrics())
+        http = _Http(port)
+        try:
+            cz = http.json("GET", "/cachez")
+            want_cz = json.loads(json.dumps(impl_on.cache_stats()))
+            want_cz["row_cache"] = json.loads(json.dumps(impl_on.row_cache_stats()))
+            if cz != want_cz:
+                fail(f"cache: /cachez differs from cache_stats() / row_cache_stats(): "
+                     f"{ {k: (cz.get(k), want_cz.get(k)) for k in want_cz if cz.get(k) != want_cz.get(k)} }")
+            status, data = http.call("GET", "/monitoring/prometheus/metrics")
+            prom = data.decode()
+            line = next((ln for ln in prom.splitlines()
+                         if ln.startswith("dts_tpu_cache_hits_total ")), None)
+            if status != 200 or line is None or int(line.split()[1]) != want_cz["hits"]:
+                fail(f"cache: dts_tpu_cache_hits_total {line!r}, snapshot {want_cz['hits']}")
+            row_lines = sum(1 for ln in prom.splitlines() if ln.startswith("dts_tpu_cache_row"))
+            entries = impl_on.cache_stats()["entries"] + impl_on.row_cache_stats()["entries"]
+            fl = http.json("POST", "/cachez/flush")
+            if fl != {"flushed": True, "entries_dropped": entries} or entries <= 0:
+                fail(f"cache: POST /cachez/flush answered {fl}, {entries} entries held")
+            m0 = impl_on.cache_stats()["misses"]
+            predict("on", *p1)
+            if impl_on.cache_stats()["misses"] != m0 + 1:
+                fail("cache: the repeat after the flush did not miss")
+        finally:
+            http.close()
+            stop_rest()
+            stop_rest = None
+        res["telemetry"] = {"cachez_hits": want_cz["hits"], "row_series": row_lines,
+                            "flushed": fl["entries_dropped"]}
+        log(f"cache: /cachez = cache_stats() + row_cache_stats(); dts_tpu_cache_hits_total "
+            f"{want_cz['hits']}, {row_lines} dts_tpu_cache_row* lines; flush dropped "
+            f"{fl['entries_dropped']} entries and the next repeat missed")
+    finally:
+        faults.get().clear()
+        if stop_rest is not None:
+            stop_rest()
+        for ch in chans:
+            ch.close()
+        for server in servers:
+            server.stop(0)
+        for b in batchers:
+            b.stop()
+        shutil.rmtree(base, ignore_errors=True)
+    return res
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -3950,11 +4577,15 @@ def main() -> None:
     t0 = time.perf_counter()
     aio = phase_aio(dev, f"{name} ({smi})")
     log(f"aio: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cache = phase_cache(dev, f"{name} ({smi})")
+    log(f"cache: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
                    "lifecycle": lifecycle, "outputs": outputs, "families": families,
-                   "models": models, "rest": rest, "aio": aio}, f, indent=1, default=str)
+                   "models": models, "rest": rest, "aio": aio, "cache": cache}, f, indent=1,
+                  default=str)
 
     replaces = {
         "fused_serve": "distributed_tf_serving_tpu/ops/cross_kernel.py:470",
@@ -3986,6 +4617,9 @@ def main() -> None:
                      # The aio path (zeroed just before its requests, read
                      # just after).
                      "launches_aio": aio["serving"]["launches"].get(f"{kname}/{cd}", 0),
+                     # The cache phase's steps 1-4 (zeroed just before, read
+                     # just after).
+                     "launches_cache": cache["launches"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (

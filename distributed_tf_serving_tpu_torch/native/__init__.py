@@ -11,7 +11,10 @@ The batcher packs each bf16 batch with `pack_batch_u24_bf16`, which folds,
 u24-packs, bf16-casts and pads a whole coalesced batch in one pass, straight
 into the caller's (pinned) host buffer. A stack on the card whose servable
 needs it refuses to start when the library cannot be built. The warmup
-replay checks its TFRecord framing with `crc32c`.
+replay checks its TFRecord framing with `crc32c`. The cache plane digests
+with `hash128` (the device-input cache's batch key and the score cache's
+feature digest) and `hash128_rows` (blake2b-128 per row: the row cache's
+keys, byte-identical to hashlib's).
 """
 
 from __future__ import annotations
@@ -93,6 +96,13 @@ def _load_locked() -> ctypes.CDLL | None:
     ]
     lib.dts_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint32]
     lib.dts_crc32c.restype = ctypes.c_uint32
+    lib.hash128.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+    lib.hash128.restype = None
+    lib.hash128_rows.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.hash128_rows.restype = None
     return lib
 
 
@@ -188,6 +198,35 @@ def pack_batch_u24_bf16(
         ids_ptrs, _ptr(ids_is64), wts_ptrs, _ptr(wts_isf32),
         _ptr(ns), nparts, fields, bucket, vocab, _ptr(out),
     )
+    return out
+
+
+def hash128(arr: np.ndarray) -> bytes:
+    """16-byte content digest of a contiguous array's bytes (one pass)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native hostops library unavailable")
+    arr = np.ascontiguousarray(arr)
+    out = np.empty(2, np.uint64)
+    lib.hash128(_ptr(arr), arr.nbytes, _ptr(out))
+    return out.tobytes()
+
+
+def hash128_rows(blob: np.ndarray, header: bytes = b"") -> np.ndarray:
+    """Batched per-row blake2b-128: a [n, B] uint8 row matrix -> [n, 16]
+    uint8 digests, row i = blake2b(header + blob[i].tobytes(),
+    digest_size=16), byte-identical to hashlib's blake2b (RFC 7693 in
+    hostops.cc): the row-cache keys must not depend on whether the host
+    ops are built. One GIL-released call hashes the whole batch."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native hostops library unavailable")
+    blob = np.ascontiguousarray(blob, dtype=np.uint8)
+    if blob.ndim != 2:
+        raise ValueError(f"hash128_rows wants [n, B] uint8, got {blob.shape}")
+    header = bytes(header)
+    out = np.empty((blob.shape[0], 16), np.uint8)
+    lib.hash128_rows(header, len(header), _ptr(blob), blob.shape[0], blob.shape[1], _ptr(out))
     return out
 
 

@@ -12,6 +12,14 @@
 
 namespace {
 
+// One multiply-xor round: full 128-bit product folded to 64 bits. The
+// multiply diffuses every input bit across the word; the xor of hi/lo keeps
+// both halves.
+inline uint64_t mix64(uint64_t a, uint64_t b) {
+  __uint128_t m = static_cast<__uint128_t>(a) * b;
+  return static_cast<uint64_t>(m) ^ static_cast<uint64_t>(m >> 64);
+}
+
 // THE fold: mathematical mod (result in [0, vocab)), pow2 fast path.
 // Shared by fold_i32 and the fused batch pack so the semantics cannot
 // drift between them.
@@ -58,6 +66,118 @@ struct CrcTables {
 const CrcTables& crc_tables() {
   static const CrcTables tables;  // built once, thread-safe (C++11)
   return tables;
+}
+
+// ----------------------------------------------------------------------
+// blake2b (RFC 7693), keyless, 16-byte digest — the EXACT function
+// hashlib.blake2b(digest_size=16) computes. Unlike hash128 (a fast
+// non-cryptographic mix private to the device-input cache), these digests
+// are a WIRE contract: the row-cache keys, the dedup row identity, and
+// the label-join keys clients compute over the bytes they sent must all
+// be byte-identical with or without the compiled host ops — so the native
+// batched path must be the real blake2b, not a lookalike.
+
+constexpr uint64_t kB2bIV[8] = {
+    0x6a09e667f3bcc908ull, 0xbb67ae8584caa73bull, 0x3c6ef372fe94f82bull,
+    0xa54ff53a5f1d36f1ull, 0x510e527fade682d1ull, 0x9b05688c2b3e6c1full,
+    0x1f83d9abfb41bd6bull, 0x5be0cd19137e2179ull};
+
+constexpr uint8_t kB2bSigma[12][16] = {
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15},
+    {14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3},
+    {11, 8, 12, 0, 5, 2, 15, 13, 10, 14, 3, 6, 7, 1, 9, 4},
+    {7, 9, 3, 1, 13, 12, 11, 14, 2, 6, 5, 10, 4, 0, 15, 8},
+    {9, 0, 5, 7, 2, 4, 10, 15, 14, 1, 11, 12, 6, 8, 3, 13},
+    {2, 12, 6, 10, 0, 11, 8, 3, 4, 13, 7, 5, 15, 14, 1, 9},
+    {12, 5, 1, 15, 14, 13, 4, 10, 0, 7, 6, 3, 9, 2, 8, 11},
+    {13, 11, 7, 14, 12, 1, 3, 9, 5, 0, 15, 4, 8, 6, 2, 10},
+    {6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5},
+    {10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0},
+    {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15},
+    {14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3}};
+
+inline uint64_t rotr64(uint64_t x, int n) { return (x >> n) | (x << (64 - n)); }
+
+inline void b2b_g(uint64_t* v, int a, int b, int c, int d, uint64_t x,
+                  uint64_t y) {
+  v[a] = v[a] + v[b] + x;
+  v[d] = rotr64(v[d] ^ v[a], 32);
+  v[c] = v[c] + v[d];
+  v[b] = rotr64(v[b] ^ v[c], 24);
+  v[a] = v[a] + v[b] + y;
+  v[d] = rotr64(v[d] ^ v[a], 16);
+  v[c] = v[c] + v[d];
+  v[b] = rotr64(v[b] ^ v[c], 63);
+}
+
+// One 128-byte block. `t` is the byte counter INCLUDING this block (the
+// messages here are < 2^64 bytes, so the high counter word stays 0).
+void b2b_compress(uint64_t h[8], const uint8_t block[128], uint64_t t,
+                  bool last) {
+  uint64_t m[16], v[16];
+  for (int i = 0; i < 16; ++i) std::memcpy(&m[i], block + 8 * i, 8);
+  for (int i = 0; i < 8; ++i) {
+    v[i] = h[i];
+    v[i + 8] = kB2bIV[i];
+  }
+  v[12] ^= t;
+  if (last) v[14] = ~v[14];
+  for (int r = 0; r < 12; ++r) {
+    const uint8_t* s = kB2bSigma[r];
+    b2b_g(v, 0, 4, 8, 12, m[s[0]], m[s[1]]);
+    b2b_g(v, 1, 5, 9, 13, m[s[2]], m[s[3]]);
+    b2b_g(v, 2, 6, 10, 14, m[s[4]], m[s[5]]);
+    b2b_g(v, 3, 7, 11, 15, m[s[6]], m[s[7]]);
+    b2b_g(v, 0, 5, 10, 15, m[s[8]], m[s[9]]);
+    b2b_g(v, 1, 6, 11, 12, m[s[10]], m[s[11]]);
+    b2b_g(v, 2, 7, 8, 13, m[s[12]], m[s[13]]);
+    b2b_g(v, 3, 4, 9, 14, m[s[14]], m[s[15]]);
+  }
+  for (int i = 0; i < 8; ++i) h[i] ^= v[i] ^ v[i + 8];
+}
+
+// blake2b-128 of the two-segment message header||body (the row digest's
+// shape: a per-batch structure header prefixed to every row's bytes,
+// without materializing the concatenation).
+void blake2b16_2seg(const uint8_t* s1, int64_t n1, const uint8_t* s2,
+                    int64_t n2, uint8_t* out16) {
+  uint64_t h[8];
+  for (int i = 0; i < 8; ++i) h[i] = kB2bIV[i];
+  h[0] ^= 0x01010000ull ^ 16ull;  // digest_length=16, key=0, fanout=depth=1
+  uint8_t block[128];
+  const int64_t total = n1 + n2;
+  if (total == 0) {
+    std::memset(block, 0, 128);
+    b2b_compress(h, block, 0, true);
+  } else {
+    int64_t off = 0;
+    uint64_t t = 0;
+    while (off < total) {
+      const int64_t take = (total - off < 128) ? (total - off) : 128;
+      int64_t filled = 0;
+      while (filled < take) {
+        const int64_t pos = off + filled;
+        if (pos < n1) {
+          const int64_t c =
+              (n1 - pos < take - filled) ? (n1 - pos) : (take - filled);
+          std::memcpy(block + filled, s1 + pos, static_cast<size_t>(c));
+          filled += c;
+        } else {
+          const int64_t c = take - filled;
+          std::memcpy(block + filled, s2 + (pos - n1),
+                      static_cast<size_t>(c));
+          filled += c;
+        }
+      }
+      if (take < 128) {
+        std::memset(block + take, 0, static_cast<size_t>(128 - take));
+      }
+      off += take;
+      t += static_cast<uint64_t>(take);
+      b2b_compress(h, block, t, off >= total);
+    }
+  }
+  std::memcpy(out16, h, 16);  // little-endian h[0..1] = the first 16 bytes
 }
 
 }  // namespace
@@ -164,6 +284,58 @@ void pack_batch_u24_bf16(const void** ids_ptrs, const uint8_t* ids_is64,
                 static_cast<size_t>(bucket - row) * fields * 3);
     std::memset(wts_base + row * fields * 2, 0,
                 static_cast<size_t>(bucket - row) * fields * 2);
+  }
+}
+
+
+// 128-bit content digest (two independently-keyed 64-bit lanes, 32 bytes
+// per iteration) for the batcher's device-input cache. Non-cryptographic
+// but well-mixed: at the cache's scale (<=1e6 distinct batches) the
+// 128-bit collision probability is ~1e-27. ctypes releases the GIL for
+// the call, so hashing a batch never stalls the request handlers.
+void hash128(const uint8_t* p, int64_t n, uint64_t* out) {
+  const uint64_t K0 = 0x9E3779B185EBCA87ull, K1 = 0xC2B2AE3D27D4EB4Full,
+                 K2 = 0x165667B19E3779F9ull, K3 = 0x27D4EB2F165667C5ull;
+  uint64_t h0 = K0 ^ static_cast<uint64_t>(n);
+  uint64_t h1 = K1 + static_cast<uint64_t>(n);
+  int64_t i = 0;
+  for (; i + 32 <= n; i += 32) {
+    uint64_t a, b, c, d;
+    std::memcpy(&a, p + i, 8);
+    std::memcpy(&b, p + i + 8, 8);
+    std::memcpy(&c, p + i + 16, 8);
+    std::memcpy(&d, p + i + 24, 8);
+    h0 = mix64(a ^ h0, K2 ^ b);
+    h1 = mix64(c ^ h1, K3 ^ d);
+  }
+  if (i < n) {
+    uint8_t tail[32] = {0};
+    std::memcpy(tail, p + i, static_cast<size_t>(n - i));
+    uint64_t a, b, c, d;
+    std::memcpy(&a, tail, 8);
+    std::memcpy(&b, tail + 8, 8);
+    std::memcpy(&c, tail + 16, 8);
+    std::memcpy(&d, tail + 24, 8);
+    h0 = mix64(a ^ h0, K2 ^ b);
+    h1 = mix64(c ^ h1, K3 ^ d);
+  }
+  out[0] = mix64(h0 ^ K1, h1 ^ K0);  // cross-mix: each output depends on
+  out[1] = mix64(h1 ^ K3, h0 ^ K2);  // both lanes
+}
+
+// Batched per-row blake2b-128: N rows of a
+// contiguous [n_rows, row_bytes] uint8 matrix -> N 16-byte digests, each
+// blake2b(header || row, digest_size=16) — byte-identical to the
+// hashlib.blake2b python fallback in cache/row_cache.py digest_rows and
+// cache/digest.py row_label_keys (header empty there). ONE ctypes call
+// releases the GIL for the whole batch, replacing the per-row python
+// hash loop the row-cache plane otherwise pays on every armed batch.
+void hash128_rows(const uint8_t* header, int64_t header_len,
+                  const uint8_t* rows, int64_t n_rows, int64_t row_bytes,
+                  uint8_t* out) {
+  for (int64_t r = 0; r < n_rows; ++r) {
+    blake2b16_2seg(header, header_len, rows + r * row_bytes, row_bytes,
+                   out + r * 16);
   }
 }
 

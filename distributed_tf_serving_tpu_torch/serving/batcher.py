@@ -68,6 +68,18 @@ readback and per-request completion.
   `batch.pad` path are written into recycled host buffers, returned once
   the batch's readback event has completed (never while a copy may still
   read them), or on a failure before the device stage.
+- **The device input cache** (`DeviceInputCache`, on by default): a batch
+  whose host bytes repeat feeds the device buffer its first upload made to
+  the step, with no pack and no copy (`batch.cache`, with a miss's pack and
+  upload inside; `batch.fusedpack` while it is off or bypassed).
+- **The cache plane** (cache/): with a `score_cache`, `submit` answers a
+  repeated request from the store before admission (`cache.lookup`) and
+  identical concurrent misses ride one computation, whose completion fills
+  it (`cache.fill`); with a `row_cache`, each collected batch looks its rows
+  up (`cache.row_lookup`), executes only the cold ones in their own bucket,
+  fills them (`cache.row_fill`) and scatters executed, cached and other
+  batches' rows back per request; with `dedup`, a batch's identical rows
+  execute once (`batch.dedup`). A failure aborts the batch's row flights.
 - **Fault sites** (faults.py): `batcher.dispatch` before a batch's device
   stage, `readback` and `executor_abort` before a completion worker waits
   for its readback.
@@ -77,17 +89,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import logging
 import threading
 import time
 import weakref
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import BrokenExecutor, Future, InvalidStateError, ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from .. import faults, native
+from ..cache import CoalescedLeaderCancelled, canonical_rows, collapse_rows
 from ..models.base import resolve_device
 from ..models.registry import Servable
 from ..ops.transfer import (
@@ -251,6 +265,16 @@ class BatcherStats:
     inflight_peak: int = 0
     # Episodes in which the dispatch thread waited for the in-flight window.
     inflight_window_waits: int = 0
+    # The cache plane: batches whose rows held exact duplicates, and the
+    # rows never executed because of it (dedup); batches that went through
+    # the row cache, the rows they asked for against the rows dispatched,
+    # and batches answered from the row cache alone (no device work).
+    dedup_batches: int = 0
+    dedup_rows_collapsed: int = 0
+    row_batches: int = 0
+    rows_requested: int = 0
+    rows_executed: int = 0
+    row_full_hit_batches: int = 0
 
     @property
     def mean_occupancy(self) -> float:
@@ -309,6 +333,9 @@ class _Staged:
     phases: list | None = None  # the batch's phase sink (_phase_sink)
     pad_bufs: list = dataclasses.field(default_factory=list)  # from the pad ring
     seq: int | None = None  # its key in _inflight_since while a live readback is out
+    # Dedup: the executed (unique) row of each original row.
+    scatter: np.ndarray | None = None
+    row_ctx: _RowContext | None = None  # the row cache's plan for this batch
 
 
 @dataclasses.dataclass(eq=False)
@@ -415,6 +442,216 @@ class _PadBufferRing:
                     "free_buffers": sum(len(v) for v in self._free.values())}
 
 
+class DeviceInputCache:
+    """Content-addressed LRU of uploaded batch inputs: the device tensor
+    a batch's one upload produced, keyed by a digest of the host bytes it
+    was packed from. CTR traffic re-scores the same candidate sets (the
+    reference client re-sends one payload for every request), so a batch
+    whose bytes repeat skips the pack, the ring buffer and the upload: the
+    device step reads the cached tensor, which it never writes.
+
+    A miss costs one content digest (native.hash128 when the host ops are
+    built, blake2b otherwise) beside the pack and upload it needed anyway;
+    a hit costs the digest alone. What either costs on a card is measured
+    by chip_smoke.py's `cache` phase. Capacity is bounded by entry count,
+    with least-recently-used eviction.
+
+    Traffic that never repeats would pay the digest for nothing, so the
+    cache bypasses itself, and re-probes: the hit rate is tracked over a
+    sliding window of `probe_window` lookups; a window below
+    `min_hit_rate` stops the hashing and drops the entries, and after
+    `reprobe_every` bypassed lookups the cache probes again, so traffic
+    that turns repetitive re-engages it."""
+
+    def __init__(self, max_entries: int = 64, probe_window: int = 64,
+                 min_hit_rate: float = 0.02, reprobe_every: int = 512):
+        self.max_entries = max_entries
+        self.probe_window = probe_window
+        self.min_hit_rate = min_hit_rate
+        self.reprobe_every = reprobe_every
+        self._lru: OrderedDict[tuple, torch.Tensor] = OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.bytes_skipped = 0
+        self.bypassed = False
+        self.bypass_cycles = 0
+        self._win_hits = 0
+        self._win_lookups = 0
+        self._bypassed_lookups = 0
+
+    def rearm(self) -> None:
+        """Leave the bypass now and restart the probe cycle, for a caller
+        that knows the traffic changed (a phase of a benchmark, a cutover)."""
+        with self._lock:
+            self.bypassed = False
+            self._bypassed_lookups = 0
+            self._win_hits = 0
+            self._win_lookups = 0
+
+    def _note_bypassed(self) -> None:
+        """Count a lookup made in bypass; probe again every reprobe_every."""
+        with self._lock:
+            self._bypassed_lookups += 1
+            if self._bypassed_lookups >= self.reprobe_every:
+                self._bypassed_lookups = 0
+                self._win_hits = 0
+                self._win_lookups = 0
+                self.bypassed = False
+
+    @staticmethod
+    def _key(name: str, arr: np.ndarray) -> tuple:
+        if native.available():
+            digest = native.hash128(arr)
+        else:
+            # A uint8 view: the digest is over the raw bytes.
+            digest = hashlib.blake2b(
+                np.ascontiguousarray(arr).view(np.uint8).data, digest_size=16).digest()
+        return (name, arr.shape, arr.dtype.str, digest)
+
+    def get_or_put(self, name: str, arr: np.ndarray, build, pack_tag: str = "") -> torch.Tensor:
+        """The device tensor of `arr`'s content; `build(keep)` packs and
+        uploads it on a miss (keep: the cache will hold the result).
+        `pack_tag` names the packing, so the same raw bytes packed two ways
+        occupy two entries."""
+        if self.bypassed:
+            self._note_bypassed()
+            return build(False)
+        return self._lookup((pack_tag, *self._key(name, arr)), build)
+
+    def get_or_put_group(self, arrays: dict[str, np.ndarray], build, tag: str) -> torch.Tensor:
+        """The device buffer of a group of arrays (the combined buffer):
+        keyed on every member's digest plus `tag` (the layout), so a hit
+        skips the pack and the upload in one lookup."""
+        if self.bypassed:
+            self._note_bypassed()
+            return build(False)
+        key = (tag,) + tuple(self._key(k, arrays[k]) for k in sorted(arrays))
+        return self._lookup(key, build)
+
+    def _lookup(self, key: tuple, build) -> torch.Tensor:
+        """The LRU's hit and miss, its accounting, eviction and probe."""
+        with self._lock:
+            cached = self._lru.get(key)
+            if cached is not None:
+                self._lru.move_to_end(key)
+                self.hits += 1
+                self._win_hits += 1
+                self._close_window_locked()
+                self.bytes_skipped += cached.nbytes  # the upload not made
+                return cached
+        dev = build(True)
+        with self._lock:
+            self._lru[key] = dev
+            self.misses += 1
+            self._close_window_locked()
+            while len(self._lru) > self.max_entries:
+                self._lru.popitem(last=False)
+        return dev
+
+    def _close_window_locked(self) -> None:
+        """Advance the probe window; bypass after a cold one. Caller holds
+        _lock."""
+        self._win_lookups += 1
+        if self._win_lookups < self.probe_window:
+            return
+        if self._win_hits < self._win_lookups * self.min_hit_rate:
+            self.bypassed = True
+            self.bypass_cycles += 1
+            self._bypassed_lookups = 0
+            self._lru.clear()
+        self._win_hits = 0
+        self._win_lookups = 0
+
+    def clear(self) -> None:
+        with self._lock:
+            self._lru.clear()
+
+    def nbytes(self) -> int:
+        """Bytes the entries hold on the device."""
+        with self._lock:
+            return sum(t.nbytes for t in self._lru.values())
+
+
+class _RowContext:
+    """One batch's consultation of the row cache: the RowBatchPlan and the
+    indices that put (cold rows executed here + cached hits + rows another
+    batch is filling) back into every request's row order.
+
+    - `inverse` maps each original row onto its planning slot (the
+      identity when dedup found no duplicate); `lead_slots` are the slots
+      this batch executes, in order, so cold row j of the device output is
+      slot `lead_slots[j]`.
+    - `passthrough`: every row cold, none duplicated, no foreign flight
+      joined. Execution then covers the batch in its own order, the usual
+      pack and delivery serve it, and only the fill rides along.
+
+    Delivery touches host arrays only: it may run on another batch's
+    completion worker or in a leader's done-callback."""
+
+    __slots__ = ("cache", "plan", "n_slots", "inverse", "lead_slots", "n_cold",
+                 "exec_arrays", "passthrough", "all_fresh")
+
+    def fill_from_host(self, host: dict) -> None:
+        """Close the plan's lead flights from the executed rows: fill the
+        cache (same generation only) and resolve every foreign waiter on
+        them. Each row is copied out of `host`, so no entry holds a view
+        of a batch's output."""
+        values = {}
+        for j, slot in enumerate(self.plan.lead):
+            values[slot] = {k: np.array(v[j], copy=True) for k, v in host.items()}
+        self.cache.complete_rows(self.plan, values)
+
+    def abort(self, exc: BaseException) -> None:
+        self.cache.abort_rows(self.plan, exc)
+
+    def assemble(self, host: dict | None):
+        """The batch's outputs in original row order from the three
+        sources (executed / cached / filled by another batch): (full,
+        failed_rows, row_errors). failed_rows masks the original rows whose
+        foreign fill failed (their requests get that error, never a score);
+        row_errors maps failed slots to their exceptions. host None = a
+        batch with no cold row."""
+        plan = self.plan
+        failed: dict[int, BaseException] = {}
+        wvals: dict[int, dict] = {}
+        for slot, fut in plan.waiters.items():
+            if fut.cancelled():
+                failed[slot] = CoalescedLeaderCancelled(
+                    "row fill leader was cancelled before completing")
+                continue
+            exc = fut.exception()
+            if exc is not None:
+                failed[slot] = exc
+            else:
+                wvals[slot] = fut.result()
+        if host is not None:
+            sample = {k: v[0] for k, v in host.items()}
+        elif plan.hits:
+            sample = next(iter(plan.hits.values()))
+        elif wvals:
+            sample = next(iter(wvals.values()))
+        else:
+            raise next(iter(failed.values()))  # every slot's fill failed
+        full = {}
+        for k, v in sample.items():
+            arr = np.asarray(v)
+            # Zeros: a failed slot's rows are never delivered, and no
+            # uninitialized memory is reachable.
+            vals = np.zeros((self.n_slots,) + arr.shape, arr.dtype)
+            if host is not None and self.n_cold:
+                vals[self.lead_slots] = host[k][:self.n_cold]
+            for slot, hv in plan.hits.items():
+                vals[slot] = hv[k]
+            for slot, wv in wvals.items():
+                vals[slot] = wv[k]
+            full[k] = vals[self.inverse]
+        failed_rows = None
+        if failed:
+            failed_rows = np.isin(self.inverse, np.fromiter(failed.keys(), np.int64))
+        return full, failed_rows, failed
+
+
 class DynamicBatcher:
     """Queue + batching thread + dispatch thread + completion workers, and
     the per-servable device step."""
@@ -435,6 +672,10 @@ class DynamicBatcher:
         breaker_timeout_s: float | None = 90.0,
         inflight_window: int = 0,
         buffer_ring: bool = False,
+        input_cache_entries: int = 64,
+        score_cache=None,
+        row_cache=None,
+        dedup: bool = False,
     ):
         """fused_kernel=False serves dcn_v2 through model.apply (the
         configuration where `use_pallas_cross` routes only the cross stack
@@ -445,7 +686,16 @@ class DynamicBatcher:
         output_top_k (0 = off) set the readback wire. breaker_timeout_s
         (None = never) is the wedge threshold of the circuit breaker;
         inflight_window (0 = unbounded) bounds the live batches executing or
-        awaiting readback; buffer_ring recycles the padded-group buffers."""
+        awaiting readback; buffer_ring recycles the padded-group buffers.
+        input_cache_entries (0 = off) bounds the DeviceInputCache.
+
+        The cache plane (cache/): `score_cache` (a ScoreCache) answers a
+        whole-request repeat at submit, before admission, and runs one
+        computation for identical concurrent misses; `row_cache` (a
+        RowScoreCache) looks every row of a collected batch up and executes
+        only the cold ones, in their own bucket; `dedup` executes each
+        distinct row of a batch once. None / False = off: one attribute
+        read per submit or batch."""
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # An indexed device, for the worker threads' set_device.
@@ -476,6 +726,11 @@ class DynamicBatcher:
         # The kernel plane (ops/autotune.py KernelManager), or None when off:
         # one attribute read per dispatch.
         self.kernels = None
+        self.input_cache = (DeviceInputCache(input_cache_entries)
+                            if input_cache_entries else None)
+        self.score_cache = score_cache
+        self.row_cache = row_cache
+        self.dedup = bool(dedup)
         self.stats = BatcherStats()
         # A list to record one (enqueue, collected, stage start, readback
         # issued, readback done, completed) tuple of perf_counter times per
@@ -578,7 +833,13 @@ class DynamicBatcher:
         is on. _solo (a streamed sub-batch) makes the item a batch of its
         own; _warmup (warmup_via_queue) keeps an all-warmup group off the
         wedge clock and out of the in-flight window. While the circuit
-        breaker is open it raises DeviceWedgedError and sheds the backlog."""
+        breaker is open it raises DeviceWedgedError and sheds the backlog.
+
+        With a score cache, the lookup comes first, before admission and
+        the breaker (cached scores answer while the device is wedged or the
+        queue full): a hit returns a done future, an identical request in
+        flight hands back its future, and a miss leads: its completion
+        fills the cache and answers those that joined. Warmup skips it."""
         if self._stopping:
             raise RuntimeError("batcher is stopped")
         ns = {k: v.shape[0] for k, v in arrays.items()}
@@ -586,6 +847,42 @@ class DynamicBatcher:
         if any(v != n for v in ns.values()):
             raise ValueError(f"inconsistent candidate counts across inputs: {ns}")
         bucket_for(n, self.buckets)  # raises when too big
+        cache = self.score_cache
+        handle = None
+        if cache is not None and not _warmup:
+            with request_trace.span("cache.lookup"):
+                handle = cache.begin(servable.name, servable.version, output_keys, arrays)
+            if handle.hit is not None:
+                if span is not None:
+                    span.attrs["cache_hit"] = True
+                fut = Future()
+                fut.set_result(handle.hit)
+                return fut
+            if handle.waiter is not None:
+                if span is not None:
+                    span.attrs["cache_coalesced"] = True
+                return handle.waiter
+        try:
+            fut = self._submit_miss(servable, arrays, n, output_keys, deadline_s, span,
+                                    _solo, _warmup)
+        except BaseException as exc:
+            if handle is not None and handle.leader:
+                # Never enqueued (breaker, admission, prepare): those that
+                # joined fail with the same error instead of hanging.
+                cache.abort(handle, exc)
+            raise
+        if handle is not None and handle.leader:
+            # `cache` is the store that minted the handle: a store detached
+            # meanwhile still closes this flight.
+            fut.add_done_callback(
+                lambda f, h=handle, c=cache: self._cache_complete(
+                    c, h, f, servable, arrays, output_keys))
+        return fut
+
+    def _submit_miss(self, servable: Servable, arrays: dict[str, np.ndarray], n: int,
+                     output_keys, deadline_s, span, solo: bool, warmup: bool) -> Future:
+        """submit() past the score cache: the breaker, admission, prepare
+        and enqueue."""
         with self._cv:
             stuck_s = self._wedged_for(time.perf_counter())
             if stuck_s:
@@ -611,14 +908,71 @@ class DynamicBatcher:
         item = _WorkItem(
             servable=servable, arrays=prepared, n=n, output_keys=output_keys,
             future=Future(), enqueue_t=now,
-            deadline_t=None if deadline_s is None else now + deadline_s, solo=_solo,
-            warmup=_warmup, span=span if tracing.enabled() else None,
+            deadline_t=None if deadline_s is None else now + deadline_s, solo=solo,
+            warmup=warmup, span=span if tracing.enabled() else None,
         )
         with self._cv:
             self._items.append(item)
             self.stats.max_queue_depth = max(self.stats.max_queue_depth, len(self._items))
             self._cv.notify_all()
         return item.future
+
+    def _cache_complete(self, cache, handle, fut: Future, servable: Servable,
+                        arrays: dict[str, np.ndarray], output_keys) -> None:
+        """A single-flight leader's done-callback: a result fills the cache
+        (under cache.fill) and answers those that joined; a failure reaches
+        them too. A leader ended by its own deadline (cancelled, or shed
+        while queued) does not end theirs: the computation is submitted
+        once more on their behalf, through submit(), without a deadline. A
+        result marked degraded answers them with the mark and never fills."""
+        if fut.cancelled() or isinstance(fut.exception(), RequestDeadlineError):
+            waiters = [w for w in cache.take_waiters(handle) if not w.cancelled()]
+            if not waiters:
+                return
+            try:
+                retry = self.submit(servable, arrays, output_keys=output_keys)
+            except BaseException as exc:  # stopped, wedged or full
+                for w in waiters:
+                    try:
+                        w.set_exception(exc)
+                    except InvalidStateError:
+                        pass
+                return
+
+            def chain(rf: Future) -> None:
+                for w in waiters:
+                    if w.cancelled():
+                        continue
+                    try:
+                        if rf.cancelled():
+                            w.cancel()
+                        elif rf.exception() is not None:
+                            w.set_exception(rf.exception())
+                        else:
+                            w.set_result(rf.result())
+                    except InvalidStateError:
+                        pass
+
+            retry.add_done_callback(chain)
+            return
+        degraded = getattr(fut, "dts_degraded", None)
+        if degraded is not None:
+            # Assembled with row entries past their TTL: a fresh entry would
+            # go on serving them unmarked.
+            waiters = cache.take_waiters(handle)
+            if waiters:
+                result = fut.result()
+                for w in waiters:
+                    if w.cancelled():
+                        continue
+                    w.dts_degraded = degraded
+                    try:
+                        w.set_result(result)
+                    except InvalidStateError:
+                        pass
+            return
+        with request_trace.span("cache.fill"):
+            cache.complete(handle, fut)
 
     @staticmethod
     def warmup_arrays(servable: Servable, n: int) -> dict[str, np.ndarray]:
@@ -726,6 +1080,9 @@ class DynamicBatcher:
             st = self._staged.popleft()
             self._dispatch_pending -= 1
             self._release_pad(st)
+            if st.row_ctx is not None:
+                # Batches waiting on this one's cold rows fail with it.
+                st.row_ctx.abort(exc)
             for it in st.group:
                 if not it.future.done():
                     try:
@@ -831,10 +1188,9 @@ class DynamicBatcher:
         """Pack one batch (a _FusedCtx or folded padded arrays) into a ring
         buffer: (host uint8 tensor, layout)."""
         if isinstance(src, _FusedCtx):
-            with request_trace.span("batch.fusedpack"):
-                buf = self.ring.acquire(combined_nbytes(src.layout, rows))
-                native.pack_batch_u24_bf16(src.ids_parts, src.wts_parts, src.fields, rows,
-                                           src.vocab, out=buf.numpy())
+            buf = self.ring.acquire(combined_nbytes(src.layout, rows))
+            native.pack_batch_u24_bf16(src.ids_parts, src.wts_parts, src.fields, rows,
+                                       src.vocab, out=buf.numpy())
             with self._stats_lock:
                 self.stats.native_packs += 1
             return buf, src.layout
@@ -856,11 +1212,33 @@ class DynamicBatcher:
         return buf, event
 
     def _upload_per_key(self, entry: _Entry, arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        """The per-key path: pack each (folded) input, one pageable copy each."""
-        packed = pack_host(arrays, entry.spec) if entry.spec else arrays
-        with self._stats_lock:
-            self.stats.h2d_copies += len(packed)
-        return unpack_device(to_device(packed, self.device), entry.spec)
+        """The per-key path: pack each (folded) input, one pageable copy
+        each; with the input cache, each input looked up on its own."""
+        def upload(key, arr, keep=False):
+            packed = pack_host({key: arr}, entry.spec) if entry.spec else {key: arr}
+            t = to_device(packed, self.device)[key]
+            with self._stats_lock:
+                self.stats.h2d_copies += 1
+            # On the CPU the "upload" shares the host array's memory: the
+            # cache keeps a copy of its own.
+            return t.clone() if keep and self.device.type != "cuda" else t
+
+        cache = self.input_cache
+        if cache is None:
+            return unpack_device({k: upload(k, v) for k, v in arrays.items()}, entry.spec)
+        with request_trace.span("batch.cache"):
+            uploaded = {k: cache.get_or_put(k, v, lambda keep, k=k, v=v: upload(k, v, keep),
+                                            pack_tag=entry.spec.get(k, ""))
+                        for k, v in arrays.items()}
+        return unpack_device(uploaded, entry.spec)
+
+    def _input_key(self, cache: DeviceInputCache, src: _FusedCtx, rows: int) -> tuple:
+        """The input cache's key of a natively packed batch: the layout,
+        the bucket and the vocab (the digests are over raw ids, and the
+        packed buffer's fold depends on the vocab) and each part's digest."""
+        return ((f"fused:{src.layout}:{rows}:{src.vocab}",)
+                + tuple(cache._key("i", a) for a in src.ids_parts)
+                + tuple(cache._key("w", a) for a in src.wts_parts))
 
     def _step(self, servable: Servable, entry: _Entry, rows: int, override):
         """(step, params, fused) for one batch of `rows`."""
@@ -930,18 +1308,56 @@ class DynamicBatcher:
         pairs of the first n_valid rows' scores."""
         entry = self.step_for(servable)
         step, params, fused = self._step(servable, entry, rows, override)
-        held, event = None, None
         if not isinstance(src, _FusedCtx):
             src = self._folded(servable, src)
-        if per_key or not (isinstance(src, _FusedCtx) or combined_supported(src)):
-            batch = self._upload_per_key(entry, src)
-        else:
-            held, layout = self._pack(entry, src, rows)
+        per_key = per_key or not (isinstance(src, _FusedCtx) or combined_supported(src))
+        cache = None if per_key else self.input_cache
+        # (host buffer, event after the copy that reads it): back to the
+        # ring once the step has been issued.
+        spent: list = []
+        held = dbuf = None
+        layout = None if per_key else (
+            src.layout if isinstance(src, _FusedCtx) else combined_layout(src, entry.spec))
+
+        def pack_upload(keep: bool) -> torch.Tensor:
+            buf, _ = self._pack(entry, src, rows)
+            # Back to the ring even if the upload fails.
+            spent.append((buf, None))
+            dev, event = self._upload(buf)
+            if dev is buf and keep:
+                # On the CPU the upload is the ring buffer itself: one the
+                # cache keeps never goes back to the ring.
+                spent.pop()
+            else:
+                spent[-1] = (buf, event)
+            return dev
+
         try:
+            if per_key:
+                batch = self._upload_per_key(entry, src)
+            elif cache is not None and not cache.bypassed:
+                # A hit skips the pack, the ring and the upload; a miss packs
+                # and uploads in this span.
+                with request_trace.span("batch.cache"):
+                    if isinstance(src, _FusedCtx):
+                        dbuf = cache._lookup(self._input_key(cache, src, rows), pack_upload)
+                    else:
+                        dbuf = cache.get_or_put_group(src, pack_upload, tag=str(layout))
+            else:
+                if cache is not None:
+                    cache._note_bypassed()
+                if isinstance(src, _FusedCtx):
+                    with request_trace.span("batch.fusedpack"):
+                        held, _ = self._pack(entry, src, rows)
+                else:
+                    held, _ = self._pack(entry, src, rows)
+                spent.append((held, None))
             with torch.inference_mode():
                 with request_trace.span("batch.jitcall"):
                     if held is not None:
                         dbuf, event = self._upload(held)
+                        spent[-1] = (held, event)
+                    if not per_key:
                         batch = unpack_device_combined(dbuf, layout)
                     out = step(params, batch)
                 full = sum(v.numel() * (4 if v.is_floating_point() else v.element_size())
@@ -953,10 +1369,10 @@ class DynamicBatcher:
             if topk:
                 rb.topk = (n_valid, servable.model.score_output)
         finally:
-            if held is not None:
+            for buf, event in spent:
                 # Reusable once the copy that reads it is done (on the CPU
                 # the step has already read it).
-                self.ring.release([held], event)
+                self.ring.release([buf], event)
         if fused:
             with self._stats_lock:
                 self.stats.fused_batches += 1
@@ -1085,37 +1501,19 @@ class DynamicBatcher:
 
     def _assemble(self, group: list[_WorkItem], total: int) -> _Staged | None:
         """Pad the group to its bucket (or gather its parts for the native
-        pack). A failure fails the group's futures and returns None."""
+        pack). With the row cache, only the batch's cold rows are executed,
+        in their own bucket, and a batch with no cold row is delivered from
+        the cache with no device work; with dedup, each distinct row once.
+        Both skip top-k and warmup groups. A failure fails the group's
+        futures (and its row flights) and returns None."""
         phases = _phase_sink(group)
         ring = self.buffer_ring
         pad_bufs: list = []
+        row_ctx = None
         try:
             bucket = bucket_for(total, self.buckets)
-            servable = group[0].servable
-            src = self._fused_ctx(servable, [it.arrays for it in group])
-            if src is None:
-                src = {}
-                with _sink_ctx(phases), request_trace.span("batch.pad"):
-                    for key in group[0].arrays:
-                        # The result dtype promotes mixed dtypes (int32
-                        # compact ids next to raw int64 ids) instead of
-                        # truncating into the first's.
-                        parts = [it.arrays[key] for it in group]
-                        first = parts[0]
-                        if ring is None:
-                            parts.append(np.zeros((bucket - total,) + first.shape[1:],
-                                                  first.dtype))
-                            src[key] = np.concatenate(parts)
-                            continue
-                        out = ring.acquire((bucket,) + first.shape[1:],
-                                           np.result_type(*parts))
-                        pad_bufs.append(out)
-                        off = 0
-                        for p in parts:
-                            out[off:off + p.shape[0]] = p
-                            off += p.shape[0]
-                        out[off:] = 0  # the padding rows
-                        src[key] = out
+            first = group[0]
+            servable = first.servable
             keys = None
             if all(it.output_keys is not None for it in group):
                 keys = tuple(dict.fromkeys(k for it in group for k in it.output_keys))
@@ -1126,15 +1524,196 @@ class DynamicBatcher:
             if (self.output_top_k and len(group) == 1 and 0 < self.output_top_k < total
                     and keys == (servable.model.score_output,)):
                 topk = self.output_top_k
+            warm = any(it.warmup for it in group)
+            scatter = uniq = cats = None
+            rc = self.row_cache
+            if rc is not None and not topk and not warm:
+                with _sink_ctx(phases), request_trace.span("cache.row_lookup"):
+                    row_ctx = self._plan_rows(
+                        rc, group, total, tuple(sorted(keys)) if keys is not None else None)
+                with self._stats_lock:
+                    self.stats.row_batches += 1
+                    self.stats.rows_requested += total
+                    self.stats.rows_executed += row_ctx.n_cold
+                    self.stats.row_full_hit_batches += row_ctx.n_cold == 0
+                if row_ctx.n_cold == 0:
+                    # Every row cached or being filled by another batch:
+                    # delivered on a completion worker, so this thread
+                    # never waits for another batch's fill.
+                    _replay(group, phases)
+                    self._completers.submit(self._finish_row_batch, group, row_ctx, None)
+                    return None
+                cats = row_ctx.exec_arrays
+                if not row_ctx.passthrough:
+                    bucket = bucket_for(row_ctx.n_cold, self.buckets)
+            elif self.dedup and not topk and total > 1 and not warm:
+                with _sink_ctx(phases), request_trace.span("batch.dedup"):
+                    uniq, scatter, cats = collapse_rows(
+                        {k: [it.arrays[k] for it in group] for k in first.arrays})
+                if scatter is not None:
+                    n_unique = next(iter(uniq.values())).shape[0]
+                    bucket = bucket_for(n_unique, self.buckets)
+                    with self._stats_lock:
+                        self.stats.dedup_batches += 1
+                        self.stats.dedup_rows_collapsed += total - n_unique
+            # A collapsed batch skips the native pack, which would read the
+            # requests' own parts again; rows already concatenated go to it
+            # as one part (its output is row-sequential, so the bytes are
+            # those of the parts).
+            src = None
+            if scatter is None:
+                parts = [cats] if cats is not None else [it.arrays for it in group]
+                src = self._fused_ctx(servable, parts)
+            if src is None:
+                rows = uniq if scatter is not None else cats
+                src = {}
+                with _sink_ctx(phases), request_trace.span("batch.pad"):
+                    for key in first.arrays:
+                        # The result dtype promotes mixed dtypes (int32
+                        # compact ids next to raw int64 ids) instead of
+                        # truncating into the first's.
+                        parts = ([rows[key]] if rows is not None
+                                 else [it.arrays[key] for it in group])
+                        n = sum(p.shape[0] for p in parts)
+                        head = parts[0]
+                        if ring is None:
+                            parts.append(np.zeros((bucket - n,) + head.shape[1:], head.dtype))
+                            src[key] = np.concatenate(parts)
+                            continue
+                        out = ring.acquire((bucket,) + head.shape[1:], np.result_type(*parts))
+                        pad_bufs.append(out)
+                        off = 0
+                        for p in parts:
+                            out[off:off + p.shape[0]] = p
+                            off += p.shape[0]
+                        out[off:] = 0  # the padding rows
+                        src[key] = out
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
             if pad_bufs:
                 ring.release(pad_bufs)
             _replay(group, phases)
-            self._fail(group, total, exc)
+            self._fail(group, total, exc, row_ctx)
             return None
         return _Staged(group=group, total=total, bucket=bucket, src=src, keys=keys,
                        collected_t=time.perf_counter(), topk=topk, phases=phases,
-                       pad_bufs=pad_bufs)
+                       pad_bufs=pad_bufs, scatter=scatter, row_ctx=row_ctx)
+
+    def _plan_rows(self, rc, group: list[_WorkItem], total: int, keys) -> _RowContext:
+        """The row cache's consultation for one collected batch: the
+        concatenated rows, one blake2b digest per row (with dedup, rows of
+        equal digest collapse first), and each slot a hit, a waiter on
+        another batch's flight, or a cold row this batch leads. The context
+        carries the cold rows to execute and the map back."""
+        from ..cache.row_cache import digest_rows, row_structure_header
+
+        first = group[0]
+        # np.concatenate widens mixed dtypes as the pad does, so a row's
+        # identity is over the bytes the device would see.
+        cats = {k: (np.concatenate([it.arrays[k] for it in group]) if len(group) > 1
+                    else first.arrays[k])
+                for k in first.arrays}
+        digests_all = digest_rows(canonical_rows(cats), row_structure_header(cats))
+        uniq_rows = inverse = None
+        if self.dedup and total > 1:
+            # Collapse by digest, the key the cache stores rows under.
+            darr = np.frombuffer(b"".join(digests_all), np.uint8).reshape(total, 16)
+            _, first_idx, inv = np.unique(darr, axis=0, return_index=True,
+                                          return_inverse=True)
+            if first_idx.shape[0] < total:
+                uniq_rows = first_idx
+                inverse = inv.reshape(-1).astype(np.int64)
+                with self._stats_lock:
+                    self.stats.dedup_batches += 1
+                    self.stats.dedup_rows_collapsed += total - first_idx.shape[0]
+        if uniq_rows is None:
+            uniq_rows = inverse = np.arange(total, dtype=np.int64)
+        digests = (digests_all if uniq_rows.shape[0] == total
+                   else [digests_all[i] for i in uniq_rows])
+        servable = first.servable
+        # No stale window: serving entries past their TTL under pressure
+        # belongs to the overload plane.
+        plan = rc.begin_rows(servable.name, servable.version, keys, digests)
+        try:
+            ctx = _RowContext()
+            ctx.cache = rc
+            ctx.plan = plan
+            ctx.n_slots = len(digests)
+            ctx.inverse = inverse
+            ctx.lead_slots = np.asarray(plan.lead, dtype=np.int64)
+            ctx.n_cold = len(plan.lead)
+            ctx.passthrough = ctx.n_cold == ctx.n_slots == total
+            # Every slot executed by this batch (it only held duplicates):
+            # delivered by a scatter through `inverse`.
+            ctx.all_fresh = not plan.hits and not plan.waiters
+            if ctx.passthrough:
+                ctx.exec_arrays = cats
+            elif ctx.n_cold:
+                sel = uniq_rows[ctx.lead_slots]
+                ctx.exec_arrays = {k: np.ascontiguousarray(v[sel]) for k, v in cats.items()}
+            else:
+                ctx.exec_arrays = None
+            rc.note_rows(servable.name, total, ctx.n_cold)
+        except BaseException as exc:
+            # The flights begin_rows registered must not outlive the plan.
+            rc.abort_rows(plan, exc)
+            raise
+        return ctx
+
+    def _finish_row_batch(self, group: list[_WorkItem], row_ctx: _RowContext,
+                          host: dict | None) -> None:
+        """Deliver a row-cache batch once every foreign fill it joined has
+        resolved. It never blocks a thread: while such fills are pending,
+        delivery runs from the last one's done-callback, on the thread that
+        resolves it. Host arrays only: no CUDA work here."""
+        pending = [f for f in row_ctx.plan.waiters.values() if not f.done()]
+        if not pending:
+            self._deliver_row_batch(group, row_ctx, host)
+            return
+        lock = threading.Lock()
+        left = [len(pending)]
+
+        def on_done(_f):
+            with lock:
+                left[0] -= 1
+                if left[0]:
+                    return
+            try:
+                self._deliver_row_batch(group, row_ctx, host)
+            except Exception as exc:  # noqa: BLE001 — every waiter must resolve
+                self._fail(group, len(row_ctx.inverse), exc)
+
+        for f in pending:
+            f.add_done_callback(on_done)
+
+    def _deliver_row_batch(self, group: list[_WorkItem], row_ctx: _RowContext,
+                           host: dict | None) -> None:
+        """Put executed, cached and foreign-filled rows back into every
+        request's slice and resolve the futures. A request with a row whose
+        foreign fill failed gets that error (its batchmates still answer)."""
+        try:
+            full, failed_rows, row_errors = row_ctx.assemble(host)
+        except Exception as exc:  # noqa: BLE001 — every waiter must resolve
+            self._fail(group, len(row_ctx.inverse), exc)
+            return
+        off = 0
+        for it in group:
+            sl = slice(off, off + it.n)
+            off += it.n
+            if failed_rows is not None and failed_rows[sl].any():
+                bad = int(row_ctx.inverse[sl][failed_rows[sl]][0])
+                exc = row_errors.get(bad) or next(iter(row_errors.values()))
+                if not it.future.done():
+                    try:
+                        it.future.set_exception(exc)
+                    except InvalidStateError:
+                        pass
+                continue
+            keys = it.output_keys or tuple(full)
+            try:
+                if not it.future.cancelled():
+                    it.future.set_result({k: full[k][sl] for k in keys if k in full})
+            except InvalidStateError:
+                pass
 
     def _stage(self, staged: _Staged) -> None:
         """Hand a group to the dispatch thread; then wait while
@@ -1170,8 +1749,14 @@ class DynamicBatcher:
                         self._dispatch_pending -= 1
                         self._cv.notify_all()
 
-    def _fail(self, group: list[_WorkItem], total: int, exc: BaseException) -> None:
+    def _fail(self, group: list[_WorkItem], total: int, exc: BaseException,
+              row_ctx: _RowContext | None = None) -> None:
+        """Fail the group's futures, and the row flights the batch led (a
+        batch that joined them would otherwise wait for a fill that never
+        lands)."""
         log.error("batch of %d candidates failed", total, exc_info=exc)
+        if row_ctx is not None:
+            row_ctx.abort(exc)
         for it in group:
             if not it.future.done():
                 try:
@@ -1225,7 +1810,7 @@ class DynamicBatcher:
             # The spans show the phases that led to the failure before the
             # waiters unblock and finish them.
             _replay(st.group, st.phases)
-            self._fail(st.group, st.total, exc)
+            self._fail(st.group, st.total, exc, st.row_ctx)
             return
         finally:
             with self._cv:
@@ -1277,7 +1862,7 @@ class DynamicBatcher:
     def _abandon(self, st: _Staged, exc: BaseException) -> None:
         with self._cv:
             self._done_inflight_locked(st)
-        self._fail(st.group, st.total, exc)
+        self._fail(st.group, st.total, exc, st.row_ctx)
 
     def _finish(self, st: _Staged, rb: _Readback) -> None:
         """Completion worker: wait for the readback, complete every member.
@@ -1295,11 +1880,20 @@ class DynamicBatcher:
                         self.ring.release([buf for buf, _ in rb.out.values()], rb.event)
                         raise
                     host = self._wait(rb)
+                    if st.scatter is not None:
+                        # Dedup: each original row takes its unique row's
+                        # outputs.
+                        host = {k: v[st.scatter] for k, v in host.items()}
+                    if st.row_ctx is not None:
+                        # Fill the cache from the executed rows and answer
+                        # the batches that joined them.
+                        with request_trace.span("cache.row_fill"):
+                            st.row_ctx.fill_from_host(host)
             finally:
                 _replay(st.group, phases)
             self._complete(st, rb, host)
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
-            self._fail(st.group, st.total, exc)
+            self._fail(st.group, st.total, exc, st.row_ctx)
         finally:
             if rb.event is None or rb.event.query():
                 # The readback event follows the upload on the same stream:
@@ -1310,6 +1904,14 @@ class DynamicBatcher:
                 self._done_inflight_locked(st)
 
     def _complete(self, st: _Staged, rb: _Readback, host: dict[str, np.ndarray]) -> None:
+        row_ctx = st.row_ctx
+        if row_ctx is not None and not row_ctx.passthrough:
+            if not row_ctx.all_fresh:
+                # Executed, cached and foreign-filled rows together.
+                self._finish_row_batch(st.group, row_ctx, host)
+                return
+            # Every row executed here: the scatter back through `inverse`.
+            host = {k: v[row_ctx.inverse] for k, v in host.items()}
         timeline = self.timeline
         off = 0
         for it in st.group:

@@ -24,11 +24,15 @@ package's PredictionServiceImpl:
   /tracez[?format=chrome][&limit=N]` -> the retained span trees, or a
   Chrome-trace-event export; `GET /tracez/export?since=N` -> the kept span
   trees after a cursor.
+- `GET /cachez` -> the score cache's counters with a `row_cache` block
+  (`{"enabled": false}` with the plane off); `POST /cachez/flush[?model=]`
+  -> drops every cached score (or one model's) in both stores,
+  FAILED_PRECONDITION (500) with no store armed.
 - The planes that are not ported yet answer what the JAX gateway answers
-  with that plane off: `{"enabled": false}` from `/cachez`, `/utilz`,
+  with that plane off: `{"enabled": false}` from `/utilz`,
   `/qualityz`, `/lifecyclez`, `/fleetz`, `/recoveryz`, `/meshz`,
   `/cascadez`, `/integrityz`; 404 from `/lifecyclez/rollback` and
-  `/integrityz/audit`; FAILED_PRECONDITION (500) from `/cachez/flush`,
+  `/integrityz/audit`; FAILED_PRECONDITION (500) from
   `/qualityz/snapshot` and `/labelz`. `/profilez` is not served (it belongs
   to the utilization plane).
 
@@ -111,7 +115,7 @@ class RestGateway:
             web.get("/monitoring", self.monitoring),
             web.get("/tracez", self.tracez),
             web.get("/tracez/export", self.tracez_export),
-            web.get("/cachez", self.plane_off),
+            web.get("/cachez", self.cachez),
             web.post("/cachez/flush", self.cachez_flush),
             web.get("/utilz", self.utilz),
             web.get("/qualityz", self.qualityz),
@@ -399,6 +403,8 @@ class RestGateway:
         return web.Response(
             body=self.metrics.prometheus_text(
                 self.impl.batcher.stats,
+                cache=self.impl.cache_stats(),
+                row_cache=self.impl.row_cache_stats(),
                 pipeline=self.impl.pipeline_stats(),
                 kernels=self.impl.kernels_stats(),
             ).encode("utf-8"),
@@ -508,9 +514,25 @@ class RestGateway:
         """A plane's operator lever with the plane off: 404."""
         return web.json_response(_OFF, status=404)
 
+    async def cachez(self, request: web.Request) -> web.Response:
+        """GET /cachez: the score cache's aggregate and per-model counters,
+        hit rate, occupancy and config, with a `row_cache` block when the
+        row tier is armed; `{"enabled": false}` with no store armed."""
+        stats = self.impl.cache_stats()
+        row = self.impl.row_cache_stats()
+        if row is not None:
+            stats = dict(stats) if stats is not None else {"enabled": False}
+            stats["row_cache"] = row
+        return web.json_response(stats if stats is not None else _OFF)
+
     async def cachez_flush(self, request: web.Request) -> web.Response:
-        return _json_error("FAILED_PRECONDITION",
-                           "no score cache is configured ([cache] enabled=false)")
+        """POST /cachez/flush[?model=NAME]: drop every cached score, or one
+        model's (generation-bumped: fills in flight are dropped too)."""
+        try:
+            dropped = self.impl.cache_flush(request.query.get("model") or None)
+        except ServiceError as e:
+            return _json_error(e.code, str(e))
+        return web.json_response({"flushed": True, "entries_dropped": dropped})
 
     async def utilz(self, request: web.Request) -> web.Response:
         window = request.query.get("window")

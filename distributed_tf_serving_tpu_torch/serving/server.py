@@ -28,7 +28,7 @@ CLI:
         [--no-warmup] [--max-wait-us N] [--max-workers N] \
         [--file-system-poll-wait-seconds S] [--max-num-load-retries N] \
         [--uds-path PATH] [--stream-chunk N] [--rest-port N] \
-        [--metrics-every-s S] [--tracing]
+        [--metrics-every-s S] [--tracing] [--cache]
 
 serves, by default, a randomly initialized demo servable (numpy-seeded,
 `--seed`) of the configured model kind ([server] model_kind, or
@@ -83,6 +83,7 @@ from ..utils import tracing
 from ..utils.config import (
     DRAIN_GRACE_S,
     BatchingConfig,
+    CacheConfig,
     KernelsConfig,
     ObservabilityConfig,
     ServerConfig,
@@ -750,10 +751,19 @@ def _launch_counts() -> str:
                       sort_keys=True)
 
 
-def _servable_change_hook(name: str) -> None:
-    """The version watcher's on_servable_change: log the kernel launch
-    counters, so each version's launches show."""
-    log.info("kernel launches after a %s version change: %s", name, _launch_counts())
+def _servable_change_hook(score_cache=None, row_cache=None):
+    """The version watchers' on_servable_change: log the kernel launch
+    counters, so each version's launches show, and invalidate the model in
+    each armed store of the cache plane, so a swap never serves the old
+    version's scores."""
+    hooks = [store.invalidate_model for store in (score_cache, row_cache) if store is not None]
+
+    def hook(name: str) -> None:
+        log.info("kernel launches after a %s version change: %s", name, _launch_counts())
+        for h in hooks:
+            h(name)
+
+    return hook
 
 
 def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig, registry,
@@ -761,7 +771,8 @@ def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig,
     """A VersionWatcher that serves `model_name` from `base_path`: each
     version warmed through the batcher's queue and its warmup file replayed
     before it serves (unless cfg.warmup is off), loaded onto the batcher's
-    device, the kernel launch counters logged at every version change."""
+    device, the kernel launch counters logged and the batcher's caches
+    invalidated at every version change."""
     from .version_watcher import VersionWatcher, VersionWatcherConfig
     from .warmup import replay_warmup_file
 
@@ -779,7 +790,7 @@ def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig,
             (lambda sv, wf: replay_warmup_file(wf, sv, batcher)) if cfg.warmup else None
         ),
         device=batcher.device,
-        on_servable_change=_servable_change_hook,
+        on_servable_change=_servable_change_hook(batcher.score_cache, batcher.row_cache),
     )
 
 
@@ -965,7 +976,8 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                 kernels_config: KernelsConfig | None = None,
                 checkpoint=None, model_base_path=None,
                 batching_config: BatchingConfig | None = None,
-                transport_config: TransportConfig | None = None):
+                transport_config: TransportConfig | None = None,
+                cache_config: CacheConfig | None = None):
     """(impl, batcher, servable): the servable serving at start, warmed
     through every bucket (unless `cfg.warmup` is off), and a started
     batcher. The servable is the numpy-seeded demo (`seed`), the checkpoint
@@ -994,8 +1006,11 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     The batcher reads back at `cfg.output_wire_dtype` and `output_top_k`;
     `batching_config` sets its in-flight window and pad buffer ring and
     PredictStream's default split; `transport_config.response_arena` turns
-    on the service's encode arenas. The source options are checked, and a
-    model config file parsed, before any thread starts."""
+    on the service's encode arenas. An enabled `cache_config` arms the
+    cache plane: the score cache, the row cache with `row_granular`, and
+    dedup with `dedup`; every version watcher invalidates the stores at a
+    version change. The source options are checked, and a model config
+    file parsed, before any thread starts."""
     if checkpoint and model_base_path:
         raise ValueError(
             "--model-base-path is mutually exclusive with --checkpoint "
@@ -1016,13 +1031,27 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     if bc.inflight_window or bc.buffer_ring:
         log.info("batching pipeline: depth=%d inflight_window=%s buffer_ring=%s",
                  cfg.pipeline_depth, bc.inflight_window or "unbounded", bc.buffer_ring)
+    cc = cache_config or CacheConfig()
+    score_cache = cc.build()
+    if score_cache is not None:
+        log.info("score cache on: max_entries=%d max_bytes=%d ttl_s=%.1f coalesce=%s "
+                 "dedup=%s — GET /cachez on the REST surface", cc.max_entries, cc.max_bytes,
+                 cc.ttl_s, cc.coalesce, cc.dedup)
+    row_cache = cc.build_row()
+    if row_cache is not None:
+        log.info("row-granular score cache on: max_entries=%d max_bytes=%d ttl_s=%.1f "
+                 "coalesce=%s — only cold rows execute; `row_cache` block in /cachez and "
+                 "/monitoring", cc.row_max_entries, cc.row_max_bytes, cc.row_ttl_s,
+                 cc.row_coalesce)
     batcher = DynamicBatcher(
         buckets=cfg.buckets, max_wait_us=cfg.max_wait_us, device=device,
         queue_capacity_candidates=cfg.queue_capacity_candidates,
         fused_kernel=fused_kernel, completion_workers=cfg.completion_workers,
         pipeline_depth=cfg.pipeline_depth, output_wire_dtype=cfg.output_wire_dtype,
         output_top_k=cfg.output_top_k, inflight_window=bc.inflight_window,
-        buffer_ring=bc.buffer_ring,
+        buffer_ring=bc.buffer_ring, score_cache=score_cache, row_cache=row_cache,
+        # `enabled` is the master switch: dedup alone arms nothing.
+        dedup=cc.enabled and cc.dedup,
     )
     kernels = kernels_config.build() if kernels_config is not None else None
     batcher.kernels = kernels
@@ -1187,6 +1216,11 @@ def serve(argv=None) -> None:
                    "the REST surface, ?format=chrome for a Chrome trace). Equivalent to "
                    "[observability] tracing = true")
     p.add_argument(
+        "--cache", action="store_true",
+        help="exact-match score cache and single-flight at the batcher (GET /cachez on the "
+        "REST surface). Equivalent to [cache] enabled = true; the [cache] section carries "
+        "the capacity, ttl, coalesce and dedup knobs and the row-granular tier")
+    p.add_argument(
         "--kernels", action="store_true",
         help="kernel/quantization plane: int8 weight quantization and the fused "
         "serve kernel, each enabled per bucket only where the load-time autotune "
@@ -1205,6 +1239,9 @@ def serve(argv=None) -> None:
     if args.stream_chunk is not None:
         batching_config = dataclasses.replace(
             batching_config, stream_chunk_candidates=max(args.stream_chunk, 0))
+    cache_config = loaded.get("cache") or CacheConfig()
+    if args.cache:
+        cache_config = dataclasses.replace(cache_config, enabled=True)
     obs = loaded.get("observability") or ObservabilityConfig()
     if args.tracing:
         obs = dataclasses.replace(obs, tracing=True)
@@ -1244,6 +1281,7 @@ def serve(argv=None) -> None:
             cfg, model_config, args.device, args.seed, kernels_config=kernels_config,
             checkpoint=args.checkpoint, model_base_path=args.model_base_path,
             batching_config=batching_config, transport_config=transport_config,
+            cache_config=cache_config,
         )
     except BaseException:
         if request_logger is not None:

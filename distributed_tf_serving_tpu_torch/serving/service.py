@@ -138,12 +138,51 @@ class PredictionServiceImpl:
             arena = self._arenas.arena = codec.EncodeArena()
         return arena
 
-    # Cache, overload, utilization, quality, lifecycle, recovery, cascade,
+    # Overload, utilization, quality, lifecycle, recovery, cascade,
     # integrity (ROADMAP.md Queue A item 6), fleet (item 8), mesh and
     # elastic (item 9): refused by load_config, so always off here.
-    cache_stats = row_cache_stats = overload_stats = utilization_stats = staticmethod(_plane_off)
+    overload_stats = utilization_stats = staticmethod(_plane_off)
     quality_stats = lifecycle_stats = recovery_stats = cascade_stats = staticmethod(_plane_off)
     integrity_stats = fleet_stats = mesh_stats = elastic_stats = staticmethod(_plane_off)
+
+    def cache_stats(self) -> dict | None:
+        """The score cache's snapshot (per-model hit / miss / coalesced /
+        eviction counters, occupancy, config): the body of GET /cachez and
+        the /monitoring `cache` block. None when no score cache is armed."""
+        cache = self.batcher.score_cache
+        return cache.snapshot() if cache is not None else None
+
+    def row_cache_stats(self) -> dict | None:
+        """The row cache's snapshot (per-row counters, rows_executed
+        against rows_requested, occupancy) with the batcher's row counters:
+        the `row_cache` block of GET /cachez and /monitoring and the
+        dts_tpu_cache_row_* series. None when no row cache is armed."""
+        rc = self.batcher.row_cache
+        if rc is None:
+            return None
+        snap = rc.snapshot()
+        stats = self.batcher.stats
+        snap["batcher"] = {
+            "row_batches": stats.row_batches,
+            "rows_requested": stats.rows_requested,
+            "rows_executed": stats.rows_executed,
+            "row_full_hit_batches": stats.row_full_hit_batches,
+        }
+        return snap
+
+    def cache_flush(self, model: str | None = None) -> int:
+        """Drop every cached score, or one model's, in both stores. The
+        flush bumps the generation, so fills of computations already in
+        flight are dropped too. Returns the entries dropped; without an
+        armed store, FAILED_PRECONDITION."""
+        cache, row_cache = self.batcher.score_cache, self.batcher.row_cache
+        if cache is None and row_cache is None:
+            raise ServiceError("FAILED_PRECONDITION",
+                               "no score cache is configured ([cache] enabled=false)")
+        dropped = cache.flush(model) if cache is not None else 0
+        if row_cache is not None:
+            dropped += row_cache.flush(model)
+        return dropped
 
     def kernels_stats(self) -> dict | None:
         """The kernel plane's snapshot (ops/autotune.py KernelManager): the

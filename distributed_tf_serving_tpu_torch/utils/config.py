@@ -1,5 +1,5 @@
-"""TOML config: the [server], [batching], [transport], [model], [kernels]
-and [observability] sections the port reads, the checks of the
+"""TOML config: the [server], [batching], [transport], [model], [kernels],
+[observability] and [cache] sections the port reads, the checks of the
 model-config entries, and the mapping of a tensorflow_model_server
 batching-parameters file onto [server].
 
@@ -7,7 +7,7 @@ The JAX package's config files load unchanged, with one rule: a setting
 that would change what is served, logged or admitted but is not ported
 here is refused with a ValueError naming the ROADMAP.md Queue A item that
 ports it, never dropped. That covers the mesh knobs of [server] and a
-plane section ([cache], [overload], ...) switched on. What changes no result here is ignored with one log line: the
+plane section ([overload], [utilization], ...) switched on. What changes no result here is ignored with one log line: the
 transfer knobs of [server], the [client] section, and a plane section that
 is off ([overload] drain_grace_s still feeds the shutdown drain). A section
 or key the JAX package does not know either raises, as there.
@@ -271,6 +271,57 @@ class ObservabilityConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class CacheConfig:
+    """The [cache] section (cache/): the exact-match score cache with
+    single-flight at the batcher's submit, the intra-batch duplicate
+    collapse, and the row-granular score cache. The JAX package's fields
+    and defaults. Everything is off by default, and `enabled` is the master
+    switch: off, nothing is armed, whatever `dedup` or `row_granular` say."""
+
+    # Build a ScoreCache and hand it to the batcher.
+    enabled: bool = False
+    # LRU capacity in entries and in cached-score bytes (whichever binds
+    # first; split across the sharded locks).
+    max_entries: int = 8192
+    max_bytes: int = 64 << 20
+    # Shelf life of an entry: CTR scores go stale with state that is not
+    # in the request. A version swap invalidates at once whatever the TTL.
+    ttl_s: float = 30.0
+    # Single-flight: concurrent identical misses ride one computation.
+    coalesce: bool = True
+    # Intra-batch duplicate collapse: a batch's identical rows execute once.
+    dedup: bool = False
+    # Per-row score caching: a batch executes only its cold rows, in their
+    # own bucket, and the cached rows are scattered back per request.
+    row_granular: bool = False
+    # The row tier's LRU bounds and shelf life.
+    row_max_entries: int = 131072
+    row_max_bytes: int = 32 << 20
+    row_ttl_s: float = 30.0
+    # Per-row single-flight: two batches sharing a cold row execute it once.
+    row_coalesce: bool = True
+
+    def build(self):
+        """ScoreCache per this config, or None when disabled."""
+        if not self.enabled:
+            return None
+        from ..cache import ScoreCache
+
+        return ScoreCache(max_entries=self.max_entries, max_bytes=self.max_bytes,
+                          ttl_s=self.ttl_s, coalesce=self.coalesce)
+
+    def build_row(self):
+        """RowScoreCache per this config, or None unless both `enabled`
+        and `row_granular` are set."""
+        if not (self.enabled and self.row_granular):
+            return None
+        from ..cache import RowScoreCache
+
+        return RowScoreCache(max_entries=self.row_max_entries, max_bytes=self.row_max_bytes,
+                             ttl_s=self.row_ttl_s, coalesce=self.row_coalesce)
+
+
 # [server] keys of the JAX package that change no result here: the JAX
 # runtime's transfer knobs, whose work the port's host path always does one
 # way (one combined buffer, async readback, a dispatch thread).
@@ -297,9 +348,6 @@ _UNPORTED_SECTIONS = {
     "elastic": (("enabled", "splits", "tick_interval_s", "dwell_s", "up_after_ticks",
                  "down_after_ticks", "load_up_threshold", "load_down_threshold",
                  "load_ewma_alpha", "history_events"), ("enabled",), 9),
-    "cache": (("enabled", "max_entries", "max_bytes", "ttl_s", "coalesce", "dedup",
-               "row_granular", "row_max_entries", "row_max_bytes", "row_ttl_s",
-               "row_coalesce"), ("enabled",), 6),
     "overload": (("enabled", "target_queue_wait_ms", "queue_wait_window_s",
                   "adjust_interval_s", "increase_candidates", "decrease_factor",
                   "min_limit_candidates", "max_limit_candidates", "service_ewma_alpha",
@@ -383,15 +431,15 @@ def load_config(path) -> dict[str, Any]:
     """Parse a TOML file: {"server": ServerConfig, "batching":
     BatchingConfig, "transport": TransportConfig, "drain_grace_s": float,
     "model": ModelConfig, "kernels": KernelsConfig, "observability":
-    ObservabilityConfig} ("model", "kernels" and "observability" only when
-    the file has that section). A nonzero [batching]
+    ObservabilityConfig, "cache": CacheConfig} ("model", "kernels",
+    "observability" and "cache" only when the file has that section). A nonzero [batching]
     pipeline_depth replaces the [server] one, as in the JAX package's
     server; "drain_grace_s" is [overload] drain_grace_s (honored with the
     plane off, as there). Raises ValueError on a setting that is not
     ported (module docstring) and on a section or key the JAX package does
     not know."""
     raw = tomllib.loads(pathlib.Path(path).read_text())
-    ported = {"server", "batching", "transport", "model", "kernels", "observability"}
+    ported = {"server", "batching", "transport", "model", "kernels", "observability", "cache"}
     unknown = sorted(set(raw) - ported - set(_UNPORTED_SECTIONS))
     if unknown:
         raise ValueError(f"unknown config sections: {unknown}")
@@ -417,6 +465,8 @@ def load_config(path) -> dict[str, Any]:
     if "observability" in raw:
         out["observability"] = _coerce(ObservabilityConfig, raw["observability"],
                                        "observability")
+    if "cache" in raw:
+        out["cache"] = _coerce(CacheConfig, raw["cache"], "cache")
     extra = sorted(set(raw) & set(_UNPORTED_SECTIONS))
     if extra:
         log.info("ignoring config sections this package does not use: %s", extra)

@@ -348,6 +348,43 @@ _HELP = {
     ":tensorflow:serving:request_latency":
         "Request latency in microseconds (TF-Serving-compatible name)",
     "dts_tpu_qps_window": "Rolling-window overall request rate",
+    "dts_tpu_cache_row_hits_total":
+        "Candidate rows answered from the row-granular score cache "
+        "instead of executing on device",
+    "dts_tpu_cache_row_misses_total":
+        "Candidate rows not in the row cache (cold — this batch executes "
+        "them and fills on completion)",
+    "dts_tpu_cache_row_coalesced_total":
+        "Cold rows that joined another in-flight batch's fill instead of "
+        "executing again (per-row single-flight)",
+    "dts_tpu_cache_row_stale_serves_total":
+        "Rows served past TTL inside the brownout stale window "
+        "(responses touching them are marked degraded, never re-filled)",
+    "dts_tpu_cache_row_evictions_total":
+        "Row entries evicted by the LRU entry/byte bounds",
+    "dts_tpu_cache_row_expirations_total":
+        "Row entries dropped on sight past their TTL (and any stale "
+        "window)",
+    "dts_tpu_cache_row_invalidations_total":
+        "Row entries dropped by generation invalidation (version swaps, "
+        "operator flushes)",
+    "dts_tpu_cache_row_fills_total":
+        "Executed rows stored into the row cache",
+    "dts_tpu_cache_row_hit_rate":
+        "row hits / (row hits + row misses) over the process lifetime",
+    "dts_tpu_cache_row_entries":
+        "Live row entries in the row-granular store",
+    "dts_tpu_cache_row_value_bytes":
+        "Bytes of cached per-row output values in the row-granular store",
+    "dts_tpu_cache_rows_requested_total":
+        "Rows that entered cold-row extraction (the denominator of the "
+        "row plane's executed-vs-requested ratio)",
+    "dts_tpu_cache_rows_executed_total":
+        "Rows actually packed, bucketed, and dispatched to the device "
+        "after row-cache extraction",
+    "dts_tpu_cache_rows_executed_fraction":
+        "rows_executed / rows_requested — the row-granular cache's "
+        "headline: well below 1.0 at zipfian skew",
     "dts_tpu_pipeline_in_flight":
         "Batches currently executing or awaiting D2H readback "
         "(the continuous-batching pipeline's live occupancy)",
@@ -522,23 +559,19 @@ class ServerMetrics:
                 "topk_batches": batcher_stats.topk_batches,
                 # Queued work shed because its client deadline expired.
                 "deadline_sheds": getattr(batcher_stats, "deadline_sheds", 0),
-                # The cache plane's counters (duplicate-row collapse, the
-                # row-granular tier): 0 until that plane is ported, the
-                # keys kept so one dashboard reads both packages.
-                "dedup_batches": getattr(batcher_stats, "dedup_batches", 0),
-                "dedup_rows_collapsed": getattr(
-                    batcher_stats, "dedup_rows_collapsed", 0
-                ),
-                "row_batches": getattr(batcher_stats, "row_batches", 0),
-                "rows_requested": getattr(batcher_stats, "rows_requested", 0),
-                "rows_executed": getattr(batcher_stats, "rows_executed", 0),
-                "row_full_hit_batches": getattr(
-                    batcher_stats, "row_full_hit_batches", 0
-                ),
+                # The cache plane: duplicate rows collapsed, and the row
+                # tier's rows dispatched against rows requested.
+                "dedup_batches": batcher_stats.dedup_batches,
+                "dedup_rows_collapsed": batcher_stats.dedup_rows_collapsed,
+                "row_batches": batcher_stats.row_batches,
+                "rows_requested": batcher_stats.rows_requested,
+                "rows_executed": batcher_stats.rows_executed,
+                "row_full_hit_batches": batcher_stats.row_full_hit_batches,
             }
         return out
 
-    def prometheus_text(self, batcher_stats=None, pipeline=None, kernels=None) -> str:
+    def prometheus_text(self, batcher_stats=None, cache=None, row_cache=None, pipeline=None,
+                        kernels=None) -> str:
         """Prometheus exposition (text format 0.0.4) of the same data
         snapshot() serves as JSON. Metric names mirror tensorflow_model_
         server's monitoring surface (`:tensorflow:serving:request_count` /
@@ -636,9 +669,9 @@ class ServerMetrics:
                 ("dts_tpu_batcher_deadline_sheds_total", "counter",
                  getattr(batcher_stats, "deadline_sheds", 0)),
                 ("dts_tpu_batcher_dedup_batches_total", "counter",
-                 getattr(batcher_stats, "dedup_batches", 0)),
+                 batcher_stats.dedup_batches),
                 ("dts_tpu_batcher_dedup_rows_collapsed_total", "counter",
-                 getattr(batcher_stats, "dedup_rows_collapsed", 0)),
+                 batcher_stats.dedup_rows_collapsed),
             ):
                 _family_lines(lines, metric, kind)
                 lines.append(f"{metric} {value}")
@@ -683,6 +716,78 @@ class ServerMetrics:
                 ):
                     _family_lines(lines, metric, kind)
                     lines.append(f"{metric} {value}")
+        if cache is not None:
+            # The ScoreCache snapshot as dts_tpu_cache_* series: aggregate
+            # counters and gauges plus per-model hit / miss / coalesced /
+            # eviction counters.
+            for metric, kind, value in (
+                ("dts_tpu_cache_hits_total", "counter", cache.get("hits", 0)),
+                ("dts_tpu_cache_misses_total", "counter", cache.get("misses", 0)),
+                ("dts_tpu_cache_coalesced_total", "counter",
+                 cache.get("coalesced", 0)),
+                ("dts_tpu_cache_evictions_total", "counter",
+                 cache.get("evictions", 0)),
+                ("dts_tpu_cache_expirations_total", "counter",
+                 cache.get("expirations", 0)),
+                ("dts_tpu_cache_invalidations_total", "counter",
+                 cache.get("invalidations", 0)),
+                # Expired entries answered inside a stale window (the
+                # overload plane's; 0 here).
+                ("dts_tpu_cache_stale_serves_total", "counter",
+                 cache.get("stale_serves", 0)),
+                ("dts_tpu_cache_hit_rate", "gauge", cache.get("hit_rate", 0.0)),
+                ("dts_tpu_cache_entries", "gauge", cache.get("entries", 0)),
+                ("dts_tpu_cache_value_bytes", "gauge",
+                 cache.get("value_bytes", 0)),
+            ):
+                _family_lines(lines, metric, kind)
+                lines.append(f"{metric} {value}")
+            models = cache.get("models") or {}
+            if models:
+                mc = "dts_tpu_cache_model_events_total"
+                _family_lines(lines, mc, "counter")
+                for model, counters in sorted(models.items()):
+                    base = f'model_name="{esc(model)}"'
+                    for event in ("hits", "misses", "coalesced", "evictions"):
+                        lines.append(
+                            f'{mc}{{{base},event="{event}"}} '
+                            f'{counters.get(event, 0)}'
+                        )
+        if row_cache is not None:
+            # The row tier: per-row hit / miss / coalesced counters and
+            # the rows executed on the device against the rows requested.
+            for metric, kind, value in (
+                ("dts_tpu_cache_row_hits_total", "counter",
+                 row_cache.get("hits", 0)),
+                ("dts_tpu_cache_row_misses_total", "counter",
+                 row_cache.get("misses", 0)),
+                ("dts_tpu_cache_row_coalesced_total", "counter",
+                 row_cache.get("coalesced", 0)),
+                ("dts_tpu_cache_row_stale_serves_total", "counter",
+                 row_cache.get("stale_serves", 0)),
+                ("dts_tpu_cache_row_evictions_total", "counter",
+                 row_cache.get("evictions", 0)),
+                ("dts_tpu_cache_row_expirations_total", "counter",
+                 row_cache.get("expirations", 0)),
+                ("dts_tpu_cache_row_invalidations_total", "counter",
+                 row_cache.get("invalidations", 0)),
+                ("dts_tpu_cache_row_fills_total", "counter",
+                 row_cache.get("fills", 0)),
+                ("dts_tpu_cache_row_hit_rate", "gauge",
+                 row_cache.get("hit_rate", 0.0)),
+                ("dts_tpu_cache_row_entries", "gauge",
+                 row_cache.get("entries", 0)),
+                ("dts_tpu_cache_row_value_bytes", "gauge",
+                 row_cache.get("value_bytes", 0)),
+                ("dts_tpu_cache_rows_requested_total", "counter",
+                 row_cache.get("rows_requested", 0)),
+                ("dts_tpu_cache_rows_executed_total", "counter",
+                 row_cache.get("rows_executed", 0)),
+                ("dts_tpu_cache_rows_executed_fraction", "gauge",
+                 row_cache.get("rows_executed_fraction", 0.0)),
+            ):
+                _family_lines(lines, metric, kind)
+                lines.append(f"{metric} {value}")
         if kernels is not None:
             lines.extend(_kernel_prometheus_lines(kernels))
         return "\n".join(lines) + "\n"

@@ -63,9 +63,8 @@ def _stacks(buckets=BUCKETS, **batcher_kw):
     jreg = JaxRegistry()
     jreg.load(JaxServable(name="DCN", version=1, model=jm, params=jp,
                           signatures=jax_signatures(F)))
-    # The JAX batcher's device input cache (a plane the port has not yet)
-    # off: it would time its pack as batch.cache.
-    jb = JaxBatcher(buckets=buckets, max_wait_us=0, input_cache_entries=0).start()
+    # Both batchers with their device input cache (on by default).
+    jb = JaxBatcher(buckets=buckets, max_wait_us=0).start()
     treg = ServableRegistry()
     treg.load(Servable(name="DCN", version=1,
                        model=build_model("dcn_v2", ModelConfig(name="DCN", **KW)),

@@ -550,14 +550,15 @@ def test_pipelined_pinned_ring_is_bit_identical_to_the_per_key_path(cuda_device,
     rewritten while its copy is in flight would hand a batch another's
     inputs. One request fills the one bucket, so no batch coalesces and
     each is the per-key batch exactly. fused_kernel=False serves through
-    model.apply instead of the fused serve kernel."""
+    model.apply instead of the fused serve kernel. The device input cache
+    is off: the test is about the pack and the pinned ring themselves."""
     cfg, model, params = _setup(cuda_device, compute_dtype, 43, 16, (256, 128, 64))
     sv = Servable(name="DCN", version=1, model=model, params=params,
                   signatures=ctr_signatures(cfg.num_fields))
     n = 256
     batcher = DynamicBatcher(buckets=(n,), max_wait_us=0, device=cuda_device, pipeline_depth=2,
                              completion_workers=4, fused_kernel=fused_kernel,
-                             queue_capacity_candidates=64 * n)
+                             queue_capacity_candidates=64 * n, input_cache_entries=0)
     batcher.ring.per_size = 2
     batcher.warmup(sv)
     rng = np.random.RandomState(7)

@@ -175,7 +175,7 @@ def _stacks():
     jreg = JaxRegistry()
     jreg.load(JaxServable(name="DCN", version=1, model=jm, params=jp,
                           signatures=jax_signatures(F)))
-    jb = JaxBatcher(buckets=(32, 64), max_wait_us=0, input_cache_entries=0).start()
+    jb = JaxBatcher(buckets=(32, 64), max_wait_us=0).start()
     treg = ServableRegistry()
     treg.load(Servable(name="DCN", version=1,
                        model=build_model("dcn_v2", ModelConfig(name="DCN", **KW)),

@@ -89,7 +89,6 @@ REFUSED = [
     ("[server]\ntensor_parallel = true\n", 9),
     ("[mesh]\nenabled = true\n", 9),
     ("[elastic]\nenabled = true\n", 9),
-    ("[cache]\nenabled = true\n", 6),
     ("[overload]\nenabled = true\n", 6),
     ("[utilization]\nenabled = true\n", 6),
     ("[quality]\nenabled = true\n", 6),
@@ -116,15 +115,20 @@ PORTED = [
     ("[batching]\ninflight_window = 4\n", "batching", "inflight_window", 4),
     ("[batching]\nbuffer_ring = true\n", "batching", "buffer_ring", True),
     ("[transport]\nresponse_arena = true\n", "transport", "response_arena", True),
+    ("[cache]\nenabled = true\ndedup = true\nrow_granular = true\nttl_s = 5.0\n", "cache",
+     "enabled", True),
 ]
 
 
 @pytest.mark.parametrize("text,section,key,value", PORTED,
                          ids=[f"{key}@{section}" for _, section, key, _ in PORTED])
 def test_a_setting_ported_since_loads_like_jax(tmp_path, text, section, key, value):
-    ours = getattr(load_config(_toml(tmp_path, text))[section], key)
-    theirs = getattr(jax_config.load_config(_toml(tmp_path, text))[section], key)
+    ours_section = load_config(_toml(tmp_path, text))[section]
+    theirs_section = jax_config.load_config(_toml(tmp_path, text))[section]
+    ours, theirs = getattr(ours_section, key), getattr(theirs_section, key)
     assert ours == theirs == value
+    if section == "cache":  # every field of [cache] as the JAX package reads it
+        assert dataclasses.asdict(ours_section) == dataclasses.asdict(theirs_section)
 
 
 IGNORED = [
@@ -164,7 +168,8 @@ def test_the_key_tables_are_the_jax_package_s():
                   for s, cls in jax_config._SECTIONS.items()}
     ported = {"server": torch_config.ServerConfig, "batching": torch_config.BatchingConfig,
               "transport": torch_config.TransportConfig, "kernels": torch_config.KernelsConfig,
-              "observability": torch_config.ObservabilityConfig}
+              "observability": torch_config.ObservabilityConfig,
+              "cache": torch_config.CacheConfig}
     assert set(ported) | set(torch_config._UNPORTED_SECTIONS) == set(jax_fields)
     for section, (keys, switches, _) in torch_config._UNPORTED_SECTIONS.items():
         assert set(keys) == jax_fields[section], section
@@ -701,23 +706,65 @@ def test_cli_refuses_a_version_label_beside_a_model_config_file(tmp_path):
 
 
 def test_cli_refuses_an_unported_plane_before_it_starts(tmp_path):
-    cfg = _toml(tmp_path, "[cache]\nenabled = true\n")
+    cfg = _toml(tmp_path, "[overload]\nenabled = true\n")
     res = subprocess.run(
         [sys.executable, "-m", "distributed_tf_serving_tpu_torch.serving.server", "--device",
          "cpu", "--port", "0", "--config", str(cfg)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
-    assert "[cache] enabled = true is not ported yet (ROADMAP.md Queue A item 6)" in res.stderr
+    assert "[overload] enabled = true is not ported yet (ROADMAP.md Queue A item 6)" in res.stderr
 
 
-@pytest.mark.parametrize("flag", ["--cache", "--overload", "--mesh", "--savedmodel=d",
-                                  "--router"])
+@pytest.mark.parametrize("flag", ["--overload", "--mesh", "--savedmodel=d", "--router"])
 def test_flags_of_later_slices_stay_unrecognized(flag, capsys):
     from distributed_tf_serving_tpu_torch.serving.server import serve
 
     with pytest.raises(SystemExit) as e:
         serve(["--device", "cpu", flag])
     assert e.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_cli_cache_flag_arms_the_store(tmp_path):
+    """--cache arms the score cache ([cache] enabled = true): /cachez
+    answers enabled, and a repeated Predict is a hit."""
+    import json
+    import urllib.request
+
+    cfg = _toml(tmp_path, "[server]\nnum_fields = 6\nbuckets = [8]\nmax_wait_us = 0\n"
+                "[model]\nnum_fields = 6\nvocab_size = 1024\nembed_dim = 4\nmlp_dims = [8]\n"
+                "num_cross_layers = 1\n")
+    port, rest_port = _free_port(), _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_tf_serving_tpu_torch.serving.server", "--config",
+         str(cfg), "--host", "127.0.0.1", "--port", str(port), "--device", "cpu",
+         "--rest-port", str(rest_port), "--cache"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            _wait_serving(ch, proc)
+            stub = PredictionServiceStub(ch)
+            first = stub.Predict(_req(_arrays(3, 5)), timeout=30)
+            again = stub.Predict(_req(_arrays(3, 5)), timeout=30)
+            assert first.outputs["prediction_node"] == again.outputs["prediction_node"]
+            end = time.time() + 60
+            while True:
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{rest_port}/cachez",
+                                                timeout=5) as r:
+                        cachez = json.loads(r.read())
+                    break
+                except OSError:
+                    assert proc.poll() is None and time.time() < end
+                    time.sleep(0.1)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        assert proc.returncode == 0, out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert cachez["enabled"] and cachez["hits"] == 1 and cachez["misses"] == 1
+    assert "score cache on:" in out
 
 
 # ------------------------------------- the observability settings now serve

@@ -55,9 +55,9 @@ def _stacks(compute_dtype: str):
     jreg.load(JaxServable(name="DCN", version=1, model=jm, params=jp,
                           signatures=jax_signatures(F)))
     jreg.set_label("DCN", "stable", 1)
-    # The JAX batcher's device input cache (a plane the port has not yet)
-    # off: its pack is then timed as batch.fusedpack, as the port's.
-    jb = JaxBatcher(buckets=BUCKETS, max_wait_us=0, input_cache_entries=0).start()
+    # Both batchers with their device input cache (on by default): a batch
+    # is looked up and packed under batch.cache on both sides.
+    jb = JaxBatcher(buckets=BUCKETS, max_wait_us=0).start()
     treg = ServableRegistry()
     treg.load(Servable(name="DCN", version=1,
                        model=build_model("dcn_v2", ModelConfig(name="DCN", **kw)),

@@ -173,20 +173,19 @@ def _services():
     treg.load(Servable(name="DCN", version=1,
                        model=build_model("dcn_v2", ModelConfig(name="DCN", **KW)),
                        params=params_from_jax(jp, "cpu"), signatures=ctr_signatures(F)))
-    # The JAX batcher's device input cache (a plane the port has not yet)
-    # off: its pack is then timed as batch.fusedpack, as the port's.
-    jb = JaxBatcher(buckets=(8,), max_wait_us=0, input_cache_entries=0).start()
+    # Both batchers with their device input cache (on by default): a batch
+    # is looked up and packed under batch.cache on both sides.
+    jb = JaxBatcher(buckets=(8,), max_wait_us=0).start()
     tb = DynamicBatcher(buckets=(8,), max_wait_us=0, device="cpu").start()
     return JaxImpl(jreg, jb), PredictionServiceImpl(treg, tb), (jb, tb)
 
 
 # The phases of planes the port does not have yet.
-_UNPORTED = {"batch.cache", "batch.dedup", "batch.shadow_dispatch"}
+_UNPORTED = {"batch.shadow_dispatch"}
 
 
 def _names(span_dict) -> list[str]:
-    return sorted(c["name"] for c in span_dict["children"]
-                  if c["name"] not in _UNPORTED and not c["name"].startswith("cache."))
+    return sorted(c["name"] for c in span_dict["children"] if c["name"] not in _UNPORTED)
 
 
 def test_a_predict_gives_the_jax_service_s_span_names():
@@ -220,4 +219,4 @@ def test_a_predict_gives_the_jax_service_s_span_names():
     assert troot["trace_id"] == jroot["trace_id"] == TRACE
     assert _names(troot) == _names(jroot)
     assert {"predict.decode", "predict.execute", "predict.encode", "batch.queue_wait",
-            "batch.dispatch", "readback.wait"} <= set(_names(troot))
+            "batch.dispatch", "batch.cache", "readback.wait"} <= set(_names(troot))
