@@ -203,7 +203,8 @@ Phases (any failure exits non-zero and prints no result line):
              with the gateway over it; the launch counters zeroed just
              before 5 REST Predicts per size (7, 1000, 2048) and read just
              after, under torch.profiler: every batch launches the fused
-             serve kernel and no GEMM runs. Then the CLI server with
+             serve kernel and no GEMM runs (a window in which the profiler
+             dropped a kernel event is measured again, at most 3). Then the CLI server with
              --rest-port, --tracing and --metrics-every-s 1: one client at a
              time sends 20 gRPC Predicts per size and the same payloads as 20
              REST Predicts per size in the row and 20 in the columnar format
@@ -283,6 +284,61 @@ Phases (any failure exits non-zero and prints no result line):
              dts_tpu_cache_hits_total the snapshot's hits, POST
              /cachez/flush drops every entry and the next repeat misses.
 
+13. integrity — the integrity plane (serving/integrity.py, the codec's CRC32C
+             sidecars): four stacks from build_stack on configs/latency.toml
+             with [integrity] enabled, wire_checksums, screen and
+             shadow_fraction = 1.0 ([cache] off): bf16 and f32 with
+             [kernels] (no autotune: each bucket's decision pinned to the
+             float and then the int8 fused serve kernel), and bf16 and f32
+             use_pallas_cross. (a) At each bucket 256 / 512 / 1024 / 2048 a
+             Predict that fills it, per stack and variant: every answer the
+             bits of the same stack's answer with the plane detached
+             (`batcher.integrity = None`, sent first and counted apart),
+             shadow batches = batches, 0 mismatches, and each of the six
+             (kernel, dtype) launch counters, zeroed just before, at 2 x its
+             primary batches (`launches_integrity`). (b) readback_bitflip
+             keyed on one payload's poison_fault_key: its Predict fails
+             UNAVAILABLE, 1 mismatch, 1 escalation, suspect; 3 clean shadows
+             clear it. (c) score_nan keyed on one request of a coalesced pair
+             (shadowing off): only it fails UNAVAILABLE, its batchmate keeps
+             the fault-free bits, screen.trips + 1. (d) Over gRPC, stamps made
+             with the port's codec.crc_sidecar: a clean stamp verifies, one
+             wrong hex digit fails INVALID_ARGUMENT alone beside a concurrent
+             clean twin, every x-dts-score-crc verifies; predict.decode at
+             n = 2048 with and without a stamp (off / on / on / off).
+             (e) /integrityz, POST /integrityz/audit?batches=2 (two batches
+             shadowed at shadow_fraction 0), ?section=integrity, >= 11
+             lint-clean dts_tpu_integrity_* lines. (f) 4 x 250 Predicts of
+             n = 1000 at shadow_fraction 0 / 1 / 1 / 0: p50, p99, QPS, busy
+             share and the batch.shadow_dispatch mean, recorded.
+
+14. overload — the overload plane (serving/overload.py): configs/latency.toml
+             with [overload] enabled, target_queue_wait_ms = 5,
+             queue_wait_window_s = 2, adjust_interval_s = 0.1, on the
+             threaded gRPC server. (a) 16 clients in 4 processes of their
+             own x 150 Predicts of n = 2048 (8 payloads, tensor_content),
+             50 ms deadline each, half `x-dts-criticality: sheddable` and
+             half `critical`, a refused client sleeping the retry-after-ms
+             it was sent; plane off / on /
+             on / off (`batcher.overload` detached for off): on, at least one
+             shed, every refusal's retry-after-ms in [25, 2000], the state
+             leaves NOMINAL, the sheddable lane's refusal share >= the
+             critical lane's; every admitted answer the bits of the plane-off
+             answer; then 1 Predict per 50 ms until NOMINAL (at most 30 s).
+             Recorded: admitted answers with their p50 (p99 from 100 on),
+             answers in time and goodput, the server's predict.decode /
+             execute / encode means, codes per lane, sheds, doomed
+             refusals, the final limit, the states seen, the launches of
+             the on runs (`launches_overload`). (b) On a stack with
+             [cache] enabled and row_granular (TTL 0.5 s), the `pressure`
+             site pinning BROWNOUT: an expired request answers stale with
+             x-dts-degraded: stale, its cached bits, no launch, no refill; 900
+             expired rows + 100 fresh answer with the mark. (c) pinning SHED:
+             sheddable refused RESOURCE_EXHAUSTED with retry-after-ms,
+             critical admitted; over REST 429 with Retry-After, and a stale
+             answer with X-DTS-Degraded. (d) /monitoring?section=overload and
+             the lint-clean dts_tpu_overload_* series equal overload_stats().
+
 The lifecycle and models phases clear the device input cache before each
 memory read (its entries belong to the batcher, not to a version) and print
 the bytes it held.
@@ -297,7 +353,9 @@ phase launches none; the models server's count from its start to its exit,
 `launches_models`; the REST path's, `launches_rest`, and the REST CLI
 server's from its start to its exit, `launches_rest_server`; the aio
 path's, `launches_aio`; the cache-on stack's over the cache phase's steps
-1-4, `launches_cache`), the
+1-4, `launches_cache`; the integrity phase's shadowed run,
+`launches_integrity`; the overload phase's armed load runs,
+`launches_overload`), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. Every line it
 logs is also kept in chiprun_out/chip_smoke.log.
 """
@@ -306,6 +364,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2804,9 +2863,22 @@ def phase_models(dev, name: str) -> dict:
             tol = MODELS_TOL[MODELS[key.split()[0]][1]]
             if not e <= tol:
                 fail(f"models: responses of {key} are {e} from its plain forward (> {tol})")
-        other = sorted({r[3] for r in after_term} - {"OK", "UNAVAILABLE"})
-        if other:
-            fail(f"models: after SIGTERM requests failed with {other}, not only UNAVAILABLE")
+        # The drain starts a little after the signal is sent (the handler
+        # runs on the server's main thread), so a request ending past the
+        # mark may still get the answer it had before: OK from a model that
+        # stays, NOT_FOUND from the dropped RANKER. Once the server has
+        # refused one request UNAVAILABLE it is draining, and every request
+        # started after that refusal must be refused too.
+        before_drain = {"RANKER": "NOT_FOUND"}
+        wrong = [r for r in after_term if r[3] not in ("UNAVAILABLE", before_drain.get(r[0], "OK"))]
+        if wrong:
+            fail(f"models: after SIGTERM requests failed with {sorted({r[3] for r in wrong})}, "
+                 f"not only UNAVAILABLE: {wrong[:3]}")
+        refused = [r[2] for r in after_term if r[3] == "UNAVAILABLE"]
+        late = [r for r in after_term if refused and r[1] > min(refused) and r[3] != "UNAVAILABLE"]
+        if late:
+            fail(f"models: {len(late)} requests started after the first drain refusal "
+                 f"were not refused UNAVAILABLE: {late[:3]}")
         with open(server_log) as f:
             text = f.read()
         m = re.search(r"kernel launches at shutdown: (\{.*\})$", text, re.M)
@@ -2820,7 +2892,7 @@ def phase_models(dev, name: str) -> dict:
             if res["launches"].get(key, 0) <= 0:
                 fail(f"models: the server launched {key} no time: {res['launches']}")
         res["after_sigterm"] = {c: sum(r[3] == c for r in after_term)
-                                for c in ("OK", "UNAVAILABLE")}
+                                for c in ("OK", "NOT_FOUND", "UNAVAILABLE")}
         res["max_abs_err"] = errs
         res["requests"] = {c: sum(r[3] == c for r in rows) for c in sorted({r[3] for r in rows})}
         res["add_to_first_new_ok_s"] = min(r[2] for r in rows if r[0] == "NEW"
@@ -3129,7 +3201,7 @@ def _rest_profiled_path(dev, kc, cfg, model_cfg, payloads) -> dict:
     launch the fused serve kernel (the profiler's count of fused_serve
     kernels at least the batches) and no GEMM runs (no plain forward)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
     from distributed_tf_serving_tpu_torch.serving.server import build_stack
@@ -3145,28 +3217,34 @@ def _rest_profiled_path(dev, kc, cfg, model_cfg, payloads) -> dict:
         for n, body in bodies.items():  # one untimed request per size first
             http.json("POST", "/v1/models/DCN:predict", body)
         torch.cuda.synchronize()
-        b0 = batcher.stats.batches
-        ck.reset_launches()  # this path's counts: zeroed just before, read just after
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # The profiler can lose the first launch of its window (seen on
-            # this card after the earlier phases, when that launch came
-            # within ~3 ms of the start): a marker launch, synchronized,
-            # opens the window before the counted traffic, and a pause of
-            # 0.2 s lets the profiler settle.
-            torch.zeros(1, device=dev).add_(1)
+        # After the earlier phases the profiler has lost the first launch of
+        # a kernel in its window (and a marker launched before the traffic,
+        # with the batch's own D2H copy kept): so the window opens with a
+        # warmup step, in which the tracer runs and one request per size
+        # launches every kernel the counted traffic will, and only the
+        # active step after it is kept.
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for n, body in bodies.items():
+                http.json("POST", "/v1/models/DCN:predict", body)
             torch.cuda.synchronize()
             time.sleep(0.2)
+            b0 = batcher.stats.batches
+            ck.reset_launches()  # this path's counts: zeroed just before, read just after
+            prof.step()
             for n, body in bodies.items():
                 for _ in range(REST_PROFILED):
                     http.json("POST", "/v1/models/DCN:predict", body)
             torch.cuda.synchronize()
-        launches = {f"{k}/{cd}": v for (k, cd), v in ck.launches.items()}
-        batches = batcher.stats.batches - b0
+            launches = {f"{k}/{cd}": v for (k, cd), v in ck.launches.items()}
+            batches = batcher.stats.batches - b0
+            prof.step()
     finally:
         http.close()
         stop()
         batcher.stop()
-    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name for e in events]
     fused = sum(1 for nm in names if "fused_serve" in nm)
     gemms = sorted({nm for nm in names if "gemm" in nm.lower()})
     res = {"requests": len(payloads) * REST_PROFILED, "batches": batches,
@@ -3179,8 +3257,13 @@ def _rest_profiled_path(dev, kc, cfg, model_cfg, payloads) -> dict:
     if not names:
         fail("rest: torch.profiler recorded no device event over the REST traffic")
     if fused < batches or counted != batches:
+        # Where the profile's events fell (µs from its first event), so a
+        # loss shows whether it was at an edge of the window.
+        t0 = min(e.time_range.start for e in events)
+        timeline = [(round(e.time_range.start - t0), e.name[:40]) for e in events
+                    if "fused_serve" in e.name or e is events[0] or e is events[-1]]
         fail(f"rest: {batches} REST batches but {fused} fused_serve kernels in the profile and "
-             f"{counted} counted launches")
+             f"{counted} counted launches; profile timeline {timeline}")
     if gemms:
         fail(f"rest: the REST path ran GEMM kernels (a plain forward): {gemms[:4]}")
     return res
@@ -4514,6 +4597,809 @@ def phase_cache(dev, name: str) -> dict:
     return res
 
 
+INTEGRITY_STACKS = (  # label, compute dtype, use_pallas_cross, variants (name, decision, kernel)
+    ("plane_bf16", "bfloat16", False, (("float", (False, True), "fused_serve"),
+                                       ("int8", (True, True), "fused_serve_int8"))),
+    ("plane_f32", "float32", False, (("float", (False, True), "fused_serve"),
+                                     ("int8", (True, True), "fused_serve_int8"))),
+    ("cross_bf16", "bfloat16", True, (("float", None, "fused_cross_apply"),)),
+    ("cross_f32", "float32", True, (("float", None, "fused_cross_apply"),)),
+)
+INTEGRITY_PAIR = 500  # candidates of each request of the coalesced score_nan pair
+INTEGRITY_DECODE = (2048, 10)  # predict.decode with / without a stamp: candidates, Predicts per run
+INTEGRITY_LOOP = (4, 250, 1000)  # cost loop: clients, Predicts each, candidates
+
+
+def _force_variant(batcher, servable, decision) -> None:
+    """Pin every bucket's kernel-plane decision to `decision` = (quantized,
+    fused) for `servable`, with no autotune: the live path then routes each
+    batch, and its shadow, through that kernel. The decisions dict is
+    replaced whole, as the plane's fast path expects."""
+    import weakref
+
+    km = batcher.kernels
+    km._decisions = {**km._decisions, (servable.name, servable.version): (
+        weakref.ref(servable), {int(b): decision for b in batcher.buckets})}
+
+
+def _scores(batcher, servable, ids, wts):
+    return batcher.submit(servable, {"feat_ids": ids, "feat_wts": wts},
+                          output_keys=("prediction_node",)).result(120)["prediction_node"]
+
+
+def _launch_counts() -> dict:
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+
+    return {f"{k}/{cd}": n for (k, cd), n in ck.launches.items()}
+
+
+def _md(call_or_err) -> dict:
+    try:
+        return dict(call_or_err.trailing_metadata() or ())
+    except Exception:  # noqa: BLE001 — no metadata
+        return {}
+
+
+def phase_integrity(dev, name: str) -> dict:
+    """The integrity plane on the card (serving/integrity.py and its
+    wiring): the determinism of every (kernel, dtype) at every bucket under
+    shadow_fraction 1.0, the keyed readback_bitflip and score_nan faults,
+    the wire CRC over gRPC, the REST surfaces, and the shadow's cost.
+    Checks in the docstring of the module."""
+    import threading
+
+    import grpc
+    import numpy as np
+
+    from distributed_tf_serving_tpu_torch import codec, faults
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.serving.batcher import poison_fault_key, prepare_inputs
+    from distributed_tf_serving_tpu_torch.serving.integrity import IntegrityScreenError
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack, create_server
+    from distributed_tf_serving_tpu_torch.serving.service import PredictionServiceImpl, ServiceError
+    from distributed_tf_serving_tpu_torch.utils.config import (
+        IntegrityConfig,
+        KernelsConfig,
+        load_config,
+    )
+    from distributed_tf_serving_tpu_torch.utils.metrics import ServerMetrics
+    from distributed_tf_serving_tpu_torch.utils.tracing import request_trace
+
+    loaded = load_config(os.path.join(HERE, "configs", "latency.toml"))
+    cfg, model_cfg = loaded["server"], loaded["model"]
+    fields = model_cfg.num_fields
+    # The kernel plane with no autotune: the phase pins each bucket's
+    # decision itself, so every variant runs at every bucket.
+    kc = KernelsConfig(enabled=True, autotune=False, table_file="")
+    ic = IntegrityConfig(enabled=True, shadow_fraction=1.0)
+    rng = np.random.RandomState(SEED + 14)
+
+    def payload(n):
+        return (rng.randint(0, 1 << 40, size=(n, fields)).astype(np.int64),
+                rng.rand(n, fields).astype(np.float32))
+
+    out: dict = {"card": name}
+    stacks, servers, stubs = {}, [], []
+    try:
+        for label, cd, cross, variants in INTEGRITY_STACKS:
+            mc = dataclasses.replace(model_cfg, compute_dtype=cd, use_pallas_cross=cross)
+            impl, batcher, sv = build_stack(cfg, mc, "cuda", seed=SEED, fused_kernel=not cross,
+                                            kernels_config=None if cross else kc,
+                                            integrity_config=ic)
+            stacks[label] = (impl, batcher, sv, variants, cd)
+        bucket_payloads = {b: payload(b) for b in BUCKETS}  # n = b fills bucket b alone
+
+        # (a) Determinism. The references first, each stack's own answer with
+        # the plane detached (counted apart from the shadowed run).
+        refs = {}
+        for label, (impl, batcher, sv, variants, cd) in stacks.items():
+            plane, batcher.integrity = batcher.integrity, None
+            for vname, decision, _ in variants:
+                if decision is not None:
+                    _force_variant(batcher, sv, decision)
+                for b, (ids, wts) in bucket_payloads.items():
+                    refs[label, vname, b] = _scores(batcher, sv, ids, wts)
+            batcher.integrity = plane
+        before = {label: (s[1].stats.batches, s[1].integrity.snapshot()["shadow"],
+                          s[1].stats.shadow_input_cache_hits) for label, s in stacks.items()}
+        primaries: dict = {}
+        ck.reset_launches()
+        for label, (impl, batcher, sv, variants, cd) in stacks.items():
+            for vname, decision, kname in variants:
+                if decision is not None:
+                    _force_variant(batcher, sv, decision)
+                for b, (ids, wts) in bucket_payloads.items():
+                    got = _scores(batcher, sv, ids, wts)
+                    if not np.array_equal(got, refs[label, vname, b]):
+                        fail(f"integrity: {label} {vname} bucket {b}: the shadowed answer is not "
+                             "the bits of the plane-off answer")
+                    key = f"{kname}/{cd}"
+                    primaries[key] = primaries.get(key, 0) + 1
+        launches = _launch_counts()
+        out["launches"] = launches
+        out["primary_batches"] = primaries
+        for key, n in primaries.items():
+            if launches[key] != 2 * n:
+                fail(f"integrity: {key} launched {launches[key]} times for {n} primary batches "
+                     f"(want {2 * n}: each batch and its shadow); counts {launches}")
+        determinism = {}
+        for label, (impl, batcher, sv, variants, cd) in stacks.items():
+            b0, sh0, hits0 = before[label]
+            sh = batcher.integrity.snapshot()["shadow"]
+            batches = batcher.stats.batches - b0
+            shadows = sh["batches"] - sh0["batches"]
+            mism = sh["mismatches"] - sh0["mismatches"]
+            if mism or shadows != batches or batches != len(variants) * len(BUCKETS):
+                fail(f"integrity: {label}: {batches} batches, {shadows} shadow batches, "
+                     f"{mism} mismatches (want {len(variants) * len(BUCKETS)}, equal, 0)")
+            determinism[label] = {"batches": batches, "shadow_batches": shadows,
+                                  "mismatches": mism,
+                                  "shadow_input_cache_hits":
+                                      batcher.stats.shadow_input_cache_hits - hits0}
+            log(f"integrity: {label} ({', '.join(v for v, _, _ in variants)}) at buckets "
+                f"{list(BUCKETS)}: {batches} batches, {shadows} shadows, 0 mismatches, answers "
+                f"= the plane-off bits; shadow input-cache hits "
+                f"{determinism[label]['shadow_input_cache_hits']} ({name})")
+        out["determinism"] = determinism
+        log(f"integrity: launches over the shadowed run {launches} (2 x {primaries})")
+
+        impl, batcher, sv, _, _ = stacks["plane_bf16"]
+        plane = batcher.integrity
+        _force_variant(batcher, sv, (False, True))
+
+        # (b) readback_bitflip keyed on one payload: its batch fails
+        # UNAVAILABLE through the shadow compare; clean shadows clear suspect.
+        ids, wts = payload(1000)
+        faults.get().add("readback_bitflip", "error", count=1, key=poison_fault_key(
+            prepare_inputs({"feat_ids": ids, "feat_wts": wts})))
+        s0 = plane.snapshot()
+        try:
+            impl.predict(_request(ids, wts), deadline_s=60)
+            fail("integrity: the bitflip-keyed Predict answered")
+        except ServiceError as e:
+            if e.code != "UNAVAILABLE" or "shadow verification mismatch" not in str(e):
+                fail(f"integrity: the bitflip-keyed Predict failed {e.code}: {e}")
+        finally:
+            faults.get().clear()
+        s1 = plane.snapshot()
+        if (s1["shadow"]["mismatches"] - s0["shadow"]["mismatches"] != 1
+                or s1["escalations"] - s0["escalations"] != 1 or not s1["suspect"]):
+            fail(f"integrity: after the bitflip: {s1}")
+        for _ in range(ic.suspect_clear_passes):
+            _scores(batcher, sv, *payload(256))
+        if plane.snapshot()["suspect"]:
+            fail("integrity: suspect_clear_passes clean shadows did not clear the suspect state")
+        out["bitflip"] = {"mismatches": 1, "escalations": 1, "suspect_cleared_after":
+                          ic.suspect_clear_passes}
+        log(f"integrity: readback_bitflip -> UNAVAILABLE, 1 mismatch, 1 escalation, suspect "
+            f"cleared by {ic.suspect_clear_passes} clean shadows")
+
+        # (c) score_nan keyed on one request of a coalesced pair (shadowing
+        # off: the shadow compare would catch the NaN first).
+        plane.config = dataclasses.replace(plane.config, shadow_fraction=0.0)
+        batcher.max_wait_s = 0.05  # the pair coalesces
+        pair = [payload(INTEGRITY_PAIR), payload(INTEGRITY_PAIR)]
+
+        def submit_pair():
+            b0 = batcher.stats.batches
+            futs = [batcher.submit(sv, {"feat_ids": i, "feat_wts": w},
+                                   output_keys=("prediction_node",)) for i, w in pair]
+            for f in futs:
+                try:
+                    f.result(60)
+                except Exception:  # noqa: BLE001 — read below
+                    pass
+            if batcher.stats.batches - b0 != 1:
+                fail(f"integrity: the score_nan pair ran {batcher.stats.batches - b0} batches")
+            return futs
+
+        clean = [f.result()["prediction_node"] for f in submit_pair()]
+        trips0 = plane.snapshot()["screen"]["trips"]
+        faults.get().add("score_nan", "error", key=poison_fault_key(
+            prepare_inputs({"feat_ids": pair[1][0], "feat_wts": pair[1][1]})))
+        try:
+            a, b = submit_pair()
+        finally:
+            faults.get().clear()
+        exc = b.exception()
+        if not isinstance(exc, IntegrityScreenError) or \
+                PredictionServiceImpl._translate_batcher_error(exc, b).code != "UNAVAILABLE":
+            fail(f"integrity: the NaN-keyed request ended {exc!r}")
+        if a.exception() is not None or not np.array_equal(a.result()["prediction_node"],
+                                                           clean[0]):
+            fail("integrity: the NaN-keyed request's batchmate lost its fault-free bits")
+        trips = plane.snapshot()["screen"]["trips"] - trips0
+        if trips != 1:
+            fail(f"integrity: screen.trips moved {trips}")
+        batcher.max_wait_s = cfg.max_wait_us / 1e6
+        out["score_nan"] = {"trips": trips}
+        log("integrity: score_nan -> the keyed request UNAVAILABLE, its batchmate the "
+            "fault-free bits, screen.trips +1")
+
+        # (d) The wire CRC over gRPC, stamped with the port's own codec.
+        server, port = create_server(impl, "127.0.0.1:0")
+        server.start()
+        servers.append(server)
+        ch = _channel(port)
+        stubs.append(ch)
+        stub = PredictionServiceStub(ch)
+        ids, wts = payload(INTEGRITY_DECODE[0])
+        req = _request(ids, wts)
+        stamp = codec.crc_sidecar({"feat_ids": ids, "feat_wts": wts})
+        w0 = plane.snapshot()["wire"]
+        resp, call = stub.Predict.with_call(req, timeout=60,
+                                            metadata=((codec.CRC_INPUT_MD, stamp),))
+        sidecar = _md(call).get(codec.CRC_SCORE_MD)
+        decoded = {k: codec.to_ndarray(v) for k, v in resp.outputs.items()}
+        if not sidecar or codec.verify_crc_sidecar(decoded, sidecar):
+            fail(f"integrity: response stamp {sidecar!r} does not verify")
+        head, _, hexcrc = stamp.partition(",")[0].partition("=")
+        bad = stamp.replace(f"{head}={hexcrc}",
+                            f"{head}={hexcrc[:-1]}{'0' if hexcrc[-1] != '0' else '1'}")
+        res = {}
+
+        def send(tag, md):
+            try:
+                r, c = stub.Predict.with_call(_request(ids, wts), timeout=60, metadata=md)
+                res[tag] = ("OK", r, _md(c))
+            except grpc.RpcError as e:
+                res[tag] = (e.code().name, e.details(), _md(e))
+
+        threads = [threading.Thread(target=send, args=("bad", ((codec.CRC_INPUT_MD, bad),))),
+                   threading.Thread(target=send, args=("clean", ((codec.CRC_INPUT_MD, stamp),)))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        if res.get("bad", ("?",))[0] != "INVALID_ARGUMENT" or "corrupt-wire" not in res["bad"][1]:
+            fail(f"integrity: the wrong-stamp Predict ended {res.get('bad')}")
+        if res.get("clean", ("?",))[0] != "OK":
+            fail(f"integrity: the concurrent clean Predict ended {res.get('clean')}")
+        for tag in ("clean",):
+            r, md = res[tag][1], res[tag][2]
+            dec = {k: codec.to_ndarray(v) for k, v in r.outputs.items()}
+            if codec.verify_crc_sidecar(dec, md.get(codec.CRC_SCORE_MD, "x=0")):
+                fail("integrity: a response's x-dts-score-crc does not verify")
+        w1 = plane.snapshot()["wire"]
+        if (w1["inputs_verified"] - w0["inputs_verified"] != 2
+                or w1["inputs_rejected"] - w0["inputs_rejected"] != 1):
+            fail(f"integrity: wire counters {w0} -> {w1}")
+
+        def decode_mean(stamped: bool) -> float:
+            md = ((codec.CRC_INPUT_MD, stamp),) if stamped else ()
+            s0 = request_trace.snapshot().get("predict.decode", {"total_ms": 0.0, "count": 0})
+            for _ in range(INTEGRITY_DECODE[1]):
+                stub.Predict(req, timeout=60, metadata=md)
+            s1 = request_trace.snapshot()["predict.decode"]
+            return (s1["total_ms"] - s0["total_ms"]) / (s1["count"] - s0["count"]) * 1e3
+
+        runs = [("off", decode_mean(False)), ("on", decode_mean(True)),
+                ("on", decode_mean(True)), ("off", decode_mean(False))]
+        out["wire"] = {"decode_us_runs": runs,
+                       "decode_us_unstamped": statistics.mean(v for k, v in runs if k == "off"),
+                       "decode_us_stamped": statistics.mean(v for k, v in runs if k == "on"),
+                       "stamp": stamp}
+        log(f"integrity: wire CRC over gRPC: clean stamp verified, a wrong hex digit -> "
+            f"INVALID_ARGUMENT alone (its concurrent clean twin answered), every response's "
+            f"x-dts-score-crc verifies; predict.decode at n = {INTEGRITY_DECODE[0]} "
+            f"(off/on/on/off, {INTEGRITY_DECODE[1]} each): "
+            + ", ".join(f"{k} {v:.1f} us" for k, v in runs) + f" ({name})")
+
+        # (e) The REST surfaces, in process.
+        rport, stop_rest = _rest_in_process(impl, ServerMetrics())
+        http = _Http(rport)
+        try:
+            body = http.json("GET", "/integrityz")
+            if not body.get("enabled") or body["shadow"]["mismatches"] < 1:
+                fail(f"integrity: /integrityz {body}")
+            sh0 = plane.snapshot()["shadow"]
+            audit = http.json("POST", "/integrityz/audit?batches=2")
+            if audit != {"requested": 2, "pending_audits": 2}:
+                fail(f"integrity: audit answered {audit}")
+            for _ in range(3):
+                _scores(batcher, sv, *payload(256))
+            sh1 = plane.snapshot()["shadow"]
+            if sh1["batches"] - sh0["batches"] != 2 or sh1["audits_run"] - sh0["audits_run"] != 2:
+                fail(f"integrity: the audit shadowed {sh1['batches'] - sh0['batches']} batches")
+            sec = http.json("GET", "/monitoring?section=integrity")
+            if set(sec) != {"integrity"} or not sec["integrity"]["enabled"]:
+                fail(f"integrity: ?section=integrity {sorted(sec)}")
+            status, text = http.call("GET", "/monitoring/prometheus/metrics")
+            text = text.decode()
+            series = [ln for ln in text.splitlines() if ln.startswith("dts_tpu_integrity_")]
+            lint = subprocess.run([sys.executable, os.path.join(HERE, "tools", "check_prom.py"),
+                                   "-"], input=text, capture_output=True, text=True, timeout=60)
+            if status != 200 or len(series) < 11 or lint.returncode != 0:
+                fail(f"integrity: exposition {status}, {len(series)} dts_tpu_integrity_ lines, "
+                     f"lint {lint.stdout[-300:]}{lint.stderr[-300:]}")
+        finally:
+            http.close()
+            stop_rest()
+        out["surfaces"] = {"series": len(series), "audits_run": sh1["audits_run"]}
+        log(f"integrity: /integrityz, POST /integrityz/audit?batches=2 (2 batches shadowed at "
+            f"shadow_fraction 0), ?section=integrity, {len(series)} lint-clean "
+            "dts_tpu_integrity_* lines")
+
+        # (f) The shadow's cost: a closed loop at shadow_fraction 0 / 1 / 1 / 0.
+        clients, per_client, n = INTEGRITY_LOOP
+        loop_payloads = [payload(n) for _ in range(clients)]
+        runs = []
+        for frac in (0.0, 1.0, 1.0, 0.0):
+            plane.config = dataclasses.replace(plane.config, shadow_fraction=frac)
+            d0 = request_trace.snapshot().get("batch.shadow_dispatch",
+                                              {"total_ms": 0.0, "count": 0})
+            r = closed_loop(port, loop_payloads, per_client)
+            d1 = request_trace.snapshot().get("batch.shadow_dispatch", d0)
+            r["shadow_fraction"] = frac
+            r["shadow_dispatch_us"] = ((d1["total_ms"] - d0["total_ms"]) * 1e3
+                                       / (d1["count"] - d0["count"])
+                                       if d1["count"] > d0["count"] else None)
+            runs.append(r)
+            log(f"integrity: closed loop {clients} x {per_client} n={n} shadow_fraction {frac}: "
+                f"p50 {r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms qps {r['qps']:.1f} "
+                f"busy {r['device_busy_share']:.3f}"
+                + (f" batch.shadow_dispatch {r['shadow_dispatch_us']:.1f} us"
+                   if r["shadow_dispatch_us"] is not None else "") + f" ({name})")
+        out["cost"] = runs
+        if plane.snapshot()["shadow"]["mismatches"] != 1:  # the bitflip's, no other
+            fail(f"integrity: shadow mismatches {plane.snapshot()['shadow']}")
+    finally:
+        faults.get().clear()
+        for ch in stubs:
+            ch.close()
+        for server in servers:
+            server.stop(grace=1).wait()
+        for impl, batcher, *_ in stacks.values():
+            batcher.stop()
+    return out
+
+
+OVERLOAD_TOML = ("\n[overload]\nenabled = true\ntarget_queue_wait_ms = 5.0\n"
+                 "queue_wait_window_s = 2.0\nadjust_interval_s = 0.1\n")
+OVERLOAD_LOAD = (16, 150, 2048, 0.050)  # clients, Predicts each, candidates, deadline (s)
+# The clients run in OVERLOAD_PROCS processes of their own (4 threads
+# each), so their encode and decode take no time from the server's
+# interpreter: what the server spends is its own transport and its queue.
+OVERLOAD_PROCS = 4
+OVERLOAD_PAYLOADS = 8  # distinct n = 2048 payloads of the load
+OVERLOAD_MIN_SAMPLES = 100  # admitted answers below which a run reports no p99
+# The trickle's period, and the bound on its return to NOMINAL (s): the
+# over-target waits of the load stay in the 2 s window, and each of the two
+# steps down takes 6 under-target ticks of 0.1 s, so about 3.2 s at best;
+# with fewer than 100 samples in the window one wait over 5 ms keeps it
+# over target for 2 s more (3.0-11.1 s measured on the card).
+OVERLOAD_TRICKLE = (0.050, 30.0)
+OVERLOAD_TTL_S = 0.5  # [cache] ttl_s and row_ttl_s of the brownout stack
+
+
+def _overload_clients(port, proc, threads, load, keys, reqs, refs, barrier, results) -> None:
+    """One client process of the overload load (started with spawn):
+    `threads` clients, each with its own channel, sending `load` = (per
+    client, deadline) serialized Predicts of `reqs`, client k of the load
+    in the sheddable lane when k is even. A client refused
+    RESOURCE_EXHAUSTED sleeps the retry-after-ms it was sent. Puts
+    (records, wrong, hints, answers with no message, end time) or
+    ("error", text) on `results`."""
+    import threading
+    import traceback
+
+    try:
+        import grpc
+        import numpy as np
+
+        from distributed_tf_serving_tpu_torch import codec
+        from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+
+        crit_key, retry_key = keys
+        per_client, deadline = load
+        records, wrong, hints, empty = [], [], [], []
+        lock = threading.Lock()
+        chans = [_channel(port) for _ in range(threads)]
+
+        def client(t):
+            k = proc * threads + t
+            call = chans[t].unary_unary("/tensorflow.serving.PredictionService/Predict",
+                                        response_deserializer=apis.PredictResponse.FromString)
+            md = ((crit_key, "sheddable" if k % 2 == 0 else "critical"),)
+            mine = []
+            for i in range(per_client):
+                j = (k + i) % len(reqs)
+                t0 = time.perf_counter()
+                try:
+                    resp, rpc = call.with_call(reqs[j], timeout=deadline, metadata=md)
+                    dt = time.perf_counter() - t0
+                    if resp is None:
+                        # Status OK and no message (seen on the card with
+                        # the answer at the deadline): recorded with what
+                        # the call says, never read as an answer.
+                        mine.append((md[0][1], "OK_NO_MESSAGE", dt))
+                        with lock:
+                            empty.append((round(dt * 1e3, 3), rpc.code().name,
+                                          dict(rpc.trailing_metadata() or ())))
+                        continue
+                    got = codec.to_ndarray(resp.outputs["prediction_node"])
+                    if not np.array_equal(got, refs[j]):
+                        with lock:
+                            wrong.append(j)
+                    mine.append((md[0][1], "OK", dt))
+                except grpc.RpcError as e:
+                    dt = time.perf_counter() - t0
+                    code = e.code().name
+                    mine.append((md[0][1], code, dt))
+                    if code == "RESOURCE_EXHAUSTED":
+                        ra = _md(e).get(retry_key)
+                        with lock:
+                            hints.append(int(ra) if ra is not None else None)
+                        if ra is not None:
+                            time.sleep(int(ra) / 1e3)
+            with lock:
+                records.extend(mine)
+
+        for ch in chans:
+            grpc.channel_ready_future(ch).result(timeout=60)
+        ths = [threading.Thread(target=client, args=(t,)) for t in range(threads)]
+        barrier.wait(timeout=120)
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        end = time.time()
+        for ch in chans:
+            ch.close()
+        results.put((records, wrong, hints, empty, end))
+    except BaseException:  # noqa: BLE001 — the parent fails the phase with it
+        results.put(("error", traceback.format_exc()))
+
+
+def _overload_load(port, payloads, refs, ctrl) -> dict:
+    """The load: OVERLOAD_LOAD clients in OVERLOAD_PROCS processes, half
+    sending `x-dts-criticality: sheddable` and half `critical`, each Predict
+    (tensor_content, as tf.make_tensor_proto writes it) with a 50 ms
+    deadline; a client refused RESOURCE_EXHAUSTED sleeps the retry-after-ms
+    it was sent. Every admitted answer must have the bits of `refs`. A
+    monitor thread records the pressure states seen; the server's
+    predict.decode / execute / encode means over the run say where an
+    answer's time went."""
+    import multiprocessing
+    import queue
+    import threading
+
+    from distributed_tf_serving_tpu_torch.serving import overload as overload_mod
+    from distributed_tf_serving_tpu_torch.utils.tracing import request_trace
+
+    clients, per_client, _, deadline = OVERLOAD_LOAD
+    reqs = [_request(*p).SerializeToString() for p in payloads]
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    barrier = ctx.Barrier(OVERLOAD_PROCS + 1)
+    keys = (overload_mod.CRITICALITY_KEY, overload_mod.RETRY_AFTER_KEY)
+    procs = [ctx.Process(target=_overload_clients, daemon=True,
+                         args=(port, k, clients // OVERLOAD_PROCS, (per_client, deadline), keys,
+                               reqs, refs, barrier, results)) for k in range(OVERLOAD_PROCS)]
+    states, done = set(), threading.Event()
+    phases = ("predict.decode", "predict.execute", "predict.encode")
+
+    def monitor():
+        while not done.is_set():
+            if ctrl is not None:
+                states.add(ctrl.state())
+            time.sleep(0.01)
+
+    mon = threading.Thread(target=monitor)
+    records, wrong, hints, empty, ends = [], 0, [], [], []
+    try:
+        for p in procs:
+            p.start()
+        mon.start()
+        barrier.wait(timeout=180)
+        t0 = time.time()
+        ph0 = request_trace.snapshot()
+        for _ in procs:
+            try:
+                got = results.get(timeout=600)
+            except queue.Empty:
+                fail("overload: a client process gave no result in 600 s")
+            if got[0] == "error":
+                fail(f"overload: a client process failed: {got[1]}")
+            records.extend(got[0])
+            wrong += len(got[1])
+            hints.extend(got[2])
+            empty.extend(got[3])
+            ends.append(got[4])
+        ph1 = request_trace.snapshot()
+        wall = max(ends) - t0
+    finally:
+        done.set()
+        mon.join(5)
+        for p in procs:
+            p.join(10)
+            if p.is_alive():
+                p.terminate()
+                p.join(5)
+    if len(records) != clients * per_client:
+        fail(f"overload: {len(records)} of {clients * per_client} Predicts recorded")
+    ok = sorted(dt * 1e3 for _, code, dt in records if code == "OK")
+    codes: dict = {}
+    for lane, code, _ in records:
+        codes.setdefault(lane, {}).setdefault(code, 0)
+        codes[lane][code] += 1
+    good = sum(1 for _, code, dt in records if code == "OK" and dt <= deadline)
+    server_us = {}
+    for ph in phases:
+        a, b = ph0.get(ph, {"total_ms": 0.0, "count": 0}), ph1.get(ph, {"total_ms": 0.0, "count": 0})
+        if b["count"] > a["count"]:
+            server_us[ph] = (b["total_ms"] - a["total_ms"]) / (b["count"] - a["count"]) * 1e3
+    return {"requests": len(records), "wall_s": wall, "codes": codes, "wrong": wrong,
+            "hints": hints, "states": sorted(states), "admitted": len(ok),
+            "ok_no_message": empty,
+            "admitted_p50_ms": statistics.median(ok) if ok else None,
+            # A p99 only over enough answers to hold one.
+            "admitted_p99_ms": (ok[math.ceil(0.99 * len(ok)) - 1]
+                                if len(ok) >= OVERLOAD_MIN_SAMPLES else None),
+            "in_time": good, "goodput_per_s": good / wall, "server_phase_us": server_us}
+
+
+def phase_overload(dev, name: str) -> dict:
+    """The overload plane on the card (serving/overload.py and its wiring)
+    on the threaded gRPC server: shedding under real load with
+    retry-after-ms, the return to NOMINAL, the `pressure` site's brownout
+    stale-serve (score and row cache, marked degraded, no launch) and SHED
+    refusals over gRPC and REST, and the surfaces. Checks in the docstring
+    of the module."""
+    import grpc
+    import numpy as np
+
+    from distributed_tf_serving_tpu_torch import codec, faults
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.serving import overload as overload_mod
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack, create_server
+    from distributed_tf_serving_tpu_torch.utils.config import CacheConfig, load_config
+    from distributed_tf_serving_tpu_torch.utils.metrics import ServerMetrics
+
+    toml = os.path.join(HERE, "chiprun_out", "overload.toml")
+    os.makedirs(os.path.dirname(toml), exist_ok=True)
+    with open(os.path.join(HERE, "configs", "latency.toml")) as f:
+        text = f.read()
+    with open(toml, "w") as f:
+        f.write(text + OVERLOAD_TOML)
+    loaded = load_config(toml)
+    cfg, model_cfg, oc = loaded["server"], loaded["model"], loaded["overload"]
+    fields = model_cfg.num_fields
+    rng = np.random.RandomState(SEED + 15)
+
+    def payload(n):
+        return (rng.randint(0, 1 << 40, size=(n, fields)).astype(np.int64),
+                rng.rand(n, fields).astype(np.float32))
+
+    out: dict = {"card": name, "config": dataclasses.asdict(oc)}
+    servers, chans, stops, batchers = [], [], [], []
+    try:
+        # (a) Real load on the fused serve stack.
+        impl, batcher, sv = build_stack(cfg, model_cfg, "cuda", seed=SEED, overload_config=oc)
+        batchers.append(batcher)
+        ctrl = batcher.overload
+        server, port = create_server(impl, "127.0.0.1:0", max_workers=32)
+        server.start()
+        servers.append(server)
+        n = OVERLOAD_LOAD[2]
+        payloads = [payload(n) for _ in range(OVERLOAD_PAYLOADS)]
+        batcher.overload = None  # the references: the same stack, the plane detached
+        refs = [_scores(batcher, sv, ids, wts) for ids, wts in payloads]
+        batcher.overload = ctrl
+        stub_ch = _channel(port)
+        chans.append(stub_ch)
+        stub = PredictionServiceStub(stub_ch)
+        runs, launches = [], {}
+        for armed in (False, True, True, False):
+            batcher.overload = ctrl if armed else None
+            snap0 = ctrl.snapshot()
+            ck.reset_launches()
+            r = _overload_load(port, payloads, refs, ctrl if armed else None)
+            if armed:
+                for key, v in _launch_counts().items():
+                    launches[key] = launches.get(key, 0) + v
+            snap1 = ctrl.snapshot()
+            r["armed"] = armed
+            r["limit_final"] = snap1["limit"] if armed else None
+            r["state_changes"] = snap1["state_changes"] - snap0["state_changes"]
+            r["sheds"] = snap1["sheds"] - snap0["sheds"]
+            r["doomed_refusals"] = snap1["doomed_refusals"] - snap0["doomed_refusals"]
+            r["sheds_by_lane"] = {k: snap1["sheds_by_lane"][k] - snap0["sheds_by_lane"][k]
+                                  for k in snap1["sheds_by_lane"]}
+            if r["wrong"]:
+                fail(f"overload: {r['wrong']} admitted answers lost the plane-off bits")
+            if armed:
+                refused = {lane: c.get("RESOURCE_EXHAUSTED", 0) / sum(c.values())
+                           for lane, c in r["codes"].items()}
+                r["refusal_share"] = refused
+                if r["sheds"] < 1 or not r["hints"]:
+                    fail(f"overload: no shed under load: {r['codes']}")
+                bad = [h for h in r["hints"] if h is None
+                       or not oc.retry_after_floor_ms <= h <= oc.retry_after_cap_ms]
+                if bad:
+                    fail(f"overload: refusals without a retry-after-ms in "
+                         f"[{oc.retry_after_floor_ms}, {oc.retry_after_cap_ms}]: {bad[:5]}")
+                if r["states"] == [overload_mod.NOMINAL]:
+                    fail("overload: the pressure state never left NOMINAL under load")
+                if refused["sheddable"] < refused["critical"]:
+                    fail(f"overload: the sheddable lane's refusal share {refused['sheddable']} "
+                         f"is below the critical lane's {refused['critical']}")
+                # The trickle: 1 Predict per 50 ms until NOMINAL.
+                t0, trickle = time.perf_counter(), 0
+                while ctrl.state() != overload_mod.NOMINAL:
+                    if time.perf_counter() - t0 > OVERLOAD_TRICKLE[1]:
+                        fail(f"overload: still {ctrl.state()} after a "
+                             f"{OVERLOAD_TRICKLE[1]} s trickle")
+                    stub.Predict(_request(*payloads[0]), timeout=60)
+                    trickle += 1
+                    time.sleep(OVERLOAD_TRICKLE[0])
+                r["nominal_after_s"] = time.perf_counter() - t0
+                r["trickle_requests"] = trickle
+            hinted = [h for h in r["hints"] if h is not None]
+            r["hints"] = {"refusals": len(r["hints"]), "hinted": len(hinted),
+                          "min_ms": min(hinted, default=None), "max_ms": max(hinted, default=None)}
+            runs.append(r)
+            log(f"overload: {'on ' if armed else 'off'} {OVERLOAD_LOAD[0]} x {OVERLOAD_LOAD[1]} "
+                f"n={n} deadline {OVERLOAD_LOAD[3] * 1e3:.0f} ms, clients in "
+                f"{OVERLOAD_PROCS} processes: {r['admitted']} admitted, p50 "
+                f"{r['admitted_p50_ms']} ms p99 {r['admitted_p99_ms']} ms (none below "
+                f"{OVERLOAD_MIN_SAMPLES} answers), {r['in_time']} in time, "
+                f"{len(r['ok_no_message'])} OK with no message, goodput "
+                f"{r['goodput_per_s']:.1f}/s in {r['wall_s']:.2f} s, server us "
+                f"{ {k: round(v, 1) for k, v in r['server_phase_us'].items()} } "
+                f"codes {r['codes']} sheds {r['sheds']} doomed "
+                f"{r['doomed_refusals']} limit {r['limit_final']} states {r['states']} "
+                + (f"back to NOMINAL in {r['nominal_after_s']:.2f} s " if armed else "")
+                + f"({name})")
+        batcher.overload = ctrl
+        out["load"] = runs
+        out["launches"] = launches
+        if launches.get("fused_serve/bfloat16", 0) <= 0:
+            fail(f"overload: the armed load launched fused_serve/bfloat16 no time ({launches})")
+
+        # (b) The `pressure` site pins BROWNOUT: stale answers, marked, no
+        # launch, no refill, on the score cache and the row tier.
+        cc = CacheConfig(enabled=True, row_granular=True, ttl_s=OVERLOAD_TTL_S,
+                         row_ttl_s=OVERLOAD_TTL_S)
+        oc2 = dataclasses.replace(oc, adjust_interval_s=0.05)
+        impl2, batcher2, sv2 = build_stack(cfg, model_cfg, "cuda", seed=SEED, cache_config=cc,
+                                           overload_config=oc2)
+        batchers.append(batcher2)
+        ctrl2 = batcher2.overload
+        server2, port2 = create_server(impl2, "127.0.0.1:0")
+        server2.start()
+        servers.append(server2)
+        ch2 = _channel(port2)
+        chans.append(ch2)
+        stub2 = PredictionServiceStub(ch2)
+        crit = ((overload_mod.CRITICALITY_KEY, "critical"),)
+        rport, stop_rest = _rest_in_process(impl2, ServerMetrics())
+        stops.append(stop_rest)
+        http = _Http(rport)
+        ids, wts = payload(1000)
+        rest_body = json.dumps({"inputs": {"feat_ids": ids.tolist(),
+                                           "feat_wts": wts.tolist()}}).encode()
+
+        def rest_scores(raw):
+            outs = json.loads(raw)["outputs"]
+            return np.asarray(outs["prediction_node"] if isinstance(outs, dict) else outs,
+                              np.float32)
+
+        # The fills: over gRPC (output_filter prediction_node) and over REST
+        # (every output): two entries of each store.
+        fresh = codec.to_ndarray(stub2.Predict(_request(ids, wts), timeout=60,
+                                               metadata=crit).outputs["prediction_node"])
+        fresh_rest = rest_scores(http.call("POST", "/v1/models/DCN:predict", rest_body)[1])
+        time.sleep(OVERLOAD_TTL_S + 0.1)  # past the TTL, inside the stale window
+        faults.get().add("pressure", "error", code="BROWNOUT")
+        time.sleep(0.1)
+        if ctrl2.state() != overload_mod.BROWNOUT:
+            fail(f"overload: the pressure rule left the state {ctrl2.state()}")
+        fills0 = batcher2.score_cache.snapshot()["fills"]
+        ck.reset_launches()
+        resp, call = stub2.Predict.with_call(_request(ids, wts), timeout=60, metadata=crit)
+        stale_launches = {k: v for k, v in _launch_counts().items() if v}
+        if _md(call).get(overload_mod.DEGRADED_KEY) != "stale":
+            fail(f"overload: the stale answer's trailing metadata {_md(call)}")
+        if not np.array_equal(codec.to_ndarray(resp.outputs["prediction_node"]), fresh):
+            fail("overload: the stale answer is not the cached bits")
+        if stale_launches or batcher2.score_cache.snapshot()["fills"] != fills0:
+            fail(f"overload: the stale serve launched {stale_launches} or refilled")
+        # The row tier: 900 of those (stale) rows and 100 fresh ones.
+        fids, fwts = payload(100)
+        qids, qwts = np.concatenate([ids[:900], fids]), np.concatenate([wts[:900], fwts])
+        r0 = batcher2.row_cache.snapshot()["stale_serves"]
+        resp, call = stub2.Predict.with_call(_request(qids, qwts), timeout=60, metadata=crit)
+        got = codec.to_ndarray(resp.outputs["prediction_node"])
+        if (_md(call).get(overload_mod.DEGRADED_KEY) != "stale"
+                or not np.array_equal(got[:900], fresh[:900])
+                or batcher2.row_cache.snapshot()["stale_serves"] - r0 != 900):
+            fail(f"overload: the row-tier stale serve: metadata {_md(call)}, rows "
+                 f"{batcher2.row_cache.snapshot()['stale_serves'] - r0}")
+        out["brownout"] = {"stale_launches": stale_launches, "row_stale_serves": 900,
+                           "brownout_serves": ctrl2.snapshot()["brownout_serves"]}
+        log("overload: pressure=BROWNOUT -> an expired request answered stale (x-dts-degraded: "
+            "stale, its cached bits, 0 launches, no refill); a request of 900 expired rows + 100 "
+            "fresh answered with the mark (900 row stale serves)")
+
+        # (c) The `pressure` site pins SHED.
+        faults.get().clear()
+        faults.get().add("pressure", "error", code="SHED")
+        time.sleep(0.1)
+        if ctrl2.state() != overload_mod.SHED:
+            fail(f"overload: the SHED rule left the state {ctrl2.state()}")
+        sids, swts = payload(256)
+        try:
+            stub2.Predict(_request(sids, swts), timeout=60,
+                          metadata=((overload_mod.CRITICALITY_KEY, "sheddable"),))
+            fail("overload: a sheddable Predict was admitted under SHED")
+        except grpc.RpcError as e:
+            ra = _md(e).get(overload_mod.RETRY_AFTER_KEY)
+            if e.code() != grpc.StatusCode.RESOURCE_EXHAUSTED or ra is None:
+                fail(f"overload: the sheddable Predict ended {e.code()} ({_md(e)})")
+        stub2.Predict(_request(sids, swts), timeout=60, metadata=crit)  # critical: admitted
+        try:
+            body = json.dumps({"inputs": {"feat_ids": sids.tolist(),
+                                          "feat_wts": swts.tolist()}}).encode()
+            http.conn.request("POST", "/v1/models/DCN:predict", body=body, headers={
+                "Content-Type": "application/json", overload_mod.CRITICALITY_KEY: "sheddable"})
+            r = http.conn.getresponse()
+            r.read()
+            retry = r.getheader("Retry-After")
+            if r.status != 429 or not retry or int(retry) < 1:
+                fail(f"overload: REST 429 without Retry-After ({r.status}, {retry!r})")
+            http.conn.request("POST", "/v1/models/DCN:predict", body=rest_body, headers={
+                "Content-Type": "application/json", overload_mod.CRITICALITY_KEY: "critical"})
+            r = http.conn.getresponse()
+            scores = rest_scores(r.read())
+            if r.status != 200 or r.getheader(overload_mod.DEGRADED_KEY) != "stale":
+                fail(f"overload: REST stale answer {r.status}, X-DTS-Degraded "
+                     f"{r.getheader(overload_mod.DEGRADED_KEY)!r}")
+            if not np.array_equal(scores, fresh_rest):
+                fail("overload: the REST stale answer is not the cached bits")
+            # (d) The surfaces agree with overload_stats().
+            sec = http.json("GET", "/monitoring?section=overload")["overload"]
+            status, prom = http.call("GET", "/monitoring/prometheus/metrics")
+            prom = prom.decode()
+            snap = impl2.overload_stats()
+            for key in ("state", "sheds", "admitted", "doomed_refusals", "brownout_serves",
+                        "limit", "sheds_by_lane"):
+                if sec[key] != snap[key]:
+                    fail(f"overload: /monitoring {key} {sec[key]} != overload_stats {snap[key]}")
+            want = [f"dts_tpu_overload_sheds_total {snap['sheds']}",
+                    f"dts_tpu_overload_brownout_serves_total {snap['brownout_serves']}",
+                    f"dts_tpu_overload_admitted_total {snap['admitted']}",
+                    'dts_tpu_overload_pressure_state{state="shed"} 1']
+            missing = [w for w in want if w not in prom.splitlines()]
+            lint = subprocess.run([sys.executable, os.path.join(HERE, "tools", "check_prom.py"),
+                                   "-"], input=prom, capture_output=True, text=True, timeout=60)
+            if missing or lint.returncode != 0:
+                fail(f"overload: the exposition lacks {missing} or fails the lint "
+                     f"{lint.stdout[-300:]}")
+        finally:
+            http.close()
+        out["shed"] = {"rest_retry_after_s": int(retry),
+                       "series": sum(1 for ln in prom.splitlines()
+                                     if ln.startswith("dts_tpu_overload_"))}
+        log(f"overload: pressure=SHED -> sheddable RESOURCE_EXHAUSTED with retry-after-ms, "
+            f"critical admitted; REST 429 Retry-After {retry}, a stale REST answer "
+            f"X-DTS-Degraded: stale; /monitoring?section=overload and "
+            f"{out['shed']['series']} lint-clean dts_tpu_overload_* lines = overload_stats()")
+    finally:
+        faults.get().clear()
+        for stop in stops:
+            stop()
+        for ch in chans:
+            ch.close()
+        for server in servers:
+            server.stop(grace=1).wait()
+        for b in batchers:
+            b.stop()
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -4580,11 +5466,18 @@ def main() -> None:
     t0 = time.perf_counter()
     cache = phase_cache(dev, f"{name} ({smi})")
     log(f"cache: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    integrity = phase_integrity(dev, f"{name} ({smi})")
+    log(f"integrity: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    overload = phase_overload(dev, f"{name} ({smi})")
+    log(f"overload: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
                    "lifecycle": lifecycle, "outputs": outputs, "families": families,
-                   "models": models, "rest": rest, "aio": aio, "cache": cache}, f, indent=1,
+                   "models": models, "rest": rest, "aio": aio, "cache": cache,
+                   "integrity": integrity, "overload": overload}, f, indent=1,
                   default=str)
 
     replaces = {
@@ -4620,6 +5513,11 @@ def main() -> None:
                      # The cache phase's steps 1-4 (zeroed just before, read
                      # just after).
                      "launches_cache": cache["launches"].get(f"{kname}/{cd}", 0),
+                     # The integrity phase's shadowed run (each batch and its
+                     # shadow; the plane-off references before it counted
+                     # apart), and the overload phase's armed load runs.
+                     "launches_integrity": integrity["launches"].get(f"{kname}/{cd}", 0),
+                     "launches_overload": overload["launches"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (

@@ -10,13 +10,21 @@ nothing beyond numpy: DT_BFLOAT16 has no numpy dtype here, so a bf16 tensor
 decodes WIDENED to float32 (exact: every bf16 value is an f32 value), and
 encoding to DT_BFLOAT16 is not offered. The int8 score response wire
 (`quantize_scores`, `dequantize_response_output`) is the JAX package's, in
-numpy, bit for bit; its CRC helpers are not ported.
+numpy, bit for bit. The CRC32C sidecars of the integrity plane's wire
+layer (`crc_sidecar` and its inverse) are the JAX package's, over the same
+canonical form, so a stamp made by either package verifies in the other;
+the checksum runs through the native slicing-by-8 `dts_crc32c`
+(native/hostops.cc) when the host ops are loaded, and through a table loop
+(the plain version, bit-identical) otherwise. A bf16 input decodes widened
+to float32 here, so a stamp made over bf16 bytes does not verify against
+it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from . import native
 from .proto import tf_framework_pb2 as fw
 
 DataType = fw.DataType
@@ -316,3 +324,83 @@ def dequantize_response_output(outputs_map, key: str) -> np.ndarray:
         mn = float(to_ndarray(outputs_map[mkey])[0])
         return dequantize_scores(to_ndarray(tp), scale, mn)
     return to_ndarray(tp)
+
+
+# ---------------------------------------------------- wire integrity (CRC)
+#
+# CRC32C (Castagnoli) sidecars over tensor bytes, carried in gRPC metadata
+# both ways. Both ends checksum the DECODED ndarray's canonical form — a
+# "{dtype.str}:{shape}" header chained with the contiguous payload — so the
+# check does not depend on the encoding (tensor_content, repeated fields,
+# the int8 score wire).
+
+_CRC32C_POLY = 0x82F63B78
+_CRC32C_TABLE = []
+for _i in range(256):
+    _c = _i
+    for _ in range(8):
+        _c = (_c >> 1) ^ (_CRC32C_POLY if _c & 1 else 0)
+    _CRC32C_TABLE.append(_c)
+del _i, _c
+
+CRC_INPUT_MD = "x-dts-input-crc"
+CRC_SCORE_MD = "x-dts-score-crc"
+
+
+def crc32c_table(data, crc: int = 0) -> int:
+    """CRC32C by the byte-at-a-time table loop: the plain version of the
+    native checksum, and the one used when the host ops are not loaded."""
+    crc ^= 0xFFFFFFFF
+    table = _CRC32C_TABLE
+    for b in bytes(data):
+        crc = (crc >> 8) ^ table[(crc ^ b) & 0xFF]
+    return crc ^ 0xFFFFFFFF
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC32C over a bytes-like or a numpy array; pass a prior value to
+    chain. Native (an array read in place) when the host ops are loaded."""
+    if native.available():
+        return native.crc32c(data, crc)
+    return crc32c_table(data, crc)
+
+
+def ndarray_crc(arr: np.ndarray) -> int:
+    """Canonical tensor checksum: the dtype/shape header chained with the
+    contiguous payload bytes, so a flipped shape dim is as detectable as a
+    flipped payload bit."""
+    a = np.ascontiguousarray(arr)
+    head = f"{a.dtype.str}:{a.shape}".encode()
+    payload = a.tobytes() if a.dtype.hasobject else a.reshape(-1).view(np.uint8)
+    return crc32c(payload, crc32c(head))
+
+
+def crc_sidecar(arrays: dict) -> str:
+    """Per-tensor checksums as one metadata value: ``name=%08x`` pairs
+    joined by commas, in sorted name order."""
+    return ",".join(f"{name}={ndarray_crc(arrays[name]):08x}" for name in sorted(arrays))
+
+
+def parse_crc_sidecar(value: str) -> dict[str, int]:
+    """Inverse of crc_sidecar. A malformed entry raises CodecError: a
+    corrupted sidecar must fail the check, not pass it."""
+    out: dict[str, int] = {}
+    for pair in filter(None, (p.strip() for p in value.split(","))):
+        name, sep, hexcrc = pair.rpartition("=")
+        if not sep or not name:
+            raise CodecError(f"malformed crc sidecar entry {pair!r}")
+        try:
+            out[name] = int(hexcrc, 16)
+        except ValueError as e:
+            raise CodecError(f"malformed crc sidecar entry {pair!r}") from e
+    return out
+
+
+def verify_crc_sidecar(arrays: dict, sidecar: str) -> list[str]:
+    """Names whose decoded bytes mismatch their stamped checksum, sorted.
+    A name stamped but absent from `arrays` is reported (a dropped tensor
+    is corruption); a name present but unstamped is not (the sidecar may
+    cover a subset)."""
+    stamped = parse_crc_sidecar(sidecar)
+    return sorted(name for name, want in stamped.items()
+                  if name not in arrays or ndarray_crc(arrays[name]) != want)

@@ -17,14 +17,27 @@ Named sites fired in this package:
                         readback (batcher._finish)
 - ``executor_abort``    the completion worker's result path, next to
                         ``readback``: the step aborted after dispatch
+- ``pressure``          the overload controller's tick
+                        (serving/overload.py): an ``error`` rule whose
+                        ``code`` names a pressure state (``BROWNOUT`` /
+                        ``SHED`` / ``NOMINAL``) pins the state machine
+                        there while the rule fires, with no real load
+- ``readback_bitflip``  one bit flipped in a member request's first score
+                        row after the readback's event wait and before the
+                        shadow compare and the screen (batcher._finish),
+                        fired once per member with ``key`` = that
+                        request's batcher.poison_fault_key; the ``error``
+                        kind is a marker, caught there and applied
+- ``score_nan``         a member request's score rows set to NaN at the
+                        same point, keyed the same way (the readback
+                        screen's prey)
 
 The JAX package's other sites belong to planes this package does not have
 yet, so a rule on one of them would do nothing without saying so: `add()`
 (and with it `configure_from_env`) refuses it with a ValueError naming the
-ROADMAP.md Queue A item that ports its plane — ``pressure`` (the overload
-controller), ``device_lost`` (the recovery plane), ``readback_bitflip`` and
-``score_nan`` (the integrity plane): item 6; ``client.rpc`` and
-``wire_corrupt`` (the client): item 8. An unknown site is refused too.
+ROADMAP.md item that ports its plane — ``device_lost`` (the recovery
+plane): Queue A item 6; ``client.rpc`` and ``wire_corrupt`` (the client):
+item 8. An unknown site is refused too.
 
 Rule kinds:
 
@@ -56,14 +69,12 @@ import time
 
 from .utils import tracing
 
-SITES = ("decode", "batcher.dispatch", "readback", "executor_abort")
+SITES = ("decode", "batcher.dispatch", "readback", "executor_abort", "pressure",
+         "readback_bitflip", "score_nan")
 KINDS = ("delay", "error", "wedge")
 # The JAX package's sites whose plane is not ported: site -> the ROADMAP.md
 # Queue A item that ports it.
-UNPORTED_SITES = {
-    "pressure": 6, "device_lost": 6, "readback_bitflip": 6, "score_nan": 6,
-    "client.rpc": 8, "wire_corrupt": 8,
-}
+UNPORTED_SITES = {"device_lost": 6, "client.rpc": 8, "wire_corrupt": 8}
 
 
 def check_site(site: str) -> None:
@@ -159,6 +170,12 @@ class FaultInjector:
         if self is _GLOBAL:
             _set_active(True)
         return rule
+
+    def has_site(self, site: str) -> bool:
+        """True when any rule (spent or not) targets `site`: the cheap
+        gate a call site checks before deriving per-item keys."""
+        with self._lock:
+            return any(r.site == site for r in self._rules)
 
     def clear(self, site: str | None = None) -> None:
         """Remove matching rules (all when site is None) and release every

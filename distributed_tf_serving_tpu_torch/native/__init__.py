@@ -11,7 +11,8 @@ The batcher packs each bf16 batch with `pack_batch_u24_bf16`, which folds,
 u24-packs, bf16-casts and pads a whole coalesced batch in one pass, straight
 into the caller's (pinned) host buffer. A stack on the card whose servable
 needs it refuses to start when the library cannot be built. The warmup
-replay checks its TFRecord framing with `crc32c`. The cache plane digests
+replay checks its TFRecord framing with `crc32c`, and the integrity plane's
+wire checksums (codec.crc_sidecar) run through it. The cache plane digests
 with `hash128` (the device-input cache's batch key and the score cache's
 feature digest) and `hash128_rows` (blake2b-128 per row: the row cache's
 keys, byte-identical to hashlib's).
@@ -94,7 +95,7 @@ def _load_locked() -> ctypes.CDLL | None:
         ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ]
-    lib.dts_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint32]
+    lib.dts_crc32c.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32]
     lib.dts_crc32c.restype = ctypes.c_uint32
     lib.hash128.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
     lib.hash128.restype = None
@@ -230,10 +231,15 @@ def hash128_rows(blob: np.ndarray, header: bytes = b"") -> np.ndarray:
     return out
 
 
-def crc32c(data: bytes, crc: int = 0) -> int:
-    """CRC32C (Castagnoli) of `data`, continuing from `crc`."""
+def crc32c(data, crc: int = 0) -> int:
+    """CRC32C (Castagnoli) of `data`, continuing from `crc`. A numpy array
+    is read in place through its buffer pointer (made contiguous first),
+    any other bytes-like is copied to bytes."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native hostops library unavailable")
+    if isinstance(data, np.ndarray):
+        arr = np.ascontiguousarray(data)
+        return lib.dts_crc32c(arr.ctypes.data, arr.nbytes, crc)
     data = bytes(data)
     return lib.dts_crc32c(data, len(data), crc)

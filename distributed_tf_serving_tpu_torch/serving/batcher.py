@@ -80,9 +80,29 @@ readback and per-request completion.
   fills them (`cache.row_fill`) and scatters executed, cached and other
   batches' rows back per request; with `dedup`, a batch's identical rows
   execute once (`batch.dedup`). A failure aborts the batch's row flights.
+- **The overload plane** (serving/overload.py): with an `overload`
+  controller, `submit` asks it for admission (criticality lane, adaptive
+  limit, doomed-work refusal) in place of the static
+  `queue_capacity_candidates` bound, and a refusal raises
+  AdmissionRefusedError with a retry-after hint; each dispatch feeds it the
+  group's queue waits and each completed batch its service time (stage
+  start to the readback's event). Past NOMINAL, the score cache and the
+  row cache answer entries up to its stale window past their TTL, marked
+  degraded (serving/overload.py mark_degraded, or `dts_degraded` on the
+  future) and never refilled.
+- **The integrity plane** (serving/integrity.py): with `integrity` set, a
+  sampled batch runs a second time through the same device stage (same
+  servable, bucket and kernel variant) under `batch.shadow_dispatch`, into
+  its own host buffers (its packs, copies and input-cache reads counted
+  apart, in the shadow_* stats), and the completion worker compares the
+  two raw readbacks bit for bit before anything is widened or scattered (a
+  mismatch fails the batch with OutputCorruptError); then the readback
+  screen fails a request whose score rows are NaN/Inf (IntegrityScreenError)
+  while its batchmates deliver.
 - **Fault sites** (faults.py): `batcher.dispatch` before a batch's device
   stage, `readback` and `executor_abort` before a completion worker waits
-  for its readback.
+  for its readback, `readback_bitflip` and `score_nan` on the raw readback
+  (keyed by `poison_fault_key`), `pressure` in the overload controller.
 """
 
 from __future__ import annotations
@@ -122,6 +142,8 @@ from ..ops.transfer import (
 from ..ops.transfer import output_wire_dtype as wire_dtype_of
 from ..utils import tracing
 from ..utils.tracing import request_trace
+from . import overload as overload_mod
+from .integrity import IntegrityScreenError
 
 log = logging.getLogger("dts_torch.batcher")
 
@@ -143,6 +165,19 @@ class QueueOverloadError(RuntimeError):
     backlog no deadline survives (RESOURCE_EXHAUSTED at the RPC layer)."""
 
 
+class AdmissionRefusedError(QueueOverloadError):
+    """The overload plane (serving/overload.py) refused this request:
+    capacity or lane shedding (`reason` "shed") or doomed work ("doomed":
+    the backlog's estimated wait already exceeds the request's remaining
+    deadline). Carries the retry-after-ms hint the RPC layer forwards;
+    RESOURCE_EXHAUSTED like its base class."""
+
+    def __init__(self, message: str, reason: str = "shed", retry_after_ms: int | None = None):
+        super().__init__(message)
+        self.reason = reason
+        self.retry_after_ms = retry_after_ms
+
+
 class RequestDeadlineError(TimeoutError):
     """Queued work whose client deadline expired before dispatch: shed
     instead of executed (DEADLINE_EXCEEDED at the RPC layer)."""
@@ -160,6 +195,75 @@ def bucket_for(n: int, buckets: tuple[int, ...]) -> int:
         if n <= b:
             return b
     raise BatchTooLargeError(f"candidate count {n} exceeds largest bucket {buckets[-1]}")
+
+
+def poison_fault_key(arrays: dict) -> str:
+    """Content digest of one request's prepared input arrays (the bytes
+    _WorkItem.arrays holds: after prepare_inputs, before the fold): the
+    `key` the readback_bitflip and score_nan fault sites fire with once
+    per batch member. The JAX package's digest, byte for byte, so one
+    DTS_TPU_FAULTS string keys the same payload on both servers."""
+    h = hashlib.blake2b(digest_size=8)
+    for name in sorted(arrays):
+        arr = np.ascontiguousarray(arrays[name])
+        h.update(name.encode())
+        h.update(arr.view(np.uint8).data)
+    return h.hexdigest()
+
+
+def _inject_readback_corruption(raw: dict, group: list) -> dict:
+    """The readback_bitflip and score_nan fault sites, fired once per member
+    request with its poison_fault_key, on the raw readback (numpy views of
+    the host buffers after the event wait, before the shadow compare, the
+    widen and the screen), as the JAX package does: a rule that fires flips
+    the lowest bit of the member's first score element, or sets its score
+    rows to NaN (a float wire only; another dtype gets the flip). The error
+    kind is a marker, caught here. Returns `raw` with the score array
+    replaced by a corrupted copy when a rule fired."""
+    fi = faults.get()
+    score_key = group[0].servable.model.score_output
+    scores = raw.get(score_key)
+    if scores is None:
+        return raw
+    corrupted = None
+    off = 0
+    for it in group:
+        sl = slice(off, off + it.n)
+        off += it.n
+        key = poison_fault_key(it.arrays)
+        for site in ("readback_bitflip", "score_nan"):
+            if not fi.has_site(site):
+                continue
+            try:
+                fi.fire(site, key=key)
+            except faults.InjectedFaultError:
+                if corrupted is None:
+                    corrupted = np.ascontiguousarray(scores).copy()
+                if site == "score_nan" and corrupted.dtype.kind == "f":
+                    corrupted[sl] = np.nan
+                else:
+                    flat = corrupted.reshape(-1).view(np.dtype(f"u{corrupted.dtype.itemsize}"))
+                    stride = max(corrupted.size // max(len(scores), 1), 1)
+                    flat[sl.start * stride] ^= 1
+    if corrupted is not None:
+        raw = dict(raw)
+        raw[score_key] = corrupted
+    return raw
+
+
+def _raw_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's bytes as a numpy view (no copy); bf16, which numpy
+    lacks, as uint16."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _raw_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """Inverse of _raw_numpy for a (corrupted) copy."""
+    if like.dtype == torch.bfloat16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def fold_ids_host(ids: np.ndarray, vocab_size: int) -> np.ndarray:
@@ -275,6 +379,18 @@ class BatcherStats:
     rows_requested: int = 0
     rows_executed: int = 0
     row_full_hit_batches: int = 0
+    # The integrity plane: batches run a second time for the shadow
+    # compare, and those whose second upload was a DeviceInputCache hit
+    # (the compare then covers the kernel and the readback, not the copy).
+    # The shadow's own device stage is counted here, not in the fields
+    # above: its native packs (none: it packs the rebuilt padded arrays),
+    # host-to-device copies and fused batches. Its upload reads the input
+    # cache without filling it or moving its counts.
+    shadow_batches: int = 0
+    shadow_input_cache_hits: int = 0
+    shadow_native_packs: int = 0
+    shadow_h2d_copies: int = 0
+    shadow_fused_batches: int = 0
 
     @property
     def mean_occupancy(self) -> float:
@@ -350,6 +466,9 @@ class _Readback:
     nbytes: int = 0  # bytes the copies move
     full_f32_bytes: int = 0  # a float32 readback of every output of the step
     topk: tuple | None = None  # (request rows, score key) of a top-k readback
+    input_cache_hit: bool = False  # the upload was a DeviceInputCache hit
+    variant: tuple = (False, False)  # (quantized, fused): the kernel the batch ran
+    shadow: _Readback | None = None  # the integrity plane's second run of the batch
 
 
 class _HostBufferRing:
@@ -526,8 +645,16 @@ class DeviceInputCache:
         if self.bypassed:
             self._note_bypassed()
             return build(False)
-        key = (tag,) + tuple(self._key(k, arrays[k]) for k in sorted(arrays))
-        return self._lookup(key, build)
+        return self._lookup(self.group_key(arrays, tag), build)
+
+    def group_key(self, arrays: dict[str, np.ndarray], tag: str) -> tuple:
+        return (tag,) + tuple(self._key(k, arrays[k]) for k in sorted(arrays))
+
+    def peek(self, key: tuple) -> torch.Tensor | None:
+        """The device buffer under `key`, or None: no fill, no count, no
+        probe step, and the LRU order stays (the shadow's read)."""
+        with self._lock:
+            return self._lru.get(key)
 
     def _lookup(self, key: tuple, build) -> torch.Tensor:
         """The LRU's hit and miss, its accounting, eviction and probe."""
@@ -590,7 +717,7 @@ class _RowContext:
     completion worker or in a leader's done-callback."""
 
     __slots__ = ("cache", "plan", "n_slots", "inverse", "lead_slots", "n_cold",
-                 "exec_arrays", "passthrough", "all_fresh")
+                 "exec_arrays", "passthrough", "all_fresh", "overload")
 
     def fill_from_host(self, host: dict) -> None:
         """Close the plan's lead flights from the executed rows: fill the
@@ -676,6 +803,7 @@ class DynamicBatcher:
         score_cache=None,
         row_cache=None,
         dedup: bool = False,
+        overload=None,
     ):
         """fused_kernel=False serves dcn_v2 through model.apply (the
         configuration where `use_pallas_cross` routes only the cross stack
@@ -695,7 +823,14 @@ class DynamicBatcher:
         RowScoreCache) looks every row of a collected batch up and executes
         only the cold ones, in their own bucket; `dedup` executes each
         distinct row of a batch once. None / False = off: one attribute
-        read per submit or batch."""
+        read per submit or batch.
+
+        `overload` (a serving/overload.py AdmissionController, bound here to
+        the largest bucket and the static capacity) replaces the static
+        admission bound and arms the stale-serve; `integrity` (attribute,
+        an IntegrityPlane) arms the shadow compare and the readback screen.
+        Both are read once per submit or batch, so either may be detached
+        while serving."""
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # An indexed device, for the worker threads' set_device.
@@ -711,6 +846,10 @@ class DynamicBatcher:
             else 16 * self.buckets[-1],
             self.buckets[-1],
         )
+        self.overload = overload
+        if overload is not None:
+            overload.bind(self.buckets[-1], self.queue_capacity_candidates)
+        self.integrity = None
         self.fused_kernel = fused_kernel
         self.output_wire_dtype = output_wire_dtype
         self._wire_dt = wire_dtype_of(output_wire_dtype)  # an unknown name raises here
@@ -739,6 +878,7 @@ class DynamicBatcher:
         self.ring = _HostBufferRing(pinned=self.device.type == "cuda")
         self._items: deque[_WorkItem] = deque()
         self._queued_candidates = 0
+        self._staged_candidates = 0  # in groups staged for the dispatch thread
         self._cv = threading.Condition()
         self._stats_lock = threading.Lock()
         self._entries: weakref.WeakKeyDictionary[Servable, _Entry] = weakref.WeakKeyDictionary()
@@ -822,6 +962,7 @@ class DynamicBatcher:
         output_keys: tuple[str, ...] | None = None,
         deadline_s: float | None = None,
         span=None,
+        criticality: str | None = None,
         _solo: bool = False,
         _warmup: bool = False,
     ) -> Future:
@@ -839,7 +980,12 @@ class DynamicBatcher:
         the breaker (cached scores answer while the device is wedged or the
         queue full): a hit returns a done future, an identical request in
         flight hands back its future, and a miss leads: its completion
-        fills the cache and answers those that joined. Warmup skips it."""
+        fills the cache and answers those that joined. Warmup skips it.
+
+        With the overload plane, `criticality` (the x-dts-criticality lane;
+        warmup takes the probe lane) is the request's lane at admission,
+        and past NOMINAL an entry inside the stale window answers, marked
+        degraded (overload.mark_degraded in the caller's context)."""
         if self._stopping:
             raise RuntimeError("batcher is stopped")
         ns = {k: v.shape[0] for k, v in arrays.items()}
@@ -850,10 +996,22 @@ class DynamicBatcher:
         cache = self.score_cache
         handle = None
         if cache is not None and not _warmup:
+            ov = self.overload
+            # Brownout stale-serve: past NOMINAL an entry up to the stale
+            # window past its TTL still answers, marked degraded and never
+            # refilled.
+            stale_s = ov.stale_window_s if ov is not None and ov.stale_serve_active() else 0.0
             with request_trace.span("cache.lookup"):
-                handle = cache.begin(servable.name, servable.version, output_keys, arrays)
+                handle = cache.begin(servable.name, servable.version, output_keys, arrays,
+                                     stale_s=stale_s)
             if handle.hit is not None:
-                if span is not None:
+                if handle.stale:
+                    ov.note_brownout_serve()
+                    overload_mod.mark_degraded("stale")
+                    if span is not None:
+                        span.attrs["brownout_stale"] = True
+                        span.annotate("overload.stale_serve", stale_window_s=stale_s)
+                elif span is not None:
                     span.attrs["cache_hit"] = True
                 fut = Future()
                 fut.set_result(handle.hit)
@@ -864,7 +1022,7 @@ class DynamicBatcher:
                 return handle.waiter
         try:
             fut = self._submit_miss(servable, arrays, n, output_keys, deadline_s, span,
-                                    _solo, _warmup)
+                                    _solo, _warmup, criticality)
         except BaseException as exc:
             if handle is not None and handle.leader:
                 # Never enqueued (breaker, admission, prepare): those that
@@ -880,9 +1038,12 @@ class DynamicBatcher:
         return fut
 
     def _submit_miss(self, servable: Servable, arrays: dict[str, np.ndarray], n: int,
-                     output_keys, deadline_s, span, solo: bool, warmup: bool) -> Future:
+                     output_keys, deadline_s, span, solo: bool, warmup: bool,
+                     criticality: str | None = None) -> Future:
         """submit() past the score cache: the breaker, admission, prepare
-        and enqueue."""
+        and enqueue. Admission comes before the copy: a shed request pays
+        none of it."""
+        ov = self.overload
         with self._cv:
             stuck_s = self._wedged_for(time.perf_counter())
             if stuck_s:
@@ -892,7 +1053,21 @@ class DynamicBatcher:
                 )
                 self._shed_queued(exc)
                 raise exc
-            if self._queued_candidates + n > self.queue_capacity_candidates:
+            if ov is not None:
+                # Adaptive admission against what waits for the device:
+                # queued and staged candidates.
+                lane = (overload_mod.PROBE if warmup
+                        else overload_mod.normalize_criticality(criticality))
+                decision = ov.admit(n, self._queued_candidates + self._staged_candidates,
+                                    lane=lane, deadline_s=deadline_s)
+                if not decision.admitted:
+                    if span is not None:
+                        span.annotate("overload.shed", reason=decision.reason, lane=lane,
+                                      retry_after_ms=decision.retry_after_ms)
+                    raise AdmissionRefusedError(decision.message,
+                                                reason=decision.reason or "shed",
+                                                retry_after_ms=decision.retry_after_ms)
+            elif self._queued_candidates + n > self.queue_capacity_candidates:
                 raise QueueOverloadError(
                     f"queue full ({self._queued_candidates} candidates queued, "
                     f"capacity {self.queue_capacity_candidates})"
@@ -1079,6 +1254,7 @@ class DynamicBatcher:
         while self._staged:
             st = self._staged.popleft()
             self._dispatch_pending -= 1
+            self._staged_candidates -= st.total
             self._release_pad(st)
             if st.row_ctx is not None:
                 # Batches waiting on this one's cold rows fail with it.
@@ -1184,15 +1360,21 @@ class DynamicBatcher:
             arrays["feat_ids"] = fold_ids_host(ids, model.config.vocab_size)
         return arrays
 
-    def _pack(self, entry: _Entry, src, rows: int) -> tuple[torch.Tensor, tuple]:
+    def _count(self, name: str, shadow: bool) -> None:
+        """One more of a device-stage counter, the shadow's own when
+        `shadow`."""
+        name = f"shadow_{name}" if shadow else name
+        with self._stats_lock:
+            setattr(self.stats, name, getattr(self.stats, name) + 1)
+
+    def _pack(self, entry: _Entry, src, rows: int, shadow: bool = False) -> tuple[torch.Tensor, tuple]:
         """Pack one batch (a _FusedCtx or folded padded arrays) into a ring
         buffer: (host uint8 tensor, layout)."""
         if isinstance(src, _FusedCtx):
             buf = self.ring.acquire(combined_nbytes(src.layout, rows))
             native.pack_batch_u24_bf16(src.ids_parts, src.wts_parts, src.fields, rows,
                                        src.vocab, out=buf.numpy())
-            with self._stats_lock:
-                self.stats.native_packs += 1
+            self._count("native_packs", shadow)
             return buf, src.layout
         layout = combined_layout(src, entry.spec)
         buf = self.ring.acquire(combined_nbytes(layout, rows))
@@ -1201,29 +1383,29 @@ class DynamicBatcher:
 
     def _upload(self, buf: torch.Tensor) -> tuple[torch.Tensor, object]:
         """One non-blocking copy of the packed buffer (pinned on the card):
-        (the device buffer, the event after the copy or None)."""
+        (the device buffer, the event after the copy or None). The caller
+        counts it."""
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             buf = buf.to(self.device, non_blocking=True)
             event.record(torch.cuda.current_stream(self.device))
-        with self._stats_lock:
-            self.stats.h2d_copies += 1
         return buf, event
 
-    def _upload_per_key(self, entry: _Entry, arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    def _upload_per_key(self, entry: _Entry, arrays: dict[str, np.ndarray],
+                        shadow: bool = False) -> dict[str, torch.Tensor]:
         """The per-key path: pack each (folded) input, one pageable copy
-        each; with the input cache, each input looked up on its own."""
+        each; with the input cache, each input looked up on its own (a
+        shadow uploads every input: the cache's keys are per input)."""
         def upload(key, arr, keep=False):
             packed = pack_host({key: arr}, entry.spec) if entry.spec else {key: arr}
             t = to_device(packed, self.device)[key]
-            with self._stats_lock:
-                self.stats.h2d_copies += 1
+            self._count("h2d_copies", shadow)
             # On the CPU the "upload" shares the host array's memory: the
             # cache keeps a copy of its own.
             return t.clone() if keep and self.device.type != "cuda" else t
 
-        cache = self.input_cache
+        cache = None if shadow else self.input_cache
         if cache is None:
             return unpack_device({k: upload(k, v) for k, v in arrays.items()}, entry.spec)
         with request_trace.span("batch.cache"):
@@ -1286,10 +1468,9 @@ class DynamicBatcher:
             out = {k: v for k, v in out.items() if k in output_keys} or out
         return compact_outputs_device(out, self._wire_dt)
 
-    def _restore(self, rb: _Readback) -> dict[str, np.ndarray]:
-        """A readback's host views as owned float32 outputs (the wire
-        undone, sidecars dropped)."""
-        views = {k: view for k, (_, view) in rb.out.items()}
+    def _restore(self, rb: _Readback, views: dict) -> dict[str, np.ndarray]:
+        """A readback's host views (`views`, keyed as `rb.out`) as owned
+        float32 outputs (the wire undone, sidecars dropped)."""
         if rb.topk is not None:
             n, key = rb.topk
             return topk_restore_host(views["topk_scores"], views["topk_indices"], n, key)
@@ -1299,15 +1480,20 @@ class DynamicBatcher:
 
     def _issue(self, servable: Servable, src, rows: int, output_keys: tuple[str, ...] | None,
                override=None, per_key: bool = False, topk: int = 0,
-               n_valid: int = 0) -> _Readback:
+               n_valid: int = 0, shadow: bool = False) -> _Readback:
         """The device stage of one padded batch, up to the readback issue:
         pack into a ring buffer, one upload, the device step, the readback
         wire, the readback copies. `src` is a _FusedCtx or the padded
         arrays; per_key (or inputs the combined layout cannot carry)
         uploads one copy per input instead. topk > 0 reads back the top-k
-        pairs of the first n_valid rows' scores."""
+        pairs of the first n_valid rows' scores. A `shadow` (the integrity
+        plane's second run, `override` its batch's variant) reads the input
+        cache without filling it and moves only the shadow_* counters."""
         entry = self.step_for(servable)
-        step, params, fused = self._step(servable, entry, rows, override)
+        # The variant is decided once (the kernel plane counts it then) and
+        # pinned for the step: a shadow passes its batch's.
+        variant = self._kernel_variant(self.kernels, servable, entry, rows, override)
+        step, params, fused = self._step(servable, entry, rows, variant)
         if not isinstance(src, _FusedCtx):
             src = self._folded(servable, src)
         per_key = per_key or not (isinstance(src, _FusedCtx) or combined_supported(src))
@@ -1315,15 +1501,18 @@ class DynamicBatcher:
         # (host buffer, event after the copy that reads it): back to the
         # ring once the step has been issued.
         spent: list = []
+        built = []  # pack_upload ran: the input cache missed
         held = dbuf = None
         layout = None if per_key else (
             src.layout if isinstance(src, _FusedCtx) else combined_layout(src, entry.spec))
 
         def pack_upload(keep: bool) -> torch.Tensor:
-            buf, _ = self._pack(entry, src, rows)
+            built.append(True)
+            buf, _ = self._pack(entry, src, rows, shadow)
             # Back to the ring even if the upload fails.
             spent.append((buf, None))
             dev, event = self._upload(buf)
+            self._count("h2d_copies", shadow)
             if dev is buf and keep:
                 # On the CPU the upload is the ring buffer itself: one the
                 # cache keeps never goes back to the ring.
@@ -1332,30 +1521,39 @@ class DynamicBatcher:
                 spent[-1] = (buf, event)
             return dev
 
+        cache_hit = False
         try:
             if per_key:
-                batch = self._upload_per_key(entry, src)
+                batch = self._upload_per_key(entry, src, shadow)
             elif cache is not None and not cache.bypassed:
                 # A hit skips the pack, the ring and the upload; a miss packs
                 # and uploads in this span.
                 with request_trace.span("batch.cache"):
-                    if isinstance(src, _FusedCtx):
+                    if shadow:
+                        key = (self._input_key(cache, src, rows) if isinstance(src, _FusedCtx)
+                               else cache.group_key(src, str(layout)))
+                        dbuf = cache.peek(key)
+                        if dbuf is None:
+                            dbuf = pack_upload(False)
+                    elif isinstance(src, _FusedCtx):
                         dbuf = cache._lookup(self._input_key(cache, src, rows), pack_upload)
                     else:
                         dbuf = cache.get_or_put_group(src, pack_upload, tag=str(layout))
+                cache_hit = not built
             else:
-                if cache is not None:
+                if cache is not None and not shadow:
                     cache._note_bypassed()
                 if isinstance(src, _FusedCtx):
                     with request_trace.span("batch.fusedpack"):
-                        held, _ = self._pack(entry, src, rows)
+                        held, _ = self._pack(entry, src, rows, shadow)
                 else:
-                    held, _ = self._pack(entry, src, rows)
+                    held, _ = self._pack(entry, src, rows, shadow)
                 spent.append((held, None))
             with torch.inference_mode():
                 with request_trace.span("batch.jitcall"):
                     if held is not None:
                         dbuf, event = self._upload(held)
+                        self._count("h2d_copies", shadow)
                         spent[-1] = (held, event)
                     if not per_key:
                         batch = unpack_device_combined(dbuf, layout)
@@ -1366,6 +1564,8 @@ class DynamicBatcher:
                     rb = self._issue_readback(
                         self._shape_outputs(servable, out, output_keys, topk, n_valid))
             rb.full_f32_bytes = full
+            rb.input_cache_hit = cache_hit
+            rb.variant = variant
             if topk:
                 rb.topk = (n_valid, servable.model.score_output)
         finally:
@@ -1374,25 +1574,74 @@ class DynamicBatcher:
                 # the step has already read it).
                 self.ring.release([buf], event)
         if fused:
-            with self._stats_lock:
-                self.stats.fused_batches += 1
+            self._count("fused_batches", shadow)
         return rb
 
-    def _wait(self, rb: _Readback) -> dict[str, np.ndarray]:
-        """Wait for a batch's readback; its outputs as owned host arrays."""
+    def _wait(self, rb: _Readback, check=None) -> dict[str, np.ndarray]:
+        """Wait for a batch's readback; its outputs as owned host arrays.
+        `check(views)` sees the raw host views after the event wait, before
+        they are widened, and returns the views to restore (the integrity
+        plane's fault sites and shadow compare). The buffers of the batch
+        and of its shadow go back to the ring only after it."""
         t0 = time.perf_counter()
         try:
             if rb.event is not None:
                 rb.event.synchronize()
             rb.ready_t = time.perf_counter()
-            host = self._restore(rb)
+            views = {k: view for k, (_, view) in rb.out.items()}
+            if check is not None:
+                views = check(views)
+            host = self._restore(rb, views)
         finally:
             self.ring.release([buf for buf, _ in rb.out.values()])
+            if rb.shadow is not None:
+                self.ring.release([buf for buf, _ in rb.shadow.out.values()], rb.shadow.event)
         request_trace.add("readback.wait", time.perf_counter() - t0)
         with self._stats_lock:
             self.stats.readback_window_s += max(rb.ready_t - rb.issue_t, 0.0)
             self.stats.readback_blocked_s += rb.ready_t - t0
         return host
+
+    def _raw_check(self, st: _Staged, rb: _Readback, integ, views: dict) -> dict:
+        """The integrity plane on a batch's raw readback: the
+        readback_bitflip / score_nan fault sites (a corrupted copy replaces
+        the score view), then the shadow's bit-for-bit compare (after its
+        own event wait), which raises OutputCorruptError on a mismatch."""
+        fi = faults.get()
+        if faults.active() and (fi.has_site("readback_bitflip") or fi.has_site("score_nan")):
+            raw = {k: _raw_numpy(v) for k, v in views.items()}
+            bad = _inject_readback_corruption(raw, st.group)
+            if bad is not raw:
+                views = {k: v if bad[k] is raw[k] else _raw_tensor(bad[k], v)
+                         for k, v in views.items()}
+        srb = rb.shadow
+        if srb is not None:
+            if srb.event is not None:
+                srb.event.synchronize()
+            sviews = {k: view for k, (_, view) in srb.out.items()}
+            integ.shadow_compare([_raw_numpy(views[k]) for k in sorted(views)],
+                                 [_raw_numpy(sviews[k]) for k in sorted(sviews)])
+        return views
+
+    @staticmethod
+    def _shadow_src(st: _Staged):
+        """What the shadow runs: the batch's padded arrays, or for a
+        natively packed batch the padded arrays rebuilt from the same parts
+        (so the shadow's pack is pack_host_combined, the reference of the
+        native pack), as the JAX package does."""
+        src = st.src
+        if not isinstance(src, _FusedCtx):
+            return src
+        out = {}
+        for key, parts in (("feat_ids", src.ids_parts), ("feat_wts", src.wts_parts)):
+            buf = np.empty((st.bucket,) + parts[0].shape[1:], np.result_type(*parts))
+            off = 0
+            for part in parts:
+                buf[off:off + part.shape[0]] = part
+                off += part.shape[0]
+            buf[off:] = 0  # the padding rows
+            out[key] = buf
+        return out
 
     def _execute(self, servable: Servable, arrays: dict[str, np.ndarray],
                  output_keys: tuple[str, ...] | None,
@@ -1630,13 +1879,17 @@ class DynamicBatcher:
         digests = (digests_all if uniq_rows.shape[0] == total
                    else [digests_all[i] for i in uniq_rows])
         servable = first.servable
-        # No stale window: serving entries past their TTL under pressure
-        # belongs to the overload plane.
-        plan = rc.begin_rows(servable.name, servable.version, keys, digests)
+        ov = self.overload
+        # Brownout stale-serve at row granularity: past NOMINAL an expired
+        # row inside the stale window still answers, marked degraded at
+        # delivery and never refilled.
+        stale_s = ov.stale_window_s if ov is not None and ov.stale_serve_active() else 0.0
+        plan = rc.begin_rows(servable.name, servable.version, keys, digests, stale_s=stale_s)
         try:
             ctx = _RowContext()
             ctx.cache = rc
             ctx.plan = plan
+            ctx.overload = ov
             ctx.n_slots = len(digests)
             ctx.inverse = inverse
             ctx.lead_slots = np.asarray(plan.lead, dtype=np.int64)
@@ -1695,6 +1948,8 @@ class DynamicBatcher:
         except Exception as exc:  # noqa: BLE001 — every waiter must resolve
             self._fail(group, len(row_ctx.inverse), exc)
             return
+        stale = row_ctx.plan.stale_slots
+        stale_rows = np.isin(row_ctx.inverse, np.fromiter(stale, np.int64)) if stale else None
         off = 0
         for it in group:
             sl = slice(off, off + it.n)
@@ -1708,6 +1963,16 @@ class DynamicBatcher:
                     except InvalidStateError:
                         pass
                 continue
+            if stale_rows is not None and stale_rows[sl].any():
+                # The degraded mark rides the future: this thread is not
+                # the RPC's, so the service forwards it (and a score-cache
+                # leader's done-callback answers its joiners with it).
+                it.future.dts_degraded = "stale"
+                if row_ctx.overload is not None:
+                    row_ctx.overload.note_brownout_serve()
+                if it.span is not None:
+                    it.span.attrs["brownout_stale_rows"] = True
+                    it.span.annotate("overload.stale_serve", rows=int(stale_rows[sl].sum()))
             keys = it.output_keys or tuple(full)
             try:
                 if not it.future.cancelled():
@@ -1724,6 +1989,7 @@ class DynamicBatcher:
         with self._cv:
             self._staged.append(staged)
             self._dispatch_pending += 1
+            self._staged_candidates += staged.total
             self._cv.notify_all()
             while (self._dispatch_pending >= self.pipeline_depth
                    and self._dispatch_thread.is_alive()
@@ -1741,6 +2007,7 @@ class DynamicBatcher:
                             return
                         self._cv.wait()
                     staged = self._staged.popleft()
+                    self._staged_candidates -= staged.total
                 try:
                     self._run_stage(staged)
                 finally:
@@ -1791,22 +2058,47 @@ class DynamicBatcher:
             for it in st.group:
                 if it.span is not None:
                     it.span.add_interval("batch.queue_wait", it.enqueue_t, stage_t)
+        ov = self.overload
+        if ov is not None:
+            # The controlled variable of adaptive admission (warmup waits
+            # include builds: not fed).
+            waits = [stage_t - it.enqueue_t for it in st.group if not it.warmup]
+            if waits:
+                ov.note_queue_waits(waits)
         with self._cv:
             self._dispatching = True
             self._dispatching_since = None if all_warm else stage_t
         issued = False
+        rb = None
         try:
             with _sink_ctx(st.phases):
                 # Inside the sink, so an injected fault annotates the spans.
                 faults.fire("batcher.dispatch")
                 issued = True
+                servable = st.group[0].servable
                 with request_trace.span("batch.dispatch"):
-                    rb = self._issue(st.group[0].servable, st.src, st.bucket, st.keys,
+                    rb = self._issue(servable, st.src, st.bucket, st.keys,
                                      topk=st.topk, n_valid=st.total)
+                integ = self.integrity
+                if integ is not None and not all_warm and integ.want_shadow():
+                    # The same device stage again (same servable, bucket and
+                    # kernel variant), into its own readback buffers: the
+                    # completion worker compares the two bit for bit.
+                    with request_trace.span("batch.shadow_dispatch"):
+                        rb.shadow = self._issue(servable, self._shadow_src(st), st.bucket,
+                                                st.keys, override=rb.variant, topk=st.topk,
+                                                n_valid=st.total, shadow=True)
+                    with self._stats_lock:
+                        self.stats.shadow_batches += 1
+                        self.stats.shadow_input_cache_hits += rb.shadow.input_cache_hit
             rb.stage_t = stage_t
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
             if not issued:
                 self._release_pad(st)  # nothing was uploaded from them
+            if rb is not None:
+                # The shadow failed after the batch was issued: its readback
+                # buffers go back once their copies are done.
+                self.ring.release([buf for buf, _ in rb.out.values()], rb.event)
             # The spans show the phases that led to the failure before the
             # waiters unblock and finish them.
             _replay(st.group, st.phases)
@@ -1878,8 +2170,20 @@ class DynamicBatcher:
                     except BaseException:
                         # Reusable once the readback copies are done.
                         self.ring.release([buf for buf, _ in rb.out.values()], rb.event)
+                        if rb.shadow is not None:
+                            self.ring.release([buf for buf, _ in rb.shadow.out.values()],
+                                              rb.shadow.event)
                         raise
-                    host = self._wait(rb)
+                    integ = self.integrity
+                    if integ is None:
+                        host = self._wait(rb)
+                    else:
+                        host = self._wait(rb, lambda views: self._raw_check(st, rb, integ, views))
+                    ov = self.overload
+                    if ov is not None and not any(it.warmup for it in st.group):
+                        # Service time up to the readback's event (after the
+                        # kernels ran, not at launch): prices the backlog.
+                        ov.note_batch(st.total, rb.ready_t - rb.stage_t)
                     if st.scatter is not None:
                         # Dedup: each original row takes its unique row's
                         # outputs.
@@ -1895,7 +2199,8 @@ class DynamicBatcher:
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
             self._fail(st.group, st.total, exc, st.row_ctx)
         finally:
-            if rb.event is None or rb.event.query():
+            if ((rb.event is None or rb.event.query()) and
+                    (rb.shadow is None or rb.shadow.event is None or rb.shadow.event.query())):
                 # The readback event follows the upload on the same stream:
                 # no copy reads the padded buffers any more. Otherwise
                 # (a failure before the wait) they are dropped, not reused.
@@ -1912,9 +2217,26 @@ class DynamicBatcher:
                 return
             # Every row executed here: the scatter back through `inverse`.
             host = {k: v[row_ctx.inverse] for k, v in host.items()}
+        integ = self.integrity
+        screened: dict[int, str] = {}
+        if integ is not None and integ.config.screen:
+            # The readback screen, per request, on the rows it is handed:
+            # a failing request fails alone, its batchmates deliver.
+            scores = host.get(st.group[0].servable.model.score_output)
+            if scores is not None:
+                off = 0
+                for idx, it in enumerate(st.group):
+                    row = scores[off:off + it.n]
+                    off += it.n
+                    if it.warmup:
+                        continue
+                    reason = integ.screen_reason(row)
+                    if reason is not None:
+                        screened[idx] = reason
+                        integ.note_screen_trip(reason)
         timeline = self.timeline
         off = 0
-        for it in st.group:
+        for idx, it in enumerate(st.group):
             sl = slice(off, off + it.n)
             off += it.n
             keys = it.output_keys or tuple(host)
@@ -1923,6 +2245,14 @@ class DynamicBatcher:
                 timeline.append((it.enqueue_t, st.collected_t, rb.stage_t, rb.issue_t,
                                  rb.ready_t, time.perf_counter()))
             try:
-                it.future.set_result(result)
+                if idx in screened:
+                    it.future.set_exception(IntegrityScreenError(
+                        f"readback screen failed this request's rows: {screened[idx]}"))
+                else:
+                    it.future.set_result(result)
             except InvalidStateError:
                 pass  # the waiter gave up (deadline) meanwhile
+        if integ is not None:
+            # After delivery: the tripped requests already failed; a burst
+            # past the window's threshold marks the replica suspect.
+            integ.maybe_escalate_screen(None)

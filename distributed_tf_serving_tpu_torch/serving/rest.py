@@ -28,13 +28,20 @@ package's PredictionServiceImpl:
   (`{"enabled": false}` with the plane off); `POST /cachez/flush[?model=]`
   -> drops every cached score (or one model's) in both stores,
   FAILED_PRECONDITION (500) with no store armed.
+- `GET /integrityz` -> the integrity plane's counters, suspect verdict and
+  events (`{"enabled": false}` with the plane off); `POST
+  /integrityz/audit[?batches=N]` -> the next N batches are shadowed
+  whatever shadow_fraction says (404 with the plane off).
+- The overload plane: a request's lane rides the `x-dts-criticality`
+  header; a refusal answers 429 with `Retry-After` (whole seconds, rounded
+  up) and `retry-after-ms`; an answer served stale carries
+  `X-DTS-Degraded`.
 - The planes that are not ported yet answer what the JAX gateway answers
   with that plane off: `{"enabled": false}` from `/utilz`,
   `/qualityz`, `/lifecyclez`, `/fleetz`, `/recoveryz`, `/meshz`,
-  `/cascadez`, `/integrityz`; 404 from `/lifecyclez/rollback` and
-  `/integrityz/audit`; FAILED_PRECONDITION (500) from
-  `/qualityz/snapshot` and `/labelz`. `/profilez` is not served (it belongs
-  to the utilization plane).
+  `/cascadez`; 404 from `/lifecyclez/rollback`; FAILED_PRECONDITION (500)
+  from `/qualityz/snapshot` and `/labelz`. `/profilez` is not served (it
+  belongs to the utilization plane).
 
 A request becomes the same PredictRequest (or Classification /
 RegressionRequest) the gRPC path parses and is handed to the impl's
@@ -61,6 +68,7 @@ from ..proto import tf_framework_pb2 as fw
 from ..utils import tracing
 from ..utils.metrics import ServerMetrics
 from ..utils.tracing import request_trace
+from . import overload as overload_mod
 from .service import PredictionServiceImpl, ServiceError, _wrap_lookup
 
 log = logging.getLogger("dts_torch.rest")
@@ -77,8 +85,33 @@ _HTTP_STATUS = {
 _OFF = {"enabled": False}
 
 
-def _json_error(code: str, message: str) -> web.Response:
-    return web.json_response({"error": message}, status=_HTTP_STATUS.get(code, 500))
+def _json_error(code: str, message: str, retry_after_ms: int | None = None) -> web.Response:
+    resp = web.json_response({"error": message}, status=_HTTP_STATUS.get(code, 500))
+    if retry_after_ms:
+        # Overload pushback: the standard header in whole seconds (rounded
+        # up: a 25 ms hint must not read as "now") and the precise hint.
+        resp.headers["Retry-After"] = str(max((retry_after_ms + 999) // 1000, 1))
+        resp.headers[overload_mod.RETRY_AFTER_KEY] = str(int(retry_after_ms))
+    return resp
+
+
+def _criticality_of(request: web.Request) -> str | None:
+    """The request's lane from the x-dts-criticality header, read only
+    while an overload controller is armed."""
+    if not overload_mod.active():
+        return None
+    value = request.headers.get(overload_mod.CRITICALITY_KEY)
+    return overload_mod.normalize_criticality(value) if value else None
+
+
+def _mark_degraded(resp: web.Response) -> web.Response:
+    """An answer served stale carries X-DTS-Degraded (the gRPC trailing
+    mark's twin; the contextvar is the handler task's own)."""
+    if overload_mod.active():
+        degraded = overload_mod.consume_degraded()
+        if degraded:
+            resp.headers[overload_mod.DEGRADED_KEY] = degraded
+    return resp
 
 
 def _dumps(obj) -> str:
@@ -127,8 +160,8 @@ class RestGateway:
             web.get("/recoveryz", self.plane_off),
             web.get("/meshz", self.plane_off),
             web.get("/cascadez", self.plane_off),
-            web.get("/integrityz", self.plane_off),
-            web.post("/integrityz/audit", self.plane_not_found),
+            web.get("/integrityz", self.integrityz),
+            web.post("/integrityz/audit", self.integrityz_audit),
         ]
         self.app.add_routes(routes)
 
@@ -209,6 +242,10 @@ class RestGateway:
 
     async def _observed(self, name: str, handler, request) -> web.Response:
         t0 = time.perf_counter()
+        if overload_mod.active():
+            # aiohttp reuses one task per keep-alive connection: drop a mark
+            # a failed earlier request left (marks are consumed on success).
+            overload_mod.consume_degraded()
         model = request.match_info.get("model")
         if tracing.enabled():
             # The REST surface's root span adopts the caller's trace through
@@ -273,7 +310,7 @@ class RestGateway:
             req.model_spec.signature_name = signature_name
             for key, arr in arrays.items():
                 codec.from_ndarray(arr, use_tensor_content=True, out=req.inputs[key])
-            resp = await self.impl.predict_async(req)
+            resp = await self.impl.predict_async(req, criticality=_criticality_of(request))
             outputs = {k: codec.to_ndarray(v).tolist() for k, v in resp.outputs.items()}
             if row_format:
                 names = list(outputs)
@@ -282,12 +319,12 @@ class RestGateway:
                 else:
                     n = len(next(iter(outputs.values())))
                     predictions = [{k: outputs[k][i] for k in names} for i in range(n)]
-                return web.json_response({"predictions": predictions})
+                return _mark_degraded(web.json_response({"predictions": predictions}))
             if len(outputs) == 1:
-                return web.json_response({"outputs": next(iter(outputs.values()))})
-            return web.json_response({"outputs": outputs})
+                return _mark_degraded(web.json_response({"outputs": next(iter(outputs.values()))}))
+            return _mark_degraded(web.json_response({"outputs": outputs}))
         except ServiceError as e:
-            return _json_error(e.code, str(e))
+            return _json_error(e.code, str(e), retry_after_ms=e.retry_after_ms)
         except Exception as e:  # noqa: BLE001 — surface as 500, keep serving
             log.exception("internal error serving REST predict")
             return _json_error("INTERNAL", f"internal error: {e}")
@@ -370,7 +407,7 @@ class RestGateway:
             if kind == "classify":
                 req = apis.ClassificationRequest()
                 self._build_example_request(request, req, body)
-                resp = await self.impl.classify_async(req)
+                resp = await self.impl.classify_async(req, criticality=_criticality_of(request))
                 # TF-Serving's REST shape: per example its [[label, score],
                 # ...] list, in order.
                 results = [
@@ -380,11 +417,11 @@ class RestGateway:
             else:
                 req = apis.RegressionRequest()
                 self._build_example_request(request, req, body)
-                resp = await self.impl.regress_async(req)
+                resp = await self.impl.regress_async(req, criticality=_criticality_of(request))
                 results = [r.value for r in resp.result.regressions]
-            return web.json_response({"results": results})
+            return _mark_degraded(web.json_response({"results": results}))
         except ServiceError as e:
-            return _json_error(e.code, str(e))
+            return _json_error(e.code, str(e), retry_after_ms=e.retry_after_ms)
         except Exception as e:  # noqa: BLE001 — surface as 500, keep serving
             log.exception("internal error serving REST %s", kind)
             return _json_error("INTERNAL", f"internal error: {e}")
@@ -405,8 +442,10 @@ class RestGateway:
                 self.impl.batcher.stats,
                 cache=self.impl.cache_stats(),
                 row_cache=self.impl.row_cache_stats(),
+                overload=self.impl.overload_stats(),
                 pipeline=self.impl.pipeline_stats(),
                 kernels=self.impl.kernels_stats(),
+                integrity=self.impl.integrity_stats(),
             ).encode("utf-8"),
             headers={"Content-Type": "text/plain; version=0.0.4; charset=utf-8"},
         )
@@ -513,6 +552,29 @@ class RestGateway:
     async def plane_not_found(self, request: web.Request) -> web.Response:
         """A plane's operator lever with the plane off: 404."""
         return web.json_response(_OFF, status=404)
+
+    async def integrityz(self, request: web.Request) -> web.Response:
+        """GET /integrityz: wire verify / reject counters, screen trips,
+        shadow batches / mismatches / audits, the suspect verdict and the
+        event history; `{"enabled": false}` with the plane off."""
+        stats = self.impl.integrity_stats()
+        return web.json_response(stats if stats is not None else _OFF)
+
+    async def integrityz_audit(self, request: web.Request) -> web.Response:
+        """POST /integrityz/audit[?batches=N]: the next N batches (default
+        1) are shadowed and compared whatever shadow_fraction says. 404 with
+        the plane off."""
+        integ = self.impl.integrity
+        if integ is None:
+            return web.json_response(_OFF, status=404)
+        try:
+            batches = int(request.query.get("batches", "1"))
+        except ValueError:
+            return _json_error("INVALID_ARGUMENT", "batches must be an integer")
+        if batches < 1:
+            return _json_error("INVALID_ARGUMENT", "batches must be >= 1")
+        pending = integ.request_audit(batches)
+        return web.json_response({"requested": batches, "pending_audits": pending})
 
     async def cachez(self, request: web.Request) -> web.Response:
         """GET /cachez: the score cache's aggregate and per-model counters,

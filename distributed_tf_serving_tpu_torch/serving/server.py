@@ -8,6 +8,13 @@ both surfaces is observed into one ServerMetrics (utils/metrics.py); with
 `--tracing` (or `[observability] tracing = true`) each opens a
 `server.<RPC>` root span from the caller's `traceparent`.
 
+With `[overload] enabled` (serving/overload.py) each inference RPC reads
+its lane from `x-dts-criticality`, a refusal carries `retry-after-ms` and a
+stale answer `x-dts-degraded` in the trailing metadata; with `[integrity]
+enabled` (serving/integrity.py) Predict verifies `x-dts-input-crc` and
+stamps `x-dts-score-crc`. Both sections arm the plane on the CLI, in
+build_stack, and so on either server.
+
 `create_server` builds the threaded server (a handler thread per RPC);
 `create_server_async` the coroutine one (grpc.aio: one event-loop thread
 carries every RPC and awaits the batcher's futures), with the same
@@ -80,12 +87,15 @@ from ..proto.service_grpc import (
     PredictionServiceServicer,
 )
 from ..utils import tracing
+from .. import codec, native
 from ..utils.config import (
     DRAIN_GRACE_S,
     BatchingConfig,
     CacheConfig,
+    IntegrityConfig,
     KernelsConfig,
     ObservabilityConfig,
+    OverloadConfig,
     ServerConfig,
     TransportConfig,
     apply_batching_parameters,
@@ -94,6 +104,7 @@ from ..utils.config import (
 )
 from ..utils.metrics import ServerMetrics
 from ..utils.tracing import request_trace
+from . import overload as overload_mod
 from .batcher import DynamicBatcher
 from .service import PredictionServiceImpl, ServiceError
 
@@ -181,6 +192,65 @@ def _stream_chunk_of(context) -> int | None:
     return None
 
 
+def _criticality_of(context) -> str | None:
+    """The request's lane (x-dts-criticality), read only while an overload
+    controller is armed in this process (one module bool read otherwise)."""
+    if not overload_mod.active():
+        return None
+    try:
+        for key, value in context.invocation_metadata() or ():
+            if key == overload_mod.CRITICALITY_KEY:
+                return overload_mod.normalize_criticality(value)
+    except Exception:  # noqa: BLE001 — a metadata quirk must not fail the RPC
+        return None
+    return None
+
+
+def _input_crc_of(context, impl) -> str | None:
+    """The request's x-dts-input-crc stamp, read only while the impl's
+    integrity plane checks the wire."""
+    integ = impl.integrity
+    if integ is None or not integ.config.wire_checksums:
+        return None
+    try:
+        for key, value in context.invocation_metadata() or ():
+            if key == codec.CRC_INPUT_MD:
+                return str(value)
+    except Exception:  # noqa: BLE001 — a metadata quirk must not fail the RPC
+        return None
+    return None
+
+
+def _stamp_response_crc(impl, context, resp) -> None:
+    """The x-dts-score-crc trailing metadata over the encoded response,
+    both transports. Advisory: a failed stamp never fails a good response,
+    and the overload plane's metadata, set later on the same context, takes
+    the slot (a client reads an absent stamp as an unverified server)."""
+    try:
+        sidecar = impl.response_crc_sidecar(resp)
+        if sidecar:
+            context.set_trailing_metadata(((codec.CRC_SCORE_MD, sidecar),))
+    except Exception:  # noqa: BLE001 — advisory, never fatal
+        pass
+
+
+def _push_overload_metadata(context, exc: ServiceError | None) -> None:
+    """The overload plane's trailing metadata, both transports: the
+    retry-after-ms hint on a refusal, the degraded mark on a success that
+    was served stale (exc None). Callers gate on overload.active()."""
+    try:
+        if exc is not None:
+            ra = getattr(exc, "retry_after_ms", None)
+            if ra:
+                context.set_trailing_metadata(((overload_mod.RETRY_AFTER_KEY, str(int(ra))),))
+        else:
+            degraded = overload_mod.consume_degraded()
+            if degraded:
+                context.set_trailing_metadata(((overload_mod.DEGRADED_KEY, degraded),))
+    except Exception:  # noqa: BLE001 — hints are advisory, never fatal
+        pass
+
+
 class TransportQuiesce:
     """Holds the RPCs that arrive in the last moments before the transport
     stops, so that none is on the wire when it does.
@@ -258,6 +328,11 @@ class _ServicerBase:
         t0 = time.perf_counter()
         ok = False
         model = _model_of(request)
+        overload_on = overload_mod.active()
+        if overload_on:
+            # A handler thread keeps its context: drop a mark a failed
+            # earlier request left (marks are consumed on success only).
+            overload_mod.consume_degraded()
         span_ctx = _root_span(name, model, context)
         try:
             if span_ctx is not None:
@@ -266,8 +341,12 @@ class _ServicerBase:
             else:
                 resp = fn(request)
             ok = True
+            if overload_on:
+                _push_overload_metadata(context, None)
             return resp
         except ServiceError as e:
+            if overload_on:
+                _push_overload_metadata(context, e)
             context.abort(_status(e.code), str(e))
         except Exception as e:  # internal bug: surface as INTERNAL, keep serving
             log.exception("internal error serving %s", name)
@@ -284,6 +363,9 @@ class _ServicerBase:
         t0 = time.perf_counter()
         ok = False
         model = _model_of(request)
+        overload_on = overload_mod.active()
+        if overload_on:
+            overload_mod.consume_degraded()
         span_ctx = _root_span(name, model, context)
         try:
             if span_ctx is not None:
@@ -292,7 +374,11 @@ class _ServicerBase:
             else:
                 yield from fn(request)
             ok = True
+            if overload_on:
+                _push_overload_metadata(context, None)
         except ServiceError as e:
+            if overload_on:
+                _push_overload_metadata(context, e)
             context.abort(_status(e.code), str(e))
         except Exception as e:  # internal bug: surface as INTERNAL, keep serving
             log.exception("internal error serving %s", name)
@@ -307,20 +393,32 @@ class GrpcPredictionService(_ServicerBase, PredictionServiceServicer):
 
     def _unary(self, name: str, fn, request, context):
         deadline_s = _deadline_of(context)
-        return self._call(name, lambda req: fn(req, deadline_s=deadline_s), request, context)
+        crit = _criticality_of(context)
+        return self._call(name, lambda req: fn(req, deadline_s=deadline_s, criticality=crit),
+                          request, context)
 
     def Predict(self, request, context):
         deadline_s = _deadline_of(context)
         # The metadata is read only on a server whose plane armed the wire.
         int8_wire = self.impl.int8_score_wire and _score_wire_of(context)
-        return self._call("Predict", lambda req: self.impl.predict(
-            req, deadline_s=deadline_s, int8_wire=int8_wire), request, context)
+        crit = _criticality_of(context)
+        input_crc = _input_crc_of(context, self.impl)
+
+        def handler(req):
+            resp = self.impl.predict(req, deadline_s=deadline_s, int8_wire=int8_wire,
+                                     criticality=crit, input_crc=input_crc)
+            if self.impl.integrity is not None:
+                _stamp_response_crc(self.impl, context, resp)
+            return resp
+
+        return self._call("Predict", handler, request, context)
 
     def PredictStream(self, request, context):
         deadline_s = _deadline_of(context)
         chunk = _stream_chunk_of(context)
+        crit = _criticality_of(context)
         return self._call_stream("PredictStream", lambda req: self.impl.predict_stream(
-            req, deadline_s=deadline_s, chunk=chunk), request, context)
+            req, deadline_s=deadline_s, chunk=chunk, criticality=crit), request, context)
 
     def Classify(self, request, context):
         return self._unary("Classify", self.impl.classify, request, context)
@@ -377,6 +475,9 @@ class _AioServicerBase:
         t0 = time.perf_counter()
         ok = False
         model = _model_of(request)
+        overload_on = overload_mod.active()
+        if overload_on:
+            overload_mod.consume_degraded()
         span_ctx = await _aio_root_span(name, model, context)
         try:
             # A sync `with` is right across the awaits: contextvars are
@@ -386,8 +487,12 @@ class _AioServicerBase:
                 if inspect.isawaitable(resp):
                     resp = await resp
             ok = True
+            if overload_on:
+                _push_overload_metadata(context, None)
             return resp
         except ServiceError as e:
+            if overload_on:
+                _push_overload_metadata(context, e)
             await context.abort(_status(e.code), str(e))
         except grpc.aio.AbortError:
             raise
@@ -423,30 +528,58 @@ class AioGrpcPredictionService(_AioServicerBase):
     async def Predict(self, request, context):
         deadline_s = _deadline_of(context)
         int8_wire = self.impl.int8_score_wire and _score_wire_of(context)
-        return await self._call("Predict", lambda req: self.impl.predict_async(
-            req, deadline_s=deadline_s, int8_wire=int8_wire), request, context)
+        crit = _criticality_of(context)
+        input_crc = _input_crc_of(context, self.impl)
+
+        async def handler(req):
+            resp = await self.impl.predict_async(req, deadline_s=deadline_s, int8_wire=int8_wire,
+                                                 criticality=crit, input_crc=input_crc)
+            if self.impl.integrity is not None:
+                _stamp_response_crc(self.impl, context, resp)
+            return resp
+
+        return await self._call("Predict", handler, request, context)
 
     async def Classify(self, request, context):
         deadline_s = _deadline_of(context)
+        crit = _criticality_of(context)
         return await self._call("Classify", lambda req: self.impl.classify_async(
-            req, deadline_s=deadline_s), request, context)
+            req, deadline_s=deadline_s, criticality=crit), request, context)
 
     async def Regress(self, request, context):
         deadline_s = _deadline_of(context)
+        crit = _criticality_of(context)
         return await self._call("Regress", lambda req: self.impl.regress_async(
-            req, deadline_s=deadline_s), request, context)
+            req, deadline_s=deadline_s, criticality=crit), request, context)
 
     async def MultiInference(self, request, context):
         deadline_s = _deadline_of(context)
+        crit = _criticality_of(context)
         entry_t = time.perf_counter()
 
         def run(req):
+            overload_on = overload_mod.active()
+            if overload_on:
+                # Executor threads keep their context: drop a failed
+                # earlier request's mark.
+                overload_mod.consume_degraded()
             # The budget left when the executor starts it: time queued
             # behind other executor work is the client's.
             left = None if deadline_s is None else deadline_s - (time.perf_counter() - entry_t)
-            return self.impl.multi_inference(req, deadline_s=left)
+            resp = self.impl.multi_inference(req, deadline_s=left, criticality=crit)
+            # run_in_executor carries no contextvar back: a stale serve's
+            # mark rides the return value.
+            return resp, (overload_mod.consume_degraded() if overload_on else None)
 
-        return await self._call("MultiInference", self._off_loop(run), request, context)
+        off_loop = self._off_loop(run)
+
+        async def dispatch(req):
+            resp, degraded = await off_loop(req)
+            if degraded:
+                overload_mod.mark_degraded(degraded)
+            return resp
+
+        return await self._call("MultiInference", dispatch, request, context)
 
     async def GetModelMetadata(self, request, context):
         return await self._call("GetModelMetadata", self.impl.get_model_metadata, request,
@@ -459,16 +592,24 @@ class AioGrpcPredictionService(_AioServicerBase):
         t0 = time.perf_counter()
         ok = False
         model = _model_of(request)
+        overload_on = overload_mod.active()
+        if overload_on:
+            overload_mod.consume_degraded()
         deadline_s = _deadline_of(context)
         chunk = _stream_chunk_of(context)
+        crit = _criticality_of(context)
         span_ctx = await _aio_root_span("PredictStream", model, context)
         try:
             with span_ctx if span_ctx is not None else contextlib.nullcontext():
                 async for item in self.impl.predict_stream_async(
-                        request, deadline_s=deadline_s, chunk=chunk):
+                        request, deadline_s=deadline_s, chunk=chunk, criticality=crit):
                     yield item
             ok = True
+            if overload_on:
+                _push_overload_metadata(context, None)
         except ServiceError as e:
+            if overload_on:
+                _push_overload_metadata(context, e)
             await context.abort(_status(e.code), str(e))
         except grpc.aio.AbortError:
             raise
@@ -977,7 +1118,9 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                 checkpoint=None, model_base_path=None,
                 batching_config: BatchingConfig | None = None,
                 transport_config: TransportConfig | None = None,
-                cache_config: CacheConfig | None = None):
+                cache_config: CacheConfig | None = None,
+                overload_config: OverloadConfig | None = None,
+                integrity_config: IntegrityConfig | None = None):
     """(impl, batcher, servable): the servable serving at start, warmed
     through every bucket (unless `cfg.warmup` is off), and a started
     batcher. The servable is the numpy-seeded demo (`seed`), the checkpoint
@@ -1009,8 +1152,14 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     on the service's encode arenas. An enabled `cache_config` arms the
     cache plane: the score cache, the row cache with `row_granular`, and
     dedup with `dedup`; every version watcher invalidates the stores at a
-    version change. The source options are checked, and a model config
-    file parsed, before any thread starts."""
+    version change. An enabled `overload_config` hands the batcher an
+    AdmissionController (serving/overload.py); an enabled
+    `integrity_config` attaches one IntegrityPlane to the batcher and the
+    impl (serving/integrity.py). A shadow_fraction above 0 beside an
+    enabled score cache is refused (cache hits would never be
+    re-checked), and on the card the wire checksums need the native host
+    ops. The source options are checked, and a model config file parsed,
+    before any thread starts."""
     if checkpoint and model_base_path:
         raise ValueError(
             "--model-base-path is mutually exclusive with --checkpoint "
@@ -1027,6 +1176,28 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                 "--model-config-file; put per-model version_labels maps in the config "
                 "file's model entries instead")
         model_configs = _parse_model_server_config(cfg.model_config_file)
+    integrity_armed = integrity_config is not None and integrity_config.enabled
+    if (integrity_armed and integrity_config.shadow_fraction > 0
+            and cache_config is not None and cache_config.enabled):
+        # The JAX package's refusal: a cache hit re-serves score bytes
+        # without re-execution, so sampled shadowing could never re-check
+        # it.
+        raise ValueError(
+            "[integrity] shadow_fraction > 0 conflicts with [cache] "
+            "enabled: exact-match cache hits re-serve cached score bytes "
+            "without re-execution, so sampled shadow verification can "
+            "never re-check them — the zero-corrupt-delivery guarantee "
+            "would silently exclude every cache hit. Disable the score "
+            "cache or set shadow_fraction = 0 (wire checksums and "
+            "readback screens still compose with the cache)"
+        )
+    if (integrity_armed and integrity_config.wire_checksums
+            and resolve_device(device).type == "cuda" and not native.ensure()):
+        # Checksumming a 2048-row request by the table loop takes about a
+        # second of host time per RPC.
+        raise RuntimeError(
+            "[integrity] wire_checksums needs the native host-ops library "
+            "(native/hostops.cc dts_crc32c), which could not be built with g++")
     bc = batching_config or BatchingConfig()
     if bc.inflight_window or bc.buffer_ring:
         log.info("batching pipeline: depth=%d inflight_window=%s buffer_ring=%s",
@@ -1043,6 +1214,13 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                  "coalesce=%s — only cold rows execute; `row_cache` block in /cachez and "
                  "/monitoring", cc.row_max_entries, cc.row_max_bytes, cc.row_ttl_s,
                  cc.row_coalesce)
+    overload = overload_config.build() if overload_config is not None else None
+    if overload is not None:
+        log.info("adaptive overload control on: target_queue_wait_ms=%.1f brownout_after=%d "
+                 "shed_after=%d stale_while_overloaded_s=%.1f — `overload` block in "
+                 "/monitoring", overload_config.target_queue_wait_ms,
+                 overload_config.brownout_after_intervals, overload_config.shed_after_intervals,
+                 overload_config.stale_while_overloaded_s)
     batcher = DynamicBatcher(
         buckets=cfg.buckets, max_wait_us=cfg.max_wait_us, device=device,
         queue_capacity_candidates=cfg.queue_capacity_candidates,
@@ -1051,7 +1229,7 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
         output_top_k=cfg.output_top_k, inflight_window=bc.inflight_window,
         buffer_ring=bc.buffer_ring, score_cache=score_cache, row_cache=row_cache,
         # `enabled` is the master switch: dedup alone arms nothing.
-        dedup=cc.enabled and cc.dedup,
+        dedup=cc.enabled and cc.dedup, overload=overload,
     )
     kernels = kernels_config.build() if kernels_config is not None else None
     batcher.kernels = kernels
@@ -1063,6 +1241,17 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     if transport_config is not None and transport_config.response_arena:
         impl.response_arena = True
         log.info("response-encode arenas on ([transport] response_arena)")
+    if integrity_armed:
+        # One plane for every hook site: the batcher (shadow, screen), the
+        # impl (input verify, response stamps, /integrityz), the transports.
+        plane = integrity_config.build()
+        batcher.integrity = plane
+        impl.integrity = plane
+        log.info("data-integrity plane on: wire_checksums=%s screen=%s shadow_fraction=%.3f "
+                 "trips/window=%d/%.1fs — GET /integrityz on the REST surface",
+                 integrity_config.wire_checksums, integrity_config.screen,
+                 integrity_config.shadow_fraction, integrity_config.screen_trips_per_window,
+                 integrity_config.screen_window_s)
 
     def prepare_kernels(servable) -> None:
         if kernels is None or servable is None:
@@ -1157,7 +1346,8 @@ def _version_labels(raw_labels: list[str]) -> tuple[tuple[str, int], ...]:
 def serve(argv=None) -> None:
     p = argparse.ArgumentParser(description="PyTorch TF-Serving-compatible CTR server")
     p.add_argument("--config", help="TOML file with [server], [batching], [transport], "
-                   "[model] and [kernels] sections ([overload] drain_grace_s is read too)")
+                   "[model], [kernels], [observability], [cache], [overload] and [integrity] "
+                   "sections")
     p.add_argument("--port", type=int, default=None)
     p.add_argument("--host", default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -1242,6 +1432,8 @@ def serve(argv=None) -> None:
     cache_config = loaded.get("cache") or CacheConfig()
     if args.cache:
         cache_config = dataclasses.replace(cache_config, enabled=True)
+    overload_config = loaded.get("overload")
+    integrity_config = loaded.get("integrity")
     obs = loaded.get("observability") or ObservabilityConfig()
     if args.tracing:
         obs = dataclasses.replace(obs, tracing=True)
@@ -1281,7 +1473,8 @@ def serve(argv=None) -> None:
             cfg, model_config, args.device, args.seed, kernels_config=kernels_config,
             checkpoint=args.checkpoint, model_base_path=args.model_base_path,
             batching_config=batching_config, transport_config=transport_config,
-            cache_config=cache_config,
+            cache_config=cache_config, overload_config=overload_config,
+            integrity_config=integrity_config,
         )
     except BaseException:
         if request_logger is not None:

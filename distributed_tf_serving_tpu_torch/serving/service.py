@@ -14,12 +14,23 @@ root span while tracing is on); the current span rides into the batcher
 with each submit.
 
 Status codes: unknown model/version/signature -> NOT_FOUND; malformed
-tensors and signature mismatches -> INVALID_ARGUMENT; oversized batches and
-a full queue -> RESOURCE_EXHAUSTED; an expired deadline ->
-DEADLINE_EXCEEDED; an open circuit breaker (batcher.DeviceWedgedError),
-other batcher failures, and any inference RPC once the server drains for
-shutdown -> UNAVAILABLE; an injected fault (faults.py, at `decode` here or
-at a batcher site) -> the code its rule names.
+tensors, signature mismatches and an input whose bytes do not match the
+request's x-dts-input-crc stamp ("corrupt-wire") -> INVALID_ARGUMENT;
+oversized batches, a full queue and an overload-plane refusal ->
+RESOURCE_EXHAUSTED (the refusal's retry-after-ms hint rides
+ServiceError.retry_after_ms); an expired deadline -> DEADLINE_EXCEEDED; an
+open circuit breaker (batcher.DeviceWedgedError), a readback-screen failure
+(IntegrityScreenError), a shadow mismatch, other batcher failures, and any
+inference RPC once the server drains for shutdown -> UNAVAILABLE; an
+injected fault (faults.py, at `decode` here or at a batcher site) -> the
+code its rule names.
+
+The overload and integrity planes: every inference entry point takes the
+request's `criticality` lane (x-dts-criticality) into the batcher's
+admission; a result the batcher served stale leaves its degraded mark in
+the calling context (serving/overload.py), whence the transports send
+x-dts-degraded. With `integrity` armed, Predict verifies `input_crc` on the
+decoded arrays and `response_crc_sidecar` stamps the response.
 
 With `response_arena` ([transport] response_arena) the response encodes and
 the Example decoder take their scratch from a per-thread codec.EncodeArena,
@@ -36,6 +47,7 @@ import time
 import numpy as np
 
 from .. import codec, faults
+from . import overload as overload_mod
 from ..models.registry import (
     ModelNotFoundError,
     Servable,
@@ -56,16 +68,20 @@ from .batcher import (
     RequestDeadlineError,
 )
 from .example_codec import ExampleDecodeError, decode_input
+from .integrity import IntegrityScreenError
 
 SIGNATURE_DEF_FIELD = "signature_def"
 
 
 class ServiceError(Exception):
-    """Carries a grpc status code name ('NOT_FOUND', ...)."""
+    """Carries a grpc status code name ('NOT_FOUND', ...). `retry_after_ms`,
+    when set (an overload-plane refusal), is the pushback hint the
+    transports send as trailing metadata (gRPC) or Retry-After (REST)."""
 
-    def __init__(self, code: str, message: str):
+    def __init__(self, code: str, message: str, retry_after_ms: int | None = None):
         super().__init__(message)
         self.code = code
+        self.retry_after_ms = retry_after_ms
 
 
 def _wrap_lookup(fn):
@@ -127,6 +143,9 @@ class PredictionServiceImpl:
         # allocate per call.
         self.response_arena = False
         self._arenas = threading.local()
+        # The integrity plane (serving/integrity.py), shared with the
+        # batcher, or None: input CRC verify, response stamps, /integrityz.
+        self.integrity = None
 
     def _arena(self) -> codec.EncodeArena | None:
         """The calling thread's EncodeArena, or None with response_arena
@@ -138,12 +157,38 @@ class PredictionServiceImpl:
             arena = self._arenas.arena = codec.EncodeArena()
         return arena
 
-    # Overload, utilization, quality, lifecycle, recovery, cascade,
-    # integrity (ROADMAP.md Queue A item 6), fleet (item 8), mesh and
-    # elastic (item 9): refused by load_config, so always off here.
-    overload_stats = utilization_stats = staticmethod(_plane_off)
-    quality_stats = lifecycle_stats = recovery_stats = cascade_stats = staticmethod(_plane_off)
-    integrity_stats = fleet_stats = mesh_stats = elastic_stats = staticmethod(_plane_off)
+    # Utilization, quality, lifecycle, recovery, cascade (ROADMAP.md Queue
+    # A item 6), fleet (item 8), mesh and elastic (item 9): refused by
+    # load_config, so always off here.
+    utilization_stats = quality_stats = lifecycle_stats = staticmethod(_plane_off)
+    recovery_stats = cascade_stats = staticmethod(_plane_off)
+    fleet_stats = mesh_stats = elastic_stats = staticmethod(_plane_off)
+
+    def overload_stats(self) -> dict | None:
+        """The overload controller's snapshot (adaptive limit, pressure
+        state, shed / doomed / brownout counters): the /monitoring
+        `overload` block and the dts_tpu_overload_* series. None with the
+        plane off."""
+        ctrl = self.batcher.overload
+        return ctrl.snapshot() if ctrl is not None else None
+
+    def integrity_stats(self) -> dict | None:
+        """The integrity plane's snapshot (wire verify / reject counters,
+        screen trips, shadow batches / mismatches / audits, the suspect
+        verdict, events): GET /integrityz, the /monitoring `integrity` block
+        and the dts_tpu_integrity_* series. None with the plane off."""
+        integ = self.integrity
+        return integ.snapshot() if integ is not None else None
+
+    def response_crc_sidecar(self, resp) -> str | None:
+        """The x-dts-score-crc value for one encoded PredictResponse, or
+        None when the plane (or its wire layer) is off. The transports call
+        it after the handler returns: the stamp covers the tensors on the
+        wire."""
+        integ = self.integrity
+        if integ is None or not integ.config.wire_checksums:
+            return None
+        return integ.response_sidecar(resp.outputs)
 
     def cache_stats(self) -> dict | None:
         """The score cache's snapshot (per-model hit / miss / coalesced /
@@ -367,8 +412,11 @@ class PredictionServiceImpl:
         streamed Predicts alike. Re-raises anything that is not a batcher
         failure (the transport answers INTERNAL)."""
         if isinstance(exc, (BatchTooLargeError, QueueOverloadError)):
-            return ServiceError("RESOURCE_EXHAUSTED", str(exc))
-        if isinstance(exc, DeviceWedgedError):
+            # An overload-plane refusal carries its retry-after-ms hint.
+            return ServiceError("RESOURCE_EXHAUSTED", str(exc),
+                                retry_after_ms=getattr(exc, "retry_after_ms", None))
+        if isinstance(exc, (DeviceWedgedError, IntegrityScreenError)):
+            # A screen failure is this request's alone: retryable elsewhere.
             return ServiceError("UNAVAILABLE", str(exc))
         if isinstance(exc, RequestDeadlineError):
             # The batcher shed the queued item itself: nothing to withdraw.
@@ -387,42 +435,63 @@ class PredictionServiceImpl:
         raise exc
 
     @staticmethod
-    def _span_kw() -> dict:
-        """The current span (the transport's root span) for a submit, so
-        the batcher's threads attach the batch phases to it; nothing while
-        tracing is off."""
-        return {"span": tracing.current_span()} if tracing.enabled() else {}
+    def _submit_kw(criticality: str | None = None) -> dict:
+        """A submit's optional arguments: the current span (the transport's
+        root span) while tracing is on, so the batcher's threads attach the
+        batch phases to it, and the request's lane when it has one."""
+        kw = {"span": tracing.current_span()} if tracing.enabled() else {}
+        if criticality is not None:
+            kw["criticality"] = criticality
+        return kw
 
     def _run(self, servable: Servable, arrays: dict[str, np.ndarray],
-             output_keys: tuple[str, ...] | None, deadline_s: float | None) -> dict[str, np.ndarray]:
+             output_keys: tuple[str, ...] | None, deadline_s: float | None,
+             criticality: str | None = None) -> dict[str, np.ndarray]:
         timeout = self._effective_timeout(deadline_s)
         fut = None
         try:
             fut = self.batcher.submit(servable, arrays, output_keys=output_keys,
-                                      deadline_s=deadline_s, **self._span_kw())
-            return fut.result(timeout=timeout)
+                                      deadline_s=deadline_s, **self._submit_kw(criticality))
+            out = fut.result(timeout=timeout)
+            self._consume_future_degraded(fut)
+            return out
         except Exception as e:  # noqa: BLE001 — the translator re-raises the rest
             raise self._translate_batcher_error(e, fut) from e
 
     async def _run_async(self, servable: Servable, arrays: dict[str, np.ndarray],
                          output_keys: tuple[str, ...] | None,
-                         deadline_s: float | None) -> dict[str, np.ndarray]:
+                         deadline_s: float | None,
+                         criticality: str | None = None) -> dict[str, np.ndarray]:
         """_run for coroutine callers (the REST gateway): the batcher's
         Future is awaited, under the same timeout, instead of blocked on."""
         timeout = self._effective_timeout(deadline_s)
         fut = None
         try:
             fut = self.batcher.submit(servable, arrays, output_keys=output_keys,
-                                      deadline_s=deadline_s, **self._span_kw())
+                                      deadline_s=deadline_s, **self._submit_kw(criticality))
             # wait_for's TimeoutError is concurrent.futures.TimeoutError.
-            return await asyncio.wait_for(asyncio.wrap_future(fut), timeout=timeout)
+            out = await asyncio.wait_for(asyncio.wrap_future(fut), timeout=timeout)
+            self._consume_future_degraded(fut)
+            return out
         except Exception as e:  # noqa: BLE001 — the translator re-raises the rest
             raise self._translate_batcher_error(e, fut) from e
 
-    def _predict_prepare(self, request: apis.PredictRequest):
+    @staticmethod
+    def _consume_future_degraded(fut) -> None:
+        """A row-tier stale serve marks the future (the batcher's threads
+        cannot reach this request's context): forward the mark into the
+        calling context, whence the transports send it. One getattr per
+        request when nothing is marked."""
+        degraded = getattr(fut, "dts_degraded", None)
+        if degraded is not None:
+            overload_mod.mark_degraded(degraded)
+
+    def _predict_prepare(self, request: apis.PredictRequest, input_crc: str | None = None):
         """The front half of Predict and PredictStream: resolution, method
         check, decode and validation, output_filter. Returns (servable,
-        arrays, out_names, fetch_keys)."""
+        arrays, out_names, fetch_keys). `input_crc` (the request's
+        x-dts-input-crc) is verified on the decoded arrays, before any fold
+        or cast, so a damaged request fails alone, before the batcher."""
         servable, signature = self._resolve(request.model_spec)
         if signature.method_name != "tensorflow/serving/predict":
             raise ServiceError(
@@ -436,6 +505,16 @@ class PredictionServiceImpl:
             except faults.InjectedFaultError as e:
                 raise ServiceError(e.code_name, str(e)) from e
             arrays = self._decode_and_validate(servable, signature, request.inputs)
+            integ = self.integrity
+            if input_crc is not None and integ is not None and integ.config.wire_checksums:
+                bad = integ.verify_inputs(arrays, input_crc)
+                if bad:
+                    raise ServiceError(
+                        "INVALID_ARGUMENT",
+                        "corrupt-wire: input tensor bytes do not match the request's "
+                        f"x-dts-input-crc stamp on {bad} — the payload was damaged in "
+                        "transit; resend",
+                    )
         sig_outputs = signature.output_names
         if request.output_filter:
             missing = [k for k in request.output_filter if k not in sig_outputs]
@@ -477,15 +556,17 @@ class PredictionServiceImpl:
                                out=dest[name], arena=arena)
 
     def predict(self, request: apis.PredictRequest, deadline_s: float | None = None,
-                int8_wire: bool = False) -> apis.PredictResponse:
+                int8_wire: bool = False, criticality: str | None = None,
+                input_crc: str | None = None) -> apis.PredictResponse:
         """Unary Predict. int8_wire (the client opted in and this server's
         kernels plane armed the wire) sends a float32 score output as
         DT_INT8 plus its `/q8_scale` and `/q8_min` sidecar outputs."""
         self._refuse_if_draining()
         deadline_t = self._clock_deadline(deadline_s)
-        servable, arrays, out_names, fetch_keys = self._predict_prepare(request)
+        servable, arrays, out_names, fetch_keys = self._predict_prepare(request, input_crc)
         with request_trace.span("predict.execute"):
-            outputs = self._run(servable, arrays, fetch_keys, self._budget_left(deadline_t))
+            outputs = self._run(servable, arrays, fetch_keys, self._budget_left(deadline_t),
+                                criticality)
         resp = self._predict_finish(request, servable, out_names, outputs, int8_wire)
         # Only a request that succeeded is logged: the log is a warmup file,
         # and a malformed request must never fail a later version's load.
@@ -494,15 +575,16 @@ class PredictionServiceImpl:
 
     async def predict_async(self, request: apis.PredictRequest,
                             deadline_s: float | None = None,
-                            int8_wire: bool = False) -> apis.PredictResponse:
+                            int8_wire: bool = False, criticality: str | None = None,
+                            input_crc: str | None = None) -> apis.PredictResponse:
         """Predict for coroutine callers: the same semantics, awaiting the
         batch instead of blocking a thread on it."""
         self._refuse_if_draining()
         deadline_t = self._clock_deadline(deadline_s)
-        servable, arrays, out_names, fetch_keys = self._predict_prepare(request)
+        servable, arrays, out_names, fetch_keys = self._predict_prepare(request, input_crc)
         with request_trace.span("predict.execute"):
             outputs = await self._run_async(servable, arrays, fetch_keys,
-                                            self._budget_left(deadline_t))
+                                            self._budget_left(deadline_t), criticality)
         resp = self._predict_finish(request, servable, out_names, outputs, int8_wire)
         self._log_request("predict", request)
         return resp
@@ -544,7 +626,7 @@ class PredictionServiceImpl:
         chunk_n = max(chunk_n, -(-n // self._STREAM_MAX_CHUNKS))
         return [(off, min(chunk_n, n - off)) for off in range(0, n, chunk_n)]
 
-    def _stream_submit(self, request, deadline_t, chunk):
+    def _stream_submit(self, request, deadline_t, chunk, criticality=None):
         """Resolve, decode, split, and submit every sub-batch up front, so
         they ride the batcher's pipeline independently. Returns (servable,
         out_names, mirror, total, {future: (offset, count)}). A submit that
@@ -561,7 +643,7 @@ class PredictionServiceImpl:
                 sub = {k: v[off:off + cnt] for k, v in arrays.items()}
                 fut = self.batcher.submit(servable, sub, output_keys=fetch_keys,
                                           deadline_s=self._budget_left(deadline_t),
-                                          _solo=solo, **self._span_kw())
+                                          _solo=solo, **self._submit_kw(criticality))
                 futs[fut] = (off, cnt)
         except Exception as e:  # noqa: BLE001 — the translator re-raises the rest
             for f in futs:
@@ -594,7 +676,7 @@ class PredictionServiceImpl:
         return chunk
 
     def predict_stream(self, request: apis.PredictRequest, deadline_s: float | None = None,
-                       chunk: int | None = None):
+                       chunk: int | None = None, criticality: str | None = None):
         """Server-streaming Predict: a generator of PredictStreamChunk. The
         request is split into sub-batches (_stream_plan) that ride the
         batcher independently, and each chunk is yielded as its readback
@@ -602,11 +684,13 @@ class PredictionServiceImpl:
         exactly one is `final`). Unary Predict's resolution, validation,
         encode and status codes otherwise: a failed sub-batch cancels its
         siblings and aborts the stream with the translated status; a
-        deadline that runs out mid-stream aborts with DEADLINE_EXCEEDED."""
+        deadline that runs out mid-stream aborts with DEADLINE_EXCEEDED. A
+        sub-batch served stale marks the whole stream degraded."""
         self._refuse_if_draining()
         deadline_t = self._clock_deadline(deadline_s)
         give_up_t = time.perf_counter() + self._effective_timeout(deadline_s)
-        servable, out_names, mirror, total, futs = self._stream_submit(request, deadline_t, chunk)
+        servable, out_names, mirror, total, futs = self._stream_submit(request, deadline_t, chunk,
+                                                                       criticality)
         reuse = apis.PredictStreamChunk() if self.response_arena else None
         pending = set(futs)
         emitted = 0
@@ -626,6 +710,7 @@ class PredictionServiceImpl:
                         outputs = fut.result()
                     except Exception as e:  # noqa: BLE001 — the translator re-raises the rest
                         raise self._translate_batcher_error(e, fut) from e
+                    self._consume_future_degraded(fut)
                     off, cnt = futs[fut]
                     emitted += 1
                     yield self._encode_stream_chunk(
@@ -639,7 +724,8 @@ class PredictionServiceImpl:
         self._log_request("predict", request)
 
     async def predict_stream_async(self, request: apis.PredictRequest,
-                                   deadline_s: float | None = None, chunk: int | None = None):
+                                   deadline_s: float | None = None, chunk: int | None = None,
+                                   criticality: str | None = None):
         """predict_stream for coroutine servers: an async generator that
         awaits each sub-batch's completion instead of blocking a thread
         between chunks. The same split, encode, status codes and
@@ -647,7 +733,8 @@ class PredictionServiceImpl:
         self._refuse_if_draining()
         deadline_t = self._clock_deadline(deadline_s)
         give_up_t = time.perf_counter() + self._effective_timeout(deadline_s)
-        servable, out_names, mirror, total, futs = self._stream_submit(request, deadline_t, chunk)
+        servable, out_names, mirror, total, futs = self._stream_submit(request, deadline_t, chunk,
+                                                                       criticality)
         reuse = apis.PredictStreamChunk() if self.response_arena else None
         wrapped = {asyncio.wrap_future(f): f for f in futs}
         pending = set(wrapped)
@@ -668,6 +755,7 @@ class PredictionServiceImpl:
                         outputs = task.result()
                     except Exception as e:  # noqa: BLE001 — the translator re-raises the rest
                         raise self._translate_batcher_error(e, wrapped[task]) from e
+                    self._consume_future_degraded(wrapped[task])
                     off, cnt = futs[wrapped[task]]
                     emitted += 1
                     yield self._encode_stream_chunk(
@@ -693,43 +781,46 @@ class PredictionServiceImpl:
             raise ServiceError("INVALID_ARGUMENT", str(e)) from e
         return servable, arrays
 
-    def _run_examples(self, request, deadline_s: float | None = None):
+    def _run_examples(self, request, deadline_s: float | None = None,
+                      criticality: str | None = None):
         """Shared front half of Classify/Regress: resolution, Example
         decode and the batcher run. Returns (servable, outputs)."""
         deadline_t = self._clock_deadline(deadline_s)
         servable, arrays = self._examples_prepare(request)
         outputs = self._run(servable, arrays, (servable.model.score_output,),
-                            self._budget_left(deadline_t))
+                            self._budget_left(deadline_t), criticality)
         return servable, outputs
 
-    async def _run_examples_async(self, request, deadline_s: float | None = None):
+    async def _run_examples_async(self, request, deadline_s: float | None = None,
+                                  criticality: str | None = None):
         """_run_examples for coroutine callers (the REST gateway's
         :classify and :regress)."""
         deadline_t = self._clock_deadline(deadline_s)
         servable, arrays = self._examples_prepare(request)
         outputs = await self._run_async(servable, arrays, (servable.model.score_output,),
-                                        self._budget_left(deadline_t))
+                                        self._budget_left(deadline_t), criticality)
         return servable, outputs
 
-    def classify(self, request: apis.ClassificationRequest,
-                 deadline_s: float | None = None) -> apis.ClassificationResponse:
+    def classify(self, request: apis.ClassificationRequest, deadline_s: float | None = None,
+                 criticality: str | None = None) -> apis.ClassificationResponse:
         """Two classes per Example: "0" scores 1 - p and "1" scores p."""
         self._refuse_if_draining()
-        resp = self._classify(request, deadline_s)
+        resp = self._classify(request, deadline_s, criticality)
         self._log_request("classify", request)
         return resp
 
     async def classify_async(self, request: apis.ClassificationRequest,
-                             deadline_s: float | None = None) -> apis.ClassificationResponse:
+                             deadline_s: float | None = None,
+                             criticality: str | None = None) -> apis.ClassificationResponse:
         self._refuse_if_draining()
-        servable, outputs = await self._run_examples_async(request, deadline_s)
+        servable, outputs = await self._run_examples_async(request, deadline_s, criticality)
         resp = self._classify_finish(request, servable, outputs)
         self._log_request("classify", request)
         return resp
 
-    def _classify(self, request: apis.ClassificationRequest,
-                  deadline_s: float | None) -> apis.ClassificationResponse:
-        servable, outputs = self._run_examples(request, deadline_s)
+    def _classify(self, request: apis.ClassificationRequest, deadline_s: float | None,
+                  criticality: str | None = None) -> apis.ClassificationResponse:
+        servable, outputs = self._run_examples(request, deadline_s, criticality)
         return self._classify_finish(request, servable, outputs)
 
     def _classify_finish(self, request, servable: Servable,
@@ -744,25 +835,26 @@ class PredictionServiceImpl:
             cls.classes.add(label="1", score=float(p))
         return resp
 
-    def regress(self, request: apis.RegressionRequest,
-                deadline_s: float | None = None) -> apis.RegressionResponse:
+    def regress(self, request: apis.RegressionRequest, deadline_s: float | None = None,
+                criticality: str | None = None) -> apis.RegressionResponse:
         """One regression value per Example: the score p."""
         self._refuse_if_draining()
-        resp = self._regress(request, deadline_s)
+        resp = self._regress(request, deadline_s, criticality)
         self._log_request("regress", request)
         return resp
 
     async def regress_async(self, request: apis.RegressionRequest,
-                            deadline_s: float | None = None) -> apis.RegressionResponse:
+                            deadline_s: float | None = None,
+                            criticality: str | None = None) -> apis.RegressionResponse:
         self._refuse_if_draining()
-        servable, outputs = await self._run_examples_async(request, deadline_s)
+        servable, outputs = await self._run_examples_async(request, deadline_s, criticality)
         resp = self._regress_finish(request, servable, outputs)
         self._log_request("regress", request)
         return resp
 
-    def _regress(self, request: apis.RegressionRequest,
-                 deadline_s: float | None) -> apis.RegressionResponse:
-        servable, outputs = self._run_examples(request, deadline_s)
+    def _regress(self, request: apis.RegressionRequest, deadline_s: float | None,
+                 criticality: str | None = None) -> apis.RegressionResponse:
+        servable, outputs = self._run_examples(request, deadline_s, criticality)
         return self._regress_finish(request, servable, outputs)
 
     def _regress_finish(self, request, servable: Servable, outputs) -> apis.RegressionResponse:
@@ -777,7 +869,8 @@ class PredictionServiceImpl:
     # --------------------------------------------------------- MultiInference
 
     def multi_inference(self, request: apis.MultiInferenceRequest,
-                        deadline_s: float | None = None) -> apis.MultiInferenceResponse:
+                        deadline_s: float | None = None,
+                        criticality: str | None = None) -> apis.MultiInferenceResponse:
         """Classify and regress tasks over one shared Input, in order (the
         request is logged once, as a MultiInference)."""
         self._refuse_if_draining()
@@ -801,13 +894,13 @@ class PredictionServiceImpl:
             method = task.method_name
             if method == "tensorflow/serving/classify":
                 sub = apis.ClassificationRequest(model_spec=task.model_spec, input=request.input)
-                out = self._classify(sub, deadline_s=remaining())
+                out = self._classify(sub, deadline_s=remaining(), criticality=criticality)
                 r = resp.results.add()
                 r.model_spec.CopyFrom(out.model_spec)
                 r.classification_result.CopyFrom(out.result)
             elif method == "tensorflow/serving/regress":
                 sub = apis.RegressionRequest(model_spec=task.model_spec, input=request.input)
-                out = self._regress(sub, deadline_s=remaining())
+                out = self._regress(sub, deadline_s=remaining(), criticality=criticality)
                 r = resp.results.add()
                 r.model_spec.CopyFrom(out.model_spec)
                 r.regression_result.CopyFrom(out.result)

@@ -1,5 +1,5 @@
 """TOML config: the [server], [batching], [transport], [model], [kernels],
-[observability] and [cache] sections the port reads, the checks of the
+[observability], [cache], [overload] and [integrity] sections the port reads, the checks of the
 model-config entries, and the mapping of a tensorflow_model_server
 batching-parameters file onto [server].
 
@@ -7,10 +7,13 @@ The JAX package's config files load unchanged, with one rule: a setting
 that would change what is served, logged or admitted but is not ported
 here is refused with a ValueError naming the ROADMAP.md Queue A item that
 ports it, never dropped. That covers the mesh knobs of [server] and a
-plane section ([overload], [utilization], ...) switched on. What changes no result here is ignored with one log line: the
-transfer knobs of [server], the [client] section, and a plane section that
-is off ([overload] drain_grace_s still feeds the shutdown drain). A section
-or key the JAX package does not know either raises, as there.
+plane section ([utilization], [recovery], ...) switched on, and [integrity]
+router_audit_fraction away from 0 (it acts only in the fleet router). What
+changes no result here is ignored with one log line: the transfer knobs of
+[server], the [client] section, and a plane section that is off.
+[overload] drain_grace_s feeds the shutdown drain whether or not the plane
+is on. A section or key the JAX package does not know either raises, as
+there.
 """
 
 from __future__ import annotations
@@ -322,6 +325,118 @@ class CacheConfig:
                              ttl_s=self.row_ttl_s, coalesce=self.row_coalesce)
 
 
+@dataclasses.dataclass(frozen=True)
+class OverloadConfig:
+    """The [overload] section (serving/overload.py): the adaptive admission
+    controller, criticality lanes, brownout stale-serve, and the drain
+    grace of the shutdown. The JAX package's fields and defaults. Off, the
+    batcher keeps its static queue_capacity_candidates bound and reads one
+    attribute per submit."""
+
+    # Build an AdmissionController and hand it to the batcher (replacing
+    # the static queue_capacity_candidates check).
+    enabled: bool = False
+    # The controlled variable: the windowed queue-wait p99 is steered
+    # toward this target by growing and shrinking the admission limit.
+    target_queue_wait_ms: float = 50.0
+    # The window the p99 is taken over, and the controller's tick.
+    queue_wait_window_s: float = 10.0
+    adjust_interval_s: float = 0.5
+    # AIMD steps: additive growth under target, multiplicative shrink over.
+    increase_candidates: int = 1024
+    decrease_factor: float = 0.7
+    # Limit clamp in candidates. 0 = auto: min one largest bucket, max the
+    # static queue capacity the controller replaces.
+    min_limit_candidates: int = 0
+    max_limit_candidates: int = 0
+    # EWMA smoothing of the per-candidate service time.
+    service_ewma_alpha: float = 0.2
+    # Refuse at enqueue when the backlog's estimated wait already exceeds
+    # the request's remaining deadline.
+    deadline_refusal: bool = True
+    # Consecutive over-target ticks before NOMINAL->BROWNOUT and (further)
+    # before BROWNOUT->SHED; consecutive under-target ticks per step down.
+    brownout_after_intervals: int = 4
+    shed_after_intervals: int = 12
+    recover_after_intervals: int = 6
+    # Past NOMINAL, cache entries up to this far past their TTL still
+    # answer (marked degraded, never refilled). 0 disables it.
+    stale_while_overloaded_s: float = 30.0
+    # Clamp of the retry-after-ms hint on refusals.
+    retry_after_floor_ms: int = 25
+    retry_after_cap_ms: int = 2000
+    # Shutdown drain grace (honored with the controller off too).
+    drain_grace_s: float = 5.0
+
+    def build(self):
+        """AdmissionController per this config, or None when disabled."""
+        if not self.enabled:
+            return None
+        from ..serving.overload import AdmissionController
+
+        return AdmissionController(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class IntegrityConfig:
+    """The [integrity] section (serving/integrity.py): wire CRC32C
+    sidecars, the readback screen and sampled bit-identity shadow
+    verification. The JAX package's fields, defaults and checks, but for
+    router_audit_fraction, which acts only in the fleet router (not ported:
+    a value away from 0 is refused by load_config). Off by default: every
+    hook is one attribute read and the served bytes are those of a stack
+    without the plane."""
+
+    # Build an IntegrityPlane and attach it to the impl and the batcher.
+    enabled: bool = False
+    # Verify x-dts-input-crc at decode (a mismatch fails that request alone,
+    # INVALID_ARGUMENT) and stamp x-dts-score-crc on Predict responses.
+    wire_checksums: bool = True
+    # NaN/Inf screen of each request's score rows after the readback.
+    screen: bool = True
+    # Optional plausible interval the screen also enforces; (0, 0) = off.
+    screen_min: float = 0.0
+    screen_max: float = 0.0
+    # Trips past this count inside screen_window_s escalate (suspect).
+    screen_trips_per_window: int = 3
+    screen_window_s: float = 10.0
+    # Fraction of batches run a second time and compared bit for bit;
+    # 0 = sampling off (POST /integrityz/audit still forces shadows).
+    shadow_fraction: float = 0.0
+    # Consecutive clean shadow compares that clear the suspect verdict.
+    suspect_clear_passes: int = 3
+    # Retained detection events (/integrityz `events`).
+    history_events: int = 64
+
+    def __post_init__(self):
+        for name in ("screen_trips_per_window", "suspect_clear_passes", "history_events"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+                raise ValueError(f"[integrity] {name} must be a positive integer, got {v!r}")
+        v = self.shadow_fraction
+        if not isinstance(v, (int, float)) or isinstance(v, bool) or not 0.0 <= v <= 1.0:
+            raise ValueError(f"[integrity] shadow_fraction must be in [0, 1], got {v!r}")
+        v = self.screen_window_s
+        if not isinstance(v, (int, float)) or isinstance(v, bool) or v <= 0:
+            raise ValueError(
+                f"[integrity] screen_window_s must be a positive number, got {v!r}")
+        for name in ("screen_min", "screen_max"):
+            v = getattr(self, name)
+            if not isinstance(v, (int, float)) or isinstance(v, bool):
+                raise ValueError(f"[integrity] {name} must be a number, got {v!r}")
+        if self.screen_max < self.screen_min:
+            raise ValueError(
+                f"[integrity] screen_max ({self.screen_max!r}) must be >= "
+                f"screen_min ({self.screen_min!r}); use (0, 0) to disable "
+                "the range check"
+            )
+
+    def build(self):
+        from ..serving.integrity import IntegrityPlane
+
+        return IntegrityPlane(self)
+
+
 # [server] keys of the JAX package that change no result here: the JAX
 # runtime's transfer knobs, whose work the port's host path always does one
 # way (one combined buffer, async readback, a dispatch thread).
@@ -331,6 +446,7 @@ _IGNORED_KEYS = {"server": ("compress_transfer", "async_readback", "pipelined_di
 # loads; the ROADMAP.md Queue A item that ports the rest).
 _UNPORTED_KEYS = {
     "server": {"mesh_devices": (0, 9), "model_parallel": (1, 9), "tensor_parallel": (False, 9)},
+    "integrity": {"router_audit_fraction": (0.0, 8)},
 }
 # Sections of the JAX package that are not ported: section -> (its keys,
 # the keys that switch it on, the ROADMAP.md Queue A item). A section
@@ -348,12 +464,6 @@ _UNPORTED_SECTIONS = {
     "elastic": (("enabled", "splits", "tick_interval_s", "dwell_s", "up_after_ticks",
                  "down_after_ticks", "load_up_threshold", "load_down_threshold",
                  "load_ewma_alpha", "history_events"), ("enabled",), 9),
-    "overload": (("enabled", "target_queue_wait_ms", "queue_wait_window_s",
-                  "adjust_interval_s", "increase_candidates", "decrease_factor",
-                  "min_limit_candidates", "max_limit_candidates", "service_ewma_alpha",
-                  "deadline_refusal", "brownout_after_intervals", "shed_after_intervals",
-                  "recover_after_intervals", "stale_while_overloaded_s", "retry_after_floor_ms",
-                  "retry_after_cap_ms", "drain_grace_s"), ("enabled",), 6),
     "utilization": (("enabled", "ring", "window_seconds", "calibration_file", "profile_dir"),
                     ("enabled",), 6),
     "quality": (("enabled", "bins", "range_lo", "range_hi", "window_seconds", "slices",
@@ -379,10 +489,6 @@ _UNPORTED_SECTIONS = {
             ("enabled",), 8),
     "cascade": (("enabled", "stage1_model", "stage1_kind", "stage1_base_path", "survivor_k",
                  "survivor_fraction", "score_threshold", "min_candidates"), ("enabled",), 6),
-    "integrity": (("enabled", "wire_checksums", "screen", "screen_min", "screen_max",
-                   "screen_trips_per_window", "screen_window_s", "shadow_fraction",
-                   "router_audit_fraction", "suspect_clear_passes", "history_events"),
-                  ("enabled",), 6),
 }
 # The shutdown drain's grace when [overload] does not set it (seconds).
 DRAIN_GRACE_S = 5.0
@@ -431,15 +537,17 @@ def load_config(path) -> dict[str, Any]:
     """Parse a TOML file: {"server": ServerConfig, "batching":
     BatchingConfig, "transport": TransportConfig, "drain_grace_s": float,
     "model": ModelConfig, "kernels": KernelsConfig, "observability":
-    ObservabilityConfig, "cache": CacheConfig} ("model", "kernels",
-    "observability" and "cache" only when the file has that section). A nonzero [batching]
+    ObservabilityConfig, "cache": CacheConfig, "overload": OverloadConfig,
+    "integrity": IntegrityConfig} ("model", "kernels", "observability",
+    "cache", "overload" and "integrity" only when the file has that section). A nonzero [batching]
     pipeline_depth replaces the [server] one, as in the JAX package's
     server; "drain_grace_s" is [overload] drain_grace_s (honored with the
     plane off, as there). Raises ValueError on a setting that is not
     ported (module docstring) and on a section or key the JAX package does
     not know."""
     raw = tomllib.loads(pathlib.Path(path).read_text())
-    ported = {"server", "batching", "transport", "model", "kernels", "observability", "cache"}
+    ported = {"server", "batching", "transport", "model", "kernels", "observability", "cache",
+              "overload", "integrity"}
     unknown = sorted(set(raw) - ported - set(_UNPORTED_SECTIONS))
     if unknown:
         raise ValueError(f"unknown config sections: {unknown}")
@@ -467,6 +575,10 @@ def load_config(path) -> dict[str, Any]:
                                        "observability")
     if "cache" in raw:
         out["cache"] = _coerce(CacheConfig, raw["cache"], "cache")
+    if "overload" in raw:
+        out["overload"] = _coerce(OverloadConfig, raw["overload"], "overload")
+    if "integrity" in raw:
+        out["integrity"] = _coerce(IntegrityConfig, raw["integrity"], "integrity")
     extra = sorted(set(raw) & set(_UNPORTED_SECTIONS))
     if extra:
         log.info("ignoring config sections this package does not use: %s", extra)

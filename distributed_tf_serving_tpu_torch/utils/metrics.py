@@ -405,6 +405,49 @@ _HELP = {
     "dts_tpu_kernel_variant_speedup":
         "Measured step-time speedup of a kernel variant vs the f32 "
         "model.apply baseline at one bucket (autotune harness, live device)",
+    "dts_tpu_integrity_wire_inputs_verified_total":
+        "Requests whose input tensors carried an x-dts-input-crc stamp "
+        "and matched it at decode (CRC32C over dtype/shape + payload "
+        "bytes)",
+    "dts_tpu_integrity_wire_inputs_rejected_total":
+        "Requests failed INVALID_ARGUMENT at decode because the input "
+        "bytes did not match the client's checksum stamp — corruption "
+        "in transit, caught before the batch formed (only the damaged "
+        "request fails)",
+    "dts_tpu_integrity_wire_responses_stamped_total":
+        "Responses stamped with an x-dts-score-crc trailing-metadata "
+        "sidecar for opted-in clients to verify before merging scores",
+    "dts_tpu_integrity_screen_trips_total":
+        "Score rows the post-readback sanity screen rejected (NaN/Inf, "
+        "or outside the configured plausible range); each trip fails "
+        "only its own request while batchmates deliver",
+    "dts_tpu_integrity_screen_window_trips":
+        "Screen trips inside the current escalation window — crossing "
+        "screen_trips_per_window hands the group to the recovery "
+        "plane's output_corrupt cycle",
+    "dts_tpu_integrity_shadow_batches_total":
+        "Batches re-executed through the same jitted entry and "
+        "compared bit-identically on host (sampled by shadow_fraction "
+        "plus operator-forced audits)",
+    "dts_tpu_integrity_shadow_mismatches_total":
+        "Shadow re-executions whose bytes differed from the primary "
+        "pass — same program, same inputs, different bits: the silent-"
+        "corruption signature (escalates to recovery + gossips "
+        "suspect)",
+    "dts_tpu_integrity_audits_requested_total":
+        "Operator-forced shadow verifications requested via POST "
+        "/integrityz/audit",
+    "dts_tpu_integrity_audits_run_total":
+        "Operator-forced shadow verifications actually consumed by a "
+        "dispatched batch",
+    "dts_tpu_integrity_escalations_total":
+        "Detections the plane escalated into the recovery controller's "
+        "output_corrupt cycle (screen-trip threshold or shadow "
+        "mismatch)",
+    "dts_tpu_integrity_suspect":
+        "1 while this replica's own shadow verification has it marked "
+        "suspect (also gossiped in the fleet record so routers steer "
+        "around it); clears after suspect_clear_passes clean compares",
 }
 
 
@@ -570,8 +613,8 @@ class ServerMetrics:
             }
         return out
 
-    def prometheus_text(self, batcher_stats=None, cache=None, row_cache=None, pipeline=None,
-                        kernels=None) -> str:
+    def prometheus_text(self, batcher_stats=None, cache=None, row_cache=None, overload=None,
+                        pipeline=None, kernels=None, integrity=None) -> str:
         """Prometheus exposition (text format 0.0.4) of the same data
         snapshot() serves as JSON. Metric names mirror tensorflow_model_
         server's monitoring surface (`:tensorflow:serving:request_count` /
@@ -731,8 +774,8 @@ class ServerMetrics:
                  cache.get("expirations", 0)),
                 ("dts_tpu_cache_invalidations_total", "counter",
                  cache.get("invalidations", 0)),
-                # Expired entries answered inside a stale window (the
-                # overload plane's; 0 here).
+                # Expired entries answered inside the overload plane's
+                # brownout stale window.
                 ("dts_tpu_cache_stale_serves_total", "counter",
                  cache.get("stale_serves", 0)),
                 ("dts_tpu_cache_hit_rate", "gauge", cache.get("hit_rate", 0.0)),
@@ -788,9 +831,84 @@ class ServerMetrics:
             ):
                 _family_lines(lines, metric, kind)
                 lines.append(f"{metric} {value}")
+        if overload is not None:
+            lines.extend(_overload_prometheus_lines(overload))
         if kernels is not None:
             lines.extend(_kernel_prometheus_lines(kernels))
+        if integrity is not None:
+            lines.extend(_integrity_prometheus_lines(integrity))
         return "\n".join(lines) + "\n"
+
+
+def _overload_prometheus_lines(overload: dict) -> list[str]:
+    """dts_tpu_overload_* exposition from an AdmissionController snapshot:
+    the adaptive limit and the controlled variable, shed / doomed /
+    brownout counters, sheds per lane, and the pressure state one-hot (the
+    Prometheus encoding of an enum)."""
+    esc = escape_label_value
+    lines: list[str] = []
+    for metric, kind, value in (
+        ("dts_tpu_overload_limit_candidates", "gauge", overload.get("limit", 0)),
+        ("dts_tpu_overload_queue_wait_p99_ms", "gauge", overload.get("queue_wait_p99_ms", 0.0)),
+        ("dts_tpu_overload_target_queue_wait_ms", "gauge",
+         overload.get("target_queue_wait_ms", 0.0)),
+        ("dts_tpu_overload_admitted_total", "counter", overload.get("admitted", 0)),
+        ("dts_tpu_overload_sheds_total", "counter", overload.get("sheds", 0)),
+        ("dts_tpu_overload_doomed_refusals_total", "counter",
+         overload.get("doomed_refusals", 0)),
+        ("dts_tpu_overload_brownout_serves_total", "counter",
+         overload.get("brownout_serves", 0)),
+        ("dts_tpu_overload_limit_increases_total", "counter",
+         overload.get("limit_increases", 0)),
+        ("dts_tpu_overload_limit_decreases_total", "counter",
+         overload.get("limit_decreases", 0)),
+        ("dts_tpu_overload_state_changes_total", "counter", overload.get("state_changes", 0)),
+    ):
+        _family_lines(lines, metric, kind)
+        lines.append(f"{metric} {value}")
+    by_lane = overload.get("sheds_by_lane") or {}
+    if by_lane:
+        ls = "dts_tpu_overload_lane_sheds_total"
+        _family_lines(lines, ls, "counter")
+        for lane, n in sorted(by_lane.items()):
+            lines.append(f'{ls}{{lane="{esc(lane)}"}} {n}')
+    st = "dts_tpu_overload_pressure_state"
+    _family_lines(lines, st, "gauge")
+    current = overload.get("state", "nominal")
+    for state in ("nominal", "brownout", "shed"):
+        lines.append(f'{st}{{state="{esc(state)}"}} {1 if state == current else 0}')
+    return lines
+
+
+def _integrity_prometheus_lines(integrity: dict) -> list[str]:
+    """dts_tpu_integrity_* exposition from an integrity_stats() snapshot:
+    wire verify / reject / stamp counters, screen trips (lifetime and the
+    current window), shadow batches / mismatches and audits, escalations
+    and the suspect verdict."""
+    wire = integrity.get("wire") or {}
+    screen = integrity.get("screen") or {}
+    shadow = integrity.get("shadow") or {}
+    lines: list[str] = []
+    for metric, kind, value in (
+        ("dts_tpu_integrity_wire_inputs_verified_total", "counter",
+         wire.get("inputs_verified", 0)),
+        ("dts_tpu_integrity_wire_inputs_rejected_total", "counter",
+         wire.get("inputs_rejected", 0)),
+        ("dts_tpu_integrity_wire_responses_stamped_total", "counter",
+         wire.get("responses_stamped", 0)),
+        ("dts_tpu_integrity_screen_trips_total", "counter", screen.get("trips", 0)),
+        ("dts_tpu_integrity_screen_window_trips", "gauge", screen.get("window_trips", 0)),
+        ("dts_tpu_integrity_shadow_batches_total", "counter", shadow.get("batches", 0)),
+        ("dts_tpu_integrity_shadow_mismatches_total", "counter", shadow.get("mismatches", 0)),
+        ("dts_tpu_integrity_audits_requested_total", "counter",
+         shadow.get("audits_requested", 0)),
+        ("dts_tpu_integrity_audits_run_total", "counter", shadow.get("audits_run", 0)),
+        ("dts_tpu_integrity_escalations_total", "counter", integrity.get("escalations", 0)),
+        ("dts_tpu_integrity_suspect", "gauge", int(bool(integrity.get("suspect")))),
+    ):
+        _family_lines(lines, metric, kind)
+        lines.append(f"{metric} {value}")
+    return lines
 
 
 def _kernel_prometheus_lines(kernels: dict) -> list[str]:

@@ -191,7 +191,8 @@ def _imports(path: Path) -> list[str]:
 def test_static_no_jax_imports_in_port_or_chip_smoke():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
-    for mod in ("serving/rest.py", "utils/metrics.py", "utils/tracing.py"):
+    for mod in ("serving/rest.py", "utils/metrics.py", "utils/tracing.py",
+                "serving/overload.py", "serving/integrity.py"):
         assert PORT / mod in files, mod
     bad = {
         str(f.relative_to(REPO)): [m for m in _imports(f) if _is_jax_side(m)]
@@ -360,3 +361,49 @@ def test_kernel_modules_import_without_building():
     assert cuda_build.build_info == {} or all("path" in v for v in cuda_build.build_info.values())
     assert (PORT / "csrc" / "cross_kernel.cu").exists()
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+
+
+_PLANES_SCRIPT = r"""
+import json, sys
+import numpy as np
+from distributed_tf_serving_tpu_torch import codec
+from distributed_tf_serving_tpu_torch.models import ModelConfig
+from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+from distributed_tf_serving_tpu_torch.serving.server import build_stack
+from distributed_tf_serving_tpu_torch.utils.config import (
+    IntegrityConfig, OverloadConfig, ServerConfig)
+cfg = ModelConfig(num_fields=3, vocab_size=64, embed_dim=2, mlp_dims=(4,), num_cross_layers=1)
+impl, batcher, _ = build_stack(ServerConfig(buckets=(8,), num_fields=3), cfg, device="cpu",
+                               overload_config=OverloadConfig(enabled=True),
+                               integrity_config=IntegrityConfig(enabled=True,
+                                                                shadow_fraction=1.0))
+req = apis.PredictRequest()
+req.model_spec.name = "DCN"
+arrays = {"feat_ids": np.arange(12, dtype=np.int64).reshape(4, 3),
+          "feat_wts": np.ones((4, 3), np.float32)}
+for k, v in arrays.items():
+    codec.from_ndarray(v, out=req.inputs[k])
+resp = impl.predict(req, criticality="sheddable", input_crc=codec.crc_sidecar(arrays))
+stamp = impl.response_crc_sidecar(resp)
+batcher.stop()
+snap = impl.integrity_stats()
+print(json.dumps({"shadow": snap["shadow"]["batches"], "verified": snap["wire"]["inputs_verified"],
+                  "stamped": bool(stamp), "admitted": impl.overload_stats()["admitted"],
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_overload_and_integrity_planes_import_no_jax_subprocess():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run(
+        [sys.executable, "-c", _PLANES_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert res.returncode == 0, res.stderr
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["shadow"] >= 1 and line["verified"] == 1 and line["stamped"]
+    assert line["admitted"] >= 1
+    assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
+    for mod in ("serving.overload", "serving.integrity"):
+        assert f"distributed_tf_serving_tpu_torch.{mod}" in line["modules"]

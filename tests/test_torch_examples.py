@@ -239,8 +239,8 @@ def test_multi_inference_checks_the_deadline_between_tasks(services, monkeypatch
     _, impl, _ = services
     real = impl._classify  # what MultiInference runs per classify task
 
-    def slow_classify(req, deadline_s=None):
-        out = real(req, deadline_s=deadline_s)
+    def slow_classify(req, deadline_s=None, **kw):
+        out = real(req, deadline_s=deadline_s, **kw)
         time.sleep(0.3)
         return out
 

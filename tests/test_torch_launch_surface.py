@@ -89,13 +89,12 @@ REFUSED = [
     ("[server]\ntensor_parallel = true\n", 9),
     ("[mesh]\nenabled = true\n", 9),
     ("[elastic]\nenabled = true\n", 9),
-    ("[overload]\nenabled = true\n", 6),
     ("[utilization]\nenabled = true\n", 6),
     ("[quality]\nenabled = true\n", 6),
     ("[lifecycle]\nenabled = true\n", 6),
     ("[recovery]\nenabled = true\n", 6),
     ("[cascade]\nenabled = true\n", 6),
-    ("[integrity]\nenabled = true\n", 6),
+    ("[integrity]\nrouter_audit_fraction = 0.5\n", 8),
     ("[fleet]\nenabled = true\n", 8),
     ("[slo]\nenabled = true\n", 8),
 ]
@@ -117,6 +116,10 @@ PORTED = [
     ("[transport]\nresponse_arena = true\n", "transport", "response_arena", True),
     ("[cache]\nenabled = true\ndedup = true\nrow_granular = true\nttl_s = 5.0\n", "cache",
      "enabled", True),
+    ("[overload]\nenabled = true\ntarget_queue_wait_ms = 5.0\nadjust_interval_s = 0.1\n",
+     "overload", "enabled", True),
+    ("[integrity]\nenabled = true\nshadow_fraction = 0.25\nscreen_max = 1.0\n", "integrity",
+     "enabled", True),
 ]
 
 
@@ -127,8 +130,11 @@ def test_a_setting_ported_since_loads_like_jax(tmp_path, text, section, key, val
     theirs_section = jax_config.load_config(_toml(tmp_path, text))[section]
     ours, theirs = getattr(ours_section, key), getattr(theirs_section, key)
     assert ours == theirs == value
-    if section == "cache":  # every field of [cache] as the JAX package reads it
-        assert dataclasses.asdict(ours_section) == dataclasses.asdict(theirs_section)
+    if section in ("cache", "overload", "integrity"):  # every field, as the JAX package reads it
+        theirs_fields = dataclasses.asdict(theirs_section)
+        if section == "integrity":  # the router's knob is not ported (refused away from 0)
+            assert theirs_fields.pop("router_audit_fraction") == 0.0
+        assert dataclasses.asdict(ours_section) == theirs_fields
 
 
 IGNORED = [
@@ -169,7 +175,8 @@ def test_the_key_tables_are_the_jax_package_s():
     ported = {"server": torch_config.ServerConfig, "batching": torch_config.BatchingConfig,
               "transport": torch_config.TransportConfig, "kernels": torch_config.KernelsConfig,
               "observability": torch_config.ObservabilityConfig,
-              "cache": torch_config.CacheConfig}
+              "cache": torch_config.CacheConfig, "overload": torch_config.OverloadConfig,
+              "integrity": torch_config.IntegrityConfig}
     assert set(ported) | set(torch_config._UNPORTED_SECTIONS) == set(jax_fields)
     for section, (keys, switches, _) in torch_config._UNPORTED_SECTIONS.items():
         assert set(keys) == jax_fields[section], section
@@ -706,13 +713,13 @@ def test_cli_refuses_a_version_label_beside_a_model_config_file(tmp_path):
 
 
 def test_cli_refuses_an_unported_plane_before_it_starts(tmp_path):
-    cfg = _toml(tmp_path, "[overload]\nenabled = true\n")
+    cfg = _toml(tmp_path, "[recovery]\nenabled = true\n")
     res = subprocess.run(
         [sys.executable, "-m", "distributed_tf_serving_tpu_torch.serving.server", "--device",
          "cpu", "--port", "0", "--config", str(cfg)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
-    assert "[overload] enabled = true is not ported yet (ROADMAP.md Queue A item 6)" in res.stderr
+    assert "[recovery] enabled = true is not ported yet (ROADMAP.md Queue A item 6)" in res.stderr
 
 
 @pytest.mark.parametrize("flag", ["--overload", "--mesh", "--savedmodel=d", "--router"])

@@ -18,7 +18,6 @@ filled it. Against the JAX package, scores agree within 1e-5."""
 import dataclasses
 import threading
 import time
-from concurrent.futures import Future
 
 import jax
 import numpy as np
@@ -459,32 +458,54 @@ def test_a_wedged_leader_and_the_breaker_fail_its_joiners_fast(servable):
 
 
 def test_degraded_leader_never_fills_request_cache(servable):
-    """A leader whose answer is marked degraded (row entries past their
-    TTL) must not fill the request cache, and those that joined it get the
-    mark with the answer; a clean leader fills as before."""
+    """A leader whose answer is marked degraded (row entries served past
+    their TTL while the overload plane's `pressure` site pins BROWNOUT)
+    must not fill the request cache, and the request that joined it gets
+    the mark with the answer; back at NOMINAL a clean leader fills as
+    before."""
+    from distributed_tf_serving_tpu_torch.serving import overload as overload_mod
+    from distributed_tf_serving_tpu_torch.utils.config import OverloadConfig
+
+    clock = [0.0]
     cache = ScoreCache()
-    b = DynamicBatcher(buckets=(8,), max_wait_us=0, device="cpu", score_cache=cache).start()
+    rc = RowScoreCache(ttl_s=1.0, clock=lambda: clock[0])
+    ctrl = OverloadConfig(enabled=True, adjust_interval_s=0.0, stale_while_overloaded_s=5.0,
+                          recover_after_intervals=1).build()
+    b = DynamicBatcher(buckets=(8,), max_wait_us=0, device="cpu", score_cache=cache,
+                       row_cache=rc, overload=ctrl).start()
     try:
-        arrays = make_arrays(2, seed=66)
-        leader = cache.begin("DCN", 1, None, arrays)
-        joined = cache.begin("DCN", 1, None, arrays)
-        assert leader.leader and joined.waiter is not None
-        fut = Future()
-        fut.dts_degraded = "stale"
-        value = {"prediction_node": np.zeros(2, np.float32)}
-        fut.set_result(value)
-        b._cache_complete(cache, leader, fut, servable, arrays, None)
-        assert cache.lookup(leader.key) is None
-        np.testing.assert_array_equal(joined.waiter.result(timeout=5)["prediction_node"],
-                                      np.zeros(2))
-        assert getattr(joined.waiter, "dts_degraded", None) == "stale"
-        leader2 = cache.begin("DCN", 1, None, arrays)
-        fut2 = Future()
-        fut2.set_result(value)
-        b._cache_complete(cache, leader2, fut2, servable, arrays, None)
-        assert cache.lookup(leader2.key) is not None
+        a = make_arrays(3, seed=66)
+        b.submit(servable, a, output_keys=SCORE).result(timeout=30)  # fills A's rows
+        clock[0] = 1.5  # A's rows expired, inside the stale window
+        faults.get().add("pressure", "error", code="BROWNOUT")
+        assert ctrl.state() == "brownout"
+        # A's (stale) rows and one fresh row: the leader dispatches; hold it
+        # so an identical request joins its flight.
+        arrays = _cat(a, make_arrays(1, seed=67))
+        faults.get().add("batcher.dispatch", "wedge", count=1, delay_s=30)
+        fut = b.submit(servable, arrays, output_keys=SCORE)
+        _until(lambda: _dispatching(b))
+        joined = b.submit(servable, arrays, output_keys=SCORE)
+        faults.get().clear("batcher.dispatch")
+        out = fut.result(timeout=30)["prediction_node"]
+        assert getattr(fut, "dts_degraded", None) == "stale"
+        np.testing.assert_array_equal(joined.result(timeout=5)["prediction_node"], out)
+        assert getattr(joined, "dts_degraded", None) == "stale"
+        key = cache.begin("DCN", 1, SCORE, arrays)
+        assert key.leader  # nothing was filled: this lookup leads again
+        cache.abort(key, RuntimeError("probe"))
+        assert rc.snapshot()["stale_serves"] >= 3 and ctrl.snapshot()["brownout_serves"] >= 1
+        faults.get().clear()
+        assert ctrl.state() == "nominal"
+        clean = b.submit(servable, arrays, output_keys=SCORE)
+        clean.result(timeout=30)
+        assert getattr(clean, "dts_degraded", None) is None
+        assert cache.begin("DCN", 1, SCORE, arrays).hit is not None
     finally:
+        faults.get().clear()
         b.stop()
+        overload_mod.deactivate()
+        overload_mod.consume_degraded()
 
 
 # ------------------------------------------------- watcher + inertness
