@@ -304,7 +304,11 @@ Phases (any failure exits non-zero and prints no result line):
              the fault-free bits, screen.trips + 1. (d) Over gRPC, stamps made
              with the port's codec.crc_sidecar: a clean stamp verifies, one
              wrong hex digit fails INVALID_ARGUMENT alone beside a concurrent
-             clean twin, every x-dts-score-crc verifies; predict.decode at
+             clean twin, every x-dts-score-crc verifies; a DT_BFLOAT16
+             feat_wts stamped over its wire bits (crc32c of the "<V2" header
+             and the bits, as a bf16 sender stamps) answers OK with the bits
+             of its float32 twin, and one flipped bit of it fails
+             INVALID_ARGUMENT corrupt-wire; predict.decode at
              n = 2048 with and without a stamp (off / on / on / off).
              (e) /integrityz, POST /integrityz/audit?batches=2 (two batches
              shadowed at shadow_fraction 0), ?section=integrity, >= 11
@@ -339,6 +343,30 @@ Phases (any failure exits non-zero and prints no result line):
              answer with X-DTS-Degraded. (d) /monitoring?section=overload and
              the lint-clean dts_tpu_overload_* series equal overload_stats().
 
+15. cascade — the ranking cascade (serving/cascade.py): configs/latency.toml
+             with [cascade] enabled (stage 1 the in-process two_tower
+             `stage1`, survivor_fraction 0.25, min_candidates 8; the shadow
+             off) beside a plane-off stack, both seed 0, bf16 fused serve, on
+             threaded gRPC servers. (1) Four output-filtered Predicts (n =
+             1000, 1000, 2048, 2048): int32 cascade_stage with plan_k(n) rows
+             ranked; the ranked rows are the stable top-k of a direct
+             Predict to `stage1` over the same rows; survivor scores the bits
+             of a plane-off Predict of the survivor rows alone, pruned rows
+             the bits of that stage-1 Predict; all within 5e-3 of the plain
+             forward (model.apply of each stage) on the card; the
+             fused_serve/bfloat16 launches, zeroed just before and the
+             references counted apart, one per Predict and no other kernel
+             (`launches_cascade`); prune_batches + 4, prune_fallback_batches,
+             host_prunes and fallbacks + 0. (2) n = 7 and an unfiltered
+             Predict carry no cascade_stage and the plane-off bits. (3)
+             /cascadez = /monitoring?section=cascade = cascade_stats(), the
+             lint-clean dts_tpu_cascade_* lines name the requests and rows
+             sent. (4) 100 Predicts of n = 2048, off / on / on / off: p50,
+             p99, the cascade.stage1 / prune / stage2 means and
+             survivor_buckets, recorded. (5) Stage 1 unloaded: a Predict
+             answers OK with provenance all 2, the plane-off bits, fallbacks
+             + 1.
+
 The lifecycle and models phases clear the device input cache before each
 memory read (its entries belong to the batcher, not to a version) and print
 the bytes it held.
@@ -355,7 +383,8 @@ server's from its start to its exit, `launches_rest_server`; the aio
 path's, `launches_aio`; the cache-on stack's over the cache phase's steps
 1-4, `launches_cache`; the integrity phase's shadowed run,
 `launches_integrity`; the overload phase's armed load runs,
-`launches_overload`), the
+`launches_overload`; the cascade phase's eligible Predicts,
+`launches_cascade`), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. Every line it
 logs is also kept in chiprun_out/chip_smoke.log.
 """
@@ -4865,6 +4894,46 @@ def phase_integrity(dev, name: str) -> dict:
         if (w1["inputs_verified"] - w0["inputs_verified"] != 2
                 or w1["inputs_rejected"] - w0["inputs_rejected"] != 1):
             fail(f"integrity: wire counters {w0} -> {w1}")
+        # A bf16 feat_wts, stamped as its sender checksums it: the bits on
+        # the wire under numpy's bfloat16 header ("<V2"), computed here with
+        # crc32c directly. It answers OK, with the bits of the float32
+        # request carrying the same values; one flipped bit fails
+        # INVALID_ARGUMENT corrupt-wire.
+        bits = (wts.view(np.uint32) >> 16).astype(np.uint16)
+        bf16_stamp = (f"feat_ids={codec.ndarray_crc(ids):08x},feat_wts="
+                      f"{codec.crc32c(bits.tobytes(), codec.crc32c(f'<V2:{bits.shape}'.encode())):08x}")
+
+        def bf16_request(payload_bits):
+            r = _request(ids, wts)
+            t = r.inputs["feat_wts"]
+            t.Clear()
+            t.dtype = codec.DataType.DT_BFLOAT16
+            t.tensor_shape.CopyFrom(codec.shape_to_proto(payload_bits.shape))
+            t.tensor_content = payload_bits.tobytes()
+            return r
+
+        got_bf16 = _scores_of(stub.Predict(bf16_request(bits), timeout=60,
+                                           metadata=((codec.CRC_INPUT_MD, bf16_stamp),)))
+        widened = (bits.astype(np.uint32) << 16).view(np.float32)
+        if not np.array_equal(got_bf16, _scores_of(stub.Predict(_request(ids, widened),
+                                                                timeout=60))):
+            fail("integrity: the bf16-stamped Predict lost the bits of its float32 twin")
+        flipped = bits.copy()
+        flipped.reshape(-1)[7] ^= 1
+        try:
+            stub.Predict(bf16_request(flipped), timeout=60,
+                         metadata=((codec.CRC_INPUT_MD, bf16_stamp),))
+            fail("integrity: a bf16 payload with a flipped bit answered")
+        except grpc.RpcError as e:
+            if e.code().name != "INVALID_ARGUMENT" or "corrupt-wire" not in e.details():
+                fail(f"integrity: the flipped bf16 payload ended {e.code().name}: {e.details()}")
+        w2 = plane.snapshot()["wire"]
+        if (w2["inputs_verified"] - w1["inputs_verified"] != 1
+                or w2["inputs_rejected"] - w1["inputs_rejected"] != 1):
+            fail(f"integrity: bf16 wire counters {w1} -> {w2}")
+        out["bf16_stamp"] = {"verified": 1, "rejected": 1}
+        log("integrity: a bf16 feat_wts stamped over its wire bits answers OK (the bits of its "
+            "float32 twin); one flipped bit -> INVALID_ARGUMENT corrupt-wire")
 
         def decode_mean(stamped: bool) -> float:
             md = ((codec.CRC_INPUT_MD, stamp),) if stamped else ()
@@ -5400,6 +5469,255 @@ def phase_overload(dev, name: str) -> dict:
     return out
 
 
+# The cascade phase: the ranking cascade (serving/cascade.py) on the bf16
+# fused-serve stack of configs/latency.toml.
+CASCADE_SIZES = (1000, 1000, 2048, 2048)  # the eligible Predicts of the launch window
+CASCADE_LOOP = (100, 2048)  # timed Predicts per run (off / on / on / off), candidates
+CASCADE_SMALL = 7  # below min_candidates: bypasses the cascade
+
+
+def phase_cascade(dev, name: str) -> dict:
+    """The ranking cascade on the card: a stack from build_stack on
+    configs/latency.toml with [cascade] enabled (stage 1 the in-process
+    two_tower `stage1`, seed-0 weights; the shadow off), beside a plane-off
+    stack on the same weights, each on a threaded gRPC server. Checks in
+    the docstring of the module."""
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch import codec
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.serving.batcher import bucket_for
+    from distributed_tf_serving_tpu_torch.serving.cascade import STAGE1, STAGE2, STAGE_OUTPUT
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack, create_server
+    from distributed_tf_serving_tpu_torch.utils.config import CascadeConfig, load_config
+    from distributed_tf_serving_tpu_torch.utils.metrics import ServerMetrics
+    from distributed_tf_serving_tpu_torch.utils.tracing import request_trace
+
+    loaded = load_config(os.path.join(HERE, "configs", "latency.toml"))
+    cfg, model_cfg = loaded["server"], loaded["model"]
+    fields = model_cfg.num_fields
+    rng = np.random.RandomState(SEED + 16)
+
+    def payload(n):
+        return (rng.randint(0, 1 << 40, size=(n, fields)).astype(np.int64),
+                rng.rand(n, fields).astype(np.float32))
+
+    out: dict = {"card": name}
+    servers, chans, batchers, stops = [], [], [], []
+    try:
+        impl, on, sv = build_stack(cfg, model_cfg, "cuda", seed=SEED,
+                                   cascade_config=CascadeConfig(enabled=True))
+        batchers.append(on)
+        impl_off, off, _ = build_stack(cfg, model_cfg, "cuda", seed=SEED)
+        batchers.append(off)
+        casc = impl.cascade
+        if casc is None or on.integrity is not None or impl_off.cascade is not None:
+            fail("cascade: [cascade] enabled did not arm the plane (alone) on one stack")
+        s1 = impl.registry.resolve(casc.stage1_model)
+        if s1.model.kind != "two_tower":
+            fail(f"cascade: stage 1 is {s1.model.kind}, want two_tower")
+        if not on.step_for(sv).fused or on.step_for(s1).fused:
+            fail("cascade: stage 2 must serve through the fused kernel, stage 1 through "
+                 "model.apply")
+        stubs = {}
+        for label, im in (("on", impl), ("off", impl_off)):
+            server, port = create_server(im, "127.0.0.1:0")
+            server.start()
+            servers.append(server)
+            chans.append(_channel(port))
+            stubs[label] = PredictionServiceStub(chans[-1])
+
+        def predict(label, ids, wts, model="DCN", filtered=True):
+            req = _request(ids, wts)
+            req.model_spec.name = model
+            if not filtered:
+                del req.output_filter[:]
+            t0 = time.perf_counter()
+            resp = stubs[label].Predict(req, timeout=120)
+            ms = (time.perf_counter() - t0) * 1e3
+            got = _scores_of(resp)
+            if got.shape != (len(ids),) or not np.all(np.isfinite(got)):
+                fail(f"cascade: {label} {model} answered shape {got.shape} for {len(ids)} rows")
+            stage = (codec.to_ndarray(resp.outputs[STAGE_OUTPUT])
+                     if STAGE_OUTPUT in resp.outputs else None)
+            return got, stage, ms
+
+        def plain(servable, ids, wts):
+            with torch.inference_mode():
+                return servable.model.apply(servable.params, {
+                    "feat_ids": torch.from_numpy(ids).to(dev),
+                    "feat_wts": torch.from_numpy(wts).to(dev)})["prediction_node"].float().cpu().numpy()
+
+        # 1. The eligible Predicts. The references (a direct stage-1 Predict
+        # on the armed stack, the survivors alone on the plane-off stack)
+        # run inside the launch window: their launches are counted apart.
+        ref_launches: dict = {}
+
+        def reference(*args, **kw):
+            l0 = _launch_counts()
+            got = predict(*args, **kw)[0]
+            for k, v in _launch_counts().items():
+                ref_launches[k] = ref_launches.get(k, 0) + v - l0.get(k, 0)
+            return got
+
+        c0, st0 = casc.snapshot(), dataclasses.replace(on.stats)
+        checks, sent_rows, sent_survivors = [], 0, 0
+        ck.reset_launches()
+        for n in CASCADE_SIZES:
+            ids, wts = payload(n)
+            k = casc.plan_k(n)
+            scores, stage, ms = predict("on", ids, wts)
+            if stage is None or stage.shape != (n,) or stage.dtype != np.int32:
+                fail(f"cascade: n={n}: no int32 cascade_stage of {n} rows")
+            surv, pruned = np.where(stage == STAGE2)[0], np.where(stage == STAGE1)[0]
+            if len(surv) != k or len(pruned) != n - k:
+                fail(f"cascade: n={n}: {len(surv)} rows ranked, want plan_k = {k}")
+            s1_direct = reference("on", ids, wts, model=casc.stage1_model)
+            want = np.argsort(-s1_direct, kind="stable")[:k]
+            if set(surv.tolist()) != set(want.tolist()):
+                fail(f"cascade: n={n}: the ranked rows are not the stable top-{k} of a direct "
+                     "stage-1 Predict")
+            if not np.array_equal(scores[pruned], s1_direct[pruned]):
+                fail(f"cascade: n={n}: pruned rows are not the bits of the direct stage-1 "
+                     "Predict")
+            s2_alone = reference("off", ids[surv], wts[surv])
+            if not np.array_equal(scores[surv], s2_alone):
+                fail(f"cascade: n={n}: survivor rows are not the bits of a plane-off Predict "
+                     "of those rows alone")
+            truth = np.where(stage == STAGE2, plain(sv, ids, wts), plain(s1, ids, wts))
+            err = float(np.max(np.abs(scores - truth)))
+            if err > APPLY_TOL:
+                fail(f"cascade: n={n}: max |dscore| vs the plain forward {err} > {APPLY_TOL}")
+            checks.append({"n": n, "k": k, "survivor_bucket": bucket_for(k, cfg.buckets),
+                           "max_abs_err": err, "ms": ms})
+            sent_rows += n
+            sent_survivors += k
+        launches = _launch_counts()
+        path = {key: v - ref_launches.get(key, 0) for key, v in launches.items()}
+        out["launches"], out["reference_launches"] = path, ref_launches
+        out["predicts"] = checks
+        eligible = len(CASCADE_SIZES)
+        others = {key: v for key, v in path.items() if v and key != "fused_serve/bfloat16"}
+        if path.get("fused_serve/bfloat16", 0) != eligible or others:
+            fail(f"cascade: the path launched {path} for {eligible} eligible Predicts (want "
+                 "fused_serve/bfloat16 once each, nothing else)")
+        c1, st1 = casc.snapshot(), on.stats
+        moved = {key: c1[key] - c0[key] for key in ("requests", "host_prunes", "fallbacks",
+                                                    "rows_requested", "survivor_rows")}
+        if (moved != {"requests": eligible, "host_prunes": 0, "fallbacks": 0,
+                      "rows_requested": sent_rows, "survivor_rows": sent_survivors}
+                or st1.prune_batches - st0.prune_batches != eligible
+                or st1.prune_fallback_batches != st0.prune_fallback_batches):
+            fail(f"cascade: counters moved {moved}, prune batches "
+                 f"{st1.prune_batches - st0.prune_batches}, fallback batches "
+                 f"{st1.prune_fallback_batches - st0.prune_fallback_batches} for {eligible} "
+                 "eligible Predicts")
+        log(f"cascade: {eligible} Predicts (n = {sorted(set(CASCADE_SIZES))}): ranked rows = "
+            "the stable top-k of stage 1, survivors the bits of a plane-off Predict of them "
+            "alone, pruned rows the bits of stage 1, max |dscore| vs the plain forward "
+            f"{max(c['max_abs_err'] for c in checks):.2e}; launches {path} (references apart: "
+            f"{ref_launches}); prune batches {eligible}, host prunes 0, fallbacks 0 ({name})")
+
+        # 2. The bypasses: below min_candidates, and no output filter.
+        for label, n, filtered in (("n=7", CASCADE_SMALL, True), ("unfiltered", 1000, False)):
+            ids, wts = payload(n)
+            got, stage, _ = predict("on", ids, wts, filtered=filtered)
+            ref = predict("off", ids, wts, filtered=filtered)[0]
+            if stage is not None or not np.array_equal(got, ref):
+                fail(f"cascade: the {label} Predict carried cascade_stage or lost the "
+                     "plane-off bits")
+        if casc.snapshot()["requests"] != c1["requests"]:
+            fail("cascade: a bypassing Predict entered the cascade")
+        log("cascade: n = 7 and an unfiltered Predict bypass it (no cascade_stage, the "
+            "plane-off bits)")
+
+        # 3. The surfaces, in process.
+        rport, stop_rest = _rest_in_process(impl, ServerMetrics())
+        stops.append(stop_rest)
+        http = _Http(rport)
+        try:
+            cz = http.json("GET", "/cascadez")
+            sec = http.json("GET", "/monitoring?section=cascade")["cascade"]
+            status, prom = http.call("GET", "/monitoring/prometheus/metrics")
+            prom = prom.decode()
+        finally:
+            http.close()
+        snap = impl.cascade_stats()
+        for key in ("requests", "fallbacks", "host_prunes", "rows_requested", "survivor_rows",
+                    "pruned_rows"):
+            if not cz[key] == sec[key] == snap[key]:
+                fail(f"cascade: /cascadez {key} {cz[key]}, /monitoring {sec[key]}, "
+                     f"snapshot {snap[key]}")
+        want = [f"dts_tpu_cascade_requests_total {eligible}",
+                "dts_tpu_cascade_host_prunes_total 0",
+                "dts_tpu_cascade_fallbacks_total 0",
+                f'dts_tpu_cascade_rows_total{{disposition="requested"}} {sent_rows}',
+                f'dts_tpu_cascade_rows_total{{disposition="survivor"}} {sent_survivors}']
+        missing = [w for w in want if w not in prom.splitlines()]
+        lint = subprocess.run([sys.executable, os.path.join(HERE, "tools", "check_prom.py"), "-"],
+                              input=prom, capture_output=True, text=True, timeout=60)
+        series = sum(1 for ln in prom.splitlines() if ln.startswith("dts_tpu_cascade_"))
+        if missing or lint.returncode != 0 or cz["requests"] != eligible:
+            fail(f"cascade: /cascadez {cz}; the exposition lacks {missing} or fails the lint "
+                 f"{lint.stdout[-300:]}")
+        out["cascadez"] = cz
+        log(f"cascade: /cascadez = /monitoring?section=cascade = cascade_stats(); "
+            f"{series} lint-clean dts_tpu_cascade_* lines; survivor_buckets "
+            f"{cz['survivor_buckets']}")
+
+        # 4. The cost: Predicts of n = 2048, cascade off / on / on / off.
+        reps, n = CASCADE_LOOP
+        ids, wts = payload(n)
+        runs = []
+        spans = ("cascade.stage1", "cascade.prune", "cascade.stage2")
+        for label in ("off", "on", "on", "off"):
+            t0 = request_trace.snapshot()
+            lat = [predict(label, ids, wts)[2] for _ in range(reps)]
+            t1 = request_trace.snapshot()
+            run = {"stack": label, **_percentiles(lat)}
+            if label == "on":
+                for sp in spans:
+                    a, b = t0.get(sp, {"total_ms": 0.0, "count": 0}), t1[sp]
+                    run[f"{sp}_mean_ms"] = (b["total_ms"] - a["total_ms"]) / (b["count"] - a["count"])
+            runs.append(run)
+        out["loop"] = runs
+        on_runs = [r for r in runs if r["stack"] == "on"]
+        out["stage_means_ms"] = {sp: statistics.mean(r[f"{sp}_mean_ms"] for r in on_runs)
+                                 for sp in spans}
+        out["survivor_buckets"] = impl.cascade_stats()["survivor_buckets"]
+        log(f"cascade: {reps} Predicts of n = {n} each, off / on / on / off: "
+            + "; ".join(f"{r['stack']} p50 {r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms"
+                        for r in runs)
+            + "; stage means " + ", ".join(f"{sp} {v:.3f} ms"
+                                           for sp, v in out["stage_means_ms"].items())
+            + f"; survivor_buckets {out['survivor_buckets']} ({name})")
+
+        # 5. Stage 1 unloaded: a full stage-2 pass answers, provenance all 2.
+        f0 = casc.snapshot()["fallbacks"]
+        impl.registry.unload(casc.stage1_model)
+        ids, wts = payload(1000)
+        got, stage, _ = predict("on", ids, wts)
+        if stage is None or not (stage == STAGE2).all() or casc.snapshot()["fallbacks"] != f0 + 1:
+            fail(f"cascade: with stage 1 unloaded the answer's provenance is {stage} and "
+                 f"fallbacks moved {casc.snapshot()['fallbacks'] - f0}")
+        if not np.array_equal(got, predict("off", ids, wts)[0]):
+            fail("cascade: the fallback pass lost the plane-off bits")
+        log("cascade: stage 1 unloaded -> the Predict answers OK with a full pass, provenance "
+            "all 2, fallbacks + 1, the plane-off bits")
+    finally:
+        for stop in stops:
+            stop()
+        for ch in chans:
+            ch.close()
+        for server in servers:
+            server.stop(grace=1).wait()
+        for b in batchers:
+            b.stop()
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -5472,12 +5790,16 @@ def main() -> None:
     t0 = time.perf_counter()
     overload = phase_overload(dev, f"{name} ({smi})")
     log(f"overload: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cascade = phase_cascade(dev, f"{name} ({smi})")
+    log(f"cascade: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
                    "lifecycle": lifecycle, "outputs": outputs, "families": families,
                    "models": models, "rest": rest, "aio": aio, "cache": cache,
-                   "integrity": integrity, "overload": overload}, f, indent=1,
+                   "integrity": integrity, "overload": overload, "cascade": cascade}, f,
+                  indent=1,
                   default=str)
 
     replaces = {
@@ -5518,6 +5840,9 @@ def main() -> None:
                      # apart), and the overload phase's armed load runs.
                      "launches_integrity": integrity["launches"].get(f"{kname}/{cd}", 0),
                      "launches_overload": overload["launches"].get(f"{kname}/{cd}", 0),
+                     # The cascade phase's eligible Predicts (its plane-off
+                     # references counted apart).
+                     "launches_cascade": cascade["launches"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (

@@ -365,12 +365,19 @@ def crc32c(data, crc: int = 0) -> int:
     return crc32c_table(data, crc)
 
 
-def ndarray_crc(arr: np.ndarray) -> int:
+def ndarray_crc(arr: np.ndarray, wire_bf16: bool = False) -> int:
     """Canonical tensor checksum: the dtype/shape header chained with the
     contiguous payload bytes, so a flipped shape dim is as detectable as a
-    flipped payload bit."""
+    flipped payload bit. `wire_bf16`: `arr` is a DT_BFLOAT16 tensor that
+    to_ndarray widened to float32; the checksum is over the bits the wire
+    carried (the widening narrows back exactly) under the header of
+    numpy's bfloat16 extension dtype ("<V2"), as its sender computed it."""
     a = np.ascontiguousarray(arr)
-    head = f"{a.dtype.str}:{a.shape}".encode()
+    if wire_bf16:
+        a = (a.view(np.uint32) >> 16).astype(np.uint16)
+        head = f"<V2:{a.shape}".encode()
+    else:
+        head = f"{a.dtype.str}:{a.shape}".encode()
     payload = a.tobytes() if a.dtype.hasobject else a.reshape(-1).view(np.uint8)
     return crc32c(payload, crc32c(head))
 
@@ -396,11 +403,12 @@ def parse_crc_sidecar(value: str) -> dict[str, int]:
     return out
 
 
-def verify_crc_sidecar(arrays: dict, sidecar: str) -> list[str]:
+def verify_crc_sidecar(arrays: dict, sidecar: str, bf16=()) -> list[str]:
     """Names whose decoded bytes mismatch their stamped checksum, sorted.
     A name stamped but absent from `arrays` is reported (a dropped tensor
     is corruption); a name present but unstamped is not (the sidecar may
-    cover a subset)."""
+    cover a subset). The names in `bf16` were decoded from DT_BFLOAT16 and
+    are checked over their wire bits (ndarray_crc's wire_bf16)."""
     stamped = parse_crc_sidecar(sidecar)
     return sorted(name for name, want in stamped.items()
-                  if name not in arrays or ndarray_crc(arrays[name]) != want)
+                  if name not in arrays or ndarray_crc(arrays[name], name in bf16) != want)

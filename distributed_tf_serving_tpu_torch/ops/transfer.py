@@ -22,7 +22,9 @@ with a per-tensor (scale, min) sidecar pair) by `compact_outputs_device`,
 or reduced to the top-k (score, index) pairs of one request by
 `topk_compact_device`, and widened back to float32 on the host by
 `restore_outputs_host` / `topk_restore_host` before anything user-visible
-sees them. All four are plain torch ops on their tensors' own device.
+sees them. The cascade's stage-1 prune (`cascade_prune_device` /
+`cascade_restore_host`) reads back one request's top-k pairs beside its
+whole score vector. All are plain torch ops on their tensors' own device.
 """
 
 from __future__ import annotations
@@ -301,13 +303,50 @@ def topk_compact_device(scores: torch.Tensor, n_valid: int, k: int,
     (torch.topk does not). The values go out at the wire dtype; the int8
     wire sends them as bf16, as the JAX package does. `n_valid` is a
     Python int: nothing here waits for the device."""
-    s32 = scores.float()
+    vals, idx = _masked_top(scores.float(), n_valid, k)
+    if wire_dt is not None:
+        vals = vals.to(_pair_wire(wire_dt))
+    return {"topk_scores": vals, "topk_indices": idx.to(torch.int32)}
+
+
+def _masked_top(s32: torch.Tensor, n_valid: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k best (value, index) of the first n_valid rows, padding masked
+    to -inf, by the stable descending sort (ties in index order)."""
     pad = torch.arange(s32.shape[0], device=s32.device) >= n_valid
     vals, idx = torch.sort(s32.masked_fill(pad, float("-inf")), descending=True, stable=True)
-    vals, idx = vals[:k], idx[:k]
+    return vals[:k], idx[:k]
+
+
+def _pair_wire(wire_dt: torch.dtype) -> torch.dtype:
+    """The dtype (score, index) pairs go out at: the wire dtype, except that
+    the int8 wire sends bf16 (a handful of pairs needs no sidecars), as the
+    JAX package does."""
+    return torch.bfloat16 if wire_dt == torch.int8 else wire_dt
+
+
+def cascade_prune_device(scores: torch.Tensor, n_valid: int, k: int,
+                         wire_dt: torch.dtype | None) -> dict[str, torch.Tensor]:
+    """The cascade's stage-1 prune on the device: the k best (score, index)
+    survivor pairs of the first `n_valid` rows, selected as
+    topk_compact_device selects them, and the whole stage-1 score vector,
+    both at the wire dtype (bf16 on the int8 wire). The vector comes back
+    too because the answer fills every pruned row with its stage-1 score;
+    it is not masked (the host trims it to the request's rows)."""
+    s32 = scores.float()
+    vals, idx = _masked_top(s32, n_valid, k)
+    full = s32
     if wire_dt is not None:
-        vals = vals.to(torch.bfloat16 if wire_dt == torch.int8 else wire_dt)
-    return {"topk_scores": vals, "topk_indices": idx.to(torch.int32)}
+        vals, full = vals.to(_pair_wire(wire_dt)), full.to(_pair_wire(wire_dt))
+    return {"survivor_scores": vals, "survivor_indices": idx.to(torch.int32),
+            "stage1_scores": full}
+
+
+def cascade_restore_host(host: dict, n: int) -> dict[str, np.ndarray]:
+    """Host side of cascade_prune_device: owned arrays, the scores widened
+    to float32, the stage-1 vector trimmed to the request's n rows."""
+    return {"survivor_scores": _host_numpy(host["survivor_scores"]).astype(np.float32, copy=False),
+            "survivor_indices": _host_numpy(host["survivor_indices"]),
+            "stage1_scores": _host_numpy(host["stage1_scores"])[:n].astype(np.float32, copy=False)}
 
 
 def topk_restore_host(vals, idx, n: int, score_key: str) -> dict[str, np.ndarray]:

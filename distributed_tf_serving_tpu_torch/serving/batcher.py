@@ -43,6 +43,15 @@ readback and per-request completion.
   reaches a result.
 - **Solo items.** A streamed sub-batch (`submit(..., _solo=True)`) is its
   own batch: the coalescer neither adds it to a group nor adds to it.
+- **The cascade's prune** (`submit(..., _prune_k=k)`, serving/cascade.py):
+  a solo request that asked for the score output alone reads back its k
+  best (score, index) pairs and its whole score vector
+  (ops/transfer.py cascade_prune_device), skipping the row cache and
+  dedup as top-k batches do; its score cache key is salted with the k.
+- **Thread death.** An exception that escapes the batching thread, the
+  dispatch thread or a completion worker is recorded as BatcherThreadDead:
+  the batch that thread held, every queued item and every staged group
+  fail with it at once, and every later submit raises it.
 - **Phases and spans.** Each stage is timed into utils/tracing.py's
   `request_trace` (always on) under the JAX package's phase names:
   `batch.pad` (padding a group on the batching thread, when the native
@@ -133,6 +142,8 @@ from ..ops.transfer import (
     pack_host_combined,
     restore_outputs_host,
     to_device,
+    cascade_prune_device,
+    cascade_restore_host,
     topk_compact_device,
     topk_restore_host,
     transfer_spec,
@@ -158,6 +169,15 @@ _WARMUP_DTYPES = {1: np.float32, 2: np.float64, 3: np.int32, 9: np.int64}
 
 class BatchTooLargeError(ValueError):
     pass
+
+
+class BatcherThreadDead(RuntimeError):
+    """A batcher-owned thread (the batching loop, the dispatch thread or a
+    completion worker) died from an exception that escaped its body. Every
+    queued and staged waiter fails with it at once and every later submit
+    raises it up front, so no caller waits out its deadline for a thread
+    that no longer exists. UNAVAILABLE at the RPC layer (the RuntimeError
+    mapping). Reviving the thread is the recovery plane's (not ported)."""
 
 
 class QueueOverloadError(RuntimeError):
@@ -316,6 +336,7 @@ class _WorkItem:
     # tracing is on: the batch's phases are replayed onto it. None =
     # untraced.
     span: object = None
+    prune_k: int = 0  # > 0: the cascade's stage-1 prune (submit's _prune_k)
 
 
 def _phase_sink(group: list[_WorkItem]) -> list | None:
@@ -362,6 +383,11 @@ class BatcherStats:
     # output of the step would have moved (the compaction's baseline).
     topk_batches: int = 0
     bytes_downloaded: int = 0
+    # The cascade's stage-1 prune: batches read back as survivor pairs and
+    # the stage-1 vector, and prune submits whose prune could not arm (they
+    # read back their plain outputs; the cascade prunes on the host).
+    prune_batches: int = 0
+    prune_fallback_batches: int = 0
     bytes_download_full_f32: int = 0
     # High-water marks: items waiting in the queue, and batches handed to
     # the completion workers at once.
@@ -446,6 +472,7 @@ class _Staged:
     keys: tuple[str, ...] | None
     collected_t: float
     topk: int = 0  # > 0: read back the top-k pairs of the one request
+    prune: bool = False  # the top-k read back as a cascade prune (cascade_prune_device)
     phases: list | None = None  # the batch's phase sink (_phase_sink)
     pad_bufs: list = dataclasses.field(default_factory=list)  # from the pad ring
     seq: int | None = None  # its key in _inflight_since while a live readback is out
@@ -466,6 +493,7 @@ class _Readback:
     nbytes: int = 0  # bytes the copies move
     full_f32_bytes: int = 0  # a float32 readback of every output of the step
     topk: tuple | None = None  # (request rows, score key) of a top-k readback
+    prune: bool = False  # that top-k readback is a cascade prune
     input_cache_hit: bool = False  # the upload was a DeviceInputCache hit
     variant: tuple = (False, False)  # (quantized, fused): the kernel the batch ran
     shadow: _Readback | None = None  # the integrity plane's second run of the batch
@@ -480,13 +508,17 @@ class _HostBufferRing:
     A buffer goes back with the CUDA event recorded after the copy that
     reads or writes it, and `acquire` waits on that event before handing
     it out again, so a buffer is never rewritten while a copy may still
-    read it. At most `per_size` free buffers are kept per size; an acquire
-    beyond them allocates, and the surplus is dropped on release."""
+    read it. At most `per_size` free buffers are kept per size, and free
+    buffers of at most `max_sizes` sizes (the least recently used size goes
+    first: the cascade's prune reads back a new size for each survivor
+    count); an acquire beyond them allocates, the surplus is dropped on
+    release."""
 
     def __init__(self, pinned: bool):
         self.pinned = pinned
         self.per_size = 4
-        self._free: dict[int, deque] = {}
+        self.max_sizes = 64
+        self._free: OrderedDict[int, deque] = OrderedDict()
         self._lock = threading.Lock()
         self.reuses = 0
         self.allocs = 0
@@ -500,6 +532,7 @@ class _HostBufferRing:
                 self.allocs += 1
             else:
                 self.reuses += 1
+                self._free.move_to_end(nbytes)
         if entry is None:
             return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.pinned)
         buf, event = entry
@@ -512,7 +545,11 @@ class _HostBufferRing:
     def release(self, bufs, event=None) -> None:
         with self._lock:
             for b in bufs:
-                free = self._free.setdefault(b.numel(), deque())
+                free = self._free.get(b.numel())
+                if free is None:
+                    if len(self._free) >= self.max_sizes:
+                        self._free.popitem(last=False)
+                    free = self._free[b.numel()] = deque()
                 if len(free) < self.per_size:
                     free.append((b, event))
 
@@ -908,6 +945,9 @@ class DynamicBatcher:
         )
         self._started = False
         self._stopping = False
+        # The BatcherThreadDead of the first batcher-owned thread that died
+        # (_note_thread_death), else None: submit raises it up front.
+        self._dead: BatcherThreadDead | None = None
 
     # ------------------------------------------------------------------ API
 
@@ -965,6 +1005,7 @@ class DynamicBatcher:
         criticality: str | None = None,
         _solo: bool = False,
         _warmup: bool = False,
+        _prune_k: int = 0,
     ) -> Future:
         """Enqueue one request's arrays; returns a Future of output arrays
         sliced back to the request's own candidate count. output_keys limits
@@ -985,9 +1026,25 @@ class DynamicBatcher:
         With the overload plane, `criticality` (the x-dts-criticality lane;
         warmup takes the probe lane) is the request's lane at admission,
         and past NOMINAL an entry inside the stale window answers, marked
-        degraded (overload.mark_degraded in the caller's context)."""
+        degraded (overload.mark_degraded in the caller's context).
+
+        _prune_k > 0 (the cascade's stage 1, serving/cascade.py) makes the
+        submit a prune: the result carries the k best (score, index) pairs
+        (`survivor_scores`, `survivor_indices`) and the request's stage-1
+        score vector (`stage1_scores`) instead of its outputs, or, where the
+        prune cannot arm (prune_fallback_batches), the plain outputs. It is
+        solo (the indices address the request's own rows), and its score
+        cache key is salted with b"prune:<k>", so a prune result never
+        answers a full request for the same features, nor the reverse.
+
+        Once a batcher thread has died (BatcherThreadDead) every submit
+        raises that death at once."""
+        if _prune_k:
+            _solo = True  # the survivor indices address this request's own rows
         if self._stopping:
             raise RuntimeError("batcher is stopped")
+        if self._dead is not None:
+            raise self._dead
         ns = {k: v.shape[0] for k, v in arrays.items()}
         n = next(iter(ns.values()))
         if any(v != n for v in ns.values()):
@@ -1003,7 +1060,8 @@ class DynamicBatcher:
             stale_s = ov.stale_window_s if ov is not None and ov.stale_serve_active() else 0.0
             with request_trace.span("cache.lookup"):
                 handle = cache.begin(servable.name, servable.version, output_keys, arrays,
-                                     stale_s=stale_s)
+                                     stale_s=stale_s,
+                                     salt=b"prune:%d" % _prune_k if _prune_k else b"")
             if handle.hit is not None:
                 if handle.stale:
                     ov.note_brownout_serve()
@@ -1022,7 +1080,7 @@ class DynamicBatcher:
                 return handle.waiter
         try:
             fut = self._submit_miss(servable, arrays, n, output_keys, deadline_s, span,
-                                    _solo, _warmup, criticality)
+                                    _solo, _warmup, criticality, _prune_k)
         except BaseException as exc:
             if handle is not None and handle.leader:
                 # Never enqueued (breaker, admission, prepare): those that
@@ -1034,12 +1092,12 @@ class DynamicBatcher:
             # meanwhile still closes this flight.
             fut.add_done_callback(
                 lambda f, h=handle, c=cache: self._cache_complete(
-                    c, h, f, servable, arrays, output_keys))
+                    c, h, f, servable, arrays, output_keys, _prune_k))
         return fut
 
     def _submit_miss(self, servable: Servable, arrays: dict[str, np.ndarray], n: int,
                      output_keys, deadline_s, span, solo: bool, warmup: bool,
-                     criticality: str | None = None) -> Future:
+                     criticality: str | None = None, prune_k: int = 0) -> Future:
         """submit() past the score cache: the breaker, admission, prepare
         and enqueue. Admission comes before the copy: a shed request pays
         none of it."""
@@ -1084,16 +1142,21 @@ class DynamicBatcher:
             servable=servable, arrays=prepared, n=n, output_keys=output_keys,
             future=Future(), enqueue_t=now,
             deadline_t=None if deadline_s is None else now + deadline_s, solo=solo,
-            warmup=warmup, span=span if tracing.enabled() else None,
+            warmup=warmup, span=span if tracing.enabled() else None, prune_k=prune_k,
         )
         with self._cv:
+            if self._dead is not None:
+                # A thread died after the check in submit: its shed of the
+                # queue has run, so this item would never be taken.
+                self._queued_candidates -= n
+                raise self._dead
             self._items.append(item)
             self.stats.max_queue_depth = max(self.stats.max_queue_depth, len(self._items))
             self._cv.notify_all()
         return item.future
 
     def _cache_complete(self, cache, handle, fut: Future, servable: Servable,
-                        arrays: dict[str, np.ndarray], output_keys) -> None:
+                        arrays: dict[str, np.ndarray], output_keys, prune_k: int = 0) -> None:
         """A single-flight leader's done-callback: a result fills the cache
         (under cache.fill) and answers those that joined; a failure reaches
         them too. A leader ended by its own deadline (cancelled, or shed
@@ -1105,7 +1168,8 @@ class DynamicBatcher:
             if not waiters:
                 return
             try:
-                retry = self.submit(servable, arrays, output_keys=output_keys)
+                retry = self.submit(servable, arrays, output_keys=output_keys,
+                                    _prune_k=prune_k)
             except BaseException as exc:  # stopped, wedged or full
                 for w in waiters:
                     try:
@@ -1456,14 +1520,15 @@ class DynamicBatcher:
 
     def _shape_outputs(self, servable: Servable, out: dict[str, torch.Tensor],
                        output_keys: tuple[str, ...] | None, topk: int,
-                       n_valid: int) -> dict[str, torch.Tensor]:
+                       n_valid: int, prune: bool = False) -> dict[str, torch.Tensor]:
         """The readback wire on the device, between the step and the
-        readback issue: the top-k pairs of the score output, or the
-        selected outputs at the wire dtype. Device tensors only: nothing
-        here waits for the card."""
+        readback issue: the top-k pairs of the score output (with the
+        whole score vector for a cascade prune), or the selected outputs at
+        the wire dtype. Device tensors only: nothing here waits for the
+        card."""
         if topk:
-            return topk_compact_device(out[servable.model.score_output], n_valid, topk,
-                                       self._wire_dt)
+            select = cascade_prune_device if prune else topk_compact_device
+            return select(out[servable.model.score_output], n_valid, topk, self._wire_dt)
         if output_keys is not None:
             out = {k: v for k, v in out.items() if k in output_keys} or out
         return compact_outputs_device(out, self._wire_dt)
@@ -1473,6 +1538,10 @@ class DynamicBatcher:
         float32 outputs (the wire undone, sidecars dropped)."""
         if rb.topk is not None:
             n, key = rb.topk
+            if rb.prune:
+                # The cascade gathers and scatters on the host: the three
+                # arrays widened, the stage-1 vector trimmed to the request.
+                return cascade_restore_host(views, n)
             return topk_restore_host(views["topk_scores"], views["topk_indices"], n, key)
         if self._wire_dt is not None:
             return restore_outputs_host(views)
@@ -1480,13 +1549,14 @@ class DynamicBatcher:
 
     def _issue(self, servable: Servable, src, rows: int, output_keys: tuple[str, ...] | None,
                override=None, per_key: bool = False, topk: int = 0,
-               n_valid: int = 0, shadow: bool = False) -> _Readback:
+               n_valid: int = 0, shadow: bool = False, prune: bool = False) -> _Readback:
         """The device stage of one padded batch, up to the readback issue:
         pack into a ring buffer, one upload, the device step, the readback
         wire, the readback copies. `src` is a _FusedCtx or the padded
         arrays; per_key (or inputs the combined layout cannot carry)
         uploads one copy per input instead. topk > 0 reads back the top-k
-        pairs of the first n_valid rows' scores. A `shadow` (the integrity
+        pairs of the first n_valid rows' scores (with `prune`, the cascade's
+        prune: the pairs and the score vector). A `shadow` (the integrity
         plane's second run, `override` its batch's variant) reads the input
         cache without filling it and moves only the shadow_* counters."""
         entry = self.step_for(servable)
@@ -1562,12 +1632,13 @@ class DynamicBatcher:
                            for v in out.values())
                 with request_trace.span("readback.issue"):
                     rb = self._issue_readback(
-                        self._shape_outputs(servable, out, output_keys, topk, n_valid))
+                        self._shape_outputs(servable, out, output_keys, topk, n_valid, prune))
             rb.full_f32_bytes = full
             rb.input_cache_hit = cache_hit
             rb.variant = variant
             if topk:
                 rb.topk = (n_valid, servable.model.score_output)
+                rb.prune = prune
         finally:
             for buf, event in spent:
                 # Reusable once the copy that reads it is done (on the CPU
@@ -1719,7 +1790,10 @@ class DynamicBatcher:
                 return None
 
     def _loop(self) -> None:
-        """The batching thread: collect, coalesce, assemble, stage."""
+        """The batching thread: collect, coalesce, assemble, stage. An
+        exception that escapes it ends the thread as a BatcherThreadDead
+        (_note_thread_death): the group it held fails with it."""
+        group = None
         try:
             while True:
                 item = self._take()
@@ -1743,6 +1817,9 @@ class DynamicBatcher:
                 # Drop the batch before waiting for the next one: this frame
                 # must not keep a retired servable alive while idle.
                 item = group = staged = None
+        except BaseException as exc:
+            self._note_thread_death("batching", exc, group)
+            raise
         finally:
             with self._cv:
                 self._collect_done = True
@@ -1753,7 +1830,7 @@ class DynamicBatcher:
         pack). With the row cache, only the batch's cold rows are executed,
         in their own bucket, and a batch with no cold row is delivered from
         the cache with no device work; with dedup, each distinct row once.
-        Both skip top-k and warmup groups. A failure fails the group's
+        Both skip top-k (and prune) and warmup groups. A failure fails the group's
         futures (and its row flights) and returns None."""
         phases = _phase_sink(group)
         ring = self.buffer_ring
@@ -1773,6 +1850,17 @@ class DynamicBatcher:
             if (self.output_top_k and len(group) == 1 and 0 < self.output_top_k < total
                     and keys == (servable.model.score_output,)):
                 topk = self.output_top_k
+            # The cascade's stage-1 prune rides the same selection (a prune
+            # item is solo); where it cannot arm, the batch reads back its
+            # plain outputs and the cascade prunes on the host.
+            prune = False
+            if first.prune_k and not first.warmup:
+                if (len(group) == 1 and 0 < first.prune_k < total
+                        and keys == (servable.model.score_output,)):
+                    topk, prune = first.prune_k, True
+                else:
+                    with self._stats_lock:
+                        self.stats.prune_fallback_batches += 1
             warm = any(it.warmup for it in group)
             scatter = uniq = cats = None
             rc = self.row_cache
@@ -1790,7 +1878,8 @@ class DynamicBatcher:
                     # delivered on a completion worker, so this thread
                     # never waits for another batch's fill.
                     _replay(group, phases)
-                    self._completers.submit(self._finish_row_batch, group, row_ctx, None)
+                    fut = self._completers.submit(self._finish_row_batch, group, row_ctx, None)
+                    fut.add_done_callback(lambda f, g=group: self._guard_row_delivery(f, g))
                     return None
                 cats = row_ctx.exec_arrays
                 if not row_ctx.passthrough:
@@ -1844,7 +1933,7 @@ class DynamicBatcher:
             self._fail(group, total, exc, row_ctx)
             return None
         return _Staged(group=group, total=total, bucket=bucket, src=src, keys=keys,
-                       collected_t=time.perf_counter(), topk=topk, phases=phases,
+                       collected_t=time.perf_counter(), topk=topk, prune=prune, phases=phases,
                        pad_bufs=pad_bufs, scatter=scatter, row_ctx=row_ctx)
 
     def _plan_rows(self, rc, group: list[_WorkItem], total: int, keys) -> _RowContext:
@@ -1987,18 +2076,27 @@ class DynamicBatcher:
         The wait ends once the breaker opens: behind a wedged dispatch
         thread the next groups stage, where a submit sheds them."""
         with self._cv:
-            self._staged.append(staged)
-            self._dispatch_pending += 1
-            self._staged_candidates += staged.total
-            self._cv.notify_all()
-            while (self._dispatch_pending >= self.pipeline_depth
-                   and self._dispatch_thread.is_alive()
-                   and not self._wedged_for(time.perf_counter())):
-                # Bounded: the wedge clock advances with wall time alone.
-                self._cv.wait(0.05)
+            dead = self._dead
+            if dead is None:
+                self._staged.append(staged)
+                self._dispatch_pending += 1
+                self._staged_candidates += staged.total
+                self._cv.notify_all()
+                while (self._dispatch_pending >= self.pipeline_depth
+                       and self._dispatch_thread.is_alive() and self._dead is None
+                       and not self._wedged_for(time.perf_counter())):
+                    # Bounded: the wedge clock advances with wall time alone.
+                    self._cv.wait(0.05)
+        if dead is not None:
+            # No dispatch thread takes it after a death: fail it as the shed did.
+            self._release_pad(staged)
+            self._fail(staged.group, staged.total, dead, staged.row_ctx)
 
     def _dispatch_loop(self) -> None:
-        """The dispatch thread: run each staged group's device stage."""
+        """The dispatch thread: run each staged group's device stage.
+        _run_stage fails a group on any Exception; anything that escapes it
+        ends the thread as a BatcherThreadDead (_note_thread_death), which
+        fails that group and everything queued and staged behind it."""
         with self.device_scope():
             while True:
                 with self._cv:
@@ -2010,6 +2108,9 @@ class DynamicBatcher:
                     self._staged_candidates -= staged.total
                 try:
                     self._run_stage(staged)
+                except BaseException as exc:
+                    self._note_thread_death("dispatch", exc, staged.group, staged.row_ctx)
+                    raise
                 finally:
                     staged = None  # as in _loop: hold no servable while idle
                     with self._cv:
@@ -2078,7 +2179,7 @@ class DynamicBatcher:
                 servable = st.group[0].servable
                 with request_trace.span("batch.dispatch"):
                     rb = self._issue(servable, st.src, st.bucket, st.keys,
-                                     topk=st.topk, n_valid=st.total)
+                                     topk=st.topk, n_valid=st.total, prune=st.prune)
                 integ = self.integrity
                 if integ is not None and not all_warm and integ.want_shadow():
                     # The same device stage again (same servable, bucket and
@@ -2087,7 +2188,7 @@ class DynamicBatcher:
                     with request_trace.span("batch.shadow_dispatch"):
                         rb.shadow = self._issue(servable, self._shadow_src(st), st.bucket,
                                                 st.keys, override=rb.variant, topk=st.topk,
-                                                n_valid=st.total, shadow=True)
+                                                n_valid=st.total, shadow=True, prune=st.prune)
                     with self._stats_lock:
                         self.stats.shadow_batches += 1
                         self.stats.shadow_input_cache_hits += rb.shadow.input_cache_hit
@@ -2114,7 +2215,8 @@ class DynamicBatcher:
             self.stats.requests += len(st.group)
             self.stats.candidates += st.total
             self.stats.padded_candidates += st.bucket
-            self.stats.topk_batches += bool(st.topk)
+            self.stats.topk_batches += bool(st.topk) and not st.prune
+            self.stats.prune_batches += st.prune
             self.stats.bytes_downloaded += rb.nbytes
             self.stats.bytes_download_full_f32 += rb.full_f32_bytes
         with self._cv:
@@ -2136,10 +2238,40 @@ class DynamicBatcher:
 
     def _guard_completer(self, fut, st: _Staged) -> None:
         """A completion worker that never ran _finish (its thread failed to
-        start) would leave the group's waiters hanging: fail them."""
+        start) would leave the group's waiters hanging: fail them. _finish
+        fails the group on any Exception, so anything else surfacing here
+        escaped it: the worker's death (_note_thread_death)."""
         exc = fut.exception()
         if isinstance(exc, BrokenExecutor):
             self._abandon(st, exc)
+        elif exc is not None:
+            # The shed first: a window slot freed before it would let the
+            # dispatch thread take a staged group the death should fail.
+            self._note_thread_death("completer", exc, st.group, st.row_ctx)
+            with self._cv:
+                self._done_inflight_locked(st)
+
+    def _guard_row_delivery(self, fut, group: list) -> None:
+        """The same guard on a row-cache delivery handed to the workers."""
+        exc = fut.exception()
+        if exc is not None:
+            self._note_thread_death("completer", exc, group)
+
+    def _note_thread_death(self, which: str, exc: BaseException, group=None,
+                           row_ctx: _RowContext | None = None) -> None:
+        """A batcher-owned thread died from an exception that escaped its
+        body: record the death (submit raises it from now on), fail `group`
+        (the batch it held) and everything queued and staged, and wake
+        every waiter. The first death is the one recorded."""
+        err = BatcherThreadDead(f"batcher {which} thread died: {type(exc).__name__}: {exc}")
+        err.__cause__ = exc
+        log.error("batcher %s thread died", which, exc_info=exc)
+        if group:
+            self._fail(group, sum(it.n for it in group), err, row_ctx)
+        with self._cv:
+            if self._dead is None:
+                self._dead = err
+            self._shed_queued(self._dead)
 
     def _done_inflight_locked(self, st: _Staged) -> None:
         """The batch left the completion workers: off the in-flight counts
@@ -2239,7 +2371,8 @@ class DynamicBatcher:
         for idx, it in enumerate(st.group):
             sl = slice(off, off + it.n)
             off += it.n
-            keys = it.output_keys or tuple(host)
+            # A prune's result is its three arrays (solo: the one member).
+            keys = tuple(host) if st.prune else (it.output_keys or tuple(host))
             result = {k: host[k][sl] for k in keys if k in host}
             if timeline is not None:
                 timeline.append((it.enqueue_t, st.collected_t, rb.stage_t, rb.issue_t,

@@ -119,13 +119,15 @@ class IntegrityPlane:
 
     # -------------------------------------------- layer 1: wire checksums
 
-    def verify_inputs(self, arrays: dict, sidecar: str) -> list[str]:
+    def verify_inputs(self, arrays: dict, sidecar: str, bf16=()) -> list[str]:
         """Server-side request verify: decoded input arrays against the
         client's ``x-dts-input-crc`` stamp. Returns the mismatched names
         (empty = clean); a malformed sidecar IS a mismatch. The caller
-        fails only the one request that carried the stamp."""
+        fails only the one request that carried the stamp. `bf16` names
+        the inputs decoded from DT_BFLOAT16 (widened to float32): those are
+        checked over the bits the wire carried."""
         try:
-            bad = codec.verify_crc_sidecar(arrays, sidecar)
+            bad = codec.verify_crc_sidecar(arrays, sidecar, bf16)
         except codec.CodecError as e:
             bad = [f"sidecar: {e}"]
         with self._lock:

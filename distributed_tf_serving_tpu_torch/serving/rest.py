@@ -28,6 +28,8 @@ package's PredictionServiceImpl:
   (`{"enabled": false}` with the plane off); `POST /cachez/flush[?model=]`
   -> drops every cached score (or one model's) in both stores,
   FAILED_PRECONDITION (500) with no store armed.
+- `GET /cascadez` -> the ranking cascade's counters (serving/cascade.py;
+  `{"enabled": false}` with the plane off).
 - `GET /integrityz` -> the integrity plane's counters, suspect verdict and
   events (`{"enabled": false}` with the plane off); `POST
   /integrityz/audit[?batches=N]` -> the next N batches are shadowed
@@ -38,8 +40,7 @@ package's PredictionServiceImpl:
   `X-DTS-Degraded`.
 - The planes that are not ported yet answer what the JAX gateway answers
   with that plane off: `{"enabled": false}` from `/utilz`,
-  `/qualityz`, `/lifecyclez`, `/fleetz`, `/recoveryz`, `/meshz`,
-  `/cascadez`; 404 from `/lifecyclez/rollback`; FAILED_PRECONDITION (500)
+  `/qualityz`, `/lifecyclez`, `/fleetz`, `/recoveryz`, `/meshz`; 404 from `/lifecyclez/rollback`; FAILED_PRECONDITION (500)
   from `/qualityz/snapshot` and `/labelz`. `/profilez` is not served (it
   belongs to the utilization plane).
 
@@ -159,7 +160,7 @@ class RestGateway:
             web.get("/fleetz", self.plane_off),
             web.get("/recoveryz", self.plane_off),
             web.get("/meshz", self.plane_off),
-            web.get("/cascadez", self.plane_off),
+            web.get("/cascadez", self.cascadez),
             web.get("/integrityz", self.integrityz),
             web.post("/integrityz/audit", self.integrityz_audit),
         ]
@@ -446,6 +447,7 @@ class RestGateway:
                 pipeline=self.impl.pipeline_stats(),
                 kernels=self.impl.kernels_stats(),
                 integrity=self.impl.integrity_stats(),
+                cascade=self.impl.cascade_stats(),
             ).encode("utf-8"),
             headers={"Content-Type": "text/plain; version=0.0.4; charset=utf-8"},
         )
@@ -552,6 +554,15 @@ class RestGateway:
     async def plane_not_found(self, request: web.Request) -> web.Response:
         """A plane's operator lever with the plane off: 404."""
         return web.json_response(_OFF, status=404)
+
+    async def cascadez(self, request: web.Request) -> web.Response:
+        """GET /cascadez: the cascade's config echo (stage-1 model, survivor
+        policy), request / fallback / stage-1 failure / host prune counters,
+        row dispositions, stage seconds, observed survivor and rank
+        fractions, survivor buckets, and the batcher's prune counters;
+        `{"enabled": false}` with the plane off."""
+        stats = self.impl.cascade_stats()
+        return web.json_response(stats if stats is not None else _OFF)
 
     async def integrityz(self, request: web.Request) -> web.Response:
         """GET /integrityz: wire verify / reject counters, screen trips,

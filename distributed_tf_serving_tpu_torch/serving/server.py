@@ -12,8 +12,11 @@ With `[overload] enabled` (serving/overload.py) each inference RPC reads
 its lane from `x-dts-criticality`, a refusal carries `retry-after-ms` and a
 stale answer `x-dts-degraded` in the trailing metadata; with `[integrity]
 enabled` (serving/integrity.py) Predict verifies `x-dts-input-crc` and
-stamps `x-dts-score-crc`. Both sections arm the plane on the CLI, in
-build_stack, and so on either server.
+stamps `x-dts-score-crc`; with `[cascade] enabled` (serving/cascade.py)
+an output-filtered Predict of at least `min_candidates` rows is pruned by
+a stage-1 servable on the device and only the survivors are ranked. Each
+section (or its flag: `--overload`, `--integrity`, `--cascade`) arms the
+plane in build_stack, and so on either server.
 
 `create_server` builds the threaded server (a handler thread per RPC);
 `create_server_async` the coroutine one (grpc.aio: one event-loop thread
@@ -35,7 +38,8 @@ CLI:
         [--no-warmup] [--max-wait-us N] [--max-workers N] \
         [--file-system-poll-wait-seconds S] [--max-num-load-retries N] \
         [--uds-path PATH] [--stream-chunk N] [--rest-port N] \
-        [--metrics-every-s S] [--tracing] [--cache]
+        [--metrics-every-s S] [--tracing] [--cache] [--overload] [--integrity] \
+        [--cascade]
 
 serves, by default, a randomly initialized demo servable (numpy-seeded,
 `--seed`) of the configured model kind ([server] model_kind, or
@@ -92,6 +96,7 @@ from ..utils.config import (
     DRAIN_GRACE_S,
     BatchingConfig,
     CacheConfig,
+    CascadeConfig,
     IntegrityConfig,
     KernelsConfig,
     ObservabilityConfig,
@@ -1031,8 +1036,9 @@ class GracefulShutdown:
     1. `impl.draining`: health "" answers NOT_SERVING and every new
        inference RPC is refused UNAVAILABLE, so balancers and fan-out
        clients go elsewhere;
-    2. the version watcher or the model lifecycle stops: no load or warmup
-       enters the batcher behind the drain;
+    2. the cascade's stage-1 watcher, then the version watcher or the
+       model lifecycle stop: no load or warmup enters the batcher behind the
+       drain;
     3. `batcher.drain(grace_s)`: what the server accepted is answered
        (queued, staged, running and read back), bounded by the grace;
     4. the transport settles (`quiesce`, TransportQuiesce: RPCs that
@@ -1089,6 +1095,8 @@ class GracefulShutdown:
         try:
             t0 = time.perf_counter()
             self.impl.draining = True
+            if self.impl.cascade_watcher is not None:
+                self.impl.cascade_watcher.stop()
             if self.watcher is not None:
                 self.watcher.stop()
             self.drained = self.batcher.drain(self.grace_s)
@@ -1120,7 +1128,8 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                 transport_config: TransportConfig | None = None,
                 cache_config: CacheConfig | None = None,
                 overload_config: OverloadConfig | None = None,
-                integrity_config: IntegrityConfig | None = None):
+                integrity_config: IntegrityConfig | None = None,
+                cascade_config: CascadeConfig | None = None):
     """(impl, batcher, servable): the servable serving at start, warmed
     through every bucket (unless `cfg.warmup` is off), and a started
     batcher. The servable is the numpy-seeded demo (`seed`), the checkpoint
@@ -1158,8 +1167,14 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     impl (serving/integrity.py). A shadow_fraction above 0 beside an
     enabled score cache is refused (cache hits would never be
     re-checked), and on the card the wire checksums need the native host
-    ops. The source options are checked, and a model config file parsed,
-    before any thread starts."""
+    ops. An enabled `cascade_config` registers the stage-1 servable under
+    its own name (built in process from the primary model's config, or
+    served by a VersionWatcher from `stage1_base_path`,
+    `impl.cascade_watcher`) and sets `impl.cascade`; beside `output_top_k`
+    it is refused ([mesh] and [elastic], refused there too in the JAX
+    package, never reach here: load_config refuses them first). The source
+    options are checked, and a model config file parsed, before any thread
+    starts."""
     if checkpoint and model_base_path:
         raise ValueError(
             "--model-base-path is mutually exclusive with --checkpoint "
@@ -1198,6 +1213,17 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
         raise RuntimeError(
             "[integrity] wire_checksums needs the native host-ops library "
             "(native/hostops.cc dts_crc32c), which could not be built with g++")
+    cascade_armed = cascade_config is not None and cascade_config.enabled
+    if cascade_armed and cfg.output_top_k:
+        raise ValueError(
+            "[cascade] enabled conflicts with output_top_k: the "
+            "top-k wire replaces the score vector with (score, "
+            "index) pairs, but the cascade's scatter needs the full "
+            "vector to fill non-survivors from stage-1 scores — the "
+            "two selections cannot both own the response shape. "
+            "The cascade IS the retrieval-style compaction; drop "
+            "output_top_k"
+        )
     bc = batching_config or BatchingConfig()
     if bc.inflight_window or bc.buffer_ring:
         log.info("batching pipeline: depth=%d inflight_window=%s buffer_ring=%s",
@@ -1252,6 +1278,9 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                  integrity_config.wire_checksums, integrity_config.screen,
                  integrity_config.shadow_fraction, integrity_config.screen_trips_per_window,
                  integrity_config.screen_window_s)
+
+    if cascade_armed:
+        _arm_cascade(cfg, cascade_config, model_config, registry, batcher, impl)
 
     def prepare_kernels(servable) -> None:
         if kernels is None or servable is None:
@@ -1329,6 +1358,55 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     return impl, batcher, servable
 
 
+def _arm_cascade(cfg: ServerConfig, cc: CascadeConfig, model_config: ModelConfig | None,
+                 registry: ServableRegistry, batcher: DynamicBatcher,
+                 impl: PredictionServiceImpl) -> None:
+    """The stage-1 servable and the orchestrator. Stage 1 is a normal
+    registry entry under `cc.stage1_model`: with `stage1_base_path`, the
+    versions a VersionWatcher loads from it (warmed through the queue, so
+    the batcher starts first); else a demo servable of `stage1_kind` built
+    from the primary model's config (seed 0), warmed directly. A two_tower
+    stage 1 whose user fields would cover every field is given half of them
+    (its user / item split must stay a split), as in the JAX server."""
+    from .cascade import CascadeOrchestrator
+
+    if cc.stage1_base_path:
+        from .version_watcher import VersionWatcher, VersionWatcherConfig
+
+        batcher.start()
+        impl.cascade_watcher = VersionWatcher(
+            cc.stage1_base_path, registry,
+            VersionWatcherConfig(
+                model_name=cc.stage1_model,
+                poll_interval_s=cfg.file_system_poll_wait_seconds,
+                max_load_attempts=cfg.max_num_load_retries + 1,
+            ),
+            warmup=batcher.warmup_via_queue if cfg.warmup else None,
+            device=batcher.device,
+            on_servable_change=_servable_change_hook(batcher.score_cache, batcher.row_cache),
+        ).start()
+    else:
+        base_mc = model_config or ModelConfig(name=cfg.model_name, num_fields=cfg.num_fields)
+        overrides = {"name": cc.stage1_model}
+        if cc.stage1_kind == "two_tower" and base_mc.num_user_fields >= base_mc.num_fields:
+            overrides["num_user_fields"] = max(1, base_mc.num_fields // 2)
+        stage1 = load_demo_servable(registry, kind=cc.stage1_kind, name=cc.stage1_model,
+                                    config=dataclasses.replace(base_mc, **overrides),
+                                    device=batcher.device)
+        if cfg.warmup:
+            batcher.warmup(stage1)
+    impl.cascade = CascadeOrchestrator(
+        registry, batcher, stage1_model=cc.stage1_model, survivor_k=cc.survivor_k,
+        survivor_fraction=cc.survivor_fraction, score_threshold=cc.score_threshold,
+        min_candidates=cc.min_candidates,
+    )
+    log.info("cascade on: stage1=%s (%s%s) survivors=%s threshold=%s min_candidates=%d — "
+             "GET /cascadez on the REST surface", cc.stage1_model, cc.stage1_kind,
+             f" from {cc.stage1_base_path}" if cc.stage1_base_path else " demo",
+             cc.survivor_k or f"{cc.survivor_fraction:.0%}", cc.score_threshold or "<off>",
+             cc.min_candidates)
+
+
 def _version_labels(raw_labels: list[str]) -> tuple[tuple[str, int], ...]:
     """--version-label LABEL=VERSION flags as sorted (label, version) pairs."""
     pairs = []
@@ -1346,8 +1424,8 @@ def _version_labels(raw_labels: list[str]) -> tuple[tuple[str, int], ...]:
 def serve(argv=None) -> None:
     p = argparse.ArgumentParser(description="PyTorch TF-Serving-compatible CTR server")
     p.add_argument("--config", help="TOML file with [server], [batching], [transport], "
-                   "[model], [kernels], [observability], [cache], [overload] and [integrity] "
-                   "sections")
+                   "[model], [kernels], [observability], [cache], [overload], [integrity] and "
+                   "[cascade] sections")
     p.add_argument("--port", type=int, default=None)
     p.add_argument("--host", default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -1411,6 +1489,26 @@ def serve(argv=None) -> None:
         "REST surface). Equivalent to [cache] enabled = true; the [cache] section carries "
         "the capacity, ttl, coalesce and dedup knobs and the row-granular tier")
     p.add_argument(
+        "--overload", action="store_true", default=None,
+        help="adaptive overload control (serving/overload.py): a self-tuning admission limit "
+        "steered by queue wait, criticality lanes, doomed-work refusal, brownout stale-serve "
+        "and retry-after pushback. Equivalent to [overload] enabled = true; the [overload] "
+        "section carries the target, limit, brownout and stale knobs")
+    p.add_argument(
+        "--integrity", action="store_true", default=None,
+        help="data-integrity plane (serving/integrity.py): CRC32C wire checksums both ways "
+        "(x-dts-input-crc verified at decode, x-dts-score-crc stamped), the readback NaN/Inf "
+        "screen and sampled bit-identity shadow re-execution. Equivalent to [integrity] "
+        "enabled = true; the [integrity] section carries the knobs (GET /integrityz)")
+    p.add_argument(
+        "--cascade", action="store_true", default=None,
+        help="in-server ranking cascade (serving/cascade.py): a cheap stage-1 servable (its "
+        "own registry entry, hot-swappable) scores the whole candidate set, a prune on the "
+        "device keeps the top survivors, and the primary model ranks only those; pruned rows "
+        "keep their stage-1 scores and every row carries its stage in `cascade_stage`. "
+        "Equivalent to [cascade] enabled = true (GET /cascadez, dts_tpu_cascade_* series); "
+        "refused beside output_top_k")
+    p.add_argument(
         "--kernels", action="store_true",
         help="kernel/quantization plane: int8 weight quantization and the fused "
         "serve kernel, each enabled per bucket only where the load-time autotune "
@@ -1433,7 +1531,15 @@ def serve(argv=None) -> None:
     if args.cache:
         cache_config = dataclasses.replace(cache_config, enabled=True)
     overload_config = loaded.get("overload")
+    if args.overload:
+        overload_config = dataclasses.replace(overload_config or OverloadConfig(), enabled=True)
     integrity_config = loaded.get("integrity")
+    if args.integrity:
+        integrity_config = dataclasses.replace(integrity_config or IntegrityConfig(),
+                                               enabled=True)
+    cascade_config = loaded.get("cascade") or CascadeConfig()
+    if args.cascade:
+        cascade_config = dataclasses.replace(cascade_config, enabled=True)
     obs = loaded.get("observability") or ObservabilityConfig()
     if args.tracing:
         obs = dataclasses.replace(obs, tracing=True)
@@ -1474,7 +1580,7 @@ def serve(argv=None) -> None:
             checkpoint=args.checkpoint, model_base_path=args.model_base_path,
             batching_config=batching_config, transport_config=transport_config,
             cache_config=cache_config, overload_config=overload_config,
-            integrity_config=integrity_config,
+            integrity_config=integrity_config, cascade_config=cascade_config,
         )
     except BaseException:
         if request_logger is not None:

@@ -20,7 +20,8 @@ oversized batches, a full queue and an overload-plane refusal ->
 RESOURCE_EXHAUSTED (the refusal's retry-after-ms hint rides
 ServiceError.retry_after_ms); an expired deadline -> DEADLINE_EXCEEDED; an
 open circuit breaker (batcher.DeviceWedgedError), a readback-screen failure
-(IntegrityScreenError), a shadow mismatch, other batcher failures, and any
+(IntegrityScreenError), a shadow mismatch, a dead batcher thread
+(BatcherThreadDead), other batcher failures, and any
 inference RPC once the server drains for shutdown -> UNAVAILABLE; an
 injected fault (faults.py, at `decode` here or at a batcher site) -> the
 code its rule names.
@@ -31,6 +32,12 @@ admission; a result the batcher served stale leaves its degraded mark in
 the calling context (serving/overload.py), whence the transports send
 x-dts-degraded. With `integrity` armed, Predict verifies `input_crc` on the
 decoded arrays and `response_crc_sidecar` stamps the response.
+
+With `cascade` set (serving/cascade.py), a Predict that asked for the score
+output alone and carries at least `min_candidates` rows runs the ranking
+cascade: stage-1 scores and prunes on the device, the model ranks only the
+survivors, and the response carries `cascade_stage` (int32, 1 = stage-1
+score, 2 = ranked) beside the scores.
 
 With `response_arena` ([transport] response_arena) the response encodes and
 the Example decoder take their scratch from a per-thread codec.EncodeArena,
@@ -67,6 +74,7 @@ from .batcher import (
     QueueOverloadError,
     RequestDeadlineError,
 )
+from .cascade import STAGE_OUTPUT
 from .example_codec import ExampleDecodeError, decode_input
 from .integrity import IntegrityScreenError
 
@@ -146,6 +154,12 @@ class PredictionServiceImpl:
         # The integrity plane (serving/integrity.py), shared with the
         # batcher, or None: input CRC verify, response stamps, /integrityz.
         self.integrity = None
+        # The ranking cascade (serving/cascade.py CascadeOrchestrator), or
+        # None: an eligible Predict runs stage 1, the prune and stage 2.
+        self.cascade = None
+        # The stage-1 model's VersionWatcher ([cascade] stage1_base_path),
+        # else None: the drain stops it before the main watcher.
+        self.cascade_watcher = None
 
     def _arena(self) -> codec.EncodeArena | None:
         """The calling thread's EncodeArena, or None with response_arena
@@ -157,11 +171,11 @@ class PredictionServiceImpl:
             arena = self._arenas.arena = codec.EncodeArena()
         return arena
 
-    # Utilization, quality, lifecycle, recovery, cascade (ROADMAP.md Queue
-    # A item 6), fleet (item 8), mesh and elastic (item 9): refused by
+    # Utilization, quality, lifecycle, recovery (ROADMAP.md Queue A item
+    # 6), fleet (item 8), mesh and elastic (item 9): refused by
     # load_config, so always off here.
     utilization_stats = quality_stats = lifecycle_stats = staticmethod(_plane_off)
-    recovery_stats = cascade_stats = staticmethod(_plane_off)
+    recovery_stats = staticmethod(_plane_off)
     fleet_stats = mesh_stats = elastic_stats = staticmethod(_plane_off)
 
     def overload_stats(self) -> dict | None:
@@ -179,6 +193,21 @@ class PredictionServiceImpl:
         and the dts_tpu_integrity_* series. None with the plane off."""
         integ = self.integrity
         return integ.snapshot() if integ is not None else None
+
+    def cascade_stats(self) -> dict | None:
+        """The cascade's snapshot (requests, fallbacks, host prunes, row
+        dispositions, stage seconds, survivor buckets: the JAX package's
+        fields) with the batcher's prune counters under `batcher`: GET
+        /cascadez, the /monitoring `cascade` block and the
+        dts_tpu_cascade_* series. None with the plane off."""
+        casc = self.cascade
+        if casc is None:
+            return None
+        snap = casc.snapshot()
+        stats = self.batcher.stats
+        snap["batcher"] = {"prune_batches": stats.prune_batches,
+                           "prune_fallback_batches": stats.prune_fallback_batches}
+        return snap
 
     def response_crc_sidecar(self, resp) -> str | None:
         """The x-dts-score-crc value for one encoded PredictResponse, or
@@ -435,23 +464,29 @@ class PredictionServiceImpl:
         raise exc
 
     @staticmethod
-    def _submit_kw(criticality: str | None = None) -> dict:
+    def _submit_kw(criticality: str | None = None, prune_k: int = 0) -> dict:
         """A submit's optional arguments: the current span (the transport's
         root span) while tracing is on, so the batcher's threads attach the
-        batch phases to it, and the request's lane when it has one."""
+        batch phases to it, the request's lane when it has one, and the
+        cascade's prune when it is one."""
         kw = {"span": tracing.current_span()} if tracing.enabled() else {}
         if criticality is not None:
             kw["criticality"] = criticality
+        if prune_k:
+            kw["_prune_k"] = prune_k
         return kw
 
     def _run(self, servable: Servable, arrays: dict[str, np.ndarray],
-             output_keys: tuple[str, ...] | None, deadline_s: float | None,
-             criticality: str | None = None) -> dict[str, np.ndarray]:
+             output_keys: tuple[str, ...] | None = None, deadline_s: float | None = None,
+             criticality: str | None = None, prune_k: int = 0) -> dict[str, np.ndarray]:
+        """One batcher submit and its wait, the error translated. prune_k
+        > 0 is the cascade's stage-1 prune (batcher.submit's _prune_k)."""
         timeout = self._effective_timeout(deadline_s)
         fut = None
         try:
             fut = self.batcher.submit(servable, arrays, output_keys=output_keys,
-                                      deadline_s=deadline_s, **self._submit_kw(criticality))
+                                      deadline_s=deadline_s,
+                                      **self._submit_kw(criticality, prune_k))
             out = fut.result(timeout=timeout)
             self._consume_future_degraded(fut)
             return out
@@ -459,16 +494,18 @@ class PredictionServiceImpl:
             raise self._translate_batcher_error(e, fut) from e
 
     async def _run_async(self, servable: Servable, arrays: dict[str, np.ndarray],
-                         output_keys: tuple[str, ...] | None,
-                         deadline_s: float | None,
-                         criticality: str | None = None) -> dict[str, np.ndarray]:
+                         output_keys: tuple[str, ...] | None = None,
+                         deadline_s: float | None = None,
+                         criticality: str | None = None,
+                         prune_k: int = 0) -> dict[str, np.ndarray]:
         """_run for coroutine callers (the REST gateway): the batcher's
         Future is awaited, under the same timeout, instead of blocked on."""
         timeout = self._effective_timeout(deadline_s)
         fut = None
         try:
             fut = self.batcher.submit(servable, arrays, output_keys=output_keys,
-                                      deadline_s=deadline_s, **self._submit_kw(criticality))
+                                      deadline_s=deadline_s,
+                                      **self._submit_kw(criticality, prune_k))
             # wait_for's TimeoutError is concurrent.futures.TimeoutError.
             out = await asyncio.wait_for(asyncio.wrap_future(fut), timeout=timeout)
             self._consume_future_degraded(fut)
@@ -491,7 +528,8 @@ class PredictionServiceImpl:
         check, decode and validation, output_filter. Returns (servable,
         arrays, out_names, fetch_keys). `input_crc` (the request's
         x-dts-input-crc) is verified on the decoded arrays, before any fold
-        or cast, so a damaged request fails alone, before the batcher."""
+        or cast (a bf16 input over the bits it was sent with), so a damaged
+        request fails alone, before the batcher."""
         servable, signature = self._resolve(request.model_spec)
         if signature.method_name != "tensorflow/serving/predict":
             raise ServiceError(
@@ -507,7 +545,10 @@ class PredictionServiceImpl:
             arrays = self._decode_and_validate(servable, signature, request.inputs)
             integ = self.integrity
             if input_crc is not None and integ is not None and integ.config.wire_checksums:
-                bad = integ.verify_inputs(arrays, input_crc)
+                # A bf16 input decoded widened: checked over its wire bits.
+                bf16 = {k for k in arrays
+                        if request.inputs[k].dtype == fw.DataType.DT_BFLOAT16}
+                bad = integ.verify_inputs(arrays, input_crc, bf16)
                 if bad:
                     raise ServiceError(
                         "INVALID_ARGUMENT",
@@ -564,9 +605,18 @@ class PredictionServiceImpl:
         self._refuse_if_draining()
         deadline_t = self._clock_deadline(deadline_s)
         servable, arrays, out_names, fetch_keys = self._predict_prepare(request, input_crc)
-        with request_trace.span("predict.execute"):
-            outputs = self._run(servable, arrays, fetch_keys, self._budget_left(deadline_t),
-                                criticality)
+        casc = self.cascade
+        if casc is not None and casc.eligible(servable, fetch_keys,
+                                              next(iter(arrays.values())).shape[0]):
+            # The ranking cascade: its provenance output rides the response
+            # beside the signature's outputs.
+            with request_trace.span("predict.execute"):
+                outputs = casc.run(self, servable, arrays, fetch_keys, deadline_t, criticality)
+            out_names = [*out_names, STAGE_OUTPUT]
+        else:
+            with request_trace.span("predict.execute"):
+                outputs = self._run(servable, arrays, fetch_keys,
+                                    self._budget_left(deadline_t), criticality)
         resp = self._predict_finish(request, servable, out_names, outputs, int8_wire)
         # Only a request that succeeded is logged: the log is a warmup file,
         # and a malformed request must never fail a later version's load.
@@ -582,9 +632,17 @@ class PredictionServiceImpl:
         self._refuse_if_draining()
         deadline_t = self._clock_deadline(deadline_s)
         servable, arrays, out_names, fetch_keys = self._predict_prepare(request, input_crc)
-        with request_trace.span("predict.execute"):
-            outputs = await self._run_async(servable, arrays, fetch_keys,
-                                            self._budget_left(deadline_t), criticality)
+        casc = self.cascade
+        if casc is not None and casc.eligible(servable, fetch_keys,
+                                              next(iter(arrays.values())).shape[0]):
+            with request_trace.span("predict.execute"):
+                outputs = await casc.run_async(self, servable, arrays, fetch_keys, deadline_t,
+                                               criticality)
+            out_names = [*out_names, STAGE_OUTPUT]
+        else:
+            with request_trace.span("predict.execute"):
+                outputs = await self._run_async(servable, arrays, fetch_keys,
+                                                self._budget_left(deadline_t), criticality)
         resp = self._predict_finish(request, servable, out_names, outputs, int8_wire)
         self._log_request("predict", request)
         return resp

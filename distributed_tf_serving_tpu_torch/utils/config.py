@@ -1,5 +1,6 @@
 """TOML config: the [server], [batching], [transport], [model], [kernels],
-[observability], [cache], [overload] and [integrity] sections the port reads, the checks of the
+[observability], [cache], [overload], [integrity] and [cascade] sections
+the port reads, the checks of the
 model-config entries, and the mapping of a tensorflow_model_server
 batching-parameters file onto [server].
 
@@ -437,6 +438,67 @@ class IntegrityConfig:
         return IntegrityPlane(self)
 
 
+@dataclasses.dataclass(frozen=True)
+class CascadeConfig:
+    """The [cascade] section (serving/cascade.py): a cheap stage-1 servable
+    prunes each eligible Predict on the device and the primary model ranks
+    only the survivors. The JAX package's fields, defaults and checks. Off
+    by default (one attribute read per Predict). build_stack refuses it
+    beside output_top_k (its wire replaces the score vector the cascade
+    fills)."""
+
+    enabled: bool = False
+    # The stage-1 servable's registry name: a normal model name.
+    stage1_model: str = "stage1"
+    # The family built for the stage-1 servable in process, when no
+    # stage1_base_path supplies its versions (two_tower: the cheap scorer).
+    stage1_kind: str = "two_tower"
+    # A versioned base path a VersionWatcher serves stage 1 from; empty =
+    # the in-process stage-1 servable.
+    stage1_base_path: str = ""
+    # Survivors: a fixed count when > 0, else this fraction of the request.
+    survivor_k: int = 0
+    survivor_fraction: float = 0.25
+    # Survivors scoring below this at stage 1 are pruned too (0 = off;
+    # applied after the top-k, so it only shrinks the ranked set).
+    score_threshold: float = 0.0
+    # Smaller requests skip the cascade (two submits would cost more).
+    min_candidates: int = 8
+
+    def __post_init__(self):
+        if not self.stage1_model:
+            raise ValueError("[cascade] stage1_model must be non-empty")
+        if not isinstance(self.survivor_k, int) or isinstance(
+            self.survivor_k, bool
+        ) or self.survivor_k < 0:
+            raise ValueError(
+                "[cascade] survivor_k must be a non-negative int, got "
+                f"{self.survivor_k!r}"
+            )
+        if not isinstance(self.survivor_fraction, (int, float)) or isinstance(
+            self.survivor_fraction, bool
+        ) or not (0.0 < self.survivor_fraction <= 1.0):
+            raise ValueError(
+                "[cascade] survivor_fraction must be in (0, 1], got "
+                f"{self.survivor_fraction!r}"
+            )
+        if not isinstance(self.min_candidates, int) or isinstance(
+            self.min_candidates, bool
+        ) or self.min_candidates < 2:
+            raise ValueError(
+                "[cascade] min_candidates must be an int >= 2, got "
+                f"{self.min_candidates!r} — a 1-candidate cascade prunes "
+                "nothing and pays two submits"
+            )
+        if not isinstance(self.score_threshold, (int, float)) or isinstance(
+            self.score_threshold, bool
+        ) or self.score_threshold < 0.0:
+            raise ValueError(
+                "[cascade] score_threshold must be >= 0, got "
+                f"{self.score_threshold!r}"
+            )
+
+
 # [server] keys of the JAX package that change no result here: the JAX
 # runtime's transfer knobs, whose work the port's host path always does one
 # way (one combined buffer, async readback, a dispatch thread).
@@ -487,8 +549,6 @@ _UNPORTED_SECTIONS = {
     "slo": (("enabled", "latency_target_ms", "latency_objective", "availability_objective",
              "short_window_s", "long_window_s", "burn_threshold_fast", "burn_threshold_slow"),
             ("enabled",), 8),
-    "cascade": (("enabled", "stage1_model", "stage1_kind", "stage1_base_path", "survivor_k",
-                 "survivor_fraction", "score_threshold", "min_candidates"), ("enabled",), 6),
 }
 # The shutdown drain's grace when [overload] does not set it (seconds).
 DRAIN_GRACE_S = 5.0
@@ -538,8 +598,9 @@ def load_config(path) -> dict[str, Any]:
     BatchingConfig, "transport": TransportConfig, "drain_grace_s": float,
     "model": ModelConfig, "kernels": KernelsConfig, "observability":
     ObservabilityConfig, "cache": CacheConfig, "overload": OverloadConfig,
-    "integrity": IntegrityConfig} ("model", "kernels", "observability",
-    "cache", "overload" and "integrity" only when the file has that section). A nonzero [batching]
+    "integrity": IntegrityConfig, "cascade": CascadeConfig} ("model",
+    "kernels", "observability", "cache", "overload", "integrity" and
+    "cascade" only when the file has that section). A nonzero [batching]
     pipeline_depth replaces the [server] one, as in the JAX package's
     server; "drain_grace_s" is [overload] drain_grace_s (honored with the
     plane off, as there). Raises ValueError on a setting that is not
@@ -547,7 +608,7 @@ def load_config(path) -> dict[str, Any]:
     not know."""
     raw = tomllib.loads(pathlib.Path(path).read_text())
     ported = {"server", "batching", "transport", "model", "kernels", "observability", "cache",
-              "overload", "integrity"}
+              "overload", "integrity", "cascade"}
     unknown = sorted(set(raw) - ported - set(_UNPORTED_SECTIONS))
     if unknown:
         raise ValueError(f"unknown config sections: {unknown}")
@@ -579,6 +640,8 @@ def load_config(path) -> dict[str, Any]:
         out["overload"] = _coerce(OverloadConfig, raw["overload"], "overload")
     if "integrity" in raw:
         out["integrity"] = _coerce(IntegrityConfig, raw["integrity"], "integrity")
+    if "cascade" in raw:
+        out["cascade"] = _coerce(CascadeConfig, raw["cascade"], "cascade")
     extra = sorted(set(raw) & set(_UNPORTED_SECTIONS))
     if extra:
         log.info("ignoring config sections this package does not use: %s", extra)

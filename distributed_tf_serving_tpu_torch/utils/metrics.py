@@ -444,6 +444,46 @@ _HELP = {
         "Detections the plane escalated into the recovery controller's "
         "output_corrupt cycle (screen-trip threshold or shadow "
         "mismatch)",
+    "dts_tpu_cascade_requests_total":
+        "Requests that entered the multi-stage ranking cascade (stage-1 "
+        "prune + stage-2 rank in one RPC)",
+    "dts_tpu_cascade_fallbacks_total":
+        "Cascade requests that fell back to a single full-model pass "
+        "(stage-1 resolve/submit failure — e.g. mid-hot-swap — or an "
+        "ineligible composition detected at run time); the request "
+        "still succeeds",
+    "dts_tpu_cascade_stage1_failures_total":
+        "Stage-1 submits that raised and were absorbed by the full-pass "
+        "fallback (a version hot-swap window, typically)",
+    "dts_tpu_cascade_host_prunes_total":
+        "Prunes computed host-side from the full stage-1 score vector "
+        "because the on-device top-k variant did not arm for that batch",
+    "dts_tpu_cascade_rows_total":
+        "Candidate rows through the cascade by disposition: requested = "
+        "all rows entering stage 1, survivor = rows selected for stage "
+        "2, pruned = rows answered with their stage-1 score",
+    "dts_tpu_cascade_rows_ranked_total":
+        "Rows actually scored by the full model (survivors, plus every "
+        "row of fallback requests) — the numerator of the goodput win: "
+        "rank_fraction = ranked / requested",
+    "dts_tpu_cascade_zero_survivor_requests_total":
+        "Requests whose score threshold eliminated every candidate "
+        "(answered entirely from stage-1 scores; stage 2 skipped)",
+    "dts_tpu_cascade_stage_seconds_total":
+        "Wall time per cascade stage (stage1 = cheap-model submit, "
+        "prune = survivor selection + gather, stage2 = full-model "
+        "submit over survivors)",
+    "dts_tpu_cascade_survivor_fraction":
+        "Observed survivor_rows / rows_requested over the process "
+        "lifetime (the configured target is survivor_k or "
+        "survivor_fraction)",
+    "dts_tpu_cascade_rank_fraction":
+        "Observed rows_ranked / rows_requested — under 1.0 means the "
+        "full model is doing less work than a cascade-off server",
+    "dts_tpu_cascade_survivor_bucket_total":
+        "Stage-2 submits by the padded batch rung the survivors packed "
+        "into (the cascade's win shows as survivor traffic landing in "
+        "smaller rungs than the candidate batches)",
     "dts_tpu_integrity_suspect":
         "1 while this replica's own shadow verification has it marked "
         "suspect (also gossiped in the fleet record so routers steer "
@@ -614,7 +654,7 @@ class ServerMetrics:
         return out
 
     def prometheus_text(self, batcher_stats=None, cache=None, row_cache=None, overload=None,
-                        pipeline=None, kernels=None, integrity=None) -> str:
+                        pipeline=None, kernels=None, integrity=None, cascade=None) -> str:
         """Prometheus exposition (text format 0.0.4) of the same data
         snapshot() serves as JSON. Metric names mirror tensorflow_model_
         server's monitoring surface (`:tensorflow:serving:request_count` /
@@ -835,6 +875,8 @@ class ServerMetrics:
             lines.extend(_overload_prometheus_lines(overload))
         if kernels is not None:
             lines.extend(_kernel_prometheus_lines(kernels))
+        if cascade is not None:
+            lines.extend(_cascade_prometheus_lines(cascade))
         if integrity is not None:
             lines.extend(_integrity_prometheus_lines(integrity))
         return "\n".join(lines) + "\n"
@@ -877,6 +919,62 @@ def _overload_prometheus_lines(overload: dict) -> list[str]:
     current = overload.get("state", "nominal")
     for state in ("nominal", "brownout", "shed"):
         lines.append(f'{st}{{state="{esc(state)}"}} {1 if state == current else 0}')
+    return lines
+
+
+def _cascade_prometheus_lines(cascade: dict) -> list[str]:
+    """dts_tpu_cascade_* exposition from a cascade_stats() snapshot, the
+    JAX package's text: request / fallback counters, row dispositions
+    (requested / survivor / pruned), per-stage wall time, the observed
+    survivor and rank fractions, and the survivor-bucket counts."""
+    esc = escape_label_value
+    lines: list[str] = []
+    for metric, kind, value in (
+        ("dts_tpu_cascade_requests_total", "counter",
+         cascade.get("requests", 0)),
+        ("dts_tpu_cascade_fallbacks_total", "counter",
+         cascade.get("fallbacks", 0)),
+        ("dts_tpu_cascade_stage1_failures_total", "counter",
+         cascade.get("stage1_failures", 0)),
+        ("dts_tpu_cascade_host_prunes_total", "counter",
+         cascade.get("host_prunes", 0)),
+        ("dts_tpu_cascade_rows_ranked_total", "counter",
+         cascade.get("rows_ranked", 0)),
+        ("dts_tpu_cascade_zero_survivor_requests_total", "counter",
+         cascade.get("zero_survivor_requests", 0)),
+        ("dts_tpu_cascade_survivor_fraction", "gauge",
+         cascade.get("survivor_fraction_observed", 0.0)),
+        ("dts_tpu_cascade_rank_fraction", "gauge",
+         cascade.get("rank_fraction", 0.0)),
+    ):
+        _family_lines(lines, metric, kind)
+        lines.append(f"{metric} {value}")
+    rows = "dts_tpu_cascade_rows_total"
+    _family_lines(lines, rows, "counter")
+    for disposition, key in (
+        ("requested", "rows_requested"),
+        ("survivor", "survivor_rows"),
+        ("pruned", "pruned_rows"),
+    ):
+        lines.append(
+            f'{rows}{{disposition="{disposition}"}} {cascade.get(key, 0)}'
+        )
+    st = "dts_tpu_cascade_stage_seconds_total"
+    _family_lines(lines, st, "counter")
+    for stage, key in (
+        ("stage1", "stage1_seconds_total"),
+        ("prune", "prune_seconds_total"),
+        ("stage2", "stage2_seconds_total"),
+    ):
+        lines.append(f'{st}{{stage="{stage}"}} {cascade.get(key, 0.0)}')
+    buckets = cascade.get("survivor_buckets") or {}
+    if buckets:
+        sb = "dts_tpu_cascade_survivor_bucket_total"
+        _family_lines(lines, sb, "counter")
+        for bucket, count in sorted(
+            buckets.items(), key=lambda kv: int(kv[0])
+        ):
+            lines.append(f'{sb}{{bucket="{esc(str(bucket))}"}} {count}')
     return lines
 
 

@@ -407,3 +407,47 @@ def test_overload_and_integrity_planes_import_no_jax_subprocess():
     assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
     for mod in ("serving.overload", "serving.integrity"):
         assert f"distributed_tf_serving_tpu_torch.{mod}" in line["modules"]
+
+
+_CASCADE_SCRIPT = r"""
+import json, sys, tempfile
+import numpy as np
+from distributed_tf_serving_tpu_torch import codec
+from distributed_tf_serving_tpu_torch.models import ModelConfig
+from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+from distributed_tf_serving_tpu_torch.serving.cascade import publish_stage1
+from distributed_tf_serving_tpu_torch.serving.server import build_stack
+from distributed_tf_serving_tpu_torch.utils.config import CascadeConfig, ServerConfig
+import distributed_tf_serving_tpu_torch.interop.export  # noqa: F401
+cfg = ModelConfig(num_fields=3, vocab_size=64, embed_dim=2, mlp_dims=(4,), num_cross_layers=1)
+impl, batcher, _ = build_stack(ServerConfig(buckets=(8, 16), num_fields=3), cfg, device="cpu",
+                               cascade_config=CascadeConfig(enabled=True))
+req = apis.PredictRequest()
+req.model_spec.name = "DCN"
+req.output_filter.append("prediction_node")
+arrays = {"feat_ids": np.arange(48, dtype=np.int64).reshape(16, 3),
+          "feat_wts": np.ones((16, 3), np.float32)}
+for k, v in arrays.items():
+    codec.from_ndarray(v, out=req.inputs[k])
+stage = codec.to_ndarray(impl.predict(req).outputs["cascade_stage"])
+version, _ = publish_stage1(tempfile.mkdtemp(), impl.registry.resolve("stage1"), "two_tower")
+batcher.stop()
+print(json.dumps({"ranked": int((stage == 2).sum()), "version": version,
+                  "requests": impl.cascade_stats()["requests"],
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_cascade_and_interop_import_no_jax_subprocess():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run(
+        [sys.executable, "-c", _CASCADE_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert res.returncode == 0, res.stderr
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["ranked"] == 4 and line["version"] == 1 and line["requests"] == 1
+    assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
+    for mod in ("serving.cascade", "interop", "interop.export"):
+        assert f"distributed_tf_serving_tpu_torch.{mod}" in line["modules"]

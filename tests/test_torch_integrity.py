@@ -492,6 +492,83 @@ def test_corrupt_response_caught_before_merge(wired_backend, servable):
     assert counters["scoreboard"]["corruptions"] == 1
 
 
+@pytest.mark.parametrize("content", [True, False], ids=["tensor_content", "half_val"])
+def test_a_bf16_stamp_verifies_over_the_wire_bits_on_both_servers(content):
+    """A bf16 feat_wts stamped by the JAX codec (crc_sidecar over the
+    ml_dtypes.bfloat16 array the client sends) passes the input check of
+    the JAX service and of the port's; one flipped bit of its payload fails
+    both with INVALID_ARGUMENT corrupt-wire. The port decodes the tensor
+    widened to float32 and checks the bits that were sent."""
+    import ml_dtypes
+
+    from distributed_tf_serving_tpu.models import Servable as JaxServable
+    from distributed_tf_serving_tpu.models import ServableRegistry as JaxRegistry
+    from distributed_tf_serving_tpu.models import ctr_signatures as jax_signatures
+    from distributed_tf_serving_tpu.proto import serving_apis_pb2 as japis
+    from distributed_tf_serving_tpu.serving.service import PredictionServiceImpl as JaxImpl
+    from distributed_tf_serving_tpu.serving.service import ServiceError as JaxServiceError
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+    from distributed_tf_serving_tpu_torch.serving.service import ServiceError
+
+    kw = dict(KW, compute_dtype="bfloat16")
+    jm = jax_build("dcn_v2", JaxConfig(name="DCN", **kw))
+    jp = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    jreg = JaxRegistry()
+    jreg.load(JaxServable(name="DCN", version=1, model=jm, params=jp,
+                          signatures=jax_signatures(F)))
+    jb = jax_batcher.DynamicBatcher(buckets=(32, 64), max_wait_us=0).start()
+    jimpl = JaxImpl(jreg, jb)
+    jimpl.integrity = jax_integrity.IntegrityPlane(jax_config.IntegrityConfig(enabled=True))
+    tsv = Servable(name="DCN", version=1, model=build_model("dcn_v2", ModelConfig(name="DCN", **kw)),
+                   params=params_from_jax(jp, "cpu"), signatures=ctr_signatures(F))
+    plane = _plane()
+    tb, timpl = _stack(tsv, plane=plane)
+    try:
+        arrays = make_arrays(9, seed=41)
+        sent = {"feat_ids": arrays["feat_ids"],
+                "feat_wts": arrays["feat_wts"].astype(ml_dtypes.bfloat16)}
+        sidecar = jax_codec.crc_sidecar(sent)
+        jreq = japis.PredictRequest()
+        jreq.model_spec.name = "DCN"
+        for k, v in sent.items():
+            jax_codec.from_ndarray(v, use_tensor_content=content, out=jreq.inputs[k])
+        assert jreq.inputs["feat_wts"].dtype == jax_codec.DataType.DT_BFLOAT16
+
+        def both(jr):
+            tr = apis.PredictRequest.FromString(jr.SerializeToString())
+            outs = []
+            for impl, req, err in ((jimpl, jr, JaxServiceError), (timpl, tr, ServiceError)):
+                try:
+                    resp = impl.predict(req, input_crc=sidecar)
+                    outs.append(resp.outputs["prediction_node"])
+                except err as e:
+                    outs.append(e)
+            return outs
+
+        jgot, tgot = both(jreq)
+        assert jax_codec.to_ndarray(jgot).shape == codec.to_ndarray(tgot).shape == (9,)
+        snap = plane.snapshot()["wire"]
+        assert snap["inputs_verified"] == 1 and snap["inputs_rejected"] == 0
+
+        bad = japis.PredictRequest()
+        bad.CopyFrom(jreq)
+        wts = bad.inputs["feat_wts"]
+        if content:
+            raw = bytearray(wts.tensor_content)
+            raw[5] ^= 0x01
+            wts.tensor_content = bytes(raw)
+        else:
+            wts.half_val[3] ^= 0x0001
+        for e in both(bad):
+            assert e.code == "INVALID_ARGUMENT" and "corrupt-wire" in str(e)
+            assert "feat_wts" in str(e)
+        snap = plane.snapshot()["wire"]
+        assert snap["inputs_verified"] == 1 and snap["inputs_rejected"] == 1
+    finally:
+        tb.stop()
+        jb.stop()
+
+
 # ----------------------------------------------------- config + build_stack
 
 

@@ -93,7 +93,6 @@ REFUSED = [
     ("[quality]\nenabled = true\n", 6),
     ("[lifecycle]\nenabled = true\n", 6),
     ("[recovery]\nenabled = true\n", 6),
-    ("[cascade]\nenabled = true\n", 6),
     ("[integrity]\nrouter_audit_fraction = 0.5\n", 8),
     ("[fleet]\nenabled = true\n", 8),
     ("[slo]\nenabled = true\n", 8),
@@ -120,6 +119,9 @@ PORTED = [
      "overload", "enabled", True),
     ("[integrity]\nenabled = true\nshadow_fraction = 0.25\nscreen_max = 1.0\n", "integrity",
      "enabled", True),
+    ("[cascade]\nenabled = true\n", "cascade", "enabled", True),
+    ("[cascade]\nenabled = true\nstage1_model = \"retriever\"\nsurvivor_k = 16\n"
+     "score_threshold = 0.1\nmin_candidates = 32\n", "cascade", "survivor_k", 16),
 ]
 
 
@@ -130,7 +132,7 @@ def test_a_setting_ported_since_loads_like_jax(tmp_path, text, section, key, val
     theirs_section = jax_config.load_config(_toml(tmp_path, text))[section]
     ours, theirs = getattr(ours_section, key), getattr(theirs_section, key)
     assert ours == theirs == value
-    if section in ("cache", "overload", "integrity"):  # every field, as the JAX package reads it
+    if section in ("cache", "overload", "integrity", "cascade"):  # every field, as the JAX package reads it
         theirs_fields = dataclasses.asdict(theirs_section)
         if section == "integrity":  # the router's knob is not ported (refused away from 0)
             assert theirs_fields.pop("router_audit_fraction") == 0.0
@@ -176,7 +178,7 @@ def test_the_key_tables_are_the_jax_package_s():
               "transport": torch_config.TransportConfig, "kernels": torch_config.KernelsConfig,
               "observability": torch_config.ObservabilityConfig,
               "cache": torch_config.CacheConfig, "overload": torch_config.OverloadConfig,
-              "integrity": torch_config.IntegrityConfig}
+              "integrity": torch_config.IntegrityConfig, "cascade": torch_config.CascadeConfig}
     assert set(ported) | set(torch_config._UNPORTED_SECTIONS) == set(jax_fields)
     for section, (keys, switches, _) in torch_config._UNPORTED_SECTIONS.items():
         assert set(keys) == jax_fields[section], section
@@ -722,7 +724,7 @@ def test_cli_refuses_an_unported_plane_before_it_starts(tmp_path):
     assert "[recovery] enabled = true is not ported yet (ROADMAP.md Queue A item 6)" in res.stderr
 
 
-@pytest.mark.parametrize("flag", ["--overload", "--mesh", "--savedmodel=d", "--router"])
+@pytest.mark.parametrize("flag", ["--mesh", "--savedmodel=d", "--router"])
 def test_flags_of_later_slices_stay_unrecognized(flag, capsys):
     from distributed_tf_serving_tpu_torch.serving.server import serve
 
@@ -772,6 +774,69 @@ def test_cli_cache_flag_arms_the_store(tmp_path):
             proc.wait()
     assert cachez["enabled"] and cachez["hits"] == 1 and cachez["misses"] == 1
     assert "score cache on:" in out
+
+
+# (flag, the log line of the armed plane, the REST route whose block shows it)
+PLANE_FLAGS = [
+    ("--overload", "adaptive overload control on:", "/monitoring?section=overload"),
+    ("--integrity", "data-integrity plane on:", "/integrityz"),
+    ("--cascade", "cascade on:", "/cascadez"),
+]
+
+
+@pytest.mark.parametrize("flag,logged,route", PLANE_FLAGS, ids=[f for f, _, _ in PLANE_FLAGS])
+def test_cli_plane_flag_arms_the_plane(tmp_path, flag, logged, route):
+    """--overload, --integrity and --cascade each arm their plane with no
+    section in the config (as [<plane>] enabled = true would): the plane's
+    REST block answers, and an output-filtered Predict of 8 rows runs
+    through it (with --cascade it carries `cascade_stage`, 2 rows ranked)."""
+    import json
+    import urllib.request
+
+    cfg = _toml(tmp_path, "[server]\nnum_fields = 6\nbuckets = [8]\nmax_wait_us = 0\n"
+                "[model]\nnum_fields = 6\nvocab_size = 1024\nembed_dim = 4\nmlp_dims = [8]\n"
+                "num_cross_layers = 1\n")
+    port, rest_port = _free_port(), _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_tf_serving_tpu_torch.serving.server", "--config",
+         str(cfg), "--host", "127.0.0.1", "--port", str(port), "--device", "cpu",
+         "--rest-port", str(rest_port), flag],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            _wait_serving(ch, proc)
+            req = _req(_arrays(8, 6))
+            req.output_filter.append("prediction_node")
+            resp = PredictionServiceStub(ch).Predict(req, timeout=30)
+            assert codec.to_ndarray(resp.outputs["prediction_node"]).shape == (8,)
+            end = time.time() + 60
+            while True:
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{rest_port}{route}",
+                                                timeout=5) as r:
+                        block = json.loads(r.read())
+                    break
+                except OSError:
+                    assert proc.poll() is None and time.time() < end
+                    time.sleep(0.1)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        assert proc.returncode == 0, out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert logged in out
+    if flag == "--cascade":
+        stage = codec.to_ndarray(resp.outputs["cascade_stage"])
+        assert stage.dtype == np.int32 and int((stage == 2).sum()) == 2
+        assert block["requests"] == 1 and block["host_prunes"] == 0 and block["fallbacks"] == 0
+        return
+    assert "cascade_stage" not in resp.outputs
+    if flag == "--overload":
+        assert block["overload"]["state"] == "nominal"
+    else:
+        assert block["enabled"] and block["wire"]["inputs_verified"] == 0
 
 
 # ------------------------------------- the observability settings now serve
