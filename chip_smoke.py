@@ -80,7 +80,7 @@ Phases (any failure exits non-zero and prints no result line):
              completion worker waits for it). Then, on every server, the
              combined path's scores must have the bits of the per-key
              path's. On the bf16 fused_serve server: the stage breakdown at
-             buckets 256 and 2048 (fused_pack, h2d_unpack, device_step,
+             buckets 256, 512, 1024 and 2048 (fused_pack, h2d_unpack, device_step,
              d2h_issue, d2h_wait, beside the per-key path's perkey_fold_pack,
              perkey_h2d_unpack, perkey_d2h), the n = 7 submit p50 split into
              submit, collect, staged, dispatch_stage, readback_wait and
@@ -367,6 +367,53 @@ Phases (any failure exits non-zero and prints no result line):
              answers OK with provenance all 2, the plane-off bits, fallbacks
              + 1.
 
+16. utilization — the utilization and quality planes
+             (serving/utilization.py, serving/quality.py): the serving
+             phase's breakdown `device_step` per bucket (synchronized: the
+             step's launch and kernel with the card idle before it, median
+             of 20) is written as {bucket: us} to
+             chiprun_out/device_step_us.json; the CLI server on
+             configs/latency.toml (bf16 fused serve, seed-0 weights) with
+             --utilization --quality --tracing --rest-port, [utilization]
+             calibration_file = that table, and a [quality] window of 2 s
+             (4 slices, drift checked every 0.25 s). (1) 4 client processes
+             x 250 gRPC Predicts of n = 1000 (one payload each), then
+             /utilz over the loop's window: its components sum to its wall
+             within 2 %, its batches = the ledger's = the batcher's
+             non-warmup batches over the loop, in_flight 0, every idle cause
+             >= 0, achieved_fraction_of_device_limit in (0, 1] and labelled
+             device_step_table. (2) During a second loop, POST
+             /profilez/start?seconds=1: device_trace true, a second POST
+             answers 409, the exported trace names fused_serve_bf16_kernel,
+             host_stacks.json names the batcher, dispatch and completion
+             threads (kept as chiprun_out/utilization_host_stacks.json, the
+             dispatch thread's commonest stacks printed); the kernels'
+             busy time in the trace (the union of their intervals) must be
+             at most the ledger's busy time over a window from the POST to
+             the capture's end. (3) POST
+             /qualityz/snapshot, 2.5 s for the window to turn over, then 10
+             Predicts of the 50 rows of a loop payload that scored highest,
+             repeated to n = 1000: the reference PSI above
+             drift_threshold_psi, exemplars marked, a /tracez span annotated
+             quality.drift. (4) 4 Predicts with a known traceparent each, 250
+             rows of each labelled (Bernoulli of the score, seeded), POST
+             /labelz by trace id: all joined, and the windowed AUC equal to
+             train/data.auc over the same pairs (rounded to 6 places, as
+             /qualityz rounds it) within 1e-12. (5) /qualityz's lifetime
+             count = every score the server answered in the phase, its 50
+             bins = the clients' histogram of those scores on the sketch's
+             edges, exactly. (6) The dts_tpu_utilization_* and
+             dts_tpu_quality_* lines pass tools/check_prom.py; SIGTERM
+             exits 0. (7) The same loop on an in-process stack of the same
+             configuration with both planes, detached for off: off / on /
+             on / off, then utilization / quality / quality / utilization
+             (one plane attached), p50, p99 and QPS; the uncontended host
+             cost of one observe of 1000 scores and of one ledger interval;
+             the on runs' launch counters
+             (zeroed just before, read just after: `launches_utilization`)
+             must show fused_serve/bfloat16 once per batch and nothing
+             else.
+
 The lifecycle and models phases clear the device input cache before each
 memory read (its entries belong to the batcher, not to a version) and print
 the bytes it held.
@@ -384,7 +431,8 @@ path's, `launches_aio`; the cache-on stack's over the cache phase's steps
 1-4, `launches_cache`; the integrity phase's shadowed run,
 `launches_integrity`; the overload phase's armed load runs,
 `launches_overload`; the cascade phase's eligible Predicts,
-`launches_cascade`), the
+`launches_cascade`; the utilization phase's plane-on runs,
+`launches_utilization`), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. Every line it
 logs is also kept in chiprun_out/chip_smoke.log.
 """
@@ -934,8 +982,8 @@ STAGES = ("fused_pack", "h2d_unpack", "device_step", "d2h_issue", "d2h_wait",
 
 
 def breakdown(dev, batcher, servable) -> dict:
-    """Median of 20 of each host/device stage of one batch at buckets 256
-    and 2048, through the batcher's own stage functions: on the serving
+    """Median of 20 of each host/device stage of one batch at each bucket
+    of configs/latency.toml (256, 512, 1024, 2048), through the batcher's own stage functions: on the serving
     path, the native pack into a pinned ring buffer (`fused_pack`), its one
     copy + unpack_device_combined (`h2d_unpack`), the device step, the
     readback issue (`d2h_issue`: non-blocking copies + event) and its wait
@@ -957,7 +1005,7 @@ def breakdown(dev, batcher, servable) -> dict:
     entry = batcher.step_for(servable)
     cfg = servable.model.config
     out = {}
-    for bucket in (256, 2048):
+    for bucket in BUCKETS:
         step, params, _ = batcher._step(servable, entry, bucket, None)
         rng = np.random.RandomState(bucket)
         arrays = {"feat_ids": rng.randint(0, 1 << 40, size=(bucket, cfg.num_fields)).astype(np.int64),
@@ -5718,6 +5766,518 @@ def phase_cascade(dev, name: str) -> dict:
     return out
 
 
+UTIL_LOOP = (4, 250, 1000)  # client processes (one client each), Predicts each, candidates
+UTIL_CAPTURE_S = 1.0  # POST /profilez/start?seconds=
+UTIL_SUM_TOL = 0.02  # the waterfall's components against its wall
+# The cost loop's runs: both planes off / on / on / off, then each alone.
+UTIL_COST_RUNS = ("off", "on", "on", "off", "utilization", "quality", "quality", "utilization")
+UTIL_QUALITY_TOML = ("\n[quality]\nwindow_seconds = 2.0\nslices = 4\n"
+                     "drift_check_interval_s = 0.25\n")
+UTIL_DRIFT = (10, 50)  # drift Predicts (n = UTIL_LOOP[2]), the top rows they repeat
+UTIL_LABELS = (4, 250)  # labelled Predicts, rows labelled per Predict
+SKETCH_BINS = 50  # [quality] bins over [range_lo, range_hi] = [0, 1] (the defaults)
+
+
+def _sketch_bins(scores) -> "np.ndarray":
+    """The quality sketch's bin counts of `scores`, computed as the
+    server's ScoreSketch bins them (float64, floor over the bin width,
+    clipped into the edge bins)."""
+    import numpy as np
+
+    s = np.asarray(scores, dtype=np.float64).ravel()
+    idx = np.clip(np.floor((s - 0.0) / (1.0 / SKETCH_BINS)).astype(np.int64), 0, SKETCH_BINS - 1)
+    return np.bincount(idx, minlength=SKETCH_BINS)
+
+
+def _loop_client(k, jobs, barrier, results) -> None:
+    """One client process of the utilization phase's closed loop (started
+    with spawn, kept for the phase): per job (port, serialized Predict,
+    Predicts), one channel, the Predicts back to back after the barrier.
+    Puts (latencies ms, the sketch bins of every returned score, scores
+    returned, end time) or ("error", text) on `results`; None ends it."""
+    import traceback
+
+    try:
+        import grpc
+
+        from distributed_tf_serving_tpu_torch import codec
+        from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+    except BaseException:  # noqa: BLE001 — the parent fails the phase with it
+        results.put(("error", traceback.format_exc()))
+        return
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        port, req, per_client = job
+        try:
+            ch = _channel(port)
+            call = ch.unary_unary("/tensorflow.serving.PredictionService/Predict",
+                                  response_deserializer=apis.PredictResponse.FromString)
+            grpc.channel_ready_future(ch).result(timeout=60)
+            barrier.wait(timeout=120)
+            lat, bins, n = [], None, 0
+            for _ in range(per_client):
+                t0 = time.perf_counter()
+                resp = call(req, timeout=60)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                got = codec.to_ndarray(resp.outputs["prediction_node"])
+                b = _sketch_bins(got)
+                bins = b if bins is None else bins + b
+                n += got.shape[0]
+            ch.close()
+            results.put((lat, bins.tolist(), n, time.time()))
+        except BaseException:  # noqa: BLE001 — the parent fails the phase with it
+            results.put(("error", traceback.format_exc()))
+
+
+class _LoopClients:
+    """UTIL_LOOP[0] spawned client processes, one closed-loop client each,
+    reused across the phase's loops (a spawn costs seconds of imports)."""
+
+    def __init__(self, procs: int):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.results = ctx.Queue()
+        self.barrier = ctx.Barrier(procs + 1)
+        self.jobs = [ctx.Queue() for _ in range(procs)]
+        self.procs = [ctx.Process(target=_loop_client, daemon=True,
+                                  args=(k, self.jobs[k], self.barrier, self.results))
+                      for k in range(procs)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, port: int, reqs: list[bytes], per_client: int, started=None) -> dict:
+        """Client k sends reqs[k] per_client times; p50 / p99 / QPS over the
+        wall time from the barrier to the last client's end, the sketch bins
+        of every score returned. `started` (an Event) is set at the
+        barrier."""
+        import queue
+
+        import numpy as np
+
+        for q, req in zip(self.jobs, reqs):
+            q.put((port, req, per_client))
+        self.barrier.wait(timeout=180)
+        t0 = time.time()
+        if started is not None:
+            started.set()
+        lat, bins, n, ends = [], np.zeros(SKETCH_BINS, np.int64), 0, []
+        for _ in self.procs:
+            try:
+                got = self.results.get(timeout=600)
+            except queue.Empty:
+                fail("utilization: a client process gave no result in 600 s")
+            if got[0] == "error":
+                fail(f"utilization: a client process failed: {got[1]}")
+            lat.extend(got[0])
+            bins += np.asarray(got[1], np.int64)
+            n += got[2]
+            ends.append(got[3])
+        wall = max(ends) - t0
+        return {**_percentiles(lat), "qps": len(lat) / wall, "wall_s": wall, "bins": bins,
+                "scores": n}
+
+    def close(self) -> None:
+        for q in self.jobs:
+            q.put(None)
+        for p in self.procs:
+            p.join(10)
+            if p.is_alive():
+                p.terminate()
+                p.join(5)
+
+
+def _trace_kernels(path: str) -> tuple[dict, float]:
+    """A torch.profiler Chrome trace's kernel events: launches per kernel
+    name, and the union of their intervals (s)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    names: dict = {}
+    spans = []
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("ph") == "X":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+            spans.append((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))))
+    spans.sort()
+    busy, end = 0.0, -math.inf
+    for t0, t1 in spans:
+        if t1 <= end:
+            continue
+        busy += t1 - max(t0, end)
+        end = t1
+    return names, busy / 1e6
+
+
+def _annotated(node, message: str) -> bool:
+    """Whether a /tracez body holds a span annotated `message`."""
+    if isinstance(node, dict):
+        if any(a.get("message") == message for a in node.get("annotations", ()) or ()
+               if isinstance(a, dict)):
+            return True
+        return any(_annotated(v, message) for v in node.values())
+    if isinstance(node, list):
+        return any(_annotated(v, message) for v in node)
+    return False
+
+
+def phase_utilization(dev, name: str, step_table: str) -> dict:
+    """The utilization and quality planes on the card: the CLI server on
+    configs/latency.toml (bf16 fused serve, seed-0 weights) with
+    --utilization --quality --tracing --rest-port and [utilization]
+    calibration_file = the serving phase's per-bucket device step
+    (`step_table`), driven by client processes; then the planes' cost on an
+    in-process stack of the same configuration (plane off / on / on / off).
+    Checks in the docstring of the module."""
+    import glob
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack, create_server
+    from distributed_tf_serving_tpu_torch.train.data import auc
+    from distributed_tf_serving_tpu_torch.utils.config import (
+        QualityConfig,
+        UtilizationConfig,
+        load_config,
+    )
+
+    out: dict = {"card": name, "calibration_file": step_table}
+    loaded = load_config(os.path.join(HERE, "configs", "latency.toml"))
+    cfg, model_cfg = loaded["server"], loaded["model"]
+    fields = model_cfg.num_fields
+    procs, per_client, n = UTIL_LOOP
+    rng = np.random.RandomState(SEED + 17)
+    payloads = [(rng.randint(0, 1 << 40, size=(n, fields)).astype(np.int64),
+                 rng.rand(n, fields).astype(np.float32)) for _ in range(procs)]
+    reqs = [_request(*p).SerializeToString() for p in payloads]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_util_")
+    toml = os.path.join(HERE, "chiprun_out", "utilization.toml")
+    with open(os.path.join(HERE, "configs", "latency.toml")) as f:
+        text = f.read()
+    with open(toml, "w") as f:
+        f.write(text + f"\n[utilization]\ncalibration_file = {json.dumps(step_table)}\n"
+                f"profile_dir = {json.dumps(os.path.join(tmp, 'profiles'))}\n"
+                + UTIL_QUALITY_TOML
+                + f"reference_file = {json.dumps(os.path.join(tmp, 'quality_reference.json'))}\n")
+    clients = _LoopClients(procs)
+    sent = {"bins": np.zeros(SKETCH_BINS, np.int64), "scores": 0}
+
+    def tally(res):
+        sent["bins"] += res["bins"]
+        sent["scores"] += res["scores"]
+
+    rest_port = _free_port()
+    log_path = os.path.join(HERE, "chiprun_out", "utilization_server.log")
+    proc = logf = http = ch = None
+    try:
+        proc, port, logf = _start_cli(
+            ["--config", toml, "--utilization", "--quality", "--tracing",
+             "--rest-port", str(rest_port)], log_path)
+        _wait_port(rest_port, proc)
+        http = _Http(rest_port)
+        ch = _channel(port)
+        from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+
+        stub = PredictionServiceStub(ch)
+
+        def predict(ids, wts, metadata=None):
+            got = _scores_of(stub.Predict(_request(ids, wts), timeout=60, metadata=metadata))
+            sent["bins"] += _sketch_bins(got)
+            sent["scores"] += got.shape[0]
+            return got
+
+        u0 = http.json("GET", "/utilz")
+        if (not u0["enabled"] or not u0["calibrated"] or u0["batches"] != 0
+                or not u0["device"].startswith("cuda:")):
+            fail(f"utilization: the CLI server's ledger is {u0}")
+        b0 = http.json("GET", "/monitoring?section=metrics")["metrics"]["batcher"]["batches"]
+
+        # 1. The closed loop, read over its own window.
+        time.sleep(0.3)
+        t0 = time.perf_counter()
+        loop = clients.run(port, reqs, per_client)
+        tally(loop)
+        window = time.perf_counter() - t0 + 0.1
+        u1 = http.json("GET", f"/utilz?window={window:.3f}")
+        b1 = http.json("GET", "/monitoring?section=metrics")["metrics"]["batcher"]["batches"]
+        wf = u1["waterfall"]
+        comps = wf["components_s"]
+        idle = {k: v for k, v in comps.items() if k.startswith("idle_")}
+        bad = []
+        if abs(wf["sum_s"] - wf["wall_s"]) > UTIL_SUM_TOL * wf["wall_s"]:
+            bad.append(f"components sum {wf['sum_s']} against wall {wf['wall_s']}")
+        if not wf["batches"] == u1["batches"] - u0["batches"] == b1 - b0:
+            bad.append(f"batches: window {wf['batches']}, ledger {u1['batches'] - u0['batches']}, "
+                       f"batcher {b1 - b0}")
+        if u1["in_flight"] != 0:
+            bad.append(f"in_flight {u1['in_flight']}")
+        if any(v < 0 for v in comps.values()) or any(
+                g["total_s"] < 0 for g in u1["idle_gaps"].values()):
+            bad.append(f"a negative component {comps}")
+        if (not 0 < wf["achieved_fraction_of_device_limit"] <= 1
+                or wf["calibration"] != "device_step_table"):
+            bad.append(f"achieved_fraction_of_device_limit "
+                       f"{wf['achieved_fraction_of_device_limit']} ({wf['calibration']})")
+        if bad:
+            fail("utilization: the closed loop's waterfall: " + "; ".join(bad))
+        out["loop"] = {k: v for k, v in loop.items() if k != "bins"}
+        out["waterfall"] = wf
+        out["idle_gaps"] = u1["idle_gaps"]
+        out["max_in_flight"] = u1["max_in_flight"]
+        share = {k: v / wf["wall_s"] for k, v in comps.items()}
+        log(f"utilization: {procs} client processes x {per_client} Predicts of n = {n}: p50 "
+            f"{loop['p50_ms']:.3f} ms p99 {loop['p99_ms']:.3f} ms qps {loop['qps']:.1f}; "
+            f"/utilz over {wf['wall_s']:.3f} s: {wf['batches']} batches (= the batcher's), "
+            f"components sum / wall {wf['sum_over_wall']:.6f}, busy {wf['busy_fraction']:.4f}, "
+            f"achieved_fraction_of_device_limit {wf['achieved_fraction_of_device_limit']:.4f} "
+            f"(calibrated), max in flight {u1['max_in_flight']}; shares "
+            + ", ".join(f"{k} {v:.4f}" for k, v in share.items()) + f" ({name})")
+
+        # 2. The deep capture during a second loop.
+        started = threading.Event()
+        res2: dict = {}
+
+        def second():
+            try:
+                res2["loop"] = clients.run(port, reqs, per_client, started)
+            except BaseException as exc:  # noqa: BLE001 — reported below
+                res2["error"] = exc
+
+        th = threading.Thread(target=second)
+        th.start()
+        if not started.wait(180):
+            fail("utilization: the capture's loop did not start")
+        time.sleep(0.3)
+        t_post = time.perf_counter()
+        info = http.json("POST", f"/profilez/start?seconds={UTIL_CAPTURE_S}")
+        status, body = http.call("POST", f"/profilez/start?seconds={UTIL_CAPTURE_S}")
+        if not info.get("device_trace"):
+            fail(f"utilization: the capture has no device trace: {info}")
+        if status != 409:
+            fail(f"utilization: a second capture inside the window answered {status}: "
+                 f"{body[:200]!r}")
+        end = time.perf_counter() + 60
+        while http.json("GET", "/profilez")["active"]:
+            if time.perf_counter() > end:
+                fail("utilization: the capture did not end within 60 s")
+            time.sleep(0.02)
+        u2 = http.json("GET", f"/utilz?window={time.perf_counter() - t_post:.3f}")
+        th.join(600)
+        if "error" in res2 or "loop" not in res2:
+            fail(f"utilization: the capture's loop failed: {res2.get('error')}")
+        tally(res2["loop"])
+        traces = glob.glob(os.path.join(info["artifact_dir"], "trace_*.json"))
+        if len(traces) != 1:
+            fail(f"utilization: the capture wrote {traces} into {info['artifact_dir']}")
+        kernels, kernel_busy = _trace_kernels(traces[0])
+        with open(info["host_stacks"]) as f:
+            stacks = json.load(f)
+        ledger_busy = u2["waterfall"]["busy_fraction"] * u2["waterfall"]["wall_s"]
+        threads = set(stacks["threads"])
+        if not any("fused_serve_bf16_kernel" in k for k in kernels):
+            fail(f"utilization: the capture's trace names no fused_serve_bf16_kernel: "
+                 f"{sorted(kernels)[:10]}")
+        if not {"batcher", "batch-dispatch"} <= threads or not any(
+                t.startswith("batch-complete") for t in threads):
+            fail(f"utilization: host_stacks.json names threads {sorted(threads)}")
+        if not kernel_busy <= ledger_busy:
+            fail(f"utilization: kernel busy {kernel_busy:.6f} s > the ledger's busy "
+                 f"{ledger_busy:.6f} s over the capture")
+        with open(os.path.join(HERE, "chiprun_out", "utilization_host_stacks.json"), "w") as f:
+            json.dump(stacks, f, indent=1)
+        # Where the dispatch thread was sampled: its three commonest stacks,
+        # innermost three frames each.
+        top = [(e["count"], " <- ".join(e["stack"].split(";")[:3]))
+               for e in stacks["threads"].get("batch-dispatch", [])[:3]]
+        fused = sum(v for k, v in kernels.items() if "fused_serve_bf16_kernel" in k)
+        out["capture"] = {"seconds": UTIL_CAPTURE_S, "kernel_busy_s": kernel_busy,
+                          "ledger_busy_s": ledger_busy, "ledger_window_s": u2["waterfall"]["wall_s"],
+                          "ledger_batches": u2["waterfall"]["batches"],
+                          "fused_serve_bf16_kernel_events": fused,
+                          "kernel_events": kernels, "host_stack_samples": stacks["samples"],
+                          "dispatch_top_stacks": top,
+                          "loop": {k: v for k, v in res2["loop"].items() if k != "bins"}}
+        log(f"utilization: /profilez capture of {UTIL_CAPTURE_S} s during the loop: device "
+            f"trace on, {fused} fused_serve_bf16_kernel events; kernel busy "
+            f"{kernel_busy * 1e3:.3f} ms against the ledger's busy {ledger_busy * 1e3:.3f} ms "
+            f"over its {u2['waterfall']['wall_s']:.3f} s window ({u2['waterfall']['batches']} "
+            f"batches; kernel / ledger {kernel_busy / ledger_busy:.4f}); a second POST 409; "
+            f"host_stacks.json: {stacks['samples']} samples, threads {sorted(threads)[:6]}; "
+            "batch-dispatch's commonest stacks: " + "; ".join(f"{c} x {st}" for c, st in top))
+
+        # 3. Drift: pin, let the window turn over, then Predicts of the
+        # rows with the highest scores of a loop payload, repeated.
+        ids, wts = payloads[0]
+        top = np.argsort(-predict(ids, wts), kind="stable")[:UTIL_DRIFT[1]]
+        sel = np.resize(top, n)
+        pinned = http.json("POST", "/qualityz/snapshot")
+        if not pinned.get("pinned") or pinned["models"].get("DCN", 0) <= 0:
+            fail(f"utilization: POST /qualityz/snapshot answered {pinned}")
+        time.sleep(load_config(toml)["quality"].window_seconds + 0.5)
+        for _ in range(UTIL_DRIFT[0]):
+            predict(ids[sel], wts[sel])
+        q = http.json("GET", "/qualityz")
+        drift = q["models"]["DCN"]["drift"]
+        ref = drift.get("reference") or {}
+        if not (ref.get("psi", 0.0) > drift["threshold_psi"] and drift["exceeded"]
+                and q["exemplars"]["marked"] >= 1):
+            fail(f"utilization: no drift after the shifted Predicts: {drift}, exemplars "
+                 f"{q['exemplars']}")
+        tz = http.json("GET", "/tracez?limit=1000")
+        if not _annotated(tz, "quality.drift"):
+            fail("utilization: no /tracez span carries quality.drift")
+        out["drift"] = {"reference": ref, "exemplars": q["exemplars"],
+                        "pinned": pinned["models"]}
+        log(f"utilization: pinned {pinned['models']}; {UTIL_DRIFT[0]} Predicts of the top "
+            f"{UTIL_DRIFT[1]} rows: PSI {ref['psi']} (threshold {drift['threshold_psi']}), "
+            f"JS {ref['js']}, exemplars {q['exemplars']}; /tracez holds a quality.drift span")
+
+        # 4. Labels by trace id: the windowed AUC is train/data.auc's.
+        lrng = np.random.RandomState(SEED + 18)
+        pairs_s, pairs_l, items = [], [], []
+        for i in range(UTIL_LABELS[0]):
+            tid = "%032x" % lrng.randint(1, 1 << 62)
+            ids, wts = payloads[i % procs]
+            got = predict(ids, wts, metadata=(("traceparent", f"00-{tid}-{'%016x' % (i + 1)}-01"),))
+            rows = np.arange(UTIL_LABELS[1])
+            labels = (lrng.rand(rows.size) < got[rows]).astype(np.float64)
+            pairs_s.append(got[rows].astype(np.float64))
+            pairs_l.append(labels)
+            items += [{"id": f"{tid}#{r}", "label": int(lab)} for r, lab in zip(rows, labels)]
+        joined = http.json("POST", "/labelz", json.dumps({"labels": items}).encode())
+        q = http.json("GET", "/qualityz")
+        want = auc(np.concatenate(pairs_l), np.concatenate(pairs_s))
+        lab = q["labels"]
+        if (joined != {"joined": len(items), "orphaned": 0} or lab["window_pairs"] != len(items)
+                or lab["auc"] is None or abs(lab["auc"] - round(want, 6)) > 1e-12):
+            fail(f"utilization: /labelz answered {joined}; /qualityz labels {lab} against "
+                 f"train/data.auc {want} over the same {len(items)} pairs")
+        out["labels"] = {"pairs": len(items), "auc": lab["auc"], "auc_exact": want,
+                         "calibration_error": lab["calibration"]["error"]}
+        log(f"utilization: /labelz joined {len(items)} labels by trace id; windowed AUC "
+            f"{lab['auc']} = train/data.auc {want:.9f} rounded to 6 places; calibration "
+            f"error {lab['calibration']['error']}")
+
+        # 5. The sketch holds every score the server answered, bin for bin.
+        v = q["models"]["DCN"]["versions"]["1"]
+        counts = np.asarray(v["histogram"]["counts"], np.int64)
+        if v["count"] != sent["scores"] or not np.array_equal(counts, sent["bins"]):
+            fail(f"utilization: /qualityz counts {v['count']} scores in bins "
+                 f"{counts.tolist()}; the clients got {sent['scores']} in "
+                 f"{sent['bins'].tolist()}")
+        out["quality_scores"] = sent["scores"]
+        log(f"utilization: /qualityz lifetime count {v['count']} = the scores returned, its "
+            f"{SKETCH_BINS} bins = the clients' histogram of them (p50 {v['p50']}, p99 "
+            f"{v['p99']})")
+
+        # 6. The series.
+        status, prom = http.call("GET", "/monitoring/prometheus/metrics")
+        prom = prom.decode()
+        lint = subprocess.run([sys.executable, os.path.join(HERE, "tools", "check_prom.py"), "-"],
+                              input=prom, capture_output=True, text=True, timeout=60)
+        util_lines = [ln for ln in prom.splitlines() if ln.startswith("dts_tpu_utilization_")]
+        qual_lines = [ln for ln in prom.splitlines() if ln.startswith("dts_tpu_quality_")]
+        count_line = (f'dts_tpu_quality_scores_total{{model_name="DCN",version="1"}} '
+                      f'{sent["scores"]}')
+        if (status != 200 or lint.returncode != 0 or len(util_lines) < 9
+                or count_line not in qual_lines):
+            fail(f"utilization: the exposition ({status}) has {len(util_lines)} utilization and "
+                 f"{len(qual_lines)} quality lines, lint {lint.stdout[-300:]}")
+        log(f"utilization: {len(util_lines)} dts_tpu_utilization_* and {len(qual_lines)} "
+            "dts_tpu_quality_* lint-clean lines")
+        http.close()
+        http = None
+        ch.close()
+        ch = None
+        rc = _stop_cli(proc, logf)
+        proc = None
+        if rc != 0:
+            fail(f"utilization: the CLI server exited {rc} (log {log_path})")
+        out["launches_server"] = _server_log(log_path)["shutdown"]
+
+        # 7. The cost: the same loop in process, the planes off / on / on /
+        # off (detached from the batcher for off).
+        impl, batcher, _ = build_stack(
+            cfg, model_cfg, "cuda", seed=SEED,
+            utilization_config=UtilizationConfig(enabled=True, calibration_file=step_table),
+            quality_config=QualityConfig(enabled=True, reference_file=""))
+        server, sport = create_server(impl, "127.0.0.1:0")
+        server.start()
+        planes = (batcher.utilization, batcher.quality)
+        attached = {"off": (None, None), "on": planes, "utilization": (planes[0], None),
+                    "quality": (None, planes[1])}
+        runs = []
+        try:
+            for i, label in enumerate(UTIL_COST_RUNS):
+                batcher.utilization, batcher.quality = attached[label]
+                if i == 1:  # the launch window: the two on runs
+                    ck.reset_launches()
+                    s0 = batcher.stats.batches
+                r = clients.run(sport, reqs, per_client)
+                runs.append({"planes": label, **{k: v for k, v in r.items() if k != "bins"}})
+                if i == 2:
+                    launches = {f"{k}/{cd}": v for (k, cd), v in ck.launches.items()}
+                    batches = batcher.stats.batches - s0
+        finally:
+            batcher.utilization, batcher.quality = planes
+            server.stop(grace=1).wait()
+            batcher.stop()
+        others = {k: v for k, v in launches.items() if v and k != "fused_serve/bfloat16"}
+        if launches.get("fused_serve/bfloat16", 0) != batches or others:
+            fail(f"utilization: the on runs launched {launches} for {batches} batches (want "
+                 "fused_serve/bfloat16 once per batch, nothing else)")
+        out["launches"] = launches
+        out["cost"] = runs
+        qps = {label: statistics.mean(r["qps"] for r in runs if r["planes"] == label)
+               for label in attached}
+        out["qps_over_off"] = {label: v / qps["off"] for label, v in qps.items()}
+        log("utilization: cost, the same loop in process, planes "
+            + " / ".join(UTIL_COST_RUNS) + ": "
+            + "; ".join(f"{r['planes']} p50 {r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms "
+                        f"qps {r['qps']:.1f}" for r in runs)
+            + "; mean QPS over off: " + ", ".join(f"{k} {v:.3f}"
+                                                  for k, v in out["qps_over_off"].items())
+            + f"; the on runs launched fused_serve/bfloat16 "
+            f"{launches['fused_serve/bfloat16']} times ({batches} batches) ({name})")
+
+        # 8. Each feed alone, on this host, with no other thread: one
+        # observe of n scores, one ledger interval.
+        monitor = QualityConfig(enabled=True, reference_file="").build()
+        ledger = UtilizationConfig(enabled=True).build()
+        scores = np.random.RandomState(SEED + 19).rand(n).astype(np.float32)
+        reps = 2000
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            monitor.observe("DCN", 1, scores)
+        observe_us = (time.perf_counter() - t0) / reps * 1e6
+        t0 = time.perf_counter()
+        for i in range(reps):
+            ledger.depth_inc()
+            ledger.note_batch(t0 + i * 1e-3, t0 + i * 1e-3 + 2e-4, t0 + i * 1e-3 + 5e-4,
+                              bucket=2048, candidates=2 * n, d2h_wait_s=1e-4)
+            ledger.depth_dec()
+        batch_us = (time.perf_counter() - t0) / reps * 1e6
+        out["feed_us"] = {"quality_observe": observe_us, "ledger_batch": batch_us}
+        log(f"utilization: uncontended host cost: QualityMonitor.observe of {n} scores "
+            f"{observe_us:.1f} us, the ledger's depth_inc + note_batch + depth_dec "
+            f"{batch_us:.1f} us")
+    finally:
+        if http is not None:
+            http.close()
+        if ch is not None:
+            ch.close()
+        if proc is not None:
+            _stop_cli(proc, logf)
+        clients.close()
+        torch.cuda.synchronize()
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -5763,6 +6323,14 @@ def main() -> None:
     t0 = time.perf_counter()
     serving = phase_serving(dev, f"{name} ({smi})")
     log(f"serving: phase {time.perf_counter() - t0:.1f} s")
+    # The card's own per-bucket device step, for the utilization phase's
+    # calibration: the breakdown's synchronized device step (launch and
+    # kernel, the card idle before it), median of 20, in us.
+    step_table = os.path.join(HERE, "chiprun_out", "device_step_us.json")
+    with open(step_table, "w") as f:
+        json.dump({str(b): v["device_step"] * 1e3
+                   for b, v in serving["breakdown"]["stages_ms"].items()}, f)
+    log(f"device step table (breakdown device_step, us): {open(step_table).read()}")
     t0 = time.perf_counter()
     lifecycle = phase_lifecycle(dev, f"{name} ({smi})")
     log(f"lifecycle: phase {time.perf_counter() - t0:.1f} s")
@@ -5793,12 +6361,16 @@ def main() -> None:
     t0 = time.perf_counter()
     cascade = phase_cascade(dev, f"{name} ({smi})")
     log(f"cascade: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    utilization = phase_utilization(dev, f"{name} ({smi})", step_table)
+    log(f"utilization: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
                    "lifecycle": lifecycle, "outputs": outputs, "families": families,
                    "models": models, "rest": rest, "aio": aio, "cache": cache,
-                   "integrity": integrity, "overload": overload, "cascade": cascade}, f,
+                   "integrity": integrity, "overload": overload, "cascade": cascade,
+                   "utilization": utilization}, f,
                   indent=1,
                   default=str)
 
@@ -5843,6 +6415,9 @@ def main() -> None:
                      # The cascade phase's eligible Predicts (its plane-off
                      # references counted apart).
                      "launches_cascade": cascade["launches"].get(f"{kname}/{cd}", 0),
+                     # The utilization phase's two plane-on loop runs (in
+                     # process, zeroed just before, read just after).
+                     "launches_utilization": utilization["launches"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (

@@ -108,6 +108,17 @@ readback and per-request completion.
   mismatch fails the batch with OutputCorruptError); then the readback
   screen fails a request whose score rows are NaN/Inf (IntegrityScreenError)
   while its batchmates deliver.
+- **The utilization plane** (serving/utilization.py): with a
+  `utilization` ledger, each completed batch records (stage start,
+  readback issued, readback seen complete), each non-warmup batch raises
+  the depth gauge from its stage start to its end on every path, each
+  refusal at admission is a shed, and the idle waits are recorded by cause:
+  `queue_empty` (_take), `host_pack` (the coalescing wait), `readback_wait`
+  (the pipeline_depth backpressure and the in-flight window).
+- **The quality plane** (serving/quality.py): with a `quality` monitor,
+  the completion worker feeds each non-warmup request's delivered scores
+  before its future completes, except for a batch with a screened row, a
+  top-k or prune readback and a mixed row-cache assembly.
 - **Fault sites** (faults.py): `batcher.dispatch` before a batch's device
   stage, `readback` and `executor_abort` before a completion worker waits
   for its readback, `readback_bitflip` and `score_nan` on the raw readback
@@ -337,6 +348,7 @@ class _WorkItem:
     # untraced.
     span: object = None
     prune_k: int = 0  # > 0: the cascade's stage-1 prune (submit's _prune_k)
+    criticality: str | None = None  # the x-dts-criticality lane (the quality plane's label)
 
 
 def _phase_sink(group: list[_WorkItem]) -> list | None:
@@ -476,6 +488,10 @@ class _Staged:
     phases: list | None = None  # the batch's phase sink (_phase_sink)
     pad_bufs: list = dataclasses.field(default_factory=list)  # from the pad ring
     seq: int | None = None  # its key in _inflight_since while a live readback is out
+    # The utilization ledger whose depth gauge this batch raised (captured
+    # per batch, so the plane may be detached while it is in flight), until
+    # _util_done lowers it.
+    util: object = None
     # Dedup: the executed (unique) row of each original row.
     scatter: np.ndarray | None = None
     row_ctx: _RowContext | None = None  # the row cache's plan for this batch
@@ -489,7 +505,10 @@ class _Readback:
     event: object  # torch.cuda.Event after the copies; None on the CPU
     issue_t: float
     stage_t: float = 0.0
+    # When the completion worker saw the readback event complete (not when
+    # the kernel ended), and how long it blocked on it.
     ready_t: float = 0.0
+    wait_s: float = 0.0
     nbytes: int = 0  # bytes the copies move
     full_f32_bytes: int = 0  # a float32 readback of every output of the step
     topk: tuple | None = None  # (request rows, score key) of a top-k readback
@@ -841,6 +860,8 @@ class DynamicBatcher:
         row_cache=None,
         dedup: bool = False,
         overload=None,
+        utilization=None,
+        quality=None,
     ):
         """fused_kernel=False serves dcn_v2 through model.apply (the
         configuration where `use_pallas_cross` routes only the cross stack
@@ -867,7 +888,17 @@ class DynamicBatcher:
         admission bound and arms the stale-serve; `integrity` (attribute,
         an IntegrityPlane) arms the shadow compare and the readback screen.
         Both are read once per submit or batch, so either may be detached
-        while serving."""
+        while serving.
+
+        `utilization` (a serving/utilization.py OccupancyLedger) is fed one
+        interval per completed batch, the depth gauge and the idle waits:
+        `queue_empty` in _take, `host_pack` in the coalescing wait,
+        `readback_wait` where dispatch waits behind in-flight batches (the
+        pipeline_depth backpressure in _stage and the in-flight window).
+        `quality` (a serving/quality.py QualityMonitor) is fed each request's
+        freshly computed scores by the completion worker. Each costs one
+        attribute read per hook when None, and may be detached while
+        serving."""
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # An indexed device, for the worker threads' set_device.
@@ -887,6 +918,8 @@ class DynamicBatcher:
         if overload is not None:
             overload.bind(self.buckets[-1], self.queue_capacity_candidates)
         self.integrity = None
+        self.utilization = utilization
+        self.quality = quality
         self.fused_kernel = fused_kernel
         self.output_wire_dtype = output_wire_dtype
         self._wire_dt = wire_dtype_of(output_wire_dtype)  # an unknown name raises here
@@ -1122,10 +1155,16 @@ class DynamicBatcher:
                     if span is not None:
                         span.annotate("overload.shed", reason=decision.reason, lane=lane,
                                       retry_after_ms=decision.retry_after_ms)
+                    if (util := self.utilization) is not None:
+                        # An empty queue during a shed storm is refused
+                        # traffic, not absent traffic (admission_shed).
+                        util.note_shed()
                     raise AdmissionRefusedError(decision.message,
                                                 reason=decision.reason or "shed",
                                                 retry_after_ms=decision.retry_after_ms)
             elif self._queued_candidates + n > self.queue_capacity_candidates:
+                if (util := self.utilization) is not None:
+                    util.note_shed()
                 raise QueueOverloadError(
                     f"queue full ({self._queued_candidates} candidates queued, "
                     f"capacity {self.queue_capacity_candidates})"
@@ -1143,6 +1182,7 @@ class DynamicBatcher:
             future=Future(), enqueue_t=now,
             deadline_t=None if deadline_s is None else now + deadline_s, solo=solo,
             warmup=warmup, span=span if tracing.enabled() else None, prune_k=prune_k,
+            criticality=criticality,
         )
         with self._cv:
             if self._dead is not None:
@@ -1668,6 +1708,7 @@ class DynamicBatcher:
             if rb.shadow is not None:
                 self.ring.release([buf for buf, _ in rb.shadow.out.values()], rb.shadow.event)
         request_trace.add("readback.wait", time.perf_counter() - t0)
+        rb.wait_s = rb.ready_t - t0
         with self._stats_lock:
             self.stats.readback_window_s += max(rb.ready_t - rb.issue_t, 0.0)
             self.stats.readback_blocked_s += rb.ready_t - t0
@@ -1757,7 +1798,7 @@ class DynamicBatcher:
                         return it
                 if self._stopping:
                     return None
-                self._cv.wait()
+                self._idle_wait("queue_empty", None)  # no work arrived
 
     def _coalesce_next(self, item: _WorkItem, total: int, deadline: float) -> _WorkItem | None:
         """The next same-servable item that fits, waiting until `deadline`;
@@ -1769,7 +1810,10 @@ class DynamicBatcher:
                     now = time.perf_counter()
                     if self._stopping or now >= deadline:
                         return None
-                    self._cv.wait(deadline - now)
+                    # The host holds the batch open to coalesce (where the
+                    # pipeline keeps the device busy, the ledger clamps it
+                    # out).
+                    self._idle_wait("host_pack", deadline - now)
                 nxt = self._items[0]
                 if nxt.future.cancelled() or (
                     nxt.deadline_t is not None and time.perf_counter() >= nxt.deadline_t
@@ -2001,6 +2045,26 @@ class DynamicBatcher:
             raise
         return ctx
 
+    @staticmethod
+    def _observe_quality(q, group: list[_WorkItem], host: dict) -> None:
+        """One quality observation per non-warmup member: the score output
+        sliced per item as delivery slices it (after the wire is undone and
+        the dedup scatter), so the sketched scores are the scores callers
+        receive. Without the score output there is nothing to sketch."""
+        score_key = group[0].servable.model.score_output
+        scores = host.get(score_key)
+        if scores is None:
+            return
+        off = 0
+        for it in group:
+            s = scores[off:off + it.n]
+            off += it.n
+            if it.warmup:
+                continue  # build traffic is not a prediction signal
+            q.observe(it.servable.name, it.servable.version, s, lane=it.criticality,
+                      span=it.span, arrays=it.arrays,
+                      trace_id=it.span.trace_id if it.span is not None else None)
+
     def _finish_row_batch(self, group: list[_WorkItem], row_ctx: _RowContext,
                           host: dict | None) -> None:
         """Deliver a row-cache batch once every foreign fill it joined has
@@ -2086,7 +2150,7 @@ class DynamicBatcher:
                        and self._dispatch_thread.is_alive() and self._dead is None
                        and not self._wedged_for(time.perf_counter())):
                     # Bounded: the wedge clock advances with wall time alone.
-                    self._cv.wait(0.05)
+                    self._idle_wait("readback_wait", 0.05)
         if dead is not None:
             # No dispatch thread takes it after a death: fail it as the shed did.
             self._release_pad(staged)
@@ -2109,6 +2173,7 @@ class DynamicBatcher:
                 try:
                     self._run_stage(staged)
                 except BaseException as exc:
+                    self._util_done(staged)
                     self._note_thread_death("dispatch", exc, staged.group, staged.row_ctx)
                     raise
                 finally:
@@ -2132,6 +2197,30 @@ class DynamicBatcher:
                 except InvalidStateError:
                     pass
 
+    def _idle_wait(self, cause: str, timeout: float | None) -> None:
+        """One wait on the condition (its lock held), recorded as a `cause`
+        wait while the utilization plane is armed: two clock reads, on the
+        idle path only. The port's readback_wait sites are where dispatch
+        waits behind in-flight batches (the JAX package's free-ride wait has
+        no counterpart here)."""
+        util = self.utilization
+        if util is None:
+            self._cv.wait(timeout)
+            return
+        token = util.wait_begin(cause)
+        try:
+            self._cv.wait(timeout)
+        finally:
+            util.wait_end(token)
+
+    @staticmethod
+    def _util_done(st: _Staged) -> None:
+        """Lower the depth gauge the batch raised, once, on whichever path
+        ends it (completion, a failed stage, an abandoned hand-off)."""
+        util, st.util = st.util, None
+        if util is not None:
+            util.depth_dec()
+
     def _wait_for_window(self) -> None:
         """At the in-flight window's bound, wait for a completion (5 ms
         polls: the wedge clock advances with wall time alone) until a slot
@@ -2144,7 +2233,7 @@ class DynamicBatcher:
                 if not waited:
                     self.stats.inflight_window_waits += 1
                     waited = True
-                self._cv.wait(0.005)
+                self._idle_wait("readback_wait", 0.005)
 
     def _run_stage(self, st: _Staged) -> None:
         """Device stage up to the readback issue, then hand the batch to a
@@ -2154,6 +2243,12 @@ class DynamicBatcher:
         if self.inflight_window and not all_warm:
             self._wait_for_window()
         stage_t = time.perf_counter()
+        # The utilization ledger's depth gauge, captured per batch (warmup
+        # batches build and compile: not occupancy).
+        util = None if all_warm else self.utilization
+        if util is not None:
+            util.depth_inc()
+            st.util = util
         if st.phases is not None:
             # Each member waited from its own enqueue: its own interval.
             for it in st.group:
@@ -2203,6 +2298,7 @@ class DynamicBatcher:
             # The spans show the phases that led to the failure before the
             # waiters unblock and finish them.
             _replay(st.group, st.phases)
+            self._util_done(st)
             self._fail(st.group, st.total, exc, st.row_ctx)
             return
         finally:
@@ -2245,6 +2341,7 @@ class DynamicBatcher:
         if isinstance(exc, BrokenExecutor):
             self._abandon(st, exc)
         elif exc is not None:
+            self._util_done(st)
             # The shed first: a window slot freed before it would let the
             # dispatch thread take a staged group the death should fail.
             self._note_thread_death("completer", exc, st.group, st.row_ctx)
@@ -2284,6 +2381,7 @@ class DynamicBatcher:
         self._cv.notify_all()
 
     def _abandon(self, st: _Staged, exc: BaseException) -> None:
+        self._util_done(st)
         with self._cv:
             self._done_inflight_locked(st)
         self._fail(st.group, st.total, exc, st.row_ctx)
@@ -2316,6 +2414,12 @@ class DynamicBatcher:
                         # Service time up to the readback's event (after the
                         # kernels ran, not at launch): prices the backlog.
                         ov.note_batch(st.total, rb.ready_t - rb.stage_t)
+                    if st.util is not None:
+                        # The ledger's one interval per batch: stage start,
+                        # readback issued, and the readback seen complete by
+                        # this worker (an upper bound on the kernel's end).
+                        st.util.note_batch(rb.stage_t, rb.issue_t, rb.ready_t, bucket=st.bucket,
+                                           candidates=st.total, d2h_wait_s=rb.wait_s)
                     if st.scatter is not None:
                         # Dedup: each original row takes its unique row's
                         # outputs.
@@ -2331,6 +2435,7 @@ class DynamicBatcher:
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
             self._fail(st.group, st.total, exc, st.row_ctx)
         finally:
+            self._util_done(st)
             if ((rb.event is None or rb.event.query()) and
                     (rb.shadow is None or rb.shadow.event is None or rb.shadow.event.query())):
                 # The readback event follows the upload on the same stream:
@@ -2366,6 +2471,18 @@ class DynamicBatcher:
                     if reason is not None:
                         screened[idx] = reason
                         integ.note_screen_trip(reason)
+        q = self.quality
+        if q is not None and not screened and not st.topk:
+            # Before the waiters unblock, so a drift exemplar's
+            # `quality.drift` annotation is on the span when its RPC ends.
+            # Skipped: a batch with a screened row (its readback is
+            # suspect), top-k and prune readbacks (not the model's score
+            # vector over the request), and, upstream, mixed row-cache
+            # assemblies; the shadow's readback never reaches here.
+            try:
+                self._observe_quality(q, st.group, host)
+            except Exception:  # noqa: BLE001 — the observability plane
+                pass           # never fails a batch
         timeline = self.timeline
         off = 0
         for idx, it in enumerate(st.group):

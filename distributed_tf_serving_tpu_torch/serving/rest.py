@@ -38,11 +38,22 @@ package's PredictionServiceImpl:
   header; a refusal answers 429 with `Retry-After` (whole seconds, rounded
   up) and `retry-after-ms`; an answer served stale carries
   `X-DTS-Degraded`.
+- `GET /utilz[?window=S]` -> the occupancy ledger's counters, idle gaps
+  by cause, the windowed gap waterfall (its components sum to the window's
+  wall time) and achieved_fraction_of_device_limit (serving/utilization.py;
+  `{"enabled": false}` with the plane off). `GET /profilez` -> whether a
+  deep capture runs; `POST /profilez/start?seconds=N` -> a torch.profiler
+  trace and a host-stack sample over the next N seconds, into the artifact
+  dir it answers (409 while one runs), with or without the ledger.
+- `GET /qualityz[?model=M][&version=V]` -> the score sketches, drift, the
+  label join's AUC and calibration (serving/quality.py; `{"enabled":
+  false}` with the plane off); `POST /qualityz/snapshot` pins the current
+  distributions as the drift reference; `POST /labelz` joins labels by
+  trace id or row digest. Both FAILED_PRECONDITION (500) with the plane
+  off.
 - The planes that are not ported yet answer what the JAX gateway answers
-  with that plane off: `{"enabled": false}` from `/utilz`,
-  `/qualityz`, `/lifecyclez`, `/fleetz`, `/recoveryz`, `/meshz`; 404 from `/lifecyclez/rollback`; FAILED_PRECONDITION (500)
-  from `/qualityz/snapshot` and `/labelz`. `/profilez` is not served (it
-  belongs to the utilization plane).
+  with that plane off: `{"enabled": false}` from `/lifecyclez`, `/fleetz`,
+  `/recoveryz`, `/meshz`; 404 from `/lifecyclez/rollback`.
 
 A request becomes the same PredictRequest (or Classification /
 RegressionRequest) the gRPC path parses and is handed to the impl's
@@ -71,6 +82,7 @@ from ..utils.metrics import ServerMetrics
 from ..utils.tracing import request_trace
 from . import overload as overload_mod
 from .service import PredictionServiceImpl, ServiceError, _wrap_lookup
+from .utilization import CaptureInProgressError, profiler_capture
 
 log = logging.getLogger("dts_torch.rest")
 
@@ -152,6 +164,8 @@ class RestGateway:
             web.get("/cachez", self.cachez),
             web.post("/cachez/flush", self.cachez_flush),
             web.get("/utilz", self.utilz),
+            web.get("/profilez", self.profilez_status),
+            web.post("/profilez/start", self.profilez_start),
             web.get("/qualityz", self.qualityz),
             web.post("/qualityz/snapshot", self.qualityz_snapshot),
             web.post("/labelz", self.labelz),
@@ -444,6 +458,8 @@ class RestGateway:
                 cache=self.impl.cache_stats(),
                 row_cache=self.impl.row_cache_stats(),
                 overload=self.impl.overload_stats(),
+                utilization=self.impl.utilization_stats(),
+                quality=self.impl.quality_stats(),
                 pipeline=self.impl.pipeline_stats(),
                 kernels=self.impl.kernels_stats(),
                 integrity=self.impl.integrity_stats(),
@@ -608,32 +624,71 @@ class RestGateway:
         return web.json_response({"flushed": True, "entries_dropped": dropped})
 
     async def utilz(self, request: web.Request) -> web.Response:
+        """GET /utilz[?window=S]: the occupancy ledger's counters, idle gaps
+        by cause, the windowed gap waterfall (components sum to wall) and
+        achieved_fraction_of_device_limit; `{"enabled": false}` with the
+        plane off."""
         window = request.query.get("window")
         if window is not None:
             try:
-                float(window)
+                window = float(window)
             except ValueError:
                 return _json_error("INVALID_ARGUMENT", "window must be a number")
-        return web.json_response(_OFF)
+        stats = self.impl.utilization_stats(window)
+        return web.json_response(stats if stats is not None else _OFF)
+
+    async def profilez_status(self, request: web.Request) -> web.Response:
+        """GET /profilez: whether a deep capture runs, and where its
+        artifacts land."""
+        return web.json_response(profiler_capture().status())
+
+    async def profilez_start(self, request: web.Request) -> web.Response:
+        """POST /profilez/start?seconds=N: a torch.profiler trace and a
+        host-thread stack sample over the next N seconds (default 3). Answers
+        the artifact paths at once; the capture stops itself. A concurrent
+        capture is refused with 409 (the profiler is process-global)."""
+        try:
+            seconds = float(request.query.get("seconds", "3"))
+        except ValueError:
+            return _json_error("INVALID_ARGUMENT", "seconds must be a number")
+        try:
+            info = profiler_capture().start(seconds)
+        except CaptureInProgressError as e:
+            return web.json_response({"error": str(e)}, status=409)
+        return web.json_response({"started": True, **info})
 
     async def qualityz(self, request: web.Request) -> web.Response:
+        """GET /qualityz[?model=NAME][&version=V]: per-(model, version)
+        score sketches (lifetime and window, per lane), drift against the
+        pinned reference and between live versions, the label join's AUC
+        and calibration, the exemplar counters; `{"enabled": false}` with
+        the plane off."""
         version = request.query.get("version")
         if version is not None:
             try:
-                int(version)
+                version = int(version)
             except ValueError:
                 return _json_error("INVALID_ARGUMENT", "version must be an integer")
-        return web.json_response(_OFF)
-
-    @staticmethod
-    def _no_quality_monitor() -> web.Response:
-        return _json_error("FAILED_PRECONDITION",
-                           "no quality monitor is configured ([quality] enabled=false)")
+        stats = self.impl.quality_stats(model=request.query.get("model") or None,
+                                        version=version)
+        return web.json_response(stats if stats is not None else _OFF)
 
     async def qualityz_snapshot(self, request: web.Request) -> web.Response:
-        return self._no_quality_monitor()
+        """POST /qualityz/snapshot: pin the current windowed score
+        distributions as the drift reference (and write the artifact when
+        [quality] reference_file is set)."""
+        try:
+            pinned = self.impl.quality_pin_reference()
+        except ServiceError as e:
+            return _json_error(e.code, str(e))
+        return web.json_response({"pinned": True, **pinned})
 
     async def labelz(self, request: web.Request) -> web.Response:
+        """POST /labelz: the label-feedback ingest. Body: one label object
+        `{"id": ..., "label": 0|1, "ts": ...?}`, a list of them, or
+        `{"labels": [...]}`; `id` is a request trace id (optionally
+        `#<row>`) or a row digest (quality.row_label_keys). Answers this
+        call's joined and orphaned counts."""
         try:
             body = await request.json()
         except Exception as e:  # noqa: BLE001 — malformed JSON is a 400
@@ -649,7 +704,11 @@ class RestGateway:
                 "INVALID_ARGUMENT",
                 'body must be a label object, a list, or {"labels": [...]}',
             )
-        return self._no_quality_monitor()
+        try:
+            result = self.impl.quality_ingest_labels(items)
+        except ServiceError as e:
+            return _json_error(e.code, str(e))
+        return web.json_response(result)
 
     # --------------------------------------------------- status / metadata
 

@@ -14,9 +14,15 @@ stale answer `x-dts-degraded` in the trailing metadata; with `[integrity]
 enabled` (serving/integrity.py) Predict verifies `x-dts-input-crc` and
 stamps `x-dts-score-crc`; with `[cascade] enabled` (serving/cascade.py)
 an output-filtered Predict of at least `min_candidates` rows is pruned by
-a stage-1 servable on the device and only the survivors are ranked. Each
-section (or its flag: `--overload`, `--integrity`, `--cascade`) arms the
-plane in build_stack, and so on either server.
+a stage-1 servable on the device and only the survivors are ranked; with
+`[utilization] enabled` (serving/utilization.py) the batcher feeds an
+occupancy ledger (GET /utilz); with `[quality] enabled`
+(serving/quality.py) it feeds each request's scores to the quality
+monitor (GET /qualityz, POST /labelz). Each section (or its flag:
+`--overload`, `--integrity`, `--cascade`, `--utilization`, `--quality`)
+arms the plane in build_stack, and so on either server. With
+`--rest-port`, POST /profilez/start captures a torch.profiler trace and the
+host threads' stacks whether or not the ledger is on.
 
 `create_server` builds the threaded server (a handler thread per RPC);
 `create_server_async` the coroutine one (grpc.aio: one event-loop thread
@@ -39,7 +45,7 @@ CLI:
         [--file-system-poll-wait-seconds S] [--max-num-load-retries N] \
         [--uds-path PATH] [--stream-chunk N] [--rest-port N] \
         [--metrics-every-s S] [--tracing] [--cache] [--overload] [--integrity] \
-        [--cascade]
+        [--cascade] [--utilization] [--quality]
 
 serves, by default, a randomly initialized demo servable (numpy-seeded,
 `--seed`) of the configured model kind ([server] model_kind, or
@@ -101,8 +107,10 @@ from ..utils.config import (
     KernelsConfig,
     ObservabilityConfig,
     OverloadConfig,
+    QualityConfig,
     ServerConfig,
     TransportConfig,
+    UtilizationConfig,
     apply_batching_parameters,
     load_config,
     validate_model_config_entries,
@@ -110,6 +118,7 @@ from ..utils.config import (
 from ..utils.metrics import ServerMetrics
 from ..utils.tracing import request_trace
 from . import overload as overload_mod
+from . import utilization as utilization_mod
 from .batcher import DynamicBatcher
 from .service import PredictionServiceImpl, ServiceError
 
@@ -897,12 +906,15 @@ def _launch_counts() -> str:
                       sort_keys=True)
 
 
-def _servable_change_hook(score_cache=None, row_cache=None):
+def _servable_change_hook(score_cache=None, row_cache=None, quality=None):
     """The version watchers' on_servable_change: log the kernel launch
-    counters, so each version's launches show, and invalidate the model in
+    counters, so each version's launches show, invalidate the model in
     each armed store of the cache plane, so a swap never serves the old
-    version's scores."""
+    version's scores, and count the change in the quality plane (its
+    version-pair drift reads the per-version sketches)."""
     hooks = [store.invalidate_model for store in (score_cache, row_cache) if store is not None]
+    if quality is not None:
+        hooks.append(quality.note_servable_change)
 
     def hook(name: str) -> None:
         log.info("kernel launches after a %s version change: %s", name, _launch_counts())
@@ -917,8 +929,8 @@ def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig,
     """A VersionWatcher that serves `model_name` from `base_path`: each
     version warmed through the batcher's queue and its warmup file replayed
     before it serves (unless cfg.warmup is off), loaded onto the batcher's
-    device, the kernel launch counters logged and the batcher's caches
-    invalidated at every version change."""
+    device, the kernel launch counters logged, the batcher's caches
+    invalidated and the quality plane told at every version change."""
     from .version_watcher import VersionWatcher, VersionWatcherConfig
     from .warmup import replay_warmup_file
 
@@ -936,7 +948,8 @@ def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig,
             (lambda sv, wf: replay_warmup_file(wf, sv, batcher)) if cfg.warmup else None
         ),
         device=batcher.device,
-        on_servable_change=_servable_change_hook(batcher.score_cache, batcher.row_cache),
+        on_servable_change=_servable_change_hook(batcher.score_cache, batcher.row_cache,
+                                                 batcher.quality),
     )
 
 
@@ -1129,7 +1142,9 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                 cache_config: CacheConfig | None = None,
                 overload_config: OverloadConfig | None = None,
                 integrity_config: IntegrityConfig | None = None,
-                cascade_config: CascadeConfig | None = None):
+                cascade_config: CascadeConfig | None = None,
+                utilization_config: UtilizationConfig | None = None,
+                quality_config: QualityConfig | None = None):
     """(impl, batcher, servable): the servable serving at start, warmed
     through every bucket (unless `cfg.warmup` is off), and a started
     batcher. The servable is the numpy-seeded demo (`seed`), the checkpoint
@@ -1172,9 +1187,12 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     served by a VersionWatcher from `stage1_base_path`,
     `impl.cascade_watcher`) and sets `impl.cascade`; beside `output_top_k`
     it is refused ([mesh] and [elastic], refused there too in the JAX
-    package, never reach here: load_config refuses them first). The source
-    options are checked, and a model config file parsed, before any thread
-    starts."""
+    package, never reach here: load_config refuses them first). An
+    enabled `utilization_config` hands the batcher an OccupancyLedger named
+    after its device (`cuda:N (<card>)` or `cpu`); an enabled
+    `quality_config` hands it a QualityMonitor, told of every version
+    change by each watcher. The source options are checked, and a model
+    config file parsed, before any thread starts."""
     if checkpoint and model_base_path:
         raise ValueError(
             "--model-base-path is mutually exclusive with --checkpoint "
@@ -1247,6 +1265,19 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                  "/monitoring", overload_config.target_queue_wait_ms,
                  overload_config.brownout_after_intervals, overload_config.shed_after_intervals,
                  overload_config.stale_while_overloaded_s)
+    ledger = utilization_config.build() if utilization_config is not None else None
+    if ledger is not None:
+        ledger.device = utilization_mod.device_label(resolve_device(device))
+        log.info("utilization attribution on: ring=%d window_s=%.1f calibrated=%s device=%s — "
+                 "GET /utilz on the REST surface", utilization_config.ring,
+                 utilization_config.window_seconds, ledger.snapshot()["calibrated"],
+                 ledger.device)
+    quality = quality_config.build() if quality_config is not None else None
+    if quality is not None:
+        log.info("model-quality observability on: bins=%d window_s=%.1f drift_threshold_psi=%.2f "
+                 "reference_file=%s — GET /qualityz and POST /labelz on the REST surface",
+                 quality_config.bins, quality_config.window_seconds,
+                 quality_config.drift_threshold_psi, quality_config.reference_file or "<none>")
     batcher = DynamicBatcher(
         buckets=cfg.buckets, max_wait_us=cfg.max_wait_us, device=device,
         queue_capacity_candidates=cfg.queue_capacity_candidates,
@@ -1255,7 +1286,7 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
         output_top_k=cfg.output_top_k, inflight_window=bc.inflight_window,
         buffer_ring=bc.buffer_ring, score_cache=score_cache, row_cache=row_cache,
         # `enabled` is the master switch: dedup alone arms nothing.
-        dedup=cc.enabled and cc.dedup, overload=overload,
+        dedup=cc.enabled and cc.dedup, overload=overload, utilization=ledger, quality=quality,
     )
     kernels = kernels_config.build() if kernels_config is not None else None
     batcher.kernels = kernels
@@ -1383,7 +1414,8 @@ def _arm_cascade(cfg: ServerConfig, cc: CascadeConfig, model_config: ModelConfig
             ),
             warmup=batcher.warmup_via_queue if cfg.warmup else None,
             device=batcher.device,
-            on_servable_change=_servable_change_hook(batcher.score_cache, batcher.row_cache),
+            on_servable_change=_servable_change_hook(batcher.score_cache, batcher.row_cache,
+                                                     batcher.quality),
         ).start()
     else:
         base_mc = model_config or ModelConfig(name=cfg.model_name, num_fields=cfg.num_fields)
@@ -1509,6 +1541,21 @@ def serve(argv=None) -> None:
         "Equivalent to [cascade] enabled = true (GET /cascadez, dts_tpu_cascade_* series); "
         "refused beside output_top_k")
     p.add_argument(
+        "--utilization", action="store_true", default=None,
+        help="device-utilization attribution (serving/utilization.py): an occupancy ledger and "
+        "idle-gap waterfall (GET /utilz on the REST surface, the `utilization` block of "
+        "/monitoring, dts_tpu_utilization_* series, a counter track in the Chrome export) with "
+        "a live achieved_fraction_of_device_limit. Equivalent to [utilization] enabled = true; "
+        "the [utilization] section carries the ring, window and calibration knobs")
+    p.add_argument(
+        "--quality", action="store_true", default=None,
+        help="model-quality observability (serving/quality.py): per-(model, version) score "
+        "sketches fed by the completion workers, PSI / JS drift against a pinned reference "
+        "(POST /qualityz/snapshot) and between live versions, label feedback through POST "
+        "/labelz (windowed AUC, calibration) and drift-linked /tracez exemplars (GET /qualityz, "
+        "dts_tpu_quality_* series). Equivalent to [quality] enabled = true; the [quality] "
+        "section carries the bins, window, drift and label knobs")
+    p.add_argument(
         "--kernels", action="store_true",
         help="kernel/quantization plane: int8 weight quantization and the fused "
         "serve kernel, each enabled per bucket only where the load-time autotune "
@@ -1540,6 +1587,12 @@ def serve(argv=None) -> None:
     cascade_config = loaded.get("cascade") or CascadeConfig()
     if args.cascade:
         cascade_config = dataclasses.replace(cascade_config, enabled=True)
+    utilization_config = loaded.get("utilization") or UtilizationConfig()
+    if args.utilization:
+        utilization_config = dataclasses.replace(utilization_config, enabled=True)
+    quality_config = loaded.get("quality") or QualityConfig()
+    if args.quality:
+        quality_config = dataclasses.replace(quality_config, enabled=True)
     obs = loaded.get("observability") or ObservabilityConfig()
     if args.tracing:
         obs = dataclasses.replace(obs, tracing=True)
@@ -1581,6 +1634,7 @@ def serve(argv=None) -> None:
             batching_config=batching_config, transport_config=transport_config,
             cache_config=cache_config, overload_config=overload_config,
             integrity_config=integrity_config, cascade_config=cascade_config,
+            utilization_config=utilization_config, quality_config=quality_config,
         )
     except BaseException:
         if request_logger is not None:
@@ -1606,6 +1660,9 @@ def serve(argv=None) -> None:
     shutdown.server = server
     shutdown.install_signal_handler()
     if args.rest_port:
+        # /profilez starts its profiler on another thread: the profiler's
+        # process-wide setup runs here, on the thread that imported torch.
+        utilization_mod.prime_profiler()
         try:
             bound = start_rest_in_thread(impl, cfg.host, args.rest_port, metrics)
         except RuntimeError as exc:

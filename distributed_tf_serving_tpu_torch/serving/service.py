@@ -171,11 +171,9 @@ class PredictionServiceImpl:
             arena = self._arenas.arena = codec.EncodeArena()
         return arena
 
-    # Utilization, quality, lifecycle, recovery (ROADMAP.md Queue A item
-    # 6), fleet (item 8), mesh and elastic (item 9): refused by
-    # load_config, so always off here.
-    utilization_stats = quality_stats = lifecycle_stats = staticmethod(_plane_off)
-    recovery_stats = staticmethod(_plane_off)
+    # Lifecycle, recovery (ROADMAP.md Queue A item 6), fleet (item 8), mesh
+    # and elastic (item 9): refused by load_config, so always off here.
+    lifecycle_stats = recovery_stats = staticmethod(_plane_off)
     fleet_stats = mesh_stats = elastic_stats = staticmethod(_plane_off)
 
     def overload_stats(self) -> dict | None:
@@ -185,6 +183,48 @@ class PredictionServiceImpl:
         plane off."""
         ctrl = self.batcher.overload
         return ctrl.snapshot() if ctrl is not None else None
+
+    def utilization_stats(self, window_s: float | None = None) -> dict | None:
+        """The occupancy ledger's snapshot (counters, idle gaps by cause,
+        the windowed gap waterfall, achieved_fraction_of_device_limit): GET
+        /utilz, the /monitoring `utilization` block and the
+        dts_tpu_utilization_* series. None with the plane off."""
+        ledger = self.batcher.utilization
+        return ledger.snapshot(window_s) if ledger is not None else None
+
+    def quality_stats(self, model: str | None = None, version: int | None = None) -> dict | None:
+        """The quality monitor's snapshot (per-(model, version) sketches,
+        drift against the reference and between live versions, the label
+        join's AUC and calibration, exemplars): GET /qualityz, the
+        /monitoring `quality` block and the dts_tpu_quality_* series. None
+        with the plane off."""
+        monitor = self.batcher.quality
+        if monitor is None:
+            return None
+        return monitor.snapshot(model=model, version=version)
+
+    def _quality_monitor(self):
+        monitor = self.batcher.quality
+        if monitor is None:
+            raise ServiceError("FAILED_PRECONDITION",
+                               "no quality monitor is configured ([quality] enabled=false)")
+        return monitor
+
+    def quality_ingest_labels(self, items) -> dict:
+        """POST /labelz: join (id, label, ts) records onto the score
+        reservoir. FAILED_PRECONDITION with the plane off, INVALID_ARGUMENT
+        on a malformed item (the whole call is then refused)."""
+        monitor = self._quality_monitor()
+        try:
+            return monitor.ingest_labels(items)
+        except (TypeError, ValueError) as e:
+            raise ServiceError("INVALID_ARGUMENT", str(e)) from e
+
+    def quality_pin_reference(self) -> dict:
+        """POST /qualityz/snapshot: pin the current windowed score
+        distributions as the drift reference, and write the artifact when a
+        reference_file is configured."""
+        return self._quality_monitor().pin_reference()
 
     def integrity_stats(self) -> dict | None:
         """The integrity plane's snapshot (wire verify / reject counters,

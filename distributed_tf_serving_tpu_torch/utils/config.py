@@ -1,6 +1,6 @@
 """TOML config: the [server], [batching], [transport], [model], [kernels],
-[observability], [cache], [overload], [integrity] and [cascade] sections
-the port reads, the checks of the
+[observability], [cache], [overload], [integrity], [cascade],
+[utilization] and [quality] sections the port reads, the checks of the
 model-config entries, and the mapping of a tensorflow_model_server
 batching-parameters file onto [server].
 
@@ -8,7 +8,7 @@ The JAX package's config files load unchanged, with one rule: a setting
 that would change what is served, logged or admitted but is not ported
 here is refused with a ValueError naming the ROADMAP.md Queue A item that
 ports it, never dropped. That covers the mesh knobs of [server] and a
-plane section ([utilization], [recovery], ...) switched on, and [integrity]
+plane section ([lifecycle], [recovery], ...) switched on, and [integrity]
 router_audit_fraction away from 0 (it acts only in the fleet router). What
 changes no result here is ignored with one log line: the transfer knobs of
 [server], the [client] section, and a plane section that is off.
@@ -499,6 +499,112 @@ class CascadeConfig:
             )
 
 
+@dataclasses.dataclass(frozen=True)
+class UtilizationConfig:
+    """The [utilization] section (serving/utilization.py): the occupancy
+    ledger and gap waterfall behind GET /utilz, the `utilization` block of
+    /monitoring, the dts_tpu_utilization_* series and the counter track of
+    the Chrome export. The JAX package's fields and defaults. Off by
+    default: every batcher hook is one attribute read."""
+
+    # Build an OccupancyLedger and hand it to the batcher.
+    enabled: bool = False
+    # Bound on the retained batch intervals, idle gaps and waits (the
+    # waterfall's memory and lookback).
+    ring: int = 4096
+    # The default waterfall window of /utilz and /monitoring.
+    window_seconds: float = 60.0
+    # A per-bucket device-step table ({bucket: us}, JSON) measured on the
+    # card that serves, calibrating achieved_fraction_of_device_limit. "" =
+    # uncalibrated (the busy fraction, labelled so in the waterfall).
+    calibration_file: str = ""
+    # Where POST /profilez/start writes its artifacts (the profiler's
+    # Chrome trace and host_stacks.json). "" = a subfolder of the temp dir.
+    profile_dir: str = ""
+
+    def build(self):
+        """The OccupancyLedger (registered as a counter-track source of the
+        Chrome export), or None when disabled. profile_dir applies to the
+        process-global capture slot either way: /profilez serves with or
+        without the ledger."""
+        from ..serving import utilization as util_mod
+
+        if self.profile_dir:
+            util_mod.profiler_capture().base_dir = self.profile_dir
+        if not self.enabled:
+            return None
+        calibration = (util_mod.load_calibration(self.calibration_file)
+                       if self.calibration_file else None)
+        ledger = util_mod.OccupancyLedger(ring=self.ring, window_s=self.window_seconds,
+                                          calibration=calibration)
+        from . import tracing as tracing_mod
+
+        tracing_mod.register_counter_source(ledger)
+        return ledger
+
+
+@dataclasses.dataclass(frozen=True)
+class QualityConfig:
+    """The [quality] section (serving/quality.py): per-(model, version)
+    score sketches, PSI / JS drift against a pinned reference and between
+    live versions, the /labelz label join (windowed AUC, calibration) and
+    drift-linked trace exemplars. The JAX package's fields and defaults.
+    Off by default: the completion worker reads one attribute per batch."""
+
+    # Build a QualityMonitor and hand it to the batcher.
+    enabled: bool = False
+    # The fixed-bin histogram: CTR scores are sigmoid probabilities, so
+    # [0, 1]; a score outside clamps into an edge bin.
+    bins: int = 50
+    range_lo: float = 0.0
+    range_hi: float = 1.0
+    # The rolling window of the drift math and the windowed AUC, and the
+    # slices it is built from.
+    window_seconds: float = 300.0
+    slices: int = 6
+    # A window PSI at or above this (against the reference or between live
+    # versions) arms the exemplars.
+    drift_threshold_psi: float = 0.2
+    # How often the drift math runs (from the observe path, no thread), and
+    # how many of the next traced requests get `quality.drift` per check
+    # while drift stays above the threshold.
+    drift_check_interval_s: float = 5.0
+    exemplar_traces: int = 8
+    # Window samples (each side) before a drift number is computed.
+    min_drift_count: int = 50
+    # The label join's bounds: reservoir keys (LRU; a label for an evicted
+    # key counts as orphaned), joined pairs kept, and the largest request
+    # whose rows get digest keys.
+    reservoir_keys: int = 8192
+    label_window: int = 8192
+    digest_rows_limit: int = 256
+    # The pinned-reference artifact: loaded at build when present, written
+    # by POST /qualityz/snapshot. "" = pin only, no file.
+    reference_file: str = "artifacts/quality_reference.json"
+
+    def build(self):
+        """The QualityMonitor, or None when disabled."""
+        if not self.enabled:
+            return None
+        from ..serving.quality import QualityMonitor
+
+        return QualityMonitor(
+            bins=self.bins,
+            lo=self.range_lo,
+            hi=self.range_hi,
+            window_s=self.window_seconds,
+            slices=self.slices,
+            drift_threshold_psi=self.drift_threshold_psi,
+            drift_check_interval_s=self.drift_check_interval_s,
+            exemplar_traces=self.exemplar_traces,
+            min_drift_count=self.min_drift_count,
+            reservoir_keys=self.reservoir_keys,
+            label_window=self.label_window,
+            digest_rows_limit=self.digest_rows_limit,
+            reference_file=self.reference_file,
+        )
+
+
 # [server] keys of the JAX package that change no result here: the JAX
 # runtime's transfer knobs, whose work the port's host path always does one
 # way (one combined buffer, async readback, a dispatch thread).
@@ -526,12 +632,6 @@ _UNPORTED_SECTIONS = {
     "elastic": (("enabled", "splits", "tick_interval_s", "dwell_s", "up_after_ticks",
                  "down_after_ticks", "load_up_threshold", "load_down_threshold",
                  "load_ewma_alpha", "history_events"), ("enabled",), 9),
-    "utilization": (("enabled", "ring", "window_seconds", "calibration_file", "profile_dir"),
-                    ("enabled",), 6),
-    "quality": (("enabled", "bins", "range_lo", "range_hi", "window_seconds", "slices",
-                 "drift_threshold_psi", "drift_check_interval_s", "exemplar_traces",
-                 "min_drift_count", "reservoir_keys", "label_window", "digest_rows_limit",
-                 "reference_file"), ("enabled",), 6),
     "lifecycle": (("enabled", "tick_interval_s", "canary_probe_only_s",
                    "canary_initial_fraction", "canary_ramp_step", "canary_step_dwell_s",
                    "canary_max_fraction", "promote_after_s", "min_canary_scores", "rollback_psi",
@@ -598,9 +698,10 @@ def load_config(path) -> dict[str, Any]:
     BatchingConfig, "transport": TransportConfig, "drain_grace_s": float,
     "model": ModelConfig, "kernels": KernelsConfig, "observability":
     ObservabilityConfig, "cache": CacheConfig, "overload": OverloadConfig,
-    "integrity": IntegrityConfig, "cascade": CascadeConfig} ("model",
-    "kernels", "observability", "cache", "overload", "integrity" and
-    "cascade" only when the file has that section). A nonzero [batching]
+    "integrity": IntegrityConfig, "cascade": CascadeConfig, "utilization":
+    UtilizationConfig, "quality": QualityConfig} ("model", "kernels",
+    "observability", "cache", "overload", "integrity", "cascade",
+    "utilization" and "quality" only when the file has that section). A nonzero [batching]
     pipeline_depth replaces the [server] one, as in the JAX package's
     server; "drain_grace_s" is [overload] drain_grace_s (honored with the
     plane off, as there). Raises ValueError on a setting that is not
@@ -608,7 +709,7 @@ def load_config(path) -> dict[str, Any]:
     not know."""
     raw = tomllib.loads(pathlib.Path(path).read_text())
     ported = {"server", "batching", "transport", "model", "kernels", "observability", "cache",
-              "overload", "integrity", "cascade"}
+              "overload", "integrity", "cascade", "utilization", "quality"}
     unknown = sorted(set(raw) - ported - set(_UNPORTED_SECTIONS))
     if unknown:
         raise ValueError(f"unknown config sections: {unknown}")
@@ -642,6 +743,10 @@ def load_config(path) -> dict[str, Any]:
         out["integrity"] = _coerce(IntegrityConfig, raw["integrity"], "integrity")
     if "cascade" in raw:
         out["cascade"] = _coerce(CascadeConfig, raw["cascade"], "cascade")
+    if "utilization" in raw:
+        out["utilization"] = _coerce(UtilizationConfig, raw["utilization"], "utilization")
+    if "quality" in raw:
+        out["quality"] = _coerce(QualityConfig, raw["quality"], "quality")
     extra = sorted(set(raw) & set(_UNPORTED_SECTIONS))
     if extra:
         log.info("ignoring config sections this package does not use: %s", extra)

@@ -484,6 +484,19 @@ _HELP = {
         "Stage-2 submits by the padded batch rung the survivors packed "
         "into (the cascade's win shows as survivor traffic landing in "
         "smaller rungs than the candidate batches)",
+    "dts_tpu_quality_score":
+        "Predicted-score distribution per model and version",
+    "dts_tpu_quality_drift_psi":
+        "Population Stability Index of the windowed score distribution "
+        "vs the pinned reference (kind=reference) or the concurrently "
+        "serving previous version (kind=version_pair)",
+    "dts_tpu_quality_drift_js":
+        "Jensen-Shannon divergence (base 2) companion to the PSI series",
+    "dts_tpu_quality_auc":
+        "Windowed AUC over label-feedback (score, label) joins",
+    "dts_tpu_quality_calibration_error":
+        "Count-weighted |mean predicted - observed rate| over predicted-"
+        "probability deciles (expected calibration error)",
     "dts_tpu_integrity_suspect":
         "1 while this replica's own shadow verification has it marked "
         "suspect (also gossiped in the fleet record so routers steer "
@@ -654,7 +667,8 @@ class ServerMetrics:
         return out
 
     def prometheus_text(self, batcher_stats=None, cache=None, row_cache=None, overload=None,
-                        pipeline=None, kernels=None, integrity=None, cascade=None) -> str:
+                        pipeline=None, kernels=None, integrity=None, cascade=None,
+                        utilization=None, quality=None) -> str:
         """Prometheus exposition (text format 0.0.4) of the same data
         snapshot() serves as JSON. Metric names mirror tensorflow_model_
         server's monitoring surface (`:tensorflow:serving:request_count` /
@@ -873,6 +887,10 @@ class ServerMetrics:
                 lines.append(f"{metric} {value}")
         if overload is not None:
             lines.extend(_overload_prometheus_lines(overload))
+        if utilization is not None:
+            lines.extend(_utilization_prometheus_lines(utilization))
+        if quality is not None:
+            lines.extend(_quality_prometheus_lines(quality))
         if kernels is not None:
             lines.extend(_kernel_prometheus_lines(kernels))
         if cascade is not None:
@@ -880,6 +898,164 @@ class ServerMetrics:
         if integrity is not None:
             lines.extend(_integrity_prometheus_lines(integrity))
         return "\n".join(lines) + "\n"
+
+
+def _utilization_prometheus_lines(utilization: dict) -> list[str]:
+    """dts_tpu_utilization_* exposition from an OccupancyLedger snapshot:
+    the busy and achieved fractions and the depth gauge, the windowed
+    waterfall's components (labelled), and the lifetime idle-gap counters
+    by blocking cause. Each family is one contiguous block (the lint's
+    rule)."""
+    esc = escape_label_value
+    lines: list[str] = []
+    wf = utilization.get("waterfall") or {}
+    for metric, kind, value in (
+        ("dts_tpu_utilization_busy_fraction", "gauge", wf.get("busy_fraction", 0.0)),
+        ("dts_tpu_utilization_achieved_fraction_of_device_limit", "gauge",
+         wf.get("achieved_fraction_of_device_limit", 0.0)),
+        ("dts_tpu_utilization_window_wall_seconds", "gauge", wf.get("wall_s", 0.0)),
+        ("dts_tpu_utilization_waterfall_sum_over_wall", "gauge", wf.get("sum_over_wall", 0.0)),
+        ("dts_tpu_utilization_in_flight", "gauge", utilization.get("in_flight", 0)),
+        ("dts_tpu_utilization_max_in_flight", "gauge", utilization.get("max_in_flight", 0)),
+        ("dts_tpu_utilization_batches_total", "counter", utilization.get("batches", 0)),
+        ("dts_tpu_utilization_busy_seconds_total", "counter", utilization.get("busy_s", 0.0)),
+        ("dts_tpu_utilization_sheds_total", "counter", utilization.get("sheds", 0)),
+    ):
+        _family_lines(lines, metric, kind)
+        lines.append(f"{metric} {value}")
+    comps = wf.get("components_s") or {}
+    if comps:
+        cm = "dts_tpu_utilization_component_seconds"
+        _family_lines(lines, cm, "gauge")
+        for comp, secs in sorted(comps.items()):
+            lines.append(f'{cm}{{component="{esc(comp)}"}} {secs}')
+    gaps = utilization.get("idle_gaps") or {}
+    if gaps:
+        gc = "dts_tpu_utilization_idle_gaps_total"
+        gs = "dts_tpu_utilization_idle_gap_seconds_total"
+        _family_lines(lines, gc, "counter")
+        for cause, blk in sorted(gaps.items()):
+            lines.append(f'{gc}{{cause="{esc(cause)}"}} {blk.get("count", 0)}')
+        _family_lines(lines, gs, "counter")
+        for cause, blk in sorted(gaps.items()):
+            lines.append(f'{gs}{{cause="{esc(cause)}"}} {blk.get("total_s", 0.0)}')
+    return lines
+
+
+def _quality_prometheus_lines(quality: dict) -> list[str]:
+    """dts_tpu_quality_* exposition from a QualityMonitor snapshot dict:
+    plane counters, label-join counters + windowed AUC /
+    calibration error, per-(model, version) score counts / means / the
+    score histogram family, and per-model drift gauges (PSI + JS, labeled
+    by kind: vs the pinned reference or between live versions). Families
+    are grouped and declared exactly once — the exposition lint's
+    invariants."""
+    esc = escape_label_value
+    lines: list[str] = []
+    exemplars = quality.get("exemplars") or {}
+    for metric, kind, value in (
+        ("dts_tpu_quality_observed_requests_total", "counter",
+         quality.get("observed_requests", 0)),
+        ("dts_tpu_quality_version_changes_total", "counter",
+         quality.get("version_changes", 0)),
+        ("dts_tpu_quality_exemplars_marked_total", "counter",
+         exemplars.get("marked", 0)),
+        ("dts_tpu_quality_drift_events_total", "counter",
+         exemplars.get("drift_events", 0)),
+    ):
+        _family_lines(lines, metric, kind)
+        lines.append(f"{metric} {value}")
+    labels_blk = quality.get("labels") or {}
+    for metric, kind, value in (
+        ("dts_tpu_quality_labels_joined_total", "counter",
+         labels_blk.get("joined", 0)),
+        ("dts_tpu_quality_labels_orphaned_total", "counter",
+         labels_blk.get("orphaned", 0)),
+        ("dts_tpu_quality_labels_late_total", "counter",
+         labels_blk.get("late", 0)),
+        ("dts_tpu_quality_label_window_pairs", "gauge",
+         labels_blk.get("window_pairs", 0)),
+    ):
+        _family_lines(lines, metric, kind)
+        lines.append(f"{metric} {value}")
+    if labels_blk.get("auc") is not None:
+        _family_lines(lines, "dts_tpu_quality_auc", "gauge")
+        lines.append(f'dts_tpu_quality_auc {labels_blk["auc"]}')
+    cal_err = (labels_blk.get("calibration") or {}).get("error")
+    if cal_err is not None:
+        _family_lines(lines, "dts_tpu_quality_calibration_error", "gauge")
+        lines.append(f"dts_tpu_quality_calibration_error {cal_err}")
+    models = quality.get("models") or {}
+    if not models:
+        return lines
+    count_lines, mean_lines, wmean_lines, hist_lines = [], [], [], []
+    for model, blk in sorted(models.items()):
+        for ver, vs in sorted(
+            (blk.get("versions") or {}).items(), key=lambda kv: int(kv[0])
+        ):
+            base = f'model_name="{esc(model)}",version="{esc(ver)}"'
+            total = vs.get("count", 0)
+            count_lines.append(f"dts_tpu_quality_scores_total{{{base}}} {total}")
+            mean_lines.append(
+                f'dts_tpu_quality_score_mean{{{base}}} {vs.get("mean", 0.0)}'
+            )
+            wmean_lines.append(
+                f"dts_tpu_quality_score_window_mean{{{base}}} "
+                f'{(vs.get("window") or {}).get("mean", 0.0)}'
+            )
+            hg = vs.get("histogram") or {}
+            counts = hg.get("counts") or []
+            lo, hi = hg.get("lo", 0.0), hg.get("hi", 1.0)
+            width = (hi - lo) / len(counts) if counts else 0.0
+            last = max((i for i, c in enumerate(counts) if c), default=-1)
+            acc = 0
+            for i in range(last + 1):
+                acc += counts[i]
+                le = lo + width * (i + 1)
+                hist_lines.append(
+                    f'dts_tpu_quality_score_bucket{{{base},le="{le:.6g}"}} {acc}'
+                )
+            hist_lines.append(
+                f'dts_tpu_quality_score_bucket{{{base},le="+Inf"}} {total}'
+            )
+            hist_lines.append(
+                f"dts_tpu_quality_score_sum{{{base}}} "
+                f'{round(vs.get("mean", 0.0) * total, 6)}'
+            )
+            hist_lines.append(f"dts_tpu_quality_score_count{{{base}}} {total}")
+    _family_lines(lines, "dts_tpu_quality_scores_total", "counter")
+    lines.extend(count_lines)
+    _family_lines(lines, "dts_tpu_quality_score_mean", "gauge")
+    lines.extend(mean_lines)
+    _family_lines(lines, "dts_tpu_quality_score_window_mean", "gauge")
+    lines.extend(wmean_lines)
+    _family_lines(lines, "dts_tpu_quality_score", "histogram")
+    lines.extend(hist_lines)
+    psi_lines, js_lines, exceeded_lines = [], [], []
+    for model, blk in sorted(models.items()):
+        drift = blk.get("drift") or {}
+        for kind_name in ("reference", "version_pair"):
+            entry = drift.get(kind_name)
+            if entry:
+                lbl = f'model_name="{esc(model)}",kind="{kind_name}"'
+                psi_lines.append(
+                    f'dts_tpu_quality_drift_psi{{{lbl}}} {entry["psi"]}'
+                )
+                js_lines.append(
+                    f'dts_tpu_quality_drift_js{{{lbl}}} {entry["js"]}'
+                )
+        exceeded_lines.append(
+            f'dts_tpu_quality_drift_exceeded{{model_name="{esc(model)}"}} '
+            f'{1 if drift.get("exceeded") else 0}'
+        )
+    if psi_lines:
+        _family_lines(lines, "dts_tpu_quality_drift_psi", "gauge")
+        lines.extend(psi_lines)
+        _family_lines(lines, "dts_tpu_quality_drift_js", "gauge")
+        lines.extend(js_lines)
+    _family_lines(lines, "dts_tpu_quality_drift_exceeded", "gauge")
+    lines.extend(exceeded_lines)
+    return lines
 
 
 def _overload_prometheus_lines(overload: dict) -> list[str]:

@@ -192,7 +192,8 @@ def test_static_no_jax_imports_in_port_or_chip_smoke():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
     for mod in ("serving/rest.py", "utils/metrics.py", "utils/tracing.py",
-                "serving/overload.py", "serving/integrity.py"):
+                "serving/overload.py", "serving/integrity.py", "serving/utilization.py",
+                "serving/quality.py"):
         assert PORT / mod in files, mod
     bad = {
         str(f.relative_to(REPO)): [m for m in _imports(f) if _is_jax_side(m)]
@@ -450,4 +451,50 @@ def test_cascade_and_interop_import_no_jax_subprocess():
     assert line["ranked"] == 4 and line["version"] == 1 and line["requests"] == 1
     assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
     for mod in ("serving.cascade", "interop", "interop.export"):
+        assert f"distributed_tf_serving_tpu_torch.{mod}" in line["modules"]
+
+
+_OBSERVABILITY_SCRIPT = r"""
+import json, sys
+import numpy as np
+from distributed_tf_serving_tpu_torch import codec
+from distributed_tf_serving_tpu_torch.models import ModelConfig
+from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+from distributed_tf_serving_tpu_torch.serving.server import build_stack
+from distributed_tf_serving_tpu_torch.serving.utilization import profiler_capture
+from distributed_tf_serving_tpu_torch.utils.config import (
+    QualityConfig, ServerConfig, UtilizationConfig)
+cfg = ModelConfig(num_fields=3, vocab_size=64, embed_dim=2, mlp_dims=(4,), num_cross_layers=1)
+impl, batcher, _ = build_stack(ServerConfig(buckets=(8,), num_fields=3), cfg, device="cpu",
+                               utilization_config=UtilizationConfig(enabled=True),
+                               quality_config=QualityConfig(enabled=True, reference_file=""))
+req = apis.PredictRequest()
+req.model_spec.name = "DCN"
+arrays = {"feat_ids": np.arange(12, dtype=np.int64).reshape(4, 3),
+          "feat_wts": np.ones((4, 3), np.float32)}
+for k, v in arrays.items():
+    codec.from_ndarray(v, out=req.inputs[k])
+impl.predict(req)
+batcher.stop()
+print(json.dumps({"batches": impl.utilization_stats()["batches"],
+                  "device": impl.utilization_stats()["device"],
+                  "scores": impl.quality_stats()["models"]["DCN"]["versions"]["1"]["count"],
+                  "capture": profiler_capture().status()["active"],
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_utilization_and_quality_planes_import_no_jax_subprocess():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run(
+        [sys.executable, "-c", _OBSERVABILITY_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert res.returncode == 0, res.stderr
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["batches"] == 1 and line["device"] == "cpu" and line["scores"] == 4
+    assert line["capture"] is False
+    assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
+    for mod in ("serving.utilization", "serving.quality"):
         assert f"distributed_tf_serving_tpu_torch.{mod}" in line["modules"]

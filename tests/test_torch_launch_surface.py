@@ -89,8 +89,6 @@ REFUSED = [
     ("[server]\ntensor_parallel = true\n", 9),
     ("[mesh]\nenabled = true\n", 9),
     ("[elastic]\nenabled = true\n", 9),
-    ("[utilization]\nenabled = true\n", 6),
-    ("[quality]\nenabled = true\n", 6),
     ("[lifecycle]\nenabled = true\n", 6),
     ("[recovery]\nenabled = true\n", 6),
     ("[integrity]\nrouter_audit_fraction = 0.5\n", 8),
@@ -122,6 +120,8 @@ PORTED = [
     ("[cascade]\nenabled = true\n", "cascade", "enabled", True),
     ("[cascade]\nenabled = true\nstage1_model = \"retriever\"\nsurvivor_k = 16\n"
      "score_threshold = 0.1\nmin_candidates = 32\n", "cascade", "survivor_k", 16),
+    ("[utilization]\nenabled = true\n", "utilization", "enabled", True),
+    ("[quality]\nenabled = true\n", "quality", "enabled", True),
 ]
 
 
@@ -132,7 +132,8 @@ def test_a_setting_ported_since_loads_like_jax(tmp_path, text, section, key, val
     theirs_section = jax_config.load_config(_toml(tmp_path, text))[section]
     ours, theirs = getattr(ours_section, key), getattr(theirs_section, key)
     assert ours == theirs == value
-    if section in ("cache", "overload", "integrity", "cascade"):  # every field, as the JAX package reads it
+    if section in ("cache", "overload", "integrity", "cascade", "utilization",
+                   "quality"):  # every field, as the JAX package reads it
         theirs_fields = dataclasses.asdict(theirs_section)
         if section == "integrity":  # the router's knob is not ported (refused away from 0)
             assert theirs_fields.pop("router_audit_fraction") == 0.0
@@ -178,7 +179,9 @@ def test_the_key_tables_are_the_jax_package_s():
               "transport": torch_config.TransportConfig, "kernels": torch_config.KernelsConfig,
               "observability": torch_config.ObservabilityConfig,
               "cache": torch_config.CacheConfig, "overload": torch_config.OverloadConfig,
-              "integrity": torch_config.IntegrityConfig, "cascade": torch_config.CascadeConfig}
+              "integrity": torch_config.IntegrityConfig, "cascade": torch_config.CascadeConfig,
+              "utilization": torch_config.UtilizationConfig,
+              "quality": torch_config.QualityConfig}
     assert set(ported) | set(torch_config._UNPORTED_SECTIONS) == set(jax_fields)
     for section, (keys, switches, _) in torch_config._UNPORTED_SECTIONS.items():
         assert set(keys) == jax_fields[section], section
@@ -781,15 +784,19 @@ PLANE_FLAGS = [
     ("--overload", "adaptive overload control on:", "/monitoring?section=overload"),
     ("--integrity", "data-integrity plane on:", "/integrityz"),
     ("--cascade", "cascade on:", "/cascadez"),
+    ("--utilization", "utilization attribution on:", "/utilz"),
+    ("--quality", "model-quality observability on:", "/qualityz"),
 ]
 
 
 @pytest.mark.parametrize("flag,logged,route", PLANE_FLAGS, ids=[f for f, _, _ in PLANE_FLAGS])
 def test_cli_plane_flag_arms_the_plane(tmp_path, flag, logged, route):
-    """--overload, --integrity and --cascade each arm their plane with no
-    section in the config (as [<plane>] enabled = true would): the plane's
-    REST block answers, and an output-filtered Predict of 8 rows runs
-    through it (with --cascade it carries `cascade_stage`, 2 rows ranked)."""
+    """--overload, --integrity, --cascade, --utilization and --quality each
+    arm their plane with no section in the config (as [<plane>] enabled =
+    true would): the plane's REST block answers, and an output-filtered
+    Predict of 8 rows runs through it (with --cascade it carries
+    `cascade_stage`, 2 rows ranked; the ledger counts its batch, the quality
+    monitor its 8 scores)."""
     import json
     import urllib.request
 
@@ -835,6 +842,12 @@ def test_cli_plane_flag_arms_the_plane(tmp_path, flag, logged, route):
     assert "cascade_stage" not in resp.outputs
     if flag == "--overload":
         assert block["overload"]["state"] == "nominal"
+    elif flag == "--utilization":
+        assert block["enabled"] and block["batches"] == 1 and block["in_flight"] == 0
+        assert block["device"] == "cpu" and not block["calibrated"]
+    elif flag == "--quality":
+        assert block["enabled"] and block["observed_requests"] == 1
+        assert block["models"]["DCN"]["versions"]["1"]["count"] == 8
     else:
         assert block["enabled"] and block["wire"]["inputs_verified"] == 0
 
