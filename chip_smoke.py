@@ -414,6 +414,50 @@ Phases (any failure exits non-zero and prints no result line):
              must show fused_serve/bfloat16 once per batch and nothing
              else.
 
+17. freshness — the continuous-freshness loop (train/trainer.py,
+             train/publisher.py, serving/lifecycle.py) out of process. (1)
+             The trainer CLI trains v1 on the card at the [model] width of
+             configs/latency.toml (dcn_v2 bf16, 300 steps of 512 rows of the
+             synthetic stream, id space 16384, rate 1e-2) into base/1:
+             examples/s, final loss, held-out AUC beside the Bayes AUC (in
+             (0.5, Bayes]). (2) 3 f32 train steps of a small dcn_v2 from the
+             same params on the card and on the CPU: losses within 1e-5.
+             (3) The CLI server on configs/latency.toml with
+             --model-base-path base --lifecycle (which arms [quality])
+             --rest-port, a 0.25 s poll, [lifecycle] tick 0.1 s, probe-only
+             1 s, ramp 0.5 at once, promote_after 2 s, min_canary_scores
+             4000, the fine-tune publisher every 8 s (200 steps of 256, rate
+             1e-4; its PSI / AUC gates set wide, the fine-tune trains on
+             another teacher by design): 4 client processes send
+             closed-loop Predicts of n = 1000 (every 10th on the probe
+             lane) while the server fine-tunes v1 on its lifecycle thread,
+             publishes v2, hot-loads, canaries and promotes it; 8 labelled
+             Predicts of 200 rows (4 probe, 4 default) post their labels to
+             /labelz (all joined). Checks: 0 failed Predicts; v1's scores
+             for a fixed payload of 2048 rows (the top bucket: never
+             coalesced) pinned to v1 bit-identical before and after
+             the fine-tune; in the probe-only phase the probe lane answers
+             from v2 and the default lane from v1; at the 0.5 ramp the
+             controller's routes alternate (|canary - stable| <= 1) and the
+             clients' default-lane answers split within the requests in
+             flight; /lifecyclez, /monitoring?section=lifecycle and the
+             lint-clean dts_tpu_lifecycle_* series agree with the events;
+             fused_serve/bfloat16 launched on each version (the server's
+             counts at each version change and at shutdown); SIGTERM exits
+             0. Printed: the fine-tune's steps/s and publish time inside the
+             server, Predict p50 / p99 while it trains against before it,
+             publish -> canary and canary -> promote, the clients' and the
+             controller's ramp shares, the judgment at promotion. (4) v2
+             read back onto the card: the fused serve kernel against its
+             plain version at n = 2048 (5e-3) and against the server's v2
+             answer to that payload (5e-3). (5) A second server, publisher off: a version
+             published from outside with the head's bias +20 is canaried
+             and rolled back (PSI >= 0.5 at the defaults), retired,
+             blacklisted and not reloaded by the next reconcile passes;
+             POST /lifecyclez/rollback answers 409; 0 failed Predicts;
+             printed: publish -> canary -> rollback. `launches_freshness`:
+             both servers' counts from start to exit.
+
 The lifecycle and models phases clear the device input cache before each
 memory read (its entries belong to the batcher, not to a version) and print
 the bytes it held.
@@ -432,7 +476,8 @@ path's, `launches_aio`; the cache-on stack's over the cache phase's steps
 `launches_integrity`; the overload phase's armed load runs,
 `launches_overload`; the cascade phase's eligible Predicts,
 `launches_cascade`; the utilization phase's plane-on runs,
-`launches_utilization`), the
+`launches_utilization`; the freshness phase's two servers,
+`launches_freshness`), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. Every line it
 logs is also kept in chiprun_out/chip_smoke.log.
 """
@@ -6278,6 +6323,642 @@ def phase_utilization(dev, name: str, step_table: str) -> dict:
     return out
 
 
+
+# The freshness phase: the continuous-freshness loop (train/, serving/lifecycle.py).
+FRESH_TRAIN = (300, 512, 16384, 1e-2)  # the trainer CLI's v1: steps, batch, --id-space, rate
+FRESH_CLIENTS = 4  # client processes, one closed-loop client each ([client] concurrent_num)
+FRESH_N = 1000  # candidates per client Predict ([client] candidate_num)
+FRESH_PAYLOADS = 7  # distinct payloads per client (odd: never in step with the 0.5 ramp)
+FRESH_PROBE_EVERY = 10  # every 10th Predict of a client rides the probe lane
+FRESH_LABELS = (4, 200)  # labelled Predicts per lane (probe, default), rows each
+FRESH_SMALL_STEPS = 3  # f32 train steps of a small dcn_v2 on the card and on the CPU
+FRESH_TRAIN_TOL = 1e-5  # their losses
+FRESH_WAIT_S = 120.0  # bound on each wait of the phase
+FRESH_POLL_S = 0.25  # --file-system-poll-wait-seconds of both servers
+# fine_tune_interval_s of the publishing run: the server takes ~10 s from
+# the controller's start to its REST port (the profiler's priming), so the
+# clients get ~10 s of traffic before the first fine-tune; the next one is
+# due this long after the first publish ends, after the phase is done.
+FRESH_PUBLISH_S = 20.0
+FRESH_AFTER_S = 3.0  # traffic kept up after v2's promotion
+FRESH_FIXED = 2048  # rows of the payload pinned to a version (the top bucket)
+FRESH_POISON_BIAS = 20.0  # added to the head's bias of the poisoned version
+FRESH_LIFECYCLE = ("\n[quality]\nreference_file = \"\"\n"
+                   "\n[lifecycle]\ntick_interval_s = 0.1\ncanary_probe_only_s = 1.0\n"
+                   "canary_initial_fraction = 0.5\ncanary_step_dwell_s = 1.0\n"
+                   "canary_max_fraction = 0.5\npromote_after_s = 2.0\n"
+                   "min_canary_scores = 4000\nrollback_hold_s = 2.0\n")
+# The publishing run's rollback gates. Its fine-tune trains on the stream
+# of another teacher (the publisher's per-round seed, as in the JAX
+# package), so v2's scores move by design; the gates are set wide there so
+# the run exercises promotion, and the PSI / AUC read at promotion are
+# recorded. The rollback run keeps the defaults (PSI 0.5, AUC drop 0.05).
+FRESH_PUBLISH_GATES = "rollback_psi = 4.0\nrollback_auc_drop = 0.5\n"
+
+
+def _fresh_client(k, jobs, barrier, stop, results) -> None:
+    """One client process of the freshness phase (spawned, kept for the
+    phase): per job (port, serialized Predicts), one channel, Predicts back
+    to back from the barrier until `stop` is set, every FRESH_PROBE_EVERY-th
+    with `x-dts-criticality: probe`. Puts the records (send time on
+    time.monotonic, ms, lane, status code, version answered) or ("error",
+    text) on `results`; None ends it."""
+    import traceback
+
+    try:
+        import grpc
+
+        from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+    except BaseException:  # noqa: BLE001 — the parent fails the phase with it
+        results.put(("error", traceback.format_exc()))
+        return
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        port, reqs = job
+        try:
+            ch = _channel(port)
+            call = ch.unary_unary("/tensorflow.serving.PredictionService/Predict",
+                                  response_deserializer=apis.PredictResponse.FromString)
+            grpc.channel_ready_future(ch).result(timeout=60)
+            barrier.wait(timeout=120)
+            recs, i = [], 0
+            while not stop.is_set():
+                probe = i % FRESH_PROBE_EVERY == FRESH_PROBE_EVERY - 1
+                md = (("x-dts-criticality", "probe"),) if probe else None
+                t0 = time.monotonic()
+                try:
+                    resp = call(reqs[i % len(reqs)], timeout=60, metadata=md)
+                    code, version = "OK", resp.model_spec.version.value
+                except grpc.RpcError as e:
+                    code, version = e.code().name, None
+                recs.append((t0, (time.monotonic() - t0) * 1e3, "probe" if probe else "default",
+                             code, version))
+                i += 1
+            ch.close()
+            results.put(recs)
+        except BaseException:  # noqa: BLE001 — the parent fails the phase with it
+            results.put(("error", traceback.format_exc()))
+
+
+class _FreshClients:
+    """FRESH_CLIENTS spawned client processes, reused for both servers of
+    the phase: start() releases them on a server, stop() ends their loops
+    and returns every record."""
+
+    def __init__(self, procs: int):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.results = ctx.Queue()
+        self.barrier = ctx.Barrier(procs + 1)
+        self.stop_evt = ctx.Event()
+        self.jobs = [ctx.Queue() for _ in range(procs)]
+        self.procs = [ctx.Process(target=_fresh_client, daemon=True,
+                                  args=(k, self.jobs[k], self.barrier, self.stop_evt,
+                                        self.results))
+                      for k in range(procs)]
+        for p in self.procs:
+            p.start()
+
+    def start(self, port: int, reqs: list[list[bytes]]) -> None:
+        self.stop_evt.clear()
+        for q, mine in zip(self.jobs, reqs):
+            q.put((port, mine))
+        self.barrier.wait(timeout=180)
+
+    def stop(self) -> list:
+        import queue
+
+        self.stop_evt.set()
+        recs = []
+        for _ in self.procs:
+            try:
+                got = self.results.get(timeout=120)
+            except queue.Empty:
+                fail("freshness: a client process gave no result in 120 s")
+            if got and got[0] == "error":
+                fail(f"freshness: a client process failed: {got[1]}")
+            recs.extend(got)
+        return recs
+
+    def close(self) -> None:
+        self.stop_evt.set()
+        for q in self.jobs:
+            q.put(None)
+        for p in self.procs:
+            p.join(10)
+            if p.is_alive():
+                p.terminate()
+                p.join(5)
+
+
+def _lifecycle_wait(http, pred, what: str, proc) -> dict:
+    """Poll GET /lifecyclez (every 50 ms) until pred(body); the body."""
+    end = time.perf_counter() + FRESH_WAIT_S
+    while True:
+        body = http.json("GET", "/lifecyclez")
+        if pred(body):
+            return body
+        if proc.poll() is not None:
+            fail(f"freshness: the server exited with {proc.returncode} waiting for {what}")
+        if time.perf_counter() > end:
+            fail(f"freshness: no {what} within {FRESH_WAIT_S} s: {json.dumps(body)[:1500]}")
+        time.sleep(0.05)
+
+
+def _event(body: dict, event: str, **match) -> dict | None:
+    for e in body["events"]:
+        if e["event"] == event and all(e.get(k) == v for k, v in match.items()):
+            return e
+    return None
+
+
+def _lifecycle_surfaces(http, label: str) -> dict:
+    """/lifecyclez, /monitoring?section=lifecycle and the dts_tpu_lifecycle_*
+    series must agree with the events: state one-hot, counters, stable and
+    canary versions; the exposition must pass tools/check_prom.py. The three
+    are separate reads, so a transition (or a tick) between them is read
+    again, up to 5 times."""
+    for attempt in range(5):
+        lz = http.json("GET", "/lifecyclez")
+        sec = http.json("GET", "/monitoring?section=lifecycle")["lifecycle"]
+        status, data = http.call("GET", "/monitoring/prometheus/metrics")
+        lz2 = http.json("GET", "/lifecyclez")
+        if status != 200:
+            fail(f"freshness {label}: /monitoring/prometheus/metrics answered {status}")
+        lint = subprocess.run([sys.executable, os.path.join(HERE, "tools", "check_prom.py"),
+                               "-"], input=data, capture_output=True, timeout=60)
+        if lint.returncode != 0:
+            fail(f"freshness {label}: tools/check_prom.py rejects the exposition: "
+                 f"{lint.stdout.decode()[-500:]} {lint.stderr.decode()[-500:]}")
+        series = {}
+        for line in data.decode().splitlines():
+            if line.startswith("dts_tpu_lifecycle_"):
+                key, value = line.rsplit(" ", 1)
+                series[key] = float(value)
+        events = [e["event"] for e in lz["events"]]
+        c = lz["counters"]
+        want = {
+            f'dts_tpu_lifecycle_state{{state="{lz["state"]}"}}': 1.0,
+            "dts_tpu_lifecycle_promotes_total": float(events.count("promoted")),
+            "dts_tpu_lifecycle_rollbacks_total": float(events.count("rolled_back")),
+            "dts_tpu_lifecycle_publishes_total": float(events.count("published")),
+            "dts_tpu_lifecycle_stable_version": float(lz["stable_version"] or 0),
+            "dts_tpu_lifecycle_canary_version": float(lz["canary_version"] or 0),
+            'dts_tpu_lifecycle_routed_total{target="canary"}': float(c["routed_canary"]),
+            'dts_tpu_lifecycle_routed_total{target="stable"}': float(c["routed_stable"]),
+            "dts_tpu_lifecycle_probe_routed_total": float(c["routed_probe"]),
+            "dts_tpu_lifecycle_blacklisted_versions": float(len(lz["watcher"]["blacklisted"])),
+        }
+        bad = {k: (series.get(k), v) for k, v in want.items() if series.get(k) != v}
+        if sum(v for k, v in series.items() if k.startswith("dts_tpu_lifecycle_state{")) != 1:
+            bad["one-hot"] = {k: v for k, v in series.items() if "state{" in k}
+        # Only the tick count and the state's age move while nothing happens.
+        skip = ("state_age_s", "counters", "watcher")
+
+        def same(a, b):
+            return ({k: v for k, v in a.items() if k not in skip}
+                    == {k: v for k, v in b.items() if k not in skip}
+                    and {k: v for k, v in a["counters"].items() if k != "ticks"}
+                    == {k: v for k, v in b["counters"].items() if k != "ticks"})
+
+        if not same(sec, lz):
+            bad["section"] = "differs from /lifecyclez"
+        if not bad:
+            return {"state": lz["state"], "series": len(series), "counters": c,
+                    "reads": attempt + 1}
+        if same(lz, lz2):
+            break  # nothing moved between the reads: a real disagreement
+        time.sleep(0.3)
+    fail(f"freshness {label}: the surfaces disagree with the events: {bad}")
+
+
+def _published_lines(path: str) -> list[dict]:
+    """The server log's `lifecycle DCN published: {...}` records."""
+    import re
+
+    out = []
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"lifecycle DCN published: (\{.*\})$", line)
+            if m:
+                out.append(json.loads(m.group(1)))
+    return out
+
+
+def _lat_split(recs, t0: float, t1: float, after: float) -> dict:
+    """p50 / p99 of the OK records sent inside [t0, t1), before t0, and
+    from `after` on."""
+    def pick(lo, hi):
+        return _percentiles([r[1] for r in recs if r[3] == "OK" and lo <= r[0] < hi])
+
+    return {"during": pick(t0, t1), "before": pick(-math.inf, t0),
+            "after": pick(after, math.inf)}
+
+
+def phase_freshness(dev, name: str) -> dict:
+    """The continuous-freshness loop on the card, out of process: v1 from
+    the trainer CLI, a server that fine-tunes it into v2, canaries and
+    promotes it under client traffic, then a second server that rolls a
+    poisoned version back. Checks in the docstring of the module."""
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch.cache.digest import row_label_keys
+    from distributed_tf_serving_tpu_torch.interop.export import publish_version
+    from distributed_tf_serving_tpu_torch.models import ModelConfig, build_model
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.train.checkpoint import load_servable, save_servable
+    from distributed_tf_serving_tpu_torch.train.data import SyntheticCTRConfig, SyntheticCTRStream
+    from distributed_tf_serving_tpu_torch.train.trainer import (
+        init_state,
+        make_train_step,
+        prepare_batch,
+        tree_map,
+    )
+    from distributed_tf_serving_tpu_torch.utils.config import load_config
+
+    out: dict = {"card": name}
+    latency = os.path.join(HERE, "configs", "latency.toml")
+    model_cfg = load_config(latency)["model"]
+    fields, vocab = model_cfg.num_fields, model_cfg.vocab_size
+    with open(latency) as f:
+        text = f.read()
+    clients = _FreshClients(FRESH_CLIENTS)  # spawned now: their imports overlap the training
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fresh_")
+    base = os.path.join(tmp, "base")
+    proc = logf = http = ch = None
+    launches: dict = {}
+    try:
+        # 1. v1 from the trainer CLI on the card.
+        steps, bs, id_space, lr = FRESH_TRAIN
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.train.trainer", "--out", os.path.join(base, "1"),
+             "--steps", str(steps), "--batch-size", str(bs), "--num-fields", str(fields),
+             "--vocab-size", str(vocab), "--embed-dim", str(model_cfg.embed_dim),
+             "--id-space", str(id_space), "--learning-rate", str(lr)],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        with open(os.path.join(HERE, "chiprun_out", "freshness_trainer.log"), "w") as f:
+            f.write(run.stdout + run.stderr)
+        m = re.search(r"trained dcn_v2 (\d+) steps on (\S+): loss=([\d.]+) auc=([\d.]+) "
+                      r"bayes_auc=([\d.]+) \((\d+) ex/s\)", run.stdout)
+        if run.returncode != 0 or m is None:
+            fail(f"freshness: the trainer CLI exited {run.returncode}: {run.stderr[-1500:]}")
+        train = {"steps": int(m.group(1)), "device": m.group(2), "loss": float(m.group(3)),
+                 "auc": float(m.group(4)), "bayes_auc": float(m.group(5)),
+                 "examples_per_s": int(m.group(6)), "batch_size": bs, "id_space": id_space,
+                 "learning_rate": lr,
+                 "cli_wall_s": cli_s}
+        if not train["device"].startswith("cuda") or not math.isfinite(train["loss"]):
+            fail(f"freshness: the trainer CLI trained {train}")
+        if not 0.5 < train["auc"] <= train["bayes_auc"]:
+            fail(f"freshness: v1's held-out AUC {train['auc']} (Bayes {train['bayes_auc']})")
+        out["train"] = train
+        log(f"freshness: trainer CLI v1 ({fields} fields x {model_cfg.embed_dim}, vocab {vocab}, "
+            f"dcn_v2 bf16, {steps} steps x {bs}, id space {id_space}, rate {lr}) on "
+            f"{train['device']}: "
+            f"{train['examples_per_s']} ex/s, final loss {train['loss']:.4f}, eval AUC "
+            f"{train['auc']:.4f} (Bayes {train['bayes_auc']:.4f}), CLI wall {cli_s:.1f} s "
+            f"({name})")
+
+        # 2. Three f32 train steps of a small dcn_v2: the card against the CPU.
+        small = ModelConfig(num_fields=10, embed_dim=8, mlp_dims=(32, 16), vocab_size=1 << 12,
+                            num_cross_layers=2, compute_dtype="float32")
+        smodel = build_model("dcn_v2", small)
+        p0 = smodel.init(1)
+        sstream = SyntheticCTRStream(SyntheticCTRConfig(num_fields=10, id_space=1 << 12, seed=1))
+        losses = {}
+        for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            state = init_state(tree_map(lambda t, d=d: t.to(d), p0), 1e-2)
+            step = make_train_step(smodel)
+            losses[where] = [float(step(state, prepare_batch(sstream.batch(256, i),
+                                                             small.vocab_size, d))[1]["loss"])
+                             for i in range(FRESH_SMALL_STEPS)]
+        err = max(abs(a - b) for a, b in zip(losses["card"], losses["cpu"]))
+        if err > FRESH_TRAIN_TOL:
+            fail(f"freshness: f32 train steps card {losses['card']} against CPU "
+                 f"{losses['cpu']}: {err} > {FRESH_TRAIN_TOL}")
+        out["small_steps"] = {"losses": losses, "max_abs_err": err, "tol": FRESH_TRAIN_TOL}
+        log(f"freshness: {FRESH_SMALL_STEPS} f32 train steps (dcn_v2 10 x 8) card / CPU losses "
+            f"{losses['card']} / {losses['cpu']}, max |d| {err:.2e} (tol {FRESH_TRAIN_TOL})")
+
+        # The clients' payloads: the stream the model learns from, 7 per client.
+        pstream = SyntheticCTRStream(SyntheticCTRConfig(num_fields=fields, seed=SEED + 23))
+        payloads = [[pstream.batch(FRESH_N, k * FRESH_PAYLOADS + j)
+                     for j in range(FRESH_PAYLOADS)] for k in range(FRESH_CLIENTS)]
+        reqs = [[_request(p["feat_ids"], p["feat_wts"]).SerializeToString() for p in mine]
+                for mine in payloads]
+        # The pinned payload fills the top bucket alone, so it never shares
+        # a batch: a batch of another size serves it with another cluster
+        # size, whose head sums in another order (other last bits).
+        fixed = pstream.batch(FRESH_FIXED, 10_000)
+
+        def pinned(version: int):
+            req = _request(fixed["feat_ids"], fixed["feat_wts"])
+            req.model_spec.version.value = version
+            resp = stub.Predict(req, timeout=60)
+            if resp.model_spec.version.value != version:
+                fail(f"freshness: a Predict pinned to v{version} answered "
+                     f"v{resp.model_spec.version.value}")
+            return _scores_of(resp)
+
+        def start(label: str, publish_s: float, gates: str):
+            toml = os.path.join(HERE, "chiprun_out", f"freshness_{label}.toml")
+            with open(toml, "w") as f:
+                f.write(text + FRESH_LIFECYCLE + gates + f"fine_tune_interval_s = {publish_s}\n")
+            rest_port = _free_port()
+            log_path = os.path.join(HERE, "chiprun_out", f"freshness_{label}_server.log")
+            p, port, lf = _start_cli(
+                ["--config", toml, "--model-base-path", base, "--lifecycle", "--rest-port",
+                 str(rest_port), "--file-system-poll-wait-seconds", str(FRESH_POLL_S)],
+                log_path)
+            _wait_port(rest_port, p)
+            return p, port, lf, log_path, _Http(rest_port)
+
+        def server_launches(log_path: str, label: str) -> dict:
+            srv = _server_log(log_path)
+            if srv["shutdown"] is None:
+                fail(f"freshness {label}: the server logged no launch counts at shutdown")
+            counts = [c.get("fused_serve/bfloat16", 0) for c in srv["changes"]]
+            counts.append(srv["shutdown"].get("fused_serve/bfloat16", 0))
+            if not counts[0] > 0 or any(b < a for a, b in zip(counts, counts[1:])):
+                fail(f"freshness {label}: fused_serve/bfloat16 launches at each version change "
+                     f"and at shutdown {counts}")
+            for k, v in srv["shutdown"].items():
+                launches[k] = launches.get(k, 0) + v
+            return {"at_changes": counts[:-1], "at_shutdown": srv["shutdown"]}
+
+        # 3. The publishing run: v1 is fine-tuned into v2 inside the server.
+        proc, port, logf, log_a, http = start("publish", FRESH_PUBLISH_S, FRESH_PUBLISH_GATES)
+        ch = _channel(port)
+        stub = PredictionServiceStub(ch)
+        lz = http.json("GET", "/lifecyclez")
+        if not (lz.get("enabled") and lz["state"] == "idle" and lz["stable_version"] == 1):
+            fail(f"freshness: the publishing server's lifecycle at start: {lz}")
+        if not http.json("GET", "/qualityz").get("enabled"):
+            fail("freshness: --lifecycle did not arm the quality plane")
+        before = pinned(1)
+        clients.start(port, reqs)
+        lz = _lifecycle_wait(http, lambda s: s["state"] == "canary" and s["canary_version"] == 2,
+                             "canary of v2", proc)
+        after = pinned(1)  # v1 is pinned by the controller while v2 is the canary
+        if before.tobytes() != after.tobytes():
+            fail(f"freshness: v1's scores moved across the fine-tune (max |d| "
+                 f"{float(np.abs(before - after).max())})")
+        v2_scores = pinned(2)
+        # Labelled Predicts, joined by row digest: held-out rows and labels
+        # of the stream v1 was trained on (the trainer CLI's seed 0).
+        lstream = SyntheticCTRStream(SyntheticCTRConfig(num_fields=fields,
+                                                        id_space=min(id_space, vocab)))
+        label_items, label_versions = [], {"probe": [], "default": []}
+        per_lane, rows = FRESH_LABELS
+        for j in range(2 * per_lane):
+            lane = "probe" if j < per_lane else "default"
+            b = lstream.batch(rows, 3_000_000 + j)
+            resp = stub.Predict(_request(b["feat_ids"], b["feat_wts"]), timeout=60,
+                                metadata=(("x-dts-criticality", "probe"),) if lane == "probe"
+                                else None)
+            label_versions[lane].append(resp.model_spec.version.value)
+            keys = row_label_keys({"feat_ids": b["feat_ids"], "feat_wts": b["feat_wts"]})
+            label_items += [{"id": key, "label": float(y)} for key, y in zip(keys, b["labels"])]
+        status, body = http.call("POST", "/labelz", json.dumps({"labels": label_items}).encode())
+        joined = json.loads(body) if status == 200 else {}
+        if joined.get("joined") != len(label_items):
+            fail(f"freshness: /labelz answered {status} {body[:300]!r} for "
+                 f"{len(label_items)} labels")
+        if any(v != 2 for v in label_versions["probe"]):
+            fail(f"freshness: probe-lane label Predicts answered {label_versions['probe']}")
+        ramp0 = _lifecycle_wait(http, lambda s: s["state"] != "canary"
+                                or s["canary_fraction"] == 0.5, "the 0.5 ramp", proc)
+        lz = _lifecycle_wait(http, lambda s: s["counters"]["promotes"] >= 1
+                             and s["state"] == "idle", "promotion of v2", proc)
+        time.sleep(FRESH_AFTER_S)
+        recs_a = clients.stop()
+        if ramp0["state"] != "canary":
+            fail(f"freshness: v2 left the canary before the ramp was seen: {ramp0['events']}")
+        surfaces_a = _lifecycle_surfaces(http, "publish")
+        pubs = _published_lines(log_a)
+        ev_pub = _event(lz, "published", version=2)
+        ev_can = _event(lz, "canary_started", canary=2)
+        ev_pro = _event(lz, "promoted", version=2)
+        if not (pubs and ev_pub and ev_can and ev_pro and pubs[0]["version"] == 2):
+            fail(f"freshness: the publishing run's events {lz['events']} and log {pubs}")
+        ft = pubs[0]
+        c_end = lz["counters"]
+        # The routes, as the clients saw them, inside the controller's
+        # windows (edges shrunk by 50 ms: a request is routed when it is
+        # resolved, a little after it is sent): in the probe-only phase
+        # the probe lane answers from v2 and the default lane from v1; at
+        # the 0.5 ramp the default lane alternates, so its v2 and v1
+        # answers differ by at most the requests in flight at the edges.
+        probe_only = 1.0  # FRESH_LIFECYCLE canary_probe_only_s
+        t_can, t_pro = ev_can["t"], ev_pro["t"]
+
+        def answers(lane, lo, hi):
+            got = [r[4] for r in recs_a if r[2] == lane and r[3] == "OK" and lo <= r[0] < hi]
+            return got.count(2), len(got) - got.count(2)
+
+        fails_a = [r for r in recs_a if r[3] != "OK"]
+        ph_probe = answers("probe", t_can + 0.05, t_can + probe_only - 0.05)
+        ph_default = answers("default", t_can + 0.05, t_can + probe_only - 0.05)
+        rp_probe = answers("probe", t_can + probe_only + 0.05, t_pro - 0.05)
+        rp_default = answers("default", t_can + probe_only + 0.05, t_pro - 0.05)
+        # Before the canary's first tick the registry's latest-version
+        # default already serves a hot-loaded v2 (as in the JAX package):
+        # the default-lane answers from v2 sent before canary_started.
+        early = sum(1 for r in recs_a if r[2] == "default" and r[4] == 2 and r[0] < t_can)
+        dc = (c_end["routed_canary"] - c_end["routed_probe"]
+              - (ramp0["counters"]["routed_canary"] - ramp0["counters"]["routed_probe"]))
+        ds = c_end["routed_stable"] - ramp0["counters"]["routed_stable"]
+        bad = []
+        if fails_a:
+            bad.append(f"{len(fails_a)} failed Predicts: {sorted({r[3] for r in fails_a})}")
+        if ph_probe[1] or ph_default[0] or not ph_probe[0] or not ph_default[1]:
+            bad.append(f"in the probe-only phase probe v2/v1 {ph_probe}, default v2/v1 "
+                       f"{ph_default}")
+        if rp_probe[1] or abs(rp_default[0] - rp_default[1]) > FRESH_CLIENTS + 1 \
+                or sum(rp_default) < 20:
+            bad.append(f"at the 0.5 ramp probe v2/v1 {rp_probe}, default v2/v1 {rp_default}")
+        if abs(dc - ds) > 1 or dc + ds < 20:
+            bad.append(f"the controller's routes at the 0.5 ramp: {dc} canary / {ds} stable")
+        if bad:
+            fail("freshness: the publishing run: " + "; ".join(bad))
+        default_share = rp_default[0] / sum(rp_default)
+        # p50 / p99 while the fine-tune trains, while it publishes, and before it.
+        # "after": from 0.5 s past the promotion (v2 alone, no training).
+        train_lat = _lat_split(recs_a, ft["t0"], ft["t0"] + ft["wall_s"], t_pro + 0.5)
+        publish_lat = _lat_split(recs_a, ft["t0"], ft["t1"], t_pro + 0.5)
+        out["publish"] = {
+            "fine_tune": {"steps": ft["steps"], "wall_s": ft["wall_s"],
+                          "steps_per_s": ft["steps"] / ft["wall_s"], "loss": ft["loss"],
+                          "publish_s": ft["t1"] - ft["t0"]},
+            "latency_training": train_lat, "latency_publish": publish_lat,
+            "publish_to_canary_s": ev_can["t"] - ev_pub["t"],
+            "canary_to_promote_s": ev_pro["t"] - ev_can["t"],
+            "requests": len(recs_a), "failed": 0, "counters": c_end,
+            "controller_ramp": {"canary": dc, "stable": ds, "share": dc / (dc + ds)},
+            "clients_probe_phase": {"probe_v2_v1": ph_probe, "default_v2_v1": ph_default},
+            "clients_ramp": {"probe_v2_v1": rp_probe, "default_v2_v1": rp_default,
+                             "default_share": default_share},
+            "default_v2_before_canary": early,
+            "labels": {"joined": joined, "versions": label_versions,
+                       "last_judgment": lz.get("last_judgment")},
+            "surfaces": surfaces_a,
+        }
+        log(f"freshness: in-server fine-tune v1 -> v2: {ft['steps']} steps (batch 256) in "
+            f"{ft['wall_s']:.3f} s = {ft['steps'] / ft['wall_s']:.1f} steps/s, loss "
+            f"{ft['loss']:.4f}, publish (train + save + commit) {ft['t1'] - ft['t0']:.3f} s; "
+            f"publish -> canary {ev_can['t'] - ev_pub['t']:.3f} s, canary -> promote "
+            f"{ev_pro['t'] - ev_can['t']:.3f} s ({name})")
+        def pp(d):
+            return (f"{d.get('p50_ms', float('nan')):.3f} / {d.get('p99_ms', float('nan')):.3f} "
+                    f"ms ({d['requests']} requests)")
+
+        log(f"freshness: Predict (n = {FRESH_N}, {FRESH_CLIENTS} client processes) p50 / p99 "
+            f"while training {pp(train_lat['during'])}, before it {pp(train_lat['before'])}, "
+            f"after v2's promotion {pp(train_lat['after'])}; during the whole publish "
+            f"{publish_lat['during'].get('p50_ms', float('nan')):.3f} / "
+            f"{publish_lat['during'].get('p99_ms', float('nan')):.3f} ms; {len(recs_a)} "
+            f"Predicts, 0 failed; probe-only phase: probe {ph_probe[0]} on v2, default "
+            f"{ph_default[1]} on v1; at the 0.5 ramp the clients' default lane {rp_default[0]} "
+            f"v2 / {rp_default[1]} v1 (share {default_share:.4f}), the controller's "
+            f"{dc} / {ds} (share {dc / (dc + ds):.4f}); {early} default-lane Predicts "
+            f"answered v2 before canary_started; v1 pinned bit-identical across the "
+            f"fine-tune ({name})")
+        http.close()
+        ch.close()
+        http = ch = None
+        rc = _stop_cli(proc, logf)
+        proc = None
+        if rc != 0:
+            fail(f"freshness: the publishing server exited {rc} (log {log_a})")
+        out["publish"]["launches"] = server_launches(log_a, "publish")
+
+        # v2, read back from its checkpoint onto the card: the fused serve
+        # kernel against its plain version and against the server's answer.
+        sv2 = load_servable(os.path.join(base, "2"), device=dev)
+        sw = ck.prepare_serve_weights(sv2.params, sv2.model.config)
+        ids = torch.from_numpy(fixed["feat_ids"] % vocab).to(torch.int32).to(dev)
+        wts = torch.from_numpy(fixed["feat_wts"]).to(dev).to(torch.bfloat16)
+        before_ref = dict(ck.launches)
+        got = ck.fused_serve(ids, wts, sw)["prediction_node"]
+        ref = ck.fused_serve_reference(ids, wts, sw)["prediction_node"]
+        torch.cuda.synchronize()
+        ref_launches = {f"{k}/{cd}": v - before_ref[(k, cd)] for (k, cd), v in ck.launches.items()
+                        if v != before_ref[(k, cd)]}
+        err = (got - ref).abs().max().item()
+        served_err = float(np.abs(got.float().cpu().numpy() - v2_scores).max())
+        if err > SERVE_TOL["bfloat16"] or served_err > APPLY_TOL:
+            fail(f"freshness: v2's fused serve kernel against its plain version {err} (tol "
+                 f"{SERVE_TOL['bfloat16']}), against the server's answer {served_err}")
+        out["v2_kernel"] = {"max_abs_err": err, "tol": SERVE_TOL["bfloat16"],
+                            "served_max_abs_err": served_err, "reference_launches": ref_launches}
+        judged = lz.get("last_judgment") or {}
+        log(f"freshness: v2's judgment at promotion: verdict {judged.get('verdict')}, pair PSI "
+            f"{(judged.get('pair') or {}).get('psi')} over {(judged.get('pair') or {}).get('bins')} "
+            f"bins, label AUC stable / canary {(judged.get('auc') or {}).get('stable')} / "
+            f"{(judged.get('auc') or {}).get('canary')} ({joined['joined']} labels joined)")
+        log(f"freshness: v2 from disk, fused_serve_bf16 at n = {FRESH_FIXED} against its plain "
+            f"version max |d| {err:.2e} (tol {SERVE_TOL['bfloat16']}), against the server's "
+            f"v2 answer {served_err:.2e}")
+        del sv2, sw
+
+        # 4. The rollback run: the publisher off, a poisoned version from outside.
+        proc, port, logf, log_b, http = start("rollback", 0.0, "")
+        lz0 = http.json("GET", "/lifecyclez")
+        stable = lz0["stable_version"]
+        if lz0["state"] != "idle" or stable is None or stable < 2:
+            fail(f"freshness: the rollback server's lifecycle at start: {lz0}")
+        clients.start(port, reqs)
+        src = load_servable(os.path.join(base, str(stable)), device="cpu")
+        poisoned = tree_map(lambda t: t.clone(), src.params)
+        poisoned["out"]["b"] = poisoned["out"]["b"] + FRESH_POISON_BIAS
+        version, _ = publish_version(base, lambda d: save_servable(
+            d, dataclasses.replace(src, params=poisoned, version=stable + 1), kind="dcn_v2"),
+            at_least=stable + 1)
+        t_pub = time.monotonic()
+        lz = _lifecycle_wait(http, lambda s: s["counters"]["rollbacks"] >= 1,
+                             f"the rollback of v{version}", proc)
+        time.sleep(3 * FRESH_POLL_S)  # reconcile passes over the still-ready directory
+        lz_after = http.json("GET", "/lifecyclez")
+        status, rb = http.call("POST", "/lifecyclez/rollback")
+        recs_b = clients.stop()
+        surfaces_b = _lifecycle_surfaces(http, "rollback")
+        ev_can = _event(lz, "canary_started", canary=version)
+        ev_rb = _event(lz, "rolled_back", version=version)
+        fails_b = [r for r in recs_b if r[3] != "OK"]
+        early_b = sum(1 for r in recs_b if r[2] == "default" and r[4] == version
+                      and ev_can is not None and r[0] < ev_can["t"])
+        w = lz_after["watcher"]
+        bad = []
+        if fails_b:
+            bad.append(f"{len(fails_b)} failed Predicts: {sorted({r[3] for r in fails_b})}")
+        if not (ev_can and ev_rb and lz["rolled_back_version"] == version
+                and (lz["last_rollback"] or {}).get("reason") == "psi"):
+            bad.append(f"events {lz['events']}, last_rollback {lz['last_rollback']}")
+        if version not in w["blacklisted"] or version in w["loaded"] \
+                or version in lz_after["versions_loaded"] or version not in w["on_disk_ready"]:
+            bad.append(f"after the reconcile passes: watcher {w}")
+        if status != 409:
+            bad.append(f"POST /lifecyclez/rollback with no canary answered {status}: {rb[:200]!r}")
+        # The judgment rests on evidence: the pair PSI past the default gate
+        # over at least min_canary_scores of the canary's scores. (The probe
+        # lane need not have reached it: until the controller's first tick
+        # the registry's latest default serves the new version, as in the
+        # JAX package, and those scores can decide the first judgment.)
+        pair = (lz["last_rollback"] or {}).get("pair") or {}
+        if not (pair.get("psi", 0) >= 0.5 and (pair.get("counts") or [0, 0])[1] >= 4000):
+            bad.append(f"the rollback's evidence: {pair}")
+        if bad:
+            fail(f"freshness: the rollback run (v{version}): " + "; ".join(bad))
+        out["rollback"] = {
+            "version": version, "stable": stable,
+            "publish_to_canary_s": ev_can["t"] - t_pub,
+            "canary_to_rollback_s": ev_rb["t"] - ev_can["t"],
+            "publish_to_rollback_s": ev_rb["t"] - t_pub,
+            "pair": lz["last_rollback"]["pair"], "requests": len(recs_b), "failed": 0,
+            "default_poisoned_before_canary": early_b,
+            "counters": lz["counters"], "surfaces": surfaces_b,
+        }
+        log(f"freshness: poisoned v{version} (head bias +{FRESH_POISON_BIAS}) published -> "
+            f"canary {ev_can['t'] - t_pub:.3f} s -> rolled back {ev_rb['t'] - ev_can['t']:.3f} s "
+            f"(pair PSI {lz['last_rollback']['pair']['psi']:.2f}), retired + blacklisted, not "
+            f"reloaded after {3 * FRESH_POLL_S:.2f} s of reconcile passes; POST "
+            f"/lifecyclez/rollback 409; {len(recs_b)} Predicts, 0 failed, {early_b} default-lane "
+            f"answers from v{version} before canary_started ({name})")
+        http.close()
+        http = None
+        rc = _stop_cli(proc, logf)
+        proc = None
+        if rc != 0:
+            fail(f"freshness: the rollback server exited {rc} (log {log_b})")
+        out["rollback"]["launches"] = server_launches(log_b, "rollback")
+        if launches.get("fused_serve/bfloat16", 0) == 0:
+            fail(f"freshness: the servers launched {launches}")
+        out["launches"] = launches
+        log(f"freshness: launches_freshness (both servers, start to exit) {launches}")
+    finally:
+        if http is not None:
+            http.close()
+        if ch is not None:
+            ch.close()
+        if proc is not None:
+            _stop_cli(proc, logf)
+        clients.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.synchronize()
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -6364,13 +7045,16 @@ def main() -> None:
     t0 = time.perf_counter()
     utilization = phase_utilization(dev, f"{name} ({smi})", step_table)
     log(f"utilization: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    freshness = phase_freshness(dev, f"{name} ({smi})")
+    log(f"freshness: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
                    "lifecycle": lifecycle, "outputs": outputs, "families": families,
                    "models": models, "rest": rest, "aio": aio, "cache": cache,
                    "integrity": integrity, "overload": overload, "cascade": cascade,
-                   "utilization": utilization}, f,
+                   "utilization": utilization, "freshness": freshness}, f,
                   indent=1,
                   default=str)
 
@@ -6418,6 +7102,9 @@ def main() -> None:
                      # The utilization phase's two plane-on loop runs (in
                      # process, zeroed just before, read just after).
                      "launches_utilization": utilization["launches"].get(f"{kname}/{cd}", 0),
+                     # The freshness phase's two CLI servers (the publishing
+                     # and the rollback run), each from its start to its exit.
+                     "launches_freshness": freshness["launches"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (

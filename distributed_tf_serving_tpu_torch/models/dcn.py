@@ -9,7 +9,8 @@ The v2 matmul runs on compute-dtype operands with an f32 result; the
 elementwise update is f32 and the carried activation is recast to the
 compute dtype per layer. With `use_pallas_cross` the v2 stack goes through
 the hand-written cross-stack kernel (ops/cross_kernel.py), whose weight
-operands are prepared once per weight set.
+operands are prepared once per weight set; that kernel has no backward, so
+such a forward under autograd raises (train with use_pallas_cross off).
 """
 
 from __future__ import annotations
@@ -121,8 +122,12 @@ def _build(config: ModelConfig) -> Model:
                     "using cross_apply", d,
                 )
         if use_fused:
-            from ..ops.cross_kernel import cross_stack, cross_weights
+            from ..ops.cross_kernel import cross_stack, cross_weights, refuse_grad
 
+            # The kernel has no backward: under autograd this raises before
+            # any weight is prepared (as jax.grad through the Pallas kernel
+            # raises), never a silently missing gradient.
+            refuse_grad(x0, *(t for p in params["cross"] for t in p.values()))
             # Stacked, cast and laid out once per weight set (cached).
             xc = cross_stack(x0, cross_weights(params["cross"], cd))
         else:

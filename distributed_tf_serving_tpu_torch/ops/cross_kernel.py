@@ -33,7 +33,11 @@ partition (`tile_begin`, `tile_owner`) and shared-memory sizes; `_lib()`
 holds the mirror to the kernel's own functions.
 
 A wrapper runs the plain version only for tensors on the CPU; a CUDA tensor
-always launches the kernel or raises. Each kernel launch adds one to
+always launches the kernel or raises. The kernels have no backward (nor do
+the JAX package's Pallas kernels: `jax.grad` through them raises), so the
+cross stack refuses, on either device, to run where autograd would record
+it (`NoBackwardError`): training through it raises instead of leaving the
+cross weights without a gradient. Each kernel launch adds one to
 `launches[name, compute dtype]`, the dtype named "bfloat16" or "float32":
 the fused serve step counts under "fused_serve" for float weights and
 "fused_serve_int8" for int8 weights, the cross stack under
@@ -216,6 +220,21 @@ def serve_fits_smem(d: int, mlp_dims, compute_dtype=torch.bfloat16) -> bool:
         1 <= len(mlp_dims) <= MAX_MLP_LAYERS
         and serve_smem_bytes(d, mlp_dims, compute_dtype) <= SMEM_LIMIT_BYTES
     )
+
+
+class NoBackwardError(RuntimeError):
+    """A kernel without a backward was asked to run under autograd."""
+
+
+def refuse_grad(*tensors: torch.Tensor) -> None:
+    """Raise NoBackwardError when grad mode is on and any of `tensors`
+    requires grad: autograd would record the kernel's output as a leaf and
+    the weights before it would silently get no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NoBackwardError(
+            "the cross-stack kernel has no backward: it cannot be trained through "
+            "(use_pallas_cross is a serving option; train with it off, or run the "
+            "forward under torch.no_grad() / torch.inference_mode())")
 
 
 def cross_params_to_stacked(cross_layers: list) -> tuple[torch.Tensor, torch.Tensor]:
@@ -553,7 +572,9 @@ def cross_stack(x0: torch.Tensor, cw: CrossWeights, *,
     The kernel runs tiles of R rows, each served by a cluster of C blocks,
     (R, C) = cross_plan(n, cross_capacity(cw), d). `_plan` forces (R, C)
     (for tests and chip_smoke.py only); a plan the launch refuses raises,
-    never retried with another."""
+    never retried with another. Under autograd with an input that requires
+    grad it raises NoBackwardError (refuse_grad), on either device."""
+    refuse_grad(x0, cw.w, cw.b)
     cd = cw.compute_dtype
     if _plan is not None and (_plan[0] not in ROW_TILES or _plan[1] < 1):
         raise ValueError(f"_plan={_plan}: the kernels take R in {ROW_TILES}, C >= 1")

@@ -51,9 +51,14 @@ package's PredictionServiceImpl:
   distributions as the drift reference; `POST /labelz` joins labels by
   trace id or row digest. Both FAILED_PRECONDITION (500) with the plane
   off.
+- `GET /lifecyclez` -> the lifecycle controller's state machine, canary
+  routing share and counters, events and the watcher's blacklist / pins
+  (serving/lifecycle.py; `{"enabled": false}` with the plane off); `POST
+  /lifecyclez/rollback` rolls the live canary back now (409 with no
+  canary, 404 with the plane off).
 - The planes that are not ported yet answer what the JAX gateway answers
-  with that plane off: `{"enabled": false}` from `/lifecyclez`, `/fleetz`,
-  `/recoveryz`, `/meshz`; 404 from `/lifecyclez/rollback`.
+  with that plane off: `{"enabled": false}` from `/fleetz`, `/recoveryz`,
+  `/meshz`.
 
 A request becomes the same PredictRequest (or Classification /
 RegressionRequest) the gRPC path parses and is handed to the impl's
@@ -80,6 +85,7 @@ from ..proto import tf_framework_pb2 as fw
 from ..utils import tracing
 from ..utils.metrics import ServerMetrics
 from ..utils.tracing import request_trace
+from . import lifecycle as lifecycle_mod
 from . import overload as overload_mod
 from .service import PredictionServiceImpl, ServiceError, _wrap_lookup
 from .utilization import CaptureInProgressError, profiler_capture
@@ -110,8 +116,8 @@ def _json_error(code: str, message: str, retry_after_ms: int | None = None) -> w
 
 def _criticality_of(request: web.Request) -> str | None:
     """The request's lane from the x-dts-criticality header, read only
-    while an overload controller is armed."""
-    if not overload_mod.active():
+    while an overload or a lifecycle controller is armed."""
+    if not (overload_mod.active() or lifecycle_mod.active()):
         return None
     value = request.headers.get(overload_mod.CRITICALITY_KEY)
     return overload_mod.normalize_criticality(value) if value else None
@@ -169,8 +175,8 @@ class RestGateway:
             web.get("/qualityz", self.qualityz),
             web.post("/qualityz/snapshot", self.qualityz_snapshot),
             web.post("/labelz", self.labelz),
-            web.get("/lifecyclez", self.plane_off),
-            web.post("/lifecyclez/rollback", self.plane_not_found),
+            web.get("/lifecyclez", self.lifecyclez),
+            web.post("/lifecyclez/rollback", self.lifecyclez_rollback),
             web.get("/fleetz", self.plane_off),
             web.get("/recoveryz", self.plane_off),
             web.get("/meshz", self.plane_off),
@@ -182,9 +188,12 @@ class RestGateway:
 
     # ------------------------------------------------------------- helpers
 
-    def _resolve_specs(self, model: str, version, signature_name: str, label=None):
-        # The gRPC path's lookup errors (NOT_FOUND).
-        servable = _wrap_lookup(lambda: self.impl.registry.resolve(model, version, label))
+    def _resolve_specs(self, model: str, version, signature_name: str, label=None,
+                       criticality=None):
+        # The gateway pins the concrete version it resolves here into the
+        # request it hands the impl, so the canary router must have its say
+        # here, or REST traffic would never reach a canary.
+        servable = self.impl.resolve_servable(model, version, label, criticality)
         sig = _wrap_lookup(lambda: servable.signature(signature_name))
         return servable, sig
 
@@ -301,7 +310,8 @@ class RestGateway:
                     "INVALID_ARGUMENT",
                     'body must carry exactly one of "instances" or "inputs"',
                 )
-            servable, sig = self._resolve_specs(model, version, signature_name, label)
+            servable, sig = self._resolve_specs(model, version, signature_name, label,
+                                                criticality=_criticality_of(request))
             if row_format:
                 arrays = self._arrays_from_instances(body["instances"], sig)
             else:
@@ -460,6 +470,7 @@ class RestGateway:
                 overload=self.impl.overload_stats(),
                 utilization=self.impl.utilization_stats(),
                 quality=self.impl.quality_stats(),
+                lifecycle=self.impl.lifecycle_stats(),
                 pipeline=self.impl.pipeline_stats(),
                 kernels=self.impl.kernels_stats(),
                 integrity=self.impl.integrity_stats(),
@@ -567,9 +578,38 @@ class RestGateway:
     async def plane_off(self, request: web.Request) -> web.Response:
         return web.json_response(_OFF)
 
-    async def plane_not_found(self, request: web.Request) -> web.Response:
-        """A plane's operator lever with the plane off: 404."""
-        return web.json_response(_OFF, status=404)
+    # ------------------------------------------------------------- planes
+
+    async def lifecyclez(self, request: web.Request) -> web.Response:
+        """GET /lifecyclez: the IDLE / CANARY / PROMOTING / ROLLED_BACK state
+        machine, the stable and canary versions and the live routing share,
+        the publish / promote / rollback counters and transition history,
+        the last rollback's evidence (pair PSI / JS, AUC) and the version
+        watcher's loaded / on-disk / blacklisted / pinned sets;
+        `{"enabled": false}` with the plane off."""
+        stats = self.impl.lifecycle_stats()
+        return web.json_response(stats if stats is not None else _OFF)
+
+    async def lifecyclez_rollback(self, request: web.Request) -> web.Response:
+        """POST /lifecyclez/rollback: demote the live canary now, through the
+        path the drift / AUC gate takes (retire + blacklist, traffic back on
+        stable). Body (optional JSON): {"reason": "..."}. 409 with no canary
+        live; 404 and `{"enabled": false}` with the plane off."""
+        lifecycle = self.impl.lifecycle
+        if lifecycle is None:
+            return web.json_response(_OFF, status=404)
+        reason = "operator"
+        try:
+            body = await request.json()
+            if isinstance(body, dict) and body.get("reason"):
+                reason = str(body["reason"])
+        except Exception:  # noqa: BLE001 — an empty body is fine
+            pass
+        rolled = lifecycle.force_rollback(reason)
+        return web.json_response(
+            {"rolled_back": rolled, "reason": reason, "lifecycle": self.impl.lifecycle_stats()},
+            status=200 if rolled else 409,
+        )
 
     async def cascadez(self, request: web.Request) -> web.Response:
         """GET /cascadez: the cascade's config echo (stage-1 model, survivor

@@ -18,9 +18,15 @@ a stage-1 servable on the device and only the survivors are ranked; with
 `[utilization] enabled` (serving/utilization.py) the batcher feeds an
 occupancy ledger (GET /utilz); with `[quality] enabled`
 (serving/quality.py) it feeds each request's scores to the quality
-monitor (GET /qualityz, POST /labelz). Each section (or its flag:
-`--overload`, `--integrity`, `--cascade`, `--utilization`, `--quality`)
-arms the plane in build_stack, and so on either server. With
+monitor (GET /qualityz, POST /labelz); with `[lifecycle] enabled`
+(serving/lifecycle.py) and `--model-base-path` a controller routes a newer
+version as a canary (probe lane first, then a ramp of default-lane
+traffic), promotes it or rolls it back on the quality plane's evidence, and
+with `fine_tune_interval_s > 0` fine-tunes the stable version and
+publishes the result itself (GET /lifecyclez). Each section (or its flag:
+`--overload`, `--integrity`, `--cascade`, `--utilization`, `--quality`,
+`--lifecycle`) arms the plane in build_stack, and so on either server;
+`--lifecycle` implies `--quality`. With
 `--rest-port`, POST /profilez/start captures a torch.profiler trace and the
 host threads' stacks whether or not the ledger is on.
 
@@ -45,7 +51,7 @@ CLI:
         [--file-system-poll-wait-seconds S] [--max-num-load-retries N] \
         [--uds-path PATH] [--stream-chunk N] [--rest-port N] \
         [--metrics-every-s S] [--tracing] [--cache] [--overload] [--integrity] \
-        [--cascade] [--utilization] [--quality]
+        [--cascade] [--utilization] [--quality] [--lifecycle]
 
 serves, by default, a randomly initialized demo servable (numpy-seeded,
 `--seed`) of the configured model kind ([server] model_kind, or
@@ -105,6 +111,7 @@ from ..utils.config import (
     CascadeConfig,
     IntegrityConfig,
     KernelsConfig,
+    LifecycleConfig,
     ObservabilityConfig,
     OverloadConfig,
     QualityConfig,
@@ -117,6 +124,7 @@ from ..utils.config import (
 )
 from ..utils.metrics import ServerMetrics
 from ..utils.tracing import request_trace
+from . import lifecycle as lifecycle_mod
 from . import overload as overload_mod
 from . import utilization as utilization_mod
 from .batcher import DynamicBatcher
@@ -207,9 +215,11 @@ def _stream_chunk_of(context) -> int | None:
 
 
 def _criticality_of(context) -> str | None:
-    """The request's lane (x-dts-criticality), read only while an overload
-    controller is armed in this process (one module bool read otherwise)."""
-    if not overload_mod.active():
+    """The request's lane (x-dts-criticality), read only while a plane that
+    consumes it is armed in this process: the overload controller (lane-
+    ordered shedding) or the lifecycle controller (probe-lane-first canary
+    routing); two module bool reads otherwise."""
+    if not (overload_mod.active() or lifecycle_mod.active()):
         return None
     try:
         for key, value in context.invocation_metadata() or ():
@@ -1049,9 +1059,10 @@ class GracefulShutdown:
     1. `impl.draining`: health "" answers NOT_SERVING and every new
        inference RPC is refused UNAVAILABLE, so balancers and fan-out
        clients go elsewhere;
-    2. the cascade's stage-1 watcher, then the version watcher or the
-       model lifecycle stop: no load or warmup enters the batcher behind the
-       drain;
+    2. the lifecycle controller (its ticks drive the watcher, and its
+       publisher must not land a version behind the drain), the cascade's
+       stage-1 watcher, then the version watcher or the model lifecycle
+       stop: no load or warmup enters the batcher behind the drain;
     3. `batcher.drain(grace_s)`: what the server accepted is answered
        (queued, staged, running and read back), bounded by the grace;
     4. the transport settles (`quiesce`, TransportQuiesce: RPCs that
@@ -1071,11 +1082,13 @@ class GracefulShutdown:
     MIN_RPC_GRACE_S = 1.0
 
     def __init__(self, impl: PredictionServiceImpl, batcher: DynamicBatcher,
-                 grace_s: float = DRAIN_GRACE_S, watcher=None, request_logger=None):
+                 grace_s: float = DRAIN_GRACE_S, watcher=None, request_logger=None,
+                 lifecycle=None):
         self.impl = impl
         self.batcher = batcher
         self.grace_s = max(float(grace_s), 0.0)
         self.watcher = watcher
+        self.lifecycle = lifecycle
         self.request_logger = request_logger
         self.server = None  # attached once created
         self.quiesce = TransportQuiesce()
@@ -1108,6 +1121,8 @@ class GracefulShutdown:
         try:
             t0 = time.perf_counter()
             self.impl.draining = True
+            if self.lifecycle is not None:
+                self.lifecycle.stop()
             if self.impl.cascade_watcher is not None:
                 self.impl.cascade_watcher.stop()
             if self.watcher is not None:
@@ -1144,7 +1159,8 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                 integrity_config: IntegrityConfig | None = None,
                 cascade_config: CascadeConfig | None = None,
                 utilization_config: UtilizationConfig | None = None,
-                quality_config: QualityConfig | None = None):
+                quality_config: QualityConfig | None = None,
+                lifecycle_config: LifecycleConfig | None = None):
     """(impl, batcher, servable): the servable serving at start, warmed
     through every bucket (unless `cfg.warmup` is off), and a started
     batcher. The servable is the numpy-seeded demo (`seed`), the checkpoint
@@ -1191,8 +1207,12 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     enabled `utilization_config` hands the batcher an OccupancyLedger named
     after its device (`cuda:N (<card>)` or `cpu`); an enabled
     `quality_config` hands it a QualityMonitor, told of every version
-    change by each watcher. The source options are checked, and a model
-    config file parsed, before any thread starts."""
+    change by each watcher. An enabled `lifecycle_config` sets
+    `impl.lifecycle`, a LifecycleController over the registry, the version
+    watcher and the quality monitor (it needs `model_base_path` and an
+    enabled `quality_config`, and is refused otherwise); its thread is the
+    caller's to start. The source options are checked, and a model config
+    file parsed, before any thread starts."""
     if checkpoint and model_base_path:
         raise ValueError(
             "--model-base-path is mutually exclusive with --checkpoint "
@@ -1231,6 +1251,18 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
         raise RuntimeError(
             "[integrity] wire_checksums needs the native host-ops library "
             "(native/hostops.cc dts_crc32c), which could not be built with g++")
+    lifecycle_armed = lifecycle_config is not None and lifecycle_config.enabled
+    if lifecycle_armed:
+        if not model_base_path:
+            raise ValueError(
+                "[lifecycle] enabled requires --model-base-path: the watched versioned dir is "
+                "both the publish target and the hot-swap mechanism the canary/rollback loop "
+                "drives")
+        if quality_config is None or not quality_config.enabled:
+            raise ValueError(
+                "[lifecycle] enabled requires [quality] enabled (or --quality): the rollback "
+                "gate reads the quality plane's version-pair drift and per-version label "
+                "AUC — a lifecycle with no signal could only ever promote blind")
     cascade_armed = cascade_config is not None and cascade_config.enabled
     if cascade_armed and cfg.output_top_k:
         raise ValueError(
@@ -1349,6 +1381,21 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                                 registry, batcher)
         impl.served_sources[cfg.model_name] = (str(model_base_path), cfg.model_kind)
         impl.version_watcher = watcher.start()
+        if lifecycle_armed:
+            from .lifecycle import LifecycleController
+
+            lc = lifecycle_config
+            impl.lifecycle = LifecycleController(lc, registry=registry,
+                                                 model_name=cfg.model_name, watcher=watcher,
+                                                 quality=quality)
+            log.info(
+                "continuous-freshness lifecycle on: probe_only=%.1fs ramp %.2f+%.2f/%.1fs to "
+                "%.2f, promote_after=%.1fs, rollback psi>=%.2f auc_drop>=%.3f, fine_tune every "
+                "%s — GET /lifecyclez on the REST surface", lc.canary_probe_only_s,
+                lc.canary_initial_fraction, lc.canary_ramp_step, lc.canary_step_dwell_s,
+                lc.canary_max_fraction, lc.promote_after_s, lc.rollback_psi,
+                lc.rollback_auc_drop,
+                f"{lc.fine_tune_interval_s:.0f}s" if lc.fine_tune_interval_s > 0 else "<off>")
         versions = registry.models().get(cfg.model_name, [])
         if versions:
             servable = registry.resolve(cfg.model_name)
@@ -1556,6 +1603,15 @@ def serve(argv=None) -> None:
         "dts_tpu_quality_* series). Equivalent to [quality] enabled = true; the [quality] "
         "section carries the bins, window, drift and label knobs")
     p.add_argument(
+        "--lifecycle", action="store_true", default=None,
+        help="continuous-freshness lifecycle (serving/lifecycle.py): a newer version under "
+        "--model-base-path becomes a canary (probe lane first, then a deterministic ramp of "
+        "default-lane traffic), promoted after a healthy dwell or rolled back (retired and "
+        "blacklisted) on the quality plane's version-pair PSI or label-AUC drop, with an "
+        "optional fine-tune publisher ([lifecycle] fine_tune_interval_s). Equivalent to "
+        "[lifecycle] enabled = true; implies --quality (the rollback gate's signal). GET "
+        "/lifecyclez, the `lifecycle` block of /monitoring, dts_tpu_lifecycle_* series")
+    p.add_argument(
         "--kernels", action="store_true",
         help="kernel/quantization plane: int8 weight quantization and the fused "
         "serve kernel, each enabled per bucket only where the load-time autotune "
@@ -1592,6 +1648,13 @@ def serve(argv=None) -> None:
         utilization_config = dataclasses.replace(utilization_config, enabled=True)
     quality_config = loaded.get("quality") or QualityConfig()
     if args.quality:
+        quality_config = dataclasses.replace(quality_config, enabled=True)
+    lifecycle_config = loaded.get("lifecycle") or LifecycleConfig()
+    if args.lifecycle:
+        lifecycle_config = dataclasses.replace(lifecycle_config, enabled=True)
+    if lifecycle_config.enabled and not quality_config.enabled:
+        # The plane reads the quality plane's evidence: arming it implies
+        # [quality] (build_stack would refuse the actuator without it).
         quality_config = dataclasses.replace(quality_config, enabled=True)
     obs = loaded.get("observability") or ObservabilityConfig()
     if args.tracing:
@@ -1635,14 +1698,20 @@ def serve(argv=None) -> None:
             cache_config=cache_config, overload_config=overload_config,
             integrity_config=integrity_config, cascade_config=cascade_config,
             utilization_config=utilization_config, quality_config=quality_config,
+            lifecycle_config=lifecycle_config,
         )
     except BaseException:
         if request_logger is not None:
             request_logger.close()
         raise
+    if impl.lifecycle is not None:
+        # The CLI drives the controller from its thread: ticks and the
+        # fine-tune publisher's cadence.
+        impl.lifecycle.start()
     shutdown = GracefulShutdown(
         impl, batcher, grace_s=loaded.get("drain_grace_s", DRAIN_GRACE_S),
-        watcher=impl.model_lifecycle or impl.version_watcher, request_logger=request_logger)
+        watcher=impl.model_lifecycle or impl.version_watcher, request_logger=request_logger,
+        lifecycle=impl.lifecycle)
     if request_logger is not None:
         impl.request_logger = request_logger
         log.info("request logging to %s (sampling %.4f)", cfg.request_log_file,

@@ -135,6 +135,12 @@ class PredictionServiceImpl:
         self.served_sources: dict[str, tuple[str, str]] = {}
         # The VersionWatcher of a --model-base-path server, else None.
         self.version_watcher = None
+        # The continuous-freshness controller (serving/lifecycle.py
+        # LifecycleController), or None: with one, a DEFAULT resolution of
+        # its model asks the canary router (a request that pins a version
+        # or a label is never routed). None costs one attribute read per
+        # resolution.
+        self.lifecycle = None
         # The ModelLifecycle of a --model-config-file server (server.py),
         # else None: with it HandleReloadConfigRequest replaces the served
         # model list.
@@ -171,10 +177,29 @@ class PredictionServiceImpl:
             arena = self._arenas.arena = codec.EncodeArena()
         return arena
 
-    # Lifecycle, recovery (ROADMAP.md Queue A item 6), fleet (item 8), mesh
-    # and elastic (item 9): refused by load_config, so always off here.
-    lifecycle_stats = recovery_stats = staticmethod(_plane_off)
+    # Recovery (ROADMAP.md Queue A item 6e), fleet (item 8), mesh and
+    # elastic (item 9): refused by load_config, so always off here.
+    recovery_stats = staticmethod(_plane_off)
     fleet_stats = mesh_stats = elastic_stats = staticmethod(_plane_off)
+
+    def lifecycle_stats(self) -> dict | None:
+        """The lifecycle controller's snapshot (state machine, canary
+        routing share and counters, publish / promote / rollback history,
+        the watcher's blacklist and pins): GET /lifecyclez, the
+        /monitoring `lifecycle` block and the dts_tpu_lifecycle_* series.
+        None with the plane off."""
+        lc = self.lifecycle
+        return lc.snapshot() if lc is not None else None
+
+    def lifecycle_route(self, name: str, version, label,
+                        criticality: str | None) -> int | None:
+        """The canary router's version for one request, or None. Only
+        DEFAULT resolutions of the controller's own model are routed: a
+        pinned version or label is the client's choice."""
+        lc = self.lifecycle
+        if lc is None or version is not None or label is not None or name != lc.model:
+            return None
+        return lc.route(criticality)
 
     def overload_stats(self) -> dict | None:
         """The overload controller's snapshot (adaptive limit, pressure
@@ -352,13 +377,34 @@ class PredictionServiceImpl:
             )
         return version, label
 
-    def _resolve(self, model_spec: apis.ModelSpec) -> tuple[Servable, Signature]:
+    def _resolve(self, model_spec: apis.ModelSpec,
+                 criticality: str | None = None) -> tuple[Servable, Signature]:
         if not model_spec.name:
             raise ServiceError("INVALID_ARGUMENT", "model_spec.name is required")
         version, label = self._version_choice(model_spec)
-        servable = _wrap_lookup(lambda: self.registry.resolve(model_spec.name, version, label))
+        servable = self.resolve_servable(model_spec.name, version, label, criticality)
         signature = _wrap_lookup(lambda: servable.signature(model_spec.signature_name))
         return servable, signature
+
+    def resolve_servable(self, name: str, version, label,
+                         criticality: str | None = None) -> Servable:
+        """The servable a request names, after the lifecycle plane's canary
+        router has had its say on a DEFAULT resolution (the gRPC path and
+        the REST gateway both resolve here). Lookup errors are NOT_FOUND."""
+        routed = self.lifecycle_route(name, version, label, criticality)
+        if routed is None:
+            return _wrap_lookup(lambda: self.registry.resolve(name, version, label))
+        try:
+            servable = self.registry.resolve(name, routed)
+        except (ModelNotFoundError, VersionNotFoundError):
+            # The routed version vanished (a rollback racing this request):
+            # the latest version serves it. A rollout action never fails
+            # live traffic.
+            servable = _wrap_lookup(lambda: self.registry.resolve(name))
+        span = tracing.current_span()
+        if span is not None:
+            span.attrs["lifecycle_version"] = servable.version
+        return servable
 
     @staticmethod
     def _echo_spec(servable: Servable, signature_name: str) -> apis.ModelSpec:
@@ -563,14 +609,16 @@ class PredictionServiceImpl:
         if degraded is not None:
             overload_mod.mark_degraded(degraded)
 
-    def _predict_prepare(self, request: apis.PredictRequest, input_crc: str | None = None):
-        """The front half of Predict and PredictStream: resolution, method
-        check, decode and validation, output_filter. Returns (servable,
-        arrays, out_names, fetch_keys). `input_crc` (the request's
+    def _predict_prepare(self, request: apis.PredictRequest, input_crc: str | None = None,
+                         criticality: str | None = None):
+        """The front half of Predict and PredictStream: resolution (the
+        lane reaches the lifecycle plane's router), method check, decode
+        and validation, output_filter. Returns (servable, arrays,
+        out_names, fetch_keys). `input_crc` (the request's
         x-dts-input-crc) is verified on the decoded arrays, before any fold
         or cast (a bf16 input over the bits it was sent with), so a damaged
         request fails alone, before the batcher."""
-        servable, signature = self._resolve(request.model_spec)
+        servable, signature = self._resolve(request.model_spec, criticality)
         if signature.method_name != "tensorflow/serving/predict":
             raise ServiceError(
                 "INVALID_ARGUMENT",
@@ -644,7 +692,8 @@ class PredictionServiceImpl:
         DT_INT8 plus its `/q8_scale` and `/q8_min` sidecar outputs."""
         self._refuse_if_draining()
         deadline_t = self._clock_deadline(deadline_s)
-        servable, arrays, out_names, fetch_keys = self._predict_prepare(request, input_crc)
+        servable, arrays, out_names, fetch_keys = self._predict_prepare(request, input_crc,
+                                                                        criticality)
         casc = self.cascade
         if casc is not None and casc.eligible(servable, fetch_keys,
                                               next(iter(arrays.values())).shape[0]):
@@ -671,7 +720,8 @@ class PredictionServiceImpl:
         batch instead of blocking a thread on it."""
         self._refuse_if_draining()
         deadline_t = self._clock_deadline(deadline_s)
-        servable, arrays, out_names, fetch_keys = self._predict_prepare(request, input_crc)
+        servable, arrays, out_names, fetch_keys = self._predict_prepare(request, input_crc,
+                                                                        criticality)
         casc = self.cascade
         if casc is not None and casc.eligible(servable, fetch_keys,
                                               next(iter(arrays.values())).shape[0]):
@@ -729,7 +779,8 @@ class PredictionServiceImpl:
         they ride the batcher's pipeline independently. Returns (servable,
         out_names, mirror, total, {future: (offset, count)}). A submit that
         fails cancels the sub-batches already queued."""
-        servable, arrays, out_names, fetch_keys = self._predict_prepare(request)
+        servable, arrays, out_names, fetch_keys = self._predict_prepare(
+            request, criticality=criticality)
         total = next(iter(arrays.values())).shape[0]
         plan = self._stream_plan(total, chunk)
         # A split request's sub-batches are solo, so the coalescer never
@@ -870,8 +921,9 @@ class PredictionServiceImpl:
 
     # ---------------------------------------------------- Classify / Regress
 
-    def _examples_prepare(self, request) -> tuple[Servable, dict[str, np.ndarray]]:
-        servable, _ = self._resolve(request.model_spec)
+    def _examples_prepare(self, request, criticality: str | None = None
+                          ) -> tuple[Servable, dict[str, np.ndarray]]:
+        servable, _ = self._resolve(request.model_spec, criticality)
         try:
             arrays = decode_input(request.input, servable.model.config.num_fields,
                                   arena=self._arena())
@@ -884,7 +936,7 @@ class PredictionServiceImpl:
         """Shared front half of Classify/Regress: resolution, Example
         decode and the batcher run. Returns (servable, outputs)."""
         deadline_t = self._clock_deadline(deadline_s)
-        servable, arrays = self._examples_prepare(request)
+        servable, arrays = self._examples_prepare(request, criticality)
         outputs = self._run(servable, arrays, (servable.model.score_output,),
                             self._budget_left(deadline_t), criticality)
         return servable, outputs
@@ -894,7 +946,7 @@ class PredictionServiceImpl:
         """_run_examples for coroutine callers (the REST gateway's
         :classify and :regress)."""
         deadline_t = self._clock_deadline(deadline_s)
-        servable, arrays = self._examples_prepare(request)
+        servable, arrays = self._examples_prepare(request, criticality)
         outputs = await self._run_async(servable, arrays, (servable.model.score_output,),
                                         self._budget_left(deadline_t), criticality)
         return servable, outputs

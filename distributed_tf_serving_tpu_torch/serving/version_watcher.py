@@ -237,6 +237,9 @@ class VersionWatcher:
     def unblacklist(self, version: int) -> None:
         self._blacklisted = self._blacklisted - {int(version)}
 
+    def is_blacklisted(self, version: int) -> bool:
+        return int(version) in self._blacklisted
+
     def pin(self, version: int) -> None:
         """Exempt `version` from retention (like a label pin, without a
         label)."""

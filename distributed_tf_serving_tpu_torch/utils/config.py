@@ -1,14 +1,14 @@
 """TOML config: the [server], [batching], [transport], [model], [kernels],
 [observability], [cache], [overload], [integrity], [cascade],
-[utilization] and [quality] sections the port reads, the checks of the
-model-config entries, and the mapping of a tensorflow_model_server
-batching-parameters file onto [server].
+[utilization], [quality] and [lifecycle] sections the port reads, the
+checks of the model-config entries, and the mapping of a
+tensorflow_model_server batching-parameters file onto [server].
 
 The JAX package's config files load unchanged, with one rule: a setting
 that would change what is served, logged or admitted but is not ported
 here is refused with a ValueError naming the ROADMAP.md Queue A item that
 ports it, never dropped. That covers the mesh knobs of [server] and a
-plane section ([lifecycle], [recovery], ...) switched on, and [integrity]
+plane section ([recovery], [fleet], ...) switched on, and [integrity]
 router_audit_fraction away from 0 (it acts only in the fleet router). What
 changes no result here is ignored with one log line: the transfer knobs of
 [server], the [client] section, and a plane section that is off.
@@ -605,6 +605,56 @@ class QualityConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class LifecycleConfig:
+    """The [lifecycle] section (serving/lifecycle.py): the online fine-tune
+    publisher, the canary admission ramp and the drift / AUC auto-rollback.
+    The JAX package's fields and defaults. Off by default: a version
+    resolution reads one attribute. Arming it needs --model-base-path (the
+    watched versioned dir is both the publish target and the hot-swap
+    mechanism) and [quality] enabled (the rollback gate reads its
+    version-pair drift and per-version label AUC); build_stack refuses it
+    otherwise."""
+
+    # Build a LifecycleController and hand it to the impl.
+    enabled: bool = False
+    # The background thread's tick interval, also the spacing of the
+    # opportunistic ticks on the routing path.
+    tick_interval_s: float = 1.0
+    # Canary admission ramp: a probe-lane-only warm phase, then a
+    # deterministic share of default-lane traffic stepping up per dwell
+    # until max_fraction.
+    canary_probe_only_s: float = 10.0
+    canary_initial_fraction: float = 0.05
+    canary_ramp_step: float = 0.10
+    canary_step_dwell_s: float = 10.0
+    canary_max_fraction: float = 0.5
+    # Promotion: healthy time at max fraction, with at least
+    # min_canary_scores windowed canary scores.
+    promote_after_s: float = 60.0
+    min_canary_scores: int = 200
+    # Rollback: version-pair PSI at or above rollback_psi, over
+    # rollback_compare_bins merged bins (a small canary window's sampling
+    # noise stays well under it), or a windowed label AUC drop of at least
+    # rollback_auc_drop with min_auc_pairs joined on each side. The
+    # rolled-back state holds rollback_hold_s before the next rollout.
+    rollback_psi: float = 0.5
+    rollback_compare_bins: int = 10
+    rollback_auc_drop: float = 0.05
+    min_auc_pairs: int = 100
+    rollback_hold_s: float = 30.0
+    # Fine-tune publisher: every interval (while IDLE), continue training
+    # the stable servable on fresh rows and publish it as the next
+    # version. 0 = off (canary and rollback still manage versions
+    # published from outside).
+    fine_tune_interval_s: float = 0.0
+    fine_tune_steps: int = 200
+    fine_tune_batch_size: int = 256
+    fine_tune_learning_rate: float = 1e-4
+    # Transition events kept for /lifecyclez.
+    history_events: int = 64
+
+
 # [server] keys of the JAX package that change no result here: the JAX
 # runtime's transfer knobs, whose work the port's host path always does one
 # way (one combined buffer, async readback, a dispatch thread).
@@ -632,13 +682,6 @@ _UNPORTED_SECTIONS = {
     "elastic": (("enabled", "splits", "tick_interval_s", "dwell_s", "up_after_ticks",
                  "down_after_ticks", "load_up_threshold", "load_down_threshold",
                  "load_ewma_alpha", "history_events"), ("enabled",), 9),
-    "lifecycle": (("enabled", "tick_interval_s", "canary_probe_only_s",
-                   "canary_initial_fraction", "canary_ramp_step", "canary_step_dwell_s",
-                   "canary_max_fraction", "promote_after_s", "min_canary_scores", "rollback_psi",
-                   "rollback_compare_bins", "rollback_auc_drop", "min_auc_pairs",
-                   "rollback_hold_s", "fine_tune_interval_s", "fine_tune_steps",
-                   "fine_tune_batch_size", "fine_tune_learning_rate", "history_events"),
-                  ("enabled",), 6),
     "recovery": (("enabled", "watchdog_interval_s", "wedge_quarantine_s", "replay_budget",
                   "poison_kills", "bisect_after_kills", "reinit_warmup", "rewarm_timeout_s",
                   "reinit_clear_backend", "replay_drain_s", "max_cycle_rounds",
@@ -699,9 +742,10 @@ def load_config(path) -> dict[str, Any]:
     "model": ModelConfig, "kernels": KernelsConfig, "observability":
     ObservabilityConfig, "cache": CacheConfig, "overload": OverloadConfig,
     "integrity": IntegrityConfig, "cascade": CascadeConfig, "utilization":
-    UtilizationConfig, "quality": QualityConfig} ("model", "kernels",
-    "observability", "cache", "overload", "integrity", "cascade",
-    "utilization" and "quality" only when the file has that section). A nonzero [batching]
+    UtilizationConfig, "quality": QualityConfig, "lifecycle":
+    LifecycleConfig} ("model", "kernels", "observability", "cache",
+    "overload", "integrity", "cascade", "utilization", "quality" and
+    "lifecycle" only when the file has that section). A nonzero [batching]
     pipeline_depth replaces the [server] one, as in the JAX package's
     server; "drain_grace_s" is [overload] drain_grace_s (honored with the
     plane off, as there). Raises ValueError on a setting that is not
@@ -709,7 +753,7 @@ def load_config(path) -> dict[str, Any]:
     not know."""
     raw = tomllib.loads(pathlib.Path(path).read_text())
     ported = {"server", "batching", "transport", "model", "kernels", "observability", "cache",
-              "overload", "integrity", "cascade", "utilization", "quality"}
+              "overload", "integrity", "cascade", "utilization", "quality", "lifecycle"}
     unknown = sorted(set(raw) - ported - set(_UNPORTED_SECTIONS))
     if unknown:
         raise ValueError(f"unknown config sections: {unknown}")
@@ -747,6 +791,8 @@ def load_config(path) -> dict[str, Any]:
         out["utilization"] = _coerce(UtilizationConfig, raw["utilization"], "utilization")
     if "quality" in raw:
         out["quality"] = _coerce(QualityConfig, raw["quality"], "quality")
+    if "lifecycle" in raw:
+        out["lifecycle"] = _coerce(LifecycleConfig, raw["lifecycle"], "lifecycle")
     extra = sorted(set(raw) & set(_UNPORTED_SECTIONS))
     if extra:
         log.info("ignoring config sections this package does not use: %s", extra)

@@ -497,6 +497,17 @@ _HELP = {
     "dts_tpu_quality_calibration_error":
         "Count-weighted |mean predicted - observed rate| over predicted-"
         "probability deciles (expected calibration error)",
+    "dts_tpu_lifecycle_state":
+        "Continuous-freshness state machine, one-hot over idle/canary/"
+        "promoting/rolled_back",
+    "dts_tpu_lifecycle_canary_fraction":
+        "Share of default-lane traffic currently routed to the canary "
+        "version (probe-lane traffic always routes to it)",
+    "dts_tpu_lifecycle_routed_total":
+        "Requests the canary router resolved, labeled by target version "
+        "role",
+    "dts_tpu_lifecycle_blacklisted_versions":
+        "Versions the watcher excludes from reconcile after a rollback",
     "dts_tpu_integrity_suspect":
         "1 while this replica's own shadow verification has it marked "
         "suspect (also gossiped in the fleet record so routers steer "
@@ -668,7 +679,7 @@ class ServerMetrics:
 
     def prometheus_text(self, batcher_stats=None, cache=None, row_cache=None, overload=None,
                         pipeline=None, kernels=None, integrity=None, cascade=None,
-                        utilization=None, quality=None) -> str:
+                        utilization=None, quality=None, lifecycle=None) -> str:
         """Prometheus exposition (text format 0.0.4) of the same data
         snapshot() serves as JSON. Metric names mirror tensorflow_model_
         server's monitoring surface (`:tensorflow:serving:request_count` /
@@ -891,6 +902,8 @@ class ServerMetrics:
             lines.extend(_utilization_prometheus_lines(utilization))
         if quality is not None:
             lines.extend(_quality_prometheus_lines(quality))
+        if lifecycle is not None:
+            lines.extend(_lifecycle_prometheus_lines(lifecycle))
         if kernels is not None:
             lines.extend(_kernel_prometheus_lines(kernels))
         if cascade is not None:
@@ -1055,6 +1068,63 @@ def _quality_prometheus_lines(quality: dict) -> list[str]:
         lines.extend(js_lines)
     _family_lines(lines, "dts_tpu_quality_drift_exceeded", "gauge")
     lines.extend(exceeded_lines)
+    return lines
+
+
+def _lifecycle_prometheus_lines(lifecycle: dict) -> list[str]:
+    """dts_tpu_lifecycle_* exposition from a LifecycleController snapshot
+    dict: the one-hot state gauge (the overload plane's enum
+    encoding, so dashboards `max by (state)` it), the live canary
+    fraction + version gauges, tick/publish/promote/rollback counters,
+    routed-request counters labeled by target role, and the watcher's
+    blacklist size. Families grouped and declared once — the exposition
+    lint's invariants."""
+    esc = escape_label_value
+    lines: list[str] = []
+    st = "dts_tpu_lifecycle_state"
+    _family_lines(lines, st, "gauge")
+    current = lifecycle.get("state", "idle")
+    for state in ("idle", "canary", "promoting", "rolled_back"):
+        lines.append(
+            f'{st}{{state="{esc(state)}"}} {1 if state == current else 0}'
+        )
+    counters = lifecycle.get("counters") or {}
+    for metric, kind, value in (
+        ("dts_tpu_lifecycle_canary_fraction", "gauge",
+         lifecycle.get("canary_fraction", 0.0)),
+        ("dts_tpu_lifecycle_stable_version", "gauge",
+         lifecycle.get("stable_version") or 0),
+        ("dts_tpu_lifecycle_canary_version", "gauge",
+         lifecycle.get("canary_version") or 0),
+        ("dts_tpu_lifecycle_ticks_total", "counter",
+         counters.get("ticks", 0)),
+        ("dts_tpu_lifecycle_publishes_total", "counter",
+         counters.get("publishes", 0)),
+        ("dts_tpu_lifecycle_publish_failures_total", "counter",
+         counters.get("publish_failures", 0)),
+        ("dts_tpu_lifecycle_promotes_total", "counter",
+         counters.get("promotes", 0)),
+        ("dts_tpu_lifecycle_rollbacks_total", "counter",
+         counters.get("rollbacks", 0)),
+        ("dts_tpu_lifecycle_blacklisted_versions", "gauge",
+         len((lifecycle.get("watcher") or {}).get("blacklisted", ()))),
+    ):
+        _family_lines(lines, metric, kind)
+        lines.append(f"{metric} {value}")
+    rt = "dts_tpu_lifecycle_routed_total"
+    _family_lines(lines, rt, "counter")
+    for target, key in (
+        ("canary", "routed_canary"),
+        ("stable", "routed_stable"),
+    ):
+        lines.append(
+            f'{rt}{{target="{esc(target)}"}} {counters.get(key, 0)}'
+        )
+    # Probe-lane routes are a SUBSET of target="canary" (the lane always
+    # routes there), so they get their own family, not a third target.
+    pr = "dts_tpu_lifecycle_probe_routed_total"
+    _family_lines(lines, pr, "counter")
+    lines.append(f"{pr} {counters.get('routed_probe', 0)}")
     return lines
 
 

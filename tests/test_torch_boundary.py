@@ -498,3 +498,53 @@ def test_utilization_and_quality_planes_import_no_jax_subprocess():
     assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
     for mod in ("serving.utilization", "serving.quality"):
         assert f"distributed_tf_serving_tpu_torch.{mod}" in line["modules"]
+
+
+_FRESHNESS_SCRIPT = r"""
+import json, sys, tempfile
+from distributed_tf_serving_tpu_torch.models import ModelConfig, ServableRegistry, build_model
+from distributed_tf_serving_tpu_torch.models.registry import Servable, model_signatures
+from distributed_tf_serving_tpu_torch.serving.lifecycle import LifecycleController
+from distributed_tf_serving_tpu_torch.serving.quality import QualityMonitor
+from distributed_tf_serving_tpu_torch.serving.version_watcher import (
+    VersionWatcher, VersionWatcherConfig)
+from distributed_tf_serving_tpu_torch.train import Trainer, save_servable
+from distributed_tf_serving_tpu_torch.utils.config import LifecycleConfig
+cfg = ModelConfig(num_fields=4, vocab_size=256, embed_dim=2, mlp_dims=(4,), num_cross_layers=1)
+model = build_model("dcn_v2", cfg)
+trainer = Trainer(model, device="cpu")
+trainer.fit(2, batch_size=16)
+base = tempfile.mkdtemp()
+save_servable(base + "/1", Servable("DCN", 1, model, trainer.snapshot_params(),
+                                    model_signatures(model)), kind="dcn_v2")
+reg = ServableRegistry()
+watcher = VersionWatcher(base, reg, VersionWatcherConfig(poll_interval_s=3600), device="cpu")
+watcher.poll_once()
+ctrl = LifecycleController(LifecycleConfig(enabled=True, fine_tune_steps=2,
+                                           fine_tune_batch_size=8),
+                           registry=reg, model_name="DCN", watcher=watcher,
+                           quality=QualityMonitor())
+ctrl.tick()
+summary = ctrl.publish_once()
+watcher.poll_once()
+ctrl.tick()
+print(json.dumps({"version": summary["version"], "state": ctrl.snapshot()["state"],
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_the_freshness_loop_imports_no_jax_subprocess():
+    """Train, publish a fine-tune and arm its canary in a process that
+    imports nothing of JAX."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run(
+        [sys.executable, "-c", _FRESHNESS_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert res.returncode == 0, res.stderr
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["version"] == 2 and line["state"] == "canary"
+    assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
+    for mod in ("train.trainer", "train.publisher", "serving.lifecycle"):
+        assert f"distributed_tf_serving_tpu_torch.{mod}" in line["modules"]

@@ -15,7 +15,10 @@ twice the plain f32 version's error from float64; the int8 kernel through the ba
 the quantized model.apply; the readback wire's top-k selection and int8
 quantization on the card bit for bit those of the CPU; the other model
 families through a batcher on the card 1e-5 from the card's own forward and
-2e-5 (f32) / 5e-3 (bf16) from the CPU's, with neither kernel launched.
+2e-5 (f32) / 5e-3 (bf16) from the CPU's, with neither kernel launched; three
+f32 train steps on the card within 1e-5 of the CPU's losses, and a train
+step through the cross-stack kernel (no backward) refused before any
+launch.
 """
 
 import dataclasses
@@ -668,3 +671,72 @@ def test_family_on_the_card_matches_the_cpu_forward(cuda_device, kind, compute_d
     assert np.max(np.abs(got - card)) <= 1e-5
     tol = 2e-5 if compute_dtype == "float32" else 5e-3
     assert np.max(np.abs(got - cpu["prediction_node"].float().numpy())) <= tol
+
+
+# ------------------------------------------------------------- training
+
+
+@pytest.mark.cuda
+def test_training_through_the_cross_kernel_raises_on_the_card(cuda_device):
+    """The cross-stack kernel has no backward: a train step of a
+    use_pallas_cross model raises (NoBackwardError) before any launch and
+    trains nothing; the same forward without grad launches the kernel."""
+    from distributed_tf_serving_tpu_torch.train.checkpoint import flatten_params
+    from distributed_tf_serving_tpu_torch.train.trainer import (
+        init_state,
+        make_train_step,
+        prepare_batch,
+    )
+    from distributed_tf_serving_tpu_torch.train.data import SyntheticCTRConfig, SyntheticCTRStream
+
+    cfg = ModelConfig(num_fields=10, embed_dim=8, mlp_dims=(32, 16), vocab_size=1 << 12,
+                      num_cross_layers=2, compute_dtype="bfloat16", use_pallas_cross=True)
+    model = build_model("dcn_v2", cfg)
+    state = init_state(model.init(0, cuda_device), 1e-3)
+    raw = SyntheticCTRStream(SyntheticCTRConfig(num_fields=10, id_space=1 << 12)).batch(64, 0)
+    batch = prepare_batch(raw, cfg.vocab_size, cuda_device)
+    ck.reset_launches()
+    with pytest.raises(ck.NoBackwardError):
+        make_train_step(model)(state, batch)
+    assert _launched() == {}
+    assert all(t.grad is None for t in flatten_params(state.params).values())
+    with torch.no_grad():
+        out = model.apply(state.params, batch)["prediction_node"]
+    assert _launched() == {("fused_cross_apply", "bfloat16"): 1}
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_train_steps_on_the_card_follow_the_cpu(cuda_device):
+    """Three f32 train steps of a small dcn_v2 from the same params on the
+    card and on the CPU: losses within 1e-5 (TF32 off; the card's kernels
+    sum in another order)."""
+    from distributed_tf_serving_tpu_torch.train.trainer import (
+        init_state,
+        make_train_step,
+        prepare_batch,
+    )
+    from distributed_tf_serving_tpu_torch.train.data import SyntheticCTRConfig, SyntheticCTRStream
+
+    cfg = ModelConfig(num_fields=10, embed_dim=8, mlp_dims=(32, 16), vocab_size=1 << 12,
+                      num_cross_layers=2, compute_dtype="float32")
+    model = build_model("dcn_v2", cfg)
+    params = model.init(1)
+    stream = SyntheticCTRStream(SyntheticCTRConfig(num_fields=10, id_space=1 << 12, seed=1))
+    losses = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        state = init_state(_to(params, dev), 1e-2)
+        step = make_train_step(model)
+        losses[dev.type] = []
+        for i in range(3):
+            state, m = step(state, prepare_batch(stream.batch(256, i), cfg.vocab_size, dev))
+            losses[dev.type].append(float(m["loss"]))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0, atol=1e-5)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)

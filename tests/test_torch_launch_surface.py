@@ -89,7 +89,6 @@ REFUSED = [
     ("[server]\ntensor_parallel = true\n", 9),
     ("[mesh]\nenabled = true\n", 9),
     ("[elastic]\nenabled = true\n", 9),
-    ("[lifecycle]\nenabled = true\n", 6),
     ("[recovery]\nenabled = true\n", 6),
     ("[integrity]\nrouter_audit_fraction = 0.5\n", 8),
     ("[fleet]\nenabled = true\n", 8),
@@ -122,6 +121,9 @@ PORTED = [
      "score_threshold = 0.1\nmin_candidates = 32\n", "cascade", "survivor_k", 16),
     ("[utilization]\nenabled = true\n", "utilization", "enabled", True),
     ("[quality]\nenabled = true\n", "quality", "enabled", True),
+    ("[lifecycle]\nenabled = true\n", "lifecycle", "enabled", True),
+    ("[lifecycle]\nenabled = true\ncanary_probe_only_s = 2.5\nrollback_psi = 0.35\n"
+     "fine_tune_interval_s = 900.0\nfine_tune_steps = 64\n", "lifecycle", "fine_tune_steps", 64),
 ]
 
 
@@ -133,7 +135,7 @@ def test_a_setting_ported_since_loads_like_jax(tmp_path, text, section, key, val
     ours, theirs = getattr(ours_section, key), getattr(theirs_section, key)
     assert ours == theirs == value
     if section in ("cache", "overload", "integrity", "cascade", "utilization",
-                   "quality"):  # every field, as the JAX package reads it
+                   "quality", "lifecycle"):  # every field, as the JAX package reads it
         theirs_fields = dataclasses.asdict(theirs_section)
         if section == "integrity":  # the router's knob is not ported (refused away from 0)
             assert theirs_fields.pop("router_audit_fraction") == 0.0
@@ -181,7 +183,8 @@ def test_the_key_tables_are_the_jax_package_s():
               "cache": torch_config.CacheConfig, "overload": torch_config.OverloadConfig,
               "integrity": torch_config.IntegrityConfig, "cascade": torch_config.CascadeConfig,
               "utilization": torch_config.UtilizationConfig,
-              "quality": torch_config.QualityConfig}
+              "quality": torch_config.QualityConfig,
+              "lifecycle": torch_config.LifecycleConfig}
     assert set(ported) | set(torch_config._UNPORTED_SECTIONS) == set(jax_fields)
     for section, (keys, switches, _) in torch_config._UNPORTED_SECTIONS.items():
         assert set(keys) == jax_fields[section], section
