@@ -458,6 +458,56 @@ Phases (any failure exits non-zero and prints no result line):
              printed: publish -> canary -> rollback. `launches_freshness`:
              both servers' counts from start to exit.
 
+18. recovery — the device-failure recovery plane (serving/recovery.py) out
+             of process: two CLI servers on configs/latency.toml (bf16 fused
+             serve, seed 0) with --recovery --rest-port and [recovery]
+             watchdog_interval_s = 0.1, wedge_quarantine_s = 1.0, started
+             together. Server R (DTS_TPU_FAULTS: a keyless device_lost
+             count=1 rule at rate 0.002, a DATA_LOSS rule keyed on a poison
+             payload, a 0.5 s delay keyed on a blocker payload): (1) 4 client
+             processes x closed-loop Predicts of n = 1000 (a refusal while
+             quarantined is retried after 5 ms) until the keyless rule's
+             cycle is done, and 2 s more: 0 failed Predicts, one quarantine,
+             replayed_items >= 1, health "" (checked on a thread as fast as
+             it answers) NOT_SERVING in at least one check inside the cycle,
+             SERVING in every one after it, every NOT_SERVING with the
+             quarantined reason; printed: the MTTR
+             (last_cycle.duration_s), p50 / p99 before, during and after
+             the cycle, the health checks that landed inside it. (2) The
+             blocker holds the dispatch stage while a second payload waits
+             staged, so the poison (n = 100) and two clean companions queue
+             and coalesce: only the poison fails, INVALID_ARGUMENT with
+             "bisection" in its details, the companions (and the blockers)
+             within 5e-3 of the plain forward, bisections >= 1. /recoveryz,
+             /monitoring?section=recovery and >= 17 lint-clean
+             dts_tpu_recovery_* lines agree. Server W (a batcher.dispatch
+             wedge, count 1, held 3 s; a 2 s delay keyed on a stall
+             payload): (3) its first Predict wedges, the watchdog trips
+             (trigger wedge), the dispatch thread and the completion pool
+             are replaced, the Predict is answered once by the replay within
+             5e-3, and the wedged thread's late result is dropped (its log).
+             A 2048-row payload (the top bucket: never coalesced) scores the
+             same bits on R before any fault, after each of R's cycles and
+             on W after its REINIT. (5) The stall payload trips a cycle
+             whose replay stalls too: health "" is NOT_SERVING (quarantined)
+             in every check inside it; SIGTERM during its REPLAY exits 0
+             within drain_grace_s and the replayed Predict answers.
+             Every re-warm logs its launches: fused_serve/bfloat16 must
+             launch in each; `launches_recovery` is both servers' counts from
+             start to exit. (4) A child process (`chip_smoke.py
+             --recovery-child OUT`): an in-process stack with the plane
+             armed serves 4 Predicts, then one fused serve launch with ids
+             2^31 - 1 (no allocation there) faults its context for good;
+             torch's error at the synchronize, and the failure the batcher
+             hands to take_group, must read as device_fatal; the probe's
+             verdict (context lost) within 1 s of REINIT; the 4 Predicts
+             sent after the fault end UNAVAILABLE (at least one captured,
+             "context lost"), poisoned_requests 0, the controller holds
+             QUARANTINED (health NOT_SERVING, quarantined; a later Predict
+             refused UNAVAILABLE), the drain returns within 5 s and the
+             child exits 0 within 180 s. Printed: the error texts and the
+             time to the verdict.
+
 The lifecycle and models phases clear the device input cache before each
 memory read (its entries belong to the batcher, not to a version) and print
 the bytes it held.
@@ -477,7 +527,8 @@ path's, `launches_aio`; the cache-on stack's over the cache phase's steps
 `launches_overload`; the cascade phase's eligible Predicts,
 `launches_cascade`; the utilization phase's plane-on runs,
 `launches_utilization`; the freshness phase's two servers,
-`launches_freshness`), the
+`launches_freshness`; the recovery phase's two servers,
+`launches_recovery`), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. Every line it
 logs is also kept in chiprun_out/chip_smoke.log.
 """
@@ -1568,10 +1619,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _start_cli(args: list[str], log_path: str, ready_model: str = "DCN"):
+def _start_cli(args: list[str], log_path: str, ready_model: str = "DCN", env=None):
     """Start the port's CLI server (as tools/torch_closed_loop.py does) on a
-    free port; (process, port, log file) once it answers GetModelMetadata
-    for `ready_model`."""
+    free port, in `env` (None: this process's); (process, port, log file)
+    once it answers GetModelMetadata for `ready_model`."""
     import grpc
 
     from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
@@ -1582,7 +1633,7 @@ def _start_cli(args: list[str], log_path: str, ready_model: str = "DCN"):
     proc = subprocess.Popen(
         [sys.executable, "-m", f"{PKG}.serving.server", "--host", "127.0.0.1",
          "--port", str(port), *args],
-        cwd=HERE, stdout=logf, stderr=subprocess.STDOUT)
+        cwd=HERE, stdout=logf, stderr=subprocess.STDOUT, env=env)
     end = time.perf_counter() + LIFECYCLE_WAIT_S
     try:
         with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
@@ -6403,19 +6454,21 @@ def _fresh_client(k, jobs, barrier, stop, results) -> None:
 
 
 class _FreshClients:
-    """FRESH_CLIENTS spawned client processes, reused for both servers of
-    the phase: start() releases them on a server, stop() ends their loops
-    and returns every record."""
+    """`procs` spawned client processes running `target`, reused for every
+    server of a phase: start() releases them on a server, stop() ends their
+    loops and returns every record."""
 
-    def __init__(self, procs: int):
+    def __init__(self, procs: int, target=None, label: str = "freshness"):
         import multiprocessing
 
+        target = target or _fresh_client
+        self.label = label
         ctx = multiprocessing.get_context("spawn")
         self.results = ctx.Queue()
         self.barrier = ctx.Barrier(procs + 1)
         self.stop_evt = ctx.Event()
         self.jobs = [ctx.Queue() for _ in range(procs)]
-        self.procs = [ctx.Process(target=_fresh_client, daemon=True,
+        self.procs = [ctx.Process(target=target, daemon=True,
                                   args=(k, self.jobs[k], self.barrier, self.stop_evt,
                                         self.results))
                       for k in range(procs)]
@@ -6437,9 +6490,9 @@ class _FreshClients:
             try:
                 got = self.results.get(timeout=120)
             except queue.Empty:
-                fail("freshness: a client process gave no result in 120 s")
+                fail(f"{self.label}: a client process gave no result in 120 s")
             if got and got[0] == "error":
-                fail(f"freshness: a client process failed: {got[1]}")
+                fail(f"{self.label}: a client process failed: {got[1]}")
             recs.extend(got)
         return recs
 
@@ -6959,6 +7012,670 @@ def phase_freshness(dev, name: str) -> dict:
     return out
 
 
+REC_CLIENTS = 4  # client processes, one closed-loop client each ([client] concurrent_num)
+REC_N = 1000  # candidates per client Predict ([client] candidate_num)
+REC_SECTION = ("\n[recovery]\nenabled = true\nwatchdog_interval_s = 0.1\n"
+               "wedge_quarantine_s = 1.0\n")
+# The keyless device_lost rule: count 1 at rate 0.002, which at seed 0
+# fires at its 659th draw (one draw per batch member), a few seconds into
+# the clients' load, so the loop has a before, a during and an after.
+REC_KEYLESS = "device_lost=error,code=UNAVAILABLE,count=1,rate=0.002"
+REC_BLOCK_S = 0.5  # the bisection's blocker holds its dispatch stage (below the 1 s trip)
+REC_WEDGE_S = 3.0  # the batcher.dispatch wedge's hold (its delay cap)
+REC_STALL_S = 2.0  # each dispatch stage of the SIGTERM payload stalls this long (> the 1 s trip)
+REC_AFTER_S = 2.0  # the clients' load kept up after the cycle
+REC_RETRY_S = 0.005  # a refused client waits this long before it retries
+REC_WAIT_S = 60.0  # bound on each wait of the phase
+REC_CHILD_S = 180.0  # bound on the sticky-error child, start to exit
+REC_FIXED = 2048  # rows of the payload scored before and after each REINIT (the top bucket)
+REC_SMALL = 100  # rows of the bisection's poison and companions
+
+
+def _rec_client(k, jobs, barrier, stop, results) -> None:
+    """One client process of the recovery phase (spawned, kept for the
+    phase): per job (port, serialized Predicts), one channel, Predicts back
+    to back from the barrier until `stop` is set. A Predict refused while
+    the replica is quarantined (UNAVAILABLE, `quarantined` in the details)
+    is sent again after REC_RETRY_S, as a client with one backend retries.
+    Puts the records (send time on time.monotonic, ms to the final answer,
+    final status code, refusals) or ("error", text) on `results`; None
+    ends it."""
+    import traceback
+
+    try:
+        import grpc
+
+        from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+    except BaseException:  # noqa: BLE001 — the parent fails the phase with it
+        results.put(("error", traceback.format_exc()))
+        return
+    while True:
+        job = jobs.get()
+        if job is None:
+            return
+        port, reqs = job
+        try:
+            ch = _channel(port)
+            call = ch.unary_unary("/tensorflow.serving.PredictionService/Predict",
+                                  response_deserializer=apis.PredictResponse.FromString)
+            grpc.channel_ready_future(ch).result(timeout=60)
+            barrier.wait(timeout=120)
+            recs, i = [], 0
+            while not stop.is_set():
+                t0 = time.monotonic()
+                refused = 0
+                while True:
+                    try:
+                        call(reqs[i % len(reqs)], timeout=60)
+                        code = "OK"
+                        break
+                    except grpc.RpcError as e:
+                        code = e.code().name
+                        if (code == "UNAVAILABLE" and "quarantined" in (e.details() or "")
+                                and refused < 2000):
+                            refused += 1
+                            time.sleep(REC_RETRY_S)
+                            continue
+                        break
+                recs.append((t0, (time.monotonic() - t0) * 1e3, refused, code))
+                i += 1
+            ch.close()
+            results.put(recs)
+        except BaseException:  # noqa: BLE001 — the parent fails the phase with it
+            results.put(("error", traceback.format_exc()))
+
+
+class _HealthPoller:
+    """grpc.health.v1 Check of service "" on one channel, as fast as it
+    answers, on a thread: (sent, answered (time.monotonic), status,
+    x-dts-health-reason)."""
+
+    def __init__(self, port: int):
+        import threading
+
+        from distributed_tf_serving_tpu_torch.proto.health import HealthCheckRequest, HealthStub
+
+        self.ch = _channel(port)
+        self.stub = HealthStub(self.ch)
+        self.req = HealthCheckRequest(service="")
+        self.samples: list[tuple] = []
+        self.stop_evt = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        import grpc
+
+        while not self.stop_evt.is_set():
+            t = time.monotonic()
+            try:
+                resp, call = self.stub.Check.with_call(self.req, timeout=5)
+                reason = dict(call.trailing_metadata() or ()).get("x-dts-health-reason", "")
+                self.samples.append((t, time.monotonic(), resp.status, reason))
+            except grpc.RpcError as e:
+                self.samples.append((t, time.monotonic(), None, e.code().name))
+                time.sleep(0.01)
+
+    def close(self) -> list[tuple]:
+        self.stop_evt.set()
+        self.thread.join(10)
+        self.ch.close()
+        return self.samples
+
+
+def _rec_surfaces(http, label: str) -> dict:
+    """/recoveryz, /monitoring?section=recovery and the dts_tpu_recovery_*
+    series: the same counters and state, the exposition lint-clean."""
+    rz = http.json("GET", "/recoveryz")
+    sec = http.json("GET", "/monitoring?section=recovery")["recovery"]
+    status, data = http.call("GET", "/monitoring/prometheus/metrics")
+    if status != 200:
+        fail(f"recovery {label}: /monitoring/prometheus/metrics answered {status}")
+    lint = subprocess.run([sys.executable, os.path.join(HERE, "tools", "check_prom.py"), "-"],
+                          input=data, capture_output=True, timeout=60)
+    if lint.returncode != 0:
+        fail(f"recovery {label}: tools/check_prom.py rejects the exposition: "
+             f"{lint.stdout.decode()[-500:]} {lint.stderr.decode()[-500:]}")
+    series = {}
+    for line in data.decode().splitlines():
+        if line.startswith("dts_tpu_recovery_"):
+            key, value = line.rsplit(" ", 1)
+            series[key] = float(value)
+    c = rz["counters"]
+    want = {f'dts_tpu_recovery_state{{state="{rz["state"]}"}}': 1.0,
+            **{f"dts_tpu_recovery_{k}_total": float(v) for k, v in c.items()},
+            "dts_tpu_recovery_last_cycle_seconds": float(rz["last_cycle"]["duration_s"]),
+            "dts_tpu_recovery_mttr_mean_seconds": float(rz["mttr"]["mean_s"])}
+    bad = {k: (series.get(k), v) for k, v in want.items() if series.get(k) != v}
+    if not rz.get("enabled") or sec["counters"] != c or sec["last_cycle"] != rz["last_cycle"]:
+        bad["section"] = {"recoveryz": c, "monitoring": sec["counters"]}
+    if bad or len(series) < 17:
+        fail(f"recovery {label}: the surfaces disagree: {bad} ({len(series)} series)")
+    return {"state": rz["state"], "series": len(series), "counters": c}
+
+
+def _rec_log(path: str) -> dict:
+    """What a recovery CLI server logged: the kernel launches of each
+    re-warm, the captured batches' dropped late results and failures, and
+    the launch counters at shutdown."""
+    import re
+
+    out = {"rewarms": [], "dropped": [], "shutdown": None, "complete": False}
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"recovery re-warm \(round (\d+)\): (\d+) batches in ([\d.]+) s, "
+                          r"kernel launches (\{.*\})$", line)
+            if m:
+                out["rewarms"].append({"round": int(m.group(1)), "batches": int(m.group(2)),
+                                       "s": float(m.group(3)),
+                                       "launches": json.loads(m.group(4))})
+            m = re.search(r"dropped the late (\w+) of a batch of (\d+) requests", line)
+            if m:
+                out["dropped"].append(m.group(1))
+            m = re.search(r"kernel launches at shutdown: (\{.*\})$", line)
+            if m:
+                out["shutdown"] = json.loads(m.group(1))
+            if "shutdown complete" in line:
+                out["complete"] = True
+    return out
+
+
+def _recovery_child(out_path: str) -> None:
+    """The sticky-error child of the recovery phase (`chip_smoke.py
+    --recovery-child OUT`): an in-process stack on configs/latency.toml
+    with the plane armed serves a few Predicts; then one fused serve launch
+    whose ids address no allocation (2^31 - 1, no range check on the card)
+    faults the context for good; Predicts sent after it, the controller's
+    verdict and the drain are written to OUT as JSON."""
+    import threading
+
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.serving import recovery
+    from distributed_tf_serving_tpu_torch.serving.server import GrpcHealthService, build_stack
+    from distributed_tf_serving_tpu_torch.serving.service import ServiceError
+    from distributed_tf_serving_tpu_torch.utils.config import RecoveryConfig, load_config
+
+    out: dict = {}
+    cfgs = load_config(os.path.join(HERE, "configs", "latency.toml"))
+    rc = RecoveryConfig(enabled=True, watchdog_interval_s=0.1, wedge_quarantine_s=1.0)
+    impl, batcher, sv = build_stack(cfgs["server"], cfgs["model"], "cuda", seed=SEED,
+                                    batching_config=cfgs["batching"], recovery_config=rc)
+    rec = impl.recovery.start()
+    taken = []
+    take = rec.take_group
+
+    def take_group(group, exc):  # the text each failure brought, as device_fatal read it
+        taken.append({"t": time.monotonic(), "text": f"{type(exc).__name__}: {exc}",
+                      "fatal": recovery.device_fatal(exc), "requests": len(group)})
+        return take(group, exc)
+
+    rec.take_group = take_group
+    rng = np.random.RandomState(SEED + 71)
+    fields, vocab = cfgs["model"].num_fields, cfgs["model"].vocab_size
+    reqs = [_request(rng.randint(0, 1 << 40, size=(REC_N, fields)).astype(np.int64),
+                     rng.rand(REC_N, fields).astype(np.float32)) for _ in range(4)]
+    out["before"] = [float(_scores_of(impl.predict(r, deadline_s=60))[0]) for r in reqs]
+    sw = ck.prepare_serve_weights(sv.params, sv.model.config)
+    ids = torch.full((256, fields), 2**31 - 1, dtype=torch.int32, device=batcher.device)
+    wts = torch.ones((256, fields), dtype=torch.bfloat16, device=batcher.device)
+    t_fault = time.monotonic()
+    ck.fused_serve(ids, wts, sw)
+    try:
+        torch.cuda.synchronize()
+        out["sync_error"] = None
+    except RuntimeError as exc:
+        out["sync_error"] = str(exc)
+    out["sync_s"] = time.monotonic() - t_fault
+    codes = []
+
+    def one(req):
+        try:
+            impl.predict(req, deadline_s=60)
+            codes.append(("OK", ""))
+        except ServiceError as exc:
+            codes.append((exc.code, str(exc)[:300]))
+
+    threads = [threading.Thread(target=one, args=(r,)) for r in reqs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    end = time.monotonic() + 30
+    while (rec.snapshot()["last_cycle"] or {}).get("context_lost") is None and \
+            time.monotonic() < end:
+        time.sleep(0.01)
+    out["codes"] = list(codes)
+    snap = rec.snapshot()
+    out["snapshot"] = {k: snap[k] for k in ("state", "counters", "last_cycle", "events")}
+    out["taken"] = taken
+    one(reqs[0])  # after the verdict: refused
+    out["after_verdict"] = codes[-1]
+    health = GrpcHealthService(impl)
+    out["health"] = (health._status(""), health._reason(""))
+    t0 = time.monotonic()
+    rec.shutdown_for_drain(5.0)
+    out["drained"] = batcher.drain(5.0)
+    batcher.stop()
+    out["drain_s"] = time.monotonic() - t0
+    out["t_fault"] = t_fault
+    with open(out_path, "w") as f:
+        json.dump(out, f, default=str)
+    if rec.context_lost() is not None:
+        # As the CLI server ends once its context is lost (serving/server.py
+        # serve): no interpreter teardown, whose frees of pinned buffers
+        # torch would abort on.
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
+
+
+def phase_recovery(dev, name: str) -> dict:
+    """The device-failure recovery plane on the card, out of process. Checks
+    in the docstring of the module."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch.models import ServableRegistry
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.proto import health as health_proto
+    from distributed_tf_serving_tpu_torch.serving import recovery
+    from distributed_tf_serving_tpu_torch.serving.batcher import poison_fault_key, prepare_inputs
+    from distributed_tf_serving_tpu_torch.serving.server import load_demo_servable
+    from distributed_tf_serving_tpu_torch.utils.config import load_config
+
+    import grpc
+
+    out: dict = {"card": name}
+    latency = os.path.join(HERE, "configs", "latency.toml")
+    cfgs = load_config(latency)
+    model_cfg = cfgs["model"]
+    grace = cfgs["drain_grace_s"]
+    fields = model_cfg.num_fields
+    with open(latency) as f:
+        toml = f.read() + REC_SECTION
+    toml_path = os.path.join(HERE, "chiprun_out", "recovery.toml")
+    with open(toml_path, "w") as f:
+        f.write(toml)
+    rng = np.random.RandomState(SEED + 61)
+
+    def payload(n):
+        return {"feat_ids": rng.randint(0, 1 << 40, size=(n, fields)).astype(np.int64),
+                "feat_wts": rng.rand(n, fields).astype(np.float32)}
+
+    def key(p):
+        return poison_fault_key(prepare_inputs(p))
+
+    fixed = payload(REC_FIXED)
+    loads = [[payload(REC_N) for _ in range(3)] for _ in range(REC_CLIENTS)]
+    reqs = [[_request(p["feat_ids"], p["feat_wts"]).SerializeToString() for p in mine]
+            for mine in loads]
+    block, second = payload(REC_N), payload(REC_N)
+    poison, comp = payload(REC_SMALL), [payload(REC_SMALL) for _ in range(2)]
+    wedged, stalled = payload(REC_N), payload(REC_N)
+    env_r = dict(os.environ, DTS_TPU_FAULT_SEED=str(SEED), DTS_TPU_FAULTS=";".join([
+        REC_KEYLESS, f"device_lost=error,code=DATA_LOSS,key={key(poison)}",
+        f"device_lost=delay,delay={REC_BLOCK_S},key={key(block)}"]))
+    env_w = dict(os.environ, DTS_TPU_FAULT_SEED=str(SEED), DTS_TPU_FAULTS=";".join([
+        f"batcher.dispatch=wedge,count=1,delay={REC_WEDGE_S}",
+        f"device_lost=delay,delay={REC_STALL_S},key={key(stalled)}"]))
+    reg = ServableRegistry()
+    sv = load_demo_servable(reg, kind="dcn_v2", name="DCN", seed=SEED, config=model_cfg,
+                            device=dev)
+
+    def plain(p):
+        with torch.inference_mode():
+            return sv.model.apply(sv.params, {
+                "feat_ids": torch.from_numpy(p["feat_ids"]).to(dev),
+                "feat_wts": torch.from_numpy(p["feat_wts"]).to(dev)}
+            )["prediction_node"].float().cpu().numpy()
+
+    clients = _FreshClients(REC_CLIENTS, target=_rec_client, label="recovery")
+    child_out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_rec_"), "child.json")
+    procs: dict = {}
+    https: list = []
+    launches: dict = {}
+    try:
+        # Both CLI servers start together (their imports and warmups overlap).
+        rest_r, rest_w = _free_port(), _free_port()
+        log_r = os.path.join(HERE, "chiprun_out", "recovery_server.log")
+        log_w = os.path.join(HERE, "chiprun_out", "recovery_wedge_server.log")
+        started = {}
+
+        def start(label, env, rest, log_path):
+            started[label] = _start_cli(["--config", toml_path, "--recovery", "--rest-port",
+                                         str(rest)], log_path, env=env)
+
+        ths = [threading.Thread(target=start, args=a) for a in
+               (("r", env_r, rest_r, log_r), ("w", env_w, rest_w, log_w))]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(300)
+        if set(started) != {"r", "w"}:
+            fail(f"recovery: a CLI server did not start ({sorted(started)})")
+        procs = dict(started)
+        proc_r, port_r, logf_r = started["r"]
+        proc_w, port_w, logf_w = started["w"]
+        _wait_port(rest_r, proc_r)
+        _wait_port(rest_w, proc_w)
+        http_r, http_w = _Http(rest_r), _Http(rest_w)
+        https += [http_r, http_w]
+        ch_r, ch_w = _channel(port_r), _channel(port_w)
+        stub_r, stub_w = PredictionServiceStub(ch_r), PredictionServiceStub(ch_w)
+
+        def predict(stub, p, timeout=60):
+            return _scores_of(stub.Predict(_request(p["feat_ids"], p["feat_wts"]),
+                                           timeout=timeout))
+
+        def close(a, b):
+            return float(np.abs(a - b).max())
+
+        # Server W's first Predict is the wedged one (its wedge rule fires on
+        # the first batch): its fixed payload is scored after the REINIT and
+        # held to server R's bits from before any fault.
+        bits = {"r": [predict(stub_r, fixed)]}
+        if close(bits["r"][0], plain(fixed)) > APPLY_TOL:
+            fail(f"recovery: the fixed payload's scores {close(bits['r'][0], plain(fixed))} "
+                 f"from the plain forward")
+
+        def rz(http):
+            return http.json("GET", "/recoveryz")
+
+        def wait_rz(http, pred, what, proc):
+            end = time.perf_counter() + REC_WAIT_S
+            while True:
+                body = rz(http)
+                if pred(body):
+                    return body
+                if proc.poll() is not None:
+                    fail(f"recovery: the server exited {proc.returncode} waiting for {what}")
+                if time.perf_counter() > end:
+                    fail(f"recovery: no {what} within {REC_WAIT_S} s: {body}")
+                time.sleep(0.02)
+
+        # 1. The transient kill under the 4-client load.
+        poller = _HealthPoller(port_r)
+        clients.start(port_r, reqs)
+        t_load = time.monotonic()
+        z1 = wait_rz(http_r, lambda s: s["counters"]["cycles_completed"] >= 1
+                     and s["state"] == "serving", "the keyless rule's cycle", proc_r)
+        time.sleep(REC_AFTER_S)
+        recs = clients.stop()
+        samples = poller.close()
+        z1 = rz(http_r)
+        ev_q = [e for e in z1["events"] if e["state"] == "quarantined"]
+        ev_s = [e for e in z1["events"] if e["state"] == "serving"]
+        t_q, t_s = ev_q[0]["t"], ev_s[0]["t"]
+        failed = [r for r in recs if r[3] != "OK"]
+        refused = sum(r[2] for r in recs)
+        during_health = [s for s in samples if t_q <= s[0] and s[1] <= t_s]
+        after_health = [s for s in samples if s[0] > t_s]
+        bad = []
+        if failed:
+            bad.append(f"{len(failed)} failed Predicts: {sorted({r[3] for r in failed})}")
+        c1 = z1["counters"]
+        if not (c1["quarantines"] == 1 and c1["replayed_items"] >= 1
+                and c1["poisoned_requests"] == 0 and z1["last_cycle"]["trigger"] == "device_fatal"):
+            bad.append(f"counters {c1}, last cycle {z1['last_cycle']}")
+        if t_q < t_load:
+            bad.append(f"the cycle began {t_load - t_q:.3f} s before the load")
+        if any(s[2] != health_proto.SERVING for s in after_health) or not after_health:
+            bad.append(f"health after the cycle: {sorted({s[2:] for s in after_health})}")
+        if any(s[2] == health_proto.NOT_SERVING and s[3] != "quarantined" for s in samples):
+            bad.append("a NOT_SERVING without the quarantined reason")
+        if not any(s[2] == health_proto.NOT_SERVING for s in during_health):
+            bad.append(f"no NOT_SERVING among the {len(during_health)} checks inside the cycle")
+        if bad:
+            fail("recovery: the transient cycle: " + "; ".join(bad))
+        bits["r"].append(predict(stub_r, fixed))
+        # The cycle's split, from its events (ms stamps): the capture
+        # (quarantined -> reinit), REINIT with the probe and the re-warm
+        # (reinit -> replay), the replay (replay -> serving).
+        arc = [e for e in z1["events"] if t_q <= e["t"] <= t_s]
+        split = {f"{a['state']}->{b['state']}": round(b["t"] - a["t"], 3)
+                 for a, b in zip(arc, arc[1:])}
+        lat = {"before": _percentiles([r[1] for r in recs if r[0] < t_q]),
+               "during": _percentiles([r[1] for r in recs if t_q <= r[0] <= t_s
+                                       or r[0] < t_q <= r[0] + r[1] / 1e3]),
+               "after": _percentiles([r[1] for r in recs if r[0] > t_s])}
+        out["transient"] = {
+            "mttr_s": z1["last_cycle"]["duration_s"], "last_cycle": z1["last_cycle"],
+            "split_s": split,
+            "counters": c1, "requests": len(recs), "failed": 0, "refused_retried": refused,
+            "latency": lat,
+            "health_samples": len(samples),
+            "health_not_serving_in_cycle": sum(1 for s in during_health
+                                               if s[2] == health_proto.NOT_SERVING),
+            "health_samples_in_cycle": len(during_health),
+        }
+
+        def pp(d):
+            return (f"{d.get('p50_ms', float('nan')):.3f} / {d.get('p99_ms', float('nan')):.3f} "
+                    f"ms ({d['requests']})")
+
+        log(f"recovery: transient device_lost under {REC_CLIENTS} clients x n = {REC_N}: MTTR "
+            f"{z1['last_cycle']['duration_s']:.4f} s ({z1['last_cycle']['rounds']} round, "
+            f"{z1['last_cycle']['replayed_items']} replayed; split {split} s), {len(recs)} "
+            f"Predicts, 0 failed, "
+            f"{refused} refusals retried; p50 / p99 before {pp(lat['before'])}, during "
+            f"{pp(lat['during'])}, after {pp(lat['after'])}; health NOT_SERVING (quarantined) in "
+            f"{out['transient']['health_not_serving_in_cycle']} of "
+            f"{len(during_health)} checks inside the cycle, SERVING in all "
+            f"{len(after_health)} after it ({name})")
+
+        # 2. Bisection: the poison coalesced with two clean companions behind
+        # a blocker that holds the dispatch stage (its keyed delay) while a
+        # second batch waits staged, so the three are queued together.
+        c0 = rz(http_r)["counters"]
+        res: dict = {}
+
+        def send(label, p, stub=stub_r):
+            try:
+                res[label] = ("OK", predict(stub, p, timeout=120))
+            except grpc.RpcError as e:
+                res[label] = (e.code().name, e.details())
+
+        order = [("block", block), ("second", second)]
+        ths = []
+        for label, p in order:
+            ths.append(threading.Thread(target=send, args=(label, p)))
+            ths[-1].start()
+            time.sleep(0.1)
+        for label, p in (("poison", poison), ("c0", comp[0]), ("c1", comp[1])):
+            ths.append(threading.Thread(target=send, args=(label, p)))
+            ths[-1].start()
+        for th in ths:
+            th.join(180)
+        z2 = wait_rz(http_r, lambda s: s["state"] == "serving" and s["pending_replay_items"] == 0
+                     and s["counters"]["poisoned_requests"] >= 1, "the bisection's verdict", proc_r)
+        c2 = z2["counters"]
+        bad = []
+        if res.get("poison", ("",))[0] != "INVALID_ARGUMENT" or "bisection" not in res["poison"][1]:
+            bad.append(f"the poison answered {res.get('poison')}")
+        errs = {}
+        for label, p in (("c0", comp[0]), ("c1", comp[1]), ("block", block), ("second", second)):
+            code, got = res.get(label, ("missing", None))
+            if code != "OK":
+                bad.append(f"{label} answered {code}: {got}")
+                continue
+            errs[label] = close(got, plain(p))
+            if errs[label] > APPLY_TOL:
+                bad.append(f"{label} {errs[label]} from the plain forward")
+        if not (c2["poisoned_requests"] - c0["poisoned_requests"] == 1
+                and c2["bisections"] - c0["bisections"] >= 1):
+            bad.append(f"counters {c0} -> {c2}")
+        if bad:
+            fail("recovery: the bisection: " + "; ".join(bad))
+        bits["r"].append(predict(stub_r, fixed))
+        out["bisection"] = {"poison": res["poison"][1], "companion_max_abs_err": errs,
+                            "counters": c2, "last_cycle": z2["last_cycle"]}
+        log(f"recovery: bisection over a coalesced poison + 2 companions: the poison alone "
+            f"INVALID_ARGUMENT ({c2['bisections'] - c0['bisections']} bisections, "
+            f"{z2['last_cycle']['rounds']} rounds, {z2['last_cycle']['duration_s']:.4f} s), "
+            f"companions within {max(errs['c0'], errs['c1']):.2e} of the plain forward")
+        out["surfaces"] = _rec_surfaces(http_r, "server")
+
+        # 3. The wedge: a batcher.dispatch wedge held past wedge_quarantine_s.
+        t0 = time.monotonic()
+        got = predict(stub_w, wedged, timeout=120)
+        wedge_ms = (time.monotonic() - t0) * 1e3
+        zw = wait_rz(http_w, lambda s: s["counters"]["cycles_completed"] >= 1
+                     and s["state"] == "serving", "the wedge's cycle", proc_w)
+        time.sleep(max(REC_WEDGE_S - (time.monotonic() - t0), 0) + 0.5)
+        lw = _rec_log(log_w)
+        cw = zw["counters"]
+        bad = []
+        if close(got, plain(wedged)) > APPLY_TOL:
+            bad.append(f"the wedged Predict {close(got, plain(wedged))} from the plain forward")
+        if not (cw["watchdog_wedge_trips"] == 1 and zw["last_cycle"]["trigger"] == "wedge"
+                and cw["replayed_items"] == 1):
+            bad.append(f"counters {cw}, last cycle {zw['last_cycle']}")
+        if lw["dropped"] != ["result"]:
+            bad.append(f"the wedged thread's late stage: {lw['dropped']} (want one dropped result)")
+        if bad:
+            fail("recovery: the wedge: " + "; ".join(bad))
+        bits["w"] = [bits["r"][0], predict(stub_w, fixed)]
+        out["wedge"] = {"answered_ms": wedge_ms, "counters": cw, "last_cycle": zw["last_cycle"],
+                        "dropped": lw["dropped"]}
+        log(f"recovery: a batcher.dispatch wedge ({REC_WEDGE_S} s): the watchdog tripped, "
+            f"workers replaced, the Predict answered once in {wedge_ms:.1f} ms (MTTR "
+            f"{zw['last_cycle']['duration_s']:.4f} s), the wedged thread's late result dropped")
+
+        for label, seq in bits.items():
+            if any(b.tobytes() != seq[0].tobytes() for b in seq[1:]):
+                fail(f"recovery: the fixed {REC_FIXED}-row payload's bits moved across a REINIT "
+                     f"on server {label}")
+
+        # 5. SIGTERM during a cycle, and server R's normal exit.
+        poller = _HealthPoller(port_w)
+        th = threading.Thread(target=send, args=("stalled", stalled, stub_w))
+        th.start()
+        zq = wait_rz(http_w, lambda s: s["state"] == "replay", "the stalled payload's replay",
+                     proc_w)
+        t_cycle = [e for e in zq["events"] if e["state"] == "quarantined"][-1]["t"]
+        import signal
+
+        t_term = time.monotonic()
+        proc_w.send_signal(signal.SIGTERM)
+        try:
+            rc_w = proc_w.wait(timeout=grace + 30)
+        except subprocess.TimeoutExpired:
+            fail(f"recovery: SIGTERM during a cycle: the server did not exit in {grace + 30} s")
+        exit_s = time.monotonic() - t_term
+        logf_w.close()
+        procs.pop("w")
+        th.join(60)
+        samples = poller.close()
+        lw = _rec_log(log_w)
+        in_cycle = [s for s in samples if t_cycle <= s[0] and s[1] < t_term]
+        bad = []
+        if rc_w != 0 or not lw["complete"] or exit_s > grace:
+            bad.append(f"exit {rc_w} after {exit_s:.3f} s (grace {grace} s), complete "
+                       f"{lw['complete']}")
+        if res.get("stalled", ("",))[0] != "OK":
+            bad.append(f"the stalled Predict answered {res.get('stalled')}")
+        if not in_cycle or any(s[2:] != (health_proto.NOT_SERVING, "quarantined")
+                               for s in in_cycle):
+            bad.append(f"health inside the cycle: {sorted({s[2:] for s in in_cycle})}")
+        if bad:
+            fail("recovery: SIGTERM during a cycle: " + "; ".join(bad))
+        out["sigterm"] = {"exit_s": exit_s, "grace_s": grace, "state_at_sigterm": zq["state"],
+                          "health_in_cycle": len(in_cycle), "dropped": lw["dropped"]}
+        log(f"recovery: SIGTERM during a cycle (REPLAY of a payload whose stages stall "
+            f"{REC_STALL_S} s): exit 0 in {exit_s:.3f} s (grace {grace} s), the replayed Predict "
+            f"answered; health NOT_SERVING (quarantined) in all {len(in_cycle)} checks inside "
+            f"the cycle")
+        for h in https:
+            h.close()
+        https = []
+        ch_r.close()
+        ch_w.close()
+        rc_r = _stop_cli(proc_r, logf_r)
+        procs.pop("r")
+        lr = _rec_log(log_r)
+        if rc_r != 0 or not lr["complete"]:
+            fail(f"recovery: server R exited {rc_r} (log {log_r})")
+        rewarms = lr["rewarms"] + lw["rewarms"]
+        if not rewarms or any(r["launches"].get("fused_serve/bfloat16", 0) < 1 for r in rewarms):
+            fail(f"recovery: a re-warm launched no fused_serve/bfloat16: {rewarms}")
+        for lg in (lr, lw):
+            for k, v in (lg["shutdown"] or {}).items():
+                launches[k] = launches.get(k, 0) + v
+        out["rewarms"] = rewarms
+        out["launches"] = launches
+        log(f"recovery: {len(rewarms)} re-warms, each launching fused_serve/bfloat16 "
+            f"({[r['launches'].get('fused_serve/bfloat16') for r in rewarms]}); "
+            f"launches_recovery (both servers, start to exit) {launches}")
+
+        # 4. A real sticky error, in a child process.
+        t0 = time.monotonic()
+        try:
+            run = subprocess.run([sys.executable, os.path.abspath(__file__), "--recovery-child",
+                                  child_out], cwd=HERE, capture_output=True, text=True,
+                                 timeout=REC_CHILD_S)
+        except subprocess.TimeoutExpired:
+            fail(f"recovery: the sticky-error child did not exit within {REC_CHILD_S} s")
+        child_s = time.monotonic() - t0
+        with open(os.path.join(HERE, "chiprun_out", "recovery_child.log"), "w") as f:
+            f.write(run.stdout + run.stderr)
+        if run.returncode != 0 or not os.path.exists(child_out):
+            fail(f"recovery: the sticky-error child exited {run.returncode}: "
+                 f"{run.stderr[-1500:]}")
+        with open(child_out) as f:
+            ch = json.load(f)
+        snap = ch["snapshot"]
+        lost = (snap["last_cycle"] or {}).get("context_lost")
+        reinit = [e for e in snap["events"] if e["state"] == "reinit"]
+        held = [e for e in snap["events"] if e.get("context_lost")]
+        verdict_s = held[0]["t"] - reinit[0]["t"] if held and reinit else None
+        fault_to_verdict = held[0]["t"] - ch["t_fault"] if held else None
+        bad = []
+        if not ch["sync_error"] or not recovery.device_fatal(RuntimeError(ch["sync_error"])):
+            bad.append(f"the fault's synchronize raised {ch['sync_error']!r}")
+        if not ch["taken"] or not all(t["fatal"] for t in ch["taken"]):
+            bad.append(f"device_fatal read {ch['taken']}")
+        if lost is None or verdict_s is None or verdict_s > 1.0:
+            bad.append(f"the probe's verdict {lost!r} after {verdict_s} s (deadline 1.0 s)")
+        if any(c[0] != "UNAVAILABLE" for c in ch["codes"]) or \
+                not any("context lost" in c[1] for c in ch["codes"]):
+            bad.append(f"the Predicts after the fault answered {ch['codes']}")
+        if snap["counters"]["poisoned_requests"] != 0 or snap["state"] != "quarantined":
+            bad.append(f"poisoned {snap['counters']['poisoned_requests']}, state {snap['state']}")
+        if ch["after_verdict"][0] != "UNAVAILABLE" or \
+                ch["health"] != [health_proto.NOT_SERVING, "quarantined"]:
+            bad.append(f"after the verdict: {ch['after_verdict']}, health {ch['health']}")
+        if not ch["drained"] or ch["drain_s"] > 5.0:
+            bad.append(f"the drain: {ch['drained']} in {ch['drain_s']} s")
+        if bad:
+            fail("recovery: the sticky error: " + "; ".join(bad))
+        out["sticky"] = {"sync_error": ch["sync_error"].splitlines()[0],
+                         "taken": [t["text"].splitlines()[0] for t in ch["taken"]],
+                         "reinit_to_verdict_s": verdict_s, "fault_to_verdict_s": fault_to_verdict,
+                         "codes": [c[0] for c in ch["codes"]], "drain_s": ch["drain_s"],
+                         "child_s": child_s, "context_lost": lost}
+        log(f"recovery: a real sticky error in a child (fused serve ids 2^31 - 1): torch read "
+            f"{ch['sync_error'].splitlines()[0]!r}; the batcher's failure "
+            f"{ch['taken'][0]['text'].splitlines()[0][:160]!r}; the probe's verdict "
+            f"{verdict_s * 1e3:.2f} ms after REINIT began ({fault_to_verdict:.3f} s after the "
+            f"fault); {len(ch['codes'])} Predicts UNAVAILABLE, 0 poisoned, held quarantined; "
+            f"drain {ch['drain_s']:.3f} s, the child {child_s:.1f} s start to exit ({name})")
+    finally:
+        for h in https:
+            h.close()
+        for proc, port, logf in procs.values():
+            _stop_cli(proc, logf)
+        clients.close()
+        torch.cuda.synchronize()
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -7048,13 +7765,17 @@ def main() -> None:
     t0 = time.perf_counter()
     freshness = phase_freshness(dev, f"{name} ({smi})")
     log(f"freshness: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    recovery = phase_recovery(dev, f"{name} ({smi})")
+    log(f"recovery: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
                    "lifecycle": lifecycle, "outputs": outputs, "families": families,
                    "models": models, "rest": rest, "aio": aio, "cache": cache,
                    "integrity": integrity, "overload": overload, "cascade": cascade,
-                   "utilization": utilization, "freshness": freshness}, f,
+                   "utilization": utilization, "freshness": freshness,
+                   "recovery": recovery}, f,
                   indent=1,
                   default=str)
 
@@ -7105,6 +7826,10 @@ def main() -> None:
                      # The freshness phase's two CLI servers (the publishing
                      # and the rollback run), each from its start to its exit.
                      "launches_freshness": freshness["launches"].get(f"{kname}/{cd}", 0),
+                     # The recovery phase's two CLI servers (the transient,
+                     # the bisection, the wedge and the SIGTERM during a
+                     # cycle), each from its start to its exit.
+                     "launches_recovery": recovery["launches"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (
@@ -7121,4 +7846,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--recovery-child":
+        _recovery_child(sys.argv[2])  # the recovery phase's sticky-error child
+    else:
+        main()

@@ -31,13 +31,19 @@ Named sites fired in this package:
 - ``score_nan``         a member request's score rows set to NaN at the
                         same point, keyed the same way (the readback
                         screen's prey)
+- ``device_lost``       the device stage of one batch, once per member
+                        request with ``key`` = its batcher.poison_fault_key
+                        (batcher._run_stage; only while a rule names the
+                        site): an ``error`` kills the batch as a dead device
+                        would, the recovery plane's trigger
+                        (serving/recovery.py); a keyed rule kills exactly
+                        the batches that carry one payload
 
 The JAX package's other sites belong to planes this package does not have
 yet, so a rule on one of them would do nothing without saying so: `add()`
 (and with it `configure_from_env`) refuses it with a ValueError naming the
-ROADMAP.md item that ports its plane — ``device_lost`` (the recovery
-plane): Queue A item 6; ``client.rpc`` and ``wire_corrupt`` (the client):
-item 8. An unknown site is refused too.
+ROADMAP.md item that ports its plane — ``client.rpc`` and ``wire_corrupt``
+(the client): Queue A item 8. An unknown site is refused too.
 
 Rule kinds:
 
@@ -70,11 +76,11 @@ import time
 from .utils import tracing
 
 SITES = ("decode", "batcher.dispatch", "readback", "executor_abort", "pressure",
-         "readback_bitflip", "score_nan")
+         "readback_bitflip", "score_nan", "device_lost")
 KINDS = ("delay", "error", "wedge")
 # The JAX package's sites whose plane is not ported: site -> the ROADMAP.md
 # Queue A item that ports it.
-UNPORTED_SITES = {"device_lost": 6, "client.rpc": 8, "wire_corrupt": 8}
+UNPORTED_SITES = {"client.rpc": 8, "wire_corrupt": 8}
 
 
 def check_site(site: str) -> None:

@@ -51,7 +51,25 @@ readback and per-request completion.
 - **Thread death.** An exception that escapes the batching thread, the
   dispatch thread or a completion worker is recorded as BatcherThreadDead:
   the batch that thread held, every queued item and every staged group
-  fail with it at once, and every later submit raises it.
+  fail with it at once, and every later submit raises it. With the
+  recovery plane armed, the batch goes back to the queue's front instead
+  and the death is handed to the plane, which revives the thread
+  (`revive_batching_thread`) and replays the queue.
+- **The recovery plane** (serving/recovery.py): with `recovery` set, a
+  batch whose failure is device-fatal (the `device_lost` / `executor_abort`
+  fault sites, a sticky CUDA error, an integrity verdict) is handed to
+  the controller (`take_group`) instead of failing its requests; while it
+  quarantines, `submit` refuses new work (DeviceQuarantinedError; warmup is
+  exempt). Its surface here: `wedge_age` (the breaker's clock),
+  `capture_for_recovery` (every accepted, unanswered item out of the
+  queue, the staged groups, the device stage and the in-flight batches,
+  with their counts and the wedge clock settled, and the row cache's
+  flights failed), `requeue_for_replay` (back at the queue's front),
+  `replace_workers_for_recovery` (a new dispatch thread under a new
+  generation, whose predecessor's late bookkeeping is ignored, and a new
+  completion pool) and `revive_batching_thread`. A captured batch's late
+  result or failure is dropped (stats.recovery_dropped). The coalescer
+  merges a bisection half only with its own half (`bisect_key`).
 - **Phases and spans.** Each stage is timed into utils/tracing.py's
   `request_trace` (always on) under the JAX package's phase names:
   `batch.pad` (padding a group on the batching thread, when the native
@@ -120,9 +138,11 @@ readback and per-request completion.
   before its future completes, except for a batch with a screened row, a
   top-k or prune readback and a mixed row-cache assembly.
 - **Fault sites** (faults.py): `batcher.dispatch` before a batch's device
-  stage, `readback` and `executor_abort` before a completion worker waits
-  for its readback, `readback_bitflip` and `score_nan` on the raw readback
-  (keyed by `poison_fault_key`), `pressure` in the overload controller.
+  stage, then `device_lost` once per member (keyed by `poison_fault_key`,
+  only while a rule names it), `readback` and `executor_abort` before a
+  completion worker waits for its readback, `readback_bitflip` and
+  `score_nan` on the raw readback (keyed the same way), `pressure` in the
+  overload controller.
 """
 
 from __future__ import annotations
@@ -188,7 +208,8 @@ class BatcherThreadDead(RuntimeError):
     queued and staged waiter fails with it at once and every later submit
     raises it up front, so no caller waits out its deadline for a thread
     that no longer exists. UNAVAILABLE at the RPC layer (the RuntimeError
-    mapping). Reviving the thread is the recovery plane's (not ported)."""
+    mapping). With the recovery plane armed the death is handed to it
+    instead: the thread is revived and the work it held is replayed."""
 
 
 class QueueOverloadError(RuntimeError):
@@ -221,6 +242,21 @@ class DeviceWedgedError(RuntimeError):
     the breaker closes by itself the moment the stuck batch completes."""
 
 
+class DeviceQuarantinedError(DeviceWedgedError):
+    """The recovery plane (serving/recovery.py) has quarantined this
+    replica: the device executor is being rebuilt, or its CUDA context is
+    lost, so new work fails fast (UNAVAILABLE: clients reroute) while the
+    work already accepted rides the replay path. A DeviceWedgedError, so
+    every mapping of that error holds."""
+
+
+class PoisonedInputError(ValueError):
+    """This request's input deterministically kills the device executor:
+    the recovery plane's bisection replayed ever smaller sub-batches and
+    isolated it. INVALID_ARGUMENT at the RPC layer (do not retry these
+    bytes anywhere), while the batchmates it took down answer."""
+
+
 def bucket_for(n: int, buckets: tuple[int, ...]) -> int:
     for b in buckets:
         if n <= b:
@@ -231,9 +267,9 @@ def bucket_for(n: int, buckets: tuple[int, ...]) -> int:
 def poison_fault_key(arrays: dict) -> str:
     """Content digest of one request's prepared input arrays (the bytes
     _WorkItem.arrays holds: after prepare_inputs, before the fold): the
-    `key` the readback_bitflip and score_nan fault sites fire with once
-    per batch member. The JAX package's digest, byte for byte, so one
-    DTS_TPU_FAULTS string keys the same payload on both servers."""
+    `key` the device_lost, readback_bitflip and score_nan fault sites fire
+    with once per batch member. The JAX package's digest, byte for byte, so
+    one DTS_TPU_FAULTS string keys the same payload on both servers."""
     h = hashlib.blake2b(digest_size=8)
     for name in sorted(arrays):
         arr = np.ascontiguousarray(arrays[name])
@@ -349,6 +385,12 @@ class _WorkItem:
     span: object = None
     prune_k: int = 0  # > 0: the cascade's stage-1 prune (submit's _prune_k)
     criticality: str | None = None  # the x-dts-criticality lane (the quality plane's label)
+    # The recovery plane: re-dispatches by the replay path, device
+    # executors its batches killed, and during a bisection the half it
+    # belongs to (the coalescer merges only equal keys).
+    replays: int = 0
+    device_kills: int = 0
+    bisect_key: int | None = None
 
 
 def _phase_sink(group: list[_WorkItem]) -> list | None:
@@ -429,6 +471,9 @@ class BatcherStats:
     shadow_native_packs: int = 0
     shadow_h2d_copies: int = 0
     shadow_fused_batches: int = 0
+    # The recovery plane: late results and failures of batches a capture
+    # took (the replay answers them), dropped.
+    recovery_dropped: int = 0
 
     @property
     def mean_occupancy(self) -> float:
@@ -495,6 +540,11 @@ class _Staged:
     # Dedup: the executed (unique) row of each original row.
     scatter: np.ndarray | None = None
     row_ctx: _RowContext | None = None  # the row cache's plan for this batch
+    # Taken by a recovery capture while in the device stage or in flight:
+    # its late result or failure is dropped (the replay answers it) and
+    # its counts were settled by the capture.
+    captured: bool = False
+    gen: int = 0  # the generation of the dispatch thread that runs it
 
 
 @dataclasses.dataclass(eq=False)
@@ -531,12 +581,20 @@ class _HostBufferRing:
     buffers of at most `max_sizes` sizes (the least recently used size goes
     first: the cascade's prune reads back a new size for each survivor
     count); an acquire beyond them allocates, the surplus is dropped on
-    release."""
+    release.
+
+    `keep` (set by the recovery plane) drops nothing: torch aborts the
+    process when a pinned buffer that a copy used is freed once a sticky
+    CUDA error has killed the context (the free records an event on that
+    copy's stream), so a replica that must outlive such an error keeps
+    every buffer it allocated, and one whose event query fails goes back
+    to the ring before the error is raised."""
 
     def __init__(self, pinned: bool):
         self.pinned = pinned
         self.per_size = 4
         self.max_sizes = 64
+        self.keep = False
         self._free: OrderedDict[int, deque] = OrderedDict()
         self._lock = threading.Lock()
         self.reuses = 0
@@ -555,10 +613,17 @@ class _HostBufferRing:
         if entry is None:
             return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.pinned)
         buf, event = entry
-        if event is not None and not event.query():
-            with self._lock:
-                self.waits += 1
-            event.synchronize()
+        if event is not None:
+            try:
+                if not event.query():
+                    with self._lock:
+                        self.waits += 1
+                    event.synchronize()
+            except RuntimeError:
+                if self.keep:
+                    with self._lock:
+                        self._free.setdefault(nbytes, deque()).appendleft(entry)
+                raise
         return buf
 
     def release(self, bufs, event=None) -> None:
@@ -566,10 +631,10 @@ class _HostBufferRing:
             for b in bufs:
                 free = self._free.get(b.numel())
                 if free is None:
-                    if len(self._free) >= self.max_sizes:
+                    if len(self._free) >= self.max_sizes and not self.keep:
                         self._free.popitem(last=False)
                     free = self._free[b.numel()] = deque()
-                if len(free) < self.per_size:
+                if len(free) < self.per_size or self.keep:
                     free.append((b, event))
 
     def snapshot(self) -> dict:
@@ -918,6 +983,10 @@ class DynamicBatcher:
         if overload is not None:
             overload.bind(self.buckets[-1], self.queue_capacity_candidates)
         self.integrity = None
+        # The recovery plane's RecoveryController (serving/recovery.py),
+        # attached by the controller itself, or None: one attribute read
+        # per hook.
+        self.recovery = None
         self.utilization = utilization
         self.quality = quality
         self.fused_kernel = fused_kernel
@@ -965,11 +1034,21 @@ class DynamicBatcher:
         self._inflight_since: dict[int, float] = {}
         self._inflight_seq = 0
         self._dispatching = False  # the dispatch thread runs a device stage
+        # The recovery plane's view (kept only while it is armed): the
+        # non-warmup batch in the device stage, and those in flight, by
+        # their number; what a capture takes.
+        self._dispatching_st: _Staged | None = None
+        self._inflight_staged: dict[int, _Staged] = {}
+        # The dispatch thread's generation: a replacement
+        # (replace_workers_for_recovery) starts the next one, and a thread
+        # of an older one leaves the counts and the wedge clock alone.
+        self._dispatch_gen = 0
+        self._dispatch_holding = False  # the current thread holds a popped group
         self._collecting = False  # the batching thread holds a group not yet staged
         self._collect_done = False
         self._thread = threading.Thread(target=self._loop, name="batcher", daemon=True)
         self._dispatch_thread = threading.Thread(
-            target=self._dispatch_loop, name="batch-dispatch", daemon=True)
+            target=self._dispatch_loop, args=(0,), name="batch-dispatch", daemon=True)
         # At least one completion worker per window slot: a window deeper
         # than the pool would queue issued readbacks behind the workers.
         self._completers = ThreadPoolExecutor(
@@ -979,8 +1058,12 @@ class DynamicBatcher:
         self._started = False
         self._stopping = False
         # The BatcherThreadDead of the first batcher-owned thread that died
-        # (_note_thread_death), else None: submit raises it up front.
+        # (_note_thread_death), else None: submit raises it up front. With
+        # the recovery plane: whether the plane took that death, and the
+        # batching or dispatch thread that died (revive joins it).
         self._dead: BatcherThreadDead | None = None
+        self._death_handled = False
+        self._dying_thread: threading.Thread | None = None
 
     # ------------------------------------------------------------------ API
 
@@ -997,11 +1080,15 @@ class DynamicBatcher:
         readback with the completion workers — or `timeout_s` elapses.
         True = drained. The shutdown drain (serving/server.py
         GracefulShutdown) calls it once new admissions are refused, so the
-        wait is bounded by the work already accepted."""
+        wait is bounded by the work already accepted. While the recovery
+        plane holds captured work (a cycle, or a trigger not yet taken up)
+        the wait goes on too, bounded all the same: GracefulShutdown aborts
+        the cycle first (RecoveryController.shutdown_for_drain)."""
         deadline = time.perf_counter() + max(timeout_s, 0.0)
+        rec = self.recovery
         with self._cv:
             while (self._items or self._collecting or self._dispatch_pending
-                   or self._inflight):
+                   or self._inflight or (rec is not None and rec.cycle_active())):
                 if not self._thread.is_alive() or not self._dispatch_thread.is_alive():
                     return False  # nothing will ever finish this work
                 left = deadline - time.perf_counter()
@@ -1048,7 +1135,9 @@ class DynamicBatcher:
         is on. _solo (a streamed sub-batch) makes the item a batch of its
         own; _warmup (warmup_via_queue) keeps an all-warmup group off the
         wedge clock and out of the in-flight window. While the circuit
-        breaker is open it raises DeviceWedgedError and sheds the backlog.
+        breaker is open it raises DeviceWedgedError and sheds the backlog;
+        while the recovery plane quarantines, DeviceQuarantinedError (not
+        for _warmup).
 
         With a score cache, the lookup comes first, before admission and
         the breaker (cached scores answer while the device is wedged or the
@@ -1135,7 +1224,15 @@ class DynamicBatcher:
         and enqueue. Admission comes before the copy: a shed request pays
         none of it."""
         ov = self.overload
+        rec = self.recovery
         with self._cv:
+            if rec is not None and not warmup and rec.refusing():
+                # The quarantine gate: new work is refused fast while the
+                # executor is rebuilt; accepted work rides the replay.
+                # Warmup is exempt: REINIT re-warms through this queue.
+                raise DeviceQuarantinedError(
+                    "replica quarantined: device executor is being rebuilt "
+                    f"(recovery state {rec.state()}); retry against another backend")
             stuck_s = self._wedged_for(time.perf_counter())
             if stuck_s:
                 exc = DeviceWedgedError(
@@ -1328,7 +1425,170 @@ class DynamicBatcher:
             return torch.cuda.device(self.device)
         return contextlib.nullcontext()
 
+    # ------------------------------------------------ the recovery plane
+
+    def wedge_age(self) -> float:
+        """Seconds the oldest live batch has been in the device stage or
+        awaiting its readback (0.0 when none): the breaker's clock, which
+        the recovery watchdog escalates at its own, lower threshold."""
+        with self._cv:
+            return self._wedge_age_locked(time.perf_counter())
+
+    def capture_for_recovery(self) -> tuple[list, list]:
+        """The quarantine's capture: every accepted, unanswered item out of
+        the batcher — queued, in staged groups, in the device stage, in
+        flight — with the queue and pipeline counts and the wedge clock
+        settled, so the rebuilt executor starts clean. Returns
+        (queued_items, inflight_groups): the queued items were in no
+        failing device call; the in-flight groups were (the wedge is their
+        kill evidence). A captured batch still running drops its late
+        result or failure (_Staged.captured); the row cache's flights fail
+        with DeviceQuarantinedError, since a leader stranded in a wedged
+        thread would hold its joiners to their deadlines."""
+        with self._cv:
+            queued: list[_WorkItem] = []
+            while self._items:
+                it = self._items.popleft()
+                self._queued_candidates -= it.n
+                if not it.future.done():
+                    queued.append(it)
+            while self._staged:
+                st = self._staged.popleft()
+                self._dispatch_pending -= 1
+                self._staged_candidates -= st.total
+                self._release_pad(st)  # never uploaded
+                queued.extend(it for it in st.group if not it.future.done())
+            inflight: list[list[_WorkItem]] = []
+            running = [] if self._dispatching_st is None else [self._dispatching_st]
+            self._dispatching_st = None
+            for st in running + list(self._inflight_staged.values()):
+                st.captured = True
+                live = [it for it in st.group if not it.future.done()]
+                if live:
+                    inflight.append(live)
+            for st in self._inflight_staged.values():
+                self._inflight -= 1
+                self._inflight_buckets[st.bucket] -= 1
+            self._inflight_staged.clear()
+            self._inflight_since.clear()
+            self._dispatching_since = None
+            self._cv.notify_all()
+        rc = self.row_cache
+        if rc is not None:
+            rc.fail_flights(DeviceQuarantinedError(
+                "replica quarantined: in-flight row fills abandoned "
+                "(the replayed batches re-plan their rows)"))
+        return queued, inflight
+
+    def requeue_for_replay(self, items: list) -> None:
+        """Put captured or failed items back at the FRONT of the queue, in
+        order (they were accepted before anything queued now). Admission is
+        bypassed (they were admitted once); enqueue_t restarts, and the
+        client's deadline rides along: an expired one is shed as usual."""
+        now = time.perf_counter()
+        with self._cv:
+            for it in reversed(items):
+                it.enqueue_t = now
+                self._items.appendleft(it)
+                self._queued_candidates += it.n
+            self._cv.notify_all()
+
+    def replace_workers_for_recovery(self) -> None:
+        """A new dispatch thread and a new completion pool (a thread stuck
+        in a native call cannot be preempted; the workers around it can be
+        replaced). The old dispatch thread's generation ends: whenever its
+        stage returns, it leaves the counts and the wedge clock alone and
+        exits (its captured batch's result is dropped). The stage it held
+        leaves the pending count now; the old pool's idle threads exit."""
+        with self._cv:
+            self._dispatch_gen += 1
+            if self._dispatch_holding:
+                self._dispatch_pending = max(self._dispatch_pending - 1, 0)
+                self._dispatch_holding = False
+            self._dispatching = False
+            self._dispatching_st = None
+            self._dispatching_since = None
+            old = self._completers
+            self._completers = ThreadPoolExecutor(
+                max_workers=max(self.completion_workers, self.inflight_window),
+                thread_name_prefix="batch-complete", initializer=self._bind_device,
+            )
+            if self._started and not self._stopping:
+                self._dispatch_thread = threading.Thread(
+                    target=self._dispatch_loop, args=(self._dispatch_gen,),
+                    name="batch-dispatch", daemon=True)
+                self._dispatch_thread.start()
+            self._cv.notify_all()
+        old.shutdown(wait=False)
+
+    def revive_batching_thread(self) -> bool:
+        """Clear a thread-death verdict and restart the batching and the
+        dispatch thread where either is gone (recovery REINIT). True when
+        one was restarted. The thread that died reports its death before
+        its last frames unwind, so a recorded one is joined first (briefly);
+        with no death recorded nothing is joined."""
+        with self._cv:
+            dying, self._dying_thread = self._dying_thread, None
+            self._dead = None
+            self._death_handled = False
+        if dying is not None and dying is not threading.current_thread():
+            dying.join(timeout=2.0)
+        revived = False
+        with self._cv:
+            if self._started and not self._stopping:
+                if not self._thread.is_alive():
+                    self._collect_done = self._collecting = False
+                    self._thread = threading.Thread(target=self._loop, name="batcher",
+                                                    daemon=True)
+                    self._thread.start()
+                    revived = True
+                if not self._dispatch_thread.is_alive():
+                    self._dispatch_gen += 1
+                    self._dispatch_holding = False
+                    self._dispatch_thread = threading.Thread(
+                        target=self._dispatch_loop, args=(self._dispatch_gen,),
+                        name="batch-dispatch", daemon=True)
+                    self._dispatch_thread.start()
+                    revived = True
+            self._cv.notify_all()
+        return revived
+
+    def _fail_or_capture(self, group: list[_WorkItem], total: int, exc: BaseException,
+                         row_ctx: _RowContext | None = None) -> None:
+        """A batch failed: with the recovery plane armed and the failure
+        device-fatal, the plane takes the group (its replay, or its poison
+        or budget verdict, answers the requests); otherwise the group fails
+        with `exc`. The row flights close first either way: batches that
+        joined them must not wait for a replay."""
+        rec = self.recovery
+        if rec is not None:
+            if row_ctx is not None:
+                row_ctx.abort(exc)
+                row_ctx = None
+            if rec.take_group(group, exc):
+                return
+        self._fail(group, total, exc, row_ctx)
+
+    def _dropped_captured(self, st: _Staged, what: str) -> bool:
+        """True (and the batch's `what` is dropped) when a recovery capture
+        took the batch: the replay answers its requests."""
+        if not st.captured:
+            return False
+        with self._stats_lock:
+            self.stats.recovery_dropped += 1
+        log.info("dropped the late %s of a batch of %d requests that recovery captured",
+                 what, len(st.group))
+        return True
+
     # ------------------------------------------------------------ internals
+
+    def _wedge_age_locked(self, now: float) -> float:
+        worst = 0.0
+        if self._dispatching_since is not None:
+            worst = now - self._dispatching_since
+        for t0 in self._inflight_since.values():
+            worst = max(worst, now - t0)
+        return worst
 
     def _wedged_for(self, now: float) -> float:
         """Seconds the oldest live batch has been in the device stage or
@@ -1337,11 +1597,7 @@ class DynamicBatcher:
         t = self.breaker_timeout_s
         if t is None:
             return 0.0
-        worst = 0.0
-        if self._dispatching_since is not None:
-            worst = now - self._dispatching_since
-        for t0 in self._inflight_since.values():
-            worst = max(worst, now - t0)
+        worst = self._wedge_age_locked(now)
         return worst if worst > t else 0.0
 
     def _shed_queued(self, exc: Exception) -> None:
@@ -1787,10 +2043,11 @@ class DynamicBatcher:
 
     def _take(self) -> _WorkItem | None:
         """Pop the next live item, blocking; None on shutdown once the
-        queue is empty."""
+        queue is empty. Nothing is taken while a thread death is recorded:
+        the queue is then shed, or the recovery cycle captures it."""
         with self._cv:
             while True:
-                while self._items:
+                while self._items and self._dead is None:
                     it = self._items.popleft()
                     self._queued_candidates -= it.n
                     if not self._drop_stale_locked(it):
@@ -1825,6 +2082,9 @@ class DynamicBatcher:
                 if (
                     nxt.servable is item.servable
                     and not nxt.solo
+                    # A bisection half merges only with its own half, or the
+                    # poison would never be isolated.
+                    and nxt.bisect_key == item.bisect_key
                     and nxt.arrays.keys() == item.arrays.keys()
                     and total + nxt.n <= self.max_batch_candidates
                 ):
@@ -1974,7 +2234,8 @@ class DynamicBatcher:
             if pad_bufs:
                 ring.release(pad_bufs)
             _replay(group, phases)
-            self._fail(group, total, exc, row_ctx)
+            # Building the device step (step_for) is device work too.
+            self._fail_or_capture(group, total, exc, row_ctx)
             return None
         return _Staged(group=group, total=total, bucket=bucket, src=src, keys=keys,
                        collected_t=time.perf_counter(), topk=topk, prune=prune, phases=phases,
@@ -2152,34 +2413,48 @@ class DynamicBatcher:
                     # Bounded: the wedge clock advances with wall time alone.
                     self._idle_wait("readback_wait", 0.05)
         if dead is not None:
-            # No dispatch thread takes it after a death: fail it as the shed did.
+            # No dispatch thread takes it after a death: fail it as the shed
+            # did, or, where the recovery plane took the death, back to the
+            # queue for its cycle.
             self._release_pad(staged)
-            self._fail(staged.group, staged.total, dead, staged.row_ctx)
+            if self.recovery is not None and self._death_handled:
+                if staged.row_ctx is not None:
+                    staged.row_ctx.abort(dead)
+                self.requeue_for_replay([it for it in staged.group if not it.future.done()])
+            else:
+                self._fail(staged.group, staged.total, dead, staged.row_ctx)
 
-    def _dispatch_loop(self) -> None:
-        """The dispatch thread: run each staged group's device stage.
-        _run_stage fails a group on any Exception; anything that escapes it
-        ends the thread as a BatcherThreadDead (_note_thread_death), which
-        fails that group and everything queued and staged behind it."""
+    def _dispatch_loop(self, gen: int) -> None:
+        """The dispatch thread of generation `gen`: run each staged group's
+        device stage. _run_stage fails a group on any Exception; anything
+        that escapes it ends the thread as a BatcherThreadDead
+        (_note_thread_death), which fails that group and everything queued
+        and staged behind it. Once replaced (replace_workers_for_recovery)
+        the thread takes no more groups and leaves the counts alone."""
         with self.device_scope():
             while True:
                 with self._cv:
-                    while not self._staged:
-                        if self._collect_done:
+                    while not self._staged or gen != self._dispatch_gen:
+                        if self._collect_done or gen != self._dispatch_gen:
                             return
                         self._cv.wait()
                     staged = self._staged.popleft()
                     self._staged_candidates -= staged.total
+                    self._dispatch_holding = True
+                staged.gen = gen
                 try:
                     self._run_stage(staged)
                 except BaseException as exc:
                     self._util_done(staged)
-                    self._note_thread_death("dispatch", exc, staged.group, staged.row_ctx)
+                    if gen == self._dispatch_gen:
+                        self._note_thread_death("dispatch", exc, staged.group, staged.row_ctx)
                     raise
                 finally:
                     staged = None  # as in _loop: hold no servable while idle
                     with self._cv:
-                        self._dispatch_pending -= 1
+                        if gen == self._dispatch_gen:
+                            self._dispatch_pending -= 1
+                            self._dispatch_holding = False
                         self._cv.notify_all()
 
     def _fail(self, group: list[_WorkItem], total: int, exc: BaseException,
@@ -2237,8 +2512,11 @@ class DynamicBatcher:
 
     def _run_stage(self, st: _Staged) -> None:
         """Device stage up to the readback issue, then hand the batch to a
-        completion worker. A failure fails the group's futures, never the
-        thread. An all-warmup group skips the window and the wedge clock."""
+        completion worker. A failure fails the group's futures (or goes to
+        the recovery plane), never the thread. An all-warmup group skips
+        the window and the wedge clock. A dispatch thread replaced since it
+        took the group (st.gen) leaves the stage bookkeeping to its
+        successor."""
         all_warm = all(it.warmup for it in st.group)
         if self.inflight_window and not all_warm:
             self._wait_for_window()
@@ -2261,15 +2539,25 @@ class DynamicBatcher:
             waits = [stage_t - it.enqueue_t for it in st.group if not it.warmup]
             if waits:
                 ov.note_queue_waits(waits)
+        track = self.recovery is not None and not all_warm
         with self._cv:
-            self._dispatching = True
-            self._dispatching_since = None if all_warm else stage_t
+            if st.gen == self._dispatch_gen:
+                self._dispatching = True
+                self._dispatching_since = None if all_warm else stage_t
+                if track:
+                    self._dispatching_st = st  # what a wedge capture replays
         issued = False
         rb = None
         try:
             with _sink_ctx(st.phases):
                 # Inside the sink, so an injected fault annotates the spans.
                 faults.fire("batcher.dispatch")
+                if faults.active() and faults.get().has_site("device_lost"):
+                    # Once per member, keyed by its content: a keyless rule
+                    # kills any batch, a keyed one each batch that carries
+                    # one payload (the poison a bisection isolates).
+                    for it in st.group:
+                        faults.fire("device_lost", key=poison_fault_key(it.arrays))
                 issued = True
                 servable = st.group[0].servable
                 with request_trace.span("batch.dispatch"):
@@ -2299,12 +2587,23 @@ class DynamicBatcher:
             # waiters unblock and finish them.
             _replay(st.group, st.phases)
             self._util_done(st)
-            self._fail(st.group, st.total, exc, st.row_ctx)
+            if not self._dropped_captured(st, "failure"):
+                self._fail_or_capture(st.group, st.total, exc, st.row_ctx)
             return
         finally:
             with self._cv:
-                self._dispatching = False
-                self._dispatching_since = None
+                if st.gen == self._dispatch_gen:
+                    self._dispatching = False
+                    self._dispatching_since = None
+                    self._dispatching_st = None
+        if self._dropped_captured(st, "result"):
+            # The step was issued: its buffers go back once its copies are
+            # done; the padded ones are dropped.
+            self.ring.release([buf for buf, _ in rb.out.values()], rb.event)
+            if rb.shadow is not None:
+                self.ring.release([buf for buf, _ in rb.shadow.out.values()], rb.shadow.event)
+            self._util_done(st)
+            return
         _replay(st.group, st.phases)
         with self._stats_lock:
             self.stats.batches += 1
@@ -2323,6 +2622,8 @@ class DynamicBatcher:
                 self._inflight_seq += 1
                 st.seq = self._inflight_seq
                 self._inflight_since[st.seq] = time.perf_counter()
+                if track:
+                    self._inflight_staged[st.seq] = st
                 self.stats.inflight_peak = max(self.stats.inflight_peak,
                                                len(self._inflight_since))
         try:
@@ -2343,8 +2644,10 @@ class DynamicBatcher:
         elif exc is not None:
             self._util_done(st)
             # The shed first: a window slot freed before it would let the
-            # dispatch thread take a staged group the death should fail.
-            self._note_thread_death("completer", exc, st.group, st.row_ctx)
+            # dispatch thread take a staged group the death should fail. A
+            # captured batch's requests are the replay's already.
+            self._note_thread_death("completer", exc, None if st.captured else st.group,
+                                    st.row_ctx)
             with self._cv:
                 self._done_inflight_locked(st)
 
@@ -2359,25 +2662,45 @@ class DynamicBatcher:
         """A batcher-owned thread died from an exception that escaped its
         body: record the death (submit raises it from now on), fail `group`
         (the batch it held) and everything queued and staged, and wake
-        every waiter. The first death is the one recorded."""
+        every waiter. The first death is the one recorded.
+
+        With the recovery plane armed, `group` goes back to the queue's
+        front and the first death is handed to the plane, which revives the
+        thread and replays the queue; only if the plane refuses it (a drain
+        has stopped it) does the shed run."""
         err = BatcherThreadDead(f"batcher {which} thread died: {type(exc).__name__}: {exc}")
         err.__cause__ = exc
         log.error("batcher %s thread died", which, exc_info=exc)
-        if group:
+        rec = self.recovery
+        with self._cv:
+            first = self._dead is None
+            if first:
+                self._dead = err
+                if which != "completer":
+                    self._dying_thread = threading.current_thread()
+        if rec is not None:
+            if row_ctx is not None:
+                row_ctx.abort(err)
+            self.requeue_for_replay([it for it in group or () if not it.future.done()])
+            if first:
+                self._death_handled = rec.note_thread_death(err)
+            if self._death_handled:
+                return
+        elif group:
             self._fail(group, sum(it.n for it in group), err, row_ctx)
         with self._cv:
-            if self._dead is None:
-                self._dead = err
             self._shed_queued(self._dead)
 
     def _done_inflight_locked(self, st: _Staged) -> None:
         """The batch left the completion workers: off the in-flight counts
         and the wedge clock (the breaker closes with it), and a window wait
-        wakes."""
-        self._inflight -= 1
-        self._inflight_buckets[st.bucket] -= 1
-        if st.seq is not None:
-            self._inflight_since.pop(st.seq, None)
+        wakes. A captured batch's counts were settled by the capture."""
+        if not st.captured:
+            self._inflight -= 1
+            self._inflight_buckets[st.bucket] -= 1
+            if st.seq is not None:
+                self._inflight_since.pop(st.seq, None)
+                self._inflight_staged.pop(st.seq, None)
         self._cv.notify_all()
 
     def _abandon(self, st: _Staged, exc: BaseException) -> None:
@@ -2386,10 +2709,25 @@ class DynamicBatcher:
             self._done_inflight_locked(st)
         self._fail(st.group, st.total, exc, st.row_ctx)
 
+    @staticmethod
+    def _copies_done(rb: _Readback) -> bool:
+        """The batch's readback copies (and its shadow's) are done, so no
+        copy reads its padded buffers any more. False after a failure
+        before the wait, and when the context no longer answers (a sticky
+        CUDA error raises from the query): the buffers are then dropped,
+        never reused."""
+        try:
+            return ((rb.event is None or rb.event.query()) and
+                    (rb.shadow is None or rb.shadow.event is None or rb.shadow.event.query()))
+        except RuntimeError:
+            return False
+
     def _finish(self, st: _Staged, rb: _Readback) -> None:
         """Completion worker: wait for the readback, complete every member.
         The readback's phases reach the members' spans before their futures
-        complete, so a root span holds its whole tree when its RPC ends."""
+        complete, so a root span holds its whole tree when its RPC ends. A
+        failure goes to the recovery plane or fails the group; a batch a
+        recovery capture took drops its late result or failure."""
         phases = _phase_sink(st.group)
         try:
             try:
@@ -2409,6 +2747,8 @@ class DynamicBatcher:
                         host = self._wait(rb)
                     else:
                         host = self._wait(rb, lambda views: self._raw_check(st, rb, integ, views))
+                    if self._dropped_captured(st, "result"):
+                        return
                     ov = self.overload
                     if ov is not None and not any(it.warmup for it in st.group):
                         # Service time up to the readback's event (after the
@@ -2433,14 +2773,13 @@ class DynamicBatcher:
                 _replay(st.group, phases)
             self._complete(st, rb, host)
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
-            self._fail(st.group, st.total, exc, st.row_ctx)
+            if not self._dropped_captured(st, "failure"):
+                self._fail_or_capture(st.group, st.total, exc, st.row_ctx)
         finally:
             self._util_done(st)
-            if ((rb.event is None or rb.event.query()) and
-                    (rb.shadow is None or rb.shadow.event is None or rb.shadow.event.query())):
+            if self._copies_done(rb):
                 # The readback event follows the upload on the same stream:
-                # no copy reads the padded buffers any more. Otherwise
-                # (a failure before the wait) they are dropped, not reused.
+                # no copy reads the padded buffers any more.
                 self._release_pad(st)
             with self._cv:
                 self._done_inflight_locked(st)
@@ -2504,5 +2843,6 @@ class DynamicBatcher:
                 pass  # the waiter gave up (deadline) meanwhile
         if integ is not None:
             # After delivery: the tripped requests already failed; a burst
-            # past the window's threshold marks the replica suspect.
-            integ.maybe_escalate_screen(None)
+            # past the window's threshold marks the replica suspect and
+            # starts a recovery cycle (trigger output_corrupt).
+            integ.maybe_escalate_screen(self.recovery)

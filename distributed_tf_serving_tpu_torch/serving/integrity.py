@@ -17,8 +17,8 @@ other plane detects only loud failures. Three detection layers:
    plausible range). A failing request fails alone (IntegrityScreenError,
    UNAVAILABLE) while its batchmates deliver. Trips past
    ``screen_trips_per_window`` escalate: the replica marks itself
-   suspect (the recovery plane the JAX package hands the cycle to is not
-   ported; `maybe_escalate_screen` receives None for it).
+   suspect and, with the recovery plane armed, a cycle starts (trigger
+   ``output_corrupt``) to reinit the executor before the next batch.
 
 3. **Shadow verification** — a sampled fraction of batches runs a second
    time through the same entry (the same servable, bucket and kernel
@@ -26,8 +26,9 @@ other plane detects only loud failures. Three detection layers:
    cluster size), and the two raw readbacks are compared bit for bit. The
    kernels are deterministic per (kernel, dtype, bucket, cluster size), so
    any divergence is miscomputation or readback corruption: the batch
-   fails (OutputCorruptError) and the replica is marked suspect until
-   ``suspect_clear_passes`` clean compares.
+   fails (OutputCorruptError), or with the recovery plane armed is
+   replayed by a cycle (trigger ``output_corrupt``), and the replica is
+   marked suspect until ``suspect_clear_passes`` clean compares.
 
 Off by default: every hook then costs one attribute read. State is
 process-local and lock-guarded; hooks are called from the batcher's
@@ -54,9 +55,10 @@ __all__ = [
 class OutputCorruptError(RuntimeError):
     """The executor's outputs can no longer be trusted: shadow
     re-execution diverged bit for bit, or readback screens tripped past
-    threshold. The marker attribute is what the JAX package's recovery
-    plane keys its ``output_corrupt`` cycle on; here the batch fails with
-    it (UNAVAILABLE at the RPC layer)."""
+    threshold. The marker attribute is what the recovery plane keys its
+    ``output_corrupt`` cycle on (serving/recovery.py device_fatal); with
+    the plane off the batch fails with it (UNAVAILABLE at the RPC
+    layer)."""
 
     integrity_corrupt = True
 
@@ -199,10 +201,10 @@ class IntegrityPlane:
 
     def maybe_escalate_screen(self, recovery) -> bool:
         """Post-delivery hook: when the trip window overflowed, mark
-        suspect and, with a recovery plane, request a cycle (None here:
-        that plane is not ported). The empty group is deliberate — the
-        tripped rows already failed individually; the cycle exists to
-        reinit the executor before the next batch."""
+        suspect and, with a recovery plane (the batcher's, or None), request
+        a cycle. The empty group is deliberate — the tripped rows already
+        failed individually; the cycle exists to reinit the executor before
+        the next batch."""
         if not self.screen_escalation_due():
             return False
         self._escalate("screen trips crossed threshold")

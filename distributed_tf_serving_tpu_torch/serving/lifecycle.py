@@ -44,10 +44,11 @@ dts_tpu_lifecycle_* series. Off by default ([lifecycle] enabled /
 --lifecycle); off, a resolution reads one attribute.
 
 Routing, ticks and the surfaces need no device; only the fine-tune
-publisher (train/publisher.py, imported when it runs) does. `pause` /
-`resume` belong to the recovery plane and `set_fleet_fraction`,
-`fleet_blacklist` and `fleet_record` to the fleet plane, neither ported
-yet (ROADMAP.md Queue A items 6e and 8): they are here, unwired.
+publisher (train/publisher.py, imported when it runs) does. The recovery
+plane (serving/recovery.py) calls `pause` / `resume` around a cycle.
+`set_fleet_fraction`, `fleet_blacklist` and `fleet_record` belong to the
+fleet plane, not ported yet (ROADMAP.md Queue A item 8): they are here,
+unwired.
 """
 
 from __future__ import annotations

@@ -56,9 +56,13 @@ package's PredictionServiceImpl:
   (serving/lifecycle.py; `{"enabled": false}` with the plane off); `POST
   /lifecyclez/rollback` rolls the live canary back now (409 with no
   canary, 404 with the plane off).
+- `GET /recoveryz` -> the recovery controller's state machine, its
+  quarantine / reinit / replay / bisection counters, the last cycle (its
+  `context_lost` once the probe found the CUDA context dead), the MTTR
+  history and events (serving/recovery.py; `{"enabled": false}` with the
+  plane off).
 - The planes that are not ported yet answer what the JAX gateway answers
-  with that plane off: `{"enabled": false}` from `/fleetz`, `/recoveryz`,
-  `/meshz`.
+  with that plane off: `{"enabled": false}` from `/fleetz`, `/meshz`.
 
 A request becomes the same PredictRequest (or Classification /
 RegressionRequest) the gRPC path parses and is handed to the impl's
@@ -178,7 +182,7 @@ class RestGateway:
             web.get("/lifecyclez", self.lifecyclez),
             web.post("/lifecyclez/rollback", self.lifecyclez_rollback),
             web.get("/fleetz", self.plane_off),
-            web.get("/recoveryz", self.plane_off),
+            web.get("/recoveryz", self.recoveryz),
             web.get("/meshz", self.plane_off),
             web.get("/cascadez", self.cascadez),
             web.get("/integrityz", self.integrityz),
@@ -471,6 +475,7 @@ class RestGateway:
                 utilization=self.impl.utilization_stats(),
                 quality=self.impl.quality_stats(),
                 lifecycle=self.impl.lifecycle_stats(),
+                recovery=self.impl.recovery_stats(),
                 pipeline=self.impl.pipeline_stats(),
                 kernels=self.impl.kernels_stats(),
                 integrity=self.impl.integrity_stats(),
@@ -610,6 +615,14 @@ class RestGateway:
             {"rolled_back": rolled, "reason": reason, "lifecycle": self.impl.lifecycle_stats()},
             status=200 if rolled else 409,
         )
+
+    async def recoveryz(self, request: web.Request) -> web.Response:
+        """GET /recoveryz: the SERVING / QUARANTINED / REINIT / REPLAY state
+        machine, quarantine / reinit / replay / bisection counters, the last
+        cycle's trigger and duration (MTTR), the MTTR history and the
+        events; `{"enabled": false}` with the plane off."""
+        stats = self.impl.recovery_stats()
+        return web.json_response(stats if stats is not None else _OFF)
 
     async def cascadez(self, request: web.Request) -> web.Response:
         """GET /cascadez: the cascade's config echo (stage-1 model, survivor

@@ -23,10 +23,15 @@ monitor (GET /qualityz, POST /labelz); with `[lifecycle] enabled`
 version as a canary (probe lane first, then a ramp of default-lane
 traffic), promotes it or rolls it back on the quality plane's evidence, and
 with `fine_tune_interval_s > 0` fine-tunes the stable version and
-publishes the result itself (GET /lifecyclez). Each section (or its flag:
-`--overload`, `--integrity`, `--cascade`, `--utilization`, `--quality`,
-`--lifecycle`) arms the plane in build_stack, and so on either server;
-`--lifecycle` implies `--quality`. With
+publishes the result itself (GET /lifecyclez); with `[recovery] enabled`
+(serving/recovery.py) a device-fatal batch failure, a wedge past
+`wedge_quarantine_s` or a dead batcher thread starts a quarantine ->
+REINIT -> replay cycle (health "" NOT_SERVING with the `quarantined`
+reason meanwhile; GET /recoveryz), its watchdog started by the CLI. Each
+section (or its flag: `--overload`, `--integrity`, `--cascade`,
+`--utilization`, `--quality`, `--lifecycle`, `--recovery`) arms the plane
+in build_stack, and so on either server; `--lifecycle` implies
+`--quality`. With
 `--rest-port`, POST /profilez/start captures a torch.profiler trace and the
 host threads' stacks whether or not the ledger is on.
 
@@ -51,7 +56,7 @@ CLI:
         [--file-system-poll-wait-seconds S] [--max-num-load-retries N] \
         [--uds-path PATH] [--stream-chunk N] [--rest-port N] \
         [--metrics-every-s S] [--tracing] [--cache] [--overload] [--integrity] \
-        [--cascade] [--utilization] [--quality] [--lifecycle]
+        [--cascade] [--utilization] [--quality] [--lifecycle] [--recovery]
 
 serves, by default, a randomly initialized demo servable (numpy-seeded,
 `--seed`) of the configured model kind ([server] model_kind, or
@@ -115,6 +120,7 @@ from ..utils.config import (
     ObservabilityConfig,
     OverloadConfig,
     QualityConfig,
+    RecoveryConfig,
     ServerConfig,
     TransportConfig,
     UtilizationConfig,
@@ -661,13 +667,20 @@ class AioGrpcModelService(_AioServicerBase):
         return await self._call("HandleReloadConfigRequest", fn, request, context)
 
 
+# Trailing-metadata key naming why health "" answered NOT_SERVING.
+HEALTH_REASON_METADATA_KEY = "x-dts-health-reason"
+
+
 class GrpcHealthService:
     """grpc.health.v1 Health: service "" is SERVING once warmup completed
-    and a model is loaded, and NOT_SERVING again once the server drains for
-    shutdown; service "<model>" is SERVING when the registry holds a
+    and a model is loaded, and NOT_SERVING again while the server drains for
+    shutdown or the recovery plane runs a cycle (or holds a lost context
+    quarantined); service "<model>" is SERVING when the registry holds a
     version of it, NOT_SERVING while a version watcher or the model
     lifecycle owns it with no version loaded yet; unknown names get
-    NOT_FOUND."""
+    NOT_FOUND. A NOT_SERVING "" names its reason in the
+    x-dts-health-reason trailer: "draining", "quarantined" or
+    "starting"."""
 
     def __init__(self, impl: PredictionServiceImpl, quiesce: TransportQuiesce | None = None):
         self.impl = impl
@@ -676,12 +689,31 @@ class GrpcHealthService:
     def _status(self, service: str) -> int | None:
         served = self.impl.registry.models()
         if not service:
+            rec = self.impl.recovery
             ready = (self.impl.warmup_complete and any(served.values())
-                     and not self.impl.draining)
+                     and not self.impl.draining
+                     and not (rec is not None and rec.not_serving()))
             return health_proto.SERVING if ready else health_proto.NOT_SERVING
         if served.get(service):
             return health_proto.SERVING
         return health_proto.NOT_SERVING if self.impl.is_configured(service) else None
+
+    def _reason(self, service: str) -> str:
+        """Why "" is NOT_SERVING: "draining" (the process is leaving),
+        "quarantined" (a recovery cycle: it comes back, unless its context
+        is lost) or "starting". Empty for a model's own check."""
+        if service:
+            return ""
+        if self.impl.draining:
+            return "draining"
+        rec = self.impl.recovery
+        if rec is not None and rec.not_serving():
+            return "quarantined"
+        return "starting"
+
+    def _trailer(self, request, st) -> tuple:
+        reason = self._reason(request.service) if st == health_proto.NOT_SERVING else ""
+        return ((HEALTH_REASON_METADATA_KEY, reason),) if reason else ()
 
     def Check(self, request, context):
         if self.quiesce is not None:
@@ -689,6 +721,9 @@ class GrpcHealthService:
         st = self._status(request.service)
         if st is None:
             context.abort(grpc.StatusCode.NOT_FOUND, f"unknown service {request.service!r}")
+        trailer = self._trailer(request, st)
+        if trailer:
+            context.set_trailing_metadata(trailer)
         return health_proto.HealthCheckResponse(status=st)
 
     def Watch(self, request, context):
@@ -702,6 +737,9 @@ class AioGrpcHealthService(GrpcHealthService):
         st = self._status(request.service)
         if st is None:
             await context.abort(grpc.StatusCode.NOT_FOUND, f"unknown service {request.service!r}")
+        trailer = self._trailer(request, st)
+        if trailer:
+            context.set_trailing_metadata(trailer)
         return health_proto.HealthCheckResponse(status=st)
 
     async def Watch(self, request, context):
@@ -1062,7 +1100,10 @@ class GracefulShutdown:
     2. the lifecycle controller (its ticks drive the watcher, and its
        publisher must not land a version behind the drain), the cascade's
        stage-1 watcher, then the version watcher or the model lifecycle
-       stop: no load or warmup enters the batcher behind the drain;
+       stop: no load or warmup enters the batcher behind the drain; then
+       the recovery controller (`shutdown_for_drain`): its watchdog stops,
+       a running cycle ends at its next phase boundary and what it still
+       holds fails UNAVAILABLE, so no replay holds the drain;
     3. `batcher.drain(grace_s)`: what the server accepted is answered
        (queued, staged, running and read back), bounded by the grace;
     4. the transport settles (`quiesce`, TransportQuiesce: RPCs that
@@ -1083,12 +1124,13 @@ class GracefulShutdown:
 
     def __init__(self, impl: PredictionServiceImpl, batcher: DynamicBatcher,
                  grace_s: float = DRAIN_GRACE_S, watcher=None, request_logger=None,
-                 lifecycle=None):
+                 lifecycle=None, recovery=None):
         self.impl = impl
         self.batcher = batcher
         self.grace_s = max(float(grace_s), 0.0)
         self.watcher = watcher
         self.lifecycle = lifecycle
+        self.recovery = recovery
         self.request_logger = request_logger
         self.server = None  # attached once created
         self.quiesce = TransportQuiesce()
@@ -1127,6 +1169,8 @@ class GracefulShutdown:
                 self.impl.cascade_watcher.stop()
             if self.watcher is not None:
                 self.watcher.stop()
+            if self.recovery is not None:
+                self.recovery.shutdown_for_drain(self.grace_s)
             self.drained = self.batcher.drain(self.grace_s)
             if not self.drained:
                 log.warning("drain grace %.1fs expired with work still in flight; stopping "
@@ -1160,7 +1204,8 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                 cascade_config: CascadeConfig | None = None,
                 utilization_config: UtilizationConfig | None = None,
                 quality_config: QualityConfig | None = None,
-                lifecycle_config: LifecycleConfig | None = None):
+                lifecycle_config: LifecycleConfig | None = None,
+                recovery_config: RecoveryConfig | None = None):
     """(impl, batcher, servable): the servable serving at start, warmed
     through every bucket (unless `cfg.warmup` is off), and a started
     batcher. The servable is the numpy-seeded demo (`seed`), the checkpoint
@@ -1211,8 +1256,11 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     `impl.lifecycle`, a LifecycleController over the registry, the version
     watcher and the quality monitor (it needs `model_base_path` and an
     enabled `quality_config`, and is refused otherwise); its thread is the
-    caller's to start. The source options are checked, and a model config
-    file parsed, before any thread starts."""
+    caller's to start. An enabled `recovery_config` attaches a
+    RecoveryController (serving/recovery.py) to the batcher and sets
+    `impl.recovery`; its watchdog is the caller's to start (serve() does).
+    The source options are checked, and a model config file parsed, before
+    any thread starts."""
     if checkpoint and model_base_path:
         raise ValueError(
             "--model-base-path is mutually exclusive with --checkpoint "
@@ -1341,6 +1389,18 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                  integrity_config.wire_checksums, integrity_config.screen,
                  integrity_config.shadow_fraction, integrity_config.screen_trips_per_window,
                  integrity_config.screen_window_s)
+    if recovery_config is not None and recovery_config.enabled:
+        from .recovery import RecoveryController
+
+        # Attaches itself as batcher.recovery; re-warms what the registry
+        # serves and pauses the lifecycle controller (impl.lifecycle) while
+        # a cycle runs.
+        impl.recovery = RecoveryController(recovery_config, batcher, registry=registry,
+                                           impl=impl)
+        log.info("device-failure recovery on: wedge_quarantine_s=%.1f replay_budget=%d "
+                 "poison_kills=%d — GET /recoveryz on the REST surface",
+                 recovery_config.wedge_quarantine_s, recovery_config.replay_budget,
+                 recovery_config.poison_kills)
 
     if cascade_armed:
         _arm_cascade(cfg, cascade_config, model_config, registry, batcher, impl)
@@ -1612,6 +1672,17 @@ def serve(argv=None) -> None:
         "[lifecycle] enabled = true; implies --quality (the rollback gate's signal). GET "
         "/lifecyclez, the `lifecycle` block of /monitoring, dts_tpu_lifecycle_* series")
     p.add_argument(
+        "--recovery", action="store_true", default=None,
+        help="device-failure recovery plane (serving/recovery.py): a device-fatal batch "
+        "failure, a wedge past wedge_quarantine_s or a dead batcher thread quarantines the "
+        "replica (health NOT_SERVING, new work refused UNAVAILABLE), REINITs the executor "
+        "(device steps, weight and input caches cleared, threads revived, the CUDA context "
+        "probed; a lost context holds the quarantine until restart) and replays the "
+        "accepted work, bisecting a batch that keeps killing it down to the one request "
+        "that does (INVALID_ARGUMENT). Equivalent to [recovery] enabled = true; the "
+        "[recovery] section carries the knobs (GET /recoveryz, the `recovery` block of "
+        "/monitoring, dts_tpu_recovery_* series)")
+    p.add_argument(
         "--kernels", action="store_true",
         help="kernel/quantization plane: int8 weight quantization and the fused "
         "serve kernel, each enabled per bucket only where the load-time autotune "
@@ -1656,6 +1727,9 @@ def serve(argv=None) -> None:
         # The plane reads the quality plane's evidence: arming it implies
         # [quality] (build_stack would refuse the actuator without it).
         quality_config = dataclasses.replace(quality_config, enabled=True)
+    recovery_config = loaded.get("recovery") or RecoveryConfig()
+    if args.recovery:
+        recovery_config = dataclasses.replace(recovery_config, enabled=True)
     obs = loaded.get("observability") or ObservabilityConfig()
     if args.tracing:
         obs = dataclasses.replace(obs, tracing=True)
@@ -1698,7 +1772,7 @@ def serve(argv=None) -> None:
             cache_config=cache_config, overload_config=overload_config,
             integrity_config=integrity_config, cascade_config=cascade_config,
             utilization_config=utilization_config, quality_config=quality_config,
-            lifecycle_config=lifecycle_config,
+            lifecycle_config=lifecycle_config, recovery_config=recovery_config,
         )
     except BaseException:
         if request_logger is not None:
@@ -1708,10 +1782,14 @@ def serve(argv=None) -> None:
         # The CLI drives the controller from its thread: ticks and the
         # fine-tune publisher's cadence.
         impl.lifecycle.start()
+    if impl.recovery is not None:
+        # The watchdog: escalates the wedge clock on its interval; a failure
+        # wakes it early.
+        impl.recovery.start()
     shutdown = GracefulShutdown(
         impl, batcher, grace_s=loaded.get("drain_grace_s", DRAIN_GRACE_S),
         watcher=impl.model_lifecycle or impl.version_watcher, request_logger=request_logger,
-        lifecycle=impl.lifecycle)
+        lifecycle=impl.lifecycle, recovery=impl.recovery)
     if request_logger is not None:
         impl.request_logger = request_logger
         log.info("request logging to %s (sampling %.4f)", cfg.request_log_file,
@@ -1763,6 +1841,15 @@ def serve(argv=None) -> None:
     finally:
         # The drain a signal started, or this one; idempotent.
         shutdown.shutdown()
+        lost = impl.recovery.context_lost() if impl.recovery is not None else None
+        if lost is not None:
+            # The interpreter's teardown would free the batcher's pinned
+            # buffers, and torch aborts the process when it cannot record
+            # their events on a dead context: the drained replica ends here.
+            log.warning("exiting without the interpreter's teardown: the CUDA context is "
+                        "lost (%s)", lost)
+            logging.shutdown()
+            os._exit(0)
 
 
 if __name__ == "__main__":

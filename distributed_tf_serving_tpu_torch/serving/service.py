@@ -19,12 +19,14 @@ request's x-dts-input-crc stamp ("corrupt-wire") -> INVALID_ARGUMENT;
 oversized batches, a full queue and an overload-plane refusal ->
 RESOURCE_EXHAUSTED (the refusal's retry-after-ms hint rides
 ServiceError.retry_after_ms); an expired deadline -> DEADLINE_EXCEEDED; an
-open circuit breaker (batcher.DeviceWedgedError), a readback-screen failure
-(IntegrityScreenError), a shadow mismatch, a dead batcher thread
-(BatcherThreadDead), other batcher failures, and any
-inference RPC once the server drains for shutdown -> UNAVAILABLE; an
-injected fault (faults.py, at `decode` here or at a batcher site) -> the
-code its rule names.
+open circuit breaker (batcher.DeviceWedgedError), a recovery quarantine
+(DeviceQuarantinedError), a readback-screen failure (IntegrityScreenError),
+a shadow mismatch, a dead batcher thread (BatcherThreadDead), other batcher
+failures, and any inference RPC once the server drains for shutdown ->
+UNAVAILABLE; an input the recovery plane's bisection isolated as a device
+killer (PoisonedInputError) -> INVALID_ARGUMENT; an injected fault
+(faults.py, at `decode` here or at a batcher site) -> the code its rule
+names. The threaded and the coroutine paths share one mapping.
 
 The overload and integrity planes: every inference entry point takes the
 request's `criticality` lane (x-dts-criticality) into the batcher's
@@ -71,6 +73,7 @@ from .batcher import (
     BatchTooLargeError,
     DeviceWedgedError,
     DynamicBatcher,
+    PoisonedInputError,
     QueueOverloadError,
     RequestDeadlineError,
 )
@@ -166,6 +169,9 @@ class PredictionServiceImpl:
         # The stage-1 model's VersionWatcher ([cascade] stage1_base_path),
         # else None: the drain stops it before the main watcher.
         self.cascade_watcher = None
+        # The recovery plane's RecoveryController (serving/recovery.py), or
+        # None: health reads its not_serving(), /recoveryz its snapshot.
+        self.recovery = None
 
     def _arena(self) -> codec.EncodeArena | None:
         """The calling thread's EncodeArena, or None with response_arena
@@ -177,10 +183,17 @@ class PredictionServiceImpl:
             arena = self._arenas.arena = codec.EncodeArena()
         return arena
 
-    # Recovery (ROADMAP.md Queue A item 6e), fleet (item 8), mesh and
-    # elastic (item 9): refused by load_config, so always off here.
-    recovery_stats = staticmethod(_plane_off)
+    # Fleet (ROADMAP.md Queue A item 8), mesh and elastic (item 9): refused
+    # by load_config, so always off here.
     fleet_stats = mesh_stats = elastic_stats = staticmethod(_plane_off)
+
+    def recovery_stats(self) -> dict | None:
+        """The recovery controller's snapshot (state machine, quarantine /
+        reinit / replay / bisection counters, the last cycle, the MTTR
+        history, events): GET /recoveryz, the /monitoring `recovery` block
+        and the dts_tpu_recovery_* series. None with the plane off."""
+        rec = self.recovery
+        return rec.snapshot() if rec is not None else None
 
     def lifecycle_stats(self) -> dict | None:
         """The lifecycle controller's snapshot (state machine, canary
@@ -526,6 +539,10 @@ class PredictionServiceImpl:
         """One mapping from batcher failures to RPC status, for unary and
         streamed Predicts alike. Re-raises anything that is not a batcher
         failure (the transport answers INTERNAL)."""
+        if isinstance(exc, PoisonedInputError):
+            # The bisection's verdict: these bytes kill the executor. A
+            # ValueError, which would otherwise re-raise as INTERNAL.
+            return ServiceError("INVALID_ARGUMENT", str(exc))
         if isinstance(exc, (BatchTooLargeError, QueueOverloadError)):
             # An overload-plane refusal carries its retry-after-ms hint.
             return ServiceError("RESOURCE_EXHAUSTED", str(exc),

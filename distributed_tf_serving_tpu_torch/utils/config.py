@@ -1,14 +1,14 @@
 """TOML config: the [server], [batching], [transport], [model], [kernels],
 [observability], [cache], [overload], [integrity], [cascade],
-[utilization], [quality] and [lifecycle] sections the port reads, the
-checks of the model-config entries, and the mapping of a
+[utilization], [quality], [lifecycle] and [recovery] sections the port
+reads, the checks of the model-config entries, and the mapping of a
 tensorflow_model_server batching-parameters file onto [server].
 
 The JAX package's config files load unchanged, with one rule: a setting
 that would change what is served, logged or admitted but is not ported
 here is refused with a ValueError naming the ROADMAP.md Queue A item that
 ports it, never dropped. That covers the mesh knobs of [server] and a
-plane section ([recovery], [fleet], ...) switched on, and [integrity]
+plane section ([fleet], [slo], ...) switched on, and [integrity]
 router_audit_fraction away from 0 (it acts only in the fleet router). What
 changes no result here is ignored with one log line: the transfer knobs of
 [server], the [client] section, and a plane section that is off.
@@ -606,6 +606,67 @@ class QualityConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RecoveryConfig:
+    """The [recovery] section (serving/recovery.py): the watchdog that
+    escalates the batcher's wedge clock into a quarantine, the in-process
+    REINIT, the replay budget and the poisoned-input bisection thresholds.
+    The JAX package's fields, defaults and checks, with one refusal:
+    reinit_clear_backend = true (a CUDA context cannot be rebuilt in
+    process). Off by default: each batcher hook reads one attribute."""
+
+    # Build a RecoveryController and attach it to the batcher and the impl.
+    enabled: bool = False
+    # The watchdog's poll interval (a failure wakes it early).
+    watchdog_interval_s: float = 0.5
+    # A dispatched or in-flight batch outstanding this long quarantines the
+    # replica: far below the circuit breaker's fail-fast bound (90 s). Also
+    # the deadline of REINIT's context probe.
+    wedge_quarantine_s: float = 15.0
+    # Re-dispatches per work item over its whole life; past it the item
+    # fails with the original device error.
+    replay_budget: int = 8
+    # A single-request batch that killed the executor this many times is
+    # the poison: it alone fails (INVALID_ARGUMENT).
+    poison_kills: int = 2
+    # A multi-request batch whose members have this many kills is split in
+    # halves instead of replayed whole.
+    bisect_after_kills: int = 2
+    # Re-warm every servable's bucket ladder through the queue after REINIT.
+    reinit_warmup: bool = True
+    rewarm_timeout_s: float = 120.0
+    # The JAX package's backend teardown; refused here (__post_init__).
+    reinit_clear_backend: bool = False
+    # How long REPLAY waits for the requeued items before the cycle ends.
+    replay_drain_s: float = 30.0
+    # Bound on REINIT + REPLAY rounds in one cycle; past it the rest fail.
+    max_cycle_rounds: int = 20
+    # Transition events (and MTTR records) kept for /recoveryz.
+    history_events: int = 64
+    # "executor" or "per_chip": the same unit on one card (no mesh here).
+    scope: str = "executor"
+
+    def __post_init__(self):
+        if self.scope not in ("executor", "per_chip"):
+            raise ValueError(
+                f"[recovery] scope must be 'executor' or 'per_chip', got {self.scope!r}")
+        for name in ("replay_budget", "poison_kills", "bisect_after_kills", "max_cycle_rounds"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+                raise ValueError(f"[recovery] {name} must be a positive integer, got {v!r}")
+        for name in ("watchdog_interval_s", "wedge_quarantine_s", "replay_drain_s",
+                     "rewarm_timeout_s"):
+            v = getattr(self, name)
+            if not isinstance(v, (int, float)) or isinstance(v, bool) or v <= 0:
+                raise ValueError(f"[recovery] {name} must be a positive number, got {v!r}")
+        if self.reinit_clear_backend:
+            raise ValueError(
+                "[recovery] reinit_clear_backend = true is refused: a CUDA context cannot be "
+                "rebuilt in-process (after a sticky error every launch of the process fails); "
+                "restart the process instead. REINIT probes the context and, when it is dead, "
+                "holds the replica quarantined (serving/recovery.py)")
+
+
+@dataclasses.dataclass(frozen=True)
 class LifecycleConfig:
     """The [lifecycle] section (serving/lifecycle.py): the online fine-tune
     publisher, the canary admission ramp and the drift / AUC auto-rollback.
@@ -682,10 +743,6 @@ _UNPORTED_SECTIONS = {
     "elastic": (("enabled", "splits", "tick_interval_s", "dwell_s", "up_after_ticks",
                  "down_after_ticks", "load_up_threshold", "load_down_threshold",
                  "load_ewma_alpha", "history_events"), ("enabled",), 9),
-    "recovery": (("enabled", "watchdog_interval_s", "wedge_quarantine_s", "replay_budget",
-                  "poison_kills", "bisect_after_kills", "reinit_warmup", "rewarm_timeout_s",
-                  "reinit_clear_backend", "replay_drain_s", "max_cycle_rounds",
-                  "history_events", "scope"), ("enabled",), 6),
     "fleet": (("enabled", "self_id", "advertise_addr", "peers", "gossip_host", "gossip_port",
                "gossip_uds", "gossip_interval_s", "record_ttl_s", "rollout_writer",
                "rollout_state_file"), ("enabled",), 8),
@@ -743,9 +800,10 @@ def load_config(path) -> dict[str, Any]:
     ObservabilityConfig, "cache": CacheConfig, "overload": OverloadConfig,
     "integrity": IntegrityConfig, "cascade": CascadeConfig, "utilization":
     UtilizationConfig, "quality": QualityConfig, "lifecycle":
-    LifecycleConfig} ("model", "kernels", "observability", "cache",
-    "overload", "integrity", "cascade", "utilization", "quality" and
-    "lifecycle" only when the file has that section). A nonzero [batching]
+    LifecycleConfig, "recovery": RecoveryConfig} ("model", "kernels",
+    "observability", "cache", "overload", "integrity", "cascade",
+    "utilization", "quality", "lifecycle" and "recovery" only when the file
+    has that section). A nonzero [batching]
     pipeline_depth replaces the [server] one, as in the JAX package's
     server; "drain_grace_s" is [overload] drain_grace_s (honored with the
     plane off, as there). Raises ValueError on a setting that is not
@@ -753,7 +811,8 @@ def load_config(path) -> dict[str, Any]:
     not know."""
     raw = tomllib.loads(pathlib.Path(path).read_text())
     ported = {"server", "batching", "transport", "model", "kernels", "observability", "cache",
-              "overload", "integrity", "cascade", "utilization", "quality", "lifecycle"}
+              "overload", "integrity", "cascade", "utilization", "quality", "lifecycle",
+              "recovery"}
     unknown = sorted(set(raw) - ported - set(_UNPORTED_SECTIONS))
     if unknown:
         raise ValueError(f"unknown config sections: {unknown}")
@@ -793,6 +852,8 @@ def load_config(path) -> dict[str, Any]:
         out["quality"] = _coerce(QualityConfig, raw["quality"], "quality")
     if "lifecycle" in raw:
         out["lifecycle"] = _coerce(LifecycleConfig, raw["lifecycle"], "lifecycle")
+    if "recovery" in raw:
+        out["recovery"] = _coerce(RecoveryConfig, raw["recovery"], "recovery")
     extra = sorted(set(raw) & set(_UNPORTED_SECTIONS))
     if extra:
         log.info("ignoring config sections this package does not use: %s", extra)

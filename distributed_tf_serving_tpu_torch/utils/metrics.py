@@ -508,6 +508,20 @@ _HELP = {
         "role",
     "dts_tpu_lifecycle_blacklisted_versions":
         "Versions the watcher excludes from reconcile after a rollback",
+    "dts_tpu_recovery_state":
+        "Device-failure recovery state machine, one-hot over serving/"
+        "quarantined/reinit/replay",
+    "dts_tpu_recovery_replayed_items_total":
+        "In-flight/queued requests re-dispatched by the replay path "
+        "instead of failed on device death",
+    "dts_tpu_recovery_poisoned_requests_total":
+        "Requests isolated by bisection as deterministic executor "
+        "killers and failed alone (INVALID_ARGUMENT)",
+    "dts_tpu_recovery_mttr_mean_seconds":
+        "Mean recovery-cycle duration over the retained MTTR history ring",
+    "dts_tpu_recovery_last_cycle_seconds":
+        "Duration of the last completed quarantine->reinit->replay "
+        "cycle (the live MTTR evidence)",
     "dts_tpu_integrity_suspect":
         "1 while this replica's own shadow verification has it marked "
         "suspect (also gossiped in the fleet record so routers steer "
@@ -679,7 +693,8 @@ class ServerMetrics:
 
     def prometheus_text(self, batcher_stats=None, cache=None, row_cache=None, overload=None,
                         pipeline=None, kernels=None, integrity=None, cascade=None,
-                        utilization=None, quality=None, lifecycle=None) -> str:
+                        utilization=None, quality=None, lifecycle=None,
+                        recovery=None) -> str:
         """Prometheus exposition (text format 0.0.4) of the same data
         snapshot() serves as JSON. Metric names mirror tensorflow_model_
         server's monitoring surface (`:tensorflow:serving:request_count` /
@@ -904,6 +919,8 @@ class ServerMetrics:
             lines.extend(_quality_prometheus_lines(quality))
         if lifecycle is not None:
             lines.extend(_lifecycle_prometheus_lines(lifecycle))
+        if recovery is not None:
+            lines.extend(_recovery_prometheus_lines(recovery))
         if kernels is not None:
             lines.extend(_kernel_prometheus_lines(kernels))
         if cascade is not None:
@@ -911,6 +928,47 @@ class ServerMetrics:
         if integrity is not None:
             lines.extend(_integrity_prometheus_lines(integrity))
         return "\n".join(lines) + "\n"
+
+
+def _recovery_prometheus_lines(recovery: dict) -> list[str]:
+    """dts_tpu_recovery_* exposition from a RecoveryController snapshot:
+    the one-hot state gauge, the quarantine / reinit / replay / bisection
+    counters, the pending-replay gauge, the last cycle's duration and the
+    MTTR ring's mean. Each family declared once (the lint's rule)."""
+    lines: list[str] = []
+    st = "dts_tpu_recovery_state"
+    _family_lines(lines, st, "gauge")
+    current = recovery.get("state", "serving")
+    for state in ("serving", "quarantined", "reinit", "replay"):
+        lines.append(f'{st}{{state="{escape_label_value(state)}"}} '
+                     f'{1 if state == current else 0}')
+    counters = recovery.get("counters") or {}
+    last = recovery.get("last_cycle") or {}
+    for metric, kind, value in (
+        ("dts_tpu_recovery_quarantines_total", "counter", counters.get("quarantines", 0)),
+        ("dts_tpu_recovery_reinits_total", "counter", counters.get("reinits", 0)),
+        ("dts_tpu_recovery_cycles_completed_total", "counter",
+         counters.get("cycles_completed", 0)),
+        ("dts_tpu_recovery_device_failures_total", "counter",
+         counters.get("device_failures", 0)),
+        ("dts_tpu_recovery_replayed_items_total", "counter", counters.get("replayed_items", 0)),
+        ("dts_tpu_recovery_replay_budget_exhausted_total", "counter",
+         counters.get("replay_budget_exhausted", 0)),
+        ("dts_tpu_recovery_poisoned_requests_total", "counter",
+         counters.get("poisoned_requests", 0)),
+        ("dts_tpu_recovery_bisections_total", "counter", counters.get("bisections", 0)),
+        ("dts_tpu_recovery_watchdog_wedge_trips_total", "counter",
+         counters.get("watchdog_wedge_trips", 0)),
+        ("dts_tpu_recovery_thread_deaths_total", "counter", counters.get("thread_deaths", 0)),
+        ("dts_tpu_recovery_pending_replay_items", "gauge",
+         recovery.get("pending_replay_items", 0)),
+        ("dts_tpu_recovery_last_cycle_seconds", "gauge", last.get("duration_s", 0.0)),
+        ("dts_tpu_recovery_mttr_mean_seconds", "gauge",
+         (recovery.get("mttr") or {}).get("mean_s") or 0.0),
+    ):
+        _family_lines(lines, metric, kind)
+        lines.append(f"{metric} {value}")
+    return lines
 
 
 def _utilization_prometheus_lines(utilization: dict) -> list[str]:

@@ -193,7 +193,7 @@ def test_static_no_jax_imports_in_port_or_chip_smoke():
     assert len(files) > 15
     for mod in ("serving/rest.py", "utils/metrics.py", "utils/tracing.py",
                 "serving/overload.py", "serving/integrity.py", "serving/utilization.py",
-                "serving/quality.py"):
+                "serving/quality.py", "serving/recovery.py"):
         assert PORT / mod in files, mod
     bad = {
         str(f.relative_to(REPO)): [m for m in _imports(f) if _is_jax_side(m)]

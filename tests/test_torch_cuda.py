@@ -740,3 +740,61 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_the_context_probe_answers_on_a_live_card(cuda_device):
+    """serving/recovery.py probe_context: an event recorded on the serving
+    stream behind a queued kernel, polled, answers within its deadline."""
+    import time
+
+    from distributed_tf_serving_tpu_torch.serving.recovery import probe_context
+
+    torch.cuda._sleep(10_000_000)  # keep the stream busy a few ms
+    t0 = time.monotonic()
+    assert probe_context(cuda_device, 5.0) is None
+    assert time.monotonic() - t0 < 5.0
+
+
+@pytest.mark.cuda
+def test_a_transient_device_lost_on_the_card_replays_through_the_fused_kernel(cuda_device):
+    """A keyless device_lost count=1 on a bf16 dcn_v2 batcher on the card
+    with the recovery plane: the request answers the bits of the same batch
+    unfaulted, and the REINIT's re-warm launches the fused serve kernel."""
+    import time
+
+    from distributed_tf_serving_tpu_torch import faults
+    from distributed_tf_serving_tpu_torch.models import ServableRegistry
+    from distributed_tf_serving_tpu_torch.serving.recovery import RecoveryController
+    from distributed_tf_serving_tpu_torch.serving.server import load_demo_servable
+    from distributed_tf_serving_tpu_torch.utils.config import RecoveryConfig
+
+    cfg = ModelConfig(num_fields=43, embed_dim=16, mlp_dims=(256, 128, 64),
+                      vocab_size=1 << 20, num_cross_layers=3, compute_dtype="bfloat16")
+    reg = ServableRegistry()
+    sv = load_demo_servable(reg, kind="dcn_v2", config=cfg, device=cuda_device)
+    b = DynamicBatcher(buckets=(256, 512), max_wait_us=0, device=cuda_device)
+    b.warmup(sv)
+    b.start()
+    rec = RecoveryController(RecoveryConfig(enabled=True, replay_drain_s=30.0), b, registry=reg)
+    rng = np.random.RandomState(3)
+    arrays = {"feat_ids": rng.randint(0, 1 << 40, size=(300, 43)).astype(np.int64),
+              "feat_wts": rng.rand(300, 43).astype(np.float32)}
+    try:
+        want = b.submit(sv, arrays).result(120)["prediction_node"]
+        faults.reset(seed=0)
+        faults.get().add("device_lost", "error", code="UNAVAILABLE", count=1)
+        ck.reset_launches()
+        got = b.submit(sv, arrays).result(120)["prediction_node"]
+        end = time.monotonic() + 30
+        while rec.cycle_active() and time.monotonic() < end:
+            time.sleep(0.01)
+        assert got.tobytes() == want.tobytes()
+        snap = rec.snapshot()
+        assert snap["counters"]["replayed_items"] == 1 and snap["state"] == "serving"
+        # The re-warm (both buckets) and the replay ran the fused kernel.
+        assert ck.launches[("fused_serve", "bfloat16")] >= 3
+    finally:
+        faults.reset(seed=0)
+        rec.stop()
+        b.stop()

@@ -85,6 +85,32 @@ def test_count_caps_and_keys_select_like_jax():
     assert ours.snapshot() == theirs.snapshot()
 
 
+def test_device_lost_keyed_by_payload_digest_fires_like_jax():
+    """The recovery plane's site: a keyless count=1 rule and a keyed rule on
+    one payload's poison_fault_key (the key the batcher fires it with once
+    per batch member), drawn over five payloads' digests in both packages:
+    the same calls fire."""
+    import numpy as np
+
+    from distributed_tf_serving_tpu.serving.batcher import poison_fault_key as jax_key
+    from distributed_tf_serving_tpu_torch.serving.batcher import poison_fault_key
+
+    rng = np.random.RandomState(5)
+    payloads = [{"feat_ids": rng.randint(0, 1 << 40, size=(4, 6)).astype(np.int64),
+                 "feat_wts": rng.rand(4, 6).astype(np.float32)} for _ in range(5)]
+    keys = [poison_fault_key(p) for p in payloads]
+    assert keys == [jax_key(p) for p in payloads]
+    ours, theirs = faults.FaultInjector(seed=9), jax_faults.FaultInjector(seed=9)
+    for inj in (ours, theirs):
+        inj.add("device_lost", "error", code="UNAVAILABLE", count=1, rate=0.5)
+        inj.add("device_lost", "error", code="DATA_LOSS", key=keys[2])
+    a, b = ([d for k in keys * 4 for d in _draws(inj, "device_lost", 1, key=k)]
+            for inj in (ours, theirs))
+    assert a == b
+    assert sum(a) == 1 + 4  # the keyless rule once, the keyed one on each of its calls
+    assert ours.snapshot() == theirs.snapshot()
+
+
 SPECS = [
     "decode=error,code=INVALID_ARGUMENT",
     "batcher.dispatch=wedge,count=1",

@@ -89,7 +89,9 @@ REFUSED = [
     ("[server]\ntensor_parallel = true\n", 9),
     ("[mesh]\nenabled = true\n", 9),
     ("[elastic]\nenabled = true\n", 9),
-    ("[recovery]\nenabled = true\n", 6),
+    # Refused with its reason, not an item: a CUDA context has no in-process
+    # rebuild (serving/recovery.py).
+    ("[recovery]\nreinit_clear_backend = true\n", "a CUDA context cannot be rebuilt in-process"),
     ("[integrity]\nrouter_audit_fraction = 0.5\n", 8),
     ("[fleet]\nenabled = true\n", 8),
     ("[slo]\nenabled = true\n", 8),
@@ -99,7 +101,9 @@ REFUSED = [
 @pytest.mark.parametrize("text,item", REFUSED, ids=[t.split("\n")[1] + f"@{t.split(']')[0][1:]}"
                                                     for t, _ in REFUSED])
 def test_a_setting_that_is_not_ported_is_refused_with_its_item(tmp_path, text, item):
-    with pytest.raises(ValueError, match=f"not ported yet \\(ROADMAP.md Queue A item {item}\\)"):
+    want = item if isinstance(item, str) else (
+        f"not ported yet \\(ROADMAP.md Queue A item {item}\\)")
+    with pytest.raises(ValueError, match=want):
         load_config(_toml(tmp_path, text))
     jax_config.load_config(_toml(tmp_path, text))  # the JAX package loads it
 
@@ -124,6 +128,8 @@ PORTED = [
     ("[lifecycle]\nenabled = true\n", "lifecycle", "enabled", True),
     ("[lifecycle]\nenabled = true\ncanary_probe_only_s = 2.5\nrollback_psi = 0.35\n"
      "fine_tune_interval_s = 900.0\nfine_tune_steps = 64\n", "lifecycle", "fine_tune_steps", 64),
+    ("[recovery]\nenabled = true\nwatchdog_interval_s = 0.1\nwedge_quarantine_s = 1.0\n",
+     "recovery", "enabled", True),
 ]
 
 
@@ -135,7 +141,7 @@ def test_a_setting_ported_since_loads_like_jax(tmp_path, text, section, key, val
     ours, theirs = getattr(ours_section, key), getattr(theirs_section, key)
     assert ours == theirs == value
     if section in ("cache", "overload", "integrity", "cascade", "utilization",
-                   "quality", "lifecycle"):  # every field, as the JAX package reads it
+                   "quality", "lifecycle", "recovery"):  # every field, as the JAX package reads it
         theirs_fields = dataclasses.asdict(theirs_section)
         if section == "integrity":  # the router's knob is not ported (refused away from 0)
             assert theirs_fields.pop("router_audit_fraction") == 0.0
@@ -184,7 +190,8 @@ def test_the_key_tables_are_the_jax_package_s():
               "integrity": torch_config.IntegrityConfig, "cascade": torch_config.CascadeConfig,
               "utilization": torch_config.UtilizationConfig,
               "quality": torch_config.QualityConfig,
-              "lifecycle": torch_config.LifecycleConfig}
+              "lifecycle": torch_config.LifecycleConfig,
+              "recovery": torch_config.RecoveryConfig}
     assert set(ported) | set(torch_config._UNPORTED_SECTIONS) == set(jax_fields)
     for section, (keys, switches, _) in torch_config._UNPORTED_SECTIONS.items():
         assert set(keys) == jax_fields[section], section
@@ -721,13 +728,13 @@ def test_cli_refuses_a_version_label_beside_a_model_config_file(tmp_path):
 
 
 def test_cli_refuses_an_unported_plane_before_it_starts(tmp_path):
-    cfg = _toml(tmp_path, "[recovery]\nenabled = true\n")
+    cfg = _toml(tmp_path, "[fleet]\nenabled = true\n")
     res = subprocess.run(
         [sys.executable, "-m", "distributed_tf_serving_tpu_torch.serving.server", "--device",
          "cpu", "--port", "0", "--config", str(cfg)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
-    assert "[recovery] enabled = true is not ported yet (ROADMAP.md Queue A item 6)" in res.stderr
+    assert "[fleet] enabled = true is not ported yet (ROADMAP.md Queue A item 8)" in res.stderr
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--savedmodel=d", "--router"])

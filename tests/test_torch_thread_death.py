@@ -4,7 +4,8 @@ escapes the batching thread, the dispatch thread or a completion worker,
 the batch that thread held, every queued item and every staged group fail
 with BatcherThreadDead within a second, instead of at their deadlines, and
 every later submit raises it up front (UNAVAILABLE at the RPC layer).
-Reviving the thread belongs to the recovery plane, which is not ported."""
+These batchers run without the recovery plane; with it, the thread is
+revived and the work replayed instead (tests/test_torch_recovery.py)."""
 
 import threading
 import time
