@@ -508,6 +508,45 @@ Phases (any failure exits non-zero and prints no result line):
              child exits 0 within 180 s. Printed: the error texts and the
              time to the verdict.
 
+19. savedmodel — the SavedModel intake (interop/savedmodel.py,
+             interop/graph_exec.py): a dcn_v2 export of the seed-0 demo
+             weights at the width of configs/latency.toml, written with the
+             vendored protos (serve tag; serving_default feat_ids DT_INT64
+             [-1, 43], feat_wts DT_FLOAT [-1, 43] -> prediction_node; a
+             variables/variables.index placeholder; the weights under
+             Keras-style names in a fresh variables_extracted.npz, as the
+             card's machine has no TensorFlow to extract them). A CLI server
+             `--savedmodel` on it beside a `--checkpoint` server on its
+             conversion (`python -m ...interop.savedmodel DIR OUT`): Predicts
+             of n = 7, 1000 and 2048 on both, the two servers' n = 2048
+             scores bit-identical, every score within 5e-3 of the plain
+             forward, and fused_serve/bfloat16 launched by the import
+             server's Predicts (its launch count at shutdown less the one
+             it logged when ready). A `--model-base-path` server on a base
+             path of SavedModel versions: v1 (seed 0) loads, v2 (seed 1) is
+             published (renamed in) under 2 client threads of n = 1000
+             Predicts, which must see v2 with 0 failed Predicts, each
+             response within 5e-3 of its version's plain forward, and
+             fused_serve/bfloat16 launched by v2's Predicts (the count at
+             shutdown less the one logged at v2's load). A graph
+             export (int64 ids -> FloorMod 2^20 -> a [2^20, 16] embedding
+             variable gathered and weighted -> Shape / StridedSlice / Pack /
+             Reshape to [n, 688] -> MatMul / BiasAdd / Relu at 256 / 128 / 64
+             -> MatMul to 1 -> Squeeze -> Sigmoid, and the ids' row sums as
+             a second output), its variables placed in the port's own graph
+             cache, served with `--model-kind graph`: ids past 2^31 arrive
+             intact (the row sums exact) and scores are within 1e-5 of the
+             port's executor on the CPU; in a child process (`chip_smoke.py
+             --graph-calls DIR OUT`: this process's profiler loses events
+             after the earlier phases) one warm model.apply on the card runs
+             under torch.cuda.set_sync_debug_mode("error"), and the
+             profiler must see its launches. Printed: the import's
+             pb parse / npz load / map / CUDA context / H2D, the first
+             Predict, the p50 at
+             n = 1000 of the import server against the checkpoint server,
+             the swap's publish -> first v2 response, and the graph
+             executor's p50 and launches per call at n = 1000 and 2048.
+
 The lifecycle and models phases clear the device input cache before each
 memory read (its entries belong to the batcher, not to a version) and print
 the bytes it held.
@@ -528,7 +567,9 @@ path's, `launches_aio`; the cache-on stack's over the cache phase's steps
 `launches_cascade`; the utilization phase's plane-on runs,
 `launches_utilization`; the freshness phase's two servers,
 `launches_freshness`; the recovery phase's two servers,
-`launches_recovery`), the
+`launches_recovery`; the savedmodel phase's import server over its
+Predicts, `launches_savedmodel`, and its base-path server from v1's load to
+its exit, `launches_savedmodel_base`), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. Every line it
 logs is also kept in chiprun_out/chip_smoke.log.
 """
@@ -1623,17 +1664,31 @@ def _start_cli(args: list[str], log_path: str, ready_model: str = "DCN", env=Non
     """Start the port's CLI server (as tools/torch_closed_loop.py does) on a
     free port, in `env` (None: this process's); (process, port, log file)
     once it answers GetModelMetadata for `ready_model`."""
-    import grpc
+    return _await_cli(*_spawn_cli(args, log_path, env), args, log_path, ready_model)
 
-    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
-    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
 
+def _spawn_cli(args: list[str], log_path: str, env=None):
+    """The CLI server started on a free port, not waited for: (process,
+    port, log file)."""
     port = _free_port()
     logf = open(log_path, "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", f"{PKG}.serving.server", "--host", "127.0.0.1",
          "--port", str(port), *args],
         cwd=HERE, stdout=logf, stderr=subprocess.STDOUT, env=env)
+    return proc, port, logf
+
+
+def _await_cli(proc, port: int, logf, args: list[str], log_path: str,
+               ready_model: str = "DCN"):
+    """(process, port, log file) of a spawned server once it answers
+    GetModelMetadata for `ready_model`; stopped, and the run failed, if it
+    exits or does not answer in time."""
+    import grpc
+
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+
     end = time.perf_counter() + LIFECYCLE_WAIT_S
     try:
         with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
@@ -7676,6 +7731,498 @@ def phase_recovery(dev, name: str) -> dict:
     return out
 
 
+SM_SIZES = (7, 1000, 2048)  # Predicts of the savedmodel phase
+SM_REPEATS = 20  # Predicts per server for the p50 at n = 1000
+SM_GRAPH_TOL = 1e-5  # the graph server's scores against the CPU executor's
+SM_POLL_S = 0.25  # [server] file_system_poll_wait_seconds of the base-path server
+
+
+def _keras_name(path: str) -> str:
+    """A Keras-style export name for a dcn_v2 param path (the role pass of
+    interop/savedmodel.py map_variables binds it without a mapping)."""
+    parts = path.split("/")
+    leaf = "kernel" if parts[-1] == "w" else "bias"
+    if path == "embedding":
+        return "model/embedding/embeddings"
+    if parts[0] == "cross":
+        return f"model/cross_{parts[1]}/{leaf}"
+    if parts[0] == "mlp":
+        return f"model/{'dense' if parts[1] == '0' else 'dense_' + parts[1]}/{leaf}"
+    return f"model/dense_9/{leaf}"
+
+
+def _write_export(d: str, meta_graph, arrays: dict | None) -> None:
+    """A SavedModel directory: saved_model.pb (serve tag), the
+    variables/variables.index placeholder the readiness probe reads, and,
+    when given, `arrays` as variables_extracted.npz written after them (so
+    the npz is the fresher)."""
+    import numpy as np
+
+    from distributed_tf_serving_tpu_torch.proto import tf_saved_model_pb2 as smpb
+
+    os.makedirs(os.path.join(d, "variables"))
+    proto = smpb.SavedModel(saved_model_schema_version=1)
+    mg = proto.meta_graphs.add()
+    mg.CopyFrom(meta_graph)
+    mg.meta_info_def.tags.append("serve")
+    with open(os.path.join(d, "saved_model.pb"), "wb") as f:
+        f.write(proto.SerializeToString())
+    with open(os.path.join(d, "variables", "variables.index"), "wb") as f:
+        f.write(b"")
+    if arrays is not None:
+        time.sleep(0.02)  # a strictly later mtime than the export's files
+        np.savez(os.path.join(d, "variables_extracted.npz"), **arrays)
+
+
+def _ctr_meta(F: int, outputs=("prediction_node",)):
+    """A MetaGraphDef with the CTR serving_default signature (feat_ids
+    DT_INT64 [-1, F], feat_wts DT_FLOAT [-1, F])."""
+    from distributed_tf_serving_tpu_torch.proto import tf_meta_graph_pb2 as mgpb
+
+    meta = mgpb.MetaGraphDef()
+    sd = meta.signature_def["serving_default"]
+    sd.method_name = "tensorflow/serving/predict"
+    for alias, dt in (("feat_ids", 9), ("feat_wts", 1)):
+        sd.inputs[alias].name = f"{alias}:0"
+        sd.inputs[alias].dtype = dt
+        sd.inputs[alias].tensor_shape.dim.add(size=-1)
+        sd.inputs[alias].tensor_shape.dim.add(size=F)
+    for alias in outputs:
+        sd.outputs[alias].name = f"{alias}:0"
+        sd.outputs[alias].dtype = 9 if alias == "id_sum" else 1
+        sd.outputs[alias].tensor_shape.dim.add(size=-1)
+    return meta
+
+
+def _graph_export_meta(F: int, D: int, vocab: int, dims: tuple[int, ...]):
+    """The graph export's MetaGraphDef: FloorMod -> embedding gather ->
+    weight -> Shape / StridedSlice / Pack / Reshape -> MLP -> Sigmoid, and
+    the ids' row sums (`id_sum`)."""
+    from distributed_tf_serving_tpu_torch import codec
+
+    import numpy as np
+
+    meta = _ctr_meta(F, outputs=("prediction_node", "id_sum"))
+    g = meta.graph_def
+
+    def node(name, op, *inputs, **attrs):
+        n = g.node.add(name=name, op=op)
+        n.input.extend(inputs)
+        for k, v in attrs.items():
+            if isinstance(v, bytes):
+                n.attr[k].s = v
+            elif isinstance(v, list):
+                n.attr[k].list.i.extend(v)
+            else:
+                n.attr[k].i = v
+        return n
+
+    def const(name, value):
+        n = node(name, "Const")
+        n.attr["value"].tensor.CopyFrom(codec.from_ndarray(np.asarray(value)))
+        n.attr["dtype"].type = n.attr["value"].tensor.dtype
+
+    def variable(name):
+        node(name, "VarHandleOp", shared_name=name.encode())
+        node(f"{name}/read", "ReadVariableOp", name)
+        return f"{name}/read"
+
+    node("feat_ids", "Placeholder")
+    node("feat_wts", "Placeholder")
+    const("vocab", np.int64(vocab))
+    node("rows", "FloorMod", "feat_ids", "vocab")
+    const("axis0", np.int32(0))
+    node("emb", "GatherV2", variable("embedding"), "rows", "axis0")
+    const("last", np.int32(-1))
+    node("wts3", "ExpandDims", "feat_wts", "last")
+    node("weighted", "Mul", "emb", "wts3")
+    node("shape", "Shape", "weighted")
+    const("zero1", np.array([0], np.int32))
+    const("one1", np.array([1], np.int32))
+    node("n", "StridedSlice", "shape", "zero1", "one1", "one1", shrink_axis_mask=1)
+    const("width", np.int32(F * D))
+    node("flat_shape", "Pack", "n", "width")
+    x = node("x", "Reshape", "weighted", "flat_shape").name
+    for i, _ in enumerate(dims):
+        node(f"mm{i}", "MatMul", x, variable(f"w{i}"))
+        node(f"ba{i}", "BiasAdd", f"mm{i}", variable(f"b{i}"))
+        x = node(f"relu{i}", "Relu", f"ba{i}").name
+    node("mm_out", "MatMul", x, variable("w_out"))
+    node("logit2", "BiasAdd", "mm_out", variable("b_out"))
+    node("logit", "Squeeze", "logit2", squeeze_dims=[1])
+    node("prediction_node", "Sigmoid", "logit")
+    node("id_sum", "Sum", "feat_ids", "one1")
+    return meta
+
+
+def _graph_variables(F: int, D: int, vocab: int, dims: tuple[int, ...], seed: int) -> dict:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {"embedding": rng.standard_normal((vocab, D), dtype=np.float32) * np.float32(0.5)}
+    width = F * D
+    for i, d in enumerate(dims):
+        out[f"w{i}"] = (rng.standard_normal((width, d), dtype=np.float32)
+                        * np.float32(np.sqrt(2.0 / width)))
+        out[f"b{i}"] = rng.standard_normal(d, dtype=np.float32) * np.float32(0.01)
+        width = d
+    out["w_out"] = rng.standard_normal((width, 1), dtype=np.float32) * np.float32(
+        np.sqrt(1.0 / width))
+    out["b_out"] = np.zeros(1, np.float32)
+    return out
+
+
+def _log_json(path: str, pattern: str) -> dict | None:
+    import re
+
+    with open(path) as f:
+        m = re.search(pattern + r"(\{.*\})$", f.read(), re.M)
+    return json.loads(m.group(1)) if m else None
+
+
+def phase_savedmodel(dev, name: str) -> dict:
+    """The SavedModel intake on the card, through the CLI servers. Checks in
+    the docstring of the module."""
+    import re
+    import shutil
+    import tempfile
+    import threading
+
+    import grpc
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_map
+
+    from distributed_tf_serving_tpu_torch import codec
+    from distributed_tf_serving_tpu_torch.interop import savedmodel as sm
+    from distributed_tf_serving_tpu_torch.interop.graph_exec import graph_model
+    from distributed_tf_serving_tpu_torch.models import build_model
+    from distributed_tf_serving_tpu_torch.proto import ModelServiceStub, PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+    from distributed_tf_serving_tpu_torch.proto.service_grpc import LARGE_MESSAGE_CHANNEL_OPTIONS
+    from distributed_tf_serving_tpu_torch.serving.batcher import fold_ids_host
+    from distributed_tf_serving_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(HERE, "chiprun_out")
+    latency = os.path.join(HERE, "configs", "latency.toml")
+    with open(latency) as f:
+        text = f.read()
+    text, k = re.subn(r"(?m)^\[server\]\n",
+                      f"[server]\nfile_system_poll_wait_seconds = {SM_POLL_S}\n", text)
+    if k != 1:
+        fail("configs/latency.toml has no [server] section")
+    polled = os.path.join(out_dir, "savedmodel_base.toml")
+    with open(polled, "w") as f:
+        f.write(text)
+    mc = load_config(latency)["model"]
+    F, D, V = mc.num_fields, mc.embed_dim, mc.vocab_size
+    model = build_model("dcn_v2", mc)
+    plain = build_model("dcn_v2", dataclasses.replace(model.config, use_pallas_cross=False))
+    params = {seed: model.init(seed, "cpu") for seed in (0, 1)}
+
+    def keras_arrays(tree) -> dict:
+        return {_keras_name(p): t.numpy() for p, t in sm._flatten_params(tree).items()}
+
+    root = tempfile.mkdtemp(prefix="dts_savedmodel_")
+    graph_dir = os.path.join(root, "graph")
+    res: dict = {"card": name}
+    procs: list = []
+    try:
+        zoo, ckpt = os.path.join(root, "zoo"), os.path.join(root, "ckpt")
+        base = os.path.join(root, "base")
+        _write_export(zoo, _ctr_meta(F), keras_arrays(params[0]))
+        _write_export(os.path.join(base, "1"), _ctr_meta(F), keras_arrays(params[0]))
+        dims = tuple(mc.mlp_dims)
+        gmeta = _graph_export_meta(F, D, V, dims)
+        gvars = _graph_variables(F, D, V, dims, SEED + 3000)
+        # The card's machine has no TensorFlow to extract the graph's
+        # variables: they go where the importer's extraction would put them.
+        _write_export(graph_dir, gmeta, None)
+        time.sleep(0.02)
+        np.savez(sm.graph_cache_path(graph_dir), **gvars)
+        res["write_s"] = time.perf_counter() - t_phase
+
+        # Every server and the conversion start at once; the checkpoint
+        # server starts when the conversion is done, and comes up while the
+        # base-path and graph checks run.
+        t0 = time.perf_counter()
+        convert = subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.interop.savedmodel", zoo, ckpt],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        spawned = {
+            "import": (["--config", latency, "--savedmodel", zoo], "savedmodel_import.log"),
+            "base": (["--config", polled, "--model-base-path", base], "savedmodel_base.log"),
+            "graph": (["--config", latency, "--model-kind", "graph", "--savedmodel",
+                       graph_dir], "savedmodel_graph.log"),
+        }
+        handles = {}
+        for key, (args, logname) in spawned.items():
+            handles[key] = _spawn_cli(args, os.path.join(out_dir, logname))
+            procs.append(handles[key])
+        for key, (proc, port, logf) in handles.items():
+            _await_cli(proc, port, logf, [key], os.path.join(out_dir, f"savedmodel_{key}.log"))
+        res["servers_ready_s"] = time.perf_counter() - t0
+        conv_out, _ = convert.communicate(timeout=LIFECYCLE_WAIT_S)
+        if convert.returncode != 0:
+            fail(f"savedmodel: the conversion CLI exited {convert.returncode}: "
+                 f"{conv_out[-2000:]}")
+        res["convert_s"] = time.perf_counter() - t0
+        handles["ckpt"] = _spawn_cli(["--config", latency, "--checkpoint", ckpt],
+                                     os.path.join(out_dir, "savedmodel_ckpt.log"))
+        procs.append(handles["ckpt"])
+        chans = {key: grpc.insecure_channel(f"127.0.0.1:{h[1]}",
+                                            options=LARGE_MESSAGE_CHANNEL_OPTIONS)
+                 for key, h in handles.items()}
+        stubs = {key: PredictionServiceStub(ch) for key, ch in chans.items()}
+        rng = np.random.RandomState(SEED + 3100)
+        # The reference's weights reach the card by a plain copy, apart
+        # from the importer under test.
+        on_card = {seed: tree_map(lambda t: t.to(dev), tree) for seed, tree in params.items()}
+
+        def plain_scores(seed, ids, wts):
+            with torch.inference_mode():
+                return plain.apply(on_card[seed], {
+                    "feat_ids": torch.from_numpy(fold_ids_host(ids, V)).to(dev),
+                    "feat_wts": torch.from_numpy(wts).to(dev)})[
+                    "prediction_node"].float().cpu().numpy()
+
+        # ---- SavedModel versions under --model-base-path
+        stop = threading.Event()
+        lock = threading.Lock()
+        seen: list = []  # (perf_counter, version)
+        failures: list = []
+        errs: dict = {}
+        loads = [(rng.randint(0, 1 << 40, size=(1000, F)).astype(np.int64),
+                  rng.rand(1000, F).astype(np.float32)) for _ in range(2)]
+        want = {(v, i): plain_scores(v - 1, *loads[i]) for v in (1, 2) for i in range(2)}
+
+        def client(i: int) -> None:
+            stub = PredictionServiceStub(chans["base"])
+            req = _request(*loads[i])
+            while not stop.is_set():
+                try:
+                    resp = stub.Predict(req, timeout=60)
+                except Exception as e:  # noqa: BLE001 — every failure counts
+                    failures.append(repr(e))
+                    continue
+                v = resp.model_spec.version.value
+                err = float(np.max(np.abs(codec.to_ndarray(resp.outputs["prediction_node"])
+                                          - want[v, i])))
+                with lock:
+                    seen.append((time.perf_counter(), v))
+                    errs[v] = max(errs.get(v, 0.0), err)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for th in threads:
+            th.start()
+        time.sleep(1.0)
+        staged = os.path.join(root, "stage2")
+        _write_export(staged, _ctr_meta(F), keras_arrays(params[1]))
+        t_pub = time.perf_counter()
+        os.rename(staged, os.path.join(base, "2"))
+        end = t_pub + LIFECYCLE_WAIT_S
+        while not any(v == 2 for _, v in list(seen)):
+            if time.perf_counter() > end or handles["base"][0].poll() is not None:
+                stop.set()
+                fail(f"savedmodel: v2 was not served within {LIFECYCLE_WAIT_S} s "
+                     f"(log {out_dir}/savedmodel_base.log)")
+            time.sleep(0.02)
+        first_v2 = min(t for t, v in seen if v == 2)
+        time.sleep(1.0)
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+        status = ModelServiceStub(chans["base"]).GetModelStatus(
+            apis.GetModelStatusRequest(model_spec=apis.ModelSpec(name="DCN")), timeout=10)
+        versions = sorted(s.version for s in status.model_version_status)
+        res["swap"] = {"publish_to_first_v2_s": first_v2 - t_pub, "failed": len(failures),
+                       "responses": len(seen),
+                       "by_version": {v: sum(1 for _, x in seen if x == v) for v in (1, 2)},
+                       "max_abs_err": errs, "versions": versions,
+                       "load": _log_json(os.path.join(out_dir, "savedmodel_base.log"),
+                                         r"loaded DCN v2 from \S+: ")}
+        if failures:
+            fail(f"savedmodel: {len(failures)} Predicts failed across the swap: {failures[:3]}")
+        if versions != [1, 2] or not all(e <= APPLY_TOL for e in errs.values()):
+            fail(f"savedmodel: swap ended at versions {versions}, errors {errs}")
+
+        # ---- the graph executor
+        cpu_model, cpu_params = graph_model(gmeta, gvars, device="cpu")
+        res["graph"] = {"max_abs_err": {}}
+        for n in SM_SIZES:
+            ids = rng.randint(1 << 31, 1 << 40, size=(n, F)).astype(np.int64)
+            wts = rng.rand(n, F).astype(np.float32)
+            greq = apis.PredictRequest()
+            greq.model_spec.name = "DCN"
+            codec.from_ndarray(ids, out=greq.inputs["feat_ids"])
+            codec.from_ndarray(wts, out=greq.inputs["feat_wts"])
+            resp = stubs["graph"].Predict(greq, timeout=120)
+            id_sum = codec.to_ndarray(resp.outputs["id_sum"])
+            if id_sum.dtype != np.int64 or not np.array_equal(id_sum, ids.sum(axis=1)):
+                fail(f"savedmodel: the graph server's int64 ids did not arrive intact (n = {n})")
+            want_g = cpu_model.apply(cpu_params, {"feat_ids": torch.from_numpy(ids),
+                                                  "feat_wts": torch.from_numpy(wts)})
+            err = float(np.max(np.abs(codec.to_ndarray(resp.outputs["prediction_node"])
+                                      - want_g["prediction_node"].numpy())))
+            res["graph"]["max_abs_err"][n] = err
+            if not err <= SM_GRAPH_TOL:
+                fail(f"savedmodel: graph server n = {n} scores {err} from the CPU executor")
+
+        # ---- the zoo-bound import against its conversion
+        _await_cli(*handles["ckpt"], ["ckpt"], os.path.join(out_dir, "savedmodel_ckpt.log"))
+        res["ckpt_ready_s"] = time.perf_counter() - t0
+        payloads = {n: (rng.randint(0, 1 << 40, size=(n, F)).astype(np.int64),
+                        rng.rand(n, F).astype(np.float32)) for n in SM_SIZES}
+        scores = {}
+        for key in ("import", "ckpt"):
+            for n, (ids, wts) in payloads.items():
+                t1 = time.perf_counter()
+                resp = stubs[key].Predict(_request(ids, wts), timeout=120)
+                ms = (time.perf_counter() - t1) * 1e3
+                if (key, n) == ("import", SM_SIZES[0]):
+                    res["first_predict_ms"] = ms
+                scores[key, n] = codec.to_ndarray(resp.outputs["prediction_node"])
+        res["max_abs_err"] = {}
+        for n, (ids, wts) in payloads.items():
+            want = plain_scores(0, ids, wts)
+            err = max(float(np.max(np.abs(scores[k, n] - want))) for k in ("import", "ckpt"))
+            res["max_abs_err"][n] = err
+            if not err <= APPLY_TOL:
+                fail(f"savedmodel: n = {n} scores {err} from the plain forward (> {APPLY_TOL})")
+        top = SM_SIZES[-1]
+        if not np.array_equal(scores["import", top], scores["ckpt", top]):
+            fail(f"savedmodel: the import server's n = {top} scores are not the bits of the "
+                 "checkpoint server's")
+        res["p50_1000_ms"] = {}
+        req = _request(*payloads[1000])
+        for key in ("import", "ckpt"):
+            lat = []
+            for _ in range(SM_REPEATS):
+                t1 = time.perf_counter()
+                stubs[key].Predict(req, timeout=120)
+                lat.append((time.perf_counter() - t1) * 1e3)
+            res["p50_1000_ms"][key] = statistics.median(lat)
+
+        for key in ("import", "ckpt", "base", "graph"):
+            chans[key].close()
+        # The graph export's warm calls on the card, in a process of its own:
+        # after the earlier phases this process's profiler loses kernel
+        # events, and the servers are idle by now.
+        calls = os.path.join(out_dir, "savedmodel_graph_calls.json")
+        child = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                                "--graph-calls", graph_dir, calls],
+                               cwd=HERE, capture_output=True, text=True,
+                               timeout=LIFECYCLE_WAIT_S)
+        if child.returncode != 0:
+            fail(f"savedmodel: the graph-calls child exited {child.returncode}: "
+                 f"{child.stderr[-2000:]}")
+        with open(calls) as f:
+            res["graph"]["calls"] = {int(n): c for n, c in json.load(f).items()}
+    finally:
+        for proc, _port, logf in procs:
+            _stop_cli(proc, logf)
+        # The graph export's variables, seeded into the importer's cache
+        # outside `root`.
+        if os.path.exists(sm.graph_cache_path(graph_dir)):
+            os.unlink(sm.graph_cache_path(graph_dir))
+        shutil.rmtree(root, ignore_errors=True)
+
+    def diff(end: dict | None, start: dict | None) -> dict:
+        end, start = end or {}, start or {}
+        return {k: end.get(k, 0) - start.get(k, 0) for k in set(start) | set(end)}
+
+    key = "fused_serve/bfloat16"
+    log_path = os.path.join(out_dir, "savedmodel_import.log")
+    # The import server over its Predicts: its count at shutdown less its
+    # count when it was ready.
+    res["launches"] = diff(_log_json(log_path, r"kernel launches at shutdown: "),
+                           _log_json(log_path, r"kernel launches at start: "))
+    if not res["launches"].get(key, 0) > 0:
+        fail(f"savedmodel: the import server's Predicts launched no {key} ({res['launches']})")
+    # The base-path server over the swap: its count at shutdown less its
+    # count at v1's load (v1's Predicts, v2's warmup and Predicts), and
+    # less its count at v2's load (v2's Predicts alone).
+    base = _server_log(os.path.join(out_dir, "savedmodel_base.log"))
+    if len(base["changes"]) < 2 or base["shutdown"] is None:
+        fail(f"savedmodel: the base-path server logged {len(base['changes'])} version "
+             f"changes and {'a' if base['shutdown'] else 'no'} shutdown count")
+    res["launches_base"] = diff(base["shutdown"], base["changes"][0])
+    res["launches_base_v2"] = diff(base["shutdown"], base["changes"][-1])
+    if not res["launches_base_v2"].get(key, 0) > 0:
+        fail(f"savedmodel: the imported v2's Predicts launched no {key} "
+             f"({res['launches_base_v2']})")
+    res["import_s"] = _log_json(log_path, r"imported SavedModel \S+: DCN v1 ")
+    if res["import_s"] is None:
+        fail("savedmodel: the import server logged no import timings")
+    res["phase_s"] = time.perf_counter() - t_phase
+    imp = res["import_s"]
+    log(f"savedmodel: import {imp['parse_s'] * 1e3:.1f} ms pb parse, "
+        f"{imp['npz_s'] * 1e3:.1f} ms npz load, {imp['map_s'] * 1e3:.1f} ms map, "
+        f"{imp['ctx_s'] * 1e3:.1f} ms CUDA context, "
+        f"{imp['h2d_s'] * 1e3:.1f} ms H2D; first Predict (n = {SM_SIZES[0]}) "
+        f"{res['first_predict_ms']:.2f} ms; p50 n = 1000 import "
+        f"{res['p50_1000_ms']['import']:.3f} ms vs checkpoint {res['p50_1000_ms']['ckpt']:.3f} ms"
+        f"; max |err| {res['max_abs_err']}; fused_serve launches over the Predicts "
+        f"{res['launches']} ({name})")
+    log(f"savedmodel: swap publish -> first v2 response {res['swap']['publish_to_first_v2_s']:.3f}"
+        f" s, {res['swap']['responses']} responses {res['swap']['by_version']}, 0 failed, "
+        f"v2 load {res['swap']['load']}; base-path launches from v1's load "
+        f"{res['launches_base']}, over v2's Predicts {res['launches_base_v2']} ({name})")
+    for n, c in res["graph"]["calls"].items():
+        log(f"savedmodel: graph executor n = {n}: p50 {c['p50_ms']:.3f} ms, "
+            f"{c['launches_per_call']:.1f} launches per call; server max |err| "
+            f"{res['graph']['max_abs_err']} ({name})")
+    log(f"savedmodel: phase {res['phase_s']:.1f} s (servers ready {res['servers_ready_s']:.1f} s, "
+        f"conversion {res['convert_s']:.1f} s, checkpoint server {res['ckpt_ready_s']:.1f} s)")
+    return res
+
+
+def _graph_calls_child(graph_dir: str, out_path: str) -> None:
+    """`chip_smoke.py --graph-calls DIR OUT`: the savedmodel phase's graph
+    export imported on the card (its variables already in the graph cache)
+    and timed at n = 1000 and 2048: one warm model.apply under
+    torch.cuda.set_sync_debug_mode("error") (a synchronizing op fails it),
+    then its p50 (`call_ms`) and its launches per call (`kernels_per_call`),
+    which must be above 0, written to OUT as JSON."""
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch.interop import savedmodel as sm
+    from distributed_tf_serving_tpu_torch.utils.config import load_config
+
+    dev = torch.device("cuda", 0)
+    mc = load_config(os.path.join(HERE, "configs", "latency.toml"))["model"]
+    sv = sm.import_savedmodel(graph_dir, "graph", mc, device=dev)
+    rng = np.random.RandomState(SEED + 3200)
+    out = {}
+    for n in (1000, 2048):
+        batch = {"feat_ids": torch.from_numpy(
+            rng.randint(0, 1 << 40, size=(n, mc.num_fields)).astype(np.int64)).to(dev),
+            "feat_wts": torch.from_numpy(
+                rng.rand(n, mc.num_fields).astype(np.float32)).to(dev)}
+
+        def call(batch=batch):
+            with torch.inference_mode():
+                return sv.model.apply(sv.params, batch)
+
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+        except RuntimeError as e:
+            fail(f"savedmodel: a warm graph call synchronized with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[n] = {"p50_ms": call_ms(call), "launches_per_call": kernels_per_call(call)}
+        if not out[n]["launches_per_call"] > 0:
+            fail(f"savedmodel: the profiler saw no launch of the graph executor at n = {n}")
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -7768,6 +8315,9 @@ def main() -> None:
     t0 = time.perf_counter()
     recovery = phase_recovery(dev, f"{name} ({smi})")
     log(f"recovery: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    savedmodel = phase_savedmodel(dev, f"{name} ({smi})")
+    log(f"savedmodel: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
@@ -7775,7 +8325,7 @@ def main() -> None:
                    "models": models, "rest": rest, "aio": aio, "cache": cache,
                    "integrity": integrity, "overload": overload, "cascade": cascade,
                    "utilization": utilization, "freshness": freshness,
-                   "recovery": recovery}, f,
+                   "recovery": recovery, "savedmodel": savedmodel}, f,
                   indent=1,
                   default=str)
 
@@ -7830,6 +8380,13 @@ def main() -> None:
                      # the bisection, the wedge and the SIGTERM during a
                      # cycle), each from its start to its exit.
                      "launches_recovery": recovery["launches"].get(f"{kname}/{cd}", 0),
+                     # The savedmodel phase's import server over its
+                     # Predicts (its count at shutdown less its count when
+                     # it was ready), and its base-path server from v1's
+                     # load to its exit (v2 imported and swapped in).
+                     "launches_savedmodel": savedmodel["launches"].get(f"{kname}/{cd}", 0),
+                     "launches_savedmodel_base":
+                         savedmodel["launches_base"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (
@@ -7848,5 +8405,7 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--recovery-child":
         _recovery_child(sys.argv[2])  # the recovery phase's sticky-error child
+    elif len(sys.argv) == 4 and sys.argv[1] == "--graph-calls":
+        _graph_calls_child(sys.argv[2], sys.argv[3])  # the savedmodel phase's timing child
     else:
         main()

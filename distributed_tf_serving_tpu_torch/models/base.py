@@ -104,7 +104,11 @@ class Model:
     score_output: the name of the per-candidate score vector in apply()'s
     output dict, the one tensor the serving path ranks on: top-k output
     compaction, the int8 score response wire and Classify / Regress key on
-    it."""
+    it. needs_x64: the model's graph carries int64 / float64 tensors
+    (interop/graph_exec.py); torch is 64-bit natively, so the flag means
+    only that they reach it as they are: the batcher keeps float64 inputs,
+    sends no combined buffer and reads back full-precision outputs, with no
+    top-k or prune."""
 
     config: ModelConfig
     init: Callable[..., Params]
@@ -113,6 +117,7 @@ class Model:
     wts_in_compute_dtype: bool = True
     score_output: str = "prediction_node"
     folds_ids_on_host: bool = True
+    needs_x64: bool = False
     kind: str = ""
 
 

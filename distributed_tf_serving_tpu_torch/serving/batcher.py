@@ -41,6 +41,11 @@ readback and per-request completion.
   score output, only its `output_top_k` best (score, index) pairs. The
   completion worker widens them back to float32 on the host; no sidecar
   reaches a result.
+- **Graph-executor models** (interop/graph_exec.py): raw int64 ids (the
+  model does not fold on the host) reach `model.apply` per padded bucket
+  through the per-key path; a model that `needs_x64` keeps float64 inputs,
+  sends no combined buffer and reads back full-precision outputs, with no
+  top-k and no prune.
 - **Solo items.** A streamed sub-batch (`submit(..., _solo=True)`) is its
   own batch: the coalescer neither adds it to a group nor adds to it.
 - **The cascade's prune** (`submit(..., _prune_k=k)`, serving/cascade.py):
@@ -352,14 +357,16 @@ def _immutably_backed(arr: np.ndarray) -> bool:
     return isinstance(b, bytes)
 
 
-def prepare_inputs(arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+def prepare_inputs(arrays: dict[str, np.ndarray], needs_x64: bool = False) -> dict[str, np.ndarray]:
     """Host-side normalization at submit. Every output array is owned or
     immutable, so a caller mutating its array after submit() cannot race
     the batch that reads it. Ids stay unfolded here: the whole padded batch
-    is folded at once when it is dispatched."""
+    is folded at once when it is dispatched. float64 inputs are cast to
+    float32 unless the model `needs_x64` (a graph executor with DT_DOUBLE
+    inputs must see the doubles it was exported with)."""
     out = {}
     for key, arr in arrays.items():
-        if arr.dtype == np.float64:
+        if arr.dtype == np.float64 and not needs_x64:
             out[key] = arr.astype(np.float32)
         elif _immutably_backed(arr):
             out[key] = arr
@@ -566,6 +573,7 @@ class _Readback:
     input_cache_hit: bool = False  # the upload was a DeviceInputCache hit
     variant: tuple = (False, False)  # (quantized, fused): the kernel the batch ran
     shadow: _Readback | None = None  # the integrity plane's second run of the batch
+    full_precision: bool = False  # an x64 model's outputs: no wire downcast
 
 
 class _HostBufferRing:
@@ -1268,7 +1276,7 @@ class DynamicBatcher:
                 )
             self._queued_candidates += n
         try:
-            prepared = prepare_inputs(arrays)
+            prepared = prepare_inputs(arrays, servable.model.needs_x64)
         except BaseException:
             with self._cv:
                 self._queued_candidates -= n
@@ -1821,13 +1829,14 @@ class DynamicBatcher:
         readback issue: the top-k pairs of the score output (with the
         whole score vector for a cascade prune), or the selected outputs at
         the wire dtype. Device tensors only: nothing here waits for the
-        card."""
+        card. An x64 model's outputs keep their precision (a float64 output
+        downcast would not be a transparent wire encoding)."""
         if topk:
             select = cascade_prune_device if prune else topk_compact_device
             return select(out[servable.model.score_output], n_valid, topk, self._wire_dt)
         if output_keys is not None:
             out = {k: v for k, v in out.items() if k in output_keys} or out
-        return compact_outputs_device(out, self._wire_dt)
+        return compact_outputs_device(out, None if servable.model.needs_x64 else self._wire_dt)
 
     def _restore(self, rb: _Readback, views: dict) -> dict[str, np.ndarray]:
         """A readback's host views (`views`, keyed as `rb.out`) as owned
@@ -1839,7 +1848,7 @@ class DynamicBatcher:
                 # arrays widened, the stage-1 vector trimmed to the request.
                 return cascade_restore_host(views, n)
             return topk_restore_host(views["topk_scores"], views["topk_indices"], n, key)
-        if self._wire_dt is not None:
+        if self._wire_dt is not None and not rb.full_precision:
             return restore_outputs_host(views)
         return {k: v.numpy().copy() for k, v in views.items()}
 
@@ -1862,7 +1871,9 @@ class DynamicBatcher:
         step, params, fused = self._step(servable, entry, rows, variant)
         if not isinstance(src, _FusedCtx):
             src = self._folded(servable, src)
-        per_key = per_key or not (isinstance(src, _FusedCtx) or combined_supported(src))
+        # An x64 model's inputs take the per-key path, each with its dtype.
+        per_key = per_key or servable.model.needs_x64 or not (
+            isinstance(src, _FusedCtx) or combined_supported(src))
         cache = None if per_key else self.input_cache
         # (host buffer, event after the copy that reads it): back to the
         # ring once the step has been issued.
@@ -1932,6 +1943,7 @@ class DynamicBatcher:
             rb.full_f32_bytes = full
             rb.input_cache_hit = cache_hit
             rb.variant = variant
+            rb.full_precision = servable.model.needs_x64
             if topk:
                 rb.topk = (n_valid, servable.model.score_output)
                 rb.prune = prune
@@ -2151,8 +2163,10 @@ class DynamicBatcher:
             # would mix requests' candidates) that asked for exactly the
             # score output (warmup batches ask for every output).
             topk = 0
+            # An x64 model reads back its full outputs: no top-k, no prune.
+            x64 = servable.model.needs_x64
             if (self.output_top_k and len(group) == 1 and 0 < self.output_top_k < total
-                    and keys == (servable.model.score_output,)):
+                    and keys == (servable.model.score_output,) and not x64):
                 topk = self.output_top_k
             # The cascade's stage-1 prune rides the same selection (a prune
             # item is solo); where it cannot arm, the batch reads back its
@@ -2160,7 +2174,7 @@ class DynamicBatcher:
             prune = False
             if first.prune_k and not first.warmup:
                 if (len(group) == 1 and 0 < first.prune_k < total
-                        and keys == (servable.model.score_output,)):
+                        and keys == (servable.model.score_output,) and not x64):
                     topk, prune = first.prune_k, True
                 else:
                     with self._stats_lock:

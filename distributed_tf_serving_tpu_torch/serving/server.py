@@ -49,7 +49,8 @@ CLI:
     python -m distributed_tf_serving_tpu_torch.serving.server --port 9999 \
         [--config configs/latency.toml] [--device cuda|cpu] [--kernels] \
         [--model-kind KIND] [--model-name NAME] [--num-fields N] \
-        [--checkpoint DIR | --model-base-path DIR | --model-config-file F] \
+        [--checkpoint DIR | --savedmodel DIR | --model-base-path DIR |
+         --model-config-file F] \
         [--version-label LABEL=VERSION ...] [--batching-parameters-file F] \
         [--ssl-config-file F] [--request-log-file F] [--request-log-sampling P] \
         [--no-warmup] [--max-wait-us N] [--max-workers N] \
@@ -61,9 +62,12 @@ CLI:
 serves, by default, a randomly initialized demo servable (numpy-seeded,
 `--seed`) of the configured model kind ([server] model_kind, or
 `--model-kind`: any family of models/); `--checkpoint DIR` serves the
-checkpoint in DIR (train/checkpoint.py), `--model-base-path DIR` the
-newest versions under DIR's numeric version directories, hot-swapping as
-new ones appear (serving/version_watcher.py), and `--model-config-file F`
+checkpoint in DIR (train/checkpoint.py), `--savedmodel DIR` the TF
+SavedModel export in DIR, imported as `--model-kind` (interop/savedmodel.py;
+`graph` runs the export's own GraphDef) with its warmup file replayed,
+`--model-base-path DIR` the newest versions under DIR's numeric version
+directories (checkpoints or SavedModel exports), hot-swapping as new ones
+appear (serving/version_watcher.py), and `--model-config-file F`
 every model of a tensorflow_model_server ModelServerConfig, one version
 watcher each (ModelLifecycle), the list replaceable at run time through
 HandleReloadConfigRequest. SIGTERM (or SIGINT) drains: new inference RPCs
@@ -973,12 +977,15 @@ def _servable_change_hook(score_cache=None, row_cache=None, quality=None):
 
 
 def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig, registry,
-                  batcher):
+                  batcher, model_kind: str | None = None,
+                  model_config: ModelConfig | None = None):
     """A VersionWatcher that serves `model_name` from `base_path`: each
     version warmed through the batcher's queue and its warmup file replayed
     before it serves (unless cfg.warmup is off), loaded onto the batcher's
     device, the kernel launch counters logged, the batcher's caches
-    invalidated and the quality plane told at every version change."""
+    invalidated and the quality plane told at every version change. A
+    SavedModel version is imported as `model_kind` (default cfg.model_kind)
+    with `model_config`."""
     from .version_watcher import VersionWatcher, VersionWatcherConfig
     from .warmup import replay_warmup_file
 
@@ -986,6 +993,7 @@ def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig,
         base_path, registry,
         VersionWatcherConfig(
             model_name=model_name,
+            model_kind=model_kind or cfg.model_kind,
             desired_labels=tuple(desired_labels),
             poll_interval_s=cfg.file_system_poll_wait_seconds,
             # Upstream semantics: N RETRIES after the first attempt.
@@ -996,6 +1004,7 @@ def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig,
             (lambda sv, wf: replay_warmup_file(wf, sv, batcher)) if cfg.warmup else None
         ),
         device=batcher.device,
+        model_config=model_config,
         on_servable_change=_servable_change_hook(batcher.score_cache, batcher.row_cache,
                                                  batcher.quality),
     )
@@ -1018,15 +1027,17 @@ class ModelLifecycle:
        RPC answers); their labels are set as their versions land.
 
     `model_platform` names the family ("tensorflow", or empty, means the
-    server's model_kind); the architecture of each version comes from its
-    own manifest, so models of different families, widths and compute
-    dtypes share the registry and the batcher. One lock serializes
-    reloads."""
+    server's model_kind) a SavedModel version is imported as, with
+    `model_config`; a checkpoint's architecture comes from its own
+    manifest, so models of different families, widths and compute dtypes
+    share the registry and the batcher. One lock serializes reloads."""
 
-    def __init__(self, cfg: ServerConfig, registry: ServableRegistry, batcher: DynamicBatcher):
+    def __init__(self, cfg: ServerConfig, registry: ServableRegistry, batcher: DynamicBatcher,
+                 model_config: ModelConfig | None = None):
         self._cfg = cfg
         self._registry = registry
         self._batcher = batcher
+        self._model_config = model_config
         self._watchers: dict[str, object] = {}
         self._sources: dict[str, tuple[str, str]] = {}  # name -> (base_path, platform)
         self._lock = threading.Lock()  # reloads arrive on RPC threads
@@ -1074,8 +1085,9 @@ class ModelLifecycle:
             for name in sorted(set(wanted) - unchanged):
                 mc = wanted[name]
                 labels = sorted((label, int(v)) for label, v in mc.version_labels.items())
-                self._watchers[name] = _make_watcher(mc.base_path, name, labels, self._cfg,
-                                                     self._registry, self._batcher).start()
+                self._watchers[name] = _make_watcher(
+                    mc.base_path, name, labels, self._cfg, self._registry, self._batcher,
+                    model_kind=self._kind_of(mc), model_config=self._model_config).start()
                 self._sources[name] = self._source_of(mc)
                 log.info("reload: added model %r (base_path=%s, platform %s)", name,
                          mc.base_path, self._kind_of(mc))
@@ -1195,7 +1207,7 @@ class GracefulShutdown:
 def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None,
                 seed: int = 0, fused_kernel: bool = True,
                 kernels_config: KernelsConfig | None = None,
-                checkpoint=None, model_base_path=None,
+                checkpoint=None, model_base_path=None, savedmodel=None,
                 batching_config: BatchingConfig | None = None,
                 transport_config: TransportConfig | None = None,
                 cache_config: CacheConfig | None = None,
@@ -1209,7 +1221,9 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     """(impl, batcher, servable): the servable serving at start, warmed
     through every bucket (unless `cfg.warmup` is off), and a started
     batcher. The servable is the numpy-seeded demo (`seed`), the checkpoint
-    in `checkpoint`, or — with `model_base_path` — the newest version a
+    in `checkpoint`, the SavedModel export in `savedmodel` (imported as
+    cfg.model_kind with `model_config`, its assets.extra warmup file
+    replayed), or — with `model_base_path` — the newest version a
     VersionWatcher loaded from that base path (None when no version is
     ready yet); the watcher is `impl.version_watcher` and keeps the
     registry serving the newest versions, each warmed through the batcher's
@@ -1261,16 +1275,19 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     `impl.recovery`; its watchdog is the caller's to start (serve() does).
     The source options are checked, and a model config file parsed, before
     any thread starts."""
-    if checkpoint and model_base_path:
+    if model_base_path and (checkpoint or savedmodel):
         raise ValueError(
-            "--model-base-path is mutually exclusive with --checkpoint "
+            "--model-base-path is mutually exclusive with --checkpoint/--savedmodel "
             "(the base path owns version lifecycle)")
+    if checkpoint and savedmodel:
+        raise ValueError("--checkpoint is mutually exclusive with --savedmodel")
     model_configs = None
     if cfg.model_config_file:
-        if checkpoint or model_base_path:
+        if model_base_path or checkpoint or savedmodel:
             raise ValueError(
-                "--model-config-file is mutually exclusive with --model-base-path/--checkpoint "
-                "(the config file owns the model list)")
+                "--model-config-file is mutually exclusive with "
+                "--model-base-path/--checkpoint/--savedmodel (the config "
+                "file owns the model list)")
         if cfg.version_labels:
             raise ValueError(
                 "--version-label / [server] version_labels have no meaning with "
@@ -1420,7 +1437,7 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     if model_configs is not None:
         # The watchers warm through the queue, so the batcher runs first.
         batcher.start()
-        lifecycle = ModelLifecycle(cfg, registry, batcher)
+        lifecycle = ModelLifecycle(cfg, registry, batcher, model_config)
         lifecycle.apply(model_configs)
         impl.model_lifecycle = lifecycle
         served = registry.models()
@@ -1437,8 +1454,10 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     if model_base_path:
         # The watcher warms through the queue, so the batcher runs first.
         batcher.start()
-        watcher = _make_watcher(model_base_path, cfg.model_name, cfg.version_labels, cfg,
-                                registry, batcher)
+        watcher = _make_watcher(
+            model_base_path, cfg.model_name, cfg.version_labels, cfg, registry, batcher,
+            model_config=model_config or ModelConfig(name=cfg.model_name,
+                                                     num_fields=cfg.num_fields))
         impl.served_sources[cfg.model_name] = (str(model_base_path), cfg.model_kind)
         impl.version_watcher = watcher.start()
         if lifecycle_armed:
@@ -1468,7 +1487,21 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
         impl.warmup_complete = True
         return impl, batcher, servable
 
-    if checkpoint:
+    replay_file = None
+    if savedmodel:
+        from ..interop.savedmodel import import_savedmodel
+        from .warmup import warmup_file_for
+
+        timings: dict = {}
+        servable = import_savedmodel(
+            savedmodel, cfg.model_kind,
+            model_config or ModelConfig(name=cfg.model_name, num_fields=cfg.num_fields),
+            name=cfg.model_name, device=batcher.device, timings=timings)
+        registry.load(servable)
+        replay_file = warmup_file_for(savedmodel)
+        log.info("imported SavedModel %s: %s v%d %s", savedmodel, servable.name,
+                 servable.version, json.dumps(timings, sort_keys=True))
+    elif checkpoint:
         from ..train.checkpoint import load_servable
 
         servable = load_servable(checkpoint, device=batcher.device)
@@ -1492,6 +1525,16 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
         log.info("label %r -> %s v%d", label, servable.name, version)
     prepare_kernels(servable)
     batcher.start()
+    if replay_file is not None and cfg.warmup:
+        # The export's own warmup records go through the service and the
+        # running batcher before the server answers anything.
+        from .warmup import replay_warmup_file
+
+        n = replay_warmup_file(replay_file, servable, batcher)
+        log.info("replayed %d warmup records from %s", n, replay_file)
+    # The warmup's launches: what a request path adds is the difference to
+    # the count at shutdown.
+    log.info("kernel launches at start: %s", _launch_counts())
     impl.warmup_complete = True
     return impl, batcher, servable
 
@@ -1570,7 +1613,8 @@ def serve(argv=None) -> None:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="demo weight seed")
     p.add_argument("--model-kind", help="model family of the demo servable (dcn, dcn_v2, "
-                   "wide_deep, deepfm, two_tower, dlrm, generic). Overrides [server] model_kind")
+                   "wide_deep, deepfm, two_tower, dlrm, generic), and the family a SavedModel "
+                   "is imported as (`graph`: its own GraphDef). Overrides [server] model_kind")
     p.add_argument("--model-name", help="the served model's name. Overrides [server] model_name")
     p.add_argument("--num-fields", type=int, help="fields per candidate of the demo servable. "
                    "Overrides [server] and [model] num_fields")
@@ -1579,6 +1623,10 @@ def serve(argv=None) -> None:
     source = p.add_mutually_exclusive_group()
     source.add_argument("--checkpoint", help="serve this checkpoint directory "
                         "(servable.json + params.safetensors)")
+    source.add_argument("--savedmodel", help="TF SavedModel dir to import and serve "
+                        "(interop/savedmodel.py; model family and config from "
+                        "--model-kind / [model]; --model-kind graph runs the export's "
+                        "own GraphDef)")
     source.add_argument("--model-base-path", help="serve the newest numeric version "
                         "directories under this path, hot-swapping new ones")
     p.add_argument("--model-config-file",
@@ -1768,6 +1816,7 @@ def serve(argv=None) -> None:
         impl, batcher, servable = build_stack(
             cfg, model_config, args.device, args.seed, kernels_config=kernels_config,
             checkpoint=args.checkpoint, model_base_path=args.model_base_path,
+            savedmodel=args.savedmodel,
             batching_config=batching_config, transport_config=transport_config,
             cache_config=cache_config, overload_config=overload_config,
             integrity_config=integrity_config, cascade_config=cascade_config,

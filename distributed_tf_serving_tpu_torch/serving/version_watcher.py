@@ -10,8 +10,9 @@ that contract for the port:
   (`servable.json` + `params.safetensors`). A JAX-package checkpoint
   (`servable.json` + an Orbax `params/` directory) is not ready until
   `tools/jax_checkpoint_to_torch.py` adds `params.safetensors` to it; a
-  TF SavedModel export (`saved_model.pb`) is refused with a named error,
-  inside the bounded load attempts, until a SavedModel importer exists;
+  TF SavedModel export (`saved_model.pb`) is imported by
+  interop/savedmodel.py as the configured `model_kind` (`graph`: the
+  export's own GraphDef), with the watcher's `model_config`;
 - a poller thread diffs the directory against loaded versions, loads new
   ones (warming the batcher's bucket ladder and replaying the version's
   warmup file BEFORE registering, so the version flip never serves a cold
@@ -43,10 +44,6 @@ from ..train.checkpoint import JAX_PARAMS_DIR, MANIFEST, PARAMS_FILE
 log = logging.getLogger("dts_torch.versions")
 
 CONVERTER = "tools/jax_checkpoint_to_torch.py"
-
-
-class UnsupportedVersionError(RuntimeError):
-    """A version directory this package cannot load (a SavedModel export)."""
 
 
 def scan_versions(base_path) -> dict[int, pathlib.Path]:
@@ -102,7 +99,7 @@ def _version_ready(path: pathlib.Path) -> bool:
     order; the converter replaces its file atomically), so both present
     means complete. SavedModel exports are ready once
     variables/variables.index exists — TF writes the index after the data
-    shards — and are then refused by the loader."""
+    shards."""
     try:
         if is_native_checkpoint(path):
             return (path / PARAMS_FILE).exists()
@@ -134,6 +131,7 @@ class VersionWatcherConfig:
     poll_interval_s: float = 5.0
     keep_versions: int = 2  # retention window, newest-first
     model_name: str = "DCN"
+    model_kind: str = "dcn_v2"  # for SavedModel version dirs
     # Transient failures (e.g. a slow writer racing the readiness probe)
     # get this many polls before the version is blacklisted until its
     # directory changes.
@@ -150,7 +148,9 @@ class VersionWatcher:
     """Poll a base path; keep the registry serving its newest versions.
 
     `loader(version, path) -> Servable` is injected so serving policy stays
-    with the caller; the default loader reads a checkpoint onto `device`.
+    with the caller; the default loader reads a checkpoint onto `device`,
+    or imports a SavedModel export there with `model_config` (default: a
+    ModelConfig named after the model).
     `load_timings[version]` holds the seconds each load stage took
     (`read_s` and `copy_s` from the default loader, `warmup_s`,
     `replay_s` and `replay_records`) and `loaded_at` (time.time() of the
@@ -170,6 +170,7 @@ class VersionWatcher:
         # corrupt/failing file fails the load like upstream.
         warmup_replay: Callable[[Servable, pathlib.Path], int] | None = None,
         device=None,
+        model_config=None,  # ModelConfig for SavedModel version dirs
         # on_servable_change(model_name) fires after every registry
         # mutation this watcher performs (version loaded or retired). Must
         # not raise; exceptions are logged and never fail the load/retire
@@ -183,6 +184,7 @@ class VersionWatcher:
         self.warmup = warmup
         self.warmup_replay = warmup_replay
         self.device = device
+        self.model_config = model_config
         self.on_servable_change = on_servable_change
         self.load_timings: dict[int, dict] = {}
         self._stop = threading.Event()
@@ -436,16 +438,13 @@ class VersionWatcher:
             log.exception("on_servable_change hook failed for %s", name)
 
     def _default_loader(self, version: int, path: pathlib.Path) -> Servable:
-        if not is_native_checkpoint(path):
-            raise UnsupportedVersionError(
-                f"{path}: a TF SavedModel export; this package loads only "
-                f"{MANIFEST} + {PARAMS_FILE} checkpoints (the SavedModel importer, "
-                "interop/, is not ported yet)"
-            )
-        from ..train.checkpoint import load_servable
+        timings = self.load_timings.setdefault(version, {})
+        if is_native_checkpoint(path):
+            from ..train.checkpoint import load_servable
 
-        servable = load_servable(path, device=self.device,
-                                 timings=self.load_timings.setdefault(version, {}))
+            servable = load_servable(path, device=self.device, timings=timings)
+        else:
+            servable = self._import_saved_model(version, path, timings)
         # The directory number is authoritative (TF-Serving semantics),
         # whatever version the artifact itself recorded.
         if servable.version != version or servable.name != self.config.model_name:
@@ -453,6 +452,44 @@ class VersionWatcher:
                 servable, version=version, name=self.config.model_name
             )
         return servable
+
+    def _import_saved_model(self, version: int, path: pathlib.Path,
+                            timings: dict) -> Servable:
+        from ..interop.savedmodel import SavedModelImportError, import_savedmodel
+        from ..models.base import ModelConfig
+
+        try:
+            return import_savedmodel(
+                path,
+                self.config.model_kind,
+                self.model_config or ModelConfig(name=self.config.model_name),
+                name=self.config.model_name,
+                version=version,
+                # No generic embed+MLP fallback here: the watcher swaps
+                # versions into live traffic with no operator in the loop,
+                # and serving an export under a different model family
+                # than configured is a wrong-math surprise it must not
+                # spring. Explicit import_savedmodel calls default it on.
+                fallback=False,
+                device=self.device,
+                timings=timings,
+            )
+        except SavedModelImportError as exc:
+            if self.model_config is None:
+                # The likeliest cause of a binding failure here is an
+                # architecture that differs from the DEFAULT ModelConfig
+                # this watcher fell back to — say so, instead of letting a
+                # bare shape-mismatch blame the export.
+                raise SavedModelImportError(
+                    f"{exc}\n(this VersionWatcher was constructed without "
+                    "a model_config, so the import assumed the default "
+                    f"{self.config.model_kind!r} architecture "
+                    f"{ModelConfig(name=self.config.model_name)!r}; if "
+                    "the export's num_fields/vocab_size/embed_dim/"
+                    "mlp_dims differ, pass model_config / the TOML "
+                    "[model] section)"
+                ) from exc
+            raise
 
     def _loop(self) -> None:
         while not self._stop.wait(self.config.poll_interval_s):

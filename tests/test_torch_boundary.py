@@ -193,7 +193,8 @@ def test_static_no_jax_imports_in_port_or_chip_smoke():
     assert len(files) > 15
     for mod in ("serving/rest.py", "utils/metrics.py", "utils/tracing.py",
                 "serving/overload.py", "serving/integrity.py", "serving/utilization.py",
-                "serving/quality.py", "serving/recovery.py"):
+                "serving/quality.py", "serving/recovery.py", "interop/savedmodel.py",
+                "interop/graph_exec.py"):
         assert PORT / mod in files, mod
     bad = {
         str(f.relative_to(REPO)): [m for m in _imports(f) if _is_jax_side(m)]
@@ -202,7 +203,9 @@ def test_static_no_jax_imports_in_port_or_chip_smoke():
     assert {k: v for k, v in bad.items() if v} == {}
 
 
-_NOT_ON_THE_CARD = ("safetensors", "orbax")  # the card's machine has neither
+# The card's machine has none of these; TensorFlow runs only in the
+# SavedModel importer's extraction subprocess.
+_NOT_ON_THE_CARD = ("safetensors", "orbax", "tensorflow")
 
 _LIFECYCLE_SCRIPT = r"""
 import json, sys, tempfile
@@ -252,6 +255,69 @@ gs.shutdown()
 print(json.dumps({"loaded": impl.registry.models(), "drained": gs.drained,
                   "modules": sorted(sys.modules)}))
 """
+
+
+_SAVEDMODEL_SCRIPT = r"""
+import json, pathlib, sys, tempfile
+import numpy as np
+from distributed_tf_serving_tpu_torch.interop.graph_exec import graph_model
+from distributed_tf_serving_tpu_torch.interop.savedmodel import _flatten_params, _jax_order
+from distributed_tf_serving_tpu_torch.models import ModelConfig, build_model, ctr_signatures
+from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+from distributed_tf_serving_tpu_torch.proto import tf_meta_graph_pb2 as mg_pb
+from distributed_tf_serving_tpu_torch.proto import tf_saved_model_pb2 as sm
+from distributed_tf_serving_tpu_torch.serving.server import build_stack
+from distributed_tf_serving_tpu_torch.utils.config import ServerConfig
+cfg = ModelConfig(num_fields=3, vocab_size=64, embed_dim=2, mlp_dims=(4,), num_cross_layers=1)
+d = pathlib.Path(tempfile.mkdtemp()) / "export"
+(d / "variables").mkdir(parents=True)
+proto = sm.SavedModel(saved_model_schema_version=1)
+mg = proto.meta_graphs.add()
+mg.meta_info_def.tags.append("serve")
+sd = mg.signature_def["serving_default"]
+sd.method_name = "tensorflow/serving/predict"
+for spec in ctr_signatures(3)["serving_default"].inputs:
+    sd.inputs[spec.name].CopyFrom(spec.to_tensor_info())
+sd.outputs["prediction_node"].name = "prediction_node:0"
+sd.outputs["prediction_node"].dtype = 1
+(d / "saved_model.pb").write_bytes(proto.SerializeToString())
+model = build_model("dcn_v2", cfg)
+flat = _flatten_params(_jax_order(model.init(0, "cpu")))
+np.savez(d / "variables_extracted.npz", **{p: t.numpy() for p, t in flat.items()})
+impl, batcher, servable = build_stack(
+    ServerConfig(num_fields=3, buckets=(8,), warmup=False), cfg, device="cpu",
+    savedmodel=str(d))
+req = apis.PredictRequest()
+req.model_spec.name = "DCN"
+from distributed_tf_serving_tpu_torch import codec
+req.inputs["feat_ids"].CopyFrom(codec.from_ndarray(np.arange(6, dtype=np.int64).reshape(2, 3)))
+req.inputs["feat_wts"].CopyFrom(codec.from_ndarray(np.ones((2, 3), np.float32)))
+n = int(codec.to_ndarray(impl.predict(req).outputs["prediction_node"]).shape[0])
+batcher.stop()
+meta = mg_pb.MetaGraphDef()
+meta.signature_def["serving_default"].inputs["x"].name = "x:0"
+meta.signature_def["serving_default"].outputs["y"].name = "x:0"
+meta.graph_def.node.add(name="x", op="Placeholder")
+graph_model(meta, {}, device="cpu")
+print(json.dumps({"n": n, "modules": sorted(sys.modules)}))
+"""
+
+
+def test_savedmodel_intake_imports_no_jax_or_tensorflow_subprocess():
+    """interop.savedmodel, interop.graph_exec and a --savedmodel stack
+    answering a Predict import neither JAX nor TensorFlow (nor the other
+    packages the card's machine lacks)."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run(
+        [sys.executable, "-c", _SAVEDMODEL_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert res.returncode == 0, res.stderr
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["n"] == 2
+    assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
+    assert "distributed_tf_serving_tpu_torch.interop.graph_exec" in line["modules"]
 
 
 def test_multi_model_reload_and_drain_import_no_jax_subprocess():

@@ -737,7 +737,7 @@ def test_cli_refuses_an_unported_plane_before_it_starts(tmp_path):
     assert "[fleet] enabled = true is not ported yet (ROADMAP.md Queue A item 8)" in res.stderr
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--savedmodel=d", "--router"])
+@pytest.mark.parametrize("flag", ["--mesh", "--router"])
 def test_flags_of_later_slices_stay_unrecognized(flag, capsys):
     from distributed_tf_serving_tpu_torch.serving.server import serve
 

@@ -362,9 +362,7 @@ def test_startup_refusals_match_jax(bases):
     torch_errs = _build_errors(
         lambda cfg, **kw: torch_server.build_stack(cfg, None, device="cpu", **kw),
         ServerConfig, bases)
-    # The port has no --savedmodel (ROADMAP.md Queue A item 7): the one word
-    # its messages leave out.
-    assert torch_errs == {k: v.replace("/--savedmodel", "") for k, v in jax_errs.items()}
+    assert torch_errs == jax_errs
     assert "mutually exclusive" in torch_errs["with checkpoint"]
     assert "version_labels" in torch_errs["with labels"]
 

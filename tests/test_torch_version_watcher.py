@@ -1,8 +1,8 @@
 """The port's model-version lifecycle (serving/version_watcher.py), the
 TF-Serving base-path convention: the JAX package's watcher cases
 (tests/test_version_watcher.py) run through poll_once, the JAX-only
-directory that becomes ready once converted, the SavedModel refusal, the
---model-base-path server (GetModelStatus START, health), and a hot swap over
+directory that becomes ready once converted, SavedModel versions imported
+and hot-swapped, the --model-base-path server (GetModelStatus START, health), and a hot swap over
 a live CPU socket with zero failed requests and the retired Servable
 collected."""
 
@@ -245,8 +245,10 @@ def test_blacklisted_version_recovers_when_writer_finishes(tmp_path):
 
 
 def test_saved_model_readiness_requires_variables_index_and_is_refused(tmp_path, caplog):
-    """A SavedModel export probes ready like the JAX package's, then fails
-    every bounded attempt with a named error (no importer in this package)."""
+    """A SavedModel export probes ready like the JAX package's (once
+    variables/variables.index exists); one whose saved_model.pb holds no
+    meta graph is refused by the importer in every bounded attempt, with
+    its named error."""
     d = tmp_path / "1"
     (d / "variables").mkdir(parents=True)
     (d / "saved_model.pb").write_bytes(b"")
@@ -261,8 +263,66 @@ def test_saved_model_readiness_requires_variables_index_and_is_refused(tmp_path,
             w.poll_once()
     assert registry.models() == {}
     assert w._attempts[1] == w.config.max_load_attempts
-    assert sum("UnsupportedVersionError" in r.exc_text and "SavedModel" in r.exc_text
+    assert sum("SavedModelImportError" in r.exc_text and "contains no meta graphs" in r.exc_text
                for r in caplog.records if r.exc_text) == w.config.max_load_attempts
+
+
+def _write_saved_model_version(base, version, seed, config=CFG):
+    """A dcn_v2 SavedModel export written with the vendored protos: serving
+    signature, the variables.index the readiness probe needs, and the
+    weights of a dcn_v2 `_servable(version, seed)` pre-extracted in the export (no
+    TensorFlow involved)."""
+    from distributed_tf_serving_tpu_torch.interop.savedmodel import _flatten_params
+    from distributed_tf_serving_tpu_torch.proto import tf_saved_model_pb2 as sm
+
+    d = pathlib.Path(base) / str(version)
+    (d / "variables").mkdir(parents=True)
+    proto = sm.SavedModel(saved_model_schema_version=1)
+    mg = proto.meta_graphs.add()
+    mg.meta_info_def.tags.append("serve")
+    sd = mg.signature_def["serving_default"]
+    sd.method_name = "tensorflow/serving/predict"
+    for spec in ctr_signatures(config.num_fields)["serving_default"].inputs:
+        sd.inputs[spec.name].CopyFrom(spec.to_tensor_info())
+    sd.outputs["prediction_node"].name = "prediction_node:0"
+    sd.outputs["prediction_node"].dtype = 1
+    (d / "saved_model.pb").write_bytes(proto.SerializeToString())
+    (d / "variables" / "variables.index").write_bytes(b"")
+    sv = _servable(version, seed, kind="dcn_v2", config=config)
+    flat = _flatten_params(sv.params)
+    time.sleep(0.02)  # the pre-extraction must postdate the export's files
+    np.savez(d / "variables_extracted.npz",
+             **{f"model/{p}/.ATTRIBUTES/VARIABLE_VALUE": t.numpy() for p, t in flat.items()})
+    return sv
+
+
+def test_saved_model_version_is_imported_and_hot_swapped(tmp_path):
+    """A SavedModel version probes ready and is imported (as the watcher's
+    model_kind, with its model_config); the next one hot-swaps in, and
+    each serves its donor's scores exactly."""
+    donors = {1: _write_saved_model_version(tmp_path, 1, seed=1)}
+    registry = ServableRegistry()
+    w = VersionWatcher(
+        tmp_path, registry,
+        VersionWatcherConfig(poll_interval_s=3600, model_name="DCN", model_kind="dcn_v2"),
+        device="cpu", model_config=CFG)
+    w.poll_once()
+    assert registry.models() == {"DCN": [1]}
+    donors[2] = _write_saved_model_version(tmp_path, 2, seed=2)
+    w.poll_once()
+    assert registry.models() == {"DCN": [1, 2]}
+    assert set(w.load_timings[2]) >= {"parse_s", "npz_s", "map_s", "ctx_s", "h2d_s",
+                                     "loaded_at"}
+    payload = _payload(5, seed=3)
+    batch = {"feat_ids": torch.from_numpy(fold_ids_host(payload["feat_ids"], CFG.vocab_size)),
+             "feat_wts": torch.from_numpy(payload["feat_wts"])}
+    for v, donor in donors.items():
+        sv = registry.resolve("DCN", v)
+        assert sv.version == v and sorted(sv.signatures) == ["serving_default"]
+        got = sv.model.apply(sv.params, batch)["prediction_node"]
+        want = donor.model.apply(donor.params, batch)["prediction_node"]
+        assert torch.equal(got, want), v
+    assert registry.resolve("DCN").version == 2
 
 
 def test_retire_blacklists_and_change_hook_fires(tmp_path):
