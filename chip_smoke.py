@@ -23,8 +23,8 @@ Phases (any failure exits non-zero and prints no result line):
              cluster size its rule picks (`cluster`), and again with every
              cluster size 1, 2, 4, 8 forced, each forced run held to the
              plain version and model.apply and timed (`loop_ms`,
-             `device_ms`); in f32 each forced run must give the bits of
-             C = 1. The cross stack runs at the (rows per block, cluster)
+             `device_ms`); in both dtypes each forced run must give the
+             bits of C = 1. The cross stack runs at the (rows per block, cluster)
              plan its rule picks (`rows_per_block`, `cluster`) and again at
              every forced plan in {16, 32} x {1, 2, 4, 8}, each forced run
              bit-identical to (16, 1) and held to the plain version, and
@@ -233,10 +233,12 @@ Phases (any failure exits non-zero and prints no result line):
              impl (20 Predicts per size 7 / 500 / 1000 / 2048, every aio
              answer bit-identical to the sync one; Classify / Regress;
              PredictStream n = 2048 in 256-row chunks), launches counted over
-             those requests (`launches_aio`), a closed loop of 1000 Predicts
+             those requests (each kernel the adopted decisions route to, and
+             no other), a closed loop of 500 Predicts
              of n = 1000 at 4 and 16 clients (sync / aio / aio / sync), the
-             wedge breaker at 2 s on a second stack (UNAVAILABLE in under a
-             second, the queued call too), each fault site's status code,
+             wedge breaker at 2 s on a second stack with no plane
+             (UNAVAILABLE in under a second, the queued call too; the float
+             kernel launched), each fault site's status code,
              inflight_window = 1 under 4 clients of n = 2048 and buffer_ring
              on dcn_v2 in f32.
 
@@ -404,8 +406,9 @@ Phases (any failure exits non-zero and prints no result line):
              bins = the clients' histogram of those scores on the sketch's
              edges, exactly. (6) The dts_tpu_utilization_* and
              dts_tpu_quality_* lines pass tools/check_prom.py; SIGTERM
-             exits 0. (7) The same loop on an in-process stack of the same
-             configuration with both planes, detached for off: off / on /
+             exits 0. (7) The same loop, at 125 Predicts per client, on an
+             in-process stack of the same configuration with both planes,
+             detached for off: off / on /
              on / off, then utilization / quality / quality / utilization
              (one plane attached), p50, p99 and QPS; the uncontended host
              cost of one observe of 1000 scores and of one ledger interval;
@@ -426,7 +429,7 @@ Phases (any failure exits non-zero and prints no result line):
              --model-base-path base --lifecycle (which arms [quality])
              --rest-port, a 0.25 s poll, [lifecycle] tick 0.1 s, probe-only
              1 s, ramp 0.5 at once, promote_after 2 s, min_canary_scores
-             4000, the fine-tune publisher every 8 s (200 steps of 256, rate
+             4000, the fine-tune publisher every 8 s (100 steps of 256, rate
              1e-4; its PSI / AUC gates set wide, the fine-tune trains on
              another teacher by design): 4 client processes send
              closed-loop Predicts of n = 1000 (every 10th on the probe
@@ -546,6 +549,48 @@ Phases (any failure exits non-zero and prints no result line):
              n = 1000 of the import server against the checkpoint server,
              the swap's publish -> first v2 response, and the graph
              executor's p50 and launches per call at n = 1000 and 2048.
+20. fleet — the sharded fan-out client and the fleet tier (client/,
+             fleet/): v1 (seed 0) written with save_servable at the full
+             width of configs/latency.toml into a shared base path; three
+             replica CLI servers (`--fleet`, [lifecycle], trace export,
+             REST, gossip every 0.25 s) started in parallel, then one
+             `--router` process (its [client] hosts the three, contiguous
+             placement, rollout_writer, [slo] on, [integrity]
+             router_audit_fraction 0.05). Traffic off: the same
+             n = 1000 payload through the router, through the direct
+             sharded client over the three replicas (the reference's own
+             fan-out) and unsplit to one replica, 30 times each: the
+             direct scores within 5e-3 of the plain forward, the router's
+             the bits of the direct ones (the same rows to the same
+             replica), p50 / p99 printed. Two spawned edge client
+             processes (the port's ShardedPredictClient, hosts = [router],
+             2 loops each of n = 1000 Predicts with a 100 ms pause between
+             them (the JAX package's fleet soak pauses 20 ms; this pace
+             leaves the router headroom, PERF.md §6), traced) drive the
+             router while one replica is SIGKILLed (0 edge errors, every
+             1 s goodput window until the canary publish at least 0.5 of
+             the steady median, kill -> first rerouted answer printed) and
+             restarted under its id (back `serving` in the router's
+             /fleetz with healthy_backends 3 within 45 s); until the
+             canary publish, the router's audits of the edge's requests
+             (one request to two replicas, bit for bit) number > 0 and
+             flag no mismatch; v2 (seed 1) is
+             published, live on every replica, rolled back through one
+             replica's POST /lifecyclez/rollback, blacklisted by the
+             router and rolled back on every replica within one gossip
+             interval plus 1 s, 0 Predicts failing; the score checks
+             again. The router's /tracez holds a stitched trace of >= 3
+             processes whose waterfall closes within 2 %,
+             /fleet/monitoring's qps is within 5 % of its members' sum,
+             /sloz's burn rates are finite, and dts_tpu_fleet_* series on
+             the router's /metrics and a replica's exposition pass
+             tools/check_prom.py. Each replica's served
+             fused_serve/bfloat16 launches (its log: the count at shutdown
+             less every version's warmup, from the line before it to the
+             version change after it) must be > 0, the restarted one's too,
+             and each logs device cuda. `chip_smoke.py --fleet-only` builds
+             the kernels and runs this phase alone (the edge pause from
+             the environment's FLEET_EDGE_PAUSE_S), printing its result.
 
 The lifecycle and models phases clear the device input cache before each
 memory read (its entries belong to the batcher, not to a version) and print
@@ -560,7 +605,8 @@ zeroed just before it and read just after; the lifecycle path's launches
 phase launches none; the models server's count from its start to its exit,
 `launches_models`; the REST path's, `launches_rest`, and the REST CLI
 server's from its start to its exit, `launches_rest_server`; the aio
-path's, `launches_aio`; the cache-on stack's over the cache phase's steps
+path's (the plane stack's requests and the breaker stack's),
+`launches_aio`; the cache-on stack's over the cache phase's steps
 1-4, `launches_cache`; the integrity phase's shadowed run,
 `launches_integrity`; the overload phase's armed load runs,
 `launches_overload`; the cascade phase's eligible Predicts,
@@ -569,7 +615,8 @@ path's, `launches_aio`; the cache-on stack's over the cache phase's steps
 `launches_freshness`; the recovery phase's two servers,
 `launches_recovery`; the savedmodel phase's import server over its
 Predicts, `launches_savedmodel`, and its base-path server from v1's load to
-its exit, `launches_savedmodel_base`), the
+its exit, `launches_savedmodel_base`; the fleet phase's three replicas'
+served launches, `launches_fleet`), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. Every line it
 logs is also kept in chiprun_out/chip_smoke.log.
 """
@@ -988,7 +1035,7 @@ def phase_kernels(dev, registers: dict) -> dict:
                     what = f"{kname} {cd} n={n} forced cluster={c}"
                     err, err_apply = check(out, what)
                     same = all(torch.equal(out[k], base[k]) for k in ("logits", "prediction_node"))
-                    if cd == "float32" and not same:
+                    if not same:
                         fail(f"{what}: not bit-identical to C = 1: max |dlogit| "
                              f"{(out['logits'] - base['logits']).abs().max().item()}")
                     tc = {"loop_ms": loop_ms(fn), "device_ms": device_ms(fn)}
@@ -3426,8 +3473,10 @@ def _rest_profiled_path(dev, kc, cfg, model_cfg, payloads) -> dict:
     the phase's config (its autotune writes the table the CLI servers
     adopt), the gateway over it, the launch counters zeroed just before
     REST_PROFILED Predicts per size and read just after. Every batch must
-    launch the fused serve kernel (the profiler's count of fused_serve
-    kernels at least the batches) and no GEMM runs (no plain forward)."""
+    launch the fused serve kernel (the wrappers' launch counters equal to
+    the batches) and no GEMM runs (no plain forward). The profiler's count
+    of fused_serve kernels is printed beside the counters: its tracer has
+    lost a launch inside the window on this path, so it is not the gate."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -3480,11 +3529,14 @@ def _rest_profiled_path(dev, kc, cfg, model_cfg, payloads) -> dict:
            "launches": launches, "autotune": table}
     counted = launches.get("fused_serve/bfloat16", 0) + launches.get("fused_serve_int8/bfloat16", 0)
     log(f"rest: in-process REST path under torch.profiler: {res['requests']} Predicts, "
-        f"{batches} batches, fused_serve kernels {fused} (counters {counted}), "
-        f"GEMM kernels {len(gemms)}")
-    if not names:
-        fail("rest: torch.profiler recorded no device event over the REST traffic")
-    if fused < batches or counted != batches:
+        f"{batches} batches, {counted} counted fused serve launches (the profiler's "
+        f"fused_serve kernels: {fused}), GEMM kernels {len(gemms)}")
+    if not names or not fused:
+        fail("rest: torch.profiler recorded no fused_serve kernel over the REST traffic")
+    if fused < batches:
+        log(f"rest: the profiler lost {batches - fused} of {batches} fused_serve kernels "
+            f"(the counters saw every launch)")
+    if counted != batches:
         # Where the profile's events fell (µs from its first event), so a
         # loss shows whether it was at an edge of the window.
         t0 = min(e.time_range.start for e in events)
@@ -3751,7 +3803,7 @@ AIO_SIZES = (7, 500, 1000, 2048)  # latency.toml's counts, and 500 so every buck
 AIO_REPEATS = 20  # Predicts per size on each server
 AIO_EXAMPLES = 5  # Classify and Regress requests of n = 7 Examples
 AIO_STREAM = (2048, 256)  # PredictStream candidates, chunk
-AIO_LOOP = (1000, 1000, (4, 16))  # closed loop: Predicts, candidates each, client counts
+AIO_LOOP = (500, 1000, (4, 16))  # closed loop: Predicts, candidates each, client counts
 AIO_BREAKER_S = 2.0  # breaker_timeout_s of the breaker's batcher
 AIO_FAULTS = (("decode", "INVALID_ARGUMENT"), ("readback", "DATA_LOSS"),
               ("executor_abort", "INTERNAL"))
@@ -4079,9 +4131,17 @@ def _aio_serving(name, batcher, aio_port, sync_port, payloads, want) -> dict:
         f"and health answered")
     if fused != batches:
         fail(f"aio: {batches} aio batches but {fused} fused serve launches: {launches}")
-    if launches.get("fused_serve/bfloat16", 0) <= 0:
-        fail(f"aio: the aio path launched fused_serve/bfloat16 no time ({launches}); the "
-             f"adopted decisions were {batcher.kernels.snapshot()['decisions']}")
+    # The requests fill every bucket, so each kernel the adopted decisions
+    # route to launches and no other does. Which one wins a bucket is the
+    # autotune's measurement (pallas_f32 and pallas_int8 are within noise of
+    # each other): the breaker's stack, with no plane, holds the float kernel.
+    decisions = batcher.kernels.snapshot()["decisions"]["DCN:1"]
+    routed = {"fused_serve_int8/bfloat16" if d["quantized"] else "fused_serve/bfloat16"
+              for d in decisions.values() if d["pallas"]}
+    for key in ("fused_serve/bfloat16", "fused_serve_int8/bfloat16"):
+        if (launches.get(key, 0) > 0) != (key in routed):
+            fail(f"aio: the aio path launched {key} {launches.get(key, 0)} times ({launches}); "
+                 f"the adopted decisions {decisions} route to {sorted(routed)}")
     res.update(latency=lat, max_abs_err=worst, launches=launches, batches=batches)
     return res
 
@@ -4093,8 +4153,10 @@ def _aio_breaker(name, batcher, port, payloads, want) -> dict:
     it; after clear() the wedged Predict and the next are answered. Then
     each error site ends its RPC with its code and the next RPC succeeds."""
     import numpy as np
+    import torch
 
     from distributed_tf_serving_tpu_torch import faults
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
     from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
 
     ch = _channel(port)
@@ -4107,6 +4169,7 @@ def _aio_breaker(name, batcher, port, payloads, want) -> dict:
         if scores.shape != (n,) or not np.all(np.isfinite(scores)) or err > APPLY_TOL:
             fail(f"aio: breaker: {what}: max |dscore| {err} (shape {scores.shape})")
 
+    launches0 = dict(ck.launches)  # the breaker stack's counts, read after its last RPC
     try:
         stub.Predict(req, timeout=60)
         # delay_s caps the wedge, should the run fail before clear().
@@ -4156,6 +4219,14 @@ def _aio_breaker(name, batcher, port, payloads, want) -> dict:
             check(_scores_of(stub.Predict(req7, timeout=30)), 7, f"the Predict after {site}")
         res["fault_codes"] = codes
         log(f"aio: injected faults ended their RPCs with {codes}; each next RPC answered")
+        torch.cuda.synchronize()
+        launches = {f"{k}/{cd}": v - launches0.get((k, cd), 0) for (k, cd), v in ck.launches.items()}
+        others = {k: v for k, v in launches.items() if v and k != "fused_serve/bfloat16"}
+        log(f"aio: launches on the breaker's aio server (no kernel plane) {launches}")
+        if launches.get("fused_serve/bfloat16", 0) <= 0 or others:
+            fail(f"aio: the breaker's aio server (the fused float kernel in every bucket) "
+                 f"launched {launches}")
+        res["launches"] = launches
     finally:
         faults.get().clear()
         ch.close()
@@ -4303,7 +4374,7 @@ CACHE_N = 1000  # candidates per Predict ([client] candidate_num of latency.toml
 CACHE_CATALOG = 4096  # distinct candidate rows of the zipfian catalog
 CACHE_SKEW = 1.2  # P(row i) ∝ 1 / (i + 1) ** skew
 CACHE_REPEATS = 5  # repeats of step 1's payload
-CACHE_FLIGHT = (8, 0.2)  # single-flight: threads, the leader's dispatch delay (s)
+CACHE_FLIGHT = (8, 60.0)  # single-flight: threads, the cap (s) on the leader's held dispatch
 CACHE_HOT = 900  # B's rows taken from A; the rest of B's CACHE_N are fresh
 CACHE_DEDUP = (2048, 200)  # dedup: rows of the request, distinct rows among them
 # Input cache: repeats x n, distinct payloads of that n timed as misses,
@@ -4524,11 +4595,13 @@ def phase_cache(dev, name: str) -> dict:
             f"bit-identical; miss {miss_ms:.3f} ms, hit p50 {res['request_hits']['hit_p50_ms']:.3f} "
             f"ms over gRPC ({name})")
 
-        # 2. Single-flight: the leader's dispatch delayed, 8 callers.
-        threads_n, delay = CACHE_FLIGHT
+        # 2. Single-flight: the leader's dispatch held (a wedge) until all
+        # 8 callers have joined its flight, then released: the flight's
+        # window does not depend on how fast 8 encodes run under one GIL.
+        threads_n, cap = CACHE_FLIGHT
         p2 = fresh(CACHE_N)
         c0, co0 = counts(on), impl_on.cache_stats()["coalesced"]
-        faults.get().add("batcher.dispatch", "delay", delay_s=delay, count=1)
+        faults.get().add("batcher.dispatch", "wedge", delay_s=cap, count=1)
         answers = [None] * threads_n
         barrier = threading.Barrier(threads_n)
 
@@ -4539,9 +4612,14 @@ def phase_cache(dev, name: str) -> dict:
         ths = [threading.Thread(target=caller, args=(k,)) for k in range(threads_n)]
         for t in ths:
             t.start()
+        t_hold = time.perf_counter()
+        while (impl_on.cache_stats()["coalesced"] - co0 < threads_n - 1
+               and time.perf_counter() - t_hold < cap):
+            time.sleep(0.005)
+        held_s = time.perf_counter() - t_hold
+        faults.get().clear()  # releases the held dispatch
         for t in ths:
             t.join(120)
-        faults.get().clear()
         coalesced = impl_on.cache_stats()["coalesced"] - co0
         ran = counts(on)["batches"] - c0["batches"]
         if any(a is None for a in answers) or any(not np.array_equal(a, answers[0])
@@ -4550,9 +4628,11 @@ def phase_cache(dev, name: str) -> dict:
         if ran != 1 or coalesced < threads_n - 1:
             fail(f"cache: single-flight ran {ran} batches with {coalesced} coalesced "
                  f"for {threads_n} callers")
-        res["single_flight"] = {"callers": threads_n, "batches": ran, "coalesced": coalesced}
-        log(f"cache: single-flight: {threads_n} identical Predicts during a {delay} s dispatch "
-            f"delay ran {ran} batch, {coalesced} coalesced, answers bit-identical")
+        res["single_flight"] = {"callers": threads_n, "batches": ran, "coalesced": coalesced,
+                                "held_s": held_s}
+        log(f"cache: single-flight: {threads_n} identical Predicts, the leader's dispatch held "
+            f"{held_s:.3f} s until all joined, ran {ran} batch, {coalesced} coalesced, answers "
+            f"bit-identical")
 
         # 3. The row tier: A (1000 catalog rows), then B (A's first 900 and
         # 100 fresh rows), then B reversed (a full row hit).
@@ -5922,6 +6002,7 @@ UTIL_CAPTURE_S = 1.0  # POST /profilez/start?seconds=
 UTIL_SUM_TOL = 0.02  # the waterfall's components against its wall
 # The cost loop's runs: both planes off / on / on / off, then each alone.
 UTIL_COST_RUNS = ("off", "on", "on", "off", "utilization", "quality", "quality", "utilization")
+UTIL_COST_PER_CLIENT = 125  # Predicts per client process in each cost run
 UTIL_QUALITY_TOML = ("\n[quality]\nwindow_seconds = 2.0\nslices = 4\n"
                      "drift_check_interval_s = 0.25\n")
 UTIL_DRIFT = (10, 50)  # drift Predicts (n = UTIL_LOOP[2]), the top rows they repeat
@@ -6369,7 +6450,7 @@ def phase_utilization(dev, name: str, step_table: str) -> dict:
                 if i == 1:  # the launch window: the two on runs
                     ck.reset_launches()
                     s0 = batcher.stats.batches
-                r = clients.run(sport, reqs, per_client)
+                r = clients.run(sport, reqs, UTIL_COST_PER_CLIENT)
                 runs.append({"planes": label, **{k: v for k, v in r.items() if k != "bins"}})
                 if i == 2:
                     launches = {f"{k}/{cd}": v for (k, cd), v in ck.launches.items()}
@@ -6453,7 +6534,7 @@ FRESH_LIFECYCLE = ("\n[quality]\nreference_file = \"\"\n"
                    "\n[lifecycle]\ntick_interval_s = 0.1\ncanary_probe_only_s = 1.0\n"
                    "canary_initial_fraction = 0.5\ncanary_step_dwell_s = 1.0\n"
                    "canary_max_fraction = 0.5\npromote_after_s = 2.0\n"
-                   "min_canary_scores = 4000\nrollback_hold_s = 2.0\n")
+                   "min_canary_scores = 4000\nrollback_hold_s = 2.0\nfine_tune_steps = 100\n")
 # The publishing run's rollback gates. Its fine-tune trains on the stream
 # of another teacher (the publisher's per-round seed, as in the JAX
 # package), so v2's scores move by design; the gates are set wide there so
@@ -6766,8 +6847,7 @@ def phase_freshness(dev, name: str) -> dict:
         reqs = [[_request(p["feat_ids"], p["feat_wts"]).SerializeToString() for p in mine]
                 for mine in payloads]
         # The pinned payload fills the top bucket alone, so it never shares
-        # a batch: a batch of another size serves it with another cluster
-        # size, whose head sums in another order (other last bits).
+        # a batch.
         fixed = pstream.batch(FRESH_FIXED, 10_000)
 
         def pinned(version: int):
@@ -8223,7 +8303,664 @@ def _graph_calls_child(graph_dir: str, out_path: str) -> None:
         json.dump(out, f)
 
 
-def main() -> None:
+FLEET_REPLICAS = 3
+FLEET_GOSSIP_S = 0.25  # [fleet] gossip_interval_s of every member
+FLEET_TTL_S = 1.5  # [fleet] record_ttl_s: a SIGKILLed member fades after this
+FLEET_POLL_S = 0.25  # [server] file_system_poll_wait_seconds of the replicas
+FLEET_N = 1000  # candidates per Predict ([client] candidate_num of latency.toml)
+FLEET_EDGE = (2, 2)  # edge client processes, concurrent Predicts each ([client] concurrent_num 4)
+# Each edge worker's pause between Predicts (the JAX package's fleet soak
+# pauses 20 ms). At 100 ms the four loops offer a small share of what the
+# router carries unpaced (PERF.md §6 gives both rates on the H100): the
+# failover gate then measures a fleet with headroom, not the router (a
+# Python process, the tier that saturates first; its CPU is read below)
+# nor the restarted replica's start-up on the same host cores. The
+# environment's FLEET_EDGE_PAUSE_S overrides it, for runs at other paces.
+FLEET_EDGE_PAUSE_S = float(os.environ.get("FLEET_EDGE_PAUSE_S", "0.1"))
+FLEET_AUDIT_FRACTION = 0.05  # the router's [integrity] router_audit_fraction
+FLEET_PROBES = 30  # sequential Predicts per path for the p50 / p99 lines
+FLEET_STEADY_S = 5.0  # edge traffic before the kill
+FLEET_DOWN_S = 2.0  # the victim stays dead this long before its restart
+FLEET_AFTER_S = 2.0  # edge traffic kept up after the fleet-wide rollback
+FLEET_WAIT_S = 120.0  # bound on each wait of the phase
+FLEET_TOL = APPLY_TOL  # direct sharded scores against the plain forward
+# tools/check_fleet_smoke.py's bounds.
+MIN_GOODPUT_RATIO = 0.5
+REJOIN_BOUND_S = 45.0
+PROPAGATION_SLACK_S = 1.0
+# tools/check_fleetobs_smoke.py's tolerances.
+WATERFALL_CLOSE_TOL = 0.02
+QPS_AGG_TOL = 0.05
+FLEET_REPLICA_TOML = ("\n[quality]\nreference_file = \"\"\n"
+                      "\n[lifecycle]\nenabled = true\ntick_interval_s = 0.2\n"
+                      "canary_probe_only_s = 0.5\ncanary_initial_fraction = 0.25\n"
+                      "canary_ramp_step = 0.05\ncanary_step_dwell_s = 30.0\n"
+                      "canary_max_fraction = 0.3\npromote_after_s = 3600.0\n"
+                      "min_canary_scores = 1000000000\nrollback_psi = 1000.0\n"
+                      "rollback_hold_s = 60.0\n"
+                      "\n[observability]\ntracing = true\ntrace_sample_rate = 1.0\n"
+                      "trace_export = true\n")
+FLEET_ROUTER_TOML = ("\n[observability]\ntracing = true\ntrace_sample_rate = 1.0\n"
+                     "trace_export = true\ntrace_export_interval_s = 0.5\n"
+                     "\n[slo]\nenabled = true\nlatency_target_ms = 100.0\nshort_window_s = 2.0\n"
+                     "long_window_s = 8.0\n"
+                     "\n[integrity]\nenabled = true\n"
+                     f"router_audit_fraction = {FLEET_AUDIT_FRACTION}\n")
+
+
+def _fleet_edge(k, router, n, fields, workers, pause_s, ingest_port, ready, start, stop,
+                results) -> None:
+    """One edge client process of the fleet phase (spawned): the port's
+    ShardedPredictClient with hosts = [the router], traced (sample rate
+    1), `workers` concurrent loops of pre-built n-candidate Predicts, each
+    followed by a `pause_s` pause, from `start` until `stop`. Puts its records (send and answer times on
+    time.time(), the error or "") on `results`, then pushes its kept span
+    trees to the router's /tracez/ingest, the first hop of every stitched
+    trace; ("error", text) on a failure."""
+    import asyncio
+    import http.client
+    import traceback
+
+    try:
+        from distributed_tf_serving_tpu_torch.client import ShardedPredictClient, make_payload
+        from distributed_tf_serving_tpu_torch.utils import tracing
+
+        tracing.enable(buffer_size=512, sample_rate=1.0)
+
+        async def run():
+            async with ShardedPredictClient([router], "DCN", timeout_s=30.0, failover_attempts=1,
+                                            backoff_initial_s=0.02) as client:
+                preps = [client.prepare(make_payload(n, fields, seed=7000 + 10 * k + s))
+                         for s in range(3)]
+                await client.predict_prepared(preps[0])  # the channel connects here
+                ready.put(k)
+                while not start.is_set():
+                    await asyncio.sleep(0.005)
+                recs = []
+
+                async def worker(w):
+                    i = 0
+                    while not stop.is_set():
+                        t0 = time.time()
+                        try:
+                            await client.predict_prepared(preps[(w + i) % len(preps)])
+                            recs.append((t0, time.time(), ""))
+                        except Exception as e:  # noqa: BLE001 — every failure is counted
+                            recs.append((t0, time.time(), repr(e)[:200]))
+                        i += 1
+                        await asyncio.sleep(pause_s)
+
+                await asyncio.gather(*(worker(w) for w in range(workers)))
+                return recs
+
+        recs = asyncio.run(run())
+        results.put(recs)
+        cursor, pushed = 0, 0
+        while True:
+            export = tracing.recorder().export_since(cursor)
+            if not export.get("spans"):
+                break
+            conn = http.client.HTTPConnection("127.0.0.1", ingest_port, timeout=30)
+            conn.request("POST", "/tracez/ingest",
+                         body=json.dumps({"source": f"edge{k}", **export}).encode(),
+                         headers={"Content-Type": "application/json"})
+            body = json.loads(conn.getresponse().read())
+            conn.close()
+            pushed += int(body.get("accepted") or 0)
+            cursor = int(export.get("cursor") or cursor)
+        results.put(("pushed", pushed))
+    except BaseException:  # noqa: BLE001 — the parent fails the phase with it
+        results.put(("error", traceback.format_exc()))
+
+
+def _cpu_seconds(pid: int) -> float:
+    """User + system CPU seconds a process has used (/proc/PID/stat)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _get_json(port: int, path: str, body: dict | None = None, timeout: float = 10.0):
+    """(status, JSON) of one request to 127.0.0.1:port (a gossip or REST
+    port)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        if body is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, body=json.dumps(body).encode(),
+                         headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        data = r.read()
+        return r.status, (json.loads(data) if data[:1] in (b"{", b"[") else data.decode())
+    finally:
+        conn.close()
+
+
+def _poll(fn, what: str, timeout: float = FLEET_WAIT_S, every: float = 0.05):
+    """fn()'s first truthy value and the seconds it took; the run fails
+    after `timeout`. An exception in fn counts as not yet."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            v = fn()
+        except Exception:  # noqa: BLE001 — surfaces settle asynchronously
+            v = None
+        if v:
+            return v, time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            fail(f"fleet: no {what} within {timeout} s")
+        time.sleep(every)
+
+
+def _windows(ok_times: list, t0: float, t1: float) -> list:
+    """Answers per 1 s window of [t0, t1)."""
+    import bisect
+
+    out, w = [], t0
+    while w + 1.0 <= t1:
+        out.append(bisect.bisect_left(ok_times, w + 1.0) - bisect.bisect_left(ok_times, w))
+        w += 1.0
+    return out
+
+
+def _served_launches(path: str) -> dict:
+    """A base-path CLI server's kernel launches outside its versions'
+    warmups, from its log: each count from a version change (the version
+    warmed and serving) to the next version's "before warming" line or to
+    the count at shutdown, summed. A warmup window's launches, a version's
+    own and whatever was served beside them, are left out."""
+    import re
+
+    served, since = {}, None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"kernel launches (before warming \S+ v\d+|after a \S+ version "
+                          r"change|at shutdown): (\{.*\})$", line)
+            if not m:
+                continue
+            now = json.loads(m.group(2))
+            if since is not None and not m.group(1).startswith("after"):
+                for k in set(now) | set(since):
+                    served[k] = served.get(k, 0) + now.get(k, 0) - since.get(k, 0)
+                since = None
+            elif since is None and m.group(1).startswith("after"):
+                since = now
+    return served
+
+
+def _prom_lint(text: str, what: str) -> None:
+    lint = subprocess.run([sys.executable, os.path.join(HERE, "tools", "check_prom.py"), "-"],
+                          input=text.encode(), capture_output=True, timeout=60)
+    if lint.returncode != 0:
+        fail(f"fleet: {what} fails tools/check_prom.py: {lint.stdout[-400:]!r} "
+             f"{lint.stderr[-400:]!r}")
+
+
+def phase_fleet(dev, name: str) -> dict:
+    """The fleet tier on the card: v1 (seed 0) written with save_servable at
+    the full width of configs/latency.toml into a shared base path; three
+    replica CLI processes (--fleet, [lifecycle], trace export, REST) and one
+    `--router` process (the router's [client] hosts the three replicas,
+    rollout_writer, [slo] on, its audit armed); edge clients in spawned
+    processes (the port's ShardedPredictClient, hosts = [router], n =
+    1000) and a direct sharded
+    client over the three replicas (the reference's own fan-out). Checks:
+    the direct scores within 5e-3 of the plain forward and the router's
+    the bits of the direct ones (the same rows to the same replica); a
+    replica SIGKILLed mid-traffic with 0 edge errors and every 1 s goodput
+    window until the canary publish at least MIN_GOODPUT_RATIO of the
+    steady median; its restart rejoining through gossip within
+    REJOIN_BOUND_S; until the canary publish, the router's audits of the
+    edge's requests more than 0 and none a mismatch; v2 (seed 1)
+    published, live on every replica, rolled back through one replica's
+    POST /lifecyclez/rollback, blacklisted by the router and rolled back everywhere within one gossip interval plus
+    PROPAGATION_SLACK_S, with 0 failed Predicts, and the scores checked
+    again after; a stitched trace of at least 3 processes on the router's
+    /tracez whose waterfall closes within 2 %, /fleet/monitoring's qps
+    within 5 % of its members' sum, finite /sloz burn rates, and
+    dts_tpu_fleet_* series on the router's /metrics and a replica's
+    exposition passing tools/check_prom.py; every replica's served
+    fused_serve/bfloat16 launches (_served_launches) above 0 and its
+    device cuda."""
+    import asyncio
+    import multiprocessing
+    import re
+    import shutil
+    import signal
+    import tempfile
+
+    import grpc
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch.client import ShardedPredictClient, make_payload
+    from distributed_tf_serving_tpu_torch.models import Servable, build_model, ctr_signatures
+    from distributed_tf_serving_tpu_torch.proto import health as health_proto
+    from distributed_tf_serving_tpu_torch.serving.batcher import fold_ids_host
+    from distributed_tf_serving_tpu_torch.train.checkpoint import save_servable
+    from distributed_tf_serving_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(HERE, "configs", "latency.toml")) as f:
+        base_text = f.read()
+    base_text, k = re.subn(r"(?m)^\[server\]\n",
+                           f"[server]\nfile_system_poll_wait_seconds = {FLEET_POLL_S}\n",
+                           base_text)
+    if k != 1:
+        fail("configs/latency.toml has no [server] section")
+    tmp = tempfile.mkdtemp(prefix="dts_fleet_")
+    probe_cfg = os.path.join(tmp, "probe.toml")
+    with open(probe_cfg, "w") as f:
+        f.write(base_text)
+    mc = load_config(probe_cfg)["model"]
+    F = mc.num_fields
+    model = build_model("dcn_v2", mc)
+    plain = build_model("dcn_v2", dataclasses.replace(model.config, use_pallas_cross=False))
+    probe = make_payload(FLEET_N, F, seed=SEED + 3000)
+    params = {v: model.init(v - 1, "cpu") for v in (1, 2)}
+    on_card = {
+        "embedding": params[1]["embedding"].to(dev),
+        "cross": [{k: t.to(dev) for k, t in p.items()} for p in params[1]["cross"]],
+        "mlp": [{k: t.to(dev) for k, t in p.items()} for p in params[1]["mlp"]],
+        "out": {k: t.to(dev) for k, t in params[1]["out"].items()},
+    }
+    with torch.inference_mode():
+        want = plain.apply(on_card, {
+            "feat_ids": torch.from_numpy(fold_ids_host(probe["feat_ids"], mc.vocab_size)).to(dev),
+            "feat_wts": torch.from_numpy(probe["feat_wts"]).to(dev),
+        })["prediction_node"].float().cpu().numpy()
+    del on_card
+    torch.cuda.empty_cache()
+
+    base = os.path.join(tmp, "models")
+    os.makedirs(base)
+    save_servable(os.path.join(base, "1"), Servable(
+        name="DCN", version=1, model=model, params=params[1], signatures=ctr_signatures(F)),
+        "dcn_v2")
+
+    ports = [_free_port() for _ in range(FLEET_REPLICAS)]
+    rest_ports = [_free_port() for _ in range(FLEET_REPLICAS)]
+    gossip_ports = [_free_port() for _ in range(FLEET_REPLICAS)]
+    router_port, router_gossip = _free_port(), _free_port()
+    hosts = [f"127.0.0.1:{p}" for p in ports]
+    router = f"127.0.0.1:{router_port}"
+    # A star: every replica gossips with the router; push-pull through the
+    # common peer converges the whole membership.
+    for i in range(FLEET_REPLICAS):
+        with open(os.path.join(tmp, f"replica{i}.toml"), "w") as f:
+            f.write(base_text + FLEET_REPLICA_TOML
+                    + f"\n[fleet]\nenabled = true\nself_id = \"{hosts[i]}\"\n"
+                    f"gossip_port = {gossip_ports[i]}\npeers = [\"127.0.0.1:{router_gossip}\"]\n"
+                    f"gossip_interval_s = {FLEET_GOSSIP_S}\nrecord_ttl_s = {FLEET_TTL_S}\n")
+    router_cfg = os.path.join(tmp, "router.toml")
+    with open(router_cfg, "w") as f:
+        f.write(f"[server]\nhost = \"127.0.0.1\"\nport = {router_port}\n"
+                f"\n[client]\nhosts = {json.dumps(hosts)}\nmodel_name = \"DCN\"\n"
+                f"num_fields = {F}\ncandidate_num = {FLEET_N}\n"
+                f"concurrent_num = {FLEET_EDGE[0] * FLEET_EDGE[1]}\ntimeout_s = 10.0\n"
+                "health_scoreboard = true\nejection_failures = 1\nejection_interval_s = 1.0\n"
+                "failover_attempts = 2\nbackoff_initial_ms = 10\nplacement = \"contiguous\"\n"
+                f"\n[fleet]\nenabled = true\nself_id = \"router\"\ngossip_port = {router_gossip}\n"
+                f"peers = {json.dumps([f'127.0.0.1:{p}' for p in gossip_ports])}\n"
+                f"gossip_interval_s = {FLEET_GOSSIP_S}\nrecord_ttl_s = {FLEET_TTL_S}\n"
+                f"rollout_writer = true\nrollout_state_file = \"{tmp}/rollout.json\"\n"
+                + FLEET_ROUTER_TOML)
+
+    logs = {}
+
+    def spawn_replica(i: int, tag: str):
+        path = os.path.join(out_dir, f"fleet_replica{i}{tag}.log")
+        logf = open(path, "w")
+        logs.setdefault(i, []).append(path)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.serving.server", "--host", "127.0.0.1",
+             "--port", str(ports[i]), "--config", os.path.join(tmp, f"replica{i}.toml"),
+             "--model-base-path", base, "--rest-port", str(rest_ports[i]), "--fleet"],
+            cwd=HERE, stdout=logf, stderr=subprocess.STDOUT)
+        return proc, logf
+
+    def serving(addr: str, proc) -> bool:
+        if proc.poll() is not None:
+            fail(f"fleet: {addr} exited with {proc.returncode} (logs {logs})")
+        with grpc.insecure_channel(addr) as ch:
+            st = health_proto.HealthStub(ch).Check(health_proto.HealthCheckRequest(""),
+                                                   timeout=1.0).status
+        return st == health_proto.SERVING
+
+    def fleetz() -> dict:
+        status, body = _get_json(router_gossip, "/fleetz")
+        if status != 200:
+            raise RuntimeError(f"/fleetz answered {status}")
+        return body
+
+    async def timed(client, payload, k: int) -> tuple[list, "np.ndarray"]:
+        lat, got = [], None
+        for _ in range(k):
+            t0 = time.perf_counter()
+            got = await client.predict(payload)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return lat, got
+
+    async def probes(k: int) -> dict:
+        """The same payload, traffic off: through the router, through the
+        direct sharded client over the three replicas (contiguous: shard i
+        to replica i, as the router splits it), and unsplit to one
+        replica; scores and k sequential latencies of each."""
+        out = {}
+        async with ShardedPredictClient([router], "DCN", timeout_s=30.0) as edge, \
+                ShardedPredictClient(hosts, "DCN", timeout_s=30.0) as direct, \
+                ShardedPredictClient(hosts[:1], "DCN", timeout_s=30.0) as one:
+            for label, client in (("router", edge), ("direct_3way", direct),
+                                  ("one_replica", one)):
+                lat, got = await timed(client, probe, k)
+                out[label] = {"scores": got, **_percentiles(lat)}
+        return out
+
+    def check_scores(p: dict, when: str) -> dict:
+        d, r = p["direct_3way"]["scores"], p["router"]["scores"]
+        if d.shape != (FLEET_N,) or not np.all(np.isfinite(d)):
+            fail(f"fleet {when}: direct sharded scores are not {FLEET_N} finite values")
+        err = float(np.max(np.abs(d - want)))
+        if err > FLEET_TOL:
+            fail(f"fleet {when}: direct sharded scores {err:.3g} from the plain forward "
+                 f"(tolerance {FLEET_TOL})")
+        if r.dtype != d.dtype or r.tobytes() != d.tobytes():
+            fail(f"fleet {when}: the router's scores are not the bits of the direct call of the "
+                 f"same rows to the same replicas (max diff {float(np.max(np.abs(r - d))):.3g})")
+        one_err = float(np.max(np.abs(p["one_replica"]["scores"] - want)))
+        if one_err > FLEET_TOL:
+            fail(f"fleet {when}: one replica's unsplit scores {one_err:.3g} from the plain "
+                 f"forward")
+        return {"max_abs_err": err, "one_replica_max_abs_err": one_err, "router_bits": True}
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    ready, start, stop = ctx.Queue(), ctx.Event(), ctx.Event()
+    edges = []
+    procs: dict = {}
+    router_proc = router_log = None
+    res = {"card": name, "replicas": FLEET_REPLICAS, "gossip_interval_s": FLEET_GOSSIP_S}
+    try:
+        # 1. The fleet: the replicas in parallel, then the router.
+        t0 = time.perf_counter()
+        for i in range(FLEET_REPLICAS):
+            procs[i] = spawn_replica(i, "")
+        for i in range(FLEET_REPLICAS):
+            _poll(lambda i=i: serving(hosts[i], procs[i][0]), f"replica {i} SERVING")
+        res["replicas_ready_s"] = time.perf_counter() - t0
+        router_log_path = os.path.join(out_dir, "fleet_router.log")
+        router_log = open(router_log_path, "w")
+        router_proc = subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.serving.server", "--router", "--config", router_cfg],
+            cwd=HERE, stdout=router_log, stderr=subprocess.STDOUT)
+        _, converge_s = _poll(lambda: serving(router, router_proc)
+                              and fleetz()["gossip"]["member_count"] >= FLEET_REPLICAS + 1,
+                              "router SERVING with the whole membership")
+        res["router_ready_s"] = converge_s
+        log(f"fleet: {FLEET_REPLICAS} replicas SERVING in {res['replicas_ready_s']:.1f} s, the "
+            f"router and its gossip view of {FLEET_REPLICAS + 1} members {converge_s:.1f} s later")
+
+        # 2. Scores before the chaos, traffic off.
+        pre = asyncio.run(probes(FLEET_PROBES))
+        res["scores_pre"] = check_scores(pre, "before the chaos")
+        res["latency_ms"] = {k: {q: v[q] for q in ("p50_ms", "p99_ms")} for k, v in pre.items()}
+        lat = res["latency_ms"]
+        log(f"fleet: n={FLEET_N} over gRPC ({name}): through the router p50 "
+            f"{lat['router']['p50_ms']:.3f} / p99 {lat['router']['p99_ms']:.3f} ms; direct to one "
+            f"replica p50 {lat['one_replica']['p50_ms']:.3f} / p99 "
+            f"{lat['one_replica']['p99_ms']:.3f} ms; the 3-way direct fan-out p50 "
+            f"{lat['direct_3way']['p50_ms']:.3f} ms against one replica unsplit "
+            f"{lat['one_replica']['p50_ms']:.3f} ms; direct scores within "
+            f"{res['scores_pre']['max_abs_err']:.3g} of the plain forward, the router's the "
+            f"same bits")
+
+        # 3. Edge traffic, then SIGKILL one replica.
+        edges = [ctx.Process(target=_fleet_edge, daemon=True,
+                             args=(k, router, FLEET_N, F, FLEET_EDGE[1], FLEET_EDGE_PAUSE_S,
+                                   router_gossip, ready, start, stop, results))
+                 for k in range(FLEET_EDGE[0])]
+        for p in edges:
+            p.start()
+        import queue
+
+        for _ in edges:
+            try:
+                ready.get(timeout=120)
+            except queue.Empty:
+                fail("fleet: the edge clients did not connect within 120 s")
+        traffic_t = time.time()
+        router_cpu0 = _cpu_seconds(router_proc.pid)
+        start.set()
+        time.sleep(FLEET_STEADY_S)
+        victim = 1
+        procs[victim][0].kill()
+        procs[victim][0].wait()
+        procs[victim][1].close()
+        kill_t = time.time()
+        time.sleep(FLEET_DOWN_S)
+
+        # 4. The restart, under the same id: a gossip rejoin.
+        restart_t = time.time()
+        procs[victim] = spawn_replica(victim, "_restarted")
+
+        def rejoined():
+            fz = fleetz()
+            rec = fz.get("gossip", {}).get("members", {}).get(hosts[victim])
+            return fz if (rec and rec.get("state") == "serving"
+                          and fz.get("healthy_backends") == FLEET_REPLICAS) else None
+
+        # Polled at the gossip interval: the router answers /fleetz on the
+        # threads that serve its gossip, so a faster poll loads the router
+        # the phase is measuring.
+        fz_rejoin, _ = _poll(rejoined, "gossip rejoin of the restarted replica",
+                             every=FLEET_GOSSIP_S)
+        res["rejoin_s"] = time.time() - restart_t
+        if res["rejoin_s"] > REJOIN_BOUND_S:
+            fail(f"fleet: the restarted replica rejoined in {res['rejoin_s']:.1f} s "
+                 f"(bound {REJOIN_BOUND_S} s)")
+
+        # The router's audits so far: every replica on v1, so one request
+        # scored by two of them must give the same bits (checked below).
+        audit_pre = fleetz()["counters"]
+
+        # 5. The canary, then one replica's operator rollback, fleet-wide.
+        vdir = os.path.join(base, "2")
+        save_servable(vdir, Servable(name="DCN", version=2, model=model, params=params[2],
+                                     signatures=ctr_signatures(F)), "dcn_v2")
+        publish_t = time.time()
+        for i in range(FLEET_REPLICAS):
+            _poll(lambda i=i: _get_json(rest_ports[i], "/lifecyclez")[1].get("canary_version")
+                  == 2, f"replica {i}'s canary v2", every=FLEET_GOSSIP_S)
+        res["canary_live_s"] = time.time() - publish_t
+
+        def post_rollback():
+            status, body = _get_json(rest_ports[0], "/lifecyclez/rollback",
+                                     {"reason": "fleet phase"})
+            return body if status == 200 and body.get("rolled_back") else None
+
+        _poll(post_rollback, "an accepted rollback of v2 on replica 0")
+        rollback_t = time.time()
+        _, res["router_blacklist_s"] = _poll(
+            lambda: 2 in fleetz().get("rollout", {}).get("state", {}).get("blacklist", []),
+            "the router's fleet blacklist of v2")
+        blacklist_t = time.time()
+
+        def all_rolled_back():
+            states = [_get_json(rest_ports[i], "/lifecyclez")[1] for i in range(FLEET_REPLICAS)]
+            return states if all(s.get("rolled_back_version") == 2 for s in states) else None
+
+        states, _ = _poll(all_rolled_back, "v2 rolled back on every replica", every=0.02)
+        res["propagation_s"] = time.time() - blacklist_t
+        res["rollback_to_all_s"] = time.time() - rollback_t
+        bound = FLEET_GOSSIP_S + PROPAGATION_SLACK_S
+        if res["propagation_s"] > bound:
+            fail(f"fleet: v2 reached the last replica's rollback {res['propagation_s']:.2f} s "
+                 f"after the router's blacklist (bound {bound} s)")
+        time.sleep(FLEET_AFTER_S)
+        stop.set()
+        recs, pushed = [], 0
+        for _ in range(2 * len(edges)):
+            got = results.get(timeout=120)
+            if got and got[0] == "error":
+                fail(f"fleet: an edge client failed: {got[1]}")
+            if got and got[0] == "pushed":
+                pushed += got[1]
+            else:
+                recs.extend(got)
+        stop_t = time.time()
+        router_cores = (_cpu_seconds(router_proc.pid) - router_cpu0) / (stop_t - traffic_t)
+        with open(os.path.join(out_dir, "fleet_edge.json"), "w") as f:
+            json.dump({"traffic_t": traffic_t, "kill_t": kill_t, "restart_t": restart_t,
+                       "publish_t": publish_t, "stop_t": stop_t, "records": recs}, f)
+
+        # The edge's view: errors, goodput, the kill's first rerouted answer.
+        errors = [r for r in recs if r[2]]
+        ok_times = sorted(r[1] for r in recs if not r[2])
+        steady = _windows(ok_times, traffic_t + 1.0, kill_t - 0.2)
+        chaos = _windows(ok_times, kill_t, publish_t - 0.2)
+        rollout = _windows(ok_times, publish_t, stop_t - 0.2)
+        median = statistics.median(steady) if steady else 0
+        ratio = min(chaos) / median if chaos and median else None
+        rerouted = min((r[1] for r in recs if not r[2] and r[0] >= kill_t), default=None)
+        res["edge"] = {"requests": len(recs), "errors": len(errors),
+                       "error_kinds": sorted({e[2] for e in errors})[:5],
+                       "steady_windows": steady, "chaos_windows": chaos,
+                       "rollout_windows": rollout, "steady_median": median,
+                       "min_chaos_ratio": ratio, "spans_pushed": pushed,
+                       "router_cpu_cores": router_cores,
+                       "kill_to_first_rerouted_s": (rerouted - kill_t) if rerouted else None}
+        if errors:
+            fail(f"fleet: {len(errors)} of {len(recs)} edge Predicts failed: "
+                 f"{res['edge']['error_kinds']}")
+        if ratio is None or ratio < MIN_GOODPUT_RATIO:
+            fail(f"fleet: goodput from the kill to the canary publish fell to {ratio} of the "
+                 f"steady median {median}/s (windows {chaos}; bound {MIN_GOODPUT_RATIO})")
+        # The audits over the canary and the rollback are counted, not
+        # gated: there a replica may answer from v2.
+        audit_all = fleetz()["counters"]
+        res["audit"] = {"fraction": FLEET_AUDIT_FRACTION,
+                        **{f"{k}_pre_publish": audit_pre[k] for k in (
+                            "integrity_audits", "audit_disagreements", "audit_suspects_marked")},
+                        **{k: audit_all[k] for k in (
+                            "integrity_audits", "audit_disagreements", "audit_suspects_marked")}}
+        if not audit_pre["integrity_audits"] > 0 or audit_pre["audit_disagreements"]:
+            fail(f"fleet: before the canary publish the router ran "
+                 f"{audit_pre['integrity_audits']} audits with "
+                 f"{audit_pre['audit_disagreements']} mismatches (> 0 and none expected)")
+        res["rollback"] = {"per_replica_rolled_back": [s.get("rolled_back_version")
+                                                        for s in states]}
+        log(f"fleet: {len(recs)} edge Predicts of n={FLEET_N} through the router, 0 failed; "
+            f"the router's CPU {router_cores:.2f} cores; SIGKILL -> first rerouted answer "
+            f"{res['edge']['kill_to_first_rerouted_s'] * 1e3:.1f} ms; goodput per 1 s "
+            f"steady median {median}, kill..publish min {min(chaos)} (ratio {ratio:.3f}); "
+            f"restart -> rejoin through gossip {res['rejoin_s']:.2f} s (healthy_backends "
+            f"{fz_rejoin['healthy_backends']}); v2 live on all in {res['canary_live_s']:.2f} s; "
+            f"rollback -> router blacklist {res['router_blacklist_s']:.2f} s -> last replica "
+            f"{res['propagation_s']:.3f} s (gossip {FLEET_GOSSIP_S} s); router audits "
+            f"before the publish {audit_pre['integrity_audits']}, 0 mismatched (over the "
+            f"canary too: {audit_all['integrity_audits']}, "
+            f"{audit_all['audit_disagreements']} mismatched)")
+
+        # 6. Scores again, settled.
+        res["scores_post"] = check_scores(asyncio.run(probes(1)), "after the rollback")
+
+        # 7. The fleet's observability surfaces.
+        def stitched():
+            status, tz = _get_json(router_gossip, "/tracez?limit=100")
+            three = [t for t in (tz.get("traces") or []) if t.get("num_processes", 0) >= 3
+                     and t.get("stitched_hops", 0) >= 2 and t.get("waterfall")]
+            return three
+
+        three, _ = _poll(stitched, "a stitched trace of edge, router and replica", timeout=30.0)
+        wf = three[0]["waterfall"]
+        closed = sum(wf["components_us"].values()) + wf["other_us"]
+        if wf["total_us"] <= 0 or abs(closed - wf["total_us"]) > max(
+                WATERFALL_CLOSE_TOL * wf["total_us"], 1):
+            fail(f"fleet: the hop waterfall does not close: {closed} against {wf['total_us']}")
+        _, mon = _get_json(router_gossip, "/fleet/monitoring")
+        agg_qps = float((mon.get("aggregate") or {}).get("qps") or 0.0)
+        member_sum = sum(float(st.get("qps") or 0.0) for st in (mon.get("members") or {}).values())
+        if member_sum <= 0 or abs(agg_qps - member_sum) > QPS_AGG_TOL * member_sum:
+            fail(f"fleet: /fleet/monitoring qps {agg_qps} against its members' sum {member_sum}")
+        _, slo = _get_json(router_gossip, "/sloz")
+        burns = [v for wins in (slo.get("burn") or {}).values() for v in (wins or {}).values()]
+        if not slo.get("enabled") or not burns or not all(
+                isinstance(v, (int, float)) and math.isfinite(v) and v >= 0 for v in burns):
+            fail(f"fleet: /sloz burn rates are not finite: {json.dumps(slo)[:400]}")
+        _, router_prom = _get_json(router_gossip, "/metrics")
+        _, replica_prom = _get_json(rest_ports[0], "/monitoring/prometheus/metrics")
+        series = {"router": sum(1 for ln in router_prom.splitlines()
+                                if ln.startswith("dts_tpu_fleet_")),
+                  "replica": sum(1 for ln in replica_prom.splitlines()
+                                 if ln.startswith("dts_tpu_fleet_"))}
+        if not series["router"] or not series["replica"]:
+            fail(f"fleet: dts_tpu_fleet_* series missing: {series}")
+        _prom_lint(router_prom, "the router's /metrics")
+        _prom_lint(replica_prom, "a replica's exposition")
+        res["observability"] = {
+            "three_process_traces": len(three), "num_processes": three[0]["num_processes"],
+            "waterfall": wf, "agg_qps": agg_qps, "member_qps_sum": member_sum,
+            "slo_burn": slo.get("burn"), "slo_breached": slo.get("breached"),
+            "fleet_series": series}
+        log(f"fleet: /tracez holds {len(three)} stitched traces of >= 3 processes (the first "
+            f"{three[0]['num_processes']}, waterfall {closed} of {wf['total_us']} us); "
+            f"/fleet/monitoring qps {agg_qps} against members' {member_sum:.3f}; /sloz burn "
+            f"{json.dumps(slo.get('burn'))}; dts_tpu_fleet_* lines router {series['router']}, "
+            f"replica {series['replica']}, lint clean")
+    finally:
+        stop.set()
+        start.set()
+        for p in edges:
+            p.join(10)
+            if p.is_alive():
+                p.terminate()
+        if router_proc is not None:
+            if router_proc.poll() is None:
+                router_proc.send_signal(signal.SIGTERM)
+                try:
+                    router_proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    router_proc.kill()
+                    router_proc.wait()
+            router_log.close()
+        codes = {i: _stop_cli(*pl) for i, pl in procs.items()}
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 8. Launches and devices, from each replica's log (the killed one's
+    # first process logged no shutdown): the launches that served, every
+    # version's warmup left out.
+    launches, per_replica = {}, {}
+    for i, paths in logs.items():
+        for path in paths:
+            with open(path) as f:
+                if not re.search(r"device cuda", f.read()):
+                    fail(f"fleet: {path} does not log device cuda")
+        path = paths[-1]
+        if _server_log(path)["shutdown"] is None:
+            fail(f"fleet: {path} logged no launch counts at shutdown")
+        counts = _served_launches(path)
+        per_replica[os.path.basename(path)] = counts.get("fused_serve/bfloat16", 0)
+        if counts.get("fused_serve/bfloat16", 0) <= 0:
+            fail(f"fleet: {path}'s served requests launched no fused_serve/bfloat16: {counts}")
+        for key, v in counts.items():
+            launches[key] = launches.get(key, 0) + v
+    if any(c != 0 for c in codes.values()) or router_proc.returncode != 0:
+        fail(f"fleet: SIGTERM exits: replicas {codes}, router {router_proc.returncode}")
+    res["launches"] = launches
+    res["launches_per_replica"] = per_replica
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"fleet: served fused_serve/bfloat16 launches per replica (warmups left out) "
+        f"{per_replica} (the restarted one's included); every replica on device cuda; "
+        f"SIGTERM -> exit 0 on all; phase wall {res['phase_s']:.1f} s")
+    return res
+
+
+def main(fleet_only: bool = False) -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
     sys.path.insert(0, HERE)
@@ -8261,6 +8998,11 @@ def main() -> None:
         fail("the native host-ops library (native/hostops.cc) did not build with g++")
     log(f"build: {time.perf_counter() - t0:.2f} s (native host ops {built_native['s']:.2f} s)")
     registers = {src: check_build(src, info) for src, info in cuda_build.build_info.items()}
+    if fleet_only:
+        fleet = phase_fleet(dev, f"{name} ({smi})")
+        print(json.dumps({"edge_pause_s": FLEET_EDGE_PAUSE_S, "fleet": fleet}, default=str),
+              flush=True)
+        return
 
     t0 = time.perf_counter()
     rows = phase_kernels(dev, registers[ck.SOURCE])
@@ -8318,6 +9060,9 @@ def main() -> None:
     t0 = time.perf_counter()
     savedmodel = phase_savedmodel(dev, f"{name} ({smi})")
     log(f"savedmodel: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fleet = phase_fleet(dev, f"{name} ({smi})")
+    log(f"fleet: phase {time.perf_counter() - t0:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
@@ -8325,7 +9070,7 @@ def main() -> None:
                    "models": models, "rest": rest, "aio": aio, "cache": cache,
                    "integrity": integrity, "overload": overload, "cascade": cascade,
                    "utilization": utilization, "freshness": freshness,
-                   "recovery": recovery, "savedmodel": savedmodel}, f,
+                   "recovery": recovery, "savedmodel": savedmodel, "fleet": fleet}, f,
                   indent=1,
                   default=str)
 
@@ -8356,9 +9101,11 @@ def main() -> None:
                      # count from its start to its exit.
                      "launches_rest": rest["path"]["launches"].get(f"{kname}/{cd}", 0),
                      "launches_rest_server": rest["launches_server"].get(f"{kname}/{cd}", 0),
-                     # The aio path (zeroed just before its requests, read
-                     # just after).
-                     "launches_aio": aio["serving"]["launches"].get(f"{kname}/{cd}", 0),
+                     # The aio path: the plane stack's requests (zeroed just
+                     # before, read just after) and the breaker stack's (its
+                     # counts before subtracted).
+                     "launches_aio": (aio["serving"]["launches"].get(f"{kname}/{cd}", 0)
+                                      + aio["breaker"]["launches"].get(f"{kname}/{cd}", 0)),
                      # The cache phase's steps 1-4 (zeroed just before, read
                      # just after).
                      "launches_cache": cache["launches"].get(f"{kname}/{cd}", 0),
@@ -8387,6 +9134,11 @@ def main() -> None:
                      "launches_savedmodel": savedmodel["launches"].get(f"{kname}/{cd}", 0),
                      "launches_savedmodel_base":
                          savedmodel["launches_base"].get(f"{kname}/{cd}", 0),
+                     # The fleet phase's three replicas' served launches,
+                     # each from v1 ready to its exit less every version's
+                     # warmup (the SIGKILLed process's count is lost; its
+                     # restart's is in).
+                     "launches_fleet": fleet["launches"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (
@@ -8408,4 +9160,4 @@ if __name__ == "__main__":
     elif len(sys.argv) == 4 and sys.argv[1] == "--graph-calls":
         _graph_calls_child(sys.argv[2], sys.argv[3])  # the savedmodel phase's timing child
     else:
-        main()
+        main(fleet_only=sys.argv[1:] == ["--fleet-only"])

@@ -8,7 +8,9 @@ float_val). Element counts are validated against the declared shape.
 Differences from the JAX package's codec, both because this package needs
 nothing beyond numpy: DT_BFLOAT16 has no numpy dtype here, so a bf16 tensor
 decodes WIDENED to float32 (exact: every bf16 value is an f32 value), and
-encoding to DT_BFLOAT16 is not offered. The int8 score response wire
+a DT_BFLOAT16 tensor is encoded from `BF16Bits` (uint16 bit patterns, made
+by `bf16_bits`), byte for byte the tensor an ml_dtypes bfloat16 array
+gives there. The int8 score response wire
 (`quantize_scores`, `dequantize_response_output`) is the JAX package's, in
 numpy, bit for bit. The CRC32C sidecars of the integrity plane's wire
 layer (`crc_sidecar` and its inverse) are the JAX package's, over the same
@@ -81,6 +83,26 @@ _NP_TO_DT: dict[np.dtype, int] = {
 _DTYPES_LE: dict[int, np.dtype] = {
     dt: np_dtype.newbyteorder("<") for dt, (np_dtype, _f) in _DTYPES.items()
 }
+
+
+class BF16Bits(np.ndarray):
+    """bfloat16 values held as their uint16 bit patterns. `from_ndarray`
+    encodes one as DT_BFLOAT16 and `ndarray_crc` checksums it under the
+    header of numpy's bfloat16 extension dtype, so the client's compact
+    wire matches the JAX package's byte for byte. Slices and fancy indexing
+    keep the type; arithmetic on it is meaningless."""
+
+
+def bf16_bits(arr: np.ndarray) -> BF16Bits:
+    """float32 -> BF16Bits, round to nearest even; a NaN keeps its sign and
+    top payload bits and is made quiet (the rule of native/hostops.cc
+    bf16_bits; ops/transfer.py f32_to_bf16_bits is this, as plain uint16).
+    A DT_BFLOAT16 tensor that `to_ndarray` widened narrows back exactly."""
+    u = np.ascontiguousarray(arr, dtype=np.float32).view(np.uint32)
+    rounded = (u + (np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1)))) >> 16
+    nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    bits = np.where(nan, (u >> 16) | np.uint32(0x40), rounded).astype(np.uint16)
+    return bits.view(BF16Bits)
 
 
 def dtype_to_numpy(dt: int) -> np.dtype:
@@ -247,7 +269,9 @@ def from_ndarray(
     use_tensor_content=True emits the raw-bytes fast path; False emits the
     per-dtype repeated fields. `out` fills an existing (empty) message in
     place, e.g. a response's map entry. `arena` (EncodeArena) takes the
-    contiguity copy a strided array needs instead of a fresh allocation."""
+    contiguity copy a strided array needs instead of a fresh allocation.
+    A `BF16Bits` array encodes as DT_BFLOAT16."""
+    bf16 = isinstance(arr, BF16Bits)
     arr = np.asarray(arr)
     if not arr.flags.c_contiguous:
         arr = arena.contiguous(arr) if arena is not None else np.ascontiguousarray(arr)
@@ -260,7 +284,7 @@ def from_ndarray(
             tp.string_val.append(v.encode() if isinstance(v, str) else bytes(v))
         return tp
 
-    dt = numpy_to_dtype(arr.dtype)
+    dt = DataType.DT_BFLOAT16 if bf16 else numpy_to_dtype(arr.dtype)
     np_dtype, field = _DTYPES[dt]
 
     tp = out if out is not None else fw.TensorProto()
@@ -371,12 +395,17 @@ def ndarray_crc(arr: np.ndarray, wire_bf16: bool = False) -> int:
     flipped payload bit. `wire_bf16`: `arr` is a DT_BFLOAT16 tensor that
     to_ndarray widened to float32; the checksum is over the bits the wire
     carried (the widening narrows back exactly) under the header of
-    numpy's bfloat16 extension dtype ("<V2"), as its sender computed it."""
-    a = np.ascontiguousarray(arr)
-    if wire_bf16:
+    numpy's bfloat16 extension dtype ("<V2"), as its sender computed it.
+    A `BF16Bits` array is checksummed the same way over its own bits."""
+    if isinstance(arr, BF16Bits):
+        a = np.ascontiguousarray(arr)
+        head = f"<V2:{a.shape}".encode()
+    elif wire_bf16:
+        a = np.ascontiguousarray(arr)
         a = (a.view(np.uint32) >> 16).astype(np.uint16)
         head = f"<V2:{a.shape}".encode()
     else:
+        a = np.ascontiguousarray(arr)
         head = f"{a.dtype.str}:{a.shape}".encode()
     payload = a.tobytes() if a.dtype.hasobject else a.reshape(-1).view(np.uint8)
     return crc32c(payload, crc32c(head))

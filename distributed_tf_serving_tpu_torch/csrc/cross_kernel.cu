@@ -68,11 +68,13 @@
 //     layer l; and the columns a rank writes into its own X while pulling
 //     are ones no peer ever reads from it. The last layer of the MLP and of
 //     the cross stack is not exchanged: the head needs only own columns.
-//   * Partial head: each rank sums wo over its own columns of the last
-//     cross output and of the last MLP output; after a cluster barrier rank
-//     0 adds the C partials (rank order), adds bo and writes the scores; a
-//     last barrier keeps every block resident until rank 0 has read its
-//     shared memory. C = 1 takes none of the cluster steps.
+//   * Head: after a cluster barrier rank 0 sums wo over the whole last
+//     cross output and last MLP output, reading each column from the rank
+//     that owns it, in the order of C = 1, adds bo and writes the scores;
+//     a last barrier keeps every block resident until rank 0 has read its
+//     peers' shared memory. So a row's score has the bits of C = 1 at
+//     every C, whatever bucket its batch fills. C = 1 takes none of the
+//     cluster steps.
 //   * bf16 (the serving dtype) runs on the tensor cores: mma.sync m16n8k16
 //     with f32 accumulation. The 16 rows are the mma's M; activations sit
 //     row-major in shared memory (row stride padded so the fragment loads
@@ -209,15 +211,25 @@ __device__ __forceinline__ float scaled(float acc, const float* s, int j) {
   }
 }
 
-// out[r] = sum_{j0 <= j < K} v[r][j] * w[j] in f32, one warp per row;
-// element (r, j) of the tile lives at v[r * rs + j * cs].
+// out[r] = sum_{j < K} v[r][j] * w[j] in f32, one warp per row: lane-
+// strided over j, then a butterfly. Element (r, j) of the tile lives at
+// v[r * rs + j] in the shared memory of the rank of a cluster of c that
+// owns its 8-column tile (of nt), so the sum and its order do not depend
+// on c.
 template <typename T>
-__device__ void rowdot(const T* v, int rs, int cs, int K, const float* __restrict__ w,
-                       float* out, int j0 = 0) {
+__device__ void rowdot(const T* v, int rs, int K, const float* __restrict__ w, float* out,
+                       int nt, int c) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
   for (int r = warp; r < ROWS; r += nw) {
     float s = 0.f;
-    for (int j = j0 + lane; j < K; j += 32) s = fmaf(f32_of(v[r * rs + j * cs]), w[j], s);
+    if (c == 1) {
+      for (int j = lane; j < K; j += 32) s = fmaf(f32_of(v[r * rs + j]), w[j], s);
+    } else {
+      cg::cluster_group cluster = cg::this_cluster();
+      for (int j = lane; j < K; j += 32)
+        s = fmaf(f32_of(*cluster.map_shared_rank(v + r * rs + j, tile_owner(j >> 3, nt, c))),
+                 w[j], s);
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
     if (lane == 0) out[r] = s;
@@ -792,7 +804,7 @@ __device__ __forceinline__ void own_columns(int N, int c, int me, int& j0, int& 
 // is rank `me` of a cluster of c serving tile blockIdx.x / c, as in
 // serve_bf16, with f32 activations and split-TF32 products. The head is
 // summed from per-tile partials in tile order, so every c gives the bits
-// of c = 1 (serve_bf16's per-rank partials do not).
+// of c = 1.
 template <typename T>
 __device__ __forceinline__ void serve_f32(const ServeArgs& a, unsigned char* smem) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -916,34 +928,18 @@ __device__ __forceinline__ void serve_bf16(const ServeArgs& a, unsigned char* sm
     lda = ldh;
     K = M;
   }
-  int j0, j1;
-  own_columns(K, c, me, j0, j1);
-  rowdot(in, lda, 1, j1, a.wo + d, lh, j0);
-
   const bf16* xc = mma_cross<ROWS>(x0, xb0, xb1, d, ldx, static_cast<const T*>(a.wc), a.bc,
                                    a.sc, a.L, c, me);
-  own_columns(d, c, me, j0, j1);
-  rowdot(xc, ldx, 1, j1, a.wo, lc, j0);
-  if (c == 1) {
+  if (c > 1) cluster.sync();  // every rank's columns of both last layers are written
+  // Rank 0 sums both heads whole, reading each column from its owner: the
+  // sums of C = 1, in its order, at every c.
+  if (me == 0) {
+    rowdot(in, lda, K, a.wo + d, lh, pad_n(K) / 8, c);
+    rowdot(xc, ldx, d, a.wo, lc, pad_n(d) / 8, c);
     __syncthreads();
     write_scores(a, lc, lh, row0);
-    return;
   }
-  cluster.sync();  // every rank's partial head sums are in its lc / lh
-  if (me == 0 && threadIdx.x < ROWS) {
-    const int r = threadIdx.x, row = row0 + r;
-    float pc = lc[r], ph = lh[r];
-    for (int q = 1; q < c; ++q) {
-      pc = __fadd_rn(pc, *cluster.map_shared_rank(lc + r, q));
-      ph = __fadd_rn(ph, *cluster.map_shared_rank(lh + r, q));
-    }
-    if (row < a.n) {
-      const float lo = __fadd_rn(__fadd_rn(pc, ph), a.bo[0]);
-      a.logit[row] = lo;
-      a.pred[row] = sigmoid(lo);
-    }
-  }
-  cluster.sync();  // no block exits while rank 0 may still read its partials
+  if (c > 1) cluster.sync();  // no block exits while rank 0 may still read its columns
 }
 
 __global__ void __launch_bounds__(THREADS) fused_serve_f32_kernel(ServeArgs a) {

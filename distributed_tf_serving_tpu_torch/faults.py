@@ -2,11 +2,12 @@
 faults.py: the same rule grammar, kinds, per-rule seeding and environment
 variable, so the same rules and seed fire on the same calls in both).
 
-The degraded modes that defend a caller against a sick backend (deadline
-shedding, the batcher's circuit breaker) are exactly the paths ordinary
-traffic never exercises. This module makes them testable on demand and
-deterministically: named sites inside the stack call `fire()`, which is a
-no-op until rules are installed (one module-bool check on the hot path).
+The degraded modes that defend a caller against a sick backend (scoreboard
+ejection, hedging, partial merges, deadline shedding, the batcher's circuit
+breaker) are exactly the paths ordinary traffic never exercises. This
+module makes them testable on demand and deterministically: named sites
+inside the stack call `fire()` / `fire_async()`, which is a no-op until
+rules are installed (one module-bool check on the hot path).
 
 Named sites fired in this package:
 
@@ -17,6 +18,15 @@ Named sites fired in this package:
                         readback (batcher._finish)
 - ``executor_abort``    the completion worker's result path, next to
                         ``readback``: the step aborted after dispatch
+- ``client.rpc``        one per-backend shard RPC (client._shard_call;
+                        ``key`` is the backend host string, so a rule can
+                        target one backend of a fan-out)
+- ``wire_corrupt``      request-tensor bytes flipped in flight (client
+                        _one_rpc, after CRC stamping: the checksum describes
+                        the original bytes, so the server's verify must
+                        catch it); ``key`` is the input tensor name, or
+                        ``response`` for the score tensor the client
+                        receives. ``error`` kind, used as a marker
 - ``pressure``          the overload controller's tick
                         (serving/overload.py): an ``error`` rule whose
                         ``code`` names a pressure state (``BROWNOUT`` /
@@ -39,19 +49,18 @@ Named sites fired in this package:
                         (serving/recovery.py); a keyed rule kills exactly
                         the batches that carry one payload
 
-The JAX package's other sites belong to planes this package does not have
-yet, so a rule on one of them would do nothing without saying so: `add()`
-(and with it `configure_from_env`) refuses it with a ValueError naming the
-ROADMAP.md item that ports its plane — ``client.rpc`` and ``wire_corrupt``
-(the client): Queue A item 8. An unknown site is refused too.
+Every site of the JAX package fires here too. A rule on an unknown site
+would do nothing without saying so, so `add()` (and with it
+`configure_from_env`) refuses it with a ValueError.
 
 Rule kinds:
 
 - ``delay``  sleep ``delay_s`` then proceed (tail-latency injection);
 - ``error``  raise InjectedFaultError carrying a grpc status-code NAME —
-             the service maps it onto the matching RPC status;
+             the service maps it onto the matching RPC status, and the
+             client treats it like an AioRpcError (failover, ejection);
 - ``wedge``  block until ``clear()`` (or ``delay_s`` as a safety cap when
-             set) — the stuck-device scenario.
+             set) — the stuck-backend / stuck-device scenario.
 
 Determinism: every rule gets its own ``random.Random`` seeded from
 ``(injector seed, site, kind, key)``, so a given rule/traffic interleaving
@@ -61,12 +70,13 @@ Config: programmatic (``faults.get().add(...)``) or the ``DTS_TPU_FAULTS``
 env var, read at import — semicolon-separated rules, each
 ``site=kind[,rate=R][,delay=D][,code=NAME][,count=N][,key=K]``, e.g.::
 
-    DTS_TPU_FAULTS="batcher.dispatch=wedge,count=1;readback=delay,delay=0.02"
+    DTS_TPU_FAULTS="client.rpc=error,rate=0.05,code=UNAVAILABLE;readback=delay,delay=0.02"
     DTS_TPU_FAULT_SEED=7
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import os
 import random
@@ -76,11 +86,11 @@ import time
 from .utils import tracing
 
 SITES = ("decode", "batcher.dispatch", "readback", "executor_abort", "pressure",
-         "readback_bitflip", "score_nan", "device_lost")
+         "readback_bitflip", "score_nan", "device_lost", "client.rpc", "wire_corrupt")
 KINDS = ("delay", "error", "wedge")
 # The JAX package's sites whose plane is not ported: site -> the ROADMAP.md
-# Queue A item that ports it.
-UNPORTED_SITES = {"client.rpc": 8, "wire_corrupt": 8}
+# Queue A item that ports it. Empty: every site fires.
+UNPORTED_SITES: dict[str, int] = {}
 
 
 def check_site(site: str) -> None:
@@ -260,6 +270,23 @@ class FaultInjector:
         else:
             raise InjectedFaultError(site, rule.code)
 
+    async def fire_async(self, site: str, key: str | None = None) -> None:
+        """Coroutine site (the asyncio client): never blocks the loop."""
+        rule = self._match(site, key)
+        if rule is None:
+            return
+        self._annotate(site, rule, key)
+        if rule.kind == "delay":
+            await asyncio.sleep(rule.delay_s)
+        elif rule.kind == "wedge":
+            cap = time.perf_counter() + rule.delay_s if rule.delay_s else None
+            while not rule._unwedge.is_set():
+                if cap is not None and time.perf_counter() >= cap:
+                    break
+                await asyncio.sleep(0.02)
+        else:
+            raise InjectedFaultError(site, rule.code)
+
 
 # ------------------------------------------------------- process-global API
 
@@ -283,6 +310,11 @@ def active() -> bool:
 def fire(site: str, key: str | None = None) -> None:
     if _ACTIVE:
         _GLOBAL.fire(site, key)
+
+
+async def fire_async(site: str, key: str | None = None) -> None:
+    if _ACTIVE:
+        await _GLOBAL.fire_async(site, key)
 
 
 def reset(seed: int | None = None) -> None:

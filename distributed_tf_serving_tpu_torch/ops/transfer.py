@@ -32,7 +32,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import codec
 from ..models.base import Model
+from ..utils.config import OUTPUT_WIRE_DTYPES
 
 U24_MAX = 1 << 24
 
@@ -50,13 +52,10 @@ def transfer_spec(model: Model) -> dict[str, str]:
 
 def f32_to_bf16_bits(arr: np.ndarray) -> np.ndarray:
     """float32 -> bf16 bit patterns (uint16), round to nearest even; a NaN
-    keeps its sign and top payload bits and is made quiet. The rule of
-    native/hostops.cc bf16_bits, so the numpy and native packs agree bit
-    for bit (torch's own cast turns every NaN into 0xffff)."""
-    u = np.ascontiguousarray(arr, dtype=np.float32).view(np.uint32)
-    rounded = (u + (np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1)))) >> 16
-    nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
-    return np.where(nan, (u >> 16) | np.uint32(0x40), rounded).astype(np.uint16)
+    keeps its sign and top payload bits and is made quiet: codec.bf16_bits,
+    the rule of native/hostops.cc bf16_bits, so the numpy and native packs
+    agree bit for bit (torch's own cast turns every NaN into 0xffff)."""
+    return codec.bf16_bits(arr).view(np.ndarray)
 
 
 def pack_host(arrays: dict[str, np.ndarray], spec: dict[str, str]) -> dict[str, np.ndarray]:
@@ -197,8 +196,7 @@ def unpack_device_combined(buf: torch.Tensor, layout: tuple) -> dict[str, torch.
 # completion worker. Same names, keys and arithmetic as the JAX package's
 # ops/transfer.py, so either side's wire decodes the other's.
 
-_WIRE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16, "float16": torch.float16,
-                "int8": torch.int8}
+_WIRE_DTYPES = dict(zip(OUTPUT_WIRE_DTYPES, (None, torch.bfloat16, torch.float16, torch.int8)))
 
 # int8 readback wire: affine int8 over the tensor's live range (254 levels,
 # worst-case error range/508), the per-tensor scale and min riding as two

@@ -46,9 +46,9 @@ dts_tpu_lifecycle_* series. Off by default ([lifecycle] enabled /
 Routing, ticks and the surfaces need no device; only the fine-tune
 publisher (train/publisher.py, imported when it runs) does. The recovery
 plane (serving/recovery.py) calls `pause` / `resume` around a cycle.
-`set_fleet_fraction`, `fleet_blacklist` and `fleet_record` belong to the
-fleet plane, not ported yet (ROADMAP.md Queue A item 8): they are here,
-unwired.
+The fleet plane (fleet/replica.py) drives `set_fleet_fraction` and
+`fleet_blacklist` from the rollout state it follows, and gossips
+`fleet_record`.
 """
 
 from __future__ import annotations

@@ -61,8 +61,11 @@ package's PredictionServiceImpl:
   `context_lost` once the probe found the CUDA context dead), the MTTR
   history and events (serving/recovery.py; `{"enabled": false}` with the
   plane off).
+- `GET /fleetz` -> this member's fleet view: every gossip record it
+  knows, the exchange counters and the rollout follower's state
+  (fleet/replica.py; `{"enabled": false}` with the plane off).
 - The planes that are not ported yet answer what the JAX gateway answers
-  with that plane off: `{"enabled": false}` from `/fleetz`, `/meshz`.
+  with that plane off: `{"enabled": false}` from `/meshz`.
 
 A request becomes the same PredictRequest (or Classification /
 RegressionRequest) the gRPC path parses and is handed to the impl's
@@ -181,7 +184,7 @@ class RestGateway:
             web.post("/labelz", self.labelz),
             web.get("/lifecyclez", self.lifecyclez),
             web.post("/lifecyclez/rollback", self.lifecyclez_rollback),
-            web.get("/fleetz", self.plane_off),
+            web.get("/fleetz", self.fleetz),
             web.get("/recoveryz", self.recoveryz),
             web.get("/meshz", self.plane_off),
             web.get("/cascadez", self.cascadez),
@@ -480,6 +483,7 @@ class RestGateway:
                 kernels=self.impl.kernels_stats(),
                 integrity=self.impl.integrity_stats(),
                 cascade=self.impl.cascade_stats(),
+                fleet=self.impl.fleet_stats(),
             ).encode("utf-8"),
             headers={"Content-Type": "text/plain; version=0.0.4; charset=utf-8"},
         )
@@ -584,6 +588,17 @@ class RestGateway:
         return web.json_response(_OFF)
 
     # ------------------------------------------------------------- planes
+
+    async def fleetz(self, request: web.Request) -> web.Response:
+        """GET /fleetz: this member's fleet view — gossip membership (every
+        known replica and router record with its state, pressure, versions
+        and canary fields), exchange and record-disposition counters, and
+        the rollout follower's state; `{"enabled": false}` with the plane
+        off."""
+        plane = self.impl.fleet
+        if plane is None:
+            return web.json_response(_OFF)
+        return web.json_response({"enabled": True, **plane.snapshot()}, dumps=_dumps)
 
     async def lifecyclez(self, request: web.Request) -> web.Response:
         """GET /lifecyclez: the IDLE / CANARY / PROMOTING / ROLLED_BACK state

@@ -118,6 +118,7 @@ from ..utils.config import (
     BatchingConfig,
     CacheConfig,
     CascadeConfig,
+    FleetConfig,
     IntegrityConfig,
     KernelsConfig,
     LifecycleConfig,
@@ -684,7 +685,14 @@ class GrpcHealthService:
     lifecycle owns it with no version loaded yet; unknown names get
     NOT_FOUND. A NOT_SERVING "" names its reason in the
     x-dts-health-reason trailer: "draining", "quarantined" or
-    "starting"."""
+    "starting". Watch streams the current status at once, then one
+    message per change (an unknown service streams SERVICE_UNKNOWN, as
+    the health spec asks); the fleet router subscribes to it."""
+
+    # How often Watch re-reads the status. A sync watcher holds a handler
+    # thread for the stream's life: a surface for a few routers, not for
+    # edge clients.
+    watch_poll_s = 0.2
 
     def __init__(self, impl: PredictionServiceImpl, quiesce: TransportQuiesce | None = None):
         self.impl = impl
@@ -731,7 +739,15 @@ class GrpcHealthService:
         return health_proto.HealthCheckResponse(status=st)
 
     def Watch(self, request, context):
-        context.abort(grpc.StatusCode.UNIMPLEMENTED, "Watch not implemented")
+        last = None
+        while context.is_active():
+            st = self._status(request.service)
+            if st is None:
+                st = health_proto.SERVICE_UNKNOWN
+            if st != last:
+                last = st
+                yield health_proto.HealthCheckResponse(status=st)
+            time.sleep(self.watch_poll_s)
 
 
 class AioGrpcHealthService(GrpcHealthService):
@@ -747,7 +763,15 @@ class AioGrpcHealthService(GrpcHealthService):
         return health_proto.HealthCheckResponse(status=st)
 
     async def Watch(self, request, context):
-        await context.abort(grpc.StatusCode.UNIMPLEMENTED, "Watch not implemented")
+        last = None
+        while True:
+            st = self._status(request.service)
+            if st is None:
+                st = health_proto.SERVICE_UNKNOWN
+            if st != last:
+                last = st
+                yield health_proto.HealthCheckResponse(status=st)
+            await asyncio.sleep(self.watch_poll_s)
 
 
 def _add_uds_port(server, uds_path: str) -> None:
@@ -982,12 +1006,20 @@ def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig,
     """A VersionWatcher that serves `model_name` from `base_path`: each
     version warmed through the batcher's queue and its warmup file replayed
     before it serves (unless cfg.warmup is off), loaded onto the batcher's
-    device, the kernel launch counters logged, the batcher's caches
+    device, the kernel launch counters logged before each version's warmup
+    and at every version change, the batcher's caches
     invalidated and the quality plane told at every version change. A
     SavedModel version is imported as `model_kind` (default cfg.model_kind)
     with `model_config`."""
     from .version_watcher import VersionWatcher, VersionWatcherConfig
     from .warmup import replay_warmup_file
+
+    def warmup(servable: Servable) -> None:
+        # The counters before a version's own launches: its warmup's are
+        # the difference to the next version change's line.
+        log.info("kernel launches before warming %s v%d: %s", servable.name,
+                 servable.version, _launch_counts())
+        batcher.warmup_via_queue(servable)
 
     return VersionWatcher(
         base_path, registry,
@@ -999,7 +1031,7 @@ def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig,
             # Upstream semantics: N RETRIES after the first attempt.
             max_load_attempts=cfg.max_num_load_retries + 1,
         ),
-        warmup=batcher.warmup_via_queue if cfg.warmup else None,
+        warmup=warmup if cfg.warmup else None,
         warmup_replay=(
             (lambda sv, wf: replay_warmup_file(wf, sv, batcher)) if cfg.warmup else None
         ),
@@ -1108,7 +1140,9 @@ class GracefulShutdown:
 
     1. `impl.draining`: health "" answers NOT_SERVING and every new
        inference RPC is refused UNAVAILABLE, so balancers and fan-out
-       clients go elsewhere;
+       clients go elsewhere; with the fleet plane armed, one gossip round
+       announces the drain at once, so the router steers away before this
+       replica refuses its first RPC;
     2. the lifecycle controller (its ticks drive the watcher, and its
        publisher must not land a version behind the drain), the cascade's
        stage-1 watcher, then the version watcher or the model lifecycle
@@ -1122,7 +1156,7 @@ class GracefulShutdown:
        arrive now are held until it has stopped, so gRPC core cancels no
        call that was on the wire) and stops with the grace that remains
        (at least MIN_RPC_GRACE_S, so handlers can send what the drain
-       completed); then the held RPCs answer;
+       completed); then the held RPCs answer, and the fleet plane stops;
     5. the batcher stops; 6. the request log closes.
 
     The server's handlers wait on `quiesce` only when it was passed to
@@ -1144,6 +1178,10 @@ class GracefulShutdown:
         self.lifecycle = lifecycle
         self.recovery = recovery
         self.request_logger = request_logger
+        # The fleet plane (fleet/replica.py), attached by serve() when
+        # [fleet] arms it: announced right after the draining flip, stopped
+        # with the transport.
+        self.fleet = None
         self.server = None  # attached once created
         self.quiesce = TransportQuiesce()
         self.drained: bool | None = None
@@ -1175,6 +1213,11 @@ class GracefulShutdown:
         try:
             t0 = time.perf_counter()
             self.impl.draining = True
+            if self.fleet is not None:
+                try:
+                    self.fleet.announce()
+                except Exception:  # noqa: BLE001 — the next round carries it
+                    log.debug("fleet drain announce failed", exc_info=True)
             if self.lifecycle is not None:
                 self.lifecycle.stop()
             if self.impl.cascade_watcher is not None:
@@ -1194,6 +1237,8 @@ class GracefulShutdown:
                 stopped = self.server.stop(left)
                 self.quiesce.release()
                 stopped.wait()
+            if self.fleet is not None:
+                self.fleet.stop()
             self.batcher.stop()
             if self.request_logger is not None:
                 self.request_logger.close()
@@ -1589,6 +1634,76 @@ def _arm_cascade(cfg: ServerConfig, cc: CascadeConfig, model_config: ModelConfig
              cc.min_candidates)
 
 
+def _start_fleet_plane(impl: PredictionServiceImpl, fleet_config: FleetConfig,
+                       cfg: ServerConfig, port: int, obs: ObservabilityConfig,
+                       metrics: ServerMetrics, shutdown: GracefulShutdown):
+    """Join the fleet: a gossip agent publishing this replica's record every
+    interval, and a rollout follower driving the lifecycle controller (when
+    one runs) from the router's rollout state. The gossip port also serves
+    `/monitoring` (the metrics' fleet wire) and `/tracez/export` (kept span
+    trees, with [observability] trace_export on) to the router's
+    aggregator. Returns the plane, set on `impl.fleet` and
+    `shutdown.fleet`."""
+    from ..fleet import gossip as fleet_gossip
+    from ..fleet.replica import ReplicaFleetPlane
+
+    # The gossip id defaults to this replica's serving address: the string
+    # the router lists in its [client] hosts, so a record steers the
+    # router's scoreboard with no id mapping.
+    self_id = fleet_config.self_id or f"{cfg.host}:{port}"
+    registry = impl.registry
+    export_on = bool(obs.tracing and obs.trace_export)
+
+    def record() -> dict:
+        # Built every gossip interval: cheap reads only.
+        if impl.draining:
+            state = fleet_gossip.DRAINING
+        elif impl.recovery is not None and impl.recovery.not_serving():
+            state = fleet_gossip.QUARANTINED
+        elif not (impl.warmup_complete and registry.models()):
+            state = fleet_gossip.STARTING
+        else:
+            state = fleet_gossip.SERVING
+        rec = {"state": state, "versions": tuple(registry.models().get(cfg.model_name, ()))}
+        ov = impl.overload_stats()
+        if ov:
+            rec["pressure"] = str(ov.get("state") or "")
+        if impl.integrity is not None:
+            # The integrity verdict rides every record, so routers steer
+            # around a replica whose shadow compare caught it miscomputing;
+            # cleared after the configured clean passes.
+            rec["suspect"] = bool(impl.integrity.suspect)
+        if impl.lifecycle is not None:
+            rec.update(impl.lifecycle.fleet_record())
+        # The metrics digest and the scrape address: the router's aggregate
+        # falls back to these numbers when the /monitoring scrape fails.
+        plane = impl.fleet
+        rec["obs"] = {**metrics.fleet_summary(),
+                      "addr": plane.agent.listen_addr if plane is not None else "",
+                      "trace_export": export_on}
+        return rec
+
+    def trace_export(query: dict) -> dict:
+        if not export_on or not tracing.enabled():
+            return {"enabled": False, "cursor": 0, "spans": []}
+        try:
+            since = int(query.get("since", 0) or 0)
+        except (TypeError, ValueError):
+            since = 0
+        return tracing.recorder().export_since(since)
+
+    plane = ReplicaFleetPlane(
+        dataclasses.replace(fleet_config, self_id=self_id), record_fn=record,
+        lifecycle=impl.lifecycle, extra_routes={"/monitoring": metrics.fleet_wire},
+        query_routes={"/tracez/export": trace_export})
+    impl.fleet = plane
+    shutdown.fleet = plane
+    plane.start()
+    log.info("fleet plane up (id=%s gossip=%s peers=%d rollout_follow=%s)", self_id,
+             plane.agent.listen_addr, len(fleet_config.peers), impl.lifecycle is not None)
+    return plane
+
+
 def _version_labels(raw_labels: list[str]) -> tuple[tuple[str, int], ...]:
     """--version-label LABEL=VERSION flags as sorted (label, version) pairs."""
     pairs = []
@@ -1731,6 +1846,21 @@ def serve(argv=None) -> None:
         "[recovery] section carries the knobs (GET /recoveryz, the `recovery` block of "
         "/monitoring, dts_tpu_recovery_* series)")
     p.add_argument(
+        "--fleet", action="store_true", default=None,
+        help="fleet robustness plane (fleet/): join the cross-replica health gossip and "
+        "follow the fleet-coordinated rollout state (fleet/gossip.py, fleet/rollout.py). "
+        "Equivalent to [fleet] enabled = true; the [fleet] section carries the self_id, "
+        "peers, gossip and rollout knobs (GET /fleetz, the `fleet` block of /monitoring, "
+        "dts_tpu_fleet_* series)")
+    p.add_argument(
+        "--router", action="store_true", default=None,
+        help="run as the fleet router instead of a serving replica (fleet/router.py): a "
+        "PredictionService front that embeds the sharded fan-out client as its steering "
+        "(row affinity, hedging, failover, a gossip-informed scoreboard, single-writer "
+        "rollout coordination). It does no device work and starts without a card. "
+        "Requires --config with [client] hosts (the replicas) and [fleet]; every serving "
+        "and model flag is ignored")
+    p.add_argument(
         "--kernels", action="store_true",
         help="kernel/quantization plane: int8 weight quantization and the fused "
         "serve kernel, each enabled per bucket only where the load-time autotune "
@@ -1738,6 +1868,22 @@ def serve(argv=None) -> None:
         "Equivalent to [kernels] enabled = true",
     )
     args = p.parse_args(argv)
+    if args.router:
+        # The router tier loads no model and touches no device: hand off to
+        # its own entry point before any stack is built. The transport
+        # flags pass through; the rest belong to replicas.
+        if not args.config:
+            raise SystemExit("--router requires --config ([client] hosts and a [fleet] section)")
+        from ..fleet.router import main as router_main
+
+        router_argv = ["--config", args.config]
+        if args.host:
+            router_argv += ["--host", args.host]
+        if args.port:
+            router_argv += ["--port", str(args.port)]
+        if args.uds_path:
+            router_argv += ["--uds-path", args.uds_path]
+        return router_main(router_argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
 
     loaded = load_config(args.config) if args.config else {"server": ServerConfig()}
@@ -1778,6 +1924,9 @@ def serve(argv=None) -> None:
     recovery_config = loaded.get("recovery") or RecoveryConfig()
     if args.recovery:
         recovery_config = dataclasses.replace(recovery_config, enabled=True)
+    fleet_config = loaded.get("fleet") or FleetConfig()
+    if args.fleet:
+        fleet_config = dataclasses.replace(fleet_config, enabled=True)
     obs = loaded.get("observability") or ObservabilityConfig()
     if args.tracing:
         obs = dataclasses.replace(obs, tracing=True)
@@ -1855,6 +2004,8 @@ def serve(argv=None) -> None:
     server.start()
     shutdown.server = server
     shutdown.install_signal_handler()
+    if fleet_config.enabled:
+        _start_fleet_plane(impl, fleet_config, cfg, port, obs, metrics, shutdown)
     if args.rest_port:
         # /profilez starts its profiler on another thread: the profiler's
         # process-wide setup runs here, on the thread that imported torch.

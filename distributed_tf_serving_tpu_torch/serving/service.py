@@ -172,6 +172,10 @@ class PredictionServiceImpl:
         # The recovery plane's RecoveryController (serving/recovery.py), or
         # None: health reads its not_serving(), /recoveryz its snapshot.
         self.recovery = None
+        # The fleet plane (fleet/replica.py ReplicaFleetPlane), or None:
+        # gossip membership and the rollout follower, set by the server
+        # when [fleet] arms it. GET /fleetz and the dts_tpu_fleet_* series.
+        self.fleet = None
 
     def _arena(self) -> codec.EncodeArena | None:
         """The calling thread's EncodeArena, or None with response_arena
@@ -183,9 +187,17 @@ class PredictionServiceImpl:
             arena = self._arenas.arena = codec.EncodeArena()
         return arena
 
-    # Fleet (ROADMAP.md Queue A item 8), mesh and elastic (item 9): refused
-    # by load_config, so always off here.
-    fleet_stats = mesh_stats = elastic_stats = staticmethod(_plane_off)
+    # Mesh and elastic (ROADMAP.md Queue A item 9): refused by load_config,
+    # so always off here.
+    mesh_stats = elastic_stats = staticmethod(_plane_off)
+
+    def fleet_stats(self) -> dict | None:
+        """The fleet plane's snapshot (gossip membership view and exchange
+        counters, rollout-follower state): GET /fleetz, the `fleet` block in
+        /monitoring and the dts_tpu_fleet_* series. None with the plane
+        off."""
+        fl = self.fleet
+        return fl.fleet_stats() if fl is not None else None
 
     def recovery_stats(self) -> dict | None:
         """The recovery controller's snapshot (state machine, quarantine /

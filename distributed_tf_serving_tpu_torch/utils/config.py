@@ -1,17 +1,17 @@
 """TOML config: the [server], [batching], [transport], [model], [kernels],
 [observability], [cache], [overload], [integrity], [cascade],
-[utilization], [quality], [lifecycle] and [recovery] sections the port
-reads, the checks of the model-config entries, and the mapping of a
-tensorflow_model_server batching-parameters file onto [server].
+[utilization], [quality], [lifecycle], [recovery], [client], [fleet] and
+[slo] sections the port reads, the checks of the model-config entries,
+and the mapping of a tensorflow_model_server batching-parameters file onto
+[server].
 
 The JAX package's config files load unchanged, with one rule: a setting
 that would change what is served, logged or admitted but is not ported
 here is refused with a ValueError naming the ROADMAP.md Queue A item that
-ports it, never dropped. That covers the mesh knobs of [server] and a
-plane section ([fleet], [slo], ...) switched on, and [integrity]
-router_audit_fraction away from 0 (it acts only in the fleet router). What
-changes no result here is ignored with one log line: the transfer knobs of
-[server], the [client] section, and a plane section that is off.
+ports it, never dropped. That covers the mesh knobs of [server] and the
+[mesh] and [elastic] sections switched on. What changes no result here is
+ignored with one log line: the transfer knobs of [server], and a [mesh] or
+[elastic] section that is off.
 [overload] drain_grace_s feeds the shutdown drain whether or not the plane
 is on. A section or key the JAX package does not know either raises, as
 there.
@@ -25,10 +25,13 @@ import pathlib
 import tomllib
 from typing import Any
 
-from ..models.base import ModelConfig
-from ..ops.transfer import output_wire_dtype
 
 log = logging.getLogger("dts_torch.config")
+
+# The readback wire dtypes `[server] output_wire_dtype` may name (their
+# torch dtypes: ops/transfer.py). This module imports no torch, so the
+# client and the fleet router load their configs without it.
+OUTPUT_WIRE_DTYPES = ("float32", "bfloat16", "float16", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,10 +92,101 @@ class ServerConfig:
             v = getattr(self, name)
             if not isinstance(v, int) or isinstance(v, bool) or v < 1:
                 raise ValueError(f"[server] {name} must be a positive integer, got {v!r}")
-        output_wire_dtype(self.output_wire_dtype)  # an unknown name raises
+        if self.output_wire_dtype not in OUTPUT_WIRE_DTYPES:
+            raise ValueError(f"unknown output wire dtype {self.output_wire_dtype!r}; have "
+                             f"{sorted(OUTPUT_WIRE_DTYPES)}")
         v = self.output_top_k
         if not isinstance(v, int) or isinstance(v, bool) or v < 0:
             raise ValueError(f"[server] output_top_k must be a non-negative integer, got {v!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientConfig:
+    """Fan-out client + closed-loop bench knobs (the DCNClient constants)."""
+
+    hosts: tuple[str, ...] = ("127.0.0.1:9999",)  # DCNClient.java:38
+    model_name: str = "DCN"  # DCNClient.java:33
+    signature_name: str = "serving_default"  # DCNClient.java:34
+    output_key: str = "prediction_node"  # DCNClient.java:35
+    num_fields: int = 43  # FIELD_NUM
+    candidate_num: int = 1500  # DCNClient.java:29
+    request_num: int = 1000  # DCNClient.java:30
+    concurrent_num: int = 6  # DCNClient.java:31
+    # DCNClient.java:27 — True: concurrent per-shard fan-out; False: shards
+    # issued sequentially in host order (ShardedPredictClient.full_async).
+    full_async_mode: bool = True
+    sort_scores: bool = True  # the ranking sort, DCNClient.java:195
+    timeout_s: float = 10.0
+    use_tensor_content: bool = True
+    # Beyond the reference: reroute a failed shard to the next host(s) on
+    # UNAVAILABLE/DEADLINE_EXCEEDED/RESOURCE_EXHAUSTED, up to this many
+    # extra attempts (0 = the reference's fail-fast behavior).
+    failover_attempts: int = 0
+    # Candidate-to-backend placement. "contiguous" = the reference's
+    # positional split (DCNClient.java:46-55). "affinity" = rows route to backends by a
+    # consistent (jump) hash of each row's canonical feature digest
+    # (cache/digest.py row identity), so a hot candidate row always lands
+    # on the same replica's warm score cache instead of being re-scored
+    # everywhere; the scoreboard still steers a group away from its
+    # affine backend while that backend is ejected/busy/rebuilding.
+    placement: str = "contiguous"
+    # Retry budget: cap on TOTAL backend attempts
+    # per logical request across every shard's failover hops, hedges,
+    # and streamed reroutes — one recovering/quarantined replica must
+    # not be able to multiply a request into a fleet-wide retry storm.
+    # Each shard's FIRST attempt is always allowed (the request needs
+    # it); the budget bounds everything beyond. 0 = unlimited (the
+    # historical behavior). Exhaustion counts as
+    # `retry_budget_exhausted` in the scoreboard snapshot.
+    max_attempts_total: int = 0
+    # ---- resilience layer (client/health.py + client.py) -----------------
+    # Per-backend scoreboard: EWMA latency + consecutive-failure ejection
+    # with half-open probing; steers shard placement and failover rotation
+    # away from ejected hosts.
+    health_scoreboard: bool = False
+    # Consecutive reroutable failures before a backend is ejected, and the
+    # first ejection interval (doubles per failed half-open probe).
+    ejection_failures: int = 3
+    ejection_interval_s: float = 5.0
+    # Hedged shard RPCs: fire a second attempt on another healthy host
+    # after this delay; first answer wins, the loser is cancelled. 0 = off.
+    hedge_delay_ms: int = 0
+    # Jittered exponential backoff between failover attempts.
+    backoff_initial_ms: int = 50
+    backoff_max_ms: int = 2000
+    # Exhausted shards degrade the merge (PredictResult.missing_ranges +
+    # degraded flag) instead of failing the whole request.
+    partial_results: bool = False
+    # Half-open backends get a grpc.health.v1 Check before real traffic.
+    health_probe: bool = False
+    # HTTP/2 keepalive pings on the backend channels: a silently-dead
+    # backend is detected in ~time+timeout instead of hanging until the
+    # RPC deadline. 0 disables (for stock gRPC backends whose default
+    # ping-abuse policy would GOAWAY a 10s pinger; the in-tree servers
+    # tolerate it via KEEPALIVE_SERVER_OPTIONS).
+    keepalive_time_ms: int = 10000
+    keepalive_timeout_ms: int = 5000
+    # Route by version label instead of latest ("" = unset; upstream
+    # ModelSpec.version_label routing, e.g. "stable"/"canary").
+    version_label: str = ""
+    # Request criticality lane sent in gRPC metadata (x-dts-criticality):
+    # "critical" / "default" / "sheddable". Overloaded servers running the
+    # [overload] plane shed sheddable traffic first. "" = unset (servers
+    # treat it as "default").
+    criticality: str = ""
+    # TLS toward an --ssl-config-file server ("" = plaintext). PATHS here
+    # (unlike the server's inline-PEM textproto): client configs name the
+    # deployed cert files. key+cert both set => mTLS identity.
+    tls_root_certs_file: str = ""
+    tls_client_key_file: str = ""
+    tls_client_cert_file: str = ""
+    # Integrity wire checksums: stamp x-dts-input-crc CRC32C
+    # sidecars on requests and verify the server's x-dts-score-crc
+    # response stamps before merging — a mismatch steers (scoreboard
+    # kind="corrupt") and fails the shard over to another backend.
+    # Advisory both ways: servers without [integrity] ignore/omit the
+    # metadata.
+    integrity_checksums: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -382,9 +476,9 @@ class OverloadConfig:
 class IntegrityConfig:
     """The [integrity] section (serving/integrity.py): wire CRC32C
     sidecars, the readback screen and sampled bit-identity shadow
-    verification. The JAX package's fields, defaults and checks, but for
-    router_audit_fraction, which acts only in the fleet router (not ported:
-    a value away from 0 is refused by load_config). Off by default: every
+    verification, and the fleet router's two-replica audit
+    (router_audit_fraction, read by fleet/router.py). The JAX package's
+    fields, defaults and checks. Off by default: every
     hook is one attribute read and the served bytes are those of a stack
     without the plane."""
 
@@ -404,6 +498,10 @@ class IntegrityConfig:
     # Fraction of batches run a second time and compared bit for bit;
     # 0 = sampling off (POST /integrityz/audit still forces shadows).
     shadow_fraction: float = 0.0
+    # Router tier: fraction of forwarded requests also sent to two
+    # replicas and compared bit for bit; the minority of a disagreement
+    # is marked suspect. 0 = off.
+    router_audit_fraction: float = 0.0
     # Consecutive clean shadow compares that clear the suspect verdict.
     suspect_clear_passes: int = 3
     # Retained detection events (/integrityz `events`).
@@ -414,9 +512,10 @@ class IntegrityConfig:
             v = getattr(self, name)
             if not isinstance(v, int) or isinstance(v, bool) or v < 1:
                 raise ValueError(f"[integrity] {name} must be a positive integer, got {v!r}")
-        v = self.shadow_fraction
-        if not isinstance(v, (int, float)) or isinstance(v, bool) or not 0.0 <= v <= 1.0:
-            raise ValueError(f"[integrity] shadow_fraction must be in [0, 1], got {v!r}")
+        for name in ("shadow_fraction", "router_audit_fraction"):
+            v = getattr(self, name)
+            if not isinstance(v, (int, float)) or isinstance(v, bool) or not 0.0 <= v <= 1.0:
+                raise ValueError(f"[integrity] {name} must be in [0, 1], got {v!r}")
         v = self.screen_window_s
         if not isinstance(v, (int, float)) or isinstance(v, bool) or v <= 0:
             raise ValueError(
@@ -436,6 +535,129 @@ class IntegrityConfig:
         from ..serving.integrity import IntegrityPlane
 
         return IntegrityPlane(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Fleet robustness plane knobs (fleet/ package): the
+    cross-replica health gossip every member runs, and the shared rollout
+    state the router (single writer) coordinates. The router process
+    itself is `--router` / `python -m distributed_tf_serving_tpu_torch.fleet.router`
+    over the SAME file: [server] is its bind address, [client] its
+    backend list + steering knobs, [fleet] this section. Off by default;
+    a disarmed replica pays one attribute read per hook."""
+
+    # Master switch: start a GossipAgent next to the server and register
+    # /fleetz.
+    enabled: bool = False
+    # Stable member name in gossip records. "" = derive from the gossip
+    # listen address (fine for static fleets; set it when replicas sit
+    # behind NAT or get respawned on new ports).
+    self_id: str = ""
+    # Address PEERS use to reach this member's gossip listener
+    # ("host:port" or "unix:/path"). "" = the listener's own bind
+    # address.
+    advertise_addr: str = ""
+    # Other members' gossip endpoints ("host:port" or "unix:/path").
+    # Every member gossips with every listed peer each interval
+    # (push-pull, so one live peer in common converges the fleet).
+    peers: tuple[str, ...] = ()
+    # Gossip listener bind. Port 0 = ephemeral (tests); production sets
+    # a fixed port so peers can list it. gossip_uds switches the
+    # listener (and dialing peers given as unix:...) to AF_UNIX.
+    gossip_host: str = "127.0.0.1"
+    gossip_port: int = 0
+    gossip_uds: str = ""
+    # Push-pull exchange cadence; fleet-wide convergence is one or two
+    # intervals (record rides both the push and the response).
+    gossip_interval_s: float = 0.5
+    # A member silent this long is dropped from the view (SIGKILL with
+    # no goodbye). Must exceed a few intervals or flaky peers flap.
+    record_ttl_s: float = 5.0
+    # Rollout coordination (fleet/rollout.py). Exactly ONE member — the
+    # router — sets rollout_writer=true and owns the state file; every
+    # other member follows the rollout state it sees in gossip.
+    rollout_writer: bool = False
+    # Where the writer persists rollout state (atomic rename). "" on
+    # the writer = in-memory only (still distributed via gossip, lost
+    # on router restart).
+    rollout_state_file: str = ""
+
+    def __post_init__(self):
+        for name in ("gossip_interval_s", "record_ttl_s"):
+            v = getattr(self, name)
+            if not isinstance(v, (int, float)) or isinstance(v, bool) \
+                    or v <= 0:
+                raise ValueError(
+                    f"[fleet] {name} must be a positive number, got {v!r}"
+                )
+        if not isinstance(self.gossip_port, int) or \
+                isinstance(self.gossip_port, bool) or self.gossip_port < 0:
+            raise ValueError(
+                f"[fleet] gossip_port must be a non-negative integer, "
+                f"got {self.gossip_port!r}"
+            )
+        if self.record_ttl_s <= self.gossip_interval_s:
+            raise ValueError(
+                "[fleet] record_ttl_s must exceed gossip_interval_s "
+                f"(got ttl={self.record_ttl_s!r} <= "
+                f"interval={self.gossip_interval_s!r}) — a member would "
+                "expire between its own heartbeats"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class SloConfig:
+    """SLO burn-rate monitor knobs (fleet/observability.py):
+    the router's multi-window error-budget monitor over aggregated
+    fleet telemetry, served at GET /sloz and as dts_tpu_slo_* series.
+    Off by default; when on, a breach annotates in-flight router spans
+    (`slo.burn`) so the tail sampler force-keeps explaining traces."""
+
+    enabled: bool = False
+    # Latency SLO: fraction of requests under latency_target_ms must
+    # meet latency_objective.
+    latency_target_ms: float = 50.0
+    latency_objective: float = 0.99
+    # Availability SLO: fraction of non-error requests.
+    availability_objective: float = 0.999
+    # Multi-window burn rates (Google SRE workbook shape): a page fires
+    # only when BOTH the short and long window burn fast — short alone
+    # is noise, long alone is stale.
+    short_window_s: float = 300.0
+    long_window_s: float = 3600.0
+    # burn = bad_fraction / error_budget. 14.4x exhausts a 30-day
+    # budget in 2 days (page); 6x in 5 days (ticket/warn).
+    burn_threshold_fast: float = 14.4
+    burn_threshold_slow: float = 6.0
+
+    def __post_init__(self):
+        for name in (
+            "latency_target_ms", "short_window_s", "long_window_s",
+            "burn_threshold_fast", "burn_threshold_slow",
+        ):
+            v = getattr(self, name)
+            if not isinstance(v, (int, float)) or isinstance(v, bool) \
+                    or v <= 0:
+                raise ValueError(
+                    f"[slo] {name} must be a positive number, got {v!r}"
+                )
+        for name in ("latency_objective", "availability_objective"):
+            v = getattr(self, name)
+            if not isinstance(v, (int, float)) or isinstance(v, bool) \
+                    or not (0.0 < v < 1.0):
+                raise ValueError(
+                    f"[slo] {name} must be in (0, 1), got {v!r} — an "
+                    "objective of 1.0 leaves zero error budget and "
+                    "every burn rate divides by zero"
+                )
+        if self.long_window_s <= self.short_window_s:
+            raise ValueError(
+                "[slo] long_window_s must exceed short_window_s "
+                f"(got long={self.long_window_s!r} <= "
+                f"short={self.short_window_s!r}) — multi-window burn "
+                "alerting needs distinct horizons"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -725,30 +947,15 @@ _IGNORED_KEYS = {"server": ("compress_transfer", "async_readback", "pipelined_di
 # loads; the ROADMAP.md Queue A item that ports the rest).
 _UNPORTED_KEYS = {
     "server": {"mesh_devices": (0, 9), "model_parallel": (1, 9), "tensor_parallel": (False, 9)},
-    "integrity": {"router_audit_fraction": (0.0, 8)},
 }
 # Sections of the JAX package that are not ported: section -> (its keys,
 # the keys that switch it on, the ROADMAP.md Queue A item). A section
 # that is off is ignored; switched on, it is refused.
 _UNPORTED_SECTIONS = {
-    "client": (("hosts", "model_name", "signature_name", "output_key", "num_fields",
-                "candidate_num", "request_num", "concurrent_num", "full_async_mode",
-                "sort_scores", "timeout_s", "use_tensor_content", "failover_attempts",
-                "placement", "max_attempts_total", "health_scoreboard", "ejection_failures",
-                "ejection_interval_s", "hedge_delay_ms", "backoff_initial_ms", "backoff_max_ms",
-                "partial_results", "health_probe", "keepalive_time_ms", "keepalive_timeout_ms",
-                "version_label", "criticality", "tls_root_certs_file", "tls_client_key_file",
-                "tls_client_cert_file", "integrity_checksums"), (), None),
     "mesh": (("enabled", "devices", "model_parallel", "tensor_parallel"), ("enabled",), 9),
     "elastic": (("enabled", "splits", "tick_interval_s", "dwell_s", "up_after_ticks",
                  "down_after_ticks", "load_up_threshold", "load_down_threshold",
                  "load_ewma_alpha", "history_events"), ("enabled",), 9),
-    "fleet": (("enabled", "self_id", "advertise_addr", "peers", "gossip_host", "gossip_port",
-               "gossip_uds", "gossip_interval_s", "record_ttl_s", "rollout_writer",
-               "rollout_state_file"), ("enabled",), 8),
-    "slo": (("enabled", "latency_target_ms", "latency_objective", "availability_objective",
-             "short_window_s", "long_window_s", "burn_threshold_fast", "burn_threshold_slow"),
-            ("enabled",), 8),
 }
 # The shutdown drain's grace when [overload] does not set it (seconds).
 DRAIN_GRACE_S = 5.0
@@ -800,10 +1007,11 @@ def load_config(path) -> dict[str, Any]:
     ObservabilityConfig, "cache": CacheConfig, "overload": OverloadConfig,
     "integrity": IntegrityConfig, "cascade": CascadeConfig, "utilization":
     UtilizationConfig, "quality": QualityConfig, "lifecycle":
-    LifecycleConfig, "recovery": RecoveryConfig} ("model", "kernels",
+    LifecycleConfig, "recovery": RecoveryConfig, "client": ClientConfig,
+    "fleet": FleetConfig, "slo": SloConfig} ("model", "kernels",
     "observability", "cache", "overload", "integrity", "cascade",
-    "utilization", "quality", "lifecycle" and "recovery" only when the file
-    has that section). A nonzero [batching]
+    "utilization", "quality", "lifecycle", "recovery", "client", "fleet"
+    and "slo" only when the file has that section). A nonzero [batching]
     pipeline_depth replaces the [server] one, as in the JAX package's
     server; "drain_grace_s" is [overload] drain_grace_s (honored with the
     plane off, as there). Raises ValueError on a setting that is not
@@ -812,7 +1020,7 @@ def load_config(path) -> dict[str, Any]:
     raw = tomllib.loads(pathlib.Path(path).read_text())
     ported = {"server", "batching", "transport", "model", "kernels", "observability", "cache",
               "overload", "integrity", "cascade", "utilization", "quality", "lifecycle",
-              "recovery"}
+              "recovery", "client", "fleet", "slo"}
     unknown = sorted(set(raw) - ported - set(_UNPORTED_SECTIONS))
     if unknown:
         raise ValueError(f"unknown config sections: {unknown}")
@@ -832,6 +1040,8 @@ def load_config(path) -> dict[str, Any]:
         "drain_grace_s": float(grace),
     }
     if "model" in raw:
+        from ..models.base import ModelConfig
+
         out["model"] = _coerce(ModelConfig, raw["model"], "model")
     if "kernels" in raw:
         out["kernels"] = _coerce(KernelsConfig, raw["kernels"], "kernels")
@@ -854,6 +1064,12 @@ def load_config(path) -> dict[str, Any]:
         out["lifecycle"] = _coerce(LifecycleConfig, raw["lifecycle"], "lifecycle")
     if "recovery" in raw:
         out["recovery"] = _coerce(RecoveryConfig, raw["recovery"], "recovery")
+    if "client" in raw:
+        out["client"] = _coerce(ClientConfig, raw["client"], "client")
+    if "fleet" in raw:
+        out["fleet"] = _coerce(FleetConfig, raw["fleet"], "fleet")
+    if "slo" in raw:
+        out["slo"] = _coerce(SloConfig, raw["slo"], "slo")
     extra = sorted(set(raw) & set(_UNPORTED_SECTIONS))
     if extra:
         log.info("ignoring config sections this package does not use: %s", extra)

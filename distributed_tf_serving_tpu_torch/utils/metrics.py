@@ -526,6 +526,50 @@ _HELP = {
         "1 while this replica's own shadow verification has it marked "
         "suspect (also gossiped in the fleet record so routers steer "
         "around it); clears after suspect_clear_passes clean compares",
+    "dts_tpu_fleet_router_integrity_audits_total":
+        "Router-side two-replica bit-identity audits by outcome: run = "
+        "sampled forwards fanned to two replicas, disagreed = the score "
+        "bytes differed, suspect_marked = a third replica broke the tie "
+        "and the minority was busy-biased in the scoreboard",
+    "dts_tpu_fleet_agg_qps":
+        "Fleet-aggregated rolling request rate: the sum of member-"
+        "reported windowed qps (scraped /monitoring wires; gossip-"
+        "piggybacked summaries when a member is scrape-unreachable)",
+    "dts_tpu_fleet_agg_latency_ms":
+        "Fleet windowed latency quantiles from the merged member bucket "
+        "counts (an exact histogram merge, not an average of member "
+        "percentiles)",
+    "dts_tpu_fleet_agg_requests":
+        "Sum of member-reported lifetime requests (gauge: member churn "
+        "and restarts can lower it)",
+    "dts_tpu_fleet_agg_errors":
+        "Sum of member-reported lifetime errors (gauge: member churn "
+        "and restarts can lower it)",
+    "dts_tpu_fleet_agg_members":
+        "Members contributing to the current fleet aggregate",
+    "dts_tpu_fleet_agg_members_degraded":
+        "Members whose contribution fell back to the gossip-piggybacked "
+        "summary because the /monitoring scrape failed",
+    "dts_tpu_fleet_agg_member_qps":
+        "Per-member windowed request rate as the router aggregated it",
+    "dts_tpu_slo_latency_target_ms":
+        "Configured latency SLO target: a request is `good` for the "
+        "latency SLI when it completes under this",
+    "dts_tpu_slo_objective":
+        "Configured good-fraction objective per SLO",
+    "dts_tpu_slo_burn_rate":
+        "Error-budget burn rate per SLO and window: bad fraction over "
+        "the window divided by the budget (1 - objective); 1.0 consumes "
+        "the budget exactly at the sustainable rate",
+    "dts_tpu_slo_budget_remaining":
+        "Fraction of the long-window error budget not yet consumed",
+    "dts_tpu_slo_breached":
+        "1 while BOTH burn windows of some SLO exceed the fast "
+        "threshold (the multi-window page condition; breaching traces "
+        "are force-kept via the slo.burn span annotation)",
+    "dts_tpu_slo_breaches_total":
+        "Breach episodes since the monitor started (0->1 transitions "
+        "of dts_tpu_slo_breached)",
 }
 
 
@@ -691,10 +735,73 @@ class ServerMetrics:
             }
         return out
 
+    # -------------------------------------------------------- fleet wire
+    # The fleet aggregator's member-side surfaces: a full wire
+    # snapshot served on the gossip port's /monitoring route, and a cheap
+    # digest piggybacked on every gossip record so the router's aggregate
+    # degrades gracefully when the scrape fails.
+
+    def _window_wires_and_counters(self) -> tuple[dict, int, int]:
+        with self._lock:
+            items = sorted(self._rpcs.items())
+        window = WindowedLatency.merge_dicts(
+            [m.window.to_dict() for _, m in items]
+        )
+        ok = sum(m.ok for _, m in items)
+        errors = sum(m.errors for _, m in items)
+        return window, ok, errors
+
+    def fleet_wire(self) -> dict:
+        """Every entrypoint's rolling window merged into ONE wire
+        histogram (the router re-merges members' wires with exact bucket
+        counts), plus lifetime ok/error counters and the lifetime latency
+        bucket counts the SLO monitor diffs — monotonic within a process,
+        so the router clamps per-member deltas across restarts."""
+        window, ok, errors = self._window_wires_and_counters()
+        with self._lock:
+            items = sorted(self._rpcs.items())
+        life_counts = [0] * _NUM_BUCKETS
+        life_total, life_sum = 0, 0.0
+        for _, m in items:
+            c, t, s, _mn, _mx = m.latency._state()
+            for i, v in enumerate(c):
+                if v:
+                    life_counts[i] += v
+            life_total += t
+            life_sum += s
+        return {
+            "uptime_s": round(self._clock() - self._start, 1),
+            "ok": ok,
+            "errors": errors,
+            "window": window,
+            "lifetime": {
+                "total": life_total,
+                "sum_us": round(life_sum, 1),
+                "buckets": {
+                    str(i): c for i, c in enumerate(life_counts) if c
+                },
+            },
+        }
+
+    def fleet_summary(self) -> dict:
+        """Digest of fleet_wire() small enough to ride every gossip
+        record: qps + quantiles only, no mergeable histogram — a
+        gossip-only member contributes its self-reported numbers to the
+        aggregate instead of exact bucket counts."""
+        window, ok, errors = self._window_wires_and_counters()
+        stats = WindowedLatency.wire_stats(window)
+        return {
+            "qps": stats["qps"],
+            "p50_ms": stats["p50_ms"],
+            "p99_ms": stats["p99_ms"],
+            "requests": ok + errors,
+            "errors": errors,
+        }
+
     def prometheus_text(self, batcher_stats=None, cache=None, row_cache=None, overload=None,
                         pipeline=None, kernels=None, integrity=None, cascade=None,
                         utilization=None, quality=None, lifecycle=None,
-                        recovery=None) -> str:
+                        recovery=None, fleet=None) -> str:
         """Prometheus exposition (text format 0.0.4) of the same data
         snapshot() serves as JSON. Metric names mirror tensorflow_model_
         server's monitoring surface (`:tensorflow:serving:request_count` /
@@ -923,6 +1030,8 @@ class ServerMetrics:
             lines.extend(_recovery_prometheus_lines(recovery))
         if kernels is not None:
             lines.extend(_kernel_prometheus_lines(kernels))
+        if fleet is not None:
+            lines.extend(_fleet_prometheus_lines(fleet))
         if cascade is not None:
             lines.extend(_cascade_prometheus_lines(cascade))
         if integrity is not None:
@@ -1380,3 +1489,236 @@ def _kernel_prometheus_lines(kernels: dict) -> list[str]:
         _family_lines(lines, "dts_tpu_kernel_variant_speedup", "gauge")
         lines.extend(speed_lines)
     return lines
+
+
+def _fleet_prometheus_lines(fleet: dict) -> list[str]:
+    """dts_tpu_fleet_* exposition from a fleet_stats() snapshot: gossip membership (member count + members-by-state), exchange /
+    record-disposition counters, the coordinated rollout picture (seq /
+    fraction / blacklist on the router's coordinator; applied seq +
+    apply counters on a replica's follower), and the router's forwarding
+    counters. One function serves BOTH shapes — `role: "router"` carries
+    `router`/`rollout` blocks, `role: "replica"` carries `follower` —
+    so the lint's families-declared-once invariant holds either way."""
+    esc = escape_label_value
+    lines: list[str] = []
+    role = str(fleet.get("role") or "replica")
+    rl = "dts_tpu_fleet_role"
+    _family_lines(lines, rl, "gauge")
+    lines.append(f'{rl}{{role="{esc(role)}"}} 1')
+    gossip = fleet.get("gossip") or {}
+    members = gossip.get("members") or {}
+    mc = "dts_tpu_fleet_members"
+    _family_lines(lines, mc, "gauge")
+    lines.append(f"{mc} {gossip.get('member_count', len(members))}")
+    by_state: dict[str, int] = {}
+    for rec in members.values():
+        st = str((rec or {}).get("state") or "unknown")
+        by_state[st] = by_state.get(st, 0) + 1
+    ms = "dts_tpu_fleet_members_by_state"
+    _family_lines(lines, ms, "gauge")
+    for st, n in sorted(by_state.items()):
+        lines.append(f'{ms}{{state="{esc(st)}"}} {n}')
+    counters = gossip.get("counters") or {}
+    ex = "dts_tpu_fleet_gossip_exchanges_total"
+    _family_lines(lines, ex, "counter")
+    lines.append(f'{ex}{{status="ok"}} {counters.get("exchanges_ok", 0)}')
+    lines.append(
+        f'{ex}{{status="failed"}} {counters.get("exchanges_failed", 0)}'
+    )
+    rec_t = "dts_tpu_fleet_gossip_records_total"
+    _family_lines(lines, rec_t, "counter")
+    for disp in ("accepted", "stale", "expired"):
+        lines.append(
+            f'{rec_t}{{disposition="{esc(disp)}"}} '
+            f'{counters.get(f"records_{disp}", 0)}'
+        )
+    rollout = fleet.get("rollout") or {}
+    follower = fleet.get("follower") or {}
+    state = rollout.get("state") or {}
+    if state or follower:
+        seq = "dts_tpu_fleet_rollout_seq"
+        _family_lines(lines, seq, "gauge")
+        if state:
+            lines.append(f'{seq}{{side="coordinator"}} {state.get("seq", 0)}')
+        if follower:
+            lines.append(
+                f'{seq}{{side="applied"}} {follower.get("applied_seq", -1)}'
+            )
+    if state:
+        for metric, value in (
+            ("dts_tpu_fleet_rollout_fraction", state.get("fraction", 0.0)),
+            ("dts_tpu_fleet_rollout_canary_version",
+             state.get("canary_version") or 0),
+            ("dts_tpu_fleet_rollout_blacklist_size",
+             len(state.get("blacklist") or ())),
+        ):
+            _family_lines(lines, metric, "gauge")
+            lines.append(f"{metric} {value}")
+        rc = rollout.get("counters") or {}
+        ch = "dts_tpu_fleet_rollout_changes_total"
+        _family_lines(lines, ch, "counter")
+        for kind in ("adoptions", "blacklists", "clears"):
+            lines.append(f'{ch}{{kind="{esc(kind)}"}} {rc.get(kind, 0)}')
+    if follower:
+        ap = "dts_tpu_fleet_rollout_applies_total"
+        _family_lines(lines, ap, "counter")
+        lines.append(f"{ap} {follower.get('applies', 0)}")
+        bl = "dts_tpu_fleet_rollout_blacklists_applied_total"
+        _family_lines(lines, bl, "counter")
+        lines.append(f"{bl} {follower.get('blacklists_applied', 0)}")
+    router = fleet.get("router") or {}
+    if router:
+        rr = "dts_tpu_fleet_router_requests_total"
+        _family_lines(lines, rr, "counter")
+        lines.append(f'{rr}{{status="ok"}} {router.get("requests", 0)}')
+        lines.append(f'{rr}{{status="error"}} {router.get("errors", 0)}')
+        lines.append(
+            f'{rr}{{status="degraded"}} {router.get("degraded", 0)}'
+        )
+        st = "dts_tpu_fleet_router_steers_total"
+        _family_lines(lines, st, "counter")
+        lines.append(
+            f'{st}{{source="gossip"}} {router.get("gossip_steers", 0)}'
+        )
+        lines.append(
+            f'{st}{{source="watch"}} {router.get("watch_updates", 0)}'
+        )
+        lines.append(
+            f'{st}{{source="suspect"}} {router.get("suspect_steers", 0)}'
+        )
+        au = "dts_tpu_fleet_router_integrity_audits_total"
+        _family_lines(lines, au, "counter")
+        for outcome, key in (
+            ("run", "integrity_audits"),
+            ("disagreed", "audit_disagreements"),
+            ("suspect_marked", "audit_suspects_marked"),
+        ):
+            lines.append(
+                f'{au}{{outcome="{esc(outcome)}"}} {router.get(key, 0)}'
+            )
+        rj = "dts_tpu_fleet_router_rejoins_total"
+        _family_lines(lines, rj, "counter")
+        lines.append(f"{rj} {router.get('gossip_rejoins', 0)}")
+        hb = "dts_tpu_fleet_router_healthy_backends"
+        _family_lines(lines, hb, "gauge")
+        lines.append(f"{hb} {router.get('healthy_backends', 0)}")
+        tb = "dts_tpu_fleet_router_backends"
+        _family_lines(lines, tb, "gauge")
+        lines.append(f"{tb} {router.get('backends', 0)}")
+    # Fleet aggregate + SLO blocks: present only on a router
+    # whose observability plane is armed — fleet_stats() attaches them.
+    agg = fleet.get("agg") or {}
+    if agg:
+        aq = "dts_tpu_fleet_agg_qps"
+        _family_lines(lines, aq, "gauge")
+        lines.append(f"{aq} {agg.get('qps', 0.0)}")
+        al = "dts_tpu_fleet_agg_latency_ms"
+        _family_lines(lines, al, "gauge")
+        for q in ("p50", "p99"):
+            lines.append(
+                f'{al}{{quantile="{q}"}} {agg.get(f"{q}_ms", 0.0)}'
+            )
+        for metric, value in (
+            ("dts_tpu_fleet_agg_requests", agg.get("requests", 0)),
+            ("dts_tpu_fleet_agg_errors", agg.get("errors", 0)),
+            ("dts_tpu_fleet_agg_members", agg.get("members", 0)),
+            ("dts_tpu_fleet_agg_members_degraded",
+             agg.get("members_degraded", 0)),
+        ):
+            _family_lines(lines, metric, "gauge")
+            lines.append(f"{metric} {value}")
+        per = agg.get("member_qps") or {}
+        if per:
+            mq = "dts_tpu_fleet_agg_member_qps"
+            _family_lines(lines, mq, "gauge")
+            for member, v in sorted(per.items()):
+                lines.append(f'{mq}{{member="{esc(member)}"}} {v}')
+    slo = fleet.get("slo") or {}
+    if slo:
+        lt = "dts_tpu_slo_latency_target_ms"
+        _family_lines(lines, lt, "gauge")
+        lines.append(f"{lt} {slo.get('latency_target_ms', 0.0)}")
+        ob = "dts_tpu_slo_objective"
+        _family_lines(lines, ob, "gauge")
+        for name, v in sorted((slo.get("objectives") or {}).items()):
+            lines.append(f'{ob}{{slo="{esc(name)}"}} {v}')
+        br = "dts_tpu_slo_burn_rate"
+        _family_lines(lines, br, "gauge")
+        for name, wins in sorted((slo.get("burn") or {}).items()):
+            for win in ("short", "long"):
+                lines.append(
+                    f'{br}{{slo="{esc(name)}",window="{win}"}} '
+                    f'{(wins or {}).get(win, 0.0)}'
+                )
+        bu = "dts_tpu_slo_budget_remaining"
+        _family_lines(lines, bu, "gauge")
+        for name, v in sorted((slo.get("budget_remaining") or {}).items()):
+            lines.append(f'{bu}{{slo="{esc(name)}"}} {v}')
+        bd = "dts_tpu_slo_breached"
+        _family_lines(lines, bd, "gauge")
+        lines.append(f"{bd} {1 if slo.get('breached') else 0}")
+        bt = "dts_tpu_slo_breaches_total"
+        _family_lines(lines, bt, "counter")
+        lines.append(f"{bt} {slo.get('breaches', 0)}")
+    return lines
+
+
+def fleet_prometheus_text(fleet: dict) -> str:
+    """Standalone dts_tpu_fleet_* exposition — the router's /metrics body
+    (the router has no ServerMetrics; its only Prometheus surface is the
+    fleet plane itself). Replica-side fleet series ride the main
+    prometheus_text(fleet=...) path instead."""
+    return "\n".join(_fleet_prometheus_lines(fleet)) + "\n"
+
+
+def resilience_prometheus_text(resilience: dict) -> str:
+    """Prometheus text exposition of the CLIENT resilience state — the
+    dict client.ShardedPredictClient.resilience_counters() returns
+    (ResilienceCounters fields + an optional BackendScoreboard snapshot).
+    The client has no scrape port of its own; a load harness writes this
+    next to its artifacts so fleet dashboards ingest client-side hedging
+    /failover/ejection state in the same format as the server plane."""
+    esc = escape_label_value
+    lines = []
+    for key in (
+        "hedges_fired", "hedges_won", "failovers",
+        "backoff_sleeps", "partial_responses",
+    ):
+        if key in resilience:
+            metric = f"dts_tpu_client_{key}_total"
+            lines.append(f"# TYPE {metric} counter")
+            lines.append(f"{metric} {int(resilience[key])}")
+    sb = resilience.get("scoreboard")
+    if sb:
+        for key in ("ejections", "probes", "recoveries"):
+            if key in sb:
+                metric = f"dts_tpu_client_{key}_total"
+                lines.append(f"# TYPE {metric} counter")
+                lines.append(f"{metric} {int(sb[key])}")
+        backends = sb.get("backends", {})
+        if backends:
+            lines.append("# TYPE dts_tpu_client_backend_up gauge")
+            lines.append("# TYPE dts_tpu_client_backend_ewma_ms gauge")
+            lines.append("# TYPE dts_tpu_client_backend_successes_total counter")
+            lines.append("# TYPE dts_tpu_client_backend_failures_total counter")
+            for host, st in backends.items():
+                label = f'host="{esc(host)}"'
+                up = 1 if st.get("state") == "healthy" else 0
+                lines.append(
+                    f'dts_tpu_client_backend_up{{{label},'
+                    f'state="{esc(st.get("state", ""))}"}} {up}'
+                )
+                if st.get("ewma_ms") is not None:
+                    lines.append(
+                        f"dts_tpu_client_backend_ewma_ms{{{label}}} "
+                        f'{st["ewma_ms"]}'
+                    )
+                lines.append(
+                    f"dts_tpu_client_backend_successes_total{{{label}}} "
+                    f'{st.get("successes", 0)}'
+                )
+                lines.append(
+                    f"dts_tpu_client_backend_failures_total{{{label}}} "
+                    f'{st.get("failures", 0)}'
+                )
+    return "\n".join(lines) + "\n" if lines else ""

@@ -355,13 +355,118 @@ def test_checkpoint_lifecycle_imports_no_jax_safetensors_or_orbax():
 
 
 def test_grpc_and_protobuf_stay_in_the_transport_modules():
-    allowed = {"proto", "codec.py", "service.py", "server.py"}
+    # The transport modules: the bindings, the codec, the service and the
+    # server; and the two modules that speak gRPC as a caller, the fan-out
+    # client and the fleet router.
+    allowed = {"proto", "codec.py", "serving/service.py", "serving/server.py",
+               "client/client.py", "fleet/router.py"}
     for f in PORT.rglob("*.py"):
         rel = f.relative_to(PORT)
-        if rel.parts[0] in allowed or rel.name in allowed:
+        if rel.parts[0] in allowed or rel.as_posix() in allowed:
             continue
         mods = _imports(f)
         assert not [m for m in mods if m == "grpc" or m.startswith("google.protobuf")], rel
+
+
+_FLEET_TIER_SCRIPT = r"""
+import asyncio, json, sys
+import distributed_tf_serving_tpu_torch.client as client_pkg
+import distributed_tf_serving_tpu_torch.client.bench  # noqa: F401
+import distributed_tf_serving_tpu_torch.fleet.gossip  # noqa: F401
+import distributed_tf_serving_tpu_torch.fleet.observability  # noqa: F401
+import distributed_tf_serving_tpu_torch.fleet.replica  # noqa: F401
+import distributed_tf_serving_tpu_torch.fleet.rollout  # noqa: F401
+torch_after_client = "torch" in sys.modules
+from distributed_tf_serving_tpu_torch.fleet.router import run_router
+from distributed_tf_serving_tpu_torch.utils.config import load_config
+
+async def main():
+    ready = asyncio.get_running_loop().create_future()
+    task = asyncio.ensure_future(run_router(load_config(sys.argv[1]),
+                                            ready_cb=lambda port, r: ready.set_result(port)))
+    port = await asyncio.wait_for(ready, 60)
+    async with client_pkg.ShardedPredictClient([f"127.0.0.1:{port}"], "DCN",
+                                               timeout_s=2.0) as c:
+        try:
+            await c.predict({"feat_ids": __import__("numpy").zeros((4, 3), "int64")})
+            code = "OK"
+        except client_pkg.PredictClientError as e:
+            code = e.code.name
+    task.cancel()
+    return code
+
+code = asyncio.run(main())
+torch_after_router = "torch" in sys.modules
+import torch
+print(json.dumps({"code": code, "torch_after_client": torch_after_client,
+                  "torch_after_router": torch_after_router,
+                  "cuda_initialized": torch.cuda.is_initialized(),
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def _router_toml(tmp_path) -> Path:
+    cfg = tmp_path / "router.toml"
+    cfg.write_text('[server]\nhost = "127.0.0.1"\nport = 0\n'
+                   '[client]\nhosts = ["127.0.0.1:1"]\nhealth_scoreboard = true\n'
+                   'timeout_s = 1.0\n'
+                   '[fleet]\nenabled = true\nself_id = "router"\nrollout_writer = true\n')
+    return cfg
+
+
+def test_client_fleet_and_router_import_no_jax_and_build_no_cuda_context(tmp_path):
+    """client/ and fleet/ import neither jax nor the JAX package, nor torch
+    (the config module is torch-free); a router forwards (here to a dead
+    backend: UNAVAILABLE) without creating a CUDA context, on a host whose
+    card is hidden."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "-c", _FLEET_TIER_SCRIPT, str(_router_toml(tmp_path))],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stderr
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["code"] == "UNAVAILABLE"
+    assert line["torch_after_client"] is False
+    assert line["torch_after_router"] is False
+    assert line["cuda_initialized"] is False
+    assert [m for m in line["modules"] if _is_jax_side(m)] == []
+    assert "distributed_tf_serving_tpu_torch.ops.cross_kernel" not in line["modules"]
+
+
+def test_the_router_flag_starts_without_a_card(tmp_path):
+    """`serving.server --router` hands off before any stack is built: it
+    binds and serves health with no card, and SIGTERM stops it cleanly,
+    while the same CLI without --router refuses to start there."""
+    import signal
+
+    import grpc
+
+    from distributed_tf_serving_tpu_torch.proto import health as health_proto
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_tf_serving_tpu_torch.serving.server", "--router",
+         "--config", str(_router_toml(tmp_path)), "--port", str(port)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            grpc.channel_ready_future(ch).result(timeout=60)
+            st = health_proto.HealthStub(ch).Check(health_proto.HealthCheckRequest(""),
+                                                   timeout=5).status
+        assert st in (health_proto.SERVING, health_proto.NOT_SERVING)
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert "fleet router up" in err and "CUDA is not available" not in err
 
 
 def test_proto_bindings_are_byte_identical_copies():

@@ -131,14 +131,19 @@ def test_int8_kernel_matches_plain_version_on_card(cuda_device, shape, compute_d
 @pytest.mark.parametrize("quantized", [False, True])
 def test_forced_cluster_matches_plain_version_on_card(cuda_device, cluster, shape, n, quantized):
     """The bf16 kernel with each cluster size forced, float and int8
-    weights, at widths whose layers leave some ranks no column tile."""
+    weights, at widths whose layers leave some ranks no column tile: the
+    bits of C = 1 (rank 0 sums the head whole, in C = 1's order), and within
+    the bf16 tolerance of the plain version."""
     cfg, _, params = _setup(cuda_device, "bfloat16", *shape)
     sw = ck.build_fused_serve(quantize_params(params) if quantized else params, cfg).serve_weights
     ids, wts = _inputs(cfg, n, cuda_device, seed=n + cluster)
+    base = ck.fused_serve(ids, wts, sw, _cluster=1)
     ck.reset_launches()
     out = ck.fused_serve(ids, wts, sw, _cluster=cluster)
     torch.cuda.synchronize()
     assert _launched() == {("fused_serve_int8" if quantized else "fused_serve", "bfloat16"): 1}
+    assert torch.equal(out["logits"], base["logits"])
+    assert torch.equal(out["prediction_node"], base["prediction_node"])
     ref = ck.fused_serve_reference(ids, wts, sw)
     torch.testing.assert_close(out["prediction_node"], ref["prediction_node"], rtol=0,
                                atol=SERVE_TOL["bfloat16"])

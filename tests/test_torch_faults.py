@@ -142,15 +142,40 @@ def test_env_strings_parse_to_the_same_rules(monkeypatch, spec):
                 _draws(jax_faults.get(), site, 40, key="k1")
 
 
-@pytest.mark.parametrize("site,item", sorted(faults.UNPORTED_SITES.items()))
-def test_a_site_that_is_not_ported_is_refused_with_its_item(monkeypatch, site, item):
-    match = f"fault site '{site}' is not ported yet \\(ROADMAP.md Queue A item {item}\\)"
-    with pytest.raises(ValueError, match=match):
-        faults.FaultInjector().add(site, "error")
-    monkeypatch.setenv("DTS_TPU_FAULTS", f"decode=delay,delay=0.1;{site}=error")
-    with pytest.raises(ValueError, match=match):
-        faults.configure_from_env()
-    jax_faults.FaultInjector().add(site, "error")  # the JAX package takes it
+def test_every_site_of_the_jax_package_fires_here():
+    assert faults.UNPORTED_SITES == {}
+    assert set(jax_faults.SITES) <= set(faults.SITES)
+
+
+@pytest.mark.parametrize("site,key", [("client.rpc", "127.0.0.1:9001"),
+                                      ("wire_corrupt", "feat_wts"),
+                                      ("wire_corrupt", "response")])
+def test_a_client_site_takes_rules_and_fires_as_the_jax_package_s(monkeypatch, site, key):
+    """The client's two sites, once refused here, take rules from the
+    environment and draw as the JAX package's do, sync and async."""
+    monkeypatch.setenv("DTS_TPU_FAULTS", f"decode=delay,delay=0.1;{site}=error,rate=0.5,key={key}")
+    monkeypatch.setenv("DTS_TPU_FAULT_SEED", "3")
+    assert faults.configure_from_env() == jax_faults.configure_from_env() == 2
+    assert _draws(faults.get(), site, 40, key=key) == _draws(jax_faults.get(), site, 40, key=key)
+    assert _draws(faults.get(), site, 5, key="other") == [False] * 5
+
+    async def fire_async():
+        out = []
+        for _ in range(20):
+            try:
+                await faults.fire_async(site, key)
+                out.append(False)
+            except faults.InjectedFaultError:
+                out.append(True)
+        return out
+
+    faults.reset(3)
+    jax_faults.reset(3)
+    faults.get().add(site, "error", rate=0.5, key=key)
+    jax_faults.get().add(site, "error", rate=0.5, key=key)
+    import asyncio
+
+    assert asyncio.run(fire_async()) == _draws(jax_faults.get(), site, 20, key=key)
 
 
 @pytest.mark.parametrize("spec,match", [

@@ -579,9 +579,7 @@ def test_integrity_config_parsing(tmp_path):
     ic = load_config(p)["integrity"]
     assert ic.enabled and ic.shadow_fraction == 0.25 and ic.screen_trips_per_window == 5
     assert (ic.screen_min, ic.screen_max) == (0.0, 1.0)
-    theirs = dataclasses.asdict(jax_config.load_config(p)["integrity"])
-    assert theirs.pop("router_audit_fraction") == 0.0
-    assert dataclasses.asdict(ic) == theirs
+    assert dataclasses.asdict(ic) == dataclasses.asdict(jax_config.load_config(p)["integrity"])
     p2 = tmp_path / "empty.toml"
     p2.write_text("")
     assert "integrity" not in load_config(p2)
@@ -597,8 +595,9 @@ def test_integrity_config_parsing(tmp_path):
         load_config(p3)
     p4 = tmp_path / "router.toml"
     p4.write_text("[integrity]\nenabled = true\nrouter_audit_fraction = 0.01\n")
-    with pytest.raises(ValueError, match="not ported yet \\(ROADMAP.md Queue A item 8\\)"):
-        load_config(p4)
+    assert load_config(p4)["integrity"].router_audit_fraction == 0.01
+    with pytest.raises(ValueError, match="router_audit_fraction"):
+        IntegrityConfig(router_audit_fraction=1.5)
 
 
 def test_shadow_refuses_score_cache():

@@ -92,9 +92,6 @@ REFUSED = [
     # Refused with its reason, not an item: a CUDA context has no in-process
     # rebuild (serving/recovery.py).
     ("[recovery]\nreinit_clear_backend = true\n", "a CUDA context cannot be rebuilt in-process"),
-    ("[integrity]\nrouter_audit_fraction = 0.5\n", 8),
-    ("[fleet]\nenabled = true\n", 8),
-    ("[slo]\nenabled = true\n", 8),
 ]
 
 
@@ -130,6 +127,17 @@ PORTED = [
      "fine_tune_interval_s = 900.0\nfine_tune_steps = 64\n", "lifecycle", "fine_tune_steps", 64),
     ("[recovery]\nenabled = true\nwatchdog_interval_s = 0.1\nwedge_quarantine_s = 1.0\n",
      "recovery", "enabled", True),
+    ("[integrity]\nrouter_audit_fraction = 0.5\n", "integrity", "router_audit_fraction", 0.5),
+    ("[fleet]\nenabled = true\n", "fleet", "enabled", True),
+    ("[fleet]\nenabled = true\nself_id = \"r1\"\npeers = [\"127.0.0.1:7001\"]\n"
+     "gossip_interval_s = 0.25\nrollout_writer = true\n", "fleet", "peers", ("127.0.0.1:7001",)),
+    ("[slo]\nenabled = true\n", "slo", "enabled", True),
+    ("[slo]\nenabled = true\nlatency_target_ms = 100.0\nshort_window_s = 2.0\n"
+     "long_window_s = 8.0\n", "slo", "latency_target_ms", 100.0),
+    ("[client]\nhosts = [\"127.0.0.1:1\", \"127.0.0.1:2\"]\ncandidate_num = 1000\n"
+     "concurrent_num = 4\n", "client", "hosts", ("127.0.0.1:1", "127.0.0.1:2")),
+    ("[client]\nhealth_scoreboard = true\nplacement = \"affinity\"\n", "client", "placement",
+     "affinity"),
 ]
 
 
@@ -140,12 +148,10 @@ def test_a_setting_ported_since_loads_like_jax(tmp_path, text, section, key, val
     theirs_section = jax_config.load_config(_toml(tmp_path, text))[section]
     ours, theirs = getattr(ours_section, key), getattr(theirs_section, key)
     assert ours == theirs == value
-    if section in ("cache", "overload", "integrity", "cascade", "utilization",
-                   "quality", "lifecycle", "recovery"):  # every field, as the JAX package reads it
-        theirs_fields = dataclasses.asdict(theirs_section)
-        if section == "integrity":  # the router's knob is not ported (refused away from 0)
-            assert theirs_fields.pop("router_audit_fraction") == 0.0
-        assert dataclasses.asdict(ours_section) == theirs_fields
+    if section in ("cache", "overload", "integrity", "cascade", "utilization", "quality",
+                   "lifecycle", "recovery", "fleet", "slo", "client"):
+        # every field, as the JAX package reads it
+        assert dataclasses.asdict(ours_section) == dataclasses.asdict(theirs_section)
 
 
 IGNORED = [
@@ -191,7 +197,8 @@ def test_the_key_tables_are_the_jax_package_s():
               "utilization": torch_config.UtilizationConfig,
               "quality": torch_config.QualityConfig,
               "lifecycle": torch_config.LifecycleConfig,
-              "recovery": torch_config.RecoveryConfig}
+              "recovery": torch_config.RecoveryConfig, "client": torch_config.ClientConfig,
+              "fleet": torch_config.FleetConfig, "slo": torch_config.SloConfig}
     assert set(ported) | set(torch_config._UNPORTED_SECTIONS) == set(jax_fields)
     for section, (keys, switches, _) in torch_config._UNPORTED_SECTIONS.items():
         assert set(keys) == jax_fields[section], section
@@ -728,16 +735,16 @@ def test_cli_refuses_a_version_label_beside_a_model_config_file(tmp_path):
 
 
 def test_cli_refuses_an_unported_plane_before_it_starts(tmp_path):
-    cfg = _toml(tmp_path, "[fleet]\nenabled = true\n")
+    cfg = _toml(tmp_path, "[mesh]\nenabled = true\n")
     res = subprocess.run(
         [sys.executable, "-m", "distributed_tf_serving_tpu_torch.serving.server", "--device",
          "cpu", "--port", "0", "--config", str(cfg)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
-    assert "[fleet] enabled = true is not ported yet (ROADMAP.md Queue A item 8)" in res.stderr
+    assert "[mesh] enabled = true is not ported yet (ROADMAP.md Queue A item 9)" in res.stderr
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--router"])
+@pytest.mark.parametrize("flag", ["--mesh", "--elastic"])
 def test_flags_of_later_slices_stay_unrecognized(flag, capsys):
     from distributed_tf_serving_tpu_torch.serving.server import serve
 

@@ -329,7 +329,7 @@ def test_cli_serves_on_cpu_and_stops_on_sigterm(tmp_path):
         "max_wait_us = 0\n[model]\nnum_fields = 6\nvocab_size = 4096\nembed_dim = 4\n"
         "mlp_dims = [16]\nnum_cross_layers = 2\ncompute_dtype = \"float32\"\n"
         f"[kernels]\nenabled = true\ntable_file = \"{tmp_path / 'table.json'}\"\n"
-        "[client]\nconcurrent_num = 4\n"
+        "[mesh]\ndevices = 4\n"
     )
     proc = subprocess.Popen(
         [sys.executable, "-m", "distributed_tf_serving_tpu_torch.serving.server",
@@ -354,7 +354,7 @@ def test_cli_serves_on_cpu_and_stops_on_sigterm(tmp_path):
         out, _ = proc.communicate(timeout=30)
         assert proc.returncode == 0, out
         assert "ignoring config sections" in out and "shutdown complete" in out
-        assert "['client']" in out and "kernel autotune DCN v1: {8: " in out
+        assert "['mesh']" in out and "kernel autotune DCN v1: {8: " in out
     finally:
         if proc.poll() is None:
             proc.kill()
