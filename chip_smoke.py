@@ -206,8 +206,8 @@ Phases (any failure exits non-zero and prints no result line):
              serve kernel and no GEMM runs (a window in which the profiler
              dropped a kernel event is measured again, at most 3). Then the CLI server with
              --rest-port, --tracing and --metrics-every-s 1: one client at a
-             time sends 20 gRPC Predicts per size and the same payloads as 20
-             REST Predicts per size in the row and 20 in the columnar format
+             time sends 10 gRPC Predicts per size and the same payloads as 10
+             REST Predicts per size in the row and 10 in the columnar format
              (each REST response bit-identical to the gRPC one, every score
              within 5e-3 of the card's plain forward on the tree the bucket's
              decision picked), 5 REST Classify of n = 7 Examples, and one REST
@@ -406,7 +406,7 @@ Phases (any failure exits non-zero and prints no result line):
              bins = the clients' histogram of those scores on the sketch's
              edges, exactly. (6) The dts_tpu_utilization_* and
              dts_tpu_quality_* lines pass tools/check_prom.py; SIGTERM
-             exits 0. (7) The same loop, at 125 Predicts per client, on an
+             exits 0. (7) The same loop, at 60 Predicts per client, on an
              in-process stack of the same configuration with both planes,
              detached for off: off / on /
              on / off, then utilization / quality / quality / utilization
@@ -591,6 +591,49 @@ Phases (any failure exits non-zero and prints no result line):
              and each logs device cuda. `chip_smoke.py --fleet-only` builds
              the kernels and runs this phase alone (the edge pause from
              the environment's FLEET_EDGE_PAUSE_S), printing its result.
+21. mesh  — serving over a mesh (parallel/, the batcher's run_fn hook,
+             [mesh] / [elastic], serving/multihost_server.py) on one card:
+             configs/latency.toml's dcn_v2 with use_pallas_cross, one
+             save_servable checkpoint (seed 0; v2 seed 1). Every server
+             process starts at once. (1) A CLI server with [mesh] enabled,
+             devices = 1 and an in-process plain server (fused serve kernel
+             off), both on model.apply and the cross-stack kernel: filtered
+             Predicts of n = 7, 1000 and 2048 answer the same bits, the
+             plain ones those of the plain forward on the card. (2) In
+             process, ShardedExecutor over logical (2, 2), (4, 1) and
+             (1, 4) meshes of cuda:0 (vocab-sharded, EP) at 5, 1000 and
+             2048 rows, filtered and unfiltered: the bits of each data
+             shard's rows scored alone on the card (exact), against the
+             single-device bits recorded (a row whose bits move with its
+             shard's row count is held to the cross kernel's 2e-2 and
+             listed in `row_count_faults`); each call launches the cross
+             stack once per data shard; the int8 wire over the pad (5 rows
+             on 2 data shards) is exactly the host round trip of the
+             unpadded scores; TP at (2, 2) in f32 (the f32 cross stack
+             under the weight all-gather) within rtol 1e-5 of the
+             replicated layout; ms per 2048-row batch at (2, 2) against a
+             1 x 1 mesh. (3) An in-process elastic stack (ladder 4x1 / 2x2 /
+             1x4 over four logical shards of cuda:0, from 1x4, [overload]
+             on) under 4 spawned clients of n = 2048 (the top bucket: no
+             two requests coalesce): the `pressure` fault site pinned
+             BROWNOUT drives it up to 4x1, pinned NOMINAL with the clients
+             paced 0.5 s down to 1x4; the history must read 1x4 -> 2x2 ->
+             4x1 -> 2x2 -> 1x4 with every drain recorded, 0 Predicts fail,
+             every answer is the bits of one split's shards for its payload,
+             and the dts_tpu_elastic_* series pass tools/check_prom.py. (4)
+             multihost_server at world size 1 (NCCL) answers the plain
+             server's bits; two processes on cuda:0 (gloo) answer the bits
+             of their two row blocks, reload v2 through the leader's watcher
+             under paced Predicts (every 20 ms, 0 failed), and release the
+             follower on the leader's SIGTERM (both exit 0); a second gloo
+             pair's SIGKILLed follower makes its leader exit nonzero within
+             20 s (2 x HEARTBEAT_TIMEOUT_S). (5) With the other processes
+             gone, n = 1000 Predict p50 of the [mesh] server against the
+             plain one (in turns), its /meshz (shape 1 x 1, batches,
+             layout rules:dcn_v2) and dts_tpu_mesh_* series (lint-clean),
+             and its served launches (the cross stack, no fused serve).
+             Results in chiprun_out/mesh.json; `chip_smoke.py --mesh-only`
+             builds the kernels and runs this phase alone.
 
 The lifecycle and models phases clear the device input cache before each
 memory read (its entries belong to the batcher, not to a version) and print
@@ -616,7 +659,9 @@ path's (the plane stack's requests and the breaker stack's),
 `launches_recovery`; the savedmodel phase's import server over its
 Predicts, `launches_savedmodel`, and its base-path server from v1's load to
 its exit, `launches_savedmodel_base`; the fleet phase's three replicas'
-served launches, `launches_fleet`), the
+served launches, `launches_fleet`; the mesh phase's, `launches_mesh`: its
+[mesh] CLI server's and multi-process servers' served launches, its logical
+meshes' calls and its elastic run), the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. Every line it
 logs is also kept in chiprun_out/chip_smoke.log.
 """
@@ -3321,7 +3366,7 @@ def _models_memory(config_file: str, cfg, base: str, replay_file: str, payloads)
 
 
 REST_SIZES = (7, 1000, 2048)  # configs/latency.toml's candidate counts
-REST_REPEATS = 20  # REST Predicts per size and format, and gRPC Predicts per size
+REST_REPEATS = 10  # REST Predicts per size and format, and gRPC Predicts per size
 REST_CLASSIFY = 5  # REST Classify requests of n = 7 Examples
 REST_PROFILED = 5  # REST Predicts per size of the in-process path under torch.profiler
 REST_TRACE_IDS = {"rest": "0af7651916cd43dd8448eb211c80319c",
@@ -6002,7 +6047,7 @@ UTIL_CAPTURE_S = 1.0  # POST /profilez/start?seconds=
 UTIL_SUM_TOL = 0.02  # the waterfall's components against its wall
 # The cost loop's runs: both planes off / on / on / off, then each alone.
 UTIL_COST_RUNS = ("off", "on", "on", "off", "utilization", "quality", "quality", "utilization")
-UTIL_COST_PER_CLIENT = 125  # Predicts per client process in each cost run
+UTIL_COST_PER_CLIENT = 60  # Predicts per client process in each cost run
 UTIL_QUALITY_TOML = ("\n[quality]\nwindow_seconds = 2.0\nslices = 4\n"
                      "drift_check_interval_s = 0.25\n")
 UTIL_DRIFT = (10, 50)  # drift Predicts (n = UTIL_LOOP[2]), the top rows they repeat
@@ -7074,7 +7119,11 @@ def phase_freshness(dev, name: str) -> dict:
             d, dataclasses.replace(src, params=poisoned, version=stable + 1), kind="dcn_v2"),
             at_least=stable + 1)
         t_pub = time.monotonic()
-        lz = _lifecycle_wait(http, lambda s: s["counters"]["rollbacks"] >= 1,
+        # The controller counts the rollback before it retires the version
+        # and records the `rolled_back` transition (as the JAX package's
+        # does): wait for the transition, so the snapshot is whole.
+        lz = _lifecycle_wait(http, lambda s: s["counters"]["rollbacks"] >= 1
+                             and _event(s, "rolled_back", version=version) is not None,
                              f"the rollback of v{version}", proc)
         time.sleep(3 * FRESH_POLL_S)  # reconcile passes over the still-ready directory
         lz_after = http.json("GET", "/lifecyclez")
@@ -8439,7 +8488,8 @@ def _get_json(port: int, path: str, body: dict | None = None, timeout: float = 1
         conn.close()
 
 
-def _poll(fn, what: str, timeout: float = FLEET_WAIT_S, every: float = 0.05):
+def _poll(fn, what: str, timeout: float = FLEET_WAIT_S, every: float = 0.05,
+          phase: str = "fleet"):
     """fn()'s first truthy value and the seconds it took; the run fails
     after `timeout`. An exception in fn counts as not yet."""
     t0 = time.perf_counter()
@@ -8451,7 +8501,7 @@ def _poll(fn, what: str, timeout: float = FLEET_WAIT_S, every: float = 0.05):
         if v:
             return v, time.perf_counter() - t0
         if time.perf_counter() - t0 > timeout:
-            fail(f"fleet: no {what} within {timeout} s")
+            fail(f"{phase}: no {what} within {timeout} s")
         time.sleep(every)
 
 
@@ -8495,7 +8545,7 @@ def _prom_lint(text: str, what: str) -> None:
     lint = subprocess.run([sys.executable, os.path.join(HERE, "tools", "check_prom.py"), "-"],
                           input=text.encode(), capture_output=True, timeout=60)
     if lint.returncode != 0:
-        fail(f"fleet: {what} fails tools/check_prom.py: {lint.stdout[-400:]!r} "
+        fail(f"{what} fails tools/check_prom.py: {lint.stdout[-400:]!r} "
              f"{lint.stderr[-400:]!r}")
 
 
@@ -8960,7 +9010,682 @@ def phase_fleet(dev, name: str) -> dict:
     return res
 
 
-def main(fleet_only: bool = False) -> None:
+MESH_SIZES = (7, 1000, 2048)  # the reference-shaped Predicts of step 1 and 4
+MESH_LOGICAL = ((2, 2), (4, 1), (1, 4))  # (data, model) meshes over cuda:0 of step 2
+MESH_ROWS = (5, 1000, 2048)  # step 2's batch rows (5: the data-axis pad)
+MESH_LADDER = ("4x1", "2x2", "1x4")  # step 3's split ladder over four logical shards
+MESH_N = 1000  # candidates per Predict of the paced traffic
+# Candidates per Predict of the elastic clients: the top bucket, so no two
+# requests coalesce and each answer's bits are its split's alone.
+MESH_ELASTIC_N = 2048
+MESH_CLIENTS = 4  # the elastic closed loop's client processes
+MESH_REPEATS = 20  # sequential Predicts per server for the p50 line
+MESH_TIMED = 10  # executor calls per mesh for the ms-per-batch line
+MESH_POLL_S = 0.25  # --file-system-poll-wait-seconds of the multi-process servers
+MESH_PACE_S = 0.02  # the paced traffic's pause between Predicts during the RELOAD
+MESH_HOLD_S = 1.0  # elastic traffic on each split before the next forced move
+# The elastic clients' pause between Predicts once the load is let down:
+# long enough that the queue is empty at most controller ticks.
+MESH_SLOW_S = 0.5
+MESH_WAIT_S = 60.0  # bound on each wait of the phase
+MESH_DEATH_S = 20.0  # 2 x multihost_server.HEARTBEAT_TIMEOUT_S: a dead follower's bound
+# Bits are expected everywhere; a row whose bits move with its shard's row
+# count (a cuBLAS or kernel plan that depends on the rows) is recorded and
+# held to the cross kernel's bf16 tolerance until fixed.
+MESH_TOL = CROSS_TOL["bfloat16"]
+MESH_TP_RTOL = 1e-5  # TP against replicated, in f32 (the JAX test's)
+MESH_ELASTIC = dict(splits=MESH_LADDER, tick_interval_s=0.05, dwell_s=0.5, up_after_ticks=2,
+                    down_after_ticks=3)
+
+
+def _mesh_client(k, port, payload, barrier, slow, stop, results) -> None:
+    """One client process of the mesh phase's elastic closed loop (spawned):
+    one channel, `payload` as Predicts back to back from the barrier until
+    `stop`, MESH_SLOW_S apart once `slow` is set. Puts (answers, failures,
+    {score bytes: [count, scores]}) or ("error", text) on `results`."""
+    import traceback
+
+    try:
+        import grpc
+
+        from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+
+        req = _request(payload["feat_ids"], payload["feat_wts"])
+        ch = _channel(port)
+        call = ch.unary_unary("/tensorflow.serving.PredictionService/Predict",
+                              request_serializer=apis.PredictRequest.SerializeToString,
+                              response_deserializer=apis.PredictResponse.FromString)
+        grpc.channel_ready_future(ch).result(timeout=60)
+        barrier.wait(timeout=120)
+        ok = failed = 0
+        seen: dict = {}
+        while not stop.is_set():
+            try:
+                scores = _scores_of(call(req, timeout=60))
+                ok += 1
+                hit = seen.setdefault(scores.tobytes(), [0, scores])
+                hit[0] += 1
+            except grpc.RpcError:
+                failed += 1
+            if slow.is_set():
+                time.sleep(MESH_SLOW_S)
+        ch.close()
+        results.put((ok, failed, seen))
+    except BaseException:  # noqa: BLE001 — the parent fails the phase with it
+        results.put(("error", traceback.format_exc()))
+
+
+def _launch_lines(path: str) -> dict:
+    """A server log's kernel launch counts: {"start": {...}, "shutdown": {...}}
+    (the multi-process server and the CLI log both lines)."""
+    import re
+
+    out = {}
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"kernel launches at (start|shutdown): (\{.*\})$", line)
+            if m:
+                out[m.group(1)] = json.loads(m.group(2))
+    return out
+
+
+def _served(path: str, what: str) -> dict:
+    """A server's launches from its start line to its shutdown line."""
+    lines = _launch_lines(path)
+    if "shutdown" not in lines:
+        fail(f"mesh: {what} logged no kernel launches at shutdown ({path})")
+    start = lines.get("start", {})
+    return {k: n - start.get(k, 0) for k, n in lines["shutdown"].items() if n - start.get(k, 0)}
+
+
+def phase_mesh(dev, name: str) -> dict:
+    """Serving over a mesh on the card, configs/latency.toml's dcn_v2 (43 x
+    16, vocab 2^20, MLP 256/128/64, 3 cross layers, bf16) with
+    use_pallas_cross, from one save_servable checkpoint (seed 0; v2 seed
+    1). Every server of step 1 and step 4 starts at once at the phase's
+    start. Checks in the module docstring."""
+    import multiprocessing
+    import queue
+    import re
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import grpc
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch import codec, faults
+    from distributed_tf_serving_tpu_torch.client import make_payload
+    from distributed_tf_serving_tpu_torch.models import Servable, build_model, ctr_signatures
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.ops.transfer import restore_outputs_host
+    from distributed_tf_serving_tpu_torch.parallel import ShardedExecutor, make_mesh
+    from distributed_tf_serving_tpu_torch.parallel.mesh import row_blocks
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.serving.batcher import fold_ids_host
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack, create_server
+    from distributed_tf_serving_tpu_torch.train.checkpoint import load_servable, save_servable
+    from distributed_tf_serving_tpu_torch.utils.config import (
+        ElasticConfig,
+        MeshConfig,
+        OverloadConfig,
+        load_config,
+    )
+    from distributed_tf_serving_tpu_torch.utils.metrics import ServerMetrics
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(HERE, "configs", "latency.toml")) as f:
+        text, k = re.subn(r"(?m)^\[model\]\n", "[model]\nuse_pallas_cross = true\n", f.read())
+    if k != 1:
+        fail("configs/latency.toml has no [model] section")
+    tmp = tempfile.mkdtemp(prefix="dts_mesh_")
+    plain_toml = os.path.join(tmp, "plain.toml")
+    mesh_toml = os.path.join(tmp, "mesh.toml")
+    with open(plain_toml, "w") as f:
+        f.write(text)
+    with open(mesh_toml, "w") as f:
+        f.write(text + "\n[mesh]\nenabled = true\ndevices = 1\n")
+    cfgs = load_config(plain_toml)
+    cfg, mc = cfgs["server"], cfgs["model"]
+    F, V = mc.num_fields, mc.vocab_size
+    model = build_model("dcn_v2", mc)
+    params = {v: model.init(v - 1, "cpu") for v in (1, 2)}
+    bases = {}
+    for tag in ("a", "b"):  # b: the RELOAD pair's own, which gets v2
+        bases[tag] = os.path.join(tmp, f"models_{tag}")
+        save_servable(os.path.join(bases[tag], "1"), Servable(
+            name="DCN", version=1, model=model, params=params[1], signatures=ctr_signatures(F)),
+            "dcn_v2")
+    ckpt = os.path.join(bases["a"], "1")
+    buckets = ",".join(str(b) for b in cfg.buckets)
+    pay = {n: make_payload(n, F, seed=SEED + 5000 + n) for n in MESH_SIZES}
+    res: dict = {"card": name}
+    procs: dict = {}  # tag -> (process, log file, log path)
+
+    def spawn(tag: str, argv: list[str]):
+        path = os.path.join(out_dir, f"mesh_{tag}.log")
+        logf = open(path, "w")
+        procs[tag] = (subprocess.Popen([sys.executable, "-m", *argv], cwd=HERE, stdout=logf,
+                                       stderr=subprocess.STDOUT), logf, path)
+
+    def multihost(tag: str, n: int, pid: int, coord: int, port: int, base: str):
+        spawn(tag, [f"{PKG}.serving.multihost_server", "--model-base-path", base,
+               "--num-processes", str(n), "--process-id", str(pid), "--coordinator",
+               f"127.0.0.1:{coord}", "--host", "127.0.0.1", "--port", str(port),
+               "--buckets", buckets, "--file-system-poll-wait-seconds", str(MESH_POLL_S)])
+
+    def ready(port: int, tag: str) -> float:
+        """Seconds until the server on `port` answers GetModelMetadata; the
+        run fails if its process exits first or the wait runs out."""
+        from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
+
+        t0 = time.perf_counter()
+        with _channel(port) as ch:
+            stub = PredictionServiceStub(ch)
+            while True:
+                if procs[tag][0].poll() is not None:
+                    fail(f"mesh: {tag} exited with {procs[tag][0].returncode} before it "
+                         f"answered (log {procs[tag][2]})")
+                try:
+                    stub.GetModelMetadata(apis.GetModelMetadataRequest(
+                        model_spec=apis.ModelSpec(name="DCN")), timeout=2)
+                    return time.perf_counter() - t0
+                except grpc.RpcError:
+                    if time.perf_counter() - t0 > 3 * MESH_WAIT_S:
+                        fail(f"mesh: {tag} did not answer within {3 * MESH_WAIT_S} s")
+                    time.sleep(0.2)
+
+    def stop(tag: str, sig=signal.SIGTERM, timeout: float = MESH_WAIT_S) -> int:
+        proc, logf, _ = procs[tag]
+        if proc.poll() is None:
+            proc.send_signal(sig)
+            try:
+                proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+                fail(f"mesh: {tag} did not exit within {timeout} s of {sig!r}")
+        logf.close()
+        return proc.returncode
+
+    def predict(port: int, payload) -> "np.ndarray":
+        with _channel(port) as ch:
+            scores = _scores_of(PredictionServiceStub(ch).Predict(
+                _request(payload["feat_ids"], payload["feat_wts"]), timeout=120))
+        if scores.shape != payload["feat_ids"].shape[:1] or not np.all(np.isfinite(scores)):
+            fail(f"mesh: a Predict of {payload['feat_ids'].shape[0]} rows on port {port} "
+                 f"answered {scores.shape} / non-finite scores")
+        return scores
+
+    def on_card(p):
+        return {"embedding": p["embedding"].to(dev),
+                **{k: [{n: t.to(dev) for n, t in layer.items()} for layer in p[k]]
+                   for k in ("cross", "mlp")},
+                "out": {n: t.to(dev) for n, t in p["out"].items()}}
+
+    card = {1: on_card(params[1])}
+
+    def reference(version: int, payload, data: int, bucket: int, mdl=None) -> "np.ndarray":
+        """The bits a path must answer: the rows padded to `bucket` (the
+        batcher's pad) and the data axis, each data shard's block in its own
+        call on the card, in shard order (data = 1: the plain server's)."""
+        mdl = mdl or model
+        n = payload["feat_ids"].shape[0]
+        rows = bucket + (-bucket) % data
+        ids = np.zeros((rows, F), np.int32)
+        wts = np.zeros((rows, F), np.float32)
+        ids[:n] = fold_ids_host(payload["feat_ids"], V)
+        wts[:n] = payload["feat_wts"]
+        ids_d, wts_d = torch.from_numpy(ids).to(dev), torch.from_numpy(wts).to(dev)
+        with torch.inference_mode():
+            parts = [mdl.apply(card[version], {"feat_ids": ids_d[lo:hi], "feat_wts": wts_d[lo:hi]})
+                     ["prediction_node"] for lo, hi in row_blocks(rows, data)]
+        return torch.cat(parts)[:n].float().cpu().numpy()
+
+    def bucket_of(n: int) -> int:
+        return next(b for b in cfg.buckets if n <= b)
+
+    faults_seen: list = []
+
+    def against(got, per_shard, plain, what: str) -> dict:
+        """`got` must be the per-shard reference's bits; against the plain
+        (whole-bucket) bits it is recorded (single_device)."""
+        if got.tobytes() != per_shard.tobytes():
+            fail(f"mesh: {what} is not the bits of its shards scored on the card "
+                 f"(max diff {float(np.max(np.abs(got - per_shard))):.3g})")
+        return single_device(got, plain, what)
+
+    def single_device(got, plain, what: str) -> dict:
+        """`got` against the single-device bits: recorded, and held to
+        MESH_TOL where a row's bits moved with its shard's row count."""
+        same = got.tobytes() == plain.tobytes()
+        err = float(np.max(np.abs(got - plain)))
+        if not same:
+            faults_seen.append({"what": what, "max_abs_diff": err})
+            if err > MESH_TOL:
+                fail(f"mesh: {what} is {err:.3g} from the single-device bits (tolerance "
+                     f"{MESH_TOL})")
+        return {"bits_equal_single_device": same, "max_abs_diff": err}
+
+    def bits(a, b, what: str) -> None:
+        if a.tobytes() != b.tobytes():
+            fail(f"mesh: {what}: not the same bits (max diff "
+                 f"{float(np.max(np.abs(a - b))):.3g})")
+
+    def save() -> None:
+        """The results so far, in chiprun_out/mesh.json (read when a later
+        step fails)."""
+        with open(os.path.join(out_dir, "mesh.json"), "w") as f:
+            json.dump(res, f, indent=1, default=str)
+
+    ctx = multiprocessing.get_context("spawn")
+    plain_server = elastic_server = None
+    plain_batcher = elastic_batcher = None
+    clients: list = []
+    try:
+        # 0. Every server at once: the [mesh] CLI (devices = 1), the
+        # multi-process tier at NCCL world size 1, the gloo pair of the
+        # RELOAD / SHUTDOWN run and the gloo pair whose follower dies.
+        ports = {t: _free_port() for t in ("cli", "rest", "mh1", "mh2", "mh3")}
+        coords = {t: _free_port() for t in ("mh1", "mh2", "mh3")}
+        spawn("cli", [f"{PKG}.serving.server", "--host", "127.0.0.1", "--port",
+                      str(ports["cli"]), "--config", mesh_toml, "--checkpoint", ckpt,
+                      "--rest-port", str(ports["rest"])])
+        multihost("mh1", 1, 0, coords["mh1"], ports["mh1"], bases["a"])
+        for pid in (0, 1):
+            multihost(f"mh2_{pid}", 2, pid, coords["mh2"], ports["mh2"], bases["b"])
+            multihost(f"mh3_{pid}", 2, pid, coords["mh3"], ports["mh3"], bases["a"])
+
+        # 1. The plain server in this process: the same checkpoint through
+        # model.apply (fused_kernel off), so both launch the cross stack.
+        plain_impl, plain_batcher, _sv = build_stack(
+            dataclasses.replace(cfg, warmup=True), mc, "cuda", seed=SEED, fused_kernel=False,
+            checkpoint=ckpt)
+        plain_server, plain_port = create_server(plain_impl, "127.0.0.1:0")
+        plain_server.start()
+        ck.reset_launches()
+        plain_scores = {n: predict(plain_port, pay[n]) for n in MESH_SIZES}
+        plain_launches = _launch_counts()
+        for n in MESH_SIZES:
+            bits(plain_scores[n], reference(1, pay[n], 1, bucket_of(n)),
+                 f"the plain server's n={n}")
+        if plain_launches["fused_cross_apply/bfloat16"] < len(MESH_SIZES) or any(
+                v for k, v in plain_launches.items() if k.startswith("fused_serve")):
+            fail(f"mesh: the plain server's Predicts launched {plain_launches}")
+        res["cli_ready_s"] = ready(ports["cli"], "cli")
+        for n in MESH_SIZES:
+            bits(predict(ports["cli"], pay[n]), plain_scores[n],
+                 f"the [mesh] server's n={n} against the plain server's")
+        res["step1"] = {"bits_equal_plain": list(MESH_SIZES), "launches_plain": plain_launches}
+        log(f"mesh: step 1 ({name}): the [mesh] server (devices = 1) answered n = "
+            f"{'/'.join(map(str, MESH_SIZES))} with the plain server's bits")
+        save()
+
+        # 2. Logical meshes over cuda:0, in process: EP over (2, 2) and
+        # (1, 4), rows over (4, 1), against the card's single-device bits.
+        sv = load_servable(ckpt, device=dev)
+        step2: dict = {}
+        mesh_launches = {"fused_cross_apply/bfloat16": 0, "fused_cross_apply/float32": 0}
+        for d, m in MESH_LOGICAL:
+            ex = ShardedExecutor(make_mesh(d * m, m, devices=[dev] * (d * m)))
+            for rows in MESH_ROWS:
+                p = make_payload(rows, F, seed=SEED + 6000 + rows)
+                arrays = {"feat_ids": fold_ids_host(p["feat_ids"], V), "feat_wts": p["feat_wts"]}
+                ck.reset_launches()
+                got = ex(sv, arrays, out_keys=("prediction_node",))["prediction_node"]
+                got = got.float().cpu().numpy()
+                n_launch = ck.launches[("fused_cross_apply", "bfloat16")]
+                mesh_launches["fused_cross_apply/bfloat16"] += n_launch
+                if n_launch != d:
+                    fail(f"mesh: the ({d}, {m}) mesh launched the cross stack {n_launch} times "
+                         f"for {d} shard forwards")
+                unfiltered = ex(sv, arrays)["prediction_node"].float().cpu().numpy()
+                bits(unfiltered, got, f"({d}, {m}) rows {rows} unfiltered against filtered")
+                step2[f"{d}x{m}/{rows}"] = against(got, reference(1, p, d, rows),
+                                                   reference(1, p, 1, rows),
+                                                   f"the ({d}, {m}) mesh at {rows} rows")
+        p5 = make_payload(5, F, seed=SEED + 6005)
+        a5 = {"feat_ids": fold_ids_host(p5["feat_ids"], V), "feat_wts": p5["feat_wts"]}
+        ex8 = ShardedExecutor(make_mesh(4, 2, devices=[dev] * 4), output_wire_dtype="int8")
+        q = ex8(sv, a5, out_keys=("prediction_node",))
+        wire = restore_outputs_host({k: v.cpu().numpy() for k, v in q.items()})["prediction_node"]
+        qs, scale, mn = _q8_host(reference(1, p5, 2, 5))
+        bits(wire, codec.dequantize_scores(qs, scale, mn),
+             "the int8 wire over the pad (5 rows on 2 data shards)")
+        # TP at (2, 2) in f32: the f32 cross-stack kernel under the weight
+        # all-gather, against the replicated layout.
+        mdl32 = build_model("dcn_v2", dataclasses.replace(mc, compute_dtype="float32"))
+        sv32 = dataclasses.replace(sv, model=mdl32)
+        mesh22 = make_mesh(4, 2, devices=[dev] * 4)
+        p = make_payload(1000, F, seed=SEED + 7000)
+        arrays = {"feat_ids": fold_ids_host(p["feat_ids"], V), "feat_wts": p["feat_wts"]}
+        ck.reset_launches()
+        tp = ShardedExecutor(mesh22, tensor_parallel=True)(sv32, arrays)["prediction_node"]
+        if ck.launches[("fused_cross_apply", "float32")] != 2:
+            fail(f"mesh: TP at (2, 2) launched the f32 cross stack "
+                 f"{ck.launches[('fused_cross_apply', 'float32')]} times for 2 shard forwards")
+        mesh_launches["fused_cross_apply/float32"] += 2
+        rep = ShardedExecutor(mesh22)(sv32, arrays)["prediction_node"]
+        tp, rep = tp.cpu().numpy(), rep.cpu().numpy()
+        if not np.allclose(tp, rep, rtol=MESH_TP_RTOL, atol=0):
+            fail(f"mesh: TP at (2, 2) in f32 is {float(np.max(np.abs(tp - rep))):.3g} from the "
+                 f"replicated layout (rtol {MESH_TP_RTOL})")
+        step2["tp_2x2_f32"] = {"bits_equal_replicated": tp.tobytes() == rep.tobytes(),
+                               "max_abs_diff": float(np.max(np.abs(tp - rep)))}
+        # ms per batch of 2048 rows: the (2, 2) mesh against one device.
+        p = make_payload(2048, F, seed=SEED + 8000)
+        arrays = {"feat_ids": fold_ids_host(p["feat_ids"], V), "feat_wts": p["feat_wts"]}
+        timed = {}
+        for label, ex in (("mesh_2x2", ShardedExecutor(mesh22)),
+                          ("one_device", ShardedExecutor(make_mesh(1, 1, devices=[dev]))),
+                          ("mesh_2x2_again", ShardedExecutor(mesh22))):
+            ex(sv, arrays, out_keys=("prediction_node",))  # placement
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(MESH_TIMED):
+                t0 = time.perf_counter()
+                ex(sv, arrays, out_keys=("prediction_node",))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            timed[label] = statistics.median(ms)
+        step2["ms_per_batch_2048"] = timed
+        res["step2"] = step2
+        moved = {k: v["max_abs_diff"] for k, v in step2.items()
+                 if "/" in k and not v["bits_equal_single_device"]}
+        log(f"mesh: step 2: the rows whose bits moved with the shard row count: {moved}")
+        log(f"mesh: step 2 ({name}): logical meshes (2, 2) / (4, 1) / (1, 4) on cuda:0 at rows "
+            f"{'/'.join(map(str, MESH_ROWS))}: the per-shard bits, single-device bits "
+            f"{sum(v['bits_equal_single_device'] for k, v in step2.items() if '/' in k)}"
+            f"/{len(MESH_LOGICAL) * len(MESH_ROWS)}; int8 wire exact over the pad; TP (2, 2) "
+            f"f32 max diff {step2['tp_2x2_f32']['max_abs_diff']:.3g}; 2048 rows "
+            f"{timed['mesh_2x2']:.3f} ms at (2, 2) against {timed['one_device']:.3f} ms on one "
+            f"device")
+        save()
+        del sv, sv32
+
+        # 3. Elastic under load: the ladder over four logical shards of
+        # cuda:0 from its latency end (1, 4), a closed loop of spawned
+        # clients, switches up forced through the `pressure` fault site
+        # (BROWNOUT), then down, rung by rung, with the pressure pinned
+        # NOMINAL and the clients paced so the queue runs light.
+        e_impl, elastic_batcher, _e_sv = build_stack(
+            dataclasses.replace(cfg, warmup=True), mc, "cuda", seed=SEED, checkpoint=ckpt,
+            mesh_config=MeshConfig(enabled=True, devices=4, model_parallel=4),
+            elastic_config=ElasticConfig(enabled=True, **MESH_ELASTIC),
+            overload_config=OverloadConfig(enabled=True), mesh_device_list=[dev] * 4)
+        elastic_server, e_port = create_server(e_impl, "127.0.0.1:0")
+        elastic_server.start()
+        e_pay = [make_payload(MESH_ELASTIC_N, F, seed=SEED + 9000 + k)
+                 for k in range(MESH_CLIENTS)]
+        results = ctx.Queue()
+        barrier, slow, stop_evt = ctx.Barrier(MESH_CLIENTS + 1), ctx.Event(), ctx.Event()
+        clients = [ctx.Process(target=_mesh_client, daemon=True,
+                               args=(k, e_port, e_pay[k], barrier, slow, stop_evt, results))
+                   for k in range(MESH_CLIENTS)]
+        for c in clients:
+            c.start()
+        barrier.wait(timeout=120)
+        ck.reset_launches()
+        elastic = e_impl.elastic.executor
+
+        def wait_split(want):
+            t0 = time.perf_counter()
+            while elastic.current_split != want:
+                if time.perf_counter() - t0 > MESH_WAIT_S:
+                    es = e_impl.elastic_stats()
+                    fail(f"mesh: no elastic switch to {want} within {MESH_WAIT_S} s: current "
+                         f"{es['current_split']}, controller {es.get('controller')}, history "
+                         f"{es['history']}, overload {e_impl.overload_stats()}")
+                e_impl.elastic_stats()  # a scrape ticks the controller too
+                time.sleep(0.05)
+            time.sleep(MESH_HOLD_S)
+
+        # Up to the throughput end under the full loop and BROWNOUT, then
+        # down to the latency end with the pressure pinned NOMINAL and the
+        # clients paced: every rung is crossed both ways.
+        faults.get().add("pressure", kind="error", code="BROWNOUT")
+        wait_split((4, 1))
+        faults.reset()
+        faults.get().add("pressure", kind="error", code="NOMINAL")
+        slow.set()
+        wait_split((1, 4))
+        stop_evt.set()
+        answers, failed, seen = 0, 0, {}
+        for _ in clients:
+            try:
+                got = results.get(timeout=MESH_WAIT_S)
+            except queue.Empty:
+                fail("mesh: an elastic client did not report")
+            if got[0] == "error":
+                fail(f"mesh: an elastic client failed:\n{got[1]}")
+            answers += got[0]
+            failed += got[1]
+            for key, (count, scores) in got[2].items():
+                seen.setdefault(key, [0, scores])[0] += count
+        faults.reset()
+        elastic_launches = _launch_counts()
+        for k, v in elastic_launches.items():
+            mesh_launches[k] = mesh_launches.get(k, 0) + v
+        if failed:
+            fail(f"mesh: {failed} of {answers + failed} Predicts failed across the switches")
+        refs = {}
+        for k, p in enumerate(e_pay):
+            per_split = {s: reference(1, p, s[0], MESH_ELASTIC_N)
+                         for s in ((4, 1), (2, 2), (1, 4))}
+            refs[k] = per_split
+        scores_by_split: dict = {}
+        for _key, (count, scores) in seen.items():
+            match = [(k, s) for k, per in refs.items() for s, r in per.items()
+                     if r.tobytes() == scores.tobytes()]
+            if not match:
+                fail("mesh: an elastic answer is not the bits of any split's shards for its "
+                     "payload")
+            for k, s in match:
+                scores_by_split.setdefault(f"{s[0]}x{s[1]}", 0)
+                scores_by_split[f"{s[0]}x{s[1]}"] += count
+        # 1x4 has one data shard: the single-device bits.
+        across = {f"{k}/{s[0]}x{s[1]}": single_device(
+            per[s], per[(1, 4)], f"elastic payload {k} on the {s[0]}x{s[1]} split")
+            for k, per in refs.items() for s in ((4, 1), (2, 2))}
+        es = e_impl.elastic_stats()
+        moves = [(h["from"], h["to"]) for h in es["history"]]
+        if moves != [("1x4", "2x2"), ("2x2", "4x1"), ("4x1", "2x2"), ("2x2", "1x4")]:
+            fail(f"mesh: the elastic ladder moved {moves}, not up and down one rung at a time")
+        drains = [h["drain_s"] for h in es["history"]]
+        if any(d is None for d in drains):
+            fail(f"mesh: the switches' drains were not all recorded: {es['history']}")
+        _prom_lint(ServerMetrics().prometheus_text(
+            elastic_batcher.stats, mesh=e_impl.mesh_stats(), elastic=es),
+            "the elastic stack's dts_tpu_elastic_* series")
+        res["step3"] = {"answers": answers, "failed": failed, "moves": moves,
+                        "answers_by_split": scores_by_split,
+                        "history": es["history"], "drain_s": drains,
+                        "launches": elastic_launches, "bits_across_splits": across}
+        log(f"mesh: step 3 ({name}): {answers} Predicts through "
+            f"{' -> '.join(['1x4'] + [t for _f, t in moves])}, 0 failed; drains "
+            f"{', '.join(f'{d:.4f}' for d in drains)} s; launches {elastic_launches}")
+        save()
+        elastic_server.stop(0)
+        elastic_server = None
+        elastic_batcher.stop()
+        elastic_batcher = None
+
+        # 4. The multi-process tier. (a) NCCL at world size 1.
+        res["mh1_ready_s"] = ready(ports["mh1"], "mh1")
+        for n in MESH_SIZES:
+            bits(predict(ports["mh1"], pay[n]), plain_scores[n],
+                 f"the multi-process server (NCCL, world 1) n={n} against the plain server's")
+        if "joined (nccl)" not in open(procs["mh1"][2]).read():
+            fail(f"mesh: the world-1 multi-process server did not join over NCCL "
+                 f"({procs['mh1'][2]})")
+        if stop("mh1") != 0:
+            fail(f"mesh: the world-1 multi-process server exited nonzero ({procs['mh1'][2]})")
+        mh_launches = {"mh1": _served(procs["mh1"][2], "the world-1 multi-process server")}
+        # (b) Two gloo processes on cuda:0: scores, a RELOAD to v2 under
+        # paced traffic, SHUTDOWN releasing the follower.
+        res["mh2_ready_s"] = ready(ports["mh2"], "mh2_0")
+        for tag in ("mh2_0", "mh2_1"):
+            if "joined (gloo)" not in open(procs[tag][2]).read():
+                fail(f"mesh: {tag} did not join over gloo ({procs[tag][2]})")
+        mh2 = {}
+        for n in MESH_SIZES:
+            got = predict(ports["mh2"], pay[n])
+            mh2[n] = against(got, reference(1, pay[n], 2, bucket_of(n)), plain_scores[n],
+                             f"the gloo pair's n={n}")
+        card[2] = on_card(params[2])
+        want2 = reference(2, pay[MESH_N], 2, bucket_of(MESH_N))
+        paced = {"ok": 0, "failed": 0, "v2_at": None}
+        done = threading.Event()
+
+        def pace():
+            with _channel(ports["mh2"]) as ch:
+                stub = PredictionServiceStub(ch)
+                req = _request(pay[MESH_N]["feat_ids"], pay[MESH_N]["feat_wts"])
+                while not done.is_set():
+                    try:
+                        s = _scores_of(stub.Predict(req, timeout=60))
+                        paced["ok"] += 1
+                        if paced["v2_at"] is None and s.tobytes() == want2.tobytes():
+                            paced["v2_at"] = time.perf_counter()
+                    except grpc.RpcError:
+                        paced["failed"] += 1
+                    time.sleep(MESH_PACE_S)
+
+        pacer = threading.Thread(target=pace, daemon=True)
+        pacer.start()
+        time.sleep(0.5)
+        t_write = time.perf_counter()
+        save_servable(os.path.join(bases["b"], "2"), Servable(
+            name="DCN", version=2, model=model, params=params[2], signatures=ctr_signatures(F)),
+            "dcn_v2")
+        t_written = time.perf_counter()
+        _poll(lambda: paced["v2_at"], "v2's scores from the gloo pair", timeout=MESH_WAIT_S,
+              phase="mesh")
+        time.sleep(0.5)
+        done.set()
+        pacer.join(timeout=MESH_WAIT_S)
+        if paced["failed"]:
+            fail(f"mesh: {paced['failed']} of {paced['ok'] + paced['failed']} paced Predicts "
+                 "failed across the RELOAD")
+        t_stop = time.perf_counter()
+        rc_leader = stop("mh2_0")
+        proc1 = procs["mh2_1"][0]
+        try:
+            proc1.wait(timeout=MESH_WAIT_S)
+        except subprocess.TimeoutExpired:
+            fail("mesh: the follower was not released by the leader's SHUTDOWN")
+        procs["mh2_1"][1].close()
+        rc_follower = proc1.returncode
+        released_s = time.perf_counter() - t_stop
+        if rc_leader != 0 or rc_follower != 0:
+            fail(f"mesh: the gloo pair exited {rc_leader} / {rc_follower} after SIGTERM "
+                 f"(logs {procs['mh2_0'][2]}, {procs['mh2_1'][2]})")
+        mh_launches["mh2_0"] = _served(procs["mh2_0"][2], "the gloo leader")
+        mh_launches["mh2_1"] = _launch_lines(procs["mh2_1"][2]).get("shutdown", {})
+        for tag in ("mh1", "mh2_0", "mh2_1"):
+            if mh_launches[tag].get("fused_cross_apply/bfloat16", 0) < 1:
+                fail(f"mesh: {tag} launched no cross stack: {mh_launches[tag]}")
+        # (c) A SIGKILLed follower fails the leader fast.
+        res["mh3_ready_s"] = ready(ports["mh3"], "mh3_0")
+        predict(ports["mh3"], pay[7])
+        t_kill = time.perf_counter()
+        procs["mh3_1"][0].kill()
+        procs["mh3_1"][0].wait(timeout=30)
+        procs["mh3_1"][1].close()
+        leader = procs["mh3_0"][0]
+        try:
+            leader.wait(timeout=MESH_DEATH_S)
+        except subprocess.TimeoutExpired:
+            fail(f"mesh: the leader outlived its SIGKILLed follower by {MESH_DEATH_S} s")
+        death_s = time.perf_counter() - t_kill
+        procs["mh3_0"][1].close()
+        if leader.returncode == 0:
+            fail("mesh: the leader exited 0 after its follower died")
+        for k, v in mh_launches.items():
+            for kk, n in v.items():
+                mesh_launches[kk] = mesh_launches.get(kk, 0) + n
+        res["step4"] = {"gloo_pair": mh2, "paced": {"ok": paced["ok"], "failed": paced["failed"]},
+                        "reload_s": paced["v2_at"] - t_written, "write_s": t_written - t_write,
+                        "follower_released_s": released_s, "follower_death_exit_s": death_s,
+                        "leader_rc_after_death": leader.returncode, "launches": mh_launches}
+        log(f"mesh: step 4 ({name}): NCCL world 1 answered the plain server's bits; the gloo "
+            f"pair served (single-device bits {sum(v['bits_equal_single_device'] for v in mh2.values())}"
+            f"/{len(MESH_SIZES)}), reloaded v2 {res['step4']['reload_s']:.3f} s after the write "
+            f"with 0 of {paced['ok']} paced Predicts failed, released its follower "
+            f"{released_s:.3f} s after SIGTERM; a SIGKILLed follower took its leader down "
+            f"(rc {leader.returncode}) in {death_s:.3f} s")
+
+        # 5. With every other process gone: the Predict latency of the
+        # [mesh] server against the plain one (in turns), its /meshz and
+        # dts_tpu_mesh_* series, then its served launches.
+        lat: dict = {"plain": [], "mesh": []}
+        for label, port in (("plain", plain_port), ("mesh", ports["cli"]), ("mesh", ports["cli"]),
+                            ("plain", plain_port)):
+            with _channel(port) as ch:
+                stub = PredictionServiceStub(ch)
+                req = _request(pay[1000]["feat_ids"], pay[1000]["feat_wts"])
+                for _ in range(MESH_REPEATS // 2):
+                    t0 = time.perf_counter()
+                    stub.Predict(req, timeout=60)
+                    lat[label].append((time.perf_counter() - t0) * 1e3)
+        res["p50_ms_n1000"] = {k: statistics.median(v) for k, v in lat.items()}
+        res["latency_ms_n1000"] = lat
+        (status, meshz), _ = _poll(lambda: _get_json(ports["rest"], "/meshz"),
+                                   "/meshz answer", timeout=MESH_WAIT_S, phase="mesh")
+        if (status != 200 or not meshz.get("enabled") or meshz["shape"] != {"data": 1, "model": 1}
+                or meshz["executor"]["batches"] < 1
+                or meshz["executor"]["layout"].get("DCN") != "rules:dcn_v2"):
+            fail(f"mesh: /meshz answered {status} {meshz}")
+        status, prom = _get_json(ports["rest"], "/monitoring/prometheus/metrics")
+        if status != 200 or "dts_tpu_mesh_batches_total" not in prom:
+            fail("mesh: the [mesh] server's Prometheus text has no dts_tpu_mesh_* series")
+        _prom_lint(prom, "the [mesh] server's exposition")
+        if stop("cli") != 0:
+            fail(f"mesh: the [mesh] server exited nonzero (log {procs['cli'][2]})")
+        cli_launches = _served(procs["cli"][2], "the [mesh] server")
+        if cli_launches.get("fused_cross_apply/bfloat16", 0) < len(MESH_SIZES) + MESH_REPEATS \
+                or any(k.startswith("fused_serve") for k in cli_launches):
+            fail(f"mesh: the [mesh] server's Predicts launched {cli_launches}")
+        for k, n in cli_launches.items():
+            mesh_launches[k] = mesh_launches.get(k, 0) + n
+        res["step5"] = {"meshz": meshz, "launches_mesh_server": cli_launches}
+        log(f"mesh: step 5 ({name}): n=1000 p50 {res['p50_ms_n1000']['mesh']:.3f} ms on the "
+            f"[mesh] server against {res['p50_ms_n1000']['plain']:.3f} ms plain (in turns, over "
+            f"gRPC); /meshz {meshz['shape']}, {meshz['executor']['batches']} batches; the "
+            f"[mesh] server's served launches {cli_launches} (plain {plain_launches})")
+        save()
+    finally:
+        faults.reset()
+        for c in clients:
+            if c.is_alive():
+                c.kill()
+        for srv in (plain_server, elastic_server):
+            if srv is not None:
+                srv.stop(0)
+        for b in (plain_batcher, elastic_batcher):
+            if b is not None:
+                b.stop()
+        for tag, (proc, logf, _) in procs.items():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            logf.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    res["row_count_faults"] = faults_seen
+    res["launches"] = mesh_launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    save()
+    if res["phase_s"] > 90:
+        log(f"mesh: the phase took {res['phase_s']:.1f} s (over its 90 s)")
+    return res
+
+
+def main(only: str | None = None) -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
     sys.path.insert(0, HERE)
@@ -8998,10 +9723,15 @@ def main(fleet_only: bool = False) -> None:
         fail("the native host-ops library (native/hostops.cc) did not build with g++")
     log(f"build: {time.perf_counter() - t0:.2f} s (native host ops {built_native['s']:.2f} s)")
     registers = {src: check_build(src, info) for src, info in cuda_build.build_info.items()}
-    if fleet_only:
+    if only == "fleet":
         fleet = phase_fleet(dev, f"{name} ({smi})")
         print(json.dumps({"edge_pause_s": FLEET_EDGE_PAUSE_S, "fleet": fleet}, default=str),
               flush=True)
+        return
+    if only == "mesh":
+        mesh = phase_mesh(dev, f"{name} ({smi})")
+        log(f"mesh: phase {mesh['phase_s']:.1f} s")
+        print(json.dumps({"mesh": mesh}, default=str), flush=True)
         return
 
     t0 = time.perf_counter()
@@ -9063,6 +9793,8 @@ def main(fleet_only: bool = False) -> None:
     t0 = time.perf_counter()
     fleet = phase_fleet(dev, f"{name} ({smi})")
     log(f"fleet: phase {time.perf_counter() - t0:.1f} s")
+    mesh = phase_mesh(dev, f"{name} ({smi})")
+    log(f"mesh: phase {mesh['phase_s']:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
@@ -9070,7 +9802,8 @@ def main(fleet_only: bool = False) -> None:
                    "models": models, "rest": rest, "aio": aio, "cache": cache,
                    "integrity": integrity, "overload": overload, "cascade": cascade,
                    "utilization": utilization, "freshness": freshness,
-                   "recovery": recovery, "savedmodel": savedmodel, "fleet": fleet}, f,
+                   "recovery": recovery, "savedmodel": savedmodel, "fleet": fleet,
+                   "mesh": mesh}, f,
                   indent=1,
                   default=str)
 
@@ -9139,6 +9872,12 @@ def main(fleet_only: bool = False) -> None:
                      # warmup (the SIGKILLed process's count is lost; its
                      # restart's is in).
                      "launches_fleet": fleet["launches"].get(f"{kname}/{cd}", 0),
+                     # The mesh phase's main paths: the [mesh] CLI server's
+                     # served launches, the logical meshes' executor calls,
+                     # the elastic stack under load and the multi-process
+                     # servers' served launches (each zeroed or differenced
+                     # around its run).
+                     "launches_mesh": mesh["launches"].get(f"{kname}/{cd}", 0),
                      "library_ms": None,
                      "shape": f"{'bf16' if cd == 'bfloat16' else 'f32'}, 2048 rows"}
             entry.update((k, head[k]) for k in (
@@ -9160,4 +9899,5 @@ if __name__ == "__main__":
     elif len(sys.argv) == 4 and sys.argv[1] == "--graph-calls":
         _graph_calls_child(sys.argv[2], sys.argv[3])  # the savedmodel phase's timing child
     else:
-        main(fleet_only=sys.argv[1:] == ["--fleet-only"])
+        main(only={"--fleet-only": "fleet", "--mesh-only": "mesh"}.get(
+            " ".join(sys.argv[1:])))

@@ -174,6 +174,7 @@ from ..ops.transfer import (
     combined_nbytes,
     combined_supported,
     compact_outputs_device,
+    is_wire_sidecar,
     pack_host,
     pack_host_combined,
     restore_outputs_host,
@@ -552,6 +553,9 @@ class _Staged:
     # its counts were settled by the capture.
     captured: bool = False
     gen: int = 0  # the generation of the dispatch thread that runs it
+    # (elastic run_fn, issue token) of its dispatch until closed
+    # (_close_run_token).
+    run_token: tuple | None = None
 
 
 @dataclasses.dataclass(eq=False)
@@ -574,6 +578,7 @@ class _Readback:
     variant: tuple = (False, False)  # (quantized, fused): the kernel the batch ran
     shadow: _Readback | None = None  # the integrity plane's second run of the batch
     full_precision: bool = False  # an x64 model's outputs: no wire downcast
+    custom: bool = False  # a run_fn's outputs, on the run_fn's own wire
 
 
 class _HostBufferRing:
@@ -935,6 +940,7 @@ class DynamicBatcher:
         overload=None,
         utilization=None,
         quality=None,
+        run_fn=None,
     ):
         """fused_kernel=False serves dcn_v2 through model.apply (the
         configuration where `use_pallas_cross` routes only the cross stack
@@ -971,7 +977,21 @@ class DynamicBatcher:
         `quality` (a serving/quality.py QualityMonitor) is fed each request's
         freshly computed scores by the completion worker. Each costs one
         attribute read per hook when None, and may be detached while
-        serving."""
+        serving.
+
+        `run_fn(servable, arrays[, out_keys=...]) -> outputs` replaces the
+        device stage's pack, upload and step, so the parallel layer runs a
+        batch over a mesh (parallel/executor.py) or a process group
+        (parallel/multihost.py) under the same batching: it gets the padded,
+        host-folded arrays and returns device tensors or host arrays, which
+        read back as the step's outputs do. A run_fn with
+        `supports_out_keys` gets the group's output-selection union and
+        compacts its own wire; one with `elastic` (parallel/elastic.py) gets
+        the issue-token protocol: the token its dispatch mints is taken
+        right after it and closed once the batch leaves the completion
+        worker, on every path. Under a run_fn the device input cache, the
+        native pack, the kernel plane, top-k / prune and the integrity
+        shadow are off (the run_fn owns its placement and outputs)."""
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # An indexed device, for the worker threads' set_device.
@@ -1012,8 +1032,10 @@ class DynamicBatcher:
         # The kernel plane (ops/autotune.py KernelManager), or None when off:
         # one attribute read per dispatch.
         self.kernels = None
+        # A run_fn places its own inputs: no device input cache.
+        self._run_fn = run_fn
         self.input_cache = (DeviceInputCache(input_cache_entries)
-                            if input_cache_entries else None)
+                            if input_cache_entries and run_fn is None else None)
         self.score_cache = score_cache
         self.row_cache = row_cache
         self.dedup = bool(dedup)
@@ -1373,9 +1395,27 @@ class DynamicBatcher:
         """Run every bucket of the ladder through the device stage once, at
         load (the first call builds the kernels and the native host ops, and
         fills the buffer ring). Executes directly — only safe before the
-        batcher serves traffic."""
+        batcher serves traffic. The one exception is an elastic run_fn:
+        its warmup_call runs each split's executor on the caller's thread
+        and touches no state of this batcher, so warmup_via_queue and the
+        recovery re-warm call it on a live batcher.
+
+        A run_fn with supports_out_keys warms the two output selections
+        live traffic hits (all outputs; the score alone), and an elastic one
+        warms them on EVERY split (warmup_call), so a runtime switch never
+        places params or builds a kernel on the dispatch path."""
+        fn = self._run_fn
+        variants: tuple = (None,)
+        if fn is not None and getattr(fn, "supports_out_keys", False):
+            variants = (None, (servable.model.score_output,))
+        warm_all = fn.warmup_call if getattr(fn, "elastic", False) else None
         for b in buckets or self.buckets:
-            self._execute(servable, self.warmup_arrays(servable, b), None)
+            arrays = self.warmup_arrays(servable, b)
+            for keys in variants:
+                if warm_all is not None:
+                    warm_all(servable, self._folded(servable, arrays), out_keys=keys)
+                else:
+                    self._execute(servable, arrays, keys)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -1389,6 +1429,11 @@ class DynamicBatcher:
                    for b in buckets or self.buckets]
         for fut in futures:
             fut.result(timeout=600)
+        if getattr(self._run_fn, "elastic", False):
+            # The queue reached the CURRENT split only: warm the rest of the
+            # ladder directly, so a hot-loaded version's first batch after
+            # a switch does no load-time work on the dispatch path.
+            self.warmup(servable, buckets)
 
     def step_for(self, servable: Servable) -> _Entry:
         """The device step this batcher serves `servable` with, prepared
@@ -1399,6 +1444,19 @@ class DynamicBatcher:
                 entry = self._build_entry(servable)
                 self._entries[servable] = entry
         return entry
+
+    @property
+    def run_fn(self):
+        """The run_fn the device stage goes through, or None."""
+        return self._run_fn
+
+    def queue_load(self) -> tuple[int, int]:
+        """(queued + staged candidates, the queue's capacity): the elastic
+        controller's queue-pressure signal (parallel/elastic.py). One lock
+        hold, at most once per controller tick."""
+        with self._cv:
+            return (self._queued_candidates + self._staged_candidates,
+                    self.queue_capacity_candidates)
 
     def pipeline_stats(self) -> dict:
         """The dispatch pipeline: configured depth, batches in flight (total
@@ -1699,7 +1757,10 @@ class DynamicBatcher:
         and parts of [n, F] int64/int32 ids and float32 weights. The port's
         codec widens a compact bf16 wire to float32 (codec.py); the native
         cast back to bf16 is exact, so such weights reach the device with
-        the bits they were sent with."""
+        the bits they were sent with. Never under a run_fn, which takes the
+        padded arrays."""
+        if self._run_fn is not None:
+            return None
         entry = self.step_for(servable)
         if not entry.native_pack:
             return None
@@ -1848,7 +1909,7 @@ class DynamicBatcher:
                 # arrays widened, the stage-1 vector trimmed to the request.
                 return cascade_restore_host(views, n)
             return topk_restore_host(views["topk_scores"], views["topk_indices"], n, key)
-        if self._wire_dt is not None and not rb.full_precision:
+        if rb.custom or (self._wire_dt is not None and not rb.full_precision):
             return restore_outputs_host(views)
         return {k: v.numpy().copy() for k, v in views.items()}
 
@@ -1863,7 +1924,10 @@ class DynamicBatcher:
         pairs of the first n_valid rows' scores (with `prune`, the cascade's
         prune: the pairs and the score vector). A `shadow` (the integrity
         plane's second run, `override` its batch's variant) reads the input
-        cache without filling it and moves only the shadow_* counters."""
+        cache without filling it and moves only the shadow_* counters.
+        Under a run_fn the batch goes to it instead (_issue_run_fn)."""
+        if self._run_fn is not None:
+            return self._issue_run_fn(servable, src, output_keys)
         entry = self.step_for(servable)
         # The variant is decided once (the kernel plane counts it then) and
         # pinned for the step: a shadow passes its batch's.
@@ -1956,6 +2020,53 @@ class DynamicBatcher:
             self._count("fused_batches", shadow)
         return rb
 
+    def _issue_run_fn(self, servable: Servable, arrays: dict[str, np.ndarray],
+                      output_keys: tuple[str, ...] | None) -> _Readback:
+        """The device stage under a run_fn: the padded, host-folded arrays
+        go to it (with the output selection when it takes one), and its
+        outputs (device tensors or host arrays) read back as the step's do.
+        The selection keeps the int8 wire's sidecars, without which a
+        quantized score cannot be decoded."""
+        fn = self._run_fn
+        arrays = self._folded(servable, arrays)
+        with torch.inference_mode():
+            with request_trace.span("batch.jitcall"):
+                if getattr(fn, "supports_out_keys", False):
+                    out = fn(servable, arrays, out_keys=output_keys)
+                else:
+                    out = fn(servable, arrays)
+            out = {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))
+                   for k, v in out.items()
+                   if output_keys is None or k in output_keys or is_wire_sidecar(k)}
+            with request_trace.span("readback.issue"):
+                rb = self._issue_readback(out)
+        # What a float32 readback of the fetched outputs would move (the
+        # run_fn's dropped outputs are unknowable here).
+        rb.full_f32_bytes = sum(v.numel() * 4 for v in out.values())
+        rb.custom = True
+        return rb
+
+    def _take_run_token(self, st: _Staged, fn) -> None:
+        """Pop the issue token an elastic run_fn minted for this batch's
+        dispatch (same thread, right after it) onto the batch."""
+        if getattr(fn, "elastic", False):
+            token = fn.take_issue_token()
+            if token is not None:
+                st.run_token = (fn, token)
+
+    @staticmethod
+    def _close_run_token(st: _Staged) -> None:
+        """Close the batch's elastic in-flight registration, once: the
+        drain barrier of a split switch opens when its old split's batches
+        all closed, so every path that ends a batch closes it."""
+        held, st.run_token = st.run_token, None
+        if held is not None:
+            fn, token = held
+            try:
+                fn.note_complete(token)
+            except Exception:  # noqa: BLE001 — accounting, never fatal
+                log.exception("elastic note_complete failed")
+
     def _wait(self, rb: _Readback, check=None) -> dict[str, np.ndarray]:
         """Wait for a batch's readback; its outputs as owned host arrays.
         `check(views)` sees the raw host views after the event wait, before
@@ -2033,6 +2144,15 @@ class DynamicBatcher:
         _per_key takes the per-key upload instead of the combined buffer."""
         rows = next(iter(arrays.values())).shape[0]
         src = arrays if _per_key else (self._fused_ctx(servable, [arrays]) or arrays)
+        fn = self._run_fn
+        if getattr(fn, "elastic", False):
+            # Not in-flight work: a token the dispatch minted closes here.
+            try:
+                return self._wait(self._issue(servable, src, rows, output_keys))
+            finally:
+                token = fn.take_issue_token()
+                if token is not None:
+                    fn.note_complete(token)
         return self._wait(self._issue(servable, src, rows, output_keys, _kernel_override,
                                       per_key=_per_key))
 
@@ -2163,8 +2283,9 @@ class DynamicBatcher:
             # would mix requests' candidates) that asked for exactly the
             # score output (warmup batches ask for every output).
             topk = 0
-            # An x64 model reads back its full outputs: no top-k, no prune.
-            x64 = servable.model.needs_x64
+            # An x64 model reads back its full outputs, and a run_fn its
+            # own: no top-k, no prune.
+            x64 = servable.model.needs_x64 or self._run_fn is not None
             if (self.output_top_k and len(group) == 1 and 0 < self.output_top_k < total
                     and keys == (servable.model.score_output,) and not x64):
                 topk = self.output_top_k
@@ -2562,6 +2683,7 @@ class DynamicBatcher:
                     self._dispatching_st = st  # what a wedge capture replays
         issued = False
         rb = None
+        fn = self._run_fn  # captured: a run_fn detached mid-flight gets its token back
         try:
             with _sink_ctx(st.phases):
                 # Inside the sink, so an injected fault annotates the spans.
@@ -2577,8 +2699,12 @@ class DynamicBatcher:
                 with request_trace.span("batch.dispatch"):
                     rb = self._issue(servable, st.src, st.bucket, st.keys,
                                      topk=st.topk, n_valid=st.total, prune=st.prune)
+                self._take_run_token(st, fn)
                 integ = self.integrity
-                if integ is not None and not all_warm and integ.want_shadow():
+                # A run_fn's batch has no shadow: its entries need not be
+                # bit-stable, and the shadow is the single-device step.
+                if (integ is not None and not all_warm and fn is None
+                        and integ.want_shadow()):
                     # The same device stage again (same servable, bucket and
                     # kernel variant), into its own readback buffers: the
                     # completion worker compares the two bit for bit.
@@ -2591,6 +2717,9 @@ class DynamicBatcher:
                         self.stats.shadow_input_cache_hits += rb.shadow.input_cache_hit
             rb.stage_t = stage_t
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
+            # A token minted by a dispatch that failed after it closes here.
+            self._take_run_token(st, fn)
+            self._close_run_token(st)
             if not issued:
                 self._release_pad(st)  # nothing was uploaded from them
             if rb is not None:
@@ -2617,6 +2746,7 @@ class DynamicBatcher:
             if rb.shadow is not None:
                 self.ring.release([buf for buf, _ in rb.shadow.out.values()], rb.shadow.event)
             self._util_done(st)
+            self._close_run_token(st)
             return
         _replay(st.group, st.phases)
         with self._stats_lock:
@@ -2657,6 +2787,7 @@ class DynamicBatcher:
             self._abandon(st, exc)
         elif exc is not None:
             self._util_done(st)
+            self._close_run_token(st)
             # The shed first: a window slot freed before it would let the
             # dispatch thread take a staged group the death should fail. A
             # captured batch's requests are the replay's already.
@@ -2719,6 +2850,7 @@ class DynamicBatcher:
 
     def _abandon(self, st: _Staged, exc: BaseException) -> None:
         self._util_done(st)
+        self._close_run_token(st)
         with self._cv:
             self._done_inflight_locked(st)
         self._fail(st.group, st.total, exc, st.row_ctx)
@@ -2791,6 +2923,9 @@ class DynamicBatcher:
                 self._fail_or_capture(st.group, st.total, exc, st.row_ctx)
         finally:
             self._util_done(st)
+            # The elastic drain barrier's release point: readback done (or
+            # failed), the batch is no longer in flight on its split.
+            self._close_run_token(st)
             if self._copies_done(rb):
                 # The readback event follows the upload on the same stream:
                 # no copy reads the padded buffers any more.

@@ -514,13 +514,18 @@ class RecoveryController:
 
     def _reinit_executors(self) -> None:
         """The in-process REINIT (module docstring): the device steps, the
-        cross-stack weight cache and the input cache cleared, a dead thread
-        revived, the allocator's cache emptied."""
+        cross-stack weight cache and the input cache cleared, a mesh
+        executor's placed params and entries with them (it recovers as one
+        unit: clear_for_recovery), a dead thread revived, the allocator's
+        cache emptied."""
         b = self.batcher
         entries = getattr(b, "_entries", None)
         if entries is not None:
             with b._entry_lock:
                 entries.clear()
+        clear_run_fn = getattr(getattr(b, "run_fn", None), "clear_for_recovery", None)
+        if clear_run_fn is not None:
+            self._safe(clear_run_fn)
         self._safe(cross_kernel.cross_cache.clear)
         cache = getattr(b, "input_cache", None)
         if cache is not None:
@@ -562,6 +567,15 @@ class RecoveryController:
             if left <= 0:
                 break
             remaining = list(fut_wait(remaining, timeout=min(left, 0.1)).not_done)
+        if getattr(getattr(b, "run_fn", None), "elastic", False) and not self._stop_evt.is_set():
+            # The queue reached the current split only: the rest of the
+            # ladder is placed again directly, so a switch after recovery
+            # does no load-time work under the wedge clock.
+            for name in names:
+                try:
+                    b.warmup(reg.resolve(name))
+                except Exception:  # noqa: BLE001 — keep warming the rest
+                    log.exception("recovery elastic re-warm failed (%s)", name)
         moved = {f"{k}/{d}": n - before.get((k, d), 0)
                  for (k, d), n in sorted(cross_kernel.launches.items())
                  if n != before.get((k, d), 0)}

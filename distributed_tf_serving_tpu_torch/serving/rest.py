@@ -64,8 +64,12 @@ package's PredictionServiceImpl:
 - `GET /fleetz` -> this member's fleet view: every gossip record it
   knows, the exchange counters and the rollout follower's state
   (fleet/replica.py; `{"enabled": false}` with the plane off).
-- The planes that are not ported yet answer what the JAX gateway answers
-  with that plane off: `{"enabled": false}` from `/meshz`.
+- `GET /meshz` -> the mesh serving mode: geometry and device list, the
+  executor's batch / pad counters, the layout source per served model,
+  per-device occupancy when the utilization ledger rides along, and with
+  [elastic] the `elastic` block (current split, ladder, switch history,
+  per-split counters, controller state) (parallel/executor.py and
+  elastic.py; `{"enabled": false}` when serving is single-device).
 
 A request becomes the same PredictRequest (or Classification /
 RegressionRequest) the gRPC path parses and is handed to the impl's
@@ -186,7 +190,7 @@ class RestGateway:
             web.post("/lifecyclez/rollback", self.lifecyclez_rollback),
             web.get("/fleetz", self.fleetz),
             web.get("/recoveryz", self.recoveryz),
-            web.get("/meshz", self.plane_off),
+            web.get("/meshz", self.meshz),
             web.get("/cascadez", self.cascadez),
             web.get("/integrityz", self.integrityz),
             web.post("/integrityz/audit", self.integrityz_audit),
@@ -469,13 +473,20 @@ class RestGateway:
     # ----------------------------------------------------------- telemetry
 
     async def prometheus(self, request: web.Request) -> web.Response:
+        # One snapshot of each, shared: mesh_stats lifts its per-device
+        # attribution from the utilization snapshot, elastic_stats its block
+        # from the mesh snapshot.
+        utilization = self.impl.utilization_stats()
+        mesh = self.impl.mesh_stats(utilization=utilization)
         return web.Response(
             body=self.metrics.prometheus_text(
                 self.impl.batcher.stats,
                 cache=self.impl.cache_stats(),
                 row_cache=self.impl.row_cache_stats(),
                 overload=self.impl.overload_stats(),
-                utilization=self.impl.utilization_stats(),
+                utilization=utilization,
+                mesh=mesh,
+                elastic=self.impl.elastic_stats(mesh=mesh),
                 quality=self.impl.quality_stats(),
                 lifecycle=self.impl.lifecycle_stats(),
                 recovery=self.impl.recovery_stats(),
@@ -490,8 +501,8 @@ class RestGateway:
 
     def _monitoring_builders(self) -> dict:
         """One builder per /monitoring block, so ?section=NAME builds only
-        that block. The JAX gateway's section names; a plane that is not
-        ported answers None, as there with the plane off."""
+        that block. The JAX gateway's section names; a plane that is off
+        answers None."""
 
         def request_log():
             logger = self.impl.request_logger
@@ -582,11 +593,6 @@ class RestGateway:
             return _json_error("INVALID_ARGUMENT", "since must be an integer")
         return web.json_response(tracing.recorder().export_since(since), dumps=_dumps)
 
-    # ---------------------------------------------- planes not ported yet
-
-    async def plane_off(self, request: web.Request) -> web.Response:
-        return web.json_response(_OFF)
-
     # ------------------------------------------------------------- planes
 
     async def fleetz(self, request: web.Request) -> web.Response:
@@ -637,6 +643,14 @@ class RestGateway:
         cycle's trigger and duration (MTTR), the MTTR history and the
         events; `{"enabled": false}` with the plane off."""
         stats = self.impl.recovery_stats()
+        return web.json_response(stats if stats is not None else _OFF)
+
+    async def meshz(self, request: web.Request) -> web.Response:
+        """GET /meshz: mesh geometry and devices, executor batch / pad
+        counters, the layout source per served model, per-device occupancy
+        with the utilization ledger, and with [elastic] the `elastic` block;
+        `{"enabled": false}` when serving is single-device."""
+        stats = self.impl.mesh_stats()
         return web.json_response(stats if stats is not None else _OFF)
 
     async def cascadez(self, request: web.Request) -> web.Response:

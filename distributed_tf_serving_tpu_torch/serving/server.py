@@ -31,7 +31,10 @@ reason meanwhile; GET /recoveryz), its watchdog started by the CLI. Each
 section (or its flag: `--overload`, `--integrity`, `--cascade`,
 `--utilization`, `--quality`, `--lifecycle`, `--recovery`) arms the plane
 in build_stack, and so on either server; `--lifecycle` implies
-`--quality`. With
+`--quality`. With `[mesh] enabled` (or `--mesh`) the batcher runs each
+batch over a ("data", "model") mesh of the visible cards (parallel/; GET
+/meshz), with `[elastic] enabled` (or `--elastic`) over a ladder of splits
+switched at run time. With
 `--rest-port`, POST /profilez/start captures a torch.profiler trace and the
 host threads' stacks whether or not the ledger is on.
 
@@ -57,7 +60,8 @@ CLI:
         [--file-system-poll-wait-seconds S] [--max-num-load-retries N] \
         [--uds-path PATH] [--stream-chunk N] [--rest-port N] \
         [--metrics-every-s S] [--tracing] [--cache] [--overload] [--integrity] \
-        [--cascade] [--utilization] [--quality] [--lifecycle] [--recovery]
+        [--cascade] [--utilization] [--quality] [--lifecycle] [--recovery] \
+        [--mesh] [--elastic] [--mesh-devices N] [--model-parallel M] [--tensor-parallel]
 
 serves, by default, a randomly initialized demo servable (numpy-seeded,
 `--seed`) of the configured model kind ([server] model_kind, or
@@ -94,6 +98,7 @@ import time
 from concurrent import futures
 
 import grpc
+import torch
 
 from ..models import ModelConfig, Servable, ServableRegistry, build_model
 from ..models.base import resolve_device
@@ -118,10 +123,12 @@ from ..utils.config import (
     BatchingConfig,
     CacheConfig,
     CascadeConfig,
+    ElasticConfig,
     FleetConfig,
     IntegrityConfig,
     KernelsConfig,
     LifecycleConfig,
+    MeshConfig,
     ObservabilityConfig,
     OverloadConfig,
     QualityConfig,
@@ -1014,7 +1021,15 @@ def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig,
     from .version_watcher import VersionWatcher, VersionWatcherConfig
     from .warmup import replay_warmup_file
 
+    place = getattr(batcher.run_fn, "place", None)
+
     def warmup(servable: Servable) -> None:
+        if place is not None:
+            # A mesh places each version (its vocab and, with
+            # tensor_parallel, dense blocks) before it serves.
+            place(servable)
+        if not cfg.warmup:
+            return
         # The counters before a version's own launches: its warmup's are
         # the difference to the next version change's line.
         log.info("kernel launches before warming %s v%d: %s", servable.name,
@@ -1031,7 +1046,7 @@ def _make_watcher(base_path, model_name: str, desired_labels, cfg: ServerConfig,
             # Upstream semantics: N RETRIES after the first attempt.
             max_load_attempts=cfg.max_num_load_retries + 1,
         ),
-        warmup=warmup if cfg.warmup else None,
+        warmup=warmup if cfg.warmup or place is not None else None,
         warmup_replay=(
             (lambda sv, wf: replay_warmup_file(wf, sv, batcher)) if cfg.warmup else None
         ),
@@ -1262,7 +1277,10 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                 utilization_config: UtilizationConfig | None = None,
                 quality_config: QualityConfig | None = None,
                 lifecycle_config: LifecycleConfig | None = None,
-                recovery_config: RecoveryConfig | None = None):
+                recovery_config: RecoveryConfig | None = None,
+                mesh_config: MeshConfig | None = None,
+                elastic_config: ElasticConfig | None = None,
+                mesh_device_list=None):
     """(impl, batcher, servable): the servable serving at start, warmed
     through every bucket (unless `cfg.warmup` is off), and a started
     batcher. The servable is the numpy-seeded demo (`seed`), the checkpoint
@@ -1306,9 +1324,7 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     its own name (built in process from the primary model's config, or
     served by a VersionWatcher from `stage1_base_path`,
     `impl.cascade_watcher`) and sets `impl.cascade`; beside `output_top_k`
-    it is refused ([mesh] and [elastic], refused there too in the JAX
-    package, never reach here: load_config refuses them first). An
-    enabled `utilization_config` hands the batcher an OccupancyLedger named
+    it is refused, and beside [mesh] too. An enabled `utilization_config` hands the batcher an OccupancyLedger named
     after its device (`cuda:N (<card>)` or `cpu`); an enabled
     `quality_config` hands it a QualityMonitor, told of every version
     change by each watcher. An enabled `lifecycle_config` sets
@@ -1318,6 +1334,22 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     caller's to start. An enabled `recovery_config` attaches a
     RecoveryController (serving/recovery.py) to the batcher and sets
     `impl.recovery`; its watchdog is the caller's to start (serve() does).
+
+    An enabled `mesh_config` arms the mesh serving mode: a ("data",
+    "model") mesh (parallel/mesh.py) over `mesh_device_list` (an ordered
+    list of devices, which may repeat one: the CPU tests build eight
+    logical shards over "cpu") or, by default, every visible card ("cpu"
+    once with device="cpu"), with a ShardedExecutor as the batcher's
+    run_fn (`impl.mesh_executor`): rows over the data axis, vocab over the
+    model axis per the family's partition rules, dense weights too with
+    tensor_parallel; the batcher runs on the mesh's first device. An
+    enabled `elastic_config` (requires [mesh]) makes the run_fn an
+    ElasticMeshExecutor over the split ladder, driven by an
+    ElasticController (`impl.elastic`) fed by the batcher's queue_load and
+    the overload plane. The JAX package's refusals, in its words: the
+    legacy [server] mesh knobs beside [mesh], output_top_k, [recovery]
+    scope = "per_chip", [elastic] without [mesh], [cascade] and [kernels]
+    over a mesh. The legacy `cfg.mesh_devices` arms a static mesh alone.
     The source options are checked, and a model config file parsed, before
     any thread starts."""
     if model_base_path and (checkpoint or savedmodel):
@@ -1373,7 +1405,59 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
                 "[lifecycle] enabled requires [quality] enabled (or --quality): the rollback "
                 "gate reads the quality plane's version-pair drift and per-version label "
                 "AUC — a lifecycle with no signal could only ever promote blind")
+    mesh_armed = mesh_config is not None and mesh_config.enabled
+    if mesh_armed:
+        if cfg.mesh_devices or cfg.model_parallel != 1 or cfg.tensor_parallel:
+            raise ValueError(
+                "[mesh] enabled conflicts with the legacy [server] mesh "
+                "knobs (mesh_devices/model_parallel/tensor_parallel): "
+                "configure the mesh in ONE place — the [mesh] section is "
+                "the serving mode; drop the [server] copies"
+            )
+        if cfg.output_top_k:
+            raise ValueError(
+                "[mesh] enabled conflicts with output_top_k: top-k "
+                "output compaction is a single-chip jitted-entry "
+                "variant the sharded executor does not provide — "
+                "disable one of them"
+            )
+        if (recovery_config is not None and recovery_config.enabled
+                and recovery_config.scope == "per_chip"):
+            # Whole-mesh recovery composes (the executor recovers as one
+            # unit through clear_for_recovery); the finer grain does not.
+            raise ValueError(
+                "[recovery] scope='per_chip' conflicts with [mesh]: an "
+                "SPMD executable spans every chip of the mesh, so there "
+                "is no per-chip quarantine to run — a sick chip takes "
+                "the executor with it. Use scope='executor' (the "
+                "default): the mesh executor quarantines, reinits, and "
+                "replays as ONE unit"
+            )
+    elastic_armed = elastic_config is not None and elastic_config.enabled
+    if elastic_armed and not mesh_armed:
+        raise ValueError(
+            "[elastic] enabled requires [mesh] enabled: the elastic "
+            "plane re-factorizes the MESH's devices at runtime — the "
+            "[mesh] section's split is where serving starts (and the "
+            "ladder's rungs must factorize its device count). Arm both, "
+            "or drop [elastic]"
+        )
+    if (mesh_armed or cfg.mesh_devices) and kernels_config is not None and kernels_config.enabled:
+        raise ValueError(
+            "[kernels] enabled requires the single-chip batcher path: "
+            "the ShardedExecutor mirrors the int8 output wire but owns "
+            "its own executables (per-bucket kernel routing over a "
+            "mesh is future work) — disable [kernels] or [mesh]"
+        )
     cascade_armed = cascade_config is not None and cascade_config.enabled
+    if cascade_armed and mesh_armed:
+        raise ValueError(
+            "[cascade] enabled conflicts with [mesh] (and [elastic]):"
+            " the stage-1 prune is a single-chip jitted-entry "
+            "variant the sharded run_fn does not provide, so the "
+            "cascade could only ever run its host fallback — "
+            "disable one of them"
+        )
     if cascade_armed and cfg.output_top_k:
         raise ValueError(
             "[cascade] enabled conflicts with output_top_k: the "
@@ -1384,6 +1468,10 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
             "The cascade IS the retrieval-style compaction; drop "
             "output_top_k"
         )
+    run_fn, mesh = _mesh_run_fn(cfg, device, mesh_config if mesh_armed else None,
+                                elastic_config if elastic_armed else None, mesh_device_list)
+    if mesh is not None:
+        device = mesh.device(0, 0)  # outputs gather there; the batcher reads back from it
     bc = batching_config or BatchingConfig()
     if bc.inflight_window or bc.buffer_ring:
         log.info("batching pipeline: depth=%d inflight_window=%s buffer_ring=%s",
@@ -1410,6 +1498,11 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     ledger = utilization_config.build() if utilization_config is not None else None
     if ledger is not None:
         ledger.device = utilization_mod.device_label(resolve_device(device))
+        if mesh is not None:
+            # Every batch occupies every shard's device: one busy timeline
+            # per device (snapshot per_device, one Chrome track each).
+            ledger.devices = mesh.device_names()
+            ledger.device = f"mesh{mesh.shape}"
         log.info("utilization attribution on: ring=%d window_s=%.1f calibrated=%s device=%s — "
                  "GET /utilz on the REST surface", utilization_config.ring,
                  utilization_config.window_seconds, ledger.snapshot()["calibrated"],
@@ -1429,6 +1522,7 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
         buffer_ring=bc.buffer_ring, score_cache=score_cache, row_cache=row_cache,
         # `enabled` is the master switch: dedup alone arms nothing.
         dedup=cc.enabled and cc.dedup, overload=overload, utilization=ledger, quality=quality,
+        run_fn=run_fn,
     )
     kernels = kernels_config.build() if kernels_config is not None else None
     batcher.kernels = kernels
@@ -1440,6 +1534,23 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     if transport_config is not None and transport_config.response_arena:
         impl.response_arena = True
         log.info("response-encode arenas on ([transport] response_arena)")
+    if mesh is not None:
+        # The `mesh` /monitoring block, /meshz and the dts_tpu_mesh_* series
+        # read the executor's snapshot (the legacy knobs' mesh too).
+        impl.mesh_executor = run_fn
+    if elastic_armed:
+        from ..parallel.elastic import ElasticController
+
+        # No thread: ticks ride the dispatch path and monitoring scrapes.
+        impl.elastic = ElasticController(elastic_config, run_fn, overload=overload,
+                                         load_fn=batcher.queue_load,
+                                         largest_bucket=max(cfg.buckets))
+        log.info("elastic controller on: tick=%.2fs dwell=%.1fs up/down after %d/%d ticks, "
+                 "load thresholds %.2f/%.2f, overload pressure %s",
+                 elastic_config.tick_interval_s, elastic_config.dwell_s,
+                 elastic_config.up_after_ticks, elastic_config.down_after_ticks,
+                 elastic_config.load_up_threshold, elastic_config.load_down_threshold,
+                 "wired" if overload is not None else "absent (load-only)")
     if integrity_armed:
         # One plane for every hook site: the batcher (shadow, screen), the
         # impl (input verify, response stamps, /integrityz), the transports.
@@ -1550,6 +1661,8 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
         from ..train.checkpoint import load_servable
 
         servable = load_servable(checkpoint, device=batcher.device)
+        if mesh is not None:
+            run_fn.place(servable)
         registry.load(servable)
         log.info("loaded checkpoint %s: %s v%d", checkpoint, servable.name, servable.version)
     else:
@@ -1582,6 +1695,59 @@ def build_stack(cfg: ServerConfig, model_config: ModelConfig | None, device=None
     log.info("kernel launches at start: %s", _launch_counts())
     impl.warmup_complete = True
     return impl, batcher, servable
+
+
+def _mesh_run_fn(cfg: ServerConfig, device, mesh_config: MeshConfig | None,
+                 elastic_config: ElasticConfig | None, device_list):
+    """(run_fn, mesh) of the mesh serving mode ([mesh], with [elastic] the
+    ladder), of the legacy [server] mesh_devices knob, or (None, None)."""
+    if mesh_config is None and not cfg.mesh_devices:
+        return None, None
+    from ..parallel import ShardedExecutor, make_mesh
+    from ..parallel.mesh import default_devices
+
+    if device_list is not None:
+        pool = [torch.device(d) for d in device_list]
+    elif resolve_device(device).type == "cpu":
+        pool = [torch.device("cpu")]
+    else:
+        pool = default_devices()
+    if mesh_config is None:
+        # The legacy knobs: a static mesh, kept working unchanged.
+        mesh = make_mesh(cfg.mesh_devices, model_parallel=cfg.model_parallel, devices=pool)
+        return ShardedExecutor(mesh, tensor_parallel=cfg.tensor_parallel,
+                               output_wire_dtype=cfg.output_wire_dtype), mesh
+    n_devices = mesh_config.devices or len(pool)
+    mp = mesh_config.model_parallel
+    # The [mesh] section is authoritative for the layout (the legacy knobs
+    # beside it were refused).
+    tp = mesh_config.tensor_parallel
+    if elastic_config is not None:
+        from ..parallel.elastic import ElasticMeshExecutor, resolve_ladder
+
+        if n_devices > len(pool):
+            raise ValueError(f"requested {n_devices} devices, have {len(pool)}")
+        if n_devices % mp != 0:
+            # make_mesh's refusal, in its words, before the ladder's.
+            raise ValueError(f"n_devices={n_devices} not divisible by model_parallel={mp}")
+        initial = (n_devices // mp, mp)
+        ladder = resolve_ladder(elastic_config.splits, n_devices, initial)
+        run_fn = ElasticMeshExecutor(
+            splits=ladder, initial=initial, devices=pool[:n_devices], tensor_parallel=tp,
+            output_wire_dtype=cfg.output_wire_dtype,
+            history_events=elastic_config.history_events)
+        mesh = run_fn.mesh
+        log.info("elastic mesh serving on: %d devices, ladder %s (initial %s) — `elastic` block "
+                 "in /meshz and /monitoring, dts_tpu_elastic_* series", n_devices,
+                 [f"{d}x{m}" for d, m in ladder], f"{initial[0]}x{initial[1]}")
+    else:
+        mesh = make_mesh(n_devices, model_parallel=mp, devices=pool)
+        run_fn = ShardedExecutor(mesh, tensor_parallel=tp,
+                                 output_wire_dtype=cfg.output_wire_dtype)
+    log.info("mesh serving mode on: %d devices as %s tensor_parallel=%s wire=%s — `mesh` block "
+             "in /monitoring, /meshz, dts_tpu_mesh_* series", n_devices, mesh.shape, tp,
+             cfg.output_wire_dtype)
+    return run_fn, mesh
 
 
 def _arm_cascade(cfg: ServerConfig, cc: CascadeConfig, model_config: ModelConfig | None,
@@ -1861,6 +2027,30 @@ def serve(argv=None) -> None:
         "Requires --config with [client] hosts (the replicas) and [fleet]; every serving "
         "and model flag is ignored")
     p.add_argument(
+        "--mesh", action="store_true", default=None,
+        help="mesh serving mode: shard serving over a ('data', 'model') device mesh of "
+        "the visible cards — candidate rows over the data axis, embedding vocab over the "
+        "model axis, one process behind the same wire protocol. Equivalent to [mesh] "
+        "enabled = true; with it --mesh-devices / --model-parallel / --tensor-parallel "
+        "configure the [mesh] section (`mesh` block in /monitoring, GET /meshz, "
+        "dts_tpu_mesh_* series). Refuses [kernels], [cascade], [recovery] "
+        "scope='per_chip' and output_top_k; whole-executor [recovery] and [elastic] "
+        "compose")
+    p.add_argument(
+        "--elastic", action="store_true", default=None,
+        help="elastic mesh serving (implies --mesh): a ladder of ('data', 'model') "
+        "splits over the same devices, placed and warmed at load, with a pressure/load "
+        "controller switching the serving split at run time, hitlessly. Equivalent to "
+        "[elastic] enabled = true (`elastic` block in /meshz and /monitoring, "
+        "dts_tpu_elastic_* series)")
+    p.add_argument("--mesh-devices", type=int,
+                   help="devices in the mesh ([mesh] devices with --mesh, else the legacy "
+                   "[server] mesh_devices)")
+    p.add_argument("--model-parallel", type=int,
+                   help="devices per vocab shard ([mesh] model_parallel with --mesh)")
+    p.add_argument("--tensor-parallel", action="store_true", default=None,
+                   help="shard dense MLP/cross weights over the model axis")
+    p.add_argument(
         "--kernels", action="store_true",
         help="kernel/quantization plane: int8 weight quantization and the fused "
         "serve kernel, each enabled per bucket only where the load-time autotune "
@@ -1927,6 +2117,26 @@ def serve(argv=None) -> None:
     fleet_config = loaded.get("fleet") or FleetConfig()
     if args.fleet:
         fleet_config = dataclasses.replace(fleet_config, enabled=True)
+    mesh_config = loaded.get("mesh") or MeshConfig()
+    if args.mesh:
+        mesh_config = dataclasses.replace(mesh_config, enabled=True)
+    elastic_config = loaded.get("elastic") or ElasticConfig()
+    if args.elastic:
+        elastic_config = dataclasses.replace(elastic_config, enabled=True)
+        # The flag implies the mesh it resizes; a TOML [elastic] without
+        # [mesh] is refused by build_stack instead.
+        mesh_config = dataclasses.replace(mesh_config, enabled=True)
+    if mesh_config.enabled:
+        # With the mesh mode armed the geometry flags configure [mesh], and
+        # are withheld from the legacy [server] knobs (which build_stack
+        # refuses beside it).
+        geometry = {k: v for k, v in {"devices": args.mesh_devices,
+                                      "model_parallel": args.model_parallel,
+                                      "tensor_parallel": args.tensor_parallel}.items()
+                    if v is not None}
+        if geometry:
+            mesh_config = dataclasses.replace(mesh_config, **geometry)
+        args.mesh_devices = args.model_parallel = args.tensor_parallel = None
     obs = loaded.get("observability") or ObservabilityConfig()
     if args.tracing:
         obs = dataclasses.replace(obs, tracing=True)
@@ -1971,6 +2181,7 @@ def serve(argv=None) -> None:
             integrity_config=integrity_config, cascade_config=cascade_config,
             utilization_config=utilization_config, quality_config=quality_config,
             lifecycle_config=lifecycle_config, recovery_config=recovery_config,
+            mesh_config=mesh_config, elastic_config=elastic_config,
         )
     except BaseException:
         if request_logger is not None:

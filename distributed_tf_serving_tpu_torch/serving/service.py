@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import logging
 import threading
 import time
 
@@ -81,6 +82,8 @@ from .cascade import STAGE_OUTPUT
 from .example_codec import ExampleDecodeError, decode_input
 from .integrity import IntegrityScreenError
 
+log = logging.getLogger("dts_torch.service")
+
 SIGNATURE_DEF_FIELD = "signature_def"
 
 
@@ -100,12 +103,6 @@ def _wrap_lookup(fn):
         return fn()
     except (ModelNotFoundError, VersionNotFoundError, SignatureNotFoundError) as e:
         raise ServiceError("NOT_FOUND", str(e)) from e
-
-
-def _plane_off(*_args, **_kwargs) -> None:
-    """The snapshot of a plane that is not ported yet: None, what the JAX
-    package's answers with that plane off."""
-    return None
 
 
 class PredictionServiceImpl:
@@ -176,6 +173,14 @@ class PredictionServiceImpl:
         # gossip membership and the rollout follower, set by the server
         # when [fleet] arms it. GET /fleetz and the dts_tpu_fleet_* series.
         self.fleet = None
+        # The mesh executor (parallel/executor.py ShardedExecutor, or the
+        # elastic ladder's ElasticMeshExecutor), or None when serving is
+        # single-device: the `mesh` /monitoring block, GET /meshz and the
+        # dts_tpu_mesh_* series read its snapshot().
+        self.mesh_executor = None
+        # The elastic controller (parallel/elastic.py ElasticController),
+        # or None: the `elastic` section and the dts_tpu_elastic_* series.
+        self.elastic = None
 
     def _arena(self) -> codec.EncodeArena | None:
         """The calling thread's EncodeArena, or None with response_arena
@@ -187,9 +192,52 @@ class PredictionServiceImpl:
             arena = self._arenas.arena = codec.EncodeArena()
         return arena
 
-    # Mesh and elastic (ROADMAP.md Queue A item 9): refused by load_config,
-    # so always off here.
-    mesh_stats = elastic_stats = staticmethod(_plane_off)
+    def mesh_stats(self, utilization: dict | None = None) -> dict | None:
+        """The mesh snapshot (geometry and device list, executor batch and
+        pad counters, layout source per served model, and per-device
+        occupancy when the utilization ledger rides along): the `mesh`
+        /monitoring block, GET /meshz and the dts_tpu_mesh_* series. None
+        when serving is single-device. `utilization` (a utilization_stats()
+        snapshot already taken) saves a second snapshot when the caller
+        renders both blocks in one pass."""
+        ex = self.mesh_executor
+        if ex is None:
+            return None
+        snap = ex.snapshot()
+        ledger = getattr(self.batcher, "utilization", None)
+        if ledger is not None:
+            # The per-device attribution has one implementation, the
+            # ledger's own snapshot, lifted here. A ledger never labeled
+            # with the devices (build_stack labels it) adopts the mesh's
+            # first, which needs a fresh snapshot.
+            try:
+                usnap = utilization
+                if getattr(ledger, "devices", None) is None:
+                    ledger.devices = list(snap["devices"])
+                    usnap = None
+                if usnap is None:
+                    usnap = ledger.snapshot()
+                if usnap.get("per_device") is not None:
+                    snap["per_device"] = usnap["per_device"]
+                    snap["occupancy_attribution"] = usnap.get(
+                        "occupancy_attribution", "spmd_uniform")
+            except Exception:  # noqa: BLE001 — telemetry, never a dependency
+                log.exception("mesh_stats: utilization attribution failed")
+        return snap
+
+    def elastic_stats(self, mesh: dict | None = None) -> dict | None:
+        """The elastic snapshot (current split, ladder, per-split serve
+        counters and live in-flight, switch history, controller state):
+        the `elastic` /monitoring section and the dts_tpu_elastic_* series.
+        None with [elastic] off. The same block rides inside mesh_stats()
+        as its `elastic` key; `mesh` (a mesh_stats() snapshot already
+        taken) lends it instead of a second walk of the executor."""
+        ctrl = self.elastic
+        if ctrl is None:
+            return None
+        if mesh is not None and mesh.get("elastic") is not None:
+            return mesh["elastic"]
+        return ctrl.executor.elastic_snapshot()
 
     def fleet_stats(self) -> dict | None:
         """The fleet plane's snapshot (gossip membership view and exchange

@@ -179,8 +179,8 @@ class OccupancyLedger:
     ):
         self.device = device or "device:0"
         # The per-device list when one ledger attributes several devices
-        # that every batch occupies together (a mesh, not ported: ROADMAP.md
-        # Queue A item 9); None for one device.
+        # that every batch occupies together (a mesh: build_stack labels it
+        # with the mesh's devices); None for one device.
         self.devices: list[str] | None = None
         self.window_s = float(window_s)
         self._clock = clock

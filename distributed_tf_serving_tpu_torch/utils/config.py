@@ -1,17 +1,12 @@
 """TOML config: the [server], [batching], [transport], [model], [kernels],
 [observability], [cache], [overload], [integrity], [cascade],
-[utilization], [quality], [lifecycle], [recovery], [client], [fleet] and
-[slo] sections the port reads, the checks of the model-config entries,
-and the mapping of a tensorflow_model_server batching-parameters file onto
-[server].
+[utilization], [quality], [lifecycle], [recovery], [client], [fleet],
+[slo], [mesh] and [elastic] sections the port reads, the checks of the
+model-config entries, and the mapping of a tensorflow_model_server
+batching-parameters file onto [server].
 
-The JAX package's config files load unchanged, with one rule: a setting
-that would change what is served, logged or admitted but is not ported
-here is refused with a ValueError naming the ROADMAP.md Queue A item that
-ports it, never dropped. That covers the mesh knobs of [server] and the
-[mesh] and [elastic] sections switched on. What changes no result here is
-ignored with one log line: the transfer knobs of [server], and a [mesh] or
-[elastic] section that is off.
+The JAX package's config files load unchanged. What changes no result
+here is ignored with one log line: the transfer knobs of [server].
 [overload] drain_grace_s feeds the shutdown drain whether or not the plane
 is on. A section or key the JAX package does not know either raises, as
 there.
@@ -54,6 +49,13 @@ class ServerConfig:
     # turn). The [batching] section's pipeline_depth, when nonzero, wins.
     pipeline_depth: int = 2
     queue_capacity_candidates: int | None = None
+    # The legacy mesh knobs: 0 = single device; > 0 = shard over the first
+    # n devices, model_parallel of them per vocab shard, with
+    # tensor_parallel the dense weights split too. The [mesh] section is
+    # the serving mode; build_stack refuses both at once.
+    mesh_devices: int = 0
+    model_parallel: int = 1
+    tensor_parallel: bool = False
     # Warm a loaded version before it serves: the bucket ladder, then the
     # version's own assets.extra/tf_serving_warmup_requests records.
     warmup: bool = True
@@ -864,7 +866,8 @@ class RecoveryConfig:
     max_cycle_rounds: int = 20
     # Transition events (and MTTR records) kept for /recoveryz.
     history_events: int = 64
-    # "executor" or "per_chip": the same unit on one card (no mesh here).
+    # "executor" (the default: a mesh executor recovers as one unit) or
+    # "per_chip", which build_stack refuses over a mesh.
     scope: str = "executor"
 
     def __post_init__(self):
@@ -938,25 +941,136 @@ class LifecycleConfig:
     history_events: int = 64
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Mesh serving mode: shard serving over a ("data", "model") device
+    mesh — candidate rows split over the data axis, embedding vocab over
+    the model axis (parallel/mesh.py). Off by default: with the section
+    absent serving is single-device.
+
+    Arming it installs a parallel/executor.ShardedExecutor as the
+    batcher's run_fn: same wire protocol, same client semantics, one
+    process spanning N devices. Mode conflicts ([kernels], [recovery]
+    scope = "per_chip", [cascade], the legacy [server] mesh knobs,
+    output_top_k) are refused at build time — see build_stack."""
+
+    # Master switch: construct the mesh and install the ShardedExecutor.
+    enabled: bool = False
+    # Devices in the mesh; 0 = every visible card. Must be divisible by
+    # model_parallel (the ("data", "model") factorization).
+    devices: int = 0
+    # Devices sharding the embedding vocab (the EP axis); the rest of the
+    # factorization shards candidates. 1 = pure candidate sharding.
+    model_parallel: int = 1
+    # Also shard dense MLP/cross weights over the model axis (the TP row;
+    # embedding tables are vocab-sharded regardless).
+    tensor_parallel: bool = False
+
+    def __post_init__(self):
+        for name in ("devices", "model_parallel"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 0:
+                raise ValueError(
+                    f"[mesh] {name} must be a non-negative integer, got {v!r}"
+                )
+        if self.model_parallel < 1:
+            raise ValueError(
+                f"[mesh] model_parallel must be >= 1, got {self.model_parallel!r}"
+            )
+        if self.devices and self.devices % self.model_parallel != 0:
+            raise ValueError(
+                f"[mesh] devices={self.devices} is not divisible by "
+                f"model_parallel={self.model_parallel} (the mesh is the "
+                "(devices/model_parallel, model_parallel) factorization)"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticConfig:
+    """Elastic mesh serving (parallel/elastic.py): a ladder of ("data",
+    "model") splits over the SAME devices, placed and warmed at load time,
+    with a pressure-driven controller switching the serving split at
+    runtime — hitlessly (in-flight batches on the old split drain behind
+    the per-split in-flight barrier; new dispatches route to the target
+    at once). Requires [mesh] enabled (the initial split IS the [mesh]
+    factorization); off by default — with the section absent, mesh
+    serving is the static mode."""
+
+    # Master switch: build an ElasticMeshExecutor + ElasticController
+    # instead of the static ShardedExecutor.
+    enabled: bool = False
+    # The split ladder, e.g. ["8x1", "4x2", "2x4"] (DATAxMODEL; every
+    # entry must factorize the [mesh] device count). Empty = derived:
+    # {n,1}, {n/2,2} (n even), and the [mesh] split. Sorted
+    # throughput-first internally; "up" switches move toward the
+    # data-parallel end.
+    splits: tuple = ()
+    # Controller cadence (opportunistic — ticked from dispatches and
+    # monitoring scrapes, no thread; the overload plane's precedent).
+    tick_interval_s: float = 0.5
+    # Minimum time between switches (the anti-flap floor; also the time
+    # the FIRST switch waits after arming).
+    dwell_s: float = 5.0
+    # Consecutive over/under ticks before a one-rung move. Down is
+    # deliberately slower: relaxing parallelism is a latency nicety,
+    # escalating it is a survival move.
+    up_after_ticks: int = 2
+    down_after_ticks: int = 6
+    # Load-EWMA thresholds (queue fraction / bucket occupancy, max of
+    # both): >= up counts an up tick even at NOMINAL pressure; <= down
+    # (at NOMINAL) counts a down tick; between is the hysteresis band
+    # (streaks reset, split holds).
+    load_up_threshold: float = 0.75
+    load_down_threshold: float = 0.20
+    load_ewma_alpha: float = 0.3
+    # Retained switch-history events (the /meshz ring).
+    history_events: int = 64
+
+    def __post_init__(self):
+        for s in self.splits:
+            d, sep, m = str(s).strip().lower().partition("x")
+            if not sep or not d.isdigit() or not m.isdigit() \
+                    or int(d) < 1 or int(m) < 1:
+                raise ValueError(
+                    f"[elastic] splits entry {s!r} is not 'DATAxMODEL' "
+                    "with positive integer axes (e.g. '4x2')"
+                )
+        for name in ("tick_interval_s", "dwell_s", "load_ewma_alpha"):
+            v = getattr(self, name)
+            if not isinstance(v, (int, float)) or isinstance(v, bool) or v <= 0:
+                raise ValueError(
+                    f"[elastic] {name} must be a positive number, got {v!r}"
+                )
+        for name in ("up_after_ticks", "down_after_ticks", "history_events"):
+            v = getattr(self, name)
+            if not isinstance(v, int) or isinstance(v, bool) or v < 1:
+                raise ValueError(
+                    f"[elastic] {name} must be a positive integer, got {v!r}"
+                )
+        up, down = self.load_up_threshold, self.load_down_threshold
+        for name, v in (("load_up_threshold", up), ("load_down_threshold", down)):
+            if not isinstance(v, (int, float)) or isinstance(v, bool) \
+                    or not 0.0 <= v <= 1.0:
+                raise ValueError(
+                    f"[elastic] {name} must be in [0, 1], got {v!r}"
+                )
+        if down >= up:
+            raise ValueError(
+                f"[elastic] load_down_threshold ({down}) must be below "
+                f"load_up_threshold ({up}) — the gap IS the hysteresis "
+                "band; equal thresholds would flap on every load wiggle"
+            )
+        if self.load_ewma_alpha > 1.0:
+            raise ValueError(
+                f"[elastic] load_ewma_alpha must be in (0, 1], got "
+                f"{self.load_ewma_alpha!r}"
+            )
+
 # [server] keys of the JAX package that change no result here: the JAX
 # runtime's transfer knobs, whose work the port's host path always does one
 # way (one combined buffer, async readback, a dispatch thread).
 _IGNORED_KEYS = {"server": ("compress_transfer", "async_readback", "pipelined_dispatch",
                             "donate_buffers")}
-# Keys of the JAX package that are not ported: key -> (the default, which
-# loads; the ROADMAP.md Queue A item that ports the rest).
-_UNPORTED_KEYS = {
-    "server": {"mesh_devices": (0, 9), "model_parallel": (1, 9), "tensor_parallel": (False, 9)},
-}
-# Sections of the JAX package that are not ported: section -> (its keys,
-# the keys that switch it on, the ROADMAP.md Queue A item). A section
-# that is off is ignored; switched on, it is refused.
-_UNPORTED_SECTIONS = {
-    "mesh": (("enabled", "devices", "model_parallel", "tensor_parallel"), ("enabled",), 9),
-    "elastic": (("enabled", "splits", "tick_interval_s", "dwell_s", "up_after_ticks",
-                 "down_after_ticks", "load_up_threshold", "load_down_threshold",
-                 "load_ewma_alpha", "history_events"), ("enabled",), 9),
-}
 # The shutdown drain's grace when [overload] does not set it (seconds).
 DRAIN_GRACE_S = 5.0
 
@@ -964,15 +1078,9 @@ DRAIN_GRACE_S = 5.0
 def _coerce(cls, data: dict[str, Any], section: str):
     fields = {f.name for f in dataclasses.fields(cls)}
     ignored = set(_IGNORED_KEYS.get(section, ()))
-    unported = _UNPORTED_KEYS.get(section, {})
-    unknown = sorted(set(data) - fields - ignored - set(unported))
+    unknown = sorted(set(data) - fields - ignored)
     if unknown:
         raise ValueError(f"unknown [{section}] keys: {unknown}")
-    for key, (default, item) in unported.items():
-        if key in data and data[key] != default:
-            raise ValueError(
-                f"[{section}] {key} = {data[key]!r} is not ported yet (ROADMAP.md Queue A "
-                f"item {item}); only {default!r} loads")
     dropped = sorted(set(data) - fields)
     if dropped:
         log.info("ignoring [%s] keys that change nothing here: %s", section, dropped)
@@ -989,17 +1097,6 @@ def _coerce(cls, data: dict[str, Any], section: str):
     return cls(**kwargs)
 
 
-def _check_unported_section(section: str, data: dict[str, Any]) -> None:
-    keys, switches, item = _UNPORTED_SECTIONS[section]
-    unknown = sorted(set(data) - set(keys))
-    if unknown:
-        raise ValueError(f"unknown [{section}] keys: {unknown}")
-    for key in switches:
-        if data.get(key):
-            raise ValueError(
-                f"[{section}] {key} = true is not ported yet (ROADMAP.md Queue A item {item})")
-
-
 def load_config(path) -> dict[str, Any]:
     """Parse a TOML file: {"server": ServerConfig, "batching":
     BatchingConfig, "transport": TransportConfig, "drain_grace_s": float,
@@ -1008,24 +1105,22 @@ def load_config(path) -> dict[str, Any]:
     "integrity": IntegrityConfig, "cascade": CascadeConfig, "utilization":
     UtilizationConfig, "quality": QualityConfig, "lifecycle":
     LifecycleConfig, "recovery": RecoveryConfig, "client": ClientConfig,
-    "fleet": FleetConfig, "slo": SloConfig} ("model", "kernels",
-    "observability", "cache", "overload", "integrity", "cascade",
-    "utilization", "quality", "lifecycle", "recovery", "client", "fleet"
-    and "slo" only when the file has that section). A nonzero [batching]
-    pipeline_depth replaces the [server] one, as in the JAX package's
-    server; "drain_grace_s" is [overload] drain_grace_s (honored with the
-    plane off, as there). Raises ValueError on a setting that is not
-    ported (module docstring) and on a section or key the JAX package does
-    not know."""
+    "fleet": FleetConfig, "slo": SloConfig, "mesh": MeshConfig, "elastic":
+    ElasticConfig} ("model", "kernels", "observability", "cache",
+    "overload", "integrity", "cascade", "utilization", "quality",
+    "lifecycle", "recovery", "client", "fleet" and "slo" only when the file
+    has that section; "mesh" and "elastic" always, disabled when absent, as
+    in the JAX package). A nonzero [batching] pipeline_depth replaces the
+    [server] one, as in the JAX package's server; "drain_grace_s" is
+    [overload] drain_grace_s (honored with the plane off, as there). Raises
+    ValueError on a section or key the JAX package does not know."""
     raw = tomllib.loads(pathlib.Path(path).read_text())
-    ported = {"server", "batching", "transport", "model", "kernels", "observability", "cache",
-              "overload", "integrity", "cascade", "utilization", "quality", "lifecycle",
-              "recovery", "client", "fleet", "slo"}
-    unknown = sorted(set(raw) - ported - set(_UNPORTED_SECTIONS))
+    known = {"server", "batching", "transport", "model", "kernels", "observability", "cache",
+             "overload", "integrity", "cascade", "utilization", "quality", "lifecycle",
+             "recovery", "client", "fleet", "slo", "mesh", "elastic"}
+    unknown = sorted(set(raw) - known)
     if unknown:
         raise ValueError(f"unknown config sections: {unknown}")
-    for section in sorted(set(raw) & set(_UNPORTED_SECTIONS)):
-        _check_unported_section(section, raw[section])
     server = _coerce(ServerConfig, raw.get("server", {}), "server")
     batching = _coerce(BatchingConfig, raw.get("batching", {}), "batching")
     if batching.pipeline_depth:
@@ -1038,6 +1133,8 @@ def load_config(path) -> dict[str, Any]:
         "batching": batching,
         "transport": _coerce(TransportConfig, raw.get("transport", {}), "transport"),
         "drain_grace_s": float(grace),
+        "mesh": _coerce(MeshConfig, raw.get("mesh", {}), "mesh"),
+        "elastic": _coerce(ElasticConfig, raw.get("elastic", {}), "elastic"),
     }
     if "model" in raw:
         from ..models.base import ModelConfig
@@ -1070,9 +1167,6 @@ def load_config(path) -> dict[str, Any]:
         out["fleet"] = _coerce(FleetConfig, raw["fleet"], "fleet")
     if "slo" in raw:
         out["slo"] = _coerce(SloConfig, raw["slo"], "slo")
-    extra = sorted(set(raw) & set(_UNPORTED_SECTIONS))
-    if extra:
-        log.info("ignoring config sections this package does not use: %s", extra)
     return out
 
 

@@ -522,6 +522,44 @@ _HELP = {
     "dts_tpu_recovery_last_cycle_seconds":
         "Duration of the last completed quarantine->reinit->replay "
         "cycle (the live MTTR evidence)",
+    "dts_tpu_mesh_data_pad_rows_total":
+        "Zero rows the sharded executor added to make batches divisible "
+        "by the mesh data axis (sliced off on readback)",
+    "dts_tpu_mesh_device_busy_fraction":
+        "Per-device busy fraction over the utilization window (SPMD "
+        "attribution: every batch occupies all mesh devices, so each "
+        "device carries the ledger's busy timeline)",
+    "dts_tpu_elastic_data_parallel":
+        "Data-axis degree of the CURRENT serving split (elastic mesh "
+        "serving resizes this at runtime)",
+    "dts_tpu_elastic_model_parallel":
+        "Model-axis degree of the CURRENT serving split",
+    "dts_tpu_elastic_splits":
+        "Rungs in the configured split ladder",
+    "dts_tpu_elastic_switches_total":
+        "Completed split switches, labeled by direction (up = toward "
+        "the data-parallel/throughput end, down = toward the "
+        "model-parallel/latency end)",
+    "dts_tpu_elastic_switch_drain_pending":
+        "1 while the last switch's old split still has batches in "
+        "flight (the hitless-drain barrier; further switches wait)",
+    "dts_tpu_elastic_last_drain_seconds":
+        "How long the last switch's old split took to drain its "
+        "in-flight batches (0 = switched idle)",
+    "dts_tpu_elastic_controller_ticks_total":
+        "Elastic controller decision ticks (opportunistic — dispatches "
+        "and monitoring scrapes drive them)",
+    "dts_tpu_elastic_holds_total":
+        "Switch decisions deferred, labeled by reason (dwell = inside "
+        "the anti-flap floor; drain = previous switch still draining)",
+    "dts_tpu_elastic_load_ewma":
+        "The controller's load signal: EWMA of max(queue fraction, "
+        "dispatched-bucket occupancy)",
+    "dts_tpu_elastic_split_batches_total":
+        "Batches served per ladder rung over the process lifetime",
+    "dts_tpu_elastic_split_in_flight":
+        "Batches currently executing or awaiting readback per ladder "
+        "rung (the switch drain barrier reads the old rung's gauge)",
     "dts_tpu_integrity_suspect":
         "1 while this replica's own shadow verification has it marked "
         "suspect (also gossiped in the fleet record so routers steer "
@@ -801,7 +839,7 @@ class ServerMetrics:
     def prometheus_text(self, batcher_stats=None, cache=None, row_cache=None, overload=None,
                         pipeline=None, kernels=None, integrity=None, cascade=None,
                         utilization=None, quality=None, lifecycle=None,
-                        recovery=None, fleet=None) -> str:
+                        recovery=None, fleet=None, mesh=None, elastic=None) -> str:
         """Prometheus exposition (text format 0.0.4) of the same data
         snapshot() serves as JSON. Metric names mirror tensorflow_model_
         server's monitoring surface (`:tensorflow:serving:request_count` /
@@ -1030,6 +1068,10 @@ class ServerMetrics:
             lines.extend(_recovery_prometheus_lines(recovery))
         if kernels is not None:
             lines.extend(_kernel_prometheus_lines(kernels))
+        if mesh is not None:
+            lines.extend(_mesh_prometheus_lines(mesh))
+        if elastic is not None:
+            lines.extend(_elastic_prometheus_lines(elastic))
         if fleet is not None:
             lines.extend(_fleet_prometheus_lines(fleet))
         if cascade is not None:
@@ -1332,6 +1374,98 @@ def _overload_prometheus_lines(overload: dict) -> list[str]:
     current = overload.get("state", "nominal")
     for state in ("nominal", "brownout", "shed"):
         lines.append(f'{st}{{state="{esc(state)}"}} {1 if state == current else 0}')
+    return lines
+
+
+def _mesh_prometheus_lines(mesh: dict) -> list[str]:
+    """dts_tpu_mesh_* exposition from a mesh_stats() snapshot: mesh
+    geometry gauges, executor batch / row / pad counters (the data-axis
+    divisibility pad as ongoing work), and with the utilization ledger the
+    per-device occupancy gauge. Families through _family_lines, so the
+    lint (tools/check_prom.py) holds."""
+    esc = escape_label_value
+    lines: list[str] = []
+    shape = mesh.get("shape") or {}
+    ex = mesh.get("executor") or {}
+    for metric, kind, value in (
+        ("dts_tpu_mesh_devices", "gauge", len(mesh.get("devices") or ())),
+        ("dts_tpu_mesh_data_parallel", "gauge", shape.get("data", 0)),
+        ("dts_tpu_mesh_model_parallel", "gauge", shape.get("model", 0)),
+        ("dts_tpu_mesh_tensor_parallel", "gauge",
+         1 if mesh.get("tensor_parallel") else 0),
+        ("dts_tpu_mesh_batches_total", "counter", ex.get("batches", 0)),
+        ("dts_tpu_mesh_rows_total", "counter", ex.get("rows", 0)),
+        ("dts_tpu_mesh_pad_batches_total", "counter",
+         ex.get("pad_batches", 0)),
+        ("dts_tpu_mesh_data_pad_rows_total", "counter",
+         ex.get("data_pad_rows", 0)),
+        ("dts_tpu_mesh_placed_servables", "gauge",
+         ex.get("placed_servables", 0)),
+    ):
+        _family_lines(lines, metric, kind)
+        lines.append(f"{metric} {value}")
+    per_device = mesh.get("per_device") or {}
+    if per_device:
+        bd = "dts_tpu_mesh_device_busy_fraction"
+        _family_lines(lines, bd, "gauge")
+        for device, blk in sorted(per_device.items()):
+            lines.append(
+                f'{bd}{{device="{esc(device)}"}} '
+                f'{blk.get("busy_fraction", 0.0)}'
+            )
+    return lines
+
+
+def _elastic_prometheus_lines(elastic: dict) -> list[str]:
+    """dts_tpu_elastic_* exposition from an elastic_stats() snapshot:
+    current-split geometry gauges, switch counters by direction, the
+    drain-barrier gauge, controller tick / hold counters and load EWMA, and
+    per-split serve counters labeled by rung. Families through
+    _family_lines, so the lint (tools/check_prom.py) holds."""
+    esc = escape_label_value
+    lines: list[str] = []
+    cur = str(elastic.get("current_split") or "0x1")
+    d, _, m = cur.partition("x")
+    ctrl = elastic.get("controller") or {}
+    for metric, kind, value in (
+        ("dts_tpu_elastic_data_parallel", "gauge", int(d or 0)),
+        ("dts_tpu_elastic_model_parallel", "gauge", int(m or 0)),
+        ("dts_tpu_elastic_splits", "gauge", len(elastic.get("splits") or ())),
+        ("dts_tpu_elastic_switch_drain_pending", "gauge",
+         1 if elastic.get("pending_drain_from") else 0),
+        ("dts_tpu_elastic_last_drain_seconds", "gauge",
+         elastic.get("last_drain_s") or 0.0),
+        ("dts_tpu_elastic_controller_ticks_total", "counter",
+         ctrl.get("ticks", 0)),
+    ):
+        _family_lines(lines, metric, kind)
+        lines.append(f"{metric} {value}")
+    sw = "dts_tpu_elastic_switches_total"
+    _family_lines(lines, sw, "counter")
+    lines.append(f'{sw}{{direction="up"}} {elastic.get("switches_up", 0)}')
+    lines.append(f'{sw}{{direction="down"}} {elastic.get("switches_down", 0)}')
+    holds = "dts_tpu_elastic_holds_total"
+    _family_lines(lines, holds, "counter")
+    lines.append(f'{holds}{{reason="dwell"}} {ctrl.get("holds_dwell", 0)}')
+    lines.append(f'{holds}{{reason="drain"}} {ctrl.get("holds_drain", 0)}')
+    ewma = ctrl.get("load_ewma")
+    if ewma is not None:
+        _family_lines(lines, "dts_tpu_elastic_load_ewma", "gauge")
+        lines.append(f"dts_tpu_elastic_load_ewma {ewma}")
+    per_split = elastic.get("per_split") or {}
+    if per_split:
+        sb = "dts_tpu_elastic_split_batches_total"
+        _family_lines(lines, sb, "counter")
+        for split, blk in sorted(per_split.items()):
+            lines.append(
+                f'{sb}{{split="{esc(split)}"}} {blk.get("batches", 0)}'
+            )
+        si = "dts_tpu_elastic_split_in_flight"
+        _family_lines(lines, si, "gauge")
+        for split, blk in sorted(per_split.items()):
+            lines.append(
+                f'{si}{{split="{esc(split)}"}} {blk.get("in_flight", 0)}'
+            )
     return lines
 
 

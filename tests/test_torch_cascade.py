@@ -472,26 +472,29 @@ def test_build_stack_refuses_output_top_k():
     assert str(ours.value) == str(theirs.value)
 
 
-def test_mesh_beside_the_cascade_is_refused_by_load_config_first(tmp_path):
-    """[mesh] (and [elastic]) are refused in both packages beside
-    [cascade]: in the port by load_config, which refuses the unported mesh
-    before build_stack could refuse the pair as the JAX package does."""
+def test_mesh_beside_the_cascade_is_refused_by_build_stack(tmp_path):
+    """[mesh] (and [elastic]) beside [cascade]: both configs load, and
+    build_stack refuses the pair in both packages, in the same words."""
     from distributed_tf_serving_tpu.serving.server import build_stack as jax_build_stack
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack
     from distributed_tf_serving_tpu_torch.utils.config import load_config
 
     p = tmp_path / "c.toml"
     p.write_text("[cascade]\nenabled = true\n[mesh]\nenabled = true\ndevices = 8\n"
                  "model_parallel = 2\n")
-    with pytest.raises(ValueError, match=r"\[mesh\] enabled = true is not ported yet "
-                       r"\(ROADMAP.md Queue A item 9\)"):
-        load_config(p)
-    with pytest.raises(ValueError, match=r"\[mesh\]"):
+    loaded = load_config(p)
+    with pytest.raises(ValueError, match=r"\[cascade\] enabled conflicts with \[mesh\]") as ours:
+        build_stack(ServerConfig(model_name="DCN", num_fields=F, buckets=BUCKETS, warmup=False),
+                    ModelConfig(name="DCN", **KW), "cpu", mesh_config=loaded["mesh"],
+                    cascade_config=loaded["cascade"], mesh_device_list=["cpu"] * 8)
+    with pytest.raises(ValueError, match=r"\[mesh\]") as theirs:
         jax_build_stack(jax_config.ServerConfig(model_name="DCN", num_fields=F, buckets=BUCKETS,
                                                 warmup=False),
                         model_config=JaxConfig(name="DCN", **KW),
                         mesh_config=jax_config.MeshConfig(enabled=True, devices=8,
                                                           model_parallel=2),
                         cascade_config=jax_config.CascadeConfig(enabled=True))
+    assert str(ours.value) == str(theirs.value)
 
 
 def test_build_stack_cascade_wiring_and_disabled_mode():

@@ -1,7 +1,7 @@
 """The server's launch and shutdown surface in the port, against the JAX
 package where both have it: the config rule (a setting that is not ported
-is refused with its ROADMAP item, what changes nothing is ignored, what
-the JAX package does not know raises), the batching-parameters file, the
+is refused with its reason, the mesh settings load and build, what changes
+nothing is ignored, what the JAX package does not know raises), the batching-parameters file, the
 request log's records in both directions, TLS, the graceful drain, and the
 CLI's flags and SIGTERM."""
 
@@ -84,11 +84,6 @@ def _toml(tmp_path, text):
 # ------------------------------------------------------------ the config rule
 
 REFUSED = [
-    ("[server]\nmesh_devices = 8\n", 9),
-    ("[server]\nmodel_parallel = 2\n", 9),
-    ("[server]\ntensor_parallel = true\n", 9),
-    ("[mesh]\nenabled = true\n", 9),
-    ("[elastic]\nenabled = true\n", 9),
     # Refused with its reason, not an item: a CUDA context has no in-process
     # rebuild (serving/recovery.py).
     ("[recovery]\nreinit_clear_backend = true\n", "a CUDA context cannot be rebuilt in-process"),
@@ -103,6 +98,46 @@ def test_a_setting_that_is_not_ported_is_refused_with_its_item(tmp_path, text, i
     with pytest.raises(ValueError, match=want):
         load_config(_toml(tmp_path, text))
     jax_config.load_config(_toml(tmp_path, text))  # the JAX package loads it
+
+
+# The mesh settings (refused until the mesh was ported): each loads with the
+# JAX package's values, and a stack built from it serves over eight logical
+# CPU shards ([elastic] on top of the [mesh] it needs).
+MESH_SETTINGS = [
+    ("[server]\nmesh_devices = 8\n", {"data": 8, "model": 1}),
+    ("[server]\nmodel_parallel = 2\n", None),
+    ("[server]\ntensor_parallel = true\n", None),
+    ("[mesh]\nenabled = true\n", {"data": 8, "model": 1}),
+    ("[mesh]\nenabled = true\nmodel_parallel = 2\n[elastic]\nenabled = true\n",
+     {"data": 4, "model": 2}),
+]
+
+
+@pytest.mark.parametrize("text,shape", MESH_SETTINGS,
+                         ids=[t.split("\n")[-2] + f"@{t.split(']')[0][1:]}"
+                              for t, _ in MESH_SETTINGS])
+def test_a_mesh_setting_loads_and_builds(tmp_path, text, shape):
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack
+
+    ours = load_config(_toml(tmp_path, text))
+    theirs = jax_config.load_config(_toml(tmp_path, text))
+    for section in ("mesh", "elastic"):
+        assert dataclasses.asdict(ours[section]) == dataclasses.asdict(theirs[section])
+    for key in ("mesh_devices", "model_parallel", "tensor_parallel"):
+        assert getattr(ours["server"], key) == getattr(theirs["server"], key)
+    cfg = dataclasses.replace(ours["server"], num_fields=F, buckets=(8,), max_wait_us=0,
+                              warmup=False)
+    impl, batcher, servable = build_stack(
+        cfg, CFG, "cpu", mesh_config=ours["mesh"], elastic_config=ours["elastic"],
+        mesh_device_list=["cpu"] * 8)
+    try:
+        got = batcher.submit(servable, _arrays(5)).result(timeout=60)["prediction_node"]
+        assert got.shape == (5,) and np.isfinite(got).all()
+        mesh = impl.mesh_stats()
+        assert (mesh["shape"] if mesh else None) == shape
+        assert (impl.elastic_stats() is not None) == ours["elastic"].enabled
+    finally:
+        batcher.stop()
 
 
 # Refused until this package ported them; now each loads with the JAX
@@ -198,20 +233,15 @@ def test_the_key_tables_are_the_jax_package_s():
               "quality": torch_config.QualityConfig,
               "lifecycle": torch_config.LifecycleConfig,
               "recovery": torch_config.RecoveryConfig, "client": torch_config.ClientConfig,
-              "fleet": torch_config.FleetConfig, "slo": torch_config.SloConfig}
-    assert set(ported) | set(torch_config._UNPORTED_SECTIONS) == set(jax_fields)
-    for section, (keys, switches, _) in torch_config._UNPORTED_SECTIONS.items():
-        assert set(keys) == jax_fields[section], section
-        assert set(switches) <= set(keys)
+              "fleet": torch_config.FleetConfig, "slo": torch_config.SloConfig,
+              "mesh": torch_config.MeshConfig, "elastic": torch_config.ElasticConfig}
+    assert set(ported) == set(jax_fields)
     for section, cls in ported.items():
         own = {f.name for f in dataclasses.fields(cls)}
-        extra = set(torch_config._IGNORED_KEYS.get(section, ())) | set(
-            torch_config._UNPORTED_KEYS.get(section, {}))
+        extra = set(torch_config._IGNORED_KEYS.get(section, ()))
         assert own | extra == jax_fields[section], section
         assert not own & extra, section
         jdefaults = {f.name: f.default for f in dataclasses.fields(jax_config._SECTIONS[section])}
-        for key, (default, _) in torch_config._UNPORTED_KEYS.get(section, {}).items():
-            assert jdefaults[key] == default, (section, key)
         for f in dataclasses.fields(cls):
             if f.name in jdefaults and section != "kernels":
                 assert jdefaults[f.name] == f.default, (section, f.name)
@@ -734,23 +764,66 @@ def test_cli_refuses_a_version_label_beside_a_model_config_file(tmp_path):
     assert res.returncode != 0 and "version_labels have no meaning" in res.stderr
 
 
-def test_cli_refuses_an_unported_plane_before_it_starts(tmp_path):
-    cfg = _toml(tmp_path, "[mesh]\nenabled = true\n")
-    res = subprocess.run(
-        [sys.executable, "-m", "distributed_tf_serving_tpu_torch.serving.server", "--device",
-         "cpu", "--port", "0", "--config", str(cfg)],
-        cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert res.returncode != 0
-    assert "[mesh] enabled = true is not ported yet (ROADMAP.md Queue A item 9)" in res.stderr
+def test_cli_serves_with_mesh(tmp_path):
+    """[mesh] enabled = true on the CLI: the stack serves over the mesh of
+    its device (one CPU shard here), /meshz answers it and the
+    dts_tpu_mesh_* series are in the Prometheus text."""
+    import json
+    import urllib.request
+
+    cfg = _toml(tmp_path, "[server]\nnum_fields = 6\nbuckets = [8]\nmax_wait_us = 0\n"
+                "[model]\nnum_fields = 6\nvocab_size = 1024\nembed_dim = 4\nmlp_dims = [8]\n"
+                "num_cross_layers = 1\n[mesh]\nenabled = true\n")
+    port, rest_port = _free_port(), _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_tf_serving_tpu_torch.serving.server", "--config",
+         str(cfg), "--host", "127.0.0.1", "--port", str(port), "--device", "cpu",
+         "--rest-port", str(rest_port)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            _wait_serving(ch, proc)
+            resp = PredictionServiceStub(ch).Predict(_req(_arrays(3, 5)), timeout=30)
+            assert codec.to_ndarray(resp.outputs["prediction_node"]).shape == (3,)
+            end = time.time() + 60
+            while True:
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{rest_port}/meshz",
+                                                timeout=5) as r:
+                        meshz = json.loads(r.read())
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{rest_port}/monitoring/prometheus/metrics",
+                            timeout=5) as r:
+                        prom = r.read().decode()
+                    break
+                except OSError:
+                    assert proc.poll() is None and time.time() < end
+                    time.sleep(0.1)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        assert proc.returncode == 0, out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert meshz["enabled"] and meshz["shape"] == {"data": 1, "model": 1}
+    assert meshz["executor"]["batches"] >= 1 and meshz["devices"] == ["cpu"]
+    assert "dts_tpu_mesh_batches_total" in prom
+    assert "mesh serving mode on:" in out
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--elastic"])
-def test_flags_of_later_slices_stay_unrecognized(flag, capsys):
+@pytest.mark.parametrize("flag,extra,message", [
+    ("--mesh", ["--model-parallel", "0"], "model_parallel must be >= 1"),
+    ("--elastic", ["--mesh-devices", "3", "--model-parallel", "2"], "not divisible"),
+])
+def test_mesh_flags_parse(flag, extra, message):
+    """--mesh and --elastic parse, and the geometry flags beside them reach
+    the [mesh] section (whose checks refuse these values before any stack
+    is built)."""
     from distributed_tf_serving_tpu_torch.serving.server import serve
 
-    with pytest.raises(SystemExit) as e:
-        serve(["--device", "cpu", flag])
-    assert e.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
+    with pytest.raises(ValueError, match=message):
+        serve(["--device", "cpu", flag] + extra)
 
 
 def test_cli_cache_flag_arms_the_store(tmp_path):

@@ -353,8 +353,9 @@ def test_cli_serves_on_cpu_and_stops_on_sigterm(tmp_path):
         proc.terminate()
         out, _ = proc.communicate(timeout=30)
         assert proc.returncode == 0, out
-        assert "ignoring config sections" in out and "shutdown complete" in out
-        assert "['mesh']" in out and "kernel autotune DCN v1: {8: " in out
+        # The [mesh] section is read now, and off: no mesh.
+        assert "mesh serving mode on" not in out and "shutdown complete" in out
+        assert "kernel autotune DCN v1: {8: " in out
     finally:
         if proc.poll() is None:
             proc.kill()
