@@ -420,7 +420,7 @@ Phases (any failure exits non-zero and prints no result line):
 17. freshness — the continuous-freshness loop (train/trainer.py,
              train/publisher.py, serving/lifecycle.py) out of process. (1)
              The trainer CLI trains v1 on the card at the [model] width of
-             configs/latency.toml (dcn_v2 bf16, 300 steps of 512 rows of the
+             configs/latency.toml (dcn_v2 bf16, 150 steps of 512 rows of the
              synthetic stream, id space 16384, rate 1e-2) into base/1:
              examples/s, final loss, held-out AUC beside the Bayes AUC (in
              (0.5, Bayes]). (2) 3 f32 train steps of a small dcn_v2 from the
@@ -604,9 +604,12 @@ Phases (any failure exits non-zero and prints no result line):
              (1, 4) meshes of cuda:0 (vocab-sharded, EP) at 5, 1000 and
              2048 rows, filtered and unfiltered: the bits of each data
              shard's rows scored alone on the card (exact), against the
-             single-device bits recorded (a row whose bits move with its
-             shard's row count is held to the cross kernel's 2e-2 and
-             listed in `row_count_faults`); each call launches the cross
+             single-device bits (bit equality: a row's bits do not move
+             with its shard's row count; `row_count_faults` stays empty;
+             before step 1, while the servers start, the eager products of
+             the forward in calls of 2048 ... 250 rows, one library call
+             against models/base.py's fixed row tiles, and the whole
+             forward, tools/torch_row_count.py); each call launches the cross
              stack once per data shard; the int8 wire over the pad (5 rows
              on 2 data shards) is exactly the host round trip of the
              unpadded scores; TP at (2, 2) in f32 (the f32 cross stack
@@ -634,6 +637,25 @@ Phases (any failure exits non-zero and prints no result line):
              and its served launches (the cross stack, no fused serve).
              Results in chiprun_out/mesh.json; `chip_smoke.py --mesh-only`
              builds the kernels and runs this phase alone.
+22. trainmesh — training over a mesh (train/trainer.py mesh= /
+             tensor_parallel=, parallel/sharding.py's trainable placement)
+             on one card: configs/latency.toml's dcn_v2 width with
+             use_pallas_cross off (the kernel has no backward), seed-0
+             params, 20 steps of 2048 rows of the synthetic stream, in f32
+             and bf16: one device, then logical meshes of cuda:0 (4, 1) dp,
+             (2, 2) dp + ep, (1, 4) ep and (2, 2) dp + ep + tp. Every step's
+             loss within rel 2e-4 (f32, the JAX test's) / 1e-3 (bf16) of the
+             one-device run's; every leaf's replicas bit-equal after the
+             last step; the embedding at (model, None) and, with TP,
+             mlp[0].w at (None, model) after the updates; steps/s and
+             examples/s from step 2 on. The bf16 (2, 2) TP snapshot, saved,
+             answers Predicts of n = 1000 and 2048 through a 1 x 1 [mesh]
+             server (gRPC) with the bits of (2, 2) ShardedExecutors, TP off
+             and on, over load_servable(mesh=). The trainer CLI with
+             --mesh-devices 1 (20 steps of 2048) trains on the card and its
+             checkpoint serves finite scores. No kernel is launched.
+             Results in chiprun_out/trainmesh.json; `chip_smoke.py
+             --trainmesh-only` builds the kernels and runs this phase alone.
 
 The lifecycle and models phases clear the device input cache before each
 memory read (its entries belong to the batcher, not to a version) and print
@@ -6557,7 +6579,7 @@ def phase_utilization(dev, name: str, step_table: str) -> dict:
 
 
 # The freshness phase: the continuous-freshness loop (train/, serving/lifecycle.py).
-FRESH_TRAIN = (300, 512, 16384, 1e-2)  # the trainer CLI's v1: steps, batch, --id-space, rate
+FRESH_TRAIN = (150, 512, 16384, 1e-2)  # the trainer CLI's v1: steps, batch, --id-space, rate
 FRESH_CLIENTS = 4  # client processes, one closed-loop client each ([client] concurrent_num)
 FRESH_N = 1000  # candidates per client Predict ([client] candidate_num)
 FRESH_PAYLOADS = 7  # distinct payloads per client (odd: never in step with the 0.5 ramp)
@@ -7861,7 +7883,7 @@ def phase_recovery(dev, name: str) -> dict:
 
 
 SM_SIZES = (7, 1000, 2048)  # Predicts of the savedmodel phase
-SM_REPEATS = 20  # Predicts per server for the p50 at n = 1000
+SM_REPEATS = 10  # Predicts per server for the p50 at n = 1000
 SM_GRAPH_TOL = 1e-5  # the graph server's scores against the CPU executor's
 SM_POLL_S = 0.25  # [server] file_system_poll_wait_seconds of the base-path server
 
@@ -9029,10 +9051,6 @@ MESH_HOLD_S = 1.0  # elastic traffic on each split before the next forced move
 MESH_SLOW_S = 0.5
 MESH_WAIT_S = 60.0  # bound on each wait of the phase
 MESH_DEATH_S = 20.0  # 2 x multihost_server.HEARTBEAT_TIMEOUT_S: a dead follower's bound
-# Bits are expected everywhere; a row whose bits move with its shard's row
-# count (a cuBLAS or kernel plan that depends on the rows) is recorded and
-# held to the cross kernel's bf16 tolerance until fixed.
-MESH_TOL = CROSS_TOL["bfloat16"]
 MESH_TP_RTOL = 1e-5  # TP against replicated, in f32 (the JAX test's)
 MESH_ELASTIC = dict(splits=MESH_LADDER, tick_interval_s=0.05, dwell_s=0.5, up_after_ticks=2,
                     down_after_ticks=3)
@@ -9096,6 +9114,40 @@ def _served(path: str, what: str) -> dict:
         fail(f"mesh: {what} logged no kernel launches at shutdown ({path})")
     start = lines.get("start", {})
     return {k: n - start.get(k, 0) for k, n in lines["shutdown"].items() if n - start.get(k, 0)}
+
+
+def row_count_step(dev) -> dict:
+    """The eager products of the dcn_v2 forward at configs/latency.toml's
+    width, 2048 rows, both dtypes (tools/torch_row_count.py probe): each
+    product in calls of 2048 ... 250 rows as one library call (`mm`, the
+    product before the fix) and in the fixed row tiles matmul_f32 runs
+    (`tiled`), against the 2048-row call. Logs the products whose one call
+    moves a row's bits, and by how much; fails if the tiled product or the
+    whole forward (use_pallas_cross off and on) moves any."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_row_count", os.path.join(HERE, "tools", "torch_row_count.py"))
+    probe_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe_mod)
+    t0 = time.perf_counter()
+    res = probe_mod.probe(dev, timed=False, methods=("mm", "tiled"))
+    moved = {m: probe_mod.moved_products(res, m) for m in ("mm", "tiled")}
+    forward = {cd: {k: {n: v["max_abs_diff"] for n, v in per.items() if v["rows_moved"]}
+                    for k, per in r["forward"].items()} for cd, r in res.items()}
+    out = {"moved_one_call": moved["mm"], "moved_tiled": moved["tiled"],
+           "forward_moved": forward, "s": time.perf_counter() - t0}
+    log(f"mesh: row counts: one library call per product moves a row's bits in "
+        f"{len(moved['mm'])} of {sum(len(r['products']) for r in res.values())} "
+        f"(dtype, product) pairs, max "
+        f"{max((d for v in moved['mm'].values() for d in v.values()), default=0.0):.3g}: "
+        f"{ {k: max(v.values()) for k, v in moved['mm'].items()} }; in fixed tiles: "
+        f"{moved['tiled'] or 'none'}; the whole forward: "
+        f"{ {cd: {k: v or 'none' for k, v in f.items()} for cd, f in forward.items()} }")
+    if moved["tiled"] or any(v for f in forward.values() for v in f.values()):
+        fail(f"mesh: a row's bits move with its call's row count: tiled {moved['tiled']}, "
+             f"forward {forward}")
+    return out
 
 
 def phase_mesh(dev, name: str) -> dict:
@@ -9260,15 +9312,13 @@ def phase_mesh(dev, name: str) -> dict:
         return single_device(got, plain, what)
 
     def single_device(got, plain, what: str) -> dict:
-        """`got` against the single-device bits: recorded, and held to
-        MESH_TOL where a row's bits moved with its shard's row count."""
+        """`got` must be the single-device bits: a row's bits do not move
+        with its shard's row count (models/base.py ROW_TILE)."""
         same = got.tobytes() == plain.tobytes()
         err = float(np.max(np.abs(got - plain)))
         if not same:
             faults_seen.append({"what": what, "max_abs_diff": err})
-            if err > MESH_TOL:
-                fail(f"mesh: {what} is {err:.3g} from the single-device bits (tolerance "
-                     f"{MESH_TOL})")
+            fail(f"mesh: {what} is not the single-device bits (max diff {err:.3g})")
         return {"bits_equal_single_device": same, "max_abs_diff": err}
 
     def bits(a, b, what: str) -> None:
@@ -9299,6 +9349,8 @@ def phase_mesh(dev, name: str) -> dict:
         for pid in (0, 1):
             multihost(f"mh2_{pid}", 2, pid, coords["mh2"], ports["mh2"], bases["b"])
             multihost(f"mh3_{pid}", 2, pid, coords["mh3"], ports["mh3"], bases["a"])
+        res["row_count"] = row_count_step(dev)
+        save()
 
         # 1. The plain server in this process: the same checkpoint through
         # model.apply (fused_kernel off), so both launch the cross stack.
@@ -9685,6 +9737,219 @@ def phase_mesh(dev, name: str) -> dict:
     return res
 
 
+TRAINMESH_STEPS = 20  # train steps of every run, from the same params on the same stream
+TRAINMESH_BATCH = 2048  # rows per step (the top serving bucket)
+# (data, model) meshes over cuda:0 and tensor_parallel; None: one device.
+TRAINMESH_RUNS = ((None, False), ((4, 1), False), ((2, 2), False), ((1, 4), False),
+                  ((2, 2), True))
+# Per-step loss against the single-device run: f32 at the JAX test's rel
+# 2e-4 (tests/test_train.py:93). bf16 rounds every activation to 8 bits of
+# mantissa, so the f32-ulp differences of the data-axis gradient sum can
+# flip a bf16 rounding after an update: held to rel 1e-3, the
+# single-device bf16 trajectory bound of tests/test_torch_train.py.
+TRAINMESH_RTOL = {"float32": 2e-4, "bfloat16": 1e-3}
+TRAINMESH_SERVE = (1000, 2048)  # Predict sizes the mesh-trained snapshot serves
+TRAINMESH_CLI_STEPS = 20  # the trainer CLI's --mesh-devices 1 run
+
+
+def phase_trainmesh(dev, name: str) -> dict:
+    """Training over a mesh on the card (train/trainer.py mesh=,
+    tensor_parallel=): configs/latency.toml's dcn_v2 width (43 x 16, vocab
+    2^20, 3 cross layers, MLP 256/128/64), seed-0 params, the synthetic
+    stream, TRAINMESH_STEPS steps of TRAINMESH_BATCH rows, in f32 and bf16:
+    one device, then logical meshes of cuda:0 (4, 1) dp, (2, 2) dp + ep,
+    (1, 4) ep and (2, 2) with tensor_parallel. Checks in the module
+    docstring."""
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch.client import make_payload
+    from distributed_tf_serving_tpu_torch.models import Servable, build_model
+    from distributed_tf_serving_tpu_torch.models.registry import model_signatures
+    from distributed_tf_serving_tpu_torch.parallel import MODEL_AXIS, ShardedExecutor, make_mesh
+    from distributed_tf_serving_tpu_torch.parallel.mesh import P
+    from distributed_tf_serving_tpu_torch.parallel.sharding import gather_params, placed_leaves
+    from distributed_tf_serving_tpu_torch.proto import PredictionServiceStub
+    from distributed_tf_serving_tpu_torch.serving.batcher import fold_ids_host
+    from distributed_tf_serving_tpu_torch.serving.server import build_stack, create_server
+    from distributed_tf_serving_tpu_torch.train import Trainer
+    from distributed_tf_serving_tpu_torch.train.checkpoint import load_servable, save_servable
+    from distributed_tf_serving_tpu_torch.utils.config import MeshConfig, load_config
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    cfgs = load_config(os.path.join(HERE, "configs", "latency.toml"))
+    cfg, mc = cfgs["server"], cfgs["model"]
+    F, V = mc.num_fields, mc.vocab_size
+    res: dict = {"card": name, "steps": TRAINMESH_STEPS, "batch": TRAINMESH_BATCH, "runs": {}}
+    tmp = tempfile.mkdtemp(prefix="dts_trainmesh_")
+    server = batcher = None
+
+    def save() -> None:
+        with open(os.path.join(out_dir, "trainmesh.json"), "w") as f:
+            json.dump(res, f, indent=1, default=str)
+
+    def label(mesh_shape, tp) -> str:
+        return "one_device" if mesh_shape is None else \
+            f"{mesh_shape[0]}x{mesh_shape[1]}{'_tp' if tp else ''}"
+
+    snapshot = None
+    try:
+        # 1. The runs: per-step losses, replicas, layouts, steps/s.
+        for cdn in ("float32", "bfloat16"):
+            model = build_model("dcn_v2", dataclasses.replace(
+                mc, compute_dtype=cdn, use_pallas_cross=False))
+            base_losses = None
+            for mesh_shape, tp in TRAINMESH_RUNS:
+                mesh = None
+                if mesh_shape is not None:
+                    d, m = mesh_shape
+                    mesh = make_mesh(d * m, m, devices=[dev] * (d * m))
+                tr = Trainer(model, mesh=mesh, tensor_parallel=tp, seed=SEED, device=dev)
+                losses = []
+                torch.cuda.synchronize()
+                t0 = t1 = time.perf_counter()
+                for i in range(TRAINMESH_STEPS):
+                    _, met = tr.step_fn(tr.state, tr._prepare(
+                        tr.stream.batch(TRAINMESH_BATCH, i)))
+                    losses.append(met["loss"])
+                    if i == 0:
+                        torch.cuda.synchronize()
+                        t1 = time.perf_counter()  # the first step warms the path
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                losses = [float(v) for v in losses]
+                if not all(math.isfinite(v) for v in losses):
+                    fail(f"trainmesh: {cdn} {label(mesh_shape, tp)} lost finiteness: {losses}")
+                run = {"losses": losses, "first_step_s": t1 - t0,
+                       "steps_per_s": (TRAINMESH_STEPS - 1) / wall,
+                       "examples_per_s": (TRAINMESH_STEPS - 1) * TRAINMESH_BATCH / wall}
+                if mesh is None:
+                    base_losses = losses
+                else:
+                    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
+                    run["max_rel_loss_diff"] = rel
+                    if rel > TRAINMESH_RTOL[cdn]:
+                        fail(f"trainmesh: {cdn} {label(mesh_shape, tp)}: a step's loss is "
+                             f"{rel:.3g} (relative) from the single-device run's (bound "
+                             f"{TRAINMESH_RTOL[cdn]})")
+                    unequal = [leaf.spec for leaf in placed_leaves(tr.state.params)
+                               for group in leaf.replicas()
+                               if any(not torch.equal(t, group[0]) for t in group[1:])]
+                    if unequal:
+                        fail(f"trainmesh: {cdn} {label(mesh_shape, tp)}: replicas differ "
+                             f"after the last step ({unequal})")
+                    run["replicas"] = sum(len(g) for leaf in placed_leaves(tr.state.params)
+                                          for g in leaf.replicas())
+                    specs = {"embedding": tr.state.params["embedding"].spec,
+                             "mlp.0.w": tr.state.params["mlp"][0]["w"].spec}
+                    want = P(None, MODEL_AXIS) if tp and mesh_shape[1] > 1 else P()
+                    if specs["embedding"] != P(MODEL_AXIS, None) or specs["mlp.0.w"] != want:
+                        fail(f"trainmesh: {label(mesh_shape, tp)} layout after the updates "
+                             f"{specs}")
+                    run["specs"] = {k: list(v) for k, v in specs.items()}
+                    if cdn == "bfloat16" and mesh_shape == (2, 2) and tp:
+                        snapshot = (model, tr.snapshot_params(), mesh)
+                res["runs"][f"{cdn}/{label(mesh_shape, tp)}"] = run
+                log(f"trainmesh ({name}): {cdn} {label(mesh_shape, tp)}: "
+                    f"{run['steps_per_s']:.2f} steps/s, {run['examples_per_s']:.0f} ex/s, "
+                    f"loss {losses[0]:.6f} -> {losses[-1]:.6f}"
+                    + (f", max rel diff from one device {run['max_rel_loss_diff']:.3g}"
+                       if mesh is not None else ""))
+                del tr
+                torch.cuda.empty_cache()
+            save()
+
+        # 2. The bf16 (2, 2) TP snapshot serves: a 1 x 1 [mesh] server over
+        # gRPC, and (2, 2) ShardedExecutors over load_servable(mesh=), TP
+        # off and on: the same bits.
+        model, snap, mesh22 = snapshot
+        ckpt = os.path.join(tmp, "trained")
+        save_servable(ckpt, Servable(name="DCN", version=1, model=model,
+                                     params=gather_params(snap), signatures=model_signatures(model)),
+                      "dcn_v2")
+        impl, batcher, _sv = build_stack(
+            dataclasses.replace(cfg, warmup=False), mc, "cuda", checkpoint=ckpt,
+            mesh_config=MeshConfig(enabled=True, devices=1), mesh_device_list=[dev])
+        server, port = create_server(impl, "127.0.0.1:0")
+        server.start()
+        served = {}
+        for n in TRAINMESH_SERVE:
+            p = make_payload(n, F, seed=SEED + 11000 + n)
+            with _channel(port) as ch:
+                got = _scores_of(PredictionServiceStub(ch).Predict(
+                    _request(p["feat_ids"], p["feat_wts"]), timeout=120))
+            if got.shape != (n,) or not np.all(np.isfinite(got)):
+                fail(f"trainmesh: the 1 x 1 server answered {got.shape} / non-finite scores")
+            arrays = {"feat_ids": fold_ids_host(p["feat_ids"], V), "feat_wts": p["feat_wts"]}
+            for tp in (False, True):
+                sv22 = load_servable(ckpt, mesh=mesh22, tensor_parallel=tp)
+                ex = ShardedExecutor(mesh22, tensor_parallel=tp)
+                mine = ex(sv22, arrays, out_keys=("prediction_node",))["prediction_node"]
+                mine = mine.float().cpu().numpy()
+                if mine.tobytes() != got.tobytes():
+                    fail(f"trainmesh: the (2, 2) executor{' with TP' if tp else ''} over "
+                         f"load_servable(mesh=) at n = {n} is not the 1 x 1 server's bits "
+                         f"(max diff {float(np.max(np.abs(mine - got))):.3g})")
+            served[n] = True
+        res["served_bits_equal"] = served
+        log(f"trainmesh ({name}): the bf16 (2, 2) TP snapshot answered n = "
+            f"{'/'.join(map(str, TRAINMESH_SERVE))} with the same bits through a 1 x 1 [mesh] "
+            f"server and (2, 2) executors (TP off, on) over load_servable(mesh=)")
+        server.stop(0)
+        server = None
+        batcher.stop()
+        batcher = None
+        save()
+
+        # 3. The trainer CLI with --mesh-devices 1 writes a checkpoint the
+        # port serves.
+        cli_out = os.path.join(tmp, "cli")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.train.trainer", "--out", cli_out, "--steps",
+             str(TRAINMESH_CLI_STEPS), "--batch-size", str(TRAINMESH_BATCH), "--num-fields",
+             str(F), "--vocab-size", str(V), "--embed-dim", str(mc.embed_dim),
+             "--mesh-devices", "1"],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "trainmesh_cli.log"), "w") as f:
+            f.write(run.stdout + run.stderr)
+        m = re.search(r"trained dcn_v2 (\d+) steps on (\S+): loss=([\d.]+) auc=([\d.]+) "
+                      r"bayes_auc=([\d.]+) \((\d+) ex/s\)", run.stdout)
+        if run.returncode != 0 or m is None or not m.group(2).startswith("mesh"):
+            fail(f"trainmesh: the trainer CLI (--mesh-devices 1) exited {run.returncode}: "
+                 f"{(run.stdout + run.stderr)[-1500:]}")
+        sv = load_servable(cli_out, device=dev)
+        p = make_payload(7, F, seed=SEED + 12000)
+        with torch.inference_mode():
+            scores = sv.model.apply(sv.params, {
+                "feat_ids": torch.from_numpy(fold_ids_host(p["feat_ids"], V)).to(dev),
+                "feat_wts": torch.from_numpy(p["feat_wts"]).to(dev)})["prediction_node"]
+        if scores.shape != (7,) or not torch.isfinite(scores).all():
+            fail(f"trainmesh: the CLI's checkpoint scored {scores}")
+        res["cli"] = {"where": m.group(2), "loss": float(m.group(3)), "auc": float(m.group(4)),
+                      "examples_per_s": int(m.group(6)), "wall_s": cli_s}
+        log(f"trainmesh ({name}): the trainer CLI --mesh-devices 1 ({TRAINMESH_CLI_STEPS} "
+            f"steps x {TRAINMESH_BATCH}) on {m.group(2)}: loss {m.group(3)}, auc {m.group(4)}, "
+            f"{m.group(6)} ex/s, {cli_s:.1f} s; its checkpoint serves")
+    finally:
+        if server is not None:
+            server.stop(0)
+        if batcher is not None:
+            batcher.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    save()
+    return res
+
+
 def main(only: str | None = None) -> None:
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"{PKG}/ not found beside chip_smoke.py")
@@ -9732,6 +9997,11 @@ def main(only: str | None = None) -> None:
         mesh = phase_mesh(dev, f"{name} ({smi})")
         log(f"mesh: phase {mesh['phase_s']:.1f} s")
         print(json.dumps({"mesh": mesh}, default=str), flush=True)
+        return
+    if only == "trainmesh":
+        trainmesh = phase_trainmesh(dev, f"{name} ({smi})")
+        log(f"trainmesh: phase {trainmesh['phase_s']:.1f} s")
+        print(json.dumps({"trainmesh": trainmesh}, default=str), flush=True)
         return
 
     t0 = time.perf_counter()
@@ -9795,6 +10065,8 @@ def main(only: str | None = None) -> None:
     log(f"fleet: phase {time.perf_counter() - t0:.1f} s")
     mesh = phase_mesh(dev, f"{name} ({smi})")
     log(f"mesh: phase {mesh['phase_s']:.1f} s")
+    trainmesh = phase_trainmesh(dev, f"{name} ({smi})")
+    log(f"trainmesh: phase {trainmesh['phase_s']:.1f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "registers": registers, "kernels": rows, "serving": serving,
@@ -9803,7 +10075,7 @@ def main(only: str | None = None) -> None:
                    "integrity": integrity, "overload": overload, "cascade": cascade,
                    "utilization": utilization, "freshness": freshness,
                    "recovery": recovery, "savedmodel": savedmodel, "fleet": fleet,
-                   "mesh": mesh}, f,
+                   "mesh": mesh, "trainmesh": trainmesh}, f,
                   indent=1,
                   default=str)
 
@@ -9899,5 +10171,5 @@ if __name__ == "__main__":
     elif len(sys.argv) == 4 and sys.argv[1] == "--graph-calls":
         _graph_calls_child(sys.argv[2], sys.argv[3])  # the savedmodel phase's timing child
     else:
-        main(only={"--fleet-only": "fleet", "--mesh-only": "mesh"}.get(
-            " ".join(sys.argv[1:])))
+        main(only={"--fleet-only": "fleet", "--mesh-only": "mesh",
+                   "--trainmesh-only": "trainmesh"}.get(" ".join(sys.argv[1:])))

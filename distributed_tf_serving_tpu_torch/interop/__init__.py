@@ -8,9 +8,10 @@ wire-compatible protos, variable values extract once via a TensorFlow
 subprocess (the TensorBundle format needs TF; TF never enters the serving
 process — its descriptor pool collides with ours), and the result lands in
 the model zoo's param trees on the device, or runs through the GraphDef
-executor (`graph_exec.py`). `export.py publish_version` lands an artifact
-in the next version directory of a base path. The SavedModel export is not
-ported yet.
+executor (`graph_exec.py`). `export.py` takes a checkpoint OUT as a
+SavedModel (the family's forward in plain TF ops, in a TensorFlow process
+of its own) and `publish_version` / `publish_export` land an artifact in
+the next version directory of a base path.
 """
 
 __all__ = [

@@ -126,10 +126,45 @@ class Model:
 # ---------------------------------------------------------------------------
 
 
+# Rows per product call. A library product (cuBLAS on the card, MKL on the
+# CPU) picks its algorithm, and so a row's reduction order, by the
+# problem's row count: the same row scored in a call of 1000 rows and in
+# one of 2048 may differ in its last bits. `matmul_f32` therefore runs
+# every product as calls of exactly ROW_TILE rows (the last tile padded
+# with zero rows), so a row's bits do not depend on the row count of its
+# call: a data shard's forward gives a single device's bits.
+ROW_TILE = 512
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
     """x @ w on operands rounded to compute_dtype, f32 result (the JAX
-    preferred_element_type=f32 contract)."""
-    return x.to(compute_dtype).float() @ w.to(compute_dtype).float()
+    preferred_element_type=f32 contract), in fixed tiles of ROW_TILE rows
+    over x's leading dims."""
+    a = x.to(compute_dtype).float()
+    b = w.to(compute_dtype).float()
+    lead = a.shape[:-1]
+    a = a.reshape(-1, a.shape[-1])
+    n = a.shape[0]
+    if n == 0:
+        return (a @ b).reshape(*lead, b.shape[-1])
+    pad = (-n) % ROW_TILE
+    if pad:
+        a = torch.cat([a, a.new_zeros((pad, a.shape[1]))])
+    out = torch.cat([a[i:i + ROW_TILE] @ b for i in range(0, n + pad, ROW_TILE)])
+    return out[:n].reshape(*lead, b.shape[-1])
+
+
+def sigmoid(logit: torch.Tensor) -> torch.Tensor:
+    """torch.sigmoid with a row's bits independent of the row count of its
+    call: the CPU's vectorized loop leaves the last (n mod vector width)
+    elements to a scalar path that rounds differently, so the rows are
+    padded to a multiple of ROW_TILE first."""
+    n = logit.shape[0]
+    pad = (-n) % ROW_TILE
+    if pad == 0:
+        return torch.sigmoid(logit)
+    padded = torch.cat([logit, logit.new_zeros((pad,) + tuple(logit.shape[1:]))])
+    return torch.sigmoid(padded)[:n]
 
 
 def dense_init(rng: np.random.Generator, in_dim: int, out_dim: int, dtype,

@@ -33,6 +33,7 @@ from .base import (
     mlp_init,
     mlp_shapes,
     register_model,
+    sigmoid,
 )
 from .embeddings import embedding_init, field_embed
 
@@ -135,7 +136,7 @@ def _build(config: ModelConfig) -> Model:
         xd = mlp_apply(params["mlp"], x0, cd)
         h = torch.cat([xc.float(), xd.float()], dim=-1)
         logit = dense_apply(params["out"], h, cd)[:, 0]
-        return {"prediction_node": torch.sigmoid(logit), "logits": logit}
+        return {"prediction_node": sigmoid(logit), "logits": logit}
 
     return Model(config=config, init=init, apply=apply, shapes=shapes)
 

@@ -23,6 +23,7 @@ from .base import (
     mlp_init,
     mlp_shapes,
     register_model,
+    sigmoid,
 )
 from .embeddings import embedding_init, field_embed, sparse_linear
 from .wide_deep import scalar_table_init
@@ -70,7 +71,7 @@ def build_deepfm(config: ModelConfig) -> Model:
         h = mlp_apply(params["mlp"], emb.reshape(emb.shape[0], d), cd)
         deep = dense_apply(params["out"], h, cd)[:, 0]
         logit = first + second + deep + params["bias"].float()
-        return {"prediction_node": torch.sigmoid(logit), "logits": logit}
+        return {"prediction_node": sigmoid(logit), "logits": logit}
 
     # The first-order term reads the raw f32 weights: a bf16 weight
     # transfer would change its scores.

@@ -28,6 +28,7 @@ from .base import (
     mlp_init,
     mlp_shapes,
     register_model,
+    sigmoid,
 )
 from .embeddings import embedding_init, field_embed
 
@@ -91,6 +92,6 @@ def build_dlrm(config: ModelConfig) -> Model:
         inter = zzt.reshape(n, num_feat * num_feat)[:, pairs(zzt.device)]
         top = torch.cat([bot, inter], dim=-1)
         logit = dense_apply(params["out"], mlp_apply(params["top_mlp"], top, cd), cd)[:, 0]
-        return {"prediction_node": torch.sigmoid(logit), "logits": logit}
+        return {"prediction_node": sigmoid(logit), "logits": logit}
 
     return Model(config=config, init=init, apply=apply, shapes=shapes)

@@ -23,6 +23,7 @@ from .base import (
     mlp_init,
     mlp_shapes,
     register_model,
+    sigmoid,
 )
 from .embeddings import embedding_init, field_embed
 
@@ -55,6 +56,6 @@ def build_generic(config: ModelConfig) -> Model:
         x0 = emb.reshape(emb.shape[0], d)
         h = mlp_apply(params["mlp"], x0, cd) if config.mlp_dims else x0
         logit = dense_apply(params["out"], h, cd)[:, 0]
-        return {"prediction_node": torch.sigmoid(logit), "logits": logit}
+        return {"prediction_node": sigmoid(logit), "logits": logit}
 
     return Model(config=config, init=init, apply=apply, shapes=shapes)

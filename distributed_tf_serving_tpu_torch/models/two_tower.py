@@ -22,6 +22,7 @@ from .base import (
     mlp_init,
     mlp_shapes,
     register_model,
+    sigmoid,
 )
 from .embeddings import embedding_init, field_embed
 
@@ -63,6 +64,6 @@ def build_two_tower(config: ModelConfig) -> Model:
         u = tower(params["user_mlp"], emb[:, :nu], cd)
         v = tower(params["item_mlp"], emb[:, nu:], cd)
         score = torch.sum(u * v, dim=-1) * params["temperature"].float()
-        return {"prediction_node": torch.sigmoid(score), "logits": score}
+        return {"prediction_node": sigmoid(score), "logits": score}
 
     return Model(config=config, init=init, apply=apply, shapes=shapes)

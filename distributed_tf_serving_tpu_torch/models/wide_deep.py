@@ -23,6 +23,7 @@ from .base import (
     mlp_init,
     mlp_shapes,
     register_model,
+    sigmoid,
 )
 from .embeddings import embedding_init, field_embed, sparse_linear
 
@@ -65,7 +66,7 @@ def build_wide_deep(config: ModelConfig) -> Model:
         emb = field_embed(params["embedding"], ids, wts, cd)
         xd = mlp_apply(params["mlp"], emb.reshape(emb.shape[0], d), cd)
         logit = dense_apply(params["out"], xd, cd)[:, 0] + wide
-        return {"prediction_node": torch.sigmoid(logit), "logits": logit}
+        return {"prediction_node": sigmoid(logit), "logits": logit}
 
     # The wide half reads the raw f32 weights: a bf16 weight transfer would
     # change its scores.

@@ -72,11 +72,46 @@ from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, gather_rows, scatter_rows
 from .sharding import VOCAB_MAJOR_KEYS, place_params
 
 
-def _device_scope(dev: torch.device):
+def device_scope(dev: torch.device):
     """The forward of a shard on another card launches on that card."""
     if dev.type == "cuda":
         return torch.cuda.device(dev)
     return contextlib.nullcontext()
+
+
+def compacted_keys(placed, mesh: Mesh) -> tuple[str, ...]:
+    """The top-level vocab-major tables a data shard compacts: those split
+    over a model axis > 1 on their rows, all of one vocab size."""
+    if mesh.shape[MODEL_AXIS] == 1 or not isinstance(placed, dict):
+        return ()
+    keys = tuple(k for k in VOCAB_MAJOR_KEYS
+                 if k in placed and hasattr(placed[k], "split_dim")
+                 and placed[k].split_dim == 0)
+    if len({placed[k].shape[0] for k in keys}) > 1:
+        return ()  # tables of different vocab sizes: gathered whole
+    return keys
+
+
+def shard_params(placed, compact: tuple, i: int, batch: dict[str, torch.Tensor]):
+    """(params, batch) of data shard i for model.apply on its lead device:
+    the compact tables of its ids (EP: the masked vocab gather of the rows
+    they fold to, the ids remapped into them), every other leaf whole
+    (ShardedLeaf.local: its own block, or the TP weight all-gather). Both
+    gathers are differentiable, so under autograd the shard's gradient
+    reaches the blocks of its own row."""
+    if not compact:
+        return tree_map_with_path(lambda _p, leaf: leaf.local(i), placed), batch
+    dev = placed[compact[0]].sharding.mesh.device(i, 0)
+    rows = fold_ids(batch["feat_ids"], placed[compact[0]].shape[0])
+    uniq, inv = torch.unique(rows, return_inverse=True)
+    gathered = {k: masked_vocab_gather(placed[k].blocks[i], uniq, dev) for k in compact}
+
+    def local(path, leaf):
+        if len(path) == 1 and path[0] in gathered:
+            return gathered[path[0]]
+        return leaf.local(i)
+
+    return tree_map_with_path(local, placed), dict(batch, feat_ids=inv.to(torch.int32))
 
 
 class ShardedExecutor:
@@ -140,44 +175,16 @@ class ShardedExecutor:
                                       model_kind=model_kind or None)
                 entry = self._entries[key] = (
                     transfer_spec(servable.model) if self.compress_transfer else {},
-                    self._compacted_keys(placed) if ruled else (),
+                    compacted_keys(placed, self.mesh) if ruled else (),
                 )
                 self._placed[key] = (servable.params, placed)
             return entry, self._placed[key][1]
 
-    def _compacted_keys(self, placed) -> tuple[str, ...]:
-        """The top-level vocab-major tables a data shard compacts: those
-        split over a model axis > 1 on their rows, all of one vocab size."""
-        if self.mesh.shape[MODEL_AXIS] == 1 or not isinstance(placed, dict):
-            return ()
-        keys = tuple(k for k in VOCAB_MAJOR_KEYS
-                     if k in placed and hasattr(placed[k], "split_dim")
-                     and placed[k].split_dim == 0)
-        if len({placed[k].shape[0] for k in keys}) > 1:
-            return ()  # tables of different vocab sizes: gathered whole
-        return keys
-
     def _shard_forward(self, servable: Servable, placed, compact: tuple, i: int,
                        batch: dict[str, torch.Tensor], out_keys) -> dict[str, torch.Tensor]:
-        """Data shard i's forward on its lead device: the compact tables of
-        its ids (EP), the reassembled dense leaves (TP), the unchanged
-        model.apply, the output selection."""
-        dev = self.mesh.device(i, 0)
-        if compact:
-            vocab = placed[compact[0]].shape[0]
-            rows = fold_ids(batch["feat_ids"], vocab)
-            uniq, inv = torch.unique(rows, return_inverse=True)
-            gathered = {k: masked_vocab_gather(placed[k].blocks[i], uniq, dev) for k in compact}
-            batch = dict(batch, feat_ids=inv.to(torch.int32))
-        else:
-            gathered = {}
-
-        def local(path, leaf):
-            if len(path) == 1 and path[0] in gathered:
-                return gathered[path[0]]
-            return leaf.local(i)
-
-        params = tree_map_with_path(local, placed)
+        """Data shard i's forward on its lead device: its params
+        (shard_params), the unchanged model.apply, the output selection."""
+        params, batch = shard_params(placed, compact, i, batch)
         out = servable.model.apply(params, batch)
         if out_keys is not None:
             out = {k: v for k, v in out.items() if k in out_keys} or out
@@ -221,7 +228,7 @@ class ShardedExecutor:
         parts = []
         with torch.inference_mode():
             for i, block in enumerate(scatter_rows(packed, self.mesh)):
-                with _device_scope(self.mesh.device(i, 0)):
+                with device_scope(self.mesh.device(i, 0)):
                     parts.append(self._shard_forward(
                         servable, placed, compact, i, unpack_device(block, spec), out_keys))
             out = gather_rows(parts, self.mesh.device(0, 0))
@@ -277,7 +284,7 @@ def shard_map_score(servable: Servable, mesh: Mesh):
             for i, block in enumerate(scatter_rows(batch, mesh)):
                 dev = mesh.device(i, 0)
                 local = tree_map_with_path(lambda _p, leaf: leaf.to(dev), params)
-                with _device_scope(dev):
+                with device_scope(dev):
                     parts.append({"prediction_node": apply(local, block)["prediction_node"]})
         return gather_rows(parts, mesh.device(0, 0))["prediction_node"]
 

@@ -99,8 +99,11 @@ def unflatten_like(template, flat: dict, prefix: str = ""):
 
 def _leaf_bytes(name: str, leaf) -> tuple[str, tuple[int, ...], np.ndarray]:
     """(dtype name, shape, C-contiguous little-endian numpy bits) of a torch
-    tensor or numpy array (a numpy bfloat16 array, as the JAX package's
-    host restore gives, counts as BF16)."""
+    tensor, a leaf placed on a mesh (parallel/sharding.py ShardedLeaf,
+    gathered whole) or a numpy array (a numpy bfloat16 array, as the JAX
+    package's host restore gives, counts as BF16)."""
+    if not isinstance(leaf, torch.Tensor) and hasattr(leaf, "blocks"):
+        leaf = leaf.gather("cpu")
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu").contiguous()
         if t.dtype not in _TORCH_TO_NAME:
@@ -232,14 +235,31 @@ def read_manifest(path) -> tuple[dict, str, ModelConfig]:
     return manifest, manifest["kind"], ModelConfig(**raw)
 
 
-def load_servable(path, device=None, timings: dict | None = None) -> Servable:
-    """Rebuild a Servable from a checkpoint directory, its params placed on
+def load_servable(path, mesh=None, tensor_parallel: bool = False, host: bool = False,
+                  device=None, timings: dict | None = None) -> Servable:
+    """Rebuild a Servable from a checkpoint directory, its params on
     `device` (default "cuda"). Every tensor of the model's param tree must
     be in the file with the tree's dtype and shape, and nothing else.
+
+    With a mesh (parallel/mesh.py) the params come back already placed
+    (parallel/sharding.py place_params, the family's partition rules):
+    vocab tables split over the model axis, and the dense weights too when
+    tensor_parallel, so a ShardedExecutor over that mesh serves them
+    without placing them again. host=True gives unplaced CPU tensors (the
+    multi-process tier's and the export's read); a mesh with host=True is
+    an error, as in the JAX package.
+
     `timings`, when given, receives `read_s` (header parse and checks) and
     `copy_s` (the mapped file to the device, one copy per tensor)."""
     path = pathlib.Path(path)
-    dev = resolve_device(device)
+    if host:
+        if mesh is not None:
+            raise ValueError("host=True restores unplaced tensors; mesh is exclusive")
+        dev = torch.device("cpu")
+    elif mesh is not None:
+        dev = mesh.device(0, 0)
+    else:
+        dev = resolve_device(device)
     manifest, kind, config = read_manifest(path)
     model = build_model(kind, config)
     want = flatten_params(model.shapes())
@@ -267,10 +287,15 @@ def load_servable(path, device=None, timings: dict | None = None) -> Servable:
     if timings is not None:
         timings["read_s"] = t1 - t0
         timings["copy_s"] = time.perf_counter() - t1
+    params = unflatten_like(model.shapes(), flat)
+    if mesh is not None:
+        from ..parallel.sharding import place_params
+
+        params = place_params(params, mesh, tensor_parallel, model_kind=kind)
     return Servable(
         name=manifest["name"],
         version=manifest["version"],
         model=model,
-        params=unflatten_like(model.shapes(), flat),
+        params=params,
         signatures=model_signatures(model),
     )

@@ -204,8 +204,10 @@ def test_static_no_jax_imports_in_port_or_chip_smoke():
 
 
 # The card's machine has none of these; TensorFlow runs only in the
-# SavedModel importer's extraction subprocess.
+# SavedModel importer's extraction subprocess and in the export's own
+# process (interop/export.py, a CPU-side tool).
 _NOT_ON_THE_CARD = ("safetensors", "orbax", "tensorflow")
+_TENSORFLOW_PROCESS = ("distributed_tf_serving_tpu_torch/interop/export.py",)
 
 _LIFECYCLE_SCRIPT = r"""
 import json, sys, tempfile
@@ -351,7 +353,8 @@ def test_checkpoint_lifecycle_imports_no_jax_safetensors_or_orbax():
     assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     bad = {str(f.relative_to(REPO)): [m for m in _imports(f) if _is_off_card(m)] for f in files}
-    assert {k: v for k, v in bad.items() if v} == {}
+    allowed = {k: ["tensorflow"] for k in _TENSORFLOW_PROCESS}
+    assert {k: v for k, v in bad.items() if v and v != allowed.get(k)} == {}
 
 
 def test_grpc_and_protobuf_stay_in_the_transport_modules():
@@ -719,3 +722,83 @@ def test_the_freshness_loop_imports_no_jax_subprocess():
     assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
     for mod in ("train.trainer", "train.publisher", "serving.lifecycle"):
         assert f"distributed_tf_serving_tpu_torch.{mod}" in line["modules"]
+
+
+_TRAIN_MESH_SCRIPT = r"""
+import json, sys, tempfile
+import torch
+from distributed_tf_serving_tpu_torch.models import ModelConfig, build_model
+from distributed_tf_serving_tpu_torch.models.registry import Servable, model_signatures
+from distributed_tf_serving_tpu_torch.parallel import ShardedExecutor, make_mesh
+from distributed_tf_serving_tpu_torch.parallel.sharding import gather_params
+from distributed_tf_serving_tpu_torch.train import Trainer, load_servable, save_servable
+cfg = ModelConfig(num_fields=4, vocab_size=256, embed_dim=2, mlp_dims=(4,), num_cross_layers=1)
+model = build_model("dcn_v2", cfg)
+mesh = make_mesh(4, model_parallel=2, devices=[torch.device("cpu")] * 4)
+trainer = Trainer(model, mesh=mesh, tensor_parallel=True, device="cpu")
+trainer.fit(2, batch_size=16)
+base = tempfile.mkdtemp()
+save_servable(base + "/1", Servable("DCN", 1, model, gather_params(trainer.snapshot_params()),
+                                    model_signatures(model)), kind="dcn_v2")
+sv = load_servable(base + "/1", mesh=mesh)
+import numpy as np
+out = ShardedExecutor(mesh)(sv, {"feat_ids": np.zeros((6, 4), np.int32),
+                                 "feat_wts": np.ones((6, 4), np.float32)})
+print(json.dumps({"n": int(out["prediction_node"].shape[0]), "modules": sorted(sys.modules)}))
+"""
+
+
+def test_the_mesh_trainer_imports_no_jax_subprocess():
+    """Train over a (2, 2) mesh with TP, save, restore placed and serve it
+    over the mesh in a process that imports nothing of JAX."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "-c", _TRAIN_MESH_SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stderr
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    assert line["n"] == 6
+    assert [m for m in line["modules"] if _is_jax_side(m) or _is_off_card(m)] == []
+    for mod in ("train.trainer", "parallel.sharding", "parallel.executor"):
+        assert f"distributed_tf_serving_tpu_torch.{mod}" in line["modules"]
+
+
+_EXPORT_SCRIPT = r"""
+import json, runpy, sys
+sys.argv = ["export", "--checkpoint", sys.argv[1], "--out", sys.argv[2]]
+try:
+    runpy.run_module("distributed_tf_serving_tpu_torch.interop.export", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+print(json.dumps({"modules": sorted(m for m, v in sys.modules.items() if v is not None)}))
+"""
+
+
+def test_the_export_imports_tensorflow_and_no_jax_or_port_proto_subprocess(tmp_path):
+    """The export CLI's process imports TensorFlow and none of JAX, of the
+    JAX package or of the port's vendored protos (they would collide with
+    TensorFlow's in the descriptor pool)."""
+    import importlib.util
+
+    if importlib.util.find_spec("tensorflow") is None:
+        pytest.skip("tensorflow is not installed: the export needs it")
+    from distributed_tf_serving_tpu_torch.models import ModelConfig, build_model
+    from distributed_tf_serving_tpu_torch.models.registry import Servable, model_signatures
+    from distributed_tf_serving_tpu_torch.train.checkpoint import save_servable
+
+    model = build_model("dcn_v2", ModelConfig(num_fields=4, vocab_size=256, embed_dim=2,
+                                              mlp_dims=(4,), num_cross_layers=1))
+    save_servable(tmp_path / "ckpt", Servable("DCN", 1, model, model.init(0, "cpu"),
+                                              model_signatures(model)), kind="dcn_v2")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "-c", _EXPORT_SCRIPT, str(tmp_path / "ckpt"),
+                          str(tmp_path / "sm")], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    assert json.loads(lines[-2])["validated"] is True
+    mods = json.loads(lines[-1])["modules"]
+    assert "tensorflow" in mods
+    assert [m for m in mods if _is_jax_side(m)] == []
+    assert [m for m in mods if m.startswith("distributed_tf_serving_tpu_torch.proto")] == []

@@ -6,11 +6,10 @@ the same steps, their snapshots compared), the batcher's issue-token
 protocol on every path, warmup of every rung, build_stack's wiring and
 refusals, [recovery] x [mesh] as one unit, and the elastic surfaces.
 
-Scores: a split switch changes each shard's row count, so across splits the
-scores are held to the per-shard reference's bits on each split and to rtol
-1e-6 between splits (tests/test_torch_parallel.py says why the CPU cannot
-promise bits across row counts); the JAX test's bit-identity across
-switches is the card's mesh phase (chip_smoke.py)."""
+Scores: a split switch changes each shard's row count; a row's bits do not
+depend on it (models/base.py ROW_TILE; tests/test_torch_row_count.py), so
+the scores are held to the per-shard reference's bits on each split and,
+as in the JAX test, bit-identical across switches."""
 
 import asyncio
 import time
@@ -353,7 +352,7 @@ def test_controller_holds_while_drain_pending():
 
 def test_batcher_switches_bit_identical_and_drained():
     """Scores through every split of the ladder: each split's the bits of
-    its per-shard reference, all within rtol 1e-6 of one another; every
+    its per-shard reference, all bit-identical to one another; every
     registration closed and every split served."""
     sv = _servable()
     ex = ElasticMeshExecutor(splits=["8x1", "4x2", "2x4"], initial=(4, 2), devices=CPU8)
@@ -373,7 +372,7 @@ def test_batcher_switches_bit_identical_and_drained():
             for p, g, r in zip(payloads, got, ref):
                 bucket = 10 if p["feat_ids"].shape[0] <= 10 else 50
                 np.testing.assert_array_equal(g, _shard_golden(sv, p, target[0], bucket))
-                np.testing.assert_allclose(g, r, rtol=1e-6)
+                np.testing.assert_array_equal(g, r)
         snap = ex.elastic_snapshot()
         assert all(blk["in_flight"] == 0 for blk in snap["per_split"].values())
         assert snap["switches_up"] + snap["switches_down"] == 3

@@ -8,12 +8,12 @@ the 8 virtual CPU devices, the port on eight logical CPU shards, on the
 same seeded numpy inputs with the params carried across by
 convert.params_from_jax.
 
-Tolerances are the JAX tests' own (rtol 1e-6; 1e-5 with TP). The JAX
-tests' bit-identity (filtered path, pad, int8 wire) is held against the
-same rows scored per data shard on one device (`_shard_golden`), for the
-reason tests/test_torch_parallel.py gives: on the CPU a row's bits depend on
-the row count of MKL's single-column product, so a whole-batch call is a
-tolerance comparison here."""
+Tolerances against the JAX package are the JAX tests' own (rtol 1e-6;
+1e-5 with TP). The JAX tests' bit-identity (filtered path, pad, int8 wire,
+the mesh server against the single-device one) is held against the same
+rows scored in one call on one device (`_single_golden`): a row's bits do
+not depend on the row count of its shard's call (models/base.py ROW_TILE;
+tests/test_torch_row_count.py)."""
 
 import dataclasses
 import os
@@ -55,7 +55,7 @@ from distributed_tf_serving_tpu_torch.parallel import (
     tree_path_str,
 )
 from distributed_tf_serving_tpu_torch.parallel.embedding_sharding import tree_map_with_path
-from distributed_tf_serving_tpu_torch.parallel.mesh import P, row_blocks
+from distributed_tf_serving_tpu_torch.parallel.mesh import P
 from distributed_tf_serving_tpu_torch.serving.batcher import DynamicBatcher, fold_ids_host
 from distributed_tf_serving_tpu_torch.serving.server import build_stack
 from distributed_tf_serving_tpu_torch.serving.utilization import OccupancyLedger
@@ -114,19 +114,17 @@ def _apply(sv, batch):
                                           for k, v in batch.items()})["prediction_node"].numpy()
 
 
-def _shard_golden(sv, prepared, data, bucket=None):
-    """The same rows padded to `bucket` and the data axis, each data shard's
-    block scored in its own call on one device, in shard order."""
+def _single_golden(sv, prepared, bucket=None):
+    """The same rows padded to `bucket` (the batcher's pad) scored in one
+    call on one device."""
     n = next(iter(prepared.values())).shape[0]
     rows = bucket or n
-    rows += (-rows) % data
     padded = {}
     for k, v in prepared.items():
         buf = np.zeros((rows,) + v.shape[1:], v.dtype)
         buf[:n] = v
         padded[k] = buf
-    return np.concatenate([_apply(sv, {k: v[lo:hi] for k, v in padded.items()})
-                           for lo, hi in row_blocks(rows, data)])[:n]
+    return _apply(sv, padded)[:n]
 
 
 def _paths(tree):
@@ -222,7 +220,7 @@ def test_executor_pads_non_divisible_batches(rows):
     out = ex(sv, _prepared(arrays))["prediction_node"].numpy()
     assert out.shape == (rows,)
     np.testing.assert_allclose(out, _jax_golden(jsv, arrays), rtol=1e-6)
-    np.testing.assert_array_equal(out, _shard_golden(sv, _prepared(arrays), 4))
+    np.testing.assert_array_equal(out, _single_golden(sv, _prepared(arrays)))
     jex = JaxExecutor(jax_make_mesh(8, model_parallel=2))
     np.testing.assert_allclose(out, np.asarray(jex(jsv, _prepared(arrays))["prediction_node"]),
                                rtol=1e-6)
@@ -237,8 +235,7 @@ def test_executor_pads_non_divisible_batches(rows):
 
 def test_batcher_arbitrary_buckets_over_mesh_bit_identical():
     """A ladder of non-mesh-shaped rungs serves over the mesh: filtered
-    and unfiltered, the bits of the per-shard reference, within rtol of
-    the JAX mesh."""
+    and unfiltered, the single-device bits, within rtol of the JAX mesh."""
     jsv, sv = _pair()
     ex = ShardedExecutor(make_mesh(8, model_parallel=2, devices=CPU8))
     b = DynamicBatcher(buckets=(10, 50), max_wait_us=0, device="cpu", run_fn=ex).start()
@@ -247,7 +244,7 @@ def test_batcher_arbitrary_buckets_over_mesh_bit_identical():
     try:
         for n, seed in [(7, 1), (33, 2), (50, 3)]:
             arrays = _arrays(n, seed)
-            want = _shard_golden(sv, _prepared(arrays), 4, 10 if n <= 10 else 50)
+            want = _single_golden(sv, _prepared(arrays), 10 if n <= 10 else 50)
             keys = ("prediction_node",)
             got = b.submit(sv, arrays, output_keys=keys).result(timeout=60)["prediction_node"]
             np.testing.assert_array_equal(got, want)
@@ -293,7 +290,7 @@ def test_batcher_passes_out_keys_union_to_mesh_executor():
         got = b.submit(sv, arrays, output_keys=("prediction_node",)).result(timeout=60)
         assert set(got) == {"prediction_node"}
         np.testing.assert_array_equal(got["prediction_node"],
-                                      _shard_golden(sv, _prepared(arrays), 8, 32))
+                                      _single_golden(sv, _prepared(arrays), 32))
         np.testing.assert_allclose(got["prediction_node"], _jax_golden(jsv, arrays), rtol=1e-6)
     finally:
         b.stop()
@@ -302,13 +299,13 @@ def test_batcher_passes_out_keys_union_to_mesh_executor():
 
 def test_padded_precision_contract():
     """At a padded shape (7 rows on a data axis of 4) the filtered and the
-    unfiltered outputs are the per-shard reference's bits; the JAX package
+    unfiltered outputs are the single-device bits; the JAX package
     holds its unfiltered variant to rtol 1e-6, and so does this test
     against it."""
     jsv, sv = _pair(seed=19)
     ex = ShardedExecutor(make_mesh(8, model_parallel=2, devices=CPU8))
     arrays = _arrays(7, seed=20)
-    want = _shard_golden(sv, _prepared(arrays), 4)
+    want = _single_golden(sv, _prepared(arrays))
     filtered = ex(sv, _prepared(arrays), out_keys=("prediction_node",))["prediction_node"]
     np.testing.assert_array_equal(filtered.numpy(), want)
     unfiltered = ex(sv, _prepared(arrays))["prediction_node"].numpy()
@@ -327,7 +324,7 @@ def test_int8_wire_quantization_excludes_pad_rows():
     assert out["prediction_node"].dtype == torch.int8
     got = restore_outputs_host({k: v.numpy() for k, v in out.items()})["prediction_node"]
     assert got.shape == (10,)
-    q, scale, mn = codec.quantize_scores(_shard_golden(sv, _prepared(arrays), 4))
+    q, scale, mn = codec.quantize_scores(_single_golden(sv, _prepared(arrays)))
     np.testing.assert_array_equal(got, codec.dequantize_scores(q, scale, mn))
     theirs = JaxExecutor(jax_make_mesh(8, model_parallel=2), output_wire_dtype="int8")(
         jsv, _prepared(arrays))
@@ -360,8 +357,8 @@ def _jax_server_cfg(**kw):
 
 def test_build_stack_mesh_mode_serves_bit_identical(tmp_path):
     """build_stack with [mesh] builds the mesh, installs the executor and
-    serves the per-shard reference's bits of the checkpoint's params, as
-    close to the single-device build as the JAX tests hold theirs."""
+    serves the single-device build's bits of the checkpoint's params, as
+    the JAX tests hold theirs."""
     jsv, sv = _pair(seed=7)
     save_servable(str(tmp_path / "ckpt"), sv, kind="dcn_v2")
     impl1, batcher1, sv1 = build_stack(_server_cfg(), CFG, "cpu",
@@ -379,8 +376,8 @@ def test_build_stack_mesh_mode_serves_bit_identical(tmp_path):
             b = batcher2.submit(sv2, arrays, output_keys=keys).result(timeout=120)
             np.testing.assert_array_equal(
                 b["prediction_node"],
-                _shard_golden(sv, _prepared(arrays), 4, 10 if n <= 10 else 50))
-            np.testing.assert_allclose(b["prediction_node"], a["prediction_node"], rtol=1e-6)
+                _single_golden(sv, _prepared(arrays), 10 if n <= 10 else 50))
+            np.testing.assert_array_equal(b["prediction_node"], a["prediction_node"])
             np.testing.assert_allclose(b["prediction_node"], _jax_golden(jsv, arrays),
                                        rtol=1e-6)
         snap = impl2.mesh_stats()

@@ -4,16 +4,13 @@ the JAX functions run on the 8 virtual CPU devices, the port's on eight
 logical CPU shards, on the same seeded numpy inputs with the params carried
 across by convert.params_from_jax.
 
-Tolerances are the JAX tests' own: rtol 1e-6 for the executor, EP and the
-annotation-vs-explicit cases, 1e-5 for TP. Beside them the port's mesh
-output is held BIT-equal to the same rows scored per data shard on one
-device (`_shard_golden`): the masked vocab gather, the TP weight
-all-gather, the pad and the ordered gather are exact. Against one
-whole-batch call it is held to the tolerance: on the CPU, MKL's product
-with one output column (the head) gives a row bits that depend on the row
-count of its call (ROADMAP.md Queue C), so a shard's smaller call may
-differ from the whole batch's by an ulp; the card's mesh phase
-(chip_smoke.py) holds the bits there.
+Tolerances are the JAX tests' own: rtol 1e-6 against the JAX package for
+the executor, EP and the annotation-vs-explicit cases, 1e-5 for TP. Beside
+them the port's mesh output is held BIT-equal to the same rows scored in
+one call on one device (`_single_golden`), as the JAX tests hold theirs:
+the masked vocab gather, the TP weight all-gather, the pad and the ordered
+gather are exact, and a row's bits do not depend on the row count of its
+shard's call (models/base.py ROW_TILE; tests/test_torch_row_count.py).
 """
 
 import asyncio
@@ -54,7 +51,7 @@ from distributed_tf_serving_tpu_torch.parallel import (
     vocab_sharding,
 )
 from distributed_tf_serving_tpu_torch.parallel.embedding_sharding import tree_map_with_path
-from distributed_tf_serving_tpu_torch.parallel.mesh import P, row_blocks
+from distributed_tf_serving_tpu_torch.parallel.mesh import P
 from distributed_tf_serving_tpu_torch.parallel.sharding import put
 from distributed_tf_serving_tpu_torch.serving.batcher import DynamicBatcher, fold_ids_host
 
@@ -104,20 +101,17 @@ def _golden(sv, arrays, vocab=1024):
     return _apply(sv, _prepared(arrays, vocab))
 
 
-def _shard_golden(sv, prepared, data, bucket=None):
+def _single_golden(sv, prepared, bucket=None):
     """The bits the mesh must give: the rows padded to `bucket` (the
-    batcher's pad) and to the data axis (the executor's), each data shard's
-    block scored in its own call on one device, in shard order."""
+    batcher's pad) scored in one call on one device."""
     n = next(iter(prepared.values())).shape[0]
     rows = bucket or n
-    rows += (-rows) % data
     padded = {}
     for k, v in prepared.items():
         buf = np.zeros((rows,) + v.shape[1:], v.dtype)
         buf[:n] = v
         padded[k] = buf
-    return np.concatenate([_apply(sv, {k: v[lo:hi] for k, v in padded.items()})
-                           for lo, hi in row_blocks(rows, data)])[:n]
+    return _apply(sv, padded)[:n]
 
 
 def _spec_map(tree, jax_tree=False):
@@ -184,7 +178,7 @@ def test_sharded_executor_matches_single_device(model_parallel):
     got = out["prediction_node"].numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6)
     np.testing.assert_allclose(got, _jax_golden(jsv, arrays), rtol=1e-6)
-    np.testing.assert_array_equal(got, _shard_golden(sv, _prepared(arrays), 8 // model_parallel))
+    np.testing.assert_array_equal(got, _single_golden(sv, _prepared(arrays)))
 
 
 def test_sharded_executor_behind_batcher():
@@ -202,7 +196,7 @@ def test_sharded_executor_behind_batcher():
             np.testing.assert_allclose(got, want, rtol=1e-6)
             np.testing.assert_allclose(got, _jax_golden(jsv, arrays), rtol=1e-6)
             bucket = 32 if n <= 32 else 64
-            np.testing.assert_array_equal(got, _shard_golden(sv, _prepared(arrays), 8, bucket))
+            np.testing.assert_array_equal(got, _single_golden(sv, _prepared(arrays), bucket))
     finally:
         jb.stop()
         b.stop()
@@ -217,8 +211,7 @@ def test_shard_map_score_order_preserved():
         jsv.params, _prepared(arrays)))
     got = shard_map_score(sv, make_mesh(8, devices=CPU8))(sv.params, _prepared(arrays)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6)
-    np.testing.assert_allclose(got, _golden(sv, arrays), rtol=1e-6)
-    np.testing.assert_array_equal(got, _shard_golden(sv, _prepared(arrays), 8))
+    np.testing.assert_array_equal(got, _golden(sv, arrays))
 
 
 @pytest.mark.parametrize("model_parallel", [2, 4, 8])
@@ -267,7 +260,7 @@ def test_annotation_path_matches_explicit_path():
     want = np.asarray(JaxExecutor(jax_make_mesh(8, model_parallel=4))(
         jsv, prepared)["prediction_node"])
     np.testing.assert_allclose(annotated, want, rtol=1e-6)
-    np.testing.assert_array_equal(annotated, _shard_golden(sv, prepared, 2))
+    np.testing.assert_array_equal(annotated, _single_golden(sv, prepared))
 
 
 def test_dlrm_on_mesh():
@@ -280,7 +273,7 @@ def test_dlrm_on_mesh():
         jsv, _prepared(arrays))["prediction_node"])
     np.testing.assert_allclose(got, want, rtol=1e-6)
     np.testing.assert_allclose(got, _jax_golden(jsv, arrays), rtol=1e-6)
-    np.testing.assert_array_equal(got, _shard_golden(sv, _prepared(arrays), 4))
+    np.testing.assert_array_equal(got, _single_golden(sv, _prepared(arrays)))
 
 
 def test_tensor_parallel_scores_match_replicated():
@@ -321,21 +314,24 @@ def test_tensor_parallel_shardings_split_dense_weights():
     assert torch.equal(w.local(0), sv.params["mlp"][0]["w"])  # the weight all-gather
 
 
-def test_tensor_parallel_training_step_is_refused_until_the_trainer_is_ported():
-    """The JAX package trains under dp + ep + tp; the port's trainer over a
-    mesh is the next slice (ROADMAP.md Queue A item 9) and refuses it, in
-    both forms, while the JAX step runs."""
+def test_tensor_parallel_training_step():
+    """One sharded train step under dp + ep + tp on both packages: the
+    loss finite, the params keep their TP layout after the update
+    (tests/test_parallel.py:233-244); tests/test_torch_train_mesh.py holds
+    the port's step to the JAX step."""
     from distributed_tf_serving_tpu.train import Trainer as JaxTrainer
     from distributed_tf_serving_tpu_torch.train.trainer import Trainer
 
     jtr = JaxTrainer(jax_build("dcn_v2", JaxConfig(**KW)), mesh=jax_make_mesh(8, model_parallel=2),
                      seed=0, tensor_parallel=True)
     assert np.isfinite(jtr.fit(steps=2, batch_size=32)["loss"])
-    model = build_model("dcn_v2", ModelConfig(**KW))
-    with pytest.raises(ValueError, match="item 9"):
-        Trainer(model, mesh=make_mesh(8, model_parallel=2, devices=CPU8), device="cpu")
-    with pytest.raises(ValueError, match="item 9"):
-        Trainer(model, tensor_parallel=True, device="cpu")
+    tr = Trainer(build_model("dcn_v2", ModelConfig(**KW)),
+                 mesh=make_mesh(8, model_parallel=2, devices=CPU8), seed=0, tensor_parallel=True,
+                 device="cpu")
+    assert np.isfinite(tr.fit(steps=2, batch_size=32)["loss"])
+    assert tr.state.params["mlp"][0]["w"].spec == P(None, MODEL_AXIS)
+    assert jtr.state.params["mlp"][0]["w"].sharding.spec == jax.sharding.PartitionSpec(
+        None, MODEL_AXIS)
 
 
 def test_tp_bias_follows_sibling_weight_split():
@@ -365,8 +361,8 @@ FAMILIES = [("dcn", {}), ("dcn_v2", {}), ("wide_deep", {}), ("deepfm", {}),
 def test_param_shardings_spec_per_leaf_equals_jax(kind, over, tensor_parallel):
     """param_shardings gives the JAX package's spec for every leaf of every
     family, with and without the family's rules, and the executor scores
-    the family on a (2, 4) mesh within rtol 1e-6 of JAX (bit-equal to the
-    per-shard reference)."""
+    the family on a (2, 4) mesh within rtol 1e-6 of JAX (bit-equal to one
+    device)."""
     jsv, sv = _pair(kind=kind, **over)
     mesh = make_mesh(8, model_parallel=4, devices=CPU8)
     jmesh = jax_make_mesh(8, model_parallel=4)
@@ -378,7 +374,7 @@ def test_param_shardings_spec_per_leaf_equals_jax(kind, over, tensor_parallel):
     got = ShardedExecutor(mesh, tensor_parallel=tensor_parallel)(
         sv, _prepared(arrays))["prediction_node"].numpy()
     np.testing.assert_allclose(got, _jax_golden(jsv, arrays), rtol=1e-6, atol=1e-7)
-    np.testing.assert_array_equal(got, _shard_golden(sv, _prepared(arrays), 2))
+    np.testing.assert_array_equal(got, _single_golden(sv, _prepared(arrays)))
 
 
 def test_client_full_async_mode_knob():

@@ -17,8 +17,8 @@ Tolerances, each stated where it is used:
 
 Then the port's own contracts: snapshot_params survives more fit, training
 learns (AUC up, read against the Bayes ceiling), the CLI's checkpoint loads
-and serves, publish_finetuned lands a version the port's watcher loads, the
-mesh is refused, the entry points default to the card, and a forward
+and serves, publish_finetuned lands a version the port's watcher loads, a
+mesh trains, the entry points default to the card, and a forward
 through the cross-stack kernel (use_pallas_cross) under autograd raises on
 the CPU as jax.grad through the Pallas kernel raises, so a fine-tune of
 such a servable counts a publish failure in both packages."""
@@ -265,19 +265,26 @@ def test_training_learns_and_eval_auc_reads_the_bayes_ceiling():
     assert [s for s, _ in out["auc_curve"]] == [40, 80]
 
 
-def test_the_trainer_refuses_a_mesh_and_defaults_to_the_card():
+def test_the_trainer_accepts_a_mesh_and_defaults_to_the_card():
+    """A mesh trains (tests/test_torch_train_mesh.py holds it to the JAX
+    trainer); the entry points still run on the card unless asked for the
+    CPU, and the CLI's --mesh-devices builds make_mesh over the visible
+    cards, so without one it fails with make_mesh's own error."""
+    from distributed_tf_serving_tpu_torch.parallel import MODEL_AXIS, make_mesh
+    from distributed_tf_serving_tpu_torch.parallel.mesh import P
+
     model = build_model("dcn_v2", CFG)
-    with pytest.raises(ValueError, match="not ported yet \\(ROADMAP.md Queue A item 9\\)"):
-        Trainer(model, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="item 9"):
-        Trainer(model, tensor_parallel=True, device="cpu")
+    mesh = make_mesh(8, model_parallel=2, devices=[torch.device("cpu")] * 8)
+    tr = Trainer(model, mesh=mesh, tensor_parallel=True, device="cpu")
+    assert np.isfinite(tr.fit(steps=2, batch_size=32)["loss"])
+    assert tr.state.params["mlp"][0]["w"].spec == P(None, MODEL_AXIS)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(model)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             trainer_mod.main(["--out", "/nonexistent/x", "--steps", "1"])
-    with pytest.raises(SystemExit):
-        trainer_mod.main(["--out", "/nonexistent/x", "--mesh-devices", "2", "--device", "cpu"])
+        with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+            trainer_mod.main(["--out", "/nonexistent/x", "--mesh-devices", "2"])
 
 
 def test_the_cli_writes_a_checkpoint_the_port_serves(tmp_path, capsys):
