@@ -155,6 +155,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import itertools
 import logging
 import threading
 import time
@@ -413,13 +414,16 @@ def _sink_ctx(phases: list | None):
     return tracing.collect_phases(phases) if phases is not None else contextlib.nullcontext()
 
 
-def _replay(group: list[_WorkItem], phases: list | None) -> None:
+def _replay(group: list[_WorkItem], phases: list | None, batch: int, bucket: int,
+            rows: int) -> None:
     """Attach a batch's phases to every traced member's span: the batch's
-    work was each member's work."""
+    work was each member's work. Each phase carries the batch's id, bucket
+    and real row count, so a reader counts the batch once."""
     if phases:
+        attrs = {"batch": batch, "bucket": bucket, "rows": rows}
         for it in group:
             if it.span is not None:
-                tracing.replay_phases(it.span, phases)
+                tracing.replay_phases(it.span, phases, attrs)
 
 
 @dataclasses.dataclass
@@ -539,6 +543,7 @@ class _Staged:
     topk: int = 0  # > 0: read back the top-k pairs of the one request
     prune: bool = False  # the top-k read back as a cascade prune (cascade_prune_device)
     phases: list | None = None  # the batch's phase sink (_phase_sink)
+    batch_id: int = 0  # its id on the traced members' spans (0: untraced)
     pad_bufs: list = dataclasses.field(default_factory=list)  # from the pad ring
     seq: int | None = None  # its key in _inflight_since while a live readback is out
     # The utilization ledger whose depth gauge this batch raised (captured
@@ -1044,6 +1049,7 @@ class DynamicBatcher:
         # issued, readback done, completed) tuple of perf_counter times per
         # request, or None (off: one attribute read per batch).
         self.timeline: list | None = None
+        self._batch_ids = itertools.count(1)  # drawn only for traced batches
         self.ring = _HostBufferRing(pinned=self.device.type == "cuda")
         self._items: deque[_WorkItem] = deque()
         self._queued_candidates = 0
@@ -2073,20 +2079,20 @@ class DynamicBatcher:
         they are widened, and returns the views to restore (the integrity
         plane's fault sites and shadow compare). The buffers of the batch
         and of its shadow go back to the ring only after it."""
-        t0 = time.perf_counter()
-        try:
-            if rb.event is not None:
-                rb.event.synchronize()
-            rb.ready_t = time.perf_counter()
-            views = {k: view for k, (_, view) in rb.out.items()}
-            if check is not None:
-                views = check(views)
-            host = self._restore(rb, views)
-        finally:
-            self.ring.release([buf for buf, _ in rb.out.values()])
-            if rb.shadow is not None:
-                self.ring.release([buf for buf, _ in rb.shadow.out.values()], rb.shadow.event)
-        request_trace.add("readback.wait", time.perf_counter() - t0)
+        with request_trace.span("readback.wait") as t0:
+            try:
+                if rb.event is not None:
+                    rb.event.synchronize()
+                rb.ready_t = time.perf_counter()
+                views = {k: view for k, (_, view) in rb.out.items()}
+                if check is not None:
+                    views = check(views)
+                host = self._restore(rb, views)
+            finally:
+                self.ring.release([buf for buf, _ in rb.out.values()])
+                if rb.shadow is not None:
+                    self.ring.release([buf for buf, _ in rb.shadow.out.values()],
+                                      rb.shadow.event)
         rb.wait_s = rb.ready_t - t0
         with self._stats_lock:
             self.stats.readback_window_s += max(rb.ready_t - rb.issue_t, 0.0)
@@ -2269,6 +2275,7 @@ class DynamicBatcher:
         Both skip top-k (and prune) and warmup groups. A failure fails the group's
         futures (and its row flights) and returns None."""
         phases = _phase_sink(group)
+        batch_id = next(self._batch_ids) if phases is not None else 0
         ring = self.buffer_ring
         pad_bufs: list = []
         row_ctx = None
@@ -2316,7 +2323,7 @@ class DynamicBatcher:
                     # Every row cached or being filled by another batch:
                     # delivered on a completion worker, so this thread
                     # never waits for another batch's fill.
-                    _replay(group, phases)
+                    _replay(group, phases, batch_id, 0, total)
                     fut = self._completers.submit(self._finish_row_batch, group, row_ctx, None)
                     fut.add_done_callback(lambda f, g=group: self._guard_row_delivery(f, g))
                     return None
@@ -2368,13 +2375,13 @@ class DynamicBatcher:
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
             if pad_bufs:
                 ring.release(pad_bufs)
-            _replay(group, phases)
+            _replay(group, phases, batch_id, 0, total)
             # Building the device step (step_for) is device work too.
             self._fail_or_capture(group, total, exc, row_ctx)
             return None
         return _Staged(group=group, total=total, bucket=bucket, src=src, keys=keys,
                        collected_t=time.perf_counter(), topk=topk, prune=prune, phases=phases,
-                       pad_bufs=pad_bufs, scatter=scatter, row_ctx=row_ctx)
+                       batch_id=batch_id, pad_bufs=pad_bufs, scatter=scatter, row_ctx=row_ctx)
 
     def _plan_rows(self, rc, group: list[_WorkItem], total: int, keys) -> _RowContext:
         """The row cache's consultation for one collected batch: the
@@ -2663,10 +2670,18 @@ class DynamicBatcher:
             util.depth_inc()
             st.util = util
         if st.phases is not None:
-            # Each member waited from its own enqueue: its own interval.
+            # Each member waited from its own enqueue: its own interval, and
+            # its two parts: until the batching thread collected it, then
+            # until the device stage (behind pipeline_depth and the window).
+            attrs = {"batch": st.batch_id, "bucket": st.bucket, "rows": st.total}
             for it in st.group:
                 if it.span is not None:
-                    it.span.add_interval("batch.queue_wait", it.enqueue_t, stage_t)
+                    it.span.add_interval("batch.queue_wait", it.enqueue_t, stage_t, attrs,
+                                         wait=True)
+                    it.span.add_interval("batch.collect_wait", it.enqueue_t, st.collected_t,
+                                         attrs, wait=True)
+                    it.span.add_interval("batch.stage_wait", st.collected_t, stage_t, attrs,
+                                         wait=True)
         ov = self.overload
         if ov is not None:
             # The controlled variable of adaptive admission (warmup waits
@@ -2728,7 +2743,7 @@ class DynamicBatcher:
                 self.ring.release([buf for buf, _ in rb.out.values()], rb.event)
             # The spans show the phases that led to the failure before the
             # waiters unblock and finish them.
-            _replay(st.group, st.phases)
+            _replay(st.group, st.phases, st.batch_id, st.bucket, st.total)
             self._util_done(st)
             if not self._dropped_captured(st, "failure"):
                 self._fail_or_capture(st.group, st.total, exc, st.row_ctx)
@@ -2748,7 +2763,7 @@ class DynamicBatcher:
             self._util_done(st)
             self._close_run_token(st)
             return
-        _replay(st.group, st.phases)
+        _replay(st.group, st.phases, st.batch_id, st.bucket, st.total)
         with self._stats_lock:
             self.stats.batches += 1
             self.stats.requests += len(st.group)
@@ -2916,7 +2931,7 @@ class DynamicBatcher:
                         with request_trace.span("cache.row_fill"):
                             st.row_ctx.fill_from_host(host)
             finally:
-                _replay(st.group, phases)
+                _replay(st.group, phases, st.batch_id, st.bucket, st.total)
             self._complete(st, rb, host)
         except Exception as exc:  # noqa: BLE001 — delivered to the waiters
             if not self._dropped_captured(st, "failure"):

@@ -2,7 +2,7 @@
 
 from .config import ObservabilityConfig, ServerConfig, load_config
 from .metrics import LatencyHistogram, ServerMetrics
-from .tracing import PhaseTrace, profile_trace, request_trace
+from .tracing import PhaseTrace, request_trace
 
 __all__ = [
     "ServerConfig",
@@ -11,6 +11,5 @@ __all__ = [
     "LatencyHistogram",
     "ServerMetrics",
     "PhaseTrace",
-    "profile_trace",
     "request_trace",
 ]

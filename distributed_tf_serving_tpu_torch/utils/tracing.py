@@ -17,12 +17,20 @@
   one pair of clock reads feeds both the aggregate and the span tree.
 - **annotate()**: attaches an annotation to the current span (or the
   active phase sink).
+- **thread_cpu()**: CPU seconds so far per thread role (gRPC handlers,
+  the batcher's three kinds of thread, other Python threads) and for the
+  whole process, for a reader that differences two calls.
 
 Per-request tracing is off by default and gated on one module bool: every
-hook is a single global read while it is off. `profile_trace()` wraps a
-block in a torch.profiler trace (host and CUDA activities) for a
-kernel-level look. This module's state is its own: the JAX package's
-tracing plane is a separate module with separate state.
+hook is a single global read while it is off. While it is on, a phase
+timed in a block (`PhaseTrace.span`) also records the thread that ran it
+and that thread's CPU seconds over the block, so work can be told apart
+from waiting (for the GIL, a lock, the device). Span times are
+perf_counter seconds; `clock_anchor()` pairs that clock with the wall
+clock, which places them on another timeline (a torch.profiler trace:
+ts_us = start_us - perf_us + unix_us - baseTimeNanoseconds / 1000). This
+module's state is its own: the JAX package's tracing plane is a separate
+module with separate state.
 """
 
 from __future__ import annotations
@@ -55,35 +63,25 @@ class PhaseTrace:
 
     @contextlib.contextmanager
     def span(self, phase: str):
+        """Time a block under `phase`; yields its start (perf_counter). One
+        global read when per-request tracing is off; when it is on, the
+        block's interval, thread and thread CPU seconds also become a child
+        span of the active request context (_attach)."""
+        traced = _ENABLED
+        c0 = time.thread_time() if traced else 0.0
         t0 = time.perf_counter()
         try:
-            yield
+            yield t0
         finally:
-            self.add(phase, time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            if traced:
+                _attach(phase, t0, t1, time.thread_time() - c0)
+            self._tally(phase, t1 - t0)
 
-    def add(self, phase: str, seconds: float) -> None:
-        """Record an externally timed duration under `phase`. For callers
-        that already hold the wall time for their own accounting (the
-        batcher's readback-overlap bookkeeping times the fetch once and
-        feeds both this trace and the overlap counters) — a nested span
-        would pay a second pair of clock reads for the same interval."""
+    def _tally(self, phase: str, seconds: float) -> None:
         with self._lock:
             self._totals[phase] += seconds
             self._counts[phase] += 1
-        if _ENABLED:
-            # Per-request plane: the same interval becomes a child span of
-            # whatever request context is active on this thread — the
-            # batcher's phase sink when one is installed, else the
-            # contextvar span (the service/REST handler threads). One
-            # global read when tracing is off.
-            end = time.perf_counter()
-            sink = getattr(_SINK, "phases", None)
-            if sink is not None:
-                sink.append((phase, end - seconds, end))
-            else:
-                cur = _CURRENT.get()
-                if cur is not None:
-                    cur.add_interval(phase, end - seconds, end)
 
     def snapshot(self) -> dict[str, dict]:
         with self._lock:
@@ -104,21 +102,21 @@ class PhaseTrace:
             self._counts.clear()
 
 
-@contextlib.contextmanager
-def profile_trace(log_dir: str):
-    """torch.profiler trace around a block (host and, on a card, CUDA
-    activities), written into `log_dir` as a Chrome trace on exit."""
-    import torch
-
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(
-        os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
-    )
+def _attach(phase: str, t0: float, t1: float, cpu_s: float) -> None:
+    """The per-request plane's half of a phase: the interval becomes a
+    child span of whatever request context is active on this thread — the
+    batcher's phase sink when one is installed (replayed onto every member
+    of the batch), else the contextvar span (the service/REST handler
+    threads) — with this thread's native id and name."""
+    t = threading.current_thread()
+    thread = (t.native_id, t.name)
+    sink = getattr(_SINK, "phases", None)
+    if sink is not None:
+        sink.append((phase, t0, t1, thread, cpu_s))
+    else:
+        cur = _CURRENT.get()
+        if cur is not None:
+            cur.add_interval(phase, t0, t1, thread=thread, cpu_s=cpu_s)
 
 
 # Process-wide default trace used by the serving path.
@@ -187,12 +185,18 @@ class Span:
     events never go backwards even across NTP steps. Child mutation is
     list-append under the GIL plus an explicit lock for cross-thread
     attachment (the batcher's dispatch/completer threads attach to a span
-    owned by an RPC handler)."""
+    owned by an RPC handler).
+
+    A phase span also knows the thread that ran it (`thread`: native id
+    and name) and, when it was timed in a block, that thread's CPU
+    seconds over it (`cpu_s`). An interval stitched from timestamps taken
+    on other threads (a request's queue waits) is a `wait`: no thread, no
+    CPU."""
 
     __slots__ = (
         "name", "trace_id", "span_id", "parent_id", "remote_parent",
         "start", "end", "status", "attrs", "annotations", "children",
-        "_lock",
+        "thread", "cpu_s", "wait", "_lock",
     )
 
     def __init__(
@@ -214,6 +218,9 @@ class Span:
         self.attrs = dict(attrs) if attrs else {}
         self.annotations: list[dict] = []
         self.children: list[Span] = []
+        self.thread: tuple[int, str] | None = None
+        self.cpu_s: float | None = None
+        self.wait = False
         self._lock = threading.Lock()
 
     # ------------------------------------------------------------- building
@@ -228,15 +235,22 @@ class Span:
         return sp
 
     def add_interval(
-        self, name: str, start: float, end: float, attrs: dict | None = None
+        self, name: str, start: float, end: float, attrs: dict | None = None,
+        *, thread: tuple[int, str] | None = None, cpu_s: float | None = None,
+        wait: bool = False,
     ) -> "Span":
         """Attach an already-timed child interval (the batcher's phase
-        sink replay; safe from any thread)."""
+        sink replay; safe from any thread): the thread that ran it and its
+        CPU seconds where known, or `wait` for an interval between
+        timestamps that other threads took."""
         sp = Span(
             name, trace_id=self.trace_id, parent_id=self.span_id, attrs=attrs
         )
         sp.start = start
         sp.end = end
+        sp.thread = thread
+        sp.cpu_s = cpu_s
+        sp.wait = wait
         with self._lock:
             self.children.append(sp)
         return sp
@@ -274,7 +288,9 @@ class Span:
         )
 
     def to_dict(self) -> dict:
-        return {
+        """The span tree as JSON; `tid` / `thread`, `cpu_us` and `wait`
+        appear only on the spans that have them."""
+        d = {
             "name": self.name,
             "trace_id": self.trace_id,
             "span_id": self.span_id,
@@ -288,6 +304,13 @@ class Span:
             ],
             "children": [c.to_dict() for c in self.children],
         }
+        if self.thread is not None:
+            d["tid"], d["thread"] = self.thread
+        if self.cpu_s is not None:
+            d["cpu_us"] = int(self.cpu_s * 1e6)
+        if self.wait:
+            d["wait"] = True
+        return d
 
     def walk(self):
         yield self
@@ -303,8 +326,8 @@ _CURRENT: contextvars.ContextVar[Span | None] = contextvars.ContextVar(
 
 # Thread-local phase sink for producers that run OUTSIDE the request's
 # context (the batcher's dispatch/completer threads): a list of
-# (phase, t0, t1) tuples plus annotation dicts, replayed onto every
-# co-batched request's span by the batcher.
+# (phase, t0, t1, thread, cpu_s) tuples plus annotation dicts, replayed
+# onto every co-batched request's span by the batcher.
 _SINK = threading.local()
 
 
@@ -413,9 +436,10 @@ def annotate(message: str, **attrs) -> None:
 @contextlib.contextmanager
 def collect_phases(sink: list):
     """Install `sink` as this thread's phase sink: request_trace phase
-    timings (and annotate() calls) land in it as (phase, t0, t1) tuples /
-    annotation dicts until the block exits. The batcher uses one sink per
-    batch and replays it onto every member request's span."""
+    timings (and annotate() calls) land in it as (phase, t0, t1, thread,
+    cpu_s) tuples / annotation dicts until the block exits. The batcher
+    uses one sink per batch and replays it onto every member request's
+    span."""
     prev = getattr(_SINK, "phases", None)
     _SINK.phases = sink
     try:
@@ -424,15 +448,19 @@ def collect_phases(sink: list):
         _SINK.phases = prev
 
 
-def replay_phases(span: Span, phases: list) -> None:
+def replay_phases(span: Span, phases: list, attrs: dict | None = None) -> None:
     """Attach a collect_phases sink's contents to `span`: tuples become
-    child intervals, annotation dicts become annotations."""
+    child intervals (each with `attrs`, the batcher's batch id, bucket and
+    rows, so a reader counts a batch's work once however many members
+    carry it), annotation dicts become annotations. A tuple may be a bare
+    (phase, t0, t1)."""
     for entry in phases:
         if isinstance(entry, dict):
             span.annotations.append(dict(entry))
         else:
-            name, t0, t1 = entry
-            span.add_interval(name, t0, t1)
+            name, t0, t1, *rest = entry
+            thread, cpu_s = rest or (None, None)
+            span.add_interval(name, t0, t1, attrs, thread=thread, cpu_s=cpu_s)
 
 
 # --------------------------------------------------------------------------
@@ -758,3 +786,45 @@ def enable(
 def disable() -> None:
     global _ENABLED
     _ENABLED = False
+
+
+# --------------------------------------------------------------------------
+# CPU seconds per thread role: with the GIL, how many cores' worth of
+# Python runs, and which threads run it. Read only by a reader that
+# differences two calls: nothing on the request path.
+
+THREAD_ROLES = ("rpc", "batcher", "batch-dispatch", "batch-complete", "other")
+
+
+def _thread_role(name: str) -> str:
+    """A Python thread's role from the name the port gives it: the gRPC
+    server's handler pool (`rpc_<n>`), the batching thread, the dispatch
+    thread, the completion workers (`batch-complete_<n>`); else `other`."""
+    if name == "batcher" or name == "batch-dispatch":
+        return name
+    if name.startswith("batch-complete"):
+        return "batch-complete"
+    if name.startswith("rpc_"):
+        return "rpc"
+    return "other"
+
+
+def thread_cpu() -> dict[str, float]:
+    """CPU seconds so far of this process's live Python threads, summed by
+    role (THREAD_ROLES), and `process`: the whole process's CPU seconds
+    (time.process_time, every thread, those that ended too). Native
+    threads that never ran Python (gRPC core, CUDA) count only in
+    `process`. Read through each thread's CPU clock
+    (time.pthread_getcpuclockid); a thread that ends meanwhile is left
+    out."""
+    out = dict.fromkeys(THREAD_ROLES, 0.0)
+    for t in threading.enumerate():
+        if isinstance(t, threading._DummyThread) or t.ident is None:
+            continue  # a foreign (native) thread that called into Python
+        try:
+            seconds = time.clock_gettime(time.pthread_getcpuclockid(t.ident))
+        except (OSError, AttributeError):
+            continue
+        out[_thread_role(t.name)] += seconds
+    out["process"] = time.process_time()
+    return out

@@ -29,7 +29,7 @@ from distributed_tf_serving_tpu.serving import DynamicBatcher as JaxBatcher
 from distributed_tf_serving_tpu.serving.batcher import fold_ids_host as jax_fold
 from distributed_tf_serving_tpu.train.data import auc
 from distributed_tf_serving_tpu.utils.config import load_config as jax_load_config
-from distributed_tf_serving_tpu_torch import native
+from distributed_tf_serving_tpu_torch import codec, native
 from distributed_tf_serving_tpu_torch.convert import params_from_jax
 from distributed_tf_serving_tpu_torch.models import (
     ModelConfig,
@@ -38,6 +38,7 @@ from distributed_tf_serving_tpu_torch.models import (
     ctr_signatures,
 )
 from distributed_tf_serving_tpu_torch.ops import transfer as tt
+from distributed_tf_serving_tpu_torch.proto import serving_apis_pb2 as apis
 from distributed_tf_serving_tpu_torch.serving.batcher import (
     DynamicBatcher,
     QueueOverloadError,
@@ -46,6 +47,7 @@ from distributed_tf_serving_tpu_torch.serving.batcher import (
     fold_ids_host,
 )
 from distributed_tf_serving_tpu_torch.serving.server import build_stack
+from distributed_tf_serving_tpu_torch.utils import tracing
 from distributed_tf_serving_tpu_torch.utils.config import load_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -696,3 +698,104 @@ def test_held_readbacks_do_not_hold_dispatch(reference, depth, monkeypatch):
         gate.set()
         batcher.stop()
     assert batcher.stats.batches == depth + 2  # one batch per request
+
+
+# --------------------------------------------------------------- spans
+
+
+@pytest.fixture
+def traced_stack():
+    """build_stack on latency.toml (two buckets) with the span plane on:
+    (impl, batcher, servable, recorder); the plane off again after."""
+    loaded = load_config(os.path.join(REPO, "configs", "latency.toml"))
+    cfg = dataclasses.replace(loaded["server"], buckets=(16, 32))
+    mc = dataclasses.replace(loaded["model"], **KW)
+    impl, batcher, servable = build_stack(cfg, mc, "cpu")
+    rec = tracing.enable(buffer_size=1024, slowest_n=0)
+    try:
+        yield impl, batcher, servable, rec
+    finally:
+        tracing.disable()
+        batcher.stop()
+
+
+def _traced_predicts(impl, servable, threads=4, each=4):
+    """Predicts from several threads at once, each under its own
+    server.Predict root span."""
+    errors = []
+    barrier = threading.Barrier(threads)
+
+    def client(k):
+        rng = np.random.RandomState(k)
+        try:
+            barrier.wait(timeout=WAIT)
+            for _ in range(each):
+                n = int(rng.randint(1, 14))
+                req = apis.PredictRequest()
+                req.model_spec.name = servable.name
+                codec.from_ndarray(rng.randint(0, 1 << 40, size=(n, F)).astype(np.int64),
+                                   out=req.inputs["feat_ids"])
+                codec.from_ndarray(rng.rand(n, F).astype(np.float32),
+                                   out=req.inputs["feat_wts"])
+                with tracing.start_root("server.Predict", attrs={"n": n}):
+                    impl.predict(req)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    ts = [threading.Thread(target=client, args=(k,), name=f"caller_{k}") for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=2 * WAIT)
+    assert not errors and not any(t.is_alive() for t in ts), errors
+
+
+def _children(root: dict) -> dict:
+    out: dict = {}
+    for c in root["children"]:
+        out.setdefault(c["name"], []).append(c)
+    return out
+
+
+def test_queue_wait_splits_into_collect_and_stage_waits(traced_stack):
+    impl, batcher, servable, rec = traced_stack
+    _traced_predicts(impl, servable)
+    roots = rec.export_since(0, limit=1024)["spans"]
+    assert len(roots) == 16
+    for root in roots:
+        kids = _children(root)
+        (queue,), (collect,), (stage,) = (kids[k] for k in (
+            "batch.queue_wait", "batch.collect_wait", "batch.stage_wait"))
+        assert abs(collect["duration_us"] + stage["duration_us"] - queue["duration_us"]) <= 1
+        assert collect["start_us"] == queue["start_us"]
+        assert abs(stage["start_us"] - collect["start_us"] - collect["duration_us"]) <= 1
+        for w in (queue, collect, stage):
+            assert w["wait"] and "cpu_us" not in w and "tid" not in w
+
+
+def test_replayed_phases_carry_one_batch_id_per_batch(traced_stack):
+    impl, batcher, servable, rec = traced_stack
+    before = batcher.stats.batches
+    _traced_predicts(impl, servable)
+    roots = rec.export_since(0, limit=1024)["spans"]
+    batches: dict = {}
+    for root in roots:
+        kids = _children(root)
+        (decode,) = kids["predict.decode"]
+        assert decode["thread"].startswith("caller_") and "cpu_us" in decode
+        replayed = [c for c in root["children"] if "batch" in c["attrs"]]
+        ids = {c["attrs"]["batch"] for c in replayed}
+        assert len(ids) == 1, ids  # one batch per request here
+        (dispatch,) = kids["batch.dispatch"]
+        (readback,) = kids["readback.wait"]
+        assert dispatch["thread"] == "batch-dispatch" and "cpu_us" in dispatch
+        assert readback["thread"].startswith("batch-complete") and "cpu_us" in readback
+        attrs = dispatch["attrs"]
+        b = batches.setdefault(attrs["batch"], {"attrs": attrs, "n": 0, "dispatch": set()})
+        assert b["attrs"] == attrs  # the same id means the same bucket and rows
+        b["n"] += root["attrs"]["n"]
+        b["dispatch"].add((dispatch["start_us"], dispatch["duration_us"]))
+    assert len(batches) == batcher.stats.batches - before
+    for b in batches.values():
+        assert b["attrs"]["rows"] == b["n"] <= b["attrs"]["bucket"]
+        assert len(b["dispatch"]) == 1  # one dispatch, replayed onto each member
