@@ -3,7 +3,12 @@
 Both wire encodings of the TF-Serving tensor data plane: the raw
 little-endian `tensor_content` fast path (zero-copy via np.frombuffer) and
 the per-dtype repeated fields (what grpc-java clients emit — int64_val /
-float_val). Element counts are validated against the declared shape.
+float_val). Element counts are validated against the declared shape. When
+the native host ops are loaded, a repeated int64 / int32 / uint32 / uint64
+/ float / double field is read from the tensor's serialized bytes in one
+call outside the GIL (native.repeated_field), bit for bit the values the
+walk over protobuf's container gives; `decode_counts()` says how many
+tensors took that route ("packed") and how many the walk ("walked").
 
 Differences from the JAX package's codec, both because this package needs
 nothing beyond numpy: DT_BFLOAT16 has no numpy dtype here, so a bf16 tensor
@@ -23,6 +28,8 @@ it.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 
@@ -146,6 +153,40 @@ def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
     return (bits.astype(np.uint32) << 16).view(np.float32)
 
 
+# DataType -> (field number, native scan kind) of the repeated fields read
+# from the serialized tensor. Left out: the narrow integers carried in
+# int_val (numpy raises on an out-of-range value, a native cast would wrap
+# it), bool_val, half_val and the complex pairs.
+_SCANNED: dict[int, tuple[int, int]] = {
+    dt: (fw.TensorProto.DESCRIPTOR.fields_by_name[_DTYPES[dt][1]].number, kind)
+    for dt, kind in (
+        (DataType.DT_INT64, native.SCAN_VARINT64),
+        (DataType.DT_UINT64, native.SCAN_VARINT64),
+        (DataType.DT_INT32, native.SCAN_VARINT32),
+        (DataType.DT_UINT32, native.SCAN_VARINT32),
+        (DataType.DT_FLOAT, native.SCAN_FIXED32),
+        (DataType.DT_DOUBLE, native.SCAN_FIXED64),
+    )
+}
+
+# Repeated-field tensors decoded by each route, process-wide.
+_decode_lock = threading.Lock()
+_decode_counts = {"packed": 0, "walked": 0}
+
+
+def _count(route: str) -> None:
+    with _decode_lock:
+        _decode_counts[route] += 1
+
+
+def decode_counts() -> dict[str, int]:
+    """Tensors `to_ndarray` decoded from a repeated field, by route:
+    "packed" read from the serialized bytes, "walked" through protobuf's
+    container element by element. The `decode` block of /monitoring."""
+    with _decode_lock:
+        return dict(_decode_counts)
+
+
 def to_ndarray(tp: fw.TensorProto) -> np.ndarray:
     """Decode a TensorProto to a numpy array, validating shape vs payload."""
     dt = tp.dtype
@@ -180,7 +221,21 @@ def to_ndarray(tp: fw.TensorProto) -> np.ndarray:
 
     vals = getattr(tp, field)
     nvals = len(vals)
+    scan = _SCANNED.get(dt)
+    if scan is not None and nvals == n and native.available():
+        out = native.repeated_field(tp.SerializeToString(), *scan, np_dtype, n)
+        if out is not None:
+            _count("packed")
+            return out.reshape(dims)
+    out = _walk(vals, nvals, field, bf16, np_dtype, dims, n)
+    _count("walked")
+    return out
 
+
+def _walk(vals, nvals: int, field: str, bf16: bool, np_dtype: np.dtype,
+          dims: tuple[int, ...], n: int) -> np.ndarray:
+    """A repeated field's values through protobuf's container, one Python
+    object per element."""
     if field == "half_val":
         # uint16 bit patterns widened to int32 on the wire.
         if nvals != n:

@@ -15,7 +15,10 @@ replay checks its TFRecord framing with `crc32c`, and the integrity plane's
 wire checksums (codec.crc_sidecar) run through it. The cache plane digests
 with `hash128` (the device-input cache's batch key and the score cache's
 feature digest) and `hash128_rows` (blake2b-128 per row: the row cache's
-keys, byte-identical to hashlib's).
+keys, byte-identical to hashlib's). The codec reads the repeated numeric
+fields of a TensorProto (`int64_val`, `float_val`, ...) from its serialized
+bytes with `repeated_field`, one call outside the GIL in place of a walk
+over protobuf's container.
 """
 
 from __future__ import annotations
@@ -104,6 +107,11 @@ def _load_locked() -> ctypes.CDLL | None:
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
     ]
     lib.hash128_rows.restype = None
+    lib.dts_repeated_field.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.dts_repeated_field.restype = ctypes.c_int64
     return lib
 
 
@@ -229,6 +237,33 @@ def hash128_rows(blob: np.ndarray, header: bytes = b"") -> np.ndarray:
     out = np.empty((blob.shape[0], 16), np.uint8)
     lib.hash128_rows(header, len(header), _ptr(blob), blob.shape[0], blob.shape[1], _ptr(out))
     return out
+
+
+# Value kinds of `repeated_field` (hostops.cc ScanKind) and the item size
+# each writes.
+SCAN_VARINT64 = 0  # int64_val, uint64_val
+SCAN_VARINT32 = 1  # int_val (int32), uint32_val: the varint's low 32 bits
+SCAN_FIXED32 = 2  # float_val
+SCAN_FIXED64 = 3  # double_val
+_SCAN_ITEMSIZE = {SCAN_VARINT64: 8, SCAN_VARINT32: 4, SCAN_FIXED32: 4, SCAN_FIXED64: 8}
+
+
+def repeated_field(msg: bytes, field: int, kind: int, dtype, n: int) -> np.ndarray | None:
+    """The n values of repeated numeric field number `field` of the
+    serialized message `msg`, read from its bytes (packed or not) into a
+    fresh [n] array of `dtype`; None when the bytes do not read as exactly
+    n values of `kind` (the caller then takes its own path). One call,
+    outside the GIL; `msg` is passed in place. A float_val NaN comes back
+    quiet, as protobuf's Python floats return it."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native hostops library unavailable")
+    out = np.empty(n, dtype)
+    if _SCAN_ITEMSIZE.get(kind) != out.itemsize:
+        raise ValueError(f"scan kind {kind} does not write {out.dtype} elements")
+    msg = bytes(msg)
+    got = lib.dts_repeated_field(msg, len(msg), field, kind, _ptr(out), n)
+    return out if got == n else None
 
 
 def crc32c(data, crc: int = 0) -> int:

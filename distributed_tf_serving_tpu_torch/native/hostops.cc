@@ -2,7 +2,9 @@
 // batch assembly that sits between protobuf decode and the host-to-device
 // copy. The numpy implementation of the same steps (ops/transfer.py +
 // batcher padding) makes several full passes and temporaries per batch;
-// these functions do each transform in one pass.
+// these functions do each transform in one pass. Before them,
+// dts_repeated_field reads a request tensor's repeated int64_val / float_val
+// from its serialized bytes in place of protobuf's per-element container.
 //
 // Exposed via a C ABI for ctypes. All functions are thread-safe (pure
 // element-wise transforms on caller-owned buffers).
@@ -180,9 +182,145 @@ void blake2b16_2seg(const uint8_t* s1, int64_t n1, const uint8_t* s2,
   std::memcpy(out16, h, 16);  // little-endian h[0..1] = the first 16 bytes
 }
 
+// One base-128 varint at p (at most 10 bytes, none past end): the low 64
+// bits of its value, as protobuf parsers take them; nullptr when it runs
+// past end or past 10 bytes.
+inline const uint8_t* read_varint(const uint8_t* p, const uint8_t* end, uint64_t* v) {
+  uint64_t r = 0;
+  for (int i = 0; i < 10 && p < end; ++i) {
+    const uint64_t b = *p++;
+    r |= (b & 0x7fu) << (7 * i);
+    if (!(b & 0x80u)) {
+      *v = r;
+      return p;
+    }
+  }
+  return nullptr;
+}
+
+// Value kinds of dts_repeated_field: how one element is read and written.
+enum ScanKind : int32_t {
+  kVarint64 = 0,  // int64_val / uint64_val: the varint's 64 bits
+  kVarint32 = 1,  // int_val / uint32_val: its low 32 bits
+  kFixed32 = 2,   // float_val: 4 bytes, a NaN made quiet as a double round trip makes it
+  kFixed64 = 3,   // double_val: 8 bytes
+};
+
+// Varints from p to stop into out[*count..n), T their width; false when one
+// is cut short or too long, or they overflow n.
+template <typename T>
+bool scan_varints(const uint8_t* p, const uint8_t* stop, T* out, int64_t* count, int64_t n) {
+  int64_t i = *count;
+  while (p < stop) {
+    uint64_t v;
+    if (i >= n || !(p = read_varint(p, stop, &v))) return false;
+    out[i++] = static_cast<T>(v);
+  }
+  *count = i;
+  return true;
+}
+
+// The bytes of `elems` fixed-width elements at p, into out[*count..); a
+// float_val NaN gains its quiet bit, as float -> double -> float sets it.
+void copy_fixed(const uint8_t* p, int64_t elems, int32_t kind, void* out, int64_t* count) {
+  const int64_t width = kind == kFixed32 ? 4 : 8;
+  uint8_t* dst = static_cast<uint8_t*>(out) + *count * width;
+  std::memcpy(dst, p, static_cast<size_t>(elems * width));  // little-endian wire and host
+  if (kind == kFixed32) {
+    uint32_t* u = reinterpret_cast<uint32_t*>(dst);
+    for (int64_t i = 0; i < elems; ++i) {
+      if ((u[i] & 0x7fffffffu) > 0x7f800000u) u[i] |= 0x00400000u;
+    }
+  }
+  *count += elems;
+}
+
 }  // namespace
 
 extern "C" {
+
+// The values of repeated numeric field `field` of a serialized protobuf
+// message (a TensorProto: int64_val, float_val, ...), read straight from its
+// bytes into out[0..n). Every top-level field is walked; other fields are
+// skipped by their wire type; each occurrence of `field` is read, packed
+// (wire type 2) or one value at a time (the kind's own wire type), in order.
+// Returns the count written, or -1 when the bytes cannot be read: a varint
+// cut short or over 10 bytes, a length past the end, a group or unknown wire
+// type, a packed payload that is not whole elements, or a count other than
+// n (out is never written past n). Thread-safe; ctypes releases the GIL for
+// the call.
+int64_t dts_repeated_field(const uint8_t* msg, int64_t len, int32_t field, int32_t kind,
+                           void* out, int64_t n) {
+  if (kind < kVarint64 || kind > kFixed64 || len < 0) return -1;
+  const uint32_t own_wire = kind == kFixed32 ? 5 : kind == kFixed64 ? 1 : 0;
+  const uint64_t want = static_cast<uint64_t>(static_cast<uint32_t>(field));
+  const uint8_t* p = msg;
+  const uint8_t* const end = msg + len;
+  int64_t count = 0;
+  while (p < end) {
+    uint64_t tag;
+    if (!(p = read_varint(p, end, &tag))) return -1;
+    const uint32_t wire = static_cast<uint32_t>(tag & 7u);
+    const uint64_t number = tag >> 3;
+    if (number == 0) return -1;
+    if (number == want && wire == 2) {
+      uint64_t size;
+      if (!(p = read_varint(p, end, &size))) return -1;
+      if (size > static_cast<uint64_t>(end - p)) return -1;
+      const uint8_t* const stop = p + size;
+      bool ok = true;
+      if (kind == kVarint64) {
+        ok = scan_varints(p, stop, static_cast<uint64_t*>(out), &count, n);
+      } else if (kind == kVarint32) {
+        ok = scan_varints(p, stop, static_cast<uint32_t*>(out), &count, n);
+      } else {
+        const uint64_t width = kind == kFixed32 ? 4 : 8;
+        const int64_t elems = static_cast<int64_t>(size / width);
+        ok = size % width == 0 && elems <= n - count;
+        if (ok) copy_fixed(p, elems, kind, out, &count);
+      }
+      if (!ok) return -1;
+      p = stop;
+    } else if (number == want && wire == own_wire) {
+      // One value outside a packed run.
+      if (count >= n) return -1;
+      if (kind == kVarint64 || kind == kVarint32) {
+        uint64_t v;
+        if (!(p = read_varint(p, end, &v))) return -1;
+        if (kind == kVarint64) static_cast<uint64_t*>(out)[count++] = v;
+        else static_cast<uint32_t*>(out)[count++] = static_cast<uint32_t>(v);
+      } else {
+        const int64_t width = kind == kFixed32 ? 4 : 8;
+        if (end - p < width) return -1;
+        copy_fixed(p, 1, kind, out, &count);
+        p += width;
+      }
+    } else if (number == want) {
+      return -1;  // the field under a wire type its values cannot have
+    } else {
+      uint64_t skip = 0;
+      switch (wire) {
+        case 0:
+          if (!(p = read_varint(p, end, &skip))) return -1;
+          continue;
+        case 1:
+          skip = 8;
+          break;
+        case 2:
+          if (!(p = read_varint(p, end, &skip))) return -1;
+          break;
+        case 5:
+          skip = 4;
+          break;
+        default:
+          return -1;  // 3 / 4 (groups), 6 / 7
+      }
+      if (skip > static_cast<uint64_t>(end - p)) return -1;
+      p += skip;
+    }
+  }
+  return count == n ? count : -1;
+}
 
 // CRC32C of n bytes, continuing from `crc` (0 to start): the TFRecord
 // checksum of serving/warmup.py. ctypes releases the GIL for the call.

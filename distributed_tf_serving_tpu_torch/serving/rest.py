@@ -20,7 +20,8 @@ package's PredictionServiceImpl:
   `.../metadata` -> signature metadata.
 - `GET /monitoring/prometheus/metrics` -> Prometheus text (TF-Serving's
   metric names); `GET /monitoring[?section=NAME]` -> the same data as JSON
-  with the phase means and one block per plane; `GET
+  with the phase means, the codec's decode routes and one block per
+  plane; `GET
   /tracez[?format=chrome][&limit=N]` -> the retained span trees, or a
   Chrome-trace-event export; `GET /tracez/export?since=N` -> the kept span
   trees after a cursor.
@@ -501,7 +502,8 @@ class RestGateway:
 
     def _monitoring_builders(self) -> dict:
         """One builder per /monitoring block, so ?section=NAME builds only
-        that block. The JAX gateway's section names; a plane that is off
+        that block. The JAX gateway's section names, and `decode` (the
+        codec's repeated-field routes, the port's own); a plane that is off
         answers None."""
 
         def request_log():
@@ -512,6 +514,7 @@ class RestGateway:
         return {
             "metrics": lambda: self.metrics.snapshot(impl.batcher.stats),
             "phases": request_trace.snapshot,
+            "decode": codec.decode_counts,
             "tracing": lambda: {
                 "enabled": tracing.enabled(),
                 "recorded": tracing.recorder().recorded,
@@ -538,8 +541,8 @@ class RestGateway:
     async def monitoring(self, request: web.Request) -> web.Response:
         """GET /monitoring[?section=NAME]: the metrics snapshot as JSON
         (rolling-window qps and percentiles beside the lifetime values,
-        per-model blocks, batcher gauges), the phase means, and one block
-        per plane that is on (a plane that is off is absent).
+        per-model blocks, batcher gauges), the phase means, the codec's
+        decode routes, and one block per plane that is on (a plane that is off is absent).
         ?section=NAME answers that block alone (null for a plane that is
         off); an unknown name is a 400."""
         builders = self._monitoring_builders()
@@ -553,6 +556,7 @@ class RestGateway:
             return web.json_response({section: builder()})
         snap = builders["metrics"]()
         snap["phases"] = builders["phases"]()
+        snap["decode"] = builders["decode"]()
         snap["tracing"] = builders["tracing"]()
         for name in ("cache", "row_cache", "overload", "utilization", "quality", "lifecycle",
                      "recovery", "kernels", "mesh", "elastic", "fleet", "cascade", "integrity",

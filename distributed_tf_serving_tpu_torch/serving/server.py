@@ -2246,6 +2246,7 @@ def serve(argv=None) -> None:
             while server.wait_for_termination(timeout=args.metrics_every_s):
                 snap = metrics.snapshot(batcher.stats)
                 snap["phases"] = request_trace.snapshot()
+                snap["decode"] = codec.decode_counts()
                 log.info("metrics %s", json.dumps(snap))
         else:
             server.wait_for_termination()

@@ -1041,6 +1041,16 @@ def test_cli_metrics_every_s_logs_a_metrics_line(telemetry_cli):
     assert last["batcher"]["requests"] >= 2 and last["phases"]["batch.dispatch"]["count"] >= 2
 
 
+def test_cli_metrics_line_shows_the_codec_decode_routes(telemetry_cli):
+    import json
+
+    lines = [ln.split(" metrics ", 1)[1] for ln in telemetry_cli["log"].splitlines()
+             if " metrics {" in ln]
+    decode = json.loads(lines[-1])["decode"]
+    assert set(decode) == {"packed", "walked"}
+    assert all(isinstance(v, int) and v >= 0 for v in decode.values())
+
+
 def test_cli_tracing_records_a_tracez_trace(telemetry_cli):
     tracez = telemetry_cli["tracez"]
     assert tracez["enabled"]

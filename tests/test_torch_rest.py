@@ -158,6 +158,9 @@ SECTIONS = ["metrics", "phases", "tracing", "cache", "row_cache", "overload", "u
             "integrity", "versions", "pipeline", "request_log", "draining"]
 # Sections whose block is the same value in both packages (the rest carry
 # timings and counts of each package's own process).
+# The port's own /monitoring blocks, beside the JAX gateway's: the codec's
+# repeated-field decode routes (codec.decode_counts).
+PORT_SECTIONS = ["decode"]
 EQUAL_SECTIONS = ["cache", "row_cache", "overload", "utilization", "quality", "lifecycle",
                   "recovery", "kernels", "mesh", "elastic", "fleet", "cascade", "integrity",
                   "versions", "request_log", "draining"]
@@ -193,6 +196,9 @@ async def _drive(jimpl, timpl):
                 path = f"/monitoring?section={sec}"
                 answers[f"section_{sec}"] = (await _send(js, "GET", path, None),
                                              await _send(ts, "GET", path, None))
+            for sec in PORT_SECTIONS:
+                answers[f"port_section_{sec}"] = await _send(
+                    ts, "GET", f"/monitoring?section={sec}", None)
             for name, path in (("monitoring", "/monitoring"), ("tracez", "/tracez"),
                                ("prometheus", "/monitoring/prometheus/metrics")):
                 answers[name] = (await _send(js, "GET", path, None),
@@ -237,6 +243,11 @@ def _assert_same(want, got, path="$"):
 def test_the_port_answers_as_the_jax_gateway(answers, case):
     (jstatus, jbody), (tstatus, tbody) = answers[case]
     assert tstatus == jstatus, (case, jbody, tbody)
+    if case == "monitoring_unknown_section":
+        # The port names its own sections too.
+        jsections, tsections = str(sorted(SECTIONS)), str(sorted(SECTIONS + PORT_SECTIONS))
+        assert jsections in jbody["error"]
+        jbody = {**jbody, "error": jbody["error"].replace(jsections, tsections)}
     _assert_same(jbody, tbody)
     if case.startswith("draining_"):
         assert tstatus == 503 and "draining" in tbody["error"]
@@ -269,7 +280,7 @@ def test_monitoring_sections_answer_as_the_jax_gateway(answers, section):
 
 def test_monitoring_counts_every_rest_request_as_the_jax_gateway(answers):
     (_, jbody), (_, tbody) = answers["monitoring"]
-    assert set(tbody) == set(jbody)
+    assert set(tbody) == set(jbody) | set(PORT_SECTIONS)
     assert set(tbody["rpcs"]) == set(jbody["rpcs"]) == {"REST.Predict", "REST.Classify",
                                                         "REST.Regress"}
     for name, blk in jbody["rpcs"].items():
@@ -283,6 +294,16 @@ def test_monitoring_counts_every_rest_request_as_the_jax_gateway(answers):
     for phase in ("predict.decode", "predict.execute", "predict.encode", "batch.dispatch",
                   "readback.wait"):
         assert tbody["phases"][phase]["count"] > 0, phase
+
+
+def test_monitoring_shows_the_codec_decode_routes(answers):
+    (_, tbody) = answers["monitoring"][1]
+    status, section = answers["port_section_decode"]
+    assert status == 200 and set(section) == {"decode"}
+    for block in (tbody["decode"], section["decode"]):
+        assert set(block) == {"packed", "walked"}
+        assert all(isinstance(v, int) and v >= 0 for v in block.values())
+    assert section["decode"]["packed"] <= tbody["decode"]["packed"]  # asked first
 
 
 def test_the_prometheus_families_are_the_jax_gateway_s(answers):
