@@ -723,6 +723,14 @@ KERNEL_NAMES = {  # (wrapper's counter, compute dtype) -> ptxas entry name
     ("fused_serve_int8", "float32"): "fused_serve_int8_f32_kernel",
 }
 
+DLRM_KERNEL_NAMES = {  # table dtype -> ptxas entry name
+    "float32": "dlrm_interact_bf16_kernel<float>",
+    "bfloat16": "dlrm_interact_bf16_kernel<__nv_bfloat16>",
+}
+# DLRM at MLPerf's widths (facebookresearch/dlrm run_and_time.sh) on a
+# table past the 24-bit id wire, as the dlrm-mlperf-shard8 cell serves it.
+DLRM_FIELDS, DLRM_DIM, DLRM_ROWS = 26, 128, (1 << 24) + 1
+
 
 def cross_kernel_name(cd: str, rows: int) -> str:
     return f"cross_stack_{'bf16' if cd == 'bfloat16' else 'f32'}_kernel<{rows}>"
@@ -838,7 +846,8 @@ def device_ms(fn, iters: int = 20, attempts: int = 3, tries: int = 8) -> float:
 
 def check_build(src: str, info: dict) -> dict:
     """Print each kernel's registers and spills from ptxas; fail on a spill
-    or a kernel over 128 registers. Returns {kernel: {"registers",
+    or a kernel over its block's register cap (128 for the cross kernels,
+    255 for the DLRM kernel). Returns {kernel: {"registers",
     "spill_bytes"}}."""
     import re
 
@@ -850,24 +859,33 @@ def check_build(src: str, info: dict) -> dict:
     if any(spills):
         fail(f"ptxas reports spills in {src}: " + " | ".join(ln for ln in regs if "spill" in ln))
     # Registers per kernel: ptxas names each entry function (mangled, with
-    # the cross kernel's rows per block as its template argument) before
-    # its "Used N registers" line.
+    # the cross kernel's rows per block or the DLRM kernel's table type as
+    # its template argument) before its "Used N registers" line.
     per_kernel, entry, spill = {}, None, 0
+    targs = {"f": "float", "13__nv_bfloat16": "__nv_bfloat16"}
     for ln in info["log"].splitlines():
-        m = re.search(r"Compiling entry function '[^']*?((?:fused_serve|cross_stack)_\w+?_kernel)"
-                      r"(?:ILi(\d+)E)?", ln)
+        m = re.search(r"Compiling entry function '[^']*?((?:fused_serve|cross_stack|dlrm_interact)"
+                      r"_\w+?_kernel)"
+                      r"(?:I(?:Li(\d+)|(f|13__nv_bfloat16))E)?", ln)
         if m:
-            entry, spill = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""), 0
+            targ = m.group(2) or targs.get(m.group(3))
+            entry, spill = m.group(1) + (f"<{targ}>" if targ else ""), 0
         spill += sum(int(v) for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln))
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry:
             per_kernel[entry] = {"registers": int(m.group(1)), "spill_bytes": spill}
     log("build: registers per kernel: " + ", ".join(
         f"{k} {v['registers']}" for k, v in sorted(per_kernel.items())))
-    want = {*KERNEL_NAMES.values(),
-            *(cross_kernel_name(cd, r) for cd in PEAK_FLOPS for r in (16, 32))}
-    if not want <= set(per_kernel) or max(v["registers"] for v in per_kernel.values()) > 128:
-        fail(f"ptxas register report of {src} lacks a kernel or exceeds 128: {per_kernel}")
+    # The cross kernels' 512-thread blocks allow 128 registers a thread; the
+    # DLRM kernel's 128-thread blocks allow the per-thread maximum, 255.
+    if src == "cross_kernel.cu":
+        want = {*KERNEL_NAMES.values(),
+                *(cross_kernel_name(cd, r) for cd in PEAK_FLOPS for r in (16, 32))}
+        cap = 128
+    else:
+        want, cap = set(DLRM_KERNEL_NAMES.values()), 255
+    if not want <= set(per_kernel) or max(v["registers"] for v in per_kernel.values()) > cap:
+        fail(f"ptxas register report of {src} lacks a kernel or exceeds {cap}: {per_kernel}")
     return per_kernel
 
 
@@ -1019,7 +1037,131 @@ def bound(nbytes: float, flops: float, cd: str, int8_weights: bool = False) -> t
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernels(dev, registers: dict) -> dict:
+def dlrm_cost(ids, n: int) -> tuple[float, float]:
+    """(bytes, flops) DLRM's interaction needs at the MLPerf widths: the
+    table rows these ids touch (f32), the int32 ids, the bf16 weights, the
+    f32 bottom output read once, the bf16 top input written once (the
+    per-row bytes of ctrbench/flops/dlrm_interact.py); 2 x 351 x 128
+    operations a row, the pairs the model uses."""
+    import torch
+
+    f, d = DLRM_FIELDS, DLRM_DIM
+    p = (f + 1) * f // 2
+    rows = torch.unique(ids).numel()
+    nbytes = rows * d * 4 + n * (f * 4 + f * 2 + d * 4 + (d + p) * 2)
+    return float(nbytes), 2.0 * n * p * d
+
+
+def _bf16_ulps(a, b):
+    """|a - b| in bf16 ulps, counted across zero."""
+    import torch
+
+    def ordered(x):
+        bits = x.view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(bits >= 0x8000, 0x8000 - bits, bits)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def dlrm_kernel_rows(dev, registers: dict) -> tuple[list[dict], dict]:
+    """DLRM's interaction kernel (ops/dlrm_kernel.py) at the MLPerf widths
+    on an f32 table of 2^24 + 1 rows, at each serving bucket, on card
+    tensors: held to its plain version (dlrm_interact_reference) on the same
+    inputs by the card test's rule (the bottom output's bf16 bits equal;
+    each pair's bits equal, or 1 bf16 ulp apart or within two f32 sum
+    orders of zero where the dot's f32 sum order flips a rounding, on at
+    most 1 % of the pairs), timed against it, and bounded by its bytes.
+    Then a batcher serves three DLRM requests on that table: one launch a
+    batch (the counter zeroed just before, read just after)."""
+    import numpy as np
+    import torch
+
+    from distributed_tf_serving_tpu_torch.models import (
+        ModelConfig,
+        Servable,
+        build_model,
+        ctr_signatures,
+    )
+    from distributed_tf_serving_tpu_torch.models.embeddings import field_embed
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.ops import dlrm_kernel as dk
+    from distributed_tf_serving_tpu_torch.serving.batcher import DynamicBatcher
+
+    f, d = DLRM_FIELDS, DLRM_DIM
+    nf = f + 1
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    table = torch.randn((DLRM_ROWS, d), generator=g, device=dev) / d ** 0.5
+    rows = []
+    for n in BUCKETS:
+        gh = torch.Generator(device="cpu").manual_seed(SEED + n)
+        raw = torch.randint(0, 1 << 40, (n, f), generator=gh, dtype=torch.int64)
+        ids = torch.remainder(raw, DLRM_ROWS).to(torch.int32).to(dev)
+        wts = torch.rand((n, f), generator=gh).to(torch.bfloat16).to(dev)
+        bottom = torch.relu(torch.randn((n, d), generator=gh)).to(dev)
+        ck.reset_launches()
+        got = dk.dlrm_interact(ids, wts, table, bottom)
+        torch.cuda.synchronize()
+        if ck.launches["dlrm_interact", "bfloat16"] != 1:
+            fail(f"dlrm_interact n={n}: {ck.launches['dlrm_interact', 'bfloat16']} launches")
+        want = dk.dlrm_interact_reference(ids, wts, table, bottom)
+        if not torch.equal(got[:, :d], want[:, :d]):
+            fail(f"dlrm_interact n={n}: the bottom output's bits differ from the plain version")
+        z = torch.cat([bottom[:, None, :].to(torch.bfloat16),
+                       field_embed(table, ids, wts, torch.bfloat16)], dim=1).float().abs()
+        mass = torch.bmm(z, z.transpose(1, 2)).reshape(n, nf * nf)[:, dk._pairs(nf, dev)]
+        a, b = got[:, d:], want[:, d:]
+        ulps = _bf16_ulps(a, b)
+        near_zero = (a.float() - b.float()).abs() <= d * 2.0 ** -23 * mass
+        flips = int((ulps != 0).sum())
+        if not bool(((ulps <= 1) | near_zero).all()) or flips > max(1, a.numel() // 100):
+            fail(f"dlrm_interact n={n}: {flips} pairs off the plain version's bits, "
+                 f"at most {int(ulps.max())} bf16 ulps")
+        err = (got.float() - want.float()).abs().max().item()
+        t = timings(lambda: dk.dlrm_interact(ids, wts, table, bottom),
+                    lambda: dk.dlrm_interact_reference(ids, wts, table, bottom))
+        b_ms, b_by = bound(*dlrm_cost(ids, n), "bfloat16")
+        row = {"dtype": "bfloat16", "n": n, "max_abs_err": err, "flipped_pairs": flips,
+               "max_ulps": int(ulps.max()), **t, "bound_ms": b_ms, "bound_by": b_by,
+               **registers[DLRM_KERNEL_NAMES["float32"]]}
+        rows.append(row)
+        log(f"kernels: dlrm_interact bfloat16 F={f} D={d} rows={DLRM_ROWS} n={n} err={err:.3g} "
+            f"flipped={flips} of {a.numel()} {fmt_times(t)} bound_ms={b_ms:.5f} ({b_by})")
+
+    cfg = ModelConfig(name="DLRM", num_fields=f, embed_dim=d, vocab_size=DLRM_ROWS,
+                      num_dense_features=13, bottom_mlp_dims=(512, 256, 128),
+                      mlp_dims=(1024, 1024, 512, 256), compute_dtype="bfloat16")
+    model = build_model("dlrm", cfg)
+    small = build_model("dlrm", dataclasses.replace(cfg, vocab_size=16)).init(SEED, dev)
+    sv = Servable(name="DLRM", version=1, model=model, params=dict(small, embedding=table),
+                  signatures=ctr_signatures(f, with_dense=13))
+    batcher = DynamicBatcher(buckets=BUCKETS, max_wait_us=0, device=dev)
+    batcher.warmup(sv)
+    batcher.start()
+    rng = np.random.RandomState(SEED)
+    try:
+        ck.reset_launches()
+        before = batcher.stats.batches
+        for n in (100, 700, 2000):
+            req = {"feat_ids": rng.randint(0, 1 << 40, size=(n, f)).astype(np.int64),
+                   "feat_wts": np.ones((n, f), np.float32),
+                   "dense_features": np.log1p(rng.lognormal(1.0, 1.5, (n, 13))).astype(np.float32)}
+            scores = batcher.submit(sv, req).result(120)["prediction_node"]
+            if scores.shape != (n,) or not np.all(np.isfinite(scores)):
+                fail(f"dlrm_interact served n={n}: bad scores {scores.shape}")
+        served = {"batches": batcher.stats.batches - before,
+                  "launches": ck.launches["dlrm_interact", "bfloat16"]}
+    finally:
+        batcher.stop()
+    if served["launches"] != served["batches"] or not served["batches"]:
+        fail(f"dlrm_interact served: launches != batches: {served}")
+    log(f"kernels: dlrm_interact served {served['batches']} batches, "
+        f"{served['launches']} launches")
+    del table, sv, small
+    torch.cuda.empty_cache()
+    return rows, served
+
+
+def phase_kernels(dev, registers: dict, dlrm_registers: dict) -> dict:
     import torch
 
     from distributed_tf_serving_tpu_torch.models import ModelConfig, build_model
@@ -1119,6 +1261,7 @@ def phase_kernels(dev, registers: dict) -> dict:
             rows["fused_cross_apply"].extend(cross_rows(x0, sw.wc, sw.bc, cd, registers))
         del params, qparams, weights, model, unit_table
         torch.cuda.empty_cache()
+    rows["dlrm_interact"], rows["dlrm_interact_served"] = dlrm_kernel_rows(dev, dlrm_registers)
     return rows
 
 
@@ -1744,7 +1887,7 @@ def phase_serving(dev, name: str, sizes=(7, 1000, 2048), repeats: int = 20) -> d
                 server.stop(grace=1).wait()
             batcher.stop()
     for kname, cnt in results["launches"].items():
-        if cnt <= 0:
+        if cnt <= 0 and not kname.startswith("dlrm_interact/"):  # DCN's path: no DLRM
             fail(f"the main path launched kernel {kname} no time (counts {results['launches']})")
     for kname in ("fused_serve/float32", "fused_cross_apply/float32"):
         if results["launches"][kname] < len(sizes) * repeats:
@@ -2734,8 +2877,9 @@ def phase_families(dev, name: str) -> dict:
     the fused variants ineligible with the JAX reason), then 20 gRPC
     Predicts at the family's size: p50 and the card's busy share. two_tower
     at 10 000 with output_top_k = 100 must return the head of a stable
-    descending sort of its full scores. Neither CUDA kernel may launch in
-    the phase: they serve dcn_v2 alone."""
+    descending sort of its full scores. Neither DCN kernel may launch in
+    the phase: they serve dcn_v2 alone (dlrm in bf16 runs its interaction
+    kernel, ops/dlrm_kernel.py)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2858,9 +3002,10 @@ def phase_families(dev, name: str) -> dict:
                     server.stop(grace=1).wait()
                 batcher.stop()
     res["launches"] = {f"{k}/{cd}": v for (k, cd), v in ck.launches.items()}
-    if any(res["launches"].values()):
-        fail(f"families: a CUDA kernel launched on a family's path: {res['launches']}")
-    log(f"families: kernel launches during the phase {res['launches']} (all zero)")
+    if any(v for (k, _), v in ck.launches.items() if k != "dlrm_interact"):
+        fail(f"families: a DCN kernel launched on a family's path: {res['launches']}")
+    log(f"families: kernel launches during the phase {res['launches']} (DCN kernels zero; "
+        "dlrm's bf16 interaction runs its own kernel)")
     return res
 
 
@@ -9968,6 +10113,7 @@ def main(only: str | None = None) -> None:
     log(f"nvidia-smi: {smi}")
 
     from distributed_tf_serving_tpu_torch.ops import cuda_build, cross_kernel as ck
+    from distributed_tf_serving_tpu_torch.ops import dlrm_kernel as dk
 
     import threading
 
@@ -10005,7 +10151,7 @@ def main(only: str | None = None) -> None:
         return
 
     t0 = time.perf_counter()
-    rows = phase_kernels(dev, registers[ck.SOURCE])
+    rows = phase_kernels(dev, registers[ck.SOURCE], registers[dk.SOURCE])
     log(f"kernels: phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     serving = phase_serving(dev, f"{name} ({smi})")
@@ -10158,6 +10304,22 @@ def main(only: str | None = None) -> None:
                 "spill_bytes") if k in head)
             entry["by_shape"] = [r for r in rows[kname] if r["dtype"] == cd]
             kernels.append(entry)
+    # DLRM's interaction: the served launches of dlrm_kernel_rows (zeroed
+    # just before its requests) and of the families phase's dlrm stacks.
+    head = next(r for r in rows["dlrm_interact"] if r["n"] == 2048)
+    entry = {"name": "dlrm_interact", "route": "cuda", "source": f"{PKG}/csrc/dlrm_kernel.cu",
+             "replaces": "none (distributed_tf_serving_tpu/models/dlrm.py: plain jnp)",
+             "launches": rows["dlrm_interact_served"]["launches"],
+             "launches_serving": rows["dlrm_interact_served"]["launches"],
+             "batches_serving": rows["dlrm_interact_served"]["batches"],
+             "launches_families": families["launches"].get("dlrm_interact/bfloat16", 0),
+             "library_ms": None,
+             "shape": f"bf16, {DLRM_FIELDS} x {DLRM_DIM}, {DLRM_ROWS} f32 rows, 2048 rows"}
+    entry.update((k, head[k]) for k in (
+        "max_abs_err", "ms", "plain_ms", "loop_ms", "plain_loop_ms", "device_ms",
+        "plain_device_ms", "bound_ms", "bound_by", "registers", "spill_bytes") if k in head)
+    entry["by_shape"] = rows["dlrm_interact"]
+    kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,11 @@ Serving contract: feat_ids/feat_wts [n, F] plus an optional `dense_features`
 float [n, num_dense_features]; without it the dense features are zeros, so
 the two-input request still serves. Z Z^T runs on compute-dtype operands with
 an f32 result.
+
+The interaction (gather, Z, the pairs) runs as one hand-written kernel on
+the card in bf16 compute outside autograd (ops/dlrm_kernel.py, which raises
+for a model it cannot take), and as the eager torch ops on the CPU, in
+float32 compute and in training.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from .base import (
     register_model,
     sigmoid,
 )
-from .embeddings import embedding_init, field_embed
+from .embeddings import embedding_init
 
 
 @register_model("dlrm")
@@ -42,20 +47,8 @@ def build_dlrm(config: ModelConfig) -> Model:
         raise ValueError(
             f"bottom_mlp_dims[-1] ({config.bottom_mlp_dims[-1]}) must equal embed_dim ({D})"
         )
-    num_feat = F + 1  # sparse fields + the bottom-MLP dense "field"
-    num_pairs = num_feat * (num_feat - 1) // 2
+    num_pairs = (F + 1) * F // 2  # pairs of [bottom output, fields]
     top_in = D + num_pairs
-    # Flat [i * num_feat + j] positions of the upper triangle (k = 1), in
-    # row-major order like jnp.triu_indices; one tensor per device.
-    iu, ju = np.triu_indices(num_feat, k=1)
-    pairs_host = torch.from_numpy((iu * num_feat + ju).astype(np.int64))
-    pairs_on: dict[torch.device, torch.Tensor] = {}
-
-    def pairs(device: torch.device) -> torch.Tensor:
-        idx = pairs_on.get(device)
-        if idx is None:
-            idx = pairs_on[device] = pairs_host.to(device)
-        return idx
 
     def init(seed: int = 0, device="cpu"):
         rng = np.random.default_rng(seed)
@@ -78,6 +71,8 @@ def build_dlrm(config: ModelConfig) -> Model:
         }
 
     def apply(params, batch):
+        from ..ops.dlrm_kernel import dlrm_interact, interact_eager
+
         cd = config.cdtype
         ids = batch["feat_ids"]
         n = ids.shape[0]
@@ -86,11 +81,13 @@ def build_dlrm(config: ModelConfig) -> Model:
             dense = torch.zeros((n, config.num_dense_features), dtype=torch.float32,
                                 device=ids.device)
         bot = mlp_apply(params["bottom_mlp"], dense, cd)  # [n, D] f32
-        emb = field_embed(params["embedding"], ids, batch["feat_wts"], cd)
-        z = torch.cat([bot[:, None, :].to(cd), emb], dim=1).float()  # [n, F+1, D]
-        zzt = torch.bmm(z, z.transpose(1, 2))  # [n, F+1, F+1] f32
-        inter = zzt.reshape(n, num_feat * num_feat)[:, pairs(zzt.device)]
-        top = torch.cat([bot, inter], dim=-1)
+        table, wts = params["embedding"], batch["feat_wts"]
+        records_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (table, bot, wts))
+        if ids.is_cuda and cd == torch.bfloat16 and not records_grad:
+            top = dlrm_interact(ids, wts, table, bot, cd)  # [n, top_in] bf16
+        else:
+            top = interact_eager(ids, wts, table, bot, cd)  # [n, top_in] f32
         logit = dense_apply(params["out"], mlp_apply(params["top_mlp"], top, cd), cd)[:, 0]
         return {"prediction_node": sigmoid(logit), "logits": logit}
 

@@ -41,7 +41,8 @@ cross weights without a gradient. Each kernel launch adds one to
 `launches[name, compute dtype]`, the dtype named "bfloat16" or "float32":
 the fused serve step counts under "fused_serve" for float weights and
 "fused_serve_int8" for int8 weights, the cross stack under
-"fused_cross_apply".
+"fused_cross_apply", and DLRM's interaction (ops/dlrm_kernel.py) under
+"dlrm_interact".
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ WARPS = 16           # csrc/cross_kernel.cu THREADS / 32 (every kernel's block)
 
 SOURCE = "cross_kernel.cu"
 
-KERNELS = ("fused_serve", "fused_serve_int8", "fused_cross_apply")
+KERNELS = ("fused_serve", "fused_serve_int8", "fused_cross_apply", "dlrm_interact")
 COMPUTE_DTYPES = ("bfloat16", "float32")
 launches = {(k, cd): 0 for k in KERNELS for cd in COMPUTE_DTYPES}
 

@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels (nvcc -> shared library with a
 plain C interface -> ctypes).
 
-Sources live in `csrc/`; each builds at first use into `build/` (git-
-ignored), keyed by a hash of its source text and flags, so an edited source
-rebuilds and an unchanged one is reused. Every source compiles with its own
-nvcc process, all started together. Nothing here runs at import time: the
-CPU-only test environment imports this module without nvcc.
+Sources live in `csrc/`; each builds at its first use (`library`) into
+`build/` (git-ignored), keyed by a hash of its source text and flags, so an
+edited source rebuilds and an unchanged one is reused; a source no caller
+uses is never built (the DLRM kernel builds when a DLRM servable first runs
+on the card, not for a dcn_v2 one). `build_all` compiles every source, one
+nvcc process each, all started together. Nothing here runs at import time:
+the CPU-only test environment imports this module without nvcc.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("cross_kernel.cu",)
+SOURCES = ("cross_kernel.cu", "dlrm_kernel.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -59,8 +61,14 @@ def build_all() -> dict[str, ctypes.CDLL]:
     """Compile every source that has no up-to-date library (one nvcc per
     source, in parallel) and load all of them. Raises with nvcc's output
     when a build fails."""
+    return build(SOURCES)
+
+
+def build(sources) -> dict[str, ctypes.CDLL]:
+    """build_all over `sources` alone; returns every library loaded so
+    far."""
     with _lock:
-        missing = [s for s in SOURCES if s not in _libs]
+        missing = [s for s in sources if s not in _libs]
         if not missing:
             return dict(_libs)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -98,5 +106,6 @@ def build_all() -> dict[str, ctypes.CDLL]:
 
 
 def library(source: str) -> ctypes.CDLL:
-    libs = _libs if source in _libs else build_all()
+    """The loaded library of one source, built first if need be."""
+    libs = _libs if source in _libs else build((source,))
     return libs[source]

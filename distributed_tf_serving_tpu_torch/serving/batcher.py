@@ -79,8 +79,11 @@ readback and per-request completion.
   `request_trace` (always on) under the JAX package's phase names:
   `batch.pad` (padding a group on the batching thread, when the native
   pack does not take it), `batch.dispatch` (the whole device stage),
-  inside it `batch.fusedpack` (the native pack into the pinned ring),
-  `batch.jitcall` (the upload, the unpack and the device step's launch)
+  inside it `batch.fusedpack` (the native pack into the pinned ring) or
+  `batch.hostpack` (`pack_host_combined`, the pack of every other layout,
+  such as DLRM's three inputs; inside `batch.cache` on a cache miss),
+  `batch.jitcall` (the upload, the unpack and the device step's launch,
+  with DLRM's `batch.interact` kernel launch inside it)
   and `readback.issue` (the readback wire's transform and the D2H copies),
   and `readback.wait` (the event wait and the restore on a completion
   worker). With per-request tracing on, a submit carries the caller's
@@ -1728,6 +1731,15 @@ class DynamicBatcher:
                 "serving through model.apply", servable.name, servable.version,
             )
             fused = False
+        if model.kind == "dlrm" and self.device.type == "cuda":
+            # DLRM's interaction: its kernel in bf16 (raises here, at load,
+            # for a model the kernel cannot take), the eager ops in f32.
+            from ..ops.dlrm_kernel import serving_route
+
+            route = serving_route(servable.params["embedding"], cfg.num_fields, cfg.cdtype)
+            log.info("dlrm interaction of %s v%d: %s", servable.name, servable.version,
+                     "kernel (csrc/dlrm_kernel.cu)" if route == "kernel"
+                     else "eager torch ops (float32 compute)")
         # The native host ops build here, at load, never on the dispatch
         # thread. On the card a servable that folds ids on the host needs
         # them; on the CPU (an explicit choice) a missing compiler leaves
@@ -1813,7 +1825,8 @@ class DynamicBatcher:
             return buf, src.layout
         layout = combined_layout(src, entry.spec)
         buf = self.ring.acquire(combined_nbytes(layout, rows))
-        pack_host_combined(src, entry.spec, out=buf.numpy())
+        with request_trace.span("batch.hostpack"):
+            pack_host_combined(src, entry.spec, out=buf.numpy())
         return buf, layout
 
     def _upload(self, buf: torch.Tensor) -> tuple[torch.Tensor, object]:

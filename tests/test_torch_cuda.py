@@ -15,7 +15,12 @@ twice the plain f32 version's error from float64; the int8 kernel through the ba
 the quantized model.apply; the readback wire's top-k selection and int8
 quantization on the card bit for bit those of the CPU; the other model
 families through a batcher on the card 1e-5 from the card's own forward and
-2e-5 (f32) / 5e-3 (bf16) from the CPU's, with neither kernel launched; three
+2e-5 (f32) / 5e-3 (bf16) from the CPU's, with neither DCN kernel launched
+(a bf16 dlrm launches its interaction kernel once); DLRM's interaction
+kernel against its plain version (the eager interaction on the card) bit
+for bit but where the other order of a dot's f32 sum flips its bf16
+rounding (1 bf16 ulp, or within that sum's f32 rounding of zero), its
+scores 5e-3 from the CPU forward, one launch per served batch; three
 f32 train steps on the card within 1e-5 of the CPU's losses, and a train
 step through the cross-stack kernel (no backward) refused before any
 launch.
@@ -642,7 +647,8 @@ def test_family_on_the_card_matches_the_cpu_forward(cuda_device, kind, compute_d
     through a batcher on the card: scores within 1e-5 of the card's own
     model.apply on the same padded batch (the batcher adds no arithmetic),
     within 2e-5 (f32) / 5e-3 (bf16) of the CPU forward of the same params,
-    and neither CUDA kernel launched (they serve dcn_v2 alone)."""
+    and neither DCN kernel launched (they serve dcn_v2 alone); a bf16 dlrm
+    runs its interaction kernel, once for the one batch."""
     cfg = ModelConfig(num_fields=43, embed_dim=16, mlp_dims=(256, 128, 64), vocab_size=1 << 14,
                       compute_dtype=compute_dtype)
     model = build_model(kind, cfg)
@@ -664,7 +670,9 @@ def test_family_on_the_card_matches_the_cpu_forward(cuda_device, kind, compute_d
         launched = _launched()
     finally:
         batcher.stop()
-    assert launched == {} and batcher.stats.fused_batches == 0
+    want = ({("dlrm_interact", "bfloat16"): 1}
+            if kind == "dlrm" and compute_dtype == "bfloat16" else {})
+    assert launched == want and batcher.stats.fused_batches == 0
     padded = {k: np.concatenate([v, np.zeros((512 - 300,) + v.shape[1:], v.dtype)])
               for k, v in arrays.items()}
     with torch.inference_mode():
@@ -676,6 +684,212 @@ def test_family_on_the_card_matches_the_cpu_forward(cuda_device, kind, compute_d
     assert np.max(np.abs(got - card)) <= 1e-5
     tol = 2e-5 if compute_dtype == "float32" else 5e-3
     assert np.max(np.abs(got - cpu["prediction_node"].float().numpy())) <= tol
+
+
+# --------------------------------------------------- DLRM's interaction
+
+DLRM_SHAPES = [(26, 128), (43, 16), (5, 12)]  # MLPerf, the families' width, off the tiles
+
+
+def _dlrm_operands(dev, fields, embed, n, seed, id_dtype, wts_dtype,
+                   table_dtype=torch.float32):
+    """A table of 2^16 rows, ids of either dtype (int32 of any sign: the
+    kernel folds them; int64 over [0, 2^40)), weights, a bottom output."""
+    g = torch.Generator().manual_seed(seed)
+    table = (torch.randn((1 << 16, embed), generator=g) / embed ** 0.5).to(table_dtype).to(dev)
+    if id_dtype == torch.int32:
+        ids = torch.randint(-(1 << 31), (1 << 31) - 1, (n, fields), generator=g,
+                            dtype=torch.int32)
+    else:
+        ids = torch.randint(0, 1 << 40, (n, fields), generator=g, dtype=torch.int64)
+    wts = torch.rand((n, fields), generator=g).to(wts_dtype)
+    bottom = torch.relu(torch.randn((n, embed), generator=g))
+    return ids.to(dev), wts.to(dev), table, bottom.to(dev)
+
+
+def _ordered(bits: torch.Tensor) -> torch.Tensor:
+    """bf16 bit patterns as integers that count ulps across zero."""
+    b = bits.to(torch.int32) & 0xFFFF
+    return torch.where(b >= 0x8000, 0x8000 - b, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DLRM_SHAPES)
+@pytest.mark.parametrize("n", [1, 17, 2048])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("wts_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_dlrm_interaction_kernel_matches_its_plain_version_on_card(cuda_device, shape, n,
+                                                                   id_dtype, wts_dtype,
+                                                                   table_dtype):
+    """For an f32 table and a bf16 one (bf16 params), and weights the
+    wrapper rounds to bf16 or takes as they are, the top MLP's input: the
+    bottom output's bf16 bits, and each pair's
+    bits, except where the kernel's order of a dot's f32 sum (16-deep mma
+    steps) and the eager bmm's round to neighbouring bf16 values: then 1
+    bf16 ulp apart, or apart by less than two f32 orders of that sum can
+    differ (D * 2^-23 * sum |z_i z_j|: a sum within its own rounding of
+    zero has no ulp to keep)."""
+    from distributed_tf_serving_tpu_torch.models.embeddings import field_embed
+    from distributed_tf_serving_tpu_torch.ops import dlrm_kernel as dk
+
+    fields, embed = shape
+    ids, wts, table, bottom = _dlrm_operands(cuda_device, fields, embed, n, n + fields,
+                                             id_dtype, wts_dtype, table_dtype)
+    ck.reset_launches()
+    got = dk.dlrm_interact(ids, wts, table, bottom)
+    assert _launched() == {("dlrm_interact", "bfloat16"): 1}
+    want = dk.dlrm_interact_reference(ids, wts, table, bottom)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape == (n, dk.interact_width(fields, embed))
+    assert torch.equal(got[:, :embed], want[:, :embed])
+    z = torch.cat([bottom[:, None, :].to(torch.bfloat16),
+                   field_embed(table, ids, wts, torch.bfloat16)], dim=1).float().abs()
+    nf = fields + 1
+    mass = torch.bmm(z, z.transpose(1, 2)).reshape(n, nf * nf)[:, dk._pairs(nf, z.device)]
+    a, b = got[:, embed:], want[:, embed:]
+    ulps = (_ordered(a.view(torch.int16)) - _ordered(b.view(torch.int16))).abs()
+    near_zero = (a.float() - b.float()).abs() <= embed * 2.0 ** -23 * mass
+    assert bool(((ulps <= 1) | near_zero).all()), int(ulps.max())
+    assert int((ulps != 0).sum()) <= max(1, a.numel() // 100)  # flips are rare
+
+
+@pytest.mark.cuda
+def test_dlrm_model_on_the_card_routes_its_interaction_to_the_kernel(cuda_device):
+    """A bf16 DLRM at the MLPerf widths: model.apply on the card launches
+    the interaction kernel once and scores within 5e-3 of the CPU's eager
+    forward (bf16 operands; the dots' and the products' f32 sums in other
+    orders); in f32, or where autograd records, the eager interaction runs
+    (no launch)."""
+    cfg = ModelConfig(name="DLRM", num_fields=26, embed_dim=128, vocab_size=1 << 16,
+                      num_dense_features=13, bottom_mlp_dims=(512, 256, 128),
+                      mlp_dims=(1024, 1024, 512, 256), compute_dtype="bfloat16")
+    model = build_model("dlrm", cfg)
+    rng = np.random.RandomState(9)
+    batch = {"feat_ids": rng.randint(0, 1 << 40, size=(300, 26)).astype(np.int64),
+             "feat_wts": np.ones((300, 26), np.float32),
+             "dense_features": np.log1p(rng.lognormal(1.0, 1.5, (300, 13))).astype(np.float32)}
+    params = model.init(3, cuda_device)  # outside inference mode: trained below
+    with torch.inference_mode():
+        cpu = model.apply(model.init(3, "cpu"), {k: torch.from_numpy(v) for k, v in batch.items()})
+        ck.reset_launches()
+        card = model.apply(params, {k: torch.from_numpy(v).to(cuda_device)
+                                    for k, v in batch.items()})
+        assert _launched() == {("dlrm_interact", "bfloat16"): 1}
+    diff = (card["prediction_node"].cpu() - cpu["prediction_node"]).abs().max()
+    assert float(diff) <= 5e-3
+    ck.reset_launches()
+    f32 = build_model("dlrm", dataclasses.replace(cfg, compute_dtype="float32"))
+    with torch.inference_mode():
+        f32.apply(params, {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()})
+    trained = {"embedding": params["embedding"].clone().requires_grad_(True),
+               **{k: v for k, v in params.items() if k != "embedding"}}
+    out = model.apply(trained, {k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()})
+    out["prediction_node"].sum().backward()
+    assert _launched() == {} and trained["embedding"].grad is not None
+
+
+@pytest.mark.cuda
+def test_served_dlrm_batches_launch_the_interaction_kernel_once_each(cuda_device, monkeypatch):
+    """DLRM at the MLPerf widths on a table of 2^24 + 1 rows (int32 ids in
+    the combined buffer) through a batcher on the card: one interaction
+    launch per served batch, the eager interaction never called, no native
+    pack, and each request's scores the card's own model.apply's on its
+    padded batch."""
+    from distributed_tf_serving_tpu_torch.ops import dlrm_kernel as dk
+    from distributed_tf_serving_tpu_torch.ops.transfer import U24_MAX
+
+    cfg = ModelConfig(name="DLRM", num_fields=26, embed_dim=128, vocab_size=U24_MAX + 1,
+                      num_dense_features=13, bottom_mlp_dims=(512, 256, 128),
+                      mlp_dims=(1024, 1024, 512, 256), compute_dtype="bfloat16")
+    model = build_model("dlrm", cfg)
+    small = build_model("dlrm", dataclasses.replace(cfg, vocab_size=16)).init(3, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    table = torch.randn((cfg.vocab_size, 128), generator=g, device=cuda_device) / 128 ** 0.5
+    params = dict(small, embedding=table)
+    sv = Servable(name="DLRM", version=1, model=model, params=params,
+                  signatures=ctr_signatures(26, with_dense=13))
+    batcher = DynamicBatcher(buckets=(256, 512, 1024), max_wait_us=0, device=cuda_device)
+    batcher.warmup(sv)
+    batcher.start()
+    rng = np.random.RandomState(5)
+    requests = []
+    for n in (100, 300, 700):
+        requests.append({
+            "feat_ids": rng.randint(0, 1 << 40, size=(n, 26)).astype(np.int64),
+            "feat_wts": np.ones((n, 26), np.float32),
+            "dense_features": np.log1p(rng.lognormal(1.0, 1.5, (n, 13))).astype(np.float32)})
+    requests[0]["feat_ids"][0, :2] = [U24_MAX, 2 * U24_MAX]  # the last row, and row 2^24 - 1
+
+    def eager(*_a, **_k):
+        raise AssertionError("the eager interaction ran on the card")
+
+    monkeypatch.setattr(dk, "interact_eager", eager)
+    try:
+        ck.reset_launches()
+        before = dataclasses.replace(batcher.stats)
+        got = [batcher.submit(sv, r).result(120)["prediction_node"] for r in requests]
+        launched = _launched()
+        batches = batcher.stats.batches - before.batches
+    finally:
+        batcher.stop()
+    assert batches == 3 and launched == {("dlrm_interact", "bfloat16"): 3}
+    assert batcher.stats.native_packs == before.native_packs
+    for r, scores in zip(requests, got):
+        n = r["feat_ids"].shape[0]
+        bucket = next(b for b in (256, 512, 1024) if b >= n)
+        padded = {k: np.concatenate([v, np.zeros((bucket - n,) + v.shape[1:], v.dtype)])
+                  for k, v in r.items()}
+        padded["feat_ids"] = np.remainder(padded["feat_ids"], cfg.vocab_size).astype(np.int32)
+        with torch.inference_mode():
+            want = model.apply(params, {k: torch.from_numpy(v).to(cuda_device)
+                                        for k, v in padded.items()})["prediction_node"]
+        np.testing.assert_array_equal(scores, want.float().cpu().numpy()[:n])
+
+
+@pytest.mark.cuda
+def test_dlrm_interaction_route_is_fixed_when_the_servable_loads(cuda_device):
+    """bf16 params (a bf16 table) serve through the kernel, one launch a
+    batch; a bf16 model the kernel cannot take (64 fields) is refused when
+    it loads, and its model.apply on the card raises rather than running
+    the eager interaction."""
+    cfg = ModelConfig(name="DLRM", num_fields=8, embed_dim=16, vocab_size=1 << 12,
+                      num_dense_features=13, bottom_mlp_dims=(32, 16), mlp_dims=(64, 32),
+                      compute_dtype="bfloat16", param_dtype="bfloat16")
+    model = build_model("dlrm", cfg)
+    params = model.init(3, cuda_device)
+    assert params["embedding"].dtype == torch.bfloat16
+    sv = Servable(name="DLRM", version=1, model=model, params=params,
+                  signatures=ctr_signatures(8, with_dense=13))
+    batcher = DynamicBatcher(buckets=(64, 256), max_wait_us=0, device=cuda_device)
+    batcher.warmup(sv)
+    batcher.start()
+    rng = np.random.RandomState(6)
+    arrays = {"feat_ids": rng.randint(0, 1 << 40, size=(100, 8)).astype(np.int64),
+              "feat_wts": rng.rand(100, 8).astype(np.float32),
+              "dense_features": rng.randn(100, 13).astype(np.float32)}
+    try:
+        ck.reset_launches()
+        got = batcher.submit(sv, arrays).result(60)["prediction_node"]
+        assert _launched() == {("dlrm_interact", "bfloat16"): 1}
+    finally:
+        batcher.stop()
+    with torch.inference_mode():
+        cpu = model.apply(model.init(3, "cpu"), {k: torch.from_numpy(v) for k, v in arrays.items()})
+    assert np.max(np.abs(got - cpu["prediction_node"].float().numpy())) <= 5e-3
+
+    wide = dataclasses.replace(cfg, num_fields=64, param_dtype="float32")
+    big = build_model("dlrm", wide)
+    bparams = big.init(3, cuda_device)
+    bsv = Servable(name="WIDE", version=1, model=big, params=bparams,
+                   signatures=ctr_signatures(64, with_dense=13))
+    with pytest.raises(ValueError, match="64 fields"):
+        DynamicBatcher(buckets=(64,), max_wait_us=0, device=cuda_device).step_for(bsv)
+    ids = torch.zeros((4, 64), dtype=torch.int64, device=cuda_device)
+    ck.reset_launches()
+    with torch.inference_mode(), pytest.raises(ValueError, match="64 fields"):
+        big.apply(bparams, {"feat_ids": ids, "feat_wts": torch.ones((4, 64), device=cuda_device)})
+    assert _launched() == {}
 
 
 # ------------------------------------------------------------- training

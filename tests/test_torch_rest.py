@@ -271,7 +271,8 @@ def test_monitoring_sections_answer_as_the_jax_gateway(answers, section):
     if section in EQUAL_SECTIONS:
         assert tbody == jbody
     elif section == "phases":
-        assert set(tbody[section]) == set(jbody[section])
+        # The port also times its numpy pack (batch.hostpack).
+        assert set(tbody[section]) == set(jbody[section]) | {"batch.hostpack"}
         for phase, blk in jbody[section].items():
             assert tbody[section][phase]["count"] > 0, phase
     elif isinstance(jbody[section], dict):

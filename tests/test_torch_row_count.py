@@ -12,8 +12,10 @@ Here the same 2048 seeded rows are scored in contiguous calls of 1, 7,
 250, 256, 500, 512, 1000, 1024 and 2048 rows (the last call of a split
 takes the remainder, as a data shard's would), and every output row must
 be the bits of the same row in the one 2048-row call: for every family in
-both compute dtypes on the CPU, and for dcn_v2 with and without the
-cross-stack kernel on the card (`cuda` marker)."""
+both compute dtypes on the CPU, for dcn_v2 with and without the
+cross-stack kernel on the card, and for DLRM at the MLPerf widths through
+its interaction kernel on the card in calls of 100, 700 and 2048 rows
+(`cuda` marker)."""
 
 import numpy as np
 import pytest
@@ -38,12 +40,12 @@ def _batch(kind, fields, seed=1, device="cpu"):
     return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
 
 
-def _moved(model, params, batch) -> dict:
+def _moved(model, params, batch, sizes=SIZES) -> dict:
     """{output: [row counts whose calls moved a row's bits]}."""
     with torch.inference_mode():
         whole = model.apply(params, batch)
         moved: dict = {}
-        for n in SIZES:
+        for n in sizes:
             parts = [model.apply(params, {k: v[lo:lo + n] for k, v in batch.items()})
                      for lo in range(0, ROWS, n)]
             for k, v in whole.items():
@@ -101,3 +103,29 @@ def test_a_rows_bits_do_not_move_with_its_calls_row_count_on_card(compute_dtype,
                                           .astype(np.int32)).to(dev),
              "feat_wts": torch.from_numpy(rng.rand(ROWS, 43).astype(np.float32)).to(dev)}
     assert _moved(model, params, batch) == {}
+
+
+@pytest.mark.cuda
+def test_a_dlrm_rows_bits_do_not_move_with_its_calls_row_count_on_card():
+    """The interaction kernel sums each dot in an order fixed by the width,
+    and the MLPs run in ROW_TILE tiles, so a row's score has the same bits
+    in a call of 100, 700 or 2048 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    from distributed_tf_serving_tpu_torch.ops import cross_kernel as ck
+
+    dev = torch.device("cuda")
+    cfg = ModelConfig(name="DLRM", num_fields=26, vocab_size=1 << 20, embed_dim=128,
+                      num_dense_features=13, bottom_mlp_dims=(512, 256, 128),
+                      mlp_dims=(1024, 1024, 512, 256), compute_dtype="bfloat16")
+    model = build_model("dlrm", cfg)
+    params = model.init(0, dev)
+    rng = np.random.RandomState(6)
+    batch = {"feat_ids": torch.from_numpy(rng.randint(0, 1 << 20, (ROWS, 26))
+                                          .astype(np.int32)).to(dev),
+             "feat_wts": torch.from_numpy(rng.rand(ROWS, 26).astype(np.float32)).to(dev),
+             "dense_features": torch.from_numpy(np.log1p(rng.lognormal(1.0, 1.5, (ROWS, 13)))
+                                                .astype(np.float32)).to(dev)}
+    ck.reset_launches()
+    assert _moved(model, params, batch, sizes=(100, 700, 2048)) == {}
+    assert ck.launches["dlrm_interact", "bfloat16"] == 1 + 21 + 3 + 1
